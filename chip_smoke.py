@@ -1,0 +1,534 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Runs from the root of a checkout, needs one CUDA card and builds the
+kernels from the checkout's sources (``csrc/``, with ``nvcc``). Every
+phase raises on failure and the script then exits non-zero without
+its result line:
+
+1. the card's name and power limit (``nvidia-smi``);
+2. the kernel build, with its time and ``ptxas`` report;
+3. kernels: each hand-written kernel against its plain PyTorch version
+   on the same bf16 inputs at the serving path's shapes (decode at
+   B = 32 with kv lens over 1..1024 and pad rows; chunked prefill at
+   B = 8, T = 512, first and second chunk, and at the widest unified
+   mixed step, R = 40 rows at W = 512; page sizes 128 and 16), plus a
+   small f32 case each at the tiny-llama geometry. Tolerance: atol =
+   rtol = 2e-2 on bf16 outputs compared in f32 (one bf16 rounding of
+   values of order 1, and sums taken in another order), 1e-4 on f32
+   outputs. Each kernel is timed with CUDA events against its plain
+   version, one ``scaled_dot_product_attention`` call over gathered
+   dense K/V (a yardstick only: the port never calls it) and its bound
+   on the card. A prefill case also prints the bound of its live slots
+   alone (``live_bound_ms``), the part of the work a step uses;
+4. model: the bench-1b llama at full width, random weights, one
+   512-token prefill chunk and one decode step through ``forward``
+   with the kernels and with their plain versions;
+5. serving: the port's HTTP server in-process with bench-1b at full
+   width, 16 concurrent completions plus a repeated greedy one, with
+   the kernels' launch counters read around the run.
+
+The line before the last is the ``kernels`` JSON summary, the last the
+``ok`` JSON line.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+# Published peaks of one H100 SXM (dense), the denominators of the
+# bound: HBM bytes per second and bf16 tensor-core operations per
+# second.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+F32_TOL = dict(atol=1e-4, rtol=1e-4)
+L2_FLUSH_BYTES = 128 << 20  # > the H100's 50 MB L2
+
+SERVER_ARGS = ["--model", "bench-1b", "--random-weights",
+               "--page-size", "128", "--num-pages", "512",
+               "--max-num-seqs", "32", "--max-model-len", "1024",
+               "--prefill-chunk-size", "512", "--prefill-batch-size", "8",
+               "--async-scheduling", "auto", "--unified-step", "auto"]
+
+KERNELS = {
+    "paged_decode": dict(
+        route="cuda",
+        source="production_stack_tpu_torch/csrc/paged_decode.cu",
+        replaces="production_stack_tpu/ops/paged_attention_pallas.py:147"),
+    "paged_prefill": dict(
+        route="cuda",
+        source="production_stack_tpu_torch/csrc/paged_prefill.cu",
+        replaces="production_stack_tpu/ops/prefill_attention_pallas.py:149"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---- timing -----------------------------------------------------------------
+
+
+class Timer:
+    """Per-launch CUDA-event timing with the L2 flushed before each
+    launch, as the serving path finds it (every layer reads another
+    layer's cache)."""
+
+    def __init__(self, dev):
+        self.flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                                     device=dev)
+
+    def ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
+        for _ in range(warmup):
+            fn()
+        total = 0.0
+        pairs = []
+        for _ in range(iters):
+            self.flush_buf.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        for start, end in pairs:
+            total += start.elapsed_time(end)
+        return total / iters
+
+
+# ---- kernel phase -----------------------------------------------------------
+
+
+def _cache(kv, pages, d, ps, dtype, dev, gen):
+    return (torch.randn((kv, pages, d, ps), generator=gen, device=dev)
+            .to(dtype))
+
+
+def _page_table(kv_lens, ps, max_pages, num_pages, gen, dev):
+    """Distinct random physical pages per row (page 0 stays the trash
+    page), zeros past each row's pages."""
+    b = len(kv_lens)
+    perm = torch.randperm(num_pages - 1, generator=gen,
+                          device=gen.device).cpu() + 1
+    table = torch.zeros((b, max_pages), dtype=torch.int32)
+    used = 0
+    for i, n in enumerate(kv_lens):
+        need = -(-int(n) // ps)
+        table[i, :need] = perm[used:used + need]
+        used += need
+    if used >= num_pages:
+        raise ValueError("page budget too small for the case")
+    return table.to(dev)
+
+
+def _dense_kv(cache, table, kv_len_max, group):
+    """[kv, pages, d, ps] gathered per row to dense [B, nh, L, d]."""
+    g = cache[:, table.long()]  # [kv, B, P, d, ps]
+    kv, b, p, d, ps = g.shape
+    dense = g.permute(1, 0, 2, 4, 3).reshape(b, kv, p * ps, d)
+    return dense[:, :, :kv_len_max].repeat_interleave(group, dim=1)
+
+
+def decode_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None,
+                nh=32, kv=8, d=64, max_len=1024, num_pages=None):
+    from production_stack_tpu_torch.ops.paged_attention_cuda import (
+        paged_decode_attention, paged_decode_attention_plain)
+    max_pages = max_len // ps
+    num_pages = num_pages or (b * max_pages + 1)
+    kc = _cache(kv, num_pages, d, ps, dtype, dev, gen)
+    vc = _cache(kv, num_pages, d, ps, dtype, dev, gen)
+    q = torch.randn((b, nh, d), generator=gen, device=dev).to(dtype)
+    lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    table = _page_table(kv_lens, ps, max_pages, num_pages, gen, dev)
+    args = (q, kc, vc, table, lens)
+    got = paged_decode_attention(*args)
+    ref = paged_decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    err = (got.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), ref.float(), **tol,
+                               msg=lambda m: f"{name}: {m}")
+    pad = lens == 0
+    if pad.any() and got[pad].abs().max().item() != 0.0:
+        raise AssertionError(f"{name}: pad rows must write exact 0")
+    out = {"case": name, "max_abs_err": err}
+    if timer is not None:
+        # What the function must move: K/V of each row's cached tokens,
+        # q of the live rows, every output row, the live page-table
+        # entries and kv_lens.
+        tokens = int(lens.sum())
+        esz = q.element_size()
+        live_rows = sum(1 for n in kv_lens if n)
+        entries = sum(-(-n // ps) for n in kv_lens)
+        nbytes = (2 * tokens * kv * d * esz + live_rows * nh * d * esz
+                  + q.numel() * esz + entries * 4 + b * 4)
+        flops = 4 * nh * d * tokens
+        kmax = max(kv_lens)
+        kd = _dense_kv(kc, table, kmax, nh // kv)
+        vd = _dense_kv(vc, table, kmax, nh // kv)
+        mask = (torch.arange(kmax, device=dev)[None, :]
+                < lens[:, None].long())[:, None, None, :]
+        qd = q[:, :, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        out.update(
+            ms=timer.ms(lambda: paged_decode_attention(*args)),
+            plain_ms=timer.ms(lambda: paged_decode_attention_plain(*args),
+                              iters=5),
+            library_ms=timer.ms(lambda: sdpa(qd, kd, vd, attn_mask=mask)),
+            **_bound(nbytes, flops))
+    return out
+
+
+def prefill_case(name, rows, t, ps, dtype, dev, gen, timer=None, nh=32,
+                 kv=8, d=64, max_len=1024):
+    """Row i holds ``rows[i] = (start, n)``: n real tokens of a chunk
+    starting at ``start`` (n = 0: a pad row). Every slot t sits at
+    start + t, as the kernel rebuilds it, so a row's slots past n are
+    pad slots that still attend up to kv_len = start + n."""
+    from production_stack_tpu_torch.ops.prefill_attention_cuda import (
+        paged_prefill_attention, paged_prefill_attention_plain)
+    b = len(rows)
+    max_pages = max_len // ps
+    num_pages = b * max_pages + 1
+    kc = _cache(kv, num_pages, d, ps, dtype, dev, gen)
+    vc = _cache(kv, num_pages, d, ps, dtype, dev, gen)
+    q = torch.randn((b, t, nh, d), generator=gen, device=dev).to(dtype)
+    kv_lens = [start + n if n else 0 for start, n in rows]
+    lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    starts = torch.tensor([start if n else 0 for start, n in rows],
+                          dtype=torch.int32, device=dev)
+    pos = (starts[:, None] + torch.arange(t, dtype=torch.int32,
+                                          device=dev)[None]).contiguous()
+    table = _page_table(kv_lens, ps, max_pages, num_pages, gen, dev)
+    args = (q, kc, vc, table, pos, lens)
+    got = paged_prefill_attention(*args)
+    ref = paged_prefill_attention_plain(*args)
+    torch.cuda.synchronize()
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    err = (got.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), ref.float(), **tol,
+                               msg=lambda m: f"{name}: {m}")
+    pad = lens == 0
+    if pad.any() and got[pad].abs().max().item() != 0.0:
+        raise AssertionError(f"{name}: pad rows must write exact 0")
+    out = {"case": name, "max_abs_err": err}
+    if timer is not None:
+        esz = q.element_size()
+        slot_bytes = nh * d * esz
+        live_rows = sum(1 for n in kv_lens if n)
+        entries = sum(-(-n // ps) for n in kv_lens)
+        kv_bytes = 2 * sum(kv_lens) * kv * d * esz
+        small = entries * 4 + 2 * b * 4  # page table, row starts, kv_lens
+        # Operations this data needs: slot t of row i sees
+        # min(start_i + t + 1, kv_len_i) tokens.
+        visible = torch.minimum(pos.long() + 1, lens[:, None].long())
+        flops = 4 * nh * d * int(visible.sum())
+        # The function as called: q of the live rows (all t slots, pad
+        # slots included), every output slot.
+        nbytes = kv_bytes + (live_rows + b) * t * slot_bytes + small
+        # The part of it the step uses: the live slots (t < n) only.
+        live = (torch.arange(t, device=dev)[None]
+                < torch.tensor([n for _, n in rows], device=dev)[:, None])
+        n_slots = int(live.sum())
+        live_bound = _bound(kv_bytes + 2 * n_slots * slot_bytes + small,
+                            4 * nh * d * int(visible[live].sum()))
+        kmax = max(kv_lens)
+        kd = _dense_kv(kc, table, kmax, nh // kv)
+        vd = _dense_kv(vc, table, kmax, nh // kv)
+        tok = torch.arange(kmax, device=dev)
+        mask = ((tok[None, None, :] <= pos.long()[:, :, None])
+                & (tok[None, None, :] < lens.long()[:, None, None]))
+        qd = q.transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        out.update(
+            ms=timer.ms(lambda: paged_prefill_attention(*args)),
+            plain_ms=timer.ms(lambda: paged_prefill_attention_plain(*args),
+                              iters=5),
+            library_ms=timer.ms(
+                lambda: sdpa(qd, kd, vd, attn_mask=mask[:, None])),
+            **_bound(nbytes, flops),
+            live_bound_ms=live_bound["bound_ms"],
+            live_bound_by=live_bound["bound_by"])
+    return out
+
+
+def _bound(nbytes: int, flops: int) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def kernel_phase(dev) -> dict:
+    """Returns {kernel name: headline case} after checking every case."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    timer = Timer(dev)
+    bf16 = torch.bfloat16
+    # Decode: 32 rows, kv lens spread over 1..1024, rows 7 and 21 pad.
+    lens = np.linspace(1, 1024, 32).round().astype(int).tolist()
+    lens[7] = lens[21] = 0
+    # Prefill: 8 rows of a 512-token bucket, live lengths spread over
+    # 64..512, row 5 pad.
+    live = [512, 448, 384, 320, 256, 0, 128, 64]
+    first = [(0, n) for n in live]
+    second = [(512, n) for n in live]
+    # The widest unified mixed step of the serving configuration: R =
+    # max_num_seqs + prefill_batch_size = 40 rows at W = 512. 28 decode
+    # rows (one live slot at kv_len - 1, 511 pad slots), 8 prefill-chunk
+    # rows (first and second chunks), 4 pad rows.
+    decode_lens = np.linspace(70, 1024, 28).round().astype(int).tolist()
+    unified = ([(n - 1, 1) for n in decode_lens]
+               + [(0, 512), (0, 448), (0, 300), (0, 64), (512, 188),
+                  (512, 100), (512, 500), (0, 200)] + [(0, 0)] * 4)
+    # f32 cases at the tiny-llama geometry (4 q heads, 2 kv heads,
+    # head_dim 32), the f32 config the kernels are built for.
+    tiny = dict(nh=4, kv=2, d=32)
+    cases = {
+        "paged_decode": [
+            decode_case("decode bf16 B=32 ps=128", 32, lens, 128, bf16,
+                        dev, gen, timer, num_pages=512),
+            decode_case("decode bf16 B=32 ps=16", 32, lens, 16, bf16,
+                        dev, gen, timer),
+            decode_case("decode f32 tiny B=4 ps=16", 4, [1, 0, 37, 300],
+                        16, torch.float32, dev, gen, max_len=512, **tiny),
+        ],
+        "paged_prefill": [
+            prefill_case("prefill bf16 B=8 T=512 first chunk ps=128", first,
+                         512, 128, bf16, dev, gen, timer),
+            prefill_case("prefill bf16 B=8 T=512 second chunk ps=128",
+                         second, 512, 128, bf16, dev, gen, timer),
+            prefill_case("prefill bf16 B=8 T=512 second chunk ps=16",
+                         second, 512, 16, bf16, dev, gen, timer),
+            prefill_case("prefill bf16 unified R=40 W=512 ps=128", unified,
+                         512, 128, bf16, dev, gen, timer),
+            prefill_case("prefill f32 tiny B=2 T=64 ps=16",
+                         [(40, 64), (40, 9)], 64, 16, torch.float32, dev,
+                         gen, max_len=256, **tiny),
+        ],
+    }
+    headline = {}
+    for name, results in cases.items():
+        for r in results:
+            log("kernel case " + json.dumps(r))
+        head = dict(results[0])
+        head["max_abs_err"] = max(r["max_abs_err"] for r in results)
+        headline[name] = head
+    return headline
+
+
+# ---- model phase ------------------------------------------------------------
+
+
+def model_phase(dev) -> None:
+    from production_stack_tpu_torch.engine.config import (
+        bench_1b_model_config)
+    from production_stack_tpu_torch.models import llama
+
+    cfg = bench_1b_model_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = llama.init_params(cfg, gen, dev)
+    ps, t = 128, 512
+    shape = (cfg.num_key_value_heads, 8, cfg.head_dim, ps)
+    table = torch.tensor([[1, 2, 3, 4, 5]], dtype=torch.int32, device=dev)
+    tokens = torch.randint(1, cfg.vocab_size, (1, t + 1), generator=gen,
+                           device=dev, dtype=torch.int32)
+    results = {}
+    for impl in ("cuda", "plain"):
+        caches = ([torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
+                   for _ in range(cfg.num_hidden_layers)],
+                  [torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
+                   for _ in range(cfg.num_hidden_layers)])
+        with torch.inference_mode():
+            prefill = llama.forward(
+                params, cfg, tokens[:, :t],
+                torch.arange(t, device=dev, dtype=torch.int32)[None],
+                table, torch.tensor([t], dtype=torch.int32, device=dev),
+                torch.ones((1, t), dtype=torch.bool, device=dev),
+                *caches, impl=impl)
+            decode = llama.forward(
+                params, cfg, tokens[:, t:],
+                torch.tensor([[t]], dtype=torch.int32, device=dev), table,
+                torch.tensor([t + 1], dtype=torch.int32, device=dev),
+                torch.ones((1, 1), dtype=torch.bool, device=dev),
+                *caches, impl=impl)
+        torch.cuda.synchronize()
+        results[impl] = (prefill[0], decode[0])
+    for i, phase in enumerate(("prefill T=512", "decode T=1")):
+        a, b = results["cuda"][i], results["plain"][i]
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"model {phase}: non-finite logits")
+        diff = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        log(f"model bench-1b {phase}: logits {tuple(a.shape)}, max |cuda "
+            f"- plain| {diff:.3e} (max |logit| {scale:.3e}), top-1 "
+            f"agreement {agree:.4f}")
+        # Both run the same bf16 model; they differ only in how each
+        # layer's attention sums are ordered and rounded.
+        if diff > 0.05 * scale or agree < 0.9:
+            raise AssertionError(f"model {phase}: cuda and plain "
+                                 "forwards disagree")
+    del params
+    torch.cuda.empty_cache()
+
+
+# ---- serving phase ----------------------------------------------------------
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _post(url, body) -> dict:
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type":
+                                          "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return json.loads(resp.read())
+
+
+def serving_phase() -> dict:
+    """Returns the kernels' launch counts over the serving run."""
+    from production_stack_tpu_torch.engine.server import make_server
+    from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
+
+    port = _free_port()
+    server = make_server(SERVER_ARGS + ["--host", "127.0.0.1",
+                                        "--port", str(port)])
+    thread = threading.Thread(target=server.serve, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{port}"
+    model = server.app.model_name
+    vocab = server.app.engine.config.model.vocab_size
+    try:
+        rng = np.random.RandomState(0)
+        lengths = np.linspace(64, 700, 16).round().astype(int)
+        requests = []
+        for i, n in enumerate(lengths):
+            body = {"model": model, "max_tokens": 32, "ignore_eos": True,
+                    "prompt": rng.randint(258, vocab, size=n).tolist()}
+            body.update({"temperature": 0.0} if i % 2 == 0 else
+                        {"temperature": 0.8, "top_p": 0.95})
+            requests.append(body)
+        repeat = {"model": model, "max_tokens": 32, "ignore_eos": True,
+                  "temperature": 0.0,
+                  "prompt": rng.randint(258, vocab, size=300).tolist()}
+
+        torch.cuda.synchronize()
+        COUNTERS.reset()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(requests)) as pool:
+            answers = list(pool.map(
+                lambda b: _post(base + "/v1/completions", b), requests))
+        wall = time.perf_counter() - t0
+        again = [_post(base + "/v1/completions", repeat) for _ in range(2)]
+        torch.cuda.synchronize()
+        launches = dict(COUNTERS.launches)
+        plain_calls = dict(COUNTERS.plain_cuda_calls)
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+
+    for body, ans in zip(requests + [repeat] * 2, answers + again):
+        usage = ans["usage"]
+        if (usage["completion_tokens"] != 32
+                or usage["prompt_tokens"] != len(body["prompt"])
+                or usage["total_tokens"] != len(body["prompt"]) + 32
+                or ans["choices"][0]["finish_reason"] != "length"):
+            raise AssertionError(f"bad completion: {ans}")
+    if again[0]["choices"][0]["text"] != again[1]["choices"][0]["text"]:
+        raise AssertionError("a repeated greedy request gave other tokens")
+    ragged = float(next(
+        line.split()[-1] for line in metrics.splitlines()
+        if line.startswith("vllm:engine_ragged_steps_total ")))
+    if ragged <= 0:
+        raise AssertionError("no unified mixed step ran")
+    for name in KERNELS:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"the serving run never launched {name}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"plain versions ran on CUDA tensors: "
+                             f"{plain_calls}")
+    tokens = 32 * len(requests)
+    log(f"serving bench-1b: {len(requests)} concurrent requests, "
+        f"{tokens} tokens in {wall:.3f} s ({tokens / wall:.1f} tok/s); "
+        f"ragged steps {ragged:.0f}; launches {launches}; plain calls "
+        f"on CUDA tensors {plain_calls or 0}")
+    return launches
+
+
+# ---- main -------------------------------------------------------------------
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from production_stack_tpu_torch.ops import paged_kv_common
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    t0 = time.perf_counter()
+    ptxas = []
+    lib = paged_kv_common.build_kernels(log=ptxas.append)
+    paged_kv_common.kernel_lib()
+    log(f"kernel build: {time.perf_counter() - t0:.1f} s -> "
+        f"{os.path.relpath(lib, here)}")
+    for text in ptxas:
+        for line in text.splitlines():
+            if ("Compiling entry function" in line or "registers" in line
+                    or "spill" in line):
+                log(line.strip())
+
+    headline = kernel_phase(dev)
+    model_phase(dev)
+    launches = serving_phase()
+
+    summary = []
+    for name, meta in KERNELS.items():
+        h = headline[name]
+        summary.append({
+            "name": name, **meta, "launches": launches.get(name, 0),
+            "max_abs_err": h["max_abs_err"], "ms": h["ms"],
+            "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+            "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+            "case": h["case"]})
+    print(json.dumps({"kernels": summary}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

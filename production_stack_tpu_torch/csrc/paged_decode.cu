@@ -1,0 +1,106 @@
+// Paged decode attention for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel paged_decode_attention
+// (production_stack_tpu/ops/paged_attention_pallas.py:147). Grid
+// (batch, kv_head); one block of 128 threads walks its row's pages
+// once for all G query heads of its kv head, so each KV byte is read
+// from device memory once per step (decode is bound by those bytes).
+// A row with kv_len 0 (a pad row) walks nothing and writes 0.
+//
+// C interface (loaded with ctypes by ops/paged_kv_common.py):
+//   q [B, num_q_heads, D]; k/v cache [kv_heads, num_pages, D, page_size];
+//   page_table [B, max_pages] int32; kv_lens [B] int32;
+//   out [B, num_q_heads, D]; dtype 0 = bf16, 1 = f32.
+// Launches on `stream`, allocates nothing, does not synchronise, and
+// returns cudaGetLastError() after the launch. Geometries outside
+// PSTT_FOR_EACH_GEOMETRY return cudaErrorInvalidValue;
+// pstt_kernel_supports(dtype, group, head_dim) tells the host first.
+
+#include "paged_kv_common.cuh"
+
+namespace pstt {
+namespace {
+
+constexpr int kDecodeThreads = 128;
+
+template <int G, int D>
+struct DecodeRows {
+  // Enough rows that the 128 threads tile the head dim (TX = 128 /
+  // rows must divide D); rows past G compute and are never written.
+  static constexpr int kMin = kDecodeThreads / D < 2 ? 2 : kDecodeThreads / D;
+  static constexpr int kRows = G < kMin ? kMin : G;
+};
+
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(kDecodeThreads)
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
+                    const T* __restrict__ v_cache,
+                    const int* __restrict__ page_table,
+                    const int* __restrict__ kv_lens, T* __restrict__ out,
+                    int num_q_heads, int num_pages, int page_size,
+                    int max_pages) {
+  constexpr int ROWS = DecodeRows<G, D>::kRows;
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int kv_len = kv_lens[b];
+  const size_t head_elems = (size_t)num_pages * D * page_size;
+  RowMap rows{((size_t)b * num_q_heads + (size_t)h * G) * D, 1,
+              num_q_heads, D, 0};
+  page_walk_block<T, D, ROWS, ROWS, kDecodeThreads>(
+      q, out, rows, k_cache + h * head_elems, v_cache + h * head_elems,
+      page_table + (size_t)b * max_pages, max_pages, page_size, kv_len,
+      DecodeMask{kv_len}, G);
+}
+
+template <typename T, int D, int G>
+int launch(const void* q, const void* k, const void* v, const void* pt,
+           const void* kv_lens, void* out, int batch, int num_q_heads,
+           int num_kv_heads, int num_pages, int page_size, int max_pages,
+           cudaStream_t stream) {
+  constexpr size_t smem = SmemLayout<D, DecodeRows<G, D>::kRows>::bytes;
+  auto kernel = paged_decode_kernel<T, D, G>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<dim3(batch, num_kv_heads), kDecodeThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(pt),
+      static_cast<const int*>(kv_lens), static_cast<T*>(out), num_q_heads,
+      num_pages, page_size, max_pages);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace pstt
+
+extern "C" int pstt_paged_decode(int dtype, const void* q, const void* k,
+                                 const void* v, const void* page_table,
+                                 const void* kv_lens, void* out, int batch,
+                                 int num_q_heads, int num_kv_heads,
+                                 int head_dim, int num_pages, int page_size,
+                                 int max_pages, void* stream) {
+  if (num_kv_heads <= 0 || num_q_heads % num_kv_heads ||
+      page_size <= 0 || pstt::kChunk % page_size)
+    return cudaErrorInvalidValue;
+  if (batch == 0) return cudaSuccess;
+  const int group = num_q_heads / num_kv_heads;
+  auto s = static_cast<cudaStream_t>(stream);
+#define PSTT_DECODE_CASE(code, T, G, D)                                    \
+  if (dtype == code && group == G && head_dim == D)                        \
+    return pstt::launch<T, D, G>(q, k, v, page_table, kv_lens, out, batch, \
+                                 num_q_heads, num_kv_heads, num_pages,     \
+                                 page_size, max_pages, s);
+  PSTT_FOR_EACH_GEOMETRY(PSTT_DECODE_CASE)
+#undef PSTT_DECODE_CASE
+  return cudaErrorInvalidValue;
+}
+
+// 1 if both kernels are built for this dtype code, query group and head
+// dim, else 0.
+extern "C" int pstt_kernel_supports(int dtype, int group, int head_dim) {
+#define PSTT_SUPPORTS_CASE(code, T, G, D) \
+  if (dtype == code && group == G && head_dim == D) return 1;
+  PSTT_FOR_EACH_GEOMETRY(PSTT_SUPPORTS_CASE)
+#undef PSTT_SUPPORTS_CASE
+  return 0;
+}

@@ -1,0 +1,326 @@
+// The page walk shared by the paged decode and chunked-prefill
+// attention kernels (paged_decode.cu, paged_prefill.cu).
+//
+// Counterpart of make_page_dma / run_page_walk in the JAX package's
+// ops/paged_kv_common.py. One block owns one (row, kv head) pair and a
+// block of ROWS query rows of that kv head. For each 128-token chunk
+// of the row's pages (128 / page_size whole pages) it
+//   - stages the chunk's K and V pages ([head_dim, page_size] each,
+//     token-minor) from device memory into shared memory with 16-byte
+//     coalesced loads, converting to f32; pages past
+//     ceil(kv_len / page_size) are not read and stage as zeros;
+//   - computes q.k^T / sqrt(head_dim) in f32 and sets scores outside
+//     the mask to -1e30;
+//   - runs the online softmax (m, l, acc in f32) and accumulates p.v.
+// It stops at the last chunk any of its rows can see and writes
+// acc / max(l, 1e-30): exact 0 for a row with kv_len 0.
+//
+// The mask is a template parameter (the counterpart of run_page_walk's
+// mask_fn): it gives each row the exclusive upper bound of the token
+// positions it attends. Shared-memory rows have an odd stride in
+// words, so a warp reading one column of K, V or the scores touches
+// 32 different banks.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace pstt {
+
+constexpr int kChunk = 128;           // tokens per walk step
+constexpr int kStride = kChunk + 1;   // smem row stride of K, V, scores
+constexpr float kNegInf = -1e30f;
+
+// The one list of what the kernels are built for: X(dtype code, element
+// type, query group = q heads per kv head, head dim), one entry per
+// model config the engine serves. Both kernels dispatch through it, and
+// pstt_kernel_supports() (paged_decode.cu) answers the host from it.
+// Add a line when a config needs another geometry.
+#define PSTT_FOR_EACH_GEOMETRY(X)                      \
+  X(0, __nv_bfloat16, 4, 64) /* bench-1b */            \
+  X(1, float, 2, 32)         /* tiny-llama */
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Shared memory of one block, in floats.
+template <int D, int ROWS>
+struct SmemLayout {
+  static constexpr int kQStride = D + 1;
+  static constexpr int q = 0;                          // [ROWS][D + 1]
+  static constexpr int k = q + ROWS * kQStride;        // [D][kStride]
+  static constexpr int v = k + D * kStride;            // [D][kStride]
+  static constexpr int s = v + D * kStride;            // [ROWS][kStride]
+  static constexpr int m = s + ROWS * kStride;         // [ROWS]
+  static constexpr int l = m + ROWS;                   // [ROWS]
+  static constexpr int alpha = l + ROWS;               // [ROWS]
+  static constexpr int total = alpha + ROWS;
+  static constexpr size_t bytes = total * sizeof(float);
+};
+
+// Where query/output row r of a block lives: rows are (g, t) pairs
+// flattened g-major over the G query heads of one kv head and the T
+// tokens of the row (decode: T = 1).
+struct RowMap {
+  size_t base;  // element offset of (row b, token 0, q head h * G)
+  int tokens;   // T
+  int num_q_heads;
+  int head_dim;
+  int row0;     // first flattened row of this block
+
+  __device__ __forceinline__ size_t offset(int r) const {
+    const int rg = row0 + r;
+    const int g = rg / tokens;
+    const int t = rg - g * tokens;
+    return base + ((size_t)t * num_q_heads + g) * head_dim;
+  }
+};
+
+// Decode: every row attends pos < kv_len.
+struct DecodeMask {
+  int kv_len;
+  __device__ __forceinline__ int limit(int) const { return kv_len; }
+  __device__ __forceinline__ int max_limit(int) const { return kv_len; }
+};
+
+// Chunked prefill: query t sits at q_start + t and attends
+// pos <= q_start + t and pos < kv_len.
+struct CausalMask {
+  int kv_len;
+  int q_start;
+  int tokens;  // T
+  int row0;
+  __device__ __forceinline__ int limit(int r) const {
+    const int t = (row0 + r) % tokens;
+    return min(q_start + t + 1, kv_len);
+  }
+  // Largest limit over this block's rows [0, nrows).
+  __device__ __forceinline__ int max_limit(int nrows) const {
+    if (nrows >= tokens) return min(q_start + tokens, kv_len);
+    const int first = row0 % tokens;
+    const int last = (row0 + nrows - 1) % tokens;
+    const int t_max = first <= last ? last : tokens - 1;
+    return min(q_start + t_max + 1, kv_len);
+  }
+};
+
+// Stage one 128-token chunk of K and V pages into shared memory as
+// f32 [D][kStride] tiles. Page j of the chunk fills columns
+// [j * page_size, (j + 1) * page_size).
+template <typename T, int D, int NT>
+__device__ __forceinline__ void stage_chunk(
+    const T* __restrict__ k_head, const T* __restrict__ v_head,
+    const int* __restrict__ pt_row, int chunk, int pages_live,
+    int page_size, float* __restrict__ ks, float* __restrict__ vs) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int pages_per_chunk = kChunk / page_size;
+  const int page_elems = D * page_size;
+  for (int i = threadIdx.x; i < D * kChunk / kVec; i += NT) {
+    const int e = i * kVec;
+    const int j = e / page_elems;
+    const int rem = e - j * page_elems;
+    const int d = rem / page_size;
+    const int col = rem - d * page_size;
+    const int lp = chunk * pages_per_chunk + j;
+    uint4 kraw = make_uint4(0, 0, 0, 0);
+    uint4 vraw = make_uint4(0, 0, 0, 0);
+    if (lp < pages_live) {
+      const size_t src = (size_t)pt_row[lp] * page_elems + rem;
+      kraw = *reinterpret_cast<const uint4*>(k_head + src);
+      vraw = *reinterpret_cast<const uint4*>(v_head + src);
+    }
+    const T* ke = reinterpret_cast<const T*>(&kraw);
+    const T* ve = reinterpret_cast<const T*>(&vraw);
+    float* kd = ks + d * kStride + j * page_size + col;
+    float* vd = vs + d * kStride + j * page_size + col;
+#pragma unroll
+    for (int x = 0; x < kVec; ++x) {
+      kd[x] = to_f32(ke[x]);
+      vd[x] = to_f32(ve[x]);
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// The walk for one block. Threads form a TY x TX grid: thread (ty, tx)
+// computes scores of rows ty*RM .. ty*RM+RM-1 at tokens tx + TX*j, and
+// owns the outputs of the same rows at head dims tx + TX*j.
+//
+//   q, out:      the layer's [B, T, num_q_heads, D] query/output
+//   k/v_head:    this kv head's [num_pages, D, page_size] pages
+//   pt_row:      this row's page-table entries (max_pages of them)
+//   nrows:       valid rows of the block (<= ROWS); the rest are pad
+template <typename T, int D, int ROWS, int TY, int NT, class Mask>
+__device__ void page_walk_block(const T* __restrict__ q,
+                                T* __restrict__ out, RowMap rows,
+                                const T* __restrict__ k_head,
+                                const T* __restrict__ v_head,
+                                const int* __restrict__ pt_row,
+                                int max_pages, int page_size, int kv_len,
+                                Mask mask, int nrows) {
+  constexpr int TX = NT / TY;
+  constexpr int RM = ROWS / TY;
+  constexpr int TN = kChunk / TX;
+  constexpr int DN = D / TX;
+  static_assert(ROWS % TY == 0 && D % TX == 0 && kChunk % TX == 0,
+                "thread layout must tile the rows, head dim and chunk");
+  using L = SmemLayout<D, ROWS>;
+  constexpr int QS = L::kQStride;
+  extern __shared__ float smem[];
+  float* qs = smem + L::q;
+  float* ks = smem + L::k;
+  float* vs = smem + L::v;
+  float* ss = smem + L::s;
+  float* ms = smem + L::m;
+  float* ls = smem + L::l;
+  float* as = smem + L::alpha;
+
+  const int tid = threadIdx.x;
+  const int ty = tid / TX;
+  const int tx = tid - ty * TX;
+  const int warp = tid / 32;
+  const int lane = tid & 31;
+  const float scale = rsqrtf((float)D);
+
+  for (int i = tid; i < ROWS * D; i += NT) {
+    const int r = i / D;
+    const int d = i - r * D;
+    qs[r * QS + d] = r < nrows ? to_f32(q[rows.offset(r) + d]) : 0.f;
+  }
+  for (int r = tid; r < ROWS; r += NT) {
+    ms[r] = kNegInf;
+    ls[r] = 0.f;
+  }
+  int lim[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) lim[i] = mask.limit(ty * RM + i);
+  float acc[RM][DN];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
+
+  const int pages_live = min((kv_len + page_size - 1) / page_size, max_pages);
+  const int n_chunks = (mask.max_limit(nrows) + kChunk - 1) / kChunk;
+
+  for (int c = 0; c < n_chunks; ++c) {
+    __syncthreads();  // the previous chunk's readers are done
+    stage_chunk<T, D, NT>(k_head, v_head, pt_row, c, pages_live,
+                          page_size, ks, vs);
+    __syncthreads();
+
+    // Scores: [RM] x [TN] register tile, contracted over D.
+    float sacc[RM][TN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) sacc[i][j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      float qv[RM], kv[TN];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) qv[i] = qs[(ty * RM + i) * QS + d];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) kv[j] = ks[d * kStride + tx + TX * j];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) sacc[i][j] = fmaf(qv[i], kv[j], sacc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int tok = tx + TX * j;
+        const int pos = c * kChunk + tok;
+        ss[(ty * RM + i) * kStride + tok] =
+            pos < lim[i] ? sacc[i][j] * scale : kNegInf;
+      }
+    __syncthreads();
+
+    // Online softmax, one warp per row.
+    for (int r = warp; r < ROWS; r += NT / 32) {
+      float* row = ss + r * kStride;
+      float mx = kNegInf;
+#pragma unroll
+      for (int x = lane; x < kChunk; x += 32) mx = fmaxf(mx, row[x]);
+      mx = warp_max(mx);
+      const float m_old = ms[r];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int x = lane; x < kChunk; x += 32) {
+        const float p = expf(row[x] - m_new);
+        row[x] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        as[r] = alpha;
+        ls[r] = ls[r] * alpha + sum;
+        ms[r] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + p . v
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const float alpha = as[ty * RM + i];
+#pragma unroll
+      for (int j = 0; j < DN; ++j) acc[i][j] *= alpha;
+    }
+    for (int t = 0; t < kChunk; ++t) {
+      float pv[RM], vv[DN];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) pv[i] = ss[(ty * RM + i) * kStride + t];
+#pragma unroll
+      for (int j = 0; j < DN; ++j) vv[j] = vs[(tx + TX * j) * kStride + t];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < DN; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    }
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int r = ty * RM + i;
+    if (r >= nrows) continue;
+    const float denom = fmaxf(ls[r], 1e-30f);
+    T* dst = out + rows.offset(r);
+#pragma unroll
+    for (int j = 0; j < DN; ++j) dst[tx + TX * j] = from_f32<T>(acc[i][j] / denom);
+  }
+}
+
+}  // namespace pstt

@@ -1,0 +1,312 @@
+"""Engine-side Prometheus exposition: vLLM-compatible histograms.
+
+Real vLLM engines export request-latency histograms alongside the four
+gauges our router scrapes (reference engine_stats.py:46-55 reads the
+gauges; cluster Prometheus reads everything). This accumulator gives
+the engine the same surface: TTFT, inter-token latency and e2e
+latency histograms plus token counters, rendered in Prometheus text
+format by engine/server.py:/metrics.
+
+Dependency-free (no prometheus_client in the engine hot path): fixed
+buckets, plain counters, one lock.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Sequence
+
+
+class Histogram:
+    def __init__(self, buckets: Sequence[float]):
+        self.buckets = list(buckets)
+        self.counts = [0] * (len(self.buckets) + 1)  # +inf tail
+        self.total = 0.0
+        self.n = 0
+
+    def observe(self, value: float) -> None:
+        self.total += value
+        self.n += 1
+        for i, b in enumerate(self.buckets):
+            if value <= b:
+                self.counts[i] += 1
+                return
+        self.counts[-1] += 1
+
+    def render(self, name: str) -> List[str]:
+        lines = [f"# TYPE {name} histogram"]
+        cumulative = 0
+        for b, c in zip(self.buckets, self.counts):
+            cumulative += c
+            lines.append(f'{name}_bucket{{le="{b}"}} {cumulative}')
+        cumulative += self.counts[-1]
+        lines.append(f'{name}_bucket{{le="+Inf"}} {cumulative}')
+        lines.append(f"{name}_sum {self.total}")
+        lines.append(f"{name}_count {self.n}")
+        return lines
+
+
+_TTFT_BUCKETS = (0.001, 0.005, 0.01, 0.02, 0.04, 0.06, 0.08, 0.1,
+                 0.25, 0.5, 0.75, 1.0, 2.5, 5.0, 7.5, 10.0)
+_ITL_BUCKETS = (0.001, 0.0025, 0.005, 0.0075, 0.01, 0.025, 0.05,
+                0.075, 0.1, 0.2, 0.5, 1.0)
+_E2E_BUCKETS = (0.3, 0.5, 0.8, 1.0, 1.5, 2.0, 2.5, 5.0, 10.0, 15.0,
+                30.0, 60.0)
+
+
+class EngineMetrics:
+    """Request-lifecycle aggregates, updated on sequence completion."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.ttft = Histogram(_TTFT_BUCKETS)
+        self.itl = Histogram(_ITL_BUCKETS)
+        self.e2e = Histogram(_E2E_BUCKETS)
+        # TTFT decomposition (vLLM names): time in the waiting queue
+        # (arrival -> first scheduled) vs prefill compute (first
+        # scheduled -> first token) — the honest split the round-2
+        # review asked the stack to expose.
+        self.queue_time = Histogram(_TTFT_BUCKETS)
+        self.prefill_time = Histogram(_TTFT_BUCKETS)
+        # Remaining request phases (docs/observability.md): decode
+        # (first token -> finish) and, on disagg decode engines, the
+        # AWAITING_KV park (handoff arrival -> admission — the phase
+        # family view of the handoff-admission latency). Always
+        # rendered (empty when unused) for a stable scrape surface.
+        self.decode_time = Histogram(_E2E_BUCKETS)
+        self.awaiting_kv_time = Histogram(_TTFT_BUCKETS)
+        self.prompt_tokens_total = 0
+        self.generation_tokens_total = 0
+        self.requests_total: Dict[str, int] = {}
+        # Speculative decoding (docs/speculative.md): cumulative draft
+        # tokens proposed and accepted; acceptance rate =
+        # accepted / drafted. Always rendered (0 when the feature is
+        # off) so the router scraper sees a stable metric surface.
+        self.spec_draft_tokens_total = 0
+        self.spec_accepted_tokens_total = 0
+        # Overlapped async pipeline (docs/async_pipeline.md): per-step
+        # host vs device-wait seconds, the device-idle gap the
+        # pipeline hides, and how many steps were dispatched ahead of
+        # their predecessor's readback. Always rendered (0 when the
+        # feature is off) for a stable scrape surface. Overlap
+        # fraction = 1 - idle / host: ~0 synchronous, ->1 overlapped.
+        self.step_host_seconds_total = 0.0
+        self.step_device_wait_seconds_total = 0.0
+        self.device_idle_seconds_total = 0.0
+        self.pipeline_steps_total = 0
+        self.pipeline_ahead_steps_total = 0
+        self.async_inflight_depth = 0
+        # Unified ragged step (docs/unified_step.md): the last mixed
+        # dispatch's row occupancy split (gauges) plus cumulative row
+        # totals so scrapers can derive the pad ratio
+        # (pad_rows_total / rows_total) over any window. Always
+        # rendered (0 when the feature is off) for a stable scrape
+        # surface.
+        self.last_prefill_rows = 0
+        self.last_decode_rows = 0
+        self.last_pad_rows = 0
+        self.ragged_steps_total = 0
+        self.ragged_rows_total = 0
+        self.ragged_pad_rows_total = 0
+        # Disaggregated serving (docs/disaggregation.md): latency from
+        # a handoff submission arriving at a decode-role engine to the
+        # sequence leaving AWAITING_KV (its pages became reachable or
+        # it degraded to recompute). Always rendered (empty when the
+        # engine never receives handoffs) for a stable scrape surface.
+        self.handoff_latency = Histogram(_TTFT_BUCKETS)
+        # QoS preempt-to-offload (docs/qos.md): time spent pulling a
+        # preemption victim's pages back from the offload tier — the
+        # page-transfer cost that replaced a prompt recompute. Always
+        # rendered (empty without an offload tier) for a stable
+        # scrape surface.
+        self.preempt_restore_latency = Histogram(_TTFT_BUCKETS)
+
+    def on_spec_step(self, drafted: int, accepted: int) -> None:
+        """One speculative verify step's draft/accept counts."""
+        with self._lock:
+            self.spec_draft_tokens_total += drafted
+            self.spec_accepted_tokens_total += accepted
+
+    def on_ragged_step(self, prefill_rows: int, decode_rows: int,
+                       pad_rows: int) -> None:
+        """One unified ragged dispatch's row-occupancy split."""
+        with self._lock:
+            self.last_prefill_rows = prefill_rows
+            self.last_decode_rows = decode_rows
+            self.last_pad_rows = pad_rows
+            self.ragged_steps_total += 1
+            self.ragged_rows_total += (prefill_rows + decode_rows
+                                       + pad_rows)
+            self.ragged_pad_rows_total += pad_rows
+
+    def on_pipeline_step(self, host_s: float, device_wait_s: float,
+                         ahead: bool) -> None:
+        """One engine step's host/device time split; ``ahead`` marks a
+        step whose successor was dispatched before its readback."""
+        with self._lock:
+            self.step_host_seconds_total += max(0.0, host_s)
+            self.step_device_wait_seconds_total += max(
+                0.0, device_wait_s)
+            self.pipeline_steps_total += 1
+            if ahead:
+                self.pipeline_ahead_steps_total += 1
+
+    def on_device_idle(self, gap_s: float) -> None:
+        """Device queue ran dry for ``gap_s`` before the next
+        dispatch (the cost the async pipeline exists to remove)."""
+        with self._lock:
+            self.device_idle_seconds_total += max(0.0, gap_s)
+
+    def set_inflight_depth(self, depth: int) -> None:
+        with self._lock:
+            self.async_inflight_depth = depth
+
+    def on_handoff_admitted(self, latency_s: float) -> None:
+        """One disagg handoff left AWAITING_KV after ``latency_s``."""
+        with self._lock:
+            self.handoff_latency.observe(max(0.0, latency_s))
+            self.awaiting_kv_time.observe(max(0.0, latency_s))
+
+    def on_preempt_restore(self, latency_s: float) -> None:
+        """One offload-tier page restore completed (docs/qos.md)."""
+        with self._lock:
+            self.preempt_restore_latency.observe(max(0.0, latency_s))
+
+    def on_decode_tokens(self, seq, n_tokens: int,
+                         now: float) -> None:
+        """Observe inter-token latency for one row's decode step.
+
+        A step that emitted ``m`` tokens for the row observes m
+        intervals of (now - prev)/m: multi-token steps (speculative
+        verify, decode bursts) are credited at their true per-token
+        cadence instead of one per-step or per-request mean."""
+        if n_tokens <= 0:
+            return
+        prev = (seq.last_token_time
+                if seq.last_token_time is not None
+                else seq.first_token_time)
+        seq.last_token_time = now
+        if prev is None:
+            return
+        dt = max(0.0, now - prev) / n_tokens
+        with self._lock:
+            for _ in range(n_tokens):
+                self.itl.observe(dt)
+
+    def on_finished(self, seq) -> None:
+        with self._lock:
+            self.prompt_tokens_total += seq.num_prompt_tokens
+            n_out = len(seq.output_token_ids)
+            self.generation_tokens_total += n_out
+            reason = (seq.finish_reason.value if seq.finish_reason
+                      else "unknown")
+            self.requests_total[reason] = (
+                self.requests_total.get(reason, 0) + 1)
+            if seq.first_token_time is not None:
+                self.ttft.observe(
+                    seq.first_token_time - seq.arrival_time)
+                if seq.first_scheduled_time is not None:
+                    self.queue_time.observe(
+                        seq.first_scheduled_time - seq.arrival_time)
+                    self.prefill_time.observe(
+                        seq.first_token_time
+                        - seq.first_scheduled_time)
+                # Inter-token latency is observed per token as decode
+                # steps complete (on_decode_tokens) — no per-request
+                # mean here, which would double-count.
+                if seq.finish_time is not None:
+                    self.decode_time.observe(
+                        seq.finish_time - seq.first_token_time)
+            if seq.finish_time is not None:
+                self.e2e.observe(seq.finish_time - seq.arrival_time)
+
+    def render(self) -> List[str]:
+        with self._lock:
+            lines = self.ttft.render("vllm:time_to_first_token_seconds")
+            lines += self.itl.render(
+                "vllm:time_per_output_token_seconds")
+            lines += self.e2e.render(
+                "vllm:e2e_request_latency_seconds")
+            lines += self.queue_time.render(
+                "vllm:request_queue_time_seconds")
+            lines += self.prefill_time.render(
+                "vllm:request_prefill_time_seconds")
+            lines += self.decode_time.render(
+                "vllm:request_decode_time_seconds")
+            lines += self.awaiting_kv_time.render(
+                "vllm:request_awaiting_kv_time_seconds")
+            lines += self.handoff_latency.render(
+                "vllm:disagg_handoff_latency_seconds")
+            lines += self.preempt_restore_latency.render(
+                "vllm:preempt_restore_latency_seconds")
+            lines += [
+                "# TYPE vllm:prompt_tokens_total counter",
+                f"vllm:prompt_tokens_total {self.prompt_tokens_total}",
+                "# TYPE vllm:generation_tokens_total counter",
+                ("vllm:generation_tokens_total "
+                 f"{self.generation_tokens_total}"),
+                ("# TYPE vllm:spec_decode_num_draft_tokens_total "
+                 "counter"),
+                ("vllm:spec_decode_num_draft_tokens_total "
+                 f"{self.spec_draft_tokens_total}"),
+                ("# TYPE vllm:spec_decode_num_accepted_tokens_total "
+                 "counter"),
+                ("vllm:spec_decode_num_accepted_tokens_total "
+                 f"{self.spec_accepted_tokens_total}"),
+                "# TYPE vllm:engine_step_host_seconds_total counter",
+                ("vllm:engine_step_host_seconds_total "
+                 f"{self.step_host_seconds_total}"),
+                ("# TYPE vllm:engine_step_device_wait_seconds_total "
+                 "counter"),
+                ("vllm:engine_step_device_wait_seconds_total "
+                 f"{self.step_device_wait_seconds_total}"),
+                "# TYPE vllm:engine_device_idle_seconds_total counter",
+                ("vllm:engine_device_idle_seconds_total "
+                 f"{self.device_idle_seconds_total}"),
+                "# TYPE vllm:engine_pipeline_steps_total counter",
+                ("vllm:engine_pipeline_steps_total "
+                 f"{self.pipeline_steps_total}"),
+                ("# TYPE vllm:engine_pipeline_ahead_steps_total "
+                 "counter"),
+                ("vllm:engine_pipeline_ahead_steps_total "
+                 f"{self.pipeline_ahead_steps_total}"),
+                "# TYPE vllm:engine_async_inflight_depth gauge",
+                ("vllm:engine_async_inflight_depth "
+                 f"{self.async_inflight_depth}"),
+                "# TYPE vllm:engine_step_prefill_rows gauge",
+                ("vllm:engine_step_prefill_rows "
+                 f"{self.last_prefill_rows}"),
+                "# TYPE vllm:engine_step_decode_rows gauge",
+                ("vllm:engine_step_decode_rows "
+                 f"{self.last_decode_rows}"),
+                "# TYPE vllm:engine_step_pad_rows gauge",
+                ("vllm:engine_step_pad_rows "
+                 f"{self.last_pad_rows}"),
+                "# TYPE vllm:engine_ragged_steps_total counter",
+                ("vllm:engine_ragged_steps_total "
+                 f"{self.ragged_steps_total}"),
+                "# TYPE vllm:engine_ragged_rows_total counter",
+                ("vllm:engine_ragged_rows_total "
+                 f"{self.ragged_rows_total}"),
+                "# TYPE vllm:engine_ragged_pad_rows_total counter",
+                ("vllm:engine_ragged_pad_rows_total "
+                 f"{self.ragged_pad_rows_total}"),
+            ]
+            # vLLM's success counter tracks completed requests only;
+            # aborts go to a separate failure counter so reference
+            # dashboards don't overcount success.
+            lines.append("# TYPE vllm:request_success_total counter")
+            for reason, count in sorted(self.requests_total.items()):
+                if reason == "abort":
+                    continue
+                lines.append(
+                    'vllm:request_success_total'
+                    f'{{finished_reason="{reason}"}} {count}')
+            aborted = self.requests_total.get("abort", 0)
+            if aborted:
+                lines += [
+                    "# TYPE vllm:request_failure_total counter",
+                    'vllm:request_failure_total'
+                    f'{{finished_reason="abort"}} {aborted}',
+                ]
+            return lines

@@ -1,0 +1,489 @@
+"""Continuous-batching scheduler.
+
+Plans work in fixed shapes — prefill chunks padded to buckets, decode
+as a constant-width slot batch — as the JAX engine's scheduler does.
+A step is one batch of prefill chunks or one decode batch over all
+running sequences; the two alternate when both have work so neither
+starves. With the unified step on, prefill chunks are admitted INTO
+decode steps instead (``_plan_mixed``), and ``plan_ahead`` plans
+decode step N+1 while step N is in flight (the async pipeline).
+
+Ported: the bimodal plans, the mixed plan and the plan-ahead. Not
+ported yet: speculative drafts (the n-gram proposer), context-parallel
+whole-prompt prefill, offload restore/evict hooks and disaggregated
+handoffs.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Deque, List, Optional
+
+from production_stack_tpu_torch.engine.config import (
+    CacheConfig,
+    SchedulerConfig,
+)
+from production_stack_tpu_torch.engine.kv_cache import (
+    OutOfPagesError,
+    PagedCacheManager,
+)
+from production_stack_tpu_torch.engine.sequence import (
+    FinishReason,
+    Sequence,
+    SequenceState,
+    decode_budget,
+)
+from production_stack_tpu_torch.utils.log import init_logger
+
+logger = init_logger(__name__)
+
+# Sustained overload preempts on every planning pass; the per-victim
+# warning is rate-limited to one line per interval (with a
+# suppressed-count) so logging can't become the bottleneck.
+_PREEMPT_LOG_INTERVAL_S = 5.0
+
+
+@dataclass
+class PrefillChunk:
+    seq: Sequence
+    chunk_start: int  # absolute position of first token in chunk
+    chunk_tokens: List[int]
+    is_last_chunk: bool
+
+
+@dataclass
+class PrefillPlan:
+    """One batched prefill step: the next chunk of up to
+    ``prefill_batch_size`` DISTINCT waiting sequences, padded to a
+    fixed row count."""
+
+    chunks: List[PrefillChunk]
+
+
+@dataclass
+class DecodePlan:
+    seqs: List[Sequence]
+
+
+@dataclass
+class StepPlan:
+    prefill: Optional[PrefillPlan] = None
+    decode: Optional[DecodePlan] = None
+
+    @property
+    def empty(self) -> bool:
+        return self.prefill is None and self.decode is None
+
+
+class Scheduler:
+    def __init__(self, config: SchedulerConfig, cache_config: CacheConfig,
+                 cache_manager: PagedCacheManager):
+        self.config = config
+        self.page_size = cache_config.page_size
+        self.cache = cache_manager
+        self.waiting: Deque[Sequence] = deque()
+        self.running: List[Sequence] = []
+        self._last_was_prefill = False
+        self._preempt_log_ts = float("-inf")
+        self._preempt_log_suppressed = 0
+        # Sequences aborted by the scheduler itself (oversized prompts,
+        # permanent cache starvation); the engine drains this to emit
+        # terminal outputs to their clients.
+        self.newly_aborted: List[Sequence] = []
+        # Cumulative count of sequences preempted for KV-cache
+        # pressure (vllm:num_preemptions_total parity).
+        self.num_preemptions = 0
+        # Prefill token budget a unified (mixed) step may admit: a
+        # dedicated prefill step's full bandwidth.
+        self.mixed_prefill_budget = (config.prefill_chunk_size
+                                     * config.prefill_batch_size)
+
+    # ---- queue management -------------------------------------------------
+
+    def add_sequence(self, seq: Sequence) -> None:
+        if len(self.waiting) >= self.config.max_queue_len:
+            seq.transition(SequenceState.ABORTED)
+            seq.finish_reason = FinishReason.ABORT
+            raise RuntimeError("Scheduler queue full")
+        if seq.num_prompt_tokens >= self.config.max_model_len:
+            seq.transition(SequenceState.ABORTED)
+            seq.finish_reason = FinishReason.ABORT
+            raise ValueError(
+                f"Prompt is {seq.num_prompt_tokens} tokens but "
+                f"max_model_len is {self.config.max_model_len}"
+            )
+        max_prompt_pages = (self.config.max_pages_per_seq(self.page_size)
+                            * self.page_size)
+        if seq.num_prompt_tokens >= min(
+                max_prompt_pages,
+                (self.cache.config.num_pages - 1) * self.page_size):
+            seq.transition(SequenceState.ABORTED)
+            seq.finish_reason = FinishReason.ABORT
+            raise ValueError(
+                f"Prompt of {seq.num_prompt_tokens} tokens cannot fit "
+                "in the KV cache"
+            )
+        if seq.num_prompt_tokens + seq.sampling.max_tokens > \
+                self.config.max_model_len:
+            # Clamp generation to fit the model length budget.
+            seq.sampling.max_tokens = max(
+                1, self.config.max_model_len - seq.num_prompt_tokens
+            )
+        self.waiting.append(seq)
+
+    def abort_sequence(self, seq: Sequence) -> None:
+        self._finish(seq, FinishReason.ABORT)
+        if seq in self.running:
+            self.running.remove(seq)
+        try:
+            self.waiting.remove(seq)
+        except ValueError:
+            pass
+
+    @property
+    def num_waiting(self) -> int:
+        return len(self.waiting)
+
+    @property
+    def num_running(self) -> int:
+        return len(self.running)
+
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running)
+
+    @staticmethod
+    def _needs_row_inputs(seq: Sequence) -> bool:
+        """Rows with per-token host state the mixed and ahead plans do
+        not carry: seeded sampling, whose draw depends on the count of
+        tokens emitted so far. (The engine refuses the rest of the JAX
+        scheduler's set — penalties, logit_bias, min_tokens, guided
+        output.)"""
+        return seq.sampling.seed is not None
+
+    # ---- planning ---------------------------------------------------------
+
+    def plan_step(self) -> StepPlan:
+        want_prefill = bool(
+            self.waiting
+            and len(self.running) < self.config.max_num_seqs
+        )
+        want_decode = bool(self.running)
+        if self.config.unified_step and want_prefill and want_decode:
+            # Unified ragged step: admit prefill chunks INTO the decode
+            # step under a token budget instead of alternating whole
+            # steps. Falls through to the bimodal alternation when a
+            # row needs per-token host state the ragged program does
+            # not carry.
+            plan = self._plan_mixed()
+            if plan is not None and not plan.empty:
+                return plan
+        if want_prefill and want_decode:
+            # Alternate so neither side starves.
+            do_prefill = not self._last_was_prefill
+        else:
+            do_prefill = want_prefill
+        if do_prefill:
+            plan = self._plan_prefill()
+            if plan is not None:
+                self._last_was_prefill = True
+                return StepPlan(prefill=plan)
+            want_decode = bool(self.running)
+        if want_decode:
+            self._last_was_prefill = False
+            self._ensure_decode_capacity()
+            if self.running:
+                return StepPlan(decode=DecodePlan(seqs=list(self.running)))
+        return StepPlan()
+
+    def _plan_mixed(self) -> Optional[StepPlan]:
+        """Plan one unified ragged step: every running sequence as a
+        decode row plus waiting prefill chunks admitted under a token
+        budget matching a dedicated prefill step's full bandwidth
+        (``prefill_chunk_size * prefill_batch_size``), so admission
+        proceeds exactly as fast as alternation would while decode rows
+        keep emitting. Returns None to fall back to bimodal alternation
+        when a running row needs per-row inputs the ragged step does
+        not carry."""
+        if any(self._needs_row_inputs(seq) for seq in self.running):
+            return None
+        # Reserve decode-side pages first; preemption here shrinks
+        # `running` before prefill admission competes for the pages.
+        self._ensure_decode_capacity()
+        if not self.running:
+            return None
+        prefill = self._plan_prefill(
+            max_tokens=self.mixed_prefill_budget)
+        if prefill is None:
+            # Nothing ragged about this step: let the bimodal path
+            # plan it.
+            return None
+        self._last_was_prefill = True
+        return StepPlan(prefill=prefill,
+                        decode=DecodePlan(seqs=list(self.running)))
+
+    def plan_ahead(self, inflight_rows) -> Optional[List[
+            Optional[Sequence]]]:
+        """Plan decode step N+1 while step N is still in flight:
+        assume every running row commits exactly one token, pre-allocate
+        the boundary pages that assumption needs, and return a row list
+        ALIGNED to ``inflight_rows`` (None = slot masked: the row is
+        gone or provably finishes when step N commits). The engine
+        feeds step N's sampled-token device tensor straight into step
+        N+1, so row slots must not shift.
+
+        Returns None to break the pipeline (the engine then completes
+        step N and re-plans synchronously with full knowledge):
+        - prefill work is waiting and could admit (matches
+          plan_step's want_prefill, so prefill never starves),
+        - a row needs per-token host state the ahead plan would compute
+          one token stale,
+        - boundary pages cannot be allocated (never preempt with a
+          step in flight: the victim's pages are inputs of the running
+          step).
+        """
+        if (self.waiting
+                and len(self.running) < self.config.max_num_seqs):
+            return None
+        rows: List[Optional[Sequence]] = []
+        any_live = False
+        for seq in inflight_rows:
+            if seq is None or seq.state != SequenceState.RUNNING:
+                rows.append(None)
+                continue
+            if self._needs_row_inputs(seq):
+                return None
+            if self._seq_budget(seq) <= 1:
+                # Step N's token exhausts the row's budget: it will
+                # finish with reason=length at reconcile. Mask the slot
+                # now — a live row here would write KV past the row's
+                # page budget.
+                rows.append(None)
+                continue
+            rows.append(seq)
+            any_live = True
+        if not any_live:
+            return None
+        for seq in rows:
+            if seq is None:
+                continue
+            # Before a decode step, capacity covers total_len + 1
+            # tokens; after step N commits, total_len grows by one, so
+            # reserve total_len + 2 now.
+            needed = self._pages_needed(seq, seq.total_len + 2)
+            if needed == 0:
+                continue
+            try:
+                seq.pages.extend(self.cache.allocate_pages(needed))
+            except OutOfPagesError:
+                return None
+        self._last_was_prefill = False
+        return rows
+
+    def _seq_budget(self, seq: Sequence) -> int:
+        return decode_budget(seq, self.config.max_model_len)
+
+    def _plan_prefill(self, max_tokens: Optional[int] = None
+                      ) -> Optional[PrefillPlan]:
+        # ``max_tokens`` caps the total prompt tokens admitted this
+        # step (unified steps budget prefill work so decode rows
+        # sharing the batch keep their ITL); the final chunk is
+        # truncated to fit, resuming next step.
+        chunks: List[PrefillChunk] = []
+        tokens_planned = 0
+        admitting = 0  # rows that will join `running` this step
+        for seq in sorted(self.waiting,
+                          key=lambda s: (s.priority, s.arrival_time)):
+            if len(chunks) >= self.config.prefill_batch_size:
+                break
+            if seq.state == SequenceState.ABORTED:
+                self.waiting.remove(seq)
+                continue
+            if (len(self.running) + admitting
+                    >= self.config.max_num_seqs):
+                break
+            if (max_tokens is not None
+                    and tokens_planned >= max_tokens):
+                break
+            if seq.num_computed_tokens == 0 and not seq.pages:
+                # First touch: reuse cached prefix pages, then allocate
+                # the remainder for the whole prompt up front.
+                matched = self.cache.match_prefix(
+                    seq.prompt_token_ids, seq.cache_salt)
+                seq.pages = matched
+                seq.num_hashed_pages = len(matched)
+                seq.num_computed_tokens = len(matched) * self.page_size
+                needed = self._pages_needed(seq, seq.num_prompt_tokens)
+                try:
+                    seq.pages.extend(self.cache.allocate_pages(needed))
+                except OutOfPagesError:
+                    self.cache.free_sequence(seq.pages)
+                    seq.pages = []
+                    seq.num_computed_tokens = 0
+                    if chunks:
+                        break  # run what we already gathered
+                    if not self.running:
+                        # Nothing will ever free pages: permanent.
+                        logger.error(
+                            "Request %s can never fit in the KV cache; "
+                            "aborting", seq.seq_id
+                        )
+                        self.waiting.remove(seq)
+                        self._finish(seq, FinishReason.ABORT)
+                        self.newly_aborted.append(seq)
+                        continue
+                    logger.warning(
+                        "KV cache full: request %s waits", seq.seq_id
+                    )
+                    return None
+            start = seq.num_computed_tokens
+            end = min(start + self.config.prefill_chunk_size,
+                      seq.num_prompt_tokens)
+            if max_tokens is not None:
+                end = min(end, start + (max_tokens - tokens_planned))
+            is_last = end == seq.num_prompt_tokens
+            if seq.first_scheduled_time is None:
+                seq.first_scheduled_time = time.time()
+            chunks.append(PrefillChunk(
+                seq=seq,
+                chunk_start=start,
+                chunk_tokens=seq.prompt_token_ids[start:end],
+                is_last_chunk=is_last,
+            ))
+            tokens_planned += end - start
+            if is_last:
+                admitting += 1
+        if not chunks:
+            return None
+        return PrefillPlan(chunks=chunks)
+
+    def _pages_needed(self, seq: Sequence, target_tokens: int) -> int:
+        have = len(seq.pages) * self.page_size
+        if target_tokens <= have:
+            return 0
+        return -(-(target_tokens - have) // self.page_size)
+
+    def _ensure_decode_capacity(self) -> None:
+        """Every running sequence needs a page slot for its next
+        token; preempt the lowest-priority, newest sequence when the
+        cache cannot provide it."""
+        for seq in list(self.running):
+            if seq.state != SequenceState.RUNNING:
+                # Preempted earlier in this very pass (we iterate a
+                # snapshot): allocating pages to a WAITING victim
+                # would leak them when prefill re-allocates from
+                # scratch.
+                continue
+            needed = self._pages_needed(seq, seq.total_len + 1)
+            if needed == 0:
+                continue
+            try:
+                seq.pages.extend(self.cache.allocate_pages(needed))
+            except OutOfPagesError:
+                victim = max(self.running,
+                             key=lambda s: (s.priority, s.arrival_time))
+                self._preempt(victim)
+                if victim is seq:
+                    continue
+                try:
+                    seq.pages.extend(self.cache.allocate_pages(needed))
+                except OutOfPagesError:
+                    self._preempt(seq)
+
+    def _preempt(self, seq: Sequence) -> None:
+        self._log_preemption(seq)
+        self.num_preemptions += 1
+        self.running.remove(seq)
+        self.cache.free_sequence(seq.pages)
+        seq.pages = []
+        seq.num_hashed_pages = 0
+        # Recompute everything including generated tokens as "prompt";
+        # num_prior_output_tokens keeps the generated-so-far budgets
+        # counting across the fold.
+        seq.num_prior_output_tokens += len(seq.output_token_ids)
+        seq.prompt_token_ids = seq.all_token_ids
+        seq.output_token_ids = []
+        seq.num_computed_tokens = 0
+        seq.transition(SequenceState.WAITING)
+        self.waiting.appendleft(seq)
+
+    def _log_preemption(self, seq: Sequence) -> None:
+        now = time.monotonic()
+        if now - self._preempt_log_ts < _PREEMPT_LOG_INTERVAL_S:
+            self._preempt_log_suppressed += 1
+            return
+        if self._preempt_log_suppressed:
+            logger.warning(
+                "Preempting %s (KV cache pressure; %d preemptions "
+                "suppressed in the last %.0fs)", seq.seq_id,
+                self._preempt_log_suppressed, _PREEMPT_LOG_INTERVAL_S)
+        else:
+            logger.warning("Preempting %s (KV cache pressure)",
+                           seq.seq_id)
+        self._preempt_log_ts = now
+        self._preempt_log_suppressed = 0
+
+    # ---- completion callbacks (driven by the engine) ----------------------
+
+    def on_prefill_executed(self, chunk: PrefillChunk,
+                            sampled_token: Optional[int]) -> None:
+        seq = chunk.seq
+        if seq.state in (SequenceState.ABORTED, SequenceState.FINISHED):
+            return  # aborted while the chunk was in flight on device
+        seq.num_computed_tokens = (chunk.chunk_start
+                                   + len(chunk.chunk_tokens))
+        self.cache.commit_full_pages(
+            seq.prompt_token_ids[:seq.num_computed_tokens],
+            seq.pages, seq.num_hashed_pages, seq.cache_salt,
+        )
+        seq.num_hashed_pages = min(
+            len(seq.pages),
+            seq.num_computed_tokens // self.page_size,
+        )
+        if chunk.is_last_chunk:
+            if sampled_token is None:
+                raise RuntimeError(
+                    f"last prefill chunk of {seq.seq_id} sampled nothing")
+            try:
+                self.waiting.remove(seq)
+            except ValueError:
+                return  # raced with an abort that already dequeued it
+            seq.transition(SequenceState.RUNNING)
+            seq.first_token_time = time.time()
+            self.running.append(seq)
+            self._append_token(seq, sampled_token)
+
+    def append_decode_token(self, seq: Sequence, token: int) -> bool:
+        """Append one decoded token; returns False if the sequence is
+        no longer running."""
+        if seq.state != SequenceState.RUNNING:
+            return False
+        self._append_token(seq, token)
+        return seq.state == SequenceState.RUNNING
+
+    def _append_token(self, seq: Sequence, token: int) -> None:
+        seq.output_token_ids.append(token)
+        stop_ids = seq.sampling.stop_token_ids
+        past_min = seq.num_generated > seq.sampling.min_tokens
+        if (not seq.sampling.ignore_eos and token in stop_ids
+                and past_min):
+            self._finish(seq, FinishReason.STOP)
+            self.running.remove(seq)
+        elif seq.num_generated >= seq.sampling.max_tokens:
+            self._finish(seq, FinishReason.LENGTH)
+            self.running.remove(seq)
+        elif seq.total_len >= self.config.max_model_len:
+            self._finish(seq, FinishReason.LENGTH)
+            self.running.remove(seq)
+
+    def _finish(self, seq: Sequence, reason: FinishReason) -> None:
+        if seq.state in (SequenceState.FINISHED, SequenceState.ABORTED):
+            return
+        seq.transition(SequenceState.ABORTED if reason == FinishReason.ABORT
+                       else SequenceState.FINISHED)
+        seq.finish_reason = reason
+        seq.finish_time = time.time()
+        if seq.pages:
+            self.cache.free_sequence(seq.pages)
+            seq.pages = []

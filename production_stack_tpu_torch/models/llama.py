@@ -1,0 +1,186 @@
+"""Llama-family model (Llama 2/3, Mistral, Qwen2-style GQA decoders).
+
+Weights are an ``nn.Module`` (``LlamaParams``) of per-layer
+``nn.Linear``s, with q/k/v and gate/up fused into one projection each;
+``forward`` is a plain function over them, the counterpart of the JAX
+package's ``llama.forward``. Attention reads and writes the paged KV
+cache, one [kv, pages, d, page] buffer per layer, which ``forward``
+updates IN PLACE (the JAX version threads updated copies through).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from production_stack_tpu_torch.engine.config import ModelConfig
+from production_stack_tpu_torch.ops.attention import page_slots, write_slots
+from production_stack_tpu_torch.ops.paged_attention_cuda import (
+    paged_decode_attention,
+    paged_decode_attention_plain,
+)
+from production_stack_tpu_torch.ops.prefill_attention_cuda import (
+    paged_prefill_attention,
+    paged_prefill_attention_plain,
+)
+from production_stack_tpu_torch.ops.rope import apply_rope
+
+ATTENTION_IMPLS = ("cuda", "plain")
+
+
+class LlamaLayer(nn.Module):
+    def __init__(self, config: ModelConfig, dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__()
+        h, ffn = config.hidden_size, config.intermediate_size
+        nh, nkv, d = (config.num_attention_heads,
+                      config.num_key_value_heads, config.head_dim)
+        kw = {"dtype": dtype, "device": device}
+        self.attn_norm = nn.Parameter(torch.ones(h, **kw))
+        self.qkv = nn.Linear(h, (nh + 2 * nkv) * d,
+                             bias=config.attention_bias, **kw)
+        self.o = nn.Linear(nh * d, h, bias=False, **kw)
+        self.mlp_norm = nn.Parameter(torch.ones(h, **kw))
+        self.gate_up = nn.Linear(h, 2 * ffn, bias=False, **kw)
+        self.down = nn.Linear(ffn, h, bias=False, **kw)
+
+
+class LlamaParams(nn.Module):
+    """The weights of one llama-family model."""
+
+    def __init__(self, config: ModelConfig, device: torch.device,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        dtype = dtype or config.torch_dtype
+        kw = {"dtype": dtype, "device": device}
+        self.embed = nn.Parameter(
+            torch.empty(config.vocab_size, config.hidden_size, **kw))
+        self.layers = nn.ModuleList(
+            LlamaLayer(config, dtype, device)
+            for _ in range(config.num_hidden_layers))
+        self.final_norm = nn.Parameter(torch.ones(config.hidden_size,
+                                                  **kw))
+        self.lm_head = (None if config.tie_word_embeddings else
+                        nn.Linear(config.hidden_size, config.vocab_size,
+                                  bias=False, **kw))
+        self.requires_grad_(False)
+
+
+def dispatch_attention(config: ModelConfig, q, k_cache, v_cache,
+                       page_table, positions, kv_lens,
+                       impl: Optional[str] = None) -> torch.Tensor:
+    """Attention over one layer's paged cache for this step shape:
+    decode (T == 1) through the decode kernel, prefill chunks and
+    unified [R, W] blocks through the chunked-prefill kernel.
+
+    ``impl`` is "cuda" (the kernel wrappers, which take the plain
+    version for CPU tensors) or "plain" (the plain versions, on any
+    device). The default follows the tensors: "cuda" on the card,
+    "plain" on the CPU; the engine never asks for "plain" on the card.
+    """
+    del config  # shapes come from the tensors
+    impl = impl or ("cuda" if q.is_cuda else "plain")
+    if impl not in ATTENTION_IMPLS:
+        raise ValueError(f"attention impl must be one of "
+                         f"{ATTENTION_IMPLS} (got {impl!r})")
+    if q.shape[1] == 1:
+        fn = (paged_decode_attention if impl == "cuda"
+              else paged_decode_attention_plain)
+        return fn(q[:, 0], k_cache, v_cache, page_table, kv_lens)[:, None]
+    fn = (paged_prefill_attention if impl == "cuda"
+          else paged_prefill_attention_plain)
+    return fn(q, k_cache, v_cache, page_table, positions, kv_lens)
+
+
+def cached_attention(config: ModelConfig, q, k, v,
+                     k_cache: List[torch.Tensor],
+                     v_cache: List[torch.Tensor], page_table, positions,
+                     kv_lens, slots, layer: int,
+                     impl: Optional[str] = None) -> torch.Tensor:
+    """Write one layer's K/V into its cache buffer (in place) and
+    attend. ``slots`` is the step's (pages, offsets) from
+    ``ops.attention.page_slots``, shared by every layer."""
+    kc, vc = k_cache[layer], v_cache[layer]
+    write_slots(kc, k, *slots)
+    write_slots(vc, v, *slots)
+    return dispatch_attention(config, q, kc, vc, page_table, positions,
+                              kv_lens, impl=impl)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    normed = x32 * torch.rsqrt(var + eps)
+    return (normed * weight.float()).to(x.dtype)
+
+
+def init_params(config: ModelConfig, generator: torch.Generator,
+                device: torch.device) -> LlamaParams:
+    """Random-init parameters (for tests, benchmarks and cold starts):
+    N(0, 0.02) projections and embeddings, unit norms, zero biases —
+    the JAX init's distribution, not its bits. ``generator`` must live
+    on ``device``."""
+    params = LlamaParams(config, device)
+    for name, p in params.named_parameters():
+        if name.endswith("norm") or name.endswith("bias"):
+            continue
+        noise = torch.randn(p.shape, generator=generator, device=device,
+                            dtype=torch.float32)
+        p.copy_(noise.mul_(0.02))
+    return params
+
+
+def forward(params: LlamaParams, config: ModelConfig,
+            tokens: torch.Tensor, positions: torch.Tensor,
+            page_table: torch.Tensor, kv_lens: torch.Tensor,
+            valid: torch.Tensor, k_cache: List[torch.Tensor],
+            v_cache: List[torch.Tensor], impl: Optional[str] = None,
+            select: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One model invocation over a (possibly padded) token block.
+
+    Args:
+      tokens:     [B, T] token ids
+      positions:  [B, T] absolute positions (0 for padded slots)
+      page_table: [B, max_pages] int32 physical page ids (page 0 = trash)
+      kv_lens:    [B] int32 valid cached tokens AFTER this block is written
+      valid:      [B, T] mask of real (non-padding) tokens
+      k_cache/v_cache: L-lists of [kv_heads, num_pages, head_dim,
+                  page_size] buffers, written IN PLACE
+      impl:       attention impl (see dispatch_attention)
+      select:     optional [B, S] int64 indices into T: logits only at
+                  those slots (the sampled positions), so a prefill
+                  step never materializes [B, T, vocab]
+
+    Returns f32 logits [B, T, vocab], or [B, S, vocab] with ``select``.
+    """
+    nh, nkv, d = (config.num_attention_heads, config.num_key_value_heads,
+                  config.head_dim)
+    b, t = tokens.shape
+    slots = page_slots(page_table, positions, valid,
+                       k_cache[0].shape[-1])
+    x = F.embedding(tokens.long(), params.embed)  # [B, T, H]
+    for layer, lp in enumerate(params.layers):
+        a_in = rms_norm(x, lp.attn_norm, config.rms_norm_eps)
+        q, k, v = lp.qkv(a_in).split([nh * d, nkv * d, nkv * d], dim=-1)
+        q = apply_rope(q.reshape(b, t, nh, d), positions,
+                       config.rope_theta)
+        k = apply_rope(k.reshape(b, t, nkv, d), positions,
+                       config.rope_theta)
+        v = v.reshape(b, t, nkv, d)
+        attn = cached_attention(config, q, k, v, k_cache, v_cache,
+                                page_table, positions, kv_lens, slots,
+                                layer, impl=impl)
+        x = x + lp.o(attn.reshape(b, t, nh * d))
+        m_in = rms_norm(x, lp.mlp_norm, config.rms_norm_eps)
+        gate, up = lp.gate_up(m_in).chunk(2, dim=-1)
+        x = x + lp.down(F.silu(gate) * up)
+    if select is not None:
+        x = torch.take_along_dim(x, select[:, :, None], dim=1)
+    x = rms_norm(x, params.final_norm, config.rms_norm_eps)
+    head = (params.embed if params.lm_head is None
+            else params.lm_head.weight)
+    return F.linear(x, head).float()

@@ -1,0 +1,124 @@
+"""Attention over the paged KV cache: page writes and the gather-based
+reference.
+
+Cache layout (shared with the CUDA kernels): one
+[kv_heads, num_pages, head_dim, page_size] buffer per layer, kv-head
+axis major and each page stored token-minor, so a page is one
+contiguous block. Page 0 is the engine's trash page: the allocator
+never hands it out, and padded slots write there instead of needing
+predication.
+
+``paged_attention`` gathers a row's whole page list and runs one
+softmax: the plain reference for the page-walking kernels
+(ops/paged_attention_cuda.py, ops/prefill_attention_cuda.py) and the
+counterpart of the JAX package's XLA path.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+NEG_INF = -1e30
+
+
+def gather_pages(cache_layer: torch.Tensor,
+                 page_table: torch.Tensor) -> torch.Tensor:
+    """[kv, num_pages, d, page] gathered to [kv, B, max_pages, d, page]."""
+    return cache_layer[:, page_table.long()]
+
+
+def page_slots(page_table: torch.Tensor, positions: torch.Tensor,
+               valid: torch.Tensor,
+               page_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat (physical page, in-page offset) of every [B, T] slot, as
+    int64 [B*T] index tensors; invalid slots go to trash page 0. One
+    computation serves every layer's write in a forward."""
+    positions = positions.long()
+    logical_page = positions // page_size
+    physical_page = torch.take_along_dim(page_table.long(), logical_page,
+                                         dim=1)
+    physical_page = torch.where(valid, physical_page, 0)
+    return physical_page.reshape(-1), (positions % page_size).reshape(-1)
+
+
+def write_slots(cache: torch.Tensor, new_kv: torch.Tensor,
+                pages: torch.Tensor, offsets: torch.Tensor) -> None:
+    """Scatter [B, T, kv, d] entries into their (page, offset) slots IN
+    PLACE (the JAX version returns an updated copy).
+
+    Several padded slots may land on trash page 0 in one call; which
+    of them wins is not deterministic on the card, and that is
+    harmless because page 0 is never attended unmasked.
+    """
+    flat_kv = new_kv.reshape(-1, *new_kv.shape[2:]).to(cache.dtype)
+    # Advanced indices on the page and slot dims broadcast to the
+    # front: the values are [B*T, kv, d].
+    cache[:, pages, :, offsets] = flat_kv
+
+
+def write_to_pages(cache: torch.Tensor, new_kv: torch.Tensor,
+                   page_table: torch.Tensor, positions: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """Scatter new KV entries into their pages, in place.
+
+    Args:
+      cache:       [kv_heads, num_pages, head_dim, page_size]
+      new_kv:      [B, T, kv_heads, head_dim]
+      page_table:  [B, max_pages] int32 physical page ids
+      positions:   [B, T] absolute token positions
+      valid:       [B, T] bool; False entries are redirected to page 0
+
+    Returns ``cache`` (updated in place).
+    """
+    if cache.dim() != 4:
+        raise NotImplementedError(
+            "write_to_pages takes one layer's [kv, pages, d, page] "
+            f"cache (the stacked form is not ported; got {cache.dim()}-D)")
+    pages, offsets = page_slots(page_table, positions, valid,
+                                cache.shape[-1])
+    write_slots(cache, new_kv, pages, offsets)
+    return cache
+
+
+def paged_attention(q: torch.Tensor, k_cache_layer: torch.Tensor,
+                    v_cache_layer: torch.Tensor, page_table: torch.Tensor,
+                    q_positions: torch.Tensor,
+                    kv_lens: torch.Tensor) -> torch.Tensor:
+    """Causal attention of q against a sequence's cached pages.
+
+    Args:
+      q:           [B, T, num_q_heads, head_dim]
+      k/v_cache_layer: [num_kv_heads, num_pages, head_dim, page_size]
+      page_table:  [B, max_pages]
+      q_positions: [B, T] absolute positions of the queries
+      kv_lens:     [B] number of valid cached tokens
+
+    Returns [B, T, num_q_heads, head_dim].
+    """
+    b, t, num_q_heads, head_dim = q.shape
+    num_kv_heads = k_cache_layer.shape[0]
+    group = num_q_heads // num_kv_heads
+    scale = 1.0 / head_dim ** 0.5
+
+    k = gather_pages(k_cache_layer, page_table).float()  # [kv,B,P,d,c]
+    v = gather_pages(v_cache_layer, page_table).float()
+    p_cnt, page = k.shape[2], k.shape[4]
+
+    qg = q.float().reshape(b, t, num_kv_heads, group, head_dim)
+    scores = torch.einsum("btkgd,kbpdc->bkgtpc", qg, k) * scale
+
+    token_pos = (torch.arange(p_cnt, device=q.device)[:, None] * page
+                 + torch.arange(page, device=q.device)[None, :])
+    causal = (token_pos[None, None]
+              <= q_positions.long()[:, :, None, None])  # [B, T, P, c]
+    in_len = token_pos[None] < kv_lens.long()[:, None, None]  # [B, P, c]
+    mask = causal & in_len[:, None]
+    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+
+    shape = scores.shape
+    probs = torch.softmax(scores.reshape(*shape[:-2], p_cnt * page),
+                          dim=-1).reshape(shape)
+    out = torch.einsum("bkgtpc,kbpdc->btkgd", probs, v)
+    return out.reshape(b, t, num_q_heads, head_dim).to(q.dtype)

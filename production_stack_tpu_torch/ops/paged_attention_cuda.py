@@ -1,0 +1,93 @@
+"""Paged decode attention: one query token per row against its pages.
+
+Replaces the Pallas TPU kernel ``paged_decode_attention``
+(production_stack_tpu/ops/paged_attention_pallas.py:147, body
+``_decode_kernel`` at :86) with the CUDA kernel in
+``csrc/paged_decode.cu``.
+
+What bounds it on the card: the bytes of the cached K and V. A step
+reads 2 * kv_len * kv_heads * head_dim elements for 4 * num_q_heads *
+head_dim * kv_len operations — about one operation per byte in bf16,
+far below the ~295 operations per byte where the H100's tensor cores
+and not its memory become the limit. The design therefore reads each
+KV byte once per step: the grid is (batch, kv_head), so the G query
+heads that share a kv head share every staged page; pages arrive with
+16-byte coalesced loads into shared memory; the walk stops at
+ceil(kv_len / 128) chunks; a pad row (kv_len 0) loads nothing and
+writes exact 0. Not yet done: a split-KV variant that puts more blocks
+on the card at small batch, and asynchronous copies that overlap the
+next page with the current one's arithmetic.
+
+Contract (the Pallas kernel's): q [B, num_q_heads, head_dim];
+k/v cache [kv_heads, num_pages, head_dim, page_size] (token-minor
+pages); page_table [B, max_pages] int32; kv_lens [B] int32; attends
+positions < kv_len; returns [B, num_q_heads, head_dim].
+"""
+
+from __future__ import annotations
+
+import torch
+
+from production_stack_tpu_torch.ops.paged_kv_common import (
+    COUNTERS,
+    check_cache,
+    check_kernel_operands,
+    check_launch,
+    dtype_code,
+    kernel_lib,
+    page_walk_plain,
+    stream_ptr,
+)
+
+KERNEL_NAME = "paged_decode"
+
+
+def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor,
+                           page_table: torch.Tensor,
+                           kv_lens: torch.Tensor) -> torch.Tensor:
+    """Single-token paged attention.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    or raise. Raises NotImplementedError on the int8 and stacked cache
+    forms, which are not ported yet.
+    """
+    check_cache(k_cache, v_cache)
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_cache, v_cache,
+                                            page_table, kv_lens)
+    b, num_q_heads, head_dim = q.shape
+    num_kv_heads, num_pages, _, page_size = k_cache.shape
+    out = torch.empty_like(q)
+    check_kernel_operands(
+        q, k_cache, v_cache,
+        (("page_table", page_table), ("kv_lens", kv_lens)), out)
+    if kv_lens.shape != (b,) or page_table.shape[0] != b:
+        raise ValueError("page_table/kv_lens rows must match the batch")
+    err = kernel_lib().pstt_paged_decode(
+        dtype_code(q.dtype), q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), page_table.data_ptr(), kv_lens.data_ptr(),
+        out.data_ptr(), b, num_q_heads, num_kv_heads, head_dim,
+        num_pages, page_size, page_table.shape[1], stream_ptr())
+    check_launch(KERNEL_NAME, err)
+    COUNTERS.launched(KERNEL_NAME)
+    return out
+
+
+def paged_decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                                 v_cache: torch.Tensor,
+                                 page_table: torch.Tensor,
+                                 kv_lens: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain torch: the same chunked page walk
+    with mask ``pos < kv_len`` and the same online softmax."""
+    check_cache(k_cache, v_cache)
+    if q.is_cuda:
+        COUNTERS.plain_on_cuda(KERNEL_NAME)
+    b, num_q_heads, head_dim = q.shape
+    num_kv_heads = k_cache.shape[0]
+    qg = q.reshape(b, num_kv_heads, num_q_heads // num_kv_heads,
+                   head_dim)
+    kv = kv_lens.long()[:, None, None, None]
+    out = page_walk_plain(qg, k_cache, v_cache, page_table, kv_lens,
+                          lambda pos: pos < kv)
+    return out.reshape(b, num_q_heads, head_dim).to(q.dtype)

@@ -1,0 +1,332 @@
+"""What the paged-KV attention kernels share on the host side.
+
+The decode kernel (ops/paged_attention_cuda.py) and the chunked-
+prefill kernel (ops/prefill_attention_cuda.py) are one machine with a
+different query block and score mask; the device half of that
+machine is ``csrc/paged_kv_common.cuh``. This module holds the host
+half:
+
+- the build of the kernel library: ``nvcc`` compiles every ``csrc/*.cu``
+  for ``sm_90a`` (one process per source, all started together), links
+  one shared library with a plain C interface into
+  ``build/kernels/<hash of the sources and flags>/``, and ``ctypes``
+  loads it. The build runs at first use, from the checkout's sources
+  only;
+- the launch counters that show a run went through the kernels;
+- operand checks common to both wrappers;
+- the plain chunked page walk in torch: the same 128-token chunks,
+  the same mask, the same online softmax (m, l, acc in f32) and the
+  same zero output for a row with no cached tokens as the kernels.
+  It is what a wrapper runs for CPU tensors, and what the kernels
+  are compared with on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+from typing import Callable, Dict, Optional
+
+import torch
+
+NEG_INF = -1e30
+
+# Tokens per step of the page walk: a chunk is 128 // page_size
+# pages, so the kernels' thread layout is the same at every page size.
+CHUNK_TOKENS = 128
+
+# dtype codes of the C interface. Which (dtype, query group, head dim)
+# the kernels are built for is listed once, in csrc/paged_kv_common.cuh
+# (PSTT_FOR_EACH_GEOMETRY), and asked of the library.
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+
+_CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[2]
+              / "build" / "kernels")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIB_NAME = "libpstt_kernels.so"
+
+
+class KernelCounters:
+    """Plain-integer launch counters, one per kernel: a wrapper adds
+    one where it launches its kernel and nowhere else. Calls to a
+    plain version made with CUDA tensors are counted apart, so a run
+    can show that the card's main path never fell back to them."""
+
+    def __init__(self):
+        self.launches: Dict[str, int] = {}
+        self.plain_cuda_calls: Dict[str, int] = {}
+
+    def launched(self, name: str) -> None:
+        self.launches[name] = self.launches.get(name, 0) + 1
+
+    def plain_on_cuda(self, name: str) -> None:
+        self.plain_cuda_calls[name] = (
+            self.plain_cuda_calls.get(name, 0) + 1)
+
+    def reset(self) -> None:
+        self.launches.clear()
+        self.plain_cuda_calls.clear()
+
+
+COUNTERS = KernelCounters()
+
+
+# ---- build and load -------------------------------------------------------
+
+
+def kernel_sources():
+    """The .cu sources and headers the library is built from."""
+    return (sorted(_CSRC.glob("*.cu")), sorted(_CSRC.glob("*.cuh")))
+
+
+def _source_digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    sources, headers = kernel_sources()
+    for path in sources + headers:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels are built "
+                       "with the CUDA toolkit on the machine with the "
+                       "card")
+
+
+def build_kernels(log: Optional[Callable[[str], None]] = None
+                  ) -> pathlib.Path:
+    """Build the kernel library if no build of these exact sources
+    exists; returns its path. Raises with the compiler's output when a
+    source does not compile. ``log`` receives the compiler's output
+    (``-Xptxas -v``: registers, shared memory and spills per kernel)."""
+    out_dir = BUILD_ROOT / _source_digest()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib
+    nvcc = _find_nvcc()
+    sources, _ = kernel_sources()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", str(src),
+             "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)]
+        failed = []
+        for src, proc in zip(sources, procs):
+            out, _ = proc.communicate()
+            if log is not None and out:
+                log(f"nvcc {src.name}:\n{out}")
+            if proc.returncode:
+                failed.append(f"{src.name}:\n{out}")
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        tmp_lib = os.path.join(tmp, LIB_NAME)
+        link = subprocess.run(
+            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+             "-o", tmp_lib, *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode:
+            raise RuntimeError(f"kernel link failed:\n{link.stdout}")
+        os.replace(tmp_lib, lib)
+    return lib
+
+
+_LIB = None
+_LIB_LOCK = threading.Lock()
+
+
+def kernel_lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build_kernels()))
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.pstt_paged_decode.argtypes = (
+                [i32] + [ptr] * 6 + [i32] * 7 + [ptr])
+            lib.pstt_paged_decode.restype = i32
+            lib.pstt_paged_prefill.argtypes = (
+                [i32] + [ptr] * 7 + [i32] * 8 + [ptr])
+            lib.pstt_paged_prefill.restype = i32
+            lib.pstt_kernel_supports.argtypes = [i32] * 3
+            lib.pstt_kernel_supports.restype = i32
+            _LIB = lib
+        return _LIB
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` after a launch: a
+    launch the card refused never runs, and no later synchronize
+    reports it."""
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                           f"{err}")
+
+
+# ---- operand checks -------------------------------------------------------
+
+
+def check_cache(k_cache, v_cache) -> None:
+    """Reject the cache forms that are not ported yet."""
+    for cache in (k_cache, v_cache):
+        if not isinstance(cache, torch.Tensor) or cache.dtype in (
+                torch.int8, torch.uint8):
+            raise NotImplementedError(
+                "quantized (int8) KV caches are not ported yet")
+        if cache.dim() == 5:
+            raise NotImplementedError(
+                "the stacked [L, kv, pages, d, page] cache form "
+                "(pipeline/context parallelism) is not ported yet")
+        if cache.dim() != 4:
+            raise ValueError(
+                "expected a [kv, pages, d, page] cache, got shape "
+                f"{tuple(cache.shape)}")
+
+
+def check_kernel_operands(q, k_cache, v_cache, int_operands,
+                          out) -> None:
+    """Device, dtype, shape and contiguity checks before a launch;
+    raises on anything the kernels do not take."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError("kernel operands must be CUDA tensors")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
+                    ("out", out)):
+        if t.device != dev or t.dtype != q.dtype:
+            raise ValueError(f"{name} must be {q.dtype} on {dev}")
+    if k_cache.shape != v_cache.shape:
+        raise ValueError("k_cache and v_cache shapes differ")
+    for name, t in int_operands:
+        if t.device != dev or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32 on {dev}")
+    for name, t in (("q", q), ("k_cache", k_cache),
+                    ("v_cache", v_cache), ("out", out)) + tuple(
+                        int_operands):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    num_kv_heads, _, head_dim, page_size = k_cache.shape
+    if q.shape[-1] != head_dim:
+        raise ValueError("q head_dim does not match the cache")
+    check_kernel_shapes(q.shape[-2], num_kv_heads, head_dim, page_size,
+                        q.dtype)
+
+
+def check_kernel_shapes(num_q_heads: int, num_kv_heads: int,
+                        head_dim: int, page_size: int,
+                        dtype: torch.dtype) -> None:
+    """Raise NotImplementedError on a geometry the kernels are not
+    built for (asked of the kernel library, which it loads). The runner
+    calls it at start-up on the card, so an unsupported model fails
+    there and not at its first step."""
+    if dtype not in _DTYPE_CODES:
+        raise NotImplementedError(
+            f"kernels take bf16 or f32 operands (got {dtype})")
+    if num_q_heads % num_kv_heads:
+        raise ValueError("num_q_heads must be a multiple of kv heads")
+    group = num_q_heads // num_kv_heads
+    if not kernel_lib().pstt_kernel_supports(_DTYPE_CODES[dtype], group,
+                                             head_dim):
+        raise NotImplementedError(
+            f"the kernels are not built for query group {group}, "
+            f"head_dim {head_dim}, {dtype} (csrc/paged_kv_common.cuh "
+            "PSTT_FOR_EACH_GEOMETRY lists what they are built for)")
+    if (page_size > CHUNK_TOKENS or CHUNK_TOKENS % page_size
+            or (page_size * dtype.itemsize) % 16):
+        raise NotImplementedError(
+            f"page_size {page_size}: the kernels walk 128-token chunks "
+            "of whole pages with 16-byte loads (page_size must divide "
+            "128 and hold a multiple of 16 bytes)")
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    return _DTYPE_CODES[dtype]
+
+
+def stream_ptr() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+# ---- plain page walk ------------------------------------------------------
+
+
+def page_walk_plain(q_rows: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, page_table: torch.Tensor,
+                    kv_lens: torch.Tensor,
+                    mask_fn: Callable[[torch.Tensor], torch.Tensor]
+                    ) -> torch.Tensor:
+    """The kernels' page walk in torch.
+
+    Args:
+      q_rows:  [B, KV, R, D] query rows of each (row, kv head) block
+      k/v_cache: [KV, pages, D, page_size]
+      page_table: [B, max_pages]; kv_lens: [B]
+      mask_fn: token positions [C] -> validity mask broadcastable to
+               [B, KV, R, C] (the counterpart of the kernels' mask
+               functor)
+
+    Walks ceil(kv_len / 128) chunks per row: pages of a chunk past
+    ceil(kv_len / page_size) read as zeros, scores outside the mask
+    are -1e30, and m, l, acc run the online softmax in f32. Returns
+    acc / max(l, 1e-30) in f32 — exact 0 for a row with kv_len 0.
+    """
+    b, kvh, rows, d = q_rows.shape
+    page_size = k_cache.shape[-1]
+    pages_per_chunk = max(1, CHUNK_TOKENS // page_size)
+    chunk = pages_per_chunk * page_size
+    dev = q_rows.device
+    kv_lens = kv_lens.long()
+    max_pages = page_table.shape[1]
+    n_chunks = -(-max_pages // pages_per_chunk)
+    if max_pages % pages_per_chunk:
+        page_table = torch.nn.functional.pad(
+            page_table, (0, n_chunks * pages_per_chunk - max_pages))
+    page_table = page_table.long()
+    pages_needed = -(-kv_lens // page_size)
+    row_chunks = -(-kv_lens // chunk)
+    walk = min(n_chunks, int(row_chunks.max()) if b else 0)
+
+    q = q_rows.float()
+    scale = 1.0 / d ** 0.5
+    m = torch.full((b, kvh, rows, 1), NEG_INF, device=dev)
+    l = torch.zeros((b, kvh, rows, 1), device=dev)
+    acc = torch.zeros((b, kvh, rows, d), device=dev)
+    lane = torch.arange(pages_per_chunk, device=dev)
+    for c in range(walk):
+        ids = page_table[:, c * pages_per_chunk:(c + 1) * pages_per_chunk]
+        live = (c * pages_per_chunk + lane)[None] < pages_needed[:, None]
+
+        def stage(cache):
+            tile = cache[:, ids].float()  # [KV, B, ppc, D, ps]
+            tile = torch.where(live[None, :, :, None, None], tile, 0.0)
+            return tile.permute(1, 0, 3, 2, 4).reshape(b, kvh, d, chunk)
+
+        k, v = stage(k_cache), stage(v_cache)
+        s = (q @ k) * scale  # [B, KV, R, C]
+        token_pos = c * chunk + torch.arange(chunk, device=dev)
+        s = torch.where(mask_fn(token_pos), s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        active = (c < row_chunks)[:, None, None, None]
+        l = torch.where(active, l * alpha + p.sum(-1, keepdim=True), l)
+        acc = torch.where(active, acc * alpha + p @ v.transpose(-1, -2),
+                          acc)
+        m = torch.where(active, m_new, m)
+    return acc / torch.clamp(l, min=1e-30)

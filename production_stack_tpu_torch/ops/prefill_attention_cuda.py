@@ -1,0 +1,110 @@
+"""Paged chunked-prefill attention: T query tokens per row against the
+row's pages, causal.
+
+Replaces the Pallas TPU kernel ``paged_prefill_attention``
+(production_stack_tpu/ops/prefill_attention_pallas.py:149, body
+``_prefill_kernel`` at :76) with the CUDA kernel in
+``csrc/paged_prefill.cu``. It serves prefill steps and the unified
+mixed steps composed through it.
+
+What bounds it on the card: at long T, operations. A 512-token chunk
+does 4 * num_q_heads * head_dim * (visible tokens) operations per
+query while the KV it reads is shared by the G * T query rows of a kv
+head, so it sits far above the ~295 operations per byte ridge. The
+design keeps each kv head's queries in blocks of 64 rows (grid:
+batch, kv_head, query tile) that reuse every staged 128-token chunk
+of K and V from shared memory, and a tile stops walking at the last
+chunk its highest query position can see, which skips only work that
+is fully masked. The arithmetic is FMA in f32 on the CUDA cores, not
+yet the tensor cores (wgmma), so it runs well short of that bound.
+
+Contract (the Pallas kernel's): q [B, T, num_q_heads, head_dim];
+q_positions [B, T] int32 contiguous per row — only the row start
+``q_positions[:, 0]`` reaches the kernel, which rebuilds query t's
+position as start + t (pad slots included); mask ``token_pos <= q_pos
+& token_pos < kv_len``; a row with kv_len 0 writes exact 0.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from production_stack_tpu_torch.ops.paged_kv_common import (
+    COUNTERS,
+    check_cache,
+    check_kernel_operands,
+    check_launch,
+    dtype_code,
+    kernel_lib,
+    page_walk_plain,
+    stream_ptr,
+)
+
+KERNEL_NAME = "paged_prefill"
+
+
+def paged_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor,
+                            page_table: torch.Tensor,
+                            q_positions: torch.Tensor,
+                            kv_lens: torch.Tensor) -> torch.Tensor:
+    """Chunked-prefill attention against a sequence's cached pages.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    or raise. Raises NotImplementedError on the int8 and stacked cache
+    forms, which are not ported yet.
+    """
+    check_cache(k_cache, v_cache)
+    if q.device.type == "cpu":
+        return paged_prefill_attention_plain(
+            q, k_cache, v_cache, page_table, q_positions, kv_lens)
+    b, t, num_q_heads, head_dim = q.shape
+    num_kv_heads, num_pages, _, page_size = k_cache.shape
+    out = torch.empty_like(q)
+    check_kernel_operands(
+        q, k_cache, v_cache,
+        (("page_table", page_table), ("q_positions", q_positions),
+         ("kv_lens", kv_lens)), out)
+    if (kv_lens.shape != (b,) or page_table.shape[0] != b
+            or q_positions.shape != (b, t)):
+        raise ValueError("page_table/q_positions/kv_lens rows must "
+                         "match the batch")
+    err = kernel_lib().pstt_paged_prefill(
+        dtype_code(q.dtype), q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), page_table.data_ptr(),
+        q_positions.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+        b, t, num_q_heads, num_kv_heads, head_dim, num_pages,
+        page_size, page_table.shape[1], stream_ptr())
+    check_launch(KERNEL_NAME, err)
+    COUNTERS.launched(KERNEL_NAME)
+    return out
+
+
+def paged_prefill_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                                  v_cache: torch.Tensor,
+                                  page_table: torch.Tensor,
+                                  q_positions: torch.Tensor,
+                                  kv_lens: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain torch: the same chunked page walk,
+    query positions rebuilt as ``q_positions[:, 0] + t``, the causal
+    mask and the online softmax."""
+    check_cache(k_cache, v_cache)
+    if q.is_cuda:
+        COUNTERS.plain_on_cuda(KERNEL_NAME)
+    b, t, num_q_heads, head_dim = q.shape
+    num_kv_heads = k_cache.shape[0]
+    group = num_q_heads // num_kv_heads
+    # Rows of one kv head's block are (g, t) flattened g-major, as in
+    # the kernel: row r is query head g = r // T at chunk offset r % T.
+    qg = (q.reshape(b, t, num_kv_heads, group, head_dim)
+          .permute(0, 2, 3, 1, 4)
+          .reshape(b, num_kv_heads, group * t, head_dim))
+    rows = torch.arange(group * t, device=q.device)
+    q_pos = (q_positions[:, :1].long()
+             + (rows % t)[None, :])[:, None, :, None]  # [B, 1, R, 1]
+    kv = kv_lens.long()[:, None, None, None]
+    out = page_walk_plain(qg, k_cache, v_cache, page_table, kv_lens,
+                          lambda pos: (pos <= q_pos) & (pos < kv))
+    return (out.reshape(b, num_kv_heads, group, t, head_dim)
+            .permute(0, 3, 1, 2, 4)
+            .reshape(b, t, num_q_heads, head_dim).to(q.dtype))

@@ -1,0 +1,183 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips where ``torch.cuda.is_available()``
+is false (decided in the ``dev`` fixture, never at import). On a
+machine with an NVIDIA GPU:
+
+    python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
+
+Covers every geometry the kernels are built for (bench-1b: bf16,
+query group 4, head_dim 64; tiny-llama: f32, query group 2, head_dim
+32), page sizes 8 to 128, pad rows, first and later prefill chunks,
+the wrappers' refusals, and the tiny engine's greedy streams on the
+card against the CPU.
+
+Tolerance: f32 at atol = rtol = 1e-4 (the same arithmetic, sums in
+another order); bf16 at atol = rtol = 2e-2 (outputs rounded to bf16,
+compared in f32).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from production_stack_tpu_torch.ops.paged_attention_cuda import (
+    paged_decode_attention,
+    paged_decode_attention_plain,
+)
+from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
+from production_stack_tpu_torch.ops.prefill_attention_cuda import (
+    paged_prefill_attention,
+    paged_prefill_attention_plain,
+)
+
+pytestmark = pytest.mark.cuda
+
+# (dtype, query group, head dim) of each model config the kernels are
+# built for (csrc/paged_kv_common.cuh, PSTT_FOR_EACH_GEOMETRY).
+GEOMETRIES = [(torch.bfloat16, 4, 64), (torch.float32, 2, 32)]
+
+TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+       torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU "
+                    "mode; their plain versions are tested on the CPU)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(dev, dtype, b, kv_lens, group, kv_heads, head_dim, page_size,
+            seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    max_pages = -(-max(max(kv_lens), 1) // page_size) + 1
+    num_pages = b * max_pages + 1
+    shape = (kv_heads, num_pages, head_dim, page_size)
+    k = torch.randn(shape, generator=g).to(dev, dtype)
+    v = torch.randn(shape, generator=g).to(dev, dtype)
+    table = torch.zeros((b, max_pages), dtype=torch.int32)
+    perm = torch.randperm(num_pages - 1, generator=g) + 1
+    used = 0
+    for i, n in enumerate(kv_lens):
+        need = -(-n // page_size)
+        table[i, :need] = perm[used:used + need]
+        used += need
+    lens = torch.tensor(kv_lens, dtype=torch.int32)
+    return k, v, table.to(dev), lens.to(dev), g
+
+
+@pytest.mark.parametrize("page_size", [16, 128])
+@pytest.mark.parametrize("dtype,group,head_dim", GEOMETRIES)
+def test_decode_kernel_matches_plain(dev, dtype, group, head_dim,
+                                     page_size):
+    kv_lens = [1, 0, 127, 128, 129, 300, 517]
+    k, v, table, lens, g = _inputs(dev, dtype, len(kv_lens), kv_lens,
+                                   group, 2, head_dim, page_size, 1)
+    q = torch.randn((len(kv_lens), 2 * group, head_dim),
+                    generator=g).to(dev, dtype)
+    got = paged_decode_attention(q, k, v, table, lens)
+    ref = paged_decode_attention_plain(q, k, v, table, lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+    assert not got[1].any()  # the pad row writes exact 0
+
+
+@pytest.mark.parametrize("page_size", [8, 16, 32, 64, 128])
+def test_decode_kernel_page_sizes(dev, page_size):
+    kv_lens = [5, 0, 200, 640]
+    k, v, table, lens, g = _inputs(dev, torch.bfloat16, 4, kv_lens, 4, 8,
+                                   64, page_size, 2)
+    q = torch.randn((4, 32, 64), generator=g).to(dev, torch.bfloat16)
+    got = paged_decode_attention(q, k, v, table, lens)
+    ref = paged_decode_attention_plain(q, k, v, table, lens)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("page_size", [16, 128])
+@pytest.mark.parametrize("first_chunk", [True, False])
+@pytest.mark.parametrize("dtype,group,head_dim", GEOMETRIES)
+def test_prefill_kernel_matches_plain(dev, dtype, group, head_dim,
+                                      first_chunk, page_size):
+    t = 80
+    live = [80, 33, 0, 1]
+    start = 0 if first_chunk else 150
+    kv_lens = [start + n if n else 0 for n in live]
+    k, v, table, lens, g = _inputs(dev, dtype, 4, kv_lens, group, 2,
+                                   head_dim, page_size, 3)
+    q = torch.randn((4, t, 2 * group, head_dim), generator=g).to(dev,
+                                                                  dtype)
+    starts = torch.tensor([start if n else 0 for n in live],
+                          dtype=torch.int32, device=dev)
+    pos = (starts[:, None] + torch.arange(t, dtype=torch.int32,
+                                          device=dev)).contiguous()
+    got = paged_prefill_attention(q, k, v, table, pos, lens)
+    ref = paged_prefill_attention_plain(q, k, v, table, pos, lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+    assert not got[2].any()
+
+
+def test_wrappers_launch_and_count(dev):
+    COUNTERS.reset()
+    k, v, table, lens, g = _inputs(dev, torch.bfloat16, 2, [3, 9], 4, 2,
+                                   64, 16, 4)
+    q = torch.randn((2, 8, 64), generator=g).to(dev, torch.bfloat16)
+    paged_decode_attention(q, k, v, table, lens)
+    assert COUNTERS.launches == {"paged_decode": 1}
+    paged_decode_attention_plain(q, k, v, table, lens)
+    assert COUNTERS.plain_cuda_calls == {"paged_decode": 1}
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    k, v, table, lens, g = _inputs(dev, torch.bfloat16, 2, [3, 9], 4, 2,
+                                   64, 16, 5)
+    q = torch.randn((2, 8, 64), generator=g).to(dev, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_decode_attention(q, k.transpose(2, 3).contiguous()
+                               .transpose(2, 3), v, table, lens)
+    with pytest.raises(ValueError, match="int32"):
+        paged_decode_attention(q, k, v, table.long(), lens)
+    with pytest.raises(NotImplementedError, match="query group"):
+        paged_decode_attention(q[:, :6].contiguous(), k, v, table, lens)
+    with pytest.raises(NotImplementedError, match="not built for"):
+        paged_decode_attention(q.float(), k.float(), v.float(), table,
+                               lens)
+    with pytest.raises(NotImplementedError):
+        paged_decode_attention(q.half(), k.half(), v.half(), table, lens)
+
+
+def test_engine_greedy_streams_on_the_card_match_the_cpu(dev):
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig, EngineConfig, SchedulerConfig, tiny_model_config)
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    from production_stack_tpu_torch.models.llama import init_params
+
+    cfg = EngineConfig(
+        model=tiny_model_config("llama"),
+        cache=CacheConfig(page_size=16, num_pages=128),
+        scheduler=SchedulerConfig(max_num_seqs=4, max_model_len=256,
+                                  prefill_chunk_size=32,
+                                  unified_step=True,
+                                  async_scheduling=True))
+    params = init_params(cfg.model, torch.Generator().manual_seed(0),
+                         torch.device("cpu"))
+    rs = np.random.RandomState(7)
+    prompts = [[4, 5, 6] * 13, [8] * 10, [21, 22, 23, 24] * 20,
+               [int(x) for x in rs.randint(1, 500, size=41)]]
+    sp = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True)
+    streams = []
+    COUNTERS.reset()
+    for device in ("cpu", "cuda"):
+        engine = LLMEngine(cfg, params=params, device=device)
+        streams.append([s.output_token_ids
+                        for s in engine.generate_batch(prompts, sp)])
+    assert streams[0] == streams[1]
+    assert COUNTERS.launches["paged_prefill"] > 0
+    assert COUNTERS.launches["paged_decode"] > 0
+    assert not COUNTERS.plain_cuda_calls
