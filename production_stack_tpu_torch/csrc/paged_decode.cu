@@ -95,8 +95,9 @@ extern "C" int pstt_paged_decode(int dtype, const void* q, const void* k,
   return cudaErrorInvalidValue;
 }
 
-// 1 if both kernels are built for this dtype code, query group and head
-// dim, else 0.
+// 1 if the kernels (decode, prefill, ragged: all three dispatch through
+// PSTT_FOR_EACH_GEOMETRY) are built for this dtype code, query group
+// and head dim, else 0.
 extern "C" int pstt_kernel_supports(int dtype, int group, int head_dim) {
 #define PSTT_SUPPORTS_CASE(code, T, G, D) \
   if (dtype == code && group == G && head_dim == D) return 1;

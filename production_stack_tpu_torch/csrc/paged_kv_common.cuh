@@ -1,5 +1,6 @@
-// The page walk shared by the paged decode and chunked-prefill
-// attention kernels (paged_decode.cu, paged_prefill.cu).
+// The page walk shared by the paged decode, chunked-prefill and ragged
+// attention kernels (paged_decode.cu, paged_prefill.cu,
+// paged_ragged.cu).
 //
 // Counterpart of make_page_dma / run_page_walk in the JAX package's
 // ops/paged_kv_common.py. One block owns one (row, kv head) pair and a
@@ -17,9 +18,10 @@
 //
 // The mask is a template parameter (the counterpart of run_page_walk's
 // mask_fn): it gives each row the exclusive upper bound of the token
-// positions it attends. Shared-memory rows have an odd stride in
-// words, so a warp reading one column of K, V or the scores touches
-// 32 different banks.
+// positions it attends. So is the map from a block's rows to query
+// rows in device memory (RowMap, g-major; SlotMajorRows, slot-major).
+// Shared-memory rows have an odd stride in words, so a warp reading one
+// column of K, V or the scores touches 32 different banks.
 
 #pragma once
 
@@ -35,8 +37,9 @@ constexpr float kNegInf = -1e30f;
 
 // The one list of what the kernels are built for: X(dtype code, element
 // type, query group = q heads per kv head, head dim), one entry per
-// model config the engine serves. Both kernels dispatch through it, and
-// pstt_kernel_supports() (paged_decode.cu) answers the host from it.
+// model config the engine serves. All three kernels dispatch through
+// it, and pstt_kernel_supports() (paged_decode.cu) answers the host
+// from it.
 // Add a line when a config needs another geometry.
 #define PSTT_FOR_EACH_GEOMETRY(X)                      \
   X(0, __nv_bfloat16, 4, 64) /* bench-1b */            \
@@ -93,6 +96,25 @@ struct RowMap {
   }
 };
 
+// Where query/output row r of a block lives when the rows are (t, g)
+// pairs flattened slot-major: the G query heads of one slot are
+// adjacent, so the live slots of a ragged row form one prefix of its
+// rows and a decode row's G queries share one tile.
+struct SlotMajorRows {
+  size_t base;  // element offset of (row b, slot 0, q head h * G)
+  int group;    // G
+  int num_q_heads;
+  int head_dim;
+  int row0;     // first flattened row of this block
+
+  __device__ __forceinline__ size_t offset(int r) const {
+    const int rg = row0 + r;
+    const int t = rg / group;
+    const int g = rg - t * group;
+    return base + ((size_t)t * num_q_heads + g) * head_dim;
+  }
+};
+
 // Decode: every row attends pos < kv_len.
 struct DecodeMask {
   int kv_len;
@@ -118,6 +140,28 @@ struct CausalMask {
     const int last = (row0 + nrows - 1) % tokens;
     const int t_max = first <= last ? last : tokens - 1;
     return min(q_start + t_max + 1, kv_len);
+  }
+};
+
+// Ragged row of a unified block (rows slot-major): slot t is live when
+// t <= last_index, sits at q_start + t with q_start = kv_len - 1 -
+// last_index, and attends pos <= q_start + t and pos < kv_len. A dead
+// slot's limit is 0.
+struct RaggedMask {
+  int kv_len;
+  int last_index;
+  int group;  // G
+  int row0;
+  __device__ __forceinline__ int limit(int r) const {
+    const int t = (row0 + r) / group;
+    return t <= last_index
+               ? min(kv_len - 1 - last_index + t + 1, kv_len)
+               : 0;
+  }
+  // Largest limit over this block's rows [0, nrows), all live: the
+  // slot of the last row has the largest.
+  __device__ __forceinline__ int max_limit(int nrows) const {
+    return limit(nrows - 1);
   }
 };
 
@@ -178,9 +222,10 @@ __device__ __forceinline__ float warp_sum(float x) {
 //   k/v_head:    this kv head's [num_pages, D, page_size] pages
 //   pt_row:      this row's page-table entries (max_pages of them)
 //   nrows:       valid rows of the block (<= ROWS); the rest are pad
-template <typename T, int D, int ROWS, int TY, int NT, class Mask>
+template <typename T, int D, int ROWS, int TY, int NT, class Mask,
+          class Rows>
 __device__ void page_walk_block(const T* __restrict__ q,
-                                T* __restrict__ out, RowMap rows,
+                                T* __restrict__ out, Rows rows,
                                 const T* __restrict__ k_head,
                                 const T* __restrict__ v_head,
                                 const int* __restrict__ pt_row,

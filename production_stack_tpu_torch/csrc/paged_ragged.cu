@@ -1,0 +1,139 @@
+// Paged ragged attention for Hopper (sm_90a): the unified [R, W] step.
+//
+// Replaces the Pallas TPU kernel paged_ragged_attention
+// (production_stack_tpu/ops/ragged_attention_pallas.py:174, body
+// _ragged_kernel at :93). Each row of the block carries the descriptor
+// (kv_len, last_index, draft_len): slot t is live when t <= last_index
+// and sits at q_start + t, q_start = kv_len - 1 - last_index; it
+// attends pos <= q_start + t and pos < kv_len (RaggedMask). draft_len
+// is taken and not read: a verify row's draft span masks itself
+// causally. Dead slots and pad rows (kv_len 0) write exact 0.
+//
+// Grid (query tile, kv_head, row). The G * W query rows of a (row, kv
+// head) pair are flattened slot-major, (t, g), and cut into tiles of
+// 64, so a row's live queries are one prefix of its rows: a decode
+// row's G queries sit in its first tile, a verify row's (K + 1) * G in
+// its first one or two. A tile with no live row writes its zeros and
+// returns without staging K/V. A tile with live rows walks the row's
+// pages once for all of them (paged_kv_common.cuh page_walk_block),
+// with the narrowest of three row blocks (8, 32 or 64 rows) that holds
+// them, so a decode row does not pay for 64 rows of arithmetic. The
+// walk stops at the last chunk the tile's highest live slot can see.
+//
+// C interface (loaded with ctypes by ops/paged_kv_common.py):
+//   q/out [R, W, num_q_heads, D]; k/v cache [kv_heads, num_pages, D,
+//   page_size]; page_table [R, max_pages], kv_lens [R], last_index
+//   [R], draft_lens [R] or null, all int32; dtype 0 = bf16, 1 = f32.
+// Launches on `stream`, allocates nothing, does not synchronise, and
+// returns cudaGetLastError() after the launch.
+
+#include "paged_kv_common.cuh"
+
+namespace pstt {
+namespace {
+
+constexpr int kRaggedThreads = 256;
+constexpr int kRaggedTile = 64;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kRaggedThreads)
+paged_ragged_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
+                    const T* __restrict__ v_cache,
+                    const int* __restrict__ page_table,
+                    const int* __restrict__ kv_lens,
+                    const int* __restrict__ last_index, T* __restrict__ out,
+                    int width, int num_q_heads, int group, int num_pages,
+                    int page_size, int max_pages) {
+  const int tile = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int row0 = tile * kRaggedTile;
+  const int tile_rows = min(kRaggedTile, group * width - row0);
+  const int kv_len = kv_lens[b];
+  const int last = kv_len > 0 ? last_index[b] : -1;
+  const int live =
+      max(0, min((min(last, width - 1) + 1) * group - row0, tile_rows));
+  const SlotMajorRows rows{
+      ((size_t)b * width * num_q_heads + (size_t)h * group) * D, group,
+      num_q_heads, D, row0};
+
+  // Dead slots of this tile: exact 0.
+  for (int i = live * D + threadIdx.x; i < tile_rows * D;
+       i += kRaggedThreads) {
+    const int r = i / D;
+    out[rows.offset(r) + (i - r * D)] = from_f32<T>(0.f);
+  }
+  if (live == 0) return;
+
+  const size_t head_elems = (size_t)num_pages * D * page_size;
+  const T* k_head = k_cache + h * head_elems;
+  const T* v_head = v_cache + h * head_elems;
+  const int* pt_row = page_table + (size_t)b * max_pages;
+  const RaggedMask mask{kv_len, last, group, row0};
+  if (live <= 8) {
+    page_walk_block<T, D, 8, 8, kRaggedThreads>(
+        q, out, rows, k_head, v_head, pt_row, max_pages, page_size, kv_len,
+        mask, live);
+  } else if (live <= 32) {
+    page_walk_block<T, D, 32, 8, kRaggedThreads>(
+        q, out, rows, k_head, v_head, pt_row, max_pages, page_size, kv_len,
+        mask, live);
+  } else {
+    page_walk_block<T, D, kRaggedTile, 16, kRaggedThreads>(
+        q, out, rows, k_head, v_head, pt_row, max_pages, page_size, kv_len,
+        mask, live);
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* pt,
+           const void* kv_lens, const void* last_index, void* out,
+           int rows, int width, int num_q_heads, int num_kv_heads,
+           int num_pages, int page_size, int max_pages,
+           cudaStream_t stream) {
+  // The widest row block's layout; the narrower ones use a prefix.
+  constexpr size_t smem = SmemLayout<D, kRaggedTile>::bytes;
+  auto kernel = paged_ragged_kernel<T, D>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
+  const int group = num_q_heads / num_kv_heads;
+  const int tiles = (group * width + kRaggedTile - 1) / kRaggedTile;
+  kernel<<<dim3(tiles, num_kv_heads, rows), kRaggedThreads, smem,
+           stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(pt),
+      static_cast<const int*>(kv_lens),
+      static_cast<const int*>(last_index), static_cast<T*>(out), width,
+      num_q_heads, group, num_pages, page_size, max_pages);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace pstt
+
+extern "C" int pstt_paged_ragged(int dtype, const void* q, const void* k,
+                                 const void* v, const void* page_table,
+                                 const void* kv_lens,
+                                 const void* last_index,
+                                 const void* draft_lens, void* out,
+                                 int rows, int width, int num_q_heads,
+                                 int num_kv_heads, int head_dim,
+                                 int num_pages, int page_size,
+                                 int max_pages, void* stream) {
+  (void)draft_lens;  // the draft span masks itself causally
+  if (num_kv_heads <= 0 || num_q_heads % num_kv_heads ||
+      page_size <= 0 || pstt::kChunk % page_size)
+    return cudaErrorInvalidValue;
+  if (rows == 0 || width == 0) return cudaSuccess;
+  const int group = num_q_heads / num_kv_heads;
+  auto s = static_cast<cudaStream_t>(stream);
+#define PSTT_RAGGED_CASE(code, T, G, D)                                    \
+  if (dtype == code && group == G && head_dim == D)                        \
+    return pstt::launch<T, D>(q, k, v, page_table, kv_lens, last_index,    \
+                              out, rows, width, num_q_heads, num_kv_heads, \
+                              num_pages, page_size, max_pages, s);
+  PSTT_FOR_EACH_GEOMETRY(PSTT_RAGGED_CASE)
+#undef PSTT_RAGGED_CASE
+  return cudaErrorInvalidValue;
+}

@@ -3,9 +3,10 @@
 The same field names as the JAX engine's configuration, with torch
 dtypes in place of ``jnp`` ones. Only the fields of the port's slice
 are here: one llama-family model on one device, bf16 KV in per-layer
-pages, continuous batching with the async pipeline and the unified
-ragged step. Parallelism, offload, LoRA, QoS, autotuning and the KV
-economy join the port with the features that read them.
+pages, continuous batching with the async pipeline, the unified
+ragged step and prompt-lookup speculative decoding. Parallelism,
+offload, LoRA, QoS, autotuning and the KV economy join the port with
+the features that read them.
 """
 
 from __future__ import annotations
@@ -112,7 +113,24 @@ class SchedulerConfig:
     # Unified ragged step: plan prefill chunks INTO decode steps and
     # execute the mixed batch as one [rows, W] block.
     unified_step: bool = False
+    # Draft-free speculative decoding (prompt lookup, engine/spec.py):
+    # propose up to K continuation tokens per row from each sequence's
+    # own n-gram history and verify all K + 1 positions in ONE ragged
+    # step. 0 = off. Composes with async_scheduling (the ahead plan
+    # assumes one committed token per row and drops the rows whose
+    # verify committed more) and with unified_step (drafts ride the
+    # mixed step's decode rows).
+    speculative_k: int = 0
+    # Minimum n-gram length the proposer must match in the sequence's
+    # history before drafting its continuation.
+    speculative_min_match: int = 2
     max_queue_len: int = 1024
+
+    def __post_init__(self):
+        if self.speculative_k < 0:
+            raise ValueError("speculative_k must be >= 0 (0 = off)")
+        if self.speculative_k > 0 and self.speculative_min_match < 1:
+            raise ValueError("speculative_min_match must be >= 1")
 
     def max_pages_per_seq(self, page_size: int) -> int:
         return math.ceil(self.max_model_len / page_size)

@@ -5,7 +5,10 @@ conveniences for tests and benchmarks; the HTTP server
 (engine/server.py) drives the same core from a background thread.
 With ``scheduler.async_scheduling`` decode runs through the overlapped
 pipeline: step N+1 is planned and queued on the card before step N's
-tokens are read back.
+tokens are read back. With ``scheduler.speculative_k`` decode steps
+whose rows drafted become verify steps, which commit 1..K + 1 tokens a
+row; under the pipeline, the successor of a verify step assumes one
+token and its stale rows are dropped (``_complete``).
 """
 
 from __future__ import annotations
@@ -167,20 +170,44 @@ class LLMEngine:
                     outputs.append(self._delta(chunk.seq, token))
         return tr - td
 
-    def _commit_decode(self, seqs, token_lists, outputs) -> None:
-        """Commit decode rows' tokens (caller holds the lock)."""
+    def _commit_decode(self, seqs, token_lists, outputs, drafts=None,
+                       expected_lens=None) -> None:
+        """Commit decode rows' tokens (caller holds the lock).
+
+        ``drafts`` (verify steps): per-row draft lists; each row emits
+        accepted + 1 tokens, counted before any stop truncation so the
+        acceptance rate reflects the model, not request budgets.
+        ``expected_lens`` (the assume-one-token successor of a verify
+        step): rows whose total_len differs from it are stale — the
+        verify committed more than one token, so this sample came from
+        incomplete context — and are dropped. Their KV write was
+        correct either way: it fed the first committed token."""
         now = time.time()
-        for seq, toks in zip(seqs, token_lists):
+        drafted = accepted = 0
+        for i, (seq, toks) in enumerate(zip(seqs, token_lists)):
             if seq is None:  # plan-ahead masked slot
                 continue
+            if expected_lens is not None and (
+                    expected_lens[i] is None
+                    or seq.total_len != expected_lens[i]):
+                continue
+            if drafts is not None:
+                drafted += len(drafts[i])
+                accepted += len(toks) - 1
+                seq.spec_drafted_total += len(drafts[i])
+                seq.spec_accepted_total += max(0, len(toks) - 1)
             emitted = 0
             for tok in toks:
                 if seq.state != SequenceState.RUNNING:
-                    break
+                    break  # stop hit mid-span: drop the tail
                 self.scheduler.append_decode_token(seq, tok)
                 emitted += 1
                 outputs.append(self._delta(seq, tok))
             self.metrics.on_decode_tokens(seq, emitted, now)
+            if drafts is not None:
+                self.scheduler.on_spec_executed(seq)
+        if drafts is not None:
+            self.metrics.on_spec_step(drafted, accepted)
 
     def _execute_decode_sync(self, plan, outputs) -> float:
         td = time.perf_counter()
@@ -189,12 +216,14 @@ class LLMEngine:
         tr = time.perf_counter()
         self._idle_mark = tr
         with self._lock:
-            self._commit_decode(plan.decode.seqs, token_lists, outputs)
+            self._commit_decode(plan.decode.seqs, token_lists, outputs,
+                                drafts=plan.decode.drafts)
         return tr - td
 
     def _execute_unified(self, plan, outputs) -> float:
-        """One unified ragged step: decode rows and prefill chunk rows
-        commit out of a single device step."""
+        """One unified ragged step: decode rows (through the verify
+        contract, 1..K + 1 tokens each) and prefill chunk rows commit
+        out of a single device step."""
         td = time.perf_counter()
         self._note_dispatch(td)
         token_lists, prefill_toks = self.runner.run_unified(plan)
@@ -207,7 +236,8 @@ class LLMEngine:
             pad_rows=(self.runner.last_unified_rows
                       - len(chunks) - len(seqs)))
         with self._lock:
-            self._commit_decode(seqs, token_lists, outputs)
+            self._commit_decode(seqs, token_lists, outputs,
+                                drafts=plan.decode.drafts)
             for chunk, token in zip(chunks, prefill_toks):
                 self.scheduler.on_prefill_executed(chunk, token)
                 if chunk.is_last_chunk:
@@ -225,11 +255,24 @@ class LLMEngine:
         handle = self._in_flight
         if handle is not None:
             t0 = time.perf_counter()
-            with self._lock:
-                rows = self.scheduler.plan_ahead(handle.rows)
+            rows = None
+            if handle.expected_lens is None:
+                with self._lock:
+                    rows = self.scheduler.plan_ahead(handle.rows)
+            # else: this handle is the assume-one-token successor of a
+            # verify step. Complete it (dropping its stale rows) and
+            # re-plan from fresh host state: chaining another step off
+            # a possibly stale token source never recovers.
             if rows is not None:
-                self._in_flight = self.runner.dispatch_decode(
+                nxt = self.runner.dispatch_decode(
                     rows, token_source=handle.token_source, ahead=True)
+                if handle.is_spec:
+                    # The successor assumed each row commits exactly one
+                    # token; record the total_len that predicts.
+                    nxt.expected_lens = [
+                        None if seq is None else seq.total_len + 1
+                        for seq in rows]
+                self._in_flight = nxt
                 outputs, wait_s = self._complete(handle)
                 # No _idle_mark here: step N+1 was queued before step
                 # N's results were read — the device never idled.
@@ -267,11 +310,16 @@ class LLMEngine:
                 device_wait_s=wait_s, ahead=False)
             self._pop_finished(outputs)
             return outputs
-        # Pure-decode plan: queue it and return without waiting; the
-        # next turn plans ahead against it.
+        # Pure-decode or verify plan: queue it and return without
+        # waiting; the next turn plans ahead against it (a verify
+        # step's commit count is data-dependent, so its successor
+        # assumes one token and reconciles in _complete).
         self._note_dispatch(time.perf_counter())
-        self._in_flight = self.runner.dispatch_decode(
-            plan.decode.seqs[: self.runner.decode_width])
+        if plan.decode.drafts is not None:
+            self._in_flight = self.runner.dispatch_spec(plan.decode)
+        else:
+            self._in_flight = self.runner.dispatch_decode(
+                plan.decode.seqs[: self.runner.decode_width])
         self.metrics.set_inflight_depth(1)
         self.metrics.on_pipeline_step(
             host_s=time.perf_counter() - t0, device_wait_s=0.0,
@@ -280,16 +328,20 @@ class LLMEngine:
         return outputs
 
     def _complete(self, handle) -> tuple:
-        """Read back + reconcile one queued decode step through the same
-        commit path as the sync loop. Rows that finished or were
-        aborted mid-flight drop their token; plan-ahead boundary pages
-        ride seq.pages and return through the ordinary free path."""
+        """Read back + reconcile one queued decode or verify step
+        through the same commit path as the sync loop. Rows that
+        finished or were aborted mid-flight drop their token;
+        plan-ahead boundary pages ride seq.pages and return through the
+        ordinary free path. A successor of a verify step drops its
+        stale rows (``expected_lens``)."""
         tw = time.perf_counter()
         token_lists = handle.result()
         wait_s = time.perf_counter() - tw
         outputs: List[StepOutput] = []
         with self._lock:
-            self._commit_decode(handle.rows, token_lists, outputs)
+            self._commit_decode(handle.rows, token_lists, outputs,
+                                drafts=handle.drafts,
+                                expected_lens=handle.expected_lens)
         self._pop_finished(outputs)
         return outputs, wait_s
 
@@ -346,6 +398,10 @@ class LLMEngine:
             "engine_ragged_steps_total": m.ragged_steps_total,
             "engine_ragged_rows_total": m.ragged_rows_total,
             "engine_ragged_pad_rows_total": m.ragged_pad_rows_total,
+            "spec_decode_num_draft_tokens_total":
+                m.spec_draft_tokens_total,
+            "spec_decode_num_accepted_tokens_total":
+                m.spec_accepted_tokens_total,
             "engine_kv_cache_page_capacity":
                 self.config.cache.num_pages - 1,
             "engine_kv_bytes_per_decode_step":

@@ -8,10 +8,14 @@ slot width, unified [R, W] blocks on a row-bucket lattice — so the
 kernels see the same shapes on both, and a later CUDA-graph capture
 has a small set to capture.
 
-One impl per phase on the card: decode steps go through the decode
-kernel, prefill and unified mixed steps through the chunked-prefill
-kernel (models/llama.dispatch_attention). The JAX runner's lowering
-probes and impl ladders have no counterpart.
+One kernel per step kind on the card, named by the runner (never
+inferred from shapes): decode steps go through the decode kernel,
+prefill steps through the chunked-prefill kernel, unified mixed steps
+and speculative verify steps through the ragged kernel
+(models/llama.dispatch_attention). The JAX runner's lowering probes
+and impl ladders have no counterpart; its verify program attends
+through the prefill path, the port's through the ragged kernel, whose
+contract on live slots is the same.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ logger = init_logger(__name__)
 
 KIND_PREFILL = 1
 KIND_DECODE = 2
+KIND_SPEC = 4
 KIND_UNIFIED = 5
 
 
@@ -90,12 +95,20 @@ class DecodeStepHandle:
     host round trip, and ``result()`` is the step's one ``.cpu()``.
     """
 
+    is_spec = False
+    drafts = None
+
     def __init__(self, rows, sampled: torch.Tensor):
         # List[Optional[Sequence]]: None rows are plan-ahead slots
         # whose sequence was already known to finish (dispatched as
         # masked pad rows so row alignment with token_source holds).
         self.rows = rows
         self.sampled = sampled
+        # Set on the assume-one-token successor of a verify step: per
+        # row, the total_len that assumption predicts. The engine
+        # drops the rows whose verify committed more (their sample
+        # came from incomplete context).
+        self.expected_lens: Optional[List[Optional[int]]] = None
 
     @property
     def token_source(self) -> torch.Tensor:
@@ -105,6 +118,40 @@ class DecodeStepHandle:
     def result(self) -> List[List[int]]:
         host = self.sampled.cpu().tolist()
         return [[host[i]] for i in range(len(self.rows))]
+
+
+class SpecStepHandle:
+    """One dispatched-but-unread speculative verify step.
+
+    The async pipeline treats a verify step as a decode step with a
+    data-dependent commit count (1..K + 1 tokens a row).
+    ``token_source`` is the [B] device tensor of each row's FIRST
+    emitted token: whatever the acceptance, it is committed, and the
+    assume-one-token successor that feeds it at position L writes
+    position L's correct KV either way (the verify step's own write of
+    the accepted first draft again, up to the decode kernel's order of
+    sums, or a repair of the rejected draft's KV). ``result()`` is the
+    step's one ``.cpu()``.
+    """
+
+    is_spec = True
+    # A verify step is never dispatched behind an unread verify step
+    # (the engine breaks the pipeline instead).
+    expected_lens = None
+
+    def __init__(self, rows, drafts, sampled: torch.Tensor):
+        self.rows = rows  # List[Sequence], no None slots
+        self.drafts = drafts  # per-row draft lists, parallel to rows
+        self.sampled = sampled  # [B, K + 1], -1 past each row's tokens
+
+    @property
+    def token_source(self) -> torch.Tensor:
+        return self.sampled[:, 0]
+
+    def result(self) -> List[List[int]]:
+        host = self.sampled.cpu().tolist()
+        return [[t for t in host[i] if t >= 0]
+                for i in range(len(self.rows))]
 
 
 class ModelRunner:
@@ -148,6 +195,12 @@ class ModelRunner:
             config.scheduler.prefill_chunk_size)
         self.unified_rows = self.decode_width + self.prefill_width
         self.unified_row_buckets = unified_row_buckets(self.unified_rows)
+        # Speculative verify blocks are [decode_width, K + 1]; a unified
+        # block is at least K + 1 wide, so a decode row carries its
+        # drafts in it.
+        self.spec_width = (config.scheduler.speculative_k + 1
+                           if config.scheduler.speculative_k > 0 else 0)
+        self.unified_span = max(self.spec_width, 1)
         # Last dispatched ragged shape, for occupancy metrics.
         self.last_unified_rows = 0
         self.generator = torch.Generator(device=self.device)
@@ -187,7 +240,8 @@ class ModelRunner:
         logits = self._forward(
             self.params, self.config.model, tokens, positions,
             dev["page_table"], dev["kv_lens"], valid, self.k_cache,
-            self.v_cache, select=select)
+            self.v_cache, select=select,
+            kind="decode" if sample_index_mode == "first" else "prefill")
         seeding = {}
         if "seeds" in payload:
             seeding = {name: torch.from_numpy(payload[name])
@@ -196,12 +250,18 @@ class ModelRunner:
                              generator=self.generator, **seeding)
 
     def _unified_impl(self, payload: dict) -> torch.Tensor:
-        """One ragged [R, W] step: decode rows occupy their first slot,
-        prefill chunk rows up to W slots, pad slots are masked by
-        ``valid``. Sampling goes through the verify rule over each
-        row's span ``logits[i, last_index_i - draft_lens_i + j]``; a
-        draft-free row's span is its last real position, and at
-        temperature 0 the rule is the plain argmax."""
+        """One ragged [R, W] step through the ragged kernel: decode
+        rows occupy their first 1 + draft_len slots ([last committed,
+        d_1 .. d_k] at total_len - 1 ..), prefill chunk rows up to W
+        slots, pad slots are masked by ``valid``. A verify step is the
+        same block with decode rows only. Sampling goes through the
+        verify rule over each row's span ``logits[i, last_index_i -
+        draft_lens_i + j]``; a draft-free row's span is its last real
+        position, and at temperature 0 the rule is the plain argmax.
+
+        Rejected drafts need no rollback on the card: their KV lies
+        past the committed length in the row's own pages, causally
+        invisible until the next step overwrites it."""
         dev = self._to_device({k: payload[k] for k in (
             "tokens", "positions", "page_table", "kv_lens", "valid",
             "last_index", "drafts", "draft_lens")})
@@ -214,7 +274,7 @@ class ModelRunner:
         span = self._forward(
             self.params, self.config.model, tokens, dev["positions"],
             dev["page_table"], dev["kv_lens"], dev["valid"],
-            self.k_cache, self.v_cache, select=idx)
+            self.k_cache, self.v_cache, select=idx, kind="ragged")
         return spec_verify(span, dev["drafts"], dev["draft_lens"],
                            *self._knobs(payload),
                            generator=self.generator)
@@ -223,9 +283,9 @@ class ModelRunner:
         """Run one step from a payload of numpy arrays (a decode step's
         tokens may instead be the previous step's device tensor).
         Returns the sampled tokens as a device tensor: [B] for prefill
-        and decode, [R, span] for unified steps."""
+        and decode, [R, span] for unified and verify steps."""
         with torch.inference_mode():
-            if kind == KIND_UNIFIED:
+            if kind in (KIND_UNIFIED, KIND_SPEC):
                 return self._unified_impl(payload)
             if kind not in (KIND_PREFILL, KIND_DECODE):
                 raise ValueError(f"unknown step kind {kind}")
@@ -366,34 +426,93 @@ class ModelRunner:
                                 self.execute_payload(KIND_DECODE, payload))
 
     def run_decode(self, plan: DecodePlan) -> List[List[int]]:
-        """One synchronous decode step over all running sequences: the
-        async pipeline's dispatch path plus an immediate read, so sync
-        and async greedy decoding share one code path."""
+        """One synchronous decode (or, with drafts, verify) step over
+        all running sequences: the async pipeline's dispatch path plus
+        an immediate read, so sync and async greedy decoding share one
+        code path."""
+        if plan.drafts is not None:
+            return self.dispatch_spec(plan).result()
         return self.dispatch_decode(
             plan.seqs[: self.decode_width]).result()
+
+    # ---- speculative verify -------------------------------------------------
+
+    def dispatch_spec(self, plan: DecodePlan) -> SpecStepHandle:
+        """Build and queue ONE speculative verify step with no host read
+        on the path. Every running row rides the same [B, K + 1] block
+        as a ragged row with ``last_index = draft_len``: rows with a
+        draft verify it, rows without decode one token. The handle's
+        ``result()`` gives each row's accepted prefix plus the
+        bonus/resample token (1..K + 1 tokens). The scheduler
+        guarantees row eligibility and pages for total_len +
+        draft_len tokens."""
+        seqs = plan.seqs[: self.decode_width]
+        b, s = self.decode_width, self.spec_width
+        tokens = np.zeros((b, s), np.int32)
+        positions = np.zeros((b, s), np.int32)
+        valid = np.zeros((b, s), bool)
+        kv_lens = np.zeros((b,), np.int32)
+        drafts = np.full((b, s - 1), -1, np.int32)
+        draft_lens = np.zeros((b,), np.int32)
+        temperature, top_p, top_k = self._knob_arrays(b)
+        for i, seq in enumerate(seqs):
+            d = plan.drafts[i]
+            n = 1 + len(d)
+            tokens[i, 0] = (seq.output_token_ids[-1]
+                            if seq.output_token_ids
+                            else seq.prompt_token_ids[-1])
+            tokens[i, 1:n] = d
+            positions[i, :n] = np.arange(seq.total_len - 1,
+                                         seq.total_len - 1 + n)
+            valid[i, :n] = True
+            kv_lens[i] = seq.total_len + len(d)
+            drafts[i, :len(d)] = d
+            draft_lens[i] = len(d)
+            temperature[i] = seq.sampling.temperature
+            top_p[i] = seq.sampling.top_p
+            top_k[i] = seq.sampling.top_k
+        payload = {
+            "tokens": tokens, "positions": positions, "valid": valid,
+            "page_table": self._page_table_rows(seqs, pad_to=b),
+            "kv_lens": kv_lens,
+            # A verify row's last live slot is its last draft, and its
+            # sampling span starts at slot 0.
+            "last_index": draft_lens.copy(),
+            "drafts": drafts, "draft_lens": draft_lens,
+            "temperature": temperature, "top_p": top_p, "top_k": top_k,
+        }
+        return SpecStepHandle(
+            list(seqs), [list(plan.drafts[i]) for i in range(len(seqs))],
+            self.execute_payload(KIND_SPEC, payload))
 
     # ---- unified ragged step ------------------------------------------------
 
     def run_unified(self, plan: StepPlan
                     ) -> Tuple[List[List[int]], List[Optional[int]]]:
-        """Execute one mixed step: decode rows and prefill chunk rows in
-        ONE [R, W] block. Rows are compact — decode rows at
-        0..len(seqs)-1, prefill chunk rows right after, pads only at
-        the tail; R snaps to the row-bucket lattice, W to the prefill
-        buckets. Returns (decode token lists, prefill tokens): decode
-        rows commit one token each, prefill rows one sampled token for
-        last chunks (None mid-prompt)."""
+        """Execute one mixed step: decode rows (with their drafts, if
+        any) and prefill chunk rows in ONE [R, W] block. Rows are
+        compact — decode rows at 0..len(seqs)-1, prefill chunk rows
+        right after, pads only at the tail; R snaps to the row-bucket
+        lattice, W to the prefill buckets and at least K + 1. Returns
+        (decode token lists, prefill tokens): decode rows commit
+        1..K + 1 tokens each (the verify contract), prefill rows one
+        sampled token for last chunks (None mid-prompt)."""
         seqs = plan.decode.seqs[: self.decode_width]
         chunks = plan.prefill.chunks[: self.prefill_width]
+        spec_drafts = plan.decode.drafts
         off = len(seqs)
         r = self._row_bucket_for(off + len(chunks))
         self.last_unified_rows = r
-        w = self._bucket_for(max(len(c.chunk_tokens) for c in chunks))
+        s = self.unified_span
+        w = max(self._bucket_for(max(len(c.chunk_tokens)
+                                     for c in chunks)), s)
         tokens = np.zeros((r, w), np.int32)
         positions = np.zeros((r, w), np.int32)
         valid = np.zeros((r, w), bool)
         kv_lens = np.zeros((r,), np.int32)
         last_index = np.zeros((r,), np.int32)
+        drafts = np.full((r, s - 1), -1, np.int32)
+        draft_lens = np.zeros((r,), np.int32)
         temperature, top_p, top_k = self._knob_arrays(r)
         page_table = np.zeros((r, self.max_pages_per_seq), np.int32)
 
@@ -413,7 +532,10 @@ class ModelRunner:
         for i, seq in enumerate(seqs):
             last = (seq.output_token_ids[-1] if seq.output_token_ids
                     else seq.prompt_token_ids[-1])
-            row(i, seq, [last], seq.total_len - 1)
+            d = spec_drafts[i] if spec_drafts is not None else []
+            row(i, seq, [last] + list(d), seq.total_len - 1)
+            drafts[i, :len(d)] = d
+            draft_lens[i] = len(d)
         for j, chunk in enumerate(chunks):
             row(off + j, chunk.seq, chunk.chunk_tokens, chunk.chunk_start)
 
@@ -421,8 +543,7 @@ class ModelRunner:
             "tokens": tokens, "positions": positions, "valid": valid,
             "page_table": page_table, "kv_lens": kv_lens,
             "last_index": last_index,
-            "drafts": np.zeros((r, 0), np.int32),
-            "draft_lens": np.zeros((r,), np.int32),
+            "drafts": drafts, "draft_lens": draft_lens,
             "temperature": temperature, "top_p": top_p, "top_k": top_k,
         }
         host = self.execute_payload(KIND_UNIFIED, payload).cpu().tolist()

@@ -8,10 +8,11 @@ starves. With the unified step on, prefill chunks are admitted INTO
 decode steps instead (``_plan_mixed``), and ``plan_ahead`` plans
 decode step N+1 while step N is in flight (the async pipeline).
 
-Ported: the bimodal plans, the mixed plan and the plan-ahead. Not
-ported yet: speculative drafts (the n-gram proposer), context-parallel
-whole-prompt prefill, offload restore/evict hooks and disaggregated
-handoffs.
+Ported: the bimodal plans, the mixed plan, the plan-ahead and
+speculative drafts from the n-gram proposer (engine/spec.py), planned
+as verify steps or carried by the mixed step's decode rows. Not
+ported yet: context-parallel whole-prompt prefill, offload
+restore/evict hooks and disaggregated handoffs.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Deque, List, Optional
+from typing import Deque, Dict, List, Optional
 
 from production_stack_tpu_torch.engine.config import (
     CacheConfig,
@@ -35,6 +36,7 @@ from production_stack_tpu_torch.engine.sequence import (
     SequenceState,
     decode_budget,
 )
+from production_stack_tpu_torch.engine.spec import NgramProposer
 from production_stack_tpu_torch.utils.log import init_logger
 
 logger = init_logger(__name__)
@@ -65,6 +67,10 @@ class PrefillPlan:
 @dataclass
 class DecodePlan:
     seqs: List[Sequence]
+    # Speculative verify step: per-row draft tokens parallel to
+    # ``seqs`` ([] = a plain single-token row in the same block).
+    # None = normal decode.
+    drafts: Optional[List[List[int]]] = None
 
 
 @dataclass
@@ -99,6 +105,11 @@ class Scheduler:
         # dedicated prefill step's full bandwidth.
         self.mixed_prefill_budget = (config.prefill_chunk_size
                                      * config.prefill_batch_size)
+        # Draft-free speculative decoding: the prompt-lookup proposer
+        # drafts from each sequence's own history; None when off.
+        self.proposer = (NgramProposer(config.speculative_k,
+                                       config.speculative_min_match)
+                         if config.speculative_k > 0 else None)
 
     # ---- queue management -------------------------------------------------
 
@@ -192,15 +203,62 @@ class Scheduler:
             want_decode = bool(self.running)
         if want_decode:
             self._last_was_prefill = False
+            if self.proposer is not None:
+                plan = self._plan_spec()
+                if plan is not None:
+                    return StepPlan(decode=plan)
             self._ensure_decode_capacity()
             if self.running:
                 return StepPlan(decode=DecodePlan(seqs=list(self.running)))
         return StepPlan()
 
+    def _propose(self) -> Dict[str, List[int]]:
+        """Each running row's drafts, capped by its emit budget; rows
+        the proposer has nothing for are left out."""
+        drafts: Dict[str, List[int]] = {}
+        for seq in self.running:
+            d = self.proposer.propose(seq, self._draft_limit(seq))
+            if d:
+                drafts[seq.seq_id] = d
+        return drafts
+
+    def _plan_spec(self) -> Optional[DecodePlan]:
+        """Plan one speculative verify step, or None to fall back to
+        plain decode (no row drafted anything, or a row needs per-row
+        inputs the verify step does not carry). Every running row
+        rides the same [B, K + 1] block: rows without drafts decode
+        one token in it."""
+        if any(self._needs_row_inputs(seq) for seq in self.running):
+            return None
+        drafts = self._propose()
+        if not drafts:
+            return None
+        # Hybrid profitability gate: a verify step displaces a decode
+        # window of `window` tokens a row; take it only when, at full
+        # acceptance, it emits at least as many tokens (each row emits
+        # accepted + 1). The port decodes one token a step (no decode
+        # bursts yet), so the window is 1 and the gate always passes.
+        window = 1
+        if (sum(len(d) for d in drafts.values()) + len(self.running)
+                < window * len(self.running)):
+            return None
+        # Reserve pages for 1 + draft_len tokens per row; preemption
+        # inside the pass may shrink `running` (victims' drafts are
+        # dropped with them).
+        self._ensure_decode_capacity(per_seq={
+            s.seq_id: 1 + len(drafts.get(s.seq_id, ()))
+            for s in self.running})
+        plan_drafts = [drafts.get(s.seq_id, []) for s in self.running]
+        if not any(plan_drafts):
+            return None
+        return DecodePlan(seqs=list(self.running), drafts=plan_drafts)
+
     def _plan_mixed(self) -> Optional[StepPlan]:
         """Plan one unified ragged step: every running sequence as a
-        decode row plus waiting prefill chunks admitted under a token
-        budget matching a dedicated prefill step's full bandwidth
+        decode row (with prompt-lookup drafts when the proposer has
+        them: a draft row is a verify row of the same block) plus
+        waiting prefill chunks admitted under a token budget matching
+        a dedicated prefill step's full bandwidth
         (``prefill_chunk_size * prefill_batch_size``), so admission
         proceeds exactly as fast as alternation would while decode rows
         keep emitting. Returns None to fall back to bimodal alternation
@@ -208,20 +266,30 @@ class Scheduler:
         not carry."""
         if any(self._needs_row_inputs(seq) for seq in self.running):
             return None
-        # Reserve decode-side pages first; preemption here shrinks
-        # `running` before prefill admission competes for the pages.
-        self._ensure_decode_capacity()
+        drafts = self._propose() if self.proposer is not None else {}
+        # Reserve decode-side pages first (1 + draft_len per row);
+        # preemption here shrinks `running` before prefill admission
+        # competes for the pages.
+        self._ensure_decode_capacity(per_seq={
+            s.seq_id: 1 + len(drafts.get(s.seq_id, ()))
+            for s in self.running})
         if not self.running:
             return None
         prefill = self._plan_prefill(
             max_tokens=self.mixed_prefill_budget)
-        if prefill is None:
-            # Nothing ragged about this step: let the bimodal path
-            # plan it.
+        plan_drafts = [drafts.get(s.seq_id, []) for s in self.running]
+        if not any(plan_drafts):
+            plan_drafts = None
+        if prefill is None and plan_drafts is None:
+            # Nothing ragged about this step (prefill could not admit,
+            # no drafts): let the bimodal path plan it.
             return None
-        self._last_was_prefill = True
+        # Without prefill this is a verify step (the engine runs it as
+        # one).
+        self._last_was_prefill = prefill is not None
         return StepPlan(prefill=prefill,
-                        decode=DecodePlan(seqs=list(self.running)))
+                        decode=DecodePlan(seqs=list(self.running),
+                                          drafts=plan_drafts))
 
     def plan_ahead(self, inflight_rows) -> Optional[List[
             Optional[Sequence]]]:
@@ -283,6 +351,12 @@ class Scheduler:
 
     def _seq_budget(self, seq: Sequence) -> int:
         return decode_budget(seq, self.config.max_model_len)
+
+    def _draft_limit(self, seq: Sequence) -> int:
+        """Longest draft this row may carry: emitted tokens (accepted +
+        1) never exceed the row's budget, so no draft writes KV past
+        max_model_len."""
+        return self._seq_budget(seq) - 1
 
     def _plan_prefill(self, max_tokens: Optional[int] = None
                       ) -> Optional[PrefillPlan]:
@@ -364,10 +438,13 @@ class Scheduler:
             return 0
         return -(-(target_tokens - have) // self.page_size)
 
-    def _ensure_decode_capacity(self) -> None:
-        """Every running sequence needs a page slot for its next
-        token; preempt the lowest-priority, newest sequence when the
-        cache cannot provide it."""
+    def _ensure_decode_capacity(self, per_seq: Optional[Dict[str, int]]
+                                = None) -> None:
+        """Every running sequence needs page slots for its next step:
+        one token, or with ``per_seq`` (speculative plans) 1 + its
+        draft length, capped by its remaining budget. Preempt the
+        lowest-priority, newest sequence when the cache cannot provide
+        them."""
         for seq in list(self.running):
             if seq.state != SequenceState.RUNNING:
                 # Preempted earlier in this very pass (we iterate a
@@ -375,7 +452,9 @@ class Scheduler:
                 # would leak them when prefill re-allocates from
                 # scratch.
                 continue
-            needed = self._pages_needed(seq, seq.total_len + 1)
+            ahead = 1 if per_seq is None else per_seq.get(seq.seq_id, 1)
+            ahead = max(1, min(ahead, self._seq_budget(seq)))
+            needed = self._pages_needed(seq, seq.total_len + ahead)
             if needed == 0:
                 continue
             try:
@@ -454,6 +533,16 @@ class Scheduler:
             self.running.append(seq)
             self._append_token(seq, sampled_token)
 
+    def on_spec_executed(self, seq: Sequence) -> None:
+        """Post-verify accounting: the verify step wrote KV through
+        ``total_len_before + draft_len`` positions, but only the
+        accepted prefix and the bonus token were appended. The
+        committed count follows the kept tokens; the rejected tail's
+        KV lies past ``total_len``, causally invisible, and the next
+        step overwrites it."""
+        if seq.state == SequenceState.RUNNING:
+            seq.num_computed_tokens = seq.total_len
+
     def append_decode_token(self, seq: Sequence, token: int) -> bool:
         """Append one decoded token; returns False if the sequence is
         no longer running."""
@@ -484,6 +573,8 @@ class Scheduler:
                        else SequenceState.FINISHED)
         seq.finish_reason = reason
         seq.finish_time = time.time()
+        if self.proposer is not None:
+            self.proposer.drop(seq.seq_id)
         if seq.pages:
             self.cache.free_sequence(seq.pages)
             seq.pages = []

@@ -550,11 +550,15 @@ class EngineHTTPServer(ThreadingHTTPServer):
 # ---- construction -----------------------------------------------------------
 
 
-def _resolve(flag: str) -> bool:
-    """--async-scheduling / --unified-step auto|on|off. The port serves
-    one model on one device with no bursts or speculation, which is
-    where the JAX engine's 'auto' turns both on."""
-    return flag in ("auto", "on")
+def _resolve(flag: str, eligible: bool = True) -> bool:
+    """--async-scheduling / --unified-step auto|on|off: 'auto' is on
+    where the JAX engine's 'auto' turns the feature on, else off; an
+    explicit 'on' is honoured. The port serves one model on one device
+    with no decode bursts, so 'auto' turns the unified step on always
+    and the async pipeline on unless --speculative-k > 0 (the JAX
+    engine's async_scheduling_eligible: a verify step's commit count
+    is data-dependent)."""
+    return flag == "on" or (flag == "auto" and eligible)
 
 
 def build_engine_from_args(args) -> tuple:
@@ -576,8 +580,11 @@ def build_engine_from_args(args) -> tuple:
             max_model_len=args.max_model_len,
             prefill_chunk_size=args.prefill_chunk_size,
             prefill_batch_size=args.prefill_batch_size,
-            async_scheduling=_resolve(args.async_scheduling),
+            async_scheduling=_resolve(args.async_scheduling,
+                                      eligible=args.speculative_k == 0),
             unified_step=_resolve(args.unified_step),
+            speculative_k=args.speculative_k,
+            speculative_min_match=args.speculative_min_match,
             max_queue_len=args.max_queue_len),
         seed=args.seed,
     )
@@ -611,6 +618,13 @@ def parse_args(argv=None):
                    choices=["auto", "on", "off"])
     p.add_argument("--unified-step", default="auto",
                    choices=["auto", "on", "off"])
+    p.add_argument("--speculative-k", type=int, default=0,
+                   help="prompt-lookup speculative decoding: draft up "
+                        "to K tokens per row from its own n-gram "
+                        "history and verify them in one step (0 = off)")
+    p.add_argument("--speculative-min-match", type=int, default=2,
+                   help="minimum n-gram length the proposer must match "
+                        "before drafting")
     p.add_argument("--seed", type=int, default=0)
     return p.parse_args(argv)
 

@@ -1,0 +1,133 @@
+"""Draft-free speculative decoding: the prompt-lookup proposer.
+
+Prompt lookup (Saxena; the n-gram member of the speculative-decoding
+family, Leviathan et al.) drafts continuation tokens from the
+sequence's OWN history: if the trailing ``min_match``-gram of
+prompt + output has occurred before, the tokens that followed that
+occurrence are proposed as drafts. No second model, no extra device
+memory — suited to multi-round QA, where answers quote prompts and
+follow-ups replay history.
+
+The port's copy of the JAX package's ``engine/spec.py``. The proposer
+is pure host-side bookkeeping; verification happens in one [B, K + 1]
+step through the ragged attention kernel
+(model_runner.ModelRunner.dispatch_spec), and the acceptance rule in
+ops/sampling.spec_verify keeps the output distribution exactly the
+target model's.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+from production_stack_tpu_torch.engine.sequence import Sequence
+
+
+class _SeqIndex:
+    """Incremental n-gram index over one sequence's token history.
+
+    Maps every ``min_match``-gram to the positions where it starts
+    (ascending). Tokens are only ever appended (preemption folds
+    outputs into the prompt but leaves all_token_ids unchanged), so
+    the index extends monotonically and never rebuilds.
+    """
+
+    __slots__ = ("grams", "indexed")
+
+    def __init__(self):
+        self.grams: Dict[Tuple[int, ...], List[int]] = {}
+        self.indexed = 0  # grams starting before this position exist
+
+    def extend(self, tokens: List[int], min_match: int) -> None:
+        end = len(tokens) - min_match + 1
+        for i in range(self.indexed, max(self.indexed, end)):
+            self.grams.setdefault(
+                tuple(tokens[i:i + min_match]), []).append(i)
+        self.indexed = max(self.indexed, end)
+
+
+class NgramProposer:
+    """Per-sequence prompt-lookup draft proposer.
+
+    ``propose`` returns up to ``max_len`` draft tokens: the
+    continuation of the best prior occurrence of the sequence's
+    trailing ``min_match``-gram, preferring the LONGEST backward
+    match (max-match) and breaking ties toward the most recent
+    occurrence (recency tracks the current topic).
+    """
+
+    # Occurrence scan cap per proposal: pathological histories (e.g. a
+    # constant token) index O(len) positions for one gram; scoring all
+    # of them would make proposal O(len^2) over a generation.
+    MAX_CANDIDATES = 32
+    # Backward max-match score cap: a periodic history lets the
+    # backward scan run arbitrarily far (every candidate matches the
+    # whole loop), and match length beyond a short context adds no
+    # ranking signal. The first candidate (most recent) to hit the
+    # cap cannot be beaten, so the scan also short-circuits there.
+    MAX_BACKWARD = 16
+
+    def __init__(self, k: int, min_match: int = 2):
+        if k < 1:
+            raise ValueError("speculative k must be >= 1")
+        if min_match < 1:
+            raise ValueError("speculative min_match must be >= 1")
+        self.k = k
+        self.min_match = min_match
+        self._index: Dict[str, _SeqIndex] = {}
+
+    def propose(self, seq: Sequence, max_len: int) -> List[int]:
+        """Draft tokens for ``seq``'s next positions (possibly [])."""
+        max_len = min(max_len, self.k)
+        if max_len <= 0:
+            return []
+        tokens = seq.all_token_ids
+        n = len(tokens)
+        if n < self.min_match + 1:
+            return []
+        idx = self._index.setdefault(seq.seq_id, _SeqIndex())
+        idx.extend(tokens, self.min_match)
+        tail_start = n - self.min_match
+        hits = idx.grams.get(tuple(tokens[tail_start:]))
+        if not hits:
+            return []
+        best_start, best_score = -1, 0
+        # Most-recent first so ties resolve toward recency; skip the
+        # tail's own occurrence (it has no continuation).
+        scanned = 0
+        for i in reversed(hits):
+            if i >= tail_start:
+                continue
+            if scanned >= self.MAX_CANDIDATES:
+                break
+            scanned += 1
+            # Max-match: extend the guaranteed min_match-gram match
+            # backwards; a longer shared context predicts better.
+            score, j = self.min_match, 1
+            while (score < self.MAX_BACKWARD and i - j >= 0
+                   and tokens[i - j] == tokens[tail_start - j]):
+                score += 1
+                j += 1
+            if score > best_score:
+                best_start, best_score = i, score
+            if score >= self.MAX_BACKWARD:
+                break  # most recent capped match; nothing beats it
+        if best_start < 0:
+            return []
+        cont = best_start + self.min_match
+        # Periodic self-continuation: when the match overlaps the tail
+        # (period = tail_start - best_start < max_len), the known
+        # continuation runs out at n — but appending it makes the
+        # virtual history end in the SAME gram one period later, so
+        # the lookup would keep yielding the loop. Emitting the wrap
+        # directly drafts full-length candidates for looping tails
+        # (where speculation pays most) instead of one token per step.
+        # cont + (t % period) <= tail_start + min_match - 1 = n - 1,
+        # so every index is in range; for period >= max_len this is
+        # exactly tokens[cont:cont + max_len].
+        period = tail_start - best_start
+        return [tokens[cont + (t % period)] for t in range(max_len)]
+
+    def drop(self, seq_id: str) -> None:
+        """Release a finished/aborted sequence's index."""
+        self._index.pop(seq_id, None)

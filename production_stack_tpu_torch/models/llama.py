@@ -26,9 +26,16 @@ from production_stack_tpu_torch.ops.prefill_attention_cuda import (
     paged_prefill_attention,
     paged_prefill_attention_plain,
 )
+from production_stack_tpu_torch.ops.ragged_attention_cuda import (
+    paged_ragged_attention,
+    paged_ragged_attention_plain,
+)
 from production_stack_tpu_torch.ops.rope import apply_rope
 
 ATTENTION_IMPLS = ("cuda", "plain")
+# The step kinds the runner names (never inferred from shapes: a
+# [32, 5] verify block and a small prefill block both have T > 1).
+STEP_KINDS = ("decode", "prefill", "ragged")
 
 
 class LlamaLayer(nn.Module):
@@ -70,11 +77,17 @@ class LlamaParams(nn.Module):
 
 
 def dispatch_attention(config: ModelConfig, q, k_cache, v_cache,
-                       page_table, positions, kv_lens,
+                       page_table, positions, kv_lens, kind: str,
                        impl: Optional[str] = None) -> torch.Tensor:
-    """Attention over one layer's paged cache for this step shape:
-    decode (T == 1) through the decode kernel, prefill chunks and
-    unified [R, W] blocks through the chunked-prefill kernel.
+    """Attention over one layer's paged cache for the step ``kind``:
+    "decode" (T == 1) through the decode kernel, "prefill" chunks
+    through the chunked-prefill kernel, "ragged" blocks (unified mixed
+    steps and speculative verify steps) through the ragged kernel.
+
+    A ragged row's descriptor is rebuilt from the planner's layout
+    invariant, as the JAX forward does: every row kind satisfies
+    ``positions[:, 0] == kv_lens - 1 - last_index``, so ``last_index =
+    kv_lens - 1 - positions[:, 0]``; a pad row has kv_len 0.
 
     ``impl`` is "cuda" (the kernel wrappers, which take the plain
     version for CPU tensors) or "plain" (the plain versions, on any
@@ -86,19 +99,26 @@ def dispatch_attention(config: ModelConfig, q, k_cache, v_cache,
     if impl not in ATTENTION_IMPLS:
         raise ValueError(f"attention impl must be one of "
                          f"{ATTENTION_IMPLS} (got {impl!r})")
-    if q.shape[1] == 1:
-        fn = (paged_decode_attention if impl == "cuda"
-              else paged_decode_attention_plain)
+    cuda = impl == "cuda"
+    if kind == "decode":
+        fn = paged_decode_attention if cuda else paged_decode_attention_plain
         return fn(q[:, 0], k_cache, v_cache, page_table, kv_lens)[:, None]
-    fn = (paged_prefill_attention if impl == "cuda"
-          else paged_prefill_attention_plain)
-    return fn(q, k_cache, v_cache, page_table, positions, kv_lens)
+    if kind == "prefill":
+        fn = (paged_prefill_attention if cuda
+              else paged_prefill_attention_plain)
+        return fn(q, k_cache, v_cache, page_table, positions, kv_lens)
+    if kind == "ragged":
+        fn = paged_ragged_attention if cuda else paged_ragged_attention_plain
+        last_index = (kv_lens - 1 - positions[:, 0]).to(torch.int32)
+        return fn(q, k_cache, v_cache, page_table, kv_lens, last_index)
+    raise ValueError(f"step kind must be one of {STEP_KINDS} "
+                     f"(got {kind!r})")
 
 
 def cached_attention(config: ModelConfig, q, k, v,
                      k_cache: List[torch.Tensor],
                      v_cache: List[torch.Tensor], page_table, positions,
-                     kv_lens, slots, layer: int,
+                     kv_lens, slots, layer: int, kind: str,
                      impl: Optional[str] = None) -> torch.Tensor:
     """Write one layer's K/V into its cache buffer (in place) and
     attend. ``slots`` is the step's (pages, offsets) from
@@ -107,7 +127,7 @@ def cached_attention(config: ModelConfig, q, k, v,
     write_slots(kc, k, *slots)
     write_slots(vc, v, *slots)
     return dispatch_attention(config, q, kc, vc, page_table, positions,
-                              kv_lens, impl=impl)
+                              kv_lens, kind, impl=impl)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -138,7 +158,8 @@ def forward(params: LlamaParams, config: ModelConfig,
             tokens: torch.Tensor, positions: torch.Tensor,
             page_table: torch.Tensor, kv_lens: torch.Tensor,
             valid: torch.Tensor, k_cache: List[torch.Tensor],
-            v_cache: List[torch.Tensor], impl: Optional[str] = None,
+            v_cache: List[torch.Tensor], *, kind: str,
+            impl: Optional[str] = None,
             select: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One model invocation over a (possibly padded) token block.
 
@@ -150,6 +171,8 @@ def forward(params: LlamaParams, config: ModelConfig,
       valid:      [B, T] mask of real (non-padding) tokens
       k_cache/v_cache: L-lists of [kv_heads, num_pages, head_dim,
                   page_size] buffers, written IN PLACE
+      kind:       the step kind, "decode", "prefill" or "ragged" (see
+                  dispatch_attention)
       impl:       attention impl (see dispatch_attention)
       select:     optional [B, S] int64 indices into T: logits only at
                   those slots (the sampled positions), so a prefill
@@ -173,7 +196,7 @@ def forward(params: LlamaParams, config: ModelConfig,
         v = v.reshape(b, t, nkv, d)
         attn = cached_attention(config, q, k, v, k_cache, v_cache,
                                 page_table, positions, kv_lens, slots,
-                                layer, impl=impl)
+                                layer, kind, impl=impl)
         x = x + lp.o(attn.reshape(b, t, nh * d))
         m_in = rms_norm(x, lp.mlp_norm, config.rms_norm_eps)
         gate, up = lp.gate_up(m_in).chunk(2, dim=-1)

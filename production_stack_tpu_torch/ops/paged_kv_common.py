@@ -1,9 +1,10 @@
 """What the paged-KV attention kernels share on the host side.
 
-The decode kernel (ops/paged_attention_cuda.py) and the chunked-
-prefill kernel (ops/prefill_attention_cuda.py) are one machine with a
-different query block and score mask; the device half of that
-machine is ``csrc/paged_kv_common.cuh``. This module holds the host
+The decode kernel (ops/paged_attention_cuda.py), the chunked-prefill
+kernel (ops/prefill_attention_cuda.py) and the ragged kernel
+(ops/ragged_attention_cuda.py) are one machine with a different query
+block and score mask; the device half of that machine is
+``csrc/paged_kv_common.cuh``. This module holds the host
 half:
 
 - the build of the kernel library: ``nvcc`` compiles every ``csrc/*.cu``
@@ -13,7 +14,7 @@ half:
   loads it. The build runs at first use, from the checkout's sources
   only;
 - the launch counters that show a run went through the kernels;
-- operand checks common to both wrappers;
+- operand checks common to the wrappers;
 - the plain chunked page walk in torch: the same 128-token chunks,
   the same mask, the same online softmax (m, l, acc in f32) and the
   same zero output for a row with no cached tokens as the kernels.
@@ -165,6 +166,9 @@ def kernel_lib() -> ctypes.CDLL:
             lib.pstt_paged_prefill.argtypes = (
                 [i32] + [ptr] * 7 + [i32] * 8 + [ptr])
             lib.pstt_paged_prefill.restype = i32
+            lib.pstt_paged_ragged.argtypes = (
+                [i32] + [ptr] * 8 + [i32] * 8 + [ptr])
+            lib.pstt_paged_ragged.restype = i32
             lib.pstt_kernel_supports.argtypes = [i32] * 3
             lib.pstt_kernel_supports.restype = i32
             _LIB = lib

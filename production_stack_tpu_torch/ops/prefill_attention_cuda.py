@@ -4,8 +4,9 @@ row's pages, causal.
 Replaces the Pallas TPU kernel ``paged_prefill_attention``
 (production_stack_tpu/ops/prefill_attention_pallas.py:149, body
 ``_prefill_kernel`` at :76) with the CUDA kernel in
-``csrc/paged_prefill.cu``. It serves prefill steps and the unified
-mixed steps composed through it.
+``csrc/paged_prefill.cu``. It serves prefill steps; unified mixed
+steps and verify steps go through the ragged kernel
+(ops/ragged_attention_cuda.py).
 
 What bounds it on the card: at long T, operations. A 512-token chunk
 does 4 * num_q_heads * head_dim * (visible tokens) operations per

@@ -1,0 +1,128 @@
+"""Paged ragged attention: the unified step's [R, W] block, one row
+descriptor per row.
+
+Replaces the Pallas TPU kernel ``paged_ragged_attention``
+(production_stack_tpu/ops/ragged_attention_pallas.py:174, body
+``_ragged_kernel`` at :93) with the CUDA kernel in
+``csrc/paged_ragged.cu``. It serves the unified mixed steps (decode
+rows, prefill-chunk rows and pad rows in one block) and the
+speculative verify steps (a verify row is a ragged row whose live
+slots are its last token and its drafts).
+
+What bounds it on the card: at the widest mixed step, the bytes of
+the decode rows' cached K/V and of the block's output (every slot,
+dead ones included, is written); the chunk rows' arithmetic comes
+next. The prefill kernel the unified step used before computed every
+slot of a decode row against the row's whole cache — 511 of 512 slots
+were pad. This kernel masks them per row: query rows are flattened
+slot-major, so a row's live slots are one prefix of its tiles; a tile
+past them writes zeros without reading K/V, and a tile with few live
+rows (a decode row's G queries, a verify row's (K + 1) * G) walks the
+row's pages with a narrow row block. The arithmetic is f32 FMA on the
+CUDA cores, as in the other two kernels.
+
+Contract (the Pallas kernel's): q [R, W, num_q_heads, head_dim];
+page_table [R, max_pages], kv_lens / last_index / draft_lens [R]
+int32. Slot t of row r is live when t <= last_index[r] and sits at
+q_start + t with q_start = kv_len - 1 - last_index; it attends
+``token_pos <= q_start + t & token_pos < kv_len``. Dead slots and pad
+rows (kv_len 0) write exact 0. ``draft_lens`` is taken and not read:
+a verify row's draft span masks itself causally.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from production_stack_tpu_torch.ops.paged_kv_common import (
+    COUNTERS,
+    check_cache,
+    check_kernel_operands,
+    check_launch,
+    dtype_code,
+    kernel_lib,
+    page_walk_plain,
+    stream_ptr,
+)
+
+KERNEL_NAME = "paged_ragged"
+
+
+def paged_ragged_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor,
+                           page_table: torch.Tensor,
+                           kv_lens: torch.Tensor,
+                           last_index: torch.Tensor,
+                           draft_lens: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Fused ragged attention over a unified [R, W] block.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    or raise. Raises NotImplementedError on the int8 and stacked cache
+    forms, which are not ported yet.
+    """
+    check_cache(k_cache, v_cache)
+    if q.device.type == "cpu":
+        return paged_ragged_attention_plain(
+            q, k_cache, v_cache, page_table, kv_lens, last_index,
+            draft_lens)
+    r, w, num_q_heads, head_dim = q.shape
+    num_kv_heads, num_pages, _, page_size = k_cache.shape
+    out = torch.empty_like(q)
+    ints = [("page_table", page_table), ("kv_lens", kv_lens),
+            ("last_index", last_index)]
+    if draft_lens is not None:
+        ints.append(("draft_lens", draft_lens))
+    check_kernel_operands(q, k_cache, v_cache, tuple(ints), out)
+    if page_table.shape[0] != r or any(
+            t.shape != (r,) for _, t in ints[1:]):
+        raise ValueError("page_table/kv_lens/last_index/draft_lens rows "
+                         "must match the block's rows")
+    err = kernel_lib().pstt_paged_ragged(
+        dtype_code(q.dtype), q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), page_table.data_ptr(), kv_lens.data_ptr(),
+        last_index.data_ptr(),
+        None if draft_lens is None else draft_lens.data_ptr(),
+        out.data_ptr(), r, w, num_q_heads, num_kv_heads, head_dim,
+        num_pages, page_size, page_table.shape[1], stream_ptr())
+    check_launch(KERNEL_NAME, err)
+    COUNTERS.launched(KERNEL_NAME)
+    return out
+
+
+def paged_ragged_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                                 v_cache: torch.Tensor,
+                                 page_table: torch.Tensor,
+                                 kv_lens: torch.Tensor,
+                                 last_index: torch.Tensor,
+                                 draft_lens: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """The kernel's function in plain torch: the same chunked page walk
+    with the ragged mask and the online softmax, dead slots zeroed.
+    ``draft_lens`` is not read, as in the kernel."""
+    del draft_lens
+    check_cache(k_cache, v_cache)
+    if q.is_cuda:
+        COUNTERS.plain_on_cuda(KERNEL_NAME)
+    r, w, num_q_heads, head_dim = q.shape
+    num_kv_heads = k_cache.shape[0]
+    group = num_q_heads // num_kv_heads
+    # Rows of one kv head's block are (t, g) flattened slot-major, as in
+    # the kernel: row j is query head g = j % G at slot t = j // G.
+    qg = (q.reshape(r, w, num_kv_heads, group, head_dim)
+          .permute(0, 2, 1, 3, 4)
+          .reshape(r, num_kv_heads, w * group, head_dim))
+    slot = (torch.arange(w * group, device=q.device)
+            // group)[None, None, :, None]  # [1, 1, W*G, 1]
+    kv = kv_lens.long()[:, None, None, None]
+    last = last_index.long()[:, None, None, None]
+    q_pos = kv - 1 - last + slot
+    live = (slot <= last) & (kv > 0)
+    out = page_walk_plain(qg, k_cache, v_cache, page_table, kv_lens,
+                          lambda pos: live & (pos <= q_pos) & (pos < kv))
+    out = torch.where(live, out, 0.0)
+    return (out.reshape(r, num_kv_heads, w, group, head_dim)
+            .permute(0, 2, 1, 3, 4)
+            .reshape(r, w, num_q_heads, head_dim).to(q.dtype))

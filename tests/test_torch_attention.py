@@ -42,6 +42,9 @@ from production_stack_tpu_torch.ops.prefill_attention_cuda import (
     paged_prefill_attention,
     paged_prefill_attention_plain,
 )
+from production_stack_tpu_torch.ops.ragged_attention_cuda import (
+    paged_ragged_attention_plain,
+)
 
 torch.set_num_threads(2)
 
@@ -260,17 +263,36 @@ def test_wrappers_raise_on_unported_cache_forms(form):
 
 
 def test_dispatch_attention_routes_by_step_shape():
+    """The runner names the step kind; each kind takes its kernel's
+    route. A ragged block rebuilds each row's last_index from the
+    layout invariant positions[:, 0] == kv_lens - 1 - last_index."""
     q, k, v, pt, kv_lens = (_t(x) for x in _decode_case(10, 16, 2, 8))
     out = dispatch_attention(None, q[:, None], k, v, pt,
-                             (kv_lens - 1)[:, None], kv_lens)
+                             (kv_lens - 1)[:, None], kv_lens, "decode")
     torch.testing.assert_close(
         out[:, 0], paged_decode_attention_plain(q, k, v, pt, kv_lens),
         rtol=0, atol=0)
-    q, k, v, pt, pos, kv_lens, _ = (
+    q, k, v, pt, pos, kv_lens, valid = (
         _t(x) for x in _prefill_case(10, 16, 2, 8, False))
-    out = dispatch_attention(None, q, k, v, pt, pos, kv_lens, impl="cuda")
+    out = dispatch_attention(None, q, k, v, pt, pos, kv_lens, "prefill",
+                             impl="cuda")
     torch.testing.assert_close(
         out, paged_prefill_attention_plain(q, k, v, pt, pos, kv_lens),
         rtol=0, atol=0)
+    # The same block as a ragged step: each row's live slots are its
+    # valid ones (rows 0 and 1 end at their chunk's last token).
+    last_index = (kv_lens - 1 - pos[:, 0]).to(torch.int32)
+    out = dispatch_attention(None, q, k, v, pt, pos, kv_lens, "ragged",
+                             impl="cuda")
+    torch.testing.assert_close(
+        out, paged_ragged_attention_plain(q, k, v, pt, kv_lens,
+                                          last_index), rtol=0, atol=0)
+    torch.testing.assert_close(
+        out[valid], paged_prefill_attention_plain(
+            q, k, v, pt, pos, kv_lens)[valid], **TOL)
+    assert not out[~valid].any()  # dead slots and the pad row
     with pytest.raises(ValueError):
-        dispatch_attention(None, q, k, v, pt, pos, kv_lens, impl="xla")
+        dispatch_attention(None, q, k, v, pt, pos, kv_lens, "prefill",
+                           impl="xla")
+    with pytest.raises(ValueError, match="step kind"):
+        dispatch_attention(None, q, k, v, pt, pos, kv_lens, "verify")

@@ -9,8 +9,10 @@ machine with an NVIDIA GPU:
 Covers every geometry the kernels are built for (bench-1b: bf16,
 query group 4, head_dim 64; tiny-llama: f32, query group 2, head_dim
 32), page sizes 8 to 128, pad rows, first and later prefill chunks,
-the wrappers' refusals, and the tiny engine's greedy streams on the
-card against the CPU.
+ragged blocks (mixed decode, chunk and pad rows; verify spans; every
+slot compared, dead ones exact 0), the wrappers' refusals, and the
+tiny engine's greedy streams on the card against the CPU, with and
+without speculative decoding.
 
 Tolerance: f32 at atol = rtol = 1e-4 (the same arithmetic, sums in
 another order); bf16 at atol = rtol = 2e-2 (outputs rounded to bf16,
@@ -29,6 +31,10 @@ from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
 from production_stack_tpu_torch.ops.prefill_attention_cuda import (
     paged_prefill_attention,
     paged_prefill_attention_plain,
+)
+from production_stack_tpu_torch.ops.ragged_attention_cuda import (
+    paged_ragged_attention,
+    paged_ragged_attention_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -122,6 +128,42 @@ def test_prefill_kernel_matches_plain(dev, dtype, group, head_dim,
     assert not got[2].any()
 
 
+# Ragged blocks as (kv_len, last_index) per row: a unified mixed step
+# (decode rows, chunk rows of a first and a later chunk, a short chunk,
+# pad rows) and a verify block (draft lens 0..4, pad rows).
+RAGGED_BLOCKS = {
+    # The last row's last_index lies past the block: every slot is
+    # live, at kv_len - 1 - last_index + t.
+    "mixed": (80, [(1, 0), (300, 0), (517, 0), (80, 79), (230, 79),
+                   (170, 19), (0, -1), (129, 0), (400, 90)]),
+    "verify": (5, [(1, 0), (130, 1), (300, 2), (517, 3), (640, 4),
+                   (0, -1), (64, 4), (0, -1)]),
+}
+
+
+@pytest.mark.parametrize("block", sorted(RAGGED_BLOCKS))
+@pytest.mark.parametrize("page_size", [16, 128])
+@pytest.mark.parametrize("dtype,group,head_dim", GEOMETRIES)
+def test_ragged_kernel_matches_plain(dev, dtype, group, head_dim,
+                                     page_size, block):
+    w, rows = RAGGED_BLOCKS[block]
+    kv_lens = [n for n, _ in rows]
+    k, v, table, lens, g = _inputs(dev, dtype, len(rows), kv_lens, group,
+                                   2, head_dim, page_size, 6)
+    last = torch.tensor([li for _, li in rows], dtype=torch.int32,
+                        device=dev)
+    drafts = torch.clamp(last, min=0) if block == "verify" else None
+    q = torch.randn((len(rows), w, 2 * group, head_dim),
+                    generator=g).to(dev, dtype)
+    got = paged_ragged_attention(q, k, v, table, lens, last, drafts)
+    ref = paged_ragged_attention_plain(q, k, v, table, lens, last, drafts)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+    dead = ((torch.arange(w, device=dev)[None] > last[:, None].long())
+            | (lens[:, None] == 0))
+    assert not got[dead].any()  # dead slots and pad rows: exact 0
+
+
 def test_wrappers_launch_and_count(dev):
     COUNTERS.reset()
     k, v, table, lens, g = _inputs(dev, torch.bfloat16, 2, [3, 9], 4, 2,
@@ -131,6 +173,13 @@ def test_wrappers_launch_and_count(dev):
     assert COUNTERS.launches == {"paged_decode": 1}
     paged_decode_attention_plain(q, k, v, table, lens)
     assert COUNTERS.plain_cuda_calls == {"paged_decode": 1}
+    qr = torch.randn((2, 3, 8, 64), generator=g).to(dev, torch.bfloat16)
+    last = torch.tensor([2, 0], dtype=torch.int32, device=dev)
+    paged_ragged_attention(qr, k, v, table, lens, last)
+    assert COUNTERS.launches == {"paged_decode": 1, "paged_ragged": 1}
+    paged_ragged_attention_plain(qr, k, v, table, lens, last)
+    assert COUNTERS.plain_cuda_calls == {"paged_decode": 1,
+                                         "paged_ragged": 1}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -149,9 +198,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                lens)
     with pytest.raises(NotImplementedError):
         paged_decode_attention(q.half(), k.half(), v.half(), table, lens)
+    qr = torch.randn((2, 3, 8, 64), generator=g).to(dev, torch.bfloat16)
+    last = torch.tensor([2, 0], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        paged_ragged_attention(qr, k, v, table, lens, last.long())
+    with pytest.raises(ValueError, match="rows"):
+        paged_ragged_attention(qr, k, v, table, lens, last[:1])
+    with pytest.raises(NotImplementedError, match="query group"):
+        paged_ragged_attention(qr[:, :, :6].contiguous(), k, v, table,
+                               lens, last)
+    with pytest.raises(NotImplementedError):
+        paged_ragged_attention(qr, k.to(torch.int8), v.to(torch.int8),
+                               table, lens, last)
 
 
-def test_engine_greedy_streams_on_the_card_match_the_cpu(dev):
+@pytest.mark.parametrize("speculative_k", [0, 4])
+def test_engine_greedy_streams_on_the_card_match_the_cpu(dev,
+                                                         speculative_k):
     from production_stack_tpu_torch.engine.config import (
         CacheConfig, EngineConfig, SchedulerConfig, tiny_model_config)
     from production_stack_tpu_torch.engine.engine import LLMEngine
@@ -164,20 +227,25 @@ def test_engine_greedy_streams_on_the_card_match_the_cpu(dev):
         scheduler=SchedulerConfig(max_num_seqs=4, max_model_len=256,
                                   prefill_chunk_size=32,
                                   unified_step=True,
-                                  async_scheduling=True))
+                                  async_scheduling=True,
+                                  speculative_k=speculative_k))
     params = init_params(cfg.model, torch.Generator().manual_seed(0),
                          torch.device("cpu"))
     rs = np.random.RandomState(7)
     prompts = [[4, 5, 6] * 13, [8] * 10, [21, 22, 23, 24] * 20,
                [int(x) for x in rs.randint(1, 500, size=41)]]
     sp = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True)
-    streams = []
+    streams, drafted = [], []
     COUNTERS.reset()
     for device in ("cpu", "cuda"):
         engine = LLMEngine(cfg, params=params, device=device)
         streams.append([s.output_token_ids
                         for s in engine.generate_batch(prompts, sp)])
+        drafted.append(engine.metrics.spec_draft_tokens_total)
     assert streams[0] == streams[1]
     assert COUNTERS.launches["paged_prefill"] > 0
     assert COUNTERS.launches["paged_decode"] > 0
+    assert COUNTERS.launches["paged_ragged"] > 0
     assert not COUNTERS.plain_cuda_calls
+    if speculative_k:
+        assert drafted[0] > 0 and drafted[1] > 0

@@ -82,6 +82,11 @@ def _steps():
     return {"prefill": prefill, "decode": decode, "mixed": mixed}
 
 
+# The step kind the runner names for each step ("mixed" is a unified
+# block, which goes through the ragged route).
+KINDS = {"prefill": "prefill", "decode": "decode", "mixed": "ragged"}
+
+
 @pytest.mark.parametrize("variant", ["plain", "bias", "tied"])
 def test_forward_matches_jax(variant):
     jax_cfg, port_cfg = _configs(variant)
@@ -104,7 +109,7 @@ def test_forward_matches_jax(variant):
             jax_params, *(jnp.asarray(x) for x in step), jax_k, jax_v)
         got = llama.forward(port_params, port_cfg,
                             *(torch.from_numpy(x) for x in step),
-                            port_k, port_v)
+                            port_k, port_v, kind=KINDS[name])
         np.testing.assert_allclose(got.numpy()[valid],
                                    np.asarray(expected)[valid], **TOL,
                                    err_msg=name)
@@ -130,7 +135,7 @@ def test_select_gathers_the_sampled_slots():
         caches = ([torch.zeros(shape) for _ in range(2)],
                   [torch.zeros(shape) for _ in range(2)])
         return llama.forward(params, port_cfg, *step, *caches,
-                             select=select)
+                             kind="prefill", select=select)
 
     full = run()
     select = torch.tensor([[15], [9]])
