@@ -25,11 +25,17 @@ its result line:
    dense K/V (a yardstick only: the port never calls it) and its bound
    on the card. A prefill or ragged case also prints the bound of its
    live slots alone (``live_bound_ms``), the part of the work a step
-   uses;
+   uses. The headline case of each kernel runs again on an int8 cache
+   (a QuantKV) quantized from the same bf16 K/V, held against the plain
+   version at the same 2e-2 and timed the same way; its bound counts
+   head_dim + 4 bytes (int8 values and an f32 scale) per cached token
+   per kv head and plane, and SDPA runs over the dequantized dense K/V.
+   Untimed int8 cases cover page size 16 and the f32 tiny-llama
+   geometry (1e-4);
 4. model: the bench-1b llama at full width, random weights, one
    512-token prefill chunk, one decode step and one 5-token verify
    block (the ragged route) through ``forward`` with the kernels and
-   with their plain versions;
+   with their plain versions, over a bf16 and over an int8 KV cache;
 5. serving: the port's HTTP server in-process with bench-1b at full
    width, 16 concurrent completions plus a repeated greedy one, with
    the kernels' launch counters read around the run (all three kernels
@@ -42,10 +48,18 @@ its result line:
    it prints the draft and accepted counts, tok/s and the share of
    completion characters (one per token under the bench tokenizer)
    that agree with the spec-off server on the same prompts. That share
-   is printed, not asserted: bf16 kernels may flip near-ties.
+   is printed, not asserted: bf16 kernels may flip near-ties;
+7. int8 serving: the first run's server with ``--kv-cache-dtype int8``
+   and the same 16 requests. It must launch the int8 form of all three
+   kernels, make no plain call on CUDA tensors, repeat a greedy request
+   exactly and show ``kv_dtype="int8"`` and the expanded page capacity
+   (962 of 963 pages) on ``/metrics``; it prints tok/s and the share of
+   greedy characters that agree with the bf16 run (printed, not
+   asserted: int8 KV changes tokens).
 
-The line before the last is the ``kernels`` JSON summary, the last the
-``ok`` JSON line.
+The line before the last is the ``kernels`` JSON summary, one entry a
+kernel with its bf16 numbers and an ``int8`` object of the same keys,
+the last the ``ok`` JSON line.
 """
 
 from __future__ import annotations
@@ -96,6 +110,11 @@ KERNELS = {
 # of the path its slice added.
 KERNEL_RUN = {"paged_decode": "serve", "paged_prefill": "serve",
               "paged_ragged": "serve_spec"}
+INT8_RUN = "serve_int8"  # the run of the int8 forms
+# The int8 serving run's page budget: --num-pages 512 at bf16 widths,
+# expanded to the same bytes of int8 pages (512 * 128 // 68), less the
+# trash page.
+INT8_PAGE_CAPACITY = 512 * 2 * 64 // (64 + 4) - 1
 
 
 def log(msg: str) -> None:
@@ -141,6 +160,33 @@ def _cache(kv, pages, d, ps, dtype, dev, gen):
             .to(dtype))
 
 
+def _quantize(cache):
+    """A [kv, pages, d, ps] cache quantized per (page, slot, kv head)
+    row, as the engine's page writes lay it out."""
+    from production_stack_tpu_torch.ops.quant_kv import QuantKV, quantize_kv
+    q8, scale = quantize_kv(cache.permute(0, 1, 3, 2))
+    return QuantKV(q8.permute(0, 1, 3, 2).contiguous(), scale.contiguous())
+
+
+def _caches(kv, pages, d, ps, dtype, dev, gen, int8):
+    """(k, v) for the kernels and (k, v) dense in ``dtype`` for SDPA:
+    the int8 caches are quantized from the same random K/V, and SDPA
+    reads them dequantized."""
+    kc = _cache(kv, pages, d, ps, dtype, dev, gen)
+    vc = _cache(kv, pages, d, ps, dtype, dev, gen)
+    if not int8:
+        return (kc, vc), (kc, vc)
+    k8, v8 = _quantize(kc), _quantize(vc)
+    return (k8, v8), tuple(
+        (c.data.float() * c.scale[:, :, None, :]).to(dtype)
+        for c in (k8, v8))
+
+
+def _kv_slot_bytes(d, esz, int8):
+    """Bytes of one cached token of one kv head in one plane."""
+    return d + 4 if int8 else d * esz
+
+
 def _page_table(kv_lens, ps, max_pages, num_pages, gen, dev):
     """Distinct random physical pages per row (page 0 stays the trash
     page), zeros past each row's pages."""
@@ -167,13 +213,13 @@ def _dense_kv(cache, table, kv_len_max, group):
 
 
 def decode_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None,
-                nh=32, kv=8, d=64, max_len=1024, num_pages=None):
+                nh=32, kv=8, d=64, max_len=1024, num_pages=None,
+                int8=False):
     from production_stack_tpu_torch.ops.paged_attention_cuda import (
         paged_decode_attention, paged_decode_attention_plain)
     max_pages = max_len // ps
     num_pages = num_pages or (b * max_pages + 1)
-    kc = _cache(kv, num_pages, d, ps, dtype, dev, gen)
-    vc = _cache(kv, num_pages, d, ps, dtype, dev, gen)
+    (kc, vc), dense = _caches(kv, num_pages, d, ps, dtype, dev, gen, int8)
     q = torch.randn((b, nh, d), generator=gen, device=dev).to(dtype)
     lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
     table = _page_table(kv_lens, ps, max_pages, num_pages, gen, dev)
@@ -197,12 +243,13 @@ def decode_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None,
         esz = q.element_size()
         live_rows = sum(1 for n in kv_lens if n)
         entries = sum(-(-n // ps) for n in kv_lens)
-        nbytes = (2 * tokens * kv * d * esz + live_rows * nh * d * esz
-                  + q.numel() * esz + entries * 4 + b * 4)
+        nbytes = (2 * tokens * kv * _kv_slot_bytes(d, esz, int8)
+                  + live_rows * nh * d * esz + q.numel() * esz
+                  + entries * 4 + b * 4)
         flops = 4 * nh * d * tokens
         kmax = max(kv_lens)
-        kd = _dense_kv(kc, table, kmax, nh // kv)
-        vd = _dense_kv(vc, table, kmax, nh // kv)
+        kd = _dense_kv(dense[0], table, kmax, nh // kv)
+        vd = _dense_kv(dense[1], table, kmax, nh // kv)
         mask = (torch.arange(kmax, device=dev)[None, :]
                 < lens[:, None].long())[:, None, None, :]
         qd = q[:, :, None, :]
@@ -217,7 +264,7 @@ def decode_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None,
 
 
 def prefill_case(name, rows, t, ps, dtype, dev, gen, timer=None, nh=32,
-                 kv=8, d=64, max_len=1024):
+                 kv=8, d=64, max_len=1024, int8=False):
     """Row i holds ``rows[i] = (start, n)``: n real tokens of a chunk
     starting at ``start`` (n = 0: a pad row). Every slot t sits at
     start + t, as the kernel rebuilds it, so a row's slots past n are
@@ -227,8 +274,7 @@ def prefill_case(name, rows, t, ps, dtype, dev, gen, timer=None, nh=32,
     b = len(rows)
     max_pages = max_len // ps
     num_pages = b * max_pages + 1
-    kc = _cache(kv, num_pages, d, ps, dtype, dev, gen)
-    vc = _cache(kv, num_pages, d, ps, dtype, dev, gen)
+    (kc, vc), dense = _caches(kv, num_pages, d, ps, dtype, dev, gen, int8)
     q = torch.randn((b, t, nh, d), generator=gen, device=dev).to(dtype)
     kv_lens = [start + n if n else 0 for start, n in rows]
     lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
@@ -254,7 +300,7 @@ def prefill_case(name, rows, t, ps, dtype, dev, gen, timer=None, nh=32,
         slot_bytes = nh * d * esz
         live_rows = sum(1 for n in kv_lens if n)
         entries = sum(-(-n // ps) for n in kv_lens)
-        kv_bytes = 2 * sum(kv_lens) * kv * d * esz
+        kv_bytes = 2 * sum(kv_lens) * kv * _kv_slot_bytes(d, esz, int8)
         small = entries * 4 + 2 * b * 4  # page table, row starts, kv_lens
         # Operations this data needs: slot t of row i sees
         # min(start_i + t + 1, kv_len_i) tokens.
@@ -270,8 +316,8 @@ def prefill_case(name, rows, t, ps, dtype, dev, gen, timer=None, nh=32,
         live_bound = _bound(kv_bytes + 2 * n_slots * slot_bytes + small,
                             4 * nh * d * int(visible[live].sum()))
         kmax = max(kv_lens)
-        kd = _dense_kv(kc, table, kmax, nh // kv)
-        vd = _dense_kv(vc, table, kmax, nh // kv)
+        kd = _dense_kv(dense[0], table, kmax, nh // kv)
+        vd = _dense_kv(dense[1], table, kmax, nh // kv)
         tok = torch.arange(kmax, device=dev)
         mask = ((tok[None, None, :] <= pos.long()[:, :, None])
                 & (tok[None, None, :] < lens.long()[:, None, None]))
@@ -290,7 +336,7 @@ def prefill_case(name, rows, t, ps, dtype, dev, gen, timer=None, nh=32,
 
 
 def ragged_case(name, rows, w, ps, dtype, dev, gen, timer=None, nh=32,
-                kv=8, d=64, max_len=1024, verify=False):
+                kv=8, d=64, max_len=1024, verify=False, int8=False):
     """Row i holds ``rows[i] = (kv_len, last_index)``: slots 0..last_index
     are live and sit at kv_len - 1 - last_index + t (kv_len 0: a pad
     row). ``verify``: the rows are verify rows, draft_len = last_index."""
@@ -299,8 +345,7 @@ def ragged_case(name, rows, w, ps, dtype, dev, gen, timer=None, nh=32,
     b = len(rows)
     max_pages = max_len // ps
     num_pages = b * max_pages + 1
-    kc = _cache(kv, num_pages, d, ps, dtype, dev, gen)
-    vc = _cache(kv, num_pages, d, ps, dtype, dev, gen)
+    (kc, vc), dense = _caches(kv, num_pages, d, ps, dtype, dev, gen, int8)
     q = torch.randn((b, w, nh, d), generator=gen, device=dev).to(dtype)
     kv_lens = [n for n, _ in rows]
     lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
@@ -326,7 +371,7 @@ def ragged_case(name, rows, w, ps, dtype, dev, gen, timer=None, nh=32,
         esz = q.element_size()
         slot_bytes = nh * d * esz
         entries = sum(-(-n // ps) for n in kv_lens)
-        kv_bytes = 2 * sum(kv_lens) * kv * d * esz
+        kv_bytes = 2 * sum(kv_lens) * kv * _kv_slot_bytes(d, esz, int8)
         small = entries * 4 + 3 * b * 4  # page table, kv_lens, last_index
         # Operations this data needs: live slot t of row i sits at
         # q_start_i + t and sees min(q_start_i + t + 1, kv_len_i) tokens.
@@ -342,8 +387,8 @@ def ragged_case(name, rows, w, ps, dtype, dev, gen, timer=None, nh=32,
         live_bound = _bound(kv_bytes + 2 * n_live * slot_bytes + small,
                             flops)
         kmax = max(kv_lens)
-        kd = _dense_kv(kc, table, kmax, nh // kv)
-        vd = _dense_kv(vc, table, kmax, nh // kv)
+        kd = _dense_kv(dense[0], table, kmax, nh // kv)
+        vd = _dense_kv(dense[1], table, kmax, nh // kv)
         tok = torch.arange(kmax, device=dev)
         mask = (live[:, :, None] & (tok[None, None, :] <= pos[:, :, None])
                 & (tok[None, None, :] < lens.long()[:, None, None]))
@@ -369,7 +414,8 @@ def _bound(nbytes: int, flops: int) -> dict:
 
 
 def kernel_phase(dev) -> dict:
-    """Returns {kernel name: headline case} after checking every case."""
+    """Returns {kernel name: {"bf16": headline case, "int8": headline
+    case}} after checking every case."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     timer = Timer(dev)
@@ -404,7 +450,9 @@ def kernel_phase(dev) -> dict:
     # f32 cases at the tiny-llama geometry (4 q heads, 2 kv heads,
     # head_dim 32), the f32 config the kernels are built for.
     tiny = dict(nh=4, kv=2, d=32)
-    cases = {
+    f32 = torch.float32
+    # The first case of each list is the kernel's headline case.
+    cases = {"bf16": {
         "paged_decode": [
             decode_case("decode bf16 B=32 ps=128", 32, lens, 128, bf16,
                         dev, gen, timer, num_pages=512),
@@ -437,14 +485,47 @@ def kernel_phase(dev) -> dict:
                         [(1, 0), (77, 15), (0, -1), (200, 3)], 16, 16,
                         torch.float32, dev, gen, max_len=256, **tiny),
         ],
-    }
-    headline = {}
-    for name, results in cases.items():
-        for r in results:
-            log("kernel case " + json.dumps(r))
-        head = dict(results[0])
-        head["max_abs_err"] = max(r["max_abs_err"] for r in results)
-        headline[name] = head
+    }, "int8": {
+        # The headline cases again over an int8 cache quantized from the
+        # same kind of bf16 K/V, then page size 16 and the f32 tiny-llama
+        # geometry over int8 caches.
+        "paged_decode": [
+            decode_case("decode bf16/int8 B=32 ps=128", 32, lens, 128, bf16,
+                        dev, gen, timer, num_pages=512, int8=True),
+            decode_case("decode bf16/int8 B=32 ps=16", 32, lens, 16, bf16,
+                        dev, gen, int8=True),
+            decode_case("decode f32/int8 tiny B=4 ps=16", 4,
+                        [1, 0, 37, 300], 16, f32, dev, gen, max_len=512,
+                        int8=True, **tiny),
+        ],
+        "paged_prefill": [
+            prefill_case("prefill bf16/int8 B=8 T=512 first chunk ps=128",
+                         first, 512, 128, bf16, dev, gen, timer, int8=True),
+            prefill_case("prefill bf16/int8 B=8 T=512 second chunk ps=16",
+                         second, 512, 16, bf16, dev, gen, int8=True),
+            prefill_case("prefill f32/int8 tiny B=2 T=64 ps=16",
+                         [(40, 64), (40, 9)], 64, 16, f32, dev, gen,
+                         max_len=256, int8=True, **tiny),
+        ],
+        "paged_ragged": [
+            ragged_case("ragged bf16/int8 unified R=40 W=512 ps=128",
+                        unified_ragged, 512, 128, bf16, dev, gen, timer,
+                        int8=True),
+            ragged_case("ragged bf16/int8 verify B=32 W=5 ps=16", verify, 5,
+                        16, bf16, dev, gen, verify=True, int8=True),
+            ragged_case("ragged f32/int8 tiny R=4 W=16 ps=16",
+                        [(1, 0), (77, 15), (0, -1), (200, 3)], 16, 16, f32,
+                        dev, gen, max_len=256, int8=True, **tiny),
+        ],
+    }}
+    headline = {name: {} for name in KERNELS}
+    for form, by_kernel in cases.items():
+        for name, results in by_kernel.items():
+            for r in results:
+                log("kernel case " + json.dumps(r))
+            head = dict(results[0])
+            head["max_abs_err"] = max(r["max_abs_err"] for r in results)
+            headline[name][form] = head
     return headline
 
 
@@ -460,17 +541,34 @@ def model_phase(dev) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = llama.init_params(cfg, gen, dev)
+    tokens = torch.randint(1, cfg.vocab_size, (1, 512 + 6), generator=gen,
+                           device=dev, dtype=torch.int32)
+    for kv_dtype in ("bf16", "int8"):
+        _model_forwards(dev, cfg, params, tokens, kv_dtype)
+    del params
+    torch.cuda.empty_cache()
+
+
+def _model_forwards(dev, cfg, params, tokens, kv_dtype) -> None:
+    """The prefill chunk, decode step and verify block through the
+    kernels and through their plain versions over a fresh ``kv_dtype``
+    cache each, compared."""
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.ops.quant_kv import quant_cache_zeros
+
     ps, t = 128, 512
     shape = (cfg.num_key_value_heads, 8, cfg.head_dim, ps)
     table = torch.tensor([[1, 2, 3, 4, 5]], dtype=torch.int32, device=dev)
-    tokens = torch.randint(1, cfg.vocab_size, (1, t + 6), generator=gen,
-                           device=dev, dtype=torch.int32)
+
+    def layer_cache():
+        if kv_dtype == "int8":
+            return quant_cache_zeros(shape, dev)
+        return torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
+
     results = {}
     for impl in ("cuda", "plain"):
-        caches = ([torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
-                   for _ in range(cfg.num_hidden_layers)],
-                  [torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
-                   for _ in range(cfg.num_hidden_layers)])
+        caches = ([layer_cache() for _ in range(cfg.num_hidden_layers)],
+                  [layer_cache() for _ in range(cfg.num_hidden_layers)])
         with torch.inference_mode():
             prefill = llama.forward(
                 params, cfg, tokens[:, :t],
@@ -508,22 +606,22 @@ def model_phase(dev) -> None:
         margin = (b.max(-1).values
                   - b.gather(-1, a.argmax(-1, keepdim=True))[..., 0])
         flip_margin = margin[~same].max().item() if (~same).any() else 0.0
-        log(f"model bench-1b {phase}: logits {tuple(a.shape)}, max |cuda "
-            f"- plain| {diff:.3e} (max |logit| {scale:.3e}), top-1 "
-            f"agreement {agree:.4f}, largest margin of a flip "
+        log(f"model bench-1b {kv_dtype} KV {phase}: logits "
+            f"{tuple(a.shape)}, max |cuda - plain| {diff:.3e} (max "
+            f"|logit| {scale:.3e}), top-1 agreement {agree:.4f} "
+            f"({int((~same).sum())} flips), largest margin of a flip "
             f"{flip_margin:.3e}")
         # Both run the same bf16 model; they differ only in how each
-        # layer's attention sums are ordered and rounded. So the logits
-        # stay close and every top-1 flip is a near-tie; top-1 agrees
-        # on 90% of the prefill chunk's positions and on the decode
-        # step. On the 5 verify positions one near-tie flip is 20%, so
-        # there the near-tie rule alone holds.
+        # layer's attention sums are ordered and rounded (over int8 KV,
+        # each side also quantizes the K/V its own layers produced). So
+        # the logits stay close and every top-1 flip is a near-tie;
+        # top-1 agrees on 90% of the prefill chunk's positions and on
+        # the decode step. On the 5 verify positions one near-tie flip
+        # is 20%, so there the near-tie rule alone holds.
         if (diff > 0.05 * scale or flip_margin > 2 * diff
                 or (not phase.startswith("verify") and agree < 0.9)):
-            raise AssertionError(f"model {phase}: cuda and plain "
-                                 "forwards disagree")
-    del params
-    torch.cuda.empty_cache()
+            raise AssertionError(f"model {kv_dtype} KV {phase}: cuda and "
+                                 "plain forwards disagree")
 
 
 # ---- serving phase ----------------------------------------------------------
@@ -543,12 +641,15 @@ def _post(url, body) -> dict:
         return json.loads(resp.read())
 
 
-def serving_run(label, extra_args, requests, repeat, after=()):
+def serving_run(label, extra_args, requests, repeat, after=(),
+                int8=False):
     """Start the port's server with SERVER_ARGS + ``extra_args``, send
     ``requests`` concurrently with the launch counters set to 0 just
     before and read just after, then ``repeat`` twice; then (outside
     the counted window) the ``after`` requests. Checks every
-    completion and returns what the run measured."""
+    completion, that every kernel launched in its ``int8`` form or in
+    its full-precision one and never in the other, and returns what
+    the run measured."""
     from production_stack_tpu_torch.engine.server import make_server
     from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
 
@@ -601,9 +702,13 @@ def serving_run(label, extra_args, requests, repeat, after=()):
     ragged = metric("vllm:engine_ragged_steps_total")
     if ragged <= 0:
         raise AssertionError(f"{label}: no unified mixed step ran")
-    for name in KERNELS:
+    for kernel in KERNELS:
+        name, other = ((kernel + "_int8", kernel) if int8
+                       else (kernel, kernel + "_int8"))
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{label}: the run never launched {name}")
+        if launches.get(other, 0):
+            raise AssertionError(f"{label}: the run launched {other}")
     if any(plain_calls.values()):
         raise AssertionError(f"{label}: plain versions ran on CUDA "
                              f"tensors: {plain_calls}")
@@ -614,6 +719,7 @@ def serving_run(label, extra_args, requests, repeat, after=()):
         f"on CUDA tensors {plain_calls or 0}")
     return {"launches": launches, "answers": answers,
             "after": after_answers, "wall": wall, "tokens": tokens,
+            "metrics": metrics, "metric": metric,
             "drafted": metric("vllm:spec_decode_num_draft_tokens_total"),
             "accepted": metric(
                 "vllm:spec_decode_num_accepted_tokens_total")}
@@ -661,7 +767,33 @@ def serving_phase(vocab: int) -> dict:
         f"tok/s; greedy characters agreeing with the spec-off server "
         f"{same}/{total} ({same / total:.4f}), whole completions "
         f"{whole}/{len(spec['answers'])}")
-    return {"serve": base["launches"], "serve_spec": spec["launches"]}
+
+    int8 = serving_run("serving int8 KV", ["--kv-cache-dtype", "int8"],
+                       requests, repeat, int8=True)
+    if 'vllm:engine_kv_cache_dtype{kv_dtype="int8"} 1.0' not in (
+            int8["metrics"]):
+        raise AssertionError("int8 serving: /metrics does not show "
+                             'kv_dtype="int8"')
+    capacity = int8["metric"]("vllm:engine_kv_cache_page_capacity")
+    if capacity != INT8_PAGE_CAPACITY:
+        raise AssertionError(f"int8 serving: page capacity {capacity}, "
+                             f"expected {INT8_PAGE_CAPACITY}")
+    same = total = whole = greedy = 0
+    for body, a, b in zip(requests, int8["answers"], base["answers"]):
+        if body.get("temperature", 1.0) != 0.0:
+            continue
+        ta, tb = a["choices"][0]["text"], b["choices"][0]["text"]
+        same += sum(x == y for x, y in zip(ta, tb))
+        total += max(len(ta), len(tb))
+        whole += ta == tb
+        greedy += 1
+    log(f"serving int8 KV: page capacity {capacity:.0f}, "
+        f"{int8['tokens'] / int8['wall']:.1f} tok/s against "
+        f"{base['tokens'] / base['wall']:.1f} for bf16 KV; greedy "
+        f"characters agreeing with the bf16 KV server {same}/{total} "
+        f"({same / total:.4f}), whole completions {whole}/{greedy}")
+    return {"serve": base["launches"], "serve_spec": spec["launches"],
+            INT8_RUN: int8["launches"]}
 
 
 # ---- main -------------------------------------------------------------------
@@ -702,6 +834,12 @@ def main() -> int:
         bench_1b_model_config)
     launches = serving_phase(bench_1b_model_config().vocab_size)
 
+    def numbers(h):
+        return {"max_abs_err": h["max_abs_err"], "ms": h["ms"],
+                "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+                "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+                "case": h["case"]}
+
     summary = []
     for name, meta in KERNELS.items():
         h = headline[name]
@@ -710,10 +848,9 @@ def main() -> int:
             "launches": launches[KERNEL_RUN[name]].get(name, 0),
             "launches_by_run": {run: counts.get(name, 0)
                                 for run, counts in launches.items()},
-            "max_abs_err": h["max_abs_err"], "ms": h["ms"],
-            "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
-            "bound_by": h["bound_by"], "library_ms": h["library_ms"],
-            "case": h["case"]})
+            **numbers(h["bf16"]),
+            "int8": {"launches": launches[INT8_RUN].get(name + "_int8", 0),
+                     **numbers(h["int8"])}})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

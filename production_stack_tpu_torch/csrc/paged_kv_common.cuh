@@ -16,6 +16,17 @@
 // It stops at the last chunk any of its rows can see and writes
 // acc / max(l, 1e-30): exact 0 for a row with kv_len 0.
 //
+// The cache's element type C is a template parameter apart from the
+// query/output type T. With C = int8_t the cache is quantized: int8
+// pages (16 tokens a 16-byte load) plus one f32 scale per (kv head,
+// page, slot), [kv_heads, num_pages, page_size]. The chunk's 128 K and
+// V scales are staged beside its pages (zeros past the live pages)
+// and folded in as the Pallas kernels fold them: the scores are
+// (q . k_int8) / sqrt(D) * k_scale[token], l sums the unscaled
+// probabilities, and p * v_scale[token] enters p . v. That is the
+// plain version's order exactly, and costs 2 * ROWS * 128 multiplies
+// a chunk where scaling each staged element would cost 2 * D * 128.
+//
 // The mask is a template parameter (the counterpart of run_page_walk's
 // mask_fn): it gives each row the exclusive upper bound of the token
 // positions it attends. So is the map from a block's rows to query
@@ -29,21 +40,30 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace pstt {
 
 constexpr int kChunk = 128;           // tokens per walk step
 constexpr int kStride = kChunk + 1;   // smem row stride of K, V, scores
 constexpr float kNegInf = -1e30f;
 
-// The one list of what the kernels are built for: X(dtype code, element
-// type, query group = q heads per kv head, head dim), one entry per
-// model config the engine serves. All three kernels dispatch through
-// it, and pstt_kernel_supports() (paged_decode.cu) answers the host
-// from it.
+// The one list of what the kernels are built for: X(dtype code, query
+// and output type, cache dtype code, cache element type, query group =
+// q heads per kv head, head dim), one entry per model config and KV
+// cache dtype the engine serves. Codes: 0 bf16, 1 f32, 2 int8 (the
+// host's _DTYPE_CODES / _CACHE_CODES). All three kernels dispatch
+// through it, and pstt_kernel_supports() (paged_decode.cu) answers the
+// host from it.
 // Add a line when a config needs another geometry.
-#define PSTT_FOR_EACH_GEOMETRY(X)                      \
-  X(0, __nv_bfloat16, 4, 64) /* bench-1b */            \
-  X(1, float, 2, 32)         /* tiny-llama */
+#define PSTT_FOR_EACH_GEOMETRY(X)                                  \
+  X(0, __nv_bfloat16, 0, __nv_bfloat16, 4, 64) /* bench-1b */      \
+  X(0, __nv_bfloat16, 2, int8_t, 4, 64)  /* bench-1b, int8 KV */   \
+  X(1, float, 1, float, 2, 32)           /* tiny-llama */          \
+  X(1, float, 2, int8_t, 2, 32)          /* tiny-llama, int8 KV */
+
+template <typename C>
+constexpr bool kQuantized = std::is_same<C, int8_t>::value;
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -52,6 +72,10 @@ __device__ __forceinline__ float to_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+template <>
+__device__ __forceinline__ float to_f32<int8_t>(int8_t x) {
+  return (float)x;
 }
 
 template <typename T>
@@ -63,10 +87,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Shared memory of one block, in floats.
-template <int D, int ROWS>
+// Shared memory of one block, in floats. A quantized cache (QUANT)
+// adds the chunk's K and V scales.
+template <int D, int ROWS, bool QUANT = false>
 struct SmemLayout {
   static constexpr int kQStride = D + 1;
+  static constexpr int kScales = QUANT ? kChunk : 0;
   static constexpr int q = 0;                          // [ROWS][D + 1]
   static constexpr int k = q + ROWS * kQStride;        // [D][kStride]
   static constexpr int v = k + D * kStride;            // [D][kStride]
@@ -74,7 +100,9 @@ struct SmemLayout {
   static constexpr int m = s + ROWS * kStride;         // [ROWS]
   static constexpr int l = m + ROWS;                   // [ROWS]
   static constexpr int alpha = l + ROWS;               // [ROWS]
-  static constexpr int total = alpha + ROWS;
+  static constexpr int ks = alpha + ROWS;              // [kScales]
+  static constexpr int vs = ks + kScales;              // [kScales]
+  static constexpr int total = vs + kScales;
   static constexpr size_t bytes = total * sizeof(float);
 };
 
@@ -167,13 +195,15 @@ struct RaggedMask {
 
 // Stage one 128-token chunk of K and V pages into shared memory as
 // f32 [D][kStride] tiles. Page j of the chunk fills columns
-// [j * page_size, (j + 1) * page_size).
-template <typename T, int D, int NT>
+// [j * page_size, (j + 1) * page_size). A 16-byte load holds 8 bf16,
+// 4 f32 or 16 int8 tokens of one head dim, so the page size must hold
+// a multiple of 16 bytes (the host checks it).
+template <typename C, int D, int NT>
 __device__ __forceinline__ void stage_chunk(
-    const T* __restrict__ k_head, const T* __restrict__ v_head,
+    const C* __restrict__ k_head, const C* __restrict__ v_head,
     const int* __restrict__ pt_row, int chunk, int pages_live,
     int page_size, float* __restrict__ ks, float* __restrict__ vs) {
-  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kVec = 16 / sizeof(C);
   const int pages_per_chunk = kChunk / page_size;
   const int page_elems = D * page_size;
   for (int i = threadIdx.x; i < D * kChunk / kVec; i += NT) {
@@ -190,8 +220,8 @@ __device__ __forceinline__ void stage_chunk(
       kraw = *reinterpret_cast<const uint4*>(k_head + src);
       vraw = *reinterpret_cast<const uint4*>(v_head + src);
     }
-    const T* ke = reinterpret_cast<const T*>(&kraw);
-    const T* ve = reinterpret_cast<const T*>(&vraw);
+    const C* ke = reinterpret_cast<const C*>(&kraw);
+    const C* ve = reinterpret_cast<const C*>(&vraw);
     float* kd = ks + d * kStride + j * page_size + col;
     float* vd = vs + d * kStride + j * page_size + col;
 #pragma unroll
@@ -199,6 +229,31 @@ __device__ __forceinline__ void stage_chunk(
       kd[x] = to_f32(ke[x]);
       vd[x] = to_f32(ve[x]);
     }
+  }
+}
+
+// Stage the chunk's 128 K and V scales of a quantized cache: token
+// col of page j of the chunk reads slot col of that page's scale row;
+// pages past the live ones stage as zeros (their scores are masked).
+template <int NT>
+__device__ __forceinline__ void stage_scales(
+    const float* __restrict__ k_scale_head,
+    const float* __restrict__ v_scale_head,
+    const int* __restrict__ pt_row, int chunk, int pages_live,
+    int page_size, float* __restrict__ kss, float* __restrict__ vss) {
+  const int pages_per_chunk = kChunk / page_size;
+  for (int i = threadIdx.x; i < kChunk; i += NT) {
+    const int j = i / page_size;
+    const int col = i - j * page_size;
+    const int lp = chunk * pages_per_chunk + j;
+    float kx = 0.f, vx = 0.f;
+    if (lp < pages_live) {
+      const size_t src = (size_t)pt_row[lp] * page_size + col;
+      kx = k_scale_head[src];
+      vx = v_scale_head[src];
+    }
+    kss[i] = kx;
+    vss[i] = vx;
   }
 }
 
@@ -220,24 +275,29 @@ __device__ __forceinline__ float warp_sum(float x) {
 //
 //   q, out:      the layer's [B, T, num_q_heads, D] query/output
 //   k/v_head:    this kv head's [num_pages, D, page_size] pages
+//   k/v_scale_head: this kv head's [num_pages, page_size] scales (int8
+//                cache only; null otherwise)
 //   pt_row:      this row's page-table entries (max_pages of them)
 //   nrows:       valid rows of the block (<= ROWS); the rest are pad
-template <typename T, int D, int ROWS, int TY, int NT, class Mask,
-          class Rows>
+template <typename T, typename C, int D, int ROWS, int TY, int NT,
+          class Mask, class Rows>
 __device__ void page_walk_block(const T* __restrict__ q,
                                 T* __restrict__ out, Rows rows,
-                                const T* __restrict__ k_head,
-                                const T* __restrict__ v_head,
+                                const C* __restrict__ k_head,
+                                const C* __restrict__ v_head,
+                                const float* __restrict__ k_scale_head,
+                                const float* __restrict__ v_scale_head,
                                 const int* __restrict__ pt_row,
                                 int max_pages, int page_size, int kv_len,
                                 Mask mask, int nrows) {
+  constexpr bool QUANT = kQuantized<C>;
   constexpr int TX = NT / TY;
   constexpr int RM = ROWS / TY;
   constexpr int TN = kChunk / TX;
   constexpr int DN = D / TX;
   static_assert(ROWS % TY == 0 && D % TX == 0 && kChunk % TX == 0,
                 "thread layout must tile the rows, head dim and chunk");
-  using L = SmemLayout<D, ROWS>;
+  using L = SmemLayout<D, ROWS, QUANT>;
   constexpr int QS = L::kQStride;
   extern __shared__ float smem[];
   float* qs = smem + L::q;
@@ -247,6 +307,8 @@ __device__ void page_walk_block(const T* __restrict__ q,
   float* ms = smem + L::m;
   float* ls = smem + L::l;
   float* as = smem + L::alpha;
+  float* kss = smem + L::ks;  // QUANT only
+  float* vss = smem + L::vs;
 
   const int tid = threadIdx.x;
   const int ty = tid / TX;
@@ -278,8 +340,11 @@ __device__ void page_walk_block(const T* __restrict__ q,
 
   for (int c = 0; c < n_chunks; ++c) {
     __syncthreads();  // the previous chunk's readers are done
-    stage_chunk<T, D, NT>(k_head, v_head, pt_row, c, pages_live,
+    stage_chunk<C, D, NT>(k_head, v_head, pt_row, c, pages_live,
                           page_size, ks, vs);
+    if constexpr (QUANT)
+      stage_scales<NT>(k_scale_head, v_scale_head, pt_row, c, pages_live,
+                       page_size, kss, vss);
     __syncthreads();
 
     // Scores: [RM] x [TN] register tile, contracted over D.
@@ -305,8 +370,9 @@ __device__ void page_walk_block(const T* __restrict__ q,
       for (int j = 0; j < TN; ++j) {
         const int tok = tx + TX * j;
         const int pos = c * kChunk + tok;
-        ss[(ty * RM + i) * kStride + tok] =
-            pos < lim[i] ? sacc[i][j] * scale : kNegInf;
+        float sc = sacc[i][j] * scale;
+        if constexpr (QUANT) sc *= kss[tok];  // fold the K scales
+        ss[(ty * RM + i) * kStride + tok] = pos < lim[i] ? sc : kNegInf;
       }
     __syncthreads();
 
@@ -323,7 +389,11 @@ __device__ void page_walk_block(const T* __restrict__ q,
 #pragma unroll
       for (int x = lane; x < kChunk; x += 32) {
         const float p = expf(row[x] - m_new);
-        row[x] = p;
+        // l sums p; p . v takes p * v_scale (the V scales' fold).
+        if constexpr (QUANT)
+          row[x] = p * vss[x];
+        else
+          row[x] = p;
         sum += p;
       }
       sum = warp_sum(sum);

@@ -8,12 +8,15 @@
 // each staged chunk for all 64 rows. Query t of a row sits at
 // q_positions[b, 0] + t; a tile stops at the last chunk its highest
 // query position can see, which skips only fully masked work. A row
-// with kv_len 0 writes 0.
+// with kv_len 0 writes 0. An int8 cache stages as int8 pages and their
+// scales, folded in (paged_kv_common.cuh).
 //
 // C interface (loaded with ctypes by ops/paged_kv_common.py):
 //   q/out [B, T, num_q_heads, D]; k/v cache [kv_heads, num_pages, D,
-//   page_size]; page_table [B, max_pages], q_positions [B, T] (row
-//   starts read only), kv_lens [B], all int32; dtype 0 = bf16, 1 = f32.
+//   page_size]; k/v scale [kv_heads, num_pages, page_size] f32 for an
+//   int8 cache, else null; page_table [B, max_pages], q_positions
+//   [B, T] (row starts read only), kv_lens [B], all int32; dtype (q,
+//   out) 0 = bf16, 1 = f32; cache_dtype 0 = bf16, 1 = f32, 2 = int8.
 // Launches on `stream`, allocates nothing, does not synchronise, and
 // returns cudaGetLastError() after the launch.
 
@@ -26,10 +29,12 @@ constexpr int kPrefillThreads = 256;
 constexpr int kTileRows = 64;
 constexpr int kTileTY = 16;  // 16 x 16 threads: 4 rows x 8 tokens each
 
-template <typename T, int D>
+template <typename T, typename C, int D>
 __global__ void __launch_bounds__(kPrefillThreads)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-                     const T* __restrict__ v_cache,
+paged_prefill_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
+                     const C* __restrict__ v_cache,
+                     const float* __restrict__ k_scale,
+                     const float* __restrict__ v_scale,
                      const int* __restrict__ page_table,
                      const int* __restrict__ q_positions,
                      const int* __restrict__ kv_lens, T* __restrict__ out,
@@ -43,22 +48,27 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   const int kv_len = kv_lens[b];
   const int q_start = q_positions[(size_t)b * tokens];
   const size_t head_elems = (size_t)num_pages * D * page_size;
+  const size_t head_slots = (size_t)num_pages * page_size;
   RowMap rows{((size_t)b * tokens * num_q_heads + (size_t)h * group) * D,
               tokens, num_q_heads, D, row0};
-  page_walk_block<T, D, kTileRows, kTileTY, kPrefillThreads>(
+  page_walk_block<T, C, D, kTileRows, kTileTY, kPrefillThreads>(
       q, out, rows, k_cache + h * head_elems, v_cache + h * head_elems,
+      kQuantized<C> ? k_scale + h * head_slots : nullptr,
+      kQuantized<C> ? v_scale + h * head_slots : nullptr,
       page_table + (size_t)b * max_pages, max_pages, page_size, kv_len,
       CausalMask{kv_len, q_start, tokens, row0}, nrows);
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* pt,
-           const void* q_positions, const void* kv_lens, void* out,
-           int batch, int tokens, int num_q_heads, int num_kv_heads,
-           int num_pages, int page_size, int max_pages,
-           cudaStream_t stream) {
-  constexpr size_t smem = SmemLayout<D, kTileRows>::bytes;
-  auto kernel = paged_prefill_kernel<T, D>;
+template <typename T, typename C, int D>
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const void* pt, const void* q_positions,
+           const void* kv_lens, void* out, int batch, int tokens,
+           int num_q_heads, int num_kv_heads, int num_pages, int page_size,
+           int max_pages, cudaStream_t stream) {
+  if (kQuantized<C> && (ks == nullptr || vs == nullptr))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = SmemLayout<D, kTileRows, kQuantized<C>>::bytes;
+  auto kernel = paged_prefill_kernel<T, C, D>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
@@ -66,8 +76,9 @@ int launch(const void* q, const void* k, const void* v, const void* pt,
   const int tiles = (group * tokens + kTileRows - 1) / kTileRows;
   kernel<<<dim3(tiles, num_kv_heads, batch), kPrefillThreads, smem,
            stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(pt),
+      static_cast<const T*>(q), static_cast<const C*>(k),
+      static_cast<const C*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(pt),
       static_cast<const int*>(q_positions),
       static_cast<const int*>(kv_lens), static_cast<T*>(out), tokens,
       num_q_heads, group, num_pages, page_size, max_pages);
@@ -77,8 +88,11 @@ int launch(const void* q, const void* k, const void* v, const void* pt,
 }  // namespace
 }  // namespace pstt
 
-extern "C" int pstt_paged_prefill(int dtype, const void* q, const void* k,
-                                  const void* v, const void* page_table,
+extern "C" int pstt_paged_prefill(int dtype, int cache_dtype,
+                                  const void* q, const void* k,
+                                  const void* v, const void* k_scale,
+                                  const void* v_scale,
+                                  const void* page_table,
                                   const void* q_positions,
                                   const void* kv_lens, void* out, int batch,
                                   int tokens, int num_q_heads,
@@ -91,12 +105,13 @@ extern "C" int pstt_paged_prefill(int dtype, const void* q, const void* k,
   if (batch == 0 || tokens == 0) return cudaSuccess;
   const int group = num_q_heads / num_kv_heads;
   auto s = static_cast<cudaStream_t>(stream);
-#define PSTT_PREFILL_CASE(code, T, G, D)                                   \
-  if (dtype == code && group == G && head_dim == D)                        \
-    return pstt::launch<T, D>(q, k, v, page_table, q_positions, kv_lens,   \
-                              out, batch, tokens, num_q_heads,             \
-                              num_kv_heads, num_pages, page_size,          \
-                              max_pages, s);
+#define PSTT_PREFILL_CASE(code, T, ccode, C, G, D)                         \
+  if (dtype == code && cache_dtype == ccode && group == G &&               \
+      head_dim == D)                                                       \
+    return pstt::launch<T, C, D>(q, k, v, k_scale, v_scale, page_table,    \
+                                 q_positions, kv_lens, out, batch, tokens, \
+                                 num_q_heads, num_kv_heads, num_pages,     \
+                                 page_size, max_pages, s);
   PSTT_FOR_EACH_GEOMETRY(PSTT_PREFILL_CASE)
 #undef PSTT_PREFILL_CASE
   return cudaErrorInvalidValue;

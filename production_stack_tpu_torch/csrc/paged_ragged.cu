@@ -19,11 +19,15 @@
 // with the narrowest of three row blocks (8, 32 or 64 rows) that holds
 // them, so a decode row does not pay for 64 rows of arithmetic. The
 // walk stops at the last chunk the tile's highest live slot can see.
+// An int8 cache stages as int8 pages and their scales, folded in
+// (paged_kv_common.cuh).
 //
 // C interface (loaded with ctypes by ops/paged_kv_common.py):
 //   q/out [R, W, num_q_heads, D]; k/v cache [kv_heads, num_pages, D,
-//   page_size]; page_table [R, max_pages], kv_lens [R], last_index
-//   [R], draft_lens [R] or null, all int32; dtype 0 = bf16, 1 = f32.
+//   page_size]; k/v scale [kv_heads, num_pages, page_size] f32 for an
+//   int8 cache, else null; page_table [R, max_pages], kv_lens [R],
+//   last_index [R], draft_lens [R] or null, all int32; dtype (q, out)
+//   0 = bf16, 1 = f32; cache_dtype 0 = bf16, 1 = f32, 2 = int8.
 // Launches on `stream`, allocates nothing, does not synchronise, and
 // returns cudaGetLastError() after the launch.
 
@@ -35,10 +39,12 @@ namespace {
 constexpr int kRaggedThreads = 256;
 constexpr int kRaggedTile = 64;
 
-template <typename T, int D>
+template <typename T, typename C, int D>
 __global__ void __launch_bounds__(kRaggedThreads)
-paged_ragged_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-                    const T* __restrict__ v_cache,
+paged_ragged_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
+                    const C* __restrict__ v_cache,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
                     const int* __restrict__ page_table,
                     const int* __restrict__ kv_lens,
                     const int* __restrict__ last_index, T* __restrict__ out,
@@ -66,34 +72,40 @@ paged_ragged_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
   if (live == 0) return;
 
   const size_t head_elems = (size_t)num_pages * D * page_size;
-  const T* k_head = k_cache + h * head_elems;
-  const T* v_head = v_cache + h * head_elems;
+  const size_t head_slots = (size_t)num_pages * page_size;
+  const C* k_head = k_cache + h * head_elems;
+  const C* v_head = v_cache + h * head_elems;
+  const float* ks_head = kQuantized<C> ? k_scale + h * head_slots : nullptr;
+  const float* vs_head = kQuantized<C> ? v_scale + h * head_slots : nullptr;
   const int* pt_row = page_table + (size_t)b * max_pages;
   const RaggedMask mask{kv_len, last, group, row0};
   if (live <= 8) {
-    page_walk_block<T, D, 8, 8, kRaggedThreads>(
-        q, out, rows, k_head, v_head, pt_row, max_pages, page_size, kv_len,
-        mask, live);
+    page_walk_block<T, C, D, 8, 8, kRaggedThreads>(
+        q, out, rows, k_head, v_head, ks_head, vs_head, pt_row, max_pages,
+        page_size, kv_len, mask, live);
   } else if (live <= 32) {
-    page_walk_block<T, D, 32, 8, kRaggedThreads>(
-        q, out, rows, k_head, v_head, pt_row, max_pages, page_size, kv_len,
-        mask, live);
+    page_walk_block<T, C, D, 32, 8, kRaggedThreads>(
+        q, out, rows, k_head, v_head, ks_head, vs_head, pt_row, max_pages,
+        page_size, kv_len, mask, live);
   } else {
-    page_walk_block<T, D, kRaggedTile, 16, kRaggedThreads>(
-        q, out, rows, k_head, v_head, pt_row, max_pages, page_size, kv_len,
-        mask, live);
+    page_walk_block<T, C, D, kRaggedTile, 16, kRaggedThreads>(
+        q, out, rows, k_head, v_head, ks_head, vs_head, pt_row, max_pages,
+        page_size, kv_len, mask, live);
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* pt,
-           const void* kv_lens, const void* last_index, void* out,
-           int rows, int width, int num_q_heads, int num_kv_heads,
-           int num_pages, int page_size, int max_pages,
-           cudaStream_t stream) {
-  // The widest row block's layout; the narrower ones use a prefix.
-  constexpr size_t smem = SmemLayout<D, kRaggedTile>::bytes;
-  auto kernel = paged_ragged_kernel<T, D>;
+template <typename T, typename C, int D>
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const void* pt, const void* kv_lens,
+           const void* last_index, void* out, int rows, int width,
+           int num_q_heads, int num_kv_heads, int num_pages, int page_size,
+           int max_pages, cudaStream_t stream) {
+  if (kQuantized<C> && (ks == nullptr || vs == nullptr))
+    return cudaErrorInvalidValue;
+  // The widest row block's layout; the narrower ones use a prefix of
+  // it, and place their scales by their own layout, inside it.
+  constexpr size_t smem = SmemLayout<D, kRaggedTile, kQuantized<C>>::bytes;
+  auto kernel = paged_ragged_kernel<T, C, D>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
@@ -101,8 +113,9 @@ int launch(const void* q, const void* k, const void* v, const void* pt,
   const int tiles = (group * width + kRaggedTile - 1) / kRaggedTile;
   kernel<<<dim3(tiles, num_kv_heads, rows), kRaggedThreads, smem,
            stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(pt),
+      static_cast<const T*>(q), static_cast<const C*>(k),
+      static_cast<const C*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int*>(pt),
       static_cast<const int*>(kv_lens),
       static_cast<const int*>(last_index), static_cast<T*>(out), width,
       num_q_heads, group, num_pages, page_size, max_pages);
@@ -112,8 +125,10 @@ int launch(const void* q, const void* k, const void* v, const void* pt,
 }  // namespace
 }  // namespace pstt
 
-extern "C" int pstt_paged_ragged(int dtype, const void* q, const void* k,
-                                 const void* v, const void* page_table,
+extern "C" int pstt_paged_ragged(int dtype, int cache_dtype, const void* q,
+                                 const void* k, const void* v,
+                                 const void* k_scale, const void* v_scale,
+                                 const void* page_table,
                                  const void* kv_lens,
                                  const void* last_index,
                                  const void* draft_lens, void* out,
@@ -128,11 +143,13 @@ extern "C" int pstt_paged_ragged(int dtype, const void* q, const void* k,
   if (rows == 0 || width == 0) return cudaSuccess;
   const int group = num_q_heads / num_kv_heads;
   auto s = static_cast<cudaStream_t>(stream);
-#define PSTT_RAGGED_CASE(code, T, G, D)                                    \
-  if (dtype == code && group == G && head_dim == D)                        \
-    return pstt::launch<T, D>(q, k, v, page_table, kv_lens, last_index,    \
-                              out, rows, width, num_q_heads, num_kv_heads, \
-                              num_pages, page_size, max_pages, s);
+#define PSTT_RAGGED_CASE(code, T, ccode, C, G, D)                          \
+  if (dtype == code && cache_dtype == ccode && group == G &&               \
+      head_dim == D)                                                       \
+    return pstt::launch<T, C, D>(q, k, v, k_scale, v_scale, page_table,    \
+                                 kv_lens, last_index, out, rows, width,    \
+                                 num_q_heads, num_kv_heads, num_pages,     \
+                                 page_size, max_pages, s);
   PSTT_FOR_EACH_GEOMETRY(PSTT_RAGGED_CASE)
 #undef PSTT_RAGGED_CASE
   return cudaErrorInvalidValue;

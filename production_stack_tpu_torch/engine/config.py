@@ -2,11 +2,11 @@
 
 The same field names as the JAX engine's configuration, with torch
 dtypes in place of ``jnp`` ones. Only the fields of the port's slice
-are here: one llama-family model on one device, bf16 KV in per-layer
-pages, continuous batching with the async pipeline, the unified
-ragged step and prompt-lookup speculative decoding. Parallelism,
-offload, LoRA, QoS, autotuning and the KV economy join the port with
-the features that read them.
+are here: one llama-family model on one device, full-precision or
+int8 KV in per-layer pages, continuous batching with the async
+pipeline, the unified ragged step and prompt-lookup speculative
+decoding. Parallelism, offload, LoRA, QoS, autotuning and the KV
+economy join the port with the features that read them.
 """
 
 from __future__ import annotations
@@ -64,6 +64,14 @@ class CacheConfig:
     # Only the per-layer layout is ported: a list of L
     # [kv, pages, d, page_size] buffers, each updated in place.
     cache_layout: str = "auto"
+    # KV page storage:
+    #   auto / bf16 -> pages in the model's dtype (an f32 model keeps
+    #                  f32 pages); the two spellings are synonyms.
+    #   int8        -> pages quantized on write with one f32 scale per
+    #                  (kv head, page, slot) (ops/quant_kv.py) and
+    #                  dequantized inside the attention kernels;
+    #                  EngineConfig spends the same device bytes on
+    #                  more pages (about 1.9x at bf16 widths).
     kv_cache_dtype: str = "auto"
 
     def __post_init__(self):
@@ -72,20 +80,24 @@ class CacheConfig:
                 "cache_layout must be 'auto' or 'per_layer' (the "
                 f"stacked layout is not ported; got "
                 f"{self.cache_layout!r})")
-        if self.kv_cache_dtype not in ("auto", "bf16"):
-            raise NotImplementedError(
-                "kv_cache_dtype must be 'auto' or 'bf16' (int8 KV is "
-                f"not ported; got {self.kv_cache_dtype!r})")
+        if self.kv_cache_dtype not in ("auto", "bf16", "int8"):
+            raise ValueError(
+                "cache.kv_cache_dtype must be 'auto', 'bf16' or 'int8' "
+                f"(got {self.kv_cache_dtype!r})")
 
     def max_tokens(self) -> int:
         return self.page_size * self.num_pages
 
     def resolved_kv_dtype(self) -> str:
-        return "bf16"
+        """'int8' or 'bf16' (the full-precision family; its pages are
+        in the model's dtype)."""
+        return "int8" if self.kv_cache_dtype == "int8" else "bf16"
 
     def kv_slot_bytes(self, model: "ModelConfig") -> int:
         """Device bytes one cached token costs per kv head per k-or-v
-        plane."""
+        plane: head_dim values plus, for int8, one f32 scale."""
+        if self.resolved_kv_dtype() == "int8":
+            return model.head_dim + 4
         return model.head_dim * model.torch_dtype.itemsize
 
     def kv_bytes_per_token(self, model: "ModelConfig") -> int:
@@ -149,6 +161,19 @@ class EngineConfig:
             raise NotImplementedError(
                 "the port serves the llama family (llama, mistral, "
                 f"qwen2); got {self.model.architecture!r}")
+        if self.cache.resolved_kv_dtype() == "int8" and not getattr(
+                self.cache, "_kv_pages_expanded", False):
+            # Spend the same device bytes on more, narrower pages: a
+            # full-precision slot is head_dim * itemsize bytes, an int8
+            # slot head_dim + 4 (its f32 scale). The sentinel lives on
+            # the CacheConfig object because dataclasses.replace(self)
+            # runs __post_init__ again on the same, expanded instance.
+            full_slot = self.model.head_dim * self.model.torch_dtype.itemsize
+            expanded = (self.cache.num_pages * full_slot
+                        // (self.model.head_dim + 4))
+            self.cache = dataclasses.replace(
+                self.cache, num_pages=max(expanded, self.cache.num_pages))
+            self.cache._kv_pages_expanded = True
 
 
 def bench_1b_model_config() -> ModelConfig:

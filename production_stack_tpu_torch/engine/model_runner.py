@@ -36,6 +36,7 @@ from production_stack_tpu_torch.models.registry import get_model
 from production_stack_tpu_torch.ops.paged_kv_common import (
     check_kernel_shapes,
 )
+from production_stack_tpu_torch.ops.quant_kv import quant_cache_zeros
 from production_stack_tpu_torch.ops.sampling import (
     sample_tokens,
     spec_verify,
@@ -168,23 +169,38 @@ class ModelRunner:
             gen.manual_seed(config.seed)
             params = init_fn(model_config, gen, self.device)
         self.params = params.to(self.device)
+        # int8 KV: pages quantized on write with per-slot f32 scales
+        # (ops/quant_kv.py), dequantized inside the kernels.
+        self.kv_quantized = config.cache.resolved_kv_dtype() == "int8"
+        cache_dtype = (torch.int8 if self.kv_quantized
+                       else model_config.torch_dtype)
         if self.device.type == "cuda":
             # Fail at start-up, not at the first step: the kernel
             # library is built (or found) and loaded now, and the
-            # geometry must be one it is built for.
+            # geometry (with the cache's dtype, and for int8 a page
+            # size that is a multiple of 16) must be one it is built
+            # for.
             check_kernel_shapes(
                 model_config.num_attention_heads,
                 model_config.num_key_value_heads, model_config.head_dim,
-                config.cache.page_size, model_config.torch_dtype)
+                config.cache.page_size, model_config.torch_dtype,
+                cache_dtype)
 
-        # One [kv_heads, pages, d, page_size] buffer per layer, k and v:
-        # every write and kernel touches exactly one layer's buffer.
+        # One [kv_heads, pages, d, page_size] buffer per layer, k and v
+        # (a QuantKV of int8 pages and [kv_heads, pages, page_size]
+        # scales for int8): every write and kernel touches exactly one
+        # layer's buffer.
         shape = (model_config.num_key_value_heads, config.cache.num_pages,
                  model_config.head_dim, config.cache.page_size)
-        dtype = model_config.torch_dtype
-        self.k_cache = [torch.zeros(shape, dtype=dtype, device=self.device)
+
+        def layer_cache():
+            if self.kv_quantized:
+                return quant_cache_zeros(shape, self.device)
+            return torch.zeros(shape, dtype=cache_dtype, device=self.device)
+
+        self.k_cache = [layer_cache()
                         for _ in range(model_config.num_hidden_layers)]
-        self.v_cache = [torch.zeros(shape, dtype=dtype, device=self.device)
+        self.v_cache = [layer_cache()
                         for _ in range(model_config.num_hidden_layers)]
 
         self.max_pages_per_seq = config.scheduler.max_pages_per_seq(
@@ -555,17 +571,42 @@ class ModelRunner:
 
     # ---- page-granular IO ---------------------------------------------------
 
-    def read_page(self, page_id: int) -> Tuple[np.ndarray, np.ndarray]:
+    def read_page(self, page_id: int) -> Tuple[np.ndarray, ...]:
         """Copy one page's KV out of device memory: [L, kv, d, page_size]
         each (the JAX engine's wire shape), as f32 numpy (numpy has no
-        bf16; the conversion is exact)."""
+        bf16; the conversion is exact). An int8 cache gives the JAX
+        engine's 4-tuple (k, v, k_scale, v_scale): int8 pages and f32
+        [L, kv, page_size] scales."""
+        if self.kv_quantized:
+            def leaf(caches, name):
+                return torch.stack([getattr(c, name)[:, page_id]
+                                    for c in caches]).cpu().numpy()
+            return (leaf(self.k_cache, "data"), leaf(self.v_cache, "data"),
+                    leaf(self.k_cache, "scale"),
+                    leaf(self.v_cache, "scale"))
         k = torch.stack([kc[:, page_id] for kc in self.k_cache])
         v = torch.stack([vc[:, page_id] for vc in self.v_cache])
         return k.float().cpu().numpy(), v.float().cpu().numpy()
 
     def write_page(self, page_id: int, k_page: np.ndarray,
-                   v_page: np.ndarray) -> None:
-        """Restore one page's KV into device memory, in place."""
+                   v_page: np.ndarray,
+                   k_scale: Optional[np.ndarray] = None,
+                   v_scale: Optional[np.ndarray] = None) -> None:
+        """Restore one page's KV into device memory, in place: what
+        ``read_page`` gave (for an int8 cache, with its scales)."""
+        if self.kv_quantized:
+            if k_scale is None or v_scale is None:
+                raise ValueError(
+                    "a quantized cache's page restore needs "
+                    "k_scale/v_scale")
+            for caches, page, scale in ((self.k_cache, k_page, k_scale),
+                                        (self.v_cache, v_page, v_scale)):
+                data = torch.from_numpy(np.asarray(page, np.int8))
+                scales = torch.from_numpy(np.asarray(scale, np.float32))
+                for layer, cache in enumerate(caches):
+                    cache.data[:, page_id] = data[layer].to(self.device)
+                    cache.scale[:, page_id] = scales[layer].to(self.device)
+            return
         k = torch.from_numpy(np.asarray(k_page, np.float32))
         v = torch.from_numpy(np.asarray(v_page, np.float32))
         for layer, (kc, vc) in enumerate(zip(self.k_cache, self.v_cache)):

@@ -574,7 +574,8 @@ def build_engine_from_args(args) -> tuple:
     config = EngineConfig(
         model=model_config,
         cache=CacheConfig(page_size=args.page_size,
-                          num_pages=args.num_pages),
+                          num_pages=args.num_pages,
+                          kv_cache_dtype=args.kv_cache_dtype),
         scheduler=SchedulerConfig(
             max_num_seqs=args.max_num_seqs,
             max_model_len=args.max_model_len,
@@ -609,6 +610,13 @@ def parse_args(argv=None):
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--num-pages", type=int, default=512)
+    p.add_argument("--kv-cache-dtype", default="auto",
+                   choices=["auto", "bf16", "int8"],
+                   help="KV page storage: auto/bf16 keep the model's "
+                        "dtype; int8 quantizes on write (one f32 scale "
+                        "per slot) and spends the same device bytes on "
+                        "about 1.9x the pages; on the card it needs a "
+                        "page size that is a multiple of 16")
     p.add_argument("--max-num-seqs", type=int, default=8)
     p.add_argument("--max-model-len", type=int, default=2048)
     p.add_argument("--prefill-chunk-size", type=int, default=512)
@@ -640,9 +648,12 @@ def make_server(argv=None) -> EngineHTTPServer:
 def main(argv=None) -> None:
     server = make_server(argv)
     host, port = server.server_address[:2]
-    logger.info("Serving %s on http://%s:%d (device %s)",
-                server.app.model_name, host, port,
-                server.app.engine.runner.device)
+    cache = server.app.engine.config.cache
+    logger.info("Serving %s on http://%s:%d (device %s, KV cache %s, "
+                "%d pages of %d tokens)", server.app.model_name, host,
+                port, server.app.engine.runner.device,
+                cache.resolved_kv_dtype(), cache.num_pages,
+                cache.page_size)
     try:
         server.serve()
     except KeyboardInterrupt:

@@ -4,8 +4,10 @@ Weights are an ``nn.Module`` (``LlamaParams``) of per-layer
 ``nn.Linear``s, with q/k/v and gate/up fused into one projection each;
 ``forward`` is a plain function over them, the counterpart of the JAX
 package's ``llama.forward``. Attention reads and writes the paged KV
-cache, one [kv, pages, d, page] buffer per layer, which ``forward``
-updates IN PLACE (the JAX version threads updated copies through).
+cache, one [kv, pages, d, page] buffer per layer (or, for an int8
+cache, one ``QuantKV`` of int8 pages and their per-slot scales), which
+``forward`` updates IN PLACE (the JAX version threads updated copies
+through).
 """
 
 from __future__ import annotations
@@ -122,7 +124,10 @@ def cached_attention(config: ModelConfig, q, k, v,
                      impl: Optional[str] = None) -> torch.Tensor:
     """Write one layer's K/V into its cache buffer (in place) and
     attend. ``slots`` is the step's (pages, offsets) from
-    ``ops.attention.page_slots``, shared by every layer."""
+    ``ops.attention.page_slots``, shared by every layer. A QuantKV
+    layer cache is written through the quantizing path
+    (``write_slots`` quantizes each slot's row with its own scale), and
+    the kernels dequantize on read."""
     kc, vc = k_cache[layer], v_cache[layer]
     write_slots(kc, k, *slots)
     write_slots(vc, v, *slots)
@@ -170,7 +175,7 @@ def forward(params: LlamaParams, config: ModelConfig,
       kv_lens:    [B] int32 valid cached tokens AFTER this block is written
       valid:      [B, T] mask of real (non-padding) tokens
       k_cache/v_cache: L-lists of [kv_heads, num_pages, head_dim,
-                  page_size] buffers, written IN PLACE
+                  page_size] buffers (or QuantKVs), written IN PLACE
       kind:       the step kind, "decode", "prefill" or "ragged" (see
                   dispatch_attention)
       impl:       attention impl (see dispatch_attention)

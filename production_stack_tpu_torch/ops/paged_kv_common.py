@@ -14,12 +14,13 @@ half:
   loads it. The build runs at first use, from the checkout's sources
   only;
 - the launch counters that show a run went through the kernels;
-- operand checks common to the wrappers;
+- operand checks common to the wrappers, and the split of an int8
+  cache (a ``QuantKV``, ops/quant_kv.py) into its data and scales;
 - the plain chunked page walk in torch: the same 128-token chunks,
-  the same mask, the same online softmax (m, l, acc in f32) and the
-  same zero output for a row with no cached tokens as the kernels.
-  It is what a wrapper runs for CPU tensors, and what the kernels
-  are compared with on the card.
+  the same mask, the same online softmax (m, l, acc in f32), the same
+  fold of an int8 cache's scales and the same zero output for a row
+  with no cached tokens as the kernels. It is what a wrapper runs for
+  CPU tensors, and what the kernels are compared with on the card.
 """
 
 from __future__ import annotations
@@ -32,9 +33,11 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+
+from production_stack_tpu_torch.ops.quant_kv import QuantKV
 
 NEG_INF = -1e30
 
@@ -42,10 +45,13 @@ NEG_INF = -1e30
 # pages, so the kernels' thread layout is the same at every page size.
 CHUNK_TOKENS = 128
 
-# dtype codes of the C interface. Which (dtype, query group, head dim)
-# the kernels are built for is listed once, in csrc/paged_kv_common.cuh
+# dtype codes of the C interface: of the query/output and of the
+# cache's elements (an int8 cache's scales are always f32). Which
+# (dtype, cache dtype, query group, head dim) the kernels are built
+# for is listed once, in csrc/paged_kv_common.cuh
 # (PSTT_FOR_EACH_GEOMETRY), and asked of the library.
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+_CACHE_CODES = {**_DTYPE_CODES, torch.int8: 2}
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[2]
@@ -161,15 +167,15 @@ def kernel_lib() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_kernels()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.pstt_paged_decode.argtypes = (
-                [i32] + [ptr] * 6 + [i32] * 7 + [ptr])
+                [i32] * 2 + [ptr] * 8 + [i32] * 7 + [ptr])
             lib.pstt_paged_decode.restype = i32
             lib.pstt_paged_prefill.argtypes = (
-                [i32] + [ptr] * 7 + [i32] * 8 + [ptr])
+                [i32] * 2 + [ptr] * 9 + [i32] * 8 + [ptr])
             lib.pstt_paged_prefill.restype = i32
             lib.pstt_paged_ragged.argtypes = (
-                [i32] + [ptr] * 8 + [i32] * 8 + [ptr])
+                [i32] * 2 + [ptr] * 10 + [i32] * 8 + [ptr])
             lib.pstt_paged_ragged.restype = i32
-            lib.pstt_kernel_supports.argtypes = [i32] * 3
+            lib.pstt_kernel_supports.argtypes = [i32] * 4
             lib.pstt_kernel_supports.restype = i32
             _LIB = lib
         return _LIB
@@ -188,40 +194,80 @@ def check_launch(name: str, err: int) -> None:
 
 
 def check_cache(k_cache, v_cache) -> None:
-    """Reject the cache forms that are not ported yet."""
+    """Reject the cache forms the wrappers do not take: a bare int8
+    tensor (its scales are missing), a stacked cache (not ported yet)
+    and anything not shaped [kv, pages, d, page]. An int8 cache is a
+    QuantKV whose scales are f32 [kv, pages, page]."""
+    if isinstance(k_cache, QuantKV) != isinstance(v_cache, QuantKV):
+        raise ValueError("k_cache and v_cache must both be QuantKV or "
+                         "both be full precision")
     for cache in (k_cache, v_cache):
-        if not isinstance(cache, torch.Tensor) or cache.dtype in (
-                torch.int8, torch.uint8):
-            raise NotImplementedError(
-                "quantized (int8) KV caches are not ported yet")
-        if cache.dim() == 5:
+        quantized = isinstance(cache, QuantKV)
+        data = cache.data if quantized else cache
+        if not isinstance(data, torch.Tensor):
+            raise ValueError("expected a tensor or a QuantKV cache")
+        if not quantized and data.dtype in (torch.int8, torch.uint8):
+            raise ValueError(
+                "an int8 KV cache needs its scales: pass a QuantKV "
+                "(data and scale), not the bare int8 pages")
+        if data.dim() == 5:
             raise NotImplementedError(
                 "the stacked [L, kv, pages, d, page] cache form "
                 "(pipeline/context parallelism) is not ported yet")
-        if cache.dim() != 4:
+        if data.dim() != 4:
             raise ValueError(
                 "expected a [kv, pages, d, page] cache, got shape "
-                f"{tuple(cache.shape)}")
+                f"{tuple(data.shape)}")
+        if quantized:
+            kv, pages, _, page_size = data.shape
+            if data.dtype != torch.int8:
+                raise ValueError("a QuantKV's data must be int8")
+            if (cache.scale.dtype != torch.float32
+                    or tuple(cache.scale.shape) != (kv, pages, page_size)):
+                raise ValueError(
+                    "a QuantKV's scales must be f32 [kv, pages, page] = "
+                    f"{(kv, pages, page_size)}, got "
+                    f"{cache.scale.dtype} {tuple(cache.scale.shape)}")
 
 
-def check_kernel_operands(q, k_cache, v_cache, int_operands,
-                          out) -> None:
+def split_cache(k_cache, v_cache) -> Tuple[torch.Tensor, torch.Tensor,
+                                           Optional[torch.Tensor],
+                                           Optional[torch.Tensor]]:
+    """(k data, v data, k scale, v scale); the scales are None for a
+    full-precision cache."""
+    if isinstance(k_cache, QuantKV):
+        return k_cache.data, v_cache.data, k_cache.scale, v_cache.scale
+    return k_cache, v_cache, None, None
+
+
+def check_kernel_operands(q, k_cache, v_cache, int_operands, out,
+                          k_scale=None, v_scale=None) -> None:
     """Device, dtype, shape and contiguity checks before a launch;
-    raises on anything the kernels do not take."""
+    raises on anything the kernels do not take. ``k_cache``/``v_cache``
+    are the caches' data: q's dtype, or int8 with f32 ``k_scale`` /
+    ``v_scale`` beside them."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("kernel operands must be CUDA tensors")
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
-                    ("out", out)):
-        if t.device != dev or t.dtype != q.dtype:
-            raise ValueError(f"{name} must be {q.dtype} on {dev}")
+    cache_dtype = q.dtype if k_scale is None else torch.int8
+    for name, t, dtype in (("k_cache", k_cache, cache_dtype),
+                           ("v_cache", v_cache, cache_dtype),
+                           ("out", out, q.dtype)):
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} on {dev}")
     if k_cache.shape != v_cache.shape:
         raise ValueError("k_cache and v_cache shapes differ")
+    scales = ()
+    if k_scale is not None:
+        scales = (("k_scale", k_scale), ("v_scale", v_scale))
+        for name, t in scales:
+            if t.device != dev or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be float32 on {dev}")
     for name, t in int_operands:
         if t.device != dev or t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32 on {dev}")
     for name, t in (("q", q), ("k_cache", k_cache),
-                    ("v_cache", v_cache), ("out", out)) + tuple(
+                    ("v_cache", v_cache), ("out", out)) + scales + tuple(
                         int_operands):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -229,38 +275,61 @@ def check_kernel_operands(q, k_cache, v_cache, int_operands,
     if q.shape[-1] != head_dim:
         raise ValueError("q head_dim does not match the cache")
     check_kernel_shapes(q.shape[-2], num_kv_heads, head_dim, page_size,
-                        q.dtype)
+                        q.dtype, cache_dtype)
 
 
 def check_kernel_shapes(num_q_heads: int, num_kv_heads: int,
                         head_dim: int, page_size: int,
-                        dtype: torch.dtype) -> None:
+                        dtype: torch.dtype,
+                        cache_dtype: Optional[torch.dtype] = None) -> None:
     """Raise NotImplementedError on a geometry the kernels are not
-    built for (asked of the kernel library, which it loads). The runner
-    calls it at start-up on the card, so an unsupported model fails
-    there and not at its first step."""
-    if dtype not in _DTYPE_CODES:
+    built for (asked of the kernel library, which it loads).
+    ``cache_dtype`` is the cache's element type (default ``dtype``;
+    torch.int8 for an int8 cache). The runner calls it at start-up on
+    the card, so an unsupported model fails there and not at its first
+    step."""
+    cache_dtype = cache_dtype or dtype
+    if dtype not in _DTYPE_CODES or cache_dtype not in _CACHE_CODES:
         raise NotImplementedError(
-            f"kernels take bf16 or f32 operands (got {dtype})")
+            f"kernels take bf16 or f32 operands over a cache of the same "
+            f"type or int8 (got {dtype} over {cache_dtype})")
     if num_q_heads % num_kv_heads:
         raise ValueError("num_q_heads must be a multiple of kv heads")
     group = num_q_heads // num_kv_heads
-    if not kernel_lib().pstt_kernel_supports(_DTYPE_CODES[dtype], group,
-                                             head_dim):
+    if not kernel_lib().pstt_kernel_supports(
+            _DTYPE_CODES[dtype], _CACHE_CODES[cache_dtype], group,
+            head_dim):
         raise NotImplementedError(
             f"the kernels are not built for query group {group}, "
-            f"head_dim {head_dim}, {dtype} (csrc/paged_kv_common.cuh "
-            "PSTT_FOR_EACH_GEOMETRY lists what they are built for)")
+            f"head_dim {head_dim}, {dtype} over a {cache_dtype} cache "
+            "(csrc/paged_kv_common.cuh PSTT_FOR_EACH_GEOMETRY lists "
+            "what they are built for)")
     if (page_size > CHUNK_TOKENS or CHUNK_TOKENS % page_size
-            or (page_size * dtype.itemsize) % 16):
+            or (page_size * cache_dtype.itemsize) % 16):
         raise NotImplementedError(
             f"page_size {page_size}: the kernels walk 128-token chunks "
             "of whole pages with 16-byte loads (page_size must divide "
-            "128 and hold a multiple of 16 bytes)")
+            f"128 and hold a multiple of 16 bytes of {cache_dtype}, so "
+            "a multiple of 16 for an int8 cache)")
 
 
 def dtype_code(dtype: torch.dtype) -> int:
     return _DTYPE_CODES[dtype]
+
+
+def cache_code(dtype: torch.dtype) -> int:
+    return _CACHE_CODES[dtype]
+
+
+def data_ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device address, or None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
+def counter_name(kernel: str, k_scale: Optional[torch.Tensor]) -> str:
+    """A kernel's launch-counter name: int8 launches count apart
+    (``<kernel>_int8``), so a run shows which form ran."""
+    return kernel if k_scale is None else kernel + "_int8"
 
 
 def stream_ptr() -> int:
@@ -273,21 +342,27 @@ def stream_ptr() -> int:
 def page_walk_plain(q_rows: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, page_table: torch.Tensor,
                     kv_lens: torch.Tensor,
-                    mask_fn: Callable[[torch.Tensor], torch.Tensor]
+                    mask_fn: Callable[[torch.Tensor], torch.Tensor],
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """The kernels' page walk in torch.
 
     Args:
       q_rows:  [B, KV, R, D] query rows of each (row, kv head) block
-      k/v_cache: [KV, pages, D, page_size]
+      k/v_cache: [KV, pages, D, page_size] (int8 with scales)
       page_table: [B, max_pages]; kv_lens: [B]
       mask_fn: token positions [C] -> validity mask broadcastable to
                [B, KV, R, C] (the counterpart of the kernels' mask
                functor)
+      k/v_scale: an int8 cache's f32 [KV, pages, page_size] scales
 
     Walks ceil(kv_len / 128) chunks per row: pages of a chunk past
     ceil(kv_len / page_size) read as zeros, scores outside the mask
-    are -1e30, and m, l, acc run the online softmax in f32. Returns
+    are -1e30, and m, l, acc run the online softmax in f32. An int8
+    cache follows the Pallas kernels' order: the scores are
+    (q . k_int8) / sqrt(D) * k_scale[token], l sums the unscaled
+    probabilities, and p * v_scale[token] enters p . v. Returns
     acc / max(l, 1e-30) in f32 — exact 0 for a row with kv_len 0.
     """
     b, kvh, rows, d = q_rows.shape
@@ -321,8 +396,15 @@ def page_walk_plain(q_rows: torch.Tensor, k_cache: torch.Tensor,
             tile = torch.where(live[None, :, :, None, None], tile, 0.0)
             return tile.permute(1, 0, 3, 2, 4).reshape(b, kvh, d, chunk)
 
+        def stage_scale(scales):
+            tile = scales[:, ids]  # [KV, B, ppc, ps]
+            tile = torch.where(live[None, :, :, None], tile, 0.0)
+            return tile.permute(1, 0, 2, 3).reshape(b, kvh, 1, chunk)
+
         k, v = stage(k_cache), stage(v_cache)
         s = (q @ k) * scale  # [B, KV, R, C]
+        if k_scale is not None:
+            s = s * stage_scale(k_scale)
         token_pos = c * chunk + torch.arange(chunk, device=dev)
         s = torch.where(mask_fn(token_pos), s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
@@ -330,6 +412,8 @@ def page_walk_plain(q_rows: torch.Tensor, k_cache: torch.Tensor,
         p = torch.exp(s - m_new)
         active = (c < row_chunks)[:, None, None, None]
         l = torch.where(active, l * alpha + p.sum(-1, keepdim=True), l)
+        if v_scale is not None:
+            p = p * stage_scale(v_scale)
         acc = torch.where(active, acc * alpha + p @ v.transpose(-1, -2),
                           acc)
         m = torch.where(active, m_new, m)

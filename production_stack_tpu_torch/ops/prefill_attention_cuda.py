@@ -18,6 +18,9 @@ of K and V from shared memory, and a tile stops walking at the last
 chunk its highest query position can see, which skips only work that
 is fully masked. The arithmetic is FMA in f32 on the CUDA cores, not
 yet the tensor cores (wgmma), so it runs well short of that bound.
+An int8 cache (a QuantKV) stages as int8 pages and their per-slot
+scales, which fold into the scores and the probabilities as in the
+Pallas kernel; the arithmetic is unchanged.
 
 Contract (the Pallas kernel's): q [B, T, num_q_heads, head_dim];
 q_positions [B, T] int32 contiguous per row — only the row start
@@ -32,12 +35,16 @@ import torch
 
 from production_stack_tpu_torch.ops.paged_kv_common import (
     COUNTERS,
+    cache_code,
     check_cache,
     check_kernel_operands,
     check_launch,
+    counter_name,
+    data_ptr,
     dtype_code,
     kernel_lib,
     page_walk_plain,
+    split_cache,
     stream_ptr,
 )
 
@@ -52,32 +59,36 @@ def paged_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """Chunked-prefill attention against a sequence's cached pages.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    or raise. Raises NotImplementedError on the int8 and stacked cache
-    forms, which are not ported yet.
+    (its int8 form for a QuantKV cache) or raise. Raises
+    NotImplementedError on the stacked cache form, which is not ported
+    yet, and ValueError on bare int8 pages without their scales.
     """
     check_cache(k_cache, v_cache)
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(
             q, k_cache, v_cache, page_table, q_positions, kv_lens)
+    kc, vc, ks, vs = split_cache(k_cache, v_cache)
     b, t, num_q_heads, head_dim = q.shape
-    num_kv_heads, num_pages, _, page_size = k_cache.shape
+    num_kv_heads, num_pages, _, page_size = kc.shape
     out = torch.empty_like(q)
     check_kernel_operands(
-        q, k_cache, v_cache,
+        q, kc, vc,
         (("page_table", page_table), ("q_positions", q_positions),
-         ("kv_lens", kv_lens)), out)
+         ("kv_lens", kv_lens)), out, ks, vs)
     if (kv_lens.shape != (b,) or page_table.shape[0] != b
             or q_positions.shape != (b, t)):
         raise ValueError("page_table/q_positions/kv_lens rows must "
                          "match the batch")
+    name = counter_name(KERNEL_NAME, ks)
     err = kernel_lib().pstt_paged_prefill(
-        dtype_code(q.dtype), q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), page_table.data_ptr(),
-        q_positions.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-        b, t, num_q_heads, num_kv_heads, head_dim, num_pages,
-        page_size, page_table.shape[1], stream_ptr())
-    check_launch(KERNEL_NAME, err)
-    COUNTERS.launched(KERNEL_NAME)
+        dtype_code(q.dtype), cache_code(kc.dtype), q.data_ptr(),
+        kc.data_ptr(), vc.data_ptr(), data_ptr(ks), data_ptr(vs),
+        page_table.data_ptr(), q_positions.data_ptr(),
+        kv_lens.data_ptr(), out.data_ptr(), b, t, num_q_heads,
+        num_kv_heads, head_dim, num_pages, page_size,
+        page_table.shape[1], stream_ptr())
+    check_launch(name, err)
+    COUNTERS.launched(name)
     return out
 
 
@@ -88,12 +99,14 @@ def paged_prefill_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                                   kv_lens: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain torch: the same chunked page walk,
     query positions rebuilt as ``q_positions[:, 0] + t``, the causal
-    mask and the online softmax."""
+    mask, the online softmax and, for a QuantKV cache, the same fold of
+    its scales."""
     check_cache(k_cache, v_cache)
+    kc, vc, ks, vs = split_cache(k_cache, v_cache)
     if q.is_cuda:
-        COUNTERS.plain_on_cuda(KERNEL_NAME)
+        COUNTERS.plain_on_cuda(counter_name(KERNEL_NAME, ks))
     b, t, num_q_heads, head_dim = q.shape
-    num_kv_heads = k_cache.shape[0]
+    num_kv_heads = kc.shape[0]
     group = num_q_heads // num_kv_heads
     # Rows of one kv head's block are (g, t) flattened g-major, as in
     # the kernel: row r is query head g = r // T at chunk offset r % T.
@@ -104,8 +117,8 @@ def paged_prefill_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     q_pos = (q_positions[:, :1].long()
              + (rows % t)[None, :])[:, None, :, None]  # [B, 1, R, 1]
     kv = kv_lens.long()[:, None, None, None]
-    out = page_walk_plain(qg, k_cache, v_cache, page_table, kv_lens,
-                          lambda pos: (pos <= q_pos) & (pos < kv))
+    out = page_walk_plain(qg, kc, vc, page_table, kv_lens,
+                          lambda pos: (pos <= q_pos) & (pos < kv), ks, vs)
     return (out.reshape(b, num_kv_heads, group, t, head_dim)
             .permute(0, 3, 1, 2, 4)
             .reshape(b, t, num_q_heads, head_dim).to(q.dtype))

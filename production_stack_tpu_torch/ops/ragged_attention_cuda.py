@@ -19,7 +19,9 @@ slot-major, so a row's live slots are one prefix of its tiles; a tile
 past them writes zeros without reading K/V, and a tile with few live
 rows (a decode row's G queries, a verify row's (K + 1) * G) walks the
 row's pages with a narrow row block. The arithmetic is f32 FMA on the
-CUDA cores, as in the other two kernels.
+CUDA cores, as in the other two kernels. An int8 cache (a QuantKV)
+stages as int8 pages and their per-slot scales, folded in as in the
+Pallas kernel.
 
 Contract (the Pallas kernel's): q [R, W, num_q_heads, head_dim];
 page_table [R, max_pages], kv_lens / last_index / draft_lens [R]
@@ -38,12 +40,16 @@ import torch
 
 from production_stack_tpu_torch.ops.paged_kv_common import (
     COUNTERS,
+    cache_code,
     check_cache,
     check_kernel_operands,
     check_launch,
+    counter_name,
+    data_ptr,
     dtype_code,
     kernel_lib,
     page_walk_plain,
+    split_cache,
     stream_ptr,
 )
 
@@ -60,35 +66,38 @@ def paged_ragged_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """Fused ragged attention over a unified [R, W] block.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    or raise. Raises NotImplementedError on the int8 and stacked cache
-    forms, which are not ported yet.
+    (its int8 form for a QuantKV cache) or raise. Raises
+    NotImplementedError on the stacked cache form, which is not ported
+    yet, and ValueError on bare int8 pages without their scales.
     """
     check_cache(k_cache, v_cache)
     if q.device.type == "cpu":
         return paged_ragged_attention_plain(
             q, k_cache, v_cache, page_table, kv_lens, last_index,
             draft_lens)
+    kc, vc, ks, vs = split_cache(k_cache, v_cache)
     r, w, num_q_heads, head_dim = q.shape
-    num_kv_heads, num_pages, _, page_size = k_cache.shape
+    num_kv_heads, num_pages, _, page_size = kc.shape
     out = torch.empty_like(q)
     ints = [("page_table", page_table), ("kv_lens", kv_lens),
             ("last_index", last_index)]
     if draft_lens is not None:
         ints.append(("draft_lens", draft_lens))
-    check_kernel_operands(q, k_cache, v_cache, tuple(ints), out)
+    check_kernel_operands(q, kc, vc, tuple(ints), out, ks, vs)
     if page_table.shape[0] != r or any(
             t.shape != (r,) for _, t in ints[1:]):
         raise ValueError("page_table/kv_lens/last_index/draft_lens rows "
                          "must match the block's rows")
+    name = counter_name(KERNEL_NAME, ks)
     err = kernel_lib().pstt_paged_ragged(
-        dtype_code(q.dtype), q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), page_table.data_ptr(), kv_lens.data_ptr(),
-        last_index.data_ptr(),
-        None if draft_lens is None else draft_lens.data_ptr(),
-        out.data_ptr(), r, w, num_q_heads, num_kv_heads, head_dim,
-        num_pages, page_size, page_table.shape[1], stream_ptr())
-    check_launch(KERNEL_NAME, err)
-    COUNTERS.launched(KERNEL_NAME)
+        dtype_code(q.dtype), cache_code(kc.dtype), q.data_ptr(),
+        kc.data_ptr(), vc.data_ptr(), data_ptr(ks), data_ptr(vs),
+        page_table.data_ptr(), kv_lens.data_ptr(), last_index.data_ptr(),
+        data_ptr(draft_lens), out.data_ptr(), r, w, num_q_heads,
+        num_kv_heads, head_dim, num_pages, page_size,
+        page_table.shape[1], stream_ptr())
+    check_launch(name, err)
+    COUNTERS.launched(name)
     return out
 
 
@@ -104,10 +113,11 @@ def paged_ragged_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     ``draft_lens`` is not read, as in the kernel."""
     del draft_lens
     check_cache(k_cache, v_cache)
+    kc, vc, ks, vs = split_cache(k_cache, v_cache)
     if q.is_cuda:
-        COUNTERS.plain_on_cuda(KERNEL_NAME)
+        COUNTERS.plain_on_cuda(counter_name(KERNEL_NAME, ks))
     r, w, num_q_heads, head_dim = q.shape
-    num_kv_heads = k_cache.shape[0]
+    num_kv_heads = kc.shape[0]
     group = num_q_heads // num_kv_heads
     # Rows of one kv head's block are (t, g) flattened slot-major, as in
     # the kernel: row j is query head g = j % G at slot t = j // G.
@@ -120,8 +130,9 @@ def paged_ragged_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     last = last_index.long()[:, None, None, None]
     q_pos = kv - 1 - last + slot
     live = (slot <= last) & (kv > 0)
-    out = page_walk_plain(qg, k_cache, v_cache, page_table, kv_lens,
-                          lambda pos: live & (pos <= q_pos) & (pos < kv))
+    out = page_walk_plain(qg, kc, vc, page_table, kv_lens,
+                          lambda pos: live & (pos <= q_pos) & (pos < kv),
+                          ks, vs)
     out = torch.where(live, out, 0.0)
     return (out.reshape(r, num_kv_heads, w, group, head_dim)
             .permute(0, 2, 1, 3, 4)

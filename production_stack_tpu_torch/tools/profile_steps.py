@@ -1,11 +1,14 @@
 """Where an engine step's time goes on the card.
 
-    python -m production_stack_tpu_torch.tools.profile_steps
+    python -m production_stack_tpu_torch.tools.profile_steps \
+        [--kv-cache-dtype auto|bf16|int8]
 
 Builds an ``LLMEngine`` at the serving configuration of
 ``chip_smoke.py`` (bench-1b at full width, random weights, page_size
 128, 512 pages, 32 sequences, chunk 512, prefill batch 8, async and
-unified steps on), admits 32 prompts of 512 tokens and runs
+unified steps on; ``--kv-cache-dtype int8`` serves the int8 KV cache,
+its page budget expanded as the server expands it), admits 32 prompts
+of 512 tokens and runs
 ``torch.profiler`` over:
 
 - each of the first 4 steps on its own (the prefill step and the
@@ -22,6 +25,7 @@ one CUDA card.
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 import time
 
@@ -60,7 +64,11 @@ def _breakdown(prof, steps: int, wall_s: float, label: str) -> None:
               f"{e.key[:90]}", flush=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="profile_steps")
+    p.add_argument("--kv-cache-dtype", default="auto",
+                   choices=["auto", "bf16", "int8"])
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_steps: needs a CUDA device")
     print(subprocess.run(
@@ -69,12 +77,16 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0], flush=True)
     cfg = EngineConfig(
         model=bench_1b_model_config(),
-        cache=CacheConfig(page_size=128, num_pages=512),
+        cache=CacheConfig(page_size=128, num_pages=512,
+                          kv_cache_dtype=args.kv_cache_dtype),
         scheduler=SchedulerConfig(
             max_num_seqs=32, max_model_len=1024, prefill_chunk_size=512,
             prefill_batch_size=8, async_scheduling=True,
             unified_step=True))
     engine = LLMEngine(cfg, device="cuda")
+    print(f"KV cache {cfg.cache.resolved_kv_dtype()}, "
+          f"{cfg.cache.num_pages} pages of {cfg.cache.page_size} tokens",
+          flush=True)
     rng = np.random.RandomState(1)
     vocab = cfg.model.vocab_size
     for _ in range(PROMPTS):

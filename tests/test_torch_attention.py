@@ -247,16 +247,21 @@ def test_wrappers_take_plain_version_for_cpu_tensors():
 
 @pytest.mark.parametrize("form", ["int8", "stacked"])
 def test_wrappers_raise_on_unported_cache_forms(form):
+    """Bare int8 pages lack their scales (an int8 cache is a QuantKV:
+    ValueError); the stacked form is not ported yet
+    (NotImplementedError)."""
     if form == "int8":
         cache = torch.zeros(2, 4, 64, 16, dtype=torch.int8)
+        raises = pytest.raises(ValueError, match="scales")
     else:
         cache = torch.zeros(3, 2, 4, 64, 16)
+        raises = pytest.raises(NotImplementedError, match="stacked")
     pt = torch.zeros(1, 2, dtype=torch.int32)
     kv_lens = torch.ones(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
+    with raises:
         paged_decode_attention(torch.zeros(1, 8, 64), cache, cache, pt,
                                kv_lens)
-    with pytest.raises(NotImplementedError):
+    with raises:
         paged_prefill_attention(torch.zeros(1, 4, 8, 64), cache, cache, pt,
                                 torch.zeros(1, 4, dtype=torch.int32),
                                 kv_lens)

@@ -10,9 +10,11 @@ Covers every geometry the kernels are built for (bench-1b: bf16,
 query group 4, head_dim 64; tiny-llama: f32, query group 2, head_dim
 32), page sizes 8 to 128, pad rows, first and later prefill chunks,
 ragged blocks (mixed decode, chunk and pad rows; verify spans; every
-slot compared, dead ones exact 0), the wrappers' refusals, and the
-tiny engine's greedy streams on the card against the CPU, with and
-without speculative decoding.
+slot compared, dead ones exact 0), the int8 form of all three kernels
+(a QuantKV cache quantized from the same K/V; page sizes 16 to 128),
+the wrappers' refusals, and the tiny engine's greedy streams on the
+card against the CPU, with and without speculative decoding, and with
+int8 KV.
 
 Tolerance: f32 at atol = rtol = 1e-4 (the same arithmetic, sums in
 another order); bf16 at atol = rtol = 2e-2 (outputs rounded to bf16,
@@ -32,6 +34,7 @@ from production_stack_tpu_torch.ops.prefill_attention_cuda import (
     paged_prefill_attention,
     paged_prefill_attention_plain,
 )
+from production_stack_tpu_torch.ops.quant_kv import QuantKV, quantize_kv
 from production_stack_tpu_torch.ops.ragged_attention_cuda import (
     paged_ragged_attention,
     paged_ragged_attention_plain,
@@ -207,14 +210,111 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(NotImplementedError, match="query group"):
         paged_ragged_attention(qr[:, :, :6].contiguous(), k, v, table,
                                lens, last)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="scales"):
         paged_ragged_attention(qr, k.to(torch.int8), v.to(torch.int8),
                                table, lens, last)
 
 
-@pytest.mark.parametrize("speculative_k", [0, 4])
-def test_engine_greedy_streams_on_the_card_match_the_cpu(dev,
-                                                         speculative_k):
+# ---- the int8 form ----------------------------------------------------------
+
+
+def _quantize(cache):
+    """A [kv, pages, d, ps] cache quantized per (page, slot, kv head)
+    row, as the page writes lay it out."""
+    q8, scale = quantize_kv(cache.permute(0, 1, 3, 2))
+    return QuantKV(q8.permute(0, 1, 3, 2).contiguous(), scale.contiguous())
+
+
+@pytest.mark.parametrize("page_size", [16, 32, 128])
+@pytest.mark.parametrize("dtype,group,head_dim", GEOMETRIES)
+def test_int8_decode_kernel_matches_plain(dev, dtype, group, head_dim,
+                                          page_size):
+    kv_lens = [1, 0, 127, 128, 129, 300, 517]
+    k, v, table, lens, g = _inputs(dev, dtype, len(kv_lens), kv_lens,
+                                   group, 2, head_dim, page_size, 11)
+    k8, v8 = _quantize(k), _quantize(v)
+    q = torch.randn((len(kv_lens), 2 * group, head_dim),
+                    generator=g).to(dev, dtype)
+    COUNTERS.reset()
+    got = paged_decode_attention(q, k8, v8, table, lens)
+    ref = paged_decode_attention_plain(q, k8, v8, table, lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+    assert not got[1].any()  # the pad row writes exact 0
+    assert COUNTERS.launches == {"paged_decode_int8": 1}
+
+
+@pytest.mark.parametrize("page_size", [16, 128])
+@pytest.mark.parametrize("first_chunk", [True, False])
+@pytest.mark.parametrize("dtype,group,head_dim", GEOMETRIES)
+def test_int8_prefill_kernel_matches_plain(dev, dtype, group, head_dim,
+                                           first_chunk, page_size):
+    t = 80
+    live = [80, 33, 0, 1]
+    start = 0 if first_chunk else 150
+    kv_lens = [start + n if n else 0 for n in live]
+    k, v, table, lens, g = _inputs(dev, dtype, 4, kv_lens, group, 2,
+                                   head_dim, page_size, 13)
+    k8, v8 = _quantize(k), _quantize(v)
+    q = torch.randn((4, t, 2 * group, head_dim), generator=g).to(dev,
+                                                                  dtype)
+    starts = torch.tensor([start if n else 0 for n in live],
+                          dtype=torch.int32, device=dev)
+    pos = (starts[:, None] + torch.arange(t, dtype=torch.int32,
+                                          device=dev)).contiguous()
+    got = paged_prefill_attention(q, k8, v8, table, pos, lens)
+    ref = paged_prefill_attention_plain(q, k8, v8, table, pos, lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+    assert not got[2].any()
+
+
+@pytest.mark.parametrize("block", sorted(RAGGED_BLOCKS))
+@pytest.mark.parametrize("page_size", [16, 128])
+@pytest.mark.parametrize("dtype,group,head_dim", GEOMETRIES)
+def test_int8_ragged_kernel_matches_plain(dev, dtype, group, head_dim,
+                                          page_size, block):
+    w, rows = RAGGED_BLOCKS[block]
+    kv_lens = [n for n, _ in rows]
+    k, v, table, lens, g = _inputs(dev, dtype, len(rows), kv_lens, group,
+                                   2, head_dim, page_size, 16)
+    k8, v8 = _quantize(k), _quantize(v)
+    last = torch.tensor([li for _, li in rows], dtype=torch.int32,
+                        device=dev)
+    drafts = torch.clamp(last, min=0) if block == "verify" else None
+    q = torch.randn((len(rows), w, 2 * group, head_dim),
+                    generator=g).to(dev, dtype)
+    got = paged_ragged_attention(q, k8, v8, table, lens, last, drafts)
+    ref = paged_ragged_attention_plain(q, k8, v8, table, lens, last,
+                                       drafts)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+    dead = ((torch.arange(w, device=dev)[None] > last[:, None].long())
+            | (lens[:, None] == 0))
+    assert not got[dead].any()  # dead slots and pad rows: exact 0
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    k, v, table, lens, g = _inputs(dev, torch.bfloat16, 2, [3, 9], 4, 2,
+                                   64, 8, 17)
+    q = torch.randn((2, 8, 64), generator=g).to(dev, torch.bfloat16)
+    # Page size 8: an int8 page row is 8 bytes, short of a 16-byte load.
+    with pytest.raises(NotImplementedError, match="multiple of 16"):
+        paged_decode_attention(q, _quantize(k), _quantize(v), table, lens)
+    k, v, table, lens, g = _inputs(dev, torch.bfloat16, 2, [3, 9], 4, 2,
+                                   64, 16, 18)
+    k8, v8 = _quantize(k), _quantize(v)
+    bad = QuantKV(k8.data, k8.scale[:, :, :8].contiguous())
+    with pytest.raises(ValueError, match="scales"):
+        paged_decode_attention(q, bad, v8, table, lens)
+    cpu_scale = QuantKV(k8.data, k8.scale.cpu())
+    with pytest.raises(ValueError, match="k_scale"):
+        paged_decode_attention(q, cpu_scale, v8, table, lens)
+
+
+def _engine_streams(kv_cache_dtype="auto", speculative_k=0):
+    """The tiny engine's greedy streams on the CPU and on the card,
+    with the launch counters of the card's run."""
     from production_stack_tpu_torch.engine.config import (
         CacheConfig, EngineConfig, SchedulerConfig, tiny_model_config)
     from production_stack_tpu_torch.engine.engine import LLMEngine
@@ -223,7 +323,8 @@ def test_engine_greedy_streams_on_the_card_match_the_cpu(dev,
 
     cfg = EngineConfig(
         model=tiny_model_config("llama"),
-        cache=CacheConfig(page_size=16, num_pages=128),
+        cache=CacheConfig(page_size=16, num_pages=128,
+                          kv_cache_dtype=kv_cache_dtype),
         scheduler=SchedulerConfig(max_num_seqs=4, max_model_len=256,
                                   prefill_chunk_size=32,
                                   unified_step=True,
@@ -242,10 +343,29 @@ def test_engine_greedy_streams_on_the_card_match_the_cpu(dev,
         streams.append([s.output_token_ids
                         for s in engine.generate_batch(prompts, sp)])
         drafted.append(engine.metrics.spec_draft_tokens_total)
+    return streams, drafted, dict(COUNTERS.launches)
+
+
+@pytest.mark.parametrize("speculative_k", [0, 4])
+def test_engine_greedy_streams_on_the_card_match_the_cpu(dev,
+                                                         speculative_k):
+    streams, drafted, launches = _engine_streams(
+        speculative_k=speculative_k)
     assert streams[0] == streams[1]
-    assert COUNTERS.launches["paged_prefill"] > 0
-    assert COUNTERS.launches["paged_decode"] > 0
-    assert COUNTERS.launches["paged_ragged"] > 0
+    assert launches["paged_prefill"] > 0
+    assert launches["paged_decode"] > 0
+    assert launches["paged_ragged"] > 0
     assert not COUNTERS.plain_cuda_calls
     if speculative_k:
         assert drafted[0] > 0 and drafted[1] > 0
+
+
+def test_engine_int8_greedy_streams_on_the_card_match_the_cpu(dev):
+    """With int8 KV the card runs the int8 form of all three kernels
+    (and no other form), and its greedy streams are the CPU's."""
+    streams, _, launches = _engine_streams(kv_cache_dtype="int8")
+    assert streams[0] == streams[1]
+    assert set(launches) == {"paged_prefill_int8", "paged_decode_int8",
+                             "paged_ragged_int8"}
+    assert all(n > 0 for n in launches.values())
+    assert not COUNTERS.plain_cuda_calls

@@ -184,12 +184,17 @@ def test_ragged_wrapper_takes_plain_version_for_cpu_tensors():
 
 @pytest.mark.parametrize("form", ["int8", "stacked"])
 def test_ragged_wrapper_raises_on_unported_cache_forms(form):
+    """Bare int8 pages lack their scales (an int8 cache is a QuantKV:
+    ValueError); the stacked form is not ported yet
+    (NotImplementedError)."""
     if form == "int8":
         cache = torch.zeros(2, 4, 64, 16, dtype=torch.int8)
+        raises = pytest.raises(ValueError, match="scales")
     else:
         cache = torch.zeros(3, 2, 4, 64, 16)
+        raises = pytest.raises(NotImplementedError, match="stacked")
     ones = torch.ones(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
+    with raises:
         paged_ragged_attention(torch.zeros(1, 4, 8, 64), cache, cache,
                                torch.zeros(1, 2, dtype=torch.int32), ones,
                                ones)
