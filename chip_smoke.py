@@ -31,16 +31,28 @@ its result line:
    head_dim + 4 bytes (int8 values and an f32 scale) per cached token
    per kv head and plane, and SDPA runs over the dequantized dense K/V.
    Untimed int8 cases cover page size 16 and the f32 tiny-llama
-   geometry (1e-4);
+   geometry (1e-4). The headline case of each kernel runs again in the
+   stacked form, bf16 and int8: the case's K/V at layer 15 of a stacked
+   [16, kv, pages, d, ps] cache whose other layers are random. Each is
+   held against its plain version (same tolerance) and, bitwise,
+   against the per-layer launch on the layer's view, and timed beside
+   that per-layer launch (``per_layer_ms``); its bound and SDPA time are
+   the per-layer case's. One untimed stacked decode case sits at layer
+   15 of 2304 pages, an element offset past 2^31;
 4. model: the bench-1b llama at full width, random weights, one
    512-token prefill chunk, one decode step and one 5-token verify
    block (the ragged route) through ``forward`` with the kernels and
    with their plain versions, over a bf16 and over an int8 KV cache;
-5. serving: the port's HTTP server in-process with bench-1b at full
+   then through the kernels over a stacked cache, whose logits must be
+   bitwise those over the per-layer caches;
+5. engine, no HTTP: bench-1b with the stacked layout, unified step and
+   async off, 8 greedy prompts submitted together, decode_steps 1 and
+   then 4 (bursts): the token streams must be byte-identical;
+6. serving: the port's HTTP server in-process with bench-1b at full
    width, 16 concurrent completions plus a repeated greedy one, with
    the kernels' launch counters read around the run (all three kernels
    must launch: prefill steps, unified mixed steps, decode steps);
-6. speculative serving: the same server with ``--speculative-k 4``
+7. speculative serving: the same server with ``--speculative-k 4``
    (async 'auto' then resolves off), 16 concurrent greedy completions
    on prompts that repeat a block, so the n-gram proposer drafts even
    under random weights. It must draft, launch the ragged kernel
@@ -49,17 +61,30 @@ its result line:
    completion characters (one per token under the bench tokenizer)
    that agree with the spec-off server on the same prompts. That share
    is printed, not asserted: bf16 kernels may flip near-ties;
-7. int8 serving: the first run's server with ``--kv-cache-dtype int8``
+8. int8 serving: the first run's server with ``--kv-cache-dtype int8``
    and the same 16 requests. It must launch the int8 form of all three
    kernels, make no plain call on CUDA tensors, repeat a greedy request
    exactly and show ``kv_dtype="int8"`` and the expanded page capacity
    (962 of 963 pages) on ``/metrics``; it prints tok/s and the share of
    greedy characters that agree with the bf16 run (printed, not
-   asserted: int8 KV changes tokens).
+   asserted: int8 KV changes tokens);
+9. stacked serving: the first run's server with ``--cache-layout
+   stacked`` and the same requests. It must launch the stacked form of
+   all three kernels and no per-layer form, make no plain call on CUDA
+   tensors and repeat a greedy request exactly; it prints the share of
+   greedy characters that agree with the first run (printed, not
+   asserted: request timing changes the steps' composition);
+10. burst serving: ``--cache-layout stacked --kv-cache-dtype int8
+   --decode-steps 4`` (async ``auto`` then off) and the same requests.
+   It must launch the int8 stacked forms only, no completion may pass
+   its ``max_tokens``, the repeated greedy request must reproduce, and
+   its decode dispatches must commit at least 3 tokens a row on
+   average (a burst commits up to 4).
 
 The line before the last is the ``kernels`` JSON summary, one entry a
-kernel with its bf16 numbers and an ``int8`` object of the same keys,
-the last the ``ok`` JSON line.
+kernel with its bf16 per-layer numbers and ``int8``, ``stacked`` and
+``int8_stacked`` objects of the same keys, the last the ``ok`` JSON
+line.
 """
 
 from __future__ import annotations
@@ -111,6 +136,10 @@ KERNELS = {
 KERNEL_RUN = {"paged_decode": "serve", "paged_prefill": "serve",
               "paged_ragged": "serve_spec"}
 INT8_RUN = "serve_int8"  # the run of the int8 forms
+STACKED_RUN = "serve_stacked"  # the run of the stacked forms
+BURST_RUN = "serve_burst"  # the run of the int8 stacked forms
+# A stacked case: the layer count of bench-1b and its last layer.
+STACK = (16, 15)
 # The int8 serving run's page budget: --num-pages 512 at bf16 widths,
 # expanded to the same bytes of int8 pages (512 * 128 // 68), less the
 # trash page.
@@ -182,6 +211,59 @@ def _caches(kv, pages, d, ps, dtype, dev, gen, int8):
         for c in (k8, v8))
 
 
+def _stack_at(cache, layers, layer, gen):
+    """A stacked [layers, ...] cache (a QuantKV's data and scales
+    alike) holding ``cache`` at ``layer`` and random values in the other
+    layers, filled in place (no f32 copy of the stack)."""
+    from production_stack_tpu_torch.ops.quant_kv import QuantKV
+
+    def stack(t):
+        out = torch.empty((layers,) + tuple(t.shape), dtype=t.dtype,
+                          device=t.device)
+        if t.is_floating_point():
+            out.normal_(generator=gen)
+        else:
+            out.random_(-127, 128, generator=gen)
+        out[layer] = t
+        return out
+    if isinstance(cache, QuantKV):
+        return QuantKV(stack(cache.data), stack(cache.scale).abs_())
+    return stack(cache)
+
+
+def _form(name, args, stack, gen):
+    """``(call, view, layer offset)`` for a case's arguments ``args`` =
+    (q, k, v, ...): ``call(fn)`` runs a wrapper or plain version in the
+    case's form, as given or (``stack`` = (layers, layer)) over K/V
+    embedded at ``layer`` of stacked caches; for the stacked form,
+    ``view(fn)`` runs ``fn`` per layer on the layer's view, and the
+    layer's element offset is returned."""
+    if stack is None:
+        return (lambda fn: fn(*args)), None, None
+    layers, layer = stack
+    k5 = _stack_at(args[1], layers, layer, gen)
+    v5 = _stack_at(args[2], layers, layer, gen)
+    stacked = (args[0], k5, v5) + tuple(args[3:])
+    view = (args[0], k5[layer], v5[layer]) + tuple(args[3:])
+    offset = layer * args[1].shape.numel()
+    log(f"{name}: stacked cache {tuple(k5.shape)}, layer {layer} at "
+        f"element offset {offset} ({offset / 2**31:.2f} x 2^31)")
+    return ((lambda fn: fn(*stacked, layer=layer)),
+            (lambda fn: fn(*view)), offset)
+
+
+def _check_view(name, got, view, fn) -> None:
+    """The stacked launch must be bitwise the per-layer launch on the
+    layer's view: the same walk over the same bytes."""
+    if view is None:
+        return
+    same = view(fn)
+    torch.cuda.synchronize()
+    if not torch.equal(got, same):
+        raise AssertionError(f"{name}: the stacked launch differs from "
+                             "the per-layer launch on the layer's view")
+
+
 def _kv_slot_bytes(d, esz, int8):
     """Bytes of one cached token of one kv head in one plane."""
     return d + 4 if int8 else d * esz
@@ -214,7 +296,7 @@ def _dense_kv(cache, table, kv_len_max, group):
 
 def decode_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None,
                 nh=32, kv=8, d=64, max_len=1024, num_pages=None,
-                int8=False):
+                int8=False, stack=None):
     from production_stack_tpu_torch.ops.paged_attention_cuda import (
         paged_decode_attention, paged_decode_attention_plain)
     max_pages = max_len // ps
@@ -223,9 +305,9 @@ def decode_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None,
     q = torch.randn((b, nh, d), generator=gen, device=dev).to(dtype)
     lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
     table = _page_table(kv_lens, ps, max_pages, num_pages, gen, dev)
-    args = (q, kc, vc, table, lens)
-    got = paged_decode_attention(*args)
-    ref = paged_decode_attention_plain(*args)
+    call, view, offset = _form(name, (q, kc, vc, table, lens), stack, gen)
+    got = call(paged_decode_attention)
+    ref = call(paged_decode_attention_plain)
     torch.cuda.synchronize()
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     err = (got.float() - ref.float()).abs().max().item()
@@ -234,7 +316,10 @@ def decode_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None,
     pad = lens == 0
     if pad.any() and got[pad].abs().max().item() != 0.0:
         raise AssertionError(f"{name}: pad rows must write exact 0")
+    _check_view(name, got, view, paged_decode_attention)
     out = {"case": name, "max_abs_err": err}
+    if offset is not None:
+        out["layer_offset_elems"] = offset
     if timer is not None:
         # What the function must move: K/V of each row's cached tokens,
         # q of the live rows, every output row, the live page-table
@@ -255,16 +340,19 @@ def decode_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None,
         qd = q[:, :, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         out.update(
-            ms=timer.ms(lambda: paged_decode_attention(*args)),
-            plain_ms=timer.ms(lambda: paged_decode_attention_plain(*args),
+            ms=timer.ms(lambda: call(paged_decode_attention)),
+            plain_ms=timer.ms(lambda: call(paged_decode_attention_plain),
                               iters=5),
             library_ms=timer.ms(lambda: sdpa(qd, kd, vd, attn_mask=mask)),
             **_bound(nbytes, flops))
+        if view is not None:
+            out["per_layer_ms"] = timer.ms(
+                lambda: view(paged_decode_attention))
     return out
 
 
 def prefill_case(name, rows, t, ps, dtype, dev, gen, timer=None, nh=32,
-                 kv=8, d=64, max_len=1024, int8=False):
+                 kv=8, d=64, max_len=1024, int8=False, stack=None):
     """Row i holds ``rows[i] = (start, n)``: n real tokens of a chunk
     starting at ``start`` (n = 0: a pad row). Every slot t sits at
     start + t, as the kernel rebuilds it, so a row's slots past n are
@@ -283,9 +371,10 @@ def prefill_case(name, rows, t, ps, dtype, dev, gen, timer=None, nh=32,
     pos = (starts[:, None] + torch.arange(t, dtype=torch.int32,
                                           device=dev)[None]).contiguous()
     table = _page_table(kv_lens, ps, max_pages, num_pages, gen, dev)
-    args = (q, kc, vc, table, pos, lens)
-    got = paged_prefill_attention(*args)
-    ref = paged_prefill_attention_plain(*args)
+    call, view, offset = _form(name, (q, kc, vc, table, pos, lens), stack,
+                               gen)
+    got = call(paged_prefill_attention)
+    ref = call(paged_prefill_attention_plain)
     torch.cuda.synchronize()
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     err = (got.float() - ref.float()).abs().max().item()
@@ -294,7 +383,10 @@ def prefill_case(name, rows, t, ps, dtype, dev, gen, timer=None, nh=32,
     pad = lens == 0
     if pad.any() and got[pad].abs().max().item() != 0.0:
         raise AssertionError(f"{name}: pad rows must write exact 0")
+    _check_view(name, got, view, paged_prefill_attention)
     out = {"case": name, "max_abs_err": err}
+    if offset is not None:
+        out["layer_offset_elems"] = offset
     if timer is not None:
         esz = q.element_size()
         slot_bytes = nh * d * esz
@@ -324,19 +416,23 @@ def prefill_case(name, rows, t, ps, dtype, dev, gen, timer=None, nh=32,
         qd = q.transpose(1, 2)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         out.update(
-            ms=timer.ms(lambda: paged_prefill_attention(*args)),
-            plain_ms=timer.ms(lambda: paged_prefill_attention_plain(*args),
+            ms=timer.ms(lambda: call(paged_prefill_attention)),
+            plain_ms=timer.ms(lambda: call(paged_prefill_attention_plain),
                               iters=5),
             library_ms=timer.ms(
                 lambda: sdpa(qd, kd, vd, attn_mask=mask[:, None])),
             **_bound(nbytes, flops),
             live_bound_ms=live_bound["bound_ms"],
             live_bound_by=live_bound["bound_by"])
+        if view is not None:
+            out["per_layer_ms"] = timer.ms(
+                lambda: view(paged_prefill_attention))
     return out
 
 
 def ragged_case(name, rows, w, ps, dtype, dev, gen, timer=None, nh=32,
-                kv=8, d=64, max_len=1024, verify=False, int8=False):
+                kv=8, d=64, max_len=1024, verify=False, int8=False,
+                stack=None):
     """Row i holds ``rows[i] = (kv_len, last_index)``: slots 0..last_index
     are live and sit at kv_len - 1 - last_index + t (kv_len 0: a pad
     row). ``verify``: the rows are verify rows, draft_len = last_index."""
@@ -353,9 +449,10 @@ def ragged_case(name, rows, w, ps, dtype, dev, gen, timer=None, nh=32,
                         device=dev)
     drafts = torch.clamp(last, min=0) if verify else None
     table = _page_table(kv_lens, ps, max_pages, num_pages, gen, dev)
-    args = (q, kc, vc, table, lens, last, drafts)
-    got = paged_ragged_attention(*args)
-    ref = paged_ragged_attention_plain(*args)
+    call, view, offset = _form(name, (q, kc, vc, table, lens, last, drafts),
+                               stack, gen)
+    got = call(paged_ragged_attention)
+    ref = call(paged_ragged_attention_plain)
     torch.cuda.synchronize()
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     err = (got.float() - ref.float()).abs().max().item()
@@ -366,7 +463,10 @@ def ragged_case(name, rows, w, ps, dtype, dev, gen, timer=None, nh=32,
     if got[~live].abs().max().item() != 0.0:
         raise AssertionError(f"{name}: dead slots and pad rows must "
                              "write exact 0")
+    _check_view(name, got, view, paged_ragged_attention)
     out = {"case": name, "max_abs_err": err}
+    if offset is not None:
+        out["layer_offset_elems"] = offset
     if timer is not None:
         esz = q.element_size()
         slot_bytes = nh * d * esz
@@ -395,13 +495,16 @@ def ragged_case(name, rows, w, ps, dtype, dev, gen, timer=None, nh=32,
         qd = q.transpose(1, 2)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         out.update(
-            ms=timer.ms(lambda: paged_ragged_attention(*args)),
-            plain_ms=timer.ms(lambda: paged_ragged_attention_plain(*args),
+            ms=timer.ms(lambda: call(paged_ragged_attention)),
+            plain_ms=timer.ms(lambda: call(paged_ragged_attention_plain),
                               iters=5),
             library_ms=timer.ms(
                 lambda: sdpa(qd, kd, vd, attn_mask=mask[:, None])),
             **bound, live_bound_ms=live_bound["bound_ms"],
             live_bound_by=live_bound["bound_by"])
+        if view is not None:
+            out["per_layer_ms"] = timer.ms(
+                lambda: view(paged_ragged_attention))
     return out
 
 
@@ -414,8 +517,9 @@ def _bound(nbytes: int, flops: int) -> dict:
 
 
 def kernel_phase(dev) -> dict:
-    """Returns {kernel name: {"bf16": headline case, "int8": headline
-    case}} after checking every case."""
+    """Returns {kernel name: {form: headline case}} for the forms
+    "bf16", "int8", "stacked" and "int8_stacked", after checking every
+    case."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     timer = Timer(dev)
@@ -517,6 +621,45 @@ def kernel_phase(dev) -> dict:
                         [(1, 0), (77, 15), (0, -1), (200, 3)], 16, 16, f32,
                         dev, gen, max_len=256, int8=True, **tiny),
         ],
+    }, "stacked": {
+        # The headline cases at the last layer of a bench-1b-deep
+        # stacked cache; then decode over 2304 pages a layer, where the
+        # layer's element offset passes 2^31 (about 4.8 GB a bf16 k
+        # cache).
+        "paged_decode": [
+            decode_case("decode bf16 stacked L=16 layer 15 B=32 ps=128", 32,
+                        lens, 128, bf16, dev, gen, timer, num_pages=512,
+                        stack=STACK),
+            decode_case("decode bf16 stacked L=16 layer 15 B=32 ps=128, "
+                        "2304 pages", 32, lens, 128, bf16, dev, gen,
+                        num_pages=2304, stack=STACK),
+        ],
+        "paged_prefill": [
+            prefill_case("prefill bf16 stacked L=16 layer 15 B=8 T=512 first "
+                         "chunk ps=128", first, 512, 128, bf16, dev, gen,
+                         timer, stack=STACK),
+        ],
+        "paged_ragged": [
+            ragged_case("ragged bf16 stacked L=16 layer 15 unified R=40 "
+                        "W=512 ps=128", unified_ragged, 512, 128, bf16, dev,
+                        gen, timer, stack=STACK),
+        ],
+    }, "int8_stacked": {
+        "paged_decode": [
+            decode_case("decode bf16/int8 stacked L=16 layer 15 B=32 ps=128",
+                        32, lens, 128, bf16, dev, gen, timer, num_pages=512,
+                        int8=True, stack=STACK),
+        ],
+        "paged_prefill": [
+            prefill_case("prefill bf16/int8 stacked L=16 layer 15 B=8 T=512 "
+                         "first chunk ps=128", first, 512, 128, bf16, dev,
+                         gen, timer, int8=True, stack=STACK),
+        ],
+        "paged_ragged": [
+            ragged_case("ragged bf16/int8 stacked L=16 layer 15 unified "
+                        "R=40 W=512 ps=128", unified_ragged, 512, 128, bf16,
+                        dev, gen, timer, int8=True, stack=STACK),
+        ],
     }}
     headline = {name: {} for name in KERNELS}
     for form, by_kernel in cases.items():
@@ -544,55 +687,83 @@ def model_phase(dev) -> None:
     tokens = torch.randint(1, cfg.vocab_size, (1, 512 + 6), generator=gen,
                            device=dev, dtype=torch.int32)
     for kv_dtype in ("bf16", "int8"):
-        _model_forwards(dev, cfg, params, tokens, kv_dtype)
+        per_layer = _model_forwards(dev, cfg, params, tokens, kv_dtype)
+        stacked = _forwards(dev, cfg, params, tokens,
+                            _model_caches(dev, cfg, kv_dtype, "stacked"),
+                            "cuda")
+        for phase, a, b in zip(PHASES, stacked, per_layer):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"model {kv_dtype} KV {phase}: logits over the stacked "
+                    "cache differ from those over the per-layer caches")
+        log(f"model bench-1b {kv_dtype} KV: stacked-cache logits bitwise "
+            f"equal to per-layer ones ({', '.join(PHASES)})")
     del params
     torch.cuda.empty_cache()
 
 
-def _model_forwards(dev, cfg, params, tokens, kv_dtype) -> None:
-    """The prefill chunk, decode step and verify block through the
-    kernels and through their plain versions over a fresh ``kv_dtype``
-    cache each, compared."""
-    from production_stack_tpu_torch.models import llama
+PHASES = ("prefill T=512", "decode T=1", "verify T=5 (ragged)")
+
+
+def _model_caches(dev, cfg, kv_dtype, layout):
+    """Fresh k and v caches of 8 pages of 128 tokens: a list of
+    per-layer buffers, or one stacked buffer each."""
     from production_stack_tpu_torch.ops.quant_kv import quant_cache_zeros
 
-    ps, t = 128, 512
-    shape = (cfg.num_key_value_heads, 8, cfg.head_dim, ps)
-    table = torch.tensor([[1, 2, 3, 4, 5]], dtype=torch.int32, device=dev)
+    shape = (cfg.num_key_value_heads, 8, cfg.head_dim, 128)
+    layers = cfg.num_hidden_layers
 
-    def layer_cache():
+    def cache(shape):
         if kv_dtype == "int8":
             return quant_cache_zeros(shape, dev)
         return torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
 
-    results = {}
-    for impl in ("cuda", "plain"):
-        caches = ([layer_cache() for _ in range(cfg.num_hidden_layers)],
-                  [layer_cache() for _ in range(cfg.num_hidden_layers)])
-        with torch.inference_mode():
-            prefill = llama.forward(
-                params, cfg, tokens[:, :t],
-                torch.arange(t, device=dev, dtype=torch.int32)[None],
-                table, torch.tensor([t], dtype=torch.int32, device=dev),
-                torch.ones((1, t), dtype=torch.bool, device=dev),
-                *caches, kind="prefill", impl=impl)
-            decode = llama.forward(
-                params, cfg, tokens[:, t:t + 1],
-                torch.tensor([[t]], dtype=torch.int32, device=dev), table,
-                torch.tensor([t + 1], dtype=torch.int32, device=dev),
-                torch.ones((1, 1), dtype=torch.bool, device=dev),
-                *caches, kind="decode", impl=impl)
-            verify = llama.forward(
-                params, cfg, tokens[:, t + 1:],
-                torch.arange(t + 1, t + 6, device=dev,
-                             dtype=torch.int32)[None], table,
-                torch.tensor([t + 6], dtype=torch.int32, device=dev),
-                torch.ones((1, 5), dtype=torch.bool, device=dev),
-                *caches, kind="ragged", impl=impl)
-        torch.cuda.synchronize()
-        results[impl] = (prefill[0], decode[0], verify[0])
-    for i, phase in enumerate(("prefill T=512", "decode T=1",
-                               "verify T=5 (ragged)")):
+    if layout == "stacked":
+        return cache((layers,) + shape), cache((layers,) + shape)
+    return ([cache(shape) for _ in range(layers)],
+            [cache(shape) for _ in range(layers)])
+
+
+def _forwards(dev, cfg, params, tokens, caches, impl):
+    """The prefill chunk, decode step and verify block through
+    ``forward`` over ``caches``; returns their logits."""
+    from production_stack_tpu_torch.models import llama
+
+    t = 512
+    table = torch.tensor([[1, 2, 3, 4, 5]], dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        prefill = llama.forward(
+            params, cfg, tokens[:, :t],
+            torch.arange(t, device=dev, dtype=torch.int32)[None],
+            table, torch.tensor([t], dtype=torch.int32, device=dev),
+            torch.ones((1, t), dtype=torch.bool, device=dev),
+            *caches, kind="prefill", impl=impl)
+        decode = llama.forward(
+            params, cfg, tokens[:, t:t + 1],
+            torch.tensor([[t]], dtype=torch.int32, device=dev), table,
+            torch.tensor([t + 1], dtype=torch.int32, device=dev),
+            torch.ones((1, 1), dtype=torch.bool, device=dev),
+            *caches, kind="decode", impl=impl)
+        verify = llama.forward(
+            params, cfg, tokens[:, t + 1:],
+            torch.arange(t + 1, t + 6, device=dev,
+                         dtype=torch.int32)[None], table,
+            torch.tensor([t + 6], dtype=torch.int32, device=dev),
+            torch.ones((1, 5), dtype=torch.bool, device=dev),
+            *caches, kind="ragged", impl=impl)
+    torch.cuda.synchronize()
+    return prefill[0], decode[0], verify[0]
+
+
+def _model_forwards(dev, cfg, params, tokens, kv_dtype):
+    """The prefill chunk, decode step and verify block through the
+    kernels and through their plain versions over a fresh ``kv_dtype``
+    per-layer cache each, compared; returns the kernels' logits."""
+    results = {impl: _forwards(dev, cfg, params, tokens,
+                               _model_caches(dev, cfg, kv_dtype,
+                                             "per_layer"), impl)
+               for impl in ("cuda", "plain")}
+    for i, phase in enumerate(PHASES):
         a, b = results["cuda"][i], results["plain"][i]
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
             raise AssertionError(f"model {phase}: non-finite logits")
@@ -622,6 +793,65 @@ def _model_forwards(dev, cfg, params, tokens, kv_dtype) -> None:
                 or (not phase.startswith("verify") and agree < 0.9)):
             raise AssertionError(f"model {kv_dtype} KV {phase}: cuda and "
                                  "plain forwards disagree")
+    return results["cuda"]
+
+
+# ---- engine phase -----------------------------------------------------------
+
+
+def engine_phase(vocab: int) -> None:
+    """bench-1b, stacked layout, unified step and async off: 8 greedy
+    prompts submitted before the first step, decoded single-step and
+    in bursts of 4. Every GEMM keeps its padded shape and the rows do
+    not interact, so the streams must be byte-identical."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig, EngineConfig, SchedulerConfig, bench_1b_model_config)
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
+
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(258, vocab, size=n).tolist()
+               for n in np.linspace(64, 500, 8).round().astype(int)]
+    streams = {}
+    for k in (1, 4):
+        cfg = EngineConfig(
+            model=bench_1b_model_config(),
+            cache=CacheConfig(page_size=128, num_pages=512,
+                              cache_layout="stacked"),
+            scheduler=SchedulerConfig(
+                max_num_seqs=32, max_model_len=1024,
+                prefill_chunk_size=512, prefill_batch_size=8,
+                decode_steps=k, async_scheduling=False,
+                unified_step=False))
+        engine = LLMEngine(cfg, device="cuda")
+        torch.cuda.synchronize()
+        COUNTERS.reset()
+        t0 = time.perf_counter()
+        seqs = engine.generate_batch(prompts, SamplingParams(
+            temperature=0.0, max_tokens=32, ignore_eos=True))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(COUNTERS.launches)
+        streams[k] = [list(s.output_token_ids) for s in seqs]
+        steps = engine.metrics.pipeline_steps_total
+        del engine, seqs
+        torch.cuda.empty_cache()
+        log(f"engine bench-1b stacked decode_steps={k}: 8 prompts x 32 "
+            f"tokens in {wall:.3f} s over {steps} steps; launches "
+            f"{launches}")
+        if set(launches) != {"paged_prefill_stacked",
+                             "paged_decode_stacked"}:
+            raise AssertionError(f"engine decode_steps={k}: launched "
+                                 f"{launches}, expected the stacked "
+                                 "prefill and decode forms only")
+    if streams[1] != streams[4]:
+        diff = [i for i, (a, b) in enumerate(zip(streams[1], streams[4]))
+                if a != b]
+        raise AssertionError(f"engine: decode_steps 4 streams differ from "
+                             f"single-step ones in rows {diff}")
+    log("engine bench-1b stacked: decode_steps 4 streams byte-identical to "
+        "decode_steps 1 (8 rows x 32 tokens)")
 
 
 # ---- serving phase ----------------------------------------------------------
@@ -641,21 +871,36 @@ def _post(url, body) -> dict:
         return json.loads(resp.read())
 
 
-def serving_run(label, extra_args, requests, repeat, after=(),
-                int8=False):
+def serving_run(label, extra_args, requests, repeat, after=(), form=""):
     """Start the port's server with SERVER_ARGS + ``extra_args``, send
     ``requests`` concurrently with the launch counters set to 0 just
     before and read just after, then ``repeat`` twice; then (outside
     the counted window) the ``after`` requests. Checks every
-    completion, that every kernel launched in its ``int8`` form or in
-    its full-precision one and never in the other, and returns what
-    the run measured."""
+    completion, that every kernel launched in its ``form`` (the
+    counter suffix: "", "_int8", "_stacked" or "_int8_stacked") and in
+    no other, and returns what the run measured, with the decode
+    dispatches' rows and committed tokens in the counted window."""
     from production_stack_tpu_torch.engine.server import make_server
     from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
 
     port = _free_port()
     server = make_server(SERVER_ARGS + extra_args
                          + ["--host", "127.0.0.1", "--port", str(port)])
+    # The synchronous decode dispatches (bursts, or single steps with
+    # async off): rows and tokens each committed.
+    runner = server.app.engine.runner
+    decode = {"dispatches": 0, "row_steps": 0, "tokens": 0}
+    run_decode = runner.run_decode
+
+    def counted_run_decode(plan):
+        out = run_decode(plan)
+        if plan.drafts is None:
+            decode["dispatches"] += 1
+            decode["row_steps"] += len(out)
+            decode["tokens"] += sum(len(t) for t in out)
+        return out
+
+    runner.run_decode = counted_run_decode
     thread = threading.Thread(target=server.serve, daemon=True)
     thread.start()
     base = f"http://127.0.0.1:{port}"
@@ -668,6 +913,7 @@ def serving_run(label, extra_args, requests, repeat, after=(),
     try:
         torch.cuda.synchronize()
         COUNTERS.reset()
+        decode.update(dispatches=0, row_steps=0, tokens=0)
         t0 = time.perf_counter()
         answers = post_all(requests)
         wall = time.perf_counter() - t0
@@ -675,6 +921,7 @@ def serving_run(label, extra_args, requests, repeat, after=(),
         torch.cuda.synchronize()
         launches = dict(COUNTERS.launches)
         plain_calls = dict(COUNTERS.plain_cuda_calls)
+        decode_counts = dict(decode)
         with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
             metrics = r.read().decode()
         after_answers = post_all(list(after)) if after else []
@@ -703,12 +950,13 @@ def serving_run(label, extra_args, requests, repeat, after=(),
     if ragged <= 0:
         raise AssertionError(f"{label}: no unified mixed step ran")
     for kernel in KERNELS:
-        name, other = ((kernel + "_int8", kernel) if int8
-                       else (kernel, kernel + "_int8"))
-        if launches.get(name, 0) <= 0:
-            raise AssertionError(f"{label}: the run never launched {name}")
-        if launches.get(other, 0):
-            raise AssertionError(f"{label}: the run launched {other}")
+        if launches.get(kernel + form, 0) <= 0:
+            raise AssertionError(f"{label}: the run never launched "
+                                 f"{kernel + form}")
+        for other in ("", "_int8", "_stacked", "_int8_stacked"):
+            if other != form and launches.get(kernel + other, 0):
+                raise AssertionError(f"{label}: the run launched "
+                                     f"{kernel + other}")
     if any(plain_calls.values()):
         raise AssertionError(f"{label}: plain versions ran on CUDA "
                              f"tensors: {plain_calls}")
@@ -719,7 +967,8 @@ def serving_run(label, extra_args, requests, repeat, after=(),
         f"on CUDA tensors {plain_calls or 0}")
     return {"launches": launches, "answers": answers,
             "after": after_answers, "wall": wall, "tokens": tokens,
-            "metrics": metrics, "metric": metric,
+            "metrics": metrics, "metric": metric, "decode": decode_counts,
+            "async": server.app.engine.config.scheduler.async_scheduling,
             "drafted": metric("vllm:spec_decode_num_draft_tokens_total"),
             "accepted": metric(
                 "vllm:spec_decode_num_accepted_tokens_total")}
@@ -769,7 +1018,7 @@ def serving_phase(vocab: int) -> dict:
         f"{whole}/{len(spec['answers'])}")
 
     int8 = serving_run("serving int8 KV", ["--kv-cache-dtype", "int8"],
-                       requests, repeat, int8=True)
+                       requests, repeat, form="_int8")
     if 'vllm:engine_kv_cache_dtype{kv_dtype="int8"} 1.0' not in (
             int8["metrics"]):
         raise AssertionError("int8 serving: /metrics does not show "
@@ -778,8 +1027,47 @@ def serving_phase(vocab: int) -> dict:
     if capacity != INT8_PAGE_CAPACITY:
         raise AssertionError(f"int8 serving: page capacity {capacity}, "
                              f"expected {INT8_PAGE_CAPACITY}")
+    same, total, whole, greedy = _greedy_agreement(requests, int8, base)
+    log(f"serving int8 KV: page capacity {capacity:.0f}, "
+        f"{int8['tokens'] / int8['wall']:.1f} tok/s against "
+        f"{base['tokens'] / base['wall']:.1f} for bf16 KV; greedy "
+        f"characters agreeing with the bf16 KV server {same}/{total} "
+        f"({same / total:.4f}), whole completions {whole}/{greedy}")
+
+    stacked = serving_run("serving stacked", ["--cache-layout", "stacked"],
+                          requests, repeat, form="_stacked")
+    same, total, whole, greedy = _greedy_agreement(requests, stacked, base)
+    log(f"serving stacked: {stacked['tokens'] / stacked['wall']:.1f} tok/s "
+        f"against {base['tokens'] / base['wall']:.1f} per_layer; greedy "
+        f"characters agreeing with the per_layer server {same}/{total} "
+        f"({same / total:.4f}), whole completions {whole}/{greedy}")
+
+    burst = serving_run("serving stacked int8 K=4",
+                        ["--cache-layout", "stacked", "--kv-cache-dtype",
+                         "int8", "--decode-steps", "4"], requests, repeat,
+                        form="_int8_stacked")
+    d = burst["decode"]
+    per_row = d["tokens"] / max(d["row_steps"], 1)
+    log(f"serving stacked int8 K=4: async {burst['async']}, "
+        f"{burst['tokens'] / burst['wall']:.1f} tok/s; {d['dispatches']} "
+        f"decode dispatches, {d['row_steps']} row-dispatches committing "
+        f"{d['tokens']} tokens ({per_row:.2f} a row a dispatch)")
+    if burst["async"]:
+        raise AssertionError("burst serving: --async-scheduling auto did "
+                             "not resolve off with --decode-steps 4")
+    if per_row < 3.0:
+        raise AssertionError(f"burst serving: {per_row:.2f} tokens a row "
+                             "a decode dispatch, expected about 4")
+    return {"serve": base["launches"], "serve_spec": spec["launches"],
+            INT8_RUN: int8["launches"], STACKED_RUN: stacked["launches"],
+            BURST_RUN: burst["launches"]}
+
+
+def _greedy_agreement(requests, run, base):
+    """(characters equal, characters, whole completions equal, greedy
+    completions) of ``run``'s greedy answers against ``base``'s."""
     same = total = whole = greedy = 0
-    for body, a, b in zip(requests, int8["answers"], base["answers"]):
+    for body, a, b in zip(requests, run["answers"], base["answers"]):
         if body.get("temperature", 1.0) != 0.0:
             continue
         ta, tb = a["choices"][0]["text"], b["choices"][0]["text"]
@@ -787,13 +1075,7 @@ def serving_phase(vocab: int) -> dict:
         total += max(len(ta), len(tb))
         whole += ta == tb
         greedy += 1
-    log(f"serving int8 KV: page capacity {capacity:.0f}, "
-        f"{int8['tokens'] / int8['wall']:.1f} tok/s against "
-        f"{base['tokens'] / base['wall']:.1f} for bf16 KV; greedy "
-        f"characters agreeing with the bf16 KV server {same}/{total} "
-        f"({same / total:.4f}), whole completions {whole}/{greedy}")
-    return {"serve": base["launches"], "serve_spec": spec["launches"],
-            INT8_RUN: int8["launches"]}
+    return same, total, whole, greedy
 
 
 # ---- main -------------------------------------------------------------------
@@ -829,16 +1111,22 @@ def main() -> int:
                 log(line.strip())
 
     headline = kernel_phase(dev)
+    torch.cuda.empty_cache()
     model_phase(dev)
     from production_stack_tpu_torch.engine.config import (
         bench_1b_model_config)
-    launches = serving_phase(bench_1b_model_config().vocab_size)
+    vocab = bench_1b_model_config().vocab_size
+    engine_phase(vocab)
+    launches = serving_phase(vocab)
 
     def numbers(h):
-        return {"max_abs_err": h["max_abs_err"], "ms": h["ms"],
-                "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
-                "bound_by": h["bound_by"], "library_ms": h["library_ms"],
-                "case": h["case"]}
+        out = {"max_abs_err": h["max_abs_err"], "ms": h["ms"],
+               "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+               "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+               "case": h["case"]}
+        if "per_layer_ms" in h:
+            out["per_layer_ms"] = h["per_layer_ms"]
+        return out
 
     summary = []
     for name, meta in KERNELS.items():
@@ -850,7 +1138,11 @@ def main() -> int:
                                 for run, counts in launches.items()},
             **numbers(h["bf16"]),
             "int8": {"launches": launches[INT8_RUN].get(name + "_int8", 0),
-                     **numbers(h["int8"])}})
+                     **numbers(h["int8"])},
+            "stacked": {"launches": launches[STACKED_RUN].get(
+                name + "_stacked", 0), **numbers(h["stacked"])},
+            "int8_stacked": {"launches": launches[BURST_RUN].get(
+                name + "_int8_stacked", 0), **numbers(h["int8_stacked"])}})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

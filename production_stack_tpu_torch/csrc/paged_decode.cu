@@ -7,14 +7,20 @@
 // from device memory once per step (decode is bound by those bytes).
 // A row with kv_len 0 (a pad row) walks nothing and writes 0. An int8
 // cache halves the bytes of the walk: its pages stage with the same
-// 16-byte loads, and their scales fold in (paged_kv_common.cuh).
+// 16-byte loads, and their scales fold in (paged_kv_common.cuh). A
+// stacked [L, ...] cache is read in place at its layer (LayerOffsets),
+// as Pallas reads it at its prefetched layer index: the same bytes and
+// blocks as the per-layer form, one more multiply-add of an address.
 //
 // C interface (loaded with ctypes by ops/paged_kv_common.py):
-//   q [B, num_q_heads, D]; k/v cache [kv_heads, num_pages, D, page_size];
-//   k/v scale [kv_heads, num_pages, page_size] f32 for an int8 cache,
-//   else null; page_table [B, max_pages] int32; kv_lens [B] int32;
-//   out [B, num_q_heads, D]; dtype (q, out) 0 = bf16, 1 = f32;
-//   cache_dtype 0 = bf16, 1 = f32, 2 = int8.
+//   q [B, num_q_heads, D]; k/v cache [kv_heads, num_pages, D, page_size],
+//   or the stacked [L, kv_heads, num_pages, D, page_size] cache read at
+//   `layer`; k/v scale [(L,) kv_heads, num_pages, page_size] f32 for an
+//   int8 cache, else null; page_table [B, max_pages] int32; kv_lens [B]
+//   int32; out [B, num_q_heads, D]; dtype (q, out) 0 = bf16, 1 = f32;
+//   cache_dtype 0 = bf16, 1 = f32, 2 = int8; layer_stride /
+//   scale_layer_stride: elements between two layers of the data / the
+//   scales (the per-layer form is layer 0 with strides 0).
 // Launches on `stream`, allocates nothing, does not synchronise, and
 // returns cudaGetLastError() after the launch. Geometries outside
 // PSTT_FOR_EACH_GEOMETRY return cudaErrorInvalidValue;
@@ -45,7 +51,7 @@ paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
                     const int* __restrict__ page_table,
                     const int* __restrict__ kv_lens, T* __restrict__ out,
                     int num_q_heads, int num_pages, int page_size,
-                    int max_pages) {
+                    int max_pages, LayerOffsets layer) {
   constexpr int ROWS = DecodeRows<G, D>::kRows;
   const int b = blockIdx.x;
   const int h = blockIdx.y;
@@ -55,9 +61,10 @@ paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
   RowMap rows{((size_t)b * num_q_heads + (size_t)h * G) * D, 1,
               num_q_heads, D, 0};
   page_walk_block<T, C, D, ROWS, ROWS, kDecodeThreads>(
-      q, out, rows, k_cache + h * head_elems, v_cache + h * head_elems,
-      kQuantized<C> ? k_scale + h * head_slots : nullptr,
-      kQuantized<C> ? v_scale + h * head_slots : nullptr,
+      q, out, rows, k_cache + layer.data() + h * head_elems,
+      v_cache + layer.data() + h * head_elems,
+      kQuantized<C> ? k_scale + layer.scale() + h * head_slots : nullptr,
+      kQuantized<C> ? v_scale + layer.scale() + h * head_slots : nullptr,
       page_table + (size_t)b * max_pages, max_pages, page_size, kv_len,
       DecodeMask{kv_len}, G);
 }
@@ -66,7 +73,8 @@ template <typename T, typename C, int D, int G>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* pt, const void* kv_lens, void* out,
            int batch, int num_q_heads, int num_kv_heads, int num_pages,
-           int page_size, int max_pages, cudaStream_t stream) {
+           int page_size, int max_pages, LayerOffsets layer,
+           cudaStream_t stream) {
   if (kQuantized<C> && (ks == nullptr || vs == nullptr))
     return cudaErrorInvalidValue;
   constexpr size_t smem =
@@ -80,7 +88,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
       static_cast<const C*>(v), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int*>(pt),
       static_cast<const int*>(kv_lens), static_cast<T*>(out), num_q_heads,
-      num_pages, page_size, max_pages);
+      num_pages, page_size, max_pages, layer);
   return cudaGetLastError();
 }
 
@@ -94,10 +102,15 @@ extern "C" int pstt_paged_decode(int dtype, int cache_dtype, const void* q,
                                  const void* kv_lens, void* out, int batch,
                                  int num_q_heads, int num_kv_heads,
                                  int head_dim, int num_pages, int page_size,
-                                 int max_pages, void* stream) {
+                                 int max_pages, int layer,
+                                 long long layer_stride,
+                                 long long scale_layer_stride,
+                                 void* stream) {
   if (num_kv_heads <= 0 || num_q_heads % num_kv_heads ||
-      page_size <= 0 || pstt::kChunk % page_size)
+      page_size <= 0 || pstt::kChunk % page_size || layer < 0 ||
+      layer_stride < 0 || scale_layer_stride < 0)
     return cudaErrorInvalidValue;
+  const pstt::LayerOffsets offsets{layer, layer_stride, scale_layer_stride};
   if (batch == 0) return cudaSuccess;
   const int group = num_q_heads / num_kv_heads;
   auto s = static_cast<cudaStream_t>(stream);
@@ -107,7 +120,7 @@ extern "C" int pstt_paged_decode(int dtype, int cache_dtype, const void* q,
     return pstt::launch<T, C, D, G>(q, k, v, k_scale, v_scale, page_table, \
                                     kv_lens, out, batch, num_q_heads,      \
                                     num_kv_heads, num_pages, page_size,    \
-                                    max_pages, s);
+                                    max_pages, offsets, s);
   PSTT_FOR_EACH_GEOMETRY(PSTT_DECODE_CASE)
 #undef PSTT_DECODE_CASE
   return cudaErrorInvalidValue;

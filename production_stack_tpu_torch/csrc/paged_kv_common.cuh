@@ -106,6 +106,25 @@ struct SmemLayout {
   static constexpr size_t bytes = total * sizeof(float);
 };
 
+// Where one layer of a stacked [L, kv_heads, num_pages, D, page_size]
+// cache (and of its [L, kv_heads, num_pages, page_size] scales) starts:
+// `layer` strides past the base pointer, the counterpart of Pallas's
+// k_hbm.at[layer_ref[0], h, page]. The product is taken in 64 bits: a
+// stacked cache at a full card's page budget holds more than 2^31
+// elements. The per-layer [kv_heads, ...] form is layer 0, strides 0.
+struct LayerOffsets {
+  int layer;
+  long long data_stride;   // elements between two layers of the pages
+  long long scale_stride;  // elements between two layers of the scales
+
+  __device__ __forceinline__ size_t data() const {
+    return (size_t)layer * (size_t)data_stride;
+  }
+  __device__ __forceinline__ size_t scale() const {
+    return (size_t)layer * (size_t)scale_stride;
+  }
+};
+
 // Where query/output row r of a block lives: rows are (g, t) pairs
 // flattened g-major over the G query heads of one kv head and the T
 // tokens of the row (decode: T = 1).

@@ -13,10 +13,12 @@
 //
 // C interface (loaded with ctypes by ops/paged_kv_common.py):
 //   q/out [B, T, num_q_heads, D]; k/v cache [kv_heads, num_pages, D,
-//   page_size]; k/v scale [kv_heads, num_pages, page_size] f32 for an
+//   page_size], or the stacked [L, kv_heads, ...] cache read at
+//   `layer`; k/v scale [(L,) kv_heads, num_pages, page_size] f32 for an
 //   int8 cache, else null; page_table [B, max_pages], q_positions
 //   [B, T] (row starts read only), kv_lens [B], all int32; dtype (q,
-//   out) 0 = bf16, 1 = f32; cache_dtype 0 = bf16, 1 = f32, 2 = int8.
+//   out) 0 = bf16, 1 = f32; cache_dtype 0 = bf16, 1 = f32, 2 = int8;
+//   layer_stride / scale_layer_stride as in paged_decode.cu.
 // Launches on `stream`, allocates nothing, does not synchronise, and
 // returns cudaGetLastError() after the launch.
 
@@ -39,7 +41,7 @@ paged_prefill_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
                      const int* __restrict__ q_positions,
                      const int* __restrict__ kv_lens, T* __restrict__ out,
                      int tokens, int num_q_heads, int group, int num_pages,
-                     int page_size, int max_pages) {
+                     int page_size, int max_pages, LayerOffsets layer) {
   const int tile = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -52,9 +54,10 @@ paged_prefill_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
   RowMap rows{((size_t)b * tokens * num_q_heads + (size_t)h * group) * D,
               tokens, num_q_heads, D, row0};
   page_walk_block<T, C, D, kTileRows, kTileTY, kPrefillThreads>(
-      q, out, rows, k_cache + h * head_elems, v_cache + h * head_elems,
-      kQuantized<C> ? k_scale + h * head_slots : nullptr,
-      kQuantized<C> ? v_scale + h * head_slots : nullptr,
+      q, out, rows, k_cache + layer.data() + h * head_elems,
+      v_cache + layer.data() + h * head_elems,
+      kQuantized<C> ? k_scale + layer.scale() + h * head_slots : nullptr,
+      kQuantized<C> ? v_scale + layer.scale() + h * head_slots : nullptr,
       page_table + (size_t)b * max_pages, max_pages, page_size, kv_len,
       CausalMask{kv_len, q_start, tokens, row0}, nrows);
 }
@@ -64,7 +67,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* pt, const void* q_positions,
            const void* kv_lens, void* out, int batch, int tokens,
            int num_q_heads, int num_kv_heads, int num_pages, int page_size,
-           int max_pages, cudaStream_t stream) {
+           int max_pages, LayerOffsets layer, cudaStream_t stream) {
   if (kQuantized<C> && (ks == nullptr || vs == nullptr))
     return cudaErrorInvalidValue;
   constexpr size_t smem = SmemLayout<D, kTileRows, kQuantized<C>>::bytes;
@@ -81,7 +84,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
       static_cast<const float*>(vs), static_cast<const int*>(pt),
       static_cast<const int*>(q_positions),
       static_cast<const int*>(kv_lens), static_cast<T*>(out), tokens,
-      num_q_heads, group, num_pages, page_size, max_pages);
+      num_q_heads, group, num_pages, page_size, max_pages, layer);
   return cudaGetLastError();
 }
 
@@ -98,10 +101,15 @@ extern "C" int pstt_paged_prefill(int dtype, int cache_dtype,
                                   int tokens, int num_q_heads,
                                   int num_kv_heads, int head_dim,
                                   int num_pages, int page_size,
-                                  int max_pages, void* stream) {
+                                  int max_pages, int layer,
+                                  long long layer_stride,
+                                  long long scale_layer_stride,
+                                  void* stream) {
   if (num_kv_heads <= 0 || num_q_heads % num_kv_heads ||
-      page_size <= 0 || pstt::kChunk % page_size)
+      page_size <= 0 || pstt::kChunk % page_size || layer < 0 ||
+      layer_stride < 0 || scale_layer_stride < 0)
     return cudaErrorInvalidValue;
+  const pstt::LayerOffsets offsets{layer, layer_stride, scale_layer_stride};
   if (batch == 0 || tokens == 0) return cudaSuccess;
   const int group = num_q_heads / num_kv_heads;
   auto s = static_cast<cudaStream_t>(stream);
@@ -111,7 +119,7 @@ extern "C" int pstt_paged_prefill(int dtype, int cache_dtype,
     return pstt::launch<T, C, D>(q, k, v, k_scale, v_scale, page_table,    \
                                  q_positions, kv_lens, out, batch, tokens, \
                                  num_q_heads, num_kv_heads, num_pages,     \
-                                 page_size, max_pages, s);
+                                 page_size, max_pages, offsets, s);
   PSTT_FOR_EACH_GEOMETRY(PSTT_PREFILL_CASE)
 #undef PSTT_PREFILL_CASE
   return cudaErrorInvalidValue;

@@ -24,10 +24,12 @@
 //
 // C interface (loaded with ctypes by ops/paged_kv_common.py):
 //   q/out [R, W, num_q_heads, D]; k/v cache [kv_heads, num_pages, D,
-//   page_size]; k/v scale [kv_heads, num_pages, page_size] f32 for an
+//   page_size], or the stacked [L, kv_heads, ...] cache read at
+//   `layer`; k/v scale [(L,) kv_heads, num_pages, page_size] f32 for an
 //   int8 cache, else null; page_table [R, max_pages], kv_lens [R],
 //   last_index [R], draft_lens [R] or null, all int32; dtype (q, out)
-//   0 = bf16, 1 = f32; cache_dtype 0 = bf16, 1 = f32, 2 = int8.
+//   0 = bf16, 1 = f32; cache_dtype 0 = bf16, 1 = f32, 2 = int8;
+//   layer_stride / scale_layer_stride as in paged_decode.cu.
 // Launches on `stream`, allocates nothing, does not synchronise, and
 // returns cudaGetLastError() after the launch.
 
@@ -49,7 +51,7 @@ paged_ragged_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
                     const int* __restrict__ kv_lens,
                     const int* __restrict__ last_index, T* __restrict__ out,
                     int width, int num_q_heads, int group, int num_pages,
-                    int page_size, int max_pages) {
+                    int page_size, int max_pages, LayerOffsets layer) {
   const int tile = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -73,10 +75,12 @@ paged_ragged_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
 
   const size_t head_elems = (size_t)num_pages * D * page_size;
   const size_t head_slots = (size_t)num_pages * page_size;
-  const C* k_head = k_cache + h * head_elems;
-  const C* v_head = v_cache + h * head_elems;
-  const float* ks_head = kQuantized<C> ? k_scale + h * head_slots : nullptr;
-  const float* vs_head = kQuantized<C> ? v_scale + h * head_slots : nullptr;
+  const C* k_head = k_cache + layer.data() + h * head_elems;
+  const C* v_head = v_cache + layer.data() + h * head_elems;
+  const float* ks_head =
+      kQuantized<C> ? k_scale + layer.scale() + h * head_slots : nullptr;
+  const float* vs_head =
+      kQuantized<C> ? v_scale + layer.scale() + h * head_slots : nullptr;
   const int* pt_row = page_table + (size_t)b * max_pages;
   const RaggedMask mask{kv_len, last, group, row0};
   if (live <= 8) {
@@ -99,7 +103,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* pt, const void* kv_lens,
            const void* last_index, void* out, int rows, int width,
            int num_q_heads, int num_kv_heads, int num_pages, int page_size,
-           int max_pages, cudaStream_t stream) {
+           int max_pages, LayerOffsets layer, cudaStream_t stream) {
   if (kQuantized<C> && (ks == nullptr || vs == nullptr))
     return cudaErrorInvalidValue;
   // The widest row block's layout; the narrower ones use a prefix of
@@ -118,7 +122,7 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
       static_cast<const float*>(vs), static_cast<const int*>(pt),
       static_cast<const int*>(kv_lens),
       static_cast<const int*>(last_index), static_cast<T*>(out), width,
-      num_q_heads, group, num_pages, page_size, max_pages);
+      num_q_heads, group, num_pages, page_size, max_pages, layer);
   return cudaGetLastError();
 }
 
@@ -135,11 +139,16 @@ extern "C" int pstt_paged_ragged(int dtype, int cache_dtype, const void* q,
                                  int rows, int width, int num_q_heads,
                                  int num_kv_heads, int head_dim,
                                  int num_pages, int page_size,
-                                 int max_pages, void* stream) {
+                                 int max_pages, int layer,
+                                 long long layer_stride,
+                                 long long scale_layer_stride,
+                                 void* stream) {
   (void)draft_lens;  // the draft span masks itself causally
   if (num_kv_heads <= 0 || num_q_heads % num_kv_heads ||
-      page_size <= 0 || pstt::kChunk % page_size)
+      page_size <= 0 || pstt::kChunk % page_size || layer < 0 ||
+      layer_stride < 0 || scale_layer_stride < 0)
     return cudaErrorInvalidValue;
+  const pstt::LayerOffsets offsets{layer, layer_stride, scale_layer_stride};
   if (rows == 0 || width == 0) return cudaSuccess;
   const int group = num_q_heads / num_kv_heads;
   auto s = static_cast<cudaStream_t>(stream);
@@ -149,7 +158,7 @@ extern "C" int pstt_paged_ragged(int dtype, int cache_dtype, const void* q,
     return pstt::launch<T, C, D>(q, k, v, k_scale, v_scale, page_table,    \
                                  kv_lens, last_index, out, rows, width,    \
                                  num_q_heads, num_kv_heads, num_pages,     \
-                                 page_size, max_pages, s);
+                                 page_size, max_pages, offsets, s);
   PSTT_FOR_EACH_GEOMETRY(PSTT_RAGGED_CASE)
 #undef PSTT_RAGGED_CASE
   return cudaErrorInvalidValue;

@@ -3,10 +3,11 @@
 The same field names as the JAX engine's configuration, with torch
 dtypes in place of ``jnp`` ones. Only the fields of the port's slice
 are here: one llama-family model on one device, full-precision or
-int8 KV in per-layer pages, continuous batching with the async
-pipeline, the unified ragged step and prompt-lookup speculative
-decoding. Parallelism, offload, LoRA, QoS, autotuning and the KV
-economy join the port with the features that read them.
+int8 KV in per-layer or stacked pages, continuous batching with the
+async pipeline, decode bursts, the unified ragged step and
+prompt-lookup speculative decoding. Parallelism, offload, LoRA, QoS,
+autotuning and the KV economy join the port with the features that
+read them.
 """
 
 from __future__ import annotations
@@ -61,8 +62,16 @@ class CacheConfig:
     page_size: int = 16  # tokens per page
     num_pages: int = 1024  # total pages in device memory
     enable_prefix_caching: bool = True
-    # Only the per-layer layout is ported: a list of L
-    # [kv, pages, d, page_size] buffers, each updated in place.
+    # Device buffer layout (models/llama.py cached_attention):
+    #   auto      -> per_layer: the JAX engine's rule, under which only
+    #                pipeline/context-parallel configs resolve to
+    #                stacked, and the port has neither (resolved by the
+    #                runner).
+    #   stacked   -> one [L, kv, pages, d, page_size] buffer per k/v;
+    #                layer writes are in-place scatters through the
+    #                layer's view, and the kernels read the layer in
+    #                place.
+    #   per_layer -> a list of L [kv, pages, d, page_size] buffers.
     cache_layout: str = "auto"
     # KV page storage:
     #   auto / bf16 -> pages in the model's dtype (an f32 model keeps
@@ -75,11 +84,10 @@ class CacheConfig:
     kv_cache_dtype: str = "auto"
 
     def __post_init__(self):
-        if self.cache_layout not in ("auto", "per_layer"):
-            raise NotImplementedError(
-                "cache_layout must be 'auto' or 'per_layer' (the "
-                f"stacked layout is not ported; got "
-                f"{self.cache_layout!r})")
+        if self.cache_layout not in ("auto", "stacked", "per_layer"):
+            raise ValueError(
+                "cache.cache_layout must be 'auto', 'stacked' or "
+                f"'per_layer' (got {self.cache_layout!r})")
         if self.kv_cache_dtype not in ("auto", "bf16", "int8"):
             raise ValueError(
                 "cache.kv_cache_dtype must be 'auto', 'bf16' or 'int8' "
@@ -118,9 +126,15 @@ class SchedulerConfig:
     # Distinct sequences whose next chunks batch into one prefill
     # step (fixed row count; rows pad with the trash page).
     prefill_batch_size: int = 4
+    # Decode iterations chained in one dispatch (the sampled tokens
+    # feed back on the device; one host round trip per K tokens).
+    # 1 = off (as in JAX, values below 1 read as 1).
+    decode_steps: int = 1
     # Overlapped async pipeline: plan and dispatch decode step N+1 —
     # feeding step N's sampled tokens forward as a device tensor —
-    # before step N's results are read back to the host.
+    # before step N's results are read back to the host. Composes with
+    # decode_steps > 1: burst windows run synchronously between
+    # pipelined single-step stretches.
     async_scheduling: bool = False
     # Unified ragged step: plan prefill chunks INTO decode steps and
     # execute the mixed batch as one [rows, W] block.
@@ -130,8 +144,10 @@ class SchedulerConfig:
     # own n-gram history and verify all K + 1 positions in ONE ragged
     # step. 0 = off. Composes with async_scheduling (the ahead plan
     # assumes one committed token per row and drops the rows whose
-    # verify committed more) and with unified_step (drafts ride the
-    # mixed step's decode rows).
+    # verify committed more), with unified_step (drafts ride the
+    # mixed step's decode rows) and with decode_steps > 1 as a hybrid
+    # (steps whose drafts pay for the burst they displace verify; the
+    # rest run the burst).
     speculative_k: int = 0
     # Minimum n-gram length the proposer must match in the sequence's
     # history before drafting its continuation.

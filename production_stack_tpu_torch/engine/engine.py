@@ -8,7 +8,10 @@ pipeline: step N+1 is planned and queued on the card before step N's
 tokens are read back. With ``scheduler.speculative_k`` decode steps
 whose rows drafted become verify steps, which commit 1..K + 1 tokens a
 row; under the pipeline, the successor of a verify step assumes one
-token and its stale rows are dropped (``_complete``).
+token and its stale rows are dropped (``_complete``). With
+``scheduler.decode_steps`` K > 1 a pure decode step is a burst that
+commits up to K tokens a row through the same commit path; it runs
+synchronously, also under the pipeline.
 """
 
 from __future__ import annotations
@@ -305,6 +308,17 @@ class LLMEngine:
                 wait_s = self._execute_unified(plan, outputs)
             else:
                 wait_s = self._execute_prefill(plan, outputs)
+            self.metrics.on_pipeline_step(
+                host_s=(time.perf_counter() - t0) - wait_s,
+                device_wait_s=wait_s, ahead=False)
+            self._pop_finished(outputs)
+            return outputs
+        if plan.decode.drafts is None and plan.decode.window > 1:
+            # A burst already hides the host's work for window - 1 of
+            # its iterations, so it runs synchronously rather than
+            # through the depth-1 pipeline (stacking both would
+            # speculate a whole window ahead).
+            wait_s = self._execute_decode_sync(plan, outputs)
             self.metrics.on_pipeline_step(
                 host_s=(time.perf_counter() - t0) - wait_s,
                 device_wait_s=wait_s, ahead=False)

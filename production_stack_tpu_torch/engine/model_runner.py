@@ -1,10 +1,11 @@
 """Model runner: owns the device state and runs each step.
 
 The JAX engine's runner compiles a program per shape and donates the
-caches through it; here PyTorch runs eagerly and the per-layer KV
-buffers are updated in place. The shapes stay the JAX engine's closed
-sets — prefill chunks padded to power-of-two buckets, decode at a fixed
-slot width, unified [R, W] blocks on a row-bucket lattice — so the
+caches through it; here PyTorch runs eagerly and the KV buffers (a
+list of per-layer buffers, or one stacked buffer per k/v) are updated
+in place. The shapes stay the JAX engine's closed sets — prefill
+chunks padded to power-of-two buckets, decode at a fixed slot width,
+unified [R, W] blocks on a row-bucket lattice — so the
 kernels see the same shapes on both, and a later CUDA-graph capture
 has a small set to capture.
 
@@ -15,7 +16,9 @@ and speculative verify steps through the ragged kernel
 (models/llama.dispatch_attention). The JAX runner's lowering probes
 and impl ladders have no counterpart; its verify program attends
 through the prefill path, the port's through the ragged kernel, whose
-contract on live slots is the same.
+contract on live slots is the same. A decode burst (``decode_steps``
+> 1) is K chained decode iterations with the sampled tokens and each
+row's lifecycle kept on the device: one host read per K tokens.
 """
 
 from __future__ import annotations
@@ -31,13 +34,17 @@ from production_stack_tpu_torch.engine.scheduler import (
     PrefillPlan,
     StepPlan,
 )
-from production_stack_tpu_torch.engine.sequence import Sequence
+from production_stack_tpu_torch.engine.sequence import (
+    Sequence,
+    decode_budget,
+)
 from production_stack_tpu_torch.models.registry import get_model
 from production_stack_tpu_torch.ops.paged_kv_common import (
     check_kernel_shapes,
 )
 from production_stack_tpu_torch.ops.quant_kv import quant_cache_zeros
 from production_stack_tpu_torch.ops.sampling import (
+    burst_sample_step,
     sample_tokens,
     spec_verify,
 )
@@ -89,11 +96,13 @@ def unified_row_buckets(rows: int) -> List[int]:
 
 
 class DecodeStepHandle:
-    """One dispatched-but-unread single-step decode.
+    """One dispatched-but-unread decode: a single step, or a burst of
+    K iterations.
 
     The kernels are queued on the card's stream; ``token_source`` is
     the sampled-token CUDA tensor the NEXT step consumes without a
-    host round trip, and ``result()`` is the step's one ``.cpu()``.
+    host round trip (single steps only), and ``result()`` is the
+    step's one ``.cpu()``.
     """
 
     is_spec = False
@@ -104,6 +113,8 @@ class DecodeStepHandle:
         # whose sequence was already known to finish (dispatched as
         # masked pad rows so row alignment with token_source holds).
         self.rows = rows
+        # [B] for a single step; [B, K] for a burst, -1 where a row
+        # was frozen.
         self.sampled = sampled
         # Set on the assume-one-token successor of a verify step: per
         # row, the total_len that assumption predicts. The engine
@@ -118,7 +129,10 @@ class DecodeStepHandle:
 
     def result(self) -> List[List[int]]:
         host = self.sampled.cpu().tolist()
-        return [[host[i]] for i in range(len(self.rows))]
+        if self.sampled.dim() == 1:
+            return [[host[i]] for i in range(len(self.rows))]
+        return [[t for t in host[i] if t >= 0]
+                for i in range(len(self.rows))]
 
 
 class SpecStepHandle:
@@ -160,7 +174,11 @@ class ModelRunner:
         self.config = config
         self.device = resolve_device(device)
         model_config = config.model
-        config.cache.cache_layout = "per_layer"
+        if config.cache.cache_layout == "auto":
+            # The JAX engine's rule: stacked only for pipeline or
+            # context parallelism, which the port does not serve.
+            config.cache.cache_layout = "per_layer"
+        self.cache_layout = config.cache.cache_layout
         init_fn, self._forward = get_model(model_config)
         if params is None:
             logger.info("Initializing random weights for %s",
@@ -186,22 +204,26 @@ class ModelRunner:
                 config.cache.page_size, model_config.torch_dtype,
                 cache_dtype)
 
-        # One [kv_heads, pages, d, page_size] buffer per layer, k and v
-        # (a QuantKV of int8 pages and [kv_heads, pages, page_size]
-        # scales for int8): every write and kernel touches exactly one
-        # layer's buffer.
+        # per_layer: one [kv_heads, pages, d, page_size] buffer per
+        # layer, k and v; stacked: one [L, kv_heads, pages, d,
+        # page_size] buffer each, written and read in place at the
+        # layer index. For int8 each is a QuantKV of int8 pages and
+        # their [(L,) kv_heads, pages, page_size] scales.
+        layers = model_config.num_hidden_layers
         shape = (model_config.num_key_value_heads, config.cache.num_pages,
                  model_config.head_dim, config.cache.page_size)
 
-        def layer_cache():
+        def cache(shape):
             if self.kv_quantized:
                 return quant_cache_zeros(shape, self.device)
             return torch.zeros(shape, dtype=cache_dtype, device=self.device)
 
-        self.k_cache = [layer_cache()
-                        for _ in range(model_config.num_hidden_layers)]
-        self.v_cache = [layer_cache()
-                        for _ in range(model_config.num_hidden_layers)]
+        if self.cache_layout == "stacked":
+            self.k_cache = cache((layers,) + shape)
+            self.v_cache = cache((layers,) + shape)
+        else:
+            self.k_cache = [cache(shape) for _ in range(layers)]
+            self.v_cache = [cache(shape) for _ in range(layers)]
 
         self.max_pages_per_seq = config.scheduler.max_pages_per_seq(
             config.cache.page_size)
@@ -394,14 +416,17 @@ class ModelRunner:
     # ---- decode -------------------------------------------------------------
 
     def dispatch_decode(self, rows, token_source: Optional[torch.Tensor]
-                        = None, ahead: bool = False) -> DecodeStepHandle:
-        """Build and queue ONE single-step decode with no host read on
-        the path. ``rows``: the batch's sequences, None entries masked
-        pad rows (row alignment with ``token_source`` never shifts).
+                        = None, ahead: bool = False,
+                        window: int = 1) -> DecodeStepHandle:
+        """Build and queue ONE decode dispatch with no host read on the
+        path. ``rows``: the batch's sequences, None entries masked pad
+        rows (row alignment with ``token_source`` never shifts).
         ``token_source``: the previous step's [B] sampled-token device
         tensor, consumed without touching the host. ``ahead`` shifts
         positions/kv_lens by the one token the in-flight step will have
-        committed by the time these inputs are read."""
+        committed by the time these inputs are read. ``window`` > 1
+        queues a burst of that many chained iterations instead of one
+        step (never ahead: the engine runs bursts synchronously)."""
         b = self.decode_width
         rows = list(rows)[:b]
         off = 1 if ahead else 0
@@ -438,18 +463,86 @@ class ModelRunner:
             # Plan-ahead eligibility excludes seeded rows (their
             # emitted index would be one token stale).
             payload.update(self._seed_payload(rows, b))
+        if window > 1:
+            payload.update(self._burst_payload(rows, b))
+            with torch.inference_mode():
+                sampled = self._burst_impl(payload, window)
+            return DecodeStepHandle(rows, sampled)
         return DecodeStepHandle(rows,
                                 self.execute_payload(KIND_DECODE, payload))
+
+    def _burst_payload(self, rows, pad_to: int) -> dict:
+        """Per-row lifecycle inputs of a burst: each row's token budget
+        (``decode_budget``, the number the scheduler reserved pages
+        for) and its stop set, -1 padded (none for ignore_eos rows)."""
+        budgets = np.zeros((pad_to,), np.int32)
+        stops = [[] if seq is None or seq.sampling.ignore_eos
+                 else list(seq.sampling.stop_token_ids) for seq in rows]
+        stop_tokens = np.full((pad_to, max([1] + [len(x) for x in stops])),
+                              -1, np.int32)
+        for i, seq in enumerate(rows):
+            if seq is None:
+                continue
+            budgets[i] = decode_budget(seq,
+                                       self.config.scheduler.max_model_len)
+            stop_tokens[i, :len(stops[i])] = stops[i]
+        return {"budgets": budgets, "stop_tokens": stop_tokens}
+
+    def _burst_impl(self, payload: dict, window: int) -> torch.Tensor:
+        """``window`` chained decode iterations with no host sync between
+        them (the JAX runner's ``_decode_burst_impl`` with eager KV
+        writes). The carry (last tokens, positions, kv_lens, active,
+        emitted) stays on the device: each iteration writes the active
+        rows' KV (a frozen row's write goes to trash page 0), attends,
+        samples, and freezes rows at a stop token or their budget; a
+        frozen row's position and kv_len stop advancing and its slots
+        emit -1. A seeded row's emitted index at iteration k is its
+        host-known start plus k. Returns the [B, window] tokens."""
+        dev = self._to_device({k: payload[k] for k in (
+            "tokens", "positions", "page_table", "kv_lens", "valid",
+            "budgets", "stop_tokens")})
+        seeding, emitted_start = {}, None
+        if "seeds" in payload:
+            seeding = {"seeds": torch.from_numpy(payload["seeds"]),
+                       "seed_mask": torch.from_numpy(payload["seed_mask"])}
+            emitted_start = payload["emitted"]
+        tok = dev["tokens"][:, None]
+        pos, kv_lens = dev["positions"], dev["kv_lens"]
+        active = dev["valid"][:, 0]
+        emitted = torch.zeros_like(kv_lens)
+        out = []
+        for k in range(window):
+            logits = self._forward(
+                self.params, self.config.model, tok, pos,
+                dev["page_table"], kv_lens, active[:, None], self.k_cache,
+                self.v_cache, kind="decode")
+            if emitted_start is not None:
+                seeding["emitted_index"] = torch.from_numpy(
+                    emitted_start + k)
+            step_out, sampled, emitted, nxt = burst_sample_step(
+                logits[:, 0], active, emitted, dev["budgets"],
+                dev["stop_tokens"], *self._knobs(payload),
+                generator=self.generator, **seeding)
+            step = nxt.to(pos.dtype)
+            tok = torch.where(active, sampled.to(tok.dtype),
+                              tok[:, 0])[:, None]
+            pos = pos + step[:, None]
+            kv_lens = kv_lens + step
+            active = nxt
+            out.append(step_out)
+        return torch.stack(out, dim=1)
 
     def run_decode(self, plan: DecodePlan) -> List[List[int]]:
         """One synchronous decode (or, with drafts, verify) step over
         all running sequences: the async pipeline's dispatch path plus
         an immediate read, so sync and async greedy decoding share one
-        code path."""
+        code path. A plan window > 1 runs a burst: up to ``window``
+        tokens a row out of one dispatch and one read, fewer for a row
+        that stops or reaches its budget mid-burst."""
         if plan.drafts is not None:
             return self.dispatch_spec(plan).result()
-        return self.dispatch_decode(
-            plan.seqs[: self.decode_width]).result()
+        return self.dispatch_decode(plan.seqs[: self.decode_width],
+                                    window=plan.window).result()
 
     # ---- speculative verify -------------------------------------------------
 
@@ -571,21 +664,31 @@ class ModelRunner:
 
     # ---- page-granular IO ---------------------------------------------------
 
+    @staticmethod
+    def _layers(caches) -> list:
+        """The per-layer caches in either layout: the per_layer list
+        itself, or the views of a stacked cache's layers (what is
+        written through them lands in the stacked cache)."""
+        if isinstance(caches, list):
+            return caches
+        return [caches[layer] for layer in range(caches.shape[0])]
+
     def read_page(self, page_id: int) -> Tuple[np.ndarray, ...]:
         """Copy one page's KV out of device memory: [L, kv, d, page_size]
-        each (the JAX engine's wire shape), as f32 numpy (numpy has no
-        bf16; the conversion is exact). An int8 cache gives the JAX
-        engine's 4-tuple (k, v, k_scale, v_scale): int8 pages and f32
-        [L, kv, page_size] scales."""
+        each in either layout (the JAX engine's wire shape), as f32
+        numpy (numpy has no bf16; the conversion is exact). An int8
+        cache gives the JAX engine's 4-tuple (k, v, k_scale, v_scale):
+        int8 pages and f32 [L, kv, page_size] scales."""
+        k_layers, v_layers = self._layers(self.k_cache), self._layers(
+            self.v_cache)
         if self.kv_quantized:
             def leaf(caches, name):
                 return torch.stack([getattr(c, name)[:, page_id]
                                     for c in caches]).cpu().numpy()
-            return (leaf(self.k_cache, "data"), leaf(self.v_cache, "data"),
-                    leaf(self.k_cache, "scale"),
-                    leaf(self.v_cache, "scale"))
-        k = torch.stack([kc[:, page_id] for kc in self.k_cache])
-        v = torch.stack([vc[:, page_id] for vc in self.v_cache])
+            return (leaf(k_layers, "data"), leaf(v_layers, "data"),
+                    leaf(k_layers, "scale"), leaf(v_layers, "scale"))
+        k = torch.stack([kc[:, page_id] for kc in k_layers])
+        v = torch.stack([vc[:, page_id] for vc in v_layers])
         return k.float().cpu().numpy(), v.float().cpu().numpy()
 
     def write_page(self, page_id: int, k_page: np.ndarray,
@@ -594,13 +697,15 @@ class ModelRunner:
                    v_scale: Optional[np.ndarray] = None) -> None:
         """Restore one page's KV into device memory, in place: what
         ``read_page`` gave (for an int8 cache, with its scales)."""
+        k_layers, v_layers = self._layers(self.k_cache), self._layers(
+            self.v_cache)
         if self.kv_quantized:
             if k_scale is None or v_scale is None:
                 raise ValueError(
                     "a quantized cache's page restore needs "
                     "k_scale/v_scale")
-            for caches, page, scale in ((self.k_cache, k_page, k_scale),
-                                        (self.v_cache, v_page, v_scale)):
+            for caches, page, scale in ((k_layers, k_page, k_scale),
+                                        (v_layers, v_page, v_scale)):
                 data = torch.from_numpy(np.asarray(page, np.int8))
                 scales = torch.from_numpy(np.asarray(scale, np.float32))
                 for layer, cache in enumerate(caches):
@@ -609,7 +714,7 @@ class ModelRunner:
             return
         k = torch.from_numpy(np.asarray(k_page, np.float32))
         v = torch.from_numpy(np.asarray(v_page, np.float32))
-        for layer, (kc, vc) in enumerate(zip(self.k_cache, self.v_cache)):
+        for layer, (kc, vc) in enumerate(zip(k_layers, v_layers)):
             kc[:, page_id] = k[layer].to(kc.device, kc.dtype)
             vc[:, page_id] = v[layer].to(vc.device, vc.dtype)
 

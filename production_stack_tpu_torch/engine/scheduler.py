@@ -8,9 +8,10 @@ starves. With the unified step on, prefill chunks are admitted INTO
 decode steps instead (``_plan_mixed``), and ``plan_ahead`` plans
 decode step N+1 while step N is in flight (the async pipeline).
 
-Ported: the bimodal plans, the mixed plan, the plan-ahead and
-speculative drafts from the n-gram proposer (engine/spec.py), planned
-as verify steps or carried by the mixed step's decode rows. Not
+Ported: the bimodal plans, the mixed plan, the plan-ahead, decode
+bursts (a pure decode plan's ``window`` of ``decode_steps`` tokens a
+row) and speculative drafts from the n-gram proposer (engine/spec.py),
+planned as verify steps or carried by the mixed step's decode rows. Not
 ported yet: context-parallel whole-prompt prefill, offload
 restore/evict hooks and disaggregated handoffs.
 """
@@ -67,6 +68,10 @@ class PrefillPlan:
 @dataclass
 class DecodePlan:
     seqs: List[Sequence]
+    # Decode iterations of this dispatch (1 = single step). Decided
+    # here so the page reservation and the runner's burst agree on the
+    # same lookahead.
+    window: int = 1
     # Speculative verify step: per-row draft tokens parallel to
     # ``seqs`` ([] = a plain single-token row in the same block).
     # None = normal decode.
@@ -207,9 +212,11 @@ class Scheduler:
                 plan = self._plan_spec()
                 if plan is not None:
                     return StepPlan(decode=plan)
-            self._ensure_decode_capacity()
+            window = self._decode_window()
+            self._ensure_decode_capacity(window)
             if self.running:
-                return StepPlan(decode=DecodePlan(seqs=list(self.running)))
+                return StepPlan(decode=DecodePlan(
+                    seqs=list(self.running), window=window))
         return StepPlan()
 
     def _propose(self) -> Dict[str, List[int]]:
@@ -234,11 +241,11 @@ class Scheduler:
         if not drafts:
             return None
         # Hybrid profitability gate: a verify step displaces a decode
-        # window of `window` tokens a row; take it only when, at full
+        # burst of `window` tokens a row; take it only when, at full
         # acceptance, it emits at least as many tokens (each row emits
-        # accepted + 1). The port decodes one token a step (no decode
-        # bursts yet), so the window is 1 and the gate always passes.
-        window = 1
+        # accepted + 1), else defer: the drafts regrow from the same
+        # history on a later step. With decode_steps 1 it always passes.
+        window = self._decode_window()
         if (sum(len(d) for d in drafts.values()) + len(self.running)
                 < window * len(self.running)):
             return None
@@ -282,7 +289,8 @@ class Scheduler:
             plan_drafts = None
         if prefill is None and plan_drafts is None:
             # Nothing ragged about this step (prefill could not admit,
-            # no drafts): let the bimodal path plan it.
+            # no drafts): let the bimodal path plan it, which can take
+            # a decode burst.
             return None
         # Without prefill this is a verify step (the engine runs it as
         # one).
@@ -348,6 +356,13 @@ class Scheduler:
                 return None
         self._last_was_prefill = False
         return rows
+
+    def _decode_window(self) -> int:
+        """Tokens a pure decode dispatch may emit per row. The burst
+        evaluates each row's budget and stop set on the device
+        (model_runner._burst_impl), so the full window is always safe:
+        a row with fewer tokens left goes inactive mid-burst."""
+        return max(1, self.config.decode_steps)
 
     def _seq_budget(self, seq: Sequence) -> int:
         return decode_budget(seq, self.config.max_model_len)
@@ -438,13 +453,14 @@ class Scheduler:
             return 0
         return -(-(target_tokens - have) // self.page_size)
 
-    def _ensure_decode_capacity(self, per_seq: Optional[Dict[str, int]]
+    def _ensure_decode_capacity(self, lookahead: int = 1,
+                                per_seq: Optional[Dict[str, int]]
                                 = None) -> None:
-        """Every running sequence needs page slots for its next step:
-        one token, or with ``per_seq`` (speculative plans) 1 + its
-        draft length, capped by its remaining budget. Preempt the
-        lowest-priority, newest sequence when the cache cannot provide
-        them."""
+        """Every running sequence needs page slots for its next
+        dispatch: ``lookahead`` tokens (a burst's window), or with
+        ``per_seq`` (speculative plans) 1 + its draft length, capped by
+        its remaining budget. Preempt the lowest-priority, newest
+        sequence when the cache cannot provide them."""
         for seq in list(self.running):
             if seq.state != SequenceState.RUNNING:
                 # Preempted earlier in this very pass (we iterate a
@@ -452,7 +468,8 @@ class Scheduler:
                 # would leak them when prefill re-allocates from
                 # scratch.
                 continue
-            ahead = 1 if per_seq is None else per_seq.get(seq.seq_id, 1)
+            ahead = (lookahead if per_seq is None
+                     else per_seq.get(seq.seq_id, 1))
             ahead = max(1, min(ahead, self._seq_budget(seq)))
             needed = self._pages_needed(seq, seq.total_len + ahead)
             if needed == 0:

@@ -553,11 +553,12 @@ class EngineHTTPServer(ThreadingHTTPServer):
 def _resolve(flag: str, eligible: bool = True) -> bool:
     """--async-scheduling / --unified-step auto|on|off: 'auto' is on
     where the JAX engine's 'auto' turns the feature on, else off; an
-    explicit 'on' is honoured. The port serves one model on one device
-    with no decode bursts, so 'auto' turns the unified step on always
-    and the async pipeline on unless --speculative-k > 0 (the JAX
-    engine's async_scheduling_eligible: a verify step's commit count
-    is data-dependent)."""
+    explicit 'on' is honoured. The port serves one model on one device,
+    so 'auto' turns the unified step on always and the async pipeline
+    on for single-step decode without --speculative-k (the JAX
+    engine's async_scheduling_eligible: a burst already amortizes the
+    host round trip, and a verify step's commit count is
+    data-dependent)."""
     return flag == "on" or (flag == "auto" and eligible)
 
 
@@ -575,14 +576,17 @@ def build_engine_from_args(args) -> tuple:
         model=model_config,
         cache=CacheConfig(page_size=args.page_size,
                           num_pages=args.num_pages,
+                          cache_layout=args.cache_layout,
                           kv_cache_dtype=args.kv_cache_dtype),
         scheduler=SchedulerConfig(
             max_num_seqs=args.max_num_seqs,
             max_model_len=args.max_model_len,
             prefill_chunk_size=args.prefill_chunk_size,
             prefill_batch_size=args.prefill_batch_size,
-            async_scheduling=_resolve(args.async_scheduling,
-                                      eligible=args.speculative_k == 0),
+            decode_steps=args.decode_steps,
+            async_scheduling=_resolve(
+                args.async_scheduling,
+                eligible=args.decode_steps <= 1 and args.speculative_k == 0),
             unified_step=_resolve(args.unified_step),
             speculative_k=args.speculative_k,
             speculative_min_match=args.speculative_min_match,
@@ -617,10 +621,21 @@ def parse_args(argv=None):
                         "per slot) and spends the same device bytes on "
                         "about 1.9x the pages; on the card it needs a "
                         "page size that is a multiple of 16")
+    p.add_argument("--cache-layout", default="auto",
+                   choices=["auto", "stacked", "per_layer"],
+                   help="KV cache device layout: one stacked [L, ...] "
+                        "buffer per k/v, a list of per-layer buffers, or "
+                        "auto (per_layer: the JAX engine's rule, which "
+                        "picks stacked only under pipeline or context "
+                        "parallelism)")
     p.add_argument("--max-num-seqs", type=int, default=8)
     p.add_argument("--max-model-len", type=int, default=2048)
     p.add_argument("--prefill-chunk-size", type=int, default=512)
     p.add_argument("--prefill-batch-size", type=int, default=4)
+    p.add_argument("--decode-steps", type=int, default=1,
+                   help="decode iterations chained in one dispatch (K "
+                        "tokens per host round trip); async 'auto' then "
+                        "resolves off")
     p.add_argument("--max-queue-len", type=int, default=1024)
     p.add_argument("--async-scheduling", default="auto",
                    choices=["auto", "on", "off"])
@@ -649,11 +664,11 @@ def main(argv=None) -> None:
     server = make_server(argv)
     host, port = server.server_address[:2]
     cache = server.app.engine.config.cache
-    logger.info("Serving %s on http://%s:%d (device %s, KV cache %s, "
+    logger.info("Serving %s on http://%s:%d (device %s, KV cache %s %s, "
                 "%d pages of %d tokens)", server.app.model_name, host,
                 port, server.app.engine.runner.device,
-                cache.resolved_kv_dtype(), cache.num_pages,
-                cache.page_size)
+                cache.resolved_kv_dtype(), cache.cache_layout,
+                cache.num_pages, cache.page_size)
     try:
         server.serve()
     except KeyboardInterrupt:

@@ -4,15 +4,16 @@ Weights are an ``nn.Module`` (``LlamaParams``) of per-layer
 ``nn.Linear``s, with q/k/v and gate/up fused into one projection each;
 ``forward`` is a plain function over them, the counterpart of the JAX
 package's ``llama.forward``. Attention reads and writes the paged KV
-cache, one [kv, pages, d, page] buffer per layer (or, for an int8
-cache, one ``QuantKV`` of int8 pages and their per-slot scales), which
-``forward`` updates IN PLACE (the JAX version threads updated copies
-through).
+cache in either layout: a list of L [kv, pages, d, page] buffers
+(per_layer) or one stacked [L, kv, pages, d, page] buffer (stacked),
+each, for an int8 cache, a ``QuantKV`` of int8 pages and their
+per-slot scales. ``forward`` updates it IN PLACE (the JAX version
+threads updated copies through).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Optional
 
 import torch
 from torch import nn
@@ -80,8 +81,10 @@ class LlamaParams(nn.Module):
 
 def dispatch_attention(config: ModelConfig, q, k_cache, v_cache,
                        page_table, positions, kv_lens, kind: str,
-                       impl: Optional[str] = None) -> torch.Tensor:
-    """Attention over one layer's paged cache for the step ``kind``:
+                       impl: Optional[str] = None,
+                       layer: Optional[int] = None) -> torch.Tensor:
+    """Attention over one layer's paged cache (a per-layer buffer, or
+    the stacked cache at ``layer``) for the step ``kind``:
     "decode" (T == 1) through the decode kernel, "prefill" chunks
     through the chunked-prefill kernel, "ragged" blocks (unified mixed
     steps and speculative verify steps) through the ragged kernel.
@@ -104,35 +107,43 @@ def dispatch_attention(config: ModelConfig, q, k_cache, v_cache,
     cuda = impl == "cuda"
     if kind == "decode":
         fn = paged_decode_attention if cuda else paged_decode_attention_plain
-        return fn(q[:, 0], k_cache, v_cache, page_table, kv_lens)[:, None]
+        return fn(q[:, 0], k_cache, v_cache, page_table, kv_lens,
+                  layer=layer)[:, None]
     if kind == "prefill":
         fn = (paged_prefill_attention if cuda
               else paged_prefill_attention_plain)
-        return fn(q, k_cache, v_cache, page_table, positions, kv_lens)
+        return fn(q, k_cache, v_cache, page_table, positions, kv_lens,
+                  layer=layer)
     if kind == "ragged":
         fn = paged_ragged_attention if cuda else paged_ragged_attention_plain
         last_index = (kv_lens - 1 - positions[:, 0]).to(torch.int32)
-        return fn(q, k_cache, v_cache, page_table, kv_lens, last_index)
+        return fn(q, k_cache, v_cache, page_table, kv_lens, last_index,
+                  layer=layer)
     raise ValueError(f"step kind must be one of {STEP_KINDS} "
                      f"(got {kind!r})")
 
 
-def cached_attention(config: ModelConfig, q, k, v,
-                     k_cache: List[torch.Tensor],
-                     v_cache: List[torch.Tensor], page_table, positions,
-                     kv_lens, slots, layer: int, kind: str,
-                     impl: Optional[str] = None) -> torch.Tensor:
-    """Write one layer's K/V into its cache buffer (in place) and
-    attend. ``slots`` is the step's (pages, offsets) from
+def cached_attention(config: ModelConfig, q, k, v, k_cache, v_cache,
+                     page_table, positions, kv_lens, slots, layer: int,
+                     kind: str, impl: Optional[str] = None) -> torch.Tensor:
+    """Write one layer's K/V into the cache (in place) and attend.
+
+    ``k_cache``/``v_cache`` are the per_layer lists (the layer's own
+    buffer is written and read) or the stacked caches (written at
+    ``layer`` in place, and read there by the kernels, which take the
+    layer index). ``slots`` is the step's (pages, offsets) from
     ``ops.attention.page_slots``, shared by every layer. A QuantKV
-    layer cache is written through the quantizing path
-    (``write_slots`` quantizes each slot's row with its own scale), and
-    the kernels dequantize on read."""
-    kc, vc = k_cache[layer], v_cache[layer]
-    write_slots(kc, k, *slots)
-    write_slots(vc, v, *slots)
+    cache is written through the quantizing path (``write_slots``
+    quantizes each slot's row with its own scale), and the kernels
+    dequantize on read."""
+    if isinstance(k_cache, (list, tuple)):
+        kc, vc, at = k_cache[layer], v_cache[layer], None
+    else:
+        kc, vc, at = k_cache, v_cache, layer
+    write_slots(kc, k, *slots, layer=at)
+    write_slots(vc, v, *slots, layer=at)
     return dispatch_attention(config, q, kc, vc, page_table, positions,
-                              kv_lens, kind, impl=impl)
+                              kv_lens, kind, impl=impl, layer=at)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -162,8 +173,7 @@ def init_params(config: ModelConfig, generator: torch.Generator,
 def forward(params: LlamaParams, config: ModelConfig,
             tokens: torch.Tensor, positions: torch.Tensor,
             page_table: torch.Tensor, kv_lens: torch.Tensor,
-            valid: torch.Tensor, k_cache: List[torch.Tensor],
-            v_cache: List[torch.Tensor], *, kind: str,
+            valid: torch.Tensor, k_cache, v_cache, *, kind: str,
             impl: Optional[str] = None,
             select: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One model invocation over a (possibly padded) token block.
@@ -175,7 +185,9 @@ def forward(params: LlamaParams, config: ModelConfig,
       kv_lens:    [B] int32 valid cached tokens AFTER this block is written
       valid:      [B, T] mask of real (non-padding) tokens
       k_cache/v_cache: L-lists of [kv_heads, num_pages, head_dim,
-                  page_size] buffers (or QuantKVs), written IN PLACE
+                  page_size] buffers, or stacked [L, kv_heads, ...]
+                  buffers (either as QuantKVs for int8), written IN
+                  PLACE
       kind:       the step kind, "decode", "prefill" or "ragged" (see
                   dispatch_attention)
       impl:       attention impl (see dispatch_attention)

@@ -2,7 +2,9 @@
 reference.
 
 Cache layout (shared with the CUDA kernels): one
-[kv_heads, num_pages, head_dim, page_size] buffer per layer, kv-head
+[kv_heads, num_pages, head_dim, page_size] buffer per layer, or one
+stacked [L, kv_heads, num_pages, head_dim, page_size] buffer whose
+writers and readers take the layer index (``cache_layout``), kv-head
 axis major and each page stored token-minor, so a page is one
 contiguous block. Page 0 is the engine's trash page: the allocator
 never hands it out, and padded slots write there instead of needing
@@ -18,10 +20,13 @@ counterpart of the JAX package's XLA path.
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
+from production_stack_tpu_torch.ops.paged_kv_common import (
+    validate_layer_arg,
+)
 from production_stack_tpu_torch.ops.quant_kv import QuantKV, quantize_kv
 
 NEG_INF = -1e30
@@ -50,17 +55,23 @@ def page_slots(page_table: torch.Tensor, positions: torch.Tensor,
 
 
 def write_slots(cache: Cache, new_kv: torch.Tensor,
-                pages: torch.Tensor, offsets: torch.Tensor) -> None:
+                pages: torch.Tensor, offsets: torch.Tensor,
+                layer: Optional[int] = None) -> None:
     """Scatter [B, T, kv, d] entries into their (page, offset) slots IN
     PLACE (the JAX version returns an updated copy). A QuantKV cache
     takes each (token, kv head) row quantized, its int8 values into
     the data leaf and its scale into the same slot of the scale leaf.
+    A stacked cache takes ``layer`` and is written through its
+    ``[layer]`` view: an out-of-place update of the stacked array would
+    copy every layer on every layer's write.
 
     Several padded slots may land on trash page 0 in one call; which
     of them wins is not deterministic on the card, for data and scale
     alike, and that is harmless because page 0 is never attended
     unmasked.
     """
+    if validate_layer_arg(cache, layer):
+        cache = cache[layer]
     if isinstance(cache, QuantKV):
         q8, scale = quantize_kv(new_kv)  # [B, T, kv, d] / [B, T, kv]
         cache.data[:, pages, :, offsets] = q8.reshape(-1, *q8.shape[2:])
@@ -77,40 +88,43 @@ def write_slots(cache: Cache, new_kv: torch.Tensor,
 
 def write_to_pages(cache: Cache, new_kv: torch.Tensor,
                    page_table: torch.Tensor, positions: torch.Tensor,
-                   valid: torch.Tensor) -> Cache:
+                   valid: torch.Tensor,
+                   layer: Optional[int] = None) -> Cache:
     """Scatter new KV entries into their pages, in place (quantized on
     write for a QuantKV cache).
 
     Args:
-      cache:       [kv_heads, num_pages, head_dim, page_size], or a
-                   QuantKV of that layout
+      cache:       [kv_heads, num_pages, head_dim, page_size], or the
+                   stacked [L, ...] cache when ``layer`` is given, or a
+                   QuantKV of either layout
       new_kv:      [B, T, kv_heads, head_dim]
       page_table:  [B, max_pages] int32 physical page ids
       positions:   [B, T] absolute token positions
       valid:       [B, T] bool; False entries are redirected to page 0
 
-    Returns ``cache`` (updated in place).
+    Returns ``cache`` (updated in place). Raises ValueError when the
+    cache's rank and ``layer`` disagree.
     """
-    if cache.dim() != 4:
-        raise NotImplementedError(
-            "write_to_pages takes one layer's [kv, pages, d, page] "
-            f"cache (the stacked form is not ported; got {cache.dim()}-D)")
+    validate_layer_arg(cache, layer)
     pages, offsets = page_slots(page_table, positions, valid,
                                 cache.shape[-1])
-    write_slots(cache, new_kv, pages, offsets)
+    write_slots(cache, new_kv, pages, offsets, layer)
     return cache
 
 
 def paged_attention(q: torch.Tensor, k_cache_layer: Cache,
                     v_cache_layer: Cache, page_table: torch.Tensor,
                     q_positions: torch.Tensor,
-                    kv_lens: torch.Tensor) -> torch.Tensor:
+                    kv_lens: torch.Tensor,
+                    layer: Optional[int] = None) -> torch.Tensor:
     """Causal attention of q against a sequence's cached pages.
 
     Args:
       q:           [B, T, num_q_heads, head_dim]
       k/v_cache_layer: [num_kv_heads, num_pages, head_dim, page_size],
-                   or QuantKVs of that layout
+                   or the stacked [L, ...] cache when ``layer`` is
+                   given (read through its ``[layer]`` view), or
+                   QuantKVs of either layout
       page_table:  [B, max_pages]
       q_positions: [B, T] absolute positions of the queries
       kv_lens:     [B] number of valid cached tokens
@@ -122,6 +136,9 @@ def paged_attention(q: torch.Tensor, k_cache_layer: Cache,
 
     Returns [B, T, num_q_heads, head_dim].
     """
+    if validate_layer_arg(k_cache_layer, layer):
+        k_cache_layer = k_cache_layer[layer]
+        v_cache_layer = v_cache_layer[layer]
     b, t, num_q_heads, head_dim = q.shape
     num_kv_heads = k_cache_layer.shape[0]
     group = num_q_heads // num_kv_heads

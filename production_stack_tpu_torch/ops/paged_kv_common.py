@@ -165,15 +165,18 @@ def kernel_lib() -> ctypes.CDLL:
     with _LIB_LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build_kernels()))
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            # Every launch ends with (layer, layer stride of the data,
+            # layer stride of the scales, stream): see layer_args.
+            layer = [i32, i64, i64, ptr]
             lib.pstt_paged_decode.argtypes = (
-                [i32] * 2 + [ptr] * 8 + [i32] * 7 + [ptr])
+                [i32] * 2 + [ptr] * 8 + [i32] * 7 + layer)
             lib.pstt_paged_decode.restype = i32
             lib.pstt_paged_prefill.argtypes = (
-                [i32] * 2 + [ptr] * 9 + [i32] * 8 + [ptr])
+                [i32] * 2 + [ptr] * 9 + [i32] * 8 + layer)
             lib.pstt_paged_prefill.restype = i32
             lib.pstt_paged_ragged.argtypes = (
-                [i32] * 2 + [ptr] * 10 + [i32] * 8 + [ptr])
+                [i32] * 2 + [ptr] * 10 + [i32] * 8 + layer)
             lib.pstt_paged_ragged.restype = i32
             lib.pstt_kernel_supports.argtypes = [i32] * 4
             lib.pstt_kernel_supports.restype = i32
@@ -193,11 +196,27 @@ def check_launch(name: str, err: int) -> None:
 # ---- operand checks -------------------------------------------------------
 
 
-def check_cache(k_cache, v_cache) -> None:
+def validate_layer_arg(cache, layer) -> bool:
+    """The stacked-cache/layer-index contract of every paged writer and
+    reader: a stacked [L, kv, pages, d, page] cache comes WITH its
+    layer index, a per-layer [kv, pages, d, page] cache without. Returns
+    whether the cache is stacked."""
+    stacked = cache.dim() == 5
+    if stacked != (layer is not None):
+        raise ValueError(
+            "layer index and cache rank must agree: pass a stacked "
+            "[L, ...] cache WITH layer, or a per-layer [kv, ...] "
+            f"cache WITHOUT (got ndim={cache.dim()}, layer={layer!r})")
+    return stacked
+
+
+def check_cache(k_cache, v_cache, layer: Optional[int] = None) -> None:
     """Reject the cache forms the wrappers do not take: a bare int8
-    tensor (its scales are missing), a stacked cache (not ported yet)
-    and anything not shaped [kv, pages, d, page]. An int8 cache is a
-    QuantKV whose scales are f32 [kv, pages, page]."""
+    tensor (its scales are missing), a rank that disagrees with
+    ``layer``, a layer index outside the stack, and anything not shaped
+    [kv, pages, d, page] (per layer) or [L, kv, pages, d, page]
+    (stacked). An int8 cache is a QuantKV whose scales are f32
+    [(L,) kv, pages, page]."""
     if isinstance(k_cache, QuantKV) != isinstance(v_cache, QuantKV):
         raise ValueError("k_cache and v_cache must both be QuantKV or "
                          "both be full precision")
@@ -210,24 +229,36 @@ def check_cache(k_cache, v_cache) -> None:
             raise ValueError(
                 "an int8 KV cache needs its scales: pass a QuantKV "
                 "(data and scale), not the bare int8 pages")
-        if data.dim() == 5:
-            raise NotImplementedError(
-                "the stacked [L, kv, pages, d, page] cache form "
-                "(pipeline/context parallelism) is not ported yet")
-        if data.dim() != 4:
+        if data.dim() not in (4, 5):
             raise ValueError(
-                "expected a [kv, pages, d, page] cache, got shape "
+                "expected a [kv, pages, d, page] cache or a stacked "
+                f"[L, kv, pages, d, page] one, got shape "
                 f"{tuple(data.shape)}")
+        if validate_layer_arg(data, layer) and not (
+                isinstance(layer, int) and 0 <= layer < data.shape[0]):
+            raise ValueError(f"layer {layer!r} outside the stacked "
+                             f"cache's {data.shape[0]} layers")
         if quantized:
-            kv, pages, _, page_size = data.shape
+            lead = tuple(data.shape[:-2])
             if data.dtype != torch.int8:
                 raise ValueError("a QuantKV's data must be int8")
             if (cache.scale.dtype != torch.float32
-                    or tuple(cache.scale.shape) != (kv, pages, page_size)):
+                    or tuple(cache.scale.shape) != lead + data.shape[-1:]):
                 raise ValueError(
-                    "a QuantKV's scales must be f32 [kv, pages, page] = "
-                    f"{(kv, pages, page_size)}, got "
+                    "a QuantKV's scales must be f32 [(L,) kv, pages, "
+                    f"page] = {lead + data.shape[-1:]}, got "
                     f"{cache.scale.dtype} {tuple(cache.scale.shape)}")
+
+
+def layer_args(k_data: torch.Tensor, k_scale: Optional[torch.Tensor],
+               layer: Optional[int]) -> Tuple[int, int, int]:
+    """The launch's (layer, layer stride of the data, layer stride of
+    the scales), in elements: the kernels read a stacked cache in place
+    at ``layer``; the per-layer form is layer 0 with strides 0."""
+    if layer is None:
+        return 0, 0, 0
+    return (layer, k_data.stride(0),
+            0 if k_scale is None else k_scale.stride(0))
 
 
 def split_cache(k_cache, v_cache) -> Tuple[torch.Tensor, torch.Tensor,
@@ -244,8 +275,8 @@ def check_kernel_operands(q, k_cache, v_cache, int_operands, out,
                           k_scale=None, v_scale=None) -> None:
     """Device, dtype, shape and contiguity checks before a launch;
     raises on anything the kernels do not take. ``k_cache``/``v_cache``
-    are the caches' data: q's dtype, or int8 with f32 ``k_scale`` /
-    ``v_scale`` beside them."""
+    are the caches' data, per layer or stacked: q's dtype, or int8 with
+    f32 ``k_scale`` / ``v_scale`` beside them."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError("kernel operands must be CUDA tensors")
@@ -271,7 +302,7 @@ def check_kernel_operands(q, k_cache, v_cache, int_operands, out,
                         int_operands):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    num_kv_heads, _, head_dim, page_size = k_cache.shape
+    num_kv_heads, _, head_dim, page_size = k_cache.shape[-4:]
     if q.shape[-1] != head_dim:
         raise ValueError("q head_dim does not match the cache")
     check_kernel_shapes(q.shape[-2], num_kv_heads, head_dim, page_size,
@@ -326,10 +357,12 @@ def data_ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def counter_name(kernel: str, k_scale: Optional[torch.Tensor]) -> str:
-    """A kernel's launch-counter name: int8 launches count apart
-    (``<kernel>_int8``), so a run shows which form ran."""
-    return kernel if k_scale is None else kernel + "_int8"
+def counter_name(kernel: str, k_scale: Optional[torch.Tensor],
+                 layer: Optional[int] = None) -> str:
+    """A kernel's launch-counter name: each form counts apart
+    (``<kernel>[_int8][_stacked]``), so a run shows which forms ran."""
+    return (kernel + ("" if k_scale is None else "_int8")
+            + ("" if layer is None else "_stacked"))
 
 
 def stream_ptr() -> int:
@@ -344,18 +377,21 @@ def page_walk_plain(q_rows: torch.Tensor, k_cache: torch.Tensor,
                     kv_lens: torch.Tensor,
                     mask_fn: Callable[[torch.Tensor], torch.Tensor],
                     k_scale: Optional[torch.Tensor] = None,
-                    v_scale: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    v_scale: Optional[torch.Tensor] = None,
+                    layer: Optional[int] = None) -> torch.Tensor:
     """The kernels' page walk in torch.
 
     Args:
       q_rows:  [B, KV, R, D] query rows of each (row, kv head) block
-      k/v_cache: [KV, pages, D, page_size] (int8 with scales)
+      k/v_cache: [KV, pages, D, page_size] (int8 with scales), or the
+               stacked [L, KV, pages, D, page_size] cache with ``layer``
       page_table: [B, max_pages]; kv_lens: [B]
       mask_fn: token positions [C] -> validity mask broadcastable to
                [B, KV, R, C] (the counterpart of the kernels' mask
                functor)
-      k/v_scale: an int8 cache's f32 [KV, pages, page_size] scales
+      k/v_scale: an int8 cache's f32 [(L,) KV, pages, page_size] scales
+      layer:   the layer a stacked cache is read at, as a view: the walk
+               is then the per-layer walk over ``k_cache[layer]``
 
     Walks ceil(kv_len / 128) chunks per row: pages of a chunk past
     ceil(kv_len / page_size) read as zeros, scores outside the mask
@@ -365,6 +401,10 @@ def page_walk_plain(q_rows: torch.Tensor, k_cache: torch.Tensor,
     probabilities, and p * v_scale[token] enters p . v. Returns
     acc / max(l, 1e-30) in f32 — exact 0 for a row with kv_len 0.
     """
+    if layer is not None:
+        k_cache, v_cache = k_cache[layer], v_cache[layer]
+        if k_scale is not None:
+            k_scale, v_scale = k_scale[layer], v_scale[layer]
     b, kvh, rows, d = q_rows.shape
     page_size = k_cache.shape[-1]
     pages_per_chunk = max(1, CHUNK_TOKENS // page_size)

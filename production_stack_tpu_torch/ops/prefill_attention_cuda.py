@@ -22,14 +22,18 @@ An int8 cache (a QuantKV) stages as int8 pages and their per-slot
 scales, which fold into the scores and the probabilities as in the
 Pallas kernel; the arithmetic is unchanged.
 
-Contract (the Pallas kernel's): q [B, T, num_q_heads, head_dim];
-q_positions [B, T] int32 contiguous per row — only the row start
-``q_positions[:, 0]`` reaches the kernel, which rebuilds query t's
-position as start + t (pad slots included); mask ``token_pos <= q_pos
-& token_pos < kv_len``; a row with kv_len 0 writes exact 0.
+Contract (the Pallas kernel's): q [B, T, num_q_heads, head_dim]; the
+per-layer or, with ``layer``, the stacked cache, as the decode kernel
+takes them (ops/paged_attention_cuda.py); q_positions [B, T] int32
+contiguous per row — only the row start ``q_positions[:, 0]`` reaches
+the kernel, which rebuilds query t's position as start + t (pad slots
+included); mask ``token_pos <= q_pos & token_pos < kv_len``; a row
+with kv_len 0 writes exact 0.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -43,6 +47,7 @@ from production_stack_tpu_torch.ops.paged_kv_common import (
     data_ptr,
     dtype_code,
     kernel_lib,
+    layer_args,
     page_walk_plain,
     split_cache,
     stream_ptr,
@@ -55,21 +60,22 @@ def paged_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
                             v_cache: torch.Tensor,
                             page_table: torch.Tensor,
                             q_positions: torch.Tensor,
-                            kv_lens: torch.Tensor) -> torch.Tensor:
+                            kv_lens: torch.Tensor,
+                            layer: Optional[int] = None) -> torch.Tensor:
     """Chunked-prefill attention against a sequence's cached pages.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (its int8 form for a QuantKV cache) or raise. Raises
-    NotImplementedError on the stacked cache form, which is not ported
-    yet, and ValueError on bare int8 pages without their scales.
+    (its int8 form for a QuantKV cache, its stacked form with
+    ``layer``) or raise. Raises ValueError on bare int8 pages without
+    their scales and on a cache rank that disagrees with ``layer``.
     """
-    check_cache(k_cache, v_cache)
+    check_cache(k_cache, v_cache, layer)
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(
-            q, k_cache, v_cache, page_table, q_positions, kv_lens)
+            q, k_cache, v_cache, page_table, q_positions, kv_lens, layer)
     kc, vc, ks, vs = split_cache(k_cache, v_cache)
     b, t, num_q_heads, head_dim = q.shape
-    num_kv_heads, num_pages, _, page_size = kc.shape
+    num_kv_heads, num_pages, _, page_size = kc.shape[-4:]
     out = torch.empty_like(q)
     check_kernel_operands(
         q, kc, vc,
@@ -79,14 +85,14 @@ def paged_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,
             or q_positions.shape != (b, t)):
         raise ValueError("page_table/q_positions/kv_lens rows must "
                          "match the batch")
-    name = counter_name(KERNEL_NAME, ks)
+    name = counter_name(KERNEL_NAME, ks, layer)
     err = kernel_lib().pstt_paged_prefill(
         dtype_code(q.dtype), cache_code(kc.dtype), q.data_ptr(),
         kc.data_ptr(), vc.data_ptr(), data_ptr(ks), data_ptr(vs),
         page_table.data_ptr(), q_positions.data_ptr(),
         kv_lens.data_ptr(), out.data_ptr(), b, t, num_q_heads,
         num_kv_heads, head_dim, num_pages, page_size,
-        page_table.shape[1], stream_ptr())
+        page_table.shape[1], *layer_args(kc, ks, layer), stream_ptr())
     check_launch(name, err)
     COUNTERS.launched(name)
     return out
@@ -96,17 +102,19 @@ def paged_prefill_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                                   v_cache: torch.Tensor,
                                   page_table: torch.Tensor,
                                   q_positions: torch.Tensor,
-                                  kv_lens: torch.Tensor) -> torch.Tensor:
+                                  kv_lens: torch.Tensor,
+                                  layer: Optional[int] = None
+                                  ) -> torch.Tensor:
     """The kernel's function in plain torch: the same chunked page walk,
     query positions rebuilt as ``q_positions[:, 0] + t``, the causal
     mask, the online softmax and, for a QuantKV cache, the same fold of
-    its scales."""
-    check_cache(k_cache, v_cache)
+    its scales; a stacked cache is walked at ``layer``."""
+    check_cache(k_cache, v_cache, layer)
     kc, vc, ks, vs = split_cache(k_cache, v_cache)
     if q.is_cuda:
-        COUNTERS.plain_on_cuda(counter_name(KERNEL_NAME, ks))
+        COUNTERS.plain_on_cuda(counter_name(KERNEL_NAME, ks, layer))
     b, t, num_q_heads, head_dim = q.shape
-    num_kv_heads = kc.shape[0]
+    num_kv_heads = kc.shape[-4]
     group = num_q_heads // num_kv_heads
     # Rows of one kv head's block are (g, t) flattened g-major, as in
     # the kernel: row r is query head g = r // T at chunk offset r % T.
@@ -118,7 +126,8 @@ def paged_prefill_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
              + (rows % t)[None, :])[:, None, :, None]  # [B, 1, R, 1]
     kv = kv_lens.long()[:, None, None, None]
     out = page_walk_plain(qg, kc, vc, page_table, kv_lens,
-                          lambda pos: (pos <= q_pos) & (pos < kv), ks, vs)
+                          lambda pos: (pos <= q_pos) & (pos < kv), ks, vs,
+                          layer)
     return (out.reshape(b, num_kv_heads, group, t, head_dim)
             .permute(0, 3, 1, 2, 4)
             .reshape(b, t, num_q_heads, head_dim).to(q.dtype))

@@ -2,21 +2,24 @@
 
 The port's copy of the JAX package's ``ops/quant_kv.py``. The ``data``
 leaf keeps the page layout of a full-precision cache, one
-``[kv_heads, num_pages, head_dim, page_size]`` buffer per layer, stored
-as int8. The ``scale`` leaf drops the head_dim axis: one f32 symmetric
-scale per (kv head, page, page slot), ``[kv_heads, num_pages,
-page_size]``. Per-slot scales make every incremental write exact: a
-decode commit, a draft written early for a verify step or a pad slot
-sent to trash page 0 writes only its own slot and that slot's scale,
-and never rescales a neighbour.
+``[kv_heads, num_pages, head_dim, page_size]`` buffer per layer or one
+stacked ``[L, ...]`` buffer, stored as int8. The ``scale`` leaf drops
+the head_dim axis: one f32 symmetric scale per (layer, kv head, page,
+page slot), ``[(L,) kv_heads, num_pages, page_size]``. Per-slot
+scales make every incremental write exact: a decode commit, a draft
+written early for a verify step or a pad slot sent to trash page 0
+writes only its own slot and that slot's scale, and never rescales a
+neighbour.
 
-``QuantKV`` is not a tuple: the cache lists hold one per layer, and
-the container reads as one array-like object. ``shape``, ``dim()`` and
-``dtype`` are the data leaf's, so rank checks and ``shape[-1]`` (the
-page size) work unchanged, and ``__getitem__`` applies the same index
-to both leaves. That is valid for every index the engine uses
-(``[:, page_table]``, ``[:, page_id]``), all of which touch only the
-leading ``[kv, pages]`` axes the two leaves share.
+``QuantKV`` is not a tuple: the per_layer cache lists hold one per
+layer, and the container reads as one array-like object. ``shape``,
+``dim()`` and ``dtype`` are the data leaf's, so rank checks and
+``shape[-1]`` (the page size) work unchanged, and ``__getitem__``
+applies the same index to both leaves. That is valid for every index the engine uses
+(``[layer]``, ``[:, page_table]``, ``[:, page_id]``, ``[:, :,
+page_id]``), all of which touch only the leading ``[L?, kv, pages]``
+axes the two leaves share; ``[layer]`` of a stacked cache is a view of
+both leaves (the same storage, no copy).
 """
 
 from __future__ import annotations

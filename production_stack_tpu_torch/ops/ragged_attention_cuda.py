@@ -23,13 +23,15 @@ CUDA cores, as in the other two kernels. An int8 cache (a QuantKV)
 stages as int8 pages and their per-slot scales, folded in as in the
 Pallas kernel.
 
-Contract (the Pallas kernel's): q [R, W, num_q_heads, head_dim];
-page_table [R, max_pages], kv_lens / last_index / draft_lens [R]
-int32. Slot t of row r is live when t <= last_index[r] and sits at
-q_start + t with q_start = kv_len - 1 - last_index; it attends
-``token_pos <= q_start + t & token_pos < kv_len``. Dead slots and pad
-rows (kv_len 0) write exact 0. ``draft_lens`` is taken and not read:
-a verify row's draft span masks itself causally.
+Contract (the Pallas kernel's): q [R, W, num_q_heads, head_dim]; the
+per-layer or, with ``layer``, the stacked cache, as the decode kernel
+takes them (ops/paged_attention_cuda.py); page_table [R, max_pages],
+kv_lens / last_index / draft_lens [R] int32. Slot t of row r is live
+when t <= last_index[r] and sits at q_start + t with q_start = kv_len
+- 1 - last_index; it attends ``token_pos <= q_start + t & token_pos <
+kv_len``. Dead slots and pad rows (kv_len 0) write exact 0.
+``draft_lens`` is taken and not read: a verify row's draft span masks
+itself causally.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from production_stack_tpu_torch.ops.paged_kv_common import (
     data_ptr,
     dtype_code,
     kernel_lib,
+    layer_args,
     page_walk_plain,
     split_cache,
     stream_ptr,
@@ -61,23 +64,23 @@ def paged_ragged_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            page_table: torch.Tensor,
                            kv_lens: torch.Tensor,
                            last_index: torch.Tensor,
-                           draft_lens: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           draft_lens: Optional[torch.Tensor] = None,
+                           layer: Optional[int] = None) -> torch.Tensor:
     """Fused ragged attention over a unified [R, W] block.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (its int8 form for a QuantKV cache) or raise. Raises
-    NotImplementedError on the stacked cache form, which is not ported
-    yet, and ValueError on bare int8 pages without their scales.
+    (its int8 form for a QuantKV cache, its stacked form with
+    ``layer``) or raise. Raises ValueError on bare int8 pages without
+    their scales and on a cache rank that disagrees with ``layer``.
     """
-    check_cache(k_cache, v_cache)
+    check_cache(k_cache, v_cache, layer)
     if q.device.type == "cpu":
         return paged_ragged_attention_plain(
             q, k_cache, v_cache, page_table, kv_lens, last_index,
-            draft_lens)
+            draft_lens, layer)
     kc, vc, ks, vs = split_cache(k_cache, v_cache)
     r, w, num_q_heads, head_dim = q.shape
-    num_kv_heads, num_pages, _, page_size = kc.shape
+    num_kv_heads, num_pages, _, page_size = kc.shape[-4:]
     out = torch.empty_like(q)
     ints = [("page_table", page_table), ("kv_lens", kv_lens),
             ("last_index", last_index)]
@@ -88,14 +91,14 @@ def paged_ragged_attention(q: torch.Tensor, k_cache: torch.Tensor,
             t.shape != (r,) for _, t in ints[1:]):
         raise ValueError("page_table/kv_lens/last_index/draft_lens rows "
                          "must match the block's rows")
-    name = counter_name(KERNEL_NAME, ks)
+    name = counter_name(KERNEL_NAME, ks, layer)
     err = kernel_lib().pstt_paged_ragged(
         dtype_code(q.dtype), cache_code(kc.dtype), q.data_ptr(),
         kc.data_ptr(), vc.data_ptr(), data_ptr(ks), data_ptr(vs),
         page_table.data_ptr(), kv_lens.data_ptr(), last_index.data_ptr(),
         data_ptr(draft_lens), out.data_ptr(), r, w, num_q_heads,
         num_kv_heads, head_dim, num_pages, page_size,
-        page_table.shape[1], stream_ptr())
+        page_table.shape[1], *layer_args(kc, ks, layer), stream_ptr())
     check_launch(name, err)
     COUNTERS.launched(name)
     return out
@@ -106,18 +109,20 @@ def paged_ragged_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                                  page_table: torch.Tensor,
                                  kv_lens: torch.Tensor,
                                  last_index: torch.Tensor,
-                                 draft_lens: Optional[torch.Tensor] = None
+                                 draft_lens: Optional[torch.Tensor] = None,
+                                 layer: Optional[int] = None
                                  ) -> torch.Tensor:
     """The kernel's function in plain torch: the same chunked page walk
-    with the ragged mask and the online softmax, dead slots zeroed.
-    ``draft_lens`` is not read, as in the kernel."""
+    with the ragged mask and the online softmax, dead slots zeroed; a
+    stacked cache is walked at ``layer``. ``draft_lens`` is not read,
+    as in the kernel."""
     del draft_lens
-    check_cache(k_cache, v_cache)
+    check_cache(k_cache, v_cache, layer)
     kc, vc, ks, vs = split_cache(k_cache, v_cache)
     if q.is_cuda:
-        COUNTERS.plain_on_cuda(counter_name(KERNEL_NAME, ks))
+        COUNTERS.plain_on_cuda(counter_name(KERNEL_NAME, ks, layer))
     r, w, num_q_heads, head_dim = q.shape
-    num_kv_heads = kc.shape[0]
+    num_kv_heads = kc.shape[-4]
     group = num_q_heads // num_kv_heads
     # Rows of one kv head's block are (t, g) flattened slot-major, as in
     # the kernel: row j is query head g = j % G at slot t = j // G.
@@ -132,7 +137,7 @@ def paged_ragged_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     live = (slot <= last) & (kv > 0)
     out = page_walk_plain(qg, kc, vc, page_table, kv_lens,
                           lambda pos: live & (pos <= q_pos) & (pos < kv),
-                          ks, vs)
+                          ks, vs, layer)
     out = torch.where(live, out, 0.0)
     return (out.reshape(r, num_kv_heads, w, group, head_dim)
             .permute(0, 2, 1, 3, 4)

@@ -1,6 +1,8 @@
 """Token sampling on the device: temperature, top-k, top-p and greedy,
-per-row parameters so one batch mixes sampling configs, and the
-speculative acceptance rule the unified step samples through.
+per-row parameters so one batch mixes sampling configs, the step of a
+decode burst (sample, then freeze rows at a stop token or their
+budget) and the speculative acceptance rule the unified step samples
+through.
 
 Randomness comes from ``torch.Generator``s: the engine's stream for
 unseeded rows, and for a seeded row a generator seeded from (seed,
@@ -54,10 +56,27 @@ def _categorical(logits: torch.Tensor,
     return torch.argmax(probs / noise, dim=-1)
 
 
+_M64 = (1 << 64) - 1
+
+
+def _mix64(x: int) -> int:
+    """splitmix64's finalizer: every input bit reaches every output
+    bit."""
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
 def _seeded_generator(seed: int, emitted: int,
                       device: torch.device) -> torch.Generator:
+    """The generator of a seeded row's draw at emitted-token index
+    ``emitted``. The (seed, index) key is mixed before seeding: the
+    CPU generator keeps only the low 32 bits of its seed, which would
+    otherwise hold the index alone and drop the request's seed."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(((seed & 0xFFFFFFFF) << 32) | (emitted & 0xFFFFFFFF))
+    gen.manual_seed(_mix64(((seed & 0xFFFFFFFF) << 32)
+                           | (emitted & 0xFFFFFFFF)))
     return gen
 
 
@@ -102,6 +121,47 @@ def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
             sampled[i] = _categorical(scaled[i:i + 1], gen)[0]
     stochastic = (temperature > 0).to(dev)
     return torch.where(stochastic, sampled, greedy_tokens)
+
+
+def burst_sample_step(logits: torch.Tensor, active: torch.Tensor,
+                      emitted: torch.Tensor, budgets: torch.Tensor,
+                      stop_tokens: torch.Tensor, temperature: torch.Tensor,
+                      top_p: torch.Tensor, top_k: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      seeds: Optional[torch.Tensor] = None,
+                      emitted_index: Optional[torch.Tensor] = None,
+                      seed_mask: Optional[torch.Tensor] = None):
+    """One iteration of a decode burst: sample every row, then freeze
+    the rows that finished, all on the device (the JAX runner's
+    ``_burst_sample_step`` for the options the port serves).
+
+    Args:
+      logits:      [B, vocab] float32 of this iteration (device)
+      active:      [B] bool, rows still decoding (device)
+      emitted:     [B] int32 tokens each row emitted so far in this
+                   burst (device)
+      budgets:     [B] int32 tokens each row may emit
+                   (``sequence.decode_budget``) (device)
+      stop_tokens: [B, S] int32 stop set per row, -1 padded (device)
+      temperature/top_p/top_k/generator/seeds/seed_mask: as in
+                   sample_tokens
+      emitted_index: [B] CPU, a seeded row's absolute emitted-token
+                   index at this iteration (tokens emitted before the
+                   burst plus the iteration number), computed on the
+                   host so the burst never reads ``emitted`` back
+
+    Returns (out, sampled, emitted, active_next): ``out`` [B] holds the
+    sampled token of each active row and -1 for a frozen one; a row
+    freezes after it samples a stop token or reaches its budget.
+    """
+    sampled = sample_tokens(logits, temperature, top_p, top_k,
+                            generator=generator, seeds=seeds,
+                            emitted=emitted_index, seed_mask=seed_mask)
+    out = torch.where(active, sampled, -1)
+    emitted = emitted + active.to(emitted.dtype)
+    hit_stop = (sampled[:, None] == stop_tokens).any(dim=-1)
+    active_next = active & ~hit_stop & (emitted < budgets)
+    return out, sampled, emitted, active_next
 
 
 def spec_verify(logits: torch.Tensor, drafts: torch.Tensor,

@@ -143,8 +143,11 @@ def test_write_to_pages_matches_jax(page_size):
 
 
 def test_write_to_pages_rejects_stacked_cache():
+    """A stacked cache comes with its layer index (written in place at
+    that layer: tests/test_torch_cache_layout.py); without it, the rank
+    and the missing index disagree."""
     cache = torch.zeros(2, 2, 4, 8, 8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="layer index and cache rank"):
         write_to_pages(cache, torch.zeros(1, 1, 4, 8),
                        torch.zeros(1, 1, dtype=torch.int32),
                        torch.zeros(1, 1, dtype=torch.int32),
@@ -248,14 +251,16 @@ def test_wrappers_take_plain_version_for_cpu_tensors():
 @pytest.mark.parametrize("form", ["int8", "stacked"])
 def test_wrappers_raise_on_unported_cache_forms(form):
     """Bare int8 pages lack their scales (an int8 cache is a QuantKV:
-    ValueError); the stacked form is not ported yet
-    (NotImplementedError)."""
+    ValueError); a stacked cache without its layer index disagrees with
+    its rank (ValueError; with the index it is served:
+    tests/test_torch_cache_layout.py)."""
     if form == "int8":
         cache = torch.zeros(2, 4, 64, 16, dtype=torch.int8)
         raises = pytest.raises(ValueError, match="scales")
     else:
         cache = torch.zeros(3, 2, 4, 64, 16)
-        raises = pytest.raises(NotImplementedError, match="stacked")
+        raises = pytest.raises(ValueError,
+                               match="layer index and cache rank")
     pt = torch.zeros(1, 2, dtype=torch.int32)
     kv_lens = torch.ones(1, dtype=torch.int32)
     with raises:

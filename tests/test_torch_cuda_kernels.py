@@ -12,9 +12,12 @@ query group 4, head_dim 64; tiny-llama: f32, query group 2, head_dim
 ragged blocks (mixed decode, chunk and pad rows; verify spans; every
 slot compared, dead ones exact 0), the int8 form of all three kernels
 (a QuantKV cache quantized from the same K/V; page sizes 16 to 128),
-the wrappers' refusals, and the tiny engine's greedy streams on the
-card against the CPU, with and without speculative decoding, and with
-int8 KV.
+the stacked form of all three in both dtypes (a stacked [L, ...] cache
+read at its last layer: within tolerance of the plain version and
+bitwise equal to the per-layer launch on the layer's view), the
+wrappers' refusals, and the tiny engine's greedy streams on the card
+against the CPU, with and without speculative decoding, with int8 KV,
+with the stacked layout and with decode bursts.
 
 Tolerance: f32 at atol = rtol = 1e-4 (the same arithmetic, sums in
 another order); bf16 at atol = rtol = 2e-2 (outputs rounded to bf16,
@@ -312,7 +315,105 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
         paged_decode_attention(q, cpu_scale, v8, table, lens)
 
 
-def _engine_streams(kv_cache_dtype="auto", speculative_k=0):
+# ---- the stacked form -------------------------------------------------------
+
+
+def _stacked(cache, layers, layer, g):
+    """A stacked [layers, ...] cache (a QuantKV's data and scales
+    alike) holding ``cache`` at ``layer`` and other values elsewhere."""
+    def stack(t):
+        noise = torch.randn((layers,) + tuple(t.shape), generator=g)
+        out = (noise * 8).to(t.dtype).to(t.device)
+        out[layer] = t
+        return out
+    if isinstance(cache, QuantKV):
+        return QuantKV(stack(cache.data), stack(cache.scale).abs())
+    return stack(cache)
+
+
+def _kernel_call(kernel, dev, dtype, group, head_dim, page_size, g):
+    """(wrapper, plain version, their arguments before the caches,
+    after them, and the kv lens) of one case of ``kernel``."""
+    if kernel == "decode":
+        kv_lens = [1, 0, 127, 128, 129, 300, 517]
+        k, v, table, lens, _ = _inputs(dev, dtype, len(kv_lens), kv_lens,
+                                       group, 2, head_dim, page_size, 21)
+        q = torch.randn((len(kv_lens), 2 * group, head_dim),
+                        generator=g).to(dev, dtype)
+        return (paged_decode_attention, paged_decode_attention_plain,
+                (q,), (table, lens), k, v)
+    if kernel == "prefill":
+        live, start, t = [80, 33, 0, 1], 150, 80
+        kv_lens = [start + n if n else 0 for n in live]
+        k, v, table, lens, _ = _inputs(dev, dtype, 4, kv_lens, group, 2,
+                                       head_dim, page_size, 22)
+        q = torch.randn((4, t, 2 * group, head_dim),
+                        generator=g).to(dev, dtype)
+        starts = torch.tensor([start if n else 0 for n in live],
+                              dtype=torch.int32, device=dev)
+        pos = (starts[:, None] + torch.arange(t, dtype=torch.int32,
+                                              device=dev)).contiguous()
+        return (paged_prefill_attention, paged_prefill_attention_plain,
+                (q,), (table, pos, lens), k, v)
+    w, rows = RAGGED_BLOCKS["verify"]
+    kv_lens = [n for n, _ in rows]
+    k, v, table, lens, _ = _inputs(dev, dtype, len(rows), kv_lens, group,
+                                   2, head_dim, page_size, 23)
+    last = torch.tensor([li for _, li in rows], dtype=torch.int32,
+                        device=dev)
+    q = torch.randn((len(rows), w, 2 * group, head_dim),
+                    generator=g).to(dev, dtype)
+    return (paged_ragged_attention, paged_ragged_attention_plain, (q,),
+            (table, lens, last, torch.clamp(last, min=0)), k, v)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("kernel", ["decode", "prefill", "ragged"])
+@pytest.mark.parametrize("dtype,group,head_dim", GEOMETRIES)
+def test_stacked_kernel_matches_plain_and_per_layer(dev, dtype, group,
+                                                     head_dim, kernel,
+                                                     int8):
+    """The stacked form at the last of 3 layers: within tolerance of
+    its plain version, bitwise equal to the per-layer launch on the
+    layer's view (the same walk over the same bytes), and counted as
+    its own form."""
+    g = torch.Generator(device="cpu").manual_seed(24)
+    fn, plain, pre, post, k, v = _kernel_call(kernel, dev, dtype, group,
+                                              head_dim, 16, g)
+    if int8:
+        k, v = _quantize(k), _quantize(v)
+    layers, layer = 3, 2
+    k5, v5 = _stacked(k, layers, layer, g), _stacked(v, layers, layer, g)
+    COUNTERS.reset()
+    got = fn(*pre, k5, v5, *post, layer=layer)
+    per_layer = fn(*pre, k5[layer], v5[layer], *post)
+    ref = plain(*pre, k5, v5, *post, layer=layer)
+    torch.cuda.synchronize()
+    name = f"paged_{kernel}" + ("_int8" if int8 else "")
+    assert COUNTERS.launches == {name + "_stacked": 1, name: 1}
+    assert torch.equal(got, per_layer)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+
+
+def test_stacked_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    k, v, table, lens, g = _inputs(dev, torch.bfloat16, 2, [3, 9], 4, 2,
+                                   64, 16, 25)
+    q = torch.randn((2, 8, 64), generator=g).to(dev, torch.bfloat16)
+    k5, v5 = _stacked(k, 2, 1, g), _stacked(v, 2, 1, g)
+    with pytest.raises(ValueError, match="layer index and cache rank"):
+        paged_decode_attention(q, k5, v5, table, lens)
+    with pytest.raises(ValueError, match="layer index and cache rank"):
+        paged_decode_attention(q, k, v, table, lens, layer=0)
+    for layer in (2, -1):
+        with pytest.raises(ValueError, match="outside"):
+            paged_decode_attention(q, k5, v5, table, lens, layer=layer)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_decode_attention(q, k5.transpose(0, 1), v5.transpose(0, 1),
+                               table, lens, layer=1)
+
+
+def _engine_streams(kv_cache_dtype="auto", speculative_k=0,
+                    cache_layout="auto", decode_steps=1):
     """The tiny engine's greedy streams on the CPU and on the card,
     with the launch counters of the card's run."""
     from production_stack_tpu_torch.engine.config import (
@@ -324,11 +425,13 @@ def _engine_streams(kv_cache_dtype="auto", speculative_k=0):
     cfg = EngineConfig(
         model=tiny_model_config("llama"),
         cache=CacheConfig(page_size=16, num_pages=128,
+                          cache_layout=cache_layout,
                           kv_cache_dtype=kv_cache_dtype),
         scheduler=SchedulerConfig(max_num_seqs=4, max_model_len=256,
                                   prefill_chunk_size=32,
                                   unified_step=True,
                                   async_scheduling=True,
+                                  decode_steps=decode_steps,
                                   speculative_k=speculative_k))
     params = init_params(cfg.model, torch.Generator().manual_seed(0),
                          torch.device("cpu"))
@@ -367,5 +470,23 @@ def test_engine_int8_greedy_streams_on_the_card_match_the_cpu(dev):
     assert streams[0] == streams[1]
     assert set(launches) == {"paged_prefill_int8", "paged_decode_int8",
                              "paged_ragged_int8"}
+    assert all(n > 0 for n in launches.values())
+    assert not COUNTERS.plain_cuda_calls
+
+
+@pytest.mark.parametrize("kv_cache_dtype,decode_steps", [
+    ("auto", 1), ("auto", 4), ("int8", 4)])
+def test_engine_stacked_greedy_streams_on_the_card_match_the_cpu(
+        dev, kv_cache_dtype, decode_steps):
+    """With the stacked layout the card runs the stacked form of all
+    three kernels and no per-layer form, bursts or not, and its greedy
+    streams are the CPU's."""
+    streams, _, launches = _engine_streams(
+        kv_cache_dtype=kv_cache_dtype, cache_layout="stacked",
+        decode_steps=decode_steps)
+    assert streams[0] == streams[1]
+    suffix = ("_int8" if kv_cache_dtype == "int8" else "") + "_stacked"
+    assert set(launches) == {f"paged_{k}{suffix}"
+                             for k in ("prefill", "decode", "ragged")}
     assert all(n > 0 for n in launches.values())
     assert not COUNTERS.plain_cuda_calls

@@ -185,14 +185,16 @@ def test_ragged_wrapper_takes_plain_version_for_cpu_tensors():
 @pytest.mark.parametrize("form", ["int8", "stacked"])
 def test_ragged_wrapper_raises_on_unported_cache_forms(form):
     """Bare int8 pages lack their scales (an int8 cache is a QuantKV:
-    ValueError); the stacked form is not ported yet
-    (NotImplementedError)."""
+    ValueError); a stacked cache without its layer index disagrees with
+    its rank (ValueError; with the index it is served:
+    tests/test_torch_cache_layout.py)."""
     if form == "int8":
         cache = torch.zeros(2, 4, 64, 16, dtype=torch.int8)
         raises = pytest.raises(ValueError, match="scales")
     else:
         cache = torch.zeros(3, 2, 4, 64, 16)
-        raises = pytest.raises(NotImplementedError, match="stacked")
+        raises = pytest.raises(ValueError,
+                               match="layer index and cache rank")
     ones = torch.ones(1, dtype=torch.int32)
     with raises:
         paged_ragged_attention(torch.zeros(1, 4, 8, 64), cache, cache,

@@ -143,6 +143,26 @@ def test_seeded_rows_are_deterministic_across_batches():
                                seeds=seeds)
 
 
+def test_seeded_draws_follow_the_request_seed():
+    """Two seeds at the same emitted index draw from different streams
+    on the CPU too (whose generator keeps only 32 bits of its seed), and
+    one seed at two indices as well."""
+    logits = torch.zeros((8, VOCAB))  # uniform: the draw is the noise
+    temperature, top_p, top_k = (torch.from_numpy(x)
+                                 for x in _knobs(8, 1.0, 1.0))
+    mask = torch.ones((8,), dtype=torch.bool)
+
+    def draw(seed, emitted):
+        return sampling.sample_tokens(
+            logits, temperature, top_p, top_k,
+            seeds=torch.full((8,), seed), emitted=torch.full((8,), emitted),
+            seed_mask=mask)
+
+    assert torch.equal(draw(1234, 0), draw(1234, 0))
+    assert not torch.equal(draw(1234, 0), draw(999, 0))
+    assert not torch.equal(draw(1234, 0), draw(1234, 1))
+
+
 def test_stochastic_draws_follow_the_generator():
     logits = torch.from_numpy(_logits(7, 32))
     temperature, top_p, top_k = (torch.from_numpy(x)
