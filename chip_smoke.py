@@ -20,7 +20,8 @@ its result line:
    dead slots and pad rows must be exact 0. Tolerance: atol =
    rtol = 2e-2 on bf16 outputs compared in f32 (one bf16 rounding of
    values of order 1, and sums taken in another order), 1e-4 on f32
-   outputs. Each kernel is timed with CUDA events against its plain
+   outputs. Each kernel is timed with CUDA events (device time: the
+   launch is queued behind a short device-side wait) against its plain
    version, one ``scaled_dot_product_attention`` call over gathered
    dense K/V (a yardstick only: the port never calls it) and its bound
    on the card. A prefill or ragged case also prints the bound of its
@@ -38,7 +39,17 @@ its result line:
    against the per-layer launch on the layer's view, and timed beside
    that per-layer launch (``per_layer_ms``); its bound and SDPA time are
    the per-layer case's. One untimed stacked decode case sits at layer
-   15 of 2304 pages, an element offset past 2^31;
+   15 of 2304 pages, an element offset past 2^31. The split decode
+   kernel runs at batch 1, 4 and 32 over tables of 1024 and 4096
+   tokens, at the split the wrapper picks (printed per case) and at one
+   split, with rows ending inside the first split, kv lens 127, 128
+   and 129 and pad rows, and its headline case is timed at 1, 2, 3, 4
+   and 8 splits. The tensor-core prefill walk runs at T = 16 and 64,
+   row starts off the tile and the chunk (37, 600), a kv_len one past a
+   chunk edge and page sizes 32 and 64, over bf16 and int8. Each
+   headline case also prints the time this script recorded for the
+   kernel before its redesign (``before_redesign_ms``, a record, not a
+   measurement of this run);
 4. model: the bench-1b llama at full width, random weights, one
    512-token prefill chunk, one decode step and one 5-token verify
    block (the ragged route) through ``forward`` with the kernels and
@@ -83,8 +94,10 @@ its result line:
 
 The line before the last is the ``kernels`` JSON summary, one entry a
 kernel with its bf16 per-layer numbers and ``int8``, ``stacked`` and
-``int8_stacked`` objects of the same keys, the last the ``ok`` JSON
-line.
+``int8_stacked`` objects of the same keys; ``launches`` is the kernel's
+count in the first serving run (the main path: per_layer bf16, async
+and unified on), ``launches_by_run`` its count in every run. The last
+line is the ``ok`` JSON line.
 """
 
 from __future__ import annotations
@@ -131,10 +144,20 @@ KERNELS = {
         source="production_stack_tpu_torch/csrc/paged_ragged.cu",
         replaces="production_stack_tpu/ops/ragged_attention_pallas.py:174"),
 }
-# The serving run whose launch count a kernel's line reports: the run
-# of the path its slice added.
-KERNEL_RUN = {"paged_decode": "serve", "paged_prefill": "serve",
-              "paged_ragged": "serve_spec"}
+# The serving run whose launch count a kernel's line reports: the first
+# (the main path: per_layer bf16, async and unified on), for every
+# kernel; ``launches_by_run`` lists the others.
+MAIN_RUN = "serve"
+# Headline times of the decode and prefill kernels as this script
+# recorded them before their redesign (f32 FMA over f32 tiles, one block
+# a (row, kv head) pair in decode), on an NVIDIA H100 80GB HBM3 at 700 W:
+# printed beside the new times, never part of the ``kernels`` line.
+BEFORE_REDESIGN_MS = {
+    "paged_decode": {"bf16": 0.08956, "int8": 0.06844,
+                     "stacked": 0.08287, "int8_stacked": 0.06875},
+    "paged_prefill": {"bf16": 0.5286, "int8": 0.5375,
+                      "stacked": 0.5248, "int8_stacked": 0.5376},
+}
 INT8_RUN = "serve_int8"  # the run of the int8 forms
 STACKED_RUN = "serve_stacked"  # the run of the stacked forms
 BURST_RUN = "serve_burst"  # the run of the int8 stacked forms
@@ -154,13 +177,26 @@ def log(msg: str) -> None:
 
 
 class Timer:
-    """Per-launch CUDA-event timing with the L2 flushed before each
-    launch, as the serving path finds it (every layer reads another
-    layer's cache)."""
+    """Per-launch device time from CUDA events, with the L2 flushed
+    before each launch, as the serving path finds it (every layer reads
+    another layer's cache). Each timed launch is queued behind a short
+    device-side wait, so that the host has queued it before the card
+    reaches it: the events then bracket the kernels alone, and not the
+    time the card waits for the wrapper's Python."""
+
+    HEAD_START_CYCLES = 1_000_000  # about 0.5 ms of the card's clock
 
     def __init__(self, dev):
         self.flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
                                      device=dev)
+        # Half a second of dense work first: the first timed case of a
+        # process otherwise reads up to 1.6x high (the card's clocks).
+        x = torch.randn((4096, 4096), device=dev).to(torch.bfloat16)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 0.5:
+            for _ in range(20):
+                x @ x
+            torch.cuda.synchronize()
 
     def ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
         for _ in range(warmup):
@@ -168,6 +204,7 @@ class Timer:
         total = 0.0
         pairs = []
         for _ in range(iters):
+            torch.cuda._sleep(self.HEAD_START_CYCLES)
             self.flush_buf.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -175,7 +212,7 @@ class Timer:
             fn()
             end.record()
             pairs.append((start, end))
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
         for start, end in pairs:
             total += start.elapsed_time(end)
         return total / iters
@@ -296,9 +333,17 @@ def _dense_kv(cache, table, kv_len_max, group):
 
 def decode_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None,
                 nh=32, kv=8, d=64, max_len=1024, num_pages=None,
-                int8=False, stack=None):
-    from production_stack_tpu_torch.ops.paged_attention_cuda import (
-        paged_decode_attention, paged_decode_attention_plain)
+                int8=False, stack=None, num_splits=None, sweep=()):
+    """``num_splits``: the split to force (default: the wrapper's
+    choice, from shapes). ``sweep``: splits to time the case at."""
+    from production_stack_tpu_torch.ops import paged_attention_cuda
+    paged_decode_attention_plain = (
+        paged_attention_cuda.paged_decode_attention_plain)
+
+    def paged_decode_attention(*args, **kwargs):
+        return paged_attention_cuda.paged_decode_attention(
+            *args, num_splits=num_splits, **kwargs)
+
     max_pages = max_len // ps
     num_pages = num_pages or (b * max_pages + 1)
     (kc, vc), dense = _caches(kv, num_pages, d, ps, dtype, dev, gen, int8)
@@ -317,7 +362,14 @@ def decode_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None,
     if pad.any() and got[pad].abs().max().item() != 0.0:
         raise AssertionError(f"{name}: pad rows must write exact 0")
     _check_view(name, got, view, paged_decode_attention)
-    out = {"case": name, "max_abs_err": err}
+    again = call(paged_decode_attention)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches gave different bits")
+    picked = paged_attention_cuda.decode_splits(b, kv, max_pages, ps)
+    out = {"case": name, "max_abs_err": err,
+           "splits": num_splits or picked[0], "picked_splits": picked[0],
+           "chunks_per_split": picked[1]}
     if offset is not None:
         out["layer_offset_elems"] = offset
     if timer is not None:
@@ -348,6 +400,12 @@ def decode_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None,
         if view is not None:
             out["per_layer_ms"] = timer.ms(
                 lambda: view(paged_decode_attention))
+        if sweep:
+            out["ms_by_splits"] = {
+                n: timer.ms(lambda: call(
+                    lambda *a, **k: paged_attention_cuda
+                    .paged_decode_attention(*a, num_splits=n, **k)))
+                for n in sweep}
     return out
 
 
@@ -384,6 +442,10 @@ def prefill_case(name, rows, t, ps, dtype, dev, gen, timer=None, nh=32,
     if pad.any() and got[pad].abs().max().item() != 0.0:
         raise AssertionError(f"{name}: pad rows must write exact 0")
     _check_view(name, got, view, paged_prefill_attention)
+    again = call(paged_prefill_attention)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches gave different bits")
     out = {"case": name, "max_abs_err": err}
     if offset is not None:
         out["layer_offset_elems"] = offset
@@ -555,13 +617,52 @@ def kernel_phase(dev) -> dict:
     # head_dim 32), the f32 config the kernels are built for.
     tiny = dict(nh=4, kv=2, d=32)
     f32 = torch.float32
+    # The split decode kernel: batch 1, 4 and 32 over tables of 1024
+    # and 4096 tokens. Rows end inside the first split (5, 127), on a
+    # chunk edge (128, 4096), one past (129, 2049); pad rows.
+    wide = np.linspace(1, 4096, 32).round().astype(int).tolist()
+    wide[3] = wide[30] = 0
+    split_cases = [
+        ("B=1 table 1024", [1000], 1024, None),
+        ("B=1 table 1024, one split", [1000], 1024, 1),
+        ("B=1 table 4096", [3000], 4096, None),
+        ("B=4 table 1024", [127, 128, 129, 0], 1024, None),
+        ("B=4 table 4096", [4096, 5, 0, 2049], 4096, None),
+        ("B=4 table 4096, one split", [4096, 5, 0, 2049], 4096, 1),
+        ("B=32 table 4096", wide, 4096, None),
+        ("B=32 table 4096, one split", wide, 4096, 1),
+    ]
+
+    def split_decode_cases(int8):
+        tag = "bf16/int8" if int8 else "bf16"
+        return [decode_case(f"decode {tag} {label} ps=128", len(rows), rows,
+                            128, bf16, dev, gen, timer, max_len=width,
+                            int8=int8, num_splits=n)
+                for label, rows, width, n in split_cases]
+
+    # The tensor-core prefill walk off its easy shapes: T = 16 and 64,
+    # row starts off the tile and the chunk (37, 600), a kv_len one
+    # past a chunk edge (129), a one-token row, a pad row; page sizes
+    # 128, 32 and 64.
+    def edge_prefill_cases(int8):
+        tag = "bf16/int8" if int8 else "bf16"
+        out = []
+        for t, ps in ((16, 128), (64, 32), (64, 64)):
+            rows = [(37, t), (600, t - 7), (129 - t, t), (0, 0), (300, 1),
+                    (0, t), (1024 - t, t)]
+            out.append(prefill_case(
+                f"prefill {tag} T={t} ps={ps} starts 37, 600, kv_len 129",
+                rows, t, ps, bf16, dev, gen, int8=int8))
+        return out
     # The first case of each list is the kernel's headline case.
     cases = {"bf16": {
         "paged_decode": [
             decode_case("decode bf16 B=32 ps=128", 32, lens, 128, bf16,
-                        dev, gen, timer, num_pages=512),
+                        dev, gen, timer, num_pages=512,
+                        sweep=(1, 2, 3, 4, 8)),
             decode_case("decode bf16 B=32 ps=16", 32, lens, 16, bf16,
                         dev, gen, timer),
+            *split_decode_cases(False),
             decode_case("decode f32 tiny B=4 ps=16", 4, [1, 0, 37, 300],
                         16, torch.float32, dev, gen, max_len=512, **tiny),
         ],
@@ -577,6 +678,7 @@ def kernel_phase(dev) -> dict:
             prefill_case("prefill f32 tiny B=2 T=64 ps=16",
                          [(40, 64), (40, 9)], 64, 16, torch.float32, dev,
                          gen, max_len=256, **tiny),
+            *edge_prefill_cases(False),
         ],
         "paged_ragged": [
             ragged_case("ragged bf16 unified R=40 W=512 ps=128",
@@ -595,7 +697,9 @@ def kernel_phase(dev) -> dict:
         # geometry over int8 caches.
         "paged_decode": [
             decode_case("decode bf16/int8 B=32 ps=128", 32, lens, 128, bf16,
-                        dev, gen, timer, num_pages=512, int8=True),
+                        dev, gen, timer, num_pages=512, int8=True,
+                        sweep=(1, 2, 3, 4, 8)),
+            *split_decode_cases(True),
             decode_case("decode bf16/int8 B=32 ps=16", 32, lens, 16, bf16,
                         dev, gen, int8=True),
             decode_case("decode f32/int8 tiny B=4 ps=16", 4,
@@ -610,6 +714,7 @@ def kernel_phase(dev) -> dict:
             prefill_case("prefill f32/int8 tiny B=2 T=64 ps=16",
                          [(40, 64), (40, 9)], 64, 16, f32, dev, gen,
                          max_len=256, int8=True, **tiny),
+            *edge_prefill_cases(True),
         ],
         "paged_ragged": [
             ragged_case("ragged bf16/int8 unified R=40 W=512 ps=128",
@@ -669,6 +774,11 @@ def kernel_phase(dev) -> dict:
             head = dict(results[0])
             head["max_abs_err"] = max(r["max_abs_err"] for r in results)
             headline[name][form] = head
+            before = BEFORE_REDESIGN_MS.get(name, {}).get(form)
+            if before is not None:
+                log(f"kernel {name} {form}: {head['ms']:.5f} ms now, "
+                    f"before_redesign_ms {before} (recorded, not measured "
+                    f"in this run): {before / head['ms']:.2f}x")
     return headline
 
 
@@ -782,15 +892,19 @@ def _model_forwards(dev, cfg, params, tokens, kv_dtype):
             f"|logit| {scale:.3e}), top-1 agreement {agree:.4f} "
             f"({int((~same).sum())} flips), largest margin of a flip "
             f"{flip_margin:.3e}")
-        # Both run the same bf16 model; they differ only in how each
-        # layer's attention sums are ordered and rounded (over int8 KV,
-        # each side also quantizes the K/V its own layers produced). So
-        # the logits stay close and every top-1 flip is a near-tie;
-        # top-1 agrees on 90% of the prefill chunk's positions and on
-        # the decode step. On the 5 verify positions one near-tie flip
-        # is 20%, so there the near-tie rule alone holds.
+        # Both run the same bf16 model; they differ in how each layer's
+        # attention sums are ordered and rounded: the tensor-core
+        # prefill kernel feeds its probabilities to p . v as bf16, the
+        # plain version as f32 (over int8 KV, each side also quantizes
+        # the K/V its own layers produced). So the logits stay close
+        # and every top-1 flip is a near-tie. A phase may flip a tenth
+        # of its positions and never fewer than one: on the decode
+        # step's single position and the 5 verify positions one
+        # near-tie flip is 100% and 20%, so there the near-tie rule
+        # alone holds.
+        flips = int((~same).sum())
         if (diff > 0.05 * scale or flip_margin > 2 * diff
-                or (not phase.startswith("verify") and agree < 0.9)):
+                or flips > max(1, same.numel() // 10)):
             raise AssertionError(f"model {kv_dtype} KV {phase}: cuda and "
                                  "plain forwards disagree")
     return results["cuda"]
@@ -1098,7 +1212,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     ptxas = []
     lib = paged_kv_common.build_kernels(log=ptxas.append)
     paged_kv_common.kernel_lib()
@@ -1124,8 +1238,9 @@ def main() -> int:
                "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
                "bound_by": h["bound_by"], "library_ms": h["library_ms"],
                "case": h["case"]}
-        if "per_layer_ms" in h:
-            out["per_layer_ms"] = h["per_layer_ms"]
+        for key in ("per_layer_ms", "splits", "ms_by_splits"):
+            if key in h:
+                out[key] = h[key]
         return out
 
     summary = []
@@ -1133,7 +1248,7 @@ def main() -> int:
         h = headline[name]
         summary.append({
             "name": name, **meta,
-            "launches": launches[KERNEL_RUN[name]].get(name, 0),
+            "launches": launches[MAIN_RUN].get(name, 0),
             "launches_by_run": {run: counts.get(name, 0)
                                 for run, counts in launches.items()},
             **numbers(h["bf16"]),
@@ -1143,6 +1258,8 @@ def main() -> int:
                 name + "_stacked", 0), **numbers(h["stacked"])},
             "int8_stacked": {"launches": launches[BURST_RUN].get(
                 name + "_int8_stacked", 0), **numbers(h["int8_stacked"])}})
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - t_start:.1f} s, the kernel build included")
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

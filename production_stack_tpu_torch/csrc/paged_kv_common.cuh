@@ -1,6 +1,11 @@
-// The page walk shared by the paged decode, chunked-prefill and ragged
-// attention kernels (paged_decode.cu, paged_prefill.cu,
-// paged_ragged.cu).
+// What the paged decode, chunked-prefill and ragged attention kernels
+// share (paged_decode.cu, paged_prefill.cu, paged_ragged.cu): the
+// geometries they are built for, the layer offsets, row maps and masks,
+// the asynchronous staging of a chunk (cp.async), and page_walk_block,
+// the f32 FMA page walk. The ragged kernel and the f32 prefill
+// geometries run page_walk_block; bf16 prefill runs the tensor-core
+// walk of paged_walk_mma.cuh, decode its own split walk
+// (paged_decode.cu). The contract below is the same for all of them.
 //
 // Counterpart of make_page_dma / run_page_walk in the JAX package's
 // ops/paged_kv_common.py. One block owns one (row, kv head) pair and a
@@ -273,6 +278,93 @@ __device__ __forceinline__ void stage_scales(
     }
     kss[i] = kx;
     vss[i] = vx;
+  }
+}
+
+// ---- asynchronous staging (cp.async) ---------------------------------------
+//
+// The redesigned kernels (paged_walk_mma.cuh, paged_decode.cu) stage a
+// chunk as it lies in device memory, in the cache's own element type,
+// with 16-byte cp.async copies that land in shared memory while the
+// block computes on the chunk before. A copy with `live` false reads
+// nothing and writes 16 zero bytes: pages past the live ones stage as
+// zeros, as stage_chunk stages them.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool live) {
+  const int n = live ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// log2 of a power of two (page sizes divide 128, head dims are 32 or
+// 64: the staging loops shift where stage_chunk divides).
+__device__ __forceinline__ int log2_pow2(int x) { return __ffs(x) - 1; }
+
+// Start the copies of one 128-token chunk of K and V pages. `off(d,
+// col)` is the byte offset of head dim d, chunk token col inside a
+// destination plane (the caller's layout: padded rows for ldmatrix, a
+// swizzle for the decode kernel's reads). The caller commits the group.
+template <typename C, int D, int NT, class Off>
+__device__ __forceinline__ void stage_chunk_async(
+    const C* __restrict__ k_head, const C* __restrict__ v_head,
+    const int* __restrict__ pt_row, int chunk, int pages_live,
+    int page_size, uint32_t k_dst, uint32_t v_dst, Off off) {
+  constexpr int kVec = 16 / sizeof(C);
+  const int ps_shift = log2_pow2(page_size);
+  const int page_shift = ps_shift + log2_pow2(D);  // D * page_size elems
+  const int first_page = chunk << (log2_pow2(kChunk) - ps_shift);
+  for (int i = threadIdx.x; i < D * kChunk / kVec; i += NT) {
+    const int e = i * kVec;
+    const int j = e >> page_shift;
+    const int rem = e - (j << page_shift);
+    const int d = rem >> ps_shift;
+    const int col = rem - (d << ps_shift);
+    const int lp = first_page + j;
+    const bool live = lp < pages_live;
+    const size_t src =
+        live ? ((size_t)pt_row[lp] << page_shift) + rem : (size_t)0;
+    const uint32_t o = off(d, (j << ps_shift) + col);
+    cp_async16(k_dst + o, k_head + src, live);
+    cp_async16(v_dst + o, v_head + src, live);
+  }
+}
+
+// Start the copies of the chunk's 128 K and V scales of a quantized
+// cache (4 scales a copy; an int8 page holds a multiple of 16 tokens).
+template <int NT>
+__device__ __forceinline__ void stage_scales_async(
+    const float* __restrict__ k_scale_head,
+    const float* __restrict__ v_scale_head,
+    const int* __restrict__ pt_row, int chunk, int pages_live,
+    int page_size, uint32_t ks_dst, uint32_t vs_dst) {
+  const int ps_shift = log2_pow2(page_size);
+  const int first_page = chunk << (log2_pow2(kChunk) - ps_shift);
+  for (int i = threadIdx.x; i < kChunk / 4; i += NT) {
+    const int tok = i * 4;
+    const int j = tok >> ps_shift;
+    const int col = tok - (j << ps_shift);
+    const int lp = first_page + j;
+    const bool live = lp < pages_live;
+    const size_t src =
+        live ? ((size_t)pt_row[lp] << ps_shift) + col : (size_t)0;
+    cp_async16(ks_dst + tok * 4, k_scale_head + src, live);
+    cp_async16(vs_dst + tok * 4, v_scale_head + src, live);
   }
 }
 

@@ -20,7 +20,10 @@ half:
   the same mask, the same online softmax (m, l, acc in f32), the same
   fold of an int8 cache's scales and the same zero output for a row
   with no cached tokens as the kernels. It is what a wrapper runs for
-  CPU tensors, and what the kernels are compared with on the card.
+  CPU tensors, and what the kernels are compared with on the card. It
+  also walks a range of chunks to the unnormalised state and merges
+  such states, as the decode kernel's splits do, and can round the
+  probabilities as the tensor-core walk does.
 """
 
 from __future__ import annotations
@@ -169,8 +172,10 @@ def kernel_lib() -> ctypes.CDLL:
             # Every launch ends with (layer, layer stride of the data,
             # layer stride of the scales, stream): see layer_args.
             layer = [i32, i64, i64, ptr]
+            # decode: ... out, split scratch, 7 shape ints, the number
+            # of splits and the chunks of one split.
             lib.pstt_paged_decode.argtypes = (
-                [i32] * 2 + [ptr] * 8 + [i32] * 7 + layer)
+                [i32] * 2 + [ptr] * 9 + [i32] * 9 + layer)
             lib.pstt_paged_decode.restype = i32
             lib.pstt_paged_prefill.argtypes = (
                 [i32] * 2 + [ptr] * 9 + [i32] * 8 + layer)
@@ -378,7 +383,8 @@ def page_walk_plain(q_rows: torch.Tensor, k_cache: torch.Tensor,
                     mask_fn: Callable[[torch.Tensor], torch.Tensor],
                     k_scale: Optional[torch.Tensor] = None,
                     v_scale: Optional[torch.Tensor] = None,
-                    layer: Optional[int] = None) -> torch.Tensor:
+                    layer: Optional[int] = None,
+                    p_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The kernels' page walk in torch.
 
     Args:
@@ -392,6 +398,9 @@ def page_walk_plain(q_rows: torch.Tensor, k_cache: torch.Tensor,
       k/v_scale: an int8 cache's f32 [(L,) KV, pages, page_size] scales
       layer:   the layer a stacked cache is read at, as a view: the walk
                is then the per-layer walk over ``k_cache[layer]``
+      p_dtype: round the probabilities that enter p . v to this type
+               (the tensor-core walk feeds them to the product as
+               bf16); l still sums the unrounded ones. Default: none
 
     Walks ceil(kv_len / 128) chunks per row: pages of a chunk past
     ceil(kv_len / page_size) read as zeros, scores outside the mask
@@ -401,6 +410,28 @@ def page_walk_plain(q_rows: torch.Tensor, k_cache: torch.Tensor,
     probabilities, and p * v_scale[token] enters p . v. Returns
     acc / max(l, 1e-30) in f32 — exact 0 for a row with kv_len 0.
     """
+    _, l, acc = page_walk_partial(q_rows, k_cache, v_cache, page_table,
+                                  kv_lens, mask_fn, k_scale, v_scale, layer,
+                                  p_dtype=p_dtype)
+    return acc / torch.clamp(l, min=1e-30)
+
+
+def page_walk_partial(q_rows: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, page_table: torch.Tensor,
+                      kv_lens: torch.Tensor,
+                      mask_fn: Callable[[torch.Tensor], torch.Tensor],
+                      k_scale: Optional[torch.Tensor] = None,
+                      v_scale: Optional[torch.Tensor] = None,
+                      layer: Optional[int] = None,
+                      chunk_range: Optional[Tuple[int, int]] = None,
+                      p_dtype: Optional[torch.dtype] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The walk of ``page_walk_plain`` over the chunks ``chunk_range`` =
+    [begin, end) of every row (default: all), unnormalised: returns the
+    online softmax's state (m [B, KV, R, 1], l [B, KV, R, 1], acc
+    [B, KV, R, D]) in f32. A row with no chunk in the range keeps the
+    empty state (-1e30, 0, 0), which is what a split of the decode
+    kernel writes for it."""
     if layer is not None:
         k_cache, v_cache = k_cache[layer], v_cache[layer]
         if k_scale is not None:
@@ -420,6 +451,7 @@ def page_walk_plain(q_rows: torch.Tensor, k_cache: torch.Tensor,
     pages_needed = -(-kv_lens // page_size)
     row_chunks = -(-kv_lens // chunk)
     walk = min(n_chunks, int(row_chunks.max()) if b else 0)
+    begin, end = (0, walk) if chunk_range is None else chunk_range
 
     q = q_rows.float()
     scale = 1.0 / d ** 0.5
@@ -427,7 +459,7 @@ def page_walk_plain(q_rows: torch.Tensor, k_cache: torch.Tensor,
     l = torch.zeros((b, kvh, rows, 1), device=dev)
     acc = torch.zeros((b, kvh, rows, d), device=dev)
     lane = torch.arange(pages_per_chunk, device=dev)
-    for c in range(walk):
+    for c in range(begin, min(end, walk)):
         ids = page_table[:, c * pages_per_chunk:(c + 1) * pages_per_chunk]
         live = (c * pages_per_chunk + lane)[None] < pages_needed[:, None]
 
@@ -454,7 +486,29 @@ def page_walk_plain(q_rows: torch.Tensor, k_cache: torch.Tensor,
         l = torch.where(active, l * alpha + p.sum(-1, keepdim=True), l)
         if v_scale is not None:
             p = p * stage_scale(v_scale)
+        if p_dtype is not None:
+            p = p.to(p_dtype).float()
         acc = torch.where(active, acc * alpha + p @ v.transpose(-1, -2),
                           acc)
         m = torch.where(active, m_new, m)
-    return acc / torch.clamp(l, min=1e-30)
+    return m, l, acc
+
+
+def merge_partials_plain(m: torch.Tensor, l: torch.Tensor,
+                         acc: torch.Tensor) -> torch.Tensor:
+    """The decode kernel's merge of its splits' partials in torch.
+
+    ``m``, ``l`` [S, ..., 1] and ``acc`` [S, ..., D] hold the S splits'
+    softmax states, split-major. The merged output is
+    sum_s e_s acc_s / max(sum_s e_s l_s, 1e-30) with e_s = exp(m_s -
+    max_s m_s), summed in split order. Where every split is empty
+    (m = -1e30, l = 0, acc = 0) the weights are exp(0) = 1 over zeros:
+    exact 0, no NaN."""
+    m_all = m.amax(0)
+    tot = torch.zeros_like(acc[0])
+    tot_l = torch.zeros_like(l[0])
+    for s in range(m.shape[0]):
+        e = torch.exp(m[s] - m_all)
+        tot = tot + e * acc[s]
+        tot_l = tot_l + e * l[s]
+    return tot / torch.clamp(tot_l, min=1e-30)

@@ -11,16 +11,23 @@ steps and verify steps go through the ragged kernel
 What bounds it on the card: at long T, operations. A 512-token chunk
 does 4 * num_q_heads * head_dim * (visible tokens) operations per
 query while the KV it reads is shared by the G * T query rows of a kv
-head, so it sits far above the ~295 operations per byte ridge. The
-design keeps each kv head's queries in blocks of 64 rows (grid:
-batch, kv_head, query tile) that reuse every staged 128-token chunk
-of K and V from shared memory, and a tile stops walking at the last
-chunk its highest query position can see, which skips only work that
-is fully masked. The arithmetic is FMA in f32 on the CUDA cores, not
-yet the tensor cores (wgmma), so it runs well short of that bound.
-An int8 cache (a QuantKV) stages as int8 pages and their per-slot
-scales, which fold into the scores and the probabilities as in the
-Pallas kernel; the arithmetic is unchanged.
+head, so it sits far above the ~295 operations per byte ridge, and the
+products have to run on the tensor cores. For bf16 queries (over a bf16
+or an int8 cache) the kernel is the tensor-core walk of
+``csrc/paged_walk_mma.cuh``: blocks of 64 query rows (grid: query tile,
+kv_head, batch), four warps of 16 rows with q in registers; q.k^T and
+p.v as bf16 ``mma.sync`` with f32 accumulation, K and V fed by
+``ldmatrix`` from the pages as they lie (token-minor, nothing
+transposed); scores, probabilities, m, l and the output accumulator in
+registers (softmax with quad shuffles and ``exp2f``), the probabilities
+packed to bf16 in place as the next product's operand; K/V staged in 16
+bits through two stages of asynchronous copies (68 KB a block, three
+blocks an SM); the mask compared only where it cuts. An int8 cache (a
+QuantKV) stages its raw pages and scales with the same copies, converts
+each chunk once to bf16 (exact) and folds the scales into the scores
+and the probabilities in the Pallas order. A tile stops walking at the
+last chunk its highest query position can see. f32 queries (tiny-llama,
+held to 1e-4) keep the f32 FMA walk of ``csrc/paged_kv_common.cuh``.
 
 Contract (the Pallas kernel's): q [B, T, num_q_heads, head_dim]; the
 per-layer or, with ``layer``, the stacked cache, as the decode kernel
@@ -103,12 +110,16 @@ def paged_prefill_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                                   page_table: torch.Tensor,
                                   q_positions: torch.Tensor,
                                   kv_lens: torch.Tensor,
-                                  layer: Optional[int] = None
+                                  layer: Optional[int] = None,
+                                  p_dtype: Optional[torch.dtype] = None
                                   ) -> torch.Tensor:
     """The kernel's function in plain torch: the same chunked page walk,
     query positions rebuilt as ``q_positions[:, 0] + t``, the causal
     mask, the online softmax and, for a QuantKV cache, the same fold of
-    its scales; a stacked cache is walked at ``layer``."""
+    its scales; a stacked cache is walked at ``layer``. ``p_dtype`` =
+    torch.bfloat16 gives the tensor-core kernel's rounding: the
+    probabilities enter p . v rounded to bf16 while l sums the
+    unrounded ones. The default is the f32 walk."""
     check_cache(k_cache, v_cache, layer)
     kc, vc, ks, vs = split_cache(k_cache, v_cache)
     if q.is_cuda:
@@ -127,7 +138,7 @@ def paged_prefill_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     kv = kv_lens.long()[:, None, None, None]
     out = page_walk_plain(qg, kc, vc, page_table, kv_lens,
                           lambda pos: (pos <= q_pos) & (pos < kv), ks, vs,
-                          layer)
+                          layer, p_dtype=p_dtype)
     return (out.reshape(b, num_kv_heads, group, t, head_dim)
             .permute(0, 3, 1, 2, 4)
             .reshape(b, t, num_q_heads, head_dim).to(q.dtype))

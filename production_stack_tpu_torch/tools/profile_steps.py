@@ -21,7 +21,8 @@ generate) and runs ``torch.profiler`` over:
 
 For each window it prints the host wall time per step, the device's
 busy time per step (the sum of the kernels' device time), the idle
-share of the wall time, and the kernels that take the most device time;
+share of the wall time, the attention kernels' device time and share of
+the busy time, and the kernels that take the most device time;
 for the decode window also the tokens each row gained per step and the
 wall time per token-step. Wall times are taken under the profiler,
 which adds host cost. Needs one CUDA card.
@@ -60,6 +61,14 @@ def _breakdown(prof, steps: int, wall_s: float, label: str) -> None:
           f"busy {busy_ms:.3f} ms/step (idle "
           f"{100 - 100 * busy_ms / wall_ms:.1f}% of wall), "
           f"{sum(e.count for e in kernels) / steps:.0f} kernels/step",
+          flush=True)
+    # The hand-written attention kernels (csrc/: paged_decode with its
+    # merge, paged_prefill, paged_ragged) and their share of busy time.
+    attn = [e for e in kernels if "pstt" in e.key and "paged_" in e.key]
+    attn_ms = sum(e.self_device_time_total for e in attn) / 1e3 / steps
+    print(f"{label}: attention kernels {attn_ms:.3f} ms/step "
+          f"({100 * attn_ms / max(busy_ms, 1e-9):.1f}% of busy), "
+          f"{sum(e.count for e in attn) / steps:.0f} launches/step",
           flush=True)
     by_time = sorted(kernels, key=lambda e: -e.self_device_time_total)
     for e in by_time[:TOP_KERNELS]:

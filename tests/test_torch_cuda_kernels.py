@@ -17,7 +17,12 @@ read at its last layer: within tolerance of the plain version and
 bitwise equal to the per-layer launch on the layer's view), the
 wrappers' refusals, and the tiny engine's greedy streams on the card
 against the CPU, with and without speculative decoding, with int8 KV,
-with the stacked layout and with decode bursts.
+with the stacked layout and with decode bursts. The redesigned
+kernels add: the split decode kernel at batch 1, 4 and 32 over tables
+of 1024 and 4096 tokens, at the split the wrapper picks and at forced
+ones; the tensor-core prefill walk at every T bucket 16..512 and page
+size 16..128 with row starts off the tile and the chunk; and two
+launches of each giving equal bits.
 
 Tolerance: f32 at atol = rtol = 1e-4 (the same arithmetic, sums in
 another order); bf16 at atol = rtol = 2e-2 (outputs rounded to bf16,
@@ -216,6 +221,136 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="scales"):
         paged_ragged_attention(qr, k.to(torch.int8), v.to(torch.int8),
                                table, lens, last)
+
+
+# ---- the redesigned decode and prefill kernels ------------------------------
+
+
+def _wide_inputs(dev, dtype, kv_lens, group, kv_heads, head_dim, page_size,
+                 max_len, seed, int8=False):
+    """Caches, a page table ``max_len`` tokens wide and kv lens: the
+    table's width, not the rows' lengths, sets the decode split."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    b = len(kv_lens)
+    max_pages = max_len // page_size
+    used_pages = sum(-(-n // page_size) for n in kv_lens)
+    num_pages = used_pages + 2
+    shape = (kv_heads, num_pages, head_dim, page_size)
+    k = torch.randn(shape, generator=g).to(dev, dtype)
+    v = torch.randn(shape, generator=g).to(dev, dtype)
+    table = torch.zeros((b, max_pages), dtype=torch.int32)
+    perm = torch.randperm(num_pages - 1, generator=g) + 1
+    used = 0
+    for i, n in enumerate(kv_lens):
+        need = -(-n // page_size)
+        table[i, :need] = perm[used:used + need]
+        used += need
+    lens = torch.tensor(kv_lens, dtype=torch.int32)
+    if int8:
+        k, v = _quantize(k), _quantize(v)
+    return k, v, table.to(dev), lens.to(dev), g
+
+
+# (batch's kv lens, table width in tokens): batch 1, 4 and 32; rows
+# ending inside the first split, on and around a chunk edge; pad rows.
+DECODE_SPLIT_CASES = {
+    "b1": ([1000], 1024),
+    "b1-wide": ([3000], 4096),
+    "b4": ([127, 128, 129, 0], 1024),
+    "b4-wide": ([4096, 5, 0, 2049], 4096),
+    "b32": ([int(n) for n in np.linspace(0, 1024, 32)], 1024),
+    "b32-wide": ([int(n) for n in np.linspace(0, 4096, 32)], 4096),
+}
+
+
+@pytest.mark.parametrize("num_splits", [None, 1, 2, "most"])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("case", sorted(DECODE_SPLIT_CASES))
+def test_decode_split_matches_plain(dev, case, int8, num_splits):
+    """The split decode kernel at the split ``decode_splits`` picks, at
+    one split, two, and one chunk a split: each within tolerance of the
+    plain version, pad rows exact 0, and two launches equal bit for
+    bit."""
+    from production_stack_tpu_torch.ops.paged_attention_cuda import (
+        decode_splits)
+    kv_lens, max_len = DECODE_SPLIT_CASES[case]
+    k, v, table, lens, g = _wide_inputs(dev, torch.bfloat16, kv_lens, 4, 8,
+                                        64, 128, max_len, 31, int8)
+    q = torch.randn((len(kv_lens), 32, 64), generator=g).to(
+        dev, torch.bfloat16)
+    if num_splits == "most":
+        num_splits = max_len // 128
+    picked = decode_splits(len(kv_lens), 8, table.shape[1], 128)
+    print(f"decode {case}: decode_splits -> {picked}")
+    got = paged_decode_attention(q, k, v, table, lens,
+                                 num_splits=num_splits)
+    again = paged_decode_attention(q, k, v, table, lens,
+                                   num_splits=num_splits)
+    ref = paged_decode_attention_plain(q, k, v, table, lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **TOL[torch.bfloat16])
+    assert torch.equal(got, again)
+    assert not got[lens == 0].any()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype,group,head_dim", GEOMETRIES)
+def test_decode_split_small_pages_every_geometry(dev, dtype, group,
+                                                 head_dim, int8):
+    """Page size 16 over a 512-token table in both geometries, split in
+    four: the f32 geometry at 1e-4."""
+    kv_lens = [1, 0, 127, 128, 129, 300, 512]
+    k, v, table, lens, g = _wide_inputs(dev, dtype, kv_lens, group, 2,
+                                        head_dim, 16, 512, 32, int8)
+    q = torch.randn((len(kv_lens), 2 * group, head_dim),
+                    generator=g).to(dev, dtype)
+    for num_splits in (None, 1, 4):
+        got = paged_decode_attention(q, k, v, table, lens,
+                                     num_splits=num_splits)
+        ref = paged_decode_attention_plain(q, k, v, table, lens)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+        assert not got[1].any()
+
+
+def test_decode_refuses_a_split_past_the_table(dev):
+    k, v, table, lens, g = _wide_inputs(dev, torch.bfloat16, [3, 9], 4, 2,
+                                        64, 16, 256, 33)
+    q = torch.randn((2, 8, 64), generator=g).to(dev, torch.bfloat16)
+    for bad in (0, 3):
+        with pytest.raises(ValueError, match="num_splits"):
+            paged_decode_attention(q, k, v, table, lens, num_splits=bad)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("page_size", [16, 32, 64, 128])
+@pytest.mark.parametrize("t", [16, 32, 64, 128, 256, 512])
+def test_prefill_mma_buckets_and_page_sizes(dev, t, page_size, int8):
+    """Every T bucket and page size of the tensor-core prefill walk, at
+    row starts off the tile and the chunk (37, 600), a kv_len one past
+    a chunk edge, a one-token row and a pad row; two launches equal bit
+    for bit."""
+    rows = [(0, t), (37, t), (600, max(1, t - 7)), (128 - t + 1, t),
+            (0, 0), (300, 1)]
+    rows = [(max(s, 0), n) for s, n in rows]
+    kv_lens = [s + n if n else 0 for s, n in rows]
+    k, v, table, lens, g = _wide_inputs(dev, torch.bfloat16, kv_lens, 4, 8,
+                                        64, page_size, 1152, 34, int8)
+    q = torch.randn((len(rows), t, 32, 64), generator=g).to(
+        dev, torch.bfloat16)
+    starts = torch.tensor([s if n else 0 for s, n in rows],
+                          dtype=torch.int32, device=dev)
+    pos = (starts[:, None] + torch.arange(t, dtype=torch.int32,
+                                          device=dev)).contiguous()
+    got = paged_prefill_attention(q, k, v, table, pos, lens)
+    again = paged_prefill_attention(q, k, v, table, pos, lens)
+    ref = paged_prefill_attention_plain(q, k, v, table, pos, lens)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **TOL[torch.bfloat16])
+    assert torch.equal(got, again)
+    assert not got[4].any()
 
 
 # ---- the int8 form ----------------------------------------------------------
