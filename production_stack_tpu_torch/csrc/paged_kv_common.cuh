@@ -2,9 +2,9 @@
 // share (paged_decode.cu, paged_prefill.cu, paged_ragged.cu): the
 // geometries they are built for, the layer offsets, row maps and masks,
 // the asynchronous staging of a chunk (cp.async), and page_walk_block,
-// the f32 FMA page walk. The ragged kernel and the f32 prefill
-// geometries run page_walk_block; bf16 prefill runs the tensor-core
-// walk of paged_walk_mma.cuh, decode its own split walk
+// the f32 FMA page walk. The f32 prefill and ragged geometries run
+// page_walk_block; the bf16 prefill and ragged geometries run the
+// tensor-core walk of paged_walk_mma.cuh, decode its own split walk
 // (paged_decode.cu). The contract below is the same for all of them.
 //
 // Counterpart of make_page_dma / run_page_walk in the JAX package's

@@ -13,14 +13,28 @@
 // head) pair are flattened slot-major, (t, g), and cut into tiles of
 // 64, so a row's live queries are one prefix of its rows: a decode
 // row's G queries sit in its first tile, a verify row's (K + 1) * G in
-// its first one or two. A tile with no live row writes its zeros and
-// returns without staging K/V. A tile with live rows walks the row's
-// pages once for all of them (paged_kv_common.cuh page_walk_block),
-// with the narrowest of three row blocks (8, 32 or 64 rows) that holds
-// them, so a decode row does not pay for 64 rows of arithmetic. The
-// walk stops at the last chunk the tile's highest live slot can see.
-// An int8 cache stages as int8 pages and their scales, folded in
-// (paged_kv_common.cuh).
+// its first one or two. A tile with no live row writes its zeros
+// (16-byte stores) and returns without staging K/V. A tile with live
+// rows walks the row's pages once for all of them and stops at the
+// last chunk its highest live slot can see.
+//
+// What bounds it: at the widest mixed step, the chunk rows' arithmetic
+// (the work of a first and a second prefill chunk) and the bytes of
+// the decode rows' K/V and of the block's output (every slot, dead
+// ones included, is written). So the bf16 geometries (bf16 or int8
+// cache) take the tensor-core walk of paged_walk_mma.cuh, as prefill
+// does: one block of 4 warps, each warp 16 rows with q in registers,
+// bf16 mma.sync for q.k^T and p.v (the probabilities enter p.v as
+// bf16), K/V staged in 16 bits through two cp.async stages, 68 KB a
+// block, three blocks an SM. One row block serves every tile: a warp
+// none of whose 16 rows is live skips every product, so a decode row's
+// tile (G = 4 live rows) multiplies on one warp and a verify row's
+// ((K + 1) * G = 20) on two, while all four share the copies. The f32
+// geometries (tiny-llama, held to 1e-4) keep page_walk_block
+// (paged_kv_common.cuh, f32 FMA) with the narrowest of three row
+// blocks (8, 32 or 64 rows) that holds the tile's live rows. The
+// choice is by type, at compile time. An int8 cache stages as int8
+// pages and their scales, folded in the Pallas order.
 //
 // C interface (loaded with ctypes by ops/paged_kv_common.py):
 //   q/out [R, W, num_q_heads, D]; k/v cache [kv_heads, num_pages, D,
@@ -34,13 +48,83 @@
 // returns cudaGetLastError() after the launch.
 
 #include "paged_kv_common.cuh"
+#include "paged_walk_mma.cuh"
 
 namespace pstt {
 namespace {
 
-constexpr int kRaggedThreads = 256;
 constexpr int kRaggedTile = 64;
+constexpr int kRaggedThreads = 256;  // the f32 walk
+constexpr int kMmaWarps = kRaggedTile / 16;  // a warp owns 16 rows
+constexpr int kMmaThreads = kMmaWarps * 32;
 
+// This block's tile: where its rows live, their mask, and how many of
+// them (a prefix) are live.
+struct RaggedTile {
+  SlotMajorRows rows;
+  RaggedMask mask;
+  int tile_rows;  // rows of the tile (the last tile may be short)
+  int live;       // live rows, a prefix of them
+};
+
+template <int D>
+__device__ __forceinline__ RaggedTile ragged_tile(
+    const int* __restrict__ kv_lens, const int* __restrict__ last_index,
+    int width, int num_q_heads, int group) {
+  const int row0 = blockIdx.x * kRaggedTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tile_rows = min(kRaggedTile, group * width - row0);
+  const int kv_len = kv_lens[b];
+  const int last = kv_len > 0 ? last_index[b] : -1;
+  const int live =
+      max(0, min((min(last, width - 1) + 1) * group - row0, tile_rows));
+  return {SlotMajorRows{((size_t)b * width * num_q_heads +
+                         (size_t)h * group) * D,
+                        group, num_q_heads, D, row0},
+          RaggedMask{kv_len, last, group, row0}, tile_rows, live};
+}
+
+// Rows [tile.live, tile.tile_rows) of the tile: exact 0, one 16-byte
+// store a thread at a time (a row is D * sizeof(T) = 128 bytes).
+template <typename T, int D, int NT>
+__device__ __forceinline__ void zero_dead_rows(T* __restrict__ out,
+                                               const RaggedTile& tile) {
+  constexpr int kVecs = D * (int)sizeof(T) / 16;
+  static_assert(D * sizeof(T) % 16 == 0, "a row must be whole 16 bytes");
+  for (int i = tile.live * kVecs + threadIdx.x; i < tile.tile_rows * kVecs;
+       i += NT) {
+    const int r = i / kVecs;
+    reinterpret_cast<uint4*>(out + tile.rows.offset(r))[i - r * kVecs] =
+        make_uint4(0, 0, 0, 0);
+  }
+}
+
+// This kv head's pages and (int8 cache) scales, at the launch's layer.
+template <typename C, int D>
+struct RaggedHead {
+  const C* k;
+  const C* v;
+  const float* ks;
+  const float* vs;
+
+  __device__ __forceinline__ RaggedHead(const C* k_cache, const C* v_cache,
+                                        const float* k_scale,
+                                        const float* v_scale,
+                                        int num_pages, int page_size,
+                                        LayerOffsets layer) {
+    const size_t head_elems = (size_t)num_pages * D * page_size;
+    const size_t head_slots = (size_t)num_pages * page_size;
+    const int h = blockIdx.y;
+    k = k_cache + layer.data() + h * head_elems;
+    v = v_cache + layer.data() + h * head_elems;
+    ks = kQuantized<C> ? k_scale + layer.scale() + h * head_slots : nullptr;
+    vs = kQuantized<C> ? v_scale + layer.scale() + h * head_slots : nullptr;
+  }
+};
+
+// The f32 geometries: f32 FMA over f32 tiles, with the narrowest row
+// block that holds the tile's live rows.
 template <typename T, typename C, int D>
 __global__ void __launch_bounds__(kRaggedThreads)
 paged_ragged_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
@@ -52,50 +136,55 @@ paged_ragged_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
                     const int* __restrict__ last_index, T* __restrict__ out,
                     int width, int num_q_heads, int group, int num_pages,
                     int page_size, int max_pages, LayerOffsets layer) {
-  const int tile = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int row0 = tile * kRaggedTile;
-  const int tile_rows = min(kRaggedTile, group * width - row0);
-  const int kv_len = kv_lens[b];
-  const int last = kv_len > 0 ? last_index[b] : -1;
-  const int live =
-      max(0, min((min(last, width - 1) + 1) * group - row0, tile_rows));
-  const SlotMajorRows rows{
-      ((size_t)b * width * num_q_heads + (size_t)h * group) * D, group,
-      num_q_heads, D, row0};
-
-  // Dead slots of this tile: exact 0.
-  for (int i = live * D + threadIdx.x; i < tile_rows * D;
-       i += kRaggedThreads) {
-    const int r = i / D;
-    out[rows.offset(r) + (i - r * D)] = from_f32<T>(0.f);
-  }
-  if (live == 0) return;
-
-  const size_t head_elems = (size_t)num_pages * D * page_size;
-  const size_t head_slots = (size_t)num_pages * page_size;
-  const C* k_head = k_cache + layer.data() + h * head_elems;
-  const C* v_head = v_cache + layer.data() + h * head_elems;
-  const float* ks_head =
-      kQuantized<C> ? k_scale + layer.scale() + h * head_slots : nullptr;
-  const float* vs_head =
-      kQuantized<C> ? v_scale + layer.scale() + h * head_slots : nullptr;
-  const int* pt_row = page_table + (size_t)b * max_pages;
-  const RaggedMask mask{kv_len, last, group, row0};
-  if (live <= 8) {
+  const RaggedTile tile =
+      ragged_tile<D>(kv_lens, last_index, width, num_q_heads, group);
+  zero_dead_rows<T, D, kRaggedThreads>(out, tile);
+  if (tile.live == 0) return;
+  const RaggedHead<C, D> head(k_cache, v_cache, k_scale, v_scale, num_pages,
+                              page_size, layer);
+  const int* pt_row = page_table + (size_t)blockIdx.z * max_pages;
+  const int kv_len = tile.mask.kv_len;
+  if (tile.live <= 8) {
     page_walk_block<T, C, D, 8, 8, kRaggedThreads>(
-        q, out, rows, k_head, v_head, ks_head, vs_head, pt_row, max_pages,
-        page_size, kv_len, mask, live);
-  } else if (live <= 32) {
+        q, out, tile.rows, head.k, head.v, head.ks, head.vs, pt_row,
+        max_pages, page_size, kv_len, tile.mask, tile.live);
+  } else if (tile.live <= 32) {
     page_walk_block<T, C, D, 32, 8, kRaggedThreads>(
-        q, out, rows, k_head, v_head, ks_head, vs_head, pt_row, max_pages,
-        page_size, kv_len, mask, live);
+        q, out, tile.rows, head.k, head.v, head.ks, head.vs, pt_row,
+        max_pages, page_size, kv_len, tile.mask, tile.live);
   } else {
     page_walk_block<T, C, D, kRaggedTile, 16, kRaggedThreads>(
-        q, out, rows, k_head, v_head, ks_head, vs_head, pt_row, max_pages,
-        page_size, kv_len, mask, live);
+        q, out, tile.rows, head.k, head.v, head.ks, head.vs, pt_row,
+        max_pages, page_size, kv_len, tile.mask, tile.live);
   }
+}
+
+// The bf16 geometries: the same tile and grid on the tensor-core walk,
+// one row block for every tile (warps with no live row skip their
+// products).
+template <typename C, int D>
+__global__ void __launch_bounds__(kMmaThreads, 3)
+paged_ragged_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const C* __restrict__ k_cache,
+                        const C* __restrict__ v_cache,
+                        const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale,
+                        const int* __restrict__ page_table,
+                        const int* __restrict__ kv_lens,
+                        const int* __restrict__ last_index,
+                        __nv_bfloat16* __restrict__ out, int width,
+                        int num_q_heads, int group, int num_pages,
+                        int page_size, int max_pages, LayerOffsets layer) {
+  const RaggedTile tile =
+      ragged_tile<D>(kv_lens, last_index, width, num_q_heads, group);
+  zero_dead_rows<__nv_bfloat16, D, kMmaThreads>(out, tile);
+  if (tile.live == 0) return;
+  const RaggedHead<C, D> head(k_cache, v_cache, k_scale, v_scale, num_pages,
+                              page_size, layer);
+  page_walk_block_mma<C, D, kMmaWarps>(
+      q, out, tile.rows, head.k, head.v, head.ks, head.vs,
+      page_table + (size_t)blockIdx.z * max_pages, max_pages, page_size,
+      tile.mask.kv_len, tile.mask, tile.live);
 }
 
 template <typename T, typename C, int D>
@@ -106,23 +195,38 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
            int max_pages, LayerOffsets layer, cudaStream_t stream) {
   if (kQuantized<C> && (ks == nullptr || vs == nullptr))
     return cudaErrorInvalidValue;
-  // The widest row block's layout; the narrower ones use a prefix of
-  // it, and place their scales by their own layout, inside it.
-  constexpr size_t smem = SmemLayout<D, kRaggedTile, kQuantized<C>>::bytes;
-  auto kernel = paged_ragged_kernel<T, C, D>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return attr;
   const int group = num_q_heads / num_kv_heads;
   const int tiles = (group * width + kRaggedTile - 1) / kRaggedTile;
-  kernel<<<dim3(tiles, num_kv_heads, rows), kRaggedThreads, smem,
-           stream>>>(
-      static_cast<const T*>(q), static_cast<const C*>(k),
-      static_cast<const C*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(pt),
-      static_cast<const int*>(kv_lens),
-      static_cast<const int*>(last_index), static_cast<T*>(out), width,
-      num_q_heads, group, num_pages, page_size, max_pages, layer);
+  const dim3 grid(tiles, num_kv_heads, rows);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    constexpr size_t smem = MmaSmem<C, D>::bytes;
+    auto kernel = paged_ragged_mma_kernel<C, D>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (attr != cudaSuccess) return attr;
+    kernel<<<grid, kMmaThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const C*>(k),
+        static_cast<const C*>(v), static_cast<const float*>(ks),
+        static_cast<const float*>(vs), static_cast<const int*>(pt),
+        static_cast<const int*>(kv_lens),
+        static_cast<const int*>(last_index), static_cast<T*>(out), width,
+        num_q_heads, group, num_pages, page_size, max_pages, layer);
+  } else {
+    // The widest row block's layout; the narrower ones use a prefix of
+    // it, and place their scales by their own layout, inside it.
+    constexpr size_t smem = SmemLayout<D, kRaggedTile, kQuantized<C>>::bytes;
+    auto kernel = paged_ragged_kernel<T, C, D>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (attr != cudaSuccess) return attr;
+    kernel<<<grid, kRaggedThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const C*>(k),
+        static_cast<const C*>(v), static_cast<const float*>(ks),
+        static_cast<const float*>(vs), static_cast<const int*>(pt),
+        static_cast<const int*>(kv_lens),
+        static_cast<const int*>(last_index), static_cast<T*>(out), width,
+        num_q_heads, group, num_pages, page_size, max_pages, layer);
+  }
   return cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
-// The tensor-core page walk for 16-bit queries (paged_prefill.cu; the
-// ragged kernel takes it next, which is why the mask and the row map
-// stay template parameters exactly as in page_walk_block).
+// The tensor-core page walk for 16-bit queries (paged_prefill.cu with
+// CausalMask / RowMap, paged_ragged.cu with RaggedMask / SlotMajorRows:
+// the mask and the row map are template parameters exactly as in
+// page_walk_block).
 //
 // Same contract as page_walk_block (paged_kv_common.cuh): one block
 // owns WARPS * 16 query rows of one (row, kv head) pair and walks the

@@ -3,11 +3,20 @@
     python -m production_stack_tpu_torch.engine.server \\
         --model bench-1b --random-weights --page-size 128 --num-pages 512
 
-Routes, JSON shapes and flag names follow the JAX engine's server:
-``/health``, ``/v1/models``, ``/v1/completions`` and
-``/v1/chat/completions`` (with and without ``stream``), and
-``/metrics`` with the ``vllm:*`` names the router scrapes. The HTTP
-layer is ``http.server.ThreadingHTTPServer`` (one thread per
+Routes served, with the JSON shapes of the JAX engine's server: GET
+``/health``, ``/v1/models`` and ``/metrics`` (the ``vllm:*`` names the
+router scrapes), POST ``/v1/completions`` and ``/v1/chat/completions``
+(with and without ``stream``). That is 5 of the 24 routes the JAX
+server registers. Each of the other 19 (``UNPORTED_ROUTES``: drain,
+resume, disaggregation, embeddings, score, rerank, autotune, version,
+KV summary, profiler and the debug ledgers) answers 501 with a message
+naming its feature; a path neither server has answers 404.
+
+Flags: 20 of the JAX server's 75, with the same names and meanings
+(``parse_args``); the others are absent and argparse refuses them.
+``--device`` is the port's own (the card unless ``cpu`` is asked for).
+
+The HTTP layer is ``http.server.ThreadingHTTPServer`` (one thread per
 connection); the engine steps on one loop thread of its own and hands
 each request's tokens to that request's queue.
 
@@ -464,12 +473,61 @@ class EngineServer:
         yield b"data: [DONE]\n\n"
 
 
+# The JAX server's routes this server does not serve: (method, path,
+# feature). A path ending in "/" is a prefix (the JAX server's
+# /debug/trace/{request_id}).
+UNPORTED_ROUTES = (
+    ("POST", "/v1/disagg/prefill", "disaggregated prefill"),
+    ("POST", "/v1/disagg/handoff", "disaggregated KV handoff"),
+    ("POST", "/v1/resume", "crash-recovery resume"),
+    ("POST", "/drain", "rollout drain"),
+    ("POST", "/v1/embeddings", "embeddings"),
+    ("POST", "/v1/score", "scoring"),
+    ("POST", "/score", "scoring"),
+    ("POST", "/v1/rerank", "reranking"),
+    ("POST", "/rerank", "reranking"),
+    ("GET", "/version", "build version"),
+    ("GET", "/kv/summary", "KV cache summary"),
+    ("GET", "/autotune/status", "autotuning"),
+    ("POST", "/autotune/reset", "autotuning"),
+    ("POST", "/debug/profiler/start", "device profiler"),
+    ("POST", "/debug/profiler/stop", "device profiler"),
+    ("GET", "/debug/trace/", "request traces"),
+    ("GET", "/debug/steps", "step ledger"),
+    ("GET", "/debug/compiles", "compile ledger"),
+    ("GET", "/debug/memory", "memory ledger"),
+)
+
+
+def unported_feature(method: str, path: str) -> Optional[str]:
+    """The feature of a JAX-server route this server does not serve,
+    or None."""
+    for m, route, feature in UNPORTED_ROUTES:
+        prefix = route.endswith("/")
+        if m == method and (path.startswith(route) and len(path) > len(route)
+                            if prefix else path == route):
+            return feature
+    return None
+
+
 class _Handler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     server: "EngineHTTPServer"
 
     def log_message(self, fmt, *args):  # quiet access log
         logger.debug("%s " + fmt, self.address_string(), *args)
+
+    def _no_route(self, method: str, path: str) -> None:
+        """501 naming the feature of an unported JAX-server route, else
+        404. The body is not read, so the connection closes after."""
+        self.close_connection = True
+        feature = unported_feature(method, path)
+        if feature is None:
+            self._send(404, {"error": {"message": f"no route {path}"}})
+        else:
+            self._send(501, {"error": {
+                "message": f"{path}: {feature}, not ported",
+                "type": "not_implemented_error"}})
 
     def _send(self, status: int, body, content_type="application/json"):
         data = (json.dumps(body) if isinstance(body, dict)
@@ -490,13 +548,13 @@ class _Handler(BaseHTTPRequestHandler):
         elif path == "/metrics":
             self._send(200, app.metrics(), "text/plain; version=0.0.4")
         else:
-            self._send(404, {"error": {"message": f"no route {path}"}})
+            self._no_route("GET", path)
 
     def do_POST(self):
         app = self.server.app
         path = self.path.split("?", 1)[0]
         if path not in ("/v1/completions", "/v1/chat/completions"):
-            self._send(404, {"error": {"message": f"no route {path}"}})
+            self._no_route("POST", path)
             return
         try:
             length = int(self.headers.get("Content-Length") or 0)

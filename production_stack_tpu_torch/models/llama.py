@@ -35,7 +35,7 @@ from production_stack_tpu_torch.ops.ragged_attention_cuda import (
 )
 from production_stack_tpu_torch.ops.rope import apply_rope
 
-ATTENTION_IMPLS = ("cuda", "plain")
+ATTENTION_IMPLS = ("cuda", "plain", "plain_bf16p")
 # The step kinds the runner names (never inferred from shapes: a
 # [32, 5] verify block and a small prefill block both have T > 1).
 STEP_KINDS = ("decode", "prefill", "ragged")
@@ -95,9 +95,13 @@ def dispatch_attention(config: ModelConfig, q, k_cache, v_cache,
     kv_lens - 1 - positions[:, 0]``; a pad row has kv_len 0.
 
     ``impl`` is "cuda" (the kernel wrappers, which take the plain
-    version for CPU tensors) or "plain" (the plain versions, on any
-    device). The default follows the tensors: "cuda" on the card,
-    "plain" on the CPU; the engine never asks for "plain" on the card.
+    version for CPU tensors), "plain" (the plain versions, on any
+    device) or "plain_bf16p" (the plain versions rounded as the card's
+    kernels round: for bf16 queries the prefill and ragged walks feed
+    their probabilities to p . v as bf16, as the tensor-core walk does;
+    decode and f32 queries take the f32 walk, as their kernels do). The
+    default follows the tensors: "cuda" on the card, "plain" on the
+    CPU; the engine never asks for a plain impl on the card.
     """
     del config  # shapes come from the tensors
     impl = impl or ("cuda" if q.is_cuda else "plain")
@@ -105,6 +109,10 @@ def dispatch_attention(config: ModelConfig, q, k_cache, v_cache,
         raise ValueError(f"attention impl must be one of "
                          f"{ATTENTION_IMPLS} (got {impl!r})")
     cuda = impl == "cuda"
+    # The walks that feed bf16 probabilities to p . v on the card.
+    rounded = ({"p_dtype": torch.bfloat16}
+               if impl == "plain_bf16p" and q.dtype == torch.bfloat16
+               else {})
     if kind == "decode":
         fn = paged_decode_attention if cuda else paged_decode_attention_plain
         return fn(q[:, 0], k_cache, v_cache, page_table, kv_lens,
@@ -113,12 +121,12 @@ def dispatch_attention(config: ModelConfig, q, k_cache, v_cache,
         fn = (paged_prefill_attention if cuda
               else paged_prefill_attention_plain)
         return fn(q, k_cache, v_cache, page_table, positions, kv_lens,
-                  layer=layer)
+                  layer=layer, **rounded)
     if kind == "ragged":
         fn = paged_ragged_attention if cuda else paged_ragged_attention_plain
         last_index = (kv_lens - 1 - positions[:, 0]).to(torch.int32)
         return fn(q, k_cache, v_cache, page_table, kv_lens, last_index,
-                  layer=layer)
+                  layer=layer, **rounded)
     raise ValueError(f"step kind must be one of {STEP_KINDS} "
                      f"(got {kind!r})")
 

@@ -17,11 +17,17 @@ slot of a decode row against the row's whole cache — 511 of 512 slots
 were pad. This kernel masks them per row: query rows are flattened
 slot-major, so a row's live slots are one prefix of its tiles; a tile
 past them writes zeros without reading K/V, and a tile with few live
-rows (a decode row's G queries, a verify row's (K + 1) * G) walks the
-row's pages with a narrow row block. The arithmetic is f32 FMA on the
-CUDA cores, as in the other two kernels. An int8 cache (a QuantKV)
-stages as int8 pages and their per-slot scales, folded in as in the
-Pallas kernel.
+rows walks the row's pages once for all of them. For bf16 queries (over
+a bf16 or an int8 cache) the walk is the prefill kernel's tensor-core
+walk (``csrc/paged_walk_mma.cuh``: four warps of 16 rows, bf16
+``mma.sync``, probabilities entering p.v as bf16, K/V through two
+stages of asynchronous copies, three blocks an SM), one row block for
+every tile: a warp with no live row skips its products, so a decode
+row's tile (G live rows) multiplies on one warp and a verify row's
+((K + 1) * G) on two. f32 queries (tiny-llama, held to 1e-4) keep the
+f32 FMA walk with a narrow row block. An int8 cache (a QuantKV) stages
+as int8 pages and their per-slot scales, folded in as in the Pallas
+kernel.
 
 Contract (the Pallas kernel's): q [R, W, num_q_heads, head_dim]; the
 per-layer or, with ``layer``, the stacked cache, as the decode kernel
@@ -110,12 +116,15 @@ def paged_ragged_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                                  kv_lens: torch.Tensor,
                                  last_index: torch.Tensor,
                                  draft_lens: Optional[torch.Tensor] = None,
-                                 layer: Optional[int] = None
+                                 layer: Optional[int] = None,
+                                 p_dtype: Optional[torch.dtype] = None
                                  ) -> torch.Tensor:
     """The kernel's function in plain torch: the same chunked page walk
     with the ragged mask and the online softmax, dead slots zeroed; a
     stacked cache is walked at ``layer``. ``draft_lens`` is not read,
-    as in the kernel."""
+    as in the kernel. ``p_dtype`` = torch.bfloat16 gives the tensor-core
+    kernel's rounding: the probabilities enter p . v rounded to bf16
+    while l sums the unrounded ones. The default is the f32 walk."""
     del draft_lens
     check_cache(k_cache, v_cache, layer)
     kc, vc, ks, vs = split_cache(k_cache, v_cache)
@@ -137,7 +146,7 @@ def paged_ragged_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     live = (slot <= last) & (kv > 0)
     out = page_walk_plain(qg, kc, vc, page_table, kv_lens,
                           lambda pos: live & (pos <= q_pos) & (pos < kv),
-                          ks, vs, layer)
+                          ks, vs, layer, p_dtype=p_dtype)
     out = torch.where(live, out, 0.0)
     return (out.reshape(r, num_kv_heads, w, group, head_dim)
             .permute(0, 2, 1, 3, 4)

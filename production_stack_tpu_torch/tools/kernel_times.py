@@ -1,13 +1,19 @@
-"""Device time of the decode and prefill kernels at their headline shapes.
+"""Device time of the three attention kernels at their headline shapes.
 
     python production_stack_tpu_torch/tools/kernel_times.py [--repo DIR]
 
 Times ``paged_decode_attention`` (B = 32, kv lens spread over 1..1024
-with two pad rows, page size 128) and ``paged_prefill_attention`` (B =
-8, T = 512, first chunk, live lengths 64..512 with one pad row, page
-size 128) at the bench-1b geometry (32 q / 8 kv heads, head_dim 64,
-bf16), over a bf16 and an int8 cache, through the public wrappers of the
-checkout at ``--repo`` (default: the checkout this file lies in). Where
+with two pad rows, page size 128), ``paged_prefill_attention`` (B = 8,
+T = 512, first chunk, live lengths 64..512 with one pad row, page size
+128) and ``paged_ragged_attention`` (the widest unified mixed step of
+the serving configuration, R = 40 rows at W = 512: 28 decode rows, 8
+chunk rows of first and second chunks, 4 pad rows; the speculative
+verify block, B = 32 at W = 5, draft lens 0..4, two pad rows; and the
+unified block's 28 decode rows and 12 pad rows alone, whose tiles past
+a row's live slots only write zeros; page size 128) at the bench-1b
+geometry (32 q / 8 kv heads, head_dim 64, bf16), over a bf16 and an
+int8 cache, through the public wrappers of the checkout at ``--repo``
+(default: the checkout this file lies in). Where
 the decode wrapper takes ``num_splits`` it also times the launch's fixed
 cost: a batch of pad rows (every block returns at once) and a batch of
 one-token rows, each at one split and at three (the second adds the
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 L2_FLUSH_BYTES = 128 << 20
-HEAD_START_CYCLES = 1_000_000
+HEAD_START_CYCLES = 4_000_000  # about 2 ms: host stalls shorter are hidden
 
 
 def _ms(fn, flush, iters=50, warmup=5) -> float:
@@ -79,6 +85,8 @@ def main(argv=None) -> int:
     from production_stack_tpu_torch.ops.prefill_attention_cuda import (
         paged_prefill_attention)
     from production_stack_tpu_torch.ops.quant_kv import QuantKV, quantize_kv
+    from production_stack_tpu_torch.ops.ragged_attention_cuda import (
+        paged_ragged_attention)
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -139,6 +147,37 @@ def main(argv=None) -> int:
         out["paged_prefill" + tag] = _ms(
             lambda: paged_prefill_attention(q, k, v, table, pos, kv_lens),
             flush)
+
+        # Ragged blocks as (kv_len, last_index) per row.
+        decode_lens = np.linspace(70, 1024, 28).round().astype(int).tolist()
+        chunks = [(0, 512), (0, 448), (0, 300), (0, 64), (512, 188),
+                  (512, 100), (512, 500), (0, 200)]
+        verify = [(max(int(n), i % 5 + 1), i % 5) for i, n in enumerate(
+            np.linspace(1, 1024, 32).round().astype(int))]
+        verify[9] = verify[26] = (0, -1)
+        blocks = {
+            "unified": (512, [(n, 0) for n in decode_lens]
+                        + [(s + n, n - 1) for s, n in chunks]
+                        + [(0, -1)] * 4, False),
+            "verify": (5, verify, True),
+            "dead_tiles": (512, [(n, 0) for n in decode_lens]
+                           + [(0, -1)] * 12, False),
+        }
+        for label, (w, rows, is_verify) in blocks.items():
+            pages = len(rows) * max_pages + 1
+            k, v = caches(pages, int8)
+            q = torch.randn((len(rows), w, nh, d), generator=gen).to(dev,
+                                                                     bf16)
+            table = _table([n for n, _ in rows], ps, max_pages, pages, gen,
+                           dev)
+            kv_lens = torch.tensor([n for n, _ in rows], dtype=torch.int32,
+                                   device=dev)
+            last = torch.tensor([li for _, li in rows], dtype=torch.int32,
+                                device=dev)
+            drafts = torch.clamp(last, min=0) if is_verify else None
+            out[f"paged_ragged_{label}{tag}"] = _ms(
+                lambda: paged_ragged_attention(q, k, v, table, kv_lens, last,
+                                               drafts), flush)
     print(json.dumps(out), flush=True)
     return 0
 

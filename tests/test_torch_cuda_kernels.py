@@ -21,12 +21,17 @@ with the stacked layout and with decode bursts. The redesigned
 kernels add: the split decode kernel at batch 1, 4 and 32 over tables
 of 1024 and 4096 tokens, at the split the wrapper picks and at forced
 ones; the tensor-core prefill walk at every T bucket 16..512 and page
-size 16..128 with row starts off the tile and the chunk; and two
-launches of each giving equal bits.
+size 16..128 with row starts off the tile and the chunk; the ragged
+kernel on the tensor-core walk at decode rows alone (every tile but the
+first dead), a verify block at draft lens 0..4 and chunk rows whose
+live slots end inside a tile, page sizes 16 to 128, bf16 and int8,
+per-layer and stacked; and two launches of each giving equal bits.
 
 Tolerance: f32 at atol = rtol = 1e-4 (the same arithmetic, sums in
 another order); bf16 at atol = rtol = 2e-2 (outputs rounded to bf16,
-compared in f32).
+compared in f32). The bf16 ragged kernel is held against the plain
+version with its rounding (``p_dtype=torch.bfloat16``: probabilities
+enter p . v as bf16).
 """
 
 import numpy as np
@@ -56,6 +61,15 @@ GEOMETRIES = [(torch.bfloat16, 4, 64), (torch.float32, 2, 32)]
 
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+def _ragged_plain(*args, **kwargs):
+    """The ragged kernel's plain version rounded as the kernel rounds:
+    bf16 queries run the tensor-core walk, whose probabilities enter
+    p . v as bf16; f32 queries the f32 walk."""
+    if args[0].dtype == torch.bfloat16:
+        kwargs["p_dtype"] = torch.bfloat16
+    return paged_ragged_attention_plain(*args, **kwargs)
 
 
 @pytest.fixture
@@ -167,7 +181,7 @@ def test_ragged_kernel_matches_plain(dev, dtype, group, head_dim,
     q = torch.randn((len(rows), w, 2 * group, head_dim),
                     generator=g).to(dev, dtype)
     got = paged_ragged_attention(q, k, v, table, lens, last, drafts)
-    ref = paged_ragged_attention_plain(q, k, v, table, lens, last, drafts)
+    ref = _ragged_plain(q, k, v, table, lens, last, drafts)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
     dead = ((torch.arange(w, device=dev)[None] > last[:, None].long())
@@ -353,6 +367,62 @@ def test_prefill_mma_buckets_and_page_sizes(dev, t, page_size, int8):
     assert not got[4].any()
 
 
+# Ragged blocks of the tensor-core walk at the bench-1b geometry, as
+# (W, [(kv_len, last_index), ...]): decode rows alone over kv lens
+# 1..1024 (every tile but the first dead; two pad rows); a verify block
+# at draft lens 0..4 ((K + 1) * G live rows end inside a warp's 16);
+# chunk rows whose live slots end inside a 64-row tile, at first and
+# later chunks (148 .. 2044 live rows, none a multiple of 64).
+RAGGED_MMA_BLOCKS = {
+    "decode_rows": (512, [(int(n), 0) for n in np.linspace(1, 1024, 14)]
+                    + [(0, -1), (0, -1)]),
+    "verify": (5, [(max(int(n), i % 5 + 1), i % 5) for i, n in enumerate(
+        np.linspace(1, 1024, 15))] + [(0, -1)]),
+    "mid_tile": (512, [(s + n, n - 1) for s, n in (
+        (0, 37), (200, 100), (700, 129), (0, 511), (1000, 3), (300, 250))]),
+}
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("page_size", [16, 32, 64, 128])
+@pytest.mark.parametrize("block", sorted(RAGGED_MMA_BLOCKS))
+def test_ragged_mma_blocks(dev, block, page_size, int8, stacked):
+    """The bf16 ragged kernel on the tensor-core walk: within tolerance
+    of the bf16-p plain version on every slot, dead slots and pad rows
+    exact 0, two launches equal bit for bit and, stacked, bitwise equal
+    to the per-layer launch on the layer's view."""
+    w, rows = RAGGED_MMA_BLOCKS[block]
+    kv_lens = [n for n, _ in rows]
+    k, v, table, lens, g = _wide_inputs(dev, torch.bfloat16, kv_lens, 4, 8,
+                                        64, page_size, 1024, 41, int8)
+    last = torch.tensor([li for _, li in rows], dtype=torch.int32,
+                        device=dev)
+    drafts = torch.clamp(last, min=0) if block == "verify" else None
+    q = torch.randn((len(rows), w, 32, 64), generator=g).to(
+        dev, torch.bfloat16)
+    layer = {}
+    if stacked:
+        layers = 3
+        layer = {"layer": layers - 1}
+        k, v = (_stacked(c, layers, layers - 1, g) for c in (k, v))
+    got = paged_ragged_attention(q, k, v, table, lens, last, drafts, **layer)
+    again = paged_ragged_attention(q, k, v, table, lens, last, drafts,
+                                   **layer)
+    ref = _ragged_plain(q, k, v, table, lens, last, drafts, **layer)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **TOL[torch.bfloat16])
+    assert torch.equal(got, again)
+    dead = ((torch.arange(w, device=dev)[None] > last[:, None].long())
+            | (lens[:, None] == 0))
+    assert not got[dead].any()  # dead slots and pad rows: exact 0
+    if stacked:
+        per_layer = paged_ragged_attention(q, k[-1], v[-1], table, lens,
+                                           last, drafts)
+        assert torch.equal(got, per_layer)
+
+
 # ---- the int8 form ----------------------------------------------------------
 
 
@@ -423,8 +493,7 @@ def test_int8_ragged_kernel_matches_plain(dev, dtype, group, head_dim,
     q = torch.randn((len(rows), w, 2 * group, head_dim),
                     generator=g).to(dev, dtype)
     got = paged_ragged_attention(q, k8, v8, table, lens, last, drafts)
-    ref = paged_ragged_attention_plain(q, k8, v8, table, lens, last,
-                                       drafts)
+    ref = _ragged_plain(q, k8, v8, table, lens, last, drafts)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
     dead = ((torch.arange(w, device=dev)[None] > last[:, None].long())
@@ -498,7 +567,7 @@ def _kernel_call(kernel, dev, dtype, group, head_dim, page_size, g):
                         device=dev)
     q = torch.randn((len(rows), w, 2 * group, head_dim),
                     generator=g).to(dev, dtype)
-    return (paged_ragged_attention, paged_ragged_attention_plain, (q,),
+    return (paged_ragged_attention, _ragged_plain, (q,),
             (table, lens, last, torch.clamp(last, min=0)), k, v)
 
 

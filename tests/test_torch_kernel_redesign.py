@@ -1,4 +1,4 @@
-"""The redesigned decode and prefill kernels' algorithms on the CPU.
+"""The redesigned decode, prefill and ragged kernels' algorithms on the CPU.
 
 The CUDA kernels run only on the card (tests/test_torch_cuda_kernels.py,
 ``chip_smoke.py``); what can be held here is their arithmetic, which the
@@ -11,15 +11,19 @@ plain versions repeat step for step:
   decode kernel in interpret mode;
 - ``decode_splits``, which picks S and the chunks of a split from
   host-known shapes only;
-- the prefill walk with the tensor-core kernel's rounding (probabilities
-  rounded to bf16 before p . v, l from the unrounded ones) against the
-  Pallas prefill kernel in interpret mode, and its default unchanged;
+- the prefill and the ragged walks with the tensor-core kernel's
+  rounding (probabilities rounded to bf16 before p . v, l from the
+  unrounded ones) against the Pallas prefill and ragged kernels in
+  interpret mode, and their defaults unchanged;
+- the model's ``plain_bf16p`` attention, which routes the prefill and
+  ragged steps of bf16 queries through that rounding;
 - the CPU wrappers still taking the plain versions.
 
 Inputs are made with numpy from a seed and go through both packages.
 Tolerance: f32 at atol = rtol = 1e-5 (the same f32 arithmetic, sums in
 another order: the split walk merges S partial sums); the bf16-rounded
-prefill walk at 2e-2 (one bf16 rounding of probabilities of order 1).
+prefill and ragged walks at 2e-2 (one bf16 rounding of probabilities of
+order 1).
 """
 
 import inspect
@@ -38,6 +42,9 @@ from production_stack_tpu.ops.paged_attention_pallas import (
 )
 from production_stack_tpu.ops.prefill_attention_pallas import (
     paged_prefill_attention as jax_paged_prefill_attention,
+)
+from production_stack_tpu.ops.ragged_attention_pallas import (
+    paged_ragged_attention as jax_paged_ragged_attention,
 )
 from production_stack_tpu.ops.quant_kv import (
     QuantKV as JaxQuantKV,
@@ -62,6 +69,12 @@ from production_stack_tpu_torch.ops.prefill_attention_cuda import (
     paged_prefill_attention_plain,
 )
 from production_stack_tpu_torch.ops.quant_kv import QuantKV
+from production_stack_tpu_torch.ops.ragged_attention_cuda import (
+    paged_ragged_attention,
+    paged_ragged_attention_plain,
+)
+from tests.test_torch_ragged_attention import CASES as RAGGED_CASES
+from tests.test_torch_ragged_attention import _live, _setup
 
 torch.set_num_threads(2)
 
@@ -228,7 +241,7 @@ def test_split_outside_the_table_is_refused(bad):
         paged_decode_attention_plain(*c["port"], num_splits=bad)
 
 
-# ---- (c) the prefill walk with the tensor-core kernel's rounding ---------------
+# ---- (c) the prefill and ragged walks with the tensor-core rounding ---------
 
 
 def _prefill_case(seed, first_chunk):
@@ -288,7 +301,85 @@ def test_prefill_plain_default_is_the_f32_walk_bit_for_bit(first_chunk):
     np.testing.assert_allclose(default.numpy(), expected, **TOL)
 
 
-# ---- (d) the CPU wrappers ------------------------------------------------------
+@pytest.mark.parametrize("name", sorted(RAGGED_CASES))
+def test_ragged_plain_bf16_probabilities_match_pallas(name):
+    q, k, v, pt, kv, li, dl, _ = _setup(**RAGGED_CASES[name])
+    # The Pallas kernel takes a pad row's last_index as given; clamp the
+    # engine's -1 to its 0 (both describe no live slot).
+    expected = np.asarray(jax_paged_ragged_attention(
+        _j(q), _j(k), _j(v), _j(pt), _j(kv), _j(np.maximum(li, 0)),
+        None if dl is None else _j(dl), interpret=True))
+    targs = [None if x is None else _t(x) for x in (q, k, v, pt, kv, li, dl)]
+    got = paged_ragged_attention_plain(*targs, p_dtype=torch.bfloat16)
+    np.testing.assert_allclose(got.numpy(), expected, **BF16_P_TOL)
+    dead = ~_live(kv, li, q.shape[1])
+    assert not got.numpy()[dead].any()  # dead slots and pad rows: exact 0
+    # The rounding is really applied: the f32 walk differs in some bit.
+    assert not torch.equal(got, paged_ragged_attention_plain(*targs))
+
+
+@pytest.mark.parametrize("name", sorted(RAGGED_CASES))
+def test_ragged_plain_default_is_the_f32_walk_bit_for_bit(name):
+    q, k, v, pt, kv, li, dl, _ = (
+        None if x is None else _t(x) for x in _setup(**RAGGED_CASES[name]))
+    default = paged_ragged_attention_plain(q, k, v, pt, kv, li, dl)
+    assert torch.equal(default, paged_ragged_attention_plain(
+        q, k, v, pt, kv, li, dl, p_dtype=None))
+    # The walk written out: slot-major rows (t, g), q at q_start + t.
+    r, w, nh, d = q.shape
+    kvh = k.shape[0]
+    g = nh // kvh
+    qg = (q.reshape(r, w, kvh, g, d).permute(0, 2, 1, 3, 4)
+          .reshape(r, kvh, w * g, d))
+    slot = (torch.arange(w * g) // g)[None, None, :, None]
+    lens = kv.long()[:, None, None, None]
+    last = li.long()[:, None, None, None]
+    live = (slot <= last) & (lens > 0)
+    q_pos = lens - 1 - last + slot
+    walk = page_walk_plain(qg, k, v, pt, kv,
+                           lambda pos: live & (pos <= q_pos) & (pos < lens))
+    walk = torch.where(live, walk, 0.0)
+    walk = (walk.reshape(r, kvh, w, g, d).permute(0, 2, 1, 3, 4)
+            .reshape(r, w, nh, d))
+    assert torch.equal(default, walk)
+
+
+# ---- (d) the model's plain_bf16p attention ------------------------------
+
+
+def _dispatch_case(kind, dtype):
+    """The mixed ragged case in ``dtype`` as dispatch_attention takes
+    it: [R, W] positions at q_start + t (one slot for decode)."""
+    q, k, v, pt, kv, _, _, pos = _setup(**RAGGED_CASES["mixed_rows_and_pads"])
+    if kind == "decode":
+        q, pos = q[:, :1], pos[:, :1]
+    return [_t(x).to(dtype) if x.dtype == np.float32 else _t(x)
+            for x in (q, k, v, pt, pos, kv)]
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_plain_bf16p_rounds_only_where_the_card_does(kind, dtype):
+    from production_stack_tpu_torch.models.llama import (
+        ATTENTION_IMPLS,
+        dispatch_attention,
+    )
+    assert ATTENTION_IMPLS == ("cuda", "plain", "plain_bf16p")
+    q, k, v, pt, pos, kv = _dispatch_case(kind, dtype)
+    call = lambda impl: dispatch_attention(  # noqa: E731
+        None, q, k, v, pt, pos, kv, kind=kind, impl=impl)
+    rounded, plain = call("plain_bf16p"), call("plain")
+    if dtype == torch.bfloat16 and kind != "decode":
+        # The prefill and ragged walks feed bf16 probabilities to p . v.
+        assert not torch.equal(rounded, plain)
+        torch.testing.assert_close(rounded.float(), plain.float(),
+                                   **BF16_P_TOL)
+    else:
+        # Decode's split walk and every f32 walk stay in f32 on the card.
+        assert torch.equal(rounded, plain)
+
+
+# ---- (e) the CPU wrappers ----------------------------------------------
 
 
 def test_cpu_wrappers_still_take_the_plain_versions():
@@ -303,5 +394,9 @@ def test_cpu_wrappers_still_take_the_plain_versions():
     targs = [_t(x) for x in _prefill_case(10, False)]
     assert torch.equal(paged_prefill_attention(*targs),
                        paged_prefill_attention_plain(*targs))
+    rargs = [None if x is None else _t(x)
+             for x in _setup(**RAGGED_CASES["verify_spans"])[:7]]
+    assert torch.equal(paged_ragged_attention(*rargs),
+                       paged_ragged_attention_plain(*rargs))
     assert COUNTERS.launches == {}
     assert COUNTERS.plain_cuda_calls == {}

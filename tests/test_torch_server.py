@@ -1,16 +1,23 @@
 """The port's HTTP server on the CPU with the tiny model: the routes and
-JSON shapes of the JAX server, and a 400 naming each feature the port
-does not serve yet."""
+JSON shapes of the JAX server, a 501 naming the feature of each JAX
+route the port does not serve, and a 400 naming each request feature
+the port does not serve yet."""
 
 import json
+import re
 import threading
 import urllib.error
 import urllib.request
+from pathlib import Path
 
 import pytest
 import torch
 
-from production_stack_tpu_torch.engine.server import make_server
+from production_stack_tpu_torch.engine.server import (
+    UNPORTED_ROUTES,
+    make_server,
+    unported_feature,
+)
 
 torch.set_num_threads(2)
 
@@ -31,6 +38,13 @@ def base_url():
 def _get(url):
     with urllib.request.urlopen(url, timeout=60) as resp:
         return resp.status, resp.read().decode()
+
+
+def _get_status(url):
+    try:
+        return _get(url)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
 
 
 def _post(url, body):
@@ -114,6 +128,52 @@ def test_unported_features_are_rejected(base_url, extra, feature):
                          {"prompt": "x", "max_tokens": 2, **extra})
     assert status == 400
     assert feature in json.loads(text)["error"]["message"]
+
+
+def _reference_routes():
+    """(method, path) of every route the JAX server registers, read from
+    its source as text (no import), so the list cannot drift."""
+    src = (Path(__file__).resolve().parents[1] / "production_stack_tpu"
+           / "engine" / "server.py").read_text()
+    return [(m.upper(), p) for m, p in
+            re.findall(r'add_(get|post)\(\s*"([^"]+)"', src)]
+
+
+SERVED_ROUTES = {("GET", "/health"), ("GET", "/v1/models"),
+                 ("GET", "/metrics"), ("POST", "/v1/completions"),
+                 ("POST", "/v1/chat/completions")}
+
+
+def test_every_reference_route_is_served_or_answers_501(base_url):
+    routes = _reference_routes()
+    assert len(routes) == 24
+    for method, path in routes:
+        # A templated segment ({request_id}) takes a concrete value.
+        concrete = re.sub(r"\{[^}]+\}", "req-123", path)
+        url = base_url + concrete
+        body = {"prompt": "x", "max_tokens": 1, "temperature": 0,
+                "messages": [{"role": "user", "content": "x"}]}
+        status, text = (_get_status(url) if method == "GET"
+                        else _post(url, body))
+        if (method, path) in SERVED_ROUTES:
+            assert status == 200, (method, path, text)
+            continue
+        feature = unported_feature(method, concrete)
+        assert feature, (method, path)
+        assert status == 501, (method, path, text)
+        message = json.loads(text)["error"]["message"]
+        assert feature in message and "not ported" in message
+    assert len(UNPORTED_ROUTES) == 24 - len(SERVED_ROUTES)
+
+
+@pytest.mark.parametrize("method,path", [
+    ("GET", "/nope"), ("POST", "/v1/nope"), ("GET", "/debug/trace/"),
+    ("GET", "/drain"), ("POST", "/version")])
+def test_unknown_routes_answer_404(base_url, method, path):
+    status, text = (_get_status(base_url + path) if method == "GET"
+                    else _post(base_url + path, {}))
+    assert status == 404 and "no route" in json.loads(text)["error"][
+        "message"]
 
 
 def test_server_needs_a_card_unless_asked_for_cpu(monkeypatch):
