@@ -73,11 +73,31 @@ its result line:
 5. engine, no HTTP: bench-1b with the stacked layout, unified step and
    async off, 8 greedy prompts submitted together, decode_steps 1 and
    then 4 (bursts): the token streams must be byte-identical;
-6. serving: the port's HTTP server in-process with bench-1b at full
+6. graphs, no HTTP: bench-1b, 16 greedy prompts of 64..700 tokens
+   submitted together (a prefill step, unified mixed steps, then
+   decode), each step replayed as a CUDA graph of its kind and bucket
+   shape against the same run eager (``cuda_graphs=False``), in four
+   cases: per_layer bf16 and stacked int8 KV with the unified step and
+   async on, ``speculative_k`` 4 on prompts that repeat a block, and
+   ``decode_steps`` 4. The greedy streams must be byte-identical, each
+   key captured once, every step replayed, no step eager. In the first
+   case both runs go under ``torch.profiler``: the kernels the card ran
+   must be, kernel by kernel, what the launch counters say (the
+   graphed run's from the replay accounting), and the host calls that
+   queue work (launches, graph launches, copies) are counted per steady
+   decode step both ways. A seeded request then runs alone in both
+   engines: its steps run eagerly, are counted as such, and give the
+   same tokens. Captures by kind, capture seconds, graph-pool bytes and
+   host launches per decode step are printed;
+7. serving: the port's HTTP server in-process with bench-1b at full
    width, 16 concurrent completions plus a repeated greedy one, with
    the kernels' launch counters read around the run (all three kernels
-   must launch: prefill steps, unified mixed steps, decode steps);
-7. speculative serving: the same server with ``--speculative-k 4``
+   must launch: prefill steps, unified mixed steps, decode steps). The
+   server replays its steps as graphs, so the counts come from the
+   replay accounting; each serving run must have captured graphs,
+   replayed them and run no step eagerly, and prints its captures by
+   kind;
+8. speculative serving: the same server with ``--speculative-k 4``
    (async 'auto' then resolves off), 16 concurrent greedy completions
    on prompts that repeat a block, so the n-gram proposer drafts even
    under random weights. It must draft, launch the ragged kernel
@@ -86,25 +106,25 @@ its result line:
    completion characters (one per token under the bench tokenizer)
    that agree with the spec-off server on the same prompts. That share
    is printed, not asserted: bf16 kernels may flip near-ties;
-8. int8 serving: the first run's server with ``--kv-cache-dtype int8``
+9. int8 serving: the first run's server with ``--kv-cache-dtype int8``
    and the same 16 requests. It must launch the int8 form of all three
    kernels, make no plain call on CUDA tensors, repeat a greedy request
    exactly and show ``kv_dtype="int8"`` and the expanded page capacity
    (962 of 963 pages) on ``/metrics``; it prints tok/s and the share of
    greedy characters that agree with the bf16 run (printed, not
    asserted: int8 KV changes tokens);
-9. stacked serving: the first run's server with ``--cache-layout
-   stacked`` and the same requests. It must launch the stacked form of
-   all three kernels and no per-layer form, make no plain call on CUDA
-   tensors and repeat a greedy request exactly; it prints the share of
-   greedy characters that agree with the first run (printed, not
-   asserted: request timing changes the steps' composition);
-10. burst serving: ``--cache-layout stacked --kv-cache-dtype int8
-   --decode-steps 4`` (async ``auto`` then off) and the same requests.
-   It must launch the int8 stacked forms only, no completion may pass
-   its ``max_tokens``, the repeated greedy request must reproduce, and
-   its decode dispatches must commit at least 3 tokens a row on
-   average (a burst commits up to 4).
+10. stacked serving: the first run's server with ``--cache-layout
+    stacked`` and the same requests. It must launch the stacked form of
+    all three kernels and no per-layer form, make no plain call on CUDA
+    tensors and repeat a greedy request exactly; it prints the share of
+    greedy characters that agree with the first run (printed, not
+    asserted: request timing changes the steps' composition);
+11. burst serving: ``--cache-layout stacked --kv-cache-dtype int8
+    --decode-steps 4`` (async ``auto`` then off) and the same requests.
+    It must launch the int8 stacked forms only, no completion may pass
+    its ``max_tokens``, the repeated greedy request must reproduce, and
+    its decode dispatches must commit at least 3 tokens a row on
+    average (a burst commits up to 4).
 
 The line before the last is the ``kernels`` JSON summary, one entry a
 kernel with its bf16 per-layer numbers and ``int8``, ``stacked`` and
@@ -1045,6 +1065,226 @@ def engine_phase(vocab: int) -> None:
         "decode_steps 1 (8 rows x 32 tokens)")
 
 
+# ---- graph phase ------------------------------------------------------------
+
+
+# The engine comparison's cases: (label, cache options, scheduler
+# options). Spec and bursts run synchronously, as the server's async
+# ``auto`` resolves them.
+GRAPH_CASES = [
+    ("per_layer bf16, unified, async", {"cache_layout": "per_layer"},
+     {"unified_step": True, "async_scheduling": True}),
+    ("stacked int8, unified, async",
+     {"cache_layout": "stacked", "kv_cache_dtype": "int8"},
+     {"unified_step": True, "async_scheduling": True}),
+    ("spec k=4, unified", {"cache_layout": "per_layer"},
+     {"unified_step": True, "async_scheduling": False,
+      "speculative_k": 4}),
+    ("decode_steps 4, unified", {"cache_layout": "per_layer"},
+     {"unified_step": True, "async_scheduling": False, "decode_steps": 4}),
+]
+# Steady decode steps whose host calls are counted (first case).
+HOST_WINDOW_STEPS = 4
+
+
+def _kernel_family(name: str):
+    """The launch counter a device kernel's name belongs to (its forms
+    summed), or None: the decode kernel's merge is not a counted
+    launch."""
+    for kernel in KERNELS:
+        if kernel + "_kernel" in name or kernel + "_mma_kernel" in name:
+            return kernel
+    return None
+
+
+def _engine_run(cfg, prompts, cuda_graphs, profiled):
+    """Run ``prompts`` (greedy, 32 tokens each, submitted together)
+    through a fresh engine; returns its streams and what it counted.
+    ``profiled``: the run goes under torch.profiler, which gives the
+    kernels the card ran, by counter, and the host calls queued in a
+    window of steady decode steps."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
+    from production_stack_tpu_torch.tools.profile_steps import (
+        is_host_launch)
+
+    engine = LLMEngine(cfg, device="cuda", cuda_graphs=cuda_graphs)
+    torch.cuda.synchronize()
+    COUNTERS.reset()
+    seqs = [engine.sequences[engine.add_request(p, SamplingParams(
+        temperature=0.0, max_tokens=32, ignore_eos=True))] for p in prompts]
+
+    def run():
+        window = False
+        while engine.has_work():
+            # The window: once every row is decoding, mid-run.
+            if (profiled and not window
+                    and all(len(q.output_token_ids) >= 8 for q in seqs)):
+                window = True
+                with record_function("host window"):
+                    for _ in range(HOST_WINDOW_STEPS):
+                        engine.step()
+                    torch.cuda.synchronize()
+            else:
+                engine.step()
+        torch.cuda.synchronize()
+
+    out = {}
+    t0 = time.perf_counter()
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+        ran = {}
+        for e in prof.key_averages():
+            family = (_kernel_family(e.key)
+                      if str(e.device_type).endswith("CUDA") else None)
+            if family:
+                ran[family] = ran.get(family, 0) + e.count
+        events = prof.events()
+        span = next(e.time_range for e in events if e.name == "host window")
+        calls = {}
+        for e in events:
+            if (is_host_launch(e.name) and span.start <= e.time_range.start
+                    and e.time_range.end <= span.end):
+                calls[e.name] = calls.get(e.name, 0) + 1
+        out.update(device_launches=ran, window_calls=calls)
+    else:
+        run()
+    out["wall"] = time.perf_counter() - t0
+    out["streams"] = [list(q.output_token_ids) for q in seqs]
+    out["counted"] = {}
+    for name, n in COUNTERS.launches.items():
+        family = next(k for k in KERNELS if name.startswith(k))
+        out["counted"][family] = out["counted"].get(family, 0) + n
+    out["plain_calls"] = dict(COUNTERS.plain_cuda_calls)
+    graphs = engine.runner.graphs
+    if graphs is not None:
+        out.update(captures=dict(graphs.captures),
+                   capture_seconds=dict(graphs.capture_seconds),
+                   replays=dict(graphs.replays), keys=graphs.keys(),
+                   eager_steps=dict(graphs.eager_steps),
+                   pool_bytes=graphs.pool_bytes())
+    out["steps"] = engine.metrics.pipeline_steps_total
+    out["ragged_steps"] = engine.metrics.ragged_steps_total
+    out["drafted"] = engine.metrics.spec_draft_tokens_total
+    out["engine"] = engine
+    return out
+
+
+def _seeded_run(engine, vocab):
+    """One seeded stochastic request alone: every step has the seeded
+    row, so every step runs eagerly on either path."""
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+
+    rng = np.random.RandomState(9)
+    seq = engine.generate(rng.randint(258, vocab, size=200).tolist(),
+                          SamplingParams(temperature=0.8, top_p=0.95,
+                                         seed=17, max_tokens=8,
+                                         ignore_eos=True))
+    return list(seq.output_token_ids)
+
+
+def graph_phase(vocab: int) -> None:
+    """Each case graphed against eager: greedy streams byte-identical;
+    see the module docstring (phase 6)."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig, EngineConfig, SchedulerConfig, bench_1b_model_config)
+
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(258, vocab, size=n).tolist()
+               for n in np.linspace(64, 700, 16).round().astype(int)]
+    spec_prompts = []
+    for i in range(16):
+        block = rng.randint(258, vocab, size=16 + 3 * i).tolist()
+        spec_prompts.append((block * (500 // len(block) + 1))[:500 - 7 * i])
+    for c, (label, cache, sched) in enumerate(GRAPH_CASES):
+        cfg_of = lambda: EngineConfig(  # noqa: E731
+            model=bench_1b_model_config(),
+            cache=CacheConfig(page_size=128, num_pages=512, **cache),
+            scheduler=SchedulerConfig(
+                max_num_seqs=32, max_model_len=1024, prefill_chunk_size=512,
+                prefill_batch_size=8, **sched))
+        case_prompts = spec_prompts if "speculative_k" in sched else prompts
+        runs = {}
+        for cuda_graphs in (True, False):
+            run = _engine_run(cfg_of(), case_prompts, cuda_graphs,
+                              profiled=c == 0)
+            if c == 0:
+                # A seeded request alone, in the same engine.
+                run["seeded"] = _seeded_run(run["engine"], vocab)
+                if cuda_graphs:
+                    run["eager_after_seeded"] = dict(
+                        run["engine"].runner.graphs.eager_steps)
+            del run["engine"]
+            torch.cuda.empty_cache()
+            runs["graphs" if cuda_graphs else "eager"] = run
+        g, e = runs["graphs"], runs["eager"]
+        log(f"graphs bench-1b {label}: {len(case_prompts)} prompts x 32 "
+            f"tokens over {g['steps']} steps ({g['ragged_steps']} unified or "
+            f"verify-ragged, {g['drafted']} drafted); graphed "
+            f"{g['wall']:.3f} s, eager {e['wall']:.3f} s; captures "
+            f"{g['captures']} in "
+            f"{ {k: round(v, 3) for k, v in g['capture_seconds'].items()} } s"
+            f", replays {g['replays']}, {len(g['keys'])} keys "
+            f"{sorted(g['keys'])}, graph pool "
+            f"{g['pool_bytes'] / 2**20:.1f} MiB, eager steps "
+            f"{g['eager_steps']}; launches graphed {g['counted']}, eager "
+            f"{e['counted']}")
+        if g["streams"] != e["streams"]:
+            rows = [i for i, (a, b) in enumerate(zip(g["streams"],
+                                                     e["streams"]))
+                    if a != b]
+            raise AssertionError(f"graphs {label}: greedy streams differ "
+                                 f"from the eager run's in rows {rows}")
+        if (sum(g["captures"].values()) != len(g["keys"])
+                or g["eager_steps"] != {"seeded": 0}
+                or sum(g["replays"].values()) < len(g["keys"])):
+            raise AssertionError(
+                f"graphs {label}: expected one capture a key, a replay "
+                f"every step and no eager step: captures {g['captures']}, "
+                f"keys {len(g['keys'])}, replays {g['replays']}, steps "
+                f"{g['steps']}, eager {g['eager_steps']}")
+        if g["plain_calls"] or e["plain_calls"]:
+            raise AssertionError(f"graphs {label}: plain versions ran on "
+                                 f"CUDA tensors")
+        if set(g["counted"]) != set(KERNELS) and c < 2:
+            raise AssertionError(f"graphs {label}: launched {g['counted']}, "
+                                 "expected all three kernels")
+        if "speculative_k" in sched and g["drafted"] <= 0:
+            raise AssertionError(f"graphs {label}: nothing was drafted")
+        if c == 0:
+            for path, run in runs.items():
+                if run["device_launches"] != run["counted"]:
+                    raise AssertionError(
+                        f"graphs {label} ({path}): the card ran "
+                        f"{run['device_launches']} kernels, the counters "
+                        f"say {run['counted']}")
+                calls = {k: v / HOST_WINDOW_STEPS
+                         for k, v in sorted(run["window_calls"].items())}
+                log(f"graphs bench-1b {label} ({path}): host calls per "
+                    f"steady decode step {sum(calls.values()):.2f} "
+                    f"({calls}); "
+                    f"the card ran {run['device_launches']} attention "
+                    "kernels, as counted")
+            if g["seeded"] != e["seeded"]:
+                raise AssertionError("graphs: a seeded request's tokens "
+                                     "differ between the two engines")
+            eager = g["eager_after_seeded"]["seeded"]
+            if eager < 8:
+                raise AssertionError(f"graphs: the seeded request's steps "
+                                     f"ran eagerly {eager} times, expected "
+                                     "one a step (8)")
+            log(f"graphs: a seeded request alone ran {eager} steps "
+                f"eagerly in the graphed engine, tokens equal to the eager "
+                "engine's")
+        log(f"graphs bench-1b {label}: greedy streams byte-identical, "
+            f"graphed against eager ({len(case_prompts)} rows x 32 tokens)")
+
+
 # ---- serving phase ----------------------------------------------------------
 
 
@@ -1113,6 +1353,9 @@ def serving_run(label, extra_args, requests, repeat, after=(), form=""):
         launches = dict(COUNTERS.launches)
         plain_calls = dict(COUNTERS.plain_cuda_calls)
         decode_counts = dict(decode)
+        graphs = runner.graphs
+        ledger = (dict(graphs.captures), dict(graphs.replays),
+                  dict(graphs.eager_steps), len(graphs.keys()))
         with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
             metrics = r.read().decode()
         after_answers = post_all(list(after)) if after else []
@@ -1151,6 +1394,19 @@ def serving_run(label, extra_args, requests, repeat, after=(), form=""):
     if any(plain_calls.values()):
         raise AssertionError(f"{label}: plain versions ran on CUDA "
                              f"tensors: {plain_calls}")
+    captures, replays, eager, keys = ledger
+    if (sum(captures.values()) != keys or not sum(replays.values())
+            or any(eager.values())):
+        raise AssertionError(f"{label}: expected every step replayed from "
+                             f"a graph captured once a key: captures "
+                             f"{captures}, keys {keys}, replays {replays}, "
+                             f"eager steps {eager}")
+    if metric("vllm:engine_compile_events_total{kind=\"step\"}") != (
+            captures["step"]):
+        raise AssertionError(f"{label}: /metrics does not carry the "
+                             "step graphs' captures")
+    log(f"{label}: captures {captures} ({keys} keys), replays {replays}, "
+        f"eager steps {eager}")
     tokens = sum(b["max_tokens"] for b in requests)
     log(f"{label} bench-1b: {len(requests)} concurrent requests, "
         f"{tokens} tokens in {wall:.3f} s ({tokens / wall:.1f} tok/s); "
@@ -1308,6 +1564,7 @@ def main() -> int:
         bench_1b_model_config)
     vocab = bench_1b_model_config().vocab_size
     engine_phase(vocab)
+    graph_phase(vocab)
     launches = serving_phase(vocab)
 
     def numbers(h):

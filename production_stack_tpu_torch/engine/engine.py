@@ -63,16 +63,20 @@ class StepOutput:
 class LLMEngine:
     """The serving engine on one device: ``cuda`` unless the caller
     passes ``device="cpu"``; with no card and no such argument it
-    raises."""
+    raises. On the card each step replays a CUDA graph of its kind and
+    bucket shape; ``cuda_graphs=False`` runs them eagerly (to compare:
+    the server has no such flag, as the JAX server has none)."""
 
     def __init__(self, config: EngineConfig, params=None,
-                 tokenizer: Optional[BaseTokenizer] = None, device=None):
+                 tokenizer: Optional[BaseTokenizer] = None, device=None,
+                 cuda_graphs: bool = True):
         self.config = config
         self.tokenizer = tokenizer or get_tokenizer(None)
         self.cache_manager = PagedCacheManager(config.cache)
         self.scheduler = Scheduler(config.scheduler, config.cache,
                                    self.cache_manager)
-        self.runner = ModelRunner(config, params=params, device=device)
+        self.runner = ModelRunner(config, params=params, device=device,
+                                  cuda_graphs=cuda_graphs)
         self.sequences: Dict[str, Sequence] = {}
         self._lock = threading.Lock()
         self.metrics = EngineMetrics()

@@ -1,13 +1,20 @@
 """Model runner: owns the device state and runs each step.
 
-The JAX engine's runner compiles a program per shape and donates the
-caches through it; here PyTorch runs eagerly and the KV buffers (a
-list of per-layer buffers, or one stacked buffer per k/v) are updated
-in place. The shapes stay the JAX engine's closed sets — prefill
-chunks padded to power-of-two buckets, decode at a fixed slot width,
-unified [R, W] blocks on a row-bucket lattice — so the
-kernels see the same shapes on both, and a later CUDA-graph capture
-has a small set to capture.
+The JAX engine's runner compiles a program per step kind and shape and
+donates the caches through it. Here, on the card, each step is ONE CUDA
+graph per (kind, bucket shape, sampler mode), captured at the key's
+first use and replayed from static device buffers after it
+(engine/step_graphs.py; the constructor's ``cuda_graphs=False`` runs
+every step eagerly instead, to compare). The KV buffers (a list of
+per-layer buffers, or one stacked buffer per k/v) are allocated once
+and updated in place, so their addresses are what the graphs hold. The
+shapes stay the JAX engine's closed sets — prefill chunks padded to
+power-of-two buckets, decode at a fixed slot width, unified [R, W]
+blocks on a row-bucket lattice — so the kernels see the same shapes on
+both, and the graphs are few. On the card a step runs without a graph
+only when a row is seeded (its draw uses a generator built on the host
+for that row); such steps are counted. The CPU has no graphs and runs
+every step eagerly.
 
 One kernel per step kind on the card, named by the runner (never
 inferred from shapes): decode steps go through the decode kernel,
@@ -18,7 +25,8 @@ and impl ladders have no counterpart; its verify program attends
 through the prefill path, the port's through the ragged kernel, whose
 contract on live slots is the same. A decode burst (``decode_steps``
 > 1) is K chained decode iterations with the sampled tokens and each
-row's lifecycle kept on the device: one host read per K tokens.
+row's lifecycle kept on the device, one graph for the K iterations:
+one host read per K tokens.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from production_stack_tpu_torch.engine.sequence import (
     Sequence,
     decode_budget,
 )
+from production_stack_tpu_torch.engine.step_graphs import StepGraphs
 from production_stack_tpu_torch.models.registry import get_model
 from production_stack_tpu_torch.ops.paged_kv_common import (
     check_kernel_shapes,
@@ -46,16 +55,21 @@ from production_stack_tpu_torch.ops.quant_kv import quant_cache_zeros
 from production_stack_tpu_torch.ops.sampling import (
     burst_sample_step,
     sample_tokens,
+    sampler_mode,
     spec_verify,
 )
 from production_stack_tpu_torch.utils.log import init_logger
 
 logger = init_logger(__name__)
 
-KIND_PREFILL = 1
-KIND_DECODE = 2
-KIND_SPEC = 4
-KIND_UNIFIED = 5
+# The per-row sampling knobs every step takes.
+KNOBS = ("temperature", "top_p", "top_k")
+# The inputs of a unified or verify (ragged) step.
+RAGGED_INPUTS = ("tokens", "positions", "valid", "page_table", "kv_lens",
+                 "last_index", "drafts", "draft_lens")
+# A burst's stop sets are padded with -1 to at least this width, and to
+# a power of two, so that the stop-set width rarely makes a new key.
+MIN_STOP_WIDTH = 4
 
 
 def resolve_device(device=None) -> torch.device:
@@ -170,7 +184,12 @@ class SpecStepHandle:
 
 
 class ModelRunner:
-    def __init__(self, config: EngineConfig, params=None, device=None):
+    """``cuda_graphs``: on the card, run each step as a CUDA graph per
+    key (``StepGraphs``); False runs every step eagerly, to compare
+    with. The CPU always runs eagerly."""
+
+    def __init__(self, config: EngineConfig, params=None, device=None,
+                 cuda_graphs: bool = True):
         self.config = config
         self.device = resolve_device(device)
         model_config = config.model
@@ -243,29 +262,60 @@ class ModelRunner:
         self.last_unified_rows = 0
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed + 1)
+        self.graphs: Optional[StepGraphs] = (
+            StepGraphs(self.device, generators=[self.generator])
+            if cuda_graphs and self.device.type == "cuda" else None)
 
     # ---- steps --------------------------------------------------------------
 
     def _to_device(self, arrays: dict) -> dict:
-        return {name: (arr if isinstance(arr, torch.Tensor)
-                       else torch.from_numpy(arr)).to(self.device,
-                                                       non_blocking=True)
+        return {name: torch.from_numpy(arr).to(self.device,
+                                               non_blocking=True)
                 for name, arr in arrays.items()}
 
-    @staticmethod
-    def _knobs(payload: dict):
-        """Per-row sampling knobs as CPU tensors (host decisions)."""
-        return (torch.from_numpy(payload["temperature"]),
-                torch.from_numpy(payload["top_p"]),
-                torch.from_numpy(payload["top_k"]))
+    def _dispatch(self, kind: str, shape: Tuple[int, ...], payload: dict,
+                  names: Tuple[str, ...], body,
+                  token_source: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+        """Run one step: ``body(inputs, mode)`` maps the payload's
+        ``names`` and sampling knobs, as tensors, to the step's output
+        tensor; ``mode`` is the sampler's host branch, read from the
+        numpy knobs. ``token_source`` (a device tensor) replaces the
+        tokens. On the card the step replays its (kind, shape, mode)
+        graph, captured at the key's first use; it runs eagerly on the
+        CPU, and on the card only when a row is seeded (counted)."""
+        mode = sampler_mode(*(payload[k] for k in KNOBS))
+        with torch.inference_mode():
+            if self.graphs is not None and "seeds" not in payload:
+                return self.graphs.run(
+                    kind, shape, mode,
+                    {k: payload[k] for k in names + KNOBS},
+                    lambda inputs: body(inputs, mode),
+                    token_source=token_source)
+            if self.graphs is not None:
+                self.graphs.count_eager("seeded")
+            inputs = self._to_device({k: payload[k] for k in names})
+            if token_source is not None:
+                inputs["tokens"] = token_source
+            # The knobs stay on the host: the sampler moves what it
+            # needs.
+            inputs.update({k: torch.from_numpy(payload[k]) for k in KNOBS})
+            return body(inputs, mode)
 
-    def _step_impl(self, payload: dict, sample_index_mode: str
-                   ) -> torch.Tensor:
-        """Prefill ("last": sample each row's final prompt position) or
-        single-step decode ("first": T == 1)."""
-        dev = self._to_device({k: payload[k] for k in (
-            "tokens", "positions", "page_table", "kv_lens", "valid",
-            "last_index")})
+    @staticmethod
+    def _seeding(payload: dict) -> dict:
+        """A seeded step's per-row seeds, as the sampler takes them (CPU
+        tensors), or {}."""
+        if "seeds" not in payload:
+            return {}
+        return {name: torch.from_numpy(payload[name])
+                for name in ("seeds", "emitted", "seed_mask")}
+
+    def _step_body(self, dev: dict, mode: str, kind: str,
+                   seeding: Optional[dict] = None) -> torch.Tensor:
+        """Prefill (``kind`` "prefill": sample each row's last prompt
+        position, ``last_index``) or single-step decode ("decode": T ==
+        1). Returns the [B] sampled tokens."""
         tokens = dev["tokens"]
         if tokens.dim() == 1:
             # Decode feeds [B] tokens so an ahead dispatch can consume
@@ -274,20 +324,16 @@ class ModelRunner:
         positions = dev["positions"].reshape(tokens.shape)
         valid = dev["valid"].reshape(tokens.shape)
         select = (dev["last_index"].long()[:, None]
-                  if sample_index_mode == "last" else None)
+                  if kind == "prefill" else None)
         logits = self._forward(
             self.params, self.config.model, tokens, positions,
             dev["page_table"], dev["kv_lens"], valid, self.k_cache,
-            self.v_cache, select=select,
-            kind="decode" if sample_index_mode == "first" else "prefill")
-        seeding = {}
-        if "seeds" in payload:
-            seeding = {name: torch.from_numpy(payload[name])
-                       for name in ("seeds", "emitted", "seed_mask")}
-        return sample_tokens(logits[:, 0], *self._knobs(payload),
-                             generator=self.generator, **seeding)
+            self.v_cache, select=select, kind=kind)
+        return sample_tokens(logits[:, 0], dev["temperature"], dev["top_p"],
+                             dev["top_k"], generator=self.generator,
+                             mode=mode, **(seeding or {}))
 
-    def _unified_impl(self, payload: dict) -> torch.Tensor:
+    def _unified_body(self, dev: dict, mode: str) -> torch.Tensor:
         """One ragged [R, W] step through the ragged kernel: decode
         rows occupy their first 1 + draft_len slots ([last committed,
         d_1 .. d_k] at total_len - 1 ..), prefill chunk rows up to W
@@ -296,13 +342,11 @@ class ModelRunner:
         verify rule over each row's span ``logits[i, last_index_i -
         draft_lens_i + j]``; a draft-free row's span is its last real
         position, and at temperature 0 the rule is the plain argmax.
+        Returns the [R, span] sampled tokens.
 
         Rejected drafts need no rollback on the card: their KV lies
         past the committed length in the row's own pages, causally
         invisible until the next step overwrites it."""
-        dev = self._to_device({k: payload[k] for k in (
-            "tokens", "positions", "page_table", "kv_lens", "valid",
-            "last_index", "drafts", "draft_lens")})
         tokens = dev["tokens"]
         s = dev["drafts"].shape[-1] + 1
         start = torch.clamp(dev["last_index"].long()
@@ -314,21 +358,8 @@ class ModelRunner:
             dev["page_table"], dev["kv_lens"], dev["valid"],
             self.k_cache, self.v_cache, select=idx, kind="ragged")
         return spec_verify(span, dev["drafts"], dev["draft_lens"],
-                           *self._knobs(payload),
-                           generator=self.generator)
-
-    def execute_payload(self, kind: int, payload: dict) -> torch.Tensor:
-        """Run one step from a payload of numpy arrays (a decode step's
-        tokens may instead be the previous step's device tensor).
-        Returns the sampled tokens as a device tensor: [B] for prefill
-        and decode, [R, span] for unified and verify steps."""
-        with torch.inference_mode():
-            if kind in (KIND_UNIFIED, KIND_SPEC):
-                return self._unified_impl(payload)
-            if kind not in (KIND_PREFILL, KIND_DECODE):
-                raise ValueError(f"unknown step kind {kind}")
-            return self._step_impl(
-                payload, "last" if kind == KIND_PREFILL else "first")
+                           dev["temperature"], dev["top_p"], dev["top_k"],
+                           generator=self.generator, mode=mode)
 
     def _bucket_for(self, n: int) -> int:
         for b in self._buckets:
@@ -406,7 +437,13 @@ class ModelRunner:
         # Only rows whose LAST chunk is in this step keep their sample.
         payload.update(self._seed_payload(
             [c.seq if c.is_last_chunk else None for c in chunks], b))
-        sampled = self.execute_payload(KIND_PREFILL, payload)
+        seeding = self._seeding(payload)
+        sampled = self._dispatch(
+            "step", (b, t), payload, ("tokens", "positions", "valid",
+                                      "page_table", "kv_lens",
+                                      "last_index"),
+            lambda dev, mode: self._step_body(dev, mode, "prefill",
+                                              seeding))
         if not any(c.is_last_chunk for c in chunks):
             return [None] * len(chunks)
         host = sampled.cpu().tolist()
@@ -453,33 +490,42 @@ class ModelRunner:
             n = min(len(seq.pages), self.max_pages_per_seq)
             page_table[i, :n] = seq.pages[:n]
         payload = {
-            "tokens": tokens if token_source is None else token_source,
-            "positions": positions, "valid": valid,
+            "tokens": tokens, "positions": positions, "valid": valid,
             "page_table": page_table, "kv_lens": kv_lens,
-            "last_index": np.zeros((b,), np.int32),
             "temperature": temperature, "top_p": top_p, "top_k": top_k,
         }
         if not ahead:
             # Plan-ahead eligibility excludes seeded rows (their
             # emitted index would be one token stale).
             payload.update(self._seed_payload(rows, b))
+        names = ("tokens", "positions", "valid", "page_table", "kv_lens")
         if window > 1:
             payload.update(self._burst_payload(rows, b))
-            with torch.inference_mode():
-                sampled = self._burst_impl(payload, window)
+            seeding = self._seeding(payload)
+            sampled = self._dispatch(
+                "decode_burst", (b, window, payload["stop_tokens"].shape[1]),
+                payload, names + ("budgets", "stop_tokens"),
+                lambda dev, mode: self._burst_body(dev, mode, window,
+                                                   seeding))
             return DecodeStepHandle(rows, sampled)
-        return DecodeStepHandle(rows,
-                                self.execute_payload(KIND_DECODE, payload))
+        seeding = self._seeding(payload)
+        return DecodeStepHandle(rows, self._dispatch(
+            "step", (b, 1), payload, names,
+            lambda dev, mode: self._step_body(dev, mode, "decode", seeding),
+            token_source=token_source))
 
     def _burst_payload(self, rows, pad_to: int) -> dict:
         """Per-row lifecycle inputs of a burst: each row's token budget
         (``decode_budget``, the number the scheduler reserved pages
-        for) and its stop set, -1 padded (none for ignore_eos rows)."""
+        for) and its stop set, -1 padded (none for ignore_eos rows) to
+        a power of two of at least MIN_STOP_WIDTH entries."""
         budgets = np.zeros((pad_to,), np.int32)
         stops = [[] if seq is None or seq.sampling.ignore_eos
                  else list(seq.sampling.stop_token_ids) for seq in rows]
-        stop_tokens = np.full((pad_to, max([1] + [len(x) for x in stops])),
-                              -1, np.int32)
+        width = MIN_STOP_WIDTH
+        while width < max([0] + [len(x) for x in stops]):
+            width *= 2
+        stop_tokens = np.full((pad_to, width), -1, np.int32)
         for i, seq in enumerate(rows):
             if seq is None:
                 continue
@@ -488,7 +534,8 @@ class ModelRunner:
             stop_tokens[i, :len(stops[i])] = stops[i]
         return {"budgets": budgets, "stop_tokens": stop_tokens}
 
-    def _burst_impl(self, payload: dict, window: int) -> torch.Tensor:
+    def _burst_body(self, dev: dict, mode: str, window: int,
+                    seeding: Optional[dict] = None) -> torch.Tensor:
         """``window`` chained decode iterations with no host sync between
         them (the JAX runner's ``_decode_burst_impl`` with eager KV
         writes). The carry (last tokens, positions, kv_lens, active,
@@ -498,14 +545,8 @@ class ModelRunner:
         frozen row's position and kv_len stop advancing and its slots
         emit -1. A seeded row's emitted index at iteration k is its
         host-known start plus k. Returns the [B, window] tokens."""
-        dev = self._to_device({k: payload[k] for k in (
-            "tokens", "positions", "page_table", "kv_lens", "valid",
-            "budgets", "stop_tokens")})
-        seeding, emitted_start = {}, None
-        if "seeds" in payload:
-            seeding = {"seeds": torch.from_numpy(payload["seeds"]),
-                       "seed_mask": torch.from_numpy(payload["seed_mask"])}
-            emitted_start = payload["emitted"]
+        seeding = dict(seeding or {})
+        emitted_start = seeding.pop("emitted", None)
         tok = dev["tokens"][:, None]
         pos, kv_lens = dev["positions"], dev["kv_lens"]
         active = dev["valid"][:, 0]
@@ -517,12 +558,12 @@ class ModelRunner:
                 dev["page_table"], kv_lens, active[:, None], self.k_cache,
                 self.v_cache, kind="decode")
             if emitted_start is not None:
-                seeding["emitted_index"] = torch.from_numpy(
-                    emitted_start + k)
+                seeding["emitted_index"] = emitted_start + k
             step_out, sampled, emitted, nxt = burst_sample_step(
                 logits[:, 0], active, emitted, dev["budgets"],
-                dev["stop_tokens"], *self._knobs(payload),
-                generator=self.generator, **seeding)
+                dev["stop_tokens"], dev["temperature"], dev["top_p"],
+                dev["top_k"], generator=self.generator, mode=mode,
+                **seeding)
             step = nxt.to(pos.dtype)
             tok = torch.where(active, sampled.to(tok.dtype),
                               tok[:, 0])[:, None]
@@ -592,7 +633,8 @@ class ModelRunner:
         }
         return SpecStepHandle(
             list(seqs), [list(plan.drafts[i]) for i in range(len(seqs))],
-            self.execute_payload(KIND_SPEC, payload))
+            self._dispatch("spec_verify", (b, s), payload, RAGGED_INPUTS,
+                           self._unified_body))
 
     # ---- unified ragged step ------------------------------------------------
 
@@ -655,7 +697,8 @@ class ModelRunner:
             "drafts": drafts, "draft_lens": draft_lens,
             "temperature": temperature, "top_p": top_p, "top_k": top_k,
         }
-        host = self.execute_payload(KIND_UNIFIED, payload).cpu().tolist()
+        host = self._dispatch("unified", (r, w), payload, RAGGED_INPUTS,
+                              self._unified_body).cpu().tolist()
         token_lists = [[tok for tok in host[i] if tok >= 0]
                        for i in range(len(seqs))]
         prefill_out = [host[off + j][0] if c.is_last_chunk else None

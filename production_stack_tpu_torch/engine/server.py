@@ -5,7 +5,9 @@
 
 Routes served, with the JSON shapes of the JAX engine's server: GET
 ``/health``, ``/v1/models`` and ``/metrics`` (the ``vllm:*`` names the
-router scrapes), POST ``/v1/completions`` and ``/v1/chat/completions``
+router scrapes; the compile ledger's
+``vllm:engine_compile_{events,seconds}_total{kind}`` count the step
+graphs' captures), POST ``/v1/completions`` and ``/v1/chat/completions``
 (with and without ``stream``). That is 5 of the 24 routes the JAX
 server registers. Each of the other 19 (``UNPORTED_ROUTES``: drain,
 resume, disaggregation, embeddings, score, rerank, autotune, version,
@@ -47,6 +49,10 @@ from production_stack_tpu_torch.engine.config import (
 )
 from production_stack_tpu_torch.engine.engine import LLMEngine, StepOutput
 from production_stack_tpu_torch.engine.sequence import SamplingParams
+from production_stack_tpu_torch.engine.step_graphs import (
+    EAGER_REASONS,
+    STEP_KINDS,
+)
 from production_stack_tpu_torch.engine.tokenizer import (
     BenchTokenizer,
     render_chat_prompt,
@@ -307,9 +313,33 @@ class EngineServer:
         for name, count in sorted(COUNTERS.launches.items()):
             lines.append("vllm:engine_kernel_launches_total"
                          f'{{kernel="{name}"}} {float(count)}')
+        lines += self._graph_metrics()
         lines += self.engine.metrics.render()
         lines.append("")
         return "\n".join(lines)
+
+    def _graph_metrics(self) -> List[str]:
+        """The JAX server's compile ledger under its names, types and
+        ``kind`` labels, counting the step graphs' captures and their
+        seconds (warm-up included); every kind at 0 where nothing was
+        captured (the CPU has no graphs). Then the steps the card ran
+        without a graph, by reason."""
+        graphs = self.engine.runner.graphs
+        events = graphs.captures if graphs else dict.fromkeys(STEP_KINDS, 0)
+        seconds = (graphs.capture_seconds if graphs
+                   else dict.fromkeys(STEP_KINDS, 0.0))
+        eager = (graphs.eager_steps if graphs
+                 else dict.fromkeys(EAGER_REASONS, 0))
+        lines = ["# TYPE vllm:engine_compile_events_total counter"]
+        lines += [f'vllm:engine_compile_events_total{{kind="{kind}"}} '
+                  f"{float(n)}" for kind, n in sorted(events.items())]
+        lines.append("# TYPE vllm:engine_compile_seconds_total counter")
+        lines += [f'vllm:engine_compile_seconds_total{{kind="{kind}"}} '
+                  f"{float(s)}" for kind, s in sorted(seconds.items())]
+        lines.append("# TYPE vllm:engine_eager_steps_total counter")
+        lines += [f'vllm:engine_eager_steps_total{{reason="{reason}"}} '
+                  f"{float(n)}" for reason, n in sorted(eager.items())]
+        return lines
 
     def parse_completion(self, body: dict, chat: bool):
         """-> (prompt ids, prompt text or None, sampling); raises

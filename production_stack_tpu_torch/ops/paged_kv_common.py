@@ -81,6 +81,18 @@ class KernelCounters:
         self.plain_cuda_calls[name] = (
             self.plain_cuda_calls.get(name, 0) + 1)
 
+    def add(self, counts: Dict[str, int], sign: int = 1) -> None:
+        """Add (``sign`` -1: take back) launches counted elsewhere: a
+        CUDA graph's, counted once while it was captured and launched
+        on each replay (engine/step_graphs.py). A count back at 0
+        leaves the table."""
+        for name, n in counts.items():
+            total = self.launches.get(name, 0) + sign * n
+            if total:
+                self.launches[name] = total
+            else:
+                self.launches.pop(name, None)
+
     def reset(self) -> None:
         self.launches.clear()
         self.plain_cuda_calls.clear()

@@ -10,9 +10,14 @@ emitted-token index) alone, so identical seeded requests reproduce
 identical samples whatever the batch. The bits differ from the JAX
 package's (``jax.random`` keys); the distributions do not.
 
-The per-row knobs (temperature, top_p, top_k) arrive as CPU tensors:
-the all-greedy check is then a host decision and never waits for the
-device, so a greedy step's sampled tokens stay on the card.
+The sampler's branches (all-greedy, stochastic, stochastic with a
+top-k/top-p mask: ``sampler_mode``) are host decisions taken from the
+per-row knobs (temperature, top_p, top_k) on the host, so they never
+wait for the device and a greedy step's sampled tokens stay on the
+card. The knobs themselves may be CPU tensors (the mode is then read
+from them) or device tensors with the mode given: a step replayed as a
+CUDA graph (engine/step_graphs.py) reads its knobs from the graph's
+static inputs, and its mode is part of the graph's key.
 """
 
 from __future__ import annotations
@@ -22,6 +27,21 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+# The sampler's host branches: every row greedy; some row stochastic
+# with no top-k/top-p mask; some row stochastic and some row masked.
+GREEDY, RANDOM, RANDOM_MASKED = "greedy", "random", "random_masked"
+
+
+def sampler_mode(temperature, top_p, top_k) -> str:
+    """The branch the sampler takes for these per-row knobs (numpy
+    arrays or CPU tensors; never device tensors, which would wait for
+    the device)."""
+    if not bool((temperature > 0).any()):
+        return GREEDY
+    if bool(((top_k > 0) | (top_p < 1.0)).any()):
+        return RANDOM_MASKED
+    return RANDOM
 
 
 def _mask_top_k_top_p(scaled: torch.Tensor, top_p: torch.Tensor,
@@ -85,31 +105,34 @@ def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
                   generator: Optional[torch.Generator] = None,
                   seeds: Optional[torch.Tensor] = None,
                   emitted: Optional[torch.Tensor] = None,
-                  seed_mask: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
+                  seed_mask: Optional[torch.Tensor] = None,
+                  mode: Optional[str] = None) -> torch.Tensor:
     """Sample one token per row.
 
     Args:
       logits:      [B, vocab] float32 (on the device)
-      temperature: [B] CPU (0 => greedy)
-      top_p:       [B] CPU (1.0 => disabled)
-      top_k:       [B] CPU int (0 => disabled)
+      temperature: [B] (0 => greedy), CPU, or on the device with ``mode``
+      top_p:       [B] (1.0 => disabled), as temperature
+      top_k:       [B] int (0 => disabled), as temperature
       generator:   the engine's stream, used for unseeded rows
       seeds:       optional [B] CPU per-row request seeds
       emitted:     [B] CPU tokens generated so far per row (with seeds)
       seed_mask:   [B] CPU bool, True where the row is seeded (with
                    seeds)
+      mode:        the host branch (``sampler_mode``); default: read
+                   from the CPU knobs
 
     Returns [B] int64 token ids on the logits' device.
     """
+    mode = mode or sampler_mode(temperature, top_p, top_k)
     greedy_tokens = torch.argmax(logits, dim=-1)
-    if not bool((temperature > 0).any()):
+    if mode == GREEDY:
         # All-greedy batch: no sort, no softmax, no randomness.
         return greedy_tokens
     dev = logits.device
     safe_temp = torch.where(temperature > 0, temperature, 1.0)
     scaled = logits / safe_temp.to(dev)[:, None]
-    if bool(((top_k > 0) | (top_p < 1.0)).any()):
+    if mode == RANDOM_MASKED:
         scaled = _mask_top_k_top_p(scaled, top_p.to(dev), top_k.to(dev))
     sampled = _categorical(scaled, generator)
     if seeds is not None:
@@ -130,7 +153,8 @@ def burst_sample_step(logits: torch.Tensor, active: torch.Tensor,
                       generator: Optional[torch.Generator] = None,
                       seeds: Optional[torch.Tensor] = None,
                       emitted_index: Optional[torch.Tensor] = None,
-                      seed_mask: Optional[torch.Tensor] = None):
+                      seed_mask: Optional[torch.Tensor] = None,
+                      mode: Optional[str] = None):
     """One iteration of a decode burst: sample every row, then freeze
     the rows that finished, all on the device (the JAX runner's
     ``_burst_sample_step`` for the options the port serves).
@@ -143,7 +167,7 @@ def burst_sample_step(logits: torch.Tensor, active: torch.Tensor,
       budgets:     [B] int32 tokens each row may emit
                    (``sequence.decode_budget``) (device)
       stop_tokens: [B, S] int32 stop set per row, -1 padded (device)
-      temperature/top_p/top_k/generator/seeds/seed_mask: as in
+      temperature/top_p/top_k/generator/seeds/seed_mask/mode: as in
                    sample_tokens
       emitted_index: [B] CPU, a seeded row's absolute emitted-token
                    index at this iteration (tokens emitted before the
@@ -156,7 +180,8 @@ def burst_sample_step(logits: torch.Tensor, active: torch.Tensor,
     """
     sampled = sample_tokens(logits, temperature, top_p, top_k,
                             generator=generator, seeds=seeds,
-                            emitted=emitted_index, seed_mask=seed_mask)
+                            emitted=emitted_index, seed_mask=seed_mask,
+                            mode=mode)
     out = torch.where(active, sampled, -1)
     emitted = emitted + active.to(emitted.dtype)
     hit_stop = (sampled[:, None] == stop_tokens).any(dim=-1)
@@ -167,8 +192,8 @@ def burst_sample_step(logits: torch.Tensor, active: torch.Tensor,
 def spec_verify(logits: torch.Tensor, drafts: torch.Tensor,
                 draft_lens: torch.Tensor, temperature: torch.Tensor,
                 top_p: torch.Tensor, top_k: torch.Tensor,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                mode: Optional[str] = None) -> torch.Tensor:
     """Vectorized speculative-decoding acceptance rule.
 
     One forward pass scored S = K+1 positions per row: the row's last
@@ -186,12 +211,15 @@ def spec_verify(logits: torch.Tensor, drafts: torch.Tensor,
       logits:      [B, S, vocab] raw logits (device)
       drafts:      [B, S-1] int draft tokens, -1 padded (device)
       draft_lens:  [B] int in [0, S-1] (device)
-      temperature/top_p/top_k: [B] CPU, as in sample_tokens
+      temperature/top_p/top_k/mode: as in sample_tokens (any
+                   stochastic row samples under its top-k/top-p mask,
+                   whichever stochastic mode is given)
       generator:   the engine's stream
 
     Returns [B, S] int64: row i's emitted tokens in its first
     ``accepted_i + 1`` slots, -1 beyond.
     """
+    mode = mode or sampler_mode(temperature, top_p, top_k)
     b, s, vocab = logits.shape
     dev = logits.device
     pos = torch.arange(s, device=dev)[None, :]
@@ -207,7 +235,7 @@ def spec_verify(logits: torch.Tensor, drafts: torch.Tensor,
                                 dim=-1)
     accept = (drafts.long() == greedy_targets[:, :-1]) & in_draft
     final = greedy_final
-    if bool((temperature > 0).any()):
+    if mode != GREEDY:
         stochastic = (temperature > 0).to(dev)
         safe_temp = torch.where(temperature > 0, temperature, 1.0).to(dev)
         scaled = (logits / safe_temp[:, None, None]).reshape(b * s, vocab)

@@ -26,6 +26,11 @@ kernel on the tensor-core walk at decode rows alone (every tile but the
 first dead), a verify block at draft lens 0..4 and chunk rows whose
 live slots end inside a tile, page sizes 16 to 128, bf16 and int8,
 per-layer and stacked; and two launches of each giving equal bits.
+The engine's step graphs: the tiny engine replaying its steps as CUDA
+graphs gives the eager card run's and the CPU's greedy streams (main
+path, bimodal, int8 stacked, speculative, bursts), its unseeded draws
+differ step to step and repeat at one seed, and a seeded request's
+steps run eagerly and are counted.
 
 Tolerance: f32 at atol = rtol = 1e-4 (the same arithmetic, sums in
 another order); bf16 at atol = rtol = 2e-2 (outputs rounded to bf16,
@@ -694,3 +699,105 @@ def test_engine_stacked_greedy_streams_on_the_card_match_the_cpu(
                              for k in ("prefill", "decode", "ragged")}
     assert all(n > 0 for n in launches.values())
     assert not COUNTERS.plain_cuda_calls
+
+
+# ---- the engine's step graphs on the card -----------------------------------
+
+
+def _tiny_engine(cuda_graphs, device="cuda", **sched):
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig, EngineConfig, SchedulerConfig, tiny_model_config)
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.models.llama import init_params
+
+    cache = {k: sched.pop(k) for k in ("kv_cache_dtype", "cache_layout")
+             if k in sched}
+    cfg = EngineConfig(
+        model=tiny_model_config("llama"),
+        cache=CacheConfig(page_size=16, num_pages=128, **cache),
+        scheduler=SchedulerConfig(max_num_seqs=4, max_model_len=256,
+                                  prefill_chunk_size=32, **sched))
+    params = init_params(cfg.model, torch.Generator().manual_seed(0),
+                         torch.device("cpu"))
+    return LLMEngine(cfg, params=params, device=device,
+                     cuda_graphs=cuda_graphs)
+
+
+def _tiny_prompts():
+    rs = np.random.RandomState(7)
+    return [[4, 5, 6] * 13, [8] * 10, [21, 22, 23, 24] * 20,
+            [int(x) for x in rs.randint(1, 500, size=41)]]
+
+
+@pytest.mark.parametrize("sched", [
+    dict(unified_step=True, async_scheduling=True),
+    dict(unified_step=False, async_scheduling=True),
+    dict(unified_step=True, async_scheduling=True, kv_cache_dtype="int8",
+         cache_layout="stacked"),
+    dict(unified_step=True, async_scheduling=False, speculative_k=4),
+    dict(unified_step=True, async_scheduling=False, decode_steps=4,
+         cache_layout="stacked"),
+], ids=["main", "bimodal", "int8-stacked", "spec", "bursts"])
+def test_graphed_engine_matches_eager_and_the_cpu(dev, sched):
+    """Greedy streams replayed from step graphs on the card are those
+    of the eager card run and of the CPU; every key captured once, no
+    step eager, and the launch counters (replay accounting) equal the
+    eager run's."""
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+
+    sp = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True)
+    streams, launches = {}, {}
+    for path, graphs, device in (("graphs", True, "cuda"),
+                                 ("eager", False, "cuda"),
+                                 ("cpu", False, "cpu")):
+        COUNTERS.reset()
+        engine = _tiny_engine(graphs, device, **dict(sched))
+        streams[path] = [s.output_token_ids for s in
+                         engine.generate_batch(_tiny_prompts(), sp)]
+        launches[path] = dict(COUNTERS.launches)
+        if graphs:
+            g = engine.runner.graphs
+            assert sum(g.captures.values()) == len(g.keys()) > 0
+            assert sum(g.replays.values()) > len(g.keys())
+            assert g.eager_steps == {"seeded": 0}
+        assert not COUNTERS.plain_cuda_calls
+    assert streams["graphs"] == streams["eager"] == streams["cpu"]
+    # The warm-up runs each key once more than the eager path does.
+    assert set(launches["graphs"]) == set(launches["eager"])
+    assert all(launches["graphs"][k] >= launches["eager"][k]
+               for k in launches["eager"])
+
+
+def test_unseeded_draws_under_graphs_differ_by_step_and_repeat_by_seed(dev):
+    """The engine's generator is registered with every graph: replays
+    draw new noise each step, and a run at the same seed repeats."""
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+
+    sp = SamplingParams(temperature=1.0, max_tokens=24, ignore_eos=True)
+    runs = []
+    for _ in range(2):
+        engine = _tiny_engine(True, unified_step=True,
+                              async_scheduling=True)
+        runs.append([s.output_token_ids for s in engine.generate_batch(
+            [[8] * 10] * 4, sp)])
+        assert engine.runner.graphs.eager_steps == {"seeded": 0}
+    assert runs[0] == runs[1]
+    # Four rows of one prompt, each step a fresh draw: the rows part,
+    # and no row repeats one token throughout.
+    assert len({tuple(r) for r in runs[0]}) > 1
+    assert all(len(set(r)) > 1 for r in runs[0])
+
+
+def test_a_seeded_step_runs_eagerly_on_the_card(dev):
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+
+    sp = SamplingParams(temperature=0.8, top_p=0.95, max_tokens=8, seed=5,
+                        ignore_eos=True)
+    tokens = {}
+    for graphs in (True, False):
+        engine = _tiny_engine(graphs, unified_step=True,
+                              async_scheduling=True)
+        tokens[graphs] = engine.generate([4, 5, 6] * 10, sp).output_token_ids
+        if graphs:
+            assert engine.runner.graphs.eager_steps["seeded"] == 8
+    assert tokens[True] == tokens[False]

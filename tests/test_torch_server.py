@@ -13,11 +13,17 @@ from pathlib import Path
 import pytest
 import torch
 
+from production_stack_tpu.router.stats.engine_stats import EngineStats
 from production_stack_tpu_torch.engine.server import (
     UNPORTED_ROUTES,
     make_server,
     unported_feature,
 )
+from production_stack_tpu_torch.engine.step_graphs import (
+    STEP_KINDS,
+    StepGraphs,
+)
+from tests.test_torch_step_graphs import RecordingGraph
 
 torch.set_num_threads(2)
 
@@ -112,6 +118,57 @@ def test_metrics(base_url):
                  "vllm:engine_ragged_steps_total",
                  "vllm:generation_tokens_total"):
         assert f"\n{name} " in text
+
+
+def test_metrics_carry_the_compile_ledger_the_router_reads(base_url):
+    """The JAX server's compile-ledger names, types and kind labels,
+    read by the reference router's parser; the CPU captures nothing, so
+    every kind stands at 0."""
+    _, text = _get(base_url + "/metrics")
+    for name in ("vllm:engine_compile_events_total",
+                 "vllm:engine_compile_seconds_total",
+                 "vllm:engine_eager_steps_total"):
+        assert f"# TYPE {name} counter" in text
+    stats = EngineStats.from_prometheus_text(text)
+    assert stats.compile_events_by_kind == dict.fromkeys(STEP_KINDS, 0.0)
+    assert stats.compile_seconds_by_kind == dict.fromkeys(STEP_KINDS, 0.0)
+    assert '\nvllm:engine_eager_steps_total{reason="seeded"} 0.0' in text
+
+
+def test_compile_ledger_counts_step_graph_captures():
+    """A server whose runner replays step graphs (the CPU stand-in)
+    counts each capture by kind on /metrics, with its seconds."""
+    server = make_server(["--model", "tiny-llama", "--random-weights",
+                          "--device", "cpu", "--host", "127.0.0.1",
+                          "--port", "0", "--max-model-len", "256",
+                          "--prefill-chunk-size", "64"])
+    runner = server.app.engine.runner
+    runner.graphs = StepGraphs(torch.device("cpu"),
+                               generators=[runner.generator],
+                               graph_factory=RecordingGraph)
+    thread = threading.Thread(target=server.serve, daemon=True)
+    thread.start()
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    try:
+        for seed in (None, 3):
+            status, _ = _post(base + "/v1/completions", {
+                "model": "tiny-llama", "prompt": "hello there",
+                "max_tokens": 4, "temperature": 0.5, "seed": seed,
+                "ignore_eos": True})
+            assert status == 200
+        _, text = _get(base + "/metrics")
+    finally:
+        server.shutdown()
+        thread.join(timeout=30)
+    stats = EngineStats.from_prometheus_text(text)
+    events = stats.compile_events_by_kind
+    assert set(events) == set(STEP_KINDS)
+    # The prefill key and the decode key, each captured once; the
+    # unified kind is there at 0 (no mixed step in a lone request).
+    assert events["step"] == len(runner.graphs.keys()) == 2
+    assert stats.compile_seconds_by_kind["step"] > 0
+    # The seeded request's four steps ran without a graph.
+    assert '\nvllm:engine_eager_steps_total{reason="seeded"} 4.0' in text
 
 
 @pytest.mark.parametrize("extra,feature", [
