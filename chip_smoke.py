@@ -89,15 +89,30 @@ its result line:
    engines: its steps run eagerly, are counted as such, and give the
    same tokens. Captures by kind, capture seconds, graph-pool bytes and
    host launches per decode step are printed;
-7. serving: the port's HTTP server in-process with bench-1b at full
+7. sampling options, no HTTP: bench-1b, 16 prompts of 64..700 tokens
+   whose rows carry the per-row options (presence and frequency
+   penalties with top-20 logprobs, a repetition penalty, a +100
+   ``logit_bias`` on one token, ``min_tokens`` 8 with EOS biased up,
+   guided JSON whose structural bytes are biased so that it closes,
+   top-20 logprobs alone) beside plain greedy rows, 32 tokens each,
+   graphed and eager at decode_steps 1 and 4. The greedy streams must be
+   byte-identical graphed and eager and at both decode_steps, logprobs
+   within 1e-3 graphed and eager (top ids equal but at ties), every key
+   captured once with no eager step, the guided rows must parse as JSON,
+   the ``min_tokens`` rows hold EOS back to their minimum and the
+   biased token be emitted. Captures are printed by option set;
+8. serving: the port's HTTP server in-process with bench-1b at full
    width, 16 concurrent completions plus a repeated greedy one, with
    the kernels' launch counters read around the run (all three kernels
    must launch: prefill steps, unified mixed steps, decode steps). The
    server replays its steps as graphs, so the counts come from the
    replay accounting; each serving run must have captured graphs,
    replayed them and run no step eagerly, and prints its captures by
-   kind;
-8. speculative serving: the same server with ``--speculative-k 4``
+   kind. After its timed window the first run also answers one
+   request with ``n`` 3, ``best_of`` 4 and ``logprobs`` 5: three
+   choices in order of mean token logprob, each with its legacy
+   logprobs, and the four candidates' tokens in the usage;
+9. speculative serving: the same server with ``--speculative-k 4``
    (async 'auto' then resolves off), 16 concurrent greedy completions
    on prompts that repeat a block, so the n-gram proposer drafts even
    under random weights. It must draft, launch the ragged kernel
@@ -106,20 +121,20 @@ its result line:
    completion characters (one per token under the bench tokenizer)
    that agree with the spec-off server on the same prompts. That share
    is printed, not asserted: bf16 kernels may flip near-ties;
-9. int8 serving: the first run's server with ``--kv-cache-dtype int8``
-   and the same 16 requests. It must launch the int8 form of all three
-   kernels, make no plain call on CUDA tensors, repeat a greedy request
-   exactly and show ``kv_dtype="int8"`` and the expanded page capacity
-   (962 of 963 pages) on ``/metrics``; it prints tok/s and the share of
-   greedy characters that agree with the bf16 run (printed, not
-   asserted: int8 KV changes tokens);
-10. stacked serving: the first run's server with ``--cache-layout
+10. int8 serving: the first run's server with ``--kv-cache-dtype
+    int8`` and the same 16 requests. It must launch the int8 form of
+    all three kernels, make no plain call on CUDA tensors, repeat a
+    greedy request exactly and show ``kv_dtype="int8"`` and the
+    expanded page capacity (962 of 963 pages) on ``/metrics``; it
+    prints tok/s and the share of greedy characters that agree with the
+    bf16 run (printed, not asserted: int8 KV changes tokens);
+11. stacked serving: the first run's server with ``--cache-layout
     stacked`` and the same requests. It must launch the stacked form of
     all three kernels and no per-layer form, make no plain call on CUDA
     tensors and repeat a greedy request exactly; it prints the share of
     greedy characters that agree with the first run (printed, not
     asserted: request timing changes the steps' composition);
-11. burst serving: ``--cache-layout stacked --kv-cache-dtype int8
+12. burst serving: ``--cache-layout stacked --kv-cache-dtype int8
     --decode-steps 4`` (async ``auto`` then off) and the same requests.
     It must launch the int8 stacked forms only, no completion may pass
     its ``max_tokens``, the repeated greedy request must reproduce, and
@@ -1285,6 +1300,183 @@ def graph_phase(vocab: int) -> None:
             f"graphed against eager ({len(case_prompts)} rows x 32 tokens)")
 
 
+# ---- sampling options phase -------------------------------------------------
+
+
+# Greedy bias of a guided row: its structural bytes in the order that
+# closes a document ({"":""}) and EOS after it.
+GUIDED_CLOSING_BIAS = {ord("{"): 60.0, ord('"'): 100.0, ord(":"): 80.0,
+                       ord("}"): 50.0, 257: 100.0}
+FORCED_TOKEN = 1234
+OPTIONS_MIN_TOKENS = 8
+LOGPROB_TOL = 1e-3
+
+
+def _option_rows():
+    """(label, sampling kwargs) of the phase's 16 rows: every option of
+    the chain, mixed with plain greedy rows, 32 tokens each."""
+    base = dict(temperature=0.0, max_tokens=32)
+    lp = dict(logprobs=True, top_logprobs=20)
+    kinds = [
+        ("plain", dict(base, ignore_eos=True)),
+        ("penalties+logprobs", dict(base, ignore_eos=True,
+                                    presence_penalty=0.8,
+                                    frequency_penalty=0.4, **lp)),
+        ("repetition", dict(base, ignore_eos=True, repetition_penalty=1.3)),
+        ("forced", dict(base, ignore_eos=True,
+                        logit_bias={FORCED_TOKEN: 100.0})),
+        ("min_tokens", dict(base, min_tokens=OPTIONS_MIN_TOKENS,
+                            logit_bias={257: 100.0})),
+        ("guided", dict(base, guided="json",
+                        logit_bias=GUIDED_CLOSING_BIAS)),
+        ("logprobs", dict(base, ignore_eos=True, **lp)),
+        ("plain", dict(base, ignore_eos=True)),
+    ]
+    return kinds * 2
+
+
+def _options_run(prompts, decode_steps, cuda_graphs):
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig, EngineConfig, SchedulerConfig, bench_1b_model_config)
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
+
+    cfg = EngineConfig(
+        model=bench_1b_model_config(),
+        cache=CacheConfig(page_size=128, num_pages=512),
+        scheduler=SchedulerConfig(
+            max_num_seqs=32, max_model_len=1024, prefill_chunk_size=512,
+            prefill_batch_size=8, decode_steps=decode_steps,
+            async_scheduling=decode_steps == 1, unified_step=True))
+    engine = LLMEngine(cfg, device="cuda", cuda_graphs=cuda_graphs)
+    torch.cuda.synchronize()
+    COUNTERS.reset()
+    ids = [engine.add_request(p, SamplingParams(**kw))
+           for p, (_, kw) in zip(prompts, _option_rows())]
+    rows = {sid: [] for sid in ids}
+    seqs = [engine.sequences[sid] for sid in ids]
+    t0 = time.perf_counter()
+    while engine.has_work():
+        for out in engine.step():
+            if out.new_token is not None:
+                rows[out.seq_id].append((out.new_token, out.logprobs))
+    torch.cuda.synchronize()
+    out = {"wall": time.perf_counter() - t0,
+           "rows": [rows[sid] for sid in ids],
+           "finish": [s.finish_reason.value for s in seqs],
+           "steps": engine.metrics.pipeline_steps_total,
+           "launches": dict(COUNTERS.launches),
+           "plain_calls": dict(COUNTERS.plain_cuda_calls),
+           "guided_fsm": engine.guided_fsm}
+    graphs = engine.runner.graphs
+    if graphs is not None:
+        out.update(captures=dict(graphs.captures), keys=graphs.keys(),
+                   replays=dict(graphs.replays),
+                   eager_steps=dict(graphs.eager_steps))
+    del engine, seqs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tokens(run):
+    return [[t for t, _ in r] for r in run["rows"]]
+
+
+def _logprob_gap(a, b) -> float:
+    """The largest difference between two runs' logprob entries of the
+    same tokens; raises where a top id differs other than at a tie."""
+    worst = 0.0
+    for (slp, tops), (e_slp, e_tops) in zip(a, b):
+        worst = max(worst, abs(slp - e_slp))
+        vals = [v for _, v in e_tops]
+        for j, ((tid, v), (e_tid, e_v)) in enumerate(zip(tops, e_tops)):
+            worst = max(worst, abs(v - e_v))
+            if tid != e_tid and not (j == len(vals) - 1 or any(
+                    k != j and abs(vals[k] - e_v) <= LOGPROB_TOL
+                    for k in range(len(vals)))):
+                raise AssertionError(f"sampling options: top id {tid} "
+                                     f"against {e_tid} at rank {j}, no tie")
+    return worst
+
+
+def sampling_options_phase(vocab: int) -> None:
+    """The per-row option chain at full width, graphed against eager at
+    decode_steps 1 and 4; see the module docstring (phase 7)."""
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(258, vocab, size=n).tolist()
+               for n in np.linspace(64, 700, 16).round().astype(int)]
+    labels = [label for label, _ in _option_rows()]
+    runs = {}
+    for k in (1, 4):
+        for cuda_graphs in (True, False):
+            runs[k, cuda_graphs] = _options_run(prompts, k, cuda_graphs)
+    for k in (1, 4):
+        g, e = runs[k, True], runs[k, False]
+        if _tokens(g) != _tokens(e):
+            bad = [labels[i] for i, (a, b) in enumerate(zip(_tokens(g),
+                                                           _tokens(e)))
+                   if a != b]
+            raise AssertionError(f"sampling options K={k}: graphed streams "
+                                 f"differ from eager in rows {bad}")
+        gap = 0.0
+        for i, (rg, re_) in enumerate(zip(g["rows"], e["rows"])):
+            want = _option_rows()[i][1].get("logprobs", False)
+            entries = [lp for _, lp in rg], [lp for _, lp in re_]
+            if want != all(x is not None for x in entries[0] + entries[1]):
+                raise AssertionError(f"sampling options K={k}: row "
+                                     f"{labels[i]} logprobs {want} not kept")
+            if want:
+                gap = max(gap, _logprob_gap(*entries))
+        if gap > LOGPROB_TOL:
+            raise AssertionError(f"sampling options K={k}: logprobs differ "
+                                 f"by {gap} graphed against eager")
+        if (sum(g["captures"].values()) != len(g["keys"])
+                or any(g["eager_steps"].values())):
+            raise AssertionError(f"sampling options K={k}: captures "
+                                 f"{g['captures']} for {len(g['keys'])} keys, "
+                                 f"eager steps {g['eager_steps']}")
+        if g["plain_calls"] or e["plain_calls"]:
+            raise AssertionError("sampling options: plain versions ran on "
+                                 "CUDA tensors")
+        fsm = g["guided_fsm"]
+        for i, label in enumerate(labels):
+            toks = _tokens(g)[i]
+            if label == "forced" and set(toks) != {FORCED_TOKEN}:
+                raise AssertionError(f"sampling options K={k}: the +100 "
+                                     f"token was not emitted: {toks}")
+            if label == "min_tokens" and (
+                    len(toks) != OPTIONS_MIN_TOKENS + 1 or toks[-1] != 257
+                    or 257 in toks[:-1]):
+                raise AssertionError(f"sampling options K={k}: min_tokens "
+                                     f"row {toks}")
+            if label == "guided":
+                state = 0
+                for t in toks:
+                    state = fsm.advance(state, t)
+                json.loads(bytes(t for t in toks if t < 256))
+                if state < 0 or toks[-1] != 257:
+                    raise AssertionError(f"sampling options K={k}: guided "
+                                         f"row {toks}")
+        by_options = {}
+        for key in g["keys"]:
+            name = "+".join(key[3]) or "none"
+            by_options[name] = by_options.get(name, 0) + 1
+        log(f"sampling options bench-1b K={k}: 16 rows "
+            f"({', '.join(labels[:8])} x 2) in {g['steps']} steps; "
+            f"graphed {g['wall']:.3f} s, eager {e['wall']:.3f} s; "
+            f"captures {g['captures']} for {len(g['keys'])} keys, by "
+            f"option set {by_options}; replays {g['replays']}, eager "
+            f"steps {g['eager_steps']}; launches {g['launches']}; "
+            f"logprobs graphed vs eager within {gap:.2e}")
+    if _tokens(runs[1, True]) != _tokens(runs[4, True]):
+        raise AssertionError("sampling options: decode_steps 4 streams "
+                             "differ from decode_steps 1")
+    log("sampling options bench-1b: greedy streams byte-identical graphed "
+        "against eager and at decode_steps 1 and 4; guided rows parse as "
+        "JSON, min_tokens rows held EOS back, the +100 token emitted")
+
+
 # ---- serving phase ----------------------------------------------------------
 
 
@@ -1302,11 +1494,13 @@ def _post(url, body) -> dict:
         return json.loads(resp.read())
 
 
-def serving_run(label, extra_args, requests, repeat, after=(), form=""):
+def serving_run(label, extra_args, requests, repeat, after=(), form="",
+                probe=None):
     """Start the port's server with SERVER_ARGS + ``extra_args``, send
     ``requests`` concurrently with the launch counters set to 0 just
     before and read just after, then ``repeat`` twice; then (outside
-    the counted window) the ``after`` requests. Checks every
+    the counted window) the ``after`` requests, and ``probe`` (a body
+    whose answer is returned unchecked, as ``probe``). Checks every
     completion, that every kernel launched in its ``form`` (the
     counter suffix: "", "_int8", "_stacked" or "_int8_stacked") and in
     no other, and returns what the run measured, with the decode
@@ -1327,8 +1521,8 @@ def serving_run(label, extra_args, requests, repeat, after=(), form=""):
         out = run_decode(plan)
         if plan.drafts is None:
             decode["dispatches"] += 1
-            decode["row_steps"] += len(out)
-            decode["tokens"] += sum(len(t) for t in out)
+            decode["row_steps"] += len(out[0])
+            decode["tokens"] += sum(len(t) for t in out[0])
         return out
 
     runner.run_decode = counted_run_decode
@@ -1359,6 +1553,8 @@ def serving_run(label, extra_args, requests, repeat, after=(), form=""):
         with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
             metrics = r.read().decode()
         after_answers = post_all(list(after)) if after else []
+        probe_answer = (_post(base + "/v1/completions", probe)
+                        if probe is not None else None)
     finally:
         server.shutdown()
         thread.join(timeout=60)
@@ -1413,7 +1609,8 @@ def serving_run(label, extra_args, requests, repeat, after=(), form=""):
         f"ragged steps {ragged:.0f}; launches {launches}; plain calls "
         f"on CUDA tensors {plain_calls or 0}")
     return {"launches": launches, "answers": answers,
-            "after": after_answers, "wall": wall, "tokens": tokens,
+            "after": after_answers, "probe": probe_answer, "wall": wall,
+            "tokens": tokens,
             "metrics": metrics, "metric": metric, "decode": decode_counts,
             "async": server.app.engine.config.scheduler.async_scheduling,
             "drafted": metric("vllm:spec_decode_num_draft_tokens_total"),
@@ -1446,8 +1643,14 @@ def serving_phase(vocab: int) -> dict:
             "temperature": 0.0,
             "prompt": (block * (500 // len(block) + 1))[:500 - 7 * i]})
 
+    # After the timed window: n 3 of best_of 4 candidates, with the
+    # sampled logprob and 5 alternatives a position.
+    probe = {"model": "bench-1b", "max_tokens": 16, "ignore_eos": True,
+             "temperature": 0.9, "seed": 5, "n": 3, "best_of": 4,
+             "logprobs": 5, "prompt": requests[3]["prompt"]}
     base = serving_run("serving", [], requests, repeat,
-                       after=spec_requests)
+                       after=spec_requests, probe=probe)
+    _check_best_of(base["probe"], probe)
     spec = serving_run("serving spec k=4", ["--speculative-k", "4"],
                        spec_requests, spec_requests[0])
     if spec["drafted"] <= 0:
@@ -1510,6 +1713,31 @@ def serving_phase(vocab: int) -> dict:
             BURST_RUN: burst["launches"]}
 
 
+def _check_best_of(ans, body) -> None:
+    """An n / best_of / logprobs answer's shape: n choices in order of
+    their mean token logprob, each with its tokens' legacy logprobs,
+    and every candidate's tokens in the usage."""
+    n, m = body["n"], body["max_tokens"]
+    choices = ans["choices"]
+    means = []
+    for i, c in enumerate(choices):
+        lp = c["logprobs"]
+        if (c["index"] != i or c["finish_reason"] != "length"
+                or len(lp["tokens"]) != m or len(lp["token_logprobs"]) != m
+                or len(lp["top_logprobs"]) != m
+                or not all(1 <= len(t) <= body["logprobs"]
+                           for t in lp["top_logprobs"])):
+            raise AssertionError(f"serving n/best_of: bad choice {c}")
+        means.append(sum(lp["token_logprobs"]) / m)
+    if (len(choices) != n or means != sorted(means, reverse=True)
+            or ans["usage"]["completion_tokens"] != body["best_of"] * m):
+        raise AssertionError(f"serving n/best_of: {len(choices)} choices, "
+                             f"means {means}, usage {ans['usage']}")
+    log(f"serving n={n} best_of={body['best_of']} logprobs="
+        f"{body['logprobs']}: {n} choices of mean token logprob "
+        f"{[round(x, 4) for x in means]}, usage {ans['usage']}")
+
+
 def _greedy_agreement(requests, run, base):
     """(characters equal, characters, whole completions equal, greedy
     completions) of ``run``'s greedy answers against ``base``'s."""
@@ -1565,6 +1793,7 @@ def main() -> int:
     vocab = bench_1b_model_config().vocab_size
     engine_phase(vocab)
     graph_phase(vocab)
+    sampling_options_phase(vocab)
     launches = serving_phase(vocab)
 
     def numbers(h):

@@ -12,6 +12,12 @@ token and its stale rows are dropped (``_complete``). With
 ``scheduler.decode_steps`` K > 1 a pure decode step is a burst that
 commits up to K tokens a row through the same commit path; it runs
 synchronously, also under the pipeline.
+
+Every per-row sampling option of the JAX engine is served: penalties,
+``logit_bias``, ``min_tokens``, guided JSON (``SamplingParams.guided``
+"json", for the byte-range tokenizers, whose automaton is built at
+start-up) and logprobs, returned on each ``StepOutput`` in the JAX
+engine's form. LoRA adapters are not.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 from production_stack_tpu_torch.engine.config import EngineConfig
+from production_stack_tpu_torch.engine.guided import build_json_fsm
 from production_stack_tpu_torch.engine.kv_cache import PagedCacheManager
 from production_stack_tpu_torch.engine.metrics import EngineMetrics
 from production_stack_tpu_torch.engine.model_runner import ModelRunner
@@ -34,22 +41,9 @@ from production_stack_tpu_torch.engine.sequence import (
 )
 from production_stack_tpu_torch.engine.tokenizer import (
     BaseTokenizer,
+    ByteTokenizer,
     get_tokenizer,
 )
-
-
-def _check_ported(sp: SamplingParams) -> None:
-    """Raise on a sampling feature the port's steps do not apply yet,
-    rather than sample as if it were not set."""
-    unported = [name for name, on in (
-        ("penalties", sp.needs_penalties),
-        ("logprobs", sp.logprobs or sp.top_logprobs > 0),
-        ("logit_bias", bool(sp.logit_bias)),
-        ("min_tokens", sp.min_tokens > 0),
-        ("guided decoding", sp.guided is not None)) if on]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)}: not supported by this engine yet")
 
 
 @dataclass
@@ -58,6 +52,9 @@ class StepOutput:
     new_token: Optional[int]
     finished: bool
     finish_reason: Optional[str]
+    # (sampled_logprob, [(token_id, logprob), ...]) when the request
+    # asked for logprobs; None otherwise.
+    logprobs: Optional[tuple] = None
 
 
 class LLMEngine:
@@ -73,10 +70,19 @@ class LLMEngine:
         self.config = config
         self.tokenizer = tokenizer or get_tokenizer(None)
         self.cache_manager = PagedCacheManager(config.cache)
+        # Guided JSON: the automaton is built at start-up for the
+        # byte-range tokenizers (the bench tokenizer is one); None for
+        # any other, whose guided requests are refused.
+        self.guided_fsm = (build_json_fsm(self.tokenizer)
+                           if isinstance(self.tokenizer, ByteTokenizer)
+                           else None)
         self.scheduler = Scheduler(config.scheduler, config.cache,
-                                   self.cache_manager)
+                                   self.cache_manager,
+                                   guided_advance=self._guided_advance)
         self.runner = ModelRunner(config, params=params, device=device,
                                   cuda_graphs=cuda_graphs)
+        if self.guided_fsm is not None:
+            self.runner.set_guided_tables(self.guided_fsm)
         self.sequences: Dict[str, Sequence] = {}
         self._lock = threading.Lock()
         self.metrics = EngineMetrics()
@@ -92,9 +98,24 @@ class LLMEngine:
     def add_request(self, prompt_token_ids: List[int],
                     sampling: Optional[SamplingParams] = None,
                     seq_id: Optional[str] = None,
-                    output_sink=None) -> str:
+                    output_sink=None,
+                    lora_name: Optional[str] = None) -> str:
+        if lora_name is not None:
+            raise NotImplementedError(
+                f"LoRA adapter {lora_name!r}: not supported by this "
+                "engine yet")
         sampling = sampling or SamplingParams()
-        _check_ported(sampling)
+        fsm_state = None
+        if sampling.guided is not None:
+            if sampling.guided != "json":
+                raise ValueError(
+                    f"unsupported guided mode {sampling.guided!r} "
+                    "(supported: 'json')")
+            if self.guided_fsm is None:
+                raise ValueError(
+                    "guided JSON decoding requires a byte-range "
+                    "tokenizer")
+            fsm_state = 0
         stop_ids = list(sampling.stop_token_ids)
         if (not sampling.ignore_eos
                 and self.tokenizer.eos_token_id is not None
@@ -106,6 +127,7 @@ class LLMEngine:
             prompt_token_ids=list(prompt_token_ids),
             sampling=sampling,
             output_sink=output_sink,
+            fsm_state=fsm_state,
         )
         with self._lock:
             self.sequences[seq.seq_id] = seq
@@ -167,19 +189,26 @@ class LLMEngine:
     def _execute_prefill(self, plan, outputs) -> float:
         td = time.perf_counter()
         self._note_dispatch(td)
-        sampled = self.runner.run_prefill(plan.prefill)
+        sampled, lps = self.runner.run_prefill(plan.prefill)
         tr = time.perf_counter()
         self._idle_mark = tr
         with self._lock:
-            for chunk, token in zip(plan.prefill.chunks, sampled):
-                self.scheduler.on_prefill_executed(chunk, token)
-                if chunk.is_last_chunk:
-                    outputs.append(self._delta(chunk.seq, token))
+            self._commit_prefill(plan.prefill.chunks, sampled, lps, outputs)
         return tr - td
 
-    def _commit_decode(self, seqs, token_lists, outputs, drafts=None,
-                       expected_lens=None) -> None:
-        """Commit decode rows' tokens (caller holds the lock).
+    def _commit_prefill(self, chunks, tokens, lps, outputs) -> None:
+        """Commit prefill chunks; a last chunk's sampled token is the
+        row's first (caller holds the lock)."""
+        for i, (chunk, token) in enumerate(zip(chunks, tokens)):
+            self.scheduler.on_prefill_executed(chunk, token)
+            if chunk.is_last_chunk:
+                outputs.append(self._delta(chunk.seq, token,
+                                           lps[i] if lps else None))
+
+    def _commit_decode(self, seqs, token_lists, outputs, lp_lists=None,
+                       drafts=None, expected_lens=None) -> None:
+        """Commit decode rows' tokens (caller holds the lock), each with
+        its logprob entry where ``lp_lists`` has one.
 
         ``drafts`` (verify steps): per-row draft lists; each row emits
         accepted + 1 tokens, counted before any stop truncation so the
@@ -204,12 +233,13 @@ class LLMEngine:
                 seq.spec_drafted_total += len(drafts[i])
                 seq.spec_accepted_total += max(0, len(toks) - 1)
             emitted = 0
-            for tok in toks:
+            for k, tok in enumerate(toks):
                 if seq.state != SequenceState.RUNNING:
                     break  # stop hit mid-span: drop the tail
                 self.scheduler.append_decode_token(seq, tok)
                 emitted += 1
-                outputs.append(self._delta(seq, tok))
+                outputs.append(self._delta(
+                    seq, tok, lp_lists[i][k] if lp_lists else None))
             self.metrics.on_decode_tokens(seq, emitted, now)
             if drafts is not None:
                 self.scheduler.on_spec_executed(seq)
@@ -219,12 +249,12 @@ class LLMEngine:
     def _execute_decode_sync(self, plan, outputs) -> float:
         td = time.perf_counter()
         self._note_dispatch(td)
-        token_lists = self.runner.run_decode(plan.decode)
+        token_lists, lp_lists = self.runner.run_decode(plan.decode)
         tr = time.perf_counter()
         self._idle_mark = tr
         with self._lock:
             self._commit_decode(plan.decode.seqs, token_lists, outputs,
-                                drafts=plan.decode.drafts)
+                                lp_lists, drafts=plan.decode.drafts)
         return tr - td
 
     def _execute_unified(self, plan, outputs) -> float:
@@ -233,7 +263,8 @@ class LLMEngine:
         out of a single device step."""
         td = time.perf_counter()
         self._note_dispatch(td)
-        token_lists, prefill_toks = self.runner.run_unified(plan)
+        (token_lists, lp_lists, prefill_toks,
+         prefill_lps) = self.runner.run_unified(plan)
         tr = time.perf_counter()
         self._idle_mark = tr
         seqs = plan.decode.seqs[: self.runner.decode_width]
@@ -243,12 +274,10 @@ class LLMEngine:
             pad_rows=(self.runner.last_unified_rows
                       - len(chunks) - len(seqs)))
         with self._lock:
-            self._commit_decode(seqs, token_lists, outputs,
+            self._commit_decode(seqs, token_lists, outputs, lp_lists,
                                 drafts=plan.decode.drafts)
-            for chunk, token in zip(chunks, prefill_toks):
-                self.scheduler.on_prefill_executed(chunk, token)
-                if chunk.is_last_chunk:
-                    outputs.append(self._delta(chunk.seq, token))
+            self._commit_prefill(chunks, prefill_toks, prefill_lps,
+                                 outputs)
         return tr - td
 
     # ---- overlapped async pipeline ------------------------------------------
@@ -353,12 +382,12 @@ class LLMEngine:
         ordinary free path. A successor of a verify step drops its
         stale rows (``expected_lens``)."""
         tw = time.perf_counter()
-        token_lists = handle.result()
+        token_lists, lp_lists = handle.result()
         wait_s = time.perf_counter() - tw
         outputs: List[StepOutput] = []
         with self._lock:
             self._commit_decode(handle.rows, token_lists, outputs,
-                                drafts=handle.drafts,
+                                lp_lists, drafts=handle.drafts,
                                 expected_lens=handle.expected_lens)
         self._pop_finished(outputs)
         return outputs, wait_s
@@ -378,7 +407,8 @@ class LLMEngine:
             self._idle_mark = None
 
     @staticmethod
-    def _delta(seq: Sequence, token: Optional[int]) -> StepOutput:
+    def _delta(seq: Sequence, token: Optional[int],
+               logprobs: Optional[tuple] = None) -> StepOutput:
         finished = seq.state in (
             SequenceState.FINISHED, SequenceState.ABORTED
         )
@@ -388,7 +418,17 @@ class LLMEngine:
             finished=finished,
             finish_reason=(seq.finish_reason.value
                            if seq.finish_reason else None),
+            logprobs=logprobs,
         )
+
+    def _guided_advance(self, seq: Sequence, token: int) -> None:
+        """The host's mirror of a guided row's automaton (the
+        scheduler's hook): a token the automaton rejects (only a stop
+        id past the device's suppression width can be one) leaves the
+        state as it was."""
+        state = self.guided_fsm.advance(seq.fsm_state, token)
+        if state >= 0:
+            seq.fsm_state = state
 
     # ---- metrics ----------------------------------------------------------
 

@@ -2,8 +2,8 @@
 
 The JAX engine's runner compiles a program per step kind and shape and
 donates the caches through it. Here, on the card, each step is ONE CUDA
-graph per (kind, bucket shape, sampler mode), captured at the key's
-first use and replayed from static device buffers after it
+graph per (kind, bucket shape, sampler mode, option set), captured at
+the key's first use and replayed from static device buffers after it
 (engine/step_graphs.py; the constructor's ``cuda_graphs=False`` runs
 every step eagerly instead, to compare). The KV buffers (a list of
 per-layer buffers, or one stacked buffer per k/v) are allocated once
@@ -27,6 +27,16 @@ contract on live slots is the same. A decode burst (``decode_steps``
 > 1) is K chained decode iterations with the sampled tokens and each
 row's lifecycle kept on the device, one graph for the K iterations:
 one host read per K tokens.
+
+The per-row sampling options are optional inputs of a step, as in the
+JAX runner: penalties, ``logit_bias``, ``min_tokens`` suppression and
+the guided-JSON state ride prefill, single-step decode and burst steps
+(the scheduler keeps rows that carry them out of unified, verify and
+ahead steps); logprobs ride every step kind, taken from the raw logits
+at the fixed width TOP_LOGPROBS_WIDTH and trimmed on the host to each
+request's ``top_logprobs``. Each payload function returns {} when no row
+needs its option, so a plain batch keeps its plain graph. A burst
+carries the occurrence counts and the automaton state on the device.
 """
 
 from __future__ import annotations
@@ -53,10 +63,13 @@ from production_stack_tpu_torch.ops.paged_kv_common import (
 )
 from production_stack_tpu_torch.ops.quant_kv import quant_cache_zeros
 from production_stack_tpu_torch.ops.sampling import (
+    apply_sampling_options,
     burst_sample_step,
+    guided_advance,
     sample_tokens,
     sampler_mode,
     spec_verify,
+    token_logprobs,
 )
 from production_stack_tpu_torch.utils.log import init_logger
 
@@ -70,6 +83,23 @@ RAGGED_INPUTS = ("tokens", "positions", "valid", "page_table", "kv_lens",
 # A burst's stop sets are padded with -1 to at least this width, and to
 # a power of two, so that the stop-set width rarely makes a new key.
 MIN_STOP_WIDTH = 4
+# ``min_tokens`` suppresses at most this many stop ids a row on the
+# device; the host's finish guard covers the rest
+# (scheduler._append_token).
+STOP_SET_WIDTH = 16
+# Logprob alternatives computed per position: the OpenAI maximum of
+# ``top_logprobs``, so one width serves every request.
+TOP_LOGPROBS_WIDTH = 20
+# The per-row sampling options, in the order a step graph's key names
+# them, with their payload names (logprobs has no input).
+OPTION_INPUTS = {
+    "penalties": ("pen_counts", "pen_prompt_mask", "pen_presence",
+                  "pen_frequency", "pen_repetition"),
+    "bias": ("logit_bias",),
+    "suppress": ("sup_ids", "sup_rem"),
+    "guided": ("fsm_state",),
+    "logprobs": (),
+}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -109,6 +139,42 @@ def unified_row_buckets(rows: int) -> List[int]:
     return buckets
 
 
+def _lp_entry(seq: Sequence, slp, tids, tlps) -> tuple:
+    """One position's logprobs, trimmed to the row's request:
+    ``(sampled logprob, [(token id, logprob), ...])`` with
+    ``top_logprobs`` alternatives (host lists in, as ``.tolist()``
+    gives them)."""
+    k = min(max(seq.sampling.top_logprobs, 0), TOP_LOGPROBS_WIDTH)
+    return float(slp), [(int(tids[j]), float(tlps[j])) for j in range(k)]
+
+
+def _host(out):
+    """A step's outputs as host lists: tokens, or (tokens, sampled
+    logprobs, top ids, top logprobs). The step's one read."""
+    if isinstance(out, tuple):
+        return tuple(t.cpu().tolist() for t in out)
+    return out.cpu().tolist()
+
+
+def _row_results(rows, out) -> Tuple[List[List[int]], Optional[list]]:
+    """(token lists, logprob lists or None) of a step whose outputs are
+    [B, S] per row (a burst's window or a verify span), -1 where a slot
+    emitted nothing; a None row (a masked slot) gets no entries, and a
+    row that asked for no logprobs gets None entries."""
+    host = _host(out)
+    toks = host[0] if isinstance(host, tuple) else host
+    tokens, lps = [], []
+    for i, seq in enumerate(rows):
+        keep = [j for j, t in enumerate(toks[i]) if t >= 0]
+        tokens.append([toks[i][j] for j in keep])
+        if isinstance(host, tuple):
+            want = seq is not None and seq.sampling.logprobs
+            lps.append([_lp_entry(seq, host[1][i][j], host[2][i][j],
+                                 host[3][i][j]) if want else None
+                        for j in keep])
+    return tokens, (lps if isinstance(host, tuple) else None)
+
+
 class DecodeStepHandle:
     """One dispatched-but-unread decode: a single step, or a burst of
     K iterations.
@@ -116,19 +182,21 @@ class DecodeStepHandle:
     The kernels are queued on the card's stream; ``token_source`` is
     the sampled-token CUDA tensor the NEXT step consumes without a
     host round trip (single steps only), and ``result()`` is the
-    step's one ``.cpu()``.
+    step's one read: (token lists, logprob lists or None), the JAX
+    runner's form.
     """
 
     is_spec = False
     drafts = None
 
-    def __init__(self, rows, sampled: torch.Tensor):
+    def __init__(self, rows, sampled):
         # List[Optional[Sequence]]: None rows are plan-ahead slots
         # whose sequence was already known to finish (dispatched as
         # masked pad rows so row alignment with token_source holds).
         self.rows = rows
         # [B] for a single step; [B, K] for a burst, -1 where a row
-        # was frozen.
+        # was frozen. With logprobs, a tuple of that, the sampled
+        # logprobs ([B] or [B, K]), top ids and top logprobs ([..., 20]).
         self.sampled = sampled
         # Set on the assume-one-token successor of a verify step: per
         # row, the total_len that assumption predicts. The engine
@@ -139,14 +207,15 @@ class DecodeStepHandle:
     @property
     def token_source(self) -> torch.Tensor:
         """The [B] sampled-token device tensor (async feed-forward)."""
-        return self.sampled
+        return (self.sampled[0] if isinstance(self.sampled, tuple)
+                else self.sampled)
 
-    def result(self) -> List[List[int]]:
-        host = self.sampled.cpu().tolist()
-        if self.sampled.dim() == 1:
-            return [[host[i]] for i in range(len(self.rows))]
-        return [[t for t in host[i] if t >= 0]
-                for i in range(len(self.rows))]
+    def result(self) -> Tuple[List[List[int]], Optional[list]]:
+        if self.token_source.dim() == 2:
+            return _row_results(self.rows, self.sampled)
+        one = (tuple(t[:, None] for t in self.sampled)
+               if isinstance(self.sampled, tuple) else self.sampled[:, None])
+        return _row_results(self.rows, one)
 
 
 class SpecStepHandle:
@@ -160,7 +229,7 @@ class SpecStepHandle:
     position L's correct KV either way (the verify step's own write of
     the accepted first draft again, up to the decode kernel's order of
     sums, or a repair of the rejected draft's KV). ``result()`` is the
-    step's one ``.cpu()``.
+    step's one read, as ``DecodeStepHandle.result``.
     """
 
     is_spec = True
@@ -168,19 +237,21 @@ class SpecStepHandle:
     # (the engine breaks the pipeline instead).
     expected_lens = None
 
-    def __init__(self, rows, drafts, sampled: torch.Tensor):
+    def __init__(self, rows, drafts, sampled):
         self.rows = rows  # List[Sequence], no None slots
         self.drafts = drafts  # per-row draft lists, parallel to rows
-        self.sampled = sampled  # [B, K + 1], -1 past each row's tokens
+        # [B, K + 1], -1 past each row's tokens; with logprobs a tuple
+        # as in DecodeStepHandle, per span position.
+        self.sampled = sampled
 
     @property
     def token_source(self) -> torch.Tensor:
-        return self.sampled[:, 0]
+        out = (self.sampled[0] if isinstance(self.sampled, tuple)
+               else self.sampled)
+        return out[:, 0]
 
-    def result(self) -> List[List[int]]:
-        host = self.sampled.cpu().tolist()
-        return [[t for t in host[i] if t >= 0]
-                for i in range(len(self.rows))]
+    def result(self) -> Tuple[List[List[int]], Optional[list]]:
+        return _row_results(self.rows, self.sampled)
 
 
 class ModelRunner:
@@ -265,6 +336,21 @@ class ModelRunner:
         self.graphs: Optional[StepGraphs] = (
             StepGraphs(self.device, generators=[self.generator])
             if cuda_graphs and self.device.type == "cuda" else None)
+        # The guided-decoding automaton's tables on the device
+        # (set_guided_tables), or None: no guided row is served.
+        self._guided_trans: Optional[torch.Tensor] = None
+        self._guided_mask: Optional[torch.Tensor] = None
+        # (key, matrix) of the last logit-bias payload (_bias_payload).
+        self._bias_cache = None
+
+    def set_guided_tables(self, fsm) -> None:
+        """Upload the guided-decoding automaton's tables
+        (engine/guided.py) once. The steps read them at these fixed
+        addresses: each gathers mask[state] rows, and a burst advances
+        state = transition[state, token] on the device."""
+        self._guided_trans = torch.from_numpy(fsm.transition).to(
+            self.device)
+        self._guided_mask = torch.from_numpy(fsm.mask).to(self.device)
 
     # ---- steps --------------------------------------------------------------
 
@@ -275,23 +361,27 @@ class ModelRunner:
 
     def _dispatch(self, kind: str, shape: Tuple[int, ...], payload: dict,
                   names: Tuple[str, ...], body,
-                  token_source: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
+                  token_source: Optional[torch.Tensor] = None,
+                  options: Tuple[str, ...] = ()):
         """Run one step: ``body(inputs, mode)`` maps the payload's
         ``names`` and sampling knobs, as tensors, to the step's output
-        tensor; ``mode`` is the sampler's host branch, read from the
-        numpy knobs. ``token_source`` (a device tensor) replaces the
-        tokens. On the card the step replays its (kind, shape, mode)
-        graph, captured at the key's first use; it runs eagerly on the
-        CPU, and on the card only when a row is seeded (counted)."""
+        (the sampled tokens, or with logprobs a tuple); ``mode`` is the
+        sampler's host branch, read from the numpy knobs; ``options``
+        the per-row options the step carries, whose inputs
+        (OPTION_INPUTS) join ``names``. ``token_source`` (a device
+        tensor) replaces the tokens. On the card the step replays its
+        (kind, shape, mode, options) graph, captured at the key's first
+        use; it runs eagerly on the CPU, and on the card only when a
+        row is seeded (counted)."""
         mode = sampler_mode(*(payload[k] for k in KNOBS))
+        names = names + tuple(n for o in options for n in OPTION_INPUTS[o])
         with torch.inference_mode():
             if self.graphs is not None and "seeds" not in payload:
                 return self.graphs.run(
                     kind, shape, mode,
                     {k: payload[k] for k in names + KNOBS},
                     lambda inputs: body(inputs, mode),
-                    token_source=token_source)
+                    token_source=token_source, options=options)
             if self.graphs is not None:
                 self.graphs.count_eager("seeded")
             inputs = self._to_device({k: payload[k] for k in names})
@@ -311,11 +401,28 @@ class ModelRunner:
         return {name: torch.from_numpy(payload[name])
                 for name in ("seeds", "emitted", "seed_mask")}
 
+    def _sample_rows(self, logits: torch.Tensor, dev: dict, mode: str,
+                     options: Tuple[str, ...],
+                     seeding: Optional[dict] = None):
+        """Sample one token a row from [B, vocab] raw logits through the
+        option chain; with logprobs, a tuple (tokens, sampled logprobs,
+        top ids, top logprobs) from the raw logits."""
+        sampled = sample_tokens(
+            apply_sampling_options(logits, dev,
+                                   guided_mask=self._guided_mask),
+            dev["temperature"], dev["top_p"], dev["top_k"],
+            generator=self.generator, mode=mode, **(seeding or {}))
+        if "logprobs" in options:
+            return (sampled,) + token_logprobs(logits, sampled,
+                                               TOP_LOGPROBS_WIDTH)
+        return sampled
+
     def _step_body(self, dev: dict, mode: str, kind: str,
-                   seeding: Optional[dict] = None) -> torch.Tensor:
+                   options: Tuple[str, ...] = (),
+                   seeding: Optional[dict] = None):
         """Prefill (``kind`` "prefill": sample each row's last prompt
         position, ``last_index``) or single-step decode ("decode": T ==
-        1). Returns the [B] sampled tokens."""
+        1). Returns the [B] sampled tokens (a tuple with logprobs)."""
         tokens = dev["tokens"]
         if tokens.dim() == 1:
             # Decode feeds [B] tokens so an ahead dispatch can consume
@@ -329,11 +436,10 @@ class ModelRunner:
             self.params, self.config.model, tokens, positions,
             dev["page_table"], dev["kv_lens"], valid, self.k_cache,
             self.v_cache, select=select, kind=kind)
-        return sample_tokens(logits[:, 0], dev["temperature"], dev["top_p"],
-                             dev["top_k"], generator=self.generator,
-                             mode=mode, **(seeding or {}))
+        return self._sample_rows(logits[:, 0], dev, mode, options, seeding)
 
-    def _unified_body(self, dev: dict, mode: str) -> torch.Tensor:
+    def _unified_body(self, dev: dict, mode: str,
+                      options: Tuple[str, ...] = ()):
         """One ragged [R, W] step through the ragged kernel: decode
         rows occupy their first 1 + draft_len slots ([last committed,
         d_1 .. d_k] at total_len - 1 ..), prefill chunk rows up to W
@@ -342,7 +448,8 @@ class ModelRunner:
         verify rule over each row's span ``logits[i, last_index_i -
         draft_lens_i + j]``; a draft-free row's span is its last real
         position, and at temperature 0 the rule is the plain argmax.
-        Returns the [R, span] sampled tokens.
+        Returns the [R, span] sampled tokens; with logprobs a tuple
+        with each span position's raw-logit logprobs.
 
         Rejected drafts need no rollback on the card: their KV lies
         past the committed length in the row's own pages, causally
@@ -357,9 +464,17 @@ class ModelRunner:
             self.params, self.config.model, tokens, dev["positions"],
             dev["page_table"], dev["kv_lens"], dev["valid"],
             self.k_cache, self.v_cache, select=idx, kind="ragged")
-        return spec_verify(span, dev["drafts"], dev["draft_lens"],
-                           dev["temperature"], dev["top_p"], dev["top_k"],
-                           generator=self.generator, mode=mode)
+        out = spec_verify(span, dev["drafts"], dev["draft_lens"],
+                          dev["temperature"], dev["top_p"], dev["top_k"],
+                          generator=self.generator, mode=mode)
+        if "logprobs" not in options:
+            return out
+        # Positions past a row's emitted count are dropped on the host.
+        r, _, v = span.shape
+        lp = token_logprobs(span.reshape(r * s, v),
+                            torch.clamp(out, min=0).reshape(r * s),
+                            TOP_LOGPROBS_WIDTH)
+        return (out,) + tuple(x.reshape((r, s) + x.shape[1:]) for x in lp)
 
     def _bucket_for(self, n: int) -> int:
         for b in self._buckets:
@@ -399,13 +514,128 @@ class ModelRunner:
             mask[i] = True
         return {"seeds": seeds, "emitted": emitted, "seed_mask": mask}
 
+    # ---- per-row sampling options -------------------------------------------
+
+    def _penalty_payload(self, seqs: "List[Optional[Sequence]]",
+                         pad_to: int) -> dict:
+        """Per-row penalty inputs, or {} when no row needs them: [B,
+        vocab] output-token counts and prompt-token mask, and the three
+        [B] penalties (no-op defaults for None rows and rows without
+        penalties)."""
+        if not any(s is not None and s.sampling.needs_penalties
+                   for s in seqs):
+            return {}
+        v = self.config.model.vocab_size
+        counts = np.zeros((pad_to, v), np.int32)
+        pmask = np.zeros((pad_to, v), bool)
+        presence = np.zeros((pad_to,), np.float32)
+        frequency = np.zeros((pad_to,), np.float32)
+        repetition = np.ones((pad_to,), np.float32)
+        for i, seq in enumerate(seqs):
+            if seq is None:
+                continue
+            sp = seq.sampling
+            presence[i] = sp.presence_penalty
+            frequency[i] = sp.frequency_penalty
+            repetition[i] = sp.repetition_penalty
+            if sp.needs_penalties:
+                if seq.output_token_ids:
+                    np.add.at(counts[i], np.asarray(seq.output_token_ids,
+                                                    np.int64), 1)
+                pmask[i, np.asarray(seq.prompt_token_ids, np.int64)] = True
+        return {"pen_counts": counts, "pen_prompt_mask": pmask,
+                "pen_presence": presence, "pen_frequency": frequency,
+                "pen_repetition": repetition}
+
+    def _bias_payload(self, seqs: "List[Optional[Sequence]]",
+                      pad_to: int) -> dict:
+        """The per-row [B, vocab] logit-bias matrix, or {} when no row
+        uses one. It is constant while the rows and their biases are,
+        so the last one is kept and reused (by row sequence and bias)."""
+        if not any(s is not None and s.sampling.logit_bias for s in seqs):
+            return {}
+        key = (pad_to, tuple(
+            (s.seq_id, tuple(sorted(s.sampling.logit_bias.items())))
+            if s is not None and s.sampling.logit_bias else None
+            for s in seqs))
+        if self._bias_cache is not None and self._bias_cache[0] == key:
+            return {"logit_bias": self._bias_cache[1]}
+        v = self.config.model.vocab_size
+        bias = np.zeros((pad_to, v), np.float32)
+        for i, seq in enumerate(seqs):
+            if seq is None or not seq.sampling.logit_bias:
+                continue
+            for tid, b in seq.sampling.logit_bias.items():
+                # The server refuses ids outside the vocabulary; direct
+                # callers' are dropped here.
+                if 0 <= int(tid) < v:
+                    bias[i, int(tid)] = float(b)
+        self._bias_cache = (key, bias)
+        return {"logit_bias": bias}
+
+    def _suppress_payload(self, seqs: "List[Optional[Sequence]]",
+                          pad_to: int) -> dict:
+        """``min_tokens`` inputs, or {} when no row is under its
+        minimum: each row's stop ids (EOS included; -1 padded to
+        STOP_SET_WIDTH) and the tokens it must still emit before a stop
+        may be generated."""
+        if not any(s is not None and s.sampling.min_tokens > s.num_generated
+                   for s in seqs):
+            return {}
+        ids = np.full((pad_to, STOP_SET_WIDTH), -1, np.int32)
+        rem = np.zeros((pad_to,), np.int32)
+        for i, seq in enumerate(seqs):
+            if seq is None:
+                continue
+            r = seq.sampling.min_tokens - seq.num_generated
+            if r <= 0:
+                continue
+            rem[i] = r
+            sids = seq.sampling.stop_token_ids[:STOP_SET_WIDTH]
+            ids[i, :len(sids)] = sids
+        return {"sup_ids": ids, "sup_rem": rem}
+
+    def _guided_payload(self, seqs: "List[Optional[Sequence]]",
+                        pad_to: int) -> dict:
+        """Per-row automaton states ([B], -1 = unconstrained), or {}
+        when no row is guided."""
+        if not any(s is not None and s.fsm_state is not None for s in seqs):
+            return {}
+        state = np.full((pad_to,), -1, np.int32)
+        for i, seq in enumerate(seqs):
+            if seq is not None and seq.fsm_state is not None:
+                state[i] = seq.fsm_state
+        return {"fsm_state": state}
+
+    def _options_payload(self, seqs: "List[Optional[Sequence]]",
+                         pad_to: int, row_inputs: bool = True
+                         ) -> Tuple[dict, Tuple[str, ...]]:
+        """The step's per-row option inputs and its option set (the
+        order of OPTION_INPUTS). ``row_inputs`` False (unified, verify
+        and ahead steps, whose rows the scheduler keeps free of them)
+        leaves only logprobs."""
+        payload = {}
+        if row_inputs:
+            payload.update(self._penalty_payload(seqs, pad_to))
+            payload.update(self._bias_payload(seqs, pad_to))
+            payload.update(self._suppress_payload(seqs, pad_to))
+            payload.update(self._guided_payload(seqs, pad_to))
+        options = tuple(o for o, names in OPTION_INPUTS.items()
+                        if names and names[0] in payload)
+        if any(s is not None and s.sampling.logprobs for s in seqs):
+            options += ("logprobs",)
+        return payload, options
+
     # ---- prefill ------------------------------------------------------------
 
-    def run_prefill(self, plan: PrefillPlan) -> List[Optional[int]]:
+    def run_prefill(self, plan: PrefillPlan
+                    ) -> Tuple[List[Optional[int]], Optional[list]]:
         """Execute one batched prefill step (the next chunk of up to
         ``prefill_batch_size`` distinct sequences, rows padded to the
-        fixed width). Returns one sampled token per chunk — None for
-        rows whose prompt is not yet fully prefilled."""
+        fixed width). Returns (tokens, logprobs): one sampled token per
+        chunk — None for rows whose prompt is not yet fully prefilled —
+        and, when a sampling row asked for logprobs, each row's entry
+        (else None)."""
         chunks = plan.chunks
         b = self.prefill_width
         t = self._bucket_for(max(len(c.chunk_tokens) for c in chunks))
@@ -434,21 +664,28 @@ class ModelRunner:
             "kv_lens": kv_lens, "last_index": last_index,
             "temperature": temperature, "top_p": top_p, "top_k": top_k,
         }
-        # Only rows whose LAST chunk is in this step keep their sample.
-        payload.update(self._seed_payload(
-            [c.seq if c.is_last_chunk else None for c in chunks], b))
+        # Only rows whose LAST chunk is in this step keep their sample:
+        # the others carry no options.
+        sampling_rows = [c.seq if c.is_last_chunk else None for c in chunks]
+        payload.update(self._seed_payload(sampling_rows, b))
+        opts, options = self._options_payload(sampling_rows, b)
+        payload.update(opts)
         seeding = self._seeding(payload)
         sampled = self._dispatch(
             "step", (b, t), payload, ("tokens", "positions", "valid",
                                       "page_table", "kv_lens",
                                       "last_index"),
             lambda dev, mode: self._step_body(dev, mode, "prefill",
-                                              seeding))
+                                              options, seeding),
+            options=options)
         if not any(c.is_last_chunk for c in chunks):
-            return [None] * len(chunks)
-        host = sampled.cpu().tolist()
-        return [host[i] if c.is_last_chunk else None
-                for i, c in enumerate(chunks)]
+            return [None] * len(chunks), None
+        toks, lps = DecodeStepHandle(sampling_rows, sampled).result()
+        return ([tk[0] if c.is_last_chunk else None
+                 for tk, c in zip(toks, chunks)],
+                None if lps is None else
+                [lp[0] if c.is_last_chunk else None
+                 for lp, c in zip(lps, chunks)])
 
     # ---- decode -------------------------------------------------------------
 
@@ -461,9 +698,11 @@ class ModelRunner:
         ``token_source``: the previous step's [B] sampled-token device
         tensor, consumed without touching the host. ``ahead`` shifts
         positions/kv_lens by the one token the in-flight step will have
-        committed by the time these inputs are read. ``window`` > 1
-        queues a burst of that many chained iterations instead of one
-        step (never ahead: the engine runs bursts synchronously)."""
+        committed by the time these inputs are read; its rows carry no
+        per-row option inputs but logprobs (the scheduler's plan-ahead
+        eligibility). ``window`` > 1 queues a burst of that many chained
+        iterations instead of one step (never ahead: the engine runs
+        bursts synchronously)."""
         b = self.decode_width
         rows = list(rows)[:b]
         off = 1 if ahead else 0
@@ -498,6 +737,8 @@ class ModelRunner:
             # Plan-ahead eligibility excludes seeded rows (their
             # emitted index would be one token stale).
             payload.update(self._seed_payload(rows, b))
+        opts, options = self._options_payload(rows, b, row_inputs=not ahead)
+        payload.update(opts)
         names = ("tokens", "positions", "valid", "page_table", "kv_lens")
         if window > 1:
             payload.update(self._burst_payload(rows, b))
@@ -506,13 +747,15 @@ class ModelRunner:
                 "decode_burst", (b, window, payload["stop_tokens"].shape[1]),
                 payload, names + ("budgets", "stop_tokens"),
                 lambda dev, mode: self._burst_body(dev, mode, window,
-                                                   seeding))
+                                                   options, seeding),
+                options=options)
             return DecodeStepHandle(rows, sampled)
         seeding = self._seeding(payload)
         return DecodeStepHandle(rows, self._dispatch(
             "step", (b, 1), payload, names,
-            lambda dev, mode: self._step_body(dev, mode, "decode", seeding),
-            token_source=token_source))
+            lambda dev, mode: self._step_body(dev, mode, "decode", options,
+                                              seeding),
+            token_source=token_source, options=options))
 
     def _burst_payload(self, rows, pad_to: int) -> dict:
         """Per-row lifecycle inputs of a burst: each row's token budget
@@ -535,51 +778,76 @@ class ModelRunner:
         return {"budgets": budgets, "stop_tokens": stop_tokens}
 
     def _burst_body(self, dev: dict, mode: str, window: int,
-                    seeding: Optional[dict] = None) -> torch.Tensor:
+                    options: Tuple[str, ...] = (),
+                    seeding: Optional[dict] = None):
         """``window`` chained decode iterations with no host sync between
         them (the JAX runner's ``_decode_burst_impl`` with eager KV
         writes). The carry (last tokens, positions, kv_lens, active,
-        emitted) stays on the device: each iteration writes the active
-        rows' KV (a frozen row's write goes to trash page 0), attends,
-        samples, and freezes rows at a stop token or their budget; a
-        frozen row's position and kv_len stop advancing and its slots
-        emit -1. A seeded row's emitted index at iteration k is its
-        host-known start plus k. Returns the [B, window] tokens."""
+        emitted, and with those options the occurrence counts and the
+        automaton states) stays on the device: each iteration writes
+        the active rows' KV (a frozen row's write goes to trash page 0),
+        attends, applies the option chain (``min_tokens`` against the
+        burst's own ``emitted``), samples, and freezes rows at a stop
+        token or their budget; a frozen row's position and kv_len stop
+        advancing and its slots emit -1. A seeded row's emitted index
+        at iteration k is its host-known start plus k. Returns the [B,
+        window] tokens; with logprobs a tuple with the [B, window]
+        sampled logprobs and [B, window, 20] top ids and logprobs."""
         seeding = dict(seeding or {})
         emitted_start = seeding.pop("emitted", None)
         tok = dev["tokens"][:, None]
         pos, kv_lens = dev["positions"], dev["kv_lens"]
         active = dev["valid"][:, 0]
         emitted = torch.zeros_like(kv_lens)
-        out = []
+        counts = dev.get("pen_counts")
+        state = dev.get("fsm_state")
+        outs = []
         for k in range(window):
             logits = self._forward(
                 self.params, self.config.model, tok, pos,
                 dev["page_table"], kv_lens, active[:, None], self.k_cache,
-                self.v_cache, kind="decode")
+                self.v_cache, kind="decode")[:, 0]
             if emitted_start is not None:
                 seeding["emitted_index"] = emitted_start + k
-            step_out, sampled, emitted, nxt = burst_sample_step(
-                logits[:, 0], active, emitted, dev["budgets"],
+            step_out, sampled, emitted_next, nxt = burst_sample_step(
+                apply_sampling_options(logits, dev, counts=counts,
+                                       emitted=emitted, state=state,
+                                       guided_mask=self._guided_mask),
+                active, emitted, dev["budgets"],
                 dev["stop_tokens"], dev["temperature"], dev["top_p"],
                 dev["top_k"], generator=self.generator, mode=mode,
                 **seeding)
+            if "logprobs" in options:
+                outs.append((step_out,) + token_logprobs(
+                    logits, sampled, TOP_LOGPROBS_WIDTH))
+            else:
+                outs.append((step_out,))
+            if counts is not None:
+                # Later iterations penalize the tokens this burst drew.
+                counts = counts.scatter_add(
+                    1, sampled[:, None], active.to(counts.dtype)[:, None])
+            if state is not None:
+                state = guided_advance(state, sampled, active,
+                                       self._guided_trans)
             step = nxt.to(pos.dtype)
             tok = torch.where(active, sampled.to(tok.dtype),
                               tok[:, 0])[:, None]
             pos = pos + step[:, None]
             kv_lens = kv_lens + step
             active = nxt
-            out.append(step_out)
-        return torch.stack(out, dim=1)
+            emitted = emitted_next
+        stacked = tuple(torch.stack(x, dim=1) for x in zip(*outs))
+        return stacked if len(stacked) > 1 else stacked[0]
 
-    def run_decode(self, plan: DecodePlan) -> List[List[int]]:
+    def run_decode(self, plan: DecodePlan
+                   ) -> Tuple[List[List[int]], Optional[list]]:
         """One synchronous decode (or, with drafts, verify) step over
         all running sequences: the async pipeline's dispatch path plus
         an immediate read, so sync and async greedy decoding share one
         code path. A plan window > 1 runs a burst: up to ``window``
         tokens a row out of one dispatch and one read, fewer for a row
-        that stops or reaches its budget mid-burst."""
+        that stops or reaches its budget mid-burst. Returns (token
+        lists, logprob lists or None)."""
         if plan.drafts is not None:
             return self.dispatch_spec(plan).result()
         return self.dispatch_decode(plan.seqs[: self.decode_width],
@@ -631,23 +899,29 @@ class ModelRunner:
             "drafts": drafts, "draft_lens": draft_lens,
             "temperature": temperature, "top_p": top_p, "top_k": top_k,
         }
+        _, options = self._options_payload(seqs, b, row_inputs=False)
         return SpecStepHandle(
             list(seqs), [list(plan.drafts[i]) for i in range(len(seqs))],
-            self._dispatch("spec_verify", (b, s), payload, RAGGED_INPUTS,
-                           self._unified_body))
+            self._dispatch(
+                "spec_verify", (b, s), payload, RAGGED_INPUTS,
+                lambda dev, mode: self._unified_body(dev, mode, options),
+                options=options))
 
     # ---- unified ragged step ------------------------------------------------
 
     def run_unified(self, plan: StepPlan
-                    ) -> Tuple[List[List[int]], List[Optional[int]]]:
+                    ) -> Tuple[List[List[int]], Optional[list],
+                               List[Optional[int]], Optional[list]]:
         """Execute one mixed step: decode rows (with their drafts, if
         any) and prefill chunk rows in ONE [R, W] block. Rows are
         compact — decode rows at 0..len(seqs)-1, prefill chunk rows
         right after, pads only at the tail; R snaps to the row-bucket
         lattice, W to the prefill buckets and at least K + 1. Returns
-        (decode token lists, prefill tokens): decode rows commit
-        1..K + 1 tokens each (the verify contract), prefill rows one
-        sampled token for last chunks (None mid-prompt)."""
+        (decode token lists, their logprob lists, prefill tokens, their
+        logprobs), the logprobs None unless a sampling row asked:
+        decode rows commit 1..K + 1 tokens each (the verify contract),
+        prefill rows one sampled token for last chunks (None
+        mid-prompt)."""
         seqs = plan.decode.seqs[: self.decode_width]
         chunks = plan.prefill.chunks[: self.prefill_width]
         spec_drafts = plan.decode.drafts
@@ -697,13 +971,20 @@ class ModelRunner:
             "drafts": drafts, "draft_lens": draft_lens,
             "temperature": temperature, "top_p": top_p, "top_k": top_k,
         }
-        host = self._dispatch("unified", (r, w), payload, RAGGED_INPUTS,
-                              self._unified_body).cpu().tolist()
-        token_lists = [[tok for tok in host[i] if tok >= 0]
-                       for i in range(len(seqs))]
-        prefill_out = [host[off + j][0] if c.is_last_chunk else None
+        rows = list(seqs) + [c.seq if c.is_last_chunk else None
+                             for c in chunks]
+        _, options = self._options_payload(rows, r, row_inputs=False)
+        toks, lps = _row_results(rows, self._dispatch(
+            "unified", (r, w), payload, RAGGED_INPUTS,
+            lambda dev, mode: self._unified_body(dev, mode, options),
+            options=options))
+        prefill_out = [toks[off + j][0] if c.is_last_chunk else None
                        for j, c in enumerate(chunks)]
-        return token_lists, prefill_out
+        prefill_lps = (None if lps is None else
+                       [lps[off + j][0] if c.is_last_chunk else None
+                        for j, c in enumerate(chunks)])
+        return (toks[:off], None if lps is None else lps[:off],
+                prefill_out, prefill_lps)
 
     # ---- page-granular IO ---------------------------------------------------
 

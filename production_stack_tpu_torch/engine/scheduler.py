@@ -90,7 +90,11 @@ class StepPlan:
 
 class Scheduler:
     def __init__(self, config: SchedulerConfig, cache_config: CacheConfig,
-                 cache_manager: PagedCacheManager):
+                 cache_manager: PagedCacheManager, guided_advance=None):
+        # Optional hook(seq, token) advancing a guided row's automaton
+        # state as its tokens are appended (the engine binds it, so the
+        # host state mirrors the device's).
+        self.guided_advance = guided_advance
         self.config = config
         self.page_size = cache_config.page_size
         self.cache = cache_manager
@@ -170,13 +174,18 @@ class Scheduler:
         return bool(self.waiting or self.running)
 
     @staticmethod
-    def _needs_row_inputs(seq: Sequence) -> bool:
-        """Rows with per-token host state the mixed and ahead plans do
-        not carry: seeded sampling, whose draw depends on the count of
-        tokens emitted so far. (The engine refuses the rest of the JAX
-        scheduler's set — penalties, logit_bias, min_tokens, guided
-        output.)"""
-        return seq.sampling.seed is not None
+    def _needs_row_inputs(seq: Sequence, ahead: int = 0) -> bool:
+        """Rows with per-row sampling inputs that unified, verify and
+        ahead steps do not carry (the JAX scheduler's exclusion set):
+        penalties, a seed, ``logit_bias``, ``min_tokens`` still to reach
+        and a guided automaton state. ``ahead`` counts the tokens an
+        in-flight step will have committed first (plan-ahead: 1).
+        Logprobs are not in the set: every step kind returns them."""
+        sp = seq.sampling
+        return (sp.needs_penalties or sp.seed is not None
+                or bool(sp.logit_bias)
+                or sp.min_tokens > seq.num_generated + ahead
+                or seq.fsm_state is not None)
 
     # ---- planning ---------------------------------------------------------
 
@@ -270,8 +279,12 @@ class Scheduler:
         proceeds exactly as fast as alternation would while decode rows
         keep emitting. Returns None to fall back to bimodal alternation
         when a running row needs per-row inputs the ragged step does
-        not carry."""
-        if any(self._needs_row_inputs(seq) for seq in self.running):
+        not carry, or a waiting one does (its first token must be
+        sampled in a prefill step, through its options; the JAX
+        scheduler checks running rows only, and samples such a row's
+        first token without them)."""
+        if any(self._needs_row_inputs(seq)
+               for seq in list(self.running) + list(self.waiting)):
             return None
         drafts = self._propose() if self.proposer is not None else {}
         # Reserve decode-side pages first (1 + draft_len per row);
@@ -328,7 +341,7 @@ class Scheduler:
             if seq is None or seq.state != SequenceState.RUNNING:
                 rows.append(None)
                 continue
-            if self._needs_row_inputs(seq):
+            if self._needs_row_inputs(seq, ahead=1):
                 return None
             if self._seq_budget(seq) <= 1:
                 # Step N's token exhausts the row's budget: it will
@@ -570,7 +583,12 @@ class Scheduler:
 
     def _append_token(self, seq: Sequence, token: int) -> None:
         seq.output_token_ids.append(token)
+        if self.guided_advance is not None and seq.fsm_state is not None:
+            self.guided_advance(seq, token)
         stop_ids = seq.sampling.stop_token_ids
+        # min_tokens: the device suppresses stop ids while under the
+        # minimum, but only STOP_SET_WIDTH of them; a wider set's
+        # overflow must not end the sequence early.
         past_min = seq.num_generated > seq.sampling.min_tokens
         if (not seq.sampling.ignore_eos and token in stop_ids
                 and past_min):

@@ -22,15 +22,26 @@ The HTTP layer is ``http.server.ThreadingHTTPServer`` (one thread per
 connection); the engine steps on one loop thread of its own and hands
 each request's tokens to that request's queue.
 
-A request that asks for a feature the port does not serve yet gets a
-400 naming it: ``logprobs``, penalties, ``logit_bias``,
-``min_tokens``, guided output (``response_format``), LoRA adapters
-and ``n``/``best_of`` > 1.
+Request options served, parsed and validated as the JAX server does
+(``sampling_from_body``): ``temperature``, ``top_p``, ``top_k``,
+``seed``, ``stop``, ``ignore_eos``, the three penalties, ``logit_bias``
+(at most 300 ids of the vocabulary, values in [-100, 100]),
+``min_tokens`` (at most ``max_tokens``), ``response_format``
+``json_object`` (guided JSON), ``logprobs`` / ``top_logprobs`` (up to
+20; the chat ``logprobs.content`` form and the legacy ``tokens`` /
+``token_logprobs`` / ``top_logprobs`` form, streamed and not), ``n``
+(1..16) and, on ``/v1/completions``, ``best_of`` (n..16: the n
+candidates of highest mean token logprob), each choice one engine
+request over the shared prompt. The 400s the JAX server also gives
+remain: ``suffix``, ``echo`` with ``logprobs``, a streamed ``best_of``
+> n, out-of-range values, and a ``model`` other than the served one
+(LoRA adapters are not served).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import queue
 import threading
@@ -38,7 +49,7 @@ import time
 import uuid
 from http import HTTPStatus
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from production_stack_tpu_torch.engine.config import (
     CacheConfig,
@@ -65,8 +76,9 @@ logger = init_logger(__name__)
 
 class EngineLoop:
     """Steps the engine on a background thread. Requests are admitted
-    on that thread (between steps); each request's outputs go to a
-    ``queue.Queue`` its HTTP handler thread reads."""
+    on that thread (between steps); the outputs of each HTTP request's
+    engine requests (its choices) go, tagged with the choice's index,
+    to one ``queue.Queue`` its handler thread reads."""
 
     def __init__(self, engine: LLMEngine):
         self.engine = engine
@@ -123,15 +135,22 @@ class EngineLoop:
     def _emit(self, out: StepOutput) -> None:
         stream = self._streams.get(out.seq_id)
         if stream is not None:
-            stream.put(out)
+            stream[0].put((stream[1], out))
 
-    def submit(self, prompt: List[int], sampling: SamplingParams):
-        seq_id = f"seq-{uuid.uuid4().hex[:16]}"
+    def submit(self, prompt: List[int], samplings: List[SamplingParams]
+               ) -> Tuple[List[str], "queue.Queue"]:
+        """One engine request a sampling, over the shared prompt;
+        returns their sequence ids and the queue of their (index,
+        StepOutput) pairs."""
         stream: "queue.Queue" = queue.Queue()
-        self._streams[seq_id] = stream
-        self._submit_q.put((seq_id, prompt, sampling))
+        seq_ids = []
+        for i, sampling in enumerate(samplings):
+            seq_id = f"seq-{uuid.uuid4().hex[:16]}"
+            self._streams[seq_id] = (stream, i)
+            self._submit_q.put((seq_id, prompt, sampling))
+            seq_ids.append(seq_id)
         self._wakeup.set()
-        return seq_id, stream
+        return seq_ids, stream
 
     def finish_stream(self, seq_id: str) -> None:
         self._streams.pop(seq_id, None)
@@ -149,37 +168,10 @@ class BadRequest(ValueError):
     """A request the server answers with a 400."""
 
 
-def _not_served(feature: str) -> BadRequest:
-    return BadRequest(f"{feature} is not supported by this engine yet")
-
-
-def _reject_unported(body: dict) -> None:
-    """400 for every sampling feature outside the port's slice."""
-    lp = body.get("logprobs")
-    if (lp is not None and lp is not False) or body.get("top_logprobs"):
-        raise _not_served("'logprobs'")
-    for name, neutral in (("presence_penalty", 0.0),
-                          ("frequency_penalty", 0.0),
-                          ("repetition_penalty", 1.0)):
-        if body.get(name) is not None and float(body[name]) != neutral:
-            raise _not_served(f"penalties ('{name}')")
-    if body.get("logit_bias"):
-        raise _not_served("'logit_bias'")
-    if body.get("min_tokens"):
-        raise _not_served("'min_tokens'")
-    rf = body.get("response_format")
-    if rf is not None and not (isinstance(rf, dict)
-                               and rf.get("type") == "text"):
-        raise _not_served("guided output ('response_format')")
-    for name in ("n", "best_of"):
-        if body.get(name) is not None and int(body[name]) != 1:
-            raise _not_served(f"'{name}' > 1")
-    if body.get("suffix"):
-        raise _not_served("'suffix' (insertion)")
-
-
-def sampling_from_body(body: dict, max_model_len: int) -> SamplingParams:
-    _reject_unported(body)
+def sampling_from_body(body: dict, max_model_len: int,
+                       vocab_size: Optional[int] = None) -> SamplingParams:
+    """A request's sampling parameters, parsed and validated as the JAX
+    server's ``_sampling_from_body`` does; raises ValueError (a 400)."""
     max_tokens = body.get("max_tokens")
     if max_tokens is None:
         max_tokens = body.get("max_completion_tokens")
@@ -195,15 +187,92 @@ def sampling_from_body(body: dict, max_model_len: int) -> SamplingParams:
         stop_strings = [stop]
     else:
         stop_strings = [str(s) for s in stop][:4]  # OpenAI caps at 4
+    presence = body.get("presence_penalty")
+    frequency = body.get("frequency_penalty")
+    repetition = body.get("repetition_penalty")  # vLLM extension
+    # Chat: ``logprobs`` a bool and ``top_logprobs`` an int; legacy
+    # completions: ``logprobs`` is the top-k int itself.
+    lp_req = body.get("logprobs")
+    lp_top = int(body.get("top_logprobs") or 0)
+    if isinstance(lp_req, bool):
+        if not lp_req and lp_top > 0:
+            raise BadRequest("'top_logprobs' is only allowed when "
+                             "'logprobs' is enabled")
+        lp_flag = lp_req
+    elif lp_req is None:
+        lp_flag = lp_top > 0
+    else:
+        lp_flag, lp_top = True, int(lp_req)
     p = SamplingParams(
         max_tokens=min(int(max_tokens), max_model_len),
         temperature=1.0 if temperature is None else float(temperature),
         top_p=1.0 if top_p is None else float(top_p),
         top_k=0 if top_k is None else int(top_k),
         stop_strings=stop_strings,
+        presence_penalty=0.0 if presence is None else float(presence),
+        frequency_penalty=0.0 if frequency is None else float(frequency),
+        repetition_penalty=1.0 if repetition is None else float(repetition),
         ignore_eos=bool(body.get("ignore_eos", False)),
         seed=None if body.get("seed") is None else int(body["seed"]),
+        logprobs=lp_flag,
+        top_logprobs=lp_top,
+        logit_bias=_logit_bias_from_body(body, vocab_size),
+        min_tokens=int(body.get("min_tokens") or 0),
+        guided=_guided_from_body(body),
     )
+    _validate_sampling(p)
+    return p
+
+
+def _logit_bias_from_body(body: dict,
+                          vocab_size: Optional[int]) -> Optional[dict]:
+    """OpenAI ``logit_bias``: {"<token id>": bias} with bias in [-100,
+    100], at most 300 entries, ids inside the vocabulary when it is
+    known."""
+    raw = body.get("logit_bias")
+    if not raw:
+        return None
+    if not isinstance(raw, dict):
+        raise BadRequest("logit_bias must be an object mapping token ids "
+                         "to bias values")
+    if len(raw) > 300:
+        raise BadRequest("logit_bias supports at most 300 entries")
+    bias = {}
+    for k, v in raw.items():
+        try:
+            tid, value = int(k), float(v)
+        except (TypeError, ValueError):
+            raise BadRequest(f"logit_bias entries must map integer token "
+                             f"ids to numbers (got {k!r}: {v!r})")
+        if not -100.0 <= value <= 100.0:
+            raise BadRequest(f"logit_bias values must be in [-100, 100], "
+                             f"got {value} for token {tid}")
+        if vocab_size is not None and not 0 <= tid < vocab_size:
+            raise BadRequest(f"logit_bias token id {tid} is outside the "
+                             f"model vocabulary (size {vocab_size})")
+        bias[tid] = value
+    return bias
+
+
+def _guided_from_body(body: dict) -> Optional[str]:
+    """OpenAI ``response_format`` -> guided mode ("json" or None)."""
+    rf = body.get("response_format")
+    if rf is None:
+        return None
+    if not isinstance(rf, dict) or "type" not in rf:
+        raise BadRequest("response_format must be an object with a "
+                         "'type' field")
+    if rf["type"] == "text":
+        return None
+    if rf["type"] == "json_object":
+        return "json"
+    raise BadRequest(f"unsupported response_format type {rf['type']!r} "
+                     "(supported: 'text', 'json_object')")
+
+
+def _validate_sampling(p: SamplingParams) -> None:
+    """Out-of-range parameters are a 400, never device input (a
+    repetition penalty of 0 would divide logits into NaN)."""
     if p.max_tokens < 1:
         raise BadRequest("max_tokens must be at least 1")
     if not 0.0 <= p.temperature <= 2.0:
@@ -214,7 +283,28 @@ def sampling_from_body(body: dict, max_model_len: int) -> SamplingParams:
     if p.top_k < 0:
         raise BadRequest(f"top_k must be a non-negative integer, got "
                          f"{p.top_k}")
-    return p
+    for name in ("presence_penalty", "frequency_penalty"):
+        if not -2.0 <= getattr(p, name) <= 2.0:
+            raise BadRequest(f"{name} must be in [-2, 2], got "
+                             f"{getattr(p, name)}")
+    if p.repetition_penalty <= 0.0:
+        raise BadRequest(f"repetition_penalty must be a positive number, "
+                         f"got {p.repetition_penalty}")
+    if not 0 <= p.top_logprobs <= 20:
+        raise BadRequest(f"top_logprobs must be in [0, 20], got "
+                         f"{p.top_logprobs}")
+    if not 0 <= p.min_tokens <= p.max_tokens:
+        raise BadRequest(f"min_tokens must be in [0, max_tokens], got "
+                         f"{p.min_tokens} with max_tokens {p.max_tokens}")
+
+
+def _count(body: dict, name: str, default: int) -> int:
+    """An integer option (``n``, ``best_of``); -1 when it is not one."""
+    value = body.get(name)
+    try:
+        return default if value is None else int(value)
+    except (TypeError, ValueError):
+        return -1
 
 
 class StopStringScanner:
@@ -253,10 +343,117 @@ class StopStringScanner:
         return out
 
 
+class Choice:
+    """One choice's text and logprobs as its engine outputs arrive:
+    incremental detokenizing (a run that ends inside a UTF-8 sequence
+    is held back), the stop-string scan, and logprob entries released by
+    character accounting, as the JAX server releases them: an entry
+    joins ``lp_content`` only once its token's text has left the
+    scanner's hold-back, so a stop hit drops the entries of every
+    truncated token and the entries spell the returned text."""
+
+    def __init__(self, tokenizer, sampling: SamplingParams, lp_json):
+        self.tokenizer = tokenizer
+        self.scanner = StopStringScanner(sampling.stop_strings)
+        self.lp_json = lp_json
+        self.tokens: List[int] = []
+        self.base = 0  # tokens[:base] are decoded
+        self.pieces: List[str] = []
+        self.lp_content: List[dict] = []
+        self._lp_queue: List[list] = []  # [entry, fed-chars watermark]
+        self._fed = self._emitted = 0
+        self.n_tokens = 0
+        self.finish_reason = "stop"
+        self.done = False
+        self.stopped = False  # by a stop string: the engine must abort
+
+    @property
+    def text(self) -> str:
+        return "".join(self.pieces)
+
+    def _decode(self, token: Optional[int], flush: bool = False) -> str:
+        if token is not None:
+            self.tokens.append(token)
+        tail = self.tokenizer.decode(self.tokens[self.base:])
+        if not flush and tail.endswith("\ufffd"):
+            return ""
+        self.base = len(self.tokens)
+        return tail
+
+    def _settle(self) -> None:
+        # A token the detokenizer held back has no characters of its
+        # own: it takes the watermark of the feed its bytes surface in.
+        for item in self._lp_queue:
+            if item[1] is None:
+                item[1] = self._fed
+
+    def _emit(self, text: str, emits: list) -> None:
+        self._emitted += len(text)
+        ready = []
+        while (self._lp_queue and self._lp_queue[0][1] is not None
+               and self._lp_queue[0][1] <= self._emitted):
+            ready.append(self._lp_queue.pop(0)[0])
+        self.lp_content.extend(ready)
+        if text:
+            self.pieces.append(text)
+        if text or ready:
+            emits.append((text, ready))
+
+    def feed(self, out: StepOutput) -> List[Tuple[str, list]]:
+        """Take one engine output; returns the (text, logprob entries)
+        deltas it releases, and sets ``done`` at the choice's end."""
+        emits: List[Tuple[str, list]] = []
+        if out.new_token is not None:
+            self.n_tokens += 1
+            text = self._decode(out.new_token)
+            self._fed += len(text)
+            if text:
+                self._settle()
+            if out.logprobs is not None:
+                self._lp_queue.append([
+                    self.lp_json(out.new_token, out.logprobs),
+                    self._fed if text else None])
+            self._emit(self.scanner.feed(text), emits)
+            if self.scanner.stopped:
+                # A text-level stop: the engine cannot see it.
+                self.finish_reason, self.done, self.stopped = (
+                    "stop", True, True)
+                return emits
+        if out.finished:
+            self.finish_reason = out.finish_reason or "stop"
+            tail = self._decode(None, flush=True)
+            self._fed += len(tail)
+            self._settle()
+            self._emit(self.scanner.feed(tail), emits)
+            self._emit(self.scanner.flush(), emits)
+            if self.scanner.stopped:
+                self.finish_reason = "stop"
+            self.done = True
+        return emits
+
+
 def _usage(prompt_len: int, completion_len: int) -> dict:
     return {"prompt_tokens": prompt_len,
             "completion_tokens": completion_len,
             "total_tokens": prompt_len + completion_len}
+
+
+def _legacy_logprobs(entries: list) -> Optional[dict]:
+    """Chat-form logprob entries in the legacy completions form."""
+    if not entries:
+        return None
+    return {"tokens": [e["token"] for e in entries],
+            "token_logprobs": [e["logprob"] for e in entries],
+            "top_logprobs": [{t["token"]: t["logprob"]
+                              for t in e["top_logprobs"]}
+                             for e in entries]}
+
+
+def _mean_logprob(choice: "Choice") -> float:
+    entries = choice.lp_content
+    if not entries:
+        return float("-inf")
+    return sum(e["logprob"] for e in entries) / len(entries)
 
 
 # ---- the server ------------------------------------------------------------
@@ -351,6 +548,8 @@ class EngineServer:
             prompt, prompt_text = render_chat_prompt(
                 self.tokenizer, messages), None
         else:
+            if body.get("suffix"):
+                raise BadRequest("'suffix' (insertion) is not supported")
             prompt_in = body.get("prompt", "")
             if (isinstance(prompt_in, list) and prompt_in
                     and isinstance(prompt_in[0], int)):
@@ -367,7 +566,9 @@ class EngineServer:
                 f"{self.model_name!r}; LoRA adapters are not supported "
                 "by this engine yet)")
         sched = self.engine.config.scheduler
-        sampling = sampling_from_body(body, sched.max_model_len)
+        sampling = sampling_from_body(
+            body, sched.max_model_len,
+            vocab_size=self.engine.config.model.vocab_size)
         if len(prompt) > sched.max_model_len - 1:
             raise BadRequest(
                 f"Prompt is {len(prompt)} tokens; maximum is "
@@ -375,51 +576,45 @@ class EngineServer:
                 f"{sched.max_model_len})")
         return prompt, prompt_text, sampling
 
-    def generate(self, prompt: List[int], sampling: SamplingParams):
-        """Yield text deltas, then one final ``(n_tokens,
-        finish_reason)`` tuple. Closing the generator early (a client
-        that went away) aborts the sequence."""
-        seq_id, stream = self.loop.submit(prompt, sampling)
-        scanner = StopStringScanner(sampling.stop_strings)
-        n_tokens, finish_reason, done = 0, "stop", False
-        pending: List[int] = []  # tokens not yet decoded to text
+    def _lp_json(self, token_id: int, entry: tuple) -> dict:
+        """One position in the chat ``logprobs.content`` form."""
+        slp, tops = entry
+        text = self.tokenizer.decode([token_id])
+        return {"token": text, "logprob": slp,
+                "bytes": list(text.encode("utf-8", "replace")),
+                "top_logprobs": [{"token": self.tokenizer.decode([tid]),
+                                  "logprob": tlp} for tid, tlp in tops]}
 
-        def decode(flush: bool) -> str:
-            # Hold back a run that ends in a partial UTF-8 sequence.
-            text = self.tokenizer.decode(pending)
-            if not flush and text.endswith("\ufffd"):
-                return ""
-            pending.clear()
-            return text
-
+    def run_choices(self, prompt: List[int],
+                    samplings: List[SamplingParams], choices: List[Choice]):
+        """Submit one engine request a choice and yield ``(index, text,
+        logprob entries)`` as each choice releases them, then ``(index,
+        None, None)`` when that choice is done. Closing the generator
+        early (a client that went away) aborts every choice still
+        running."""
+        seq_ids, stream = self.loop.submit(prompt, samplings)
+        left = len(seq_ids)
         with self._active_lock:
             self._active += 1
         try:
-            while True:
-                out = stream.get()
-                if out.new_token is not None:
-                    n_tokens += 1
-                    pending.append(out.new_token)
-                    text = scanner.feed(decode(flush=False))
-                    if text:
-                        yield text
-                    if scanner.stopped:
-                        # A text-level stop: the engine cannot see it.
-                        self.loop.abort(seq_id)
-                        break
-                if out.finished:
-                    finish_reason = out.finish_reason or "stop"
-                    tail = scanner.feed(decode(flush=True))
-                    tail += scanner.flush()
-                    if tail:
-                        yield tail
-                    break
-            done = True
-            yield n_tokens, finish_reason
+            while left:
+                i, out = stream.get()
+                choice = choices[i]
+                if choice.done:
+                    continue
+                for text, entries in choice.feed(out):
+                    yield i, text, entries
+                if choice.done:
+                    left -= 1
+                    if choice.stopped:
+                        self.loop.abort(seq_ids[i])
+                    self.loop.finish_stream(seq_ids[i])
+                    yield i, None, None
         finally:
-            if not done:
-                self.loop.abort(seq_id)
-            self.loop.finish_stream(seq_id)
+            for seq_id, choice in zip(seq_ids, choices):
+                if not choice.done:
+                    self.loop.abort(seq_id)
+                self.loop.finish_stream(seq_id)
             with self._active_lock:
                 self._active -= 1
 
@@ -429,77 +624,126 @@ class EngineServer:
         try:
             prompt, prompt_text, sampling = self.parse_completion(body,
                                                                   chat)
+            n, best_of, stream = self._choice_counts(body, chat)
+            echo = bool(body.get("echo")) and not chat
+            if echo and sampling.logprobs:
+                raise BadRequest("'echo' with 'logprobs' (prompt "
+                                 "logprobs) is not supported")
         except (BadRequest, TypeError, ValueError) as e:
             return 400, {"error": {"message": str(e),
                                    "type": "invalid_request_error"}}
-        echo = bool(body.get("echo")) and not chat
         echo_text = ""
         if echo:
             echo_text = (prompt_text if prompt_text is not None
                          else self.tokenizer.decode(prompt))
         rid = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex[:16]
         created = int(time.time())
+        requested_lp = sampling.logprobs
+        if best_of > n and not sampling.logprobs:
+            # Ranking needs each candidate's logprobs; the response
+            # carries them only when the client asked.
+            sampling = dataclasses.replace(sampling, logprobs=True)
+        # A seeded request's choices draw at seed + i: a seeded draw
+        # depends only on (seed, position), so one seed would make
+        # every choice the same.
+        samplings = [sampling if best_of == 1 or sampling.seed is None
+                     else dataclasses.replace(sampling,
+                                              seed=sampling.seed + i)
+                     for i in range(best_of)]
+        choices = [Choice(self.tokenizer, sp, self._lp_json)
+                   for sp in samplings]
 
-        def envelope(obj: str, choices: list, **extra) -> dict:
+        def envelope(obj: str, out: list, **extra) -> dict:
             return {"id": rid, "object": obj, "created": created,
-                    "model": self.model_name, "choices": choices, **extra}
+                    "model": self.model_name, "choices": out, **extra}
 
-        if not body.get("stream"):
-            pieces = list(self.generate(prompt, sampling))
-            n_tokens, finish = pieces.pop()
-            text = "".join(pieces)
+        if stream:
+            return 200, self._stream(envelope, chat, echo_text, prompt,
+                                     samplings, choices, requested_lp,
+                                     body.get("stream_options"))
+        for _ in self.run_choices(prompt, samplings, choices):
+            pass
+        completion_tokens = sum(c.n_tokens for c in choices)
+        if best_of > n:
+            # The n of highest mean token logprob; ties keep the
+            # earlier candidate.
+            choices = sorted(choices, key=lambda c: -_mean_logprob(c))[:n]
+        out = []
+        for i, c in enumerate(choices):
             if chat:
-                choice = {"index": 0, "message": {"role": "assistant",
-                                                  "content": text},
-                          "finish_reason": finish, "logprobs": None}
-                obj = "chat.completion"
+                out.append({"index": i, "message": {"role": "assistant",
+                                                    "content": c.text},
+                            "finish_reason": c.finish_reason,
+                            "logprobs": ({"content": c.lp_content}
+                                         if requested_lp else None)})
             else:
-                choice = {"index": 0, "text": echo_text + text,
-                          "finish_reason": finish, "logprobs": None}
-                obj = "text_completion"
-            return 200, envelope(obj, [choice],
-                                 usage=_usage(len(prompt), n_tokens))
-        return 200, self._stream(envelope, chat, echo_text, prompt,
-                                 sampling, body.get("stream_options"))
+                out.append({"index": i, "text": echo_text + c.text,
+                            "finish_reason": c.finish_reason,
+                            "logprobs": (_legacy_logprobs(c.lp_content)
+                                         if requested_lp else None)})
+        return 200, envelope("chat.completion" if chat
+                             else "text_completion", out,
+                             usage=_usage(len(prompt), completion_tokens))
 
-    def _stream(self, envelope, chat, echo_text, prompt, sampling,
-                stream_opts):
+    @staticmethod
+    def _choice_counts(body: dict, chat: bool) -> Tuple[int, int, bool]:
+        """(n, best_of, stream), validated as the JAX server does."""
+        n = _count(body, "n", 1)
+        if not 1 <= n <= 16:
+            raise BadRequest("'n' must be an integer in [1, 16]")
+        stream = bool(body.get("stream", False))
+        best_of = n
+        if not chat and body.get("best_of") is not None:
+            best_of = _count(body, "best_of", n)
+            if not n <= best_of <= 16:
+                raise BadRequest("'best_of' must be an integer in [n, 16]")
+            if stream and best_of > n:
+                raise BadRequest("'best_of' > n cannot be streamed")
+        return n, best_of, stream
+
+    def _stream(self, envelope, chat, echo_text, prompt, samplings,
+                choices, with_logprobs, stream_opts):
         obj = "chat.completion.chunk" if chat else "text_completion"
 
         def frame(payload) -> bytes:
             return f"data: {json.dumps(payload)}\n\n".encode()
 
-        def chunk(delta: Optional[str], finish: Optional[str],
-                  first: bool = False) -> bytes:
+        def chunk(index: int, delta: Optional[str], finish: Optional[str],
+                  first: bool = False, entries=None) -> bytes:
             if chat:
-                d = {"role": "assistant"} if first else {}
+                d: Dict[str, str] = {"role": "assistant"} if first else {}
                 if delta:
                     d["content"] = delta
-                choice = {"index": 0, "delta": d, "finish_reason": finish}
-            else:
-                choice = {"index": 0, "text": delta or "",
+                choice = {"index": index, "delta": d,
                           "finish_reason": finish}
+                if with_logprobs:
+                    choice["logprobs"] = ({"content": entries}
+                                          if entries else None)
+            else:
+                choice = {"index": index, "text": delta or "",
+                          "finish_reason": finish}
+                if with_logprobs:
+                    choice["logprobs"] = _legacy_logprobs(entries)
             return frame(envelope(obj, [choice]))
 
-        if chat:
-            yield chunk(None, None, first=True)
-        elif echo_text:
-            yield chunk(echo_text, None)
-        n_tokens, finish = 0, "stop"
-        pieces = self.generate(prompt, sampling)
+        for i in range(len(choices)):
+            if chat:
+                yield chunk(i, None, None, first=True)
+            elif echo_text:
+                yield chunk(i, echo_text, None)
+        events = self.run_choices(prompt, samplings, choices)
         try:
-            for piece in pieces:
-                if isinstance(piece, tuple):
-                    n_tokens, finish = piece
+            for i, text, entries in events:
+                if text is None:
+                    yield chunk(i, None, choices[i].finish_reason)
                 else:
-                    yield chunk(piece, None)
+                    yield chunk(i, text, None, entries=entries)
         finally:
-            pieces.close()
-        yield chunk(None, finish)
+            events.close()
         if isinstance(stream_opts, dict) and stream_opts.get(
                 "include_usage"):
-            yield frame(envelope(obj, [],
-                                 usage=_usage(len(prompt), n_tokens)))
+            yield frame(envelope(obj, [], usage=_usage(
+                len(prompt), sum(c.n_tokens for c in choices))))
         yield b"data: [DONE]\n\n"
 
 

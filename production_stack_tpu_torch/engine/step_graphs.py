@@ -9,15 +9,21 @@ first use of its key and replays it on every later step of that key,
 so a step costs a handful of host calls instead of one launch per
 kernel.
 
-A key is (kind, shape, sampler mode). The kinds are the JAX ledger's
-labels: ``step`` (prefill and decode; shape [B, T]), ``decode_burst``
-([B, K, stop-set width]), ``spec_verify`` ([B, K + 1]) and ``unified``
-([R, W]). The sampler mode is the host branch the sampler takes
-(``ops/sampling.sampler_mode``). Each entry holds:
+A key is (kind, shape, sampler mode, option set). The kinds are the
+JAX ledger's labels: ``step`` (prefill and decode; shape [B, T]),
+``decode_burst`` ([B, K, stop-set width]), ``spec_verify`` ([B, K + 1])
+and ``unified`` ([R, W]). The sampler mode is the host branch the
+sampler takes (``ops/sampling.sampler_mode``). The option set names the
+per-row sampling options the step carries (penalties, ``logit_bias``,
+``min_tokens`` suppression, the guided mask, logprobs: the keys of
+``engine/model_runner.OPTION_INPUTS``),
+the counterpart of the JAX jit lattice, where an absent option input or
+``want_logprobs`` is a program of its own. Each entry holds:
 
 - its static inputs: one device buffer that holds every input of the
   step (tokens, positions, valid, page table, kv lens, ..., the
-  sampling knobs) as typed views, filled by ONE host-to-device copy
+  sampling knobs, the options' [B, vocab] tensors) as typed views,
+  filled by ONE host-to-device copy
   from a pinned staging buffer. There are two staging buffers a key,
   used in turn, each guarded by an event: the async pipeline fills step
   N + 1's inputs while step N's copy may still wait in the stream. A
@@ -32,8 +38,10 @@ labels: ``step`` (prefill and decode; shape [B, T]), ``decode_burst``
   right after its replay, before any other graph runs: a block one
   graph captured as scratch and a later capture took for its output
   is read before it is written again;
-- its static output, cloned after every replay, so that an in-flight
-  step's tokens survive the next replay of its key (and of any other);
+- its static output (the sampled tokens, or with logprobs a tuple of
+  tokens, sampled logprobs, top ids and top logprobs), cloned after
+  every replay, so that an in-flight step's outputs survive the next
+  replay of its key (and of any other);
 - the kernel launches its capture recorded. The launch counters
   (``COUNTERS``) are Python counts, bumped while the capture records
   kernels that do not run; they are taken back then and added on every
@@ -68,22 +76,22 @@ class CudaGraph:
     """``torch.cuda.CUDAGraph`` behind the three calls ``StepGraphs``
     makes of a graph (a test injects a stand-in with the same calls):
     ``warm(fn)`` runs ``fn`` eagerly on a side stream; ``capture(fn)``
-    records ``fn`` and returns its output tensor, which every
-    ``replay()`` refills."""
+    records ``fn`` and returns its output (a tensor or a tuple of
+    tensors), which every ``replay()`` refills."""
 
     def __init__(self, pool, generators: Sequence[torch.Generator]):
         self._graph = torch.cuda.CUDAGraph()
         self._pool = pool
         self._generators = generators
 
-    def warm(self, fn: Callable[[], torch.Tensor]) -> None:
+    def warm(self, fn: Callable[[], object]) -> None:
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             fn()
         torch.cuda.current_stream().wait_stream(side)
 
-    def capture(self, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
+    def capture(self, fn: Callable[[], object]) -> object:
         # A generator drawn from under capture is registered with the
         # graph: each replay then advances it, so unseeded draws differ
         # from step to step and repeat from run to run at one seed.
@@ -121,7 +129,7 @@ class _Entry:
                        else None)
         self.turn = 0
         self.graph = None
-        self.output: Optional[torch.Tensor] = None
+        self.output = None  # a tensor or a tuple of tensors
         self.launches: Dict[str, int] = {}
 
     def load(self, arrays: Dict[str, np.ndarray],
@@ -156,9 +164,10 @@ class _Entry:
 class StepGraphs:
     """The graph cache of one runner, and its compile ledger.
 
-    ``run(kind, shape, mode, arrays, body)`` runs one step: ``body``
-    maps the key's static inputs (a dict of device tensors named as
-    ``arrays``) to the step's output tensor; it is called (warmed up
+    ``run(kind, shape, mode, arrays, body, options=...)`` runs one
+    step: ``body`` maps the key's static inputs (a dict of device
+    tensors named as ``arrays``) to the step's output, a tensor or a
+    tuple of tensors; it is called (warmed up
     and captured) at the key's first use only, and must read nothing
     but those inputs and state that lives at fixed addresses (weights,
     KV caches, registered generators). ``graph_factory`` builds a graph
@@ -192,12 +201,14 @@ class StepGraphs:
 
     def run(self, kind: str, shape: Tuple[int, ...], mode: str,
             arrays: Dict[str, np.ndarray],
-            body: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
-            token_source: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One step of key (kind, shape, mode) on ``arrays`` (numpy),
-        the tokens view then overwritten from ``token_source``; returns
-        a fresh copy of the step's output."""
-        key = (kind, tuple(shape), mode)
+            body: Callable[[Dict[str, torch.Tensor]], object],
+            token_source: Optional[torch.Tensor] = None,
+            options: Tuple[str, ...] = ()):
+        """One step of key (kind, shape, mode, options) on ``arrays``
+        (numpy), the tokens view then overwritten from
+        ``token_source``; returns a fresh copy of the step's output (a
+        tuple's tensors each copied)."""
+        key = (kind, tuple(shape), mode, tuple(options))
         entry = self._entries.get(key)
         if entry is None:
             entry = _Entry(arrays, self.device)
@@ -209,6 +220,8 @@ class StepGraphs:
         entry.graph.replay()
         COUNTERS.add(entry.launches)
         self.replays[kind] += 1
+        if isinstance(entry.output, tuple):
+            return tuple(t.clone() for t in entry.output)
         return entry.output.clone()
 
     def _capture(self, kind: str, entry: _Entry, body) -> None:
@@ -224,8 +237,11 @@ class StepGraphs:
         # Nothing ran while the graph was recorded: take the counts
         # back; every replay adds them.
         COUNTERS.add(recorded, sign=-1)
-        if not isinstance(output, torch.Tensor):
-            raise TypeError("a step graph's body must return one tensor")
+        if not (isinstance(output, torch.Tensor) or (
+                isinstance(output, tuple) and output
+                and all(isinstance(t, torch.Tensor) for t in output))):
+            raise TypeError("a step graph's body must return a tensor or "
+                            "a tuple of tensors")
         entry.graph, entry.output, entry.launches = graph, output, recorded
         self.captures[kind] += 1
         self.capture_seconds[kind] += time.perf_counter() - t0

@@ -2,7 +2,10 @@
 per-row parameters so one batch mixes sampling configs, the step of a
 decode burst (sample, then freeze rows at a stop token or their
 budget) and the speculative acceptance rule the unified step samples
-through.
+through. Before sampling, the per-row options rewrite the logits in the
+JAX step's order (``apply_sampling_options``): penalties, ``logit_bias``,
+``min_tokens`` suppression, then the guided-decoding mask; logprobs
+(``token_logprobs``) are taken from the raw logits.
 
 Randomness comes from ``torch.Generator``s: the engine's stream for
 unseeded rows, and for a seeded row a generator seeded from (seed,
@@ -42,6 +45,123 @@ def sampler_mode(temperature, top_p, top_k) -> str:
     if bool(((top_k > 0) | (top_p < 1.0)).any()):
         return RANDOM_MASKED
     return RANDOM
+
+
+def apply_penalties(logits: torch.Tensor, counts: torch.Tensor,
+                    prompt_mask: torch.Tensor, presence: torch.Tensor,
+                    frequency: torch.Tensor,
+                    repetition: torch.Tensor) -> torch.Tensor:
+    """Sampling penalties, per row: OpenAI presence/frequency over the
+    tokens generated so far, vLLM/HF repetition over prompt and output
+    (positive logits divided by r, negative multiplied), repetition
+    first on the raw logits.
+
+    Args:
+      logits:      [B, vocab] f32
+      counts:      [B, vocab] int occurrences in the output so far
+      prompt_mask: [B, vocab] bool, True where the token is in the prompt
+      presence/frequency: [B] f32 (0 disables)
+      repetition:  [B] f32 (1 disables)
+    """
+    countsf = counts.to(logits.dtype)
+    seen_out = countsf > 0
+    rep = repetition[:, None]
+    repeated = torch.where(logits > 0, logits / rep, logits * rep)
+    logits = torch.where(seen_out | prompt_mask, repeated, logits)
+    logits = logits - presence[:, None] * seen_out.to(logits.dtype)
+    return logits - frequency[:, None] * countsf
+
+
+def apply_suppression(logits: torch.Tensor, ids: torch.Tensor,
+                      remaining: torch.Tensor,
+                      emitted: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """``min_tokens``: add NEG_INF to each row's stop ids while the row
+    is under its minimum.
+
+    Args:
+      ids:       [B, W] int stop ids, -1 padded
+      remaining: [B] int tokens the row must still emit before a stop
+                 may be generated (as of the payload)
+      emitted:   [B] tokens this dispatch emitted so far (a burst), or
+                 None (one token a dispatch: ``remaining`` is current)
+    """
+    under = remaining > 0 if emitted is None else emitted < remaining
+    pen = torch.where((ids >= 0) & under[:, None], NEG_INF, 0.0).to(
+        logits.dtype)
+    return logits.scatter_add(1, torch.clamp(ids, min=0).long(), pen)
+
+
+def apply_guided_mask(logits: torch.Tensor, state: torch.Tensor,
+                      mask_table: torch.Tensor) -> torch.Tensor:
+    """NEG_INF every token the automaton disallows from a constrained
+    row's state (``state`` [B], -1 = unconstrained). ``mask_table``
+    [n_states, table width] stops at the byte and special ids
+    (engine/guided.py TABLE_WIDTH); every id past it is inadmissible."""
+    allowed = mask_table[torch.clamp(state, min=0).long()]
+    pad = logits.shape[-1] - allowed.shape[-1]
+    if pad > 0:
+        allowed = torch.nn.functional.pad(allowed, (0, pad), value=False)
+    return torch.where((state >= 0)[:, None] & ~allowed, NEG_INF, logits)
+
+
+def guided_advance(state: torch.Tensor, sampled: torch.Tensor,
+                   active: torch.Tensor,
+                   transition: torch.Tensor) -> torch.Tensor:
+    """The automaton's step on the device (a burst's carry): a
+    constrained, active row moves to ``transition[state, sampled]``;
+    the clamps keep the gather in bounds for the other rows."""
+    width = transition.shape[1]
+    nxt = transition[torch.clamp(state, min=0).long(),
+                     torch.clamp(sampled, 0, width - 1).long()]
+    return torch.where(active & (state >= 0), nxt.to(state.dtype), state)
+
+
+def apply_sampling_options(logits: torch.Tensor, inputs: dict,
+                           counts: Optional[torch.Tensor] = None,
+                           emitted: Optional[torch.Tensor] = None,
+                           state: Optional[torch.Tensor] = None,
+                           guided_mask: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """The per-row options of one sampling step, in the JAX step's
+    order: penalties, ``logit_bias``, ``min_tokens`` suppression, the
+    guided mask (last: the grammar wins). Each applies only when its
+    inputs are in ``inputs`` (the step's device tensors, by the payload
+    names of ``engine/model_runner.py``). A burst passes its carry:
+    ``counts`` (occurrences so far), ``emitted`` and the automaton
+    ``state``; otherwise they are read from ``inputs``."""
+    if "pen_prompt_mask" in inputs:
+        logits = apply_penalties(
+            logits, inputs["pen_counts"] if counts is None else counts,
+            inputs["pen_prompt_mask"], inputs["pen_presence"],
+            inputs["pen_frequency"], inputs["pen_repetition"])
+    if "logit_bias" in inputs:
+        logits = logits + inputs["logit_bias"]
+    if "sup_ids" in inputs:
+        logits = apply_suppression(logits, inputs["sup_ids"],
+                                   inputs["sup_rem"], emitted)
+    if "fsm_state" in inputs:
+        logits = apply_guided_mask(
+            logits, inputs["fsm_state"] if state is None else state,
+            guided_mask)
+    return logits
+
+
+def token_logprobs(logits: torch.Tensor, sampled: torch.Tensor, k: int):
+    """The sampled token's logprob and the top-``k`` alternatives, from
+    the raw distribution (before temperature and the options: the OpenAI
+    ``logprobs`` contract).
+
+    Args:
+      logits:  [B, vocab] raw logits
+      sampled: [B] int sampled ids
+
+    Returns (sampled_logprob [B], top_ids [B, k], top_logprobs [B, k]).
+    """
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    sampled_lp = torch.gather(lp, 1, sampled.long()[:, None])[:, 0]
+    top_lp, top_ids = torch.topk(lp, k, dim=-1)
+    return sampled_lp, top_ids, top_lp
 
 
 def _mask_top_k_top_p(scaled: torch.Tensor, top_p: torch.Tensor,

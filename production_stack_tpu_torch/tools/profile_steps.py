@@ -3,7 +3,7 @@
     python -m production_stack_tpu_torch.tools.profile_steps \
         [--kv-cache-dtype auto|bf16|int8] \
         [--cache-layout auto|stacked|per_layer] [--decode-steps K] \
-        [--eager]
+        [--eager] [--sampling-options]
 
 Builds an ``LLMEngine`` at the serving configuration of
 ``chip_smoke.py`` (bench-1b at full width, random weights, page_size
@@ -15,7 +15,13 @@ stacked buffer per k/v; ``--decode-steps K`` decode bursts of K
 tokens). The engine replays its steps as CUDA graphs, as it serves;
 ``--eager`` profiles the eager path (``cuda_graphs=False``) too, in the
 order graphs, eager, eager, graphs, so that neither path owns the
-call's warmer end.
+call's warmer end. ``--sampling-options`` gives every request all three
+penalties, a ``logit_bias`` of 16 ids and top-20 logprobs (the per-row
+option chain; such rows keep the steps out of the async pipeline and
+the unified step, as the scheduler rules), and also prints the host's
+time and bytes building the options' inputs per build
+(``ModelRunner._options_payload``) and the sampling step's device time
+at the decode shape with and without the chain (``chain_times``).
 
 Each profile runs the workload twice in one engine: 32 prompts of 512
 tokens (64 · K tokens each to generate), unprofiled, so that every
@@ -26,7 +32,9 @@ same shapes and replay those graphs, under ``torch.profiler``:
 - each of the first 4 steps on its own (the prefill step and the
   unified mixed steps that admit the rest of the prompts), labelled
   with the step's decode, prefill and pad rows;
-- 16 steady decode steps together.
+- 16 steady decode steps together, once every prompt is admitted.
+
+Then the same 16 decode steps unprofiled, for the wall per token-step.
 
 For each window it prints the host wall time per step, the device's
 busy time per step (the sum of the kernels' device time), the idle
@@ -35,8 +43,9 @@ calls that launch work or copy per step (``cudaLaunchKernel``,
 ``cudaGraphLaunch``, ``cudaMemcpyAsync``, ...: what the host pays per
 step), the attention kernels' device time and share of the busy time,
 and the kernels that take the most device time; for the decode window
-also the tokens each row gained per step and the wall time per
-token-step. After the first pass it prints the captures and capture
+also the tokens each row gained per step (a row whose options break
+the async pipeline gains one every other step) and the wall and device
+time per token-step. After the first pass it prints the captures and capture
 seconds by kind and the graphs' memory pool. Wall times are taken under
 the profiler, which adds host cost. Needs one CUDA card.
 """
@@ -109,15 +118,52 @@ def _breakdown(prof, steps: int, wall_s: float, label: str) -> dict:
     return row
 
 
-def _add_prompts(engine, rng, vocab, max_tokens):
+# --sampling-options: every row's options.
+SAMPLING_OPTIONS = dict(presence_penalty=0.5, frequency_penalty=0.5,
+                        repetition_penalty=1.1, logprobs=True,
+                        top_logprobs=20)
+BIASED_IDS = 16
+
+
+def _add_prompts(engine, rng, vocab, max_tokens, options):
     seqs = []
     for _ in range(PROMPTS):
+        extra = {}
+        if options:
+            extra = dict(SAMPLING_OPTIONS, logit_bias={
+                int(t): 2.0 for t in rng.randint(258, vocab, BIASED_IDS)})
         sid = engine.add_request(
             rng.randint(258, vocab, size=PROMPT_LEN).tolist(),
             SamplingParams(temperature=0.0, max_tokens=max_tokens,
-                           ignore_eos=True))
+                           ignore_eos=True, **extra))
         seqs.append(engine.sequences[sid])
     return seqs
+
+
+class PayloadClock:
+    """Host time and bytes of the runner's option inputs: wraps
+    ``ModelRunner._options_payload`` of one engine."""
+
+    def __init__(self, runner):
+        self.seconds = 0.0
+        self.bytes = 0
+        self.calls = 0
+        build = runner._options_payload
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            payload, options = build(*args, **kwargs)
+            self.seconds += time.perf_counter() - t0
+            self.bytes += sum(a.nbytes for a in payload.values())
+            self.calls += 1
+            return payload, options
+
+        runner._options_payload = timed
+
+    def take(self):
+        out = (self.seconds, self.bytes, self.calls)
+        self.seconds, self.bytes, self.calls = 0.0, 0, 0
+        return out
 
 
 def profile_path(args, cuda_graphs: bool) -> dict:
@@ -134,17 +180,20 @@ def profile_path(args, cuda_graphs: bool) -> dict:
             prefill_batch_size=8, decode_steps=args.decode_steps,
             async_scheduling=args.decode_steps <= 1, unified_step=True))
     engine = LLMEngine(cfg, device="cuda", cuda_graphs=cuda_graphs)
+    clock = PayloadClock(engine.runner)
+    options = args.sampling_options
     print(f"[{path}] KV cache {cfg.cache.resolved_kv_dtype()} "
           f"{cfg.cache.cache_layout}, {cfg.cache.num_pages} pages of "
           f"{cfg.cache.page_size} tokens; decode steps "
           f"{cfg.scheduler.decode_steps}, async "
-          f"{cfg.scheduler.async_scheduling}", flush=True)
+          f"{cfg.scheduler.async_scheduling}; sampling options "
+          f"{'on' if options else 'off'}", flush=True)
     rng = np.random.RandomState(1)
     vocab = cfg.model.vocab_size
     max_tokens = 64 * max(1, args.decode_steps)
     # The first pass: every step shape once (captures, first uses).
     t0 = time.perf_counter()
-    _add_prompts(engine, rng, vocab, max_tokens)
+    _add_prompts(engine, rng, vocab, max_tokens, options)
     while engine.has_work():
         engine.step()
     torch.cuda.synchronize()
@@ -166,7 +215,7 @@ def profile_path(args, cuda_graphs: bool) -> dict:
         print(f"[{path}] first pass {out['first_pass_s']:.2f} s",
               flush=True)
 
-    seqs = _add_prompts(engine, rng, vocab, max_tokens)
+    seqs = _add_prompts(engine, rng, vocab, max_tokens, options)
     for i in range(FILL_STEPS):
         ragged_before = engine.stats()["engine_ragged_steps_total"]
         torch.cuda.synchronize()
@@ -185,10 +234,15 @@ def profile_path(args, cuda_graphs: bool) -> dict:
                  else f"[{path}] step {i + 1} bimodal")
         out["windows"].append(_breakdown(prof, 1, wall, label))
 
-    for _ in range(3):  # into steady decode
+    # Into steady decode: every prompt admitted (rows with options keep
+    # the steps bimodal, so admission takes more steps), then 3 more.
+    while engine.scheduler.num_waiting:
+        engine.step()
+    for _ in range(3):
         engine.step()
     torch.cuda.synchronize()
     generated = sum(len(s.output_token_ids) for s in seqs)
+    clock.take()
     with profile(activities=ACTIVITIES) as prof:
         t0 = time.perf_counter()
         for _ in range(DECODE_STEPS):
@@ -202,10 +256,31 @@ def profile_path(args, cuda_graphs: bool) -> dict:
     label = f"[{path}] decode B={PROMPTS} K={cfg.scheduler.decode_steps}"
     row = _breakdown(prof, DECODE_STEPS, wall, label)
     row["tokens_per_row_step"] = per_row
+    clock.take()
     out["windows"].append(row)
     print(f"{label}: {per_row:.2f} tokens a row per step, wall "
-          f"{wall * 1e3 / DECODE_STEPS / per_row:.3f} ms per token-step",
-          flush=True)
+          f"{wall * 1e3 / DECODE_STEPS / per_row:.3f} ms and device busy "
+          f"{row['busy_ms'] / per_row:.3f} ms per token-step", flush=True)
+    # The same window unprofiled: wall per token-step, and the host's
+    # option inputs per build (one build a dispatched decode step).
+    generated = sum(len(s.output_token_ids) for s in seqs)
+    t0 = time.perf_counter()
+    for _ in range(DECODE_STEPS):
+        engine.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = (sum(len(s.output_token_ids) for s in seqs) - generated) / PROMPTS
+    payload_s, payload_bytes, calls = clock.take()
+    calls = max(calls, 1)
+    row.update(unprofiled_ms_per_token_step=wall * 1e3 / tokens,
+               options_payload_ms_per_build=payload_s * 1e3 / calls,
+               options_payload_mb_per_build=payload_bytes / 1e6 / calls)
+    print(f"{label} unprofiled: wall "
+          f"{row['unprofiled_ms_per_token_step']:.3f} ms per token-step; "
+          f"option inputs built on the host "
+          f"{row['options_payload_ms_per_build']:.3f} ms and "
+          f"{row['options_payload_mb_per_build']:.3f} MB a build ({calls} "
+          f"builds)", flush=True)
     if graphs is not None and sum(graphs.captures.values()) != out["keys"]:
         raise AssertionError(f"[{path}] the profiled pass captured new "
                              f"graphs: {graphs.captures}")
@@ -213,6 +288,77 @@ def profile_path(args, cuda_graphs: bool) -> dict:
         engine.step()
     del engine
     torch.cuda.empty_cache()
+    return out
+
+
+def chain_times(batch: int = PROMPTS, iters: int = 50) -> dict:
+    """Device time of the sampling step at the decode shape ([batch,
+    vocab] f32 logits), each variant captured in a CUDA graph as the
+    engine runs it and timed over ``iters`` replays with CUDA events:
+    the plain greedy sample, and the whole chain (penalties, bias,
+    ``min_tokens`` suppression, the guided mask) with the greedy sample
+    and top-20 logprobs."""
+    from production_stack_tpu_torch.engine.guided import build_json_fsm
+    from production_stack_tpu_torch.engine.model_runner import (
+        STOP_SET_WIDTH, TOP_LOGPROBS_WIDTH)
+    from production_stack_tpu_torch.engine.tokenizer import BenchTokenizer
+    from production_stack_tpu_torch.ops.sampling import (
+        apply_sampling_options, sample_tokens, token_logprobs)
+
+    vocab = bench_1b_model_config().vocab_size
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fsm = build_json_fsm(BenchTokenizer(vocab))
+    mask = torch.from_numpy(fsm.mask).to(dev)
+    logits = torch.randn((batch, vocab), device=dev, generator=gen) * 3
+    inputs = {
+        "pen_counts": torch.randint(0, 3, (batch, vocab), device=dev,
+                                    generator=gen, dtype=torch.int32),
+        "pen_prompt_mask": torch.rand((batch, vocab), device=dev,
+                                      generator=gen) < 0.02,
+        "pen_presence": torch.full((batch,), 0.5, device=dev),
+        "pen_frequency": torch.full((batch,), 0.5, device=dev),
+        "pen_repetition": torch.full((batch,), 1.1, device=dev),
+        "logit_bias": torch.zeros((batch, vocab), device=dev),
+        "sup_ids": torch.full((batch, STOP_SET_WIDTH), 257, device=dev,
+                              dtype=torch.int32),
+        "sup_rem": torch.ones((batch,), device=dev, dtype=torch.int32),
+        "fsm_state": torch.arange(batch, device=dev, dtype=torch.int32)}
+    knobs = (torch.zeros(batch, device=dev), torch.ones(batch, device=dev),
+             torch.zeros(batch, device=dev, dtype=torch.int32))
+
+    def plain():
+        return sample_tokens(logits, *knobs, mode="greedy")
+
+    def chain():
+        sampled = sample_tokens(apply_sampling_options(
+            logits, inputs, guided_mask=mask), *knobs, mode="greedy")
+        return (sampled,) + token_logprobs(logits, sampled,
+                                           TOP_LOGPROBS_WIDTH)
+
+    out = {}
+    for name, fn in (("plain_ms", plain), ("chain_ms", chain)):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        for _ in range(5):
+            graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = start.elapsed_time(end) / iters
+    print(f"sampling step at [{batch}, {vocab}], one graph replay: plain "
+          f"greedy {out['plain_ms']:.4f} ms, the option chain with top-20 "
+          f"logprobs {out['chain_ms']:.4f} ms", flush=True)
     return out
 
 
@@ -226,6 +372,9 @@ def main(argv=None) -> int:
     p.add_argument("--eager", action="store_true",
                    help="profile the eager path too: graphs, eager, "
                         "eager, graphs")
+    p.add_argument("--sampling-options", action="store_true",
+                   help="every request penalized, biased and asking for "
+                        "top-20 logprobs")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_steps: needs a CUDA device")
@@ -236,6 +385,8 @@ def main(argv=None) -> int:
     order = [True, False, False, True] if args.eager else [True]
     for cuda_graphs in order:
         print(json.dumps(profile_path(args, cuda_graphs)), flush=True)
+    if args.sampling_options:
+        print(json.dumps(chain_times()), flush=True)
     return 0
 
 

@@ -715,8 +715,8 @@ def _tiny_engine(cuda_graphs, device="cuda", **sched):
     cfg = EngineConfig(
         model=tiny_model_config("llama"),
         cache=CacheConfig(page_size=16, num_pages=128, **cache),
-        scheduler=SchedulerConfig(max_num_seqs=4, max_model_len=256,
-                                  prefill_chunk_size=32, **sched))
+        scheduler=SchedulerConfig(**{"max_num_seqs": 4, "max_model_len": 256,
+                                     "prefill_chunk_size": 32, **sched}))
     params = init_params(cfg.model, torch.Generator().manual_seed(0),
                          torch.device("cpu"))
     return LLMEngine(cfg, params=params, device=device,
@@ -801,3 +801,56 @@ def test_a_seeded_step_runs_eagerly_on_the_card(dev):
         if graphs:
             assert engine.runner.graphs.eager_steps["seeded"] == 8
     assert tokens[True] == tokens[False]
+
+
+@pytest.mark.parametrize("decode_steps", [1, 4])
+def test_sampling_options_graphed_match_eager_and_the_cpu(dev, decode_steps):
+    """Every per-row option (penalties, logit_bias, min_tokens, guided
+    JSON, top-20 logprobs) beside plain rows, on the card graphed and
+    eager and on the CPU: the same greedy streams, logprobs within 1e-4
+    (f32 tiny-llama), one capture a (kind, shape, mode, option set)
+    key and no eager step."""
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+
+    base = dict(temperature=0.0, max_tokens=12)
+    rows = [dict(base, ignore_eos=True),
+            dict(base, ignore_eos=True, presence_penalty=1.0,
+                 frequency_penalty=0.5, repetition_penalty=1.2,
+                 logprobs=True, top_logprobs=20),
+            dict(base, ignore_eos=True, logit_bias={123: 100.0}),
+            dict(base, min_tokens=5, logit_bias={257: 100.0}),
+            dict(base, max_tokens=30, guided="json",
+                 logit_bias={ord("{"): 60.0, ord('"'): 100.0,
+                             ord(":"): 80.0, ord("}"): 50.0, 257: 100.0})]
+    prompts = [[4, 5, 6] * 7, [8] * 10, [21, 22, 23, 24] * 5, [9] * 13,
+               [30, 31] * 9]
+    out = {}
+    for path, graphs, device in (("graphs", True, "cuda"),
+                                 ("eager", False, "cuda"),
+                                 ("cpu", False, "cpu")):
+        engine = _tiny_engine(graphs, device, max_num_seqs=8,
+                              prefill_batch_size=8, unified_step=True,
+                              async_scheduling=decode_steps == 1,
+                              decode_steps=decode_steps)
+        ids = [engine.add_request(p, SamplingParams(**kw))
+               for p, kw in zip(prompts, rows)]
+        got = {sid: [] for sid in ids}
+        while engine.has_work():
+            for o in engine.step():
+                if o.new_token is not None:
+                    got[o.seq_id].append((o.new_token, o.logprobs))
+        out[path] = [got[sid] for sid in ids]
+        if graphs:
+            g = engine.runner.graphs
+            assert sum(g.captures.values()) == len(g.keys()) > 0
+            assert g.eager_steps == {"seeded": 0}
+            assert any(k[3] for k in g.keys())
+    tokens = {p: [[t for t, _ in r] for r in rs] for p, rs in out.items()}
+    assert tokens["graphs"] == tokens["eager"] == tokens["cpu"]
+    assert tokens["graphs"][2] == [123] * 12
+    assert tokens["graphs"][3][-1] == 257 and len(tokens["graphs"][3]) == 6
+    for a, b in ((out["graphs"][1], out["eager"][1]),
+                 (out["graphs"][1], out["cpu"][1])):
+        for (_, (slp, tops)), (_, (e_slp, e_tops)) in zip(a, b):
+            assert abs(slp - e_slp) <= 1e-4
+            assert max(abs(x[1] - y[1]) for x, y in zip(tops, e_tops)) <= 1e-4

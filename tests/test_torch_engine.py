@@ -151,18 +151,50 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
         LLMEngine(_config(config, False, False))
 
 
-@pytest.mark.parametrize("option,feature", [
-    (dict(presence_penalty=0.5), "penalties"),
-    (dict(repetition_penalty=1.2), "penalties"),
-    (dict(logprobs=True), "logprobs"),
-    (dict(logit_bias={5: 3.0}), "logit_bias"),
-    (dict(min_tokens=4), "min_tokens"),
-    (dict(guided="json"), "guided decoding")])
-def test_unported_sampling_options_raise(option, feature):
+@pytest.mark.parametrize("option", [
+    dict(presence_penalty=0.5),
+    dict(repetition_penalty=1.2),
+    dict(logprobs=True, top_logprobs=2),
+    dict(logit_bias={5: 3.0}),
+    dict(min_tokens=4),
+    dict(guided="json")],
+    ids=["presence", "repetition", "logprobs", "logit_bias", "min_tokens",
+         "guided"])
+def test_sampling_options_are_served(weights, option):
+    """The options the engine refused before it served them run to the
+    end of a request (their parity with the JAX engine:
+    tests/test_torch_sampling_options.py)."""
+    cfg = _config(config, True, True)
+    engine = LLMEngine(cfg, params=params_from_numpy(weights, cfg.model,
+                                                     "cpu"), device="cpu")
+    outputs = []
+    sid = engine.add_request([4, 5, 6] * 5, SamplingParams(
+        temperature=0.0, max_tokens=4, **option))
+    seq = engine.sequences[sid]
+    while engine.has_work():
+        outputs += [o for o in engine.step() if o.seq_id == sid]
+    assert seq.state == SequenceState.FINISHED
+    assert 1 <= len(seq.output_token_ids) <= 4
+    lps = [o.logprobs for o in outputs if o.new_token is not None]
+    if option.get("logprobs"):
+        assert [len(tops) for _, tops in lps] == [2] * len(lps)
+    else:
+        assert lps == [None] * len(seq.output_token_ids)
+    if "min_tokens" in option:
+        assert len(seq.output_token_ids) == 4
+    if "guided" in option:
+        state = 0
+        for t in seq.output_token_ids:
+            state = engine.guided_fsm.advance(state, t)
+            assert state >= 0
+        assert seq.fsm_state == state
+
+
+def test_lora_adapters_raise():
     engine = LLMEngine(_config(config, True, True), device="cpu")
-    with pytest.raises(NotImplementedError, match=feature):
-        engine.add_request([4, 5, 6], SamplingParams(max_tokens=4,
-                                                     **option))
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        engine.add_request([4, 5, 6], SamplingParams(max_tokens=4),
+                           lora_name="my-adapter")
     assert not engine.sequences and not engine.has_work()
 
 

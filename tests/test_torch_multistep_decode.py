@@ -1,12 +1,13 @@
 """Decode bursts (``decode_steps`` K > 1) in the port, against the
 port's single-step decoding and the JAX engine's bursts.
 
-The cases of the JAX package's ``tests/test_multistep_decode.py``
-without the penalty case (the port's server refuses penalties with a
-400): a K = 4 burst generates exactly what single-step greedy
-decoding generates, stops mid-window at a stop token and at
-``max_tokens``, keeps greedy rows deterministic beside a stochastic
-row, and reproduces seeded requests at K = 1 and K = 4. Then the
+The cases of the JAX package's ``tests/test_multistep_decode.py``: a
+K = 4 burst generates exactly what single-step greedy decoding
+generates, stops mid-window at a stop token and at ``max_tokens``,
+keeps greedy rows deterministic beside a stochastic row, penalizes
+with the counts it keeps on the device exactly as single steps do
+with the counts rebuilt on the host (against the JAX engine too), and
+reproduces seeded requests at K = 1 and K = 4. Then the
 greedy streams against the JAX engine at K = 4, per_layer and stacked,
 unified off and on, async on, int8 KV and speculative_k 3 (the
 spec/burst hybrid); the hybrid gate's plan decisions against the JAX
@@ -164,6 +165,20 @@ def test_mixed_sampling_batch_keeps_greedy_rows_deterministic(weights):
         engine.step()
     assert seqs[0].output_token_ids == solo
     assert len(seqs[1].output_token_ids) == 12
+
+
+def test_penalized_burst_matches_single_step(weights):
+    """Greedy with all three penalties: bursts (counts carried on the
+    device) against single steps (counts rebuilt on the host each
+    dispatch), and both against the JAX engine's bursts."""
+    prompt = [list(range(1, 30))]
+    sp = dict(max_tokens=12, presence_penalty=1.5, frequency_penalty=0.5,
+              repetition_penalty=1.3)
+    burst = _gen(_engine(weights, 6), prompt, **sp)
+    assert burst == _gen(_engine(weights, 1), prompt, **sp)
+    assert burst == _gen(_jax_engine(weights, 6), prompt,
+                         JaxSamplingParams, **sp)
+    assert burst != _gen(_engine(weights, 6), prompt)
 
 
 def test_seeded_requests_reproduce(weights):

@@ -49,9 +49,10 @@ CPU = torch.device("cpu")
 
 class RecordingGraph:
     """A CUDA graph's stand-in: ``capture`` records the closure and
-    returns its output; ``replay`` runs the recorded closure again, with
-    no arguments, into that output, and leaves the launch counters as
-    they were (a graph's replay runs no Python)."""
+    returns its output (a tensor or a tuple of tensors); ``replay`` runs
+    the recorded closure again, with no arguments, into that output, and
+    leaves the launch counters as they were (a graph's replay runs no
+    Python)."""
 
     def __init__(self):
         self.fn = None
@@ -73,7 +74,11 @@ class RecordingGraph:
         result = self.fn()
         COUNTERS.launches.clear()
         COUNTERS.launches.update(counted)
-        self.output.copy_(result)
+        if isinstance(self.output, tuple):
+            for out, new in zip(self.output, result):
+                out.copy_(new)
+        else:
+            self.output.copy_(result)
         self.replays += 1
 
 
@@ -133,7 +138,7 @@ def test_each_key_is_captured_once_and_replayed():
                                          [14, 16, 18]]
     assert graphs.captures == {**dict.fromkeys(STEP_KINDS, 0), "step": 1}
     assert graphs.replays["step"] == 3
-    assert graphs.keys() == [("step", (3, 1), "greedy")]
+    assert graphs.keys() == [("step", (3, 1), "greedy", ())]
     assert graphs.capture_seconds["step"] > 0
 
 
@@ -345,7 +350,7 @@ def test_two_steps_with_different_inputs_give_the_eager_tokens(weights):
         results[graphs] = (a, b)
         if graphs:
             # One decode key, captured once: the second step replayed.
-            decode = ("step", (4, 1), "greedy")
+            decode = ("step", (4, 1), "greedy", ())
             assert decode in runner.graphs.keys()
             assert runner.graphs.captures["step"] == len(
                 runner.graphs.keys())
