@@ -139,14 +139,55 @@ its result line:
     It must launch the int8 stacked forms only, no completion may pass
     its ``max_tokens``, the repeated greedy request must reproduce, and
     its decode dispatches must commit at least 3 tokens a row on
-    average (a burst commits up to 4).
+    average (a burst commits up to 4);
+13. fleet: the fleet contract and the KV offload tier at the first
+    run's configuration, the port's cache server in a thread, once with
+    per_layer bf16 KV and once with stacked int8. Server A
+    (``--checkpoint-interval-tokens 16``, ``--kv-remote-url``,
+    ``--kv-host-pool-bytes 0``) streams a greedy chat of about 700
+    prompt tokens and 64 out; the first mid-stream checkpoint frame
+    whose journal does not end on a page boundary goes to server B's
+    ``/v1/resume`` (a fresh engine, same weights). A shipped page must
+    be 4,194,304 bytes of bfloat16 (2,228,224 of int8 with f32 scales),
+    A must have shipped checkpoints, B must hit the tier, its restored
+    pages on the card must equal the shipped bytes, the resumed stream
+    must keep A's response id, and the kernels of the run's form must
+    launch in the resume window (counters set to 0 just before it). The
+    client's text (A's before the frame, then B's) is held to A's
+    uninterrupted stream by tokens: equal, or parting at a near tie of
+    A's logits (A's best logprob minus its logprob of B's token under
+    ``NEAR_TIE_LOGITS``, the model phase's rule). The tier itself is
+    held exactly: the same frame resumed on a fresh engine with no tier
+    recomputes the whole journal and must give B's stream byte for
+    byte. Then a migrate drain cuts a
+    stream right after a checkpoint frame (``: migrating``, no end),
+    new requests answer 503 with Retry-After, ``/health`` shows
+    draining and the build id, ``/version`` answers, and a drain with
+    exit stops the server in-process; a cold prefill of the resumed
+    context is timed on a server without a tier, whose one row and
+    queue of 8 at ``--shed-threshold 0.5`` then shed a batch request
+    with 429 and Retry-After while an interactive one is admitted; 16
+    greedy requests of 128 tokens on a page budget that forces
+    preemption (with ``--preempt-to-offload on``) must preempt more
+    than once, offload pages and restore a victim's pages from the
+    tier, their streams held to a roomy budget's by the same near-tie
+    rule. Prints the checkpoint
+    tick's host ms a shipped page, a restore's ms a page and the resumed
+    stream's time to first token against the cold prefill's, beside the
+    card's name and power limit.
+
+``python3 chip_smoke.py --only fleet`` (any phase names) runs the
+kernel build and those phases alone, for development, and prints no
+result lines.
 
 The line before the last is the ``kernels`` JSON summary, one entry a
 kernel with its bf16 per-layer numbers and ``int8``, ``stacked`` and
 ``int8_stacked`` objects of the same keys; ``launches`` is the kernel's
 count in the first serving run (the main path: per_layer bf16, async
-and unified on), ``launches_by_run`` its count in every run. The last
-line is the ``ok`` JSON line.
+and unified on), ``launches_by_run`` its count in every run (the fleet
+phase's resume windows as ``fleet_resume`` and, counting the int8
+stacked form, ``fleet_resume_int8_stacked``). The last line is the
+``ok`` JSON line.
 """
 
 from __future__ import annotations
@@ -157,7 +198,9 @@ import socket
 import subprocess
 import sys
 import threading
+import re
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
@@ -213,6 +256,9 @@ BEFORE_REDESIGN_MS = {
 INT8_RUN = "serve_int8"  # the run of the int8 forms
 STACKED_RUN = "serve_stacked"  # the run of the stacked forms
 BURST_RUN = "serve_burst"  # the run of the int8 stacked forms
+# The fleet phase's resume windows (bf16 per_layer, int8 stacked).
+FLEET_RUN = "fleet_resume"
+FLEET_INT8_RUN = "fleet_resume_int8_stacked"
 # A stacked case: the layer count of bench-1b and its last layer.
 STACK = (16, 15)
 # The int8 serving run's page budget: --num-pages 512 at bf16 widths,
@@ -1753,6 +1799,558 @@ def _greedy_agreement(requests, run, base):
     return same, total, whole, greedy
 
 
+# ---- fleet phase --------------------------------------------------------------
+
+# (label, server args beyond SERVER_ARGS, bytes of one page on the wire,
+# its arrays' wire dtypes, the launch-counter suffix of its kernels, the
+# --num-pages that forces preemption): bench-1b pages of 128 tokens are
+# 16 layers x 2 planes x 8 kv heads x 64 x 128 elements, bf16 2 bytes
+# each; int8 1 byte each plus 16 x 2 x 8 x 128 f32 scales.
+FLEET_RUNS = (
+    ("fleet bf16 per_layer", [], 4_194_304, ["bfloat16"] * 2, "", 32),
+    ("fleet int8 stacked", ["--cache-layout", "stacked",
+                            "--kv-cache-dtype", "int8"], 2_228_224,
+     ["int8"] * 2 + ["float32"] * 2, "_int8_stacked", 17),
+)
+FLEET_CHECKPOINT = 16
+FLEET_OUT = 64
+# The resumed chat's content (about 700 prompt tokens with the chat
+# template), and the prompt lengths of the 16 preempt-to-offload rows.
+FLEET_PROMPT_CHARS = 680
+PREEMPT_LENGTHS = np.linspace(64, 700, 16).round().astype(int)
+# Enough tokens out that every row crosses a page boundary while others
+# hold the budget, so victims wait and their cached pages are reused.
+PREEMPT_OUT = 128
+SMI = ""  # the card's name and power limit, set by main()
+
+
+class _Server:
+    """A port server in-process on a free port, serving on a thread."""
+
+    def __init__(self, args):
+        from production_stack_tpu_torch.engine.server import make_server
+        port = _free_port()
+        self.http = make_server(SERVER_ARGS + args + [
+            "--host", "127.0.0.1", "--port", str(port)])
+        self.app = self.http.app
+        self.engine = self.app.engine
+        self.url = f"http://127.0.0.1:{port}"
+        # Every finished sequence's token ids (prompt, as folded by any
+        # preemption or resume, then output).
+        self.finished = []
+        on_finished = self.engine.metrics.on_finished
+
+        def record(seq):
+            self.finished.append(list(seq.all_token_ids))
+            on_finished(seq)
+
+        self.engine.metrics.on_finished = record
+        self.thread = threading.Thread(target=self.http.serve, daemon=True)
+        self.thread.start()
+
+    def stop(self):
+        """Stop serving; the engine stays for ``near_tie``."""
+        if self.thread.is_alive():
+            self.http.shutdown()
+            self.thread.join(timeout=60)
+
+    def tokens_after(self, prefix):
+        """The token ids after ``prefix`` of the finished sequence that
+        starts with it."""
+        return next(t[len(prefix):] for t in self.finished
+                    if t[:len(prefix)] == list(prefix))
+
+    def close(self):
+        self.stop()
+        self.http = self.app = self.engine = None
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _http(method, url, body=None, headers=None):
+    """(status, text, headers) of one request, HTTP errors included."""
+    req = urllib.request.Request(
+        url, method=method, headers={"Content-Type": "application/json",
+                                     **(headers or {})},
+        data=None if body is None else json.dumps(body).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, resp.read().decode(), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode(), dict(e.headers)
+
+
+def _sse_events(raw: str):
+    """(kind, payload) of each SSE event: "ckpt" (a checkpoint frame's
+    descriptor), "migrating" (the drain cut's marker) or "data"."""
+    events = []
+    for block in raw.split("\n\n"):
+        block = block.strip()
+        if block.startswith(": checkpoint "):
+            events.append(("ckpt", json.loads(block[len(": checkpoint "):])))
+        elif block == ": migrating":
+            events.append(("migrating", None))
+        elif block.startswith("data: ") and block != "data: [DONE]":
+            events.append(("data", json.loads(block[len("data: "):])))
+    return events
+
+
+def _text(events) -> str:
+    out = []
+    for kind, e in events:
+        if kind == "data":
+            c = e["choices"][0]
+            out.append((c.get("delta") or {}).get("content") or c.get("text")
+                       or "")
+    return "".join(out)
+
+
+def _timed_stream(url, path, body):
+    """Stream one request: (raw text, seconds to the first content
+    frame, seconds in all)."""
+    import http.client
+    host, port = url.split("//")[1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=300)
+    t0 = time.perf_counter()
+    conn.request("POST", path, json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise AssertionError(f"{path}: {resp.status} {resp.read()}")
+    raw, first = b"", None
+    while True:
+        chunk = resp.read1(65536)
+        if not chunk:
+            break
+        raw += chunk
+        if first is None and _text(_sse_events(raw.decode(errors="ignore"))):
+            first = time.perf_counter() - t0
+    conn.close()
+    return raw.decode(), first, time.perf_counter() - t0
+
+
+def tie_margin(top_logprobs, got_token) -> float:
+    """The reference's margin against ``got_token`` from its top
+    logprobs ({token: logprob}): its best logprob minus its logprob of
+    ``got_token`` (a logit difference, never negative), inf when
+    ``got_token`` is not among them: ``compare_logits``' margin."""
+    if got_token not in top_logprobs:
+        return float("inf")
+    return max(top_logprobs.values()) - top_logprobs[got_token]
+
+
+def near_tie(engine, context, got_token) -> float:
+    """``tie_margin`` of the engine's top 20 logprobs at the token after
+    ``context``. The engine must not be serving (its loop stopped)."""
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    sid = engine.add_request(list(context), SamplingParams(
+        temperature=0.0, max_tokens=1, logprobs=True, top_logprobs=20,
+        ignore_eos=True))
+    entry = None
+    while entry is None:
+        for out in engine.step():
+            if out.seq_id == sid and out.logprobs is not None:
+                entry = out.logprobs
+    while engine.has_work():
+        engine.step()
+    return tie_margin(dict(entry[1]), got_token)
+
+
+def check_stream(label, what, ref_engine, context, ref_ids, got_ids):
+    """Greedy ``got_ids`` against ``ref_ids`` after ``context``: equal,
+    or equal up to a first flip that is a near tie of the reference
+    engine (its margin under ``NEAR_TIE_LOGITS``, the model phase's
+    rule: bf16 arithmetic in another order, a step of another kind or
+    shape, may flip a near tie, and the streams part there). Returns
+    the flip's (index, margin), or None."""
+    if len(got_ids) != len(ref_ids):
+        raise AssertionError(f"{label}: {what}: {len(got_ids)} tokens, "
+                             f"expected {len(ref_ids)}")
+    flip = next((i for i, (x, y) in enumerate(zip(ref_ids, got_ids))
+                 if x != y), None)
+    if flip is None:
+        return None
+    margin = near_tie(ref_engine, list(context) + ref_ids[:flip],
+                      got_ids[flip])
+    if not margin < NEAR_TIE_LOGITS:
+        raise AssertionError(f"{label}: {what}: token {flip} flipped at a "
+                             f"margin of {margin} logits")
+    return flip, margin
+
+
+def _fleet_prompt(rng, vocab, n):
+    return rng.randint(258, vocab, size=n).tolist()
+
+
+def fleet_phase(vocab: int) -> dict:
+    """The fleet contract and the offload tier at full width; see the
+    module docstring (phase 13). Returns each run's kernel launches in
+    its resume window."""
+    from production_stack_tpu_torch.engine.cache_server import (
+        build_cache_server)
+    launches = {}
+    for run in FLEET_RUNS:
+        cache = build_cache_server(8 * 1024 ** 3)
+        threading.Thread(target=cache.serve_forever, daemon=True).start()
+        try:
+            launches[run[0]] = _fleet_run(run, cache, vocab)
+        finally:
+            cache.shutdown()
+            cache.server_close()
+    return launches
+
+
+def _fleet_run(run, cache, vocab) -> dict:
+    from production_stack_tpu_torch.engine.kv_cache import (
+        PagedCacheManager)
+    from production_stack_tpu_torch.engine.offload import (
+        _stable_key, unpackb)
+    from production_stack_tpu_torch.engine.tokenizer import (
+        render_chat_prompt)
+    from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
+
+    label, extra, page_bytes, wire, form, small_pages = run
+    rng = np.random.RandomState(9)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz ,."))
+    content = "".join(rng.choice(letters, size=FLEET_PROMPT_CHARS))
+    chat = {"max_tokens": FLEET_OUT, "temperature": 0,
+            "ignore_eos": True, "stream": True,
+            "messages": [{"role": "user", "content": content}]}
+    tier = ["--kv-remote-url", cache.url, "--kv-host-pool-bytes", "0",
+            "--checkpoint-interval-tokens", str(FLEET_CHECKPOINT),
+            "--build-id", "chip-smoke"]
+
+    # Resume: server A streams and checkpoints; B resumes from a frame
+    # over the tier, R from the same frame by recompute.
+    a = b = r = None
+    try:
+        a = _Server(extra + tier)
+        eng = a.engine
+        prompt = render_chat_prompt(eng.tokenizer, chat["messages"])
+        tick, ship = eng._checkpoint_tick, {"s": 0.0, "bytes": 0}
+
+        def timed_tick():
+            before, t0 = eng.checkpoint_kv_bytes, time.perf_counter()
+            tick()
+            if eng.checkpoint_kv_bytes > before:
+                ship["s"] += time.perf_counter() - t0
+                ship["bytes"] += eng.checkpoint_kv_bytes - before
+
+        eng._checkpoint_tick = timed_tick
+        raw, _, _ = _timed_stream(a.url, "/v1/chat/completions", chat)
+        a.stop()
+        a_stats = eng.stats()
+        if not raw.rstrip().endswith("data: [DONE]"):
+            raise AssertionError(f"{label}: server A's stream did not end")
+        events = _sse_events(raw)
+        full = _text(events)
+        rid = next(e for k, e in events if k == "data")["id"]
+        desc, delivered, seen = None, 0, 0
+        for kind, payload in events:
+            if kind == "data":
+                seen += len(_text([(kind, payload)]))
+            elif (desc is None and kind == "ckpt"
+                  and payload["output_tokens"] < FLEET_OUT
+                  and len(payload["tokens"]) % 128):
+                desc, delivered = payload, seen
+        if desc is None or not (a_stats["checkpoint_ships_total"] > 0
+                                and a_stats["checkpoint_kv_bytes_total"] > 0):
+            raise AssertionError(f"{label}: no usable checkpoint ({a_stats})")
+        pages_shipped = ship["bytes"] / page_bytes
+        # Wire: the first page of the journal's chain, as the tier holds
+        # it.
+        first = PagedCacheManager.chain_hashes(desc["tokens"][:-1], 128)[0]
+        arrays = unpackb(cache.store._blobs[_stable_key(first, wire[0])]
+                         )["arrays"]
+        nbytes = sum(len(x["data"]) for x in arrays)
+        if nbytes != page_bytes or [x["dtype"] for x in arrays] != wire:
+            raise AssertionError(
+                f"{label}: a shipped page is {nbytes} bytes of "
+                f"{[x['dtype'] for x in arrays]}, expected {page_bytes} "
+                f"of {wire}")
+
+        b = _Server(extra + tier)
+        eng = b.engine
+        restore, rst = eng._restore_offloaded_prefix, {"s": 0.0,
+                                                       "pages": []}
+
+        def timed_restore(*args):
+            t0 = time.perf_counter()
+            pages = restore(*args)
+            rst["s"] += time.perf_counter() - t0
+            rst["pages"] += pages
+            return pages
+
+        eng.scheduler.restore_hook = timed_restore
+        # Warm the graph keys the resume takes (a prefill of the tail's
+        # length, then decode) on an unrelated prompt.
+        tail = len(desc["tokens"]) - (len(desc["tokens"]) - 1) // 128 * 128
+        _post(b.url + "/v1/completions", {
+            "max_tokens": 4, "temperature": 0, "ignore_eos": True,
+            "prompt": _fleet_prompt(rng, vocab, tail)})
+        torch.cuda.synchronize()
+        COUNTERS.reset()
+        raw, resume_ttft, _ = _timed_stream(b.url, "/v1/resume", {
+            "descriptor": desc, "delivered_text_chars": delivered,
+            "stream": True})
+        torch.cuda.synchronize()
+        window = dict(COUNTERS.launches)
+        stats = eng.stats()
+        resumed = _sse_events(raw)
+        if {e["id"] for k, e in resumed if k == "data"} != {rid}:
+            raise AssertionError(f"{label}: the resumed stream is not "
+                                 f"under {rid}")
+        if not (stats["kv_offload_cluster_hits"] > 0
+                and stats["kv_offload_restored_pages"] > 0
+                and stats["stream_resumes_total"] == 1):
+            raise AssertionError(f"{label}: resume without tier hits "
+                                 f"({stats})")
+        # The restored pages on the card are the shipped bytes.
+        for page_id in rst["pages"]:
+            page_hash = eng.cache_manager._pages[page_id].page_hash
+            frame = unpackb(cache.store._blobs[_stable_key(page_hash,
+                                                           wire[0])])
+            if [bytes(x["data"]) for x in frame["arrays"]] != [
+                    t.contiguous().view(torch.uint8).numpy().tobytes()
+                    for t in eng.runner.read_page(page_id)]:
+                raise AssertionError(f"{label}: restored page {page_id} "
+                                     "differs from the shipped bytes")
+        if (window.get("paged_decode" + form, 0) <= 0
+                or window.get("paged_prefill" + form, 0)
+                + window.get("paged_ragged" + form, 0) <= 0):
+            raise AssertionError(f"{label}: the restored pages were not "
+                                 f"read through the kernels: {window}")
+        if any(COUNTERS.plain_cuda_calls.values()):
+            raise AssertionError(f"{label}: plain versions ran on CUDA "
+                                 f"tensors: {dict(COUNTERS.plain_cuda_calls)}")
+        # The client's text: A's up to the frame, then B's.
+        same_text = full[:delivered] + _text(resumed) == full
+        b.stop()
+        restored_ids = b.tokens_after(desc["tokens"][:len(prompt)])
+        flip = check_stream(label, "resumed stream", a.engine, prompt,
+                            a.tokens_after(prompt), restored_ids)
+        if same_text != (flip is None):
+            raise AssertionError(f"{label}: text and tokens disagree")
+        b.close()
+        # The tier alone: the same descriptor resumed on a fresh engine
+        # with no tier recomputes the whole journal, and must give B's
+        # stream byte for byte (greedy, exact): the restored pages
+        # stand in for recomputed ones, and where B parts from A is the
+        # tail's arithmetic, not the tier.
+        r = _Server(extra)
+        raw, _, _ = _timed_stream(r.url, "/v1/resume", {
+            "descriptor": desc, "delivered_text_chars": delivered,
+            "stream": True})
+        r.stop()
+        recomputed_ids = r.tokens_after(desc["tokens"][:len(prompt)])
+        if (recomputed_ids != restored_ids
+                or _text(_sse_events(raw)) != _text(resumed)
+                or r.engine.stats()["stream_resumes_total"] != 1):
+            at = next((i for i, (x, y) in enumerate(
+                zip(recomputed_ids, restored_ids)) if x != y), None)
+            raise AssertionError(
+                f"{label}: the resume by restore and the resume by "
+                f"recompute differ (first at output token {at})")
+        r.close()
+        b = _Server(extra + tier)
+        _drain_checks(label, b, chat)
+    finally:
+        for srv in (a, b, r):
+            if srv is not None and srv.http is not None:
+                srv.close()
+
+    c = _Server(extra + ["--max-num-seqs", "1", "--max-queue-len", "8",
+                         "--shed-threshold", "0.5"])
+    try:
+        # Cold prefill of the resumed context, after a warm-up of the
+        # same length on another prompt.
+        n = len(desc["tokens"])
+        body = {"max_tokens": 2, "temperature": 0, "ignore_eos": True,
+                "stream": True}
+        _timed_stream(c.url, "/v1/completions",
+                      dict(body, prompt=_fleet_prompt(rng, vocab, n)))
+        _, cold_ttft, _ = _timed_stream(
+            c.url, "/v1/completions", dict(body, prompt=desc["tokens"]))
+        _shed_checks(label, c, rng, vocab)
+    finally:
+        c.close()
+
+    _preempt_checks(label, extra, small_pages, rng, vocab)
+    log(f"{label}: resume under {rid}: "
+        + ("the client's text byte-identical to server A's uninterrupted "
+           "stream" if flip is None else
+           f"A's and the client's greedy tokens part at output token "
+           f"{flip[0]} (checkpoint at {desc['output_tokens']}), a near "
+           f"tie of A's logits (margin {flip[1]:.4f})")
+        + f"; server A shipped {a_stats['checkpoint_ships_total']:.0f} "
+        f"checkpoints, {a_stats['checkpoint_kv_bytes_total']:.0f} B, a "
+        f"page {nbytes} B of {wire}; B's tier hits "
+        f"{stats['kv_offload_cluster_hits']:.0f}, restored pages equal to "
+        f"the shipped bytes; the resume by recompute byte-identical to "
+        f"the resume by restore; resume window launches {window}")
+    log(f"{label}: checkpoint tick host ms a shipped page "
+        f"{1e3 * ship['s'] / max(pages_shipped, 1):.3f} ({pages_shipped:.0f} "
+        f"pages, {ship['bytes']} B); restore ms a page "
+        f"{1e3 * rst['s'] / max(len(rst['pages']), 1):.3f} "
+        f"({len(rst['pages'])} pages); resumed TTFT "
+        f"{1e3 * resume_ttft:.1f} ms against a cold prefill of the same "
+        f"{n}-token context {1e3 * cold_ttft:.1f} ms; {SMI}")
+    return window
+
+
+def _drain_checks(label, srv, chat):
+    """A migrate drain cuts a stream at a checkpoint frame; new requests
+    then answer 503 + Retry-After, /health shows draining and the build
+    id, /version answers; a drain with exit stops the server."""
+    import http.client
+    host, port = srv.url.split("//")[1].split(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=300)
+    conn.request("POST", "/v1/chat/completions", json.dumps(dict(
+        chat, messages=[{"role": "user", "content": "drain me " * 40}])),
+        {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    raw = b""
+    while b": checkpoint " not in raw:
+        chunk = resp.read1(65536)
+        if not chunk:
+            raise AssertionError(f"{label}: the stream ended before a "
+                                 "checkpoint frame")
+        raw += chunk
+    with srv.engine._lock:  # no step commits while the drain lands
+        status, _, _ = _http("POST", srv.url + "/drain", {"migrate": True})
+    cut = False
+    try:
+        while True:
+            chunk = resp.read1(65536)
+            if not chunk:
+                break
+            raw += chunk
+    except http.client.IncompleteRead as e:
+        raw += e.partial
+        cut = True
+    conn.close()
+    kinds = [k for k, _ in _sse_events(raw.decode())]
+    if status != 200 or not cut or kinds[-2:] != ["ckpt", "migrating"]:
+        raise AssertionError(f"{label}: the migrate drain did not cut the "
+                             f"stream at a frame (cut {cut}, {kinds[-4:]})")
+    status, _, headers = _http("POST", srv.url + "/v1/chat/completions",
+                               dict(chat, stream=False))
+    _, health, _ = _http("GET", srv.url + "/health")
+    health = json.loads(health)
+    version = _http("GET", srv.url + "/version")
+    if (status != 503 or headers.get("Retry-After") != "1"
+            or health["draining"] is not True
+            or health["build_id"] != "chip-smoke" or version[0] != 200):
+        raise AssertionError(f"{label}: after the drain: {status} "
+                             f"{headers}, health {health}, version {version}")
+    _http("POST", srv.url + "/drain", {"exit": True})
+    srv.thread.join(timeout=60)
+    if srv.thread.is_alive():
+        raise AssertionError(f"{label}: the drained server did not exit")
+    srv.http.server_close()
+    srv.http = srv.app = srv.engine = None
+    log(f"{label}: migrate drain cut the stream after its checkpoint frame; "
+        f"503 + Retry-After, /health {health}, /version {version[1]}; the "
+        "server exited once idle")
+
+
+def _shed_checks(label, srv, rng, vocab):
+    """With one row and a queue of 8 at threshold 0.5, a batch request is
+    shed with 429 + Retry-After once 4 wait; an interactive one is
+    admitted."""
+    body = {"max_tokens": FLEET_OUT, "temperature": 0,
+            "ignore_eos": True}
+    inter = {"x-priority": "interactive"}
+    pool = ThreadPoolExecutor(6)
+    backlog = [pool.submit(_http, "POST", srv.url + "/v1/completions",
+                           dict(body, prompt=_fleet_prompt(rng, vocab, 64)),
+                           inter) for _ in range(6)]
+    deadline = time.time() + 60
+    while (srv.engine.scheduler.num_waiting < 4
+           and time.time() < deadline):
+        time.sleep(0.002)
+    shed = _http("POST", srv.url + "/v1/completions",
+                 dict(body, prompt=[300] * 8), {"x-priority": "batch"})
+    admitted = _http("POST", srv.url + "/v1/completions",
+                     dict(body, max_tokens=2, prompt=[301] * 8), inter)
+    results = [f.result() for f in backlog]
+    pool.shutdown()
+    if (shed[0] != 429 or not shed[2].get("Retry-After")
+            or admitted[0] != 200 or any(r[0] != 200 for r in results)):
+        raise AssertionError(f"{label}: shed gate: batch {shed[:2]}, "
+                             f"interactive {admitted[0]}, backlog "
+                             f"{[r[0] for r in results]}")
+    log(f"{label}: shed gate: batch answered {shed[0]} (Retry-After "
+        f"{shed[2]['Retry-After']}), interactive admitted")
+
+
+def _preempt_checks(label, extra, small_pages, rng, vocab) -> None:
+    """16 greedy requests of PREEMPT_OUT tokens on a page budget that
+    forces preemption, with preempt-to-offload, against the same on a
+    roomy budget: each stream equal to the roomy one's, or parting at a
+    near tie of the roomy engine (``check_stream``). The budget must
+    preempt more than once, ship victims' pages, and bring a victim's
+    pages back from the tier (its cached pages on the card reused in
+    the meantime)."""
+    prompts = [_fleet_prompt(rng, vocab, n) for n in PREEMPT_LENGTHS]
+    bodies = [{"max_tokens": PREEMPT_OUT, "temperature": 0,
+               "ignore_eos": True, "prompt": p} for p in prompts]
+    originals = {tuple(p) for p in prompts}
+    servers, victims = {}, []
+    try:
+        for budget in ("small", "roomy"):
+            args = extra + (["--num-pages", str(small_pages),
+                             "--enable-kv-offload", "--preempt-to-offload",
+                             "on"] if budget == "small" else [])
+            srv = servers[budget] = _Server(args)
+            if budget == "small":
+                restore = srv.engine.scheduler.restore_hook
+
+                def counted(prompt_ids, matched, salt=0):
+                    pages = restore(prompt_ids, matched, salt)
+                    if pages and tuple(prompt_ids) not in originals:
+                        victims.append(len(pages))  # a folded prompt
+                    return pages
+
+                srv.engine.scheduler.restore_hook = counted
+            with ThreadPoolExecutor(len(bodies)) as pool:
+                list(pool.map(lambda b: _post(srv.url + "/v1/completions",
+                                              b), bodies))
+            srv.stop()
+            if budget == "small":
+                metrics = srv.app.metrics()
+                offloaded = float(re.search(
+                    r'^vllm:preempt_offload_total\{outcome="offloaded"\} '
+                    r'(\S+)', metrics, re.M).group(1))
+                preemptions = srv.engine.scheduler.num_preemptions
+                restored = srv.engine.stats()["kv_offload_restored_pages"]
+                srv.close()
+        flips = [check_stream(label, f"preempt-to-offload row {i}",
+                              servers["roomy"].engine, p,
+                              servers["roomy"].tokens_after(p),
+                              servers["small"].tokens_after(p))
+                 for i, p in enumerate(prompts)]
+    finally:
+        for srv in servers.values():
+            if srv.http is not None:
+                srv.close()
+    parted = [(i, f) for i, f in enumerate(flips) if f is not None]
+    log(f"{label}: preempt-to-offload at {small_pages} pages: "
+        f"{preemptions} preemptions, {offloaded:.0f} offloaded, "
+        f"{restored:.0f} pages restored, {len(victims)} victims restored "
+        f"from the tier ({sum(victims)} pages); "
+        f"{len(prompts) - len(parted)}/{len(prompts)} streams "
+        f"byte-identical to the roomy budget's, the others parting at near "
+        f"ties (row, token, margin): "
+        f"{[(i, f[0], round(f[1], 4)) for i, f in parted]}")
+    if not (preemptions > 1 and offloaded > 0 and restored > 0 and victims):
+        raise AssertionError(
+            f"{label}: preempt-to-offload did no real work: {preemptions} "
+            f"preemptions, {offloaded} offloaded, {restored} pages "
+            f"restored, {len(victims)} victims restored")
+
+
 # ---- main -------------------------------------------------------------------
 
 
@@ -1764,7 +2362,10 @@ def main() -> int:
     sys.path.insert(0, here)
     from production_stack_tpu_torch.ops import paged_kv_common
 
-    smi = subprocess.run(
+    global SMI
+    only = sys.argv[sys.argv.index("--only") + 1:] if (
+        "--only" in sys.argv) else None
+    smi = SMI = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
@@ -1785,16 +2386,26 @@ def main() -> int:
                     or "spill" in line):
                 log(line.strip())
 
-    headline = kernel_phase(dev)
-    torch.cuda.empty_cache()
-    model_phase(dev)
     from production_stack_tpu_torch.engine.config import (
         bench_1b_model_config)
     vocab = bench_1b_model_config().vocab_size
+    if only is not None:
+        # A development run of the named phases (no result lines).
+        for name in only:
+            globals()[name + "_phase"](vocab)
+        log(f"chip_smoke: phases {only} passed")
+        return 0
+    headline = kernel_phase(dev)
+    torch.cuda.empty_cache()
+    model_phase(dev)
     engine_phase(vocab)
     graph_phase(vocab)
     sampling_options_phase(vocab)
     launches = serving_phase(vocab)
+    torch.cuda.empty_cache()
+    fleet = fleet_phase(vocab)
+    launches[FLEET_RUN] = fleet[FLEET_RUNS[0][0]]
+    launches[FLEET_INT8_RUN] = fleet[FLEET_RUNS[1][0]]
 
     def numbers(h):
         out = {"max_abs_err": h["max_abs_err"], "ms": h["ms"],
@@ -1812,8 +2423,10 @@ def main() -> int:
         summary.append({
             "name": name, **meta,
             "launches": launches[MAIN_RUN].get(name, 0),
-            "launches_by_run": {run: counts.get(name, 0)
-                                for run, counts in launches.items()},
+            "launches_by_run": {
+                run: counts.get(name + ("_int8_stacked"
+                                        if run == FLEET_INT8_RUN else ""), 0)
+                for run, counts in launches.items()},
             **numbers(h["bf16"]),
             "int8": {"launches": launches[INT8_RUN].get(name + "_int8", 0),
                      **numbers(h["int8"])},

@@ -5,9 +5,12 @@ dtypes in place of ``jnp`` ones. Only the fields of the port's slice
 are here: one llama-family model on one device, full-precision or
 int8 KV in per-layer or stacked pages, continuous batching with the
 async pipeline, decode bursts, the unified ragged step and
-prompt-lookup speculative decoding. Parallelism, offload, LoRA, QoS,
-autotuning and the KV economy join the port with the features that
-read them.
+prompt-lookup speculative decoding, the KV offload tiers
+(``OffloadConfig``), QoS classes and shedding (``QoSConfig``), the KV
+economy's summary and watermarks (``KVEconConfig``), stream
+checkpoints, the step watchdog and the AWAITING_KV timeout.
+Parallelism, LoRA, disaggregation and autotuning join the port with
+the features that read them.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import math
 from typing import Optional
 
 import torch
+
+from production_stack_tpu_torch.qos import parse_priority
 
 _DTYPE_MAP = {
     "bfloat16": torch.bfloat16,
@@ -165,14 +170,101 @@ class SchedulerConfig:
 
 
 @dataclasses.dataclass
+class OffloadConfig:
+    """KV offload tiers (engine/offload.py): host RAM, then a remote
+    cache server."""
+
+    enable: bool = False
+    host_pool_bytes: int = 2 * 1024 ** 3
+    remote_url: Optional[str] = None
+
+
+@dataclasses.dataclass
+class KVEconConfig:
+    """Cluster KV economy knobs (docs/kv_economy.md): the summary
+    tracker behind GET /kv/summary and the host pool's eviction
+    hysteresis. The cache server takes the same flag spellings for its
+    own policy, with its own defaults (engine/cache_server.py)."""
+
+    # Hot chains advertised in the /kv/summary snapshot.
+    summary_top_k: int = 64
+    # Decayed hit count a chain needs before it is advertised as hot.
+    admit_hits: int = 2
+    # Seconds an idle chain stays in the summary tracker (0 = no TTL).
+    ttl_s: float = 900.0
+    # Host offload pool fill fractions: above high, evict down to low.
+    # 1.0/1.0 evicts exactly at capacity.
+    watermark_high: float = 1.0
+    watermark_low: float = 1.0
+
+    def __post_init__(self):
+        if self.summary_top_k < 1:
+            raise ValueError("kvecon.summary_top_k must be >= 1")
+        if self.admit_hits < 1:
+            raise ValueError("kvecon.admit_hits must be >= 1")
+        if self.ttl_s < 0:
+            raise ValueError("kvecon.ttl_s must be >= 0")
+        if not 0.0 < self.watermark_low <= self.watermark_high <= 1.0:
+            raise ValueError(
+                "kvecon watermarks must satisfy 0 < low <= high <= 1 "
+                f"(got low={self.watermark_low!r} "
+                f"high={self.watermark_high!r})")
+
+
+@dataclasses.dataclass
+class QoSConfig:
+    """Overload quality of service (docs/qos.md): priority classes,
+    preempt-to-offload and the server's shed gate."""
+
+    # Class assumed for requests without an x-priority header.
+    default_priority: str = "batch"
+    # Under page pressure, ship the preemption victim's committed KV
+    # pages to the offload tier (when one is configured) and restore
+    # them on re-admission instead of recomputing the prompt.
+    preempt_to_offload: bool = True
+    # Waiting-queue fill fraction (of max_queue_len) past which the
+    # server sheds non-interactive requests with 429 + Retry-After.
+    shed_threshold: float = 0.95
+
+    def __post_init__(self):
+        parse_priority(self.default_priority)
+        if not 0.0 < self.shed_threshold <= 1.0:
+            raise ValueError(
+                "qos.shed_threshold must be in (0, 1] "
+                f"(got {self.shed_threshold!r})")
+
+
+@dataclasses.dataclass
 class EngineConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
     scheduler: SchedulerConfig = dataclasses.field(
         default_factory=SchedulerConfig)
+    offload: OffloadConfig = dataclasses.field(
+        default_factory=OffloadConfig)
+    qos: QoSConfig = dataclasses.field(default_factory=QoSConfig)
+    kvecon: KVEconConfig = dataclasses.field(
+        default_factory=KVEconConfig)
     seed: int = 0
+    # Seconds a sequence parked in AWAITING_KV waits for an unreachable
+    # offload tier before it degrades to a full recompute.
+    handoff_timeout_s: float = 30.0
+    # Every N generated tokens, ship a streaming sequence's committed
+    # KV pages to the offload tier and publish a resume descriptor (the
+    # token journal) for the router (docs/crash_recovery.md). 0 = off.
+    # Without an offload tier only the journal is published.
+    checkpoint_interval_tokens: int = 0
+    # Seconds one engine step may run before /health answers 503.
+    # 0 = off.
+    step_watchdog_s: float = 0.0
 
     def __post_init__(self):
+        if self.handoff_timeout_s < 0:
+            raise ValueError("handoff_timeout_s must be >= 0")
+        if self.checkpoint_interval_tokens < 0:
+            raise ValueError("checkpoint_interval_tokens must be >= 0")
+        if self.step_watchdog_s < 0:
+            raise ValueError("step_watchdog_s must be >= 0")
         if self.model.architecture not in ("llama", "mistral", "qwen2"):
             raise NotImplementedError(
                 "the port serves the llama family (llama, mistral, "

@@ -18,6 +18,18 @@ Every per-row sampling option of the JAX engine is served: penalties,
 "json", for the byte-range tokenizers, whose automaton is built at
 start-up) and logprobs, returned on each ``StepOutput`` in the JAX
 engine's form. LoRA adapters are not.
+
+With an offload tier (``config.offload``: a host RAM pool and/or a
+remote cache server, engine/offload.py) pages leave the card on
+eviction, on preemption (preempt-to-offload) and at stream checkpoints,
+and come back at a first-touch prefix miss. Every
+``checkpoint_interval_tokens`` generated tokens a running stream ships
+its new full pages and stages a resume descriptor (the token journal)
+for the server's SSE stream; ``add_resume`` continues such a stream on
+another engine, parked in AWAITING_KV until its pages are reachable or
+recomputing from the journal on a miss. Requests carry a QoS
+``priority`` (the scheduler's admission order and preemption victim)
+and ``spec_off``.
 """
 
 from __future__ import annotations
@@ -30,9 +42,19 @@ from typing import Dict, List, Optional
 
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.guided import build_json_fsm
-from production_stack_tpu_torch.engine.kv_cache import PagedCacheManager
+from production_stack_tpu_torch.engine.kv_cache import (
+    OutOfPagesError,
+    PagedCacheManager,
+)
 from production_stack_tpu_torch.engine.metrics import EngineMetrics
 from production_stack_tpu_torch.engine.model_runner import ModelRunner
+from production_stack_tpu_torch.engine.offload import (
+    HostKVPool,
+    KVOffloadManager,
+    RemoteKVClient,
+    payload_nbytes,
+    wire_dtype_name,
+)
 from production_stack_tpu_torch.engine.scheduler import Scheduler
 from production_stack_tpu_torch.engine.sequence import (
     SamplingParams,
@@ -44,6 +66,10 @@ from production_stack_tpu_torch.engine.tokenizer import (
     ByteTokenizer,
     get_tokenizer,
 )
+from production_stack_tpu_torch.qos import parse_priority
+from production_stack_tpu_torch.utils.log import init_logger
+
+logger = init_logger(__name__)
 
 
 @dataclass
@@ -92,6 +118,132 @@ class LLMEngine:
         # idle gap — the quantity the pipeline exists to shrink.
         self._in_flight = None
         self._idle_mark: Optional[float] = None
+        # QoS: the class of requests that carry none.
+        self.default_priority = int(
+            parse_priority(config.qos.default_priority))
+        self.offload: Optional[KVOffloadManager] = None
+        if config.offload.enable:
+            self._init_offload()
+        # Stream checkpoints: the latest unsent resume descriptor of
+        # each live stream (drained by the server, relayed to the
+        # router as an SSE comment frame), each stream's cadence and
+        # shipped-page bookkeeping, and the counters.
+        self._checkpoints: Dict[str, dict] = {}
+        self._ckpt_last_tokens: Dict[str, int] = {}
+        self._ckpt_shipped_pages: Dict[str, int] = {}
+        self.checkpoint_ships = 0
+        self.checkpoint_kv_bytes = 0
+        self.stream_resumes = 0
+
+    # ---- offload tiers ------------------------------------------------------
+
+    def _init_offload(self) -> None:
+        # A per-process requester id: the managed cluster cache counts
+        # DISTINCT requesters demanding a chain for admission.
+        remote = (RemoteKVClient(
+                      self.config.offload.remote_url,
+                      requester=f"engine-{uuid.uuid4().hex[:12]}")
+                  if self.config.offload.remote_url else None)
+        # Tier keys are namespaced by the page storage format (int8, or
+        # the model's dtype), as the JAX engine names it.
+        kv_dtype = ("int8" if self.runner.kv_quantized else
+                    wire_dtype_name(self.config.model.torch_dtype))
+        self.offload = KVOffloadManager(
+            host_pool=HostKVPool(
+                self.config.offload.host_pool_bytes,
+                watermark_high=self.config.kvecon.watermark_high,
+                watermark_low=self.config.kvecon.watermark_low),
+            remote=remote, kv_dtype=kv_dtype)
+        self.cache_manager.evict_listener = self._on_page_evicted
+        self.scheduler.restore_hook = self._restore_offloaded_prefix
+        if self.config.qos.preempt_to_offload:
+            self.scheduler.evict_hook = self._evict_sequence_kv
+        logger.info("KV offload enabled (host pool %d MiB%s)",
+                    self.config.offload.host_pool_bytes // 2 ** 20,
+                    ", remote tier" if remote else "")
+
+    def _on_page_evicted(self, page_id: int, page_hash) -> None:
+        self.offload.offload_page(page_hash,
+                                  *self.runner.read_page(page_id))
+
+    def _ship_pages(self, seq: Sequence, start: int = 0) -> tuple:
+        """Ship ``seq``'s committed full pages from the ``start``-th
+        on to the offload tier: (pages in the committed chain, pages
+        shipped, bytes shipped). Caller holds the lock.
+
+        The restorable prefix is every token but the last (the prefix
+        cache's bound: the final token must prefill again to give
+        logits), and its KV is all written by the steps queued so far:
+        decode writes a token's KV one step after sampling it, so
+        positions 0..total_len-2 are on the card at a plan boundary,
+        and ``read_page`` waits for a step still in flight. The pages
+        are first committed to the hash table (prompt-time hashing
+        stopped at the prompt), so the shipped chain and a first-touch
+        restore's chain are the same hashes."""
+        usable = seq.total_len - 1
+        tokens = seq.all_token_ids[:usable]
+        self.cache_manager.commit_full_pages(
+            tokens, seq.pages, seq.num_hashed_pages, seq.cache_salt)
+        hashes = PagedCacheManager.chain_hashes(
+            tokens, self.cache_manager.page_size, seq.cache_salt)
+        pairs = list(zip(seq.pages, hashes))
+        chain = self.offload.chain_id(hashes[0]) if hashes else None
+        shipped = kv_bytes = 0
+        for page_id, page_hash in pairs[start:]:
+            payload = self.runner.read_page(page_id)
+            self.offload.offload_page(page_hash, *payload, chain=chain)
+            kv_bytes += payload_nbytes(payload)
+            shipped += 1
+        return len(pairs), shipped, kv_bytes
+
+    def _evict_sequence_kv(self, seq: Sequence) -> int:
+        """Preempt-to-offload (the scheduler's evict hook): ship the
+        victim's committed KV pages before the scheduler frees them;
+        returns the count shipped."""
+        if self.offload is None or not seq.pages:
+            return 0
+        return self._ship_pages(seq)[1]
+
+    def _restore_offloaded_prefix(self, prompt_token_ids, matched_pages,
+                                  cache_salt=0) -> List[int]:
+        """After a device prefix miss, pull further pages from the
+        host or remote tier into freshly allocated pages (the
+        scheduler's restore hook)."""
+        usable = len(prompt_token_ids) - 1
+        hashes = PagedCacheManager.chain_hashes(
+            prompt_token_ids[:usable], self.cache_manager.page_size,
+            cache_salt)
+        remaining = hashes[len(matched_pages):]
+        n = self.offload.lookup_chain(remaining)
+        if n == 0:
+            return []
+        try:
+            pages = self.cache_manager.allocate_pages(n)
+        except OutOfPagesError:
+            return []
+        t0 = time.perf_counter()
+        restored: List[int] = []
+        # One batched round trip for every remote miss in the chain.
+        payloads = self.offload.fetch_many(remaining[:n])
+        arity = 4 if self.runner.kv_quantized else 2
+        for page_id, page_hash, payload in zip(pages, remaining[:n],
+                                               payloads):
+            if payload is None or len(payload) != arity:
+                # The tier raced an eviction (or holds a payload of
+                # another page format): stop here.
+                self.cache_manager.free_sequence(pages[len(restored):])
+                break
+            self.runner.write_page(page_id, *payload)
+            self.cache_manager.register_restored_page(page_id, page_hash)
+            restored.append(page_id)
+        self.offload.restored_pages += len(restored)
+        if restored:
+            self.cache_manager.prefix_hit_tokens += (
+                len(restored) * self.cache_manager.page_size)
+            # vllm:preempt_restore_latency_seconds: the page transfer
+            # that replaced a prompt recompute.
+            self.metrics.on_preempt_restore(time.perf_counter() - t0)
+        return restored
 
     # ---- request API ------------------------------------------------------
 
@@ -99,7 +251,10 @@ class LLMEngine:
                     sampling: Optional[SamplingParams] = None,
                     seq_id: Optional[str] = None,
                     output_sink=None,
-                    lora_name: Optional[str] = None) -> str:
+                    lora_name: Optional[str] = None,
+                    request_id: Optional[str] = None,
+                    priority: Optional[int] = None,
+                    spec_off: bool = False) -> str:
         if lora_name is not None:
             raise NotImplementedError(
                 f"LoRA adapter {lora_name!r}: not supported by this "
@@ -124,19 +279,211 @@ class LLMEngine:
         sampling.stop_token_ids = stop_ids
         seq = Sequence(
             seq_id=seq_id or f"seq-{uuid.uuid4().hex[:16]}",
-            prompt_token_ids=list(prompt_token_ids),
+            prompt_token_ids=self._in_vocab(prompt_token_ids),
             sampling=sampling,
             output_sink=output_sink,
             fsm_state=fsm_state,
+            request_id=request_id,
+            priority=(self.default_priority if priority is None
+                      else int(priority)),
+            spec_off=spec_off,
         )
         with self._lock:
-            self.sequences[seq.seq_id] = seq
-            try:
-                self.scheduler.add_sequence(seq)
-            except Exception:
-                self.sequences.pop(seq.seq_id, None)
-                raise
+            if self._cold_start_target(seq) is not None:
+                # Shared cluster cache: another engine may hold this
+                # prompt's prefix KV. Park in AWAITING_KV so the step
+                # loop probes the shared tier (one HEAD) before prefill:
+                # a hit restores instead of computing; a miss or a tier
+                # that is down computes.
+                seq.transition(SequenceState.AWAITING_KV)
+                seq.cold_start_probe = True
+                seq.handoff_arrival_time = time.time()
+            self._add(seq)
         return seq.seq_id
+
+    def _in_vocab(self, token_ids) -> List[int]:
+        """Prompt ids as the JAX model's embedding gather reads them: a
+        negative id counts from the end, then the index is clamped into
+        the table (the port's embedding would raise on the CPU and
+        fault the card). Sampled ids are always in the vocabulary, so
+        only the host's ids are mapped, once, here."""
+        vocab = self.config.model.vocab_size
+        return [min(max(int(t), -vocab), vocab - 1) % vocab
+                for t in token_ids]
+
+    def _add(self, seq: Sequence) -> None:
+        """Queue ``seq`` (caller holds the lock)."""
+        self.sequences[seq.seq_id] = seq
+        try:
+            self.scheduler.add_sequence(seq)
+        except Exception:
+            self.sequences.pop(seq.seq_id, None)
+            raise
+
+    def _cold_start_target(self, seq: Sequence):
+        """The first full usable prompt page neither on the card nor
+        hashed here: the page whose presence in the shared cluster
+        cache decides whether a cold prompt restores or computes. None
+        without a remote tier or prefix caching, or when the local
+        cache covers the prompt. Caller holds the lock."""
+        if (self.offload is None or self.offload.remote is None
+                or not self.config.cache.enable_prefix_caching):
+            return None
+        usable = len(seq.prompt_token_ids) - 1
+        hashes = PagedCacheManager.chain_hashes(
+            seq.prompt_token_ids[:usable], self.cache_manager.page_size,
+            seq.cache_salt)
+        for page_hash in hashes:
+            if page_hash not in self.cache_manager._hash_to_page:
+                return page_hash
+        return None
+
+    def add_resume(self, token_ids: List[int],
+                   num_prior_output_tokens: int,
+                   sampling: Optional[SamplingParams] = None,
+                   seq_id: Optional[str] = None,
+                   output_sink=None,
+                   request_id: Optional[str] = None) -> str:
+        """Resume a stream whose engine died mid-generation:
+        ``token_ids`` is the journaled committed context (the prompt
+        and every token generated up to the last checkpoint), folded
+        into the prompt as a preemption folds generated tokens, with
+        ``num_prior_output_tokens`` keeping every budget counting. The
+        sequence parks in AWAITING_KV; the probe then restores the
+        checkpointed pages from the offload tier, or a miss recomputes
+        from the journal. Greedy generation continues byte-identically
+        either way; nothing is replayed to the client (the server skips
+        the text already delivered)."""
+        sampling = sampling or SamplingParams()
+        stop_ids = list(sampling.stop_token_ids)
+        if (not sampling.ignore_eos
+                and self.tokenizer.eos_token_id is not None
+                and self.tokenizer.eos_token_id not in stop_ids):
+            stop_ids.append(self.tokenizer.eos_token_id)
+        sampling.stop_token_ids = stop_ids
+        if sampling.guided is not None:
+            raise ValueError(
+                "guided decoding is not supported across a resume "
+                "(automaton state does not transfer)")
+        orig_max_tokens = sampling.max_tokens
+        seq = Sequence(
+            seq_id=seq_id or f"seq-{uuid.uuid4().hex[:16]}",
+            prompt_token_ids=self._in_vocab(token_ids),
+            sampling=sampling,
+            output_sink=output_sink,
+            state=SequenceState.AWAITING_KV,
+            num_prior_output_tokens=int(num_prior_output_tokens),
+            handoff_arrival_time=time.time(),
+            request_id=request_id,
+        )
+        with self._lock:
+            self._add(seq)
+            # Undo the admission clamp: it counts the folded output as
+            # prompt, which would shrink the token budget.
+            sampling.max_tokens = orig_max_tokens
+            self.stream_resumes += 1
+            if self.offload is None:
+                # No tier to restore from: recompute from the journal.
+                seq.transition(SequenceState.WAITING)
+                self.metrics.on_handoff_admitted(0.0)
+        return seq.seq_id
+
+    def take_checkpoint(self, seq_id: str) -> Optional[dict]:
+        """Drain the latest unsent resume descriptor of ``seq_id``
+        (None when no checkpoint landed since the last take)."""
+        with self._lock:
+            return self._checkpoints.pop(seq_id, None)
+
+    def _checkpoint_tick(self) -> None:
+        """Every ``checkpoint_interval_tokens`` generated tokens, ship
+        a running stream's new committed pages to the offload tier
+        (incrementally: pages shipped before are skipped) and stage a
+        resume descriptor journaling its whole committed token context.
+        Guided streams are skipped (the automaton state does not
+        transfer). Without an offload tier the journal alone is staged,
+        so a resume recomputes."""
+        interval = self.config.checkpoint_interval_tokens
+        with self._lock:
+            for seq in list(self.scheduler.running):
+                if (seq.state != SequenceState.RUNNING
+                        or seq.sampling.guided is not None):
+                    continue
+                last = self._ckpt_last_tokens.get(seq.seq_id, 0)
+                if seq.num_generated - last < interval:
+                    continue
+                self._ckpt_last_tokens[seq.seq_id] = seq.num_generated
+                kv_bytes = 0
+                if self.offload is not None and seq.pages:
+                    done = self._ckpt_shipped_pages.get(seq.seq_id, 0)
+                    total, _, kv_bytes = self._ship_pages(seq, done)
+                    self._ckpt_shipped_pages[seq.seq_id] = total
+                self.checkpoint_ships += 1
+                self.checkpoint_kv_bytes += kv_bytes
+                self._checkpoints[seq.seq_id] = {
+                    "tokens": [int(t) for t in seq.all_token_ids],
+                    "prompt_tokens": seq.total_len - seq.num_generated,
+                    "output_tokens": seq.num_generated,
+                    "num_pages": self._ckpt_shipped_pages.get(
+                        seq.seq_id, 0),
+                    "kv_bytes": kv_bytes,
+                }
+
+    def _drop_checkpoint_state(self, seq_id: str) -> None:
+        """Caller holds the lock (or the sequence is retired)."""
+        self._checkpoints.pop(seq_id, None)
+        self._ckpt_last_tokens.pop(seq_id, None)
+        self._ckpt_shipped_pages.pop(seq_id, None)
+
+    def _handoff_kv_ready(self, seq: Sequence) -> Optional[bool]:
+        """Whether a parked sequence's KV is reachable. Pages ship in
+        chain order, so probing the LAST page (one HEAD at most)
+        answers for the whole chain; True/False is definitive, None a
+        tier that could not be reached. A cold-start probe asks whether
+        the shared cache extends the local prefix, so it probes the
+        FIRST page the local cache lacks (the HEAD also records this
+        engine's demand, which promotes shared chains)."""
+        if seq.cold_start_probe:
+            target = self._cold_start_target(seq)
+            if target is None:
+                return True  # the local cache caught up meanwhile
+            return self.offload.handoff_ready(target)
+        usable = len(seq.prompt_token_ids) - 1
+        hashes = PagedCacheManager.chain_hashes(
+            seq.prompt_token_ids[:usable], self.cache_manager.page_size,
+            seq.cache_salt)
+        if not hashes:
+            return True  # shorter than a page: recompute
+        return self.offload.handoff_ready(hashes[-1])
+
+    def _admit_handoffs(self) -> None:
+        """Flip AWAITING_KV sequences to WAITING once their pages are
+        reachable (the first-touch restore then pulls them), or degrade
+        to recompute on a definitive miss or after
+        ``handoff_timeout_s`` of an unreachable tier. Either way the
+        request completes."""
+        now = time.time()
+        with self._lock:
+            for seq in list(self.scheduler.waiting):
+                if seq.state != SequenceState.AWAITING_KV:
+                    continue
+                ready = self._handoff_kv_ready(seq)
+                if ready is None and not seq.cold_start_probe:
+                    if (now - seq.handoff_arrival_time
+                            < self.config.handoff_timeout_s):
+                        continue
+                    logger.warning(
+                        "%s timed out waiting for KV; degrading to "
+                        "recompute", seq.seq_id)
+                elif ready is False and not seq.cold_start_probe:
+                    logger.warning(
+                        "%s KV not in any offload tier; degrading to "
+                        "recompute", seq.seq_id)
+                seq.transition(SequenceState.WAITING)
+                if not seq.cold_start_probe:
+                    # Cold-start parks are admission probes, not
+                    # transfers: they stay out of the histogram.
+                    self.metrics.on_handoff_admitted(
+                        now - seq.handoff_arrival_time)
 
     def abort_request(self, seq_id: str) -> None:
         with self._lock:
@@ -144,6 +491,7 @@ class LLMEngine:
             if seq is not None:
                 self.scheduler.abort_sequence(seq)
                 self.metrics.on_finished(seq)
+                self._drop_checkpoint_state(seq_id)
 
     def has_work(self) -> bool:
         # A dispatched-but-unread decode step is work: the loop must
@@ -153,7 +501,13 @@ class LLMEngine:
     # ---- engine step ------------------------------------------------------
 
     def step(self) -> List[StepOutput]:
-        """Plan + execute one device step; returns per-seq deltas."""
+        """Plan + execute one device step; returns per-seq deltas.
+        Parked sequences are admitted and checkpoints shipped first, at
+        the plan boundary."""
+        if self.scheduler.num_awaiting_kv:
+            self._admit_handoffs()
+        if self.config.checkpoint_interval_tokens > 0:
+            self._checkpoint_tick()
         if self.config.scheduler.async_scheduling:
             return self._step_async()
         return self._step_sync()
@@ -398,6 +752,7 @@ class LLMEngine:
                 seq = self.sequences.pop(out.seq_id, None)
                 if seq is not None:
                     self.metrics.on_finished(seq)
+                    self._drop_checkpoint_state(out.seq_id)
 
     def _note_dispatch(self, now: float) -> None:
         """Device-idle accounting: accumulate the gap between the
@@ -434,7 +789,7 @@ class LLMEngine:
 
     def stats(self) -> Dict[str, float]:
         m = self.metrics
-        return {
+        out = {
             "num_requests_running": self.scheduler.num_running,
             "num_requests_waiting": self.scheduler.num_waiting,
             "gpu_cache_usage_perc": self.cache_manager.usage_perc(),
@@ -465,7 +820,15 @@ class LLMEngine:
             "engine_kv_bytes_per_decode_step":
                 self.config.scheduler.max_num_seqs
                 * self.config.cache.kv_bytes_per_token(self.config.model),
+            "disagg_awaiting_kv_requests": self.scheduler.num_awaiting_kv,
+            "checkpoint_ships_total": self.checkpoint_ships,
+            "checkpoint_kv_bytes_total": self.checkpoint_kv_bytes,
+            "stream_resumes_total": self.stream_resumes,
         }
+        if self.offload is not None:
+            out.update({f"kv_offload_{k}": v
+                        for k, v in self.offload.stats().items()})
+        return out
 
     # ---- convenience ------------------------------------------------------
 

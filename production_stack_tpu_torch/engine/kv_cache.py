@@ -12,7 +12,10 @@ Capacity metrics feed the engine's ``/metrics``:
 (scraped by the router, reference engine_stats.py:46-55).
 
 Content hashes and refcounts are over token ids, so page accounting
-does not depend on the cache's storage dtype.
+does not depend on the cache's storage dtype. With an offload tier
+(engine/offload.py) a hashed page about to be reused is handed to
+``evict_listener`` first, and pages restored from a tier are registered
+as cached (``register_restored_page``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from production_stack_tpu_torch.engine.config import CacheConfig
+from production_stack_tpu_torch.utils.log import init_logger
+
+logger = init_logger(__name__)
 
 PageHash = Tuple[int, Tuple[int, ...]]
 
@@ -57,6 +63,9 @@ class PagedCacheManager:
         self._hash_to_page: Dict[PageHash, int] = {}
         # Zero-ref pages still holding reusable content, LRU order.
         self._evictable: "OrderedDict[int, None]" = OrderedDict()
+        # Fired with (page_id, page_hash) just before a hashed page's
+        # slot is reused: the offload tier's capture point.
+        self.evict_listener = None
         # Stats
         self.prefix_hit_tokens = 0
         self.prefix_query_tokens = 0
@@ -90,6 +99,11 @@ class PagedCacheManager:
             info = self._pages.pop(page_id)
             if info.page_hash is not None:
                 self._hash_to_page.pop(info.page_hash, None)
+                if self.evict_listener is not None:
+                    try:
+                        self.evict_listener(page_id, info.page_hash)
+                    except Exception as e:  # offload is best-effort
+                        logger.warning("KV evict listener failed: %s", e)
         else:
             raise OutOfPagesError("KV cache out of pages")
         self._pages[page_id] = PageInfo(page_id=page_id, ref_count=1)
@@ -200,3 +214,14 @@ class PagedCacheManager:
     def free_sequence(self, pages: List[int]) -> None:
         for page_id in pages:
             self._release_page(page_id)
+
+    def register_restored_page(self, page_id: int,
+                               page_hash: PageHash) -> None:
+        """A page restored from an offload tier becomes a cached,
+        hash-addressable page (later prompts hit it on the device)."""
+        info = self._pages.get(page_id)
+        if info is None or info.page_hash is not None:
+            return
+        if page_hash not in self._hash_to_page:
+            info.page_hash = page_hash
+            self._hash_to_page[page_hash] = page_id

@@ -997,50 +997,73 @@ class ModelRunner:
             return caches
         return [caches[layer] for layer in range(caches.shape[0])]
 
-    def read_page(self, page_id: int) -> Tuple[np.ndarray, ...]:
-        """Copy one page's KV out of device memory: [L, kv, d, page_size]
-        each in either layout (the JAX engine's wire shape), as f32
-        numpy (numpy has no bf16; the conversion is exact). An int8
-        cache gives the JAX engine's 4-tuple (k, v, k_scale, v_scale):
-        int8 pages and f32 [L, kv, page_size] scales."""
-        k_layers, v_layers = self._layers(self.k_cache), self._layers(
-            self.v_cache)
+    def _page_planes(self) -> list:
+        """The cache tensors a page spans, in wire order: k and v (an
+        int8 cache: k and v data, then k and v scales), each as
+        (tensor, stacked) with the page axis at 2 when stacked and at
+        1 when a list of per-layer tensors."""
         if self.kv_quantized:
-            def leaf(caches, name):
-                return torch.stack([getattr(c, name)[:, page_id]
-                                    for c in caches]).cpu().numpy()
-            return (leaf(k_layers, "data"), leaf(v_layers, "data"),
-                    leaf(k_layers, "scale"), leaf(v_layers, "scale"))
-        k = torch.stack([kc[:, page_id] for kc in k_layers])
-        v = torch.stack([vc[:, page_id] for vc in v_layers])
-        return k.float().cpu().numpy(), v.float().cpu().numpy()
+            leaves = [(c, leaf) for leaf in ("data", "scale")
+                      for c in (self.k_cache, self.v_cache)]
+        else:
+            leaves = [(self.k_cache, None), (self.v_cache, None)]
+        planes = []
+        for cache, leaf in leaves:
+            if isinstance(cache, list):
+                planes.append(([getattr(c, leaf) if leaf else c
+                                for c in cache], False))
+            else:
+                planes.append((getattr(cache, leaf) if leaf else cache,
+                               True))
+        return planes
 
-    def write_page(self, page_id: int, k_page: np.ndarray,
-                   v_page: np.ndarray,
-                   k_scale: Optional[np.ndarray] = None,
-                   v_scale: Optional[np.ndarray] = None) -> None:
-        """Restore one page's KV into device memory, in place: what
-        ``read_page`` gave (for an int8 cache, with its scales)."""
-        k_layers, v_layers = self._layers(self.k_cache), self._layers(
-            self.v_cache)
+    def read_page(self, page_id: int) -> Tuple[torch.Tensor, ...]:
+        """Copy one page's KV out of device memory, in the JAX engine's
+        wire shape and the cache's own element type, as CPU tensors:
+        (k, v) each [L, kv, d, page_size] (bf16 stays 2 bytes an
+        element), or for an int8 cache the 4-tuple (k, v, k_scale,
+        v_scale) of int8 pages and f32 [L, kv, page_size] scales.
+
+        The copy is queued on the stream the steps run on, so it waits
+        for the step that wrote the page (an async step still in
+        flight, a burst's writes) and for nothing else on the card. On
+        the CPU the page is a copy too, never a view of the cache (a
+        pool holding a view would see the page's slot reused)."""
+        out = []
+        for plane, stacked in self._page_planes():
+            page = (plane[:, :, page_id] if stacked
+                    else torch.stack([c[:, page_id] for c in plane]))
+            out.append(page.to("cpu", copy=True))
+        return tuple(out)
+
+    def write_page(self, page_id: int, k_page: torch.Tensor,
+                   v_page: torch.Tensor,
+                   k_scale: Optional[torch.Tensor] = None,
+                   v_scale: Optional[torch.Tensor] = None) -> None:
+        """Restore one page's KV into device memory, in place (the step
+        graphs hold the caches' addresses): what ``read_page`` gave, in
+        the cache's element type (for an int8 cache, with its scales).
+        One host-to-device copy a plane, queued on the steps' stream
+        before any step that reads the page."""
+        pages = [k_page, v_page]
         if self.kv_quantized:
             if k_scale is None or v_scale is None:
                 raise ValueError(
                     "a quantized cache's page restore needs "
                     "k_scale/v_scale")
-            for caches, page, scale in ((k_layers, k_page, k_scale),
-                                        (v_layers, v_page, v_scale)):
-                data = torch.from_numpy(np.asarray(page, np.int8))
-                scales = torch.from_numpy(np.asarray(scale, np.float32))
-                for layer, cache in enumerate(caches):
-                    cache.data[:, page_id] = data[layer].to(self.device)
-                    cache.scale[:, page_id] = scales[layer].to(self.device)
-            return
-        k = torch.from_numpy(np.asarray(k_page, np.float32))
-        v = torch.from_numpy(np.asarray(v_page, np.float32))
-        for layer, (kc, vc) in enumerate(zip(k_layers, v_layers)):
-            kc[:, page_id] = k[layer].to(kc.device, kc.dtype)
-            vc[:, page_id] = v[layer].to(vc.device, vc.dtype)
+            pages += [k_scale, v_scale]
+        for (plane, stacked), page in zip(self._page_planes(), pages):
+            dtype = plane.dtype if stacked else plane[0].dtype
+            page = torch.as_tensor(page)
+            if page.dtype != dtype:
+                raise TypeError(f"page of {page.dtype} for a cache of "
+                                f"{dtype}")
+            page = page.to(self.device)
+            if stacked:
+                plane[:, :, page_id] = page
+            else:
+                for layer, cache in enumerate(plane):
+                    cache[:, page_id] = page[layer]
 
     def _page_table_rows(self, seqs: List[Sequence],
                          pad_to: Optional[int] = None) -> np.ndarray:

@@ -11,9 +11,15 @@ decode step N+1 while step N is in flight (the async pipeline).
 Ported: the bimodal plans, the mixed plan, the plan-ahead, decode
 bursts (a pure decode plan's ``window`` of ``decode_steps`` tokens a
 row) and speculative drafts from the n-gram proposer (engine/spec.py),
-planned as verify steps or carried by the mixed step's decode rows. Not
-ported yet: context-parallel whole-prompt prefill, offload
-restore/evict hooks and disaggregated handoffs.
+planned as verify steps or carried by the mixed step's decode rows, and
+the offload tier's hooks: ``restore_hook`` pulls a first-touch
+prompt's pages back from the host or remote tier after a device
+prefix miss, and ``evict_hook`` ships a preemption victim's committed
+pages there before they are freed (preempt-to-offload); the victim
+then parks in AWAITING_KV, as a resumed stream does, and a parked
+sequence counts in the queue depth but is never planned until the
+engine admits it. Not ported yet: context-parallel whole-prompt
+prefill and disaggregated handoffs.
 """
 
 from __future__ import annotations
@@ -110,6 +116,18 @@ class Scheduler:
         # Cumulative count of sequences preempted for KV-cache
         # pressure (vllm:num_preemptions_total parity).
         self.num_preemptions = 0
+        # Optional offload-tier restore hook:
+        # (prompt_token_ids, matched_pages, cache_salt) -> extra
+        # restored page ids.
+        self.restore_hook = None
+        # Optional preempt-to-offload hook: seq -> count of committed
+        # KV pages shipped to the offload tier before the victim's
+        # pages are freed. None / 0 = drop and recompute.
+        self.evict_hook = None
+        # vllm:preempt_offload_total{outcome}: "offloaded" victims had
+        # their pages shipped; "recompute" victims recompute.
+        self.preempt_offload_outcomes: Dict[str, int] = {
+            "offloaded": 0, "recompute": 0}
         # Prefill token budget a unified (mixed) step may admit: a
         # dedicated prefill step's full bandwidth.
         self.mixed_prefill_budget = (config.prefill_chunk_size
@@ -164,7 +182,20 @@ class Scheduler:
 
     @property
     def num_waiting(self) -> int:
+        # AWAITING_KV sequences included: they hold a queue slot.
         return len(self.waiting)
+
+    @property
+    def num_awaiting_kv(self) -> int:
+        return sum(1 for s in self.waiting
+                   if s.state == SequenceState.AWAITING_KV)
+
+    def _has_plannable_waiting(self) -> bool:
+        """Waiting work prefill could plan now: AWAITING_KV sequences
+        are parked until the engine admits them, so they neither
+        trigger prefill planning nor break the async pipeline."""
+        return any(s.state != SequenceState.AWAITING_KV
+                   for s in self.waiting)
 
     @property
     def num_running(self) -> int:
@@ -191,7 +222,7 @@ class Scheduler:
 
     def plan_step(self) -> StepPlan:
         want_prefill = bool(
-            self.waiting
+            self._has_plannable_waiting()
             and len(self.running) < self.config.max_num_seqs
         )
         want_decode = bool(self.running)
@@ -230,9 +261,13 @@ class Scheduler:
 
     def _propose(self) -> Dict[str, List[int]]:
         """Each running row's drafts, capped by its emit budget; rows
-        the proposer has nothing for are left out."""
+        the proposer has nothing for are left out, and so are rows the
+        router marked spec-off (``x-qos-spec-off``: they ride a verify
+        step as plain single-token rows)."""
         drafts: Dict[str, List[int]] = {}
         for seq in self.running:
+            if seq.spec_off:
+                continue
             d = self.proposer.propose(seq, self._draft_limit(seq))
             if d:
                 drafts[seq.seq_id] = d
@@ -332,7 +367,7 @@ class Scheduler:
           step in flight: the victim's pages are inputs of the running
           step).
         """
-        if (self.waiting
+        if (self._has_plannable_waiting()
                 and len(self.running) < self.config.max_num_seqs):
             return None
         rows: List[Optional[Sequence]] = []
@@ -402,6 +437,10 @@ class Scheduler:
             if seq.state == SequenceState.ABORTED:
                 self.waiting.remove(seq)
                 continue
+            if seq.state == SequenceState.AWAITING_KV:
+                # Parked: its pages are not reachable yet (the engine's
+                # _admit_handoffs flips it to WAITING).
+                continue
             if (len(self.running) + admitting
                     >= self.config.max_num_seqs):
                 break
@@ -413,6 +452,9 @@ class Scheduler:
                 # the remainder for the whole prompt up front.
                 matched = self.cache.match_prefix(
                     seq.prompt_token_ids, seq.cache_salt)
+                if self.restore_hook is not None:
+                    matched = matched + self.restore_hook(
+                        seq.prompt_token_ids, matched, seq.cache_salt)
                 seq.pages = matched
                 seq.num_hashed_pages = len(matched)
                 seq.num_computed_tokens = len(matched) * self.page_size
@@ -504,6 +546,21 @@ class Scheduler:
         self._log_preemption(seq)
         self.num_preemptions += 1
         self.running.remove(seq)
+        # Preempt-to-offload: ship the victim's committed pages BEFORE
+        # freeing them (the cache's evict_listener fires on slot reuse,
+        # too late for a deterministic restore). No hook, 0 pages or a
+        # failed hook all fall back to drop and recompute.
+        evicted = 0
+        if self.evict_hook is not None:
+            try:
+                evicted = self.evict_hook(seq)
+            except Exception:
+                logger.exception(
+                    "Preempt-to-offload failed for %s; falling back to "
+                    "recompute", seq.seq_id)
+                evicted = 0
+        outcome = "offloaded" if evicted else "recompute"
+        self.preempt_offload_outcomes[outcome] += 1
         self.cache.free_sequence(seq.pages)
         seq.pages = []
         seq.num_hashed_pages = 0
@@ -514,7 +571,15 @@ class Scheduler:
         seq.prompt_token_ids = seq.all_token_ids
         seq.output_token_ids = []
         seq.num_computed_tokens = 0
-        seq.transition(SequenceState.WAITING)
+        if evicted:
+            # Parked until the engine's _admit_handoffs finds the
+            # shipped pages reachable (at once for the host tier); the
+            # first-touch restore then pulls them back, and a miss
+            # recomputes.
+            seq.transition(SequenceState.AWAITING_KV)
+            seq.handoff_arrival_time = time.time()
+        else:
+            seq.transition(SequenceState.WAITING)
         self.waiting.appendleft(seq)
 
     def _log_preemption(self, seq: Sequence) -> None:

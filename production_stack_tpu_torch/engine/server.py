@@ -3,20 +3,47 @@
     python -m production_stack_tpu_torch.engine.server \\
         --model bench-1b --random-weights --page-size 128 --num-pages 512
 
-Routes served, with the JSON shapes of the JAX engine's server: GET
-``/health``, ``/v1/models`` and ``/metrics`` (the ``vllm:*`` names the
-router scrapes; the compile ledger's
-``vllm:engine_compile_{events,seconds}_total{kind}`` count the step
-graphs' captures), POST ``/v1/completions`` and ``/v1/chat/completions``
-(with and without ``stream``). That is 5 of the 24 routes the JAX
-server registers. Each of the other 19 (``UNPORTED_ROUTES``: drain,
-resume, disaggregation, embeddings, score, rerank, autotune, version,
-KV summary, profiler and the debug ledgers) answers 501 with a message
-naming its feature; a path neither server has answers 404.
+Routes served, with the JSON shapes, status codes and SSE frames of the
+JAX engine's server: GET ``/health`` (role, draining, build id, active
+requests; 503 ``{"status": "watchdog"}`` while a step has run past
+``--step-watchdog-s``), ``/v1/models``, ``/metrics`` (the ``vllm:*``
+names the router scrapes), ``/version`` and ``/kv/summary`` (the hot
+prefix chains of kvecon/summary.py, free pages and the KV dtype), POST
+``/v1/completions`` and ``/v1/chat/completions`` (with and without
+``stream``), ``/v1/resume`` and ``/drain``. That is 9 of the 24 routes
+the JAX server registers. Each of the other 15 (``UNPORTED_ROUTES``:
+disaggregation, embeddings, score, rerank, autotune, profiler and the
+debug ledgers) answers 501 with a message naming its feature; a path
+neither server has answers 404.
 
-Flags: 20 of the JAX server's 75, with the same names and meanings
-(``parse_args``); the others are absent and argparse refuses them.
-``--device`` is the port's own (the card unless ``cpu`` is asked for).
+Fleet contract, as the JAX server keeps it:
+- QoS headers: ``x-priority`` (interactive | batch | background; any
+  other value is a 400; absent, ``--default-priority``) orders
+  admission and picks preemption victims; ``x-qos-spec-off: 1`` keeps
+  the request's rows from drafting. While the waiting queue holds
+  ``--shed-threshold`` of ``--max-queue-len`` or more, a
+  non-interactive request is shed with 429 and ``Retry-After``.
+- ``POST /drain`` turns new generation requests away with 503 and
+  ``Retry-After`` while admitted ones finish; ``{"migrate": true}``
+  cuts each checkpointed stream right after its next checkpoint frame
+  (a ``: migrating`` comment, then the connection closes without the
+  stream's end) so the router resumes it elsewhere; ``{"exit": true}``
+  stops the server once idle (``--drain-exit-timeout-s`` bounds the
+  wait). The stop shuts the in-process server down; ``main`` then
+  returns, ending the process.
+- Stream checkpoints (``--checkpoint-interval-tokens``): a stream with
+  one candidate, no logprobs and no echo carries ``: checkpoint {...}``
+  comment frames, the resume descriptor the router keeps; ``POST
+  /v1/resume`` continues such a stream (400 for a bad descriptor, 409
+  for one of another KV dtype), replaying the journal through the same
+  detokenizer and stop scanner and skipping ``delivered_text_chars``.
+  Streams are sent with chunked transfer encoding, so a cut reads as
+  one to the client.
+
+Flags: 36 of the JAX server's 75, with the same names, defaults and
+meanings (``parse_args``); the others are absent and argparse refuses
+them. ``--device`` is the port's own (the card unless ``cpu`` is asked
+for).
 
 The HTTP layer is ``http.server.ThreadingHTTPServer`` (one thread per
 connection); the engine steps on one loop thread of its own and hands
@@ -54,6 +81,9 @@ from typing import Dict, List, Optional, Tuple
 from production_stack_tpu_torch.engine.config import (
     CacheConfig,
     EngineConfig,
+    KVEconConfig,
+    OffloadConfig,
+    QoSConfig,
     SchedulerConfig,
     bench_1b_model_config,
     tiny_model_config,
@@ -68,8 +98,23 @@ from production_stack_tpu_torch.engine.tokenizer import (
     BenchTokenizer,
     render_chat_prompt,
 )
+from production_stack_tpu_torch.kvecon.summary import (
+    PrefixSummaryTracker,
+    routable_text,
+)
 from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
+from production_stack_tpu_torch.qos import (
+    PRIORITY_HEADER,
+    PRIORITY_NAMES,
+    SPEC_OFF_HEADER,
+    Priority,
+    parse_priority,
+    priority_name,
+    shed_counter_dict,
+    shed_retry_after_s,
+)
 from production_stack_tpu_torch.utils.log import init_logger
+from production_stack_tpu_torch.version import __version__
 
 logger = init_logger(__name__)
 
@@ -87,8 +132,21 @@ class EngineLoop:
         self._wakeup = threading.Event()
         self._stop = threading.Event()
         self.uptime_start = time.time()
+        # Step watchdog: wall-clock start of the step on the clock, None
+        # between steps. A step of the async pipeline stays on the clock
+        # from its dispatch until the call that reads it back returns,
+        # so a wedged graph replay shows here while /health (on a
+        # handler thread) keeps answering.
+        self._step_started: Optional[float] = None
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="engine-loop")
+
+    def current_step_s(self) -> float:
+        """Seconds the step on the clock has run (0.0 when idle)."""
+        started = self._step_started
+        if started is None:
+            return 0.0
+        return time.time() - started
 
     def start(self) -> None:
         self._thread.start()
@@ -97,6 +155,25 @@ class EngineLoop:
         self._stop.set()
         self._wakeup.set()
         self._thread.join(timeout=30)
+
+    def _admit(self, item: dict) -> None:
+        seq_id = item["seq_id"]
+        try:
+            if item.get("kind") == "resume":
+                self.engine.add_resume(
+                    item["tokens"], item["prior"], item["sampling"],
+                    seq_id=seq_id, request_id=item.get("request_id"))
+            else:
+                self.engine.add_request(
+                    item["prompt"], item["sampling"], seq_id=seq_id,
+                    request_id=item.get("request_id"),
+                    priority=item.get("priority"),
+                    spec_off=item.get("spec_off", False))
+        except Exception as e:
+            # Queue full / invalid request: fail THIS request, never
+            # the loop.
+            logger.warning("Rejecting %s: %s", seq_id, e)
+            self._emit(StepOutput(seq_id, None, True, "abort"))
 
     def _run(self) -> None:
         while not self._stop.is_set():
@@ -107,18 +184,12 @@ class EngineLoop:
             except queue.Empty:
                 item = None
             if item is not None:
-                seq_id, prompt, sampling = item
-                try:
-                    self.engine.add_request(prompt, sampling,
-                                            seq_id=seq_id)
-                except Exception as e:
-                    # Queue full / invalid request: fail THIS request,
-                    # never the loop.
-                    logger.warning("Rejecting %s: %s", seq_id, e)
-                    self._emit(StepOutput(seq_id, None, True, "abort"))
+                self._admit(item)
                 continue  # admit as many as possible before stepping
             if not self.engine.has_work():
                 continue
+            if self._step_started is None:
+                self._step_started = time.time()
             try:
                 outputs = self.engine.step()
             except Exception:
@@ -126,6 +197,10 @@ class EngineLoop:
                 self._wakeup.wait(0.05)
                 self._wakeup.clear()
                 continue
+            finally:
+                self._step_started = (time.time()
+                                      if self.engine._in_flight is not None
+                                      else None)
             if not outputs:
                 self._wakeup.wait(0.002)
                 self._wakeup.clear()
@@ -137,7 +212,9 @@ class EngineLoop:
         if stream is not None:
             stream[0].put((stream[1], out))
 
-    def submit(self, prompt: List[int], samplings: List[SamplingParams]
+    def submit(self, prompt: List[int], samplings: List[SamplingParams],
+               priority: Optional[int] = None, spec_off: bool = False,
+               request_id: Optional[str] = None
                ) -> Tuple[List[str], "queue.Queue"]:
         """One engine request a sampling, over the shared prompt;
         returns their sequence ids and the queue of their (index,
@@ -147,10 +224,29 @@ class EngineLoop:
         for i, sampling in enumerate(samplings):
             seq_id = f"seq-{uuid.uuid4().hex[:16]}"
             self._streams[seq_id] = (stream, i)
-            self._submit_q.put((seq_id, prompt, sampling))
+            self._submit_q.put({
+                "seq_id": seq_id, "prompt": prompt, "sampling": sampling,
+                "priority": priority, "spec_off": spec_off,
+                "request_id": request_id})
             seq_ids.append(seq_id)
         self._wakeup.set()
         return seq_ids, stream
+
+    def submit_resume(self, tokens: List[int], prior: int,
+                      sampling: SamplingParams,
+                      request_id: Optional[str] = None
+                      ) -> Tuple[str, "queue.Queue"]:
+        """Submit a stream's resume journal; its queue carries only the
+        new tokens (the handler replays the journal)."""
+        seq_id = f"seq-{uuid.uuid4().hex[:16]}"
+        stream: "queue.Queue" = queue.Queue()
+        self._streams[seq_id] = (stream, 0)
+        self._submit_q.put({"kind": "resume", "seq_id": seq_id,
+                            "tokens": tokens, "prior": prior,
+                            "sampling": sampling,
+                            "request_id": request_id})
+        self._wakeup.set()
+        return seq_id, stream
 
     def finish_stream(self, seq_id: str) -> None:
         self._streams.pop(seq_id, None)
@@ -456,23 +552,179 @@ def _mean_logprob(choice: "Choice") -> float:
     return sum(e["logprob"] for e in entries) / len(entries)
 
 
+def _sampling_to_wire(p: SamplingParams) -> dict:
+    """SamplingParams -> the JSON-safe dict of a resume descriptor."""
+    d = dict(vars(p))
+    if d.get("logit_bias"):
+        # JSON object keys are strings; _sampling_from_wire restores
+        # the int token ids.
+        d["logit_bias"] = {str(k): v for k, v in d["logit_bias"].items()}
+    return d
+
+
+def _sampling_from_wire(d: dict) -> SamplingParams:
+    """Inverse of ``_sampling_to_wire``; unknown keys are dropped, so a
+    descriptor from a newer engine (or the JAX engine) still resumes."""
+    d = dict(d)
+    lb = d.get("logit_bias")
+    if lb:
+        d["logit_bias"] = {int(k): float(v) for k, v in lb.items()}
+    allowed = {f.name for f in dataclasses.fields(SamplingParams)}
+    return SamplingParams(**{k: v for k, v in d.items() if k in allowed})
+
+
+def _error(status: int, message: str, kind: Optional[str] = None,
+           headers: Optional[dict] = None) -> tuple:
+    err = {"message": message}
+    if kind is not None:
+        err["type"] = kind
+    return status, {"error": err}, headers or {}
+
+
+# Yielded by a stream in place of a frame: end the stream here without
+# its terminating chunk, so the client reads a cut, not an end.
+STREAM_CUT = object()
+MIGRATING_FRAME = b": migrating\n\n"
+
+
+def _frame(payload: dict) -> bytes:
+    return f"data: {json.dumps(payload)}\n\n".encode()
+
+
 # ---- the server ------------------------------------------------------------
 
 
 class EngineServer:
-    """The request handlers, independent of the HTTP transport."""
+    """The request handlers, independent of the HTTP transport. A
+    handler's answer is ``(status, body, headers)``: ``body`` a dict
+    (JSON), a str (text) or an iterator of SSE byte frames."""
 
-    def __init__(self, engine: LLMEngine, served_model_name: str):
+    def __init__(self, engine: LLMEngine, served_model_name: str,
+                 build_id: str = "", drain_exit_timeout_s: float = 0.0):
         self.engine = engine
         self.loop = EngineLoop(engine)
         self.model_name = served_model_name
         self.tokenizer = engine.tokenizer
+        # Rolling upgrades: --build-id labels the running revision in
+        # /health and /version.
+        self.build_id = build_id
+        # Zero-loss drain: once POST /drain sets ``draining``, new
+        # generation requests get 503 + Retry-After while admitted ones
+        # finish; ``migrate_drain`` cuts checkpointed streams at their
+        # next checkpoint frame.
+        self.draining = False
+        self.migrate_drain = False
+        self.drain_exit_timeout_s = drain_exit_timeout_s
+        self._drain_exit: Optional[threading.Thread] = None
+        # Called once a drain with "exit" finds the server idle; the
+        # HTTP server installs its shutdown here.
+        self.on_drain_exit = None
+        # Generation requests being answered (their streams included):
+        # what /health reports and the drain exit waits for. The lock
+        # also guards the shed counts (handler threads update both).
         self._active = 0
         self._active_lock = threading.Lock()
+        # Per-class count of requests shed with 429
+        # (vllm:qos_shed_total{class}).
+        self.qos_shed_counts = shed_counter_dict()
+        # Latched once per hung step, so the trip is logged once.
+        self._watchdog_tripped = False
+        # Hot prefix chains behind GET /kv/summary, observed from each
+        # completion request's text (the router hashes the same text).
+        kve = engine.config.kvecon
+        self.kv_summary = PrefixSummaryTracker(
+            top_k=kve.summary_top_k, admit_hits=kve.admit_hits,
+            ttl_s=kve.ttl_s)
 
-    def health(self) -> dict:
-        return {"status": "ok", "role": "both", "draining": False,
-                "active_requests": self._active, "build_id": ""}
+    # ---- health, drain, version, KV summary --------------------------------
+
+    def health(self) -> Tuple[int, dict]:
+        state = {"role": "both", "draining": self.draining,
+                 "active_requests": self._active,
+                 "build_id": self.build_id}
+        limit = self.engine.config.step_watchdog_s
+        if limit > 0:
+            stuck = self.loop.current_step_s()
+            if stuck > limit:
+                # A wedged step stalls every queued request; a 503
+                # makes the router's prober rotate the replica out.
+                if not self._watchdog_tripped:
+                    self._watchdog_tripped = True
+                    logger.error(
+                        "Step watchdog tripped: step running for %.3fs "
+                        "(limit %.3fs); /health now 503", stuck, limit)
+                return 503, {"status": "watchdog",
+                             "stuck_step_s": round(stuck, 3), **state}
+            self._watchdog_tripped = False
+        return 200, {"status": "ok", **state}
+
+    def begin_generation(self) -> Optional[tuple]:
+        """A generation request arrives: its 503 answer while draining,
+        else None, counting it in flight until ``end_generation``."""
+        if self.draining:
+            return _error(503, "engine is draining; retry on another "
+                          "replica", headers={"Retry-After": "1"})
+        with self._active_lock:
+            self._active += 1
+        return None
+
+    def end_generation(self) -> None:
+        with self._active_lock:
+            self._active -= 1
+
+    def drain(self, body: dict) -> dict:
+        """Turn new generation requests away; with ``migrate`` cut
+        checkpointed streams at their next frame; with ``exit`` stop
+        the server once idle."""
+        already = self.draining
+        self.draining = True
+        if body.get("migrate"):
+            self.migrate_drain = True
+        if not already:
+            logger.info("Drain requested: rejecting new admissions, "
+                        "%d generation request(s) in flight",
+                        self._active)
+        if body.get("exit") and self._drain_exit is None:
+            self._drain_exit = threading.Thread(
+                target=self._exit_when_idle, daemon=True,
+                name="drain-exit")
+            self._drain_exit.start()
+        stats = self.engine.stats()
+        return {"status": "draining", "active_requests": self._active,
+                "running": stats["num_requests_running"],
+                "waiting": stats["num_requests_waiting"]}
+
+    def _exit_when_idle(self) -> None:
+        """Wait for every generation request in flight to end, then
+        stop the server (``--drain-exit-timeout-s`` bounds the wait; 0
+        waits for ever)."""
+        deadline = (time.time() + self.drain_exit_timeout_s
+                    if self.drain_exit_timeout_s > 0 else None)
+        while self._active > 0 or self.engine.has_work():
+            if deadline is not None and time.time() >= deadline:
+                logger.warning(
+                    "Drain exit timeout (%.1fs) with %d request(s) still "
+                    "in flight; exiting anyway",
+                    self.drain_exit_timeout_s, self._active)
+                break
+            time.sleep(0.05)
+        logger.info("Drain complete; exiting")
+        if self.on_drain_exit is not None:
+            self.on_drain_exit()
+
+    def version(self) -> dict:
+        return {"version": __version__, "build_id": self.build_id}
+
+    def kv_summary_snapshot(self) -> dict:
+        """The engine's KV state for the router's KV-aware routing, from
+        host-side state only: hot prefix chains (text-domain blake2b,
+        decayed hit counts), free-page headroom and the KV dtype."""
+        cm = self.engine.cache_manager
+        return {"hot_chains": [[h, v] for h, v in self.kv_summary.snapshot()],
+                "free_pages": cm.num_free_pages,
+                "total_pages": cm.config.num_pages - 1,
+                "kv_dtype": self.engine.config.cache.resolved_kv_dtype(),
+                "top_k": self.kv_summary.top_k}
 
     def models(self) -> dict:
         return {"object": "list", "data": [{
@@ -511,9 +763,50 @@ class EngineServer:
             lines.append("vllm:engine_kernel_launches_total"
                          f'{{kernel="{name}"}} {float(count)}')
         lines += self._graph_metrics()
+        lines += self._fleet_metrics(stats)
         lines += self.engine.metrics.render()
         lines.append("")
         return "\n".join(lines)
+
+    def _fleet_metrics(self, stats: dict) -> List[str]:
+        """The fleet side's lines, under the JAX server's names: the
+        AWAITING_KV depth, the KV summary's breadth, the shared tier's
+        counters (0 without a remote tier), the drain gauge, sheds by
+        class and preemptions by outcome; then the engine's checkpoint,
+        resume and offload-tier counters under their ``stats()``
+        names."""
+        ostats = (self.engine.offload.stats()
+                  if self.engine.offload is not None else {})
+        lines = ["# TYPE vllm:disagg_awaiting_kv_requests gauge",
+                 "vllm:disagg_awaiting_kv_requests "
+                 f"{float(stats['disagg_awaiting_kv_requests'])}",
+                 "# TYPE vllm:kv_summary_hot_chains gauge",
+                 "vllm:kv_summary_hot_chains "
+                 f"{float(self.kv_summary.hot_count())}"]
+        for name in ("hits", "misses", "admissions", "rejections"):
+            lines += [f"# TYPE vllm:kv_cluster_{name}_total counter",
+                      f"vllm:kv_cluster_{name}_total "
+                      f"{float(ostats.get('cluster_' + name, 0.0))}"]
+        lines += ["# TYPE vllm:engine_draining gauge",
+                  f"vllm:engine_draining {float(self.draining)}",
+                  "# TYPE vllm:qos_shed_total counter"]
+        lines += [f'vllm:qos_shed_total{{class="{cls}"}} {float(n)}'
+                  for cls, n in sorted(self.qos_shed_counts.items())]
+        lines.append("# TYPE vllm:preempt_offload_total counter")
+        lines += [f'vllm:preempt_offload_total{{outcome="{o}"}} {float(n)}'
+                  for o, n in sorted(self.engine.scheduler
+                                     .preempt_offload_outcomes.items())]
+        for name in ("checkpoint_ships_total", "checkpoint_kv_bytes_total",
+                     "stream_resumes_total"):
+            lines += [f"# TYPE vllm:{name} counter",
+                      f"vllm:{name} {float(stats[name])}"]
+        for name in ("host_pages", "host_bytes", "host_hit_rate",
+                     "offloaded_pages", "restored_pages"):
+            kind = "counter" if name.endswith("ed_pages") else "gauge"
+            lines += [f"# TYPE vllm:kv_offload_{name} {kind}",
+                      f"vllm:kv_offload_{name} "
+                      f"{float(ostats.get(name, 0.0))}"]
+        return lines
 
     def _graph_metrics(self) -> List[str]:
         """The JAX server's compile ledger under its names, types and
@@ -585,17 +878,13 @@ class EngineServer:
                 "top_logprobs": [{"token": self.tokenizer.decode([tid]),
                                   "logprob": tlp} for tid, tlp in tops]}
 
-    def run_choices(self, prompt: List[int],
-                    samplings: List[SamplingParams], choices: List[Choice]):
-        """Submit one engine request a choice and yield ``(index, text,
-        logprob entries)`` as each choice releases them, then ``(index,
-        None, None)`` when that choice is done. Closing the generator
-        early (a client that went away) aborts every choice still
-        running."""
-        seq_ids, stream = self.loop.submit(prompt, samplings)
+    def run_choices(self, seq_ids: List[str], stream: "queue.Queue",
+                    choices: List[Choice]):
+        """Yield ``(index, text, logprob entries)`` as each submitted
+        choice releases them, then ``(index, None, None)`` when that
+        choice is done. Closing the generator early (a client that went
+        away, a migrate cut) aborts every choice still running."""
         left = len(seq_ids)
-        with self._active_lock:
-            self._active += 1
         try:
             while left:
                 i, out = stream.get()
@@ -615,12 +904,55 @@ class EngineServer:
                 if not choice.done:
                     self.loop.abort(seq_id)
                 self.loop.finish_stream(seq_id)
-            with self._active_lock:
-                self._active -= 1
 
-    def complete(self, body: dict, chat: bool):
-        """A request's response: ``(status, dict)`` for a whole answer,
-        or ``(200, iterator of SSE byte frames)`` for ``stream``."""
+    def qos_admit(self, headers) -> tuple:
+        """The request's QoS class and the shed gate: ``(priority,
+        spec_off, rejection or None)``. A bad ``x-priority`` is a 400.
+        While the waiting queue holds ``shed_threshold`` of
+        ``max_queue_len`` or more, a non-interactive request is turned
+        away with 429 and a Retry-After of queue depth over running
+        rows (one request per row-second, on purpose pessimistic);
+        interactive requests always pass (the scheduler's queue-full
+        refusal stays the hard stop)."""
+        raw = headers.get(PRIORITY_HEADER)
+        if raw is None:
+            priority = Priority(self.engine.default_priority)
+        else:
+            try:
+                priority = parse_priority(raw)
+            except ValueError as e:
+                return None, False, _error(400, str(e),
+                                           "invalid_request_error")
+        spec_off = headers.get(SPEC_OFF_HEADER) == "1"
+        qos = self.engine.config.qos
+        max_queue = self.engine.config.scheduler.max_queue_len
+        depth = self.engine.scheduler.num_waiting
+        if (priority != Priority.INTERACTIVE
+                and depth >= qos.shed_threshold * max_queue):
+            retry_after = shed_retry_after_s(
+                depth, max(1.0, float(self.engine.scheduler.num_running)))
+            with self._active_lock:
+                self.qos_shed_counts[priority_name(priority)] += 1
+            return priority, spec_off, _error(
+                429, f"engine overloaded ({depth} requests waiting); "
+                f"{priority_name(priority)} requests are being shed — "
+                f"retry after {retry_after}s", "overloaded_error",
+                {"Retry-After": str(retry_after)})
+        return priority, spec_off, None
+
+    def complete(self, body: dict, chat: bool, headers=None) -> tuple:
+        """A completion request's answer: a dict for a whole answer, or
+        an iterator of SSE frames for ``stream``."""
+        headers = headers or {}
+        if chat and not isinstance(body.get("messages"), list):
+            return _error(400, "'messages' must be a list")
+        if not chat and body.get("suffix"):
+            return _error(400, "'suffix' (insertion) is not supported",
+                          "invalid_request_error")
+        self.kv_summary.observe_text(routable_text(body))
+        priority, spec_off, rejection = self.qos_admit(headers)
+        if rejection is not None:
+            return rejection
         try:
             prompt, prompt_text, sampling = self.parse_completion(body,
                                                                   chat)
@@ -630,8 +962,7 @@ class EngineServer:
                 raise BadRequest("'echo' with 'logprobs' (prompt "
                                  "logprobs) is not supported")
         except (BadRequest, TypeError, ValueError) as e:
-            return 400, {"error": {"message": str(e),
-                                   "type": "invalid_request_error"}}
+            return _error(400, str(e), "invalid_request_error")
         echo_text = ""
         if echo:
             echo_text = (prompt_text if prompt_text is not None
@@ -652,16 +983,29 @@ class EngineServer:
                      for i in range(best_of)]
         choices = [Choice(self.tokenizer, sp, self._lp_json)
                    for sp in samplings]
+        request_id = headers.get("x-request-id")
+        seq_ids, queue_ = self.loop.submit(prompt, samplings, priority,
+                                           spec_off, request_id)
 
         def envelope(obj: str, out: list, **extra) -> dict:
             return {"id": rid, "object": obj, "created": created,
                     "model": self.model_name, "choices": out, **extra}
 
         if stream:
-            return 200, self._stream(envelope, chat, echo_text, prompt,
-                                     samplings, choices, requested_lp,
-                                     body.get("stream_options"))
-        for _ in self.run_choices(prompt, samplings, choices):
+            # Stream checkpoints ride single-candidate plain streams:
+            # one descriptor cannot rebuild several choices, logprobs
+            # or echo.
+            relay = (self.engine.config.checkpoint_interval_tokens > 0
+                     and best_of == 1 and not sampling.logprobs
+                     and not echo)
+            identity = {"version": 1, "request_id": request_id,
+                        "response_id": rid, "created": created,
+                        "chat": chat, "model": self.model_name}
+            return 200, self._stream(
+                envelope, chat, echo_text, prompt, samplings, choices,
+                requested_lp, body.get("stream_options"), seq_ids,
+                queue_, identity if relay else None), {}
+        for _ in self.run_choices(seq_ids, queue_, choices):
             pass
         completion_tokens = sum(c.n_tokens for c in choices)
         if best_of > n:
@@ -683,7 +1027,7 @@ class EngineServer:
                                          if requested_lp else None)})
         return 200, envelope("chat.completion" if chat
                              else "text_completion", out,
-                             usage=_usage(len(prompt), completion_tokens))
+                             usage=_usage(len(prompt), completion_tokens)), {}
 
     @staticmethod
     def _choice_counts(body: dict, chat: bool) -> Tuple[int, int, bool]:
@@ -701,12 +1045,31 @@ class EngineServer:
                 raise BadRequest("'best_of' > n cannot be streamed")
         return n, best_of, stream
 
-    def _stream(self, envelope, chat, echo_text, prompt, samplings,
-                choices, with_logprobs, stream_opts):
-        obj = "chat.completion.chunk" if chat else "text_completion"
+    def _checkpoint_frames(self, seq_id: str, identity: Optional[dict],
+                           sampling: SamplingParams):
+        """After a delta: the stream's new checkpoint frame, if one
+        landed, and under a migrate drain the cut that follows it."""
+        if identity is None:
+            return
+        ckpt = self.engine.take_checkpoint(seq_id)
+        if ckpt is None:
+            return
+        desc = dict(identity, kv_dtype=self.engine.config.cache
+                    .resolved_kv_dtype(),
+                    sampling=_sampling_to_wire(sampling))
+        desc.update(ckpt)
+        yield f": checkpoint {json.dumps(desc)}\n\n".encode()
+        if self.migrate_drain:
+            # The frame just sent is the whole resume state: cut the
+            # stream so the router resumes it on another replica (the
+            # marker tells it the cut is a migration, not a crash).
+            yield MIGRATING_FRAME
+            yield STREAM_CUT
 
-        def frame(payload) -> bytes:
-            return f"data: {json.dumps(payload)}\n\n".encode()
+    def _stream(self, envelope, chat, echo_text, prompt, samplings,
+                choices, with_logprobs, stream_opts, seq_ids, queue_,
+                identity):
+        obj = "chat.completion.chunk" if chat else "text_completion"
 
         def chunk(index: int, delta: Optional[str], finish: Optional[str],
                   first: bool = False, entries=None) -> bytes:
@@ -724,26 +1087,187 @@ class EngineServer:
                           "finish_reason": finish}
                 if with_logprobs:
                     choice["logprobs"] = _legacy_logprobs(entries)
-            return frame(envelope(obj, [choice]))
+            return _frame(envelope(obj, [choice]))
 
         for i in range(len(choices)):
             if chat:
                 yield chunk(i, None, None, first=True)
             elif echo_text:
                 yield chunk(i, echo_text, None)
-        events = self.run_choices(prompt, samplings, choices)
+        events = self.run_choices(seq_ids, queue_, choices)
         try:
             for i, text, entries in events:
                 if text is None:
                     yield chunk(i, None, choices[i].finish_reason)
-                else:
-                    yield chunk(i, text, None, entries=entries)
+                    continue
+                yield chunk(i, text, None, entries=entries)
+                for frame in self._checkpoint_frames(seq_ids[0], identity,
+                                                     samplings[0]):
+                    yield frame
+                    if frame is STREAM_CUT:
+                        return
         finally:
             events.close()
         if isinstance(stream_opts, dict) and stream_opts.get(
                 "include_usage"):
-            yield frame(envelope(obj, [], usage=_usage(
+            yield _frame(envelope(obj, [], usage=_usage(
                 len(prompt), sum(c.n_tokens for c in choices))))
+        yield b"data: [DONE]\n\n"
+
+    def resume(self, body: dict, headers=None) -> tuple:
+        """POST /v1/resume: continue a stream whose engine died or was
+        drained mid-generation. The body carries the checkpoint
+        descriptor the engine attached to its SSE stream and
+        ``delivered_text_chars``, the content text the router already
+        forwarded. The journaled context parks in AWAITING_KV (the
+        checkpointed pages restore from the offload tier, or a miss
+        recomputes from the journal); the journal is replayed through
+        the same detokenizer and stop scanner, the delivered characters
+        are skipped, and the rest streams under the original response
+        id: for greedy sampling the client's text is byte-identical to
+        an uninterrupted run."""
+        headers = headers or {}
+        desc = body.get("descriptor")
+        if not isinstance(desc, dict):
+            return _error(400, "'descriptor' object is required")
+        token_ids = desc.get("tokens")
+        output_tokens = desc.get("output_tokens")
+        if (not isinstance(token_ids, list) or not token_ids
+                or not all(isinstance(t, int) for t in token_ids)
+                or not isinstance(output_tokens, int)
+                or not 0 < output_tokens < len(token_ids)):
+            return _error(400, "descriptor missing tokens/output_tokens")
+        vocab = self.engine.config.model.vocab_size
+        if not all(0 <= t < vocab for t in token_ids):
+            return _error(400, "descriptor tokens outside the model "
+                          f"vocabulary (size {vocab})")
+        my_dtype = self.engine.config.cache.resolved_kv_dtype()
+        desc_dtype = desc.get("kv_dtype") or my_dtype
+        if desc_dtype != my_dtype:
+            # 409: this pod can never restore those pages (tier keys are
+            # dtype-namespaced); the router picks another replica.
+            return _error(409, "checkpoint KV not restorable here "
+                          f"(descriptor kv_dtype {desc_dtype!r}, engine "
+                          f"{my_dtype!r})")
+        try:
+            sampling = _sampling_from_wire(desc.get("sampling") or {})
+        except Exception as e:
+            return _error(400, f"bad descriptor sampling: {e}")
+        if sampling.guided is not None:
+            return _error(400, "guided streams cannot be resumed")
+        try:
+            delivered = int(body.get("delivered_text_chars") or 0)
+        except (TypeError, ValueError):
+            delivered = -1
+        if delivered < 0:
+            return _error(400, "delivered_text_chars must be a "
+                          "non-negative integer")
+        chat = bool(desc.get("chat", True))
+        # The original stream's identity: the resumed chunks carry the
+        # same id, created and model.
+        rid = (desc.get("response_id")
+               or ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex[:16])
+        created = int(desc.get("created") or time.time())
+        model = desc.get("model") or self.model_name
+        prompt_len = len(token_ids) - output_tokens
+        seq_id, queue_ = self.loop.submit_resume(
+            token_ids, output_tokens, sampling,
+            request_id=headers.get("x-request-id"))
+        # Peek the first engine output, so a refused submission is a
+        # retryable 503 and not a stream that aborts after its headers.
+        _, first = queue_.get()
+        if (first.finished and first.new_token is None
+                and first.finish_reason == "abort"):
+            self.loop.finish_stream(seq_id)
+            return _error(503, "engine rejected the resume",
+                          headers={"Retry-After": "1"})
+        texts = self._resume_texts(seq_id, queue_, first, sampling,
+                                   token_ids[prompt_len:], delivered)
+        obj = "chat.completion" if chat else "text_completion"
+        if not bool(body.get("stream", True)):
+            pieces = list(texts)
+            n_tokens, finish = pieces.pop()
+            text = "".join(pieces)
+            choice = ({"index": 0, "message": {"role": "assistant",
+                                               "content": text},
+                       "finish_reason": finish} if chat else
+                      {"index": 0, "text": text, "finish_reason": finish})
+            return 200, {"id": rid, "object": obj, "created": created,
+                         "model": model, "choices": [choice],
+                         "usage": _usage(prompt_len, n_tokens)}, {}
+        # The resumed leg checkpoints too, so a second failure resumes
+        # again; the descriptor's identity is carried forward.
+        identity = {"version": 1, "request_id": desc.get("request_id"),
+                    "response_id": rid, "created": created, "chat": chat,
+                    "model": model}
+        return 200, self._resume_stream(seq_id, texts, chat, rid, created,
+                                        model, identity, sampling), {}
+
+    def _resume_texts(self, seq_id, queue_, first, sampling, output_ids,
+                      delivered):
+        """The resumed stream's new text pieces, then ``(completion
+        tokens, finish reason)`` last: the journal's outputs are
+        replayed through a fresh ``Choice`` (detokenizer and stop
+        scanner), the first ``delivered`` characters skipped."""
+        choice = Choice(self.tokenizer, sampling, self._lp_json)
+        skip = delivered
+
+        def unsent(emits):
+            nonlocal skip
+            for text, _ in emits:
+                if skip and text:
+                    cut = min(skip, len(text))
+                    text, skip = text[cut:], skip - cut
+                if text:
+                    yield text
+
+        try:
+            for tok in output_ids:
+                yield from unsent(choice.feed(StepOutput(seq_id, tok, False,
+                                                         None)))
+                if choice.stopped:
+                    break
+            out = first
+            while not choice.done:
+                yield from unsent(choice.feed(out))
+                if not choice.done:
+                    out = queue_.get()[1]
+        finally:
+            if not choice.done or choice.stopped:
+                self.loop.abort(seq_id)
+            self.loop.finish_stream(seq_id)
+        yield choice.n_tokens, choice.finish_reason
+
+    def _resume_stream(self, seq_id, texts, chat, rid, created, model,
+                       identity, sampling):
+        obj = "chat.completion.chunk" if chat else "text_completion"
+
+        def chunk(delta: Optional[str], finish: Optional[str]) -> bytes:
+            # Shaped as the first leg's chunks, with no role chunk (the
+            # first leg sent it).
+            if chat:
+                choice = {"index": 0,
+                          "delta": {"content": delta} if delta else {},
+                          "finish_reason": finish}
+            else:
+                choice = {"index": 0, "text": delta or "",
+                          "finish_reason": finish}
+            return _frame({"id": rid, "object": obj, "created": created,
+                           "model": model, "choices": [choice]})
+
+        try:
+            for item in texts:
+                if not isinstance(item, str):
+                    yield chunk(None, item[1])
+                    break
+                yield chunk(item, None)
+                for frame in self._checkpoint_frames(seq_id, identity,
+                                                     sampling):
+                    yield frame
+                    if frame is STREAM_CUT:
+                        return
+        finally:
+            texts.close()
         yield b"data: [DONE]\n\n"
 
 
@@ -753,15 +1277,11 @@ class EngineServer:
 UNPORTED_ROUTES = (
     ("POST", "/v1/disagg/prefill", "disaggregated prefill"),
     ("POST", "/v1/disagg/handoff", "disaggregated KV handoff"),
-    ("POST", "/v1/resume", "crash-recovery resume"),
-    ("POST", "/drain", "rollout drain"),
     ("POST", "/v1/embeddings", "embeddings"),
     ("POST", "/v1/score", "scoring"),
     ("POST", "/score", "scoring"),
     ("POST", "/v1/rerank", "reranking"),
     ("POST", "/rerank", "reranking"),
-    ("GET", "/version", "build version"),
-    ("GET", "/kv/summary", "KV cache summary"),
     ("GET", "/autotune/status", "autotuning"),
     ("POST", "/autotune/reset", "autotuning"),
     ("POST", "/debug/profiler/start", "device profiler"),
@@ -803,12 +1323,15 @@ class _Handler(BaseHTTPRequestHandler):
                 "message": f"{path}: {feature}, not ported",
                 "type": "not_implemented_error"}})
 
-    def _send(self, status: int, body, content_type="application/json"):
+    def _send(self, status: int, body, content_type="application/json",
+              headers: Optional[dict] = None):
         data = (json.dumps(body) if isinstance(body, dict)
                 else body).encode()
         self.send_response(status)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(data)))
+        for name, value in (headers or {}).items():
+            self.send_header(name, value)
         self.end_headers()
         self.wfile.write(data)
 
@@ -816,20 +1339,21 @@ class _Handler(BaseHTTPRequestHandler):
         app = self.server.app
         path = self.path.split("?", 1)[0]
         if path == "/health":
-            self._send(200, app.health())
+            self._send(*app.health())
         elif path == "/v1/models":
             self._send(200, app.models())
         elif path == "/metrics":
             self._send(200, app.metrics(), "text/plain; version=0.0.4")
+        elif path == "/version":
+            self._send(200, app.version())
+        elif path == "/kv/summary":
+            self._send(200, app.kv_summary_snapshot())
         else:
             self._no_route("GET", path)
 
-    def do_POST(self):
-        app = self.server.app
-        path = self.path.split("?", 1)[0]
-        if path not in ("/v1/completions", "/v1/chat/completions"):
-            self._no_route("POST", path)
-            return
+    def _json_body(self) -> Optional[dict]:
+        """The request's JSON object, or None (after a 400) when it is
+        not one."""
         try:
             length = int(self.headers.get("Content-Length") or 0)
             body = json.loads(self.rfile.read(length) or b"null")
@@ -839,27 +1363,70 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(400, {"error": {
                 "message": "Request body must be a JSON object",
                 "type": "invalid_request_error"}})
+            return None
+        return body
+
+    def do_POST(self):
+        app = self.server.app
+        path = self.path.split("?", 1)[0]
+        if path == "/drain":
+            length = int(self.headers.get("Content-Length") or 0)
+            try:
+                body = json.loads(self.rfile.read(length) or b"{}")
+            except (ValueError, json.JSONDecodeError):
+                body = {}
+            self._send(200, app.drain(body if isinstance(body, dict)
+                                      else {}))
             return
-        status, result = app.complete(body,
-                                      chat=path == "/v1/chat/completions")
-        if isinstance(result, dict):
-            self._send(status, result)
+        handlers = {
+            "/v1/completions": lambda b: app.complete(b, False,
+                                                      self.headers),
+            "/v1/chat/completions": lambda b: app.complete(b, True,
+                                                           self.headers),
+            "/v1/resume": lambda b: app.resume(b, self.headers),
+        }
+        if path not in handlers:
+            self._no_route("POST", path)
             return
-        # Server-sent events; the connection closes at the end.
+        body = self._json_body()
+        if body is None:
+            return
+        # A generation request: refused while draining, else counted in
+        # flight until its answer (its stream included) is written.
+        rejection = app.begin_generation()
+        if rejection is not None:
+            self._send(*rejection[:2], headers=rejection[2])
+            return
+        try:
+            status, result, headers = handlers[path](body)
+            if isinstance(result, dict):
+                self._send(status, result, headers=headers)
+            else:
+                self._stream(result)
+        finally:
+            app.end_generation()
+
+    def _stream(self, frames) -> None:
+        """Server-sent events, one chunk a frame (chunked transfer
+        encoding). ``STREAM_CUT`` ends the stream without its last
+        chunk and closes the connection: the client reads a cut."""
         self.send_response(HTTPStatus.OK)
         self.send_header("Content-Type", "text/event-stream")
         self.send_header("Cache-Control", "no-cache")
-        self.send_header("Connection", "close")
+        self.send_header("Transfer-Encoding", "chunked")
         self.end_headers()
-        self.close_connection = True
         try:
-            for frame in result:
-                self.wfile.write(frame)
+            for frame in frames:
+                if frame is STREAM_CUT:
+                    self.close_connection = True
+                    return
+                self.wfile.write(b"%x\r\n%s\r\n" % (len(frame), frame))
                 self.wfile.flush()
+            self.wfile.write(b"0\r\n\r\n")
         except (BrokenPipeError, ConnectionResetError):
-            pass  # client gone
+            self.close_connection = True  # client gone
         finally:
-            result.close()  # aborts the sequence if it did not finish
+            frames.close()  # aborts the sequence if it did not finish
 
 
 class EngineHTTPServer(ThreadingHTTPServer):
@@ -868,6 +1435,9 @@ class EngineHTTPServer(ThreadingHTTPServer):
     def __init__(self, address, app: EngineServer):
         super().__init__(address, _Handler)
         self.app = app
+        # A drain with "exit" stops this server once idle; serve()
+        # then returns (and main() with it).
+        app.on_drain_exit = self.shutdown
 
     def serve(self) -> None:
         """Start the engine loop and serve until ``shutdown()``."""
@@ -923,7 +1493,24 @@ def build_engine_from_args(args) -> tuple:
             speculative_k=args.speculative_k,
             speculative_min_match=args.speculative_min_match,
             max_queue_len=args.max_queue_len),
+        offload=OffloadConfig(
+            enable=args.enable_kv_offload or bool(args.kv_remote_url),
+            host_pool_bytes=args.kv_host_pool_bytes,
+            remote_url=args.kv_remote_url),
+        qos=QoSConfig(
+            default_priority=args.default_priority,
+            preempt_to_offload=args.preempt_to_offload == "on",
+            shed_threshold=args.shed_threshold),
+        kvecon=KVEconConfig(
+            summary_top_k=args.kv_summary_top_k,
+            admit_hits=args.kv_admit_hits,
+            ttl_s=args.kv_ttl_s,
+            watermark_high=args.kv_watermark_high,
+            watermark_low=args.kv_watermark_low),
         seed=args.seed,
+        handoff_timeout_s=args.handoff_timeout_s,
+        checkpoint_interval_tokens=args.checkpoint_interval_tokens,
+        step_watchdog_s=args.step_watchdog_s,
     )
     engine = LLMEngine(config,
                        tokenizer=BenchTokenizer(model_config.vocab_size),
@@ -981,6 +1568,67 @@ def parse_args(argv=None):
                    help="minimum n-gram length the proposer must match "
                         "before drafting")
     p.add_argument("--seed", type=int, default=0)
+    # Offload tiers, QoS, fleet contract and KV economy: the JAX
+    # server's flags, names, defaults and choices.
+    p.add_argument("--enable-kv-offload", action="store_true",
+                   help="device -> host-RAM KV offload tier")
+    p.add_argument("--kv-host-pool-bytes", type=int,
+                   default=2 * 1024 ** 3)
+    p.add_argument("--kv-remote-url", default=None,
+                   help="Remote shared KV cache server URL")
+    p.add_argument("--default-priority", default="batch",
+                   choices=list(PRIORITY_NAMES),
+                   help="QoS class assumed for requests without an "
+                        "x-priority header; priority orders admission "
+                        "and picks preemption victims (lowest class, "
+                        "newest arrival first)")
+    p.add_argument("--preempt-to-offload", default="on",
+                   choices=["on", "off"],
+                   help="Under KV page pressure, ship a preempted "
+                        "victim's committed pages to the offload tier "
+                        "and restore them on re-admission instead of "
+                        "recomputing; inert without --enable-kv-offload "
+                        "or --kv-remote-url")
+    p.add_argument("--shed-threshold", type=float, default=0.95,
+                   help="Fraction of --max-queue-len at which "
+                        "non-interactive requests are shed with 429 + "
+                        "Retry-After; interactive requests are never "
+                        "shed by this gate")
+    p.add_argument("--handoff-timeout-s", type=float, default=30.0,
+                   help="How long a sequence parked in AWAITING_KV "
+                        "waits for an unreachable offload tier before "
+                        "degrading to a full recompute")
+    p.add_argument("--drain-exit-timeout-s", type=float, default=0.0,
+                   help="After POST /drain {\"exit\": true}, the "
+                        "longest the server waits for in-flight "
+                        "requests before stopping anyway (0 = wait for "
+                        "ever)")
+    p.add_argument("--build-id", type=str, default="",
+                   help="Opaque build/revision label reported in "
+                        "/health and /version")
+    p.add_argument("--checkpoint-interval-tokens", type=int, default=0,
+                   help="Every N generated tokens, ship a streaming "
+                        "sequence's committed KV pages to the offload "
+                        "tier and attach a resume descriptor to the SSE "
+                        "stream (0 disables)")
+    p.add_argument("--step-watchdog-s", type=float, default=0.0,
+                   help="Seconds a single engine step may run before "
+                        "/health answers 503 (0 disables)")
+    p.add_argument("--kv-summary-top-k", type=int, default=64,
+                   help="Hot prefix chains advertised at GET "
+                        "/kv/summary for KV-state-aware routing")
+    p.add_argument("--kv-admit-hits", type=int, default=2,
+                   help="Decayed hit count a prefix chain needs before "
+                        "the summary advertises it")
+    p.add_argument("--kv-ttl-s", type=float, default=900.0,
+                   help="Seconds an idle prefix chain stays in the "
+                        "summary tracker (0 disables TTL)")
+    p.add_argument("--kv-watermark-high", type=float, default=1.0,
+                   help="Host KV pool fill fraction that triggers LRU "
+                        "eviction (1.0 = evict exactly at capacity)")
+    p.add_argument("--kv-watermark-low", type=float, default=1.0,
+                   help="Fill fraction the host KV pool drains down to "
+                        "once the high watermark trips")
     return p.parse_args(argv)
 
 
@@ -989,7 +1637,10 @@ def make_server(argv=None) -> EngineHTTPServer:
     args = parse_args(argv)
     engine, served_name = build_engine_from_args(args)
     return EngineHTTPServer((args.host, args.port),
-                            EngineServer(engine, served_name))
+                            EngineServer(
+                                engine, served_name,
+                                build_id=args.build_id,
+                                drain_exit_timeout_s=args.drain_exit_timeout_s))
 
 
 def main(argv=None) -> None:

@@ -1,5 +1,9 @@
 """The port stands alone: no module of ``production_stack_tpu_torch``,
-and not ``chip_smoke.py``, imports JAX or the JAX package.
+and not ``chip_smoke.py``, imports JAX or the JAX package, nor a
+package a CUDA serving host need not have that the offload tier and
+the fleet routes might reach for (aiohttp, requests, msgpack,
+ml_dtypes, fastapi: the port speaks HTTP through the standard library
+and frames KV pages with its own msgpack codec).
 
 The port's package name starts with the JAX package's, so a module
 counts as the JAX package only when its name is
@@ -13,7 +17,12 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "production_stack_tpu")
+FORBIDDEN = ("jax", "jaxlib", "production_stack_tpu", "aiohttp",
+             "requests", "msgpack", "ml_dtypes", "fastapi")
+# Module directories of the port: each must exist and hold sources the
+# scan below covers.
+PACKAGE_DIRS = ("engine", "ops", "models", "utils", "tools", "qos",
+                "kvecon")
 
 
 def _sources():
@@ -47,6 +56,32 @@ def test_forbidden_matcher_handles_the_prefix():
     assert _forbidden("jax.numpy") and _forbidden("jaxlib")
     assert not _forbidden("production_stack_tpu_torch.engine.config")
     assert not _forbidden("jaxtyping")
+    assert _forbidden("msgpack") and _forbidden("requests.adapters")
+    assert _forbidden("aiohttp.web") and _forbidden("ml_dtypes")
+    assert not _forbidden("requests_cache")
+
+
+@pytest.mark.parametrize("name", PACKAGE_DIRS)
+def test_package_dirs_are_scanned(name):
+    """Each module directory of the port (the fleet slice's ``qos/`` and
+    ``kvecon/`` among them) is a package whose files the import scan
+    covers."""
+    folder = ROOT / "production_stack_tpu_torch" / name
+    assert (folder / "__init__.py").exists(), folder
+    scanned = set(_sources())
+    files = sorted(folder.glob("*.py"))
+    assert files and all(f in scanned for f in files)
+
+
+def test_forbidden_import_is_caught(tmp_path):
+    """The scan finds a forbidden import in every form it is written."""
+    src = ("import msgpack\n"
+           "from requests import Session\n"
+           "import importlib\n"
+           "importlib.import_module('aiohttp')\n")
+    tree = ast.parse(src)
+    assert [m for m in _imported_modules(tree) if _forbidden(m)] == [
+        "msgpack", "requests", "aiohttp"]
 
 
 @pytest.mark.parametrize("path", _sources(),

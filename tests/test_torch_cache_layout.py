@@ -483,7 +483,7 @@ def test_stacked_matches_per_layer(weights, kv_dtype):
     assert runs["stacked"][0] == runs["per_layer"][0]
     for a, b in zip(runs["stacked"][1], runs["per_layer"][1]):
         for x, y in zip(a, b):
-            np.testing.assert_array_equal(x, y)
+            assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("kv_dtype", ["auto", "int8"])
@@ -503,25 +503,48 @@ def test_stacked_page_round_trip_and_wire_format(weights, kv_dtype):
     shapes = [(layers, kv, d, PAGE_SIZE)] * 2
     if kv_dtype == "int8":
         shapes += [(layers, kv, PAGE_SIZE)] * 2
-    assert [a.shape for a in page] == shapes
-    assert np.abs(page[0]).max() > 0
+    assert [tuple(a.shape) for a in page] == shapes
+    assert page[0].abs().max() > 0
     ptr = runner.k_cache.data_ptr() if kv_dtype == "auto" else (
         runner.k_cache.data.data_ptr())
     target = engine.config.cache.num_pages - 1
     runner.write_page(target, *page)
     for a, b in zip(runner.read_page(target), page):
-        np.testing.assert_array_equal(a, b)
+        assert torch.equal(a, b)
     assert ptr == (runner.k_cache.data_ptr() if kv_dtype == "auto"
                    else runner.k_cache.data.data_ptr())
     ref = JaxEngine(_config(jax_config, kv_dtype=kv_dtype),
                     params={k: jnp.asarray(v) for k, v in weights.items()})
-    ref.runner.write_page(2, *page)
+    ref.runner.write_page(2, *[a.numpy() for a in page])
     wire = ref.runner.read_page(2)
     assert len(wire) == len(page)
     for a, b in zip(wire, page):
         a = np.asarray(a)
-        assert a.shape == b.shape
-        np.testing.assert_array_equal(a.astype(b.dtype), b)
+        assert a.shape == tuple(b.shape) and a.dtype == b.numpy().dtype
+        np.testing.assert_array_equal(a, b.numpy())
+
+
+@pytest.mark.parametrize("layout", ["per_layer", "stacked"])
+@pytest.mark.parametrize("kv_dtype", ["auto", "int8"])
+def test_read_page_is_a_copy_not_a_view(weights, kv_dtype, layout):
+    """A page read on the CPU is a copy of the cache's bytes: writing
+    another page into its slot, as a reused slot is written, leaves
+    what was read unchanged (exact). A stacked page used to be a view of
+    the cache, so a host pool holding it changed with the slot, and a
+    preempted victim restored from the pool read another row's KV."""
+    engine = _port_engine(weights, kv_dtype=kv_dtype, layout=layout)
+    engine.generate(list(range(3, 60)), SamplingParams(
+        temperature=0.0, max_tokens=2, ignore_eos=True))
+    runner = engine.runner
+    page = runner.read_page(0)
+    kept = [t.clone() for t in page]
+    other = runner.read_page(2)
+    assert any(not torch.equal(a, b) for a, b in zip(page, other))
+    runner.write_page(0, *other)
+    for a, b in zip(runner.read_page(0), other):
+        assert torch.equal(a, b)
+    for a, b in zip(page, kept):
+        assert torch.equal(a, b)
 
 
 # ---- config and server ------------------------------------------------------

@@ -94,3 +94,31 @@ def test_non_finite_or_distant_logits_fail(bad):
     else:
         got[1, 1] += 0.06 * ref.abs().max()
     assert not chip_smoke.compare_logits(got, ref)["ok"]
+
+
+# The fleet phase's stream rule: where a resumed or preempted stream
+# first parts from its reference, the reference's margin against the
+# token it got is its best logprob minus its logprob of that token.
+
+
+def test_stream_margin_is_never_negative():
+    """A reference that prefers the other token by 5 logits gives a
+    margin of 5, not -5: the flip fails the near-tie bound."""
+    tops = {10: -0.1, 11: -5.1, 12: -7.0}
+    assert chip_smoke.tie_margin(tops, 11) == pytest.approx(5.0)
+    assert chip_smoke.tie_margin(tops, 11) >= BOUND
+
+
+@pytest.mark.parametrize("gap,ok", [(0.0, True), (BOUND / 2, True),
+                                    (BOUND, False), (2.0, False)])
+def test_stream_margin_against_the_fixed_bound(gap, ok):
+    tops = {3: -0.5, 4: -0.5 - gap, 5: -9.0}
+    margin = chip_smoke.tie_margin(tops, 4)
+    assert margin == pytest.approx(gap)
+    assert (margin < BOUND) is ok
+
+
+def test_stream_margin_outside_the_top_is_infinite():
+    """A token that is not among the reference's top logprobs has no
+    measured margin: it never passes as a near tie."""
+    assert chip_smoke.tie_margin({3: -0.5, 4: -0.6}, 9) == float("inf")

@@ -854,3 +854,134 @@ def test_sampling_options_graphed_match_eager_and_the_cpu(dev, decode_steps):
         for (_, (slp, tops)), (_, (e_slp, e_tops)) in zip(a, b):
             assert abs(slp - e_slp) <= 1e-4
             assert max(abs(x[1] - y[1]) for x, y in zip(tops, e_tops)) <= 1e-4
+
+
+# ---- the offload tier on the card: ship and restore under graphs -----------
+
+
+def _offload_engine(device, remote=None, checkpoint=4, host_pool_bytes=None,
+                    **sched):
+    """The tiny engine with an offload tier and stream checkpoints."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig, EngineConfig, OffloadConfig, SchedulerConfig,
+        tiny_model_config)
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.models.llama import init_params
+
+    cache = {k: sched.pop(k) for k in ("kv_cache_dtype", "cache_layout")
+             if k in sched}
+    cfg = EngineConfig(
+        model=tiny_model_config("llama"),
+        cache=CacheConfig(page_size=16, num_pages=128, **cache),
+        scheduler=SchedulerConfig(**{"max_num_seqs": 4, "max_model_len": 256,
+                                     "prefill_chunk_size": 32, **sched}),
+        offload=OffloadConfig(
+            enable=True, remote_url=remote,
+            host_pool_bytes=(256 * 1024 ** 2 if host_pool_bytes is None
+                             else host_pool_bytes)),
+        checkpoint_interval_tokens=checkpoint)
+    params = init_params(cfg.model, torch.Generator().manual_seed(0),
+                         torch.device("cpu"))
+    return LLMEngine(cfg, params=params, device=device)
+
+
+OFFLOAD_SCHEDS = [
+    dict(unified_step=True, async_scheduling=True),
+    dict(unified_step=True, async_scheduling=False, decode_steps=4,
+         cache_layout="stacked", kv_cache_dtype="int8"),
+]
+
+
+@pytest.mark.parametrize("sched", OFFLOAD_SCHEDS, ids=["async", "bursts"])
+def test_checkpoint_pages_read_in_flight_equal_the_settled_cache(dev,
+                                                                 sched):
+    """Checkpoints ship pages while a graphed step is in flight (the
+    async pipeline) or right after a burst: every shipped page equals
+    the page read back once the card has settled, and the streams equal
+    the CPU's (the plain path)."""
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+
+    sp = SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True)
+    engine = _offload_engine("cuda", **dict(sched))
+    shipped = {}
+    offload_page = engine.offload.offload_page
+
+    def record(page_hash, *payload, chain=None):
+        shipped[page_hash] = [t.clone() for t in payload]
+        offload_page(page_hash, *payload, chain=chain)
+
+    engine.offload.offload_page = record
+    streams = [s.output_token_ids for s in
+               engine.generate_batch(_tiny_prompts(), sp)]
+    torch.cuda.synchronize()
+    assert engine.checkpoint_ships > 0 and shipped
+    for page_hash, payload in shipped.items():
+        page_id = engine.cache_manager._hash_to_page[page_hash]
+        settled = engine.runner.read_page(page_id)
+        assert all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(payload, settled))
+    cpu = _offload_engine("cpu", **dict(sched))
+    assert streams == [s.output_token_ids for s in
+                       cpu.generate_batch(_tiny_prompts(), sp)]
+    assert not COUNTERS.plain_cuda_calls
+
+
+@pytest.mark.parametrize("sched", OFFLOAD_SCHEDS, ids=["async", "bursts"])
+def test_resume_restores_pages_under_graphs(dev, sched):
+    """A stream checkpointed by one graphed engine over a remote tier
+    (the port's cache server, host pool 0) resumes on a second: its
+    restored pages equal the shipped bytes, the kernels read them, and
+    the continuation equals the first engine's greedy stream."""
+    import threading
+
+    from production_stack_tpu_torch.engine.cache_server import (
+        build_cache_server)
+    from production_stack_tpu_torch.engine.offload import RemoteKVClient
+    from production_stack_tpu_torch.engine.sequence import (
+        SamplingParams, SequenceState)
+
+    server = build_cache_server(256 * 1024 ** 2)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        sp = SamplingParams(temperature=0.0, max_tokens=24, ignore_eos=True)
+        prompt = [21, 22, 23, 24] * 20
+        a = _offload_engine("cuda", remote=server.url, host_pool_bytes=0,
+                            **dict(sched))
+        sid = a.add_request(list(prompt), sp)
+        seq, frames = a.sequences[sid], []
+        while seq.state != SequenceState.FINISHED:
+            a.step()
+            ckpt = a.take_checkpoint(sid)
+            if ckpt is not None:
+                frames.append(ckpt)
+        full = list(seq.output_token_ids)
+        desc = next(f for f in frames if f["output_tokens"] < 24
+                    and len(f["tokens"]) % 16)
+        b = _offload_engine("cuda", remote=server.url, host_pool_bytes=0,
+                            checkpoint=0, **dict(sched))
+        restored = []
+        register = b.cache_manager.register_restored_page
+
+        def record(page_id, page_hash):
+            restored.append((page_id, page_hash))
+            register(page_id, page_hash)
+
+        b.cache_manager.register_restored_page = record
+        COUNTERS.reset()
+        sid = b.add_resume(desc["tokens"], desc["output_tokens"],
+                           SamplingParams(temperature=0.0, max_tokens=24,
+                                          ignore_eos=True))
+        resumed = b.sequences[sid]
+        while resumed.state != SequenceState.FINISHED:
+            b.step()
+        assert desc["tokens"][len(prompt):] + resumed.output_token_ids == full
+        assert b.offload.restored_pages == len(restored) > 0
+        assert sum(COUNTERS.launches.values()) > 0
+        assert not COUNTERS.plain_cuda_calls
+        client = RemoteKVClient(server.url)
+        for page_id, page_hash in restored:
+            wire = client.get(b.offload.key_for(page_hash))
+            assert all(torch.equal(x, y) for x, y in
+                       zip(wire, b.runner.read_page(page_id)))
+    finally:
+        server.shutdown()

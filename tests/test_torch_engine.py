@@ -210,3 +210,48 @@ def test_seeded_requests_reproduce(weights):
     c = engine.generate([4, 5, 6] * 13, SamplingParams(**sp))
     assert a.output_token_ids == b.output_token_ids == c.output_token_ids
     assert len(a.output_token_ids) == 12
+
+
+def test_out_of_vocab_prompt_ids_read_as_in_jax(weights):
+    """Prompt ids outside the vocabulary (tiny-llama's is 512) reach the
+    embedding as the JAX model's gather reads them: a negative id from
+    the end, then clamped into the table. The port's engine used to
+    raise at the lookup (and fault on the card), which would wedge its
+    server's step loop; the greedy streams now equal the JAX engine's."""
+    prompts = [[600, 5, 7, 1000, 9] * 4, [-3, 11, 12, 511, 512, 513] * 3]
+    jcfg = _config(jax_config, False, False)
+    ref = JaxEngine(jcfg, params={k: jax.numpy.asarray(v)
+                                  for k, v in weights.items()})
+    expected = [ref.generate(p, JaxSamplingParams(
+        temperature=0.0, max_tokens=6, ignore_eos=True)).output_token_ids
+        for p in prompts]
+    cfg = _config(config, True, True)
+    engine = LLMEngine(cfg, params=params_from_numpy(weights, cfg.model,
+                                                     "cpu"),
+                       device="cpu")
+    got = [engine.generate(p, SamplingParams(
+        temperature=0.0, max_tokens=6, ignore_eos=True)).output_token_ids
+        for p in prompts]
+    assert got == expected
+
+
+def test_out_of_vocab_resume_ids_read_as_prompt_ids(weights):
+    """A resumed journal's ids are mapped into the vocabulary by the
+    same rule as a prompt's, once on the host: the stream equals the
+    one resumed from the mapped ids (greedy, byte-identical)."""
+    cfg = _config(config, True, True)
+    engine = LLMEngine(cfg, params=params_from_numpy(weights, cfg.model,
+                                                     "cpu"),
+                       device="cpu")
+    journal = [600, 5, 7, 1000, 9, -3, 11, -1000] * 3
+    mapped = [511, 5, 7, 511, 9, 509, 11, 0] * 3
+    streams = []
+    for ids in (journal, mapped):
+        sid = engine.add_resume(ids, 2, SamplingParams(
+            temperature=0.0, max_tokens=6, ignore_eos=True))
+        seq = engine.sequences[sid]
+        while engine.has_work():
+            engine.step()
+        assert seq.prompt_token_ids == mapped
+        streams.append(list(seq.output_token_ids))
+    assert streams[0] == streams[1] and len(streams[0]) == 4

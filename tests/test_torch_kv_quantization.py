@@ -560,19 +560,19 @@ def test_read_write_page_round_trip(weights, kv_dtype):
                          m.head_dim, engine.config.cache.page_size)
     if kv_dtype == "int8":
         assert len(page) == 4
-        assert [(a.dtype, a.shape) for a in page] == [
-            (np.int8, (layers, kv, d, ps))] * 2 + [
-            (np.float32, (layers, kv, ps))] * 2
-        assert np.abs(page[0]).max() == 127  # written and quantized
+        assert [(a.dtype, tuple(a.shape)) for a in page] == [
+            (torch.int8, (layers, kv, d, ps))] * 2 + [
+            (torch.float32, (layers, kv, ps))] * 2
+        assert page[0].abs().max() == 127  # written and quantized
     else:
         assert len(page) == 2
-        assert [(a.dtype, a.shape) for a in page] == [
-            (np.float32, (layers, kv, d, ps))] * 2
-        assert np.abs(page[0]).max() > 0
+        assert [(a.dtype, tuple(a.shape)) for a in page] == [
+            (torch.float32, (layers, kv, d, ps))] * 2
+        assert page[0].abs().max() > 0
     target = engine.config.cache.num_pages - 1
     runner.write_page(target, *page)
     for a, b in zip(runner.read_page(target), page):
-        np.testing.assert_array_equal(a, b)
+        assert torch.equal(a, b)
     if kv_dtype == "int8":
         with pytest.raises(ValueError, match="k_scale"):
             runner.write_page(target, page[0], page[1])
@@ -587,10 +587,10 @@ def test_int8_page_matches_the_jax_wire_format(weights):
     page = engine.runner.read_page(2)
     ref = JaxEngine(_engine_config(jax_config),
                     params={k: jnp.asarray(v) for k, v in weights.items()})
-    ref.runner.write_page(2, *page)
+    ref.runner.write_page(2, *[a.numpy() for a in page])
     wire = ref.runner.read_page(2)
     assert len(wire) == len(page) == 4
     for a, b in zip(wire, page):
-        a = np.asarray(a)
+        a, b = np.asarray(a), b.numpy()
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(a, b)
