@@ -112,7 +112,23 @@ its result line:
    request with ``n`` 3, ``best_of`` 4 and ``logprobs`` 5: three
    choices in order of mean token logprob, each with its legacy
    logprobs, and the four candidates' tokens in the usage;
-9. speculative serving: the same server with ``--speculative-k 4``
+9. observatory, on the first serving run's server after its timed
+   window (it runs with ``--request-span-log``): ``vllm:engine_mfu``
+   strictly between 0 and 1, ``vllm:engine_attention_impl`` naming the
+   CUDA kernels for decode, prefill and unified, ``/debug/compiles``'
+   capture events by kind equal to the step graphs' own counts,
+   ``/debug/memory`` with a ``device`` section whose allocated bytes
+   are at least the analytic weights and KV pages; a
+   ``/debug/profiler/start`` and ``stop`` around the 16 requests again,
+   whose Chrome trace must name all three kernels; a request sent with
+   ``x-request-id`` whose ``/debug/trace/{id}`` has its enqueue,
+   prefill chunk, first token and finish; the span lines parsed and
+   stitched by the repo's ``traceview`` (run as a process of its own:
+   it is a standard-library script); then four greedy requests alone
+   on fresh prompts, byte-identical on this server (tracer on) and on
+   a server with ``--trace-ring-size 0`` (no tracer), and the steady
+   decode step's wall a token at one row both ways (printed);
+10. speculative serving: the same server with ``--speculative-k 4``
    (async 'auto' then resolves off), 16 concurrent greedy completions
    on prompts that repeat a block, so the n-gram proposer drafts even
    under random weights. It must draft, launch the ragged kernel
@@ -121,26 +137,26 @@ its result line:
    completion characters (one per token under the bench tokenizer)
    that agree with the spec-off server on the same prompts. That share
    is printed, not asserted: bf16 kernels may flip near-ties;
-10. int8 serving: the first run's server with ``--kv-cache-dtype
+11. int8 serving: the first run's server with ``--kv-cache-dtype
     int8`` and the same 16 requests. It must launch the int8 form of
     all three kernels, make no plain call on CUDA tensors, repeat a
     greedy request exactly and show ``kv_dtype="int8"`` and the
     expanded page capacity (962 of 963 pages) on ``/metrics``; it
     prints tok/s and the share of greedy characters that agree with the
     bf16 run (printed, not asserted: int8 KV changes tokens);
-11. stacked serving: the first run's server with ``--cache-layout
+12. stacked serving: the first run's server with ``--cache-layout
     stacked`` and the same requests. It must launch the stacked form of
     all three kernels and no per-layer form, make no plain call on CUDA
     tensors and repeat a greedy request exactly; it prints the share of
     greedy characters that agree with the first run (printed, not
     asserted: request timing changes the steps' composition);
-12. burst serving: ``--cache-layout stacked --kv-cache-dtype int8
+13. burst serving: ``--cache-layout stacked --kv-cache-dtype int8
     --decode-steps 4`` (async ``auto`` then off) and the same requests.
     It must launch the int8 stacked forms only, no completion may pass
     its ``max_tokens``, the repeated greedy request must reproduce, and
     its decode dispatches must commit at least 3 tokens a row on
     average (a burst commits up to 4);
-13. fleet: the fleet contract and the KV offload tier at the first
+14. fleet: the fleet contract and the KV offload tier at the first
     run's configuration, the port's cache server in a thread, once with
     per_layer bf16 KV and once with stacked int8. Server A
     (``--checkpoint-interval-tokens 16``, ``--kv-remote-url``,
@@ -174,7 +190,31 @@ its result line:
     rule. Prints the checkpoint
     tick's host ms a shipped page, a restore's ms a page and the resumed
     stream's time to first token against the cold prefill's, beside the
-    card's name and power limit.
+    card's name and power limit;
+15. disagg: disaggregated prefill and decode at the first run's
+    configuration, in the fleet phase's two forms (per_layer bf16,
+    stacked int8), the port's cache server in a thread: a prefill-role
+    server and a decode-role server on the tier (``--kv-remote-url``,
+    ``--kv-host-pool-bytes 0``) and a monolithic server. The fleet
+    phase's greedy chat (705 prompt tokens), 64 tokens out, goes
+    through the two hops as the router sends them
+    (``/v1/disagg/prefill``, then ``/v1/disagg/handoff`` with the
+    descriptor), after a warm-up of the same shapes on another chat. The descriptor must name 705 // 128 =
+    5 pages, ``vllm:disagg_kv_bytes_shipped_total`` grow by 5 pages
+    (4,194,304 bytes a bf16 page, 2,228,224 an int8 one), the restored
+    pages on the card equal the shipped bytes, the first token equal
+    the monolithic server's (both ran the prefill chunks 512 + 193),
+    the decode-role window (counters set to 0 just before the handoff
+    hop) launch prefill (the tail) and decode and no ragged step,
+    capturing no graph (the tail's chunk takes a prefill bucket the
+    warm-up captured), and the roles show on ``/health``. The continuation is held to the
+    monolithic stream by the near-tie rule (the decode side recomputes
+    the tail, positions 640..705, in one chunk where the monolithic
+    engine ran it in its second chunk and a decode step). A handoff whose pages the tier never held must recompute,
+    held by the same rule. Prints the two-hop TTFT against the
+    monolithic one, the ``vllm:disagg_handoff_latency_seconds`` sum and
+    the prefill side's host ms a shipped page, beside the card's name
+    and power limit.
 
 ``python3 chip_smoke.py --only fleet`` (any phase names) runs the
 kernel build and those phases alone, for development, and prints no
@@ -186,7 +226,9 @@ kernel with its bf16 per-layer numbers and ``int8``, ``stacked`` and
 count in the first serving run (the main path: per_layer bf16, async
 and unified on), ``launches_by_run`` its count in every run (the fleet
 phase's resume windows as ``fleet_resume`` and, counting the int8
-stacked form, ``fleet_resume_int8_stacked``). The last line is the
+stacked form, ``fleet_resume_int8_stacked``; the disagg phase's
+decode-role handoff windows as ``disagg_handoff`` and
+``disagg_handoff_int8_stacked``). The last line is the
 ``ok`` JSON line.
 """
 
@@ -194,11 +236,12 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
-import re
 import time
 import urllib.error
 import urllib.request
@@ -1541,12 +1584,14 @@ def _post(url, body) -> dict:
 
 
 def serving_run(label, extra_args, requests, repeat, after=(), form="",
-                probe=None):
+                probe=None, inspect=None):
     """Start the port's server with SERVER_ARGS + ``extra_args``, send
     ``requests`` concurrently with the launch counters set to 0 just
     before and read just after, then ``repeat`` twice; then (outside
-    the counted window) the ``after`` requests, and ``probe`` (a body
-    whose answer is returned unchecked, as ``probe``). Checks every
+    the counted window) the ``after`` requests, ``probe`` (a body
+    whose answer is returned unchecked, as ``probe``) and
+    ``inspect(server, url)`` (its result returned as ``inspected``),
+    the server still serving. Checks every
     completion, that every kernel launched in its ``form`` (the
     counter suffix: "", "_int8", "_stacked" or "_int8_stacked") and in
     no other, and returns what the run measured, with the decode
@@ -1601,6 +1646,7 @@ def serving_run(label, extra_args, requests, repeat, after=(), form="",
         after_answers = post_all(list(after)) if after else []
         probe_answer = (_post(base + "/v1/completions", probe)
                         if probe is not None else None)
+        inspected = inspect(server, base) if inspect is not None else None
     finally:
         server.shutdown()
         thread.join(timeout=60)
@@ -1655,7 +1701,8 @@ def serving_run(label, extra_args, requests, repeat, after=(), form="",
         f"ragged steps {ragged:.0f}; launches {launches}; plain calls "
         f"on CUDA tensors {plain_calls or 0}")
     return {"launches": launches, "answers": answers,
-            "after": after_answers, "probe": probe_answer, "wall": wall,
+            "after": after_answers, "probe": probe_answer,
+            "inspected": inspected, "wall": wall,
             "tokens": tokens,
             "metrics": metrics, "metric": metric, "decode": decode_counts,
             "async": server.app.engine.config.scheduler.async_scheduling,
@@ -1694,8 +1741,13 @@ def serving_phase(vocab: int) -> dict:
     probe = {"model": "bench-1b", "max_tokens": 16, "ignore_eos": True,
              "temperature": 0.9, "seed": 5, "n": 3, "best_of": 4,
              "logprobs": 5, "prompt": requests[3]["prompt"]}
-    base = serving_run("serving", [], requests, repeat,
-                       after=spec_requests, probe=probe)
+    span_dir = tempfile.mkdtemp(prefix="chip-smoke-spans-")
+    span_log = os.path.join(span_dir, "engine.jsonl")
+    base = serving_run(
+        "serving", ["--request-span-log", span_log], requests, repeat,
+        after=spec_requests, probe=probe,
+        inspect=lambda server, url: observatory_checks(
+            server, url, requests, span_log))
     _check_best_of(base["probe"], probe)
     spec = serving_run("serving spec k=4", ["--speculative-k", "4"],
                        spec_requests, spec_requests[0])
@@ -1797,6 +1849,141 @@ def _greedy_agreement(requests, run, base):
         whole += ta == tb
         greedy += 1
     return same, total, whole, greedy
+
+
+# ---- observatory phase --------------------------------------------------------
+
+# The request the observatory phase traces by its x-request-id, and the
+# tokens out of the lone stream whose decode steps it times.
+TRACE_ID = "chip-smoke-trace"
+WALL_OUT = 128
+
+
+def _get_json(url):
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _decode_wall_ms(url, prompt) -> float:
+    """A lone greedy stream of WALL_OUT tokens: the wall a token after
+    the first, in ms (the steady decode step's wall at one row), on its
+    second run (the first captures what is new)."""
+    body = {"max_tokens": WALL_OUT, "temperature": 0, "ignore_eos": True,
+            "stream": True, "prompt": prompt}
+    for _ in range(2):
+        _, first, total = _timed_stream(url, "/v1/completions", body)
+    return 1e3 * (total - first) / (WALL_OUT - 1)
+
+
+def observatory_checks(server, url, requests, span_log) -> dict:
+    """The observatory and the tracer on the first serving run's server,
+    after its timed window; see the module docstring (phase 9)."""
+    engine = server.app.engine
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        metrics = r.read().decode()
+    mfu = float(re.search(r"^vllm:engine_mfu (\S+)$", metrics,
+                          re.M).group(1))
+    if not 0.0 < mfu < 1.0:
+        raise AssertionError(f"observatory: vllm:engine_mfu {mfu}")
+    impls = dict(re.findall(r'^vllm:engine_attention_impl\{phase="(\w+)",'
+                            r'impl="(\w+)"\} 1\.0$', metrics, re.M))
+    if impls != dict.fromkeys(("decode", "prefill", "unified"), "cuda"):
+        raise AssertionError(f"observatory: attention impls {impls}")
+    compiles = _get_json(url + "/debug/compiles")
+    if compiles["events"] != engine.runner.graphs.captures:
+        raise AssertionError(f"observatory: /debug/compiles events "
+                             f"{compiles['events']}, the graphs captured "
+                             f"{engine.runner.graphs.captures}")
+    memory = _get_json(url + "/debug/memory")
+    analytic = memory["analytic"]
+    allocated = memory.get("device", {}).get("allocated_bytes.all.current",
+                                             0)
+    if allocated < analytic["weights"] + analytic["kv_pages"]:
+        raise AssertionError(f"observatory: {allocated} bytes allocated, "
+                             f"under the analytic weights and pages "
+                             f"{analytic}")
+
+    # A profiler window around the timed window's requests: the trace
+    # names all three kernels.
+    trace_dir = tempfile.mkdtemp(prefix="chip-smoke-trace-")
+    status, text, _ = _http("POST", url + "/debug/profiler/start?dir="
+                            + trace_dir)
+    if status != 200:
+        raise AssertionError(f"observatory: profiler start {status} {text}")
+    with ThreadPoolExecutor(len(requests)) as pool:
+        list(pool.map(lambda b: _post(url + "/v1/completions", b), requests))
+    status, text, _ = _http("POST", url + "/debug/profiler/stop")
+    if status != 200:
+        raise AssertionError(f"observatory: profiler stop {status} {text}")
+    with open(json.loads(text)["trace"]) as f:
+        trace = json.load(f)
+    kernels = {}
+    for ev in trace.get("traceEvents", []):
+        family = (_kernel_family(ev.get("name", ""))
+                  if ev.get("cat") == "kernel" else None)
+        if family:
+            kernels[family] = kernels.get(family, 0) + 1
+    if set(kernels) != set(KERNELS):
+        raise AssertionError(f"observatory: the profiler's trace names "
+                             f"{kernels}, not all of {list(KERNELS)}")
+
+    # One request's timeline by its x-request-id, and the span lines
+    # stitched by the repo's traceview (a standard-library script, run
+    # as a process of its own).
+    greedy = [b for b in requests if b.get("temperature") == 0.0][:4]
+    status, _, _ = _http("POST", url + "/v1/completions", greedy[0],
+                         {"x-request-id": TRACE_ID})
+    found = _get_json(url + "/debug/trace/" + TRACE_ID)
+    events = [e["event"] for e in found["spans"][0]["events"]]
+    if status != 200 or not {"enqueue", "prefill_chunk", "first_token",
+                             "finish"} <= set(events):
+        raise AssertionError(f"observatory: /debug/trace events {events}")
+    with open(span_log) as f:
+        lines = [json.loads(line) for line in f]
+    view = subprocess.run(
+        [sys.executable, "-m", "production_stack_tpu.traceview", span_log,
+         "--request-id", TRACE_ID], capture_output=True, text=True,
+        timeout=60, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if (view.returncode != 0 or "engine[both" not in view.stdout
+            or "first_token" not in view.stdout):
+        raise AssertionError(f"observatory: traceview: {view.returncode} "
+                             f"{view.stdout} {view.stderr}")
+
+    # Greedy streams with the tracer on (this server) and with
+    # --trace-ring-size 0 (no tracer), each request alone, on prompts
+    # neither server has cached.
+    rng = np.random.RandomState(21)
+    vocab = engine.config.model.vocab_size
+    fresh = [dict(greedy[0], max_tokens=32,
+                  prompt=rng.randint(258, vocab, size=n).tolist())
+             for n in (100, 300, 600, 700)]
+    on = [_post(url + "/v1/completions", b)["choices"][0]["text"]
+          for b in fresh]
+    wall_prompt = rng.randint(258, vocab, size=64).tolist()
+    on_wall = _decode_wall_ms(url, wall_prompt)
+    off = _Server(["--trace-ring-size", "0"])
+    try:
+        if off.engine.tracer is not None:
+            raise AssertionError("observatory: --trace-ring-size 0 left a "
+                                 "tracer installed")
+        off_texts = [_post(off.url + "/v1/completions", b)["choices"][0][
+            "text"] for b in fresh]
+        off_wall = _decode_wall_ms(off.url, wall_prompt)
+    finally:
+        off.close()
+    if on != off_texts:
+        raise AssertionError("observatory: greedy streams differ with the "
+                             "tracer on and off")
+    log(f"observatory: vllm:engine_mfu {mfu:.6f} over the serving run; "
+        f"attention impls {impls}; captures {compiles['events']} on "
+        f"/debug/compiles as the graphs count them; {allocated} bytes "
+        f"allocated against analytic {analytic}; the profiler's trace "
+        f"ran kernels {kernels}; /debug/trace events {events}; "
+        f"{len(lines)} span lines stitched by traceview; {len(fresh)} "
+        f"greedy streams byte-identical with the tracer on and off; "
+        f"steady decode wall a token at one row: tracer on "
+        f"{on_wall:.3f} ms, off {off_wall:.3f} ms; {SMI}")
+    return {"mfu": mfu, "decode_wall_ms": {"on": on_wall, "off": off_wall}}
 
 
 # ---- fleet phase --------------------------------------------------------------
@@ -1985,7 +2172,7 @@ def _fleet_prompt(rng, vocab, n):
 
 def fleet_phase(vocab: int) -> dict:
     """The fleet contract and the offload tier at full width; see the
-    module docstring (phase 13). Returns each run's kernel launches in
+    module docstring (phase 14). Returns each run's kernel launches in
     its resume window."""
     from production_stack_tpu_torch.engine.cache_server import (
         build_cache_server)
@@ -2351,6 +2538,226 @@ def _preempt_checks(label, extra, small_pages, rng, vocab) -> None:
             f"restored, {len(victims)} victims restored")
 
 
+# ---- disagg phase -------------------------------------------------------------
+
+# (label, server args beyond SERVER_ARGS, bytes of one page on the wire,
+# the launch-counter suffix of its kernels): the fleet phase's two
+# forms.
+DISAGG_RUNS = tuple((label.replace("fleet", "disagg"), extra, page_bytes,
+                     form) for label, extra, page_bytes, _, form, _
+                    in FLEET_RUNS)
+# The disagg phase's decode-role handoff windows (bf16 per_layer, int8
+# stacked).
+DISAGG_RUN = "disagg_handoff"
+DISAGG_INT8_RUN = "disagg_handoff_int8_stacked"
+
+
+def _fleet_chat(seed=9):
+    """The fleet phase's greedy chat (FLEET_PROMPT_CHARS of content, 705
+    prompt tokens with the chat template), not streamed."""
+    rng = np.random.RandomState(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz ,."))
+    content = "".join(rng.choice(letters, size=FLEET_PROMPT_CHARS))
+    return {"max_tokens": FLEET_OUT, "temperature": 0, "ignore_eos": True,
+            "messages": [{"role": "user", "content": content}]}
+
+
+def _metric_value(url, name) -> float:
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        text = r.read().decode()
+    return float(re.search("^" + re.escape(name) + r" (\S+)$", text,
+                           re.M).group(1))
+
+
+def disagg_phase(vocab: int) -> dict:
+    """Disaggregated prefill and decode at full width; see the module
+    docstring (phase 15). Returns each form's decode-role launches in
+    its handoff window."""
+    from production_stack_tpu_torch.engine.cache_server import (
+        build_cache_server)
+    launches = {}
+    for run in DISAGG_RUNS:
+        cache = build_cache_server(8 * 1024 ** 3)
+        threading.Thread(target=cache.serve_forever, daemon=True).start()
+        try:
+            launches[run[0]] = _disagg_run(run, cache, vocab)
+        finally:
+            cache.shutdown()
+            cache.server_close()
+    return launches
+
+
+def _disagg_run(run, cache, vocab) -> dict:
+    from production_stack_tpu_torch.engine.offload import (
+        _stable_key, unpackb)
+    from production_stack_tpu_torch.engine.tokenizer import (
+        render_chat_prompt)
+    from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
+
+    label, extra, page_bytes, form = run
+    chat, other = _fleet_chat(9), _fleet_chat(10)
+    tier = ["--kv-remote-url", cache.url, "--kv-host-pool-bytes", "0"]
+    mono = pre = dec = None
+    try:
+        mono = _Server(extra)
+        pre = _Server(extra + tier + ["--engine-role", "prefill"])
+        dec = _Server(extra + tier + ["--engine-role", "decode"])
+        prompt = render_chat_prompt(mono.engine.tokenizer, chat["messages"])
+        health = _get_json(pre.url + "/health")
+        if health["role"] != "prefill" or _get_json(
+                dec.url + "/health")["role"] != "decode":
+            raise AssertionError(f"{label}: /health roles {health}")
+        if dec.engine.config.scheduler.unified_step:
+            raise AssertionError(f"{label}: unified step on a role engine")
+
+        # The monolithic reference, after a warm-up of the same shapes
+        # on another chat.
+        _post(mono.url + "/v1/chat/completions", other)
+        _, mono_ttft, _ = _timed_stream(mono.url, "/v1/chat/completions",
+                                        dict(chat, stream=True))
+
+        # The prefill engine's ship, timed a page.
+        ship_fn, ship = pre.engine._ship_handoff, {"s": 0.0, "pages": 0}
+
+        def timed_ship(seq):
+            t0 = time.perf_counter()
+            ship_fn(seq)
+            ship["s"] += time.perf_counter() - t0
+            ship["pages"] += pre.engine._handoff_info[seq.seq_id][
+                "num_pages"]
+
+        pre.engine._ship_handoff = timed_ship
+        restore_fn, restored = dec.engine._restore_offloaded_prefix, []
+
+        def recorded_restore(*args):
+            pages = restore_fn(*args)
+            restored.extend(pages)
+            return pages
+
+        dec.engine.scheduler.restore_hook = recorded_restore
+        # Warm-up of both hops' shapes (the prefill chunks, the decode
+        # side's tail chunk and decode steps) on the other chat.
+        warm = _post(pre.url + "/v1/disagg/prefill", other)["descriptor"]
+        _post(dec.url + "/v1/disagg/handoff", {"descriptor": warm})
+        shipped0 = _metric_value(pre.url,
+                                 "vllm:disagg_kv_bytes_shipped_total")
+        latency0 = _metric_value(
+            dec.url, "vllm:disagg_handoff_latency_seconds_sum")
+        restored.clear()
+        captured = dict(dec.engine.runner.graphs.captures)
+
+        # The two hops, as the router makes them.
+        t0 = time.perf_counter()
+        desc = _post(pre.url + "/v1/disagg/prefill", chat)["descriptor"]
+        hop1 = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        COUNTERS.reset()
+        raw, hop2_ttft, _ = _timed_stream(dec.url, "/v1/disagg/handoff",
+                                          {"descriptor": desc,
+                                           "stream": True})
+        torch.cuda.synchronize()
+        window = dict(COUNTERS.launches)
+        two_hop_ttft = hop1 + hop2_ttft
+        shipped = _metric_value(
+            pre.url, "vllm:disagg_kv_bytes_shipped_total") - shipped0
+        latency = _metric_value(
+            dec.url, "vllm:disagg_handoff_latency_seconds_sum") - latency0
+        pages = len(prompt) // 128
+        if not (desc["token_ids"] == prompt and desc["num_pages"] == pages
+                and desc["kv_bytes"] == pages * page_bytes
+                and shipped == pages * page_bytes
+                and len(desc["page_keys"]) == pages):
+            raise AssertionError(
+                f"{label}: descriptor of {len(desc['token_ids'])} tokens, "
+                f"{desc['num_pages']} pages, {desc['kv_bytes']} B; "
+                f"/metrics shipped {shipped} B; expected {pages} pages of "
+                f"{page_bytes} B")
+        if len(restored) != pages:
+            raise AssertionError(f"{label}: {len(restored)} pages "
+                                 f"restored, expected {pages}")
+        for page_id in restored:
+            page_hash = dec.engine.cache_manager._pages[page_id].page_hash
+            key = _stable_key(page_hash,
+                              "int8" if dec.engine.runner.kv_quantized
+                              else "bfloat16")
+            frame = unpackb(cache.store._blobs[key])
+            if [bytes(x["data"]) for x in frame["arrays"]] != [
+                    t.contiguous().view(torch.uint8).numpy().tobytes()
+                    for t in dec.engine.runner.read_page(page_id)]:
+                raise AssertionError(f"{label}: restored page {page_id} "
+                                     "differs from the shipped bytes")
+        if (window.get("paged_prefill" + form, 0) <= 0
+                or window.get("paged_decode" + form, 0) <= 0
+                or any(n for k, n in window.items()
+                       if k.startswith("paged_ragged"))):
+            raise AssertionError(f"{label}: the decode-role window "
+                                 f"launched {window}, expected prefill "
+                                 "(the tail) and decode, no ragged step")
+        if any(COUNTERS.plain_cuda_calls.values()):
+            raise AssertionError(f"{label}: plain versions ran on CUDA "
+                                 f"tensors: {dict(COUNTERS.plain_cuda_calls)}")
+        if dec.engine.runner.graphs.captures != captured:
+            # The tail's chunk takes a prefill bucket the warm-up
+            # captured: no graph is captured a handoff.
+            raise AssertionError(f"{label}: the handoff captured graphs: "
+                                 f"{captured} -> "
+                                 f"{dec.engine.runner.graphs.captures}")
+        if not raw.rstrip().endswith("data: [DONE]"):
+            raise AssertionError(f"{label}: the handoff stream did not end")
+
+        # A handoff whose pages the tier never held: a recompute.
+        missing = _fleet_chat(11)
+        _post(mono.url + "/v1/chat/completions", missing)
+        missing_prompt = render_chat_prompt(mono.engine.tokenizer,
+                                            missing["messages"])
+        mono_missing = mono.tokens_after(missing_prompt)
+        restored.clear()
+        miss_desc = dict(desc, token_ids=missing_prompt,
+                         first_token=mono_missing[0], page_keys=[],
+                         num_pages=0, kv_bytes=0)
+        miss_ans = _post(dec.url + "/v1/disagg/handoff",
+                         {"descriptor": miss_desc})
+        if restored or miss_ans["usage"]["completion_tokens"] != FLEET_OUT:
+            raise AssertionError(f"{label}: the missing-page handoff "
+                                 f"restored {restored}: {miss_ans['usage']}")
+        for srv in (mono, pre, dec):
+            srv.stop()
+        mono_ids = mono.tokens_after(prompt)
+        got_ids = dec.tokens_after(prompt)
+        if got_ids[0] != mono_ids[0] or desc["first_token"] != mono_ids[0]:
+            raise AssertionError(f"{label}: first token {got_ids[0]}, the "
+                                 f"monolithic server's {mono_ids[0]}")
+        flip = check_stream(label, "two-hop stream", mono.engine, prompt,
+                            mono_ids, got_ids)
+        miss_flip = check_stream(label, "recomputed handoff", mono.engine,
+                                 missing_prompt, mono_missing,
+                                 dec.tokens_after(missing_prompt))
+    finally:
+        for srv in (mono, pre, dec):
+            if srv is not None and srv.http is not None:
+                srv.close()
+
+    def told(f):
+        return ("byte-identical to the monolithic stream" if f is None else
+                f"parting from the monolithic stream at output token "
+                f"{f[0]}, a near tie (margin {f[1]:.4f})")
+
+    log(f"{label}: {len(prompt)}-token chat, descriptor of {pages} pages, "
+        f"{shipped:.0f} B shipped ({page_bytes} B a page), restored pages "
+        f"equal to the shipped bytes; the two-hop stream "
+        f"{told(flip)}; the missing-page handoff recomputed, "
+        f"{told(miss_flip)}; decode-role window launches {window}, no "
+        f"graph captured (captures {captured})")
+    log(f"{label}: two-hop TTFT {1e3 * two_hop_ttft:.1f} ms (prefill hop "
+        f"{1e3 * hop1:.1f}, handoff hop to its first frame "
+        f"{1e3 * hop2_ttft:.1f}) against the monolithic TTFT "
+        f"{1e3 * mono_ttft:.1f} ms; vllm:disagg_handoff_latency_seconds "
+        f"sum {latency:.6f} s; host ms a shipped page "
+        f"{1e3 * ship['s'] / max(ship['pages'], 1):.3f} ({ship['pages']} "
+        f"pages shipped in the phase, the warm-up's included); {SMI}")
+    return window
+
+
 # ---- main -------------------------------------------------------------------
 
 
@@ -2406,6 +2813,10 @@ def main() -> int:
     fleet = fleet_phase(vocab)
     launches[FLEET_RUN] = fleet[FLEET_RUNS[0][0]]
     launches[FLEET_INT8_RUN] = fleet[FLEET_RUNS[1][0]]
+    torch.cuda.empty_cache()
+    disagg = disagg_phase(vocab)
+    launches[DISAGG_RUN] = disagg[DISAGG_RUNS[0][0]]
+    launches[DISAGG_INT8_RUN] = disagg[DISAGG_RUNS[1][0]]
 
     def numbers(h):
         out = {"max_abs_err": h["max_abs_err"], "ms": h["ms"],
@@ -2424,8 +2835,8 @@ def main() -> int:
             "name": name, **meta,
             "launches": launches[MAIN_RUN].get(name, 0),
             "launches_by_run": {
-                run: counts.get(name + ("_int8_stacked"
-                                        if run == FLEET_INT8_RUN else ""), 0)
+                run: counts.get(name + ("_int8_stacked" if run in (
+                    FLEET_INT8_RUN, DISAGG_INT8_RUN) else ""), 0)
                 for run, counts in launches.items()},
             **numbers(h["bf16"]),
             "int8": {"launches": launches[INT8_RUN].get(name + "_int8", 0),

@@ -246,9 +246,21 @@ class EngineConfig:
     kvecon: KVEconConfig = dataclasses.field(
         default_factory=KVEconConfig)
     seed: int = 0
+    # Disaggregated serving role:
+    #   both    -> monolithic engine (default): prefill and decode.
+    #   prefill -> computes the prompt's KV, ships its committed pages
+    #              to the offload tier and answers a handoff descriptor
+    #              instead of a token stream (POST /v1/disagg/prefill).
+    #   decode  -> takes handoffs (POST /v1/disagg/handoff), restores
+    #              the shipped pages and streams from the second token.
+    engine_role: str = "both"
     # Seconds a sequence parked in AWAITING_KV waits for an unreachable
     # offload tier before it degrades to a full recompute.
     handoff_timeout_s: float = 30.0
+    # Per-card peak FLOP/s for the observatory's MFU gauge
+    # (engine/perf_observatory.py). 0 = resolve from the device-name
+    # table; an unknown device (the CPU included) then reports MFU 0.
+    device_peak_flops: float = 0.0
     # Every N generated tokens, ship a streaming sequence's committed
     # KV pages to the offload tier and publish a resume descriptor (the
     # token journal) for the router (docs/crash_recovery.md). 0 = off.
@@ -259,12 +271,29 @@ class EngineConfig:
     step_watchdog_s: float = 0.0
 
     def __post_init__(self):
+        if self.engine_role not in ("prefill", "decode", "both"):
+            raise ValueError(
+                "engine_role must be 'prefill', 'decode' or 'both' "
+                f"(got {self.engine_role!r})")
         if self.handoff_timeout_s < 0:
             raise ValueError("handoff_timeout_s must be >= 0")
+        if self.device_peak_flops < 0:
+            raise ValueError("device_peak_flops must be >= 0")
         if self.checkpoint_interval_tokens < 0:
             raise ValueError("checkpoint_interval_tokens must be >= 0")
         if self.step_watchdog_s < 0:
             raise ValueError("step_watchdog_s must be >= 0")
+        if (self.engine_role == "prefill"
+                and self.scheduler.speculative_k > 0):
+            # A prefill-role engine hands off after the first token:
+            # speculation, which speeds up decode, would be a config
+            # that lies. Async scheduling there is legal and inert (no
+            # decode steps to overlap); the server's 'auto' resolves
+            # it off.
+            raise ValueError(
+                "engine_role='prefill' is incompatible with "
+                "speculative_k > 0 (speculation speeds up decode; a "
+                "prefill-role engine hands off after the first token)")
         if self.model.architecture not in ("llama", "mistral", "qwen2"):
             raise NotImplementedError(
                 "the port serves the llama family (llama, mistral, "

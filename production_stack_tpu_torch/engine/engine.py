@@ -30,6 +30,20 @@ another engine, parked in AWAITING_KV until its pages are reachable or
 recomputing from the journal on a miss. Requests carry a QoS
 ``priority`` (the scheduler's admission order and preemption victim)
 and ``spec_off``.
+
+Disaggregated serving: a ``handoff_prefill`` request (a prefill-role
+engine's) retires after its first token, its committed pages shipped to
+the offload tier and a descriptor staged for the server
+(``take_handoff_info``); ``add_handoff`` takes such a request on a
+decode-role engine, parked in AWAITING_KV until its pages are reachable
+(or recomputing on a miss), and streams from the second token.
+
+Accounting: every step fans out once (``_account_step``) to the
+pipeline metrics, the runner's observatory (seconds waited on the
+read-back, committed tokens, by kind) and, when a tracer is installed
+(``tracer``, engine/tracing.py), its step flight recorder; the tracer
+also gets each request's lifecycle events. Without a tracer the engine
+allocates no span or step record.
 """
 
 from __future__ import annotations
@@ -118,6 +132,12 @@ class LLMEngine:
         # idle gap — the quantity the pipeline exists to shrink.
         self._in_flight = None
         self._idle_mark: Optional[float] = None
+        # (kind, committed tokens) of the step about to be accounted,
+        # staged by the execute helpers for the observatory (a tuple,
+        # always); and its row detail for the flight recorder (a dict,
+        # only with a tracer). Both drained by _account_step.
+        self._obs_note: Optional[tuple] = None
+        self._step_note: Optional[dict] = None
         # QoS: the class of requests that carry none.
         self.default_priority = int(
             parse_priority(config.qos.default_priority))
@@ -134,6 +154,27 @@ class LLMEngine:
         self.checkpoint_ships = 0
         self.checkpoint_kv_bytes = 0
         self.stream_resumes = 0
+        # Disaggregated serving: the descriptor payload of each finished
+        # prefill handoff (drained by the server) and the role counters.
+        self._handoff_info: Dict[str, dict] = {}
+        self.disagg_prefill_requests = 0
+        self.disagg_decode_requests = 0
+        self.disagg_kv_bytes_shipped = 0
+        # Request tracing: None unless one is installed (the server
+        # installs one by default); every emission is behind an
+        # ``is None`` check.
+        self._tracer = None
+
+    @property
+    def tracer(self):
+        return self._tracer
+
+    @tracer.setter
+    def tracer(self, tracer) -> None:
+        # Mirrored onto the scheduler, which emits the chunk, first
+        # token, preemption and restore events.
+        self._tracer = tracer
+        self.scheduler.tracer = tracer
 
     # ---- offload tiers ------------------------------------------------------
 
@@ -166,10 +207,12 @@ class LLMEngine:
         self.offload.offload_page(page_hash,
                                   *self.runner.read_page(page_id))
 
-    def _ship_pages(self, seq: Sequence, start: int = 0) -> tuple:
+    def _ship_pages(self, seq: Sequence, start: int = 0,
+                    keys: Optional[List[str]] = None) -> tuple:
         """Ship ``seq``'s committed full pages from the ``start``-th
         on to the offload tier: (pages in the committed chain, pages
-        shipped, bytes shipped). Caller holds the lock.
+        shipped, bytes shipped); each shipped page's tier key is
+        appended to ``keys`` when given. Caller holds the lock.
 
         The restorable prefix is every token but the last (the prefix
         cache's bound: the final token must prefill again to give
@@ -194,6 +237,8 @@ class LLMEngine:
             self.offload.offload_page(page_hash, *payload, chain=chain)
             kv_bytes += payload_nbytes(payload)
             shipped += 1
+            if keys is not None:
+                keys.append(self.offload.key_for(page_hash))
         return len(pairs), shipped, kv_bytes
 
     def _evict_sequence_kv(self, seq: Sequence) -> int:
@@ -252,9 +297,14 @@ class LLMEngine:
                     seq_id: Optional[str] = None,
                     output_sink=None,
                     lora_name: Optional[str] = None,
+                    handoff_prefill: bool = False,
                     request_id: Optional[str] = None,
                     priority: Optional[int] = None,
                     spec_off: bool = False) -> str:
+        """Queue one request. ``handoff_prefill`` (a prefill-role
+        engine's request): retire after the first token, the prompt's
+        committed pages shipped and a descriptor staged
+        (``take_handoff_info``)."""
         if lora_name is not None:
             raise NotImplementedError(
                 f"LoRA adapter {lora_name!r}: not supported by this "
@@ -271,25 +321,22 @@ class LLMEngine:
                     "guided JSON decoding requires a byte-range "
                     "tokenizer")
             fsm_state = 0
-        stop_ids = list(sampling.stop_token_ids)
-        if (not sampling.ignore_eos
-                and self.tokenizer.eos_token_id is not None
-                and self.tokenizer.eos_token_id not in stop_ids):
-            stop_ids.append(self.tokenizer.eos_token_id)
-        sampling.stop_token_ids = stop_ids
+        self._stop_ids(sampling)
         seq = Sequence(
             seq_id=seq_id or f"seq-{uuid.uuid4().hex[:16]}",
             prompt_token_ids=self._in_vocab(prompt_token_ids),
             sampling=sampling,
             output_sink=output_sink,
             fsm_state=fsm_state,
+            handoff_prefill=handoff_prefill,
             request_id=request_id,
             priority=(self.default_priority if priority is None
                       else int(priority)),
             spec_off=spec_off,
         )
         with self._lock:
-            if self._cold_start_target(seq) is not None:
+            if (not handoff_prefill
+                    and self._cold_start_target(seq) is not None):
                 # Shared cluster cache: another engine may hold this
                 # prompt's prefix KV. Park in AWAITING_KV so the step
                 # loop probes the shared tier (one HEAD) before prefill:
@@ -299,6 +346,11 @@ class LLMEngine:
                 seq.cold_start_probe = True
                 seq.handoff_arrival_time = time.time()
             self._add(seq)
+            if self._tracer is not None:
+                self._tracer.start(seq.seq_id, request_id=request_id,
+                                   prompt_tokens=seq.num_prompt_tokens)
+                if seq.cold_start_probe:
+                    self._tracer.event(seq.seq_id, "awaiting_kv_park")
         return seq.seq_id
 
     def _in_vocab(self, token_ids) -> List[int]:
@@ -338,6 +390,76 @@ class LLMEngine:
                 return page_hash
         return None
 
+    def _stop_ids(self, sampling: SamplingParams) -> None:
+        """Add the tokenizer's EOS to the request's stop ids unless it
+        ignores EOS."""
+        stop_ids = list(sampling.stop_token_ids)
+        if (not sampling.ignore_eos
+                and self.tokenizer.eos_token_id is not None
+                and self.tokenizer.eos_token_id not in stop_ids):
+            stop_ids.append(self.tokenizer.eos_token_id)
+        sampling.stop_token_ids = stop_ids
+
+    def _add_parked(self, seq: Sequence, sampling: SamplingParams,
+                    **trace_event) -> None:
+        """Queue ``seq`` parked in AWAITING_KV, with the admission
+        clamp undone (it counts the folded output as prompt, which would
+        end generation early: ``num_prior_output_tokens`` and the
+        max_model_len check already bound the sequence as a monolithic
+        engine would). Without an offload tier it recomputes at once.
+        ``trace_event`` (name and fields) is traced before the park."""
+        orig_max_tokens = sampling.max_tokens
+        with self._lock:
+            self._add(seq)
+            if self._tracer is not None:
+                self._tracer.start(seq.seq_id, request_id=seq.request_id,
+                                   prompt_tokens=seq.num_prompt_tokens)
+                if trace_event:
+                    self._tracer.event(seq.seq_id, **trace_event)
+                self._tracer.event(seq.seq_id, "awaiting_kv_park")
+            sampling.max_tokens = orig_max_tokens
+            if self.offload is None:
+                seq.transition(SequenceState.WAITING)
+                self.metrics.on_handoff_admitted(0.0)
+                if self._tracer is not None:
+                    self._tracer.event(seq.seq_id, "awaiting_kv_restore",
+                                       waited_ms=0.0, outcome="no_tier")
+
+    def add_handoff(self, prompt_token_ids: List[int], first_token: int,
+                    sampling: Optional[SamplingParams] = None,
+                    seq_id: Optional[str] = None,
+                    output_sink=None,
+                    request_id: Optional[str] = None) -> str:
+        """Take a disaggregated prefill-to-decode handoff: park the
+        sequence in AWAITING_KV until its shipped pages are reachable in
+        an offload tier (or the handoff timeout degrades it to a
+        recompute). The prefill engine's first token is folded into the
+        prompt as a preemption folds generated tokens, with
+        ``num_prior_output_tokens = 1`` keeping every budget counting;
+        the caller sends that token to the client itself, and this
+        engine streams from the second."""
+        sampling = sampling or SamplingParams()
+        self._stop_ids(sampling)
+        if sampling.guided is not None:
+            raise ValueError(
+                "guided decoding is not supported across a disagg "
+                "handoff (automaton state does not transfer)")
+        seq = Sequence(
+            seq_id=seq_id or f"seq-{uuid.uuid4().hex[:16]}",
+            prompt_token_ids=self._in_vocab(
+                list(prompt_token_ids) + [int(first_token)]),
+            sampling=sampling,
+            output_sink=output_sink,
+            state=SequenceState.AWAITING_KV,
+            num_prior_output_tokens=1,
+            handoff_arrival_time=time.time(),
+            request_id=request_id,
+        )
+        self._add_parked(seq, sampling)
+        with self._lock:
+            self.disagg_decode_requests += 1
+        return seq.seq_id
+
     def add_resume(self, token_ids: List[int],
                    num_prior_output_tokens: int,
                    sampling: Optional[SamplingParams] = None,
@@ -355,17 +477,11 @@ class LLMEngine:
         either way; nothing is replayed to the client (the server skips
         the text already delivered)."""
         sampling = sampling or SamplingParams()
-        stop_ids = list(sampling.stop_token_ids)
-        if (not sampling.ignore_eos
-                and self.tokenizer.eos_token_id is not None
-                and self.tokenizer.eos_token_id not in stop_ids):
-            stop_ids.append(self.tokenizer.eos_token_id)
-        sampling.stop_token_ids = stop_ids
+        self._stop_ids(sampling)
         if sampling.guided is not None:
             raise ValueError(
                 "guided decoding is not supported across a resume "
                 "(automaton state does not transfer)")
-        orig_max_tokens = sampling.max_tokens
         seq = Sequence(
             seq_id=seq_id or f"seq-{uuid.uuid4().hex[:16]}",
             prompt_token_ids=self._in_vocab(token_ids),
@@ -376,16 +492,10 @@ class LLMEngine:
             handoff_arrival_time=time.time(),
             request_id=request_id,
         )
+        self._add_parked(seq, sampling, name="resume_restore",
+                         prior_tokens=int(num_prior_output_tokens))
         with self._lock:
-            self._add(seq)
-            # Undo the admission clamp: it counts the folded output as
-            # prompt, which would shrink the token budget.
-            sampling.max_tokens = orig_max_tokens
             self.stream_resumes += 1
-            if self.offload is None:
-                # No tier to restore from: recompute from the journal.
-                seq.transition(SequenceState.WAITING)
-                self.metrics.on_handoff_admitted(0.0)
         return seq.seq_id
 
     def take_checkpoint(self, seq_id: str) -> Optional[dict]:
@@ -412,10 +522,10 @@ class LLMEngine:
                 if seq.num_generated - last < interval:
                     continue
                 self._ckpt_last_tokens[seq.seq_id] = seq.num_generated
-                kv_bytes = 0
+                shipped = kv_bytes = 0
                 if self.offload is not None and seq.pages:
                     done = self._ckpt_shipped_pages.get(seq.seq_id, 0)
-                    total, _, kv_bytes = self._ship_pages(seq, done)
+                    total, shipped, kv_bytes = self._ship_pages(seq, done)
                     self._ckpt_shipped_pages[seq.seq_id] = total
                 self.checkpoint_ships += 1
                 self.checkpoint_kv_bytes += kv_bytes
@@ -427,12 +537,42 @@ class LLMEngine:
                         seq.seq_id, 0),
                     "kv_bytes": kv_bytes,
                 }
+                if self._tracer is not None:
+                    self._tracer.event(
+                        seq.seq_id, "checkpoint_ship", pages=shipped,
+                        kv_bytes=kv_bytes, tokens=seq.num_generated)
 
     def _drop_checkpoint_state(self, seq_id: str) -> None:
         """Caller holds the lock (or the sequence is retired)."""
         self._checkpoints.pop(seq_id, None)
         self._ckpt_last_tokens.pop(seq_id, None)
         self._ckpt_shipped_pages.pop(seq_id, None)
+
+    def take_handoff_info(self, seq_id: str) -> Optional[dict]:
+        """Drain the descriptor payload staged when ``seq_id`` finished
+        its prefill handoff (None if it never shipped)."""
+        with self._lock:
+            return self._handoff_info.pop(seq_id, None)
+
+    def _ship_handoff(self, seq: Sequence) -> None:
+        """A prefill-role request's first token is committed: ship the
+        prompt's committed full pages to the offload tier, stage the
+        descriptor payload (pages, bytes, tier keys) for the server and
+        retire the sequence, so that its pages free for the next
+        prefill. Without a tier nothing ships and the decode side
+        recomputes. Caller holds the lock."""
+        info = {"num_pages": 0, "kv_bytes": 0, "page_keys": []}
+        if self.offload is not None and seq.pages:
+            _, info["num_pages"], info["kv_bytes"] = self._ship_pages(
+                seq, keys=info["page_keys"])
+        self._handoff_info[seq.seq_id] = info
+        self.disagg_prefill_requests += 1
+        self.disagg_kv_bytes_shipped += info["kv_bytes"]
+        if self._tracer is not None:
+            self._tracer.event(seq.seq_id, "handoff_ship",
+                               num_pages=info["num_pages"],
+                               kv_bytes=info["kv_bytes"])
+        self.scheduler.finish_handoff(seq)
 
     def _handoff_kv_ready(self, seq: Sequence) -> Optional[bool]:
         """Whether a parked sequence's KV is reachable. Pages ship in
@@ -484,6 +624,16 @@ class LLMEngine:
                     # transfers: they stay out of the histogram.
                     self.metrics.on_handoff_admitted(
                         now - seq.handoff_arrival_time)
+                if self._tracer is not None:
+                    probe = seq.cold_start_probe
+                    self._tracer.event(
+                        seq.seq_id, "awaiting_kv_restore",
+                        waited_ms=round(
+                            (now - seq.handoff_arrival_time) * 1e3, 2),
+                        outcome=("ready" if ready
+                                 else "tier_down" if ready is None and probe
+                                 else "timeout" if ready is None
+                                 else "miss" if probe else "lost"))
 
     def abort_request(self, seq_id: str) -> None:
         with self._lock:
@@ -492,6 +642,20 @@ class LLMEngine:
                 self.scheduler.abort_sequence(seq)
                 self.metrics.on_finished(seq)
                 self._drop_checkpoint_state(seq_id)
+                if self._tracer is not None:
+                    self._trace_finish(seq)
+
+    def _trace_finish(self, seq: Sequence) -> None:
+        """Close ``seq``'s span (the caller checked the tracer)."""
+        self._tracer.finish(
+            seq.seq_id,
+            reason=seq.finish_reason.value if seq.finish_reason else None,
+            arrival_ts=seq.arrival_time,
+            first_scheduled_ts=seq.first_scheduled_time,
+            first_token_ts=seq.first_token_time,
+            finish_ts=seq.finish_time,
+            prompt_tokens=seq.num_prompt_tokens,
+            output_tokens=seq.num_generated)
 
     def has_work(self) -> bool:
         # A dispatched-but-unread decode step is work: the loop must
@@ -534,11 +698,31 @@ class LLMEngine:
             wait_s = self._execute_prefill(plan, outputs)
         else:
             wait_s = self._execute_decode_sync(plan, outputs)
-        self.metrics.on_pipeline_step(
-            host_s=(time.perf_counter() - t0) - wait_s,
-            device_wait_s=wait_s, ahead=False)
+        self._account_step(host_s=(time.perf_counter() - t0) - wait_s,
+                           wait_s=wait_s, ahead=False)
         self._pop_finished(outputs)
         return outputs
+
+    def _account_step(self, host_s: float, wait_s: float, ahead: bool,
+                      pipeline_break: bool = False, **extra) -> None:
+        """One step's accounting fan-out: the pipeline metrics, the
+        observatory's step ledger (the seconds waited on the read-back
+        and the committed tokens the execute helper staged) and, with a
+        tracer, a flight-recorder record with the staged row detail."""
+        self.metrics.on_pipeline_step(host_s=host_s, device_wait_s=wait_s,
+                                      ahead=ahead)
+        obs_note, self._obs_note = self._obs_note, None
+        obs = self.runner.observatory
+        if obs_note is not None and obs is not None:
+            obs.on_step(obs_note[0], wait_s, obs_note[1])
+        if self._tracer is not None:
+            note = self._step_note or {}
+            self._step_note = None
+            note.update(extra)
+            self._tracer.on_step(
+                host_ms=round(host_s * 1e3, 3),
+                device_wait_ms=round(wait_s * 1e3, 3),
+                ahead=ahead, pipeline_break=pipeline_break, **note)
 
     def _execute_prefill(self, plan, outputs) -> float:
         td = time.perf_counter()
@@ -546,23 +730,35 @@ class LLMEngine:
         sampled, lps = self.runner.run_prefill(plan.prefill)
         tr = time.perf_counter()
         self._idle_mark = tr
+        chunks = plan.prefill.chunks
         with self._lock:
-            self._commit_prefill(plan.prefill.chunks, sampled, lps, outputs)
+            self._commit_prefill(chunks, sampled, lps, outputs)
+            if self._tracer is not None:
+                self._step_note = {"kind": "prefill",
+                                   "prefill_rows": len(chunks),
+                                   "row_bucket": self.runner.prefill_width}
+        self._obs_note = ("prefill", sum(len(c.chunk_tokens)
+                                         for c in chunks))
         return tr - td
 
     def _commit_prefill(self, chunks, tokens, lps, outputs) -> None:
         """Commit prefill chunks; a last chunk's sampled token is the
-        row's first (caller holds the lock)."""
+        row's first, and a prefill-role row still running after it is
+        shipped and retired (caller holds the lock)."""
         for i, (chunk, token) in enumerate(zip(chunks, tokens)):
             self.scheduler.on_prefill_executed(chunk, token)
             if chunk.is_last_chunk:
+                if (chunk.seq.handoff_prefill
+                        and chunk.seq.state == SequenceState.RUNNING):
+                    self._ship_handoff(chunk.seq)
                 outputs.append(self._delta(chunk.seq, token,
                                            lps[i] if lps else None))
 
     def _commit_decode(self, seqs, token_lists, outputs, lp_lists=None,
-                       drafts=None, expected_lens=None) -> None:
+                       drafts=None, expected_lens=None) -> tuple:
         """Commit decode rows' tokens (caller holds the lock), each with
-        its logprob entry where ``lp_lists`` has one.
+        its logprob entry where ``lp_lists`` has one; returns (tokens
+        committed, drafted, accepted).
 
         ``drafts`` (verify steps): per-row draft lists; each row emits
         accepted + 1 tokens, counted before any stop truncation so the
@@ -573,7 +769,7 @@ class LLMEngine:
         incomplete context — and are dropped. Their KV write was
         correct either way: it fed the first committed token."""
         now = time.time()
-        drafted = accepted = 0
+        drafted = accepted = committed = 0
         for i, (seq, toks) in enumerate(zip(seqs, token_lists)):
             if seq is None:  # plan-ahead masked slot
                 continue
@@ -594,11 +790,13 @@ class LLMEngine:
                 emitted += 1
                 outputs.append(self._delta(
                     seq, tok, lp_lists[i][k] if lp_lists else None))
+            committed += emitted
             self.metrics.on_decode_tokens(seq, emitted, now)
             if drafts is not None:
                 self.scheduler.on_spec_executed(seq)
         if drafts is not None:
             self.metrics.on_spec_step(drafted, accepted)
+        return committed, drafted, accepted
 
     def _execute_decode_sync(self, plan, outputs) -> float:
         td = time.perf_counter()
@@ -606,9 +804,19 @@ class LLMEngine:
         token_lists, lp_lists = self.runner.run_decode(plan.decode)
         tr = time.perf_counter()
         self._idle_mark = tr
+        spec = plan.decode.drafts is not None
         with self._lock:
-            self._commit_decode(plan.decode.seqs, token_lists, outputs,
-                                lp_lists, drafts=plan.decode.drafts)
+            committed, drafted, accepted = self._commit_decode(
+                plan.decode.seqs, token_lists, outputs, lp_lists,
+                drafts=plan.decode.drafts)
+            if self._tracer is not None:
+                self._step_note = {
+                    "kind": "spec" if spec else "decode",
+                    "decode_rows": len(plan.decode.seqs),
+                    "row_bucket": self.runner.decode_width,
+                    "window": plan.decode.window,
+                    "spec_drafted": drafted, "spec_accepted": accepted}
+        self._obs_note = ("spec" if spec else "decode", committed)
         return tr - td
 
     def _execute_unified(self, plan, outputs) -> float:
@@ -623,15 +831,25 @@ class LLMEngine:
         self._idle_mark = tr
         seqs = plan.decode.seqs[: self.runner.decode_width]
         chunks = plan.prefill.chunks[: self.runner.prefill_width]
-        self.metrics.on_ragged_step(
-            prefill_rows=len(chunks), decode_rows=len(seqs),
-            pad_rows=(self.runner.last_unified_rows
-                      - len(chunks) - len(seqs)))
+        pad_rows = self.runner.last_unified_rows - len(chunks) - len(seqs)
+        self.metrics.on_ragged_step(prefill_rows=len(chunks),
+                                    decode_rows=len(seqs),
+                                    pad_rows=pad_rows)
         with self._lock:
-            self._commit_decode(seqs, token_lists, outputs, lp_lists,
-                                drafts=plan.decode.drafts)
+            committed, drafted, accepted = self._commit_decode(
+                seqs, token_lists, outputs, lp_lists,
+                drafts=plan.decode.drafts)
             self._commit_prefill(chunks, prefill_toks, prefill_lps,
                                  outputs)
+            if self._tracer is not None:
+                self._step_note = {
+                    "kind": "unified", "prefill_rows": len(chunks),
+                    "decode_rows": len(seqs), "pad_rows": pad_rows,
+                    "row_bucket": self.runner.last_unified_rows,
+                    "window": plan.decode.window,
+                    "spec_drafted": drafted, "spec_accepted": accepted}
+        self._obs_note = ("unified", committed + sum(
+            len(c.chunk_tokens) for c in chunks))
         return tr - td
 
     # ---- overlapped async pipeline ------------------------------------------
@@ -666,9 +884,9 @@ class LLMEngine:
                 outputs, wait_s = self._complete(handle)
                 # No _idle_mark here: step N+1 was queued before step
                 # N's results were read — the device never idled.
-                self.metrics.on_pipeline_step(
+                self._account_step(
                     host_s=(time.perf_counter() - t0) - wait_s,
-                    device_wait_s=wait_s, ahead=True)
+                    wait_s=wait_s, ahead=True)
                 return outputs
             # Pipeline break (prefill waiting / ineligible row / no
             # boundary pages): drain the in-flight step, then let the
@@ -677,9 +895,9 @@ class LLMEngine:
             self.metrics.set_inflight_depth(0)
             outputs, wait_s = self._complete(handle)
             self._idle_mark = time.perf_counter()
-            self.metrics.on_pipeline_step(
+            self._account_step(
                 host_s=(time.perf_counter() - t0) - wait_s,
-                device_wait_s=wait_s, ahead=False)
+                wait_s=wait_s, ahead=False, pipeline_break=True)
             return outputs
         outputs: List[StepOutput] = []
         t0 = time.perf_counter()
@@ -695,9 +913,9 @@ class LLMEngine:
                 wait_s = self._execute_unified(plan, outputs)
             else:
                 wait_s = self._execute_prefill(plan, outputs)
-            self.metrics.on_pipeline_step(
+            self._account_step(
                 host_s=(time.perf_counter() - t0) - wait_s,
-                device_wait_s=wait_s, ahead=False)
+                wait_s=wait_s, ahead=False, pipeline_break=True)
             self._pop_finished(outputs)
             return outputs
         if plan.decode.drafts is None and plan.decode.window > 1:
@@ -706,9 +924,9 @@ class LLMEngine:
             # through the depth-1 pipeline (stacking both would
             # speculate a whole window ahead).
             wait_s = self._execute_decode_sync(plan, outputs)
-            self.metrics.on_pipeline_step(
+            self._account_step(
                 host_s=(time.perf_counter() - t0) - wait_s,
-                device_wait_s=wait_s, ahead=False)
+                wait_s=wait_s, ahead=False)
             self._pop_finished(outputs)
             return outputs
         # Pure-decode or verify plan: queue it and return without
@@ -718,13 +936,14 @@ class LLMEngine:
         self._note_dispatch(time.perf_counter())
         if plan.decode.drafts is not None:
             self._in_flight = self.runner.dispatch_spec(plan.decode)
+            kind = "spec_dispatch"
         else:
             self._in_flight = self.runner.dispatch_decode(
                 plan.decode.seqs[: self.runner.decode_width])
+            kind = "decode_dispatch"
         self.metrics.set_inflight_depth(1)
-        self.metrics.on_pipeline_step(
-            host_s=time.perf_counter() - t0, device_wait_s=0.0,
-            ahead=False)
+        self._account_step(host_s=time.perf_counter() - t0, wait_s=0.0,
+                           ahead=False, kind=kind)
         self._pop_finished(outputs)
         return outputs
 
@@ -740,9 +959,18 @@ class LLMEngine:
         wait_s = time.perf_counter() - tw
         outputs: List[StepOutput] = []
         with self._lock:
-            self._commit_decode(handle.rows, token_lists, outputs,
-                                lp_lists, drafts=handle.drafts,
-                                expected_lens=handle.expected_lens)
+            committed, drafted, accepted = self._commit_decode(
+                handle.rows, token_lists, outputs, lp_lists,
+                drafts=handle.drafts, expected_lens=handle.expected_lens)
+            if self._tracer is not None:
+                self._step_note = {
+                    "kind": "spec" if handle.is_spec else "decode",
+                    "decode_rows": sum(1 for seq in handle.rows
+                                       if seq is not None),
+                    "row_bucket": self.runner.decode_width,
+                    "spec_drafted": drafted, "spec_accepted": accepted}
+        self._obs_note = ("spec" if handle.is_spec else "decode",
+                          committed)
         self._pop_finished(outputs)
         return outputs, wait_s
 
@@ -753,6 +981,8 @@ class LLMEngine:
                 if seq is not None:
                     self.metrics.on_finished(seq)
                     self._drop_checkpoint_state(out.seq_id)
+                    if self._tracer is not None:
+                        self._trace_finish(seq)
 
     def _note_dispatch(self, now: float) -> None:
         """Device-idle accounting: accumulate the gap between the
@@ -820,6 +1050,9 @@ class LLMEngine:
             "engine_kv_bytes_per_decode_step":
                 self.config.scheduler.max_num_seqs
                 * self.config.cache.kv_bytes_per_token(self.config.model),
+            "disagg_prefill_requests_total": self.disagg_prefill_requests,
+            "disagg_decode_requests_total": self.disagg_decode_requests,
+            "disagg_kv_bytes_shipped_total": self.disagg_kv_bytes_shipped,
             "disagg_awaiting_kv_requests": self.scheduler.num_awaiting_kv,
             "checkpoint_ships_total": self.checkpoint_ships,
             "checkpoint_kv_bytes_total": self.checkpoint_kv_bytes,

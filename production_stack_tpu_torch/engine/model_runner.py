@@ -56,7 +56,13 @@ from production_stack_tpu_torch.engine.sequence import (
     Sequence,
     decode_budget,
 )
-from production_stack_tpu_torch.engine.step_graphs import StepGraphs
+from production_stack_tpu_torch.engine.perf_observatory import (
+    PerfObservatory,
+)
+from production_stack_tpu_torch.engine.step_graphs import (
+    STEP_KINDS,
+    StepGraphs,
+)
 from production_stack_tpu_torch.models.registry import get_model
 from production_stack_tpu_torch.ops.paged_kv_common import (
     check_kernel_shapes,
@@ -114,6 +120,14 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def unified_step_eligible(engine_role: str = "both") -> bool:
+    """The eligibility rule of the unified ragged step, the JAX
+    runner's for one host: out for a disaggregated role engine, which by
+    construction never holds prefill and decode work at once (the
+    server's ``--unified-step auto`` resolves through it)."""
+    return engine_role == "both"
 
 
 def prefill_buckets(chunk_size: int) -> List[int]:
@@ -333,8 +347,25 @@ class ModelRunner:
         self.last_unified_rows = 0
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed + 1)
+        # The device performance observatory (engine/perf_observatory.py):
+        # exact parameter sizes, the card's name for the peak table, the
+        # capture ledger the step graphs feed, and the attention path of
+        # each phase: the kernels on the card, the plain versions on the
+        # CPU (the wrappers raise rather than fall back on the card).
+        # Set to None to turn every hook off.
+        weights = list(self.params.parameters())
+        self.observatory: Optional[PerfObservatory] = PerfObservatory(
+            config, param_count=sum(p.numel() for p in weights),
+            params_bytes=sum(p.numel() * p.element_size() for p in weights),
+            device=self.device)
+        for kind in STEP_KINDS:
+            self.observatory.register_kind(kind)
+        impl = "cuda" if self.device.type == "cuda" else "plain"
+        for phase in ("decode", "prefill", "unified"):
+            self.observatory.set_attention_impl(phase, impl)
         self.graphs: Optional[StepGraphs] = (
-            StepGraphs(self.device, generators=[self.generator])
+            StepGraphs(self.device, generators=[self.generator],
+                       observatory=self.observatory)
             if cuda_graphs and self.device.type == "cuda" else None)
         # The guided-decoding automaton's tables on the device
         # (set_guided_tables), or None: no guided row is served.

@@ -18,8 +18,11 @@ prefix miss, and ``evict_hook`` ships a preemption victim's committed
 pages there before they are freed (preempt-to-offload); the victim
 then parks in AWAITING_KV, as a resumed stream does, and a parked
 sequence counts in the queue depth but is never planned until the
-engine admits it. Not ported yet: context-parallel whole-prompt
-prefill and disaggregated handoffs.
+engine admits it; a disaggregated handoff parks there too, and a
+prefill-role sequence retires after its first token (``finish_handoff``).
+With a tracer installed (``tracer``) the scheduler emits each request's
+chunk, first-token, preemption and restore events. Not ported yet:
+context-parallel whole-prompt prefill.
 """
 
 from __future__ import annotations
@@ -101,6 +104,9 @@ class Scheduler:
         # state as its tokens are appended (the engine binds it, so the
         # host state mirrors the device's).
         self.guided_advance = guided_advance
+        # The engine's tracer (engine/tracing.py), set through
+        # LLMEngine.tracer; None = untraced.
+        self.tracer = None
         self.config = config
         self.page_size = cache_config.page_size
         self.cache = cache_manager
@@ -453,8 +459,12 @@ class Scheduler:
                 matched = self.cache.match_prefix(
                     seq.prompt_token_ids, seq.cache_salt)
                 if self.restore_hook is not None:
-                    matched = matched + self.restore_hook(
+                    restored = self.restore_hook(
                         seq.prompt_token_ids, matched, seq.cache_salt)
+                    if restored and self.tracer is not None:
+                        self.tracer.event(seq.seq_id, "offload_restore",
+                                          pages=len(restored))
+                    matched = matched + restored
                 seq.pages = matched
                 seq.num_hashed_pages = len(matched)
                 seq.num_computed_tokens = len(matched) * self.page_size
@@ -545,6 +555,9 @@ class Scheduler:
     def _preempt(self, seq: Sequence) -> None:
         self._log_preemption(seq)
         self.num_preemptions += 1
+        if self.tracer is not None:
+            self.tracer.event(seq.seq_id, "preempt",
+                              generated=len(seq.output_token_ids))
         self.running.remove(seq)
         # Preempt-to-offload: ship the victim's committed pages BEFORE
         # freeing them (the cache's evict_listener fires on slot reuse,
@@ -561,6 +574,8 @@ class Scheduler:
                 evicted = 0
         outcome = "offloaded" if evicted else "recompute"
         self.preempt_offload_outcomes[outcome] += 1
+        if evicted and self.tracer is not None:
+            self.tracer.event(seq.seq_id, "preempt_offload", pages=evicted)
         self.cache.free_sequence(seq.pages)
         seq.pages = []
         seq.num_hashed_pages = 0
@@ -578,6 +593,9 @@ class Scheduler:
             # recomputes.
             seq.transition(SequenceState.AWAITING_KV)
             seq.handoff_arrival_time = time.time()
+            if self.tracer is not None:
+                self.tracer.event(seq.seq_id, "awaiting_kv_park",
+                                  pages=evicted)
         else:
             seq.transition(SequenceState.WAITING)
         self.waiting.appendleft(seq)
@@ -607,6 +625,10 @@ class Scheduler:
             return  # aborted while the chunk was in flight on device
         seq.num_computed_tokens = (chunk.chunk_start
                                    + len(chunk.chunk_tokens))
+        if self.tracer is not None:
+            self.tracer.event(
+                seq.seq_id, "prefill_chunk", start=chunk.chunk_start,
+                tokens=len(chunk.chunk_tokens), last=chunk.is_last_chunk)
         self.cache.commit_full_pages(
             seq.prompt_token_ids[:seq.num_computed_tokens],
             seq.pages, seq.num_hashed_pages, seq.cache_salt,
@@ -625,8 +647,19 @@ class Scheduler:
                 return  # raced with an abort that already dequeued it
             seq.transition(SequenceState.RUNNING)
             seq.first_token_time = time.time()
+            if self.tracer is not None:
+                self.tracer.event(seq.seq_id, "first_token",
+                                  token=int(sampled_token))
             self.running.append(seq)
             self._append_token(seq, sampled_token)
+
+    def finish_handoff(self, seq: Sequence) -> None:
+        """A prefill-role handoff is complete (the engine shipped the
+        committed pages): retire the sequence, so that its pages free
+        for the next prefill."""
+        if seq in self.running:
+            self.running.remove(seq)
+        self._finish(seq, FinishReason.HANDOFF)
 
     def on_spec_executed(self, seq: Sequence) -> None:
         """Post-verify accounting: the verify step wrote KV through

@@ -7,14 +7,36 @@ Routes served, with the JSON shapes, status codes and SSE frames of the
 JAX engine's server: GET ``/health`` (role, draining, build id, active
 requests; 503 ``{"status": "watchdog"}`` while a step has run past
 ``--step-watchdog-s``), ``/v1/models``, ``/metrics`` (the ``vllm:*``
-names the router scrapes), ``/version`` and ``/kv/summary`` (the hot
-prefix chains of kvecon/summary.py, free pages and the KV dtype), POST
-``/v1/completions`` and ``/v1/chat/completions`` (with and without
-``stream``), ``/v1/resume`` and ``/drain``. That is 9 of the 24 routes
-the JAX server registers. Each of the other 15 (``UNPORTED_ROUTES``:
-disaggregation, embeddings, score, rerank, autotune, profiler and the
-debug ledgers) answers 501 with a message naming its feature; a path
-neither server has answers 404.
+names the router scrapes, the observatory's included), ``/version``
+and ``/kv/summary`` (the hot prefix chains of kvecon/summary.py, free
+pages and the KV dtype), POST ``/v1/completions`` and
+``/v1/chat/completions`` (with and without ``stream``), ``/v1/resume``
+and ``/drain``; disaggregated serving, POST ``/v1/disagg/prefill`` and
+``/v1/disagg/handoff``; and the debug routes, POST
+``/debug/profiler/start`` and ``/debug/profiler/stop`` (a
+``torch.profiler`` Chrome trace), GET ``/debug/trace/{request_id}`` and
+``/debug/steps`` (the tracer's flight recorder), ``/debug/compiles``
+and ``/debug/memory`` (the observatory's ledgers). That is 17 of the
+24 routes the JAX server registers. Each of the other 7
+(``UNPORTED_ROUTES``: embeddings, score, rerank and autotune) answers
+501 with a message naming its feature; a path neither server has
+answers 404.
+
+Disaggregated serving (``--engine-role``): a prefill-role engine
+answers ``/v1/disagg/prefill`` with a handoff descriptor (the prompt,
+the first token, the shipped pages' tier keys and bytes) after shipping
+the prompt's committed pages to the offload tier; a decode-role engine
+takes the descriptor at ``/v1/disagg/handoff``, restores the pages
+(or recomputes) and streams from the first token on. The descriptor is
+the JAX server's, so either server takes the other's. A monolithic
+engine (``both``) serves both routes; a decode-role engine answers the
+prefill route, and a prefill-role engine the handoff route, with 503
+and ``Retry-After``.
+
+Tracing: by default the server installs a tracer (engine/tracing.py)
+with a flight recorder of ``--trace-ring-size`` requests (256); with
+``--request-span-log`` it also writes one JSON span line per finished
+request. ``--trace-ring-size 0`` and no span log install none.
 
 Fleet contract, as the JAX server keeps it:
 - QoS headers: ``x-priority`` (interactive | batch | background; any
@@ -40,7 +62,7 @@ Fleet contract, as the JAX server keeps it:
   Streams are sent with chunked transfer encoding, so a cut reads as
   one to the client.
 
-Flags: 36 of the JAX server's 75, with the same names, defaults and
+Flags: 41 of the JAX server's 75, with the same names, defaults and
 meanings (``parse_args``); the others are absent and argparse refuses
 them. ``--device`` is the port's own (the card unless ``cpu`` is asked
 for).
@@ -70,9 +92,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import queue
+import tempfile
 import threading
 import time
+import urllib.parse
 import uuid
 from http import HTTPStatus
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -89,15 +114,16 @@ from production_stack_tpu_torch.engine.config import (
     tiny_model_config,
 )
 from production_stack_tpu_torch.engine.engine import LLMEngine, StepOutput
-from production_stack_tpu_torch.engine.sequence import SamplingParams
-from production_stack_tpu_torch.engine.step_graphs import (
-    EAGER_REASONS,
-    STEP_KINDS,
+from production_stack_tpu_torch.engine.model_runner import (
+    unified_step_eligible,
 )
+from production_stack_tpu_torch.engine.sequence import SamplingParams
+from production_stack_tpu_torch.engine.step_graphs import EAGER_REASONS
 from production_stack_tpu_torch.engine.tokenizer import (
     BenchTokenizer,
     render_chat_prompt,
 )
+from production_stack_tpu_torch.engine.tracing import EngineTracer
 from production_stack_tpu_torch.kvecon.summary import (
     PrefixSummaryTracker,
     routable_text,
@@ -163,9 +189,14 @@ class EngineLoop:
                 self.engine.add_resume(
                     item["tokens"], item["prior"], item["sampling"],
                     seq_id=seq_id, request_id=item.get("request_id"))
+            elif item.get("kind") == "handoff":
+                self.engine.add_handoff(
+                    item["prompt"], item["first_token"], item["sampling"],
+                    seq_id=seq_id, request_id=item.get("request_id"))
             else:
                 self.engine.add_request(
                     item["prompt"], item["sampling"], seq_id=seq_id,
+                    handoff_prefill=item.get("handoff_prefill", False),
                     request_id=item.get("request_id"),
                     priority=item.get("priority"),
                     spec_off=item.get("spec_off", False))
@@ -184,7 +215,10 @@ class EngineLoop:
             except queue.Empty:
                 item = None
             if item is not None:
-                self._admit(item)
+                if item.get("kind") == "call":
+                    self._call(item)
+                else:
+                    self._admit(item)
                 continue  # admit as many as possible before stepping
             if not self.engine.has_work():
                 continue
@@ -207,6 +241,29 @@ class EngineLoop:
             for out in outputs:
                 self._emit(out)
 
+    @staticmethod
+    def _call(item: dict) -> None:
+        try:
+            item["result"] = item["fn"]()
+        except Exception as e:  # handed to the caller's thread
+            item["error"] = e
+        item["done"].set()
+
+    def call(self, fn):
+        """Run ``fn()`` on the loop thread between two steps and return
+        its result (or raise its exception) here: state that belongs to
+        the step thread (the profiler's, which records that thread's
+        operations) is set from there. With the loop not running, here."""
+        if not self._thread.is_alive():
+            return fn()
+        item = {"kind": "call", "fn": fn, "done": threading.Event()}
+        self._submit_q.put(item)
+        self._wakeup.set()
+        item["done"].wait()
+        if "error" in item:
+            raise item["error"]
+        return item["result"]
+
     def _emit(self, out: StepOutput) -> None:
         stream = self._streams.get(out.seq_id)
         if stream is not None:
@@ -214,7 +271,8 @@ class EngineLoop:
 
     def submit(self, prompt: List[int], samplings: List[SamplingParams],
                priority: Optional[int] = None, spec_off: bool = False,
-               request_id: Optional[str] = None
+               request_id: Optional[str] = None,
+               handoff_prefill: bool = False
                ) -> Tuple[List[str], "queue.Queue"]:
         """One engine request a sampling, over the shared prompt;
         returns their sequence ids and the queue of their (index,
@@ -227,10 +285,19 @@ class EngineLoop:
             self._submit_q.put({
                 "seq_id": seq_id, "prompt": prompt, "sampling": sampling,
                 "priority": priority, "spec_off": spec_off,
-                "request_id": request_id})
+                "request_id": request_id,
+                "handoff_prefill": handoff_prefill})
             seq_ids.append(seq_id)
         self._wakeup.set()
         return seq_ids, stream
+
+    def _submit_one(self, item: dict) -> Tuple[str, "queue.Queue"]:
+        seq_id = item["seq_id"] = f"seq-{uuid.uuid4().hex[:16]}"
+        stream: "queue.Queue" = queue.Queue()
+        self._streams[seq_id] = (stream, 0)
+        self._submit_q.put(item)
+        self._wakeup.set()
+        return seq_id, stream
 
     def submit_resume(self, tokens: List[int], prior: int,
                       sampling: SamplingParams,
@@ -238,15 +305,20 @@ class EngineLoop:
                       ) -> Tuple[str, "queue.Queue"]:
         """Submit a stream's resume journal; its queue carries only the
         new tokens (the handler replays the journal)."""
-        seq_id = f"seq-{uuid.uuid4().hex[:16]}"
-        stream: "queue.Queue" = queue.Queue()
-        self._streams[seq_id] = (stream, 0)
-        self._submit_q.put({"kind": "resume", "seq_id": seq_id,
-                            "tokens": tokens, "prior": prior,
-                            "sampling": sampling,
-                            "request_id": request_id})
-        self._wakeup.set()
-        return seq_id, stream
+        return self._submit_one({"kind": "resume", "tokens": tokens,
+                                 "prior": prior, "sampling": sampling,
+                                 "request_id": request_id})
+
+    def submit_handoff(self, prompt: List[int], first_token: int,
+                       sampling: SamplingParams,
+                       request_id: Optional[str] = None
+                       ) -> Tuple[str, "queue.Queue"]:
+        """Submit a handoff descriptor's sequence; its queue carries
+        the tokens from the second on (the handler has the first)."""
+        return self._submit_one({"kind": "handoff", "prompt": prompt,
+                                 "first_token": first_token,
+                                 "sampling": sampling,
+                                 "request_id": request_id})
 
     def finish_stream(self, seq_id: str) -> None:
         self._streams.pop(seq_id, None)
@@ -600,7 +672,8 @@ class EngineServer:
     (JSON), a str (text) or an iterator of SSE byte frames."""
 
     def __init__(self, engine: LLMEngine, served_model_name: str,
-                 build_id: str = "", drain_exit_timeout_s: float = 0.0):
+                 build_id: str = "", drain_exit_timeout_s: float = 0.0,
+                 profile_dir: Optional[str] = None):
         self.engine = engine
         self.loop = EngineLoop(engine)
         self.model_name = served_model_name
@@ -635,11 +708,20 @@ class EngineServer:
         self.kv_summary = PrefixSummaryTracker(
             top_k=kve.summary_top_k, admit_hits=kve.admit_hits,
             ttl_s=kve.ttl_s)
+        # POST /debug/profiler/start|stop: the default trace directory
+        # (--profile-dir; else a temporary directory made at the first
+        # start), the running profiler and its span id.
+        self.profile_dir = profile_dir
+        self._profiler = None
+        self._profiler_dir: Optional[str] = None
+        self._profiler_span_id: Optional[str] = None
+        self._profiler_lock = threading.Lock()
 
     # ---- health, drain, version, KV summary --------------------------------
 
     def health(self) -> Tuple[int, dict]:
-        state = {"role": "both", "draining": self.draining,
+        state = {"role": self.engine.config.engine_role,
+                 "draining": self.draining,
                  "active_requests": self._active,
                  "build_id": self.build_id}
         limit = self.engine.config.step_watchdog_s
@@ -653,6 +735,15 @@ class EngineServer:
                     logger.error(
                         "Step watchdog tripped: step running for %.3fs "
                         "(limit %.3fs); /health now 503", stuck, limit)
+                    tracer = self.engine.tracer
+                    if tracer is not None:
+                        # A span of its own, so that traceview shows the
+                        # trip beside the requests it stalled.
+                        sid = f"watchdog-{uuid.uuid4().hex[:12]}"
+                        tracer.start(sid, prompt_tokens=0)
+                        tracer.event(sid, "watchdog_trip",
+                                     step_s=round(stuck, 3))
+                        tracer.finish(sid, reason="watchdog")
                 return 503, {"status": "watchdog",
                              "stuck_step_s": round(stuck, 3), **state}
             self._watchdog_tripped = False
@@ -713,7 +804,8 @@ class EngineServer:
             self.on_drain_exit()
 
     def version(self) -> dict:
-        return {"version": __version__, "build_id": self.build_id}
+        return {"version": __version__, "build_id": self.build_id,
+                "role": self.engine.config.engine_role}
 
     def kv_summary_snapshot(self) -> dict:
         """The engine's KV state for the router's KV-aware routing, from
@@ -762,7 +854,7 @@ class EngineServer:
         for name, count in sorted(COUNTERS.launches.items()):
             lines.append("vllm:engine_kernel_launches_total"
                          f'{{kernel="{name}"}} {float(count)}')
-        lines += self._graph_metrics()
+        lines += self._observatory_metrics()
         lines += self._fleet_metrics(stats)
         lines += self.engine.metrics.render()
         lines.append("")
@@ -770,19 +862,25 @@ class EngineServer:
 
     def _fleet_metrics(self, stats: dict) -> List[str]:
         """The fleet side's lines, under the JAX server's names: the
-        AWAITING_KV depth, the KV summary's breadth, the shared tier's
-        counters (0 without a remote tier), the drain gauge, sheds by
-        class and preemptions by outcome; then the engine's checkpoint,
-        resume and offload-tier counters under their ``stats()``
-        names."""
+        disaggregation counters and the AWAITING_KV depth, the KV
+        summary's breadth, the shared tier's counters (0 without a
+        remote tier), the drain gauge, sheds by class and preemptions
+        by outcome; then the engine's checkpoint, resume and
+        offload-tier counters under their ``stats()`` names."""
         ostats = (self.engine.offload.stats()
                   if self.engine.offload is not None else {})
-        lines = ["# TYPE vllm:disagg_awaiting_kv_requests gauge",
-                 "vllm:disagg_awaiting_kv_requests "
-                 f"{float(stats['disagg_awaiting_kv_requests'])}",
-                 "# TYPE vllm:kv_summary_hot_chains gauge",
-                 "vllm:kv_summary_hot_chains "
-                 f"{float(self.kv_summary.hot_count())}"]
+        lines = []
+        for name in ("disagg_prefill_requests_total",
+                     "disagg_decode_requests_total",
+                     "disagg_kv_bytes_shipped_total"):
+            lines += [f"# TYPE vllm:{name} counter",
+                      f"vllm:{name} {float(stats[name])}"]
+        lines += ["# TYPE vllm:disagg_awaiting_kv_requests gauge",
+                  "vllm:disagg_awaiting_kv_requests "
+                  f"{float(stats['disagg_awaiting_kv_requests'])}",
+                  "# TYPE vllm:kv_summary_hot_chains gauge",
+                  "vllm:kv_summary_hot_chains "
+                  f"{float(self.kv_summary.hot_count())}"]
         for name in ("hits", "misses", "admissions", "rejections"):
             lines += [f"# TYPE vllm:kv_cluster_{name}_total counter",
                       f"vllm:kv_cluster_{name}_total "
@@ -808,24 +906,50 @@ class EngineServer:
                       f"{float(ostats.get(name, 0.0))}"]
         return lines
 
-    def _graph_metrics(self) -> List[str]:
-        """The JAX server's compile ledger under its names, types and
-        ``kind`` labels, counting the step graphs' captures and their
-        seconds (warm-up included); every kind at 0 where nothing was
-        captured (the CPU has no graphs). Then the steps the card ran
-        without a graph, by reason."""
+    def _observatory_metrics(self) -> List[str]:
+        """The JAX server's observatory block under its names, types and
+        labels, read from the runner's observatory (nothing without
+        one): the capture ledger (the step graphs' captures by kind and
+        their seconds, warm-up included; every kind at 0 where nothing
+        was captured, as on the CPU), graphs held, analytic device bytes
+        by category, seconds waited on steps and their median by kind,
+        MFU, and the attention path of each phase. Then the steps the
+        card ran without a graph, by reason."""
+        obs = self.engine.runner.observatory
+        lines = []
+        if obs is not None:
+            for name, kind, values in (
+                    ("engine_compile_events_total", "counter",
+                     obs.compile_events_by_kind()),
+                    ("engine_compile_seconds_total", "counter",
+                     obs.compile_seconds_by_kind()),
+                    ("engine_executable_cache_size", "gauge",
+                     obs.executable_cache_sizes())):
+                lines.append(f"# TYPE vllm:{name} {kind}")
+                lines += [f'vllm:{name}{{kind="{k}"}} {float(v)}'
+                          for k, v in sorted(values.items())]
+            lines.append("# TYPE vllm:engine_hbm_bytes gauge")
+            lines += [f'vllm:engine_hbm_bytes{{category="{c}"}} {float(n)}'
+                      for c, n in sorted(obs.hbm_bytes().items())]
+            lines.append(
+                "# TYPE vllm:engine_step_device_seconds_total counter")
+            lines += ["vllm:engine_step_device_seconds_total"
+                      f'{{kind="{k}"}} {float(v)}' for k, v in
+                      sorted(obs.device_seconds_by_kind().items())]
+            lines.append("# TYPE vllm:engine_step_time_median_seconds gauge")
+            lines += ["vllm:engine_step_time_median_seconds"
+                      f'{{kind="{k}"}} {float(v)}' for k, v in
+                      sorted(obs.step_time_medians().items())]
+            lines += ["# TYPE vllm:engine_mfu gauge",
+                      f"vllm:engine_mfu {float(obs.mfu())}",
+                      "# TYPE vllm:engine_attention_impl gauge"]
+            lines += ["vllm:engine_attention_impl"
+                      f'{{phase="{phase}",impl="{impl}"}} 1.0'
+                      for phase, impl in
+                      sorted(obs.attention_impls().items())]
         graphs = self.engine.runner.graphs
-        events = graphs.captures if graphs else dict.fromkeys(STEP_KINDS, 0)
-        seconds = (graphs.capture_seconds if graphs
-                   else dict.fromkeys(STEP_KINDS, 0.0))
         eager = (graphs.eager_steps if graphs
                  else dict.fromkeys(EAGER_REASONS, 0))
-        lines = ["# TYPE vllm:engine_compile_events_total counter"]
-        lines += [f'vllm:engine_compile_events_total{{kind="{kind}"}} '
-                  f"{float(n)}" for kind, n in sorted(events.items())]
-        lines.append("# TYPE vllm:engine_compile_seconds_total counter")
-        lines += [f'vllm:engine_compile_seconds_total{{kind="{kind}"}} '
-                  f"{float(s)}" for kind, s in sorted(seconds.items())]
         lines.append("# TYPE vllm:engine_eager_steps_total counter")
         lines += [f'vllm:engine_eager_steps_total{{reason="{reason}"}} '
                   f"{float(n)}" for reason, n in sorted(eager.items())]
@@ -1063,6 +1187,9 @@ class EngineServer:
             # The frame just sent is the whole resume state: cut the
             # stream so the router resumes it on another replica (the
             # marker tells it the cut is a migration, not a crash).
+            tracer = self.engine.tracer
+            if tracer is not None:
+                tracer.event(seq_id, "migrate_ship")
             yield MIGRATING_FRAME
             yield STREAM_CUT
 
@@ -1208,7 +1335,10 @@ class EngineServer:
         """The resumed stream's new text pieces, then ``(completion
         tokens, finish reason)`` last: the journal's outputs are
         replayed through a fresh ``Choice`` (detokenizer and stop
-        scanner), the first ``delivered`` characters skipped."""
+        scanner), the first ``delivered`` characters skipped. A handoff
+        takes the same path, its journal the first token (``seq_id``
+        None and ``first`` a finished output when no engine sequence
+        continues it)."""
         choice = Choice(self.tokenizer, sampling, self._lp_json)
         skip = delivered
 
@@ -1239,12 +1369,12 @@ class EngineServer:
         yield choice.n_tokens, choice.finish_reason
 
     def _resume_stream(self, seq_id, texts, chat, rid, created, model,
-                       identity, sampling):
+                       identity, sampling, role_chunk: bool = False):
+        """A resumed (or, with ``role_chunk``, a handed-off) stream's
+        SSE frames. A resume has no role chunk: the first leg sent it."""
         obj = "chat.completion.chunk" if chat else "text_completion"
 
         def chunk(delta: Optional[str], finish: Optional[str]) -> bytes:
-            # Shaped as the first leg's chunks, with no role chunk (the
-            # first leg sent it).
             if chat:
                 choice = {"index": 0,
                           "delta": {"content": delta} if delta else {},
@@ -1255,6 +1385,11 @@ class EngineServer:
             return _frame({"id": rid, "object": obj, "created": created,
                            "model": model, "choices": [choice]})
 
+        if role_chunk and chat:
+            yield _frame({"id": rid, "object": obj, "created": created,
+                          "model": model, "choices": [{
+                              "index": 0, "delta": {"role": "assistant"},
+                              "finish_reason": None}]})
         try:
             for item in texts:
                 if not isinstance(item, str):
@@ -1270,13 +1405,268 @@ class EngineServer:
             texts.close()
         yield b"data: [DONE]\n\n"
 
+    # ---- disaggregated serving ---------------------------------------------
+
+    def _wrong_role(self, role: str, route: str) -> Optional[tuple]:
+        """503 + Retry-After when this engine's role is ``role``: the
+        router sends the request to an engine of the other pool."""
+        if self.engine.config.engine_role != role:
+            return None
+        return _error(503, f"{route}: this engine serves the {role} role",
+                      headers={"Retry-After": "1"})
+
+    def disagg_prefill(self, body: dict, headers=None) -> tuple:
+        """POST /v1/disagg/prefill: run the prompt through chunked
+        prefill, ship its committed pages to the offload tier and answer
+        the handoff descriptor a decode-role engine continues from. The
+        first sampled token rides the descriptor. Without a tier the
+        descriptor names no page and the decode side recomputes."""
+        headers = headers or {}
+        refused = self._wrong_role("decode", "/v1/disagg/prefill")
+        if refused is not None:
+            return refused
+        messages = body.get("messages")
+        chat = isinstance(messages, list)
+        try:
+            if chat:
+                prompt = render_chat_prompt(self.tokenizer, messages)
+            else:
+                prompt_in = body.get("prompt", "")
+                if (isinstance(prompt_in, list) and prompt_in
+                        and isinstance(prompt_in[0], int)):
+                    prompt = list(prompt_in)
+                elif isinstance(prompt_in, list):
+                    prompt = self.tokenizer.encode("".join(prompt_in))
+                else:
+                    prompt = self.tokenizer.encode(str(prompt_in))
+            sampling = sampling_from_body(
+                body, self.engine.config.scheduler.max_model_len,
+                vocab_size=self.engine.config.model.vocab_size)
+        except (BadRequest, TypeError, ValueError) as e:
+            return _error(400, str(e), "invalid_request_error")
+        requested = body.get("model")
+        if (sampling.guided is not None or sampling.logprobs
+                or (requested is not None
+                    and requested != self.model_name)):
+            # Guided automaton state and first-token logprobs do not
+            # cross a handoff, and adapters are not served.
+            return _error(400, "request cannot be disaggregated (guided "
+                          "decoding, logprobs and LoRA adapters are "
+                          "monolithic-only)", "invalid_request_error")
+        max_prompt = self.engine.config.scheduler.max_model_len - 1
+        if len(prompt) > max_prompt:
+            return _error(400, f"Prompt is {len(prompt)} tokens; maximum "
+                          f"is {max_prompt}", "invalid_request_error")
+        (seq_id,), queue_ = self.loop.submit(
+            prompt, [sampling], request_id=headers.get("x-request-id"),
+            handoff_prefill=True)
+        try:
+            _, out = queue_.get()
+        finally:
+            self.loop.finish_stream(seq_id)
+        if out.new_token is None and out.finish_reason == "abort":
+            return _error(503, "prefill engine rejected the request",
+                          headers={"Retry-After": "1"})
+        info = (self.engine.take_handoff_info(seq_id)
+                or {"num_pages": 0, "kv_bytes": 0, "page_keys": []})
+        return 200, {"descriptor": {
+            "version": 1,
+            "request_id": seq_id,
+            "chat": chat,
+            "model": self.model_name,
+            "token_ids": list(prompt),
+            "first_token": out.new_token,
+            # Set when the first token already finished the request
+            # (stop or length): the decode side then sends that token
+            # alone and never touches its engine.
+            "finish_reason": (out.finish_reason
+                              if out.finish_reason != "handoff" else None),
+            "kv_dtype": self.engine.config.cache.resolved_kv_dtype(),
+            "page_keys": info["page_keys"],
+            "num_pages": info["num_pages"],
+            "kv_bytes": info["kv_bytes"],
+            "sampling": _sampling_to_wire(sampling),
+        }}, {}
+
+    def disagg_handoff(self, body: dict, headers=None) -> tuple:
+        """POST /v1/disagg/handoff: continue from a prefill engine's
+        descriptor. The answer (SSE chunks, or one JSON completion with
+        ``"stream": false``, the default) starts with the descriptor's
+        first token; the engine restores the shipped pages (AWAITING_KV)
+        or recomputes, so the request always completes."""
+        headers = headers or {}
+        desc = body.get("descriptor")
+        if not isinstance(desc, dict):
+            return _error(400, "'descriptor' object is required")
+        token_ids = desc.get("token_ids")
+        first_token = desc.get("first_token")
+        if (not isinstance(token_ids, list)
+                or not all(isinstance(t, int) for t in token_ids)
+                or not isinstance(first_token, int)):
+            return _error(400, "descriptor missing token_ids/first_token")
+        refused = self._wrong_role("prefill", "/v1/disagg/handoff")
+        if refused is not None:
+            return refused
+        my_dtype = self.engine.config.cache.resolved_kv_dtype()
+        desc_dtype = desc.get("kv_dtype") or my_dtype
+        if desc_dtype != my_dtype:
+            # 409: this engine can never restore those pages (tier keys
+            # are dtype-namespaced); the router falls back to a
+            # monolithic recompute.
+            return _error(409, "handoff KV not restorable here (descriptor "
+                          f"kv_dtype {desc_dtype!r}, engine {my_dtype!r})")
+        try:
+            sampling = _sampling_from_wire(desc.get("sampling") or {})
+        except Exception as e:
+            return _error(400, f"bad descriptor sampling: {e}")
+        chat = bool(desc.get("chat", True))
+        rid = ("chatcmpl-" if chat else "cmpl-") + uuid.uuid4().hex[:16]
+        created = int(time.time())
+        finish_hint = desc.get("finish_reason")
+        seq_id, queue_ = None, None
+        first = StepOutput(None, None, True, finish_hint or "length")
+        if not finish_hint and sampling.max_tokens > 1:
+            seq_id, queue_ = self.loop.submit_handoff(
+                token_ids, first_token, sampling,
+                request_id=headers.get("x-request-id"))
+            # Peek the first engine output, so a refused submission is a
+            # retryable 503 and not a stream that aborts after its
+            # headers.
+            _, first = queue_.get()
+            if (first.finished and first.new_token is None
+                    and first.finish_reason == "abort"):
+                self.loop.finish_stream(seq_id)
+                return _error(503, "decode engine rejected the handoff",
+                              headers={"Retry-After": "1"})
+        texts = self._resume_texts(seq_id, queue_, first, sampling,
+                                   [first_token], 0)
+        if bool(body.get("stream", False)):
+            return 200, self._resume_stream(
+                seq_id, texts, chat, rid, created, self.model_name, None,
+                sampling, role_chunk=True), {}
+        pieces = list(texts)
+        n_tokens, finish = pieces.pop()
+        text = "".join(pieces)
+        choice = ({"index": 0, "message": {"role": "assistant",
+                                           "content": text},
+                   "finish_reason": finish} if chat else
+                  {"index": 0, "text": text, "finish_reason": finish})
+        return 200, {"id": rid, "object": ("chat.completion" if chat
+                                           else "text_completion"),
+                     "created": created, "model": self.model_name,
+                     "choices": [choice],
+                     "usage": _usage(len(token_ids), n_tokens)}, {}
+
+    # ---- debug routes ------------------------------------------------------
+
+    def profiler_start(self, query: dict, headers=None) -> tuple:
+        """POST /debug/profiler/start[?dir=]: start ``torch.profiler``
+        (host operations of the step thread, and the card's kernels and
+        copies); the stop writes a Chrome trace into ``dir``, else
+        ``--profile-dir``, else a temporary directory. 409 while one
+        runs. With a tracer the capture window is a span of its own."""
+        import torch.profiler as tprof
+        headers = headers or {}
+        with self._profiler_lock:
+            if self._profiler is not None:
+                return _error(409, "profiler already running")
+            trace_dir = (query.get("dir") or self.profile_dir
+                         or tempfile.mkdtemp(prefix="torch-trace-"))
+            activities = [tprof.ProfilerActivity.CPU]
+            if self.engine.runner.device.type == "cuda":
+                activities.append(tprof.ProfilerActivity.CUDA)
+            prof = tprof.profile(activities=activities)
+            # Started on the step thread: the profiler records the
+            # operations of the thread that starts it.
+            self.loop.call(prof.start)
+            self._profiler, self._profiler_dir = prof, trace_dir
+        tracer = self.engine.tracer
+        if tracer is not None:
+            sid = f"prof-{uuid.uuid4().hex[:12]}"
+            self._profiler_span_id = sid
+            tracer.start(sid, request_id=headers.get("x-request-id"),
+                         prompt_tokens=0)
+            tracer.event(sid, "profiler_start", dir=trace_dir)
+        return 200, {"status": "started", "dir": trace_dir}, {}
+
+    def profiler_stop(self) -> tuple:
+        """POST /debug/profiler/stop: stop the profiler and write its
+        Chrome trace (named in the answer); 409 when none runs."""
+        with self._profiler_lock:
+            prof, self._profiler = self._profiler, None
+            if prof is None:
+                return _error(409, "profiler not running")
+            self.loop.call(prof.stop)
+            os.makedirs(self._profiler_dir, exist_ok=True)
+            path = os.path.join(
+                self._profiler_dir,
+                f"trace-{time.strftime('%Y%m%d-%H%M%S')}-"
+                f"{uuid.uuid4().hex[:6]}.json")
+            prof.export_chrome_trace(path)
+        tracer = self.engine.tracer
+        sid, self._profiler_span_id = self._profiler_span_id, None
+        if tracer is not None and sid is not None:
+            tracer.event(sid, "profiler_stop")
+            tracer.finish(sid, reason="profiler", arrival_ts=time.time())
+        return 200, {"status": "stopped", "trace": path}, {}
+
+    @staticmethod
+    def _limit(query: dict, default: int) -> Optional[int]:
+        try:
+            return int(query.get("limit", default))
+        except (TypeError, ValueError):
+            return None
+
+    def debug_trace(self, request_id: str) -> tuple:
+        """GET /debug/trace/{request_id}: the flight recorder's event
+        timelines of one request, by the router's x-request-id or the
+        engine's sequence id."""
+        tracer = self.engine.tracer
+        if tracer is None:
+            return _error(404, "tracing disabled")
+        found = tracer.lookup(request_id)
+        if found is None:
+            return _error(404, "no trace for that id (expired from the "
+                          "ring or never seen)")
+        return 200, found, {}
+
+    def debug_steps(self, query: dict) -> tuple:
+        """GET /debug/steps[?limit=N]: the most recent step records,
+        oldest first."""
+        tracer = self.engine.tracer
+        if tracer is None:
+            return _error(404, "tracing disabled")
+        limit = self._limit(query, 100)
+        if limit is None:
+            return _error(400, "limit must be an integer")
+        return 200, {"steps": tracer.recent_steps(limit=limit)}, {}
+
+    def debug_compiles(self, query: dict) -> tuple:
+        """GET /debug/compiles[?limit=N]: the observatory's capture
+        ledger: events and seconds by kind, graphs held, the ring of
+        recent captures with their bucket shapes (``timings`` empty: no
+        dispatch wall is measured)."""
+        obs = self.engine.runner.observatory
+        if obs is None:
+            return _error(404, "observatory disabled")
+        limit = self._limit(query, 32)
+        if limit is None:
+            return _error(400, "limit must be an integer")
+        return 200, obs.compile_report(limit=limit), {}
+
+    def debug_memory(self) -> tuple:
+        """GET /debug/memory: the observatory's memory ledger: the
+        analytic bytes by category and, on the card,
+        ``torch.cuda.memory_stats``."""
+        obs = self.engine.runner.observatory
+        if obs is None:
+            return _error(404, "observatory disabled")
+        return 200, obs.memory_report(), {}
+
 
 # The JAX server's routes this server does not serve: (method, path,
-# feature). A path ending in "/" is a prefix (the JAX server's
-# /debug/trace/{request_id}).
+# feature).
 UNPORTED_ROUTES = (
-    ("POST", "/v1/disagg/prefill", "disaggregated prefill"),
-    ("POST", "/v1/disagg/handoff", "disaggregated KV handoff"),
     ("POST", "/v1/embeddings", "embeddings"),
     ("POST", "/v1/score", "scoring"),
     ("POST", "/score", "scoring"),
@@ -1284,12 +1674,6 @@ UNPORTED_ROUTES = (
     ("POST", "/rerank", "reranking"),
     ("GET", "/autotune/status", "autotuning"),
     ("POST", "/autotune/reset", "autotuning"),
-    ("POST", "/debug/profiler/start", "device profiler"),
-    ("POST", "/debug/profiler/stop", "device profiler"),
-    ("GET", "/debug/trace/", "request traces"),
-    ("GET", "/debug/steps", "step ledger"),
-    ("GET", "/debug/compiles", "compile ledger"),
-    ("GET", "/debug/memory", "memory ledger"),
 )
 
 
@@ -1297,9 +1681,7 @@ def unported_feature(method: str, path: str) -> Optional[str]:
     """The feature of a JAX-server route this server does not serve,
     or None."""
     for m, route, feature in UNPORTED_ROUTES:
-        prefix = route.endswith("/")
-        if m == method and (path.startswith(route) and len(path) > len(route)
-                            if prefix else path == route):
+        if (m, route) == (method, path):
             return feature
     return None
 
@@ -1335,10 +1717,27 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(data)
 
+    def _query(self) -> dict:
+        return {k: v[-1] for k, v in urllib.parse.parse_qs(
+            urllib.parse.urlsplit(self.path).query).items()}
+
     def do_GET(self):
         app = self.server.app
         path = self.path.split("?", 1)[0]
-        if path == "/health":
+        debug = {
+            "/debug/steps": lambda: app.debug_steps(self._query()),
+            "/debug/compiles": lambda: app.debug_compiles(self._query()),
+            "/debug/memory": app.debug_memory,
+        }
+        trace_prefix = "/debug/trace/"
+        if path in debug:
+            status, body, headers = debug[path]()
+            self._send(status, body, headers=headers)
+        elif path.startswith(trace_prefix) and len(path) > len(trace_prefix):
+            status, body, headers = app.debug_trace(urllib.parse.unquote(
+                path[len(trace_prefix):]))
+            self._send(status, body, headers=headers)
+        elif path == "/health":
             self._send(*app.health())
         elif path == "/v1/models":
             self._send(200, app.models())
@@ -1378,12 +1777,26 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(200, app.drain(body if isinstance(body, dict)
                                       else {}))
             return
+        profiler = {
+            "/debug/profiler/start": lambda: app.profiler_start(
+                self._query(), self.headers),
+            "/debug/profiler/stop": app.profiler_stop,
+        }
+        if path in profiler:
+            self.rfile.read(int(self.headers.get("Content-Length") or 0))
+            status, body, headers = profiler[path]()
+            self._send(status, body, headers=headers)
+            return
         handlers = {
             "/v1/completions": lambda b: app.complete(b, False,
                                                       self.headers),
             "/v1/chat/completions": lambda b: app.complete(b, True,
                                                            self.headers),
             "/v1/resume": lambda b: app.resume(b, self.headers),
+            "/v1/disagg/prefill": lambda b: app.disagg_prefill(
+                b, self.headers),
+            "/v1/disagg/handoff": lambda b: app.disagg_handoff(
+                b, self.headers),
         }
         if path not in handlers:
             self._no_route("POST", path)
@@ -1456,11 +1869,13 @@ def _resolve(flag: str, eligible: bool = True) -> bool:
     """--async-scheduling / --unified-step auto|on|off: 'auto' is on
     where the JAX engine's 'auto' turns the feature on, else off; an
     explicit 'on' is honoured. The port serves one model on one device,
-    so 'auto' turns the unified step on always and the async pipeline
-    on for single-step decode without --speculative-k (the JAX
+    so 'auto' turns the unified step on for a monolithic engine
+    (``unified_step_eligible``: a role engine never holds prefill and
+    decode work at once) and the async pipeline on for single-step
+    decode without --speculative-k on any role but prefill (the JAX
     engine's async_scheduling_eligible: a burst already amortizes the
-    host round trip, and a verify step's commit count is
-    data-dependent)."""
+    host round trip, a verify step's commit count is data-dependent,
+    and a prefill-role engine has no decode step to overlap)."""
     return flag == "on" or (flag == "auto" and eligible)
 
 
@@ -1488,8 +1903,12 @@ def build_engine_from_args(args) -> tuple:
             decode_steps=args.decode_steps,
             async_scheduling=_resolve(
                 args.async_scheduling,
-                eligible=args.decode_steps <= 1 and args.speculative_k == 0),
-            unified_step=_resolve(args.unified_step),
+                eligible=(args.decode_steps <= 1 and args.speculative_k == 0
+                          and args.engine_role != "prefill")),
+            unified_step=_resolve(
+                args.unified_step,
+                eligible=unified_step_eligible(
+                    engine_role=args.engine_role)),
             speculative_k=args.speculative_k,
             speculative_min_match=args.speculative_min_match,
             max_queue_len=args.max_queue_len),
@@ -1508,13 +1927,22 @@ def build_engine_from_args(args) -> tuple:
             watermark_high=args.kv_watermark_high,
             watermark_low=args.kv_watermark_low),
         seed=args.seed,
+        engine_role=args.engine_role,
         handoff_timeout_s=args.handoff_timeout_s,
+        device_peak_flops=args.device_peak_flops,
         checkpoint_interval_tokens=args.checkpoint_interval_tokens,
         step_watchdog_s=args.step_watchdog_s,
     )
     engine = LLMEngine(config,
                        tokenizer=BenchTokenizer(model_config.vocab_size),
                        device=args.device)
+    if args.request_span_log or args.trace_ring_size > 0:
+        # The server's default: the flight recorder on, the span log
+        # off. An engine built as a library keeps tracer None.
+        engine.tracer = EngineTracer(
+            span_log_path=args.request_span_log,
+            ring_size=max(1, args.trace_ring_size),
+            role=args.engine_role)
     return engine, args.served_model_name or args.model
 
 
@@ -1629,6 +2057,33 @@ def parse_args(argv=None):
     p.add_argument("--kv-watermark-low", type=float, default=1.0,
                    help="Fill fraction the host KV pool drains down to "
                         "once the high watermark trips")
+    # Disaggregation, the profiler and the observatory, request tracing.
+    p.add_argument("--engine-role", default="both",
+                   choices=["prefill", "decode", "both"],
+                   help="Disaggregated serving role: 'prefill' computes "
+                        "prompt KV and hands off over the offload tier, "
+                        "'decode' continues handoffs, 'both' (default) "
+                        "serves monolithically; reported in /health")
+    p.add_argument("--profile-dir", "--profiler-dir", dest="profile_dir",
+                   default=None,
+                   help="Default output directory of the Chrome traces "
+                        "of /debug/profiler/start (--profiler-dir is an "
+                        "alias); unset, a temporary directory")
+    p.add_argument("--device-peak-flops", type=float, default=0.0,
+                   help="Per-card peak FLOP/s for the observatory's "
+                        "vllm:engine_mfu gauge; 0 resolves from the "
+                        "device-name table (unknown devices report MFU "
+                        "0)")
+    p.add_argument("--request-span-log", default=None,
+                   help="Write one JSON engine-span line per finished "
+                        "request to this path ('-' = the engine log); "
+                        "stitch with the router's spans by python -m "
+                        "production_stack_tpu.traceview")
+    p.add_argument("--trace-ring-size", type=int, default=256,
+                   help="Flight-recorder depth: recent request timelines "
+                        "kept for /debug/trace/{id} and step records for "
+                        "/debug/steps; 0 turns the recorder (and, with no "
+                        "--request-span-log, all tracing) off")
     return p.parse_args(argv)
 
 
@@ -1640,16 +2095,18 @@ def make_server(argv=None) -> EngineHTTPServer:
                             EngineServer(
                                 engine, served_name,
                                 build_id=args.build_id,
-                                drain_exit_timeout_s=args.drain_exit_timeout_s))
+                                drain_exit_timeout_s=args.drain_exit_timeout_s,
+                                profile_dir=args.profile_dir))
 
 
 def main(argv=None) -> None:
     server = make_server(argv)
     host, port = server.server_address[:2]
     cache = server.app.engine.config.cache
-    logger.info("Serving %s on http://%s:%d (device %s, KV cache %s %s, "
-                "%d pages of %d tokens)", server.app.model_name, host,
-                port, server.app.engine.runner.device,
+    logger.info("Serving %s on http://%s:%d (role %s, device %s, KV cache "
+                "%s %s, %d pages of %d tokens)", server.app.model_name,
+                host, port, server.app.engine.config.engine_role,
+                server.app.engine.runner.device,
                 cache.resolved_kv_dtype(), cache.cache_layout,
                 cache.num_pages, cache.page_size)
     try:

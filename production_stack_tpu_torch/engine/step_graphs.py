@@ -47,6 +47,10 @@ the counterpart of the JAX jit lattice, where an absent option input or
   kernels that do not run; they are taken back then and added on every
   replay, so the counters say what the card ran.
 
+Each capture is also reported to the runner's observatory
+(``engine/perf_observatory.py``: kind, seconds, bucket shape), whose
+capture ledger ``/metrics`` and ``GET /debug/compiles`` read.
+
 The closure captured is replayed as it is: it must read nothing but the
 entry's static inputs. A capture or a replay that fails raises; there
 is no eager fallback.
@@ -171,12 +175,15 @@ class StepGraphs:
     and captured) at the key's first use only, and must read nothing
     but those inputs and state that lives at fixed addresses (weights,
     KV caches, registered generators). ``graph_factory`` builds a graph
-    (default: ``CudaGraph`` in the shared pool)."""
+    (default: ``CudaGraph`` in the shared pool). ``observatory`` (a
+    ``PerfObservatory`` or None) is told of every capture."""
 
     def __init__(self, device: torch.device,
                  generators: Sequence[torch.Generator] = (),
-                 graph_factory: Optional[Callable[[], object]] = None):
+                 graph_factory: Optional[Callable[[], object]] = None,
+                 observatory=None):
         self.device = device
+        self.observatory = observatory
         self._pool = None
         if graph_factory is None:
             self._pool = torch.cuda.graph_pool_handle()
@@ -213,7 +220,7 @@ class StepGraphs:
         if entry is None:
             entry = _Entry(arrays, self.device)
             entry.load(arrays, token_source)
-            self._capture(kind, entry, body)
+            self._capture(kind, tuple(shape), entry, body)
             self._entries[key] = entry
         else:
             entry.load(arrays, token_source)
@@ -224,7 +231,8 @@ class StepGraphs:
             return tuple(t.clone() for t in entry.output)
         return entry.output.clone()
 
-    def _capture(self, kind: str, entry: _Entry, body) -> None:
+    def _capture(self, kind: str, shape: Tuple[int, ...], entry: _Entry,
+                 body) -> None:
         fn = functools.partial(body, entry.static)
         graph = self._graph_factory()
         t0 = time.perf_counter()
@@ -243,8 +251,12 @@ class StepGraphs:
             raise TypeError("a step graph's body must return a tensor or "
                             "a tuple of tensors")
         entry.graph, entry.output, entry.launches = graph, output, recorded
+        seconds = time.perf_counter() - t0
         self.captures[kind] += 1
-        self.capture_seconds[kind] += time.perf_counter() - t0
+        self.capture_seconds[kind] += seconds
+        if self.observatory is not None:
+            self.observatory.on_compile(kind, shape, seconds,
+                                        self.captures[kind])
 
     def pool_bytes(self) -> int:
         """Device bytes the graphs' shared pool holds (CUDA only)."""

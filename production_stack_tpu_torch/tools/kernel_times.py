@@ -13,7 +13,11 @@ unified block's 28 decode rows and 12 pad rows alone, whose tiles past
 a row's live slots only write zeros; page size 128) at the bench-1b
 geometry (32 q / 8 kv heads, head_dim 64, bf16), over a bf16 and an
 int8 cache, through the public wrappers of the checkout at ``--repo``
-(default: the checkout this file lies in). Where
+(default: the checkout this file lies in). The unified block also runs
+in the stacked form, its K/V at layer 15 of a [16, ...] cache whose
+other layers are random, timed beside the per-layer launch in the order
+per-layer, stacked, stacked, per-layer (``_stacked`` and
+``_per_layer`` keys, a list of two readings each). Where
 the decode wrapper takes ``num_splits`` it also times the launch's fixed
 cost: a batch of pad rows (every block returns at once) and a batch of
 one-token rows, each at one split and at three (the second adds the
@@ -59,6 +63,28 @@ def _ms(fn, flush, iters=50, warmup=5) -> float:
         pairs.append((start, end))
         torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+# The stacked form: bench-1b's layer count and its last layer.
+STACK = (16, 15)
+
+
+def _stack_at(cache, gen):
+    """A stacked [16, ...] cache (a QuantKV's data and scales alike)
+    holding ``cache`` at layer 15 and random values in the others."""
+    def stack(t):
+        out = torch.empty((STACK[0],) + tuple(t.shape), dtype=t.dtype,
+                          device=t.device)
+        if t.is_floating_point():
+            out.normal_(generator=torch.Generator(t.device).manual_seed(1))
+        else:
+            out.random_(-127, 128,
+                        generator=torch.Generator(t.device).manual_seed(1))
+        out[STACK[1]] = t
+        return out
+    if hasattr(cache, "scale"):
+        return type(cache)(stack(cache.data), stack(cache.scale).abs_())
+    return stack(cache)
 
 
 def _table(kv_lens, ps, max_pages, num_pages, gen, dev):
@@ -178,6 +204,20 @@ def main(argv=None) -> int:
             out[f"paged_ragged_{label}{tag}"] = _ms(
                 lambda: paged_ragged_attention(q, k, v, table, kv_lens, last,
                                                drafts), flush)
+            if label != "unified":
+                continue
+            k5, v5 = _stack_at(k, gen), _stack_at(v, gen)
+            calls = {
+                "per_layer": lambda: paged_ragged_attention(
+                    q, k, v, table, kv_lens, last, drafts),
+                "stacked": lambda: paged_ragged_attention(
+                    q, k5, v5, table, kv_lens, last, drafts,
+                    layer=STACK[1]),
+            }
+            for form in ("per_layer", "stacked", "stacked", "per_layer"):
+                out.setdefault(f"paged_ragged_unified{tag}_{form}",
+                               []).append(_ms(calls[form], flush))
+            del k5, v5
     print(json.dumps(out), flush=True)
     return 0
 

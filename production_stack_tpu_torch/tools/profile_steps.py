@@ -3,7 +3,7 @@
     python -m production_stack_tpu_torch.tools.profile_steps \
         [--kv-cache-dtype auto|bf16|int8] \
         [--cache-layout auto|stacked|per_layer] [--decode-steps K] \
-        [--eager] [--sampling-options]
+        [--eager] [--sampling-options] [--tracer]
 
 Builds an ``LLMEngine`` at the serving configuration of
 ``chip_smoke.py`` (bench-1b at full width, random weights, page_size
@@ -22,6 +22,10 @@ the unified step, as the scheduler rules), and also prints the host's
 time and bytes building the options' inputs per build
 (``ModelRunner._options_payload``) and the sampling step's device time
 at the decode shape with and without the chain (``chain_times``).
+``--tracer`` profiles the graphed path with the request tracer the
+server installs by default (``engine/tracing.py``, a flight recorder of
+256 requests) and without one, in the order on, off, off, on: the
+tracer's cost on a step.
 
 Each profile runs the workload twice in one engine: 32 prompts of 512
 tokens (64 · K tokens each to generate), unprofiled, so that every
@@ -69,6 +73,7 @@ from production_stack_tpu_torch.engine.config import (
 )
 from production_stack_tpu_torch.engine.engine import LLMEngine
 from production_stack_tpu_torch.engine.sequence import SamplingParams
+from production_stack_tpu_torch.engine.tracing import EngineTracer
 
 PROMPTS, PROMPT_LEN = 32, 512
 FILL_STEPS, DECODE_STEPS = 4, 16
@@ -140,6 +145,31 @@ def _add_prompts(engine, rng, vocab, max_tokens, options):
     return seqs
 
 
+class TracerClock:
+    """Host time inside the engine's tracer: wraps its ``start``,
+    ``event``, ``finish`` and ``on_step`` (the calls the engine and the
+    scheduler make), counting calls and seconds."""
+
+    def __init__(self, tracer):
+        self.seconds = 0.0
+        self.calls = 0
+        for name in ("start", "event", "finish", "on_step"):
+            setattr(tracer, name, self._timed(getattr(tracer, name)))
+
+    def _timed(self, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            fn(*args, **kwargs)
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+        return timed
+
+    def take(self):
+        out = (self.seconds, self.calls)
+        self.seconds, self.calls = 0.0, 0
+        return out
+
+
 class PayloadClock:
     """Host time and bytes of the runner's option inputs: wraps
     ``ModelRunner._options_payload`` of one engine."""
@@ -166,10 +196,13 @@ class PayloadClock:
         return out
 
 
-def profile_path(args, cuda_graphs: bool) -> dict:
+def profile_path(args, cuda_graphs: bool, traced: bool = False) -> dict:
     """One engine, one path: the unprofiled pass, then the profiled
-    one. Returns the windows' rows and the graphs' ledger."""
-    path = "graphs" if cuda_graphs else "eager"
+    one. ``traced``: the engine carries the request tracer the server
+    installs by default (a flight recorder of 256 requests). Returns
+    the windows' rows and the graphs' ledger."""
+    path = ("graphs" if cuda_graphs else "eager") + (
+        ", tracer" if traced else "")
     cfg = EngineConfig(
         model=bench_1b_model_config(),
         cache=CacheConfig(page_size=128, num_pages=512,
@@ -180,6 +213,10 @@ def profile_path(args, cuda_graphs: bool) -> dict:
             prefill_batch_size=8, decode_steps=args.decode_steps,
             async_scheduling=args.decode_steps <= 1, unified_step=True))
     engine = LLMEngine(cfg, device="cuda", cuda_graphs=cuda_graphs)
+    tracer_clock = None
+    if traced:
+        engine.tracer = EngineTracer(ring_size=256)
+        tracer_clock = TracerClock(engine.tracer)
     clock = PayloadClock(engine.runner)
     options = args.sampling_options
     print(f"[{path}] KV cache {cfg.cache.resolved_kv_dtype()} "
@@ -264,11 +301,19 @@ def profile_path(args, cuda_graphs: bool) -> dict:
     # The same window unprofiled: wall per token-step, and the host's
     # option inputs per build (one build a dispatched decode step).
     generated = sum(len(s.output_token_ids) for s in seqs)
+    if tracer_clock is not None:
+        tracer_clock.take()
     t0 = time.perf_counter()
     for _ in range(DECODE_STEPS):
         engine.step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if tracer_clock is not None:
+        tracer_s, tracer_calls = tracer_clock.take()
+        out["tracer_us_per_step"] = tracer_s * 1e6 / DECODE_STEPS
+        print(f"{label} unprofiled: {tracer_calls} tracer calls, "
+              f"{out['tracer_us_per_step']:.2f} us a step inside the "
+              f"tracer", flush=True)
     tokens = (sum(len(s.output_token_ids) for s in seqs) - generated) / PROMPTS
     payload_s, payload_bytes, calls = clock.take()
     calls = max(calls, 1)
@@ -375,6 +420,10 @@ def main(argv=None) -> int:
     p.add_argument("--sampling-options", action="store_true",
                    help="every request penalized, biased and asking for "
                         "top-20 logprobs")
+    p.add_argument("--tracer", action="store_true",
+                   help="profile the graphed path with the server's "
+                        "default request tracer and without one: on, "
+                        "off, off, on")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_steps: needs a CUDA device")
@@ -382,9 +431,16 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0], flush=True)
-    order = [True, False, False, True] if args.eager else [True]
-    for cuda_graphs in order:
-        print(json.dumps(profile_path(args, cuda_graphs)), flush=True)
+    if args.tracer:
+        order = [(True, True), (True, False), (True, False), (True, True)]
+    elif args.eager:
+        order = [(True, False), (False, False), (False, False),
+                 (True, False)]
+    else:
+        order = [(True, False)]
+    for cuda_graphs, traced in order:
+        print(json.dumps(profile_path(args, cuda_graphs, traced)),
+              flush=True)
     if args.sampling_options:
         print(json.dumps(chain_times()), flush=True)
     return 0

@@ -122,3 +122,79 @@ def test_stream_margin_outside_the_top_is_infinite():
     """A token that is not among the reference's top logprobs has no
     measured margin: it never passes as a near tie."""
     assert chip_smoke.tie_margin({3: -0.5, 4: -0.6}, 9) == float("inf")
+
+
+# ---- the script's exit: a failed phase fails the run ------------------------
+
+_RUN_WITH_PHASES = r"""
+import collections, importlib.util, sys, types
+import torch
+torch.cuda.is_available = lambda: True
+torch.cuda.get_device_name = lambda *a: "stand-in card"
+torch.cuda.device_count = lambda: 1
+torch.cuda.empty_cache = lambda: None
+import subprocess
+subprocess.run = lambda *a, **k: types.SimpleNamespace(
+    stdout="stand-in card, 700.00 W\n", returncode=0)
+from production_stack_tpu_torch.ops import paged_kv_common
+paged_kv_common.build_kernels = lambda log=None: "kernels.so"
+paged_kv_common.kernel_lib = lambda: None
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+failing = sys.argv[2]
+for name in list(vars(smoke)):
+    if name.endswith("_phase") and callable(getattr(smoke, name)):
+        if name == failing:
+            def fail(*args):
+                raise AssertionError("this phase failed")
+            setattr(smoke, name, fail)
+        else:
+            setattr(smoke, name,
+                    lambda *args: collections.defaultdict(dict))
+sys.argv = sys.argv[:1]
+sys.exit(smoke.main())
+"""
+
+PHASES_RUN_BY_MAIN = ["kernel_phase", "model_phase", "engine_phase",
+                      "graph_phase", "sampling_options_phase",
+                      "serving_phase", "fleet_phase", "disagg_phase"]
+
+
+@pytest.mark.parametrize("failing", PHASES_RUN_BY_MAIN)
+def test_a_failing_phase_exits_non_zero_without_result_lines(tmp_path,
+                                                             failing):
+    """main() runs every phase with no ``try`` around it: a phase that
+    raises ends the run with a non-zero exit and no ``kernels`` or
+    ``ok`` line (every other phase stubbed, the card faked)."""
+    import subprocess
+    import sys
+    root = Path(__file__).resolve().parents[1]
+    script = tmp_path / "run.py"
+    script.write_text(_RUN_WITH_PHASES)
+    proc = subprocess.run(
+        [sys.executable, str(script), str(root / "chip_smoke.py"), failing],
+        capture_output=True, text=True, cwd=root, timeout=120,
+        env={**__import__("os").environ, "PYTHONPATH": str(root)})
+    assert proc.returncode != 0
+    assert "this phase failed" in proc.stderr
+    assert '"ok": true' not in proc.stdout
+    assert '"kernels"' not in proc.stdout
+
+
+def test_the_script_alone_exits_non_zero(tmp_path):
+    """In a directory that holds chip_smoke.py and nothing else of the
+    repo (and here, with no card), the script fails and prints no
+    result line."""
+    import shutil
+    import subprocess
+    import sys
+    root = Path(__file__).resolve().parents[1]
+    shutil.copy(root / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in __import__("os").environ.items()
+           if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"],
+                          capture_output=True, text=True, cwd=tmp_path,
+                          timeout=120, env=env)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

@@ -985,3 +985,71 @@ def test_resume_restores_pages_under_graphs(dev, sched):
                        zip(wire, b.runner.read_page(page_id)))
     finally:
         server.shutdown()
+
+
+# ---- disaggregation on the card: a handoff in each cache form -----------------
+
+
+@pytest.mark.parametrize("cache", [
+    {}, {"kv_cache_dtype": "int8"}, {"cache_layout": "stacked"},
+    {"cache_layout": "stacked", "kv_cache_dtype": "int8"}],
+    ids=["per_layer", "int8", "stacked", "int8_stacked"])
+def test_handoff_restores_the_shipped_pages(dev, cache):
+    """A prefill-role engine on the card ships a prompt's pages to the
+    port's cache server; a decode-role engine restores them under its
+    graphs. The restored pages equal the shipped bytes, the kernels read
+    them, and the stream equals a monolithic engine's on the card."""
+    import threading
+
+    from production_stack_tpu_torch.engine.cache_server import (
+        build_cache_server)
+    from production_stack_tpu_torch.engine.offload import RemoteKVClient
+    from production_stack_tpu_torch.engine.sequence import (
+        SamplingParams, SequenceState)
+
+    server = build_cache_server(256 * 1024 ** 2)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        prompt = [31, 32, 33, 34, 35] * 13  # 4 full pages of 16, a tail
+        sp = dict(temperature=0.0, max_tokens=16, ignore_eos=True)
+        mono = _offload_engine("cuda", checkpoint=0, **dict(cache))
+        ref = mono.generate(list(prompt), SamplingParams(**sp))
+        tier = dict(remote=server.url, host_pool_bytes=0, checkpoint=0,
+                    **cache)
+        pre = _offload_engine("cuda", **tier)
+        sid = pre.add_request(list(prompt), SamplingParams(**sp),
+                              handoff_prefill=True)
+        outs = []
+        while not outs or not outs[-1].finished:
+            outs.extend(pre.step())
+        first, info = outs[-1].new_token, pre.take_handoff_info(sid)
+        assert outs[-1].finish_reason == "handoff"
+        assert info["num_pages"] == 4 and info["kv_bytes"] > 0
+        dec = _offload_engine("cuda", **tier)
+        restored = []
+        register = dec.cache_manager.register_restored_page
+
+        def record(page_id, page_hash):
+            restored.append((page_id, page_hash))
+            register(page_id, page_hash)
+
+        dec.cache_manager.register_restored_page = record
+        COUNTERS.reset()
+        seq = dec.sequences[dec.add_handoff(list(prompt), first,
+                                            SamplingParams(**sp))]
+        while seq.state != SequenceState.FINISHED:
+            dec.step()
+        torch.cuda.synchronize()
+        assert [first] + seq.output_token_ids == ref.output_token_ids
+        assert len(restored) == 4
+        assert sum(COUNTERS.launches.values()) > 0
+        assert not COUNTERS.plain_cuda_calls
+        client = RemoteKVClient(server.url)
+        keys = [dec.offload.key_for(h) for _, h in restored]
+        assert keys == info["page_keys"]
+        for (page_id, page_hash), key in zip(restored, keys):
+            wire = client.get(key)
+            assert all(torch.equal(x, y) for x, y in
+                       zip(wire, dec.runner.read_page(page_id)))
+    finally:
+        server.shutdown()

@@ -102,8 +102,9 @@ def test_version_and_health_carry_the_build_id(weights):
                     build_id="rev-7") as srv:
         status, text, _ = request("GET", srv.url + "/version")
         assert status == 200
+        # The JAX server's fields, and the engine's role.
         assert json.loads(text) == {"version": jax_version,
-                                    "build_id": "rev-7"}
+                                    "build_id": "rev-7", "role": "both"}
         assert __version__ == jax_version
         status, text, _ = request("GET", srv.url + "/health")
         assert status == 200 and json.loads(text) == {

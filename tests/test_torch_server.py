@@ -1,6 +1,7 @@
 """The port's HTTP server on the CPU with the tiny model: the routes and
 JSON shapes of the JAX server, a 501 naming the feature of each JAX
-route the port does not serve, the request options of the JAX server
+route the port does not serve, the role in ``/health`` and the flags'
+names and defaults against the JAX server's, the request options of the JAX server
 (penalties, ``logit_bias``, ``min_tokens``, ``response_format``,
 logprobs in both forms, ``n`` and ``best_of``; twins of the reference's
 ``tests/test_engine_server.py`` cases) with its 400s, and a 400 for a
@@ -20,6 +21,7 @@ from production_stack_tpu.router.stats.engine_stats import EngineStats
 from production_stack_tpu_torch.engine.server import (
     UNPORTED_ROUTES,
     make_server,
+    parse_args,
     unported_feature,
 )
 from production_stack_tpu_torch.engine.step_graphs import (
@@ -73,6 +75,71 @@ def test_health_and_models(base_url):
     status, text = _get(base_url + "/v1/models")
     data = json.loads(text)["data"]
     assert status == 200 and data[0]["id"] == "tiny-llama"
+
+
+@pytest.mark.parametrize("role", ["prefill", "decode", "both"])
+def test_health_and_version_report_the_configured_role(role):
+    """The router's role probe reads ``role`` from /health (the JAX
+    server's field): the configured --engine-role, never a constant."""
+    server = make_server(["--device", "cpu", "--host", "127.0.0.1",
+                          "--port", "0", "--max-model-len", "128",
+                          "--num-pages", "32", "--engine-role", role])
+    thread = threading.Thread(target=server.serve, daemon=True)
+    thread.start()
+    url = "http://127.0.0.1:%d" % server.server_address[1]
+    try:
+        status, text = _get(url + "/health")
+        assert status == 200
+        assert json.loads(text) == {"status": "ok", "role": role,
+                                    "draining": False,
+                                    "active_requests": 0, "build_id": ""}
+        assert json.loads(_get(url + "/version")[1])["role"] == role
+        from production_stack_tpu.router.service_discovery import (
+            K8sServiceDiscovery,
+        )
+        assert K8sServiceDiscovery._probe_role(url) == role
+    finally:
+        server.shutdown()
+        thread.join(timeout=30)
+
+
+def _reference_flags():
+    """{flag: default source text} of every flag the JAX server's
+    parser defines, read from its source as text (no import)."""
+    src = (Path(__file__).resolve().parents[1] / "production_stack_tpu"
+           / "engine" / "server.py").read_text()
+    flags = {}
+    for call in re.findall(r'add_argument\((.*?)\)\n', src, re.S):
+        names = re.findall(r'"(--[a-z0-9-]+)"', call)
+        default = re.search(r"default=([^,\n]+)", call)
+        for name in names:
+            flags[name] = default.group(1).strip() if default else None
+    return flags
+
+
+def test_flags_are_the_jax_servers():
+    """41 of the JAX server's 75 flags, each under its JAX name; the
+    five of disaggregation, the profiler, the observatory and tracing
+    with the JAX defaults. --device is the port's own."""
+    reference = _reference_flags()
+    assert len(reference) == 76  # 75 flags, one with an alias
+    src = (Path(__file__).resolve().parents[1] / "production_stack_tpu_torch"
+           / "engine" / "server.py").read_text()
+    port = set(re.findall(r'add_argument\(\s*"(--[a-z0-9-]+)"', src))
+    assert port - set(reference) == {"--device"}
+    assert len(port) - 1 == 41
+    new = {"--engine-role": "both", "--profile-dir": None,
+           "--device-peak-flops": 0.0, "--request-span-log": None,
+           "--trace-ring-size": 256}
+    args = vars(parse_args([]))
+    for flag, default in new.items():
+        assert flag in port
+        assert reference[flag] == repr(default).replace("'", '"')
+        assert args[flag[2:].replace("-", "_")] == default
+    assert reference["--profiler-dir"] == "None"
+    assert parse_args(["--profiler-dir", "d"]).profile_dir == "d"
+    with pytest.raises(SystemExit):
+        parse_args(["--engine-role", "compute"])
 
 
 def test_completion(base_url):
@@ -140,7 +207,8 @@ def test_metrics_carry_the_compile_ledger_the_router_reads(base_url):
 
 def test_compile_ledger_counts_step_graph_captures():
     """A server whose runner replays step graphs (the CPU stand-in)
-    counts each capture by kind on /metrics, with its seconds."""
+    counts each capture by kind on /metrics, with its seconds (the
+    graphs report to the runner's observatory, which /metrics reads)."""
     server = make_server(["--model", "tiny-llama", "--random-weights",
                           "--device", "cpu", "--host", "127.0.0.1",
                           "--port", "0", "--max-model-len", "256",
@@ -148,7 +216,8 @@ def test_compile_ledger_counts_step_graph_captures():
     runner = server.app.engine.runner
     runner.graphs = StepGraphs(torch.device("cpu"),
                                generators=[runner.generator],
-                               graph_factory=RecordingGraph)
+                               graph_factory=RecordingGraph,
+                               observatory=runner.observatory)
     thread = threading.Thread(target=server.serve, daemon=True)
     thread.start()
     base = "http://127.0.0.1:%d" % server.server_address[1]
@@ -444,7 +513,13 @@ SERVED_ROUTES = {("GET", "/health"), ("GET", "/v1/models"),
                  ("GET", "/metrics"), ("POST", "/v1/completions"),
                  ("POST", "/v1/chat/completions"), ("GET", "/version"),
                  ("GET", "/kv/summary"), ("POST", "/v1/resume"),
-                 ("POST", "/drain")}
+                 ("POST", "/drain"), ("POST", "/v1/disagg/prefill"),
+                 ("POST", "/v1/disagg/handoff"),
+                 ("POST", "/debug/profiler/start"),
+                 ("POST", "/debug/profiler/stop"),
+                 ("GET", "/debug/trace/{request_id}"),
+                 ("GET", "/debug/steps"), ("GET", "/debug/compiles"),
+                 ("GET", "/debug/memory")}
 
 
 def test_every_reference_route_is_served_or_answers_501(base_url):
@@ -465,9 +540,14 @@ def test_every_reference_route_is_served_or_answers_501(base_url):
             continue
         status, text = (_get_status(url) if method == "GET"
                         else _post(url, body))
-        if (method, path) == ("POST", "/v1/resume"):
+        if (method, path) in (("POST", "/v1/resume"),
+                              ("POST", "/v1/disagg/handoff")):
             # Served: a body without a descriptor is the JAX server's 400.
             assert status == 400 and "descriptor" in text, text
+            continue
+        if (method, path) == ("GET", "/debug/trace/{request_id}"):
+            # Served: an id the flight recorder never saw is a 404.
+            assert status == 404 and "no trace" in text, text
             continue
         if (method, path) in SERVED_ROUTES:
             assert status == 200, (method, path, text)
@@ -477,6 +557,7 @@ def test_every_reference_route_is_served_or_answers_501(base_url):
         assert status == 501, (method, path, text)
         message = json.loads(text)["error"]["message"]
         assert feature in message and "not ported" in message
+    assert len(SERVED_ROUTES) == 17
     assert len(UNPORTED_ROUTES) == 24 - len(SERVED_ROUTES)
 
 
