@@ -216,6 +216,37 @@ its result line:
     the prefill side's host ms a shipped page, beside the card's name
     and power limit.
 
+16. autotune: the self-tuning controllers and the pooled routes at the
+    first run's configuration with ``--speculative-k 4``, the unified
+    step on and no prefix cache, on three servers, ``--autotune off``,
+    ``shadow`` and ``on`` (the last two ticking every 50 ms toward a 1
+    ms ITL target, so the prefill budget shrinks). Each streams 16
+    greedy completions of 32 tokens, twice (a warm-up pass, then the
+    counted window), on prompts that draft (4 repeat a block, 12 end on
+    a bigram seen earlier in them), all queued while the engine loop is
+    held, so every server admits the same rows before its first step.
+    Every key the step graphs captured must be in the configuration's
+    lattice (prefill [8, T bucket], decode [32, 1], verify [32, 5],
+    unified [row bucket, W bucket]) and captured once; captures by kind
+    are printed before and after the window. The window must launch all
+    three kernels, no plain version on CUDA tensors and no eager step.
+    ``shadow``'s streams (both passes) must be byte-identical to
+    ``off``'s with no decision applied and no knob moved; ``on`` must
+    apply at least one ``spec_k`` and one ``prefill_budget`` decision,
+    and its greedy streams equal ``off``'s or part at a near tie of
+    ``off``'s engine (``NEAR_TIE_LOGITS``). Printed: each server's tok/s,
+    its ticks' host µs, the knob trajectories, the drift guardrail's
+    baseline (the first non-zero step-time median of each kind) and
+    whether a median passed it by 25%, and ``/autotune/status``. On the
+    ``on`` server, still serving: ``/v1/embeddings`` of 8 inputs of 64
+    to 1024 tokens (one [8, 1024] chunk, three times, ms each and the
+    peak device bytes above the server's): unit norms, the 64-token
+    input alone against padded (cosine at least 0.999), each vector's
+    cosine to the same ``encode`` with f32 weights on the card (the
+    plain reference) at least 0.999; ``/v1/score`` and ``/v1/rerank``
+    equal to the cosines of the same texts' vectors; one
+    ``vllm:engine_eager_steps_total{reason="embed"}`` a chunk.
+
 ``python3 chip_smoke.py --only fleet`` (any phase names) runs the
 kernel build and those phases alone, for development, and prints no
 result lines.
@@ -228,7 +259,8 @@ and unified on), ``launches_by_run`` its count in every run (the fleet
 phase's resume windows as ``fleet_resume`` and, counting the int8
 stacked form, ``fleet_resume_int8_stacked``; the disagg phase's
 decode-role handoff windows as ``disagg_handoff`` and
-``disagg_handoff_int8_stacked``). The last line is the
+``disagg_handoff_int8_stacked``; the autotune phase's ``on`` window as
+``serve_autotune``). The last line is the
 ``ok`` JSON line.
 """
 
@@ -1345,7 +1377,7 @@ def graph_phase(vocab: int) -> None:
             raise AssertionError(f"graphs {label}: greedy streams differ "
                                  f"from the eager run's in rows {rows}")
         if (sum(g["captures"].values()) != len(g["keys"])
-                or g["eager_steps"] != {"seeded": 0}
+                or any(g["eager_steps"].values())
                 or sum(g["replays"].values()) < len(g["keys"])):
             raise AssertionError(
                 f"graphs {label}: expected one capture a key, a replay "
@@ -2758,6 +2790,321 @@ def _disagg_run(run, cache, vocab) -> dict:
     return window
 
 
+# ---- autotune and the pooled routes -----------------------------------------
+
+
+AUTOTUNE_RUN = "serve_autotune"  # the ``on`` server's window
+# The phase's servers: spec decoding on prompts that draft, the unified
+# step on, and no prefix cache, so the warm-up pass and the window run
+# the same steps.
+AUTOTUNE_ARGS = ["--speculative-k", "4", "--unified-step", "on",
+                 "--disable-prefix-caching"]
+# The ``shadow`` and ``on`` servers tick every 50 ms toward an ITL
+# target no decode step meets, so the prefill budget shrinks (in
+# ``on``; ``shadow`` only logs the decisions).
+AUTOTUNE_TICK_ARGS = ["--autotune-interval-s", "0.05",
+                      "--autotune-target-itl-ms", "1"]
+AUTOTUNE_OUT = 32
+EMBED_LENGTHS = np.linspace(64, 1024, 8).round().astype(int)
+
+
+def _autotune_prompts(vocab):
+    """16 greedy prompts of 150..500 tokens that draft: 4 repeat a block
+    of 8..14 tokens (the model tends to continue the loop: drafts
+    accepted), 12 are random with their last two tokens also earlier
+    in the prompt (the proposer drafts that occurrence's continuation,
+    which the model seldom takes: drafts rejected)."""
+    rng = np.random.RandomState(21)
+    prompts = []
+    for i in range(16):
+        n = 500 - 23 * i
+        if i % 4 == 0:
+            block = rng.randint(258, vocab, size=8 + i // 2).tolist()
+            prompts.append((block * (n // len(block) + 1))[:n])
+        else:
+            prompt = rng.randint(258, vocab, size=n).tolist()
+            at = int(rng.randint(10, n // 2))
+            prompts.append(prompt[:-2] + prompt[at:at + 2])
+    return prompts
+
+
+def _graph_lattice(runner) -> set:
+    """(kind, shape) of every key the step graphs may capture at this
+    configuration: prefill steps at [prefill rows, T bucket], decode at
+    [rows, 1], verify at [rows, K + 1], unified at [row bucket,
+    max(T bucket, K + 1)]."""
+    span = runner.unified_span
+    return ({("step", (runner.prefill_width, t)) for t in runner._buckets}
+            | {("step", (runner.decode_width, 1)),
+               ("spec_verify", (runner.decode_width, runner.spec_width))}
+            | {("unified", (r, max(w, span)))
+               for r in runner.unified_row_buckets for w in runner._buckets})
+
+
+def _gated_streams(srv, prompts):
+    """Stream one greedy completion a prompt with the engine loop held
+    until all are queued, in this order, so every server admits the same
+    rows before its first step; returns (texts, seconds from the release
+    to the last frame)."""
+    import http.client
+    gate, held = threading.Event(), threading.Event()
+    while not srv.app.loop._thread.is_alive():
+        time.sleep(0.01)  # a call before the loop runs would not hold it
+
+    def hold():
+        held.set()
+        gate.wait()
+
+    holder = threading.Thread(target=lambda: srv.app.loop.call(hold),
+                              daemon=True)
+    holder.start()
+    held.wait()
+    host, port = srv.url.split("//")[1].split(":")
+    conns = []
+    try:
+        for prompt in prompts:
+            conn = http.client.HTTPConnection(host, int(port), timeout=300)
+            conn.request("POST", "/v1/completions", json.dumps({
+                "prompt": prompt, "max_tokens": AUTOTUNE_OUT,
+                "temperature": 0.0, "ignore_eos": True, "stream": True}),
+                {"Content-Type": "application/json"})
+            resp = conn.getresponse()  # the headers: the request is queued
+            if resp.status != 200:
+                raise AssertionError(f"autotune: {resp.status} "
+                                     f"{resp.read()}")
+            conns.append((conn, resp))
+    finally:
+        t0 = time.perf_counter()
+        gate.set()
+        holder.join()
+    with ThreadPoolExecutor(len(conns)) as pool:
+        raws = list(pool.map(lambda c: c[1].read().decode(), conns))
+    wall = time.perf_counter() - t0
+    for conn, _ in conns:
+        conn.close()
+    return [_text(_sse_events(raw)) for raw in raws], wall
+
+
+def _autotune_run(mode, prompts) -> dict:
+    """One server of the phase: a warm-up pass, then the counted window
+    (the same prompts; counters and captures read around it)."""
+    from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
+    args = AUTOTUNE_ARGS + ["--autotune", mode] + (
+        AUTOTUNE_TICK_ARGS if mode != "off" else [])
+    srv = _Server(args)
+    tuner, runner = srv.app.autotuner, srv.engine.runner
+    graphs, obs = runner.graphs, runner.observatory
+    # Each tick's host µs, knob values and the observatory's step-time
+    # medians (the drift guardrail's input).
+    ticks = []
+    tick = tuner.tick
+
+    def timed_tick(now=None):
+        t0 = time.perf_counter()
+        tick(now)
+        ticks.append(((time.perf_counter() - t0) * 1e6,
+                      tuner.knob_values(), obs.step_time_medians()))
+
+    tuner.tick = timed_tick
+    warm_texts, warm_wall = _gated_streams(srv, prompts)
+    torch.cuda.synchronize()
+    before = dict(graphs.captures)
+    srv.finished.clear()
+    COUNTERS.reset()
+    texts, wall = _gated_streams(srv, prompts)
+    torch.cuda.synchronize()
+    run = {"mode": mode, "srv": srv, "texts": texts, "wall": wall,
+           "warm_texts": warm_texts, "warm_wall": warm_wall,
+           "launches": dict(COUNTERS.launches),
+           "plain": dict(COUNTERS.plain_cuda_calls),
+           "before": before, "after": dict(graphs.captures),
+           "keys": graphs.keys(), "ticks": ticks,
+           "status": json.loads(_http("GET", srv.url
+                                      + "/autotune/status")[1]),
+           "ids": [srv.tokens_after(p) for p in prompts]}
+    lattice = _graph_lattice(runner)
+    outside = [k for k in run["keys"] if (k[0], k[1]) not in lattice]
+    if outside or sum(run["after"].values()) != len(run["keys"]):
+        raise AssertionError(f"autotune {mode}: keys outside the lattice "
+                             f"{outside}, or a key captured twice "
+                             f"(captures {run['after']}, "
+                             f"{len(run['keys'])} keys)")
+    for kernel in KERNELS:
+        if run["launches"].get(kernel, 0) <= 0:
+            raise AssertionError(f"autotune {mode}: the window never "
+                                 f"launched {kernel}")
+    if run["plain"] or any(graphs.eager_steps.values()):
+        raise AssertionError(f"autotune {mode}: plain calls on CUDA "
+                             f"{run['plain']} or eager steps "
+                             f"{graphs.eager_steps}")
+    tokens = len(prompts) * AUTOTUNE_OUT
+    log(f"autotune {mode}: {tokens} tokens in {wall:.3f} s "
+        f"({tokens / wall:.1f} tok/s; warm-up pass {tokens / warm_wall:.1f}"
+        f" tok/s); captures by kind before the window {before}, after "
+        f"{run['after']} ({len(run['keys'])} keys, all in the lattice of "
+        f"{len(lattice)}); launches {run['launches']}; "
+        f"decisions {tuner.decisions_total}, applied {tuner.applied_total}")
+    return run
+
+
+def _trajectory(ticks, name):
+    """The knob's values over the ticks, repeats folded."""
+    out = []
+    for _, knobs, _ in ticks:
+        value = knobs.get(name)
+        if value is not None and (not out or out[-1] != value):
+            out.append(round(value, 4))
+    return out
+
+
+def _drift_report(ticks, band=0.25):
+    """The guardrail's baseline (the first non-zero step-time median of
+    each kind at a tick) and the kinds whose median later passed it by
+    ``band`` (observatory_drift_flags' rule)."""
+    baseline, tripped = {}, set()
+    for _, _, medians in ticks:
+        for kind, median in medians.items():
+            if median <= 0:
+                continue
+            base = baseline.setdefault(kind, median)
+            if median > base * (1.0 + band):
+                tripped.add(kind)
+    return baseline, sorted(tripped)
+
+
+def autotune_phase(vocab: int) -> dict:
+    """Self-tuning and the pooled routes at full width; see the module
+    docstring (phase 16). Returns the ``on`` server's window launches."""
+    prompts = _autotune_prompts(vocab)
+    runs = {}
+    try:
+        for mode in ("off", "shadow", "on"):
+            runs[mode] = _autotune_run(mode, prompts)
+            if mode == "on":
+                # The pooled routes on the serving ``on`` server.
+                _embedding_checks(runs[mode]["srv"], vocab)
+            runs[mode]["srv"].stop()
+        off, shadow, on = runs["off"], runs["shadow"], runs["on"]
+        if (shadow["texts"], shadow["warm_texts"]) != (off["texts"],
+                                                        off["warm_texts"]):
+            raise AssertionError("autotune: shadow streams differ from off")
+        shadow_tuner = shadow["srv"].app.autotuner
+        if (sum(shadow_tuner.applied_total.values())
+                or not sum(shadow_tuner.decisions_total.values())):
+            raise AssertionError(f"autotune shadow: applied "
+                                 f"{shadow_tuner.applied_total}, decisions "
+                                 f"{shadow_tuner.decisions_total}")
+        if _trajectory(shadow["ticks"], "spec_k") != [4.0] or _trajectory(
+                shadow["ticks"], "prefill_budget") != [4096.0]:
+            raise AssertionError("autotune shadow: a knob moved")
+        applied = on["srv"].app.autotuner.applied_total
+        if applied.get("spec_k", 0) < 1 or applied.get("prefill_budget",
+                                                       0) < 1:
+            raise AssertionError(f"autotune on: applied {applied}")
+        flips = []
+        for prompt, ref, got in zip(prompts, off["ids"], on["ids"]):
+            flip = check_stream("autotune on", "a greedy stream",
+                                off["srv"].engine, prompt, ref, got)
+            if flip is not None:
+                flips.append(flip)
+        log(f"autotune on: {len(prompts) - len(flips)}/{len(prompts)} "
+            f"greedy streams byte-identical to off, the others part at "
+            f"near ties (index, margin) {flips}")
+        for run in runs.values():
+            us = [t[0] for t in run["ticks"]]
+            baseline, tripped = _drift_report(run["ticks"])
+            log(f"autotune {run['mode']}: {len(us)} ticks, host us a tick "
+                f"median {np.median(us) if us else 0:.1f} max "
+                f"{max(us, default=0):.1f}; spec_k "
+                f"{_trajectory(run['ticks'], 'spec_k')}, prefill_budget "
+                f"{_trajectory(run['ticks'], 'prefill_budget')}; drift "
+                f"baseline (s) {baseline}, kinds past it by 25% {tripped}, "
+                f"frozen {run['srv'].app.autotuner.frozen_flags()}")
+        log(f"autotune on: /autotune/status {json.dumps(on['status'])}; "
+            f"{SMI}")
+        return on["launches"]
+    finally:
+        for run in runs.values():
+            run["srv"].close()
+
+
+def _embedding_checks(srv, vocab) -> None:
+    """/v1/embeddings, /v1/score and /v1/rerank on the ``on`` server,
+    its loop still serving."""
+    from production_stack_tpu_torch.engine.config import ModelConfig
+    from production_stack_tpu_torch.engine.embeddings import Embedder
+    rng = np.random.RandomState(31)
+    inputs = [rng.randint(258, vocab, size=n).tolist()
+              for n in EMBED_LENGTHS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        status, text, _ = _http("POST", srv.url + "/v1/embeddings",
+                                {"input": inputs})
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if status != 200:
+            raise AssertionError(f"embeddings: {status} {text}")
+    peak = torch.cuda.max_memory_allocated() - held
+    vecs = np.asarray([d["embedding"] for d in json.loads(text)["data"]])
+    norms = np.linalg.norm(vecs, axis=-1)
+    hidden = srv.engine.config.model.hidden_size
+    if vecs.shape != (8, hidden) or np.abs(norms - 1).max() > 1e-4:
+        raise AssertionError(f"embeddings: shape {vecs.shape}, norms "
+                             f"{norms}")
+    alone = np.asarray(json.loads(_http("POST", srv.url + "/v1/embeddings",
+                                        {"input": inputs[:1]})[1])
+                       ["data"][0]["embedding"])
+    pad_cos = float(alone @ vecs[0])
+    if pad_cos < 0.999:
+        raise AssertionError(f"embeddings: the 64-token input alone and "
+                             f"padded to 1024 agree to a cosine of {pad_cos}")
+    # The plain reference: the same encode with f32 weights on the card.
+    cfg = ModelConfig(**{**srv.engine.config.model.__dict__,
+                         "dtype": "float32"})
+    params = srv.engine.runner.params
+    ref_params = type(params)(cfg, srv.engine.runner.device)
+    ref_params.load_state_dict({k: v.float() for k, v in
+                                params.state_dict().items()})
+    ref = Embedder(cfg, ref_params, max_len=1024).embed_batch(inputs)
+    del ref_params
+    cos = (vecs * ref).sum(-1) / np.linalg.norm(ref, axis=-1)
+    if cos.min() < 0.999:
+        raise AssertionError(f"embeddings: cosine to the f32 reference "
+                             f"{cos}")
+    texts = ["alpha beta gamma", "alpha beta", "zzz unrelated", "gamma"]
+    emb = json.loads(_http("POST", srv.url + "/v1/embeddings",
+                           {"input": texts})[1])
+    tv = np.asarray([d["embedding"] for d in emb["data"]])
+    want = tv[1:] @ tv[0]
+    score = json.loads(_http("POST", srv.url + "/v1/score",
+                             {"text_1": texts[0], "text_2": texts[1:]})[1])
+    got = np.asarray([d["score"] for d in score["data"]])
+    rerank = json.loads(_http("POST", srv.url + "/v1/rerank",
+                              {"query": texts[0],
+                               "documents": texts[1:]})[1])
+    order = [r["index"] for r in rerank["results"]]
+    if (np.abs(got - want).max() > 1e-4
+            or order != list(np.argsort(-want, kind="stable"))):
+        raise AssertionError(f"score {got} / rerank {order} against the "
+                             f"vectors' cosines {want}")
+    eager = _metric_value(srv.url, 'vllm:engine_eager_steps_total'
+                                   '{reason="embed"}')
+    if eager != 3 + 1 + 1 + 1 + 1:  # 3 batches, alone, texts, score, rerank
+        raise AssertionError(f"embeddings: {eager} embed eager steps")
+    log(f"embeddings: 8 inputs of {EMBED_LENGTHS[0]}..{EMBED_LENGTHS[-1]} "
+        f"tokens, one chunk of [8, 1024], ms a batch "
+        f"{[round(x, 3) for x in ms]}; peak allocated above the server's "
+        f"{peak / 2**30:.3f} GiB (graph pool "
+        f"{srv.engine.runner.graphs.pool_bytes() / 2**30:.3f} GiB); unit "
+        f"norms to {np.abs(norms - 1).max():.2e}; padding cosine "
+        f"{pad_cos:.6f}; cosine to the f32 encode min {cos.min():.6f}; "
+        f"score and rerank equal the vectors' cosines; {eager:.0f} embed "
+        f"eager steps; {SMI}")
+
+
 # ---- main -------------------------------------------------------------------
 
 
@@ -2817,6 +3164,8 @@ def main() -> int:
     disagg = disagg_phase(vocab)
     launches[DISAGG_RUN] = disagg[DISAGG_RUNS[0][0]]
     launches[DISAGG_INT8_RUN] = disagg[DISAGG_RUNS[1][0]]
+    torch.cuda.empty_cache()
+    launches[AUTOTUNE_RUN] = autotune_phase(vocab)
 
     def numbers(h):
         out = {"max_abs_err": h["max_abs_err"], "ms": h["ms"],

@@ -7,10 +7,10 @@ int8 KV in per-layer or stacked pages, continuous batching with the
 async pipeline, decode bursts, the unified ragged step and
 prompt-lookup speculative decoding, the KV offload tiers
 (``OffloadConfig``), QoS classes and shedding (``QoSConfig``), the KV
-economy's summary and watermarks (``KVEconConfig``), stream
-checkpoints, the step watchdog and the AWAITING_KV timeout.
-Parallelism, LoRA, disaggregation and autotuning join the port with
-the features that read them.
+economy's summary and watermarks (``KVEconConfig``), the self-tuning
+controllers' policy (``AutotuneConfig``), the disaggregation role,
+stream checkpoints, the step watchdog and the AWAITING_KV timeout.
+Parallelism and LoRA join the port with the features that read them.
 """
 
 from __future__ import annotations
@@ -235,6 +235,72 @@ class QoSConfig:
 
 
 @dataclasses.dataclass
+class AutotuneConfig:
+    """Self-tuning controller policy (autotune/).
+
+    Shared cadence/guardrail knobs plus the per-controller clamp
+    bands the autotuner enforces. The mode gate is the contract:
+    ``off`` never even constructs controllers' tick path, ``shadow``
+    computes and span-logs decisions without applying them (the A/B
+    story), ``on`` closes the loop.
+    """
+
+    # off | shadow | on (autotune.MODES).
+    mode: str = "off"
+    # Seconds between controller ticks (the bounded cadence).
+    interval_s: float = 2.0
+    # Relative dead-band: proposals within this fraction of the
+    # current knob value are dropped (hysteresis against jitter).
+    dead_band: float = 0.05
+    # Comma-separated controller-name allowlist, or "all".
+    controllers: str = "all"
+    # Guardrail blame window: a perf-drift flip / 5m-burn rise
+    # freezes every controller that applied a decision this recently.
+    freeze_window_s: float = 30.0
+    # 5m SLO burn rate at/above which a rise trips the guardrail.
+    burn_threshold: float = 1.0
+    # Decode ITL p99 target the prefill-budget controller steers
+    # toward (grow mixed-step admission while under, shrink over).
+    target_itl_ms: float = 50.0
+    # Clamp floors/caps for individual controllers. Spec-k cap is
+    # --speculative-k itself; checkpoint interval floors/caps bound
+    # the halving/doubling walk; shed floor keeps QoS from shedding
+    # more than operators signed up for.
+    min_spec_k: int = 1
+    min_checkpoint_interval_tokens: int = 64
+    max_checkpoint_interval_tokens: int = 4096
+    min_shed_threshold: float = 0.5
+
+    def __post_init__(self):
+        if self.mode not in ("off", "shadow", "on"):
+            raise ValueError(
+                "autotune.mode must be 'off', 'shadow' or 'on' "
+                f"(got {self.mode!r})")
+        if self.interval_s <= 0:
+            raise ValueError("autotune.interval_s must be > 0")
+        if not 0.0 <= self.dead_band < 1.0:
+            raise ValueError(
+                "autotune.dead_band must be in [0, 1) "
+                f"(got {self.dead_band!r})")
+        if self.freeze_window_s <= 0:
+            raise ValueError("autotune.freeze_window_s must be > 0")
+        if self.min_spec_k < 1:
+            raise ValueError("autotune.min_spec_k must be >= 1")
+        if not 0.0 < self.min_shed_threshold <= 1.0:
+            raise ValueError(
+                "autotune.min_shed_threshold must be in (0, 1] "
+                f"(got {self.min_shed_threshold!r})")
+        if (self.min_checkpoint_interval_tokens < 1
+                or self.max_checkpoint_interval_tokens
+                < self.min_checkpoint_interval_tokens):
+            raise ValueError(
+                "autotune checkpoint interval bounds must satisfy "
+                "1 <= min <= max (got "
+                f"min={self.min_checkpoint_interval_tokens!r} "
+                f"max={self.max_checkpoint_interval_tokens!r})")
+
+
+@dataclasses.dataclass
 class EngineConfig:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
@@ -245,6 +311,8 @@ class EngineConfig:
     qos: QoSConfig = dataclasses.field(default_factory=QoSConfig)
     kvecon: KVEconConfig = dataclasses.field(
         default_factory=KVEconConfig)
+    autotune: AutotuneConfig = dataclasses.field(
+        default_factory=AutotuneConfig)
     seed: int = 0
     # Disaggregated serving role:
     #   both    -> monolithic engine (default): prefill and decode.

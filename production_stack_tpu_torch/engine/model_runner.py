@@ -283,6 +283,22 @@ class ModelRunner:
             # context parallelism, which the port does not serve.
             config.cache.cache_layout = "per_layer"
         self.cache_layout = config.cache.cache_layout
+        # int8 KV: pages quantized on write with per-slot f32 scales
+        # (ops/quant_kv.py), dequantized inside the kernels.
+        self.kv_quantized = config.cache.resolved_kv_dtype() == "int8"
+        cache_dtype = (torch.int8 if self.kv_quantized
+                       else model_config.torch_dtype)
+        if self.device.type == "cuda":
+            # Fail at start-up, before the weights are made: the kernel
+            # library is built (or found) and loaded now, and the
+            # geometry (with the cache's dtype, and for int8 a page
+            # size that is a multiple of 16) must be one it is built
+            # for. The card never serves through the plain versions.
+            check_kernel_shapes(
+                model_config.num_attention_heads,
+                model_config.num_key_value_heads, model_config.head_dim,
+                config.cache.page_size, model_config.torch_dtype,
+                cache_dtype)
         init_fn, self._forward = get_model(model_config)
         if params is None:
             logger.info("Initializing random weights for %s",
@@ -291,22 +307,6 @@ class ModelRunner:
             gen.manual_seed(config.seed)
             params = init_fn(model_config, gen, self.device)
         self.params = params.to(self.device)
-        # int8 KV: pages quantized on write with per-slot f32 scales
-        # (ops/quant_kv.py), dequantized inside the kernels.
-        self.kv_quantized = config.cache.resolved_kv_dtype() == "int8"
-        cache_dtype = (torch.int8 if self.kv_quantized
-                       else model_config.torch_dtype)
-        if self.device.type == "cuda":
-            # Fail at start-up, not at the first step: the kernel
-            # library is built (or found) and loaded now, and the
-            # geometry (with the cache's dtype, and for int8 a page
-            # size that is a multiple of 16) must be one it is built
-            # for.
-            check_kernel_shapes(
-                model_config.num_attention_heads,
-                model_config.num_key_value_heads, model_config.head_dim,
-                config.cache.page_size, model_config.torch_dtype,
-                cache_dtype)
 
         # per_layer: one [kv_heads, pages, d, page_size] buffer per
         # layer, k and v; stacked: one [L, kv_heads, pages, d,

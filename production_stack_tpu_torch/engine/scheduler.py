@@ -134,10 +134,16 @@ class Scheduler:
         # their pages shipped; "recompute" victims recompute.
         self.preempt_offload_outcomes: Dict[str, int] = {
             "offloaded": 0, "recompute": 0}
-        # Prefill token budget a unified (mixed) step may admit: a
-        # dedicated prefill step's full bandwidth.
+        # Self-tuning knobs (autotune/), both host-side plan-time
+        # values: no graph key depends on either. Prefill token budget
+        # a unified (mixed) step may admit; defaults to a dedicated
+        # prefill step's full bandwidth.
         self.mixed_prefill_budget = (config.prefill_chunk_size
                                      * config.prefill_batch_size)
+        # QoS degrade-ladder clamp: while set, non-interactive rows
+        # (priority > 0) are planned spec-off, reserving draft/verify
+        # slack for interactive traffic under overload.
+        self.spec_degrade_clamp = False
         # Draft-free speculative decoding: the prompt-lookup proposer
         # drafts from each sequence's own history; None when off.
         self.proposer = (NgramProposer(config.speculative_k,
@@ -269,10 +275,12 @@ class Scheduler:
         """Each running row's drafts, capped by its emit budget; rows
         the proposer has nothing for are left out, and so are rows the
         router marked spec-off (``x-qos-spec-off``: they ride a verify
-        step as plain single-token rows)."""
+        step as plain single-token rows) and, while the QoS controller's
+        degrade clamp is set, non-interactive rows."""
         drafts: Dict[str, List[int]] = {}
         for seq in self.running:
-            if seq.spec_off:
+            if seq.spec_off or (self.spec_degrade_clamp
+                                and seq.priority > 0):
                 continue
             d = self.proposer.propose(seq, self._draft_limit(seq))
             if d:
@@ -424,8 +432,13 @@ class Scheduler:
     def _draft_limit(self, seq: Sequence) -> int:
         """Longest draft this row may carry: emitted tokens (accepted +
         1) never exceed the row's budget, so no draft writes KV past
-        max_model_len."""
-        return self._seq_budget(seq) - 1
+        max_model_len; further capped per sequence by the spec-k
+        autotune controller. The cap only shortens the draft list, so
+        the verify block keeps its [B, K + 1] shape."""
+        limit = self._seq_budget(seq) - 1
+        if seq.spec_k_cap is not None:
+            limit = min(limit, seq.spec_k_cap)
+        return limit
 
     def _plan_prefill(self, max_tokens: Optional[int] = None
                       ) -> Optional[PrefillPlan]:

@@ -16,11 +16,21 @@ and ``/drain``; disaggregated serving, POST ``/v1/disagg/prefill`` and
 ``/debug/profiler/start`` and ``/debug/profiler/stop`` (a
 ``torch.profiler`` Chrome trace), GET ``/debug/trace/{request_id}`` and
 ``/debug/steps`` (the tracer's flight recorder), ``/debug/compiles``
-and ``/debug/memory`` (the observatory's ledgers). That is 17 of the
-24 routes the JAX server registers. Each of the other 7
-(``UNPORTED_ROUTES``: embeddings, score, rerank and autotune) answers
-501 with a message naming its feature; a path neither server has
-answers 404.
+and ``/debug/memory`` (the observatory's ledgers); the pooled routes,
+POST ``/v1/embeddings``, ``/v1/score``, ``/score``, ``/v1/rerank`` and
+``/rerank`` (engine/embeddings.py: ``--pooling`` last or mean, unit
+vectors; score and rerank are their cosines); and the self-tuning
+controllers' GET ``/autotune/status`` and POST ``/autotune/reset``.
+That is all 24 routes the JAX server registers; ``UNPORTED_ROUTES`` is
+empty, and a JAX route not ported yet would answer 501 naming its
+feature. A path neither server has answers 404.
+
+Self-tuning (``--autotune off|shadow|on``, autotune/): the engine loop
+ticks the controllers between steps every ``--autotune-interval-s``;
+they turn the unified step's prefill budget, per-row draft caps, the
+KV summary's admission floor and pool watermarks, the checkpoint
+interval and the shed threshold. ``shadow`` logs decisions without
+applying them; ``/metrics`` carries the ``vllm:autotune_*`` lines.
 
 Disaggregated serving (``--engine-role``): a prefill-role engine
 answers ``/v1/disagg/prefill`` with a handoff descriptor (the prompt,
@@ -28,10 +38,9 @@ the first token, the shipped pages' tier keys and bytes) after shipping
 the prompt's committed pages to the offload tier; a decode-role engine
 takes the descriptor at ``/v1/disagg/handoff``, restores the pages
 (or recomputes) and streams from the first token on. The descriptor is
-the JAX server's, so either server takes the other's. A monolithic
-engine (``both``) serves both routes; a decode-role engine answers the
-prefill route, and a prefill-role engine the handoff route, with 503
-and ``Retry-After``.
+the JAX server's, so either server takes the other's. Every role
+serves both routes, as the JAX server does: the role gates the
+router's choice of engine, not what an engine answers.
 
 Tracing: by default the server installs a tracer (engine/tracing.py)
 with a flight recorder of ``--trace-ring-size`` requests (256); with
@@ -62,10 +71,15 @@ Fleet contract, as the JAX server keeps it:
   Streams are sent with chunked transfer encoding, so a cut reads as
   one to the client.
 
-Flags: 41 of the JAX server's 75, with the same names, defaults and
-meanings (``parse_args``); the others are absent and argparse refuses
-them. ``--device`` is the port's own (the card unless ``cpu`` is asked
-for).
+Flags: 57 of the JAX server's 75, with the same names, defaults and
+meanings (``parse_args``); the others (parallelism, LoRA,
+``--quantization``, ``--deferred-kv-writes``, ``--tokenizer``,
+``--chat-template``) are absent and argparse refuses them. ``--device``
+is the port's own (the card unless ``cpu`` is asked for).
+``--attention-impl``'s JAX values map onto the port's impls
+(``resolve_attention_impl``); ``--dtype`` applies to the presets and,
+on the card, only to a geometry the kernels are built for;
+``--compilation-cache-dir`` moves the kernels' nvcc build.
 
 The HTTP layer is ``http.server.ThreadingHTTPServer`` (one thread per
 connection); the engine steps on one loop thread of its own and hands
@@ -103,7 +117,15 @@ from http import HTTPStatus
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
 
+import torch
+
+from production_stack_tpu_torch.autotune import (
+    Autotuner,
+    build_engine_controllers,
+    observatory_drift_flags,
+)
 from production_stack_tpu_torch.engine.config import (
+    AutotuneConfig,
     CacheConfig,
     EngineConfig,
     KVEconConfig,
@@ -113,8 +135,13 @@ from production_stack_tpu_torch.engine.config import (
     bench_1b_model_config,
     tiny_model_config,
 )
+from production_stack_tpu_torch.engine.embeddings import (
+    Embedder,
+    parse_embedding_input,
+)
 from production_stack_tpu_torch.engine.engine import LLMEngine, StepOutput
 from production_stack_tpu_torch.engine.model_runner import (
+    resolve_device,
     unified_step_eligible,
 )
 from production_stack_tpu_torch.engine.sequence import SamplingParams
@@ -128,6 +155,7 @@ from production_stack_tpu_torch.kvecon.summary import (
     PrefixSummaryTracker,
     routable_text,
 )
+from production_stack_tpu_torch.ops import paged_kv_common
 from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
 from production_stack_tpu_torch.qos import (
     PRIORITY_HEADER,
@@ -164,6 +192,11 @@ class EngineLoop:
         # so a wedged graph replay shows here while /health (on a
         # handler thread) keeps answering.
         self._step_started: Optional[float] = None
+        # Self-tuning: the EngineServer installs an Autotuner here; the
+        # loop ticks it between steps, so controllers touch scheduler
+        # and config state from the thread that reads it. None = no
+        # tuning.
+        self.autotuner = None
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="engine-loop")
 
@@ -220,6 +253,11 @@ class EngineLoop:
                 else:
                     self._admit(item)
                 continue  # admit as many as possible before stepping
+            if self.autotuner is not None:
+                try:
+                    self.autotuner.maybe_tick()
+                except Exception:
+                    logger.exception("autotune tick failed")
             if not self.engine.has_work():
                 continue
             if self._step_started is None:
@@ -673,7 +711,7 @@ class EngineServer:
 
     def __init__(self, engine: LLMEngine, served_model_name: str,
                  build_id: str = "", drain_exit_timeout_s: float = 0.0,
-                 profile_dir: Optional[str] = None):
+                 profile_dir: Optional[str] = None, pooling: str = "last"):
         self.engine = engine
         self.loop = EngineLoop(engine)
         self.model_name = served_model_name
@@ -716,6 +754,25 @@ class EngineServer:
         self._profiler_dir: Optional[str] = None
         self._profiler_span_id: Optional[str] = None
         self._profiler_lock = threading.Lock()
+        # The pooled routes' embedder (--pooling), built at their first
+        # request; one embed batch at a time.
+        self.pooling = pooling
+        self._embedder: Optional[Embedder] = None
+        self._embed_lock = threading.Lock()
+        # Self-tuning controllers, built whatever the mode (maybe_tick
+        # is a no-op in 'off'), so /autotune/status always answers.
+        at = engine.config.autotune
+        try:
+            controllers = build_engine_controllers(self, at)
+            drift_flags = observatory_drift_flags(engine.runner)
+        except AttributeError:
+            # Stub engines lack the scheduler and metrics the catalog
+            # reads; they get a live, empty autotuner.
+            controllers, drift_flags = [], None
+        self.autotuner = Autotuner(
+            at, controllers, tracer=getattr(engine, "tracer", None),
+            drift_flags=drift_flags)
+        self.loop.autotuner = self.autotuner
 
     # ---- health, drain, version, KV summary --------------------------------
 
@@ -856,6 +913,7 @@ class EngineServer:
                          f'{{kernel="{name}"}} {float(count)}')
         lines += self._observatory_metrics()
         lines += self._fleet_metrics(stats)
+        lines += self._autotune_metrics()
         lines += self.engine.metrics.render()
         lines.append("")
         return "\n".join(lines)
@@ -904,6 +962,28 @@ class EngineServer:
             lines += [f"# TYPE vllm:kv_offload_{name} {kind}",
                       f"vllm:kv_offload_{name} "
                       f"{float(ostats.get(name, 0.0))}"]
+        return lines
+
+    def _autotune_metrics(self) -> List[str]:
+        """The JAX server's self-tuning lines: controllers allowed to
+        act, latched guardrail freezes, live knob values and cumulative
+        decisions (applied and shadow)."""
+        at = self.autotuner
+        lines = ["# TYPE vllm:autotune_active_controllers gauge",
+                 "vllm:autotune_active_controllers "
+                 f"{float(at.active_count())}",
+                 "# TYPE vllm:autotune_frozen gauge"]
+        lines += [f'vllm:autotune_frozen{{controller="{name}"}} '
+                  f"{float(frozen)}"
+                  for name, frozen in sorted(at.frozen_flags().items())]
+        lines.append("# TYPE vllm:autotune_knob_value gauge")
+        lines += [f'vllm:autotune_knob_value{{controller="{name}"}} '
+                  f"{float(value)}"
+                  for name, value in sorted(at.knob_values().items())]
+        lines.append("# TYPE vllm:autotune_decisions_total counter")
+        lines += [f'vllm:autotune_decisions_total{{controller="{name}"}} '
+                  f"{float(count)}"
+                  for name, count in sorted(at.decisions_total.items())]
         return lines
 
     def _observatory_metrics(self) -> List[str]:
@@ -1407,24 +1487,15 @@ class EngineServer:
 
     # ---- disaggregated serving ---------------------------------------------
 
-    def _wrong_role(self, role: str, route: str) -> Optional[tuple]:
-        """503 + Retry-After when this engine's role is ``role``: the
-        router sends the request to an engine of the other pool."""
-        if self.engine.config.engine_role != role:
-            return None
-        return _error(503, f"{route}: this engine serves the {role} role",
-                      headers={"Retry-After": "1"})
-
     def disagg_prefill(self, body: dict, headers=None) -> tuple:
         """POST /v1/disagg/prefill: run the prompt through chunked
         prefill, ship its committed pages to the offload tier and answer
         the handoff descriptor a decode-role engine continues from. The
         first sampled token rides the descriptor. Without a tier the
-        descriptor names no page and the decode side recomputes."""
+        descriptor names no page and the decode side recomputes. Any
+        role serves it, as the JAX server does: the role gates routing,
+        not capability."""
         headers = headers or {}
-        refused = self._wrong_role("decode", "/v1/disagg/prefill")
-        if refused is not None:
-            return refused
         messages = body.get("messages")
         chat = isinstance(messages, list)
         try:
@@ -1493,7 +1564,8 @@ class EngineServer:
         descriptor. The answer (SSE chunks, or one JSON completion with
         ``"stream": false``, the default) starts with the descriptor's
         first token; the engine restores the shipped pages (AWAITING_KV)
-        or recomputes, so the request always completes."""
+        or recomputes, so the request always completes. Any role serves
+        it."""
         headers = headers or {}
         desc = body.get("descriptor")
         if not isinstance(desc, dict):
@@ -1504,9 +1576,6 @@ class EngineServer:
                 or not all(isinstance(t, int) for t in token_ids)
                 or not isinstance(first_token, int)):
             return _error(400, "descriptor missing token_ids/first_token")
-        refused = self._wrong_role("prefill", "/v1/disagg/handoff")
-        if refused is not None:
-            return refused
         my_dtype = self.engine.config.cache.resolved_kv_dtype()
         desc_dtype = desc.get("kv_dtype") or my_dtype
         if desc_dtype != my_dtype:
@@ -1664,17 +1733,136 @@ class EngineServer:
         return 200, obs.memory_report(), {}
 
 
+    # ---- self-tuning -------------------------------------------------------
+
+    def autotune_status(self) -> tuple:
+        """GET /autotune/status: mode, cadence, and each controller's
+        knob, clamp band, freeze and decision counts."""
+        return 200, self.autotuner.status(), {}
+
+    def autotune_reset(self, body: dict) -> tuple:
+        """POST /autotune/reset: unlatch one controller's guardrail
+        freeze (``{"controller": name}``) or all (empty body)."""
+        return 200, {"reset": self.autotuner.reset(body.get("controller"))}, {}
+
+    # ---- pooled routes: embeddings, score, rerank ---------------------------
+
+    def _ensure_embedder(self) -> Embedder:
+        if self._embedder is None:
+            self._embedder = Embedder(
+                self.engine.config.model, self.engine.runner.params,
+                max_len=self.engine.config.scheduler.max_model_len,
+                pooling=self.pooling)
+        return self._embedder
+
+    def _embed(self, token_lists: List[List[int]]):
+        """[N, hidden] unit vectors. Each chunk runs on the engine loop's
+        thread between two steps, never beside a step graph's capture,
+        and counts as an eager step of reason ``embed``."""
+        embedder = self._ensure_embedder()
+        graphs = self.engine.runner.graphs
+
+        def on_loop(fn):
+            def counted():
+                if graphs is not None:
+                    graphs.count_eager("embed")
+                return fn()
+            return self.loop.call(counted)
+
+        with self._embed_lock:
+            return embedder.embed_batch(token_lists, run=on_loop)
+
+    def embeddings(self, body: dict) -> tuple:
+        """POST /v1/embeddings over the served model's hidden states."""
+        try:
+            token_lists = parse_embedding_input(
+                body.get("input"), self.tokenizer,
+                max_len=self.engine.config.scheduler.max_model_len)
+        except ValueError as e:
+            return _error(400, str(e), "invalid_request_error")
+        try:
+            vectors = self._embed(token_lists)
+        except NotImplementedError as e:
+            return _error(501, str(e))
+        n_tokens = sum(len(t) for t in token_lists)
+        return 200, {
+            "object": "list",
+            "model": self.model_name,
+            "data": [{"object": "embedding", "index": i,
+                      "embedding": vec.tolist()}
+                     for i, vec in enumerate(vectors)],
+            "usage": {"prompt_tokens": n_tokens, "total_tokens": n_tokens},
+        }, {}
+
+    def _pair_scores(self, query: str, documents: List[str]):
+        """Bi-encoder relevance: the cosine of pooled vectors (a dot
+        product: they are L2-normalized); (scores, tokens)."""
+        self._ensure_embedder()
+        max_len = self.engine.config.scheduler.max_model_len
+        token_lists = [self.tokenizer.encode(query)[:max_len]] + [
+            self.tokenizer.encode(d)[:max_len] for d in documents]
+        if not all(token_lists):
+            raise ValueError("texts must not be empty")
+        vectors = self._embed(token_lists)
+        scores = vectors[1:] @ vectors[0]
+        return [float(x) for x in scores], sum(len(t) for t in token_lists)
+
+    def score(self, body: dict) -> tuple:
+        """POST /v1/score (and /score): relevance of the text_2
+        document(s) to text_1."""
+        text_1 = body.get("text_1") or body.get("query")
+        text_2 = body.get("text_2") or body.get("documents")
+        if not isinstance(text_1, str) or text_2 is None:
+            return _error(400, "'text_1' (string) and 'text_2' (string or "
+                          "list) are required")
+        docs = [text_2] if isinstance(text_2, str) else list(text_2)
+        try:
+            scores, n_tokens = self._pair_scores(text_1, docs)
+        except ValueError as e:
+            return _error(400, str(e))
+        except NotImplementedError as e:
+            return _error(501, str(e))
+        return 200, {
+            "id": "score-" + uuid.uuid4().hex[:16],
+            "object": "list",
+            "model": self.model_name,
+            "data": [{"object": "score", "index": i, "score": x}
+                     for i, x in enumerate(scores)],
+            "usage": {"prompt_tokens": n_tokens, "total_tokens": n_tokens},
+        }, {}
+
+    def rerank(self, body: dict) -> tuple:
+        """POST /v1/rerank (and /rerank): the documents by relevance to
+        the query, best first (``top_n`` of them when given)."""
+        query = body.get("query")
+        documents = body.get("documents")
+        if not isinstance(query, str) or not isinstance(documents, list):
+            return _error(400, "'query' (string) and 'documents' (list of "
+                          "strings) are required")
+        try:
+            scores, n_tokens = self._pair_scores(
+                query, [str(d) for d in documents])
+        except ValueError as e:
+            return _error(400, str(e))
+        except NotImplementedError as e:
+            return _error(501, str(e))
+        order = sorted(range(len(scores)), key=lambda i: -scores[i])
+        top_n = body.get("top_n")
+        if isinstance(top_n, int) and top_n > 0:
+            order = order[:top_n]
+        return 200, {
+            "id": "rerank-" + uuid.uuid4().hex[:16],
+            "model": self.model_name,
+            "usage": {"total_tokens": n_tokens},
+            "results": [{"index": i, "document": {"text": documents[i]},
+                         "relevance_score": scores[i]} for i in order],
+        }, {}
+
+
 # The JAX server's routes this server does not serve: (method, path,
-# feature).
-UNPORTED_ROUTES = (
-    ("POST", "/v1/embeddings", "embeddings"),
-    ("POST", "/v1/score", "scoring"),
-    ("POST", "/score", "scoring"),
-    ("POST", "/v1/rerank", "reranking"),
-    ("POST", "/rerank", "reranking"),
-    ("GET", "/autotune/status", "autotuning"),
-    ("POST", "/autotune/reset", "autotuning"),
-)
+# feature). Empty: the port serves all 24; a route a later JAX change
+# adds goes here until it is ported.
+UNPORTED_ROUTES: Tuple[Tuple[str, str, str], ...] = ()
 
 
 def unported_feature(method: str, path: str) -> Optional[str]:
@@ -1747,6 +1935,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(200, app.version())
         elif path == "/kv/summary":
             self._send(200, app.kv_summary_snapshot())
+        elif path == "/autotune/status":
+            self._send(*app.autotune_status())
         else:
             self._no_route("GET", path)
 
@@ -1768,14 +1958,19 @@ class _Handler(BaseHTTPRequestHandler):
     def do_POST(self):
         app = self.server.app
         path = self.path.split("?", 1)[0]
-        if path == "/drain":
+        lenient = {"/drain": lambda b: (200, app.drain(b), {}),
+                   "/autotune/reset": app.autotune_reset}
+        if path in lenient:
+            # A missing or malformed body reads as {}, as in the JAX
+            # server.
             length = int(self.headers.get("Content-Length") or 0)
             try:
                 body = json.loads(self.rfile.read(length) or b"{}")
             except (ValueError, json.JSONDecodeError):
                 body = {}
-            self._send(200, app.drain(body if isinstance(body, dict)
-                                      else {}))
+            status, result, headers = lenient[path](
+                body if isinstance(body, dict) else {})
+            self._send(status, result, headers=headers)
             return
         profiler = {
             "/debug/profiler/start": lambda: app.profiler_start(
@@ -1786,6 +1981,17 @@ class _Handler(BaseHTTPRequestHandler):
             self.rfile.read(int(self.headers.get("Content-Length") or 0))
             status, body, headers = profiler[path]()
             self._send(status, body, headers=headers)
+            return
+        # The pooled routes: not generation requests (no drain gate),
+        # as in the JAX server.
+        pooled = {"/v1/embeddings": app.embeddings, "/v1/score": app.score,
+                  "/score": app.score, "/v1/rerank": app.rerank,
+                  "/rerank": app.rerank}
+        if path in pooled:
+            body = self._json_body()
+            if body is not None:
+                status, result, headers = pooled[path](body)
+                self._send(status, result, headers=headers)
             return
         handlers = {
             "/v1/completions": lambda b: app.complete(b, False,
@@ -1879,7 +2085,29 @@ def _resolve(flag: str, eligible: bool = True) -> bool:
     return flag == "on" or (flag == "auto" and eligible)
 
 
+def resolve_attention_impl(flag: str, device: torch.device) -> str:
+    """--attention-impl, the JAX server's values, onto the port's
+    ``ATTENTION_IMPLS`` (models/llama.py): ``auto`` and ``pallas`` (the
+    hand-written kernels) select ``cuda`` on the card and ``plain`` on
+    the CPU; ``xla`` and ``pallas-interpret`` (reference paths) select
+    ``plain``, which serves only with ``--device cpu``: on the card the
+    plain versions are on no path, so those values are refused."""
+    if device.type != "cuda":
+        return "plain"
+    if flag in ("xla", "pallas-interpret"):
+        raise ValueError(
+            f"--attention-impl {flag} selects the plain attention, which "
+            "the card never serves; use auto or pallas (the CUDA "
+            "kernels), or --device cpu")
+    return "cuda"
+
+
 def build_engine_from_args(args) -> tuple:
+    device = resolve_device(args.device)
+    resolve_attention_impl(args.attention_impl, device)
+    if args.compilation_cache_dir:
+        paged_kv_common.set_build_root(
+            os.path.join(args.compilation_cache_dir, "kernels"))
     if args.model == "tiny-llama":
         model_config = tiny_model_config("llama")
     elif args.model == "bench-1b":
@@ -1889,10 +2117,18 @@ def build_engine_from_args(args) -> tuple:
             f"--model {args.model!r}: the port serves tiny-llama and "
             "bench-1b with random weights; checkpoint loading is not "
             "ported yet")
+    if args.dtype:
+        # The JAX server applies --dtype to a checkpoint's config; the
+        # port's models are the presets, so it applies to them. On the
+        # card the runner refuses a geometry the kernels are not built
+        # for, naming the missing PSTT_FOR_EACH_GEOMETRY line.
+        model_config.dtype = args.dtype
     config = EngineConfig(
         model=model_config,
         cache=CacheConfig(page_size=args.page_size,
                           num_pages=args.num_pages,
+                          enable_prefix_caching=(
+                              not args.disable_prefix_caching),
                           cache_layout=args.cache_layout,
                           kv_cache_dtype=args.kv_cache_dtype),
         scheduler=SchedulerConfig(
@@ -1926,6 +2162,20 @@ def build_engine_from_args(args) -> tuple:
             ttl_s=args.kv_ttl_s,
             watermark_high=args.kv_watermark_high,
             watermark_low=args.kv_watermark_low),
+        autotune=AutotuneConfig(
+            mode=args.autotune,
+            interval_s=args.autotune_interval_s,
+            dead_band=args.autotune_dead_band,
+            controllers=args.autotune_controllers,
+            freeze_window_s=args.autotune_freeze_window_s,
+            burn_threshold=args.autotune_burn_threshold,
+            target_itl_ms=args.autotune_target_itl_ms,
+            min_spec_k=args.autotune_min_spec_k,
+            min_checkpoint_interval_tokens=(
+                args.autotune_min_checkpoint_interval_tokens),
+            max_checkpoint_interval_tokens=(
+                args.autotune_max_checkpoint_interval_tokens),
+            min_shed_threshold=args.autotune_min_shed_threshold),
         seed=args.seed,
         engine_role=args.engine_role,
         handoff_timeout_s=args.handoff_timeout_s,
@@ -1935,7 +2185,7 @@ def build_engine_from_args(args) -> tuple:
     )
     engine = LLMEngine(config,
                        tokenizer=BenchTokenizer(model_config.vocab_size),
-                       device=args.device)
+                       device=device)
     if args.request_span_log or args.trace_ring_size > 0:
         # The server's default: the flight recorder on, the span log
         # off. An engine built as a library keeps tracer None.
@@ -1959,6 +2209,20 @@ def parse_args(argv=None):
                         "--device cpu the server refuses to start")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--dtype", default=None,
+                   choices=[None, "bfloat16", "float32", "float16"],
+                   help="model dtype (default: the preset's); on the card "
+                        "only a dtype, query group and head_dim with a "
+                        "line in PSTT_FOR_EACH_GEOMETRY "
+                        "(csrc/paged_kv_common.cuh) is served, any other "
+                        "is refused at start")
+    p.add_argument("--attention-impl", default="auto",
+                   choices=["auto", "xla", "pallas", "pallas-interpret"],
+                   help="the JAX server's values: auto and pallas run the "
+                        "CUDA kernels on the card (the plain versions on "
+                        "the CPU); xla and pallas-interpret select the "
+                        "plain versions, served only with --device cpu "
+                        "and refused on the card")
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--num-pages", type=int, default=512)
     p.add_argument("--kv-cache-dtype", default="auto",
@@ -1975,6 +2239,7 @@ def parse_args(argv=None):
                         "auto (per_layer: the JAX engine's rule, which "
                         "picks stacked only under pipeline or context "
                         "parallelism)")
+    p.add_argument("--disable-prefix-caching", action="store_true")
     p.add_argument("--max-num-seqs", type=int, default=8)
     p.add_argument("--max-model-len", type=int, default=2048)
     p.add_argument("--prefill-chunk-size", type=int, default=512)
@@ -2084,6 +2349,50 @@ def parse_args(argv=None):
                         "kept for /debug/trace/{id} and step records for "
                         "/debug/steps; 0 turns the recorder (and, with no "
                         "--request-span-log, all tracing) off")
+    p.add_argument("--pooling", default="last", choices=["last", "mean"],
+                   help="/v1/embeddings pooling mode")
+    p.add_argument("--compilation-cache-dir", default=None,
+                   help="build (and find) the CUDA kernel library under "
+                        "DIR/kernels/<source hash>/ instead of "
+                        "build/kernels/, so a restarted pod skips the "
+                        "nvcc build")
+    # Self-tuning controllers: the JAX server's flags.
+    p.add_argument("--autotune", default="off",
+                   choices=["off", "shadow", "on"],
+                   help="Self-tuning controllers: off, shadow (compute + "
+                        "span-log decisions without applying), or on "
+                        "(close the loop)")
+    p.add_argument("--autotune-interval-s", type=float, default=2.0,
+                   help="Seconds between controller ticks")
+    p.add_argument("--autotune-dead-band", type=float, default=0.05,
+                   help="Relative dead-band: drop proposals within this "
+                        "fraction of the current knob value")
+    p.add_argument("--autotune-controllers", default="all",
+                   help="Comma-separated controller allowlist (spec_k,"
+                        "prefill_budget,kvecon,checkpoint_interval,"
+                        "qos_shed) or 'all'")
+    p.add_argument("--autotune-freeze-window-s", type=float, default=30.0,
+                   help="Guardrail blame window: freeze controllers that "
+                        "applied a decision this recently when perf drift "
+                        "flips or 5m burn rises")
+    p.add_argument("--autotune-burn-threshold", type=float, default=1.0,
+                   help="5m SLO burn rate at/above which a rise trips the "
+                        "guardrail")
+    p.add_argument("--autotune-target-itl-ms", type=float, default=50.0,
+                   help="Decode ITL p99 target the prefill-budget "
+                        "controller steers toward")
+    p.add_argument("--autotune-min-spec-k", type=int, default=1,
+                   help="Floor for the per-sequence speculative draft cap "
+                        "(ceiling is --speculative-k)")
+    p.add_argument("--autotune-min-checkpoint-interval-tokens", type=int,
+                   default=64,
+                   help="Floor for the tuned checkpoint interval")
+    p.add_argument("--autotune-max-checkpoint-interval-tokens", type=int,
+                   default=4096,
+                   help="Ceiling for the tuned checkpoint interval")
+    p.add_argument("--autotune-min-shed-threshold", type=float, default=0.5,
+                   help="Floor for the tuned QoS shed gate (ceiling is "
+                        "--shed-threshold)")
     return p.parse_args(argv)
 
 
@@ -2096,7 +2405,8 @@ def make_server(argv=None) -> EngineHTTPServer:
                                 engine, served_name,
                                 build_id=args.build_id,
                                 drain_exit_timeout_s=args.drain_exit_timeout_s,
-                                profile_dir=args.profile_dir))
+                                profile_dir=args.profile_dir,
+                                pooling=args.pooling))
 
 
 def main(argv=None) -> None:

@@ -67,10 +67,11 @@ import torch
 
 from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
 
-# The JAX compile ledger's kinds, and why a step on the card may run
-# without a graph.
+# The JAX compile ledger's kinds, and why work on the card may run
+# without a graph: a step with a seeded row, or a chunk of the pooled
+# routes' dense forward (engine/embeddings.py, run on the loop thread).
 STEP_KINDS = ("step", "decode_burst", "spec_verify", "unified")
-EAGER_REASONS = ("seeded",)
+EAGER_REASONS = ("seeded", "embed")
 
 # Alignment of each input's view in the packed buffer, in bytes.
 _ALIGN = 16

@@ -46,8 +46,9 @@ from production_stack_tpu_torch.utils.log import init_logger
 logger = init_logger(__name__)
 
 # The closed vocabulary of engine span event names, the JAX engine's
-# tuple as it is (the port emits a subset: it has no autotuner and no
-# crash respawn).
+# tuple as it is (the port emits a subset: it has no crash respawn;
+# the autotuner's decisions are autotune_decision events on spans of
+# their own).
 SPAN_EVENTS = (
     "enqueue",
     "awaiting_kv_park",

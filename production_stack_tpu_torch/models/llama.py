@@ -8,11 +8,13 @@ cache in either layout: a list of L [kv, pages, d, page] buffers
 (per_layer) or one stacked [L, kv, pages, d, page] buffer (stacked),
 each, for an int8 cache, a ``QuantKV`` of int8 pages and their
 per-slot scales. ``forward`` updates it IN PLACE (the JAX version
-threads updated copies through).
+threads updated copies through). ``encode`` is the cache-free dense
+forward the pooled routes run (engine/embeddings.py).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -232,3 +234,45 @@ def forward(params: LlamaParams, config: ModelConfig,
     head = (params.embed if params.lm_head is None
             else params.lm_head.weight)
     return F.linear(x, head).float()
+
+
+def encode(params: LlamaParams, config: ModelConfig,
+           tokens: torch.Tensor) -> torch.Tensor:
+    """Dense causal forward returning final-norm hidden states
+    [B, T, hidden]: the JAX package's ``llama.encode``, which the
+    /v1/embeddings, score and rerank routes pool (engine/embeddings.py).
+
+    No paged cache and no kernel: every row attends within the block
+    through f32 einsum scores, masked causally with -1e30 and
+    softmaxed, in the JAX function's order of operations (the TPU runs
+    it outside Pallas as well). Pad tokens sit after a row's last real
+    token, so the causal mask keeps them out of every real position.
+    """
+    nh, nkv, d = (config.num_attention_heads, config.num_key_value_heads,
+                  config.head_dim)
+    b, t = tokens.shape
+    positions = torch.arange(t, device=tokens.device)[None, :].expand(b, t)
+    x = F.embedding(tokens.long(), params.embed)
+    causal = torch.ones((t, t), dtype=torch.bool,
+                        device=tokens.device).tril()
+    group = nh // nkv
+    for lp in params.layers:
+        a_in = rms_norm(x, lp.attn_norm, config.rms_norm_eps)
+        q, k, v = lp.qkv(a_in).split([nh * d, nkv * d, nkv * d], dim=-1)
+        q = apply_rope(q.reshape(b, t, nh, d), positions,
+                       config.rope_theta)
+        k = apply_rope(k.reshape(b, t, nkv, d), positions,
+                       config.rope_theta)
+        v = v.reshape(b, t, nkv, d)
+        qg = q.reshape(b, t, nkv, group, d)
+        scores = torch.einsum("btkgd,bskd->bkgts", qg.float(),
+                              k.float()) / math.sqrt(d)
+        scores = torch.where(causal, scores, -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        attn = torch.einsum("bkgts,bskd->btkgd", probs,
+                            v.float()).reshape(b, t, nh * d).to(x.dtype)
+        x = x + lp.o(attn)
+        m_in = rms_norm(x, lp.mlp_norm, config.rms_norm_eps)
+        gate, up = lp.gate_up(m_in).chunk(2, dim=-1)
+        x = x + lp.down(F.silu(gate) * up)
+    return rms_norm(x, params.final_norm, config.rms_norm_eps)

@@ -55,6 +55,9 @@ CHUNK_TOKENS = 128
 # (PSTT_FOR_EACH_GEOMETRY), and asked of the library.
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _CACHE_CODES = {**_DTYPE_CODES, torch.int8: 2}
+# The element types of those lines, for a message naming a missing one.
+_C_TYPES = {torch.bfloat16: "__nv_bfloat16", torch.float32: "float",
+            torch.float16: "__half", torch.int8: "int8_t"}
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[2]
@@ -337,21 +340,24 @@ def check_kernel_shapes(num_q_heads: int, num_kv_heads: int,
     the card, so an unsupported model fails there and not at its first
     step."""
     cache_dtype = cache_dtype or dtype
-    if dtype not in _DTYPE_CODES or cache_dtype not in _CACHE_CODES:
-        raise NotImplementedError(
-            f"kernels take bf16 or f32 operands over a cache of the same "
-            f"type or int8 (got {dtype} over {cache_dtype})")
     if num_q_heads % num_kv_heads:
         raise ValueError("num_q_heads must be a multiple of kv heads")
     group = num_q_heads // num_kv_heads
+    line = geometry_line(dtype, cache_dtype, group, head_dim)
+    if dtype not in _DTYPE_CODES or cache_dtype not in _CACHE_CODES:
+        raise NotImplementedError(
+            f"kernels take bf16 or f32 operands over a cache of the same "
+            f"type or int8 (got {dtype} over {cache_dtype}): serving it "
+            f"needs a dtype code and the line {line} in "
+            "PSTT_FOR_EACH_GEOMETRY (csrc/paged_kv_common.cuh)")
     if not kernel_lib().pstt_kernel_supports(
             _DTYPE_CODES[dtype], _CACHE_CODES[cache_dtype], group,
             head_dim):
         raise NotImplementedError(
             f"the kernels are not built for query group {group}, "
-            f"head_dim {head_dim}, {dtype} over a {cache_dtype} cache "
-            "(csrc/paged_kv_common.cuh PSTT_FOR_EACH_GEOMETRY lists "
-            "what they are built for)")
+            f"head_dim {head_dim}, {dtype} over a {cache_dtype} cache: "
+            f"PSTT_FOR_EACH_GEOMETRY (csrc/paged_kv_common.cuh) has no "
+            f"line {line}")
     if (page_size > CHUNK_TOKENS or CHUNK_TOKENS % page_size
             or (page_size * cache_dtype.itemsize) % 16):
         raise NotImplementedError(
@@ -359,6 +365,26 @@ def check_kernel_shapes(num_q_heads: int, num_kv_heads: int,
             "of whole pages with 16-byte loads (page_size must divide "
             f"128 and hold a multiple of 16 bytes of {cache_dtype}, so "
             "a multiple of 16 for an int8 cache)")
+
+
+def geometry_line(dtype: torch.dtype, cache_dtype: torch.dtype,
+                  group: int, head_dim: int) -> str:
+    """The ``PSTT_FOR_EACH_GEOMETRY`` line that builds the kernels for
+    this geometry ("?" for a dtype with no code yet)."""
+    return (f"X({_DTYPE_CODES.get(dtype, '?')}, "
+            f"{_C_TYPES.get(dtype, dtype)}, "
+            f"{_CACHE_CODES.get(cache_dtype, '?')}, "
+            f"{_C_TYPES.get(cache_dtype, cache_dtype)}, {group}, "
+            f"{head_dim})")
+
+
+def set_build_root(root) -> None:
+    """Build (and look for) the kernel library under ``root/<source
+    hash>/`` instead of ``build/kernels/`` (``--compilation-cache-dir``:
+    a directory that outlives the process, so a restart finds the
+    build). Takes effect for a library not yet loaded."""
+    global BUILD_ROOT
+    BUILD_ROOT = pathlib.Path(root)
 
 
 def dtype_code(dtype: torch.dtype) -> int:

@@ -158,7 +158,8 @@ sys.exit(smoke.main())
 
 PHASES_RUN_BY_MAIN = ["kernel_phase", "model_phase", "engine_phase",
                       "graph_phase", "sampling_options_phase",
-                      "serving_phase", "fleet_phase", "disagg_phase"]
+                      "serving_phase", "fleet_phase", "disagg_phase",
+                      "autotune_phase"]
 
 
 @pytest.mark.parametrize("failing", PHASES_RUN_BY_MAIN)

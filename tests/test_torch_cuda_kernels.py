@@ -759,7 +759,7 @@ def test_graphed_engine_matches_eager_and_the_cpu(dev, sched):
             g = engine.runner.graphs
             assert sum(g.captures.values()) == len(g.keys()) > 0
             assert sum(g.replays.values()) > len(g.keys())
-            assert g.eager_steps == {"seeded": 0}
+            assert g.eager_steps == {"seeded": 0, "embed": 0}
         assert not COUNTERS.plain_cuda_calls
     assert streams["graphs"] == streams["eager"] == streams["cpu"]
     # The warm-up runs each key once more than the eager path does.
@@ -780,7 +780,7 @@ def test_unseeded_draws_under_graphs_differ_by_step_and_repeat_by_seed(dev):
                               async_scheduling=True)
         runs.append([s.output_token_ids for s in engine.generate_batch(
             [[8] * 10] * 4, sp)])
-        assert engine.runner.graphs.eager_steps == {"seeded": 0}
+        assert engine.runner.graphs.eager_steps == {"seeded": 0, "embed": 0}
     assert runs[0] == runs[1]
     # Four rows of one prompt, each step a fresh draw: the rows part,
     # and no row repeats one token throughout.
@@ -843,7 +843,7 @@ def test_sampling_options_graphed_match_eager_and_the_cpu(dev, decode_steps):
         if graphs:
             g = engine.runner.graphs
             assert sum(g.captures.values()) == len(g.keys()) > 0
-            assert g.eager_steps == {"seeded": 0}
+            assert g.eager_steps == {"seeded": 0, "embed": 0}
             assert any(k[3] for k in g.keys())
     tokens = {p: [[t for t, _ in r] for r in rs] for p, rs in out.items()}
     assert tokens["graphs"] == tokens["eager"] == tokens["cpu"]

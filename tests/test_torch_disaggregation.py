@@ -361,8 +361,9 @@ def test_descriptors_cross_between_the_port_and_jax_servers(weights,
 
 
 def test_handoff_route_validation_and_roles(weights, cache_url):
-    """The JAX handlers' 400s and 409, and the role gate's 503 with
-    Retry-After."""
+    """The JAX handlers' 400s and 409; and, as in the JAX server, no
+    role gate: a decode-role engine prefills and answers a descriptor, a
+    prefill-role engine continues a handoff."""
     with PortServer(_engine(weights, cache_url, "decode")) as dec, \
             PortServer(_engine(weights, cache_url, "prefill")) as pre:
         for body in ({}, {"descriptor": {"token_ids": [1, 2]}},
@@ -382,13 +383,17 @@ def test_handoff_route_validation_and_roles(weights, cache_url):
             status, _, _ = request("POST", pre.url + "/v1/disagg/prefill",
                                    body)
             assert status == 400
-        status, _, headers = request("POST", dec.url + "/v1/disagg/prefill",
-                                     _completion(PROMPT))
-        assert status == 503 and headers.get("Retry-After")
-        status, _, headers = request(
-            "POST", pre.url + "/v1/disagg/handoff",
-            {"descriptor": {"token_ids": [1, 2], "first_token": 3}})
-        assert status == 503 and headers.get("Retry-After")
+        status, text, _ = request("POST", dec.url + "/v1/disagg/prefill",
+                                  _completion(PROMPT))
+        assert status == 200, text
+        desc = json.loads(text)["descriptor"]
+        assert desc["token_ids"] == PROMPT and desc["num_pages"] == 3
+        status, text, _ = request("POST", pre.url + "/v1/disagg/handoff",
+                                  {"descriptor": desc})
+        assert status == 200, text
+        answer = json.loads(text)
+        assert answer["usage"]["completion_tokens"] == MAX_TOKENS
+        assert pre.engine.stats()["disagg_decode_requests_total"] == 1
         # A descriptor whose first token already finished: that token
         # alone, no engine sequence.
         status, text, _ = request(
@@ -399,6 +404,30 @@ def test_handoff_route_validation_and_roles(weights, cache_url):
         assert status == 200 and answer["choices"][0] == {
             "index": 0, "text": "A", "finish_reason": "length"}
         assert dec.engine.stats()["disagg_decode_requests_total"] == 0
+
+
+@pytest.mark.parametrize("role", ["prefill", "decode"])
+def test_two_hops_on_same_role_engines_match_monolithic(weights, cache_url,
+                                                        role):
+    """Both hops against two engines of one role, as a stale or static
+    role would send them: the greedy stream is byte-identical to the
+    monolithic server's."""
+    with PortServer(_engine(weights, cache_url)) as mono:
+        status, text, _ = request("POST", mono.url + "/v1/completions",
+                                  _completion(PROMPT))
+        assert status == 200
+        expected = json.loads(text)["choices"][0]["text"]
+    with PortServer(_engine(weights, cache_url, role)) as first, \
+            PortServer(_engine(weights, cache_url, role)) as second:
+        status, text, _ = request("POST", first.url + "/v1/disagg/prefill",
+                                  _completion(PROMPT))
+        assert status == 200, text
+        desc = json.loads(text)["descriptor"]
+        status, text, _ = request("POST", second.url + "/v1/disagg/handoff",
+                                  {"descriptor": desc})
+        assert status == 200, text
+        assert json.loads(text)["choices"][0]["text"] == expected
+        assert second.engine.offload.restored_pages == 3
 
 
 # ---- the repo's router in front of two port servers -----------------------------

@@ -512,7 +512,7 @@ def test_option_keys_are_captured_once_with_eager_streams(
     graphs = engine.runner.graphs
     keys = graphs.keys()
     assert sum(graphs.captures.values()) == len(keys) == len(set(keys))
-    assert graphs.eager_steps == {"seeded": 0}
+    assert graphs.eager_steps == {"seeded": 0, "embed": 0}
     option_sets = {key[3] for key in keys}
     assert ("penalties", "bias", "suppress", "guided") in option_sets
     kind = "decode_burst" if decode_steps > 1 else "step"

@@ -20,8 +20,10 @@ import torch
 from production_stack_tpu.router.stats.engine_stats import EngineStats
 from production_stack_tpu_torch.engine.server import (
     UNPORTED_ROUTES,
+    build_engine_from_args,
     make_server,
     parse_args,
+    resolve_attention_impl,
     unported_feature,
 )
 from production_stack_tpu_torch.engine.step_graphs import (
@@ -118,28 +120,43 @@ def _reference_flags():
 
 
 def test_flags_are_the_jax_servers():
-    """41 of the JAX server's 75 flags, each under its JAX name; the
-    five of disaggregation, the profiler, the observatory and tracing
-    with the JAX defaults. --device is the port's own."""
+    """57 of the JAX server's 75 flags, each under its JAX name; the
+    five of disaggregation, the profiler, the observatory and tracing,
+    the eleven of autotuning, --pooling and the four small ones with the
+    JAX defaults. --device is the port's own."""
     reference = _reference_flags()
     assert len(reference) == 76  # 75 flags, one with an alias
     src = (Path(__file__).resolve().parents[1] / "production_stack_tpu_torch"
            / "engine" / "server.py").read_text()
     port = set(re.findall(r'add_argument\(\s*"(--[a-z0-9-]+)"', src))
     assert port - set(reference) == {"--device"}
-    assert len(port) - 1 == 41
+    assert len(port) - 1 == 57
     new = {"--engine-role": "both", "--profile-dir": None,
            "--device-peak-flops": 0.0, "--request-span-log": None,
-           "--trace-ring-size": 256}
+           "--trace-ring-size": 256,
+           "--autotune": "off", "--autotune-interval-s": 2.0,
+           "--autotune-dead-band": 0.05, "--autotune-controllers": "all",
+           "--autotune-freeze-window-s": 30.0,
+           "--autotune-burn-threshold": 1.0,
+           "--autotune-target-itl-ms": 50.0, "--autotune-min-spec-k": 1,
+           "--autotune-min-checkpoint-interval-tokens": 64,
+           "--autotune-max-checkpoint-interval-tokens": 4096,
+           "--autotune-min-shed-threshold": 0.5,
+           "--pooling": "last", "--dtype": None,
+           "--attention-impl": "auto", "--compilation-cache-dir": None}
     args = vars(parse_args([]))
     for flag, default in new.items():
         assert flag in port
         assert reference[flag] == repr(default).replace("'", '"')
         assert args[flag[2:].replace("-", "_")] == default
+    assert args["disable_prefix_caching"] is False
     assert reference["--profiler-dir"] == "None"
     assert parse_args(["--profiler-dir", "d"]).profile_dir == "d"
-    with pytest.raises(SystemExit):
-        parse_args(["--engine-role", "compute"])
+    for flag, bad in (("--engine-role", "compute"), ("--autotune", "auto"),
+                      ("--pooling", "cls"), ("--dtype", "int8"),
+                      ("--attention-impl", "triton")):
+        with pytest.raises(SystemExit):
+            parse_args([flag, bad])
 
 
 def test_completion(base_url):
@@ -519,7 +536,15 @@ SERVED_ROUTES = {("GET", "/health"), ("GET", "/v1/models"),
                  ("POST", "/debug/profiler/stop"),
                  ("GET", "/debug/trace/{request_id}"),
                  ("GET", "/debug/steps"), ("GET", "/debug/compiles"),
-                 ("GET", "/debug/memory")}
+                 ("GET", "/debug/memory"), ("POST", "/v1/embeddings"),
+                 ("POST", "/v1/score"), ("POST", "/score"),
+                 ("POST", "/v1/rerank"), ("POST", "/rerank"),
+                 ("GET", "/autotune/status"), ("POST", "/autotune/reset")}
+# The pooled routes' 400 for a body without their fields, the JAX
+# server's message.
+POOLED_400 = {"/v1/embeddings": "'input' must be",
+              "/v1/score": "'text_1' (string)", "/score": "'text_1' (string)",
+              "/v1/rerank": "'query' (string)", "/rerank": "'query' (string)"}
 
 
 def test_every_reference_route_is_served_or_answers_501(base_url):
@@ -549,6 +574,10 @@ def test_every_reference_route_is_served_or_answers_501(base_url):
             # Served: an id the flight recorder never saw is a 404.
             assert status == 404 and "no trace" in text, text
             continue
+        if path in POOLED_400:
+            # Served: a completion's body has none of their fields.
+            assert status == 400 and POOLED_400[path] in text, text
+            continue
         if (method, path) in SERVED_ROUTES:
             assert status == 200, (method, path, text)
             continue
@@ -557,8 +586,9 @@ def test_every_reference_route_is_served_or_answers_501(base_url):
         assert status == 501, (method, path, text)
         message = json.loads(text)["error"]["message"]
         assert feature in message and "not ported" in message
-    assert len(SERVED_ROUTES) == 17
-    assert len(UNPORTED_ROUTES) == 24 - len(SERVED_ROUTES)
+    assert len(SERVED_ROUTES) == 24
+    assert UNPORTED_ROUTES == ()
+    assert unported_feature("POST", "/v1/embeddings") is None
 
 
 @pytest.mark.parametrize("method,path", [
@@ -575,3 +605,134 @@ def test_server_needs_a_card_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_server(["--model", "tiny-llama", "--port", "0"])
+
+
+# ---- the four small flags --------------------------------------------------
+
+
+def _cpu_args(*extra):
+    return parse_args(["--model", "tiny-llama", "--device", "cpu",
+                       "--max-model-len", "256", "--prefill-chunk-size",
+                       "64", *extra])
+
+
+@pytest.mark.parametrize("disabled", [False, True])
+def test_disable_prefix_caching_flag(disabled):
+    """--disable-prefix-caching: a repeated prompt hits no cached page."""
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    engine, _ = build_engine_from_args(_cpu_args(
+        *(["--disable-prefix-caching"] if disabled else [])))
+    assert engine.config.cache.enable_prefix_caching is not disabled
+    prompt = list(range(1, 70))
+    for _ in range(2):
+        engine.generate(prompt, SamplingParams(temperature=0.0,
+                                               max_tokens=2))
+    hits = engine.cache_manager.prefix_hit_tokens
+    assert (hits == 0) if disabled else (hits == 64)
+
+
+class _FakeKernelLib:
+    """The kernel library's support question, answered from the lines
+    of PSTT_FOR_EACH_GEOMETRY (csrc/paged_kv_common.cuh)."""
+
+    LINES = {(0, 0, 4, 64), (0, 2, 4, 64), (1, 1, 2, 32), (1, 2, 2, 32)}
+
+    def pstt_kernel_supports(self, dtype, cache_dtype, group, head_dim):
+        return int((dtype, cache_dtype, group, head_dim) in self.LINES)
+
+
+def test_fake_kernel_lib_is_the_geometry_list():
+    src = (Path(__file__).resolve().parents[1] / "production_stack_tpu_torch"
+           / "csrc" / "paged_kv_common.cuh").read_text()
+    lines = re.findall(r"X\((\d), [\w ]+, (\d), [\w ]+, (\d+), (\d+)\)", src)
+    assert {tuple(map(int, x)) for x in lines} == _FakeKernelLib.LINES
+
+
+@pytest.mark.parametrize("model,dtype,line", [
+    ("bench-1b", "float32", "X(1, float, 1, float, 4, 64)"),
+    ("bench-1b", "float16", "X(?, __half, ?, __half, 4, 64)"),
+    ("tiny-llama", "bfloat16", "X(0, __nv_bfloat16, 0, __nv_bfloat16, 2, "
+                               "32)"),
+])
+def test_dtype_the_kernels_lack_is_refused_on_the_card(monkeypatch, model,
+                                                       dtype, line):
+    """--dtype on the card: a geometry without its line is refused at
+    start, before any weight is made, naming the missing line; never
+    served through the plain path."""
+    from production_stack_tpu_torch.ops import paged_kv_common
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(paged_kv_common, "kernel_lib", _FakeKernelLib)
+    with pytest.raises(NotImplementedError) as err:
+        build_engine_from_args(parse_args(["--model", model, "--dtype",
+                                           dtype]))
+    assert line in str(err.value)
+    assert "PSTT_FOR_EACH_GEOMETRY" in str(err.value)
+    # The preset dtypes pass the same question.
+    paged_kv_common.check_kernel_shapes(32, 8, 64, 128, torch.bfloat16)
+    paged_kv_common.check_kernel_shapes(4, 2, 32, 16, torch.float32,
+                                        torch.int8)
+
+
+def test_dtype_applies_on_the_cpu():
+    """With --device cpu the dtype is served (plain versions)."""
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    engine, _ = build_engine_from_args(_cpu_args("--dtype", "bfloat16"))
+    assert engine.config.model.dtype == "bfloat16"
+    assert engine.runner.params.embed.dtype == torch.bfloat16
+    out = engine.generate([1, 2, 3], SamplingParams(temperature=0.0,
+                                                    max_tokens=3,
+                                                    ignore_eos=True))
+    assert len(out.output_token_ids) == 3
+
+
+@pytest.mark.parametrize("impl,card,expected", [
+    ("auto", True, "cuda"), ("pallas", True, "cuda"),
+    ("xla", True, None), ("pallas-interpret", True, None),
+    ("auto", False, "plain"), ("pallas", False, "plain"),
+    ("xla", False, "plain"), ("pallas-interpret", False, "plain"),
+])
+def test_attention_impl_maps_onto_the_ports(impl, card, expected):
+    device = torch.device("cuda" if card else "cpu")
+    if expected is None:
+        with pytest.raises(ValueError, match="never serves"):
+            resolve_attention_impl(impl, device)
+    else:
+        assert resolve_attention_impl(impl, device) == expected
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas-interpret"])
+def test_reference_impls_are_refused_at_start_on_the_card(monkeypatch,
+                                                          impl):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="plain attention"):
+        make_server(["--model", "tiny-llama", "--attention-impl", impl,
+                     "--port", "0"])
+    engine, _ = build_engine_from_args(_cpu_args("--attention-impl", impl))
+    assert engine.runner.observatory.attention_impls() == dict.fromkeys(
+        ("decode", "prefill", "unified"), "plain")
+
+
+def test_compilation_cache_dir_moves_the_kernel_build(monkeypatch,
+                                                      tmp_path):
+    """--compilation-cache-dir DIR: the library is built and found under
+    DIR/kernels/<source hash>/, so a restart with the same DIR finds the
+    build and runs no nvcc."""
+    from production_stack_tpu_torch.ops import paged_kv_common
+    monkeypatch.setattr(paged_kv_common, "BUILD_ROOT",
+                        paged_kv_common.BUILD_ROOT)
+    default = paged_kv_common.BUILD_ROOT
+    assert default == Path(paged_kv_common.__file__).resolve().parents[2] / (
+        "build/kernels")
+    build_engine_from_args(_cpu_args("--compilation-cache-dir",
+                                     str(tmp_path)))
+    assert paged_kv_common.BUILD_ROOT == tmp_path / "kernels"
+    built = (tmp_path / "kernels" / paged_kv_common._source_digest()
+             / paged_kv_common.LIB_NAME)
+    built.parent.mkdir(parents=True)
+    built.write_bytes(b"")
+
+    def no_nvcc():
+        raise AssertionError("nvcc run although the build exists")
+
+    monkeypatch.setattr(paged_kv_common, "_find_nvcc", no_nvcc)
+    assert paged_kv_common.build_kernels() == built

@@ -310,7 +310,7 @@ def test_greedy_streams_match_eager_and_jax(weights, jax_streams, form):
     # every step, no eager step.
     assert sum(graphs.captures.values()) == len(graphs.keys()) > 0
     assert sum(graphs.replays.values()) >= sum(graphs.captures.values())
-    assert graphs.eager_steps == {"seeded": 0}
+    assert graphs.eager_steps == {"seeded": 0, "embed": 0}
     kinds = {key[0] for key in graphs.keys()}
     assert "step" in kinds  # prefill steps, at least
     if form.get("unified"):
