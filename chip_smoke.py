@@ -246,6 +246,39 @@ its result line:
     plain reference) at least 0.999; ``/v1/score`` and ``/v1/rerank``
     equal to the cosines of the same texts' vectors; one
     ``vllm:engine_eager_steps_total{reason="embed"}`` a chunk.
+17. weights: weight-only int8 and multi-LoRA. The int8-weight GEMM
+    (``ops/int8_matmul_cuda.int8_weight_matmul``) against its plain
+    version at bench-1b's four projections (qkv, o, gate_up, down) for
+    M = 1, 8, 32, 160 and ``INT8_KERNEL_MAX_ROWS`` rows in bf16 (2e-2)
+    and one f32 tiny-llama case (1e-4); two launches must give equal
+    bits; at M = 32, 160 and the threshold it is timed with CUDA events
+    (L2 flushed) beside bf16 ``torch.matmul`` on the dequantized weight
+    (the yardstick, ``library_ms``), the dequantize-then-matmul form
+    (``dequant_ms``), the plain version and its bound (int8 weight
+    bytes read once). bench-1b with random int8 weights through
+    ``forward``, the kernels against the plain versions at the model
+    phase's three step kinds (``compare_logits``, ``NEAR_TIE_LOGITS``);
+    decode and verify launch the kernel 64 times each. Then three
+    servers at the first run's configuration with no prefix cache, bf16
+    KV per layer: bf16 without LoRA, ``--quantization int8`` and
+    ``--enable-lora --max-lora-rank 16 --lora-modules a=DIR_A b=DIR_B``
+    (two rank-16 PEFT adapters over all seven targets, BF16 safetensors
+    written by the script itself). Each takes 16 greedy requests of
+    64..700 tokens,
+    32 out, submitted together (the LoRA server's a third each to the
+    base model, ``a`` and ``b``), once as a warm-up that captures the
+    graphs and then counted, the counters set to 0 just before and
+    read just after: the three attention kernels launch, no plain call
+    on CUDA tensors, no eager step, no key captured in the window or
+    twice, and the int8 and LoRA runs capture no key the bf16 run did
+    not. Every int8 graph
+    whose products have at most ``INT8_KERNEL_MAX_ROWS`` rows launches
+    the int8-weight kernel 4 * 16 times a forward, every other none.
+    Every stream is held by ``check_stream`` to the same request sent
+    alone to the same server; the LoRA server's base rows to the server
+    without LoRA; its adapter rows must differ from the base stream, and
+    each response names its adapter. Prints tok/s beside the first
+    serving run's bf16 figure and captures by kind.
 
 ``python3 chip_smoke.py --only fleet`` (any phase names) runs the
 kernel build and those phases alone, for development, and prints no
@@ -260,8 +293,10 @@ phase's resume windows as ``fleet_resume`` and, counting the int8
 stacked form, ``fleet_resume_int8_stacked``; the disagg phase's
 decode-role handoff windows as ``disagg_handoff`` and
 ``disagg_handoff_int8_stacked``; the autotune phase's ``on`` window as
-``serve_autotune``). The last line is the
-``ok`` JSON line.
+``serve_autotune``; the weights phase's int8 and LoRA windows as
+``serve_int8_weights`` and ``serve_lora``). The int8-weight GEMM's
+entry reports its headline case (gate_up at M = 32) and its launches
+in the int8 server's window. The last line is the ``ok`` JSON line.
 """
 
 from __future__ import annotations
@@ -1781,6 +1816,8 @@ def serving_phase(vocab: int) -> dict:
         inspect=lambda server, url: observatory_checks(
             server, url, requests, span_log))
     _check_best_of(base["probe"], probe)
+    global SERVE_TOK_S
+    SERVE_TOK_S = base["tokens"] / base["wall"]
     spec = serving_run("serving spec k=4", ["--speculative-k", "4"],
                        spec_requests, spec_requests[0])
     if spec["drafted"] <= 0:
@@ -2159,13 +2196,14 @@ def tie_margin(top_logprobs, got_token) -> float:
     return max(top_logprobs.values()) - top_logprobs[got_token]
 
 
-def near_tie(engine, context, got_token) -> float:
+def near_tie(engine, context, got_token, lora_name=None) -> float:
     """``tie_margin`` of the engine's top 20 logprobs at the token after
-    ``context``. The engine must not be serving (its loop stopped)."""
+    ``context`` (with the adapter ``lora_name``, if any). The engine
+    must not be serving (its loop stopped)."""
     from production_stack_tpu_torch.engine.sequence import SamplingParams
     sid = engine.add_request(list(context), SamplingParams(
         temperature=0.0, max_tokens=1, logprobs=True, top_logprobs=20,
-        ignore_eos=True))
+        ignore_eos=True), lora_name=lora_name)
     entry = None
     while entry is None:
         for out in engine.step():
@@ -2176,13 +2214,15 @@ def near_tie(engine, context, got_token) -> float:
     return tie_margin(dict(entry[1]), got_token)
 
 
-def check_stream(label, what, ref_engine, context, ref_ids, got_ids):
+def check_stream(label, what, ref_engine, context, ref_ids, got_ids,
+                 lora_name=None):
     """Greedy ``got_ids`` against ``ref_ids`` after ``context``: equal,
     or equal up to a first flip that is a near tie of the reference
     engine (its margin under ``NEAR_TIE_LOGITS``, the model phase's
     rule: bf16 arithmetic in another order, a step of another kind or
-    shape, may flip a near tie, and the streams part there). Returns
-    the flip's (index, margin), or None."""
+    shape, may flip a near tie, and the streams part there), the
+    reference run with the adapter ``lora_name``, if any. Returns the
+    flip's (index, margin), or None."""
     if len(got_ids) != len(ref_ids):
         raise AssertionError(f"{label}: {what}: {len(got_ids)} tokens, "
                              f"expected {len(ref_ids)}")
@@ -2191,7 +2231,7 @@ def check_stream(label, what, ref_engine, context, ref_ids, got_ids):
     if flip is None:
         return None
     margin = near_tie(ref_engine, list(context) + ref_ids[:flip],
-                      got_ids[flip])
+                      got_ids[flip], lora_name)
     if not margin < NEAR_TIE_LOGITS:
         raise AssertionError(f"{label}: {what}: token {flip} flipped at a "
                              f"margin of {margin} logits")
@@ -2841,11 +2881,12 @@ def _graph_lattice(runner) -> set:
                for r in runner.unified_row_buckets for w in runner._buckets})
 
 
-def _gated_streams(srv, prompts):
-    """Stream one greedy completion a prompt with the engine loop held
-    until all are queued, in this order, so every server admits the same
-    rows before its first step; returns (texts, seconds from the release
-    to the last frame)."""
+def _gated_streams(srv, prompts, max_tokens=None, models=None):
+    """Stream one greedy completion of ``max_tokens`` (AUTOTUNE_OUT) a
+    prompt, each under its ``models`` name if given, with the engine
+    loop held until all are queued, in this order, so every server
+    admits the same rows before its first step; returns (texts, seconds
+    from the release to the last frame)."""
     import http.client
     gate, held = threading.Event(), threading.Event()
     while not srv.app.loop._thread.is_alive():
@@ -2862,12 +2903,15 @@ def _gated_streams(srv, prompts):
     host, port = srv.url.split("//")[1].split(":")
     conns = []
     try:
-        for prompt in prompts:
+        for i, prompt in enumerate(prompts):
+            body = {"prompt": prompt,
+                    "max_tokens": max_tokens or AUTOTUNE_OUT,
+                    "temperature": 0.0, "ignore_eos": True, "stream": True}
+            if models is not None:
+                body["model"] = models[i]
             conn = http.client.HTTPConnection(host, int(port), timeout=300)
-            conn.request("POST", "/v1/completions", json.dumps({
-                "prompt": prompt, "max_tokens": AUTOTUNE_OUT,
-                "temperature": 0.0, "ignore_eos": True, "stream": True}),
-                {"Content-Type": "application/json"})
+            conn.request("POST", "/v1/completions", json.dumps(body),
+                         {"Content-Type": "application/json"})
             resp = conn.getresponse()  # the headers: the request is queued
             if resp.status != 200:
                 raise AssertionError(f"autotune: {resp.status} "
@@ -3105,6 +3149,372 @@ def _embedding_checks(srv, vocab) -> None:
         f"eager steps; {SMI}")
 
 
+# ---- weights phase ------------------------------------------------------------
+
+# The int8-weight GEMM's entry on the ``kernels`` line: the XLA product
+# it stands for (the JAX package's dequantizing matmul is no Pallas
+# kernel) and its run, the int8-weight server's counted window.
+W8_KERNEL = dict(
+    route="cuda",
+    source="production_stack_tpu_torch/csrc/int8_weight_gemm.cu",
+    replaces="production_stack_tpu/engine/quantization.py:58")
+WEIGHTS_RUN = "serve_int8_weights"
+LORA_RUN = "serve_lora"
+# bench-1b's four projections as (K, N): qkv, o, gate_up, down.
+PROJECTIONS = {"qkv": (2048, 3072), "o": (2048, 2048),
+               "gate_up": (2048, 11264), "down": (5632, 2048)}
+# The kernel's headline case: the gate_up product of a decode step.
+W8_HEADLINE = ("gate_up", 32)
+WEIGHTS_OUT = 32
+WEIGHTS_ARGS = ["--disable-prefix-caching"]
+LORA_RANK = 16
+# tok/s of the first serving run (bf16 KV), set by serving_phase.
+SERVE_TOK_S = None
+
+
+def _w8_bound(m, k, n) -> dict:
+    """Weight bytes read once (int8 values, f32 scales), activations
+    read once and the output written once, against 2 m n k bf16
+    tensor-core operations."""
+    return _bound(n * k + 4 * n + 2 * m * k + 2 * m * n, 2 * m * n * k)
+
+
+def _w8_kernel_cases(dev) -> dict:
+    """``int8_weight_matmul`` against its plain version at the four
+    projections for M = 1, 8, 32, 160 and the threshold (bf16), and one
+    f32 tiny-llama case; two launches must give equal bits. At M = 32,
+    160 and the threshold it is timed beside bf16 ``torch.matmul`` on
+    the dequantized weight (``library_ms``, the yardstick), the plain
+    torch form the engine takes above the threshold (``dequant_ms``)
+    and the plain version (``plain_ms``). Returns the headline case."""
+    from production_stack_tpu_torch.engine.quantization import (
+        dequant_matmul)
+    from production_stack_tpu_torch.ops.int8_matmul_cuda import (
+        INT8_KERNEL_MAX_ROWS, int8_weight_matmul, int8_weight_matmul_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    rows = sorted({1, 8, 32, 160, INT8_KERNEL_MAX_ROWS})
+    timed = {32, 160, INT8_KERNEL_MAX_ROWS}
+    cases = []
+    timer = None  # made just before the first timed case (clocks warm)
+
+    def check(name, x, q, scale, tol):
+        got = int8_weight_matmul(x, q, scale)
+        again = int8_weight_matmul(x, q, scale)
+        want = int8_weight_matmul_plain(x, q, scale)
+        torch.cuda.synchronize()
+        if not torch.allclose(got.float(), want.float(), **tol):
+            raise AssertionError(f"{name}: kernel and plain version "
+                                 "disagree")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two launches gave other bits")
+        return (got.float() - want.float()).abs().max().item()
+
+    for proj, (k, n) in PROJECTIONS.items():
+        q = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        scale = (torch.rand((n,), generator=gen, device=dev) + 0.5) * (
+            0.02 / 127)
+        dense = (q.float() * scale[:, None]).to(torch.bfloat16)
+        for m in rows:
+            if m > INT8_KERNEL_MAX_ROWS:
+                continue
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            case = f"int8_weight_matmul bf16 {proj} M={m} K={k} N={n}"
+            r = {"case": case, "proj": proj, "m": m,
+                 "max_abs_err": check(case, x, q, scale, BF16_TOL)}
+            if m in timed:
+                timer = timer or Timer(dev)
+                r["ms"] = timer.ms(lambda: int8_weight_matmul(x, q, scale))
+                r["library_ms"] = timer.ms(lambda: torch.matmul(x, dense.t()))
+                r["dequant_ms"] = timer.ms(lambda: dequant_matmul(x, q, scale))
+                r["plain_ms"] = timer.ms(
+                    lambda: int8_weight_matmul_plain(x, q, scale))
+                r.update(_w8_bound(m, k, n))
+                r["bound_share"] = r["bound_ms"] / r["ms"]
+            log("weights kernel case " + json.dumps(r))
+            cases.append(r)
+        del q, dense
+    # The tiny llama's f32 geometry (hidden 128, ffn 256): the FMA form.
+    xq = torch.randn((24, 256), generator=gen, device=dev)
+    q = torch.randint(-127, 128, (128, 256), generator=gen, device=dev,
+                      dtype=torch.int8)
+    scale = torch.rand((128,), generator=gen, device=dev) * (0.04 / 127)
+    err = check("int8_weight_matmul f32 tiny down M=24", xq, q, scale,
+                F32_TOL)
+    log(f"weights kernel case f32 tiny down M=24 K=256 N=128: max abs err "
+        f"{err:.3e} (tolerance 1e-4)")
+    for m in sorted(timed):
+        line = [c for c in cases if c["m"] == m]
+        log(f"weights kernel M={m}: " + "; ".join(
+            f"{c['proj']} {c['ms']:.5f} ms (bf16 matmul {c['library_ms']:.5f}"
+            f", dequantize-then-matmul {c['dequant_ms']:.5f}, bound "
+            f"{c['bound_ms']:.5f} by {c['bound_by']}, "
+            f"{100 * c['bound_share']:.1f}% of it)" for c in line)
+            + f"; {SMI}")
+    head = next(c for c in cases
+                if (c["proj"], c["m"]) == W8_HEADLINE)
+    head = dict(head, max_abs_err=max(max(c["max_abs_err"] for c in cases),
+                                      err))
+    return head
+
+
+def _w8_model_check(dev) -> None:
+    """bench-1b with random int8 weights through ``forward``: the
+    kernels (attention and int8-weight) against their plain versions
+    (``plain_bf16p`` attention, the int8 product's plain version) at
+    the model phase's three step kinds; prefill (512 rows) takes the
+    dequantize-then-matmul form on both sides, decode (1 row) and verify
+    (5 rows) the kernel."""
+    from production_stack_tpu_torch.engine import quantization
+    from production_stack_tpu_torch.engine.config import (
+        bench_1b_model_config)
+    from production_stack_tpu_torch.ops.int8_matmul_cuda import (
+        int8_weight_matmul_plain)
+    from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
+
+    cfg = bench_1b_model_config()
+    cfg.quantization = "int8"
+    params = quantization.init_random_quantized(cfg, 0, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    tokens = torch.randint(1, cfg.vocab_size, (1, 512 + 6), generator=gen,
+                           device=dev, dtype=torch.int32)
+    COUNTERS.reset()
+    cuda = _forwards(dev, cfg, params, tokens,
+                     _model_caches(dev, cfg, "bf16", "per_layer"), "cuda")
+    launched = COUNTERS.launches.get("int8_weight_matmul", 0)
+    expected = 2 * 4 * cfg.num_hidden_layers  # decode and verify
+    if launched != expected:
+        raise AssertionError(f"weights model: {launched} int8-weight "
+                             f"launches, expected {expected}")
+    kernel = quantization.int8_weight_matmul
+    quantization.int8_weight_matmul = int8_weight_matmul_plain
+    try:
+        plain = _forwards(dev, cfg, params, tokens,
+                          _model_caches(dev, cfg, "bf16", "per_layer"),
+                          "plain_bf16p")
+    finally:
+        quantization.int8_weight_matmul = kernel
+    for phase, a, b in zip(PHASES, cuda, plain):
+        c = compare_logits(a, b)
+        log(f"weights model bench-1b int8 {phase}: finite {c['finite']}, "
+            f"max |cuda - plain| {c['diff']:.3e} (max |logit| "
+            f"{c['scale']:.3e}), {c['flips']} flips of {c['positions']}, "
+            f"margins {[f'{m:.3e}' for m in c['margins']]}")
+        if not c["ok"]:
+            raise AssertionError(f"weights model {phase}: the kernels' and "
+                                 "the plain versions' logits disagree")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _write_peft_adapter(path, cfg, seed) -> None:
+    """A rank-LORA_RANK PEFT adapter over all seven llama targets: A ~
+    N(0, 0.02), B ~ N(0, 0.2), lora_alpha = r, in a safetensors file of
+    BF16 tensors written here (a u64 header length, the JSON header,
+    the raw little-endian data)."""
+    rng = np.random.default_rng(seed)
+    h, ffn = cfg.hidden_size, cfg.intermediate_size
+    q_out = cfg.num_attention_heads * cfg.head_dim
+    kv_out = cfg.num_key_value_heads * cfg.head_dim
+    projs = (("self_attn.q_proj", h, q_out), ("self_attn.k_proj", h, kv_out),
+             ("self_attn.v_proj", h, kv_out), ("self_attn.o_proj", q_out, h),
+             ("mlp.gate_proj", h, ffn), ("mlp.up_proj", h, ffn),
+             ("mlp.down_proj", ffn, h))
+    header, blobs, offset = {}, [], 0
+    for i in range(cfg.num_hidden_layers):
+        for proj, d_in, d_out in projs:
+            for kind, shape, sd in (("A", (LORA_RANK, d_in), 0.02),
+                                    ("B", (d_out, LORA_RANK), 0.2)):
+                x = (sd * rng.standard_normal(shape, dtype=np.float32))
+                bits = (x.view(np.uint32) >> 16).astype("<u2").tobytes()
+                name = (f"base_model.model.model.layers.{i}.{proj}"
+                        f".lora_{kind}.weight")
+                header[name] = {"dtype": "BF16", "shape": list(shape),
+                                "data_offsets": [offset,
+                                                 offset + len(bits)]}
+                blobs.append(bits)
+                offset += len(bits)
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "adapter_model.safetensors"), "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for b in blobs:
+            f.write(b)
+    with open(os.path.join(path, "adapter_config.json"), "w") as f:
+        json.dump({"r": LORA_RANK, "lora_alpha": LORA_RANK,
+                   "target_modules": [p.split(".")[1] for p, _, _ in projs]},
+                  f)
+
+
+def _weights_window(label, srv, prompts, models=None) -> dict:
+    """The 16 greedy requests submitted together (the engine loop held
+    until all are queued), once as a warm-up (the graphs' captures),
+    then counted: the counters set to 0 just before and read just
+    after; then each request alone on the same server. Checks the
+    window's launches and graphs; stops the server (its engine stays
+    for ``near_tie``)."""
+    from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
+    graphs = srv.engine.runner.graphs
+    _, warm_wall = _gated_streams(srv, prompts, WEIGHTS_OUT, models)
+    warm_captures = dict(graphs.captures)
+    torch.cuda.synchronize()
+    srv.finished.clear()
+    COUNTERS.reset()
+    _, wall = _gated_streams(srv, prompts, WEIGHTS_OUT, models)
+    torch.cuda.synchronize()
+    run = {"label": label, "srv": srv, "wall": wall,
+           "warm_tok_s": len(prompts) * WEIGHTS_OUT / warm_wall,
+           "warm_captures": warm_captures,
+           "launches": dict(COUNTERS.launches),
+           "plain": dict(COUNTERS.plain_cuda_calls),
+           "captures": dict(graphs.captures), "keys": set(graphs.keys()),
+           "eager": dict(graphs.eager_steps),
+           "recorded": graphs.recorded_launches(),
+           "ids": [srv.tokens_after(p) for p in prompts]}
+    srv.finished.clear()
+    for i, prompt in enumerate(prompts):
+        body = {"prompt": prompt, "max_tokens": WEIGHTS_OUT,
+                "temperature": 0.0, "ignore_eos": True}
+        if models is not None:
+            body["model"] = models[i]
+        status, text, _ = _http("POST", srv.url + "/v1/completions", body)
+        if status != 200:
+            raise AssertionError(f"{label}: {status} {text}")
+        if models is not None and json.loads(text)["model"] != models[i]:
+            raise AssertionError(f"{label}: the response names "
+                                 f"{json.loads(text)['model']}, the "
+                                 f"request {models[i]}")
+    run["alone"] = [srv.tokens_after(p) for p in prompts]
+    srv.stop()
+    for kernel in KERNELS:
+        if run["launches"].get(kernel, 0) <= 0:
+            raise AssertionError(f"{label}: the window never launched "
+                                 f"{kernel}")
+    if run["plain"] or any(run["eager"].values()):
+        raise AssertionError(f"{label}: plain calls on CUDA {run['plain']}"
+                             f" or eager steps {run['eager']}")
+    if sum(run["captures"].values()) != len(run["keys"]):
+        raise AssertionError(f"{label}: a key captured twice")
+    if run["captures"] != warm_captures:
+        raise AssertionError(f"{label}: the window captured keys the "
+                             f"warm-up did not: {warm_captures} -> "
+                             f"{run['captures']}")
+    tokens = len(prompts) * WEIGHTS_OUT
+    run["tok_s"] = tokens / wall
+    log(f"{label}: {tokens} tokens in {wall:.3f} s ({run['tok_s']:.1f} "
+        f"tok/s; warm-up pass {run['warm_tok_s']:.1f}); captures by kind "
+        f"after the warm-up {run['warm_captures']}, after the window "
+        f"{run['captures']} ({len(run['keys'])} keys); launches "
+        f"{run['launches']}")
+    return run
+
+
+def _w8_rows(kind, shape):
+    """(rows of one projection product, products a replay) of a key."""
+    if kind == "decode_burst":
+        return shape[0], shape[1]
+    return shape[0] * shape[1], 1
+
+
+def weights_phase(vocab: int) -> dict:
+    """Weight-only int8 and multi-LoRA on the card: the int8-weight
+    kernel's cases and times, the quantized model against its plain
+    versions, then three servers at the first run's configuration (bf16
+    without LoRA, ``--quantization int8``, ``--enable-lora`` with two
+    rank-16 adapters over all seven targets), 16 greedy requests of
+    64..700 tokens each, WEIGHTS_OUT out, submitted together. Returns
+    the headline case and the int8 and LoRA windows' launches."""
+    from production_stack_tpu_torch.engine.config import (
+        bench_1b_model_config)
+    from production_stack_tpu_torch.ops.int8_matmul_cuda import (
+        INT8_KERNEL_MAX_ROWS)
+    dev = torch.device("cuda", 0)
+    head = _w8_kernel_cases(dev)
+    torch.cuda.empty_cache()
+    _w8_model_check(dev)
+
+    cfg = bench_1b_model_config()
+    rng = np.random.RandomState(21)
+    prompts = [rng.randint(258, vocab, size=n).tolist()
+               for n in np.linspace(64, 700, 16).round().astype(int)]
+    models = [("bench-1b", "a", "b")[i % 3] for i in range(16)]
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-lora-")
+    dirs = {name: os.path.join(tmp, name) for name in ("a", "b")}
+    t0 = time.perf_counter()
+    for seed, (name, path) in enumerate(dirs.items()):
+        _write_peft_adapter(path, cfg, seed)
+    size = os.path.getsize(os.path.join(dirs["a"],
+                                        "adapter_model.safetensors"))
+    log(f"weights: two rank-{LORA_RANK} PEFT adapters (BF16, seven targets,"
+        f" {size / 2**20:.1f} MiB each) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # No prefix cache: the counted window repeats the warm-up's steps.
+    base = _weights_window("weights bf16", _Server(WEIGHTS_ARGS), prompts)
+    int8 = _weights_window("weights int8", _Server(
+        WEIGHTS_ARGS + ["--quantization", "int8"]), prompts)
+    lora = _weights_window("weights LoRA", _Server(
+        WEIGHTS_ARGS + ["--enable-lora", "--max-lora-rank", str(LORA_RANK),
+                        "--lora-modules"]
+        + [f"{n}={p}" for n, p in dirs.items()]), prompts, models)
+
+    # Every decode-sized product of every int8 graph launched the kernel,
+    # every larger one took the dequantize-then-matmul form.
+    layers = cfg.num_hidden_layers
+    for key, counts in int8["recorded"].items():
+        m, products = _w8_rows(key[0], key[1])
+        want = 4 * layers * products if m <= INT8_KERNEL_MAX_ROWS else 0
+        if counts.get("int8_weight_matmul", 0) != want:
+            raise AssertionError(f"weights int8: key {key} launches "
+                                 f"{counts}, expected {want} int8-weight")
+    if int8["launches"].get("int8_weight_matmul", 0) <= 0:
+        raise AssertionError("weights int8: no int8-weight launch")
+    for run in (int8, lora):
+        extra = run["keys"] - base["keys"]
+        if extra:
+            raise AssertionError(f"{run['label']}: keys the bf16 run did "
+                                 f"not capture: {sorted(extra)}")
+    flips = {}
+    for run in (base, int8, lora):
+        flips[run["label"]] = [
+            check_stream(run["label"], f"request {i} batched vs alone",
+                         run["srv"].engine, prompts[i], run["alone"][i],
+                         run["ids"][i], lora_name=(
+                             None if models[i] == "bench-1b"
+                             or run is not lora else models[i]))
+            for i in range(16)]
+    base_rows = [i for i in range(16) if models[i] == "bench-1b"]
+    flips["LoRA base rows vs bf16"] = [
+        check_stream("weights LoRA", f"base row {i} vs the server without "
+                     "LoRA", base["srv"].engine, prompts[i], base["ids"][i],
+                     lora["ids"][i]) for i in base_rows]
+    same = [lora["ids"][i] == base["ids"][i]
+            for i in range(16) if i not in base_rows]
+    if any(same):
+        raise AssertionError(f"weights LoRA: adapter rows equal to the "
+                             f"base stream: {same}")
+    for label, f in flips.items():
+        parted = [(i, x) for i, x in enumerate(f) if x is not None]
+        log(f"{label}: {len(f) - len(parted)}/{len(f)} streams "
+            f"byte-identical, the others part at near ties (row, (index, "
+            f"margin)) {parted}")
+    against = (f"the first serving run's bf16 {SERVE_TOK_S:.1f} tok/s, "
+               if SERVE_TOK_S else "")
+    log(f"weights: int8 {int8['tok_s']:.1f} tok/s, LoRA "
+        f"{lora['tok_s']:.1f} tok/s against {against}this phase's bf16 "
+        f"server {base['tok_s']:.1f} tok/s (same traffic); "
+        f"INT8_KERNEL_MAX_ROWS {INT8_KERNEL_MAX_ROWS}; {SMI}")
+    for run in (base, int8, lora):
+        run["srv"].close()
+    return {"headline": head, WEIGHTS_RUN: int8["launches"],
+            LORA_RUN: lora["launches"]}
+
+
 # ---- main -------------------------------------------------------------------
 
 
@@ -3166,6 +3576,10 @@ def main() -> int:
     launches[DISAGG_INT8_RUN] = disagg[DISAGG_RUNS[1][0]]
     torch.cuda.empty_cache()
     launches[AUTOTUNE_RUN] = autotune_phase(vocab)
+    torch.cuda.empty_cache()
+    weights = weights_phase(vocab)
+    launches[WEIGHTS_RUN] = weights[WEIGHTS_RUN]
+    launches[LORA_RUN] = weights[LORA_RUN]
 
     def numbers(h):
         out = {"max_abs_err": h["max_abs_err"], "ms": h["ms"],
@@ -3194,6 +3608,15 @@ def main() -> int:
                 name + "_stacked", 0), **numbers(h["stacked"])},
             "int8_stacked": {"launches": launches[BURST_RUN].get(
                 name + "_int8_stacked", 0), **numbers(h["int8_stacked"])}})
+    # The int8-weight GEMM's path is the int8-weight server's window.
+    w8 = "int8_weight_matmul"
+    summary.append({
+        "name": w8, **W8_KERNEL,
+        "launches": launches[WEIGHTS_RUN].get(w8, 0),
+        "launches_by_run": {run: counts.get(w8, 0)
+                            for run, counts in launches.items()},
+        **numbers(weights["headline"]),
+        "dequant_ms": weights["headline"]["dequant_ms"]})
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s, the kernel build included")
     print(json.dumps({"kernels": summary}), flush=True)

@@ -5,12 +5,14 @@ dtypes in place of ``jnp`` ones. Only the fields of the port's slice
 are here: one llama-family model on one device, full-precision or
 int8 KV in per-layer or stacked pages, continuous batching with the
 async pipeline, decode bursts, the unified ragged step and
-prompt-lookup speculative decoding, the KV offload tiers
-(``OffloadConfig``), QoS classes and shedding (``QoSConfig``), the KV
-economy's summary and watermarks (``KVEconConfig``), the self-tuning
-controllers' policy (``AutotuneConfig``), the disaggregation role,
-stream checkpoints, the step watchdog and the AWAITING_KV timeout.
-Parallelism and LoRA join the port with the features that read them.
+prompt-lookup speculative decoding, weight-only int8 projections
+(``ModelConfig.quantization``), multi-LoRA adapters (``LoRAConfig``),
+the KV offload tiers (``OffloadConfig``), QoS classes and shedding
+(``QoSConfig``), the KV economy's summary and watermarks
+(``KVEconConfig``), the self-tuning controllers' policy
+(``AutotuneConfig``), the disaggregation role, stream checkpoints, the
+step watchdog and the AWAITING_KV timeout. Parallelism joins the port
+with the features that read it.
 """
 
 from __future__ import annotations
@@ -50,6 +52,8 @@ class ModelConfig:
     dtype: str = "bfloat16"
     # Qwen2-style q/k/v projection biases on the llama-family body.
     attention_bias: bool = False
+    # Weight-only quantization: none | int8 (engine/quantization.py).
+    quantization: str = "none"
 
     def __post_init__(self):
         if self.head_dim is None:
@@ -167,6 +171,16 @@ class SchedulerConfig:
 
     def max_pages_per_seq(self, page_size: int) -> int:
         return math.ceil(self.max_model_len / page_size)
+
+
+@dataclasses.dataclass
+class LoRAConfig:
+    """Multi-LoRA serving (the reference's --enable-lora pass-through;
+    see engine/lora.py)."""
+
+    enable: bool = False
+    max_loras: int = 8  # adapter slots (slot 0 is always the base model)
+    max_lora_rank: int = 16
 
 
 @dataclasses.dataclass
@@ -313,6 +327,7 @@ class EngineConfig:
         default_factory=KVEconConfig)
     autotune: AutotuneConfig = dataclasses.field(
         default_factory=AutotuneConfig)
+    lora: LoRAConfig = dataclasses.field(default_factory=LoRAConfig)
     seed: int = 0
     # Disaggregated serving role:
     #   both    -> monolithic engine (default): prefill and decode.

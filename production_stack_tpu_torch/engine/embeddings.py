@@ -11,7 +11,8 @@ Inputs are padded to power-of-two token buckets from 16 up to
 runs eagerly, not as a step graph: the server runs it on the engine
 loop's thread between two steps (``EngineLoop.call``) and counts it as
 an eager step of reason ``embed``. The JAX package's multihost step
-bridge has no counterpart: the port serves one device.
+bridge has no counterpart: the port serves one device. Weight-only
+int8 params are refused, as in JAX (the pooled routes answer 501).
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ import numpy as np
 import torch
 
 from production_stack_tpu_torch.engine.config import ModelConfig
+from production_stack_tpu_torch.engine.quantization import (
+    has_quantized_leaves,
+)
 from production_stack_tpu_torch.models import llama
 
 _POOLING_MODES = ("last", "mean")
@@ -40,6 +44,11 @@ class Embedder:
             raise NotImplementedError(
                 "embeddings are implemented for the llama family "
                 f"(got architecture={config.architecture!r})"
+            )
+        if has_quantized_leaves(params):
+            raise NotImplementedError(
+                "embeddings/score/rerank need unquantized weights "
+                "(weight-only int8 is serving-path only)"
             )
         self.config = config
         self.params = params

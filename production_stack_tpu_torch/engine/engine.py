@@ -17,7 +17,11 @@ Every per-row sampling option of the JAX engine is served: penalties,
 ``logit_bias``, ``min_tokens``, guided JSON (``SamplingParams.guided``
 "json", for the byte-range tokenizers, whose automaton is built at
 start-up) and logprobs, returned on each ``StepOutput`` in the JAX
-engine's form. LoRA adapters are not.
+engine's form. With ``config.lora.enable`` a request may name a
+registered LoRA adapter (``register_lora``): its rows run with the
+adapter's slot, and its prefix-cache pages live in the adapter's own
+namespace (the sequence's ``cache_salt``); weight-only int8
+(``ModelConfig.quantization``) is the runner's.
 
 With an offload tier (``config.offload``: a host RAM pool and/or a
 remote cache server, engine/offload.py) pages leave the card on
@@ -56,6 +60,7 @@ from typing import Dict, List, Optional
 
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.guided import build_json_fsm
+from production_stack_tpu_torch.engine.lora import load_peft_adapter
 from production_stack_tpu_torch.engine.kv_cache import (
     OutOfPagesError,
     PagedCacheManager,
@@ -301,14 +306,16 @@ class LLMEngine:
                     request_id: Optional[str] = None,
                     priority: Optional[int] = None,
                     spec_off: bool = False) -> str:
-        """Queue one request. ``handoff_prefill`` (a prefill-role
-        engine's request): retire after the first token, the prompt's
-        committed pages shipped and a descriptor staged
-        (``take_handoff_info``)."""
+        """Queue one request. ``lora_name``: a registered adapter (a
+        ValueError with LoRA off, a KeyError for an unknown name).
+        ``handoff_prefill`` (a prefill-role engine's request): retire
+        after the first token, the prompt's committed pages shipped and
+        a descriptor staged (``take_handoff_info``)."""
+        lora_id = 0
         if lora_name is not None:
-            raise NotImplementedError(
-                f"LoRA adapter {lora_name!r}: not supported by this "
-                "engine yet")
+            if self.runner.lora_registry is None:
+                raise ValueError("LoRA is not enabled on this engine")
+            lora_id = self.runner.lora_registry.slot_for(lora_name)
         sampling = sampling or SamplingParams()
         fsm_state = None
         if sampling.guided is not None:
@@ -327,6 +334,9 @@ class LLMEngine:
             prompt_token_ids=self._in_vocab(prompt_token_ids),
             sampling=sampling,
             output_sink=output_sink,
+            lora_id=lora_id,
+            cache_salt=(self.runner.lora_registry.cache_root(lora_id)
+                        if lora_id else 0),
             fsm_state=fsm_state,
             handoff_prefill=handoff_prefill,
             request_id=request_id,
@@ -509,14 +519,15 @@ class LLMEngine:
         a running stream's new committed pages to the offload tier
         (incrementally: pages shipped before are skipped) and stage a
         resume descriptor journaling its whole committed token context.
-        Guided streams are skipped (the automaton state does not
-        transfer). Without an offload tier the journal alone is staged,
-        so a resume recomputes."""
+        Guided and LoRA streams are skipped (the automaton state and the
+        adapter's identity do not transfer). Without an offload tier the
+        journal alone is staged, so a resume recomputes."""
         interval = self.config.checkpoint_interval_tokens
         with self._lock:
             for seq in list(self.scheduler.running):
                 if (seq.state != SequenceState.RUNNING
-                        or seq.sampling.guided is not None):
+                        or seq.sampling.guided is not None
+                        or seq.lora_id != 0):
                     continue
                 last = self._ckpt_last_tokens.get(seq.seq_id, 0)
                 if seq.num_generated - last < interval:
@@ -634,6 +645,24 @@ class LLMEngine:
                                  else "tier_down" if ready is None and probe
                                  else "timeout" if ready is None
                                  else "miss" if probe else "lost"))
+
+    def register_lora(self, name_or_path: str,
+                      name: Optional[str] = None) -> int:
+        """Load a PEFT adapter directory and serve it under ``name``
+        (default: the directory's name); returns its slot. The slot is
+        written in place, so steps already captured as graphs see it."""
+        if self.runner.lora_registry is None:
+            raise ValueError("LoRA is not enabled on this engine")
+        adapter = load_peft_adapter(name_or_path, self.config.model,
+                                    self.config.lora.max_lora_rank,
+                                    name=name)
+        with self._lock:
+            return self.runner.lora_registry.register(adapter)
+
+    def lora_names(self) -> List[str]:
+        if self.runner.lora_registry is None:
+            return []
+        return self.runner.lora_registry.names()
 
     def abort_request(self, seq_id: str) -> None:
         with self._lock:

@@ -37,6 +37,16 @@ at the fixed width TOP_LOGPROBS_WIDTH and trimmed on the host to each
 request's ``top_logprobs``. Each payload function returns {} when no row
 needs its option, so a plain batch keeps its plain graph. A burst
 carries the occurrence counts and the automaton state on the device.
+
+Weight-only int8 (``ModelConfig.quantization``): the projections are
+``QuantLinear``s, made directly as int8 when the runner draws random
+weights (``init_random_quantized``) or quantized from the given dense
+ones; decode-sized products run the int8-weight kernel. Multi-LoRA
+(``config.lora``): the adapter stacks (``engine/lora.LoRARegistry``)
+are allocated once on the device, and with LoRA on every step kind
+takes one more input, ``lora_ids`` (each row's adapter slot, 0 for the
+base model and pad rows), a static input of the step graphs and never
+part of a key.
 """
 
 from __future__ import annotations
@@ -47,6 +57,12 @@ import numpy as np
 import torch
 
 from production_stack_tpu_torch.engine.config import EngineConfig
+from production_stack_tpu_torch.engine.lora import LoRARegistry
+from production_stack_tpu_torch.engine.quantization import (
+    has_quantized_leaves,
+    init_random_quantized,
+    quantize_params,
+)
 from production_stack_tpu_torch.engine.scheduler import (
     DecodePlan,
     PrefillPlan,
@@ -300,13 +316,33 @@ class ModelRunner:
                 config.cache.page_size, model_config.torch_dtype,
                 cache_dtype)
         init_fn, self._forward = get_model(model_config)
-        if params is None:
+        quantized = model_config.quantization == "int8"
+        if params is None and quantized:
+            # Straight to int8: a full-precision init then quantize
+            # would peak at the dense weights plus their int8 copy.
+            logger.info("Initializing random int8 weights for %s",
+                        model_config.name)
+            params = init_random_quantized(model_config, config.seed,
+                                           self.device)
+        elif params is None:
             logger.info("Initializing random weights for %s",
                         model_config.name)
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
             params = init_fn(model_config, gen, self.device)
         self.params = params.to(self.device)
+        if quantized and not has_quantized_leaves(self.params):
+            # Given dense weights: quantized here, in place.
+            logger.info("Quantizing projection weights to int8 "
+                        "(weight-only)")
+            quantize_params(self.params, model_config)
+        # Multi-LoRA: the adapter stacks, allocated once before the KV
+        # pages and written in place by register_lora (the step graphs
+        # hold their addresses). None when LoRA is off.
+        self.lora_registry: Optional[LoRARegistry] = (
+            LoRARegistry(model_config, config.lora.max_loras,
+                         config.lora.max_lora_rank, self.device)
+            if config.lora.enable else None)
 
         # per_layer: one [kv_heads, pages, d, page_size] buffer per
         # layer, k and v; stacked: one [L, kv_heads, pages, d,
@@ -353,7 +389,10 @@ class ModelRunner:
         # each phase: the kernels on the card, the plain versions on the
         # CPU (the wrappers raise rather than fall back on the card).
         # Set to None to turn every hook off.
-        weights = list(self.params.parameters())
+        # Every leaf of the weights: parameters and the int8 projections'
+        # buffers (values and scales), as the JAX ledger sums its tree.
+        weights = (list(self.params.parameters())
+                   + list(self.params.buffers()))
         self.observatory: Optional[PerfObservatory] = PerfObservatory(
             config, param_count=sum(p.numel() for p in weights),
             params_bytes=sum(p.numel() * p.element_size() for p in weights),
@@ -406,6 +445,8 @@ class ModelRunner:
         row is seeded (counted)."""
         mode = sampler_mode(*(payload[k] for k in KNOBS))
         names = names + tuple(n for o in options for n in OPTION_INPUTS[o])
+        if "lora_ids" in payload:
+            names += ("lora_ids",)
         with torch.inference_mode():
             if self.graphs is not None and "seeds" not in payload:
                 return self.graphs.run(
@@ -431,6 +472,26 @@ class ModelRunner:
             return {}
         return {name: torch.from_numpy(payload[name])
                 for name in ("seeds", "emitted", "seed_mask")}
+
+    def _lora_payload(self, seqs: "List[Optional[Sequence]]",
+                      pad_to: int) -> dict:
+        """With LoRA on, each row's adapter slot ([pad_to] int32; pad and
+        None rows 0, the base model); else {}."""
+        if self.lora_registry is None:
+            return {}
+        ids = np.zeros((pad_to,), np.int32)
+        for i, seq in enumerate(seqs):
+            if seq is not None:
+                ids[i] = seq.lora_id
+        return {"lora_ids": ids}
+
+    def _lora_args(self, dev: dict) -> dict:
+        """The forward's adapter arguments: the registry's stacks and
+        the step's ``lora_ids``, or none with LoRA off."""
+        if self.lora_registry is None:
+            return {}
+        return {"lora": self.lora_registry.stack,
+                "lora_ids": dev["lora_ids"]}
 
     def _sample_rows(self, logits: torch.Tensor, dev: dict, mode: str,
                      options: Tuple[str, ...],
@@ -466,7 +527,7 @@ class ModelRunner:
         logits = self._forward(
             self.params, self.config.model, tokens, positions,
             dev["page_table"], dev["kv_lens"], valid, self.k_cache,
-            self.v_cache, select=select, kind=kind)
+            self.v_cache, select=select, kind=kind, **self._lora_args(dev))
         return self._sample_rows(logits[:, 0], dev, mode, options, seeding)
 
     def _unified_body(self, dev: dict, mode: str,
@@ -494,7 +555,8 @@ class ModelRunner:
         span = self._forward(
             self.params, self.config.model, tokens, dev["positions"],
             dev["page_table"], dev["kv_lens"], dev["valid"],
-            self.k_cache, self.v_cache, select=idx, kind="ragged")
+            self.k_cache, self.v_cache, select=idx, kind="ragged",
+            **self._lora_args(dev))
         out = spec_verify(span, dev["drafts"], dev["draft_lens"],
                           dev["temperature"], dev["top_p"], dev["top_k"],
                           generator=self.generator, mode=mode)
@@ -695,6 +757,7 @@ class ModelRunner:
             "kv_lens": kv_lens, "last_index": last_index,
             "temperature": temperature, "top_p": top_p, "top_k": top_k,
         }
+        payload.update(self._lora_payload([c.seq for c in chunks], b))
         # Only rows whose LAST chunk is in this step keep their sample:
         # the others carry no options.
         sampling_rows = [c.seq if c.is_last_chunk else None for c in chunks]
@@ -764,6 +827,7 @@ class ModelRunner:
             "page_table": page_table, "kv_lens": kv_lens,
             "temperature": temperature, "top_p": top_p, "top_k": top_k,
         }
+        payload.update(self._lora_payload(rows, b))
         if not ahead:
             # Plan-ahead eligibility excludes seeded rows (their
             # emitted index would be one token stale).
@@ -837,7 +901,7 @@ class ModelRunner:
             logits = self._forward(
                 self.params, self.config.model, tok, pos,
                 dev["page_table"], kv_lens, active[:, None], self.k_cache,
-                self.v_cache, kind="decode")[:, 0]
+                self.v_cache, kind="decode", **self._lora_args(dev))[:, 0]
             if emitted_start is not None:
                 seeding["emitted_index"] = emitted_start + k
             step_out, sampled, emitted_next, nxt = burst_sample_step(
@@ -930,6 +994,7 @@ class ModelRunner:
             "drafts": drafts, "draft_lens": draft_lens,
             "temperature": temperature, "top_p": top_p, "top_k": top_k,
         }
+        payload.update(self._lora_payload(seqs, b))
         _, options = self._options_payload(seqs, b, row_inputs=False)
         return SpecStepHandle(
             list(seqs), [list(plan.drafts[i]) for i in range(len(seqs))],
@@ -1002,6 +1067,8 @@ class ModelRunner:
             "drafts": drafts, "draft_lens": draft_lens,
             "temperature": temperature, "top_p": top_p, "top_k": top_k,
         }
+        payload.update(self._lora_payload(
+            list(seqs) + [c.seq for c in chunks], r))
         rows = list(seqs) + [c.seq if c.is_last_chunk else None
                              for c in chunks]
         _, options = self._options_payload(rows, r, row_inputs=False)

@@ -1,0 +1,191 @@
+"""Weight-only int8 quantization for serving, the JAX package's
+``engine/quantization.py`` in the port.
+
+Decode streams every projection weight once a step, so storing the
+projections as int8 with one f32 scale per output channel halves the
+weight bytes a step reads. It is a load-time transform (symmetric,
+no calibration data), selected by ``ModelConfig.quantization`` /
+``--quantization int8``.
+
+A quantized projection is a ``QuantLinear``: ``weight_int8`` [out, in]
+int8 and ``scale`` [out] f32 buffers (the ``nn.Linear`` orientation of
+the JAX pair ``(q [in, out], scale [out])``) and the optional bias. Its
+product of at most ``INT8_KERNEL_MAX_ROWS`` rows (decode, verify and
+burst steps) runs the int8-weight GEMM (ops/int8_matmul_cuda.py: the
+CUDA kernel on the card, its plain version on the CPU), which reads the
+int8 bytes once; a larger product (prefill chunks, unified steps) takes
+JAX's form, ``dequant_matmul``. Because the scale is per output
+channel, the fused ``qkv`` and ``gate_up`` projections quantize to
+exactly the concatenation of JAX's separate ``wq``/``wk``/``wv`` and
+``w_gate``/``w_up`` quantizations.
+
+Serving path only: the dense encode forward of the pooled routes needs
+unquantized weights (the Embedder refuses quantized params).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from production_stack_tpu_torch.engine.config import ModelConfig
+from production_stack_tpu_torch.ops.int8_matmul_cuda import (
+    INT8_KERNEL_MAX_ROWS,
+    int8_weight_matmul,
+)
+
+# Projections quantized per architecture, by the JAX names. Norms,
+# embeddings, biases and the LM head stay in full precision. The port
+# serves the llama family; opt and gpt2 join with their models.
+_TARGETS = {
+    "llama": ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"),
+    "mistral": ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"),
+    "qwen2": ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"),
+}
+# The port's fused projections and the JAX targets they hold, in column
+# order.
+FUSED_TARGETS = {
+    "qkv": ("wq", "wk", "wv"),
+    "o": ("wo",),
+    "gate_up": ("w_gate", "w_up"),
+    "down": ("w_down",),
+}
+
+
+def _targets(config: ModelConfig) -> Tuple[str, ...]:
+    targets = _TARGETS.get(config.architecture)
+    if targets is None:
+        raise NotImplementedError(
+            f"--quantization int8 is not supported for "
+            f"architecture {config.architecture!r}")
+    return targets
+
+
+def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel int8 over the contraction dim of a
+    [..., out, in] weight: (q int8 [..., out, in], scale f32 [...,
+    out]), JAX's arithmetic on the transposed layout."""
+    w32 = w.float()
+    scale = torch.amax(torch.abs(w32), dim=-1, keepdim=True) / 127.0
+    scale = torch.clamp(scale, min=1e-8)
+    q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+    return q, scale.squeeze(-1)
+
+
+def dequant_matmul(x: torch.Tensor, q: torch.Tensor,
+                   scale: torch.Tensor) -> torch.Tensor:
+    """JAX's expression and rounding order: the product in x's dtype
+    against the converted weight, then times the scale in x's dtype."""
+    out = F.linear(x, q.to(x.dtype))
+    return out * scale.to(x.dtype)
+
+
+class QuantLinear(nn.Module):
+    """An int8 projection: ``weight_int8`` [out, in], ``scale`` [out] f32
+    (buffers) and an optional bias."""
+
+    def __init__(self, weight_int8: torch.Tensor, scale: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.register_buffer("weight_int8", weight_int8.contiguous())
+        self.register_buffer("scale", scale.float().contiguous())
+        self.bias = (None if bias is None
+                     else nn.Parameter(bias.detach().clone(),
+                                       requires_grad=False))
+
+    @classmethod
+    def from_linear(cls, linear: nn.Linear) -> "QuantLinear":
+        q, scale = quantize_weight(linear.weight.detach())
+        return cls(q, scale, linear.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        rows = x.numel() // max(x.shape[-1], 1)
+        if rows <= INT8_KERNEL_MAX_ROWS:
+            out = int8_weight_matmul(x.contiguous(), self.weight_int8,
+                                     self.scale)
+        else:
+            out = dequant_matmul(x, self.weight_int8, self.scale)
+        if self.bias is not None:
+            out = out + self.bias
+        return out
+
+
+def is_quantized(module) -> bool:
+    return isinstance(module, QuantLinear)
+
+
+def has_quantized_leaves(params: nn.Module) -> bool:
+    return any(is_quantized(m) for m in params.modules())
+
+
+def quantize_params(params: nn.Module, config: ModelConfig) -> nn.Module:
+    """Replace every target projection of ``params`` (LlamaParams) with
+    its ``QuantLinear``, in place; returns ``params``."""
+    _targets(config)
+    with torch.no_grad():
+        for layer in params.layers:
+            for name in FUSED_TARGETS:
+                mod = getattr(layer, name)
+                if isinstance(mod, nn.Linear):
+                    setattr(layer, name, QuantLinear.from_linear(mod))
+    return params
+
+
+def init_random_quantized(config: ModelConfig, seed: int,
+                          device: torch.device) -> nn.Module:
+    """Random int8 weights without materialising the projections in
+    full precision: each target is uniform int8 in [-127, 127] with a
+    flat 0.02 / 127 scale (the magnitude of the dense init), embeddings
+    and the LM head N(0, 0.02), norms ones, biases zeros; the JAX
+    function's leaf kinds and distribution, drawn with numpy's PCG64
+    from ``seed``, not its bits. Peak device memory is the serving
+    footprint: only the int8 bytes and the non-target leaves land on
+    the card."""
+    from production_stack_tpu_torch.models.llama import LlamaParams
+
+    _targets(config)
+    rng = np.random.Generator(np.random.PCG64(seed & 0x7FFFFFFF))
+    dtype = config.torch_dtype
+    # The module tree on the meta device (no memory); every leaf is
+    # replaced below by one made on ``device``.
+    out = LlamaParams(config, torch.device("meta"))
+
+    def dense(shape):
+        host = 0.02 * rng.standard_normal(shape, dtype=np.float32)
+        return torch.from_numpy(host).to(device=device, dtype=dtype)
+
+    def quant(shape):
+        q = rng.integers(-127, 128, size=shape, dtype=np.int8)
+        return QuantLinear(
+            torch.from_numpy(q).to(device),
+            torch.full((shape[0],), 0.02 / 127.0, dtype=torch.float32,
+                       device=device))
+
+    h = config.hidden_size
+    out.embed = nn.Parameter(dense((config.vocab_size, h)),
+                             requires_grad=False)
+    out.final_norm = nn.Parameter(torch.ones(h, dtype=dtype, device=device),
+                                  requires_grad=False)
+    if out.lm_head is not None:
+        head = nn.Linear(h, config.vocab_size, bias=False, device="meta")
+        head.weight = nn.Parameter(dense((config.vocab_size, h)),
+                                   requires_grad=False)
+        out.lm_head = head
+    for layer in out.layers:
+        layer.attn_norm = nn.Parameter(
+            torch.ones(h, dtype=dtype, device=device), requires_grad=False)
+        layer.mlp_norm = nn.Parameter(
+            torch.ones(h, dtype=dtype, device=device), requires_grad=False)
+        for name in FUSED_TARGETS:
+            lin = getattr(layer, name)
+            qlin = quant((lin.out_features, lin.in_features))
+            if lin.bias is not None:
+                qlin.bias = nn.Parameter(
+                    torch.zeros(lin.out_features, dtype=dtype,
+                                device=device), requires_grad=False)
+            setattr(layer, name, qlin)
+    return out

@@ -71,11 +71,21 @@ Fleet contract, as the JAX server keeps it:
   Streams are sent with chunked transfer encoding, so a cut reads as
   one to the client.
 
-Flags: 57 of the JAX server's 75, with the same names, defaults and
-meanings (``parse_args``); the others (parallelism, LoRA,
-``--quantization``, ``--deferred-kv-writes``, ``--tokenizer``,
-``--chat-template``) are absent and argparse refuses them. ``--device``
-is the port's own (the card unless ``cpu`` is asked for).
+Flags: 62 of the JAX server's 75, with the same names, defaults and
+meanings (``parse_args``); the other 13 (the 10 of parallelism,
+``--deferred-kv-writes``, ``--tokenizer``, ``--chat-template``) are
+absent and argparse refuses them. ``--device`` is the port's own (the
+card unless ``cpu`` is asked for).
+
+Weight-only int8 (``--quantization int8``): the projections are int8
+with per-channel scales; decode-sized products run the int8-weight
+kernel. Multi-LoRA (``--enable-lora``, ``--lora-modules NAME=PATH ...``
+registered at start, ``--max-loras``, ``--max-lora-rank``): a request
+whose ``model`` is a registered adapter runs with it and its response
+echoes the adapter's name; any other ``model`` runs the base model, as
+in the JAX server (the router filters by served name).
+``/v1/models`` lists each adapter with its ``parent``, and
+``/v1/disagg/prefill`` refuses adapter names only.
 ``--attention-impl``'s JAX values map onto the port's impls
 (``resolve_attention_impl``); ``--dtype`` applies to the presets and,
 on the card, only to a geometry the kernels are built for;
@@ -97,8 +107,7 @@ Request options served, parsed and validated as the JAX server does
 candidates of highest mean token logprob), each choice one engine
 request over the shared prompt. The 400s the JAX server also gives
 remain: ``suffix``, ``echo`` with ``logprobs``, a streamed ``best_of``
-> n, out-of-range values, and a ``model`` other than the served one
-(LoRA adapters are not served).
+> n and out-of-range values.
 """
 
 from __future__ import annotations
@@ -129,6 +138,7 @@ from production_stack_tpu_torch.engine.config import (
     CacheConfig,
     EngineConfig,
     KVEconConfig,
+    LoRAConfig,
     OffloadConfig,
     QoSConfig,
     SchedulerConfig,
@@ -229,6 +239,7 @@ class EngineLoop:
             else:
                 self.engine.add_request(
                     item["prompt"], item["sampling"], seq_id=seq_id,
+                    lora_name=item.get("lora_name"),
                     handoff_prefill=item.get("handoff_prefill", False),
                     request_id=item.get("request_id"),
                     priority=item.get("priority"),
@@ -310,11 +321,12 @@ class EngineLoop:
     def submit(self, prompt: List[int], samplings: List[SamplingParams],
                priority: Optional[int] = None, spec_off: bool = False,
                request_id: Optional[str] = None,
-               handoff_prefill: bool = False
+               handoff_prefill: bool = False,
+               lora_name: Optional[str] = None
                ) -> Tuple[List[str], "queue.Queue"]:
-        """One engine request a sampling, over the shared prompt;
-        returns their sequence ids and the queue of their (index,
-        StepOutput) pairs."""
+        """One engine request a sampling, over the shared prompt (with
+        the adapter ``lora_name``, if any); returns their sequence ids
+        and the queue of their (index, StepOutput) pairs."""
         stream: "queue.Queue" = queue.Queue()
         seq_ids = []
         for i, sampling in enumerate(samplings):
@@ -324,7 +336,8 @@ class EngineLoop:
                 "seq_id": seq_id, "prompt": prompt, "sampling": sampling,
                 "priority": priority, "spec_off": spec_off,
                 "request_id": request_id,
-                "handoff_prefill": handoff_prefill})
+                "handoff_prefill": handoff_prefill,
+                "lora_name": lora_name})
             seq_ids.append(seq_id)
         self._wakeup.set()
         return seq_ids, stream
@@ -876,10 +889,15 @@ class EngineServer:
                 "top_k": self.kv_summary.top_k}
 
     def models(self) -> dict:
-        return {"object": "list", "data": [{
-            "id": self.model_name, "object": "model",
-            "created": int(self.loop.uptime_start),
-            "owned_by": "production-stack-tpu"}]}
+        created = int(self.loop.uptime_start)
+        data = [{"id": self.model_name, "object": "model",
+                 "created": created, "owned_by": "production-stack-tpu"}]
+        # LoRA adapters are addressable models, with their parent.
+        for name in self.engine.lora_names():
+            data.append({"id": name, "object": "model", "created": created,
+                         "owned_by": "production-stack-tpu",
+                         "parent": self.model_name})
+        return {"object": "list", "data": data}
 
     def metrics(self) -> str:
         stats = self.engine.stats()
@@ -1056,12 +1074,6 @@ class EngineServer:
                                if isinstance(prompt_in, list)
                                else str(prompt_in))
                 prompt = self.tokenizer.encode(prompt_text)
-        requested = body.get("model")
-        if requested is not None and requested != self.model_name:
-            raise BadRequest(
-                f"model {requested!r} is not served here (serving "
-                f"{self.model_name!r}; LoRA adapters are not supported "
-                "by this engine yet)")
         sched = self.engine.config.scheduler
         sampling = sampling_from_body(
             body, sched.max_model_len,
@@ -1188,12 +1200,20 @@ class EngineServer:
         choices = [Choice(self.tokenizer, sp, self._lp_json)
                    for sp in samplings]
         request_id = headers.get("x-request-id")
+        # A request addressed to a registered adapter runs with it and
+        # echoes its name; any other name runs the base model (the
+        # router already filtered by served model name).
+        requested = body.get("model")
+        lora_name = (requested if requested in self.engine.lora_names()
+                     else None)
+        response_model = lora_name or self.model_name
         seq_ids, queue_ = self.loop.submit(prompt, samplings, priority,
-                                           spec_off, request_id)
+                                           spec_off, request_id,
+                                           lora_name=lora_name)
 
         def envelope(obj: str, out: list, **extra) -> dict:
             return {"id": rid, "object": obj, "created": created,
-                    "model": self.model_name, "choices": out, **extra}
+                    "model": response_model, "choices": out, **extra}
 
         if stream:
             # Stream checkpoints ride single-candidate plain streams:
@@ -1204,7 +1224,7 @@ class EngineServer:
                      and not echo)
             identity = {"version": 1, "request_id": request_id,
                         "response_id": rid, "created": created,
-                        "chat": chat, "model": self.model_name}
+                        "chat": chat, "model": response_model}
             return 200, self._stream(
                 envelope, chat, echo_text, prompt, samplings, choices,
                 requested_lp, body.get("stream_options"), seq_ids,
@@ -1515,12 +1535,11 @@ class EngineServer:
                 vocab_size=self.engine.config.model.vocab_size)
         except (BadRequest, TypeError, ValueError) as e:
             return _error(400, str(e), "invalid_request_error")
-        requested = body.get("model")
         if (sampling.guided is not None or sampling.logprobs
-                or (requested is not None
-                    and requested != self.model_name)):
+                or body.get("model") in self.engine.lora_names()):
             # Guided automaton state and first-token logprobs do not
-            # cross a handoff, and adapters are not served.
+            # cross a handoff, and an adapter's cache salt is this
+            # process's; any other model name runs the base model.
             return _error(400, "request cannot be disaggregated (guided "
                           "decoding, logprobs and LoRA adapters are "
                           "monolithic-only)", "invalid_request_error")
@@ -2123,6 +2142,7 @@ def build_engine_from_args(args) -> tuple:
         # card the runner refuses a geometry the kernels are not built
         # for, naming the missing PSTT_FOR_EACH_GEOMETRY line.
         model_config.dtype = args.dtype
+    model_config.quantization = args.quantization
     config = EngineConfig(
         model=model_config,
         cache=CacheConfig(page_size=args.page_size,
@@ -2176,6 +2196,10 @@ def build_engine_from_args(args) -> tuple:
             max_checkpoint_interval_tokens=(
                 args.autotune_max_checkpoint_interval_tokens),
             min_shed_threshold=args.autotune_min_shed_threshold),
+        lora=LoRAConfig(
+            enable=args.enable_lora or bool(args.lora_modules),
+            max_loras=args.max_loras,
+            max_lora_rank=args.max_lora_rank),
         seed=args.seed,
         engine_role=args.engine_role,
         handoff_timeout_s=args.handoff_timeout_s,
@@ -2186,6 +2210,12 @@ def build_engine_from_args(args) -> tuple:
     engine = LLMEngine(config,
                        tokenizer=BenchTokenizer(model_config.vocab_size),
                        device=device)
+    for module in args.lora_modules or []:
+        name, _, path = module.partition("=")
+        if not path:
+            raise ValueError(
+                f"--lora-modules entries must be name=path, got {module!r}")
+        engine.register_lora(path, name=name)
     if args.request_span_log or args.trace_ring_size > 0:
         # The server's default: the flight recorder on, the span log
         # off. An engine built as a library keeps tracer None.
@@ -2223,6 +2253,11 @@ def parse_args(argv=None):
                         "the CPU); xla and pallas-interpret select the "
                         "plain versions, served only with --device cpu "
                         "and refused on the card")
+    p.add_argument("--quantization", default="none",
+                   choices=["none", "int8"],
+                   help="weight-only quantization: int8 projections with "
+                        "per-channel scales (half the weight bytes a "
+                        "decode step reads)")
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--num-pages", type=int, default=512)
     p.add_argument("--kv-cache-dtype", default="auto",
@@ -2240,6 +2275,13 @@ def parse_args(argv=None):
                         "picks stacked only under pipeline or context "
                         "parallelism)")
     p.add_argument("--disable-prefix-caching", action="store_true")
+    p.add_argument("--enable-lora", action="store_true",
+                   help="multi-LoRA adapter serving")
+    p.add_argument("--lora-modules", nargs="*", default=None,
+                   metavar="NAME=PATH",
+                   help="PEFT adapter directories to serve by name")
+    p.add_argument("--max-loras", type=int, default=8)
+    p.add_argument("--max-lora-rank", type=int, default=16)
     p.add_argument("--max-num-seqs", type=int, default=8)
     p.add_argument("--max-model-len", type=int, default=2048)
     p.add_argument("--prefill-chunk-size", type=int, default=512)

@@ -22,9 +22,10 @@ the counterpart of the JAX jit lattice, where an absent option input or
 
 - its static inputs: one device buffer that holds every input of the
   step (tokens, positions, valid, page table, kv lens, ..., the
-  sampling knobs, the options' [B, vocab] tensors) as typed views,
-  filled by ONE host-to-device copy
-  from a pinned staging buffer. There are two staging buffers a key,
+  sampling knobs, the options' [B, vocab] tensors and, with LoRA on,
+  each row's adapter slot ``lora_ids``: an input, never part of the
+  key) as typed views, filled by ONE host-to-device copy from a
+  pinned staging buffer. There are two staging buffers a key,
   used in turn, each guarded by an event: the async pipeline fills step
   N + 1's inputs while step N's copy may still wait in the stream. A
   step that feeds on the previous step's sampled tokens gets them by a
@@ -175,8 +176,9 @@ class StepGraphs:
     tuple of tensors; it is called (warmed up
     and captured) at the key's first use only, and must read nothing
     but those inputs and state that lives at fixed addresses (weights,
-    KV caches, registered generators). ``graph_factory`` builds a graph
-    (default: ``CudaGraph`` in the shared pool). ``observatory`` (a
+    KV caches, LoRA stacks, registered generators). ``graph_factory``
+    builds a graph (default: ``CudaGraph`` in the shared pool).
+    ``observatory`` (a
     ``PerfObservatory`` or None) is told of every capture."""
 
     def __init__(self, device: torch.device,
@@ -203,6 +205,11 @@ class StepGraphs:
 
     def keys(self) -> List[tuple]:
         return list(self._entries)
+
+    def recorded_launches(self) -> Dict[tuple, Dict[str, int]]:
+        """Each key's kernel launches a replay adds, by counter name."""
+        return {key: dict(entry.launches)
+                for key, entry in self._entries.items()}
 
     def count_eager(self, reason: str) -> None:
         self.eager_steps[reason] += 1

@@ -8,8 +8,14 @@ cache in either layout: a list of L [kv, pages, d, page] buffers
 (per_layer) or one stacked [L, kv, pages, d, page] buffer (stacked),
 each, for an int8 cache, a ``QuantKV`` of int8 pages and their
 per-slot scales. ``forward`` updates it IN PLACE (the JAX version
-threads updated copies through). ``encode`` is the cache-free dense
-forward the pooled routes run (engine/embeddings.py).
+threads updated copies through). Every projection goes through
+``engine/lora.lora_matmul``: its base product is the ``nn.Linear``, or
+for weight-only int8 (``engine/quantization.QuantLinear``) the
+quantized product, plus, with adapter stacks and per-row slot ids,
+each row's LoRA delta (the fused qkv and gate_up take their targets'
+deltas in their column blocks). ``encode`` is the cache-free dense
+forward the pooled routes run (engine/embeddings.py), over unquantized
+weights only.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from production_stack_tpu_torch.engine.config import ModelConfig
+from production_stack_tpu_torch.engine.lora import layer_stacks, lora_matmul
 from production_stack_tpu_torch.ops.attention import page_slots, write_slots
 from production_stack_tpu_torch.ops.paged_attention_cuda import (
     paged_decode_attention,
@@ -41,6 +48,9 @@ ATTENTION_IMPLS = ("cuda", "plain", "plain_bf16p")
 # The step kinds the runner names (never inferred from shapes: a
 # [32, 5] verify block and a small prefill block both have T > 1).
 STEP_KINDS = ("decode", "prefill", "ragged")
+# The LoRA targets of the fused projections, in column order.
+QKV_TARGETS = ("wq", "wk", "wv")
+GATE_UP_TARGETS = ("w_gate", "w_up")
 
 
 class LlamaLayer(nn.Module):
@@ -185,7 +195,9 @@ def forward(params: LlamaParams, config: ModelConfig,
             page_table: torch.Tensor, kv_lens: torch.Tensor,
             valid: torch.Tensor, k_cache, v_cache, *, kind: str,
             impl: Optional[str] = None,
-            select: Optional[torch.Tensor] = None) -> torch.Tensor:
+            select: Optional[torch.Tensor] = None,
+            lora=None, lora_ids: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
     """One model invocation over a (possibly padded) token block.
 
     Args:
@@ -204,6 +216,8 @@ def forward(params: LlamaParams, config: ModelConfig,
       select:     optional [B, S] int64 indices into T: logits only at
                   those slots (the sampled positions), so a prefill
                   step never materializes [B, T, vocab]
+      lora:       optional adapter stacks (engine/lora.py), layer-leading
+      lora_ids:   [B] adapter slot per batch row (0 = base model)
 
     Returns f32 logits [B, T, vocab], or [B, S, vocab] with ``select``.
     """
@@ -212,10 +226,15 @@ def forward(params: LlamaParams, config: ModelConfig,
     b, t = tokens.shape
     slots = page_slots(page_table, positions, valid,
                        k_cache[0].shape[-1])
+    ids = None if lora is None else lora_ids.long()
+    lora_scale = None if lora is None else lora["scaling"][ids]  # [B]
     x = F.embedding(tokens.long(), params.embed)  # [B, T, H]
     for layer, lp in enumerate(params.layers):
+        ll = layer_stacks(lora, layer)
         a_in = rms_norm(x, lp.attn_norm, config.rms_norm_eps)
-        q, k, v = lp.qkv(a_in).split([nh * d, nkv * d, nkv * d], dim=-1)
+        q, k, v = lora_matmul(a_in, lp.qkv, ll, QKV_TARGETS, ids,
+                              lora_scale).split([nh * d, nkv * d, nkv * d],
+                                                dim=-1)
         q = apply_rope(q.reshape(b, t, nh, d), positions,
                        config.rope_theta)
         k = apply_rope(k.reshape(b, t, nkv, d), positions,
@@ -224,10 +243,13 @@ def forward(params: LlamaParams, config: ModelConfig,
         attn = cached_attention(config, q, k, v, k_cache, v_cache,
                                 page_table, positions, kv_lens, slots,
                                 layer, kind, impl=impl)
-        x = x + lp.o(attn.reshape(b, t, nh * d))
+        x = x + lora_matmul(attn.reshape(b, t, nh * d), lp.o, ll, "wo",
+                            ids, lora_scale)
         m_in = rms_norm(x, lp.mlp_norm, config.rms_norm_eps)
-        gate, up = lp.gate_up(m_in).chunk(2, dim=-1)
-        x = x + lp.down(F.silu(gate) * up)
+        gate, up = lora_matmul(m_in, lp.gate_up, ll, GATE_UP_TARGETS, ids,
+                               lora_scale).chunk(2, dim=-1)
+        x = x + lora_matmul(F.silu(gate) * up, lp.down, ll, "w_down", ids,
+                            lora_scale)
     if select is not None:
         x = torch.take_along_dim(x, select[:, :, None], dim=1)
     x = rms_norm(x, params.final_norm, config.rms_norm_eps)

@@ -200,6 +200,12 @@ def kernel_lib() -> ctypes.CDLL:
             lib.pstt_paged_ragged.restype = i32
             lib.pstt_kernel_supports.argtypes = [i32] * 4
             lib.pstt_kernel_supports.restype = i32
+            # int8-weight GEMM (ops/int8_matmul_cuda.py): dtype, x, q,
+            # scale, out, partials, M, N, K, row tiles, splits, K a
+            # split, stream.
+            lib.pstt_int8_weight_matmul.argtypes = (
+                [i32] + [ptr] * 5 + [i32] * 6 + [ptr])
+            lib.pstt_int8_weight_matmul.restype = i32
             _LIB = lib
         return _LIB
 

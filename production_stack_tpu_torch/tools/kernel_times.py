@@ -21,9 +21,13 @@ per-layer, stacked, stacked, per-layer (``_stacked`` and
 the decode wrapper takes ``num_splits`` it also times the launch's fixed
 cost: a batch of pad rows (every block returns at once) and a batch of
 one-token rows, each at one split and at three (the second adds the
-merge kernel's launch). The wrappers' signatures are stable, so the same
-script times two commits in one call on the card: unpack the other
-commit somewhere and pass its root.
+merge kernel's launch). Where the checkout has the int8-weight GEMM
+(``ops/int8_matmul_cuda.py``), it also times ``int8_weight_matmul`` at
+M = 32 rows for each bench-1b projection (qkv, o, gate_up, down), beside
+a bf16 ``torch.matmul`` on the dequantized weight (``bf16_matmul_*``).
+The wrappers' signatures are stable, so the same script times two
+commits in one call on the card: unpack the other commit somewhere and
+pass its root.
 
 Each timed launch is queued behind a device-side wait with the L2
 flushed, so the CUDA events bracket the kernels alone (the wrapper's
@@ -67,6 +71,10 @@ def _ms(fn, flush, iters=50, warmup=5) -> float:
 
 # The stacked form: bench-1b's layer count and its last layer.
 STACK = (16, 15)
+# bench-1b's projections as (K, N), and the rows of a decode step.
+PROJECTIONS = {"qkv": (2048, 3072), "o": (2048, 2048),
+               "gate_up": (2048, 11264), "down": (5632, 2048)}
+DECODE_ROWS = 32
 
 
 def _stack_at(cache, gen):
@@ -218,8 +226,28 @@ def main(argv=None) -> int:
                 out.setdefault(f"paged_ragged_unified{tag}_{form}",
                                []).append(_ms(calls[form], flush))
             del k5, v5
+    _int8_weight_times(out, dev, gen, flush)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def _int8_weight_times(out, dev, gen, flush) -> None:
+    try:
+        from production_stack_tpu_torch.ops.int8_matmul_cuda import (
+            int8_weight_matmul)
+    except ImportError:  # a checkout from before the kernel
+        return
+    for name, (k, n) in PROJECTIONS.items():
+        x = torch.randn((DECODE_ROWS, k), generator=gen).to(dev,
+                                                             torch.bfloat16)
+        q = torch.randint(-127, 128, (n, k), generator=gen,
+                          dtype=torch.int8).to(dev)
+        scale = torch.full((n,), 0.02 / 127, device=dev)
+        dense = (q.float() * scale[:, None]).to(torch.bfloat16)
+        out[f"int8_weight_matmul_{name}_m{DECODE_ROWS}"] = _ms(
+            lambda: int8_weight_matmul(x, q, scale), flush)
+        out[f"bf16_matmul_{name}_m{DECODE_ROWS}"] = _ms(
+            lambda: torch.matmul(x, dense.t()), flush)
 
 
 if __name__ == "__main__":

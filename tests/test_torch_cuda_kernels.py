@@ -1053,3 +1053,83 @@ def test_handoff_restores_the_shipped_pages(dev, cache):
                        zip(wire, dec.runner.read_page(page_id)))
     finally:
         server.shutdown()
+
+
+# ---- the int8-weight GEMM (ops/int8_matmul_cuda.py) ------------------------
+
+# The four projections of bench-1b as (K, N) (qkv, o, gate_up, down), a
+# tile-edge one (N not a multiple of a block's rows), and the tiny
+# model's f32 ones.
+W8_BF16_SHAPES = [(2048, 3072), (2048, 2048), (2048, 11264), (5632, 2048),
+                  (128, 200)]
+W8_F32_SHAPES = [(128, 256), (128, 128), (128, 512), (256, 128)]
+
+
+def _w8_inputs(dev, dtype, m, k, n, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((m, k), generator=g).to(dev, dtype)
+    q = torch.randint(-127, 128, (n, k), generator=g,
+                      dtype=torch.int8).to(dev)
+    scale = (torch.rand((n,), generator=g) * 0.02 / 127 + 1e-4).to(dev)
+    return x, q, scale
+
+
+@pytest.mark.parametrize("m", [1, 8, 32, 37, 100, 160])
+@pytest.mark.parametrize("k,n", W8_BF16_SHAPES)
+def test_int8_weight_matmul_kernel_matches_plain(dev, k, n, m):
+    from production_stack_tpu_torch.ops.int8_matmul_cuda import (
+        INT8_KERNEL_MAX_ROWS,
+        int8_weight_matmul,
+        int8_weight_matmul_plain,
+    )
+    if m > INT8_KERNEL_MAX_ROWS:
+        pytest.skip(f"above INT8_KERNEL_MAX_ROWS = {INT8_KERNEL_MAX_ROWS}")
+    x, q, scale = _w8_inputs(dev, torch.bfloat16, m, k, n, seed=m + n)
+    COUNTERS.reset()
+    got = int8_weight_matmul(x, q, scale)
+    again = int8_weight_matmul(x, q, scale)
+    torch.cuda.synchronize()
+    assert COUNTERS.launches == {"int8_weight_matmul": 2}
+    want = int8_weight_matmul_plain(x, q, scale)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("m", [1, 5, 64, 160])
+@pytest.mark.parametrize("k,n", W8_F32_SHAPES)
+def test_int8_weight_matmul_f32_kernel_matches_plain(dev, k, n, m):
+    from production_stack_tpu_torch.ops.int8_matmul_cuda import (
+        int8_weight_matmul,
+        int8_weight_matmul_plain,
+    )
+    x, q, scale = _w8_inputs(dev, torch.float32, m, k, n, seed=k + m)
+    got = int8_weight_matmul(x[None], q, scale)
+    torch.cuda.synchronize()
+    assert got.shape == (1, m, n)
+    torch.testing.assert_close(got[0], int8_weight_matmul_plain(x, q, scale),
+                               **TOL[torch.float32])
+    assert torch.equal(got, int8_weight_matmul(x[None], q, scale))
+
+
+def test_int8_weight_matmul_refuses_what_the_kernel_does_not_take(dev):
+    from production_stack_tpu_torch.ops.int8_matmul_cuda import (
+        INT8_KERNEL_MAX_ROWS,
+        int8_weight_matmul,
+    )
+    x, q, scale = _w8_inputs(dev, torch.bfloat16, 8, 128, 64, seed=3)
+    with pytest.raises(ValueError, match="INT8_KERNEL_MAX_ROWS"):
+        int8_weight_matmul(x.new_zeros((INT8_KERNEL_MAX_ROWS + 1, 128)), q,
+                           scale)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        int8_weight_matmul(x[:, :96].contiguous(), q[:, :96].contiguous(),
+                           scale)
+    with pytest.raises(ValueError, match="int8"):
+        int8_weight_matmul(x, q.float(), scale)
+    with pytest.raises(ValueError, match="float32"):
+        int8_weight_matmul(x, q, scale.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_weight_matmul(x, q.t().contiguous().t(), scale)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        int8_weight_matmul(x.half(), q, scale)

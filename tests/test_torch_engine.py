@@ -191,10 +191,16 @@ def test_sampling_options_are_served(weights, option):
 
 
 def test_lora_adapters_raise():
+    """An adapter request on an engine with LoRA off raises the JAX
+    engine's ValueError, and queues nothing."""
     engine = LLMEngine(_config(config, True, True), device="cpu")
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        engine.add_request([4, 5, 6], SamplingParams(max_tokens=4),
-                           lora_name="my-adapter")
+    jax_engine = JaxEngine(_config(jax_config, True, True))
+    for eng, sp in ((engine, SamplingParams), (jax_engine,
+                                              JaxSamplingParams)):
+        with pytest.raises(ValueError,
+                           match="^LoRA is not enabled on this engine$"):
+            eng.add_request([4, 5, 6], sp(max_tokens=4),
+                            lora_name="my-adapter")
     assert not engine.sequences and not engine.has_work()
 
 

@@ -4,8 +4,9 @@ route the port does not serve, the role in ``/health`` and the flags'
 names and defaults against the JAX server's, the request options of the JAX server
 (penalties, ``logit_bias``, ``min_tokens``, ``response_format``,
 logprobs in both forms, ``n`` and ``best_of``; twins of the reference's
-``tests/test_engine_server.py`` cases) with its 400s, and a 400 for a
-LoRA adapter, which the port does not serve."""
+``tests/test_engine_server.py`` cases) with its 400s, and a model name
+that is no adapter served by the base model, as the JAX server serves
+it (LoRA itself: tests/test_torch_lora.py)."""
 
 import json
 import re
@@ -120,17 +121,18 @@ def _reference_flags():
 
 
 def test_flags_are_the_jax_servers():
-    """57 of the JAX server's 75 flags, each under its JAX name; the
+    """62 of the JAX server's 75 flags, each under its JAX name; the
     five of disaggregation, the profiler, the observatory and tracing,
-    the eleven of autotuning, --pooling and the four small ones with the
-    JAX defaults. --device is the port's own."""
+    the eleven of autotuning, --pooling, the four small ones,
+    --quantization and the four of LoRA with the JAX defaults. --device
+    is the port's own."""
     reference = _reference_flags()
     assert len(reference) == 76  # 75 flags, one with an alias
     src = (Path(__file__).resolve().parents[1] / "production_stack_tpu_torch"
            / "engine" / "server.py").read_text()
     port = set(re.findall(r'add_argument\(\s*"(--[a-z0-9-]+)"', src))
     assert port - set(reference) == {"--device"}
-    assert len(port) - 1 == 57
+    assert len(port) - 1 == 62
     new = {"--engine-role": "both", "--profile-dir": None,
            "--device-peak-flops": 0.0, "--request-span-log": None,
            "--trace-ring-size": 256,
@@ -143,18 +145,22 @@ def test_flags_are_the_jax_servers():
            "--autotune-max-checkpoint-interval-tokens": 4096,
            "--autotune-min-shed-threshold": 0.5,
            "--pooling": "last", "--dtype": None,
-           "--attention-impl": "auto", "--compilation-cache-dir": None}
+           "--attention-impl": "auto", "--compilation-cache-dir": None,
+           "--quantization": "none", "--lora-modules": None,
+           "--max-loras": 8, "--max-lora-rank": 16}
     args = vars(parse_args([]))
     for flag, default in new.items():
         assert flag in port
         assert reference[flag] == repr(default).replace("'", '"')
         assert args[flag[2:].replace("-", "_")] == default
     assert args["disable_prefix_caching"] is False
+    assert args["enable_lora"] is False
     assert reference["--profiler-dir"] == "None"
     assert parse_args(["--profiler-dir", "d"]).profile_dir == "d"
     for flag, bad in (("--engine-role", "compute"), ("--autotune", "auto"),
                       ("--pooling", "cls"), ("--dtype", "int8"),
-                      ("--attention-impl", "triton")):
+                      ("--attention-impl", "triton"),
+                      ("--quantization", "fp8")):
         with pytest.raises(SystemExit):
             parse_args([flag, bad])
 
@@ -264,11 +270,19 @@ def test_compile_ledger_counts_step_graph_captures():
     ({"model": "my-adapter"}, "LoRA"),
 ])
 def test_unported_features_are_rejected(base_url, extra, feature):
-    """LoRA adapters, the one request feature the port does not serve."""
-    status, text = _post(base_url + "/v1/completions",
-                         {"prompt": "x", "max_tokens": 2, **extra})
-    assert status == 400
-    assert feature in json.loads(text)["error"]["message"]
+    """A ``model`` that names no registered LoRA adapter is served by
+    the base model, as the JAX server serves it (the router already
+    filtered by served name): the same greedy tokens as the served
+    name, and the response names the served model."""
+    body = {"prompt": "hello there", "max_tokens": 6, "temperature": 0,
+            "ignore_eos": True}
+    status, text = _post(base_url + "/v1/completions", {**body, **extra})
+    assert status == 200, (feature, text)
+    out = json.loads(text)
+    served = json.loads(_post(base_url + "/v1/completions",
+                              {**body, "model": "tiny-llama"})[1])
+    assert out["model"] == served["model"] == "tiny-llama"
+    assert out["choices"][0]["text"] == served["choices"][0]["text"]
 
 
 @pytest.mark.parametrize("extra", [
