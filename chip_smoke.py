@@ -278,7 +278,36 @@ its result line:
     alone to the same server; the LoRA server's base rows to the server
     without LoRA; its adapter rows must differ from the base stream, and
     each response names its adapter. Prints tok/s beside the first
-    serving run's bf16 figure and captures by kind.
+    serving run's bf16 figure and captures by kind;
+18. families: the OPT, GPT-2 and Mixtral families and HF checkpoint
+    loading. First the device allocation left by the earlier phases.
+    Each attention kernel at the new geometries, bf16 and int8 KV, at
+    the kernel phase's headline shapes (decode B = 32, kv lens
+    1..1024; prefill B = 8, T = 512; ragged R = 40, W = 512, and a
+    verify block and a second chunk at page 16 untimed): Mixtral-8x7B's
+    32 q over 8 kv heads at head_dim 128 (``g4_d128``) and OPT-1.3b's
+    32 heads of 64, one q head a kv head (``g1_d64``), timed like the
+    headline cases; Qwen2-7B's group 7 at head_dim 128 and tiny-opt's
+    f32 group 1 checked untimed; the int8-weight kernel at OPT-1.3b's
+    and GPT-2's four projections at M = 32, timed beside bf16
+    ``torch.matmul``. Then checkpoint directories this script writes
+    (``config.json`` and safetensors shards of random weights from a
+    seed, by its own writer, into a temporary directory removed after):
+    Mixtral-8x7B at full width with 4 of its 32 layers (bf16) and
+    OPT-1.3b at full size (float16, as published: the loader casts to
+    bf16), each served with ``--model DIR --tokenizer bench`` (16
+    sequences, prefill batch 4, chunk 256, page 128, async and unified
+    on, no prefix cache): the weights phase's window of 16 greedy
+    requests of 64..700 tokens, 32 out (the three kernels launch, no
+    plain call on CUDA tensors, no eager step, no capture in the
+    window; every stream held to the request alone), sampled weights
+    read back from the server bitwise equal to those written, and the
+    model check through the family's ``forward`` (``compare_logits``);
+    then GPT-2 (f32 checkpoint) through ``LLMEngine`` over
+    ``load_weights``, its max_model_len clamped to the 1024 positions,
+    8 greedy prompts against each alone, the three kernels launched.
+    Bytes, write seconds, the server's start seconds (the load
+    included), tok/s and the graph pool are printed.
 
 ``python3 chip_smoke.py --only fleet`` (any phase names) runs the
 kernel build and those phases alone, for development, and prints no
@@ -294,9 +323,15 @@ stacked form, ``fleet_resume_int8_stacked``; the disagg phase's
 decode-role handoff windows as ``disagg_handoff`` and
 ``disagg_handoff_int8_stacked``; the autotune phase's ``on`` window as
 ``serve_autotune``; the weights phase's int8 and LoRA windows as
-``serve_int8_weights`` and ``serve_lora``). The int8-weight GEMM's
-entry reports its headline case (gate_up at M = 32) and its launches
-in the int8 server's window. The last line is the ``ok`` JSON line.
+``serve_int8_weights`` and ``serve_lora``; the families phase's
+windows as ``serve_mixtral`` and ``serve_opt``, and its GPT-2 engine
+as ``engine_gpt2``). Each attention kernel's ``geometries`` object
+holds, keyed ``g4_d128`` and ``g1_d64``, the same numbers at that
+geometry with the launches of its serving run, and ``int8``. The
+int8-weight GEMM's entry reports its headline case (gate_up at M = 32)
+and its launches in the int8 server's window, and under ``families``
+OPT-1.3b's and GPT-2's projections at M = 32. The last line is the
+``ok`` JSON line.
 """
 
 from __future__ import annotations
@@ -1085,26 +1120,28 @@ def _model_caches(dev, cfg, kv_dtype, layout):
 
 
 def _forwards(dev, cfg, params, tokens, caches, impl):
-    """The prefill chunk, decode step and verify block through
-    ``forward`` over ``caches``; returns their logits."""
-    from production_stack_tpu_torch.models import llama
+    """The prefill chunk, decode step and verify block through the
+    architecture's ``forward`` over ``caches``; returns their logits."""
+    from production_stack_tpu_torch.models.registry import get_model
+
+    forward = get_model(cfg)[1]
 
     t = 512
     table = torch.tensor([[1, 2, 3, 4, 5]], dtype=torch.int32, device=dev)
     with torch.inference_mode():
-        prefill = llama.forward(
+        prefill = forward(
             params, cfg, tokens[:, :t],
             torch.arange(t, device=dev, dtype=torch.int32)[None],
             table, torch.tensor([t], dtype=torch.int32, device=dev),
             torch.ones((1, t), dtype=torch.bool, device=dev),
             *caches, kind="prefill", impl=impl)
-        decode = llama.forward(
+        decode = forward(
             params, cfg, tokens[:, t:t + 1],
             torch.tensor([[t]], dtype=torch.int32, device=dev), table,
             torch.tensor([t + 1], dtype=torch.int32, device=dev),
             torch.ones((1, 1), dtype=torch.bool, device=dev),
             *caches, kind="decode", impl=impl)
-        verify = llama.forward(
+        verify = forward(
             params, cfg, tokens[:, t + 1:],
             torch.arange(t + 1, t + 6, device=dev,
                          dtype=torch.int32)[None], table,
@@ -2083,10 +2120,10 @@ SMI = ""  # the card's name and power limit, set by main()
 class _Server:
     """A port server in-process on a free port, serving on a thread."""
 
-    def __init__(self, args):
+    def __init__(self, args, base=SERVER_ARGS):
         from production_stack_tpu_torch.engine.server import make_server
         port = _free_port()
-        self.http = make_server(SERVER_ARGS + args + [
+        self.http = make_server(base + args + [
             "--host", "127.0.0.1", "--port", str(port)])
         self.app = self.http.app
         self.engine = self.app.engine
@@ -3515,6 +3552,652 @@ def weights_phase(vocab: int) -> dict:
             LORA_RUN: lora["launches"]}
 
 
+# ---- families phase ---------------------------------------------------------
+
+_ST_NAMES = {torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16"}
+
+
+def write_safetensors(path, specs) -> int:
+    """Write a safetensors file (a u64 little-endian header length, the
+    JSON header, the raw little-endian data) from ``specs``, a list of
+    (name, shape, torch dtype, make) where ``make()`` returns the CPU
+    tensor: one tensor in host memory at a time. Returns the bytes
+    written."""
+    header, offset = {}, 0
+    for name, shape, dtype, _ in specs:
+        n = int(np.prod(tuple(shape))) * torch.empty(
+            (), dtype=dtype).element_size()
+        header[name] = {"dtype": _ST_NAMES[dtype], "shape": list(shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for name, shape, dtype, make in specs:
+            t = make().contiguous()
+            if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+                raise ValueError(f"{name}: made {t.dtype} "
+                                 f"{tuple(t.shape)}, declared {dtype} "
+                                 f"{tuple(shape)}")
+            f.write(t.view(torch.uint8).numpy().tobytes() if t.numel()
+                    else b"")
+    return 8 + len(raw) + offset
+
+
+# The families phase's runs (``launches_by_run`` keys) and configs:
+# published config.json fields, Mixtral's depth cut to 4 of its 32
+# layers (the checkpoint this phase writes, and the 80 GB card).
+MIXTRAL_RUN = "serve_mixtral"
+OPT_RUN = "serve_opt"
+GPT2_RUN = "engine_gpt2"
+MIXTRAL_LAYERS = 4
+FAMILY_CONFIGS = {
+    # mistralai/Mixtral-8x7B-v0.1/config.json, 4 of 32 layers
+    "mixtral": {"architectures": ["MixtralForCausalLM"],
+                "vocab_size": 32000, "hidden_size": 4096,
+                "intermediate_size": 14336,
+                "num_hidden_layers": MIXTRAL_LAYERS,
+                "num_attention_heads": 32, "num_key_value_heads": 8,
+                "max_position_embeddings": 32768, "rms_norm_eps": 1e-5,
+                "rope_theta": 1e6, "num_local_experts": 8,
+                "num_experts_per_tok": 2, "tie_word_embeddings": False,
+                "torch_dtype": "bfloat16"},
+    # facebook/opt-1.3b/config.json (its weights are float16)
+    "opt": {"architectures": ["OPTForCausalLM"], "vocab_size": 50272,
+            "hidden_size": 2048, "ffn_dim": 8192, "num_hidden_layers": 24,
+            "num_attention_heads": 32, "max_position_embeddings": 2048,
+            "do_layer_norm_before": True, "word_embed_proj_dim": 2048,
+            "torch_dtype": "float16"},
+    # openai-community/gpt2/config.json
+    "gpt2": {"architectures": ["GPT2LMHeadModel"], "vocab_size": 50257,
+             "n_embd": 768, "n_layer": 12, "n_head": 12,
+             "n_positions": 1024, "n_inner": None,
+             "torch_dtype": "float32"},
+}
+FAMILY_DTYPES = {"mixtral": torch.bfloat16, "opt": torch.float16,
+                 "gpt2": torch.float32}
+# The geometries of the ``kernels`` line: (query heads, kv heads,
+# head_dim) of Mixtral-8x7B (also Mistral-7B, Llama-3-8B) and of
+# OPT-1.3b (group 1).
+FAMILY_GEOMETRIES = {"g4_d128": dict(nh=32, kv=8, d=128),
+                     "g1_d64": dict(nh=32, kv=32, d=64)}
+# Checked untimed: Qwen2-7B's group 7 (28 q heads over 4 kv heads) and
+# tiny-opt's f32 group 1.
+FAMILY_UNTIMED = {"g7_d128": dict(nh=28, kv=4, d=128)}
+FAMILY_SERVER_ARGS = ["--tokenizer", "bench", "--max-num-seqs", "16",
+                      "--prefill-batch-size", "4",
+                      "--prefill-chunk-size", "256", "--page-size", "128",
+                      "--max-model-len", "1024", "--async-scheduling",
+                      "auto", "--unified-step", "auto",
+                      "--disable-prefix-caching"]
+# OPT-1.3b caches 24 layers x 32 heads x 64 x 2 planes x 2 bytes =
+# 196,608 bytes a token: 340 pages of 128 tokens are about 8 GB.
+OPT_PAGES = 340
+MIXTRAL_PAGES = 256
+# OPT-1.3b's and GPT-2's projections as (K, N), for the int8-weight
+# kernel at M = 32 (K = 768 and 3072 are whole STEP_K = 64 steps).
+FAMILY_PROJECTIONS = {
+    "opt-1.3b": {"qkv": (2048, 6144), "o": (2048, 2048),
+                 "fc1": (2048, 8192), "fc2": (8192, 2048)},
+    "gpt2": {"qkv": (768, 2304), "o": (768, 768), "fc1": (768, 3072),
+             "fc2": (3072, 768)},
+}
+
+
+# Mixtral's router, made decisive as a trained one is: token t's
+# embedding carries ROUTE_SIGNAL[0] on hidden dim a_t and ROUTE_SIGNAL[1]
+# on b_t (its two experts, t % 8 and another that t // 8 picks), and
+# expert e's router row reads dim e with weight ROUTE_WEIGHT, so every
+# layer's top-2 choice and its combine weights stand far from a tie.
+# An untrained N(0, 0.02) router's choice, and its top-2 softmax, move
+# with a bf16 rounding of the hidden state (PERF.md §6), which the
+# logits and a greedy stream then amplify.
+ROUTE_SIGNAL = (64.0, 16.0)
+ROUTE_WEIGHT = 2.0
+
+
+def _hf_tensors(arch, hf):
+    """(name, shape, kind) of every tensor of an HF checkpoint of
+    ``arch`` at the config ``hf``, in file groups: [(file stem,
+    [...])]. kind: "w" N(0, 0.02), "b" N(0, 0.02) (biases), "one",
+    "embed_routed" and "router" (Mixtral's, see ROUTE_SIGNAL)."""
+    if arch == "mixtral":
+        h, f, e = hf["hidden_size"], hf["intermediate_size"], hf[
+            "num_local_experts"]
+        d = h // hf["num_attention_heads"]
+        kvd = hf["num_key_value_heads"] * d
+        groups = [("model-embed", [
+            ("model.embed_tokens.weight", (hf["vocab_size"], h),
+             "embed_routed"),
+            ("model.norm.weight", (h,), "one"),
+            ("lm_head.weight", (hf["vocab_size"], h), "w")])]
+        for i in range(hf["num_hidden_layers"]):
+            p = f"model.layers.{i}."
+            layer = [(p + "input_layernorm.weight", (h,), "one"),
+                     (p + "post_attention_layernorm.weight", (h,), "one"),
+                     (p + "self_attn.q_proj.weight", (h, h), "w"),
+                     (p + "self_attn.k_proj.weight", (kvd, h), "w"),
+                     (p + "self_attn.v_proj.weight", (kvd, h), "w"),
+                     (p + "self_attn.o_proj.weight", (h, h), "w"),
+                     (p + "block_sparse_moe.gate.weight", (e, h),
+                      "router")]
+            for x in range(e):
+                q = f"{p}block_sparse_moe.experts.{x}."
+                layer += [(q + "w1.weight", (f, h), "w"),
+                          (q + "w3.weight", (f, h), "w"),
+                          (q + "w2.weight", (h, f), "w")]
+            groups.append((f"model-layer-{i:03d}", layer))
+        return groups
+    if arch == "opt":
+        h, f = hf["hidden_size"], hf["ffn_dim"]
+        p = "model.decoder."
+        top = [(p + "embed_tokens.weight", (hf["vocab_size"], h), "w"),
+               (p + "embed_positions.weight",
+                (hf["max_position_embeddings"] + 2, h), "w"),
+               (p + "final_layer_norm.weight", (h,), "one"),
+               (p + "final_layer_norm.bias", (h,), "b")]
+        layers = []
+        for i in range(hf["num_hidden_layers"]):
+            q = f"{p}layers.{i}."
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                layers += [(q + f"self_attn.{proj}.weight", (h, h), "w"),
+                           (q + f"self_attn.{proj}.bias", (h,), "b")]
+            for norm in ("self_attn_layer_norm", "final_layer_norm"):
+                layers += [(q + f"{norm}.weight", (h,), "one"),
+                           (q + f"{norm}.bias", (h,), "b")]
+            layers += [(q + "fc1.weight", (f, h), "w"),
+                       (q + "fc1.bias", (f,), "b"),
+                       (q + "fc2.weight", (h, f), "w"),
+                       (q + "fc2.bias", (h,), "b")]
+        return [("model", top + layers)]
+    h = hf["n_embd"]
+    f = hf["n_inner"] or 4 * h
+    tensors = [("transformer.wte.weight", (hf["vocab_size"], h), "w"),
+               ("transformer.wpe.weight", (hf["n_positions"], h), "w"),
+               ("transformer.ln_f.weight", (h,), "one"),
+               ("transformer.ln_f.bias", (h,), "b")]
+    for i in range(hf["n_layer"]):
+        q = f"transformer.h.{i}."
+        # Conv1D: [in, out].
+        tensors += [(q + "ln_1.weight", (h,), "one"),
+                    (q + "ln_1.bias", (h,), "b"),
+                    (q + "attn.c_attn.weight", (h, 3 * h), "w"),
+                    (q + "attn.c_attn.bias", (3 * h,), "b"),
+                    (q + "attn.c_proj.weight", (h, h), "w"),
+                    (q + "attn.c_proj.bias", (h,), "b"),
+                    (q + "ln_2.weight", (h,), "one"),
+                    (q + "ln_2.bias", (h,), "b"),
+                    (q + "mlp.c_fc.weight", (h, f), "w"),
+                    (q + "mlp.c_fc.bias", (f,), "b"),
+                    (q + "mlp.c_proj.weight", (f, h), "w"),
+                    (q + "mlp.c_proj.bias", (h,), "b")]
+    return [("model", tensors)]
+
+
+def _hf_tensor(index, shape, kind, dtype, seed):
+    """Tensor ``index`` of a checkpoint, made on the card from ``seed``
+    and brought to the host in ``dtype``: the same bits every call."""
+    dev = torch.device("cuda", 0)
+    if kind == "one":
+        return torch.ones(shape, dtype=dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed * 1_000_003 + index)
+    x = torch.randn(shape, generator=gen, device=dev).mul_(0.02)
+    if kind == "router":  # [E, H]
+        e = shape[0]
+        x[:, :e] = ROUTE_WEIGHT * torch.eye(e, device=dev)
+    elif kind == "embed_routed":  # [V, H]
+        e = FAMILY_CONFIGS["mixtral"]["num_local_experts"]
+        t = torch.arange(shape[0], device=dev)
+        a = t % e
+        b = (a + 1 + (t // e) % (e - 1)) % e
+        x[:, :e] = 0.0
+        x[t, a] = ROUTE_SIGNAL[0]
+        x[t, b] = ROUTE_SIGNAL[1]
+    return x.to(dtype).cpu()
+
+
+def write_checkpoint(path, arch, seed) -> dict:
+    """``config.json`` and safetensors shards of random weights (from
+    ``seed``) for ``arch`` at FAMILY_CONFIGS' shapes; returns {name:
+    (index, shape, kind)} of every tensor, and logs bytes and
+    seconds."""
+    hf, dtype = FAMILY_CONFIGS[arch], FAMILY_DTYPES[arch]
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f)
+    t0 = time.perf_counter()
+    index, nbytes, written = 0, 0, {}
+    for stem, tensors in _hf_tensors(arch, hf):
+        specs = []
+        for name, shape, kind in tensors:
+            written[name] = (index, shape, kind)
+            specs.append((name, shape, dtype,
+                          lambda i=index, s=shape, k=kind:
+                          _hf_tensor(i, s, k, dtype, seed)))
+            index += 1
+        nbytes += write_safetensors(os.path.join(
+            path, stem + ".safetensors"), specs)
+    log(f"families {arch}: checkpoint of {index} tensors, "
+        f"{nbytes / 1e9:.3f} GB in {dtype}, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return written
+
+
+def _family_kernel_cases(dev) -> dict:
+    """Each attention kernel at the new geometries, bf16 and int8 KV,
+    the kernel phase's headline shapes (decode B = 32, kv lens 1..1024;
+    prefill B = 8, T = 512, first chunk; ragged R = 40, W = 512, the
+    unified step), timed against its plain version, its bound and SDPA;
+    then untimed cases at Qwen2-7B's group 7 and tiny-opt's f32 group 1;
+    then the int8-weight kernel at OPT-1.3b's and GPT-2's projections,
+    M = 32. Returns {kernel: {geometry: {"bf16": case, "int8": case}}}
+    and the int8-weight cases."""
+    from production_stack_tpu_torch.engine.quantization import (
+        dequant_matmul)
+    from production_stack_tpu_torch.ops.int8_matmul_cuda import (
+        int8_weight_matmul, int8_weight_matmul_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    timer = Timer(dev)
+    bf16 = torch.bfloat16
+    lens = np.linspace(1, 1024, 32).round().astype(int).tolist()
+    lens[7] = lens[21] = 0
+    first = [(0, n) for n in [512, 448, 384, 320, 256, 0, 128, 64]]
+    decode_lens = np.linspace(70, 1024, 28).round().astype(int).tolist()
+    unified = ([(n, 0) for n in decode_lens]
+               + [(512, 511), (448, 447), (300, 299), (64, 63),
+                  (700, 187), (612, 99), (1012, 499), (200, 199)]
+               + [(0, -1)] * 4)
+    verify = [(max(n, i % 5 + 1), i % 5) for i, n in enumerate(
+        np.linspace(1, 1024, 32).round().astype(int).tolist())]
+    verify[9] = verify[26] = (0, -1)
+    out = {name: {} for name in KERNELS}
+    for geo, shape in {**FAMILY_GEOMETRIES, **FAMILY_UNTIMED}.items():
+        timed = timer if geo in FAMILY_GEOMETRIES else None
+        for int8 in (False, True):
+            form = "int8" if int8 else "bf16"
+            tag = f"{geo} bf16{'/int8' if int8 else ''}"
+            cases = {
+                "paged_decode": decode_case(
+                    f"decode {tag} B=32 ps=128", 32, lens, 128, bf16, dev,
+                    gen, timed, num_pages=512, int8=int8, **shape),
+                "paged_prefill": prefill_case(
+                    f"prefill {tag} B=8 T=512 first chunk ps=128", first,
+                    512, 128, bf16, dev, gen, timed, int8=int8, **shape),
+                "paged_ragged": ragged_case(
+                    f"ragged {tag} unified R=40 W=512 ps=128", unified, 512,
+                    128, bf16, dev, gen, timed, int8=int8, **shape),
+            }
+            extra = [ragged_case(f"ragged {tag} verify B=32 W=5 ps=16",
+                                 verify, 5, 16, bf16, dev, gen, int8=int8,
+                                 verify=True, **shape),
+                     prefill_case(f"prefill {tag} B=8 T=512 ps=16",
+                                  [(512, n) for _, n in first], 512, 16,
+                                  bf16, dev, gen, int8=int8, **shape)]
+            for name, r in cases.items():
+                log("families kernel case " + json.dumps(r))
+                out[name].setdefault(geo, {})[form] = r
+            for r in extra:
+                log("families kernel case " + json.dumps(r))
+            torch.cuda.empty_cache()
+    tiny = dict(nh=4, kv=4, d=32)
+    for int8 in (False, True):
+        for r in (decode_case("decode f32 tiny-opt B=4 ps=16", 4,
+                              [1, 0, 37, 300], 16, torch.float32, dev, gen,
+                              max_len=512, int8=int8, **tiny),
+                  prefill_case("prefill f32 tiny-opt B=2 T=64 ps=16",
+                               [(40, 64), (40, 9)], 64, 16, torch.float32,
+                               dev, gen, max_len=256, int8=int8, **tiny),
+                  ragged_case("ragged f32 tiny-opt R=4 W=16 ps=16",
+                              [(1, 0), (77, 15), (0, -1), (200, 3)], 16,
+                              16, torch.float32, dev, gen, max_len=256,
+                              int8=int8, **tiny)):
+            log("families kernel case " + json.dumps(r))
+    w8 = {}
+    for model, projs in FAMILY_PROJECTIONS.items():
+        for proj, (k, n) in projs.items():
+            q = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                              dtype=torch.int8)
+            scale = (torch.rand((n,), generator=gen, device=dev) + 0.5) * (
+                0.02 / 127)
+            dense = (q.float() * scale[:, None]).to(bf16)
+            x = torch.randn((32, k), generator=gen, device=dev).to(bf16)
+            got = int8_weight_matmul(x, q, scale)
+            want = int8_weight_matmul_plain(x, q, scale)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+            r = {"case": f"int8_weight_matmul {model} {proj} M=32 K={k} "
+                         f"N={n}",
+                 "max_abs_err": (got.float() - want.float()).abs().max()
+                 .item(),
+                 "ms": timer.ms(lambda: int8_weight_matmul(x, q, scale)),
+                 "plain_ms": timer.ms(
+                     lambda: int8_weight_matmul_plain(x, q, scale)),
+                 "library_ms": timer.ms(lambda: torch.matmul(x, dense.t())),
+                 "dequant_ms": timer.ms(
+                     lambda: dequant_matmul(x, q, scale)),
+                 **_w8_bound(32, k, n)}
+            log("families kernel case " + json.dumps(r))
+            w8[f"{model} {proj}"] = r
+    for name, by_geo in out.items():
+        for geo, forms in by_geo.items():
+            if geo in FAMILY_GEOMETRIES:
+                log(f"families kernel {name} {geo}: " + "; ".join(
+                    f"{form} {c['ms']:.5f} ms (bound {c['bound_ms']:.5f} "
+                    f"by {c['bound_by']}, SDPA {c['library_ms']:.5f}, "
+                    f"plain {c['plain_ms']:.4f}, max abs err "
+                    f"{c['max_abs_err']:.3e})" for form, c in forms.items())
+                    + f"; {SMI}")
+    return ({name: {g: f for g, f in by_geo.items()
+                    if g in FAMILY_GEOMETRIES}
+             for name, by_geo in out.items()}, w8)
+
+
+def _family_forwards(dev, cfg, params, label) -> None:
+    """The model check: prefill T = 512, a decode step and a verify
+    block through the family's ``forward``, the kernels against the
+    plain versions rounded as the kernels round (``plain_bf16p``). In
+    the kernels' run every attention call is also held, on its own
+    inputs, to the plain version (BF16_TOL); for Mixtral the smallest
+    router gaps (1st against 2nd, 2nd against 3rd expert logit) are
+    printed."""
+    from production_stack_tpu_torch.models import llama, mixtral
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    tokens = torch.randint(1, cfg.vocab_size, (1, 512 + 6), generator=gen,
+                           device=dev, dtype=torch.int32)
+    top_k, dispatch = mixtral.top_k_lower_index, llama.dispatch_attention
+    gaps, calls = [], {}
+
+    def recording(logits, k):
+        top = torch.topk(logits, k + 1, dim=-1).values
+        gaps.append(((top[..., 0] - top[..., 1]).min().item(),
+                     (top[..., k - 1] - top[..., k]).min().item()))
+        return top_k(logits, k)
+
+    def held(config, q, k, v, table, pos, lens, kind, impl=None,
+             layer=None):
+        args = (config, q, k, v, table, pos, lens, kind)
+        out = dispatch(*args, impl=impl, layer=layer)
+        if impl == "cuda":
+            ref = dispatch(*args, impl="plain_bf16p", layer=layer)
+            torch.testing.assert_close(
+                out.float(), ref.float(), **BF16_TOL,
+                msg=lambda m: f"families {label} {kind} attention: {m}")
+            err = (out.float() - ref.float()).abs().max().item()
+            calls[kind] = max(calls.get(kind, 0.0), err)
+        return out
+
+    mixtral.top_k_lower_index = recording
+    llama.dispatch_attention = held
+    try:
+        results = {impl: _forwards(dev, cfg, params, tokens,
+                                   _model_caches(dev, cfg, "bf16",
+                                                 "per_layer"), impl)
+                   for impl in ("cuda", "plain_bf16p")}
+    finally:
+        mixtral.top_k_lower_index = top_k
+        llama.dispatch_attention = dispatch
+    log(f"families {label}: every attention call of the kernels' forward "
+        f"within {BF16_TOL} of the plain version on its inputs, max abs err "
+        f"by kind {calls}")
+    if gaps:
+        log(f"families {label} router: smallest gaps, 1st to 2nd "
+            f"{min(g[0] for g in gaps):.3e}, 2nd to 3rd "
+            f"{min(g[1] for g in gaps):.3e} expert logit, over "
+            f"{len(gaps)} layer-steps")
+    for i, phase in enumerate(PHASES):
+        c = compare_logits(results["cuda"][i], results["plain_bf16p"][i])
+        log(f"families {label} model {phase}: finite {c['finite']}, max "
+            f"|cuda - plain| {c['diff']:.3e} (max |logit| {c['scale']:.3e})"
+            f", {c['flips']} flips of {c['positions']}, margins "
+            f"{[f'{m:.3e}' for m in c['margins']]}")
+        if not c["ok"]:
+            raise AssertionError(f"families {label} {phase}: the kernels' "
+                                 "and the plain versions' logits disagree")
+
+
+def _readback(label, params, arch, written, seed, samples) -> None:
+    """Sampled leaves of the served params against the tensors written
+    (regenerated from the seed), after the loader's layout and cast:
+    bitwise equal. ``samples``: [(checkpoint name, params path, index,
+    transpose)]."""
+    dtype = params.embed.dtype
+    for name, path, index, transpose in samples:
+        i, shape, kind = written[name]
+        want = _hf_tensor(i, shape, kind, FAMILY_DTYPES[arch], seed).to(
+            device=params.embed.device, dtype=dtype)
+        got = params.get_parameter(path)[index]
+        if not torch.equal(got, want.T if transpose else want):
+            raise AssertionError(f"families {label}: {path} differs from "
+                                 f"the checkpoint's {name}")
+    log(f"families {label}: {len(samples)} sampled leaves bitwise equal "
+        f"to the checkpoint's (written in {FAMILY_DTYPES[arch]}, served "
+        f"in {dtype})")
+
+
+def _family_server(label, arch, path, pages, prompts, written, seed,
+                   samples) -> dict:
+    """A server on ``--model path``: the model check and the read-back
+    on its params, then the weights phase's window (warm-up pass,
+    counted window, each request alone, every stream held to it)."""
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    srv = _Server(["--model", path, "--num-pages", str(pages)]
+                  + FAMILY_SERVER_ARGS, base=[])
+    start = time.perf_counter() - t0
+    cfg = srv.engine.config
+    log(f"families {label}: server up in {start:.1f} s (the load "
+        f"included); {cfg.model.architecture}, {cfg.model.dtype}, "
+        f"{cfg.model.num_attention_heads} q / "
+        f"{cfg.model.num_key_value_heads} kv heads of "
+        f"{cfg.model.head_dim}, async {cfg.scheduler.async_scheduling}, "
+        f"unified {cfg.scheduler.unified_step}, {cfg.cache.num_pages} "
+        f"pages; allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    run = _weights_window(label, srv, prompts)
+    params = srv.engine.runner.params
+    _readback(label, params, arch, written, seed, samples)
+    with torch.inference_mode():
+        _family_forwards(dev, cfg.model, params, label)
+    flips = [check_stream(label, f"request {i} batched vs alone",
+                          srv.engine, prompts[i], run["alone"][i],
+                          run["ids"][i]) for i in range(len(prompts))]
+    parted = [(i, x) for i, x in enumerate(flips) if x is not None]
+    log(f"families {label}: {len(flips) - len(parted)}/{len(flips)} streams "
+        f"byte-identical to the request alone, the others part at near "
+        f"ties (row, (index, margin)) {parted}; graph pool "
+        f"{srv.engine.runner.graphs.pool_bytes() / 1e9:.2f} GB; {SMI}")
+    srv.close()
+    return run
+
+
+def _gpt2_engine(path, written, seed) -> dict:
+    """GPT-2 through ``LLMEngine`` over ``load_weights``: 8 greedy
+    prompts together (async and unified on), then each alone; every
+    stream held to it; all three kernels launched."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig, EngineConfig, SchedulerConfig)
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    from production_stack_tpu_torch.engine.weights import (
+        load_model_config, load_weights)
+    from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
+    model = load_model_config(path)
+    t0 = time.perf_counter()
+    params = load_weights(path, model)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cfg = EngineConfig(
+        model=model, cache=CacheConfig(page_size=128, num_pages=256),
+        scheduler=SchedulerConfig(max_num_seqs=8, max_model_len=2048,
+                                  prefill_chunk_size=256,
+                                  prefill_batch_size=4,
+                                  async_scheduling=True, unified_step=True))
+    log(f"families gpt2: loaded in {load_s:.1f} s; max_model_len 2048 "
+        f"clamped to {cfg.scheduler.max_model_len} (the position table)")
+    if cfg.scheduler.max_model_len != FAMILY_CONFIGS["gpt2"]["n_positions"]:
+        raise AssertionError("families gpt2: max_model_len not clamped")
+    engine = LLMEngine(cfg, params=params)
+    _readback("gpt2", engine.runner.params, "gpt2", written, seed, [
+        ("transformer.wte.weight", "embed", (), False),
+        ("transformer.h.5.attn.c_attn.weight", "layers.5.qkv.weight", (),
+         True),
+        ("transformer.h.11.mlp.c_proj.weight", "layers.11.fc2.weight", (),
+         True)])
+    rng = np.random.RandomState(23)
+    prompts = [rng.randint(258, model.vocab_size, size=n).tolist()
+               for n in np.linspace(40, 600, 8).round().astype(int)]
+    sp = SamplingParams(temperature=0.0, max_tokens=WEIGHTS_OUT,
+                        ignore_eos=True)
+    engine.generate_batch(prompts, sp)  # warm-up: the graphs' captures
+    torch.cuda.synchronize()
+    COUNTERS.reset()
+    t0 = time.perf_counter()
+    batched = [list(s.output_token_ids)
+               for s in engine.generate_batch(prompts, sp)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(COUNTERS.launches)
+    plain = dict(COUNTERS.plain_cuda_calls)
+    alone = [list(engine.generate(p, sp).output_token_ids) for p in prompts]
+    for kernel in KERNELS:
+        if launches.get(kernel, 0) <= 0:
+            raise AssertionError(f"families gpt2: never launched {kernel}")
+    if plain:
+        raise AssertionError(f"families gpt2: plain calls on CUDA {plain}")
+    flips = [check_stream("families gpt2", f"prompt {i} batched vs alone",
+                          engine, prompts[i], alone[i], batched[i])
+             for i in range(len(prompts))]
+    parted = [(i, x) for i, x in enumerate(flips) if x is not None]
+    log(f"families gpt2: 8 x {WEIGHTS_OUT} tokens in {wall:.3f} s "
+        f"({8 * WEIGHTS_OUT / wall:.1f} tok/s); launches {launches}; "
+        f"{8 - len(parted)}/8 streams byte-identical to the prompt alone, "
+        f"the others part at near ties {parted}")
+    del engine, params
+    return launches
+
+
+def families_phase(vocab: int) -> dict:
+    """The OPT, GPT-2 and Mixtral families and HF checkpoint loading on
+    the card: the kernels at the new geometries, then Mixtral-8x7B's
+    full width (MIXTRAL_LAYERS layers) and OPT-1.3b served from
+    checkpoint directories written here (``--model DIR --tokenizer
+    bench``), then GPT-2 through ``LLMEngine``. Returns the kernels'
+    geometry cases, the int8-weight cases and each run's launches."""
+    import gc
+    import shutil
+    dev = torch.device("cuda", 0)
+    del vocab  # each family's own
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"families: allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB"
+        f", reserved {torch.cuda.memory_reserved() / 1e9:.2f} GB before "
+        "the phase")
+    geometries, w8 = _family_kernel_cases(dev)
+    torch.cuda.empty_cache()
+    out = {"geometries": geometries, "w8": w8}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-families-")
+    try:
+        for arch, run, pages, seed, samples in (
+                ("mixtral", MIXTRAL_RUN, MIXTRAL_PAGES, 31, [
+                    ("model.embed_tokens.weight", "embed", (), False),
+                    ("model.layers.0.self_attn.q_proj.weight",
+                     "layers.0.qkv.weight", (slice(0, 4096),), False),
+                    ("model.layers.3.block_sparse_moe.experts.5.w2.weight",
+                     "layers.3.w_down", (slice(None), 5), False),
+                    ("model.layers.2.block_sparse_moe.experts.7.w1.weight",
+                     "layers.2.w_gate", (7,), False),
+                    ("lm_head.weight", "lm_head.weight", (), False)]),
+                ("opt", OPT_RUN, OPT_PAGES, 32, [
+                    ("model.decoder.embed_tokens.weight", "embed", (),
+                     False),
+                    ("model.decoder.layers.7.fc2.weight",
+                     "layers.7.fc2.weight", (), False),
+                    ("model.decoder.layers.0.self_attn.k_proj.bias",
+                     "layers.0.qkv.bias", (slice(2048, 4096),), False)])):
+            path = os.path.join(tmp, arch)
+            written = write_checkpoint(path, arch, seed)
+            hf = FAMILY_CONFIGS[arch]
+            rng = np.random.RandomState(21)
+            prompts = [rng.randint(258, hf["vocab_size"], size=n).tolist()
+                       for n in np.linspace(64, 700, 16).round().astype(int)]
+            out[run] = _family_server(
+                f"serve {arch}", arch, path, pages, prompts, written, seed,
+                samples)["launches"]
+            shutil.rmtree(path)
+            gc.collect()
+            torch.cuda.empty_cache()
+        path = os.path.join(tmp, "gpt2")
+        written = write_checkpoint(path, "gpt2", 33)
+        out[GPT2_RUN] = _gpt2_engine(path, written, 33)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _numbers(h) -> dict:
+    """A case's numbers for the ``kernels`` line."""
+    out = {"max_abs_err": h["max_abs_err"], "ms": h["ms"],
+           "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+           "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+           "case": h["case"]}
+    for key in ("per_layer_ms", "splits", "ms_by_splits"):
+        if key in h:
+            out[key] = h[key]
+    return out
+
+
+def kernels_line(headline, launches, weights, families) -> list:
+    """The ``kernels`` JSON line's entries: each attention kernel with
+    its bf16 per-layer numbers, its ``int8``, ``stacked`` and
+    ``int8_stacked`` forms, and its ``geometries`` (``g4_d128`` and
+    ``g1_d64``: bf16 with the launches of the serving run of that
+    geometry, and ``int8``); then the int8-weight GEMM with its
+    OPT-1.3b and GPT-2 projections at M = 32 (``families``)."""
+    geometry_runs = {"g4_d128": MIXTRAL_RUN, "g1_d64": OPT_RUN}
+    summary = []
+    for name, meta in KERNELS.items():
+        h = headline[name]
+        summary.append({
+            "name": name, **meta,
+            "launches": launches[MAIN_RUN].get(name, 0),
+            "launches_by_run": {
+                run: counts.get(name + ("_int8_stacked" if run in (
+                    FLEET_INT8_RUN, DISAGG_INT8_RUN) else ""), 0)
+                for run, counts in launches.items()},
+            **_numbers(h["bf16"]),
+            "int8": {"launches": launches[INT8_RUN].get(name + "_int8", 0),
+                     **_numbers(h["int8"])},
+            "stacked": {"launches": launches[STACKED_RUN].get(
+                name + "_stacked", 0), **_numbers(h["stacked"])},
+            "int8_stacked": {"launches": launches[BURST_RUN].get(
+                name + "_int8_stacked", 0), **_numbers(h["int8_stacked"])},
+            "geometries": {
+                geo: {"launches": launches[run].get(name, 0),
+                      **_numbers(families["geometries"][name][geo]["bf16"]),
+                      "int8": _numbers(
+                          families["geometries"][name][geo]["int8"])}
+                for geo, run in geometry_runs.items()}})
+    # The int8-weight GEMM's path is the int8-weight server's window.
+    w8 = "int8_weight_matmul"
+    summary.append({
+        "name": w8, **W8_KERNEL,
+        "launches": launches[WEIGHTS_RUN].get(w8, 0),
+        "launches_by_run": {run: counts.get(w8, 0)
+                            for run, counts in launches.items()},
+        **_numbers(weights["headline"]),
+        "dequant_ms": weights["headline"]["dequant_ms"],
+        "families": {case: dict(_numbers(c), dequant_ms=c["dequant_ms"])
+                     for case, c in families["w8"].items()}})
+    return summary
+
+
 # ---- main -------------------------------------------------------------------
 
 
@@ -3580,43 +4263,12 @@ def main() -> int:
     weights = weights_phase(vocab)
     launches[WEIGHTS_RUN] = weights[WEIGHTS_RUN]
     launches[LORA_RUN] = weights[LORA_RUN]
-
-    def numbers(h):
-        out = {"max_abs_err": h["max_abs_err"], "ms": h["ms"],
-               "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
-               "bound_by": h["bound_by"], "library_ms": h["library_ms"],
-               "case": h["case"]}
-        for key in ("per_layer_ms", "splits", "ms_by_splits"):
-            if key in h:
-                out[key] = h[key]
-        return out
-
-    summary = []
-    for name, meta in KERNELS.items():
-        h = headline[name]
-        summary.append({
-            "name": name, **meta,
-            "launches": launches[MAIN_RUN].get(name, 0),
-            "launches_by_run": {
-                run: counts.get(name + ("_int8_stacked" if run in (
-                    FLEET_INT8_RUN, DISAGG_INT8_RUN) else ""), 0)
-                for run, counts in launches.items()},
-            **numbers(h["bf16"]),
-            "int8": {"launches": launches[INT8_RUN].get(name + "_int8", 0),
-                     **numbers(h["int8"])},
-            "stacked": {"launches": launches[STACKED_RUN].get(
-                name + "_stacked", 0), **numbers(h["stacked"])},
-            "int8_stacked": {"launches": launches[BURST_RUN].get(
-                name + "_int8_stacked", 0), **numbers(h["int8_stacked"])}})
-    # The int8-weight GEMM's path is the int8-weight server's window.
-    w8 = "int8_weight_matmul"
-    summary.append({
-        "name": w8, **W8_KERNEL,
-        "launches": launches[WEIGHTS_RUN].get(w8, 0),
-        "launches_by_run": {run: counts.get(w8, 0)
-                            for run, counts in launches.items()},
-        **numbers(weights["headline"]),
-        "dequant_ms": weights["headline"]["dequant_ms"]})
+    torch.cuda.empty_cache()
+    families = families_phase(vocab)
+    launches[MIXTRAL_RUN] = families[MIXTRAL_RUN]
+    launches[OPT_RUN] = families[OPT_RUN]
+    launches[GPT2_RUN] = families[GPT2_RUN]
+    summary = kernels_line(headline, launches, weights, families)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s, the kernel build included")
     print(json.dumps({"kernels": summary}), flush=True)

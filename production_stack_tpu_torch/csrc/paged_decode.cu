@@ -23,7 +23,8 @@
 //     int8 plus its scales), through two stages of 16-byte cp.async, so
 //     chunk c + 1 arrives while chunk c is used. Nothing is expanded to
 //     f32 in shared memory: 64 KB of stages a block at bf16 (32 KB at
-//     int8), three blocks an SM.
+//     int8), three blocks an SM, at head_dim 64; twice that at head_dim
+//     128, one block an SM at bf16.
 //
 // The arithmetic stays under the copy with plain f32 FMA: thread
 // (token group, head-dim quarter) of 128 reads 4 adjacent tokens of one

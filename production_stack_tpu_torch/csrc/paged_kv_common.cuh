@@ -61,11 +61,20 @@ constexpr float kNegInf = -1e30f;
 // through it, and pstt_kernel_supports() (paged_decode.cu) answers the
 // host from it.
 // Add a line when a config needs another geometry.
-#define PSTT_FOR_EACH_GEOMETRY(X)                                  \
-  X(0, __nv_bfloat16, 0, __nv_bfloat16, 4, 64) /* bench-1b */      \
-  X(0, __nv_bfloat16, 2, int8_t, 4, 64)  /* bench-1b, int8 KV */   \
-  X(1, float, 1, float, 2, 32)           /* tiny-llama */          \
-  X(1, float, 2, int8_t, 2, 32)          /* tiny-llama, int8 KV */
+#define PSTT_FOR_EACH_GEOMETRY(X)                                       \
+  X(0, __nv_bfloat16, 0, __nv_bfloat16, 4, 64) /* bench-1b */           \
+  X(0, __nv_bfloat16, 2, int8_t, 4, 64)  /* bench-1b, int8 KV */        \
+  /* Mixtral-8x7B, Mistral-7B, Llama-3-8B */                          \
+  X(0, __nv_bfloat16, 0, __nv_bfloat16, 4, 128)                         \
+  X(0, __nv_bfloat16, 2, int8_t, 4, 128) /* the same, int8 KV */        \
+  X(0, __nv_bfloat16, 0, __nv_bfloat16, 7, 128) /* Qwen2-7B */          \
+  X(0, __nv_bfloat16, 2, int8_t, 7, 128) /* Qwen2-7B, int8 KV */        \
+  X(0, __nv_bfloat16, 0, __nv_bfloat16, 1, 64) /* OPT to 2.7b, GPT-2 */ \
+  X(0, __nv_bfloat16, 2, int8_t, 1, 64)  /* the same, int8 KV */        \
+  X(1, float, 1, float, 2, 32)           /* tiny-llama */               \
+  X(1, float, 2, int8_t, 2, 32)          /* tiny-llama, int8 KV */      \
+  X(1, float, 1, float, 1, 32)           /* tiny-opt, tiny-gpt2 */      \
+  X(1, float, 2, int8_t, 1, 32)          /* the same, int8 KV */
 
 template <typename C>
 constexpr bool kQuantized = std::is_same<C, int8_t>::value;
@@ -312,8 +321,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// log2 of a power of two (page sizes divide 128, head dims are 32 or
-// 64: the staging loops shift where stage_chunk divides).
+// log2 of a power of two (page sizes divide 128, head dims are 32, 64
+// or 128: the staging loops shift where stage_chunk divides).
 __device__ __forceinline__ int log2_pow2(int x) { return __ffs(x) - 1; }
 
 // Start the copies of one 128-token chunk of K and V pages. `off(d,

@@ -16,7 +16,8 @@
 // tensor-core walk of paged_walk_mma.cuh: one block of 4 warps, each
 // warp 16 rows with q in registers, bf16 mma.sync for q.k^T and p.v,
 // scores and probabilities in registers, K/V staged in 16 bits through
-// two cp.async stages (68 KB a block, three blocks an SM). The f32
+// two cp.async stages (68 KB a block and three blocks an SM at
+// head_dim 64; at 128 one stage of 68 KB, two blocks an SM). The f32
 // geometries (tiny-llama, held to 1e-4) keep page_walk_block
 // (paged_kv_common.cuh): f32 FMA over f32 tiles, one block of 256
 // threads a tile. The choice is by type, at compile time.
@@ -79,7 +80,7 @@ constexpr int kMmaThreads = kMmaWarps * 32;
 
 // The bf16 geometries: the same tile and grid on the tensor-core walk.
 template <typename C, int D>
-__global__ void __launch_bounds__(kMmaThreads, 3)
+__global__ void __launch_bounds__(kMmaThreads, mma_blocks_per_sm<C, D>())
 paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const C* __restrict__ k_cache,
                          const C* __restrict__ v_cache,

@@ -26,7 +26,8 @@
 // does: one block of 4 warps, each warp 16 rows with q in registers,
 // bf16 mma.sync for q.k^T and p.v (the probabilities enter p.v as
 // bf16), K/V staged in 16 bits through two cp.async stages, 68 KB a
-// block, three blocks an SM. One row block serves every tile: a warp
+// block and three blocks an SM at head_dim 64 (at 128 one stage of 68
+// KB, two blocks an SM). One row block serves every tile: a warp
 // none of whose 16 rows is live skips every product, so a decode row's
 // tile (G = 4 live rows) multiplies on one warp and a verify row's
 // ((K + 1) * G = 20) on two, while all four share the copies. The f32
@@ -163,7 +164,7 @@ paged_ragged_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
 // one row block for every tile (warps with no live row skip their
 // products).
 template <typename C, int D>
-__global__ void __launch_bounds__(kMmaThreads, 3)
+__global__ void __launch_bounds__(kMmaThreads, mma_blocks_per_sm<C, D>())
 paged_ragged_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const C* __restrict__ k_cache,
                         const C* __restrict__ v_cache,

@@ -24,11 +24,14 @@
 //     layout). m, l and the output accumulator stay in registers; l
 //     sums the unrounded probabilities. The softmax steps 64 tokens at
 //     a time, which halves the score registers.
-//   - K and V stage as bf16, never as f32: a chunk of both is 32 KB,
-//     in two stages filled with cp.async, so chunk c + 1 arrives while
-//     chunk c is multiplied. Rows are padded by 16 bytes (272 a row):
-//     the eight 16-byte rows of an ldmatrix tile then fall on eight
-//     different bank groups. 68 KB a block, three blocks an SM.
+//   - K and V stage as bf16, never as f32: a chunk of both is 32 KB
+//     at head_dim 64, in two stages filled with cp.async, so chunk
+//     c + 1 arrives while chunk c is multiplied. Rows are padded by 16
+//     bytes (272 a row): the eight 16-byte rows of an ldmatrix tile
+//     then fall on eight different bank groups. 68 KB a block, three
+//     blocks an SM. At head_dim 128 every tile, and each warp's output
+//     accumulators, double: one stage of 68 KB, two blocks an SM (the
+//     other block's products overlap a block's copies).
 //   - An int8 cache stages its raw pages (two stages of 16 KB) and its
 //     scales with the same copies; each chunk is then converted once
 //     to the bf16 tile (exact: |x| <= 127) and runs the same products.
@@ -49,21 +52,37 @@ constexpr int kMmaRowBytes = kChunk * 2 + 16;  // a padded bf16 tile row
 constexpr int kMmaStep = 64;                   // tokens per softmax step
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory of one block, in bytes. Full precision: two stages of
-// bf16 K and V tiles. Quantized: one bf16 tile pair, two stages of raw
-// int8 planes and of the chunk's scales.
+// Shared memory of one block, in bytes. Full precision: kStages stages
+// of bf16 K and V tiles. Quantized: one bf16 tile pair, kStages stages
+// of raw int8 planes and two of the chunk's scales (the products read
+// chunk c's scales while chunk c + 1's arrive). Two stages at head_dim
+// 64; one at 128, where two would leave one block (four warps) an SM.
 template <typename C, int D>
 struct MmaSmem {
   static constexpr bool kQuant = kQuantized<C>;
+  static constexpr int kStages = D <= 64 ? 2 : 1;
   static constexpr int kTile = D * kMmaRowBytes;
-  static constexpr int kTileStages = kQuant ? 1 : 2;
+  static constexpr int kTileStages = kQuant ? 1 : kStages;
   static constexpr int kRaw = kQuant ? D * kChunk : 0;
   static constexpr int kScale = kQuant ? kChunk * 4 : 0;
   static constexpr int tiles = 0;  // [kTileStages][2][kTile]
-  static constexpr int raw = tiles + kTileStages * 2 * kTile;  // [2][2][kRaw]
-  static constexpr int scales = raw + 2 * 2 * kRaw;  // [2][2][kChunk] f32
+  static constexpr int raw =
+      tiles + kTileStages * 2 * kTile;  // [kStages][2][kRaw]
+  static constexpr int scales = raw + kStages * 2 * kRaw;  // [2][2][kChunk]
   static constexpr int bytes = scales + 2 * 2 * kScale;
 };
+
+// Blocks of the walk an SM holds, the minimum its __launch_bounds__
+// promise: as many as the SM's 233,472 bytes of shared memory take (1
+// KB of it reserved a block), at most three at head_dim 64 (68 KB a
+// block: 170 registers a thread) and two at 128 (68 KB and 102 KB
+// int8: 255 registers, where a warp's 64 f32 output accumulators fit).
+template <typename C, int D>
+constexpr int mma_blocks_per_sm() {
+  constexpr int fit = 233472 / (MmaSmem<C, D>::bytes + 1024);
+  constexpr int most = D <= 64 ? 3 : 2;
+  return fit < 1 ? 1 : (fit > most ? most : fit);
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -173,14 +192,16 @@ __device__ void page_walk_block_mma(
   const int n_chunks =
       nrows > 0 ? (mask.max_limit(nrows) + kChunk - 1) / kChunk : 0;
 
-  // Start the copies of chunk c into stage c & 1.
+  // Start the copies of chunk c: K/V into stage c & 1 (stage 0 with
+  // one stage), an int8 cache's scales into stage c & 1.
   auto start_copies = [&](int c) {
     const int st = c & 1;
+    const int sd = L::kStages == 2 ? st : 0;
     if constexpr (QUANT) {
       stage_chunk_async<C, D, NT>(
           k_head, v_head, pt_row, c, pages_live, page_size,
-          base + L::raw + (st * 2 + 0) * L::kRaw,
-          base + L::raw + (st * 2 + 1) * L::kRaw,
+          base + L::raw + (sd * 2 + 0) * L::kRaw,
+          base + L::raw + (sd * 2 + 1) * L::kRaw,
           [](int d, int col) { return (uint32_t)(d * kChunk + col); });
       stage_scales_async<NT>(k_scale_head, v_scale_head, pt_row, c,
                              pages_live, page_size,
@@ -189,8 +210,8 @@ __device__ void page_walk_block_mma(
     } else {
       stage_chunk_async<C, D, NT>(
           k_head, v_head, pt_row, c, pages_live, page_size,
-          base + L::tiles + (st * 2 + 0) * L::kTile,
-          base + L::tiles + (st * 2 + 1) * L::kTile, [](int d, int col) {
+          base + L::tiles + (sd * 2 + 0) * L::kTile,
+          base + L::tiles + (sd * 2 + 1) * L::kTile, [](int d, int col) {
             return (uint32_t)(d * kMmaRowBytes + col * 2);
           });
     }
@@ -200,6 +221,7 @@ __device__ void page_walk_block_mma(
   if (n_chunks > 0) start_copies(0);
   for (int c = 0; c < n_chunks; ++c) {
     const int st = c & 1;
+    const int sd = L::kStages == 2 ? st : 0;
     uint32_t k_tile, v_tile;
     if constexpr (QUANT) {
       // The raw chunk has landed and every warp is done with the tile:
@@ -212,7 +234,7 @@ __device__ void page_walk_block_mma(
 #pragma unroll
         for (int which = 0; which < 2; ++which) {
           const uint4 rawv = *reinterpret_cast<const uint4*>(
-              smem + L::raw + (st * 2 + which) * L::kRaw + i * 16);
+              smem + L::raw + (sd * 2 + which) * L::kRaw + i * 16);
           const int8_t* x = reinterpret_cast<const int8_t*>(&rawv);
           uint32_t w[8];
 #pragma unroll
@@ -225,22 +247,34 @@ __device__ void page_walk_block_mma(
           dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
         }
       }
+      // One raw stage: every thread's conversion reads of it come
+      // first.
+      if constexpr (L::kStages == 1) __syncthreads();
       if (c + 1 < n_chunks) start_copies(c + 1);
       __syncthreads();
       k_tile = base + L::tiles;
       v_tile = base + L::tiles + L::kTile;
     } else {
-      // Start chunk c + 1 into the stage chunk c - 1 left (its readers
-      // passed the barrier that ended that iteration), wait for chunk c.
-      if (c + 1 < n_chunks) {
-        start_copies(c + 1);
-        cp_async_wait<1>();
+      if constexpr (L::kStages == 2) {
+        // Start chunk c + 1 into the stage chunk c - 1 left (its
+        // readers passed the barrier that ended that iteration), wait
+        // for chunk c.
+        if (c + 1 < n_chunks) {
+          start_copies(c + 1);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
       } else {
+        // One stage: chunk c's copies start once the barrier that ended
+        // the last iteration freed it; the SM's other block computes
+        // meanwhile.
+        if (c > 0) start_copies(c);
         cp_async_wait<0>();
       }
       __syncthreads();
-      k_tile = base + L::tiles + (st * 2 + 0) * L::kTile;
-      v_tile = base + L::tiles + (st * 2 + 1) * L::kTile;
+      k_tile = base + L::tiles + (sd * 2 + 0) * L::kTile;
+      v_tile = base + L::tiles + (sd * 2 + 1) * L::kTile;
     }
     const float* kss =
         reinterpret_cast<const float*>(smem + L::scales) + (st * 2) * kChunk;

@@ -2,7 +2,9 @@
 
 The same field names as the JAX engine's configuration, with torch
 dtypes in place of ``jnp`` ones. Only the fields of the port's slice
-are here: one llama-family model on one device, full-precision or
+are here: one model of the six architectures the JAX registry names
+(llama, mistral, qwen2, opt, gpt2, mixtral; ``ModelConfig.from_hf_config``
+reads a checkpoint's ``config.json``) on one device, full-precision or
 int8 KV in per-layer or stacked pages, continuous batching with the
 async pipeline, decode bursts, the unified ragged step and
 prompt-lookup speculative decoding, weight-only int8 projections
@@ -37,7 +39,7 @@ class ModelConfig:
     """Architecture hyperparameters (HF-config compatible field names)."""
 
     name: str = "tiny-llama"
-    architecture: str = "llama"  # llama | mistral | qwen2
+    architecture: str = "llama"  # llama | opt | gpt2 | mistral | qwen2 | mixtral
     vocab_size: int = 32000
     hidden_size: int = 2048
     intermediate_size: int = 5632
@@ -50,8 +52,16 @@ class ModelConfig:
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
     dtype: str = "bfloat16"
+    # OPT/GPT-2 specifics. do_layer_norm_before is read from an OPT
+    # config and, as in the JAX model, not acted on: every OPT layer
+    # normalizes before its attention and MLP.
+    do_layer_norm_before: bool = True
+    activation: str = "silu"  # silu (llama) | relu (opt) | gelu (gpt2)
     # Qwen2-style q/k/v projection biases on the llama-family body.
     attention_bias: bool = False
+    # Mixtral-style sparse MoE (architecture == "mixtral").
+    num_local_experts: int = 0
+    num_experts_per_tok: int = 2
     # Weight-only quantization: none | int8 (engine/quantization.py).
     quantization: str = "none"
 
@@ -62,6 +72,88 @@ class ModelConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return _DTYPE_MAP[self.dtype]
+
+    @classmethod
+    def from_hf_config(cls, hf: dict, name: str = "") -> "ModelConfig":
+        """Build from a HuggingFace ``config.json`` dict: the JAX
+        function's field mapping and defaults, field for field."""
+        arch = (hf.get("architectures") or ["LlamaForCausalLM"])[0].lower()
+        if "gpt2" in arch:
+            return cls(
+                name=name or hf.get("_name_or_path", "gpt2"),
+                architecture="gpt2",
+                vocab_size=hf["vocab_size"],
+                hidden_size=hf["n_embd"],
+                intermediate_size=hf.get("n_inner") or 4 * hf["n_embd"],
+                num_hidden_layers=hf["n_layer"],
+                num_attention_heads=hf["n_head"],
+                num_key_value_heads=hf["n_head"],
+                max_position_embeddings=hf["n_positions"],
+                tie_word_embeddings=True,
+                activation="gelu",
+                dtype="bfloat16",
+            )
+        if "mixtral" in arch:
+            return cls(
+                name=name or hf.get("_name_or_path", "mixtral"),
+                architecture="mixtral",
+                vocab_size=hf["vocab_size"],
+                hidden_size=hf["hidden_size"],
+                intermediate_size=hf["intermediate_size"],
+                num_hidden_layers=hf["num_hidden_layers"],
+                num_attention_heads=hf["num_attention_heads"],
+                num_key_value_heads=hf.get(
+                    "num_key_value_heads", hf["num_attention_heads"]),
+                head_dim=hf.get("head_dim"),
+                max_position_embeddings=hf.get(
+                    "max_position_embeddings", 4096),
+                rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
+                rope_theta=hf.get("rope_theta", 1e6),
+                tie_word_embeddings=hf.get("tie_word_embeddings", False),
+                num_local_experts=hf.get("num_local_experts", 8),
+                num_experts_per_tok=hf.get("num_experts_per_tok", 2),
+                activation="silu",
+                dtype="bfloat16",
+            )
+        if "opt" in arch:
+            return cls(
+                name=name or hf.get("_name_or_path", "opt"),
+                architecture="opt",
+                vocab_size=hf["vocab_size"],
+                hidden_size=hf["hidden_size"],
+                intermediate_size=hf.get("ffn_dim", 4 * hf["hidden_size"]),
+                num_hidden_layers=hf["num_hidden_layers"],
+                num_attention_heads=hf["num_attention_heads"],
+                num_key_value_heads=hf["num_attention_heads"],
+                max_position_embeddings=hf["max_position_embeddings"],
+                tie_word_embeddings=hf.get("tie_word_embeddings", True),
+                do_layer_norm_before=hf.get("do_layer_norm_before", True),
+                activation="relu",
+                dtype="bfloat16",
+            )
+        qwen = "qwen2" in arch
+        return cls(
+            name=name or hf.get("_name_or_path", "llama"),
+            architecture="qwen2" if qwen else "llama",
+            # Qwen2 puts biases on q/k/v (HF Qwen2Attention); plain
+            # Llama exposes the same switch via attention_bias.
+            attention_bias=(True if qwen
+                            else hf.get("attention_bias", False)),
+            vocab_size=hf["vocab_size"],
+            hidden_size=hf["hidden_size"],
+            intermediate_size=hf["intermediate_size"],
+            num_hidden_layers=hf["num_hidden_layers"],
+            num_attention_heads=hf["num_attention_heads"],
+            num_key_value_heads=hf.get(
+                "num_key_value_heads", hf["num_attention_heads"]),
+            head_dim=hf.get("head_dim"),
+            max_position_embeddings=hf.get("max_position_embeddings", 4096),
+            rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
+            rope_theta=hf.get("rope_theta", 10000.0),
+            tie_word_embeddings=hf.get("tie_word_embeddings", False),
+            activation="silu",
+            dtype="bfloat16",
+        )
 
 
 @dataclasses.dataclass
@@ -377,10 +469,6 @@ class EngineConfig:
                 "engine_role='prefill' is incompatible with "
                 "speculative_k > 0 (speculation speeds up decode; a "
                 "prefill-role engine hands off after the first token)")
-        if self.model.architecture not in ("llama", "mistral", "qwen2"):
-            raise NotImplementedError(
-                "the port serves the llama family (llama, mistral, "
-                f"qwen2); got {self.model.architecture!r}")
         if self.cache.resolved_kv_dtype() == "int8" and not getattr(
                 self.cache, "_kv_pages_expanded", False):
             # Spend the same device bytes on more, narrower pages: a
@@ -394,6 +482,23 @@ class EngineConfig:
             self.cache = dataclasses.replace(
                 self.cache, num_pages=max(expanded, self.cache.num_pages))
             self.cache._kv_pages_expanded = True
+        # Learned-position models (gpt2, opt) index a fixed
+        # [max_positions, h] table: cap the serving length at it, as
+        # the JAX engine does (its gathers clamp silently; the forwards
+        # here clamp explicitly, so a pad slot indexes in range too).
+        if (self.model.architecture in ("gpt2", "opt")
+                and self.scheduler.max_model_len
+                > self.model.max_position_embeddings):
+            from production_stack_tpu_torch.utils.log import init_logger
+            init_logger(__name__).warning(
+                "max_model_len %d exceeds %s's position table (%d); "
+                "clamping to %d",
+                self.scheduler.max_model_len, self.model.architecture,
+                self.model.max_position_embeddings,
+                self.model.max_position_embeddings)
+            self.scheduler = dataclasses.replace(
+                self.scheduler,
+                max_model_len=self.model.max_position_embeddings)
 
 
 def bench_1b_model_config() -> ModelConfig:
@@ -414,10 +519,8 @@ def bench_1b_model_config() -> ModelConfig:
 
 
 def tiny_model_config(architecture: str = "llama") -> ModelConfig:
-    """A tiny model for tests that runs anywhere."""
-    if architecture != "llama":
-        raise NotImplementedError(
-            f"the port serves the llama family (got {architecture!r})")
+    """A tiny model for tests that runs anywhere (llama, opt or gpt2,
+    the JAX presets)."""
     return ModelConfig(
         name=f"tiny-{architecture}",
         architecture=architecture,
@@ -426,7 +529,9 @@ def tiny_model_config(architecture: str = "llama") -> ModelConfig:
         intermediate_size=256,
         num_hidden_layers=2,
         num_attention_heads=4,
-        num_key_value_heads=2,
+        num_key_value_heads=2 if architecture == "llama" else 4,
         max_position_embeddings=512,
+        activation={"llama": "silu", "opt": "relu",
+                    "gpt2": "gelu"}[architecture],
         dtype="float32",
     )

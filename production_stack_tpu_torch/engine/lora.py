@@ -13,15 +13,17 @@ registered reads it at its next replay.
 
 Adapter files use the HF PEFT format: ``adapter_config.json`` (r,
 lora_alpha) and ``adapter_model.safetensors`` (or the ``.npz``
-fallback) with ``...layers.{i}.<proj>.lora_A.weight`` keys. The
-safetensors file is read here (``_read_safetensors``: a u64
-little-endian header length, a JSON header, raw little-endian data), so
-the port needs no package for it. Ranks below ``max_lora_rank`` are
-zero-padded so every adapter fits the static stack shape.
+fallback) with ``...layers.{i}.<proj>.lora_A.weight`` keys (GPT-2's
+``...h.{i}.``). The safetensors file is read by the port's own reader
+(engine/safetensors_io.py), so the port needs no package for it. Ranks
+below ``max_lora_rank`` are zero-padded so every adapter fits the
+static stack shape.
 
-The port serves the llama family (llama, mistral, qwen2): one target
-map. The tp sharding of the stacks (JAX ``lora_stack_specs``) joins
-with parallelism.
+Targets per architecture, the JAX maps: the llama family's seven
+projections; OPT's and GPT-2's q, k, v, o, fc1 and fc2 (GPT-2's fused
+``c_attn`` trains one pair, A shared by q, k and v and B split in
+three); Mixtral's attention only. The tp sharding of the stacks (JAX
+``lora_stack_specs``) joins with parallelism.
 """
 
 from __future__ import annotations
@@ -30,28 +32,38 @@ import dataclasses
 import hashlib
 import json
 import os
-import struct
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from production_stack_tpu_torch.engine.config import ModelConfig
+from production_stack_tpu_torch.engine.safetensors_io import read_safetensors
 from production_stack_tpu_torch.utils.log import init_logger
 
 logger = init_logger(__name__)
 
-# PEFT module name -> the JAX stacked-param name (the llama family).
+# PEFT module name -> the JAX stacked-param name, per architecture
+# (mistral and qwen2 take llama's).
 _TARGET_MAP = {
     "llama": {
         "q_proj": "wq", "k_proj": "wk", "v_proj": "wv", "o_proj": "wo",
         "gate_proj": "w_gate", "up_proj": "w_up", "down_proj": "w_down",
     },
+    "opt": {
+        "q_proj": "wq", "k_proj": "wk", "v_proj": "wv",
+        "out_proj": "wo", "fc1": "fc1", "fc2": "fc2",
+    },
+    "mixtral": {
+        "q_proj": "wq", "k_proj": "wk", "v_proj": "wv",
+        "o_proj": "wo",
+    },
+    # GPT-2 fuses q/k/v into c_attn; handled apart in load_peft_adapter
+    # (A is shared, B is split three ways).
+    "gpt2": {
+        "attn.c_proj": "wo", "c_fc": "fc1", "mlp.c_proj": "fc2",
+    },
 }
-
-# safetensors dtype -> (numpy dtype of the stored bytes, element bytes).
-# BF16 has no numpy type: it is read as uint16 and widened to f32.
-_ST_DTYPES = {"F32": ("<f4", 4), "F16": ("<f2", 2), "BF16": ("<u2", 2)}
 
 
 def target_shapes(config: ModelConfig) -> Dict[str, Tuple[int, int]]:
@@ -60,6 +72,17 @@ def target_shapes(config: ModelConfig) -> Dict[str, Tuple[int, int]]:
     nh, nkv, d = (config.num_attention_heads,
                   config.num_key_value_heads, config.head_dim)
     ffn = config.intermediate_size
+    if config.architecture in ("opt", "gpt2"):
+        return {
+            "wq": (h, nh * d), "wk": (h, nh * d), "wv": (h, nh * d),
+            "wo": (nh * d, h), "fc1": (h, ffn), "fc2": (ffn, h),
+        }
+    if config.architecture == "mixtral":
+        # Expert weights are not LoRA targets; attention only.
+        return {
+            "wq": (h, nh * d), "wk": (h, nkv * d), "wv": (h, nkv * d),
+            "wo": (nh * d, h),
+        }
     return {
         "wq": (h, nh * d), "wk": (h, nkv * d), "wv": (h, nkv * d),
         "wo": (nh * d, h), "w_gate": (h, ffn), "w_up": (h, ffn),
@@ -163,35 +186,9 @@ def lora_matmul(x: torch.Tensor, base, lora_layer: Optional[Dict],
 
 def _read_safetensors(path: str) -> Dict[str, np.ndarray]:
     """The tensors of a safetensors file as numpy arrays: F32 and F16 as
-    stored, BF16 widened to f32 (its bits are the upper half of an
-    f32's)."""
-    with open(path, "rb") as f:
-        raw = f.read()
-    (n,) = struct.unpack("<Q", raw[:8])
-    header = json.loads(raw[8:8 + n].decode("utf-8"))
-    base = 8 + n
-    out: Dict[str, np.ndarray] = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        dtype = info["dtype"]
-        if dtype not in _ST_DTYPES:
-            raise ValueError(f"{path}: tensor {name!r} has dtype {dtype}; "
-                             f"the reader takes {sorted(_ST_DTYPES)}")
-        np_dtype, size = _ST_DTYPES[dtype]
-        begin, end = info["data_offsets"]
-        shape = tuple(info["shape"])
-        count = int(np.prod(shape)) if shape else 1
-        if end - begin != count * size:
-            raise ValueError(f"{path}: tensor {name!r} spans {end - begin} "
-                             f"bytes, its shape {shape} needs "
-                             f"{count * size}")
-        arr = np.frombuffer(raw, dtype=np_dtype, count=count,
-                            offset=base + begin).reshape(shape)
-        if dtype == "BF16":
-            arr = (arr.astype(np.uint32) << 16).view(np.float32)
-        out[name] = arr.astype(arr.dtype.newbyteorder("="))
-    return out
+    stored, BF16 widened to f32 (numpy has no bf16)."""
+    return {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+            for k, v in read_safetensors(path).items()}
 
 
 def load_peft_adapter(path: str, config: ModelConfig, max_lora_rank: int,
@@ -217,15 +214,16 @@ def load_peft_adapter(path: str, config: ModelConfig, max_lora_rank: int,
         npz = np.load(os.path.join(path, "adapter_model.npz"))
         raw = {k: npz[k] for k in npz.files}
 
-    tmap = _TARGET_MAP["llama"]
+    tmap = _TARGET_MAP.get(config.architecture, _TARGET_MAP["llama"])
     layers = config.num_hidden_layers
     shapes = target_shapes(config)
     per_target: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
 
     def find(i: int, proj: str, kind: str):
         for key in raw:
-            if (f"layers.{i}." in key and f"{proj}." in key
-                    and f"lora_{kind}" in key):
+            # Llama/OPT name layers "...layers.{i}."; GPT-2 "...h.{i}.".
+            if ((f"layers.{i}." in key or f"h.{i}." in key)
+                    and f"{proj}." in key and f"lora_{kind}" in key):
                 return raw[key]
         return None
 
@@ -245,6 +243,32 @@ def load_peft_adapter(path: str, config: ModelConfig, max_lora_rank: int,
             b_stack[i, :r, :] = np.asarray(b, np.float32).T
         if found:
             per_target[tgt] = (a_stack, b_stack)
+
+    if config.architecture == "gpt2":
+        # GPT-2's q/k/v live in one fused c_attn [h, 3h] projection.
+        # PEFT trains one (A [r, h], B [3h, r]) pair for it; B split in
+        # thirds gives each of wq/wk/wv (A, B_chunk): the low-rank
+        # update decomposes exactly, the three outputs being disjoint
+        # column blocks of c_attn.
+        h = config.hidden_size
+        a_stack = np.zeros((layers, h, max_lora_rank), np.float32)
+        b_stacks = {t: np.zeros((layers, max_lora_rank, h), np.float32)
+                    for t in ("wq", "wk", "wv")}
+        found = False
+        for i in range(layers):
+            a = find(i, "c_attn", "A")  # [r, h]
+            b = find(i, "c_attn", "B")  # [3h, r]
+            if a is None or b is None:
+                continue
+            found = True
+            r = a.shape[0]
+            a_stack[i, :, :r] = np.asarray(a, np.float32).T
+            bf = np.asarray(b, np.float32)
+            for j, t in enumerate(("wq", "wk", "wv")):
+                b_stacks[t][i, :r, :] = bf[j * h:(j + 1) * h, :].T
+        if found:
+            for t in ("wq", "wk", "wv"):
+                per_target[t] = (a_stack, b_stacks[t])
     if not per_target:
         raise ValueError(f"No LoRA weights found under {path}")
     return LoRAAdapter(

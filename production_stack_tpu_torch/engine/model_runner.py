@@ -138,6 +138,20 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def check_engine_geometry(config: EngineConfig) -> None:
+    """On the card: build (or find) and load the kernel library, and
+    raise unless the model's geometry, with the cache's dtype (and for
+    int8 a page size that is a multiple of 16), is one it is built for
+    (a ``PSTT_FOR_EACH_GEOMETRY`` line). The card never serves through
+    the plain versions."""
+    model = config.model
+    check_kernel_shapes(
+        model.num_attention_heads, model.num_key_value_heads,
+        model.head_dim, config.cache.page_size, model.torch_dtype,
+        torch.int8 if config.cache.resolved_kv_dtype() == "int8"
+        else model.torch_dtype)
+
+
 def unified_step_eligible(engine_role: str = "both") -> bool:
     """The eligibility rule of the unified ragged step, the JAX
     runner's for one host: out for a disaggregated role engine, which by
@@ -305,16 +319,8 @@ class ModelRunner:
         cache_dtype = (torch.int8 if self.kv_quantized
                        else model_config.torch_dtype)
         if self.device.type == "cuda":
-            # Fail at start-up, before the weights are made: the kernel
-            # library is built (or found) and loaded now, and the
-            # geometry (with the cache's dtype, and for int8 a page
-            # size that is a multiple of 16) must be one it is built
-            # for. The card never serves through the plain versions.
-            check_kernel_shapes(
-                model_config.num_attention_heads,
-                model_config.num_key_value_heads, model_config.head_dim,
-                config.cache.page_size, model_config.torch_dtype,
-                cache_dtype)
+            # Fail at start-up, before the weights are made.
+            check_engine_geometry(config)
         init_fn, self._forward = get_model(model_config)
         quantized = model_config.quantization == "int8"
         if params is None and quantized:

@@ -39,21 +39,41 @@ from production_stack_tpu_torch.ops.int8_matmul_cuda import (
 )
 
 # Projections quantized per architecture, by the JAX names. Norms,
-# embeddings, biases and the LM head stay in full precision. The port
-# serves the llama family; opt and gpt2 join with their models.
+# embeddings, position tables, biases and the LM head stay in full
+# precision; mixtral has no entry (JAX refuses it: its experts are
+# not targets and its attention alone would save little).
 _TARGETS = {
     "llama": ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"),
     "mistral": ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"),
     "qwen2": ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"),
+    "opt": ("wq", "wk", "wv", "wo", "fc1", "fc2"),
+    "gpt2": ("wq", "wk", "wv", "wo", "fc1", "fc2"),
 }
 # The port's fused projections and the JAX targets they hold, in column
-# order.
+# order: the llama family's, then OPT's and GPT-2's (their MLP
+# projections are unfused).
 FUSED_TARGETS = {
     "qkv": ("wq", "wk", "wv"),
     "o": ("wo",),
     "gate_up": ("w_gate", "w_up"),
     "down": ("w_down",),
 }
+_DECODER_FUSED_TARGETS = {
+    "qkv": ("wq", "wk", "wv"),
+    "o": ("wo",),
+    "fc1": ("fc1",),
+    "fc2": ("fc2",),
+}
+
+
+def fused_targets(config: ModelConfig):
+    """{projection module name: the JAX targets it holds} of a layer of
+    ``config``'s architecture (quantizable or not)."""
+    if config.architecture in ("opt", "gpt2"):
+        return _DECODER_FUSED_TARGETS
+    if config.architecture == "mixtral":
+        return {"qkv": FUSED_TARGETS["qkv"], "o": FUSED_TARGETS["o"]}
+    return FUSED_TARGETS
 
 
 def _targets(config: ModelConfig) -> Tuple[str, ...]:
@@ -123,12 +143,13 @@ def has_quantized_leaves(params: nn.Module) -> bool:
 
 
 def quantize_params(params: nn.Module, config: ModelConfig) -> nn.Module:
-    """Replace every target projection of ``params`` (LlamaParams) with
-    its ``QuantLinear``, in place; returns ``params``."""
+    """Replace every target projection of ``params`` (any family's
+    params module) with its ``QuantLinear``, in place; returns
+    ``params``."""
     _targets(config)
     with torch.no_grad():
         for layer in params.layers:
-            for name in FUSED_TARGETS:
+            for name in fused_targets(config):
                 mod = getattr(layer, name)
                 if isinstance(mod, nn.Linear):
                     setattr(layer, name, QuantLinear.from_linear(mod))
@@ -139,53 +160,57 @@ def init_random_quantized(config: ModelConfig, seed: int,
                           device: torch.device) -> nn.Module:
     """Random int8 weights without materialising the projections in
     full precision: each target is uniform int8 in [-127, 127] with a
-    flat 0.02 / 127 scale (the magnitude of the dense init), embeddings
-    and the LM head N(0, 0.02), norms ones, biases zeros; the JAX
-    function's leaf kinds and distribution, drawn with numpy's PCG64
-    from ``seed``, not its bits. Peak device memory is the serving
-    footprint: only the int8 bytes and the non-target leaves land on
-    the card."""
-    from production_stack_tpu_torch.models.llama import LlamaParams
+    flat 0.02 / 127 scale (the magnitude of the dense init), embeddings,
+    position tables and the LM head N(0, 0.02), norms ones, biases
+    zeros; the JAX function's leaf kinds and distribution, drawn with
+    numpy's PCG64 from ``seed``, not its bits. Peak device memory is
+    the serving footprint: only the int8 bytes and the non-target
+    leaves land on the card."""
+    from production_stack_tpu_torch.models.registry import params_class
 
     _targets(config)
     rng = np.random.Generator(np.random.PCG64(seed & 0x7FFFFFFF))
     dtype = config.torch_dtype
     # The module tree on the meta device (no memory); every leaf is
     # replaced below by one made on ``device``.
-    out = LlamaParams(config, torch.device("meta"))
+    out = params_class(config)(config, torch.device("meta"))
+    targets = fused_targets(config)
 
     def dense(shape):
         host = 0.02 * rng.standard_normal(shape, dtype=np.float32)
         return torch.from_numpy(host).to(device=device, dtype=dtype)
 
-    def quant(shape):
-        q = rng.integers(-127, 128, size=shape, dtype=np.int8)
+    def leaf(name, shape):
+        if name.endswith("norm") or name.endswith("norm_w"):
+            return torch.ones(shape, dtype=dtype, device=device)
+        if name == "bias" or name.endswith("norm_b"):
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return dense(shape)
+
+    def quant(lin):
+        q = rng.integers(-127, 128,
+                         size=(lin.out_features, lin.in_features),
+                         dtype=np.int8)
+        bias = (None if lin.bias is None else
+                torch.zeros(lin.out_features, dtype=dtype, device=device))
         return QuantLinear(
             torch.from_numpy(q).to(device),
-            torch.full((shape[0],), 0.02 / 127.0, dtype=torch.float32,
-                       device=device))
+            torch.full((lin.out_features,), 0.02 / 127.0,
+                       dtype=torch.float32, device=device), bias)
 
-    h = config.hidden_size
-    out.embed = nn.Parameter(dense((config.vocab_size, h)),
-                             requires_grad=False)
-    out.final_norm = nn.Parameter(torch.ones(h, dtype=dtype, device=device),
-                                  requires_grad=False)
-    if out.lm_head is not None:
-        head = nn.Linear(h, config.vocab_size, bias=False, device="meta")
-        head.weight = nn.Parameter(dense((config.vocab_size, h)),
-                                   requires_grad=False)
-        out.lm_head = head
+    def replace_leaves(module):
+        for name, p in list(module.named_parameters(recurse=False)):
+            setattr(module, name, nn.Parameter(leaf(name, tuple(p.shape)),
+                                               requires_grad=False))
+
+    # The draws in the order of the llama-only init this generalises:
+    # the embeddings (and position table), the LM head, then each
+    # layer's targets.
+    replace_leaves(out)
+    if getattr(out, "lm_head", None) is not None:
+        replace_leaves(out.lm_head)
     for layer in out.layers:
-        layer.attn_norm = nn.Parameter(
-            torch.ones(h, dtype=dtype, device=device), requires_grad=False)
-        layer.mlp_norm = nn.Parameter(
-            torch.ones(h, dtype=dtype, device=device), requires_grad=False)
-        for name in FUSED_TARGETS:
-            lin = getattr(layer, name)
-            qlin = quant((lin.out_features, lin.in_features))
-            if lin.bias is not None:
-                qlin.bias = nn.Parameter(
-                    torch.zeros(lin.out_features, dtype=dtype,
-                                device=device), requires_grad=False)
-            setattr(layer, name, qlin)
+        replace_leaves(layer)
+        for name in targets:
+            setattr(layer, name, quant(getattr(layer, name)))
     return out

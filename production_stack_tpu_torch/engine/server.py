@@ -2,6 +2,14 @@
 
     python -m production_stack_tpu_torch.engine.server \\
         --model bench-1b --random-weights --page-size 128 --num-pages 512
+    python -m production_stack_tpu_torch.engine.server --model DIR \\
+        [--random-weights] [--tokenizer T] [--chat-template J]
+
+``--model`` is a local HF checkpoint directory (``config.json`` and
+safetensors or ``pytorch_model*.bin`` weights of a llama, mistral,
+qwen2, opt, gpt2 or mixtral model, engine/weights.py; its own tokenizer
+unless ``--tokenizer`` names another, or ``bench``), or one of the
+random-weights presets ``tiny-llama``, ``tiny-opt`` and ``bench-1b``.
 
 Routes served, with the JSON shapes, status codes and SSE frames of the
 JAX engine's server: GET ``/health`` (role, draining, build id, active
@@ -71,10 +79,11 @@ Fleet contract, as the JAX server keeps it:
   Streams are sent with chunked transfer encoding, so a cut reads as
   one to the client.
 
-Flags: 62 of the JAX server's 75, with the same names, defaults and
-meanings (``parse_args``); the other 13 (the 10 of parallelism,
-``--deferred-kv-writes``, ``--tokenizer``, ``--chat-template``) are
-absent and argparse refuses them. ``--device`` is the port's own (the
+Flags: 64 of the JAX server's 75, with the same names, defaults and
+meanings (``parse_args``); the other 11 (the 10 of parallelism and
+``--deferred-kv-writes``) are absent and argparse refuses them.
+``--chat-template`` (inline Jinja source or a file) is rendered once at
+start-up, so a broken template stops the server there. ``--device`` is the port's own (the
 card unless ``cpu`` is asked for).
 
 Weight-only int8 (``--quantization int8``): the projections are int8
@@ -151,6 +160,7 @@ from production_stack_tpu_torch.engine.embeddings import (
 )
 from production_stack_tpu_torch.engine.engine import LLMEngine, StepOutput
 from production_stack_tpu_torch.engine.model_runner import (
+    check_engine_geometry,
     resolve_device,
     unified_step_eligible,
 )
@@ -158,7 +168,12 @@ from production_stack_tpu_torch.engine.sequence import SamplingParams
 from production_stack_tpu_torch.engine.step_graphs import EAGER_REASONS
 from production_stack_tpu_torch.engine.tokenizer import (
     BenchTokenizer,
+    get_tokenizer,
     render_chat_prompt,
+)
+from production_stack_tpu_torch.engine.weights import (
+    load_model_config,
+    load_weights,
 )
 from production_stack_tpu_torch.engine.tracing import EngineTracer
 from production_stack_tpu_torch.kvecon.summary import (
@@ -724,11 +739,16 @@ class EngineServer:
 
     def __init__(self, engine: LLMEngine, served_model_name: str,
                  build_id: str = "", drain_exit_timeout_s: float = 0.0,
-                 profile_dir: Optional[str] = None, pooling: str = "last"):
+                 profile_dir: Optional[str] = None, pooling: str = "last",
+                 chat_template: Optional[str] = None):
         self.engine = engine
         self.loop = EngineLoop(engine)
         self.model_name = served_model_name
         self.tokenizer = engine.tokenizer
+        # --chat-template's Jinja source, rendered for every chat
+        # request in place of the model's own template (None: the
+        # model's, or the role-tagged rendering).
+        self.chat_template = chat_template
         # Rolling upgrades: --build-id labels the running revision in
         # /health and /version.
         self.build_id = build_id
@@ -1061,7 +1081,8 @@ class EngineServer:
             if not isinstance(messages, list):
                 raise BadRequest("'messages' must be a list")
             prompt, prompt_text = render_chat_prompt(
-                self.tokenizer, messages), None
+                self.tokenizer, messages,
+                chat_template=self.chat_template), None
         else:
             if body.get("suffix"):
                 raise BadRequest("'suffix' (insertion) is not supported")
@@ -1520,7 +1541,9 @@ class EngineServer:
         chat = isinstance(messages, list)
         try:
             if chat:
-                prompt = render_chat_prompt(self.tokenizer, messages)
+                prompt = render_chat_prompt(
+                    self.tokenizer, messages,
+                    chat_template=self.chat_template)
             else:
                 prompt_in = body.get("prompt", "")
                 if (isinstance(prompt_in, list) and prompt_in
@@ -2127,20 +2150,19 @@ def build_engine_from_args(args) -> tuple:
     if args.compilation_cache_dir:
         paged_kv_common.set_build_root(
             os.path.join(args.compilation_cache_dir, "kernels"))
-    if args.model == "tiny-llama":
-        model_config = tiny_model_config("llama")
+    params, tokenizer = None, None
+    if args.model in ("tiny-llama", "tiny-opt"):
+        model_config = tiny_model_config(args.model.split("-")[1])
     elif args.model == "bench-1b":
         model_config = bench_1b_model_config()
     else:
-        raise NotImplementedError(
-            f"--model {args.model!r}: the port serves tiny-llama and "
-            "bench-1b with random weights; checkpoint loading is not "
-            "ported yet")
+        # A local HF checkpoint directory: its config, its weights
+        # (unless --random-weights) and its tokenizer (or --tokenizer).
+        model_config = load_model_config(args.model)
+        tokenizer = get_tokenizer(args.tokenizer or args.model)
     if args.dtype:
-        # The JAX server applies --dtype to a checkpoint's config; the
-        # port's models are the presets, so it applies to them. On the
-        # card the runner refuses a geometry the kernels are not built
-        # for, naming the missing PSTT_FOR_EACH_GEOMETRY line.
+        # On the card the runner refuses a geometry the kernels are not
+        # built for, naming the missing PSTT_FOR_EACH_GEOMETRY line.
         model_config.dtype = args.dtype
     model_config.quantization = args.quantization
     config = EngineConfig(
@@ -2207,8 +2229,17 @@ def build_engine_from_args(args) -> tuple:
         checkpoint_interval_tokens=args.checkpoint_interval_tokens,
         step_watchdog_s=args.step_watchdog_s,
     )
-    engine = LLMEngine(config,
-                       tokenizer=BenchTokenizer(model_config.vocab_size),
+    if args.model not in ("tiny-llama", "tiny-opt", "bench-1b"):
+        if device.type == "cuda":
+            # Refuse a geometry the kernels lack before reading weights.
+            check_engine_geometry(config)
+        if not args.random_weights:
+            params = load_weights(args.model, model_config, device=device)
+    # The presets serve with the bench tokenizer at the model's vocab:
+    # random-weights greedy ids decode to one character each.
+    engine = LLMEngine(config, params=params,
+                       tokenizer=tokenizer or BenchTokenizer(
+                           model_config.vocab_size),
                        device=device)
     for module in args.lora_modules or []:
         name, _, path = module.partition("=")
@@ -2229,11 +2260,17 @@ def build_engine_from_args(args) -> tuple:
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="tpu-engine-torch")
     p.add_argument("--model", default="tiny-llama",
-                   choices=["tiny-llama", "bench-1b"])
+                   help="HF model dir, or tiny-llama/tiny-opt/bench-1b "
+                        "(random weights)")
     p.add_argument("--served-model-name", default=None)
+    p.add_argument("--tokenizer", default=None,
+                   help="tokenizer of a --model directory: a local HF "
+                        "tokenizer path (needs transformers) or bench; "
+                        "default the directory's own")
     p.add_argument("--random-weights", action="store_true",
-                   help="accepted for parity: both models are built "
-                        "from random weights (seeded by --seed)")
+                   help="a --model directory's config with random "
+                        "weights (seeded by --seed); the presets are "
+                        "random always")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; with no card and no "
                         "--device cpu the server refuses to start")
@@ -2393,6 +2430,9 @@ def parse_args(argv=None):
                         "--request-span-log, all tracing) off")
     p.add_argument("--pooling", default="last", choices=["last", "mean"],
                    help="/v1/embeddings pooling mode")
+    p.add_argument("--chat-template", default=None,
+                   help="Jinja chat template source or file path, "
+                        "overriding the model's own template")
     p.add_argument("--compilation-cache-dir", default=None,
                    help="build (and find) the CUDA kernel library under "
                         "DIR/kernels/<source hash>/ instead of "
@@ -2438,9 +2478,28 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def load_chat_template(args) -> Optional[str]:
+    """--chat-template accepts inline Jinja source or a file path. The
+    template is rendered once here, so a broken one fails at start-up
+    rather than falling back at request time."""
+    if not args.chat_template:
+        return None
+    if os.path.exists(args.chat_template):
+        with open(args.chat_template) as f:
+            source = f.read()
+    else:
+        source = args.chat_template
+    import jinja2
+    jinja2.Template(source).render(
+        messages=[{"role": "user", "content": "probe"}],
+        add_generation_prompt=True)
+    return source
+
+
 def make_server(argv=None) -> EngineHTTPServer:
     """Build the engine and bind the HTTP server (not yet serving)."""
     args = parse_args(argv)
+    chat_template = load_chat_template(args)
     engine, served_name = build_engine_from_args(args)
     return EngineHTTPServer((args.host, args.port),
                             EngineServer(
@@ -2448,7 +2507,8 @@ def make_server(argv=None) -> EngineHTTPServer:
                                 build_id=args.build_id,
                                 drain_exit_timeout_s=args.drain_exit_timeout_s,
                                 profile_dir=args.profile_dir,
-                                pooling=args.pooling))
+                                pooling=args.pooling,
+                                chat_template=chat_template))
 
 
 def main(argv=None) -> None:

@@ -1,10 +1,14 @@
-"""Tokenizers for the port's random-weights models.
+"""Tokenizer abstraction, the JAX package's ``engine/tokenizer.py`` in
+the port.
 
-The dependency-free byte tokenizer and its full-vocab decode variant
-(the one ``--model bench-1b`` serves with), plus the role-tagged chat
-rendering the server uses for ``/v1/chat/completions``. Checkpoint
-tokenizers arrive with checkpoint loading, which this port does not
-have yet.
+HF tokenizers load from a local path (a checkpoint directory's own, or
+``--tokenizer PATH``); ``HFTokenizer`` imports ``transformers`` when it
+is built, so a host without that package fails there, at start-up. The
+dependency-free byte tokenizer and its full-vocab decode variant (the
+one the random-weights presets serve with) need nothing.
+``render_chat_prompt`` renders ``/v1/chat/completions`` messages: an
+operator's ``--chat-template`` first, then the model's own template,
+then a role-tagged rendering.
 """
 
 from __future__ import annotations
@@ -83,18 +87,74 @@ class BenchTokenizer(ByteTokenizer):
         return "".join(out)
 
 
+class HFTokenizer(BaseTokenizer):
+    def __init__(self, path: str):
+        from transformers import AutoTokenizer
+        self._tok = AutoTokenizer.from_pretrained(path)
+        self.eos_token_id = self._tok.eos_token_id
+
+    def encode(self, text: str) -> List[int]:
+        return self._tok.encode(text)
+
+    def encode_rendered(self, text: str) -> List[int]:
+        """Encode text a chat template already rendered: no extra
+        special tokens (the template embeds BOS etc. itself)."""
+        return self._tok.encode(text, add_special_tokens=False)
+
+    def decode(self, token_ids: List[int]) -> str:
+        return self._tok.decode(token_ids, skip_special_tokens=True)
+
+    def apply_chat_template(self, messages) -> Optional[List[int]]:
+        try:
+            return self._tok.apply_chat_template(
+                messages, add_generation_prompt=True)
+        except Exception:
+            return None
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self._tok)
+
+
 def get_tokenizer(spec: Optional[str]) -> BaseTokenizer:
-    """spec: None/'byte' -> ByteTokenizer; 'bench' -> BenchTokenizer."""
+    """spec: None/'byte' -> ByteTokenizer; 'bench' -> BenchTokenizer
+    (full-vocab decode for random-weights servers, at its default
+    vocab); otherwise a local HF path."""
     if spec in (None, "byte"):
         return ByteTokenizer()
     if spec == "bench":
         return BenchTokenizer()
-    raise ValueError(f"unknown tokenizer {spec!r} (byte | bench)")
+    return HFTokenizer(spec)
 
 
-def render_chat_prompt(tokenizer: BaseTokenizer, messages) -> List[int]:
-    """Messages -> prompt token ids with a simple role-tagged
-    rendering (the byte tokenizers carry no chat template)."""
+def render_chat_prompt(tokenizer: BaseTokenizer, messages,
+                       chat_template: Optional[str] = None) -> List[int]:
+    """Messages -> prompt token ids.
+
+    Priority: an explicit ``chat_template`` (Jinja source, the
+    ``--chat-template`` override) > the model's own template > a simple
+    role-tagged rendering. A template that fails to render falls back,
+    with a warning (the server renders it once at start-up, so a broken
+    one never gets this far)."""
+    if chat_template:
+        try:
+            import jinja2
+            text = jinja2.Template(chat_template).render(
+                messages=messages, add_generation_prompt=True)
+            # The template renders its own special tokens; encoding
+            # must not prepend a second BOS.
+            if isinstance(tokenizer, HFTokenizer):
+                return tokenizer.encode_rendered(text)
+            return tokenizer.encode(text)
+        except Exception as e:
+            from production_stack_tpu_torch.utils.log import init_logger
+            init_logger(__name__).warning(
+                "--chat-template failed to render (%r); falling back "
+                "to the model's own template", e)
+    if isinstance(tokenizer, HFTokenizer):
+        ids = tokenizer.apply_chat_template(messages)
+        if ids is not None:
+            return ids
     text = "".join(
         f"<|{m.get('role', 'user')}|>\n{m.get('content', '')}\n"
         for m in messages

@@ -1,4 +1,5 @@
-"""PyTorch model definitions (llama family)."""
+"""PyTorch model definitions: the llama family (llama, mistral,
+qwen2), OPT, GPT-2 and Mixtral."""
 
 from production_stack_tpu_torch.models.registry import (
     get_model,

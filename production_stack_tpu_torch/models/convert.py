@@ -1,13 +1,15 @@
 """Weights from the JAX package's parameter layout.
 
-The JAX llama ``init_params`` dict stacks every per-layer weight along
-a leading [L, ...] axis and orients projections for ``x @ W``
-([in, out]). ``params_from_numpy`` turns such a dict, as numpy arrays,
-into the port's ``LlamaParams`` (per-layer ``nn.Linear``s, [out, in],
-q/k/v and gate/up fused), so both implementations can run the same
-weights. A JAX-quantized dict (the JAX ``quantize_params`` or
-``init_random_quantized``: each projection a pair ``(q [L, in, out]
-int8, scale [L, out] f32)``) becomes ``QuantLinear``s holding the
+A JAX ``init_params`` dict stacks every per-layer weight along a
+leading [L, ...] axis and orients projections for ``x @ W`` ([in,
+out]). ``params_from_numpy`` turns such a dict, as numpy arrays, into
+the port's params module of the same architecture (per-layer
+``nn.Linear``s, [out, in], q/k/v fused, and llama's gate/up), so both
+implementations can run the same weights: ``LlamaParams``,
+``OPTParams``, ``GPT2Params`` or ``MixtralParams``. A JAX-quantized
+dict (the JAX ``quantize_params`` or ``init_random_quantized``: each
+target projection a pair ``(q [L, in, out] int8, scale [L, out]
+f32)``; llama, opt and gpt2) becomes ``QuantLinear``s holding the
 pairs' int8 values and scales, fused and transposed the same way.
 """
 
@@ -20,64 +22,98 @@ import torch
 
 from production_stack_tpu_torch.engine.config import ModelConfig
 from production_stack_tpu_torch.engine.quantization import (
-    FUSED_TARGETS,
     QuantLinear,
+    fused_targets,
 )
-from production_stack_tpu_torch.models.llama import LlamaParams
+from production_stack_tpu_torch.models.registry import params_class
+
+# The JAX biases of a projection, by the port's projection name.
+_BIASES = {"qkv": ("bq", "bk", "bv"), "o": ("bo",), "fc1": ("fc1_b",),
+           "fc2": ("fc2_b",)}
+# Leaves copied as they are: port name (on the params module or its
+# layer) -> JAX name.
+_TOP = {"llama": {"embed": "embed", "final_norm": "final_norm"},
+        "opt": {"embed": "embed", "pos_embed": "pos_embed",
+                "final_norm_w": "final_norm_w",
+                "final_norm_b": "final_norm_b"}}
+_LAYER = {"llama": ("attn_norm", "mlp_norm"),
+          "opt": ("attn_norm_w", "attn_norm_b", "mlp_norm_w",
+                  "mlp_norm_b")}
+
+
+def _family(config: ModelConfig) -> str:
+    if config.architecture in ("opt", "gpt2"):
+        return "opt"
+    return "llama"  # the llama family and mixtral share these leaves
 
 
 def params_from_numpy(params: Dict[str, np.ndarray], config: ModelConfig,
-                      device) -> LlamaParams:
-    """Build ``LlamaParams`` on ``device`` (in the config's dtype) from
-    a JAX-layout numpy dict: embed [V, H], final_norm [H], attn_norm /
-    mlp_norm [L, H], wq [L, H, nh*d], wk / wv [L, H, nkv*d],
-    wo [L, nh*d, H], w_gate / w_up [L, H, ffn], w_down [L, ffn, H],
-    optional bq / bk / bv [L, *] and lm_head [H, V]; the projections
-    dense, or each an int8 ``(q, scale)`` pair."""
-    out = LlamaParams(config, torch.device(device))
+                      device):
+    """Build ``config``'s params module on ``device`` (in the config's
+    dtype) from a JAX-layout numpy dict, the projections dense or each
+    an int8 ``(q, scale)`` pair:
+
+    - llama: embed [V, H], final_norm [H], attn_norm / mlp_norm [L, H],
+      wq [L, H, nh*d], wk / wv [L, H, nkv*d], wo [L, nh*d, H], w_gate /
+      w_up [L, H, ffn], w_down [L, ffn, H], optional bq / bk / bv
+      [L, *] and lm_head [H, V];
+    - opt, gpt2: embed, pos_embed, final_norm_w / _b, attn_norm_w / _b,
+      mlp_norm_w / _b, wq / wk / wv / wo with bq / bk / bv / bo, fc1
+      [L, H, ffn] / fc1_b, fc2 [L, ffn, H] / fc2_b;
+    - mixtral: llama's attention leaves, moe_gate [L, H, E], w_gate /
+      w_up [L, E, H, ffn], w_down [L, E, ffn, H], optional lm_head."""
+    out = params_class(config)(config, torch.device(device))
+    family = _family(config)
 
     def t(x) -> torch.Tensor:
         return torch.tensor(np.asarray(x), dtype=torch.float32)
 
     quantized = isinstance(params["wq"], tuple)
     with torch.no_grad():
-        out.embed.copy_(t(params["embed"]))
-        out.final_norm.copy_(t(params["final_norm"]))
-        if out.lm_head is not None:
+        for name, jax_name in _TOP[family].items():
+            getattr(out, name).copy_(t(params[jax_name]))
+        if getattr(out, "lm_head", None) is not None:
             out.lm_head.weight.copy_(t(params["lm_head"]).T)
         for i, layer in enumerate(out.layers):
-            layer.attn_norm.copy_(t(params["attn_norm"][i]))
-            layer.mlp_norm.copy_(t(params["mlp_norm"][i]))
-            if quantized:
-                _quantized_layer(layer, params, i, device)
-                continue
-            layer.qkv.weight.copy_(torch.cat(
-                [t(params[n][i]) for n in ("wq", "wk", "wv")], dim=1).T)
-            if layer.qkv.bias is not None:
-                layer.qkv.bias.copy_(torch.cat(
-                    [t(params[n][i]) for n in ("bq", "bk", "bv")]))
-            layer.o.weight.copy_(t(params["wo"][i]).T)
-            layer.gate_up.weight.copy_(torch.cat(
-                [t(params["w_gate"][i]), t(params["w_up"][i])], dim=1).T)
-            layer.down.weight.copy_(t(params["w_down"][i]).T)
+            for name in _LAYER[family]:
+                getattr(layer, name).copy_(t(params[name][i]))
+            for name, targets in fused_targets(config).items():
+                biases = _BIASES.get(name, ())
+                if getattr(layer, name).bias is None:
+                    biases = ()
+                if quantized:
+                    _quantized_projection(layer, name, targets, biases,
+                                          params, i, device)
+                    continue
+                lin = getattr(layer, name)
+                lin.weight.copy_(torch.cat(
+                    [t(params[n][i]) for n in targets], dim=1).T)
+                if biases:
+                    lin.bias.copy_(torch.cat([t(params[n][i])
+                                              for n in biases]))
+            if config.architecture == "mixtral":
+                layer.moe_gate.weight.copy_(t(params["moe_gate"][i]).T)
+                layer.w_gate.copy_(t(params["w_gate"][i]).transpose(1, 2))
+                layer.w_up.copy_(t(params["w_up"][i]).transpose(1, 2))
+                layer.w_down.copy_(t(params["w_down"][i]).permute(2, 0, 1))
     return out
 
 
-def _quantized_layer(layer, params: Dict, i: int, device) -> None:
-    """Layer ``i``'s projections as ``QuantLinear``s from the int8
-    pairs: each fused projection's int8 columns and scales concatenated
-    in its targets' order, then [in, out] -> [out, in]."""
-    for name, targets in FUSED_TARGETS.items():
-        q = np.concatenate([np.asarray(params[n][0][i]) for n in targets],
-                           axis=1)
-        scale = np.concatenate([np.asarray(params[n][1][i])
-                                for n in targets])
-        dense = getattr(layer, name)
-        bias = None
-        if dense.bias is not None:
-            bias = torch.cat([torch.tensor(np.asarray(params[n][i]))
-                              for n in ("bq", "bk", "bv")]).to(
-                                  device=device, dtype=dense.bias.dtype)
-        setattr(layer, name, QuantLinear(
-            torch.from_numpy(np.ascontiguousarray(q.T)).to(device),
-            torch.from_numpy(scale.astype(np.float32)).to(device), bias))
+def _quantized_projection(layer, name: str, targets, biases, params: Dict,
+                          i: int, device) -> None:
+    """Layer ``i``'s projection ``name`` as a ``QuantLinear`` from the
+    int8 pairs of its ``targets``: int8 columns and scales concatenated
+    in the targets' order, then [in, out] -> [out, in]; the biases stay
+    dense."""
+    q = np.concatenate([np.asarray(params[n][0][i]) for n in targets],
+                       axis=1)
+    scale = np.concatenate([np.asarray(params[n][1][i]) for n in targets])
+    dense = getattr(layer, name)
+    bias = None
+    if biases:
+        bias = torch.cat([torch.tensor(np.asarray(params[n][i]))
+                          for n in biases]).to(device=device,
+                                               dtype=dense.bias.dtype)
+    setattr(layer, name, QuantLinear(
+        torch.from_numpy(np.ascontiguousarray(q.T)).to(device),
+        torch.from_numpy(scale.astype(np.float32)).to(device), bias))

@@ -15,7 +15,9 @@ quantized product, plus, with adapter stacks and per-row slot ids,
 each row's LoRA delta (the fused qkv and gate_up take their targets'
 deltas in their column blocks). ``encode`` is the cache-free dense
 forward the pooled routes run (engine/embeddings.py), over unquantized
-weights only.
+weights only. ``self_attention``, ``random_init``, ``lora_args`` and
+``select_slots`` serve the other families too (models/opt.py,
+gpt2.py, mixtral.py).
 """
 
 from __future__ import annotations
@@ -174,20 +176,72 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (normed * weight.float()).to(x.dtype)
 
 
+def random_init(params: nn.Module, generator: torch.Generator,
+                device: torch.device) -> nn.Module:
+    """Fill a params module of any family in place: N(0, 0.02)
+    projections, experts, embeddings and position tables, unit norms,
+    zero biases (the JAX inits' distribution, not their bits), drawn in
+    the module's parameter order. ``generator`` must live on
+    ``device``."""
+    for name, p in params.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf.endswith("norm") or leaf.endswith("norm_w"):
+            p.fill_(1.0)
+        elif leaf == "bias" or leaf.endswith("norm_b"):
+            p.zero_()
+        else:
+            noise = torch.randn(p.shape, generator=generator,
+                                device=device, dtype=torch.float32)
+            p.copy_(noise.mul_(0.02))
+    return params
+
+
 def init_params(config: ModelConfig, generator: torch.Generator,
                 device: torch.device) -> LlamaParams:
     """Random-init parameters (for tests, benchmarks and cold starts):
-    N(0, 0.02) projections and embeddings, unit norms, zero biases —
-    the JAX init's distribution, not its bits. ``generator`` must live
-    on ``device``."""
-    params = LlamaParams(config, device)
-    for name, p in params.named_parameters():
-        if name.endswith("norm") or name.endswith("bias"):
-            continue
-        noise = torch.randn(p.shape, generator=generator, device=device,
-                            dtype=torch.float32)
-        p.copy_(noise.mul_(0.02))
-    return params
+    ``random_init`` over a ``LlamaParams``."""
+    return random_init(LlamaParams(config, device), generator, device)
+
+
+def self_attention(config: ModelConfig, lp: nn.Module, a_in: torch.Tensor,
+                   positions: torch.Tensor, page_table, kv_lens, k_cache,
+                   v_cache, slots, layer: int, kind: str,
+                   impl: Optional[str], ll, ids, lora_scale,
+                   rope: bool = True) -> torch.Tensor:
+    """One layer's attention from its normed input to the output
+    projection, shared by every family: the fused q/k/v projection
+    (``lp.qkv``, with its bias if the family has one), RoPE where the
+    family uses it (llama, mixtral; OPT and GPT-2 add learned positions
+    to the embeddings instead), the cache write and the step kind's
+    kernel, then ``lp.o``; each projection with its LoRA deltas."""
+    nh, nkv, d = (config.num_attention_heads, config.num_key_value_heads,
+                  config.head_dim)
+    b, t = a_in.shape[:2]
+    q, k, v = lora_matmul(a_in, lp.qkv, ll, QKV_TARGETS, ids,
+                          lora_scale).split([nh * d, nkv * d, nkv * d],
+                                            dim=-1)
+    q = q.reshape(b, t, nh, d)
+    k = k.reshape(b, t, nkv, d)
+    v = v.reshape(b, t, nkv, d)
+    if rope:
+        q = apply_rope(q, positions, config.rope_theta)
+        k = apply_rope(k, positions, config.rope_theta)
+    else:
+        q = q.contiguous()  # a view of the fused projection's output
+    attn = cached_attention(config, q, k, v, k_cache, v_cache, page_table,
+                            positions, kv_lens, slots, layer, kind,
+                            impl=impl)
+    return lora_matmul(attn.reshape(b, t, nh * d), lp.o, ll, "wo", ids,
+                       lora_scale)
+
+
+def lora_args(lora, lora_ids):
+    """(per-row adapter slots, their scales), or (None, None) without
+    adapter stacks."""
+    if lora is None:
+        return None, None
+    ids = lora_ids.long()
+    return ids, lora["scaling"][ids]  # [B], [B]
 
 
 def forward(params: LlamaParams, config: ModelConfig,
@@ -220,42 +274,37 @@ def forward(params: LlamaParams, config: ModelConfig,
       lora_ids:   [B] adapter slot per batch row (0 = base model)
 
     Returns f32 logits [B, T, vocab], or [B, S, vocab] with ``select``.
+    Every family's forward (models/opt.py, gpt2.py, mixtral.py) has
+    this contract.
     """
-    nh, nkv, d = (config.num_attention_heads, config.num_key_value_heads,
-                  config.head_dim)
-    b, t = tokens.shape
     slots = page_slots(page_table, positions, valid,
                        k_cache[0].shape[-1])
-    ids = None if lora is None else lora_ids.long()
-    lora_scale = None if lora is None else lora["scaling"][ids]  # [B]
+    ids, lora_scale = lora_args(lora, lora_ids)
     x = F.embedding(tokens.long(), params.embed)  # [B, T, H]
     for layer, lp in enumerate(params.layers):
         ll = layer_stacks(lora, layer)
         a_in = rms_norm(x, lp.attn_norm, config.rms_norm_eps)
-        q, k, v = lora_matmul(a_in, lp.qkv, ll, QKV_TARGETS, ids,
-                              lora_scale).split([nh * d, nkv * d, nkv * d],
-                                                dim=-1)
-        q = apply_rope(q.reshape(b, t, nh, d), positions,
-                       config.rope_theta)
-        k = apply_rope(k.reshape(b, t, nkv, d), positions,
-                       config.rope_theta)
-        v = v.reshape(b, t, nkv, d)
-        attn = cached_attention(config, q, k, v, k_cache, v_cache,
-                                page_table, positions, kv_lens, slots,
-                                layer, kind, impl=impl)
-        x = x + lora_matmul(attn.reshape(b, t, nh * d), lp.o, ll, "wo",
-                            ids, lora_scale)
+        x = x + self_attention(config, lp, a_in, positions, page_table,
+                               kv_lens, k_cache, v_cache, slots, layer,
+                               kind, impl, ll, ids, lora_scale)
         m_in = rms_norm(x, lp.mlp_norm, config.rms_norm_eps)
         gate, up = lora_matmul(m_in, lp.gate_up, ll, GATE_UP_TARGETS, ids,
                                lora_scale).chunk(2, dim=-1)
         x = x + lora_matmul(F.silu(gate) * up, lp.down, ll, "w_down", ids,
                             lora_scale)
-    if select is not None:
-        x = torch.take_along_dim(x, select[:, :, None], dim=1)
+    x = select_slots(x, select)
     x = rms_norm(x, params.final_norm, config.rms_norm_eps)
     head = (params.embed if params.lm_head is None
             else params.lm_head.weight)
     return F.linear(x, head).float()
+
+
+def select_slots(x: torch.Tensor,
+                 select: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x`` [B, T, H] at ``select``'s [B, S] slots, or all of it."""
+    if select is None:
+        return x
+    return torch.take_along_dim(x, select[:, :, None], dim=1)
 
 
 def encode(params: LlamaParams, config: ModelConfig,

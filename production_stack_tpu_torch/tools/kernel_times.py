@@ -1,6 +1,7 @@
 """Device time of the three attention kernels at their headline shapes.
 
-    python production_stack_tpu_torch/tools/kernel_times.py [--repo DIR]
+    python production_stack_tpu_torch/tools/kernel_times.py [--repo DIR] \
+        [--geometry bench-1b|g4_d128|g1_d64|g7_d128]
 
 Times ``paged_decode_attention`` (B = 32, kv lens spread over 1..1024
 with two pad rows, page size 128), ``paged_prefill_attention`` (B = 8,
@@ -11,8 +12,11 @@ chunk rows of first and second chunks, 4 pad rows; the speculative
 verify block, B = 32 at W = 5, draft lens 0..4, two pad rows; and the
 unified block's 28 decode rows and 12 pad rows alone, whose tiles past
 a row's live slots only write zeros; page size 128) at the bench-1b
-geometry (32 q / 8 kv heads, head_dim 64, bf16), over a bf16 and an
-int8 cache, through the public wrappers of the checkout at ``--repo``
+geometry (32 q / 8 kv heads, head_dim 64, bf16) or the one
+``--geometry`` names (``g4_d128``: Mixtral-8x7B's, Mistral-7B's and
+Llama-3-8B's 32 q over 8 kv heads at head_dim 128; ``g1_d64``:
+OPT-1.3b's 32 heads of 64, one q head a kv head; ``g7_d128``:
+Qwen2-7B's 28 q over 4 kv heads at 128), over a bf16 and an int8 cache, through the public wrappers of the checkout at ``--repo``
 (default: the checkout this file lies in). The unified block also runs
 in the stacked form, its K/V at layer 15 of a [16, ...] cache whose
 other layers are random, timed beside the per-layer launch in the order
@@ -22,8 +26,8 @@ the decode wrapper takes ``num_splits`` it also times the launch's fixed
 cost: a batch of pad rows (every block returns at once) and a batch of
 one-token rows, each at one split and at three (the second adds the
 merge kernel's launch). Where the checkout has the int8-weight GEMM
-(``ops/int8_matmul_cuda.py``), it also times ``int8_weight_matmul`` at
-M = 32 rows for each bench-1b projection (qkv, o, gate_up, down), beside
+(``ops/int8_matmul_cuda.py``), at the bench-1b geometry it also times
+``int8_weight_matmul`` at M = 32 rows for each bench-1b projection (qkv, o, gate_up, down), beside
 a bf16 ``torch.matmul`` on the dequantized weight (``bf16_matmul_*``).
 The wrappers' signatures are stable, so the same script times two
 commits in one call on the card: unpack the other commit somewhere and
@@ -75,6 +79,9 @@ STACK = (16, 15)
 PROJECTIONS = {"qkv": (2048, 3072), "o": (2048, 2048),
                "gate_up": (2048, 11264), "down": (5632, 2048)}
 DECODE_ROWS = 32
+# (q heads, kv heads, head_dim) by --geometry.
+GEOMETRIES = {"bench-1b": (32, 8, 64), "g4_d128": (32, 8, 128),
+              "g1_d64": (32, 32, 64), "g7_d128": (28, 4, 128)}
 
 
 def _stack_at(cache, gen):
@@ -110,6 +117,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="kernel_times")
     p.add_argument("--repo", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
+    p.add_argument("--geometry", default="bench-1b",
+                   choices=sorted(GEOMETRIES))
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA device")
@@ -137,7 +146,8 @@ def main(argv=None) -> int:
         for _ in range(20):
             x @ x
         torch.cuda.synchronize()
-    nh, kv, d, ps, max_pages, bf16 = 32, 8, 64, 128, 8, torch.bfloat16
+    (nh, kv, d), ps, max_pages = GEOMETRIES[args.geometry], 128, 8
+    bf16 = torch.bfloat16
 
     def caches(num_pages, int8):
         k, v = (torch.randn((kv, num_pages, d, ps), generator=gen)
@@ -151,7 +161,7 @@ def main(argv=None) -> int:
                            scale.contiguous())
         return quant(k), quant(v)
 
-    out = {"repo": os.path.abspath(args.repo)}
+    out = {"repo": os.path.abspath(args.repo), "geometry": args.geometry}
     for int8 in (False, True):
         tag = "_int8" if int8 else ""
         lens = np.linspace(1, 1024, 32).round().astype(int).tolist()
@@ -226,7 +236,8 @@ def main(argv=None) -> int:
                 out.setdefault(f"paged_ragged_unified{tag}_{form}",
                                []).append(_ms(calls[form], flush))
             del k5, v5
-    _int8_weight_times(out, dev, gen, flush)
+    if args.geometry == "bench-1b":
+        _int8_weight_times(out, dev, gen, flush)
     print(json.dumps(out), flush=True)
     return 0
 

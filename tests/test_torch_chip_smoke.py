@@ -159,7 +159,7 @@ sys.exit(smoke.main())
 PHASES_RUN_BY_MAIN = ["kernel_phase", "model_phase", "engine_phase",
                       "graph_phase", "sampling_options_phase",
                       "serving_phase", "fleet_phase", "disagg_phase",
-                      "autotune_phase"]
+                      "autotune_phase", "weights_phase", "families_phase"]
 
 
 @pytest.mark.parametrize("failing", PHASES_RUN_BY_MAIN)
@@ -199,3 +199,64 @@ def test_the_script_alone_exits_non_zero(tmp_path):
                           timeout=120, env=env)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+# ---- the kernels line -------------------------------------------------------
+
+
+def _case(name, ms):
+    return {"case": name, "max_abs_err": 1e-3, "ms": ms, "plain_ms": 5.0,
+            "bound_ms": ms / 3, "bound_by": "bytes", "library_ms": 0.1}
+
+
+def test_kernels_line_carries_the_new_geometries():
+    """Each attention kernel's entry has the contract's keys, its four
+    forms and a ``geometries`` object keyed ``g4_d128`` and ``g1_d64``
+    with the same numbers, the launches of that geometry's serving run
+    and ``int8``; ``launches_by_run`` names the families' runs; the
+    int8-weight GEMM carries OPT-1.3b's and GPT-2's projections."""
+    forms = ("bf16", "int8", "stacked", "int8_stacked")
+    headline = {k: {f: _case(f"{k} {f}", 0.1) for f in forms}
+                for k in chip_smoke.KERNELS}
+    runs = (chip_smoke.MAIN_RUN, chip_smoke.INT8_RUN,
+            chip_smoke.STACKED_RUN, chip_smoke.BURST_RUN,
+            chip_smoke.FLEET_RUN, chip_smoke.FLEET_INT8_RUN,
+            chip_smoke.DISAGG_RUN, chip_smoke.DISAGG_INT8_RUN,
+            chip_smoke.WEIGHTS_RUN, chip_smoke.MIXTRAL_RUN,
+            chip_smoke.OPT_RUN, chip_smoke.GPT2_RUN)
+    launches = {run: {k: i + 1 for k in chip_smoke.KERNELS}
+                for i, run in enumerate(runs)}
+    launches[chip_smoke.WEIGHTS_RUN]["int8_weight_matmul"] = 64
+    weights = {"headline": dict(_case("w8", 0.03), dequant_ms=0.09)}
+    families = {
+        "geometries": {k: {g: {"bf16": _case(f"{k} {g}", 0.2),
+                               "int8": _case(f"{k} {g} int8", 0.3)}
+                           for g in chip_smoke.FAMILY_GEOMETRIES}
+                       for k in chip_smoke.KERNELS},
+        "w8": {"opt-1.3b fc1": dict(_case("opt fc1", 0.04),
+                                    dequant_ms=0.1),
+               "gpt2 fc1": dict(_case("gpt2 fc1", 0.02), dequant_ms=0.05)}}
+    line = chip_smoke.kernels_line(headline, launches, weights, families)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert [e["name"] for e in line] == list(chip_smoke.KERNELS) + [
+        "int8_weight_matmul"]
+    for entry in line:
+        assert keys <= set(entry)
+    for entry in line[:3]:
+        geos = entry["geometries"]
+        assert sorted(geos) == ["g1_d64", "g4_d128"]
+        assert geos["g4_d128"]["launches"] == launches[
+            chip_smoke.MIXTRAL_RUN][entry["name"]]
+        assert geos["g1_d64"]["launches"] == launches[
+            chip_smoke.OPT_RUN][entry["name"]]
+        for geo in geos.values():
+            assert {"ms", "bound_ms", "bound_by", "library_ms", "plain_ms",
+                    "max_abs_err"} <= set(geo) <= set(geo) | {"int8"}
+            assert geo["int8"]["ms"] == 0.3
+        assert {chip_smoke.MIXTRAL_RUN, chip_smoke.OPT_RUN,
+                chip_smoke.GPT2_RUN} <= set(entry["launches_by_run"])
+        assert entry["launches"] == launches[chip_smoke.MAIN_RUN][
+            entry["name"]]
+    assert sorted(line[3]["families"]) == ["gpt2 fc1", "opt-1.3b fc1"]
+    assert line[3]["launches"] == 64

@@ -7,7 +7,10 @@ machine with an NVIDIA GPU:
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
 
 Covers every geometry the kernels are built for (bench-1b: bf16,
-query group 4, head_dim 64; tiny-llama: f32, query group 2, head_dim
+query group 4, head_dim 64; Mixtral-8x7B, Mistral-7B and Llama-3-8B:
+bf16, group 4, head_dim 128; Qwen2-7B: bf16, group 7, head_dim 128;
+OPT and GPT-2: bf16, group 1, head_dim 64; tiny-llama: f32, query
+group 2, head_dim 32; tiny-opt and tiny-gpt2: f32, group 1, head_dim
 32), page sizes 8 to 128, pad rows, first and later prefill chunks,
 ragged blocks (mixed decode, chunk and pad rows; verify spans; every
 slot compared, dead ones exact 0), the int8 form of all three kernels
@@ -62,7 +65,12 @@ pytestmark = pytest.mark.cuda
 
 # (dtype, query group, head dim) of each model config the kernels are
 # built for (csrc/paged_kv_common.cuh, PSTT_FOR_EACH_GEOMETRY).
-GEOMETRIES = [(torch.bfloat16, 4, 64), (torch.float32, 2, 32)]
+GEOMETRIES = [(torch.bfloat16, 4, 64), (torch.bfloat16, 4, 128),
+              (torch.bfloat16, 7, 128), (torch.bfloat16, 1, 64),
+              (torch.float32, 2, 32), (torch.float32, 1, 32)]
+# The tensor-core walk's published geometries: (query group, kv heads,
+# head_dim) of bench-1b, Mixtral-8x7B and OPT-1.3b.
+MMA_GEOMETRIES = [(4, 8, 64), (4, 8, 128), (1, 32, 64)]
 
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
@@ -342,10 +350,12 @@ def test_decode_refuses_a_split_past_the_table(dev):
             paged_decode_attention(q, k, v, table, lens, num_splits=bad)
 
 
+@pytest.mark.parametrize("group,kv_heads,head_dim", MMA_GEOMETRIES)
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("page_size", [16, 32, 64, 128])
 @pytest.mark.parametrize("t", [16, 32, 64, 128, 256, 512])
-def test_prefill_mma_buckets_and_page_sizes(dev, t, page_size, int8):
+def test_prefill_mma_buckets_and_page_sizes(dev, t, page_size, int8, group,
+                                            kv_heads, head_dim):
     """Every T bucket and page size of the tensor-core prefill walk, at
     row starts off the tile and the chunk (37, 600), a kv_len one past
     a chunk edge, a one-token row and a pad row; two launches equal bit
@@ -354,10 +364,11 @@ def test_prefill_mma_buckets_and_page_sizes(dev, t, page_size, int8):
             (0, 0), (300, 1)]
     rows = [(max(s, 0), n) for s, n in rows]
     kv_lens = [s + n if n else 0 for s, n in rows]
-    k, v, table, lens, g = _wide_inputs(dev, torch.bfloat16, kv_lens, 4, 8,
-                                        64, page_size, 1152, 34, int8)
-    q = torch.randn((len(rows), t, 32, 64), generator=g).to(
-        dev, torch.bfloat16)
+    k, v, table, lens, g = _wide_inputs(dev, torch.bfloat16, kv_lens, group,
+                                        kv_heads, head_dim, page_size, 1152,
+                                        34, int8)
+    q = torch.randn((len(rows), t, group * kv_heads, head_dim),
+                    generator=g).to(dev, torch.bfloat16)
     starts = torch.tensor([s if n else 0 for s, n in rows],
                           dtype=torch.int32, device=dev)
     pos = (starts[:, None] + torch.arange(t, dtype=torch.int32,
@@ -388,24 +399,27 @@ RAGGED_MMA_BLOCKS = {
 }
 
 
+@pytest.mark.parametrize("group,kv_heads,head_dim", MMA_GEOMETRIES)
 @pytest.mark.parametrize("stacked", [False, True])
 @pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("page_size", [16, 32, 64, 128])
 @pytest.mark.parametrize("block", sorted(RAGGED_MMA_BLOCKS))
-def test_ragged_mma_blocks(dev, block, page_size, int8, stacked):
+def test_ragged_mma_blocks(dev, block, page_size, int8, stacked, group,
+                           kv_heads, head_dim):
     """The bf16 ragged kernel on the tensor-core walk: within tolerance
     of the bf16-p plain version on every slot, dead slots and pad rows
     exact 0, two launches equal bit for bit and, stacked, bitwise equal
     to the per-layer launch on the layer's view."""
     w, rows = RAGGED_MMA_BLOCKS[block]
     kv_lens = [n for n, _ in rows]
-    k, v, table, lens, g = _wide_inputs(dev, torch.bfloat16, kv_lens, 4, 8,
-                                        64, page_size, 1024, 41, int8)
+    k, v, table, lens, g = _wide_inputs(dev, torch.bfloat16, kv_lens, group,
+                                        kv_heads, head_dim, page_size, 1024,
+                                        41, int8)
     last = torch.tensor([li for _, li in rows], dtype=torch.int32,
                         device=dev)
     drafts = torch.clamp(last, min=0) if block == "verify" else None
-    q = torch.randn((len(rows), w, 32, 64), generator=g).to(
-        dev, torch.bfloat16)
+    q = torch.randn((len(rows), w, group * kv_heads, head_dim),
+                    generator=g).to(dev, torch.bfloat16)
     layer = {}
     if stacked:
         layers = 3
@@ -622,17 +636,18 @@ def test_stacked_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 
 def _engine_streams(kv_cache_dtype="auto", speculative_k=0,
-                    cache_layout="auto", decode_steps=1):
+                    cache_layout="auto", decode_steps=1, arch="llama"):
     """The tiny engine's greedy streams on the CPU and on the card,
     with the launch counters of the card's run."""
     from production_stack_tpu_torch.engine.config import (
         CacheConfig, EngineConfig, SchedulerConfig, tiny_model_config)
     from production_stack_tpu_torch.engine.engine import LLMEngine
     from production_stack_tpu_torch.engine.sequence import SamplingParams
-    from production_stack_tpu_torch.models.llama import init_params
+    from production_stack_tpu_torch.models.registry import get_model
 
+    init_params = get_model(tiny_model_config(arch))[0]
     cfg = EngineConfig(
-        model=tiny_model_config("llama"),
+        model=tiny_model_config(arch),
         cache=CacheConfig(page_size=16, num_pages=128,
                           cache_layout=cache_layout,
                           kv_cache_dtype=kv_cache_dtype),
@@ -658,11 +673,15 @@ def _engine_streams(kv_cache_dtype="auto", speculative_k=0,
     return streams, drafted, dict(COUNTERS.launches)
 
 
+@pytest.mark.parametrize("arch", ["llama", "opt", "gpt2"])
 @pytest.mark.parametrize("speculative_k", [0, 4])
 def test_engine_greedy_streams_on_the_card_match_the_cpu(dev,
-                                                         speculative_k):
+                                                         speculative_k,
+                                                         arch):
+    """tiny-llama (group 2), tiny-opt and tiny-gpt2 (group 1, learned
+    positions): the card's greedy streams are the CPU's."""
     streams, drafted, launches = _engine_streams(
-        speculative_k=speculative_k)
+        speculative_k=speculative_k, arch=arch)
     assert streams[0] == streams[1]
     assert launches["paged_prefill"] > 0
     assert launches["paged_decode"] > 0
@@ -672,10 +691,12 @@ def test_engine_greedy_streams_on_the_card_match_the_cpu(dev,
         assert drafted[0] > 0 and drafted[1] > 0
 
 
-def test_engine_int8_greedy_streams_on_the_card_match_the_cpu(dev):
+@pytest.mark.parametrize("arch", ["llama", "opt"])
+def test_engine_int8_greedy_streams_on_the_card_match_the_cpu(dev, arch):
     """With int8 KV the card runs the int8 form of all three kernels
     (and no other form), and its greedy streams are the CPU's."""
-    streams, _, launches = _engine_streams(kv_cache_dtype="int8")
+    streams, _, launches = _engine_streams(kv_cache_dtype="int8",
+                                           arch=arch)
     assert streams[0] == streams[1]
     assert set(launches) == {"paged_prefill_int8", "paged_decode_int8",
                              "paged_ragged_int8"}

@@ -121,18 +121,18 @@ def _reference_flags():
 
 
 def test_flags_are_the_jax_servers():
-    """62 of the JAX server's 75 flags, each under its JAX name; the
+    """64 of the JAX server's 75 flags, each under its JAX name; the
     five of disaggregation, the profiler, the observatory and tracing,
     the eleven of autotuning, --pooling, the four small ones,
-    --quantization and the four of LoRA with the JAX defaults. --device
-    is the port's own."""
+    --quantization, the four of LoRA, --tokenizer and --chat-template
+    with the JAX defaults. --device is the port's own."""
     reference = _reference_flags()
     assert len(reference) == 76  # 75 flags, one with an alias
     src = (Path(__file__).resolve().parents[1] / "production_stack_tpu_torch"
            / "engine" / "server.py").read_text()
     port = set(re.findall(r'add_argument\(\s*"(--[a-z0-9-]+)"', src))
     assert port - set(reference) == {"--device"}
-    assert len(port) - 1 == 62
+    assert len(port) - 1 == 64
     new = {"--engine-role": "both", "--profile-dir": None,
            "--device-peak-flops": 0.0, "--request-span-log": None,
            "--trace-ring-size": 256,
@@ -147,7 +147,8 @@ def test_flags_are_the_jax_servers():
            "--pooling": "last", "--dtype": None,
            "--attention-impl": "auto", "--compilation-cache-dir": None,
            "--quantization": "none", "--lora-modules": None,
-           "--max-loras": 8, "--max-lora-rank": 16}
+           "--max-loras": 8, "--max-lora-rank": 16,
+           "--tokenizer": None, "--chat-template": None}
     args = vars(parse_args([]))
     for flag, default in new.items():
         assert flag in port
@@ -649,7 +650,9 @@ class _FakeKernelLib:
     """The kernel library's support question, answered from the lines
     of PSTT_FOR_EACH_GEOMETRY (csrc/paged_kv_common.cuh)."""
 
-    LINES = {(0, 0, 4, 64), (0, 2, 4, 64), (1, 1, 2, 32), (1, 2, 2, 32)}
+    LINES = {(0, 0, 4, 64), (0, 2, 4, 64), (0, 0, 4, 128), (0, 2, 4, 128),
+             (0, 0, 7, 128), (0, 2, 7, 128), (0, 0, 1, 64), (0, 2, 1, 64),
+             (1, 1, 2, 32), (1, 2, 2, 32), (1, 1, 1, 32), (1, 2, 1, 32)}
 
     def pstt_kernel_supports(self, dtype, cache_dtype, group, head_dim):
         return int((dtype, cache_dtype, group, head_dim) in self.LINES)
@@ -750,3 +753,138 @@ def test_compilation_cache_dir_moves_the_kernel_build(monkeypatch,
 
     monkeypatch.setattr(paged_kv_common, "_find_nvcc", no_nvcc)
     assert paged_kv_common.build_kernels() == built
+
+
+# ---- checkpoint directories, tiny-opt, --tokenizer and --chat-template ------
+
+CHECKPOINT_ARGS = ["--dtype", "float32", "--max-model-len", "256",
+                   "--prefill-chunk-size", "16", "--page-size", "8",
+                   "--num-pages", "128", "--max-num-seqs", "4"]
+CHAT_TEMPLATE = ("<s> {% for m in messages %}{{ m['content'] }} says "
+                 "{{ m['role'] }} {% endfor %}")
+
+
+@pytest.fixture(scope="module")
+def checkpoint_dir(tmp_path_factory):
+    """A tiny HF llama checkpoint (transformers' save_pretrained) with a
+    word-level tokenizer of its vocab in the same directory."""
+    from tests.test_model_parity import _save_tiny_llama
+    from tests.test_torch_hf_tokenizer import write_tokenizer
+    path, _ = _save_tiny_llama(tmp_path_factory.mktemp("ckpt"))
+    write_tokenizer(path, vocab_size=128)
+    return path
+
+
+def _serve(server):
+    thread = threading.Thread(target=server.serve, daemon=True)
+    thread.start()
+    url = "http://127.0.0.1:%d" % server.server_address[1]
+
+    def stop():
+        server.shutdown()
+        thread.join(timeout=30)
+    return url, stop
+
+
+def _jax_server(argv):
+    """The JAX server from its own flags, serving in a thread."""
+    from production_stack_tpu.engine import server as jax_server
+    from tests.test_torch_crash_recovery import _serve_app_in_thread
+    args = jax_server.parse_args(argv)
+    engine, name = jax_server.build_engine_from_args(args)
+    return _serve_app_in_thread(jax_server.EngineServer(
+        engine, name, chat_template=jax_server._load_chat_template(args)
+    ).build_app())
+
+
+@pytest.mark.parametrize("tokenizer", [[], ["--tokenizer", "bench"]],
+                         ids=["own", "bench"])
+def test_model_dir_serves_as_the_jax_server(checkpoint_dir, tokenizer):
+    """--model DIR (its config, safetensors weights and tokenizer, or
+    --tokenizer bench) with --chat-template: the chat and completion
+    answers of the JAX server over the same directory, text and usage
+    alike (greedy, f32 on the CPU)."""
+    argv = ["--model", checkpoint_dir, *CHECKPOINT_ARGS, *tokenizer,
+            "--chat-template", CHAT_TEMPLATE]
+    port_url, port_stop = _serve(make_server(
+        argv + ["--device", "cpu", "--host", "127.0.0.1", "--port", "0"]))
+    jax_url, jax_stop = _jax_server(argv)
+    try:
+        bodies = [("/v1/chat/completions", {"messages": [
+            {"role": "system", "content": "the cat"},
+            {"role": "user", "content": "hello world"}]}),
+            ("/v1/completions", {"prompt": "hi there the mat"}),
+            ("/v1/completions", {"prompt": [3, 11, 25, 99, 7, 42]})]
+        for path, body in bodies:
+            body = {**body, "max_tokens": 10, "temperature": 0,
+                    "ignore_eos": True}
+            status, got = _post(port_url + path, body)
+            ref_status, ref = _post(jax_url + path, body)
+            assert status == ref_status == 200, got
+            got, ref = json.loads(got), json.loads(ref)
+            assert got["usage"] == ref["usage"], path
+            for a, b in zip(got["choices"], ref["choices"]):
+                assert (a.get("message") or a.get("text")) == (
+                    b.get("message") or b.get("text")), path
+            assert got["model"] == ref["model"] == checkpoint_dir
+    finally:
+        port_stop()
+        jax_stop()
+
+
+def test_random_weights_over_a_directory(checkpoint_dir):
+    """--random-weights takes the directory's config (and tokenizer) and
+    no weight of its checkpoint."""
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    from production_stack_tpu_torch.engine.tokenizer import HFTokenizer
+    from production_stack_tpu_torch.engine.weights import (
+        load_model_config,
+        load_weights,
+    )
+    engine, name = build_engine_from_args(parse_args(
+        ["--model", checkpoint_dir, "--random-weights", "--device", "cpu",
+         *CHECKPOINT_ARGS]))
+    assert name == checkpoint_dir
+    cfg = load_model_config(checkpoint_dir)
+    assert engine.config.model.hidden_size == cfg.hidden_size == 64
+    assert engine.config.model.vocab_size == 128
+    assert isinstance(engine.tokenizer, HFTokenizer)
+    loaded = load_weights(checkpoint_dir, cfg, torch.float32, "cpu")
+    assert not torch.equal(engine.runner.params.embed, loaded.embed)
+    out = engine.generate([5, 6, 7], SamplingParams(
+        temperature=0.0, max_tokens=4, ignore_eos=True))
+    assert len(out.output_token_ids) == 4
+
+
+def test_tiny_opt_serves_as_the_jax_preset():
+    """--model tiny-opt: the JAX preset's geometry (OPT, 4 heads of 32,
+    one kv head each) with random weights and the bench tokenizer at
+    its vocab; completions answer, the pooled routes answer 501 as for
+    every non-llama architecture."""
+    from production_stack_tpu.engine.config import (
+        tiny_model_config as jax_tiny,
+    )
+    server = make_server(["--model", "tiny-opt", "--device", "cpu",
+                          "--host", "127.0.0.1", "--port", "0",
+                          "--max-model-len", "256",
+                          "--prefill-chunk-size", "64"])
+    url, stop = _serve(server)
+    try:
+        model = server.app.engine.config.model
+        ref = jax_tiny("opt")
+        for field in ("architecture", "vocab_size", "hidden_size",
+                      "num_attention_heads", "num_key_value_heads",
+                      "head_dim", "activation", "dtype"):
+            assert getattr(model, field) == getattr(ref, field), field
+        assert server.app.tokenizer.vocab_size == 512
+        status, text = _post(url + "/v1/completions", {
+            "prompt": "hello", "max_tokens": 5, "temperature": 0,
+            "ignore_eos": True})
+        assert status == 200
+        assert json.loads(text)["usage"]["completion_tokens"] == 5
+        assert json.loads(_get(url + "/v1/models")[1])["data"][0][
+            "id"] == "tiny-opt"
+        status, text = _post(url + "/v1/embeddings", {"input": "hi"})
+        assert status == 501 and "llama family" in text
+    finally:
+        stop()
