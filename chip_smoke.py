@@ -151,7 +151,9 @@ its result line:
     greedy characters that agree with the first run (printed, not
     asserted: request timing changes the steps' composition);
 13. burst serving: ``--cache-layout stacked --kv-cache-dtype int8
-    --decode-steps 4`` (async ``auto`` then off) and the same requests.
+    --decode-steps 4 --deferred-kv-writes off`` (async ``auto`` then
+    off; each iteration writes its pages, so the non-tail decode form
+    runs: the tail form is the tp phase's) and the same requests.
     It must launch the int8 stacked forms only, no completion may pass
     its ``max_tokens``, the repeated greedy request must reproduce, and
     its decode dispatches must commit at least 3 tokens a row on
@@ -307,7 +309,38 @@ its result line:
     ``load_weights``, its max_model_len clamped to the 1024 positions,
     8 greedy prompts against each alone, the three kernels launched.
     Bytes, write seconds, the server's start seconds (the load
-    included), tok/s and the graph pool are printed.
+    included), tok/s and the graph pool are printed;
+19. tp: tensor parallelism and deferred KV writes. The decode kernel's
+    burst-tail form against its plain version (bf16 tolerance, bitwise
+    stacked = per-layer view, two launches the same bits) at B = 32,
+    kv lens 1..896, S = 4 tail slots with each row frozen after 1..4 of
+    them, bf16 and int8 pages, per layer and stacked: at bench-1b and
+    g4_d128 timed beside the non-tail form over the same pages, the
+    plain version and SDPA over the dense pages and tail; at one tp-2
+    rank of bench-1b (16 q over 4 kv heads) untimed. The tail form
+    against the non-tail form over the same pages with the tail flushed
+    into them (bf16 per layer and stacked, bf16 tolerance; one position
+    fewer must miss it). bench-1b --decode-steps 4 through LLMEngine on
+    one fixed batch of 16 greedy requests: off twice byte-identical,
+    auto equal to off up to near ties (``check_stream``). Then bench-1b with
+    --decode-steps 4 and --deferred-kv-writes off, auto, auto, off, off,
+    auto, each server warmed by one round of the serving phase's 16
+    requests (greedy and stochastic) and timed on a second: auto
+    launches the tail form and off never does, every greedy stream
+    equals the first off server's or parts from it at a near tie of
+    that server's engine (``check_stream``), the stochastic streams are
+    counted, and each run prints its tok/s and its burst dispatches'
+    mean host wall; then one auto server a cache form (int8, stacked,
+    int8 stacked), each launching the tail form in its own form and no
+    other. Then the tp runner over a one-rank NCCL
+    group with graphs on against the non-tp engine of the same flags
+    (16 greedy requests, byte-identical streams, every captured graph
+    holding its all-reduces and its logits gather, no eager step).
+    Then bench-1b at tp 2: two ranks on cuda:0 over gloo, started as
+    the server starts them (the backend named, graphs off), the 16
+    greedy requests held to the tp-1 engine's streams (equal, or equal
+    to a first flip at a near tie: ``check_stream``), each rank's three
+    kernels counted and the ranks' counts equal.
 
 ``python3 chip_smoke.py --only fleet`` (any phase names) runs the
 kernel build and those phases alone, for development, and prints no
@@ -325,13 +358,20 @@ decode-role handoff windows as ``disagg_handoff`` and
 ``serve_autotune``; the weights phase's int8 and LoRA windows as
 ``serve_int8_weights`` and ``serve_lora``; the families phase's
 windows as ``serve_mixtral`` and ``serve_opt``, and its GPT-2 engine
-as ``engine_gpt2``). Each attention kernel's ``geometries`` object
+as ``engine_gpt2``; the tp phase's deferred window as
+``serve_deferred``, its one-rank NCCL engine as ``engine_tp1_nccl``
+and rank 0 of its tp-2 engine as ``serve_tp2_gloo``). Each attention
+kernel's ``geometries`` object
 holds, keyed ``g4_d128`` and ``g1_d64``, the same numbers at that
 geometry with the launches of its serving run, and ``int8``. The
 int8-weight GEMM's entry reports its headline case (gate_up at M = 32)
 and its launches in the int8 server's window, and under ``families``
-OPT-1.3b's and GPT-2's projections at M = 32. The last line is the
-``ok`` JSON line.
+OPT-1.3b's and GPT-2's projections at M = 32. The decode kernel's
+burst-tail form has an entry of its own (``paged_decode_tail``: the
+same keys, its four forms and ``g4_d128``, each with ``decode_ms``, the
+non-tail form over the same pages), its launches the deferred windows'
+(``serve_deferred`` and ``serve_deferred_<form>``).
+The last line is the ``ok`` JSON line.
 """
 
 from __future__ import annotations
@@ -1898,7 +1938,8 @@ def serving_phase(vocab: int) -> dict:
 
     burst = serving_run("serving stacked int8 K=4",
                         ["--cache-layout", "stacked", "--kv-cache-dtype",
-                         "int8", "--decode-steps", "4"], requests, repeat,
+                         "int8", "--decode-steps", "4",
+                         "--deferred-kv-writes", "off"], requests, repeat,
                         form="_int8_stacked")
     d = burst["decode"]
     per_row = d["tokens"] / max(d["row_steps"], 1)
@@ -4141,6 +4182,530 @@ def families_phase(vocab: int) -> dict:
     return out
 
 
+# ---- tp phase -----------------------------------------------------------------
+
+# The decode kernel's burst-tail form: its entry in the ``kernels``
+# line, and the run whose launches it reports (the deferred server's
+# window: its own path).
+TAIL_KERNEL = dict(
+    route="cuda",
+    source="production_stack_tpu_torch/csrc/paged_decode.cu",
+    replaces="production_stack_tpu/ops/paged_attention_pallas.py:147")
+DEFERRED_RUN = "serve_deferred"
+TP_RUN = "serve_tp2_gloo"
+NCCL_RUN = "engine_tp1_nccl"
+TAIL_SLOTS = 4
+# (name, q heads, kv heads, head_dim) of the tail form's cases: bench-1b,
+# the head_dim-128 geometry, and one tp-2 rank of bench-1b (untimed).
+TAIL_GEOMETRIES = (("bench_1b", 32, 8, 64), ("g4_d128", 32, 8, 128),
+                   ("tp2_rank", 16, 4, 64))
+TAIL_FORMS = {"bf16": (False, None), "int8": (True, None),
+              "stacked": (False, STACK), "int8_stacked": (True, STACK)}
+# Alternating, the first run of the process (cold) an ``off`` one.
+DEFERRED_MODES = ("off", "auto", "auto", "off", "off", "auto")
+
+
+def tail_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None, nh=32,
+              kv=8, d=64, max_len=1024, int8=False, stack=None,
+              s_len=TAIL_SLOTS):
+    """The decode kernel's tail form against its plain version: rows
+    at kv_lens[i] cached tokens with a burst tail of ``s_len`` slots,
+    each row frozen after a random number of them (its query position
+    kv_len + 0 .. s_len - 1). Timed beside the non-tail form over the
+    same pages, the plain version and SDPA over the dense pages and the
+    tail."""
+    from production_stack_tpu_torch.ops import paged_attention_cuda as pa
+    max_pages = max_len // ps
+    num_pages = b * max_pages + 1
+    (kc, vc), dense = _caches(kv, num_pages, d, ps, dtype, dev, gen, int8)
+    q = torch.randn((b, nh, d), generator=gen, device=dev).to(dtype)
+    lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    table = _page_table(kv_lens, ps, max_pages, num_pages, gen, dev)
+    k_tail = torch.randn((b, s_len, kv, d), generator=gen,
+                         device=dev).to(dtype)
+    v_tail = torch.randn((b, s_len, kv, d), generator=gen,
+                         device=dev).to(dtype)
+    live = torch.randint(1, s_len + 1, (b,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    q_pos = (lens + live - 1).contiguous()
+    args = (q, kc, vc, table, lens, k_tail, v_tail, q_pos)
+    call, view, offset = _form(name, args, stack, gen)
+    got = call(pa.paged_decode_tail_attention)
+    ref = call(pa.paged_decode_tail_attention_plain)
+    torch.cuda.synchronize()
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    err = (got.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), ref.float(), **tol,
+                               msg=lambda m: f"{name}: {m}")
+    _check_view(name, got, view, pa.paged_decode_tail_attention)
+    again = call(pa.paged_decode_tail_attention)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches gave different bits")
+    out = {"case": name, "max_abs_err": err, "tail_slots": s_len,
+           "live_slots": int(live.sum())}
+    if timer is None:
+        return out
+    esz = q.element_size()
+    tokens = int(lens.sum())
+    entries = sum(-(-n // ps) for n in kv_lens)
+    # Pages of each row's cached tokens, the whole tail (read once), q,
+    # the output, the live table entries, kv_lens and the positions.
+    nbytes = (2 * tokens * kv * _kv_slot_bytes(d, esz, int8)
+              + 2 * b * s_len * kv * d * esz + 2 * q.numel() * esz
+              + entries * 4 + 2 * b * 4)
+    flops = 4 * nh * d * (tokens + int(live.sum()))
+    kmax = max(kv_lens)
+    group = nh // kv
+    kd = torch.cat([_dense_kv(dense[0], table, kmax, group),
+                    k_tail.permute(0, 2, 1, 3).repeat_interleave(group, 1)],
+                   dim=2)
+    vd = torch.cat([_dense_kv(dense[1], table, kmax, group),
+                    v_tail.permute(0, 2, 1, 3).repeat_interleave(group, 1)],
+                   dim=2)
+    pos = torch.arange(kmax + s_len, device=dev)[None, :]
+    mask = torch.where(pos < kmax, pos < lens[:, None].long(),
+                       pos - kmax < live[:, None].long())[:, None, None, :]
+    qd = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    decode_args = args[:5]
+    decode_call = (lambda fn: fn(*decode_args)) if stack is None else (
+        lambda fn: call(lambda *a, **k: fn(*a[:5], **k)))
+    out.update(
+        ms=timer.ms(lambda: call(pa.paged_decode_tail_attention)),
+        decode_ms=timer.ms(lambda: decode_call(pa.paged_decode_attention)),
+        plain_ms=timer.ms(lambda: call(pa.paged_decode_tail_attention_plain),
+                          iters=5),
+        library_ms=timer.ms(lambda: sdpa(qd, kd, vd, attn_mask=mask)),
+        **_bound(nbytes, flops))
+    return out
+
+
+def _tail_kernel_cases(dev) -> dict:
+    """{geometry: {form: case}} of the tail form; the tp-2 rank's
+    geometry checked untimed."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    timer = Timer(dev)
+    kv_lens = np.linspace(1, 1024 - 128, 32).round().astype(int).tolist()
+    kv_lens[3] = 0  # a pad row
+    cases = {}
+    for geo, nh, kv, d in TAIL_GEOMETRIES:
+        cases[geo] = {}
+        for form, (int8, stack) in TAIL_FORMS.items():
+            name = f"decode tail {geo} {form} B=32 S={TAIL_SLOTS}"
+            case = tail_case(name, 32, kv_lens, 128, torch.bfloat16, dev,
+                             gen, None if geo == "tp2_rank" else timer,
+                             nh=nh, kv=kv, d=d, int8=int8, stack=stack)
+            cases[geo][form] = case
+            log(f"{name}: max abs err {case['max_abs_err']:.3g}"
+                + ("" if "ms" not in case else
+                   f"; {case['ms']:.4f} ms (non-tail form "
+                   f"{case['decode_ms']:.4f}), bound {case['bound_ms']:.4f}"
+                   f" ({case['bound_by']}), plain {case['plain_ms']:.3f}, "
+                   f"SDPA {case['library_ms']:.4f}"))
+    return cases
+
+
+def _tail_against_flushed_pages(dev) -> dict:
+    """The tail form against the non-tail form over the same pages with
+    the tail flushed into them (``write_to_pages``, the deferred burst's
+    own flush): what an eager burst reads at the same step. bench-1b
+    bf16, per layer and stacked, B = 32 with kv lens from 0 to 896
+    (half of them under 16 tokens, some crossing a page in the tail),
+    each row frozen after 1..S slots; held to the bf16 tolerance. The
+    non-tail form over one position fewer must miss that tolerance on
+    the short rows, so a tail slot masked one position off would
+    show."""
+    from production_stack_tpu_torch.ops import paged_attention_cuda as pa
+    from production_stack_tpu_torch.ops.attention import write_to_pages
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    b, nh, kv, d, ps, s_len = 32, 32, 8, 64, 128, TAIL_SLOTS
+    kv_lens = ([0, 1, 2, 3, 5, 8, 11, 15] + [126, 127, 125, 124]
+               + [16 * i for i in range(1, 9)]
+               + np.linspace(300, 896, 12).round().astype(int).tolist())
+    short = torch.tensor([n < 16 for n in kv_lens], device=dev)
+    max_pages = 1024 // ps
+    num_pages = b * max_pages + 1
+    (kc, vc), _ = _caches(kv, num_pages, d, ps, torch.bfloat16, dev, gen,
+                          False)
+    q = torch.randn((b, nh, d), generator=gen, device=dev).bfloat16()
+    lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    table = _page_table([n + s_len for n in kv_lens], ps, max_pages,
+                        num_pages, gen, dev)
+    k_tail, v_tail = (torch.randn((b, s_len, kv, d), generator=gen,
+                                  device=dev).bfloat16() for _ in range(2))
+    live = torch.randint(1, s_len + 1, (b,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    q_pos = (lens + live - 1).contiguous()
+    slots = torch.arange(s_len, device=dev, dtype=torch.int32)[None, :]
+    positions = lens[:, None] + slots
+    valid = slots < live[:, None]
+    kf, vf = kc.clone(), vc.clone()
+    write_to_pages(kf, k_tail, table, positions, valid)
+    write_to_pages(vf, v_tail, table, positions, valid)
+    out = {}
+    for form, stack in (("bf16", None), ("stacked", STACK)):
+        name = f"decode tail vs flushed pages bench_1b {form}"
+        call, _, _ = _form(name, (q, kc, vc, table, lens, k_tail, v_tail,
+                                  q_pos), stack, gen)
+        got = call(pa.paged_decode_tail_attention)
+        flushed, _, _ = _form(name, (q, kf, vf, table, q_pos + 1), stack,
+                              gen)
+        want = flushed(pa.paged_decode_attention)
+        shifted, _, _ = _form(name, (q, kf, vf, table, q_pos), stack, gen)
+        off_by_one = shifted(pa.paged_decode_attention)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL,
+                                   msg=lambda m: f"{name}: {m}")
+        gap = (got.float() - off_by_one.float()).abs()[short].max().item()
+        if torch.allclose(got.float()[short], off_by_one.float()[short],
+                          **BF16_TOL):
+            raise AssertionError(f"{name}: one position fewer is within "
+                                 f"the tolerance ({gap}): the check "
+                                 "could not see a mask one slot off")
+        out[form] = {"max_abs_err": err, "off_by_one_gap": gap}
+        log(f"{name}: B={b} S={s_len}, max abs err {err:.3g} against the "
+            f"non-tail form over the flushed pages; one position fewer "
+            f"differs by up to {gap:.3g} on the short rows")
+    return out
+
+
+def _deferred_engines(vocab) -> dict:
+    """bench-1b at --decode-steps 4 through LLMEngine, the 16 greedy
+    requests added at once (one fixed batch, no request timing): off
+    twice, byte-identical (the card's kernels are deterministic, so
+    servers that part with deferred writes off part through batch
+    composition); auto once, each stream equal to off's or parting at a
+    near tie of off's engine (``check_stream``). Returns the flips."""
+    from production_stack_tpu_torch.engine.server import (
+        build_engine_from_args)
+    requests = _greedy_requests(vocab)
+    streams, ref = {}, None
+    for label, mode in (("off", "off"), ("off again", "off"),
+                        ("auto", "auto")):
+        engine, _ = build_engine_from_args(_tp_engine_args(
+            ["--decode-steps", "4", "--deferred-kv-writes", mode]))
+        if engine.config.scheduler.deferred_kv_writes != (mode == "auto"):
+            raise AssertionError(f"deferred engine {mode}: resolved "
+                                 f"{engine.config.scheduler}")
+        streams[label] = _engine_streams(engine, requests)
+        if ref is None:
+            ref = engine
+        else:
+            del engine
+        torch.cuda.empty_cache()
+    if streams["off again"] != streams["off"]:
+        raise AssertionError("deferred off: two engines on one fixed batch "
+                             "gave different streams")
+    flips = [check_stream("deferred engine auto", f"request {i}", ref,
+                          r["prompt"], w, g)
+             for i, (r, w, g) in enumerate(zip(requests, streams["off"],
+                                               streams["auto"]))]
+    flips = [(i,) + f for i, f in enumerate(flips) if f is not None]
+    log(f"deferred KV writes through LLMEngine, one fixed batch ({SMI}): "
+        f"off twice byte-identical; auto {len(requests) - len(flips)}/"
+        f"{len(requests)} streams byte-identical to off, flips at near "
+        f"ties (request, token, margin) {flips}")
+    del ref
+    torch.cuda.empty_cache()
+    return {"flips": flips, "streams": len(requests)}
+
+
+def _greedy_requests(vocab, seed=0):
+    """The serving phase's 16 prompts, every one greedy."""
+    rng = np.random.RandomState(seed)
+    return [{"model": "bench-1b", "max_tokens": 32, "ignore_eos": True,
+             "temperature": 0.0,
+             "prompt": rng.randint(258, vocab, size=int(n)).tolist()}
+            for n in np.linspace(64, 700, 16).round().astype(int)]
+
+
+# The tail form's other cache forms, each served by one deferred server
+# (run name suffix, extra flags).
+DEFERRED_FORMS = (("int8", ["--kv-cache-dtype", "int8"]),
+                  ("stacked", ["--cache-layout", "stacked"]),
+                  ("int8_stacked", ["--kv-cache-dtype", "int8",
+                                    "--cache-layout", "stacked"]))
+
+
+def _deferred_window(mode, extra, requests, form=""):
+    """One bench-1b server with --decode-steps 4 --deferred-kv-writes
+    ``mode`` (and ``extra`` flags), warmed by an untimed round of
+    ``requests`` (its graphs captured), then timed on a second: returns
+    (the run's measures, the stopped server, kept for ``near_tie``).
+    auto must launch the tail form in ``form`` (a counter suffix) and
+    off the non-tail form, and no plain version may run on the card."""
+    from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
+    srv = _Server(["--decode-steps", "4", "--deferred-kv-writes", mode]
+                  + extra)
+    runner = srv.engine.runner
+    walls = []
+    run_decode = runner.run_decode
+
+    def timed(plan):
+        t0 = time.perf_counter()
+        out = run_decode(plan)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    runner.run_decode = timed
+    if srv.engine.config.scheduler.deferred_kv_writes != (mode == "auto"):
+        raise AssertionError(f"deferred {mode}: resolved "
+                             f"{srv.engine.config.scheduler}")
+
+    def post_all():
+        with ThreadPoolExecutor(len(requests)) as pool:
+            return list(pool.map(
+                lambda b: _post(srv.url + "/v1/completions", b), requests))
+
+    post_all()  # warm: every graph key of the window captured
+    torch.cuda.synchronize()
+    walls.clear()
+    COUNTERS.reset()
+    captures = sum(runner.graphs.captures.values())
+    t0 = time.perf_counter()
+    answers = post_all()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(COUNTERS.launches)
+    new_captures = sum(runner.graphs.captures.values()) - captures
+    ids = [list(t[len(r["prompt"]):]) for r, t in zip(
+        requests, [next(t for t in reversed(srv.finished)
+                        if t[:len(r["prompt"])] == r["prompt"])
+                   for r in requests])]
+    srv.stop()
+    kernel = ("paged_decode_tail" if mode == "auto"
+              else "paged_decode") + form
+    tails = {k for k in launches if k.startswith("paged_decode_tail")}
+    if not launches.get(kernel) or tails - {kernel}:
+        raise AssertionError(f"deferred {mode} {form}: launches {launches}")
+    if any(COUNTERS.plain_cuda_calls.values()):
+        raise AssertionError(f"deferred {mode}: plain calls on CUDA "
+                             f"tensors {COUNTERS.plain_cuda_calls}")
+    tokens = sum(r["max_tokens"] for r in requests)
+    run = {"mode": mode, "launches": launches, "answers": answers,
+           "ids": ids, "tok_s": tokens / wall,
+           "burst_ms": 1e3 * float(np.mean(walls)) if walls else 0.0,
+           "bursts": len(walls)}
+    log(f"deferred {mode}{form} K=4 ({SMI}): {len(requests)} requests, "
+        f"{tokens} tokens in {wall:.3f} s ({run['tok_s']:.1f} tok/s); "
+        f"{len(walls)} burst dispatches of {run['burst_ms']:.3f} ms mean "
+        f"host wall; captures in the window {new_captures}; launches "
+        f"{launches}")
+    return run, srv
+
+
+def _deferred_servers(vocab) -> dict:
+    """bench-1b with --decode-steps 4 and --deferred-kv-writes auto (on:
+    the burst's KV through tails the decode kernel reads) and off, in
+    DEFERRED_MODES' order (``_deferred_window``): every greedy stream
+    equals the first off server's, or equals it up to a first flip at a
+    near tie of that server's engine (``check_stream``: the tail is one
+    more split of the softmax, so the sums run in another order); the
+    stochastic streams (the same draws) counted; each run's tok/s and
+    its burst dispatches' mean host wall (dispatch and read). Then one
+    auto server for each other cache form of the tail
+    (DEFERRED_FORMS), its launches counted."""
+    rng = np.random.RandomState(0)
+    requests = []
+    for i, n in enumerate(np.linspace(64, 700, 16).round().astype(int)):
+        body = {"model": "bench-1b", "max_tokens": 32, "ignore_eos": True,
+                "prompt": rng.randint(258, vocab, size=n).tolist()}
+        body.update({"temperature": 0.0} if i % 2 == 0 else
+                    {"temperature": 0.8, "top_p": 0.95})
+        requests.append(body)
+    runs, ref = [], None
+    for mode in DEFERRED_MODES:
+        run, srv = _deferred_window(mode, [], requests)
+        runs.append(run)
+        if ref is None:
+            ref = srv
+        else:
+            srv.close()
+    n = len(requests)
+    flips, stochastic_same = [], {"off": 0, "auto": 0}
+    for run in runs[1:]:
+        for i, body in enumerate(requests):
+            if body["temperature"] != 0.0:
+                stochastic_same[run["mode"]] += (
+                    run["ids"][i] == runs[0]["ids"][i])
+                continue
+            flip = check_stream(f"deferred {run['mode']}", f"request {i}",
+                                ref.engine, body["prompt"], runs[0]["ids"][i],
+                                run["ids"][i])
+            if flip is not None:
+                flips.append((run["mode"], i) + flip)
+    ref.close()
+    summary = {m: {"tok_s": [r["tok_s"] for r in runs if r["mode"] == m],
+                   "burst_ms": [r["burst_ms"] for r in runs
+                                if r["mode"] == m]}
+               for m in ("off", "auto")}
+    greedy = sum(b["temperature"] == 0.0 for b in requests)
+    log(f"deferred KV writes, bench-1b K=4, {SMI}: off {summary['off']}, "
+        f"auto {summary['auto']}; greedy streams against the first off "
+        f"server's: {greedy * (len(runs) - 1) - len(flips)}/"
+        f"{greedy * (len(runs) - 1)} byte-identical, flips at near ties "
+        f"(mode, request, token, margin) {flips}; stochastic streams "
+        f"identical: off {stochastic_same['off']}/"
+        f"{(n - greedy) * (DEFERRED_MODES.count('off') - 1)}, auto "
+        f"{stochastic_same['auto']}/"
+        f"{(n - greedy) * DEFERRED_MODES.count('auto')}")
+    forms = {}
+    for form, extra in DEFERRED_FORMS:
+        run, srv = _deferred_window("auto", extra, requests, "_" + form)
+        srv.close()
+        forms[form] = run["launches"]
+    auto = next(r for r in runs if r["mode"] == "auto")
+    return {"launches": auto["launches"], "summary": summary,
+            "flips": flips, "forms": forms}
+
+
+def _engine_streams(engine, requests) -> list:
+    """Every request's output ids, the engine driven to the end."""
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    seqs = [engine.sequences[engine.add_request(
+        list(r["prompt"]), SamplingParams(
+            temperature=0.0, max_tokens=r["max_tokens"], ignore_eos=True))]
+        for r in requests]
+    while engine.has_work() or engine._in_flight is not None:
+        engine.step()
+    return [list(s.output_token_ids) for s in seqs]
+
+
+def _tp_engine_args(extra=()):
+    from production_stack_tpu_torch.engine.server import parse_args
+    return parse_args(SERVER_ARGS + list(extra))
+
+
+def _nccl_world_of_one(requests) -> dict:
+    """The tp runner over a one-rank NCCL group, graphs on, against the
+    non-tp engine of the same flags: byte-identical streams (a one-rank
+    reduce is the identity), and every captured graph holding its
+    collectives."""
+    import torch.distributed as dist
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.server import (
+        build_engine_from_args)
+    from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
+    from production_stack_tpu_torch.parallel.collectives import (
+        ALL_GATHER, ALL_REDUCE, init_tp_group)
+    from production_stack_tpu_torch.parallel.distributed import free_port
+    ref, _ = build_engine_from_args(_tp_engine_args())
+    want = _engine_streams(ref, requests)
+    config, tokenizer = ref.config, ref.tokenizer
+    del ref
+    torch.cuda.empty_cache()
+    group = init_tp_group(0, 1, "nccl", f"tcp://127.0.0.1:{free_port()}",
+                          torch.device("cuda", 0))
+    try:
+        engine = LLMEngine(config, tokenizer=tokenizer, device="cuda",
+                           tp=group)
+        COUNTERS.reset()
+        got = _engine_streams(engine, requests)
+        torch.cuda.synchronize()
+        launches = dict(COUNTERS.launches)
+        recorded = engine.runner.graphs.recorded_launches()
+        captures = dict(engine.runner.graphs.captures)
+        eager = dict(engine.runner.graphs.eager_steps)
+    finally:
+        dist.destroy_process_group()
+    if got != want:
+        raise AssertionError("tp over a one-rank NCCL group: streams "
+                             "differ from the non-tp engine's")
+    bare = [key for key, counts in recorded.items()
+            if not counts.get(ALL_REDUCE) or not counts.get(ALL_GATHER)]
+    if bare or any(eager.values()) or not launches.get(ALL_REDUCE):
+        raise AssertionError(f"tp NCCL: graphs without their collectives "
+                             f"{bare}, eager steps {eager}, launches "
+                             f"{launches}")
+    log(f"tp NCCL world 1, graphs on: {len(requests)} streams byte-identical "
+        f"to the non-tp engine; {len(recorded)} graphs captured ({captures}),"
+        f" each with its all-reduces and its logits gather; launches "
+        f"{launches}")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _gloo_tp2(requests) -> dict:
+    """bench-1b at tp 2: two ranks on cuda:0 over gloo, started as the
+    server starts them (the backend named, graphs off), against the
+    tp-1 engine of the same flags: greedy streams equal up to a first
+    flip at a near tie of the tp-1 engine (bf16 sums in another order);
+    each rank's kernels counted."""
+    from production_stack_tpu_torch.engine.server import (
+        build_engine_from_args)
+    from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
+    ref, _ = build_engine_from_args(_tp_engine_args())
+    want = _engine_streams(ref, requests)
+    engine, _ = build_engine_from_args(
+        _tp_engine_args(["--tensor-parallel-size", "2"]),
+        devices=["cuda:0", "cuda:0"], tp_backend="gloo")
+    runtime = engine.tp_runtime
+    try:
+        shard = engine.runner.shard_config
+        if engine.runner.graphs is not None or (
+                shard.num_attention_heads, shard.num_key_value_heads) != (
+                    16, 4):
+            raise AssertionError(f"tp 2: graphs {engine.runner.graphs}, "
+                                 f"rank heads {shard}")
+        COUNTERS.reset()
+        t0 = time.perf_counter()
+        got = _engine_streams(engine, requests)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(COUNTERS.launches)
+    finally:
+        engine.close()
+    flips = [check_stream("tp 2 gloo", f"request {i}", ref, r["prompt"],
+                          w, g)
+             for i, (r, w, g) in enumerate(zip(requests, want, got))]
+    whole = sum(f is None for f in flips)
+    workers = runtime.worker_launches
+    for rank, counts in [(0, launches)] + sorted(workers.items()):
+        for kernel in KERNELS:
+            if counts.get(kernel, 0) <= 0:
+                raise AssertionError(f"tp 2 gloo: rank {rank} never "
+                                     f"launched {kernel}: {counts}")
+    if len(workers) != 1 or launches != workers[1]:
+        raise AssertionError(f"tp 2 gloo: rank launches differ: rank 0 "
+                             f"{launches}, workers {workers}")
+    tokens = sum(r["max_tokens"] for r in requests)
+    log(f"tp 2 over gloo on one card ({SMI}): {whole}/{len(requests)} "
+        f"greedy streams byte-identical to tp 1, flips at near ties "
+        f"{[f for f in flips if f]}; {tokens} tokens in {wall:.3f} s "
+        f"(eager, host-staged collectives: not a speed); launches a rank "
+        f"{launches}")
+    del ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tp_phase(vocab: int) -> dict:
+    """Tensor parallelism and deferred KV writes on the card: the tail
+    form of the decode kernel, the deferred servers, the one-rank NCCL
+    tp runner inside the graphs, and tp 2 over gloo on one card."""
+    dev = torch.device("cuda", 0)
+    cases = _tail_kernel_cases(dev)
+    flushed = _tail_against_flushed_pages(dev)
+    torch.cuda.empty_cache()
+    engines = _deferred_engines(vocab)
+    deferred = _deferred_servers(vocab)
+    torch.cuda.empty_cache()
+    requests = _greedy_requests(vocab)
+    nccl = _nccl_world_of_one(requests)
+    tp2 = _gloo_tp2(requests)
+    out = {"cases": cases, DEFERRED_RUN: deferred["launches"],
+           "deferred": deferred["summary"], "flushed": flushed,
+           "deferred_engines": engines, NCCL_RUN: nccl, TP_RUN: tp2}
+    for form, counts in deferred["forms"].items():
+        out[f"{DEFERRED_RUN}_{form}"] = counts
+    return out
+
+
 def _numbers(h) -> dict:
     """A case's numbers for the ``kernels`` line."""
     out = {"max_abs_err": h["max_abs_err"], "ms": h["ms"],
@@ -4153,13 +4718,17 @@ def _numbers(h) -> dict:
     return out
 
 
-def kernels_line(headline, launches, weights, families) -> list:
+def kernels_line(headline, launches, weights, families, tp=None) -> list:
     """The ``kernels`` JSON line's entries: each attention kernel with
     its bf16 per-layer numbers, its ``int8``, ``stacked`` and
     ``int8_stacked`` forms, and its ``geometries`` (``g4_d128`` and
     ``g1_d64``: bf16 with the launches of the serving run of that
     geometry, and ``int8``); then the int8-weight GEMM with its
-    OPT-1.3b and GPT-2 projections at M = 32 (``families``)."""
+    OPT-1.3b and GPT-2 projections at M = 32 (``families``); then the
+    decode kernel's burst-tail form at bench-1b (its four forms, each
+    with the non-tail form's time at the same pages as ``decode_ms``,
+    its launches those of the deferred server of that cache form) and
+    at ``g4_d128`` (from the tp phase's results ``tp``)."""
     geometry_runs = {"g4_d128": MIXTRAL_RUN, "g1_d64": OPT_RUN}
     summary = []
     for name, meta in KERNELS.items():
@@ -4195,6 +4764,27 @@ def kernels_line(headline, launches, weights, families) -> list:
         "dequant_ms": weights["headline"]["dequant_ms"],
         "families": {case: dict(_numbers(c), dequant_ms=c["dequant_ms"])
                      for case, c in families["w8"].items()}})
+    if tp is None:
+        return summary
+    tail = "paged_decode_tail"
+    cases = tp["cases"]
+
+    def tail_numbers(case):
+        return dict(_numbers(case), decode_ms=case["decode_ms"])
+
+    forms = {form: {"launches": launches.get(
+        f"{DEFERRED_RUN}_{form}", {}).get(tail + "_" + form, 0),
+        **tail_numbers(cases["bench_1b"][form])}
+        for form in ("int8", "stacked", "int8_stacked")}
+    summary.append({
+        "name": tail, **TAIL_KERNEL,
+        "launches": launches[DEFERRED_RUN].get(tail, 0),
+        "launches_by_run": {run: counts.get(tail, 0)
+                            for run, counts in launches.items()},
+        **tail_numbers(cases["bench_1b"]["bf16"]), **forms,
+        "geometries": {"g4_d128": {
+            **tail_numbers(cases["g4_d128"]["bf16"]),
+            "int8": tail_numbers(cases["g4_d128"]["int8"])}}})
     return summary
 
 
@@ -4268,7 +4858,15 @@ def main() -> int:
     launches[MIXTRAL_RUN] = families[MIXTRAL_RUN]
     launches[OPT_RUN] = families[OPT_RUN]
     launches[GPT2_RUN] = families[GPT2_RUN]
-    summary = kernels_line(headline, launches, weights, families)
+    torch.cuda.empty_cache()
+    tp = tp_phase(vocab)
+    for run in (DEFERRED_RUN, NCCL_RUN, TP_RUN) + tuple(
+            f"{DEFERRED_RUN}_{form}" for form, _ in DEFERRED_FORMS):
+        launches[run] = tp[run]
+    if launches[DEFERRED_RUN].get("paged_decode_tail", 0) <= 0:
+        raise AssertionError("the deferred server's window never launched "
+                             "the decode kernel's tail form")
+    summary = kernels_line(headline, launches, weights, families, tp)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s, the kernel build included")
     print(json.dumps({"kernels": summary}), flush=True)

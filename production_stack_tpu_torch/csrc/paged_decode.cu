@@ -35,6 +35,18 @@
 // registers and shuffles; the four warps merge once, at the end of the
 // walk. An int8 cache folds its scales in the Pallas order.
 //
+// The burst-tail form (pstt_paged_decode_tail) serves a decode burst
+// with deferred KV writes: the burst's tokens not yet flushed to the
+// pages lie in a dense tail [B, S <= 32, kv_heads, D] in the query's
+// type, slot s of row b at position kv_lens[b] + s, attending iff that
+// position is at most the row's query position q_pos[b]. The tail is
+// one more split: the walk writes its splits' partials as always, a
+// small kernel writes the tail's partial (f32 FMA, one block a (row, kv
+// head), S * D elements of K and of V, read once) into the slot after
+// them, and the merge combines all of them in split order, the tail
+// last. So the form always merges, and its bits are the same launch to
+// launch.
+//
 // C interface (loaded with ctypes by ops/paged_kv_common.py):
 //   q [B, num_q_heads, D]; k/v cache [kv_heads, num_pages, D, page_size],
 //   or the stacked [L, kv_heads, num_pages, D, page_size] cache read at
@@ -45,6 +57,8 @@
 //   bf16, 1 = f32; cache_dtype 0 = bf16, 1 = f32, 2 = int8;
 //   layer_stride / scale_layer_stride: elements between two layers of
 //   the data / the scales (the per-layer form is layer 0 with strides 0).
+// The tail form adds k_tail / v_tail [B, tail_len, kv_heads, D] (dtype)
+// and q_pos [B] int32; its partials hold num_splits + 1 slots.
 // Launches on `stream`, allocates nothing, does not synchronise, and
 // returns cudaGetLastError() after the launch. Geometries outside
 // PSTT_FOR_EACH_GEOMETRY return cudaErrorInvalidValue;
@@ -137,7 +151,7 @@ paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
                     const int* __restrict__ kv_lens, T* __restrict__ out,
                     float* __restrict__ partials, int num_q_heads,
                     int num_pages, int page_size, int max_pages,
-                    int num_splits, int chunks_per_split,
+                    int part_splits, int chunks_per_split,
                     LayerOffsets layer) {
   constexpr bool QUANT = kQuantized<C>;
   constexpr int NT = kDecodeThreads;
@@ -161,15 +175,17 @@ paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
   // Where the G query heads of this kv head start in q and out.
   const size_t row_offset = ((size_t)b * num_q_heads + (size_t)h * G) * D;
   T* o = out + row_offset;
+  // part_splits counts the partials' slots: the walk's splits, and a
+  // burst tail's slot after them. One slot: the walk writes the output.
   float* part =
-      num_splits > 1
-          ? partials + partial_offset<D, G>(b, h, gridDim.y, num_splits, split)
+      part_splits > 1
+          ? partials + partial_offset<D, G>(b, h, gridDim.y, part_splits, split)
           : nullptr;
 
   if (c_begin >= c_end) {
     // Nothing of this row lies in the range: no load. One split: the
     // row is a pad row and its output is exact 0.
-    if (num_splits == 1) {
+    if (part_splits == 1) {
       for (int i = tid; i < G * D; i += NT) o[i] = from_f32<T>(0.f);
     } else {
       for (int i = tid; i < G * PW; i += NT)
@@ -368,7 +384,7 @@ paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
       tot = fmaf(e, pw[d], tot);
       tot_l = fmaf(e, pw[D + 1], tot_l);
     }
-    if (num_splits == 1) {
+    if (part_splits == 1) {
       o[i] = from_f32<T>(tot / fmaxf(tot_l, 1e-30f));
     } else {
       part[g * PW + d] = tot;
@@ -409,14 +425,95 @@ paged_decode_merge_kernel(const float* __restrict__ partials,
       from_f32<T>(tot / fmaxf(tot_l, 1e-30f));
 }
 
+
+// The most tail slots a burst carries (the JAX tail's bound).
+constexpr int kMaxTail = 32;
+
+// A burst tail's partial of one (row, kv head) pair, into the slot
+// `tail_slot` of the partials: thread (g, slot) scores, one thread a
+// query head the softmax over at most 32 slots, thread (g, d) p . v.
+// Slot s attends iff kv_lens[b] + s <= q_pos[b]; a row none of whose
+// slots attends writes the empty partial (0, -1e30, 0).
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(kDecodeThreads)
+paged_decode_tail_kernel(const T* __restrict__ q,
+                         const T* __restrict__ k_tail,
+                         const T* __restrict__ v_tail,
+                         const int* __restrict__ kv_lens,
+                         const int* __restrict__ q_pos,
+                         float* __restrict__ partials, int num_q_heads,
+                         int tail_len, int part_splits) {
+  constexpr int NT = kDecodeThreads;
+  constexpr int PW = D + 2;
+  __shared__ float qs[G * D];
+  __shared__ float ps[G * kMaxTail];
+  __shared__ float ms[G];
+  __shared__ float ls[G];
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int kv_heads = gridDim.y;
+  const int tid = threadIdx.x;
+  const size_t row_offset = ((size_t)b * num_q_heads + (size_t)h * G) * D;
+  for (int i = tid; i < G * D; i += NT) qs[i] = to_f32(q[row_offset + i]);
+  __syncthreads();
+
+  const int live = max(0, min(tail_len, q_pos[b] - kv_lens[b] + 1));
+  const float scale = rsqrtf((float)D);
+  for (int i = tid; i < G * tail_len; i += NT) {
+    const int g = i / tail_len;
+    const int s = i - g * tail_len;
+    const T* kr = k_tail + (((size_t)b * tail_len + s) * kv_heads + h) * D;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) acc = fmaf(qs[g * D + d], to_f32(kr[d]), acc);
+    ps[g * kMaxTail + s] = s < live ? acc * scale : kNegInf;
+  }
+  __syncthreads();
+  if (tid < G) {
+    float* p = ps + tid * kMaxTail;
+    float mx = kNegInf;
+    for (int s = 0; s < live; ++s) mx = fmaxf(mx, p[s]);
+    float l = 0.f;
+    for (int s = 0; s < tail_len; ++s) {
+      const float e = s < live ? expf(p[s] - mx) : 0.f;
+      p[s] = e;
+      l += e;
+    }
+    ms[tid] = mx;
+    ls[tid] = l;
+  }
+  __syncthreads();
+  float* part = partials +
+                partial_offset<D, G>(b, h, kv_heads, part_splits,
+                                     part_splits - 1);
+  for (int i = tid; i < G * D; i += NT) {
+    const int g = i / D;
+    const int d = i - g * D;
+    const T* vr = v_tail + ((size_t)b * tail_len * kv_heads + h) * D + d;
+    float acc = 0.f;
+    for (int s = 0; s < tail_len; ++s)
+      acc = fmaf(ps[g * kMaxTail + s],
+                 to_f32(vr[(size_t)s * kv_heads * D]), acc);
+    part[g * PW + d] = acc;
+    if (d == 0) {
+      part[g * PW + D] = ms[g];
+      part[g * PW + D + 1] = ls[g];
+    }
+  }
+}
+
 template <typename T, typename C, int D, int G>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* pt, const void* kv_lens, void* out,
            void* partials, int batch, int num_q_heads, int num_kv_heads,
            int num_pages, int page_size, int max_pages, int num_splits,
-           int chunks_per_split, LayerOffsets layer, cudaStream_t stream) {
+           int chunks_per_split, LayerOffsets layer, const void* k_tail,
+           const void* v_tail, const void* q_pos, int tail_len,
+           cudaStream_t stream) {
   if (kQuantized<C> && (ks == nullptr || vs == nullptr))
     return cudaErrorInvalidValue;
+  const bool tail = k_tail != nullptr;
+  const int part_splits = num_splits + (tail ? 1 : 0);
   constexpr size_t smem = DecodeSmem<C, D, G>::bytes;
   auto kernel = paged_decode_kernel<T, C, D, G>;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -429,18 +526,69 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
       static_cast<const float*>(vs), static_cast<const int*>(pt),
       static_cast<const int*>(kv_lens), static_cast<T*>(out),
       static_cast<float*>(partials), num_q_heads, num_pages, page_size,
-      max_pages, num_splits, chunks_per_split, layer);
+      max_pages, part_splits, chunks_per_split, layer);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || num_splits == 1) return err;
+  if (err != cudaSuccess || part_splits == 1) return err;
+  if (tail) {
+    paged_decode_tail_kernel<T, D, G>
+        <<<dim3(batch, num_kv_heads), kDecodeThreads, 0, stream>>>(
+            static_cast<const T*>(q), static_cast<const T*>(k_tail),
+            static_cast<const T*>(v_tail), static_cast<const int*>(kv_lens),
+            static_cast<const int*>(q_pos), static_cast<float*>(partials),
+            num_q_heads, tail_len, part_splits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   paged_decode_merge_kernel<T, D, G>
       <<<dim3(batch, num_kv_heads), G * D, 0, stream>>>(
           static_cast<const float*>(partials), static_cast<T*>(out),
-          num_q_heads, num_splits);
+          num_q_heads, part_splits);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace pstt
+
+namespace {
+
+int paged_decode_entry(int dtype, int cache_dtype, const void* q,
+                       const void* k, const void* v, const void* k_scale,
+                       const void* v_scale, const void* page_table,
+                       const void* kv_lens, void* out, void* partials,
+                       int batch, int num_q_heads, int num_kv_heads,
+                       int head_dim, int num_pages, int page_size,
+                       int max_pages, int num_splits, int chunks_per_split,
+                       const void* k_tail, const void* v_tail,
+                       const void* q_pos, int tail_len, int layer,
+                       long long layer_stride, long long scale_layer_stride,
+                       void* stream) {
+  const bool tail = k_tail != nullptr;
+  if (num_kv_heads <= 0 || num_q_heads % num_kv_heads ||
+      page_size <= 0 || pstt::kChunk % page_size || layer < 0 ||
+      layer_stride < 0 || scale_layer_stride < 0 || num_splits < 1 ||
+      chunks_per_split < 1 ||
+      ((num_splits > 1 || tail) && partials == nullptr) ||
+      (tail && (v_tail == nullptr || q_pos == nullptr || tail_len < 1 ||
+                tail_len > pstt::kMaxTail)))
+    return cudaErrorInvalidValue;
+  const pstt::LayerOffsets offsets{layer, layer_stride, scale_layer_stride};
+  if (batch == 0) return cudaSuccess;
+  const int group = num_q_heads / num_kv_heads;
+  auto s = static_cast<cudaStream_t>(stream);
+#define PSTT_DECODE_CASE(code, T, ccode, C, G, D)                          \
+  if (dtype == code && cache_dtype == ccode && group == G &&               \
+      head_dim == D)                                                       \
+    return pstt::launch<T, C, D, G>(                                       \
+        q, k, v, k_scale, v_scale, page_table, kv_lens, out, partials,     \
+        batch, num_q_heads, num_kv_heads, num_pages, page_size, max_pages, \
+        num_splits, chunks_per_split, offsets, k_tail, v_tail, q_pos,      \
+        tail_len, s);
+  PSTT_FOR_EACH_GEOMETRY(PSTT_DECODE_CASE)
+#undef PSTT_DECODE_CASE
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
 
 extern "C" int pstt_paged_decode(int dtype, int cache_dtype, const void* q,
                                  const void* k, const void* v,
@@ -455,25 +603,28 @@ extern "C" int pstt_paged_decode(int dtype, int cache_dtype, const void* q,
                                  long long layer_stride,
                                  long long scale_layer_stride,
                                  void* stream) {
-  if (num_kv_heads <= 0 || num_q_heads % num_kv_heads ||
-      page_size <= 0 || pstt::kChunk % page_size || layer < 0 ||
-      layer_stride < 0 || scale_layer_stride < 0 || num_splits < 1 ||
-      chunks_per_split < 1 || (num_splits > 1 && partials == nullptr))
-    return cudaErrorInvalidValue;
-  const pstt::LayerOffsets offsets{layer, layer_stride, scale_layer_stride};
-  if (batch == 0) return cudaSuccess;
-  const int group = num_q_heads / num_kv_heads;
-  auto s = static_cast<cudaStream_t>(stream);
-#define PSTT_DECODE_CASE(code, T, ccode, C, G, D)                          \
-  if (dtype == code && cache_dtype == ccode && group == G &&               \
-      head_dim == D)                                                       \
-    return pstt::launch<T, C, D, G>(                                       \
-        q, k, v, k_scale, v_scale, page_table, kv_lens, out, partials,     \
-        batch, num_q_heads, num_kv_heads, num_pages, page_size, max_pages, \
-        num_splits, chunks_per_split, offsets, s);
-  PSTT_FOR_EACH_GEOMETRY(PSTT_DECODE_CASE)
-#undef PSTT_DECODE_CASE
-  return cudaErrorInvalidValue;
+  return paged_decode_entry(
+      dtype, cache_dtype, q, k, v, k_scale, v_scale, page_table, kv_lens,
+      out, partials, batch, num_q_heads, num_kv_heads, head_dim, num_pages,
+      page_size, max_pages, num_splits, chunks_per_split, nullptr, nullptr,
+      nullptr, 0, layer, layer_stride, scale_layer_stride, stream);
+}
+
+extern "C" int pstt_paged_decode_tail(
+    int dtype, int cache_dtype, const void* q, const void* k, const void* v,
+    const void* k_scale, const void* v_scale, const void* page_table,
+    const void* kv_lens, void* out, void* partials, const void* k_tail,
+    const void* v_tail, const void* q_pos, int batch, int num_q_heads,
+    int num_kv_heads, int head_dim, int num_pages, int page_size,
+    int max_pages, int num_splits, int chunks_per_split, int tail_len,
+    int layer, long long layer_stride, long long scale_layer_stride,
+    void* stream) {
+  if (k_tail == nullptr) return cudaErrorInvalidValue;
+  return paged_decode_entry(
+      dtype, cache_dtype, q, k, v, k_scale, v_scale, page_table, kv_lens,
+      out, partials, batch, num_q_heads, num_kv_heads, head_dim, num_pages,
+      page_size, max_pages, num_splits, chunks_per_split, k_tail, v_tail,
+      q_pos, tail_len, layer, layer_stride, scale_layer_stride, stream);
 }
 
 // 1 if the kernels (decode, prefill, ragged: all three dispatch through

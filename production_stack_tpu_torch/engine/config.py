@@ -13,8 +13,10 @@ the KV offload tiers (``OffloadConfig``), QoS classes and shedding
 (``QoSConfig``), the KV economy's summary and watermarks
 (``KVEconConfig``), the self-tuning controllers' policy
 (``AutotuneConfig``), the disaggregation role, stream checkpoints, the
-step watchdog and the AWAITING_KV timeout. Parallelism joins the port
-with the features that read it.
+step watchdog and the AWAITING_KV timeout, deferred KV writes in
+decode bursts (``SchedulerConfig.deferred_kv_writes``) and tensor
+parallelism with its mesh plan (``ParallelConfig``). Pipeline and
+context parallelism join the port with the features that read them.
 """
 
 from __future__ import annotations
@@ -64,6 +66,9 @@ class ModelConfig:
     num_experts_per_tok: int = 2
     # Weight-only quantization: none | int8 (engine/quantization.py).
     quantization: str = "none"
+    # The --attention-impl the server was given (auto | pallas | xla |
+    # pallas-interpret), which deferred KV writes' eligibility reads.
+    attention_impl: str = "auto"
 
     def __post_init__(self):
         if self.head_dim is None:
@@ -253,6 +258,11 @@ class SchedulerConfig:
     # Minimum n-gram length the proposer must match in the sequence's
     # history before drafting its continuation.
     speculative_min_match: int = 2
+    # Deferred KV writes inside a decode burst: each iteration's K/V go
+    # into dense [B, K, kv, d] tails and flush to the pages once a
+    # burst (engine/model_runner.py). Llama family; needs
+    # decode_steps > 1; excludes speculative_k (EngineConfig).
+    deferred_kv_writes: bool = False
     max_queue_len: int = 1024
 
     def __post_init__(self):
@@ -263,6 +273,32 @@ class SchedulerConfig:
 
     def max_pages_per_seq(self, page_size: int) -> int:
         return math.ceil(self.max_model_len / page_size)
+
+
+@dataclasses.dataclass
+class ParallelConfig:
+    """Tensor parallelism and its mesh plan (the JAX ParallelConfig's
+    tp fields; pipeline and context parallelism are not ported yet).
+    ``tensor_parallel_size`` ranks, one card each over NCCL, split the
+    heads and the MLP (parallel/mesh.py); ``num_slices`` forces the
+    topology into that many equal slices (0: discover; one host is one
+    slice); ``mesh_placement`` overrides the per-axis placement
+    ("tp=ici,pp=any"; 'auto' keeps tp inside one slice)."""
+
+    tensor_parallel_size: int = 1
+    num_slices: int = 0
+    mesh_placement: str = "auto"
+
+    def __post_init__(self):
+        if self.tensor_parallel_size < 1:
+            raise ValueError("parallel.tensor_parallel_size must be >= 1")
+        if self.num_slices < 0:
+            raise ValueError("parallel.num_slices must be >= 0")
+        # Placement typos are refused here, not at the first dispatch.
+        from production_stack_tpu_torch.parallel.topology import (
+            parse_placement,
+        )
+        parse_placement(self.mesh_placement)
 
 
 @dataclasses.dataclass
@@ -420,6 +456,8 @@ class EngineConfig:
     autotune: AutotuneConfig = dataclasses.field(
         default_factory=AutotuneConfig)
     lora: LoRAConfig = dataclasses.field(default_factory=LoRAConfig)
+    parallel: ParallelConfig = dataclasses.field(
+        default_factory=ParallelConfig)
     seed: int = 0
     # Disaggregated serving role:
     #   both    -> monolithic engine (default): prefill and decode.
@@ -469,6 +507,12 @@ class EngineConfig:
                 "engine_role='prefill' is incompatible with "
                 "speculative_k > 0 (speculation speeds up decode; a "
                 "prefill-role engine hands off after the first token)")
+        if (self.scheduler.speculative_k > 0
+                and self.scheduler.deferred_kv_writes):
+            raise ValueError(
+                "speculative_k is incompatible with deferred_kv_writes "
+                "(the verify step writes draft KV eagerly so accepted "
+                "tokens can attend to it)")
         if self.cache.resolved_kv_dtype() == "int8" and not getattr(
                 self.cache, "_kv_pages_expanded", False):
             # Spend the same device bytes on more, narrower pages: a

@@ -35,7 +35,8 @@ class Embedder:
     """Bucketed embedding runner over the serving weights."""
 
     def __init__(self, config: ModelConfig, params, max_len: int,
-                 pooling: str = "last", batch_width: int = 8):
+                 pooling: str = "last", batch_width: int = 8,
+                 encode_fn: Optional[Callable] = None):
         if pooling not in _POOLING_MODES:
             raise ValueError(
                 f"pooling must be one of {_POOLING_MODES}, got {pooling!r}"
@@ -53,6 +54,10 @@ class Embedder:
         self.config = config
         self.params = params
         self.device = params.embed.device
+        # [B, T] device tokens -> final-norm hidden states: the runner's
+        # encode (every tp rank on its shard), or llama.encode here.
+        self._encode = encode_fn or (
+            lambda toks: llama.encode(self.params, self.config, toks))
         self.max_len = max_len
         self.pooling = pooling
         self.batch_width = batch_width
@@ -70,7 +75,7 @@ class Embedder:
         with torch.inference_mode():
             toks = torch.from_numpy(tokens).to(self.device)
             lens = torch.from_numpy(lengths).to(self.device)
-            hidden = llama.encode(self.params, self.config, toks)
+            hidden = self._encode(toks)
             b, t = toks.shape
             if self.pooling == "last":
                 idx = torch.clamp(lens - 1, min=0).long()

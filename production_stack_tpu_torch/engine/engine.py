@@ -107,11 +107,16 @@ class LLMEngine:
     passes ``device="cpu"``; with no card and no such argument it
     raises. On the card each step replays a CUDA graph of its kind and
     bucket shape; ``cuda_graphs=False`` runs them eagerly (to compare:
-    the server has no such flag, as the JAX server has none)."""
+    the server has no such flag, as the JAX server has none). Under
+    tensor parallelism this is rank 0: ``tp`` its group, ``bridge`` the
+    step bridge its runner publishes through (parallel/distributed.py),
+    ``params`` the full weights (the runner keeps its shard), and
+    ``tp_runtime`` the workers ``close`` stops."""
 
     def __init__(self, config: EngineConfig, params=None,
                  tokenizer: Optional[BaseTokenizer] = None, device=None,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, tp=None, bridge=None,
+                 tp_runtime=None):
         self.config = config
         self.tokenizer = tokenizer or get_tokenizer(None)
         self.cache_manager = PagedCacheManager(config.cache)
@@ -125,7 +130,10 @@ class LLMEngine:
                                    self.cache_manager,
                                    guided_advance=self._guided_advance)
         self.runner = ModelRunner(config, params=params, device=device,
-                                  cuda_graphs=cuda_graphs)
+                                  cuda_graphs=cuda_graphs, tp=tp)
+        if bridge is not None:
+            self.runner.attach_bridge(bridge)
+        self.tp_runtime = tp_runtime
         if self.guided_fsm is not None:
             self.runner.set_guided_tables(self.guided_fsm)
         self.sequences: Dict[str, Sequence] = {}
@@ -169,6 +177,11 @@ class LLMEngine:
         # installs one by default); every emission is behind an
         # ``is None`` check.
         self._tracer = None
+
+    def close(self) -> None:
+        """Stop the tp workers, if this engine has any."""
+        if self.tp_runtime is not None:
+            self.tp_runtime.close()
 
     @property
     def tracer(self):
@@ -657,7 +670,7 @@ class LLMEngine:
                                     self.config.lora.max_lora_rank,
                                     name=name)
         with self._lock:
-            return self.runner.lora_registry.register(adapter)
+            return self.runner.register_lora(adapter)
 
     def lora_names(self) -> List[str]:
         if self.runner.lora_registry is None:

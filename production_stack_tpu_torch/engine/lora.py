@@ -22,8 +22,10 @@ static stack shape.
 Targets per architecture, the JAX maps: the llama family's seven
 projections; OPT's and GPT-2's q, k, v, o, fc1 and fc2 (GPT-2's fused
 ``c_attn`` trains one pair, A shared by q, k and v and B split in
-three); Mixtral's attention only. The tp sharding of the stacks (JAX
-``lora_stack_specs``) joins with parallelism.
+three); Mixtral's attention only. Under tensor parallelism a rank's
+stacks have its widths (allocated from the rank's config) and every
+install cuts the adapter as the base projections are cut
+(``parallel/mesh.shard_lora_adapter``, JAX ``lora_stack_specs``).
 """
 
 from __future__ import annotations
@@ -281,8 +283,11 @@ class LoRARegistry:
 
     def __init__(self, config: ModelConfig, max_loras: int,
                  max_lora_rank: int,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = "cpu", shard=None):
         self.config = config
+        # Under tp: the rank's cut of an adapter (the names, slots and
+        # cache roots are the full adapter's on every rank).
+        self._shard = shard
         self.max_loras = max_loras
         self.max_lora_rank = max_lora_rank
         self.stack = empty_lora_stack(config, max_loras, max_lora_rank,
@@ -306,7 +311,8 @@ class LoRARegistry:
         # naming a projection this architecture does not expose must not
         # stay registered against an all-zero slot (which would serve
         # the base model under its name).
-        install_adapter(self.stack, slot, adapter)
+        install_adapter(self.stack, slot, adapter if self._shard is None
+                        else self._shard(adapter))
         self.slots[adapter.name] = slot
         # Content-addressed: identical weights keep their prefix-cache
         # and offload reuse; new weights under the same name get a fresh

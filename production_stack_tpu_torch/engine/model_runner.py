@@ -47,10 +47,34 @@ are allocated once on the device, and with LoRA on every step kind
 takes one more input, ``lora_ids`` (each row's adapter slot, 0 for the
 base model and pad rows), a static input of the step graphs and never
 part of a key.
+
+Tensor parallelism (``tp``, a ``parallel/collectives`` group): the
+runner holds its rank's shard of the weights (``parallel/mesh``: cut
+from the full set after any int8 quantization, as JAX quantizes before
+it places), the rank's kv heads of the cache and adapter stacks of the
+rank's widths; the forward closes its row-parallel products with
+all-reduces and gathers the logits, so every rank samples from the same
+full logits with a generator seeded alike and draws the same tokens
+(no broadcast of the sampled tokens: the async pipeline's feed-forward
+and a burst's chained iterations stay on each rank's card). Rank 0
+owns the scheduler; with a step bridge attached (``attach_bridge``,
+parallel/distributed.py) every dispatch publishes its host payload and
+a description of its body first, and ranks 1..N-1 replay it through
+``execute``. A gloo group cannot run inside the step graphs: such a
+runner must be built with ``cuda_graphs=False`` on the card.
+
+Deferred KV writes (``SchedulerConfig.deferred_kv_writes``; the JAX
+runner's ``_decode_burst_deferred_impl``): a burst keeps each layer's
+new K/V in dense [B, K, kv, d] tails in the model dtype, attends over
+the pages and the tail through the decode kernel's tail form, and
+flushes the tails to the pages once, at the end of the burst, through
+``write_to_pages``; the pages hold the pre-burst tokens throughout, so
+the cached-token count stays ``positions[:, 0]``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -79,7 +103,9 @@ from production_stack_tpu_torch.engine.step_graphs import (
     STEP_KINDS,
     StepGraphs,
 )
+from production_stack_tpu_torch.models import llama
 from production_stack_tpu_torch.models.registry import get_model
+from production_stack_tpu_torch.ops.attention import write_to_pages
 from production_stack_tpu_torch.ops.paged_kv_common import (
     check_kernel_shapes,
 )
@@ -92,6 +118,13 @@ from production_stack_tpu_torch.ops.sampling import (
     sampler_mode,
     spec_verify,
     token_logprobs,
+)
+from production_stack_tpu_torch.parallel.mesh import (
+    build_rank_params,
+    cut,
+    rank_model_config,
+    shard_lora_adapter,
+    shard_params,
 )
 from production_stack_tpu_torch.utils.log import init_logger
 
@@ -121,7 +154,53 @@ OPTION_INPUTS = {
     "suppress": ("sup_ids", "sup_rem"),
     "guided": ("fsm_state",),
     "logprobs": (),
+    # Not a row option: the key mark of a burst with deferred KV writes
+    # (its tails are buffers of its own graph).
+    "deferred": (),
 }
+
+
+# Model families served by the deferred-KV-write burst (the kv_tail
+# path of models/llama.py, which also serves mistral and qwen2).
+DEFERRED_KV_FAMILIES = ("llama", "mistral", "qwen2")
+
+
+def deferred_kv_eligible(architecture: str, decode_steps: int,
+                         attention_impl: str, pipeline_parallel: int = 1,
+                         context_parallel: int = 1,
+                         speculative_k: int = 0) -> bool:
+    """The one eligibility predicate for deferred KV writes, the JAX
+    runner's, arguments and all: the runner's guard (an explicit
+    ineligible 'on' raises) and the server's ``--deferred-kv-writes
+    auto`` both read it. Speculative decoding excludes deferral (the
+    verify step writes draft KV eagerly so later drafts attend to
+    earlier ones). On the card ``auto`` attention is the decode
+    kernel, whose tail form reads the burst's tail."""
+    return (decode_steps > 1
+            and architecture in DEFERRED_KV_FAMILIES
+            and attention_impl in ("xla", "auto")
+            and pipeline_parallel == 1
+            and context_parallel == 1
+            and speculative_k == 0)
+
+
+def check_deferred_kv(config: EngineConfig) -> None:
+    """The JAX runner's refusals of an explicit deferred_kv_writes the
+    runner cannot serve (engine/model_runner.py, the ``_deferred``
+    guard)."""
+    model = config.model
+    if config.scheduler.decode_steps <= 1:
+        raise ValueError(
+            "deferred_kv_writes needs decode_steps > 1 (the tail "
+            "flushes once per multi-step burst)")
+    if model.architecture not in DEFERRED_KV_FAMILIES:
+        raise NotImplementedError(
+            "deferred_kv_writes serves the llama family (got "
+            f"{model.architecture!r})")
+    if model.attention_impl not in ("xla", "auto"):
+        raise NotImplementedError(
+            "deferred_kv_writes reads the burst tail through the auto "
+            f"decode path (decode impl {model.attention_impl!r})")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -304,10 +383,29 @@ class ModelRunner:
     with. The CPU always runs eagerly."""
 
     def __init__(self, config: EngineConfig, params=None, device=None,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, tp=None):
         self.config = config
         self.device = resolve_device(device)
         model_config = config.model
+        # Tensor parallelism: this rank's group (None: one device) and
+        # the config of the rank's shard, which the forward reads.
+        self.tp = tp
+        tp_size = 1 if tp is None else tp.size
+        self.shard_config = rank_model_config(model_config, tp_size)
+        self._fwd_args = {} if tp is None else {"tp": tp}
+        if (tp is not None and not tp.capturable and cuda_graphs
+                and self.device.type == "cuda"):
+            raise ValueError(
+                f"a {tp.backend} tp group cannot run inside the step "
+                "graphs: build the runner with cuda_graphs=False, or give "
+                "each rank its own card (nccl)")
+        self.deferred = config.scheduler.deferred_kv_writes
+        if self.deferred:
+            check_deferred_kv(config)
+        # The step bridge (parallel/distributed.py) of rank 0 under tp,
+        # and the last dispatch's handle (what an ahead step feeds on).
+        self.bridge = None
+        self._last_handle = None
         if config.cache.cache_layout == "auto":
             # The JAX engine's rule: stacked only for pipeline or
             # context parallelism, which the port does not serve.
@@ -321,33 +419,45 @@ class ModelRunner:
         if self.device.type == "cuda":
             # Fail at start-up, before the weights are made.
             check_engine_geometry(config)
-        init_fn, self._forward = get_model(model_config)
+        _, self._forward = get_model(model_config)
         quantized = model_config.quantization == "int8"
+        rank = 0 if tp is None else tp.rank
         if params is None and quantized:
             # Straight to int8: a full-precision init then quantize
             # would peak at the dense weights plus their int8 copy.
             logger.info("Initializing random int8 weights for %s",
                         model_config.name)
             params = init_random_quantized(model_config, config.seed,
-                                           self.device)
+                                           self.device, rank, tp_size)
         elif params is None:
+            # The families' init_params draws, leaf by leaf, each module
+            # cut to the rank's shard before the next is drawn.
             logger.info("Initializing random weights for %s",
                         model_config.name)
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
-            params = init_fn(model_config, gen, self.device)
+            params = build_rank_params(
+                model_config, lambda path, shape, dtype: llama.random_leaf(
+                    path, shape, dtype, gen, self.device), rank, tp_size)
         self.params = params.to(self.device)
         if quantized and not has_quantized_leaves(self.params):
             # Given dense weights: quantized here, in place.
             logger.info("Quantizing projection weights to int8 "
                         "(weight-only)")
             quantize_params(self.params, model_config)
+        if tp is not None:
+            # Given full weights: the rank's shard, cut from the full
+            # (quantized) set; a rank's shard as built stays.
+            shard_params(self.params, model_config, tp.rank, tp.size)
         # Multi-LoRA: the adapter stacks, allocated once before the KV
         # pages and written in place by register_lora (the step graphs
         # hold their addresses). None when LoRA is off.
         self.lora_registry: Optional[LoRARegistry] = (
-            LoRARegistry(model_config, config.lora.max_loras,
-                         config.lora.max_lora_rank, self.device)
+            LoRARegistry(self.shard_config, config.lora.max_loras,
+                         config.lora.max_lora_rank, self.device,
+                         shard=(None if tp is None else
+                                lambda a: shard_lora_adapter(
+                                    a, tp.rank, tp.size)))
             if config.lora.enable else None)
 
         # per_layer: one [kv_heads, pages, d, page_size] buffer per
@@ -356,8 +466,9 @@ class ModelRunner:
         # layer index. For int8 each is a QuantKV of int8 pages and
         # their [(L,) kv_heads, pages, page_size] scales.
         layers = model_config.num_hidden_layers
-        shape = (model_config.num_key_value_heads, config.cache.num_pages,
-                 model_config.head_dim, config.cache.page_size)
+        shape = (self.shard_config.num_key_value_heads,
+                 config.cache.num_pages, model_config.head_dim,
+                 config.cache.page_size)
 
         def cache(shape):
             if self.kv_quantized:
@@ -402,7 +513,7 @@ class ModelRunner:
         self.observatory: Optional[PerfObservatory] = PerfObservatory(
             config, param_count=sum(p.numel() for p in weights),
             params_bytes=sum(p.numel() * p.element_size() for p in weights),
-            device=self.device)
+            device=self.device, tp_size=tp_size)
         for kind in STEP_KINDS:
             self.observatory.register_kind(kind)
         impl = "cuda" if self.device.type == "cuda" else "plain"
@@ -423,10 +534,98 @@ class ModelRunner:
         """Upload the guided-decoding automaton's tables
         (engine/guided.py) once. The steps read them at these fixed
         addresses: each gathers mask[state] rows, and a burst advances
-        state = transition[state, token] on the device."""
-        self._guided_trans = torch.from_numpy(fsm.transition).to(
-            self.device)
-        self._guided_mask = torch.from_numpy(fsm.mask).to(self.device)
+        state = transition[state, token] on the device. Under tp every
+        rank takes the same tables."""
+        with self._bridge_lock():
+            self._publish({"op": "guided", "transition": fsm.transition,
+                           "mask": fsm.mask})
+            self._set_guided(fsm.transition, fsm.mask)
+
+    def _set_guided(self, transition: np.ndarray, mask: np.ndarray) -> None:
+        self._guided_trans = torch.from_numpy(transition).to(self.device)
+        self._guided_mask = torch.from_numpy(mask).to(self.device)
+
+    # ---- tensor parallelism: the step bridge --------------------------------
+
+    def attach_bridge(self, bridge) -> None:
+        """Rank 0 of a tp group: publish every dispatch, adapter
+        install, guided table and embedding chunk through ``bridge``
+        (parallel/distributed.StepBridge) before running it here."""
+        bridge.runner = self
+        self.bridge = bridge
+
+    def _publish(self, record: dict) -> None:
+        if self.bridge is not None:
+            self.bridge.publish(record)
+
+    def _bridge_lock(self):
+        """Publish-and-run is atomic under tp: the ranks must run their
+        collectives in one order (the engine loop's steps, an HTTP
+        thread's adapter install)."""
+        return (self.bridge.lock if self.bridge is not None
+                else contextlib.nullcontext())
+
+    def execute(self, record: dict):
+        """Ranks 1..N-1: replay one record rank 0 published, on this
+        rank's shard (the bridge's worker loop calls it)."""
+        op = record["op"]
+        if op == "step":
+            token_source = None
+            if record["token_source"]:
+                if self._last_handle is None:
+                    raise RuntimeError("an ahead step with no step before "
+                                       "it to feed on")
+                token_source = self._last_handle.token_source
+            out = self._run_step(record["kind"], tuple(record["shape"]),
+                                 record["payload"], tuple(record["names"]),
+                                 tuple(record["body"]), token_source,
+                                 tuple(record["options"]))
+            self._last_handle = self._handle_for(record, out)
+            return out
+        if op == "guided":
+            return self._set_guided(record["transition"], record["mask"])
+        if op == "lora":
+            return self.lora_registry.register(record["adapter"])
+        if op == "embed":
+            return self._encode(torch.from_numpy(record["tokens"]).to(
+                self.device))
+        if op == "read_page":
+            return self._read_page(record["page_id"])
+        if op == "write_page":
+            return self._write_page(record["page_id"], record["pages"])
+        raise ValueError(f"unknown bridge record {op!r}")
+
+    @staticmethod
+    def _handle_for(record: dict, out):
+        """The handle rank 0 built for a dispatch: what a following
+        ahead step takes its tokens from (None after a step no ahead
+        step follows: prefill, unified)."""
+        body = record["body"][0]
+        if record["kind"] == "spec_verify":
+            return SpecStepHandle(None, None, out)
+        if body in ("decode", "burst"):
+            return DecodeStepHandle(None, out)
+        return None
+
+    def register_lora(self, adapter) -> int:
+        """Install an adapter (the full A/B pairs): under tp every rank
+        installs its own shard of it, in the same slot."""
+        with self._bridge_lock():
+            self._publish({"op": "lora", "adapter": adapter})
+            return self.lora_registry.register(adapter)
+
+    def encode(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The pooled routes' dense forward (models/llama.encode) over
+        [B, T] tokens on the device, every rank on its shard."""
+        with self._bridge_lock():
+            if self.bridge is not None:
+                self._publish({"op": "embed",
+                               "tokens": tokens.cpu().numpy()})
+            return self._encode(tokens)
+
+    def _encode(self, tokens: torch.Tensor) -> torch.Tensor:
+        return llama.encode(self.params, self.shard_config, tokens,
+                            **self._fwd_args)
 
     # ---- steps --------------------------------------------------------------
 
@@ -436,19 +635,59 @@ class ModelRunner:
                 for name, arr in arrays.items()}
 
     def _dispatch(self, kind: str, shape: Tuple[int, ...], payload: dict,
-                  names: Tuple[str, ...], body,
+                  names: Tuple[str, ...], body: Tuple,
                   token_source: Optional[torch.Tensor] = None,
                   options: Tuple[str, ...] = ()):
-        """Run one step: ``body(inputs, mode)`` maps the payload's
-        ``names`` and sampling knobs, as tensors, to the step's output
-        (the sampled tokens, or with logprobs a tuple); ``mode`` is the
-        sampler's host branch, read from the numpy knobs; ``options``
-        the per-row options the step carries, whose inputs
-        (OPTION_INPUTS) join ``names``. ``token_source`` (a device
-        tensor) replaces the tokens. On the card the step replays its
-        (kind, shape, mode, options) graph, captured at the key's first
-        use; it runs eagerly on the CPU, and on the card only when a
-        row is seeded (counted)."""
+        """Run one step: ``body`` names the step's function (see
+        ``_body``: ("prefill",), ("decode",), ("burst", window) or
+        ("ragged",)), which maps the payload's ``names`` and sampling
+        knobs, as tensors, to the step's output (the sampled tokens, or
+        with logprobs a tuple); ``options`` the per-row options the step
+        carries, whose inputs (OPTION_INPUTS) join ``names``.
+        ``token_source`` (a device tensor: the previous dispatch's
+        sampled tokens) replaces the tokens. On the card the step
+        replays its (kind, shape, mode, options) graph, captured at the
+        key's first use; it runs eagerly on the CPU, and on the card
+        only when a row is seeded (counted). Under tp, rank 0 publishes
+        the step first (``execute`` replays it on the other ranks)."""
+        with self._bridge_lock():
+            if self.bridge is not None:
+                if token_source is not None and (
+                        self._last_handle is None
+                        or token_source.data_ptr()
+                        != self._last_handle.token_source.data_ptr()):
+                    raise RuntimeError(
+                        "under tp an ahead step feeds only on the step "
+                        "dispatched just before it")
+                self._publish({
+                    "op": "step", "kind": kind, "shape": tuple(shape),
+                    "payload": payload, "names": tuple(names),
+                    "body": tuple(body),
+                    "token_source": token_source is not None,
+                    "options": tuple(options)})
+            return self._run_step(kind, shape, payload, names, body,
+                                  token_source, options)
+
+    def _body(self, spec: Tuple, options: Tuple[str, ...],
+              seeding: dict):
+        """A step's function ``(inputs, mode) -> output`` from its
+        description (the form the bridge publishes)."""
+        name = spec[0]
+        if name in ("prefill", "decode"):
+            return lambda dev, mode: self._step_body(dev, mode, name,
+                                                     options, seeding)
+        if name == "burst":
+            return lambda dev, mode: self._burst_body(dev, mode, spec[1],
+                                                      options, seeding)
+        if name == "ragged":
+            return lambda dev, mode: self._unified_body(dev, mode, options)
+        raise ValueError(f"unknown step body {spec!r}")
+
+    def _run_step(self, kind: str, shape: Tuple[int, ...], payload: dict,
+                  names: Tuple[str, ...], body: Tuple,
+                  token_source: Optional[torch.Tensor],
+                  options: Tuple[str, ...]):
+        fn = self._body(body, options, self._seeding(payload))
         mode = sampler_mode(*(payload[k] for k in KNOBS))
         names = names + tuple(n for o in options for n in OPTION_INPUTS[o])
         if "lora_ids" in payload:
@@ -458,7 +697,7 @@ class ModelRunner:
                 return self.graphs.run(
                     kind, shape, mode,
                     {k: payload[k] for k in names + KNOBS},
-                    lambda inputs: body(inputs, mode),
+                    lambda inputs: fn(inputs, mode),
                     token_source=token_source, options=options)
             if self.graphs is not None:
                 self.graphs.count_eager("seeded")
@@ -468,7 +707,7 @@ class ModelRunner:
             # The knobs stay on the host: the sampler moves what it
             # needs.
             inputs.update({k: torch.from_numpy(payload[k]) for k in KNOBS})
-            return body(inputs, mode)
+            return fn(inputs, mode)
 
     @staticmethod
     def _seeding(payload: dict) -> dict:
@@ -531,9 +770,10 @@ class ModelRunner:
         select = (dev["last_index"].long()[:, None]
                   if kind == "prefill" else None)
         logits = self._forward(
-            self.params, self.config.model, tokens, positions,
+            self.params, self.shard_config, tokens, positions,
             dev["page_table"], dev["kv_lens"], valid, self.k_cache,
-            self.v_cache, select=select, kind=kind, **self._lora_args(dev))
+            self.v_cache, select=select, kind=kind, **self._lora_args(dev),
+            **self._fwd_args)
         return self._sample_rows(logits[:, 0], dev, mode, options, seeding)
 
     def _unified_body(self, dev: dict, mode: str,
@@ -559,10 +799,10 @@ class ModelRunner:
         idx = torch.clamp(start[:, None] + torch.arange(
             s, device=self.device)[None, :], 0, tokens.shape[1] - 1)
         span = self._forward(
-            self.params, self.config.model, tokens, dev["positions"],
+            self.params, self.shard_config, tokens, dev["positions"],
             dev["page_table"], dev["kv_lens"], dev["valid"],
             self.k_cache, self.v_cache, select=idx, kind="ragged",
-            **self._lora_args(dev))
+            **self._lora_args(dev), **self._fwd_args)
         out = spec_verify(span, dev["drafts"], dev["draft_lens"],
                           dev["temperature"], dev["top_p"], dev["top_k"],
                           generator=self.generator, mode=mode)
@@ -770,14 +1010,12 @@ class ModelRunner:
         payload.update(self._seed_payload(sampling_rows, b))
         opts, options = self._options_payload(sampling_rows, b)
         payload.update(opts)
-        seeding = self._seeding(payload)
         sampled = self._dispatch(
             "step", (b, t), payload, ("tokens", "positions", "valid",
                                       "page_table", "kv_lens",
                                       "last_index"),
-            lambda dev, mode: self._step_body(dev, mode, "prefill",
-                                              options, seeding),
-            options=options)
+            ("prefill",), options=options)
+        self._last_handle = None
         if not any(c.is_last_chunk for c in chunks):
             return [None] * len(chunks), None
         toks, lps = DecodeStepHandle(sampling_rows, sampled).result()
@@ -843,20 +1081,18 @@ class ModelRunner:
         names = ("tokens", "positions", "valid", "page_table", "kv_lens")
         if window > 1:
             payload.update(self._burst_payload(rows, b))
-            seeding = self._seeding(payload)
+            if self.deferred:
+                options += ("deferred",)
             sampled = self._dispatch(
                 "decode_burst", (b, window, payload["stop_tokens"].shape[1]),
                 payload, names + ("budgets", "stop_tokens"),
-                lambda dev, mode: self._burst_body(dev, mode, window,
-                                                   options, seeding),
-                options=options)
-            return DecodeStepHandle(rows, sampled)
-        seeding = self._seeding(payload)
-        return DecodeStepHandle(rows, self._dispatch(
-            "step", (b, 1), payload, names,
-            lambda dev, mode: self._step_body(dev, mode, "decode", options,
-                                              seeding),
+                ("burst", window), options=options)
+            self._last_handle = DecodeStepHandle(rows, sampled)
+            return self._last_handle
+        self._last_handle = DecodeStepHandle(rows, self._dispatch(
+            "step", (b, 1), payload, names, ("decode",),
             token_source=token_source, options=options))
+        return self._last_handle
 
     def _burst_payload(self, rows, pad_to: int) -> dict:
         """Per-row lifecycle inputs of a burst: each row's token budget
@@ -893,7 +1129,15 @@ class ModelRunner:
         advancing and its slots emit -1. A seeded row's emitted index
         at iteration k is its host-known start plus k. Returns the [B,
         window] tokens; with logprobs a tuple with the [B, window]
-        sampled logprobs and [B, window, 20] top ids and logprobs."""
+        sampled logprobs and [B, window, 20] top ids and logprobs.
+
+        With deferred KV writes (the JAX runner's
+        ``_decode_burst_deferred_impl``) the iterations leave the pages
+        as they are: each layer's K/V go into its [B, window, kv, d]
+        tails (buffers of this step, graph-owned on the card), attention
+        reads pages and tail (slot s at position positions[:, 0] + s),
+        and one ``write_to_pages`` a layer flushes each row's first
+        ``emitted`` slots at the end."""
         seeding = dict(seeding or {})
         emitted_start = seeding.pop("emitted", None)
         tok = dev["tokens"][:, None]
@@ -902,12 +1146,18 @@ class ModelRunner:
         emitted = torch.zeros_like(kv_lens)
         counts = dev.get("pen_counts")
         state = dev.get("fsm_state")
+        tails = (self._burst_tails(tok.shape[0], window) if self.deferred
+                 else None)
+        # Deferred: the pages hold the tokens before the burst all along.
+        kv_lens0 = pos[:, 0].clone()
         outs = []
         for k in range(window):
             logits = self._forward(
-                self.params, self.config.model, tok, pos,
-                dev["page_table"], kv_lens, active[:, None], self.k_cache,
-                self.v_cache, kind="decode", **self._lora_args(dev))[:, 0]
+                self.params, self.shard_config, tok, pos,
+                dev["page_table"], kv_lens0 if self.deferred else kv_lens,
+                active[:, None], self.k_cache, self.v_cache, kind="decode",
+                **self._lora_args(dev), **self._fwd_args,
+                **({} if tails is None else {"kv_tail": tails}))[:, 0]
             if emitted_start is not None:
                 seeding["emitted_index"] = emitted_start + k
             step_out, sampled, emitted_next, nxt = burst_sample_step(
@@ -937,8 +1187,37 @@ class ModelRunner:
             kv_lens = kv_lens + step
             active = nxt
             emitted = emitted_next
+        if tails is not None:
+            self._flush_tails(tails, dev["page_table"], kv_lens0, emitted)
         stacked = tuple(torch.stack(x, dim=1) for x in zip(*outs))
         return stacked if len(stacked) > 1 else stacked[0]
+
+    def _burst_tails(self, batch: int, window: int):
+        """Zeroed per-layer [B, window, kv, d] K and V tails in the model
+        dtype (JAX's ``m.jax_dtype`` tails), the rank's kv heads."""
+        m = self.shard_config
+        shape = (batch, window, m.num_key_value_heads, m.head_dim)
+        return tuple([torch.zeros(shape, dtype=m.torch_dtype,
+                                  device=self.device)
+                      for _ in range(m.num_hidden_layers)]
+                     for _ in range(2))
+
+    def _flush_tails(self, tails, page_table: torch.Tensor,
+                     kv_lens0: torch.Tensor, emitted: torch.Tensor) -> None:
+        """The burst's one write a layer: each row's first ``emitted``
+        tail slots to positions kv_lens0 + s of its pages (quantized on
+        write for an int8 cache), the rest to trash page 0."""
+        window = tails[0][0].shape[1]
+        steps = torch.arange(window, device=self.device)[None, :]
+        tail_pos = kv_lens0.long()[:, None] + steps
+        tail_valid = steps < emitted[:, None]
+        stacked = not isinstance(self.k_cache, list)
+        for layer in range(len(tails[0])):
+            for cache, tail in ((self.k_cache, tails[0][layer]),
+                                (self.v_cache, tails[1][layer])):
+                write_to_pages(cache if stacked else cache[layer], tail,
+                               page_table, tail_pos, tail_valid,
+                               layer=layer if stacked else None)
 
     def run_decode(self, plan: DecodePlan
                    ) -> Tuple[List[List[int]], Optional[list]]:
@@ -1002,12 +1281,11 @@ class ModelRunner:
         }
         payload.update(self._lora_payload(seqs, b))
         _, options = self._options_payload(seqs, b, row_inputs=False)
-        return SpecStepHandle(
+        self._last_handle = SpecStepHandle(
             list(seqs), [list(plan.drafts[i]) for i in range(len(seqs))],
-            self._dispatch(
-                "spec_verify", (b, s), payload, RAGGED_INPUTS,
-                lambda dev, mode: self._unified_body(dev, mode, options),
-                options=options))
+            self._dispatch("spec_verify", (b, s), payload, RAGGED_INPUTS,
+                           ("ragged",), options=options))
+        return self._last_handle
 
     # ---- unified ragged step ------------------------------------------------
 
@@ -1079,9 +1357,9 @@ class ModelRunner:
                              for c in chunks]
         _, options = self._options_payload(rows, r, row_inputs=False)
         toks, lps = _row_results(rows, self._dispatch(
-            "unified", (r, w), payload, RAGGED_INPUTS,
-            lambda dev, mode: self._unified_body(dev, mode, options),
+            "unified", (r, w), payload, RAGGED_INPUTS, ("ragged",),
             options=options))
+        self._last_handle = None
         prefill_out = [toks[off + j][0] if c.is_last_chunk else None
                        for j, c in enumerate(chunks)]
         prefill_lps = (None if lps is None else
@@ -1132,11 +1410,21 @@ class ModelRunner:
         for the step that wrote the page (an async step still in
         flight, a burst's writes) and for nothing else on the card. On
         the CPU the page is a copy too, never a view of the cache (a
-        pool holding a view would see the page's slot reused)."""
+        pool holding a view would see the page's slot reused). Under tp
+        every rank reads its kv heads and the page is gathered along
+        the head axis: the full page, as the JAX tp engine reads it,
+        the read published to the other ranks first."""
+        with self._bridge_lock():
+            self._publish({"op": "read_page", "page_id": int(page_id)})
+            return self._read_page(page_id)
+
+    def _read_page(self, page_id: int) -> Tuple[torch.Tensor, ...]:
         out = []
         for plane, stacked in self._page_planes():
             page = (plane[:, :, page_id] if stacked
                     else torch.stack([c[:, page_id] for c in plane]))
+            if self.tp is not None:
+                page = self.tp.all_gather(page, dim=1)
             out.append(page.to("cpu", copy=True))
         return tuple(out)
 
@@ -1148,7 +1436,8 @@ class ModelRunner:
         graphs hold the caches' addresses): what ``read_page`` gave, in
         the cache's element type (for an int8 cache, with its scales).
         One host-to-device copy a plane, queued on the steps' stream
-        before any step that reads the page."""
+        before any step that reads the page. Under tp the full page is
+        published and every rank writes its kv heads of it."""
         pages = [k_page, v_page]
         if self.kv_quantized:
             if k_scale is None or v_scale is None:
@@ -1156,12 +1445,23 @@ class ModelRunner:
                     "a quantized cache's page restore needs "
                     "k_scale/v_scale")
             pages += [k_scale, v_scale]
+        pages = [torch.as_tensor(page) for page in pages]
         for (plane, stacked), page in zip(self._page_planes(), pages):
             dtype = plane.dtype if stacked else plane[0].dtype
-            page = torch.as_tensor(page)
             if page.dtype != dtype:
                 raise TypeError(f"page of {page.dtype} for a cache of "
                                 f"{dtype}")
+        with self._bridge_lock():
+            self._publish({"op": "write_page", "page_id": int(page_id),
+                           "pages": pages})
+            self._write_page(page_id, pages)
+
+    def _write_page(self, page_id: int, pages) -> None:
+        """Each plane of a full page into this rank's cache: under tp
+        its kv heads of it."""
+        for (plane, stacked), page in zip(self._page_planes(), pages):
+            if self.tp is not None:
+                page = cut(page, 1, self.tp.rank, self.tp.size)
             page = page.to(self.device)
             if stacked:
                 plane[:, :, page_id] = page

@@ -10,7 +10,9 @@
 - **Memory ledger**: an analytic breakdown of device bytes (weights as
   the exact sum over the parameter tensors, KV pages and int8 scales
   from the page math, step buffers), plus the numeric fields of
-  ``torch.cuda.memory_stats`` on the card (absent on the CPU).
+  ``torch.cuda.memory_stats`` on the card (absent on the CPU). Under
+  tensor parallelism it is one rank's: its shard of the weights, its
+  kv heads of the pages, and rank 0's device (the server's process).
 - **Step-time / MFU ledger**: per-kind seconds the host waited on a
   step's read-back and the committed tokens it produced, turned into a
   model-FLOPs utilization against a peak table of NVIDIA cards (or
@@ -79,8 +81,11 @@ class PerfObservatory:
     def __init__(self, config, *, param_count: int = 0,
                  params_bytes: int = 0,
                  device: Optional[torch.device] = None,
-                 compile_ring_size: int = 128):
+                 compile_ring_size: int = 128, tp_size: int = 1):
         self.config = config
+        # The rank's share: ``param_count`` and ``params_bytes`` are its
+        # shard's, its pages hold kv heads / tp_size.
+        self.tp_size = int(tp_size)
         self.param_count = int(param_count)
         self.params_bytes = int(params_bytes)
         self.device = device or torch.device("cpu")
@@ -176,7 +181,8 @@ class PerfObservatory:
         model = self.config.model
         cache = self.config.cache
         sched = self.config.scheduler
-        slots = 2 * model.num_hidden_layers * model.num_key_value_heads
+        slots = (2 * model.num_hidden_layers * model.num_key_value_heads
+                 // self.tp_size)
         tokens = cache.num_pages * cache.page_size
         if cache.resolved_kv_dtype() == "int8":
             kv_pages = slots * tokens * model.head_dim  # int8 data
@@ -206,6 +212,7 @@ class PerfObservatory:
             "num_pages": self.config.cache.num_pages,
             "page_size": self.config.cache.page_size,
             "param_count": self.param_count,
+            "tensor_parallel_size": self.tp_size,
         }
         if self.device.type == "cuda":
             stats = torch.cuda.memory_stats(self.device)

@@ -157,7 +157,8 @@ def quantize_params(params: nn.Module, config: ModelConfig) -> nn.Module:
 
 
 def init_random_quantized(config: ModelConfig, seed: int,
-                          device: torch.device) -> nn.Module:
+                          device: torch.device, rank: int = 0,
+                          tp: int = 1) -> nn.Module:
     """Random int8 weights without materialising the projections in
     full precision: each target is uniform int8 in [-127, 127] with a
     flat 0.02 / 127 scale (the magnitude of the dense init), embeddings,
@@ -165,8 +166,14 @@ def init_random_quantized(config: ModelConfig, seed: int,
     zeros; the JAX function's leaf kinds and distribution, drawn with
     numpy's PCG64 from ``seed``, not its bits. Peak device memory is
     the serving footprint: only the int8 bytes and the non-target
-    leaves land on the card."""
+    leaves land on the card. Under tensor parallelism (``tp`` > 1)
+    every rank draws the same full leaves and keeps rank ``rank``'s
+    shard of each module as it is made (``parallel/mesh.py``)."""
     from production_stack_tpu_torch.models.registry import params_class
+    from production_stack_tpu_torch.parallel.mesh import (
+        param_specs,
+        shard_module,
+    )
 
     _targets(config)
     rng = np.random.Generator(np.random.PCG64(seed & 0x7FFFFFFF))
@@ -206,11 +213,21 @@ def init_random_quantized(config: ModelConfig, seed: int,
     # The draws in the order of the llama-only init this generalises:
     # the embeddings (and position table), the LM head, then each
     # layer's targets.
+    specs = param_specs(config)
+
+    def shard(module, name):
+        if tp > 1:
+            shard_module(module, name, specs, rank, tp)
+
     replace_leaves(out)
     if getattr(out, "lm_head", None) is not None:
         replace_leaves(out.lm_head)
+        shard(out.lm_head, "lm_head")
     for layer in out.layers:
         replace_leaves(layer)
+        shard(layer, "")
         for name in targets:
             setattr(layer, name, quant(getattr(layer, name)))
+            shard(getattr(layer, name), name)
+    out.tp_shard = (rank, tp)
     return out

@@ -126,6 +126,7 @@ import dataclasses
 import json
 import os
 import queue
+import signal
 import tempfile
 import threading
 import time
@@ -149,6 +150,7 @@ from production_stack_tpu_torch.engine.config import (
     KVEconConfig,
     LoRAConfig,
     OffloadConfig,
+    ParallelConfig,
     QoSConfig,
     SchedulerConfig,
     bench_1b_model_config,
@@ -161,6 +163,7 @@ from production_stack_tpu_torch.engine.embeddings import (
 from production_stack_tpu_torch.engine.engine import LLMEngine, StepOutput
 from production_stack_tpu_torch.engine.model_runner import (
     check_engine_geometry,
+    deferred_kv_eligible,
     resolve_device,
     unified_step_eligible,
 )
@@ -182,6 +185,15 @@ from production_stack_tpu_torch.kvecon.summary import (
 )
 from production_stack_tpu_torch.ops import paged_kv_common
 from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
+from production_stack_tpu_torch.parallel import mesh
+from production_stack_tpu_torch.parallel.distributed import (
+    start_tensor_parallel,
+)
+from production_stack_tpu_torch.parallel.topology import (
+    MeshPlan,
+    discover_topology,
+    parse_placement,
+)
 from production_stack_tpu_torch.qos import (
     PRIORITY_HEADER,
     PRIORITY_NAMES,
@@ -1071,6 +1083,14 @@ class EngineServer:
         lines.append("# TYPE vllm:engine_eager_steps_total counter")
         lines += [f'vllm:engine_eager_steps_total{{reason="{reason}"}} '
                   f"{float(n)}" for reason, n in sorted(eager.items())]
+        # The mesh the engine runs on, as the JAX server reports it: the
+        # port serves tp only, so dp, pp and sp are 1.
+        axis_sizes = {"dp": 1, "pp": 1, "sp": 1,
+                      "tp": self.engine.config.parallel.tensor_parallel_size}
+        lines.append("# TYPE vllm:engine_mesh_shape gauge")
+        lines += [f'vllm:engine_mesh_shape{{axis="{axis}"}} '
+                  f"{float(axis_sizes[axis])}"
+                  for axis in ("dp", "pp", "sp", "tp")]
         return lines
 
     def parse_completion(self, body: dict, chat: bool):
@@ -1794,7 +1814,7 @@ class EngineServer:
             self._embedder = Embedder(
                 self.engine.config.model, self.engine.runner.params,
                 max_len=self.engine.config.scheduler.max_model_len,
-                pooling=self.pooling)
+                pooling=self.pooling, encode_fn=self.engine.runner.encode)
         return self._embedder
 
     def _embed(self, token_lists: List[List[int]]):
@@ -2108,6 +2128,7 @@ class EngineHTTPServer(ThreadingHTTPServer):
         finally:
             self.app.loop.stop()
             self.server_close()
+            self.app.engine.close()
 
 
 # ---- construction -----------------------------------------------------------
@@ -2144,9 +2165,47 @@ def resolve_attention_impl(flag: str, device: torch.device) -> str:
     return "cuda"
 
 
-def build_engine_from_args(args) -> tuple:
+def _resolve_deferred_kv(args, model_config) -> bool:
+    """--deferred-kv-writes auto|on|off -> bool: 'auto' is on where the
+    JAX server's is (the same predicate over the same arguments,
+    ``deferred_kv_eligible``; the port serves neither pp nor cp, so
+    those are 1); an explicit 'on' the runner cannot serve is refused
+    by the runner, as in JAX."""
+    if args.deferred_kv_writes == "on":
+        return True
+    if args.deferred_kv_writes == "off":
+        return False
+    return deferred_kv_eligible(
+        model_config.architecture, args.decode_steps, args.attention_impl,
+        1, 1, args.speculative_k)
+
+
+def tp_devices(args, device: torch.device) -> list:
+    """The devices of the tp ranks, one a rank, from the mesh plan over
+    this host's topology (``--num-slices``, ``--mesh-placement``): the
+    CUDA devices, or on the CPU that many CPU ranks. A plan wider than
+    the host is refused, as in JAX."""
+    devices = None
+    if device.type == "cpu":
+        devices = [device] * args.tensor_parallel_size
+    topology = discover_topology(devices, num_slices=args.num_slices)
+    plan = MeshPlan(tp=args.tensor_parallel_size,
+                    placement=parse_placement(args.mesh_placement))
+    return plan.build(topology).tp_devices()
+
+
+def build_engine_from_args(args, devices=None, tp_backend=None) -> tuple:
+    """(engine, served name) of the parsed flags. ``devices`` and
+    ``tp_backend`` override the tp ranks' devices and backend (two ranks
+    that share one card need gloo, named explicitly); by default the
+    mesh plan picks the devices and NCCL joins them."""
     device = resolve_device(args.device)
     resolve_attention_impl(args.attention_impl, device)
+    if devices is None:
+        devices = ([device] if args.tensor_parallel_size <= 1
+                   and args.num_slices <= 1 else tp_devices(args, device))
+    devices = [torch.device(d) for d in devices]
+    device = devices[0]
     if args.compilation_cache_dir:
         paged_kv_common.set_build_root(
             os.path.join(args.compilation_cache_dir, "kernels"))
@@ -2165,6 +2224,7 @@ def build_engine_from_args(args) -> tuple:
         # built for, naming the missing PSTT_FOR_EACH_GEOMETRY line.
         model_config.dtype = args.dtype
     model_config.quantization = args.quantization
+    model_config.attention_impl = args.attention_impl
     config = EngineConfig(
         model=model_config,
         cache=CacheConfig(page_size=args.page_size,
@@ -2189,7 +2249,12 @@ def build_engine_from_args(args) -> tuple:
                     engine_role=args.engine_role)),
             speculative_k=args.speculative_k,
             speculative_min_match=args.speculative_min_match,
+            deferred_kv_writes=_resolve_deferred_kv(args, model_config),
             max_queue_len=args.max_queue_len),
+        parallel=ParallelConfig(
+            tensor_parallel_size=args.tensor_parallel_size,
+            num_slices=args.num_slices,
+            mesh_placement=args.mesh_placement),
         offload=OffloadConfig(
             enable=args.enable_kv_offload or bool(args.kv_remote_url),
             host_pool_bytes=args.kv_host_pool_bytes,
@@ -2229,18 +2294,37 @@ def build_engine_from_args(args) -> tuple:
         checkpoint_interval_tokens=args.checkpoint_interval_tokens,
         step_watchdog_s=args.step_watchdog_s,
     )
+    weights_dir = None
+    mesh.check_tp(model_config, len(devices))
     if args.model not in ("tiny-llama", "tiny-opt", "bench-1b"):
         if device.type == "cuda":
             # Refuse a geometry the kernels lack before reading weights.
             check_engine_geometry(config)
         if not args.random_weights:
-            params = load_weights(args.model, model_config, device=device)
+            # Rank 0's shard; the other ranks read their own.
+            weights_dir = args.model
+            params = load_weights(args.model, model_config, device=device,
+                                  tp=len(devices))
+    tp = None
+    if len(devices) > 1:
+        # Ranks 1..N-1, one card each (NCCL; gloo on the CPU), replay
+        # this process's steps through the bridge.
+        tp = start_tensor_parallel(config, devices, backend=tp_backend,
+                                   weights=weights_dir)
     # The presets serve with the bench tokenizer at the model's vocab:
     # random-weights greedy ids decode to one character each.
-    engine = LLMEngine(config, params=params,
-                       tokenizer=tokenizer or BenchTokenizer(
-                           model_config.vocab_size),
-                       device=device)
+    try:
+        engine = LLMEngine(config, params=params,
+                           tokenizer=tokenizer or BenchTokenizer(
+                               model_config.vocab_size),
+                           device=device,
+                           cuda_graphs=tp is None or tp.group.capturable,
+                           tp=tp and tp.group, bridge=tp and tp.bridge,
+                           tp_runtime=tp)
+    except BaseException:
+        if tp is not None:
+            tp.close()
+        raise
     for module in args.lora_modules or []:
         name, _, path = module.partition("=")
         if not path:
@@ -2339,6 +2423,25 @@ def parse_args(argv=None):
     p.add_argument("--speculative-min-match", type=int, default=2,
                    help="minimum n-gram length the proposer must match "
                         "before drafting")
+    p.add_argument("--deferred-kv-writes", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="defer a decode burst's KV writes to one flush a "
+                        "burst; the decode kernel reads the burst's tail. "
+                        "'auto' enables it when eligible (llama family, "
+                        "--decode-steps > 1, auto or xla attention, no "
+                        "--speculative-k)")
+    p.add_argument("--tensor-parallel-size", type=int, default=1,
+                   help="ranks that split the heads and the MLP, one "
+                        "card each over NCCL (on the CPU: gloo ranks); "
+                        "the server starts ranks 1..N-1 itself")
+    p.add_argument("--num-slices", type=int, default=0,
+                   help="force the device topology into N equal "
+                        "contiguous slices; 0 discovers it (one host is "
+                        "one slice)")
+    p.add_argument("--mesh-placement", default="auto",
+                   help="per-axis mesh placement as 'axis=ici' / "
+                        "'axis=any' pairs (comma separated); 'auto' "
+                        "keeps tp inside one slice")
     p.add_argument("--seed", type=int, default=0)
     # Offload tiers, QoS, fleet contract and KV economy: the JAX
     # server's flags, names, defaults and choices.
@@ -2496,11 +2599,13 @@ def load_chat_template(args) -> Optional[str]:
     return source
 
 
-def make_server(argv=None) -> EngineHTTPServer:
-    """Build the engine and bind the HTTP server (not yet serving)."""
+def make_server(argv=None, devices=None,
+                tp_backend=None) -> EngineHTTPServer:
+    """Build the engine and bind the HTTP server (not yet serving);
+    ``devices`` and ``tp_backend`` as ``build_engine_from_args``."""
     args = parse_args(argv)
     chat_template = load_chat_template(args)
-    engine, served_name = build_engine_from_args(args)
+    engine, served_name = build_engine_from_args(args, devices, tp_backend)
     return EngineHTTPServer((args.host, args.port),
                             EngineServer(
                                 engine, served_name,
@@ -2513,6 +2618,10 @@ def make_server(argv=None) -> EngineHTTPServer:
 
 def main(argv=None) -> None:
     server = make_server(argv)
+    # SIGTERM stops serving as a drain-exit does, so the tp workers
+    # are released and joined on the way out.
+    signal.signal(signal.SIGTERM, lambda *_: threading.Thread(
+        target=server.shutdown, daemon=True).start())
     host, port = server.server_address[:2]
     cache = server.app.engine.config.cache
     logger.info("Serving %s on http://%s:%d (role %s, device %s, KV cache "

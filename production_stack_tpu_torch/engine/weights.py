@@ -205,24 +205,40 @@ _PIECES = {"llama": _llama_piece, "mistral": _llama_piece,
 
 def load_weights(model_dir: str, config: ModelConfig,
                  dtype: Optional[torch.dtype] = None,
-                 device=None) -> nn.Module:
+                 device=None, rank: int = 0, tp: int = 1) -> nn.Module:
     """The checkpoint in ``model_dir`` as ``config``'s params module on
     ``device`` (the card unless the CPU is asked for), in ``dtype``
-    (default the config's). Raises if a leaf of the module is missing
-    from the checkpoint."""
+    (default the config's): rank ``rank``'s shard of ``tp``, with the
+    int8 targets quantized when ``config.quantization`` asks. Each
+    module is finished (``parallel/mesh.finish_module``: quantized,
+    then cut) as soon as its last piece is in, so the device holds the
+    rank's shard and the modules still being filled, never the whole
+    model. Raises if a leaf of the module is missing from the
+    checkpoint."""
     from production_stack_tpu_torch.engine.model_runner import (
         resolve_device,
+    )
+    from production_stack_tpu_torch.parallel.mesh import (
+        check_tp,
+        finish_module,
     )
     device = resolve_device(device)
     dtype = dtype or config.torch_dtype
     if config.architecture not in _PIECES:
         raise ValueError(f"Unknown architecture: {config.architecture}")
+    check_tp(config, tp)
     piece_of = _PIECES[config.architecture]
     # The module tree on the meta device: each leaf is made on the
-    # device when its first piece arrives.
+    # device when its first piece arrives, and set into its module
+    # when its last has.
     params = params_class(config)(config, torch.device("meta"), dtype)
+    shapes = {path: p.shape for path, p in params.named_parameters()}
+    pending: Dict[str, set] = {}
+    for path in shapes:
+        pending.setdefault(path.rpartition(".")[0], set()).add(path)
     leaves: Dict[str, torch.Tensor] = {}
     filled: Dict[str, int] = {}
+    loaded = 0
     with torch.no_grad():
         for name, tensor in iter_checkpoint(model_dir):
             piece = piece_of(config, name)
@@ -231,34 +247,42 @@ def load_weights(model_dir: str, config: ModelConfig,
                 continue
             path, index, transpose = piece
             if path not in leaves:
-                meta = params.get_parameter(path)
-                leaves[path] = torch.empty(meta.shape, dtype=dtype,
+                if filled.get(path):
+                    continue  # already complete and set
+                leaves[path] = torch.empty(shapes[path], dtype=dtype,
                                            device=device)
                 filled[path] = 0
             src = tensor.to(device=device, dtype=dtype)
             dst = leaves[path][index]
             dst.copy_(src.T if transpose else src)
             filled[path] += dst.numel()
+            if filled[path] < leaves[path].numel():
+                continue
+            leaf = leaves.pop(path)
+            loaded += leaf.numel() * leaf.element_size()
+            owner, _, attr = path.rpartition(".")
+            module = params.get_submodule(owner) if owner else params
+            setattr(module, attr, nn.Parameter(leaf, requires_grad=False))
+            pending[owner].discard(path)
+            if not pending[owner]:
+                finish_module(params, owner, config, rank, tp)
     if (getattr(params, "lm_head", None) is not None
-            and "lm_head.weight" not in leaves
+            and "lm_head.weight" not in filled
             and config.architecture in ("llama", "mistral", "qwen2",
                                         "mixtral")):
         # JAX's rule: no head in the checkpoint ties it to the
         # embeddings.
         config.tie_word_embeddings = True
         params.lm_head = None
-    missing = [path for path, p in params.named_parameters()
-               if filled.get(path, 0) != p.numel()]
+        shapes.pop("lm_head.weight")
+    missing = [path for path, shape in shapes.items()
+               if filled.get(path, 0) != shape.numel()]
     if missing:
         raise ValueError(f"{model_dir}: the checkpoint does not hold "
                          f"(all of) {missing[:8]}"
                          + (" ..." if len(missing) > 8 else ""))
-    for path, tensor in leaves.items():
-        owner, _, leaf = path.rpartition(".")
-        module = params.get_submodule(owner) if owner else params
-        setattr(module, leaf, nn.Parameter(tensor, requires_grad=False))
-    logger.info("Loaded %s weights from %s (%.2f GB in %s on %s)",
-                config.architecture, model_dir,
-                sum(t.numel() * t.element_size() for t in leaves.values())
-                / 1e9, dtype, device)
+    params.tp_shard = (rank, tp)
+    logger.info("Loaded %s weights from %s (%.2f GB in %s on %s, rank "
+                "%d of %d)", config.architecture, model_dir, loaded / 1e9,
+                dtype, device, rank, tp)
     return params

@@ -39,9 +39,9 @@ def init_params(config: ModelConfig, generator: torch.Generator,
 def forward(params: GPT2Params, config: ModelConfig, tokens, positions,
             page_table, kv_lens, valid, k_cache, v_cache, *, kind: str,
             impl: Optional[str] = None, select=None, lora=None,
-            lora_ids=None) -> torch.Tensor:
+            lora_ids=None, tp=None) -> torch.Tensor:
     """Same contract as ``llama.forward``."""
     return decoder_forward(params, config, tokens, positions, page_table,
                            kv_lens, valid, k_cache, v_cache, kind=kind,
                            activation=gelu_tanh, impl=impl, select=select,
-                           lora=lora, lora_ids=lora_ids)
+                           lora=lora, lora_ids=lora_ids, tp=tp)

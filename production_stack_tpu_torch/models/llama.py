@@ -18,6 +18,21 @@ forward the pooled routes run (engine/embeddings.py), over unquantized
 weights only. ``self_attention``, ``random_init``, ``lora_args`` and
 ``select_slots`` serve the other families too (models/opt.py,
 gpt2.py, mixtral.py).
+
+Tensor parallelism (``tp``, a ``parallel/collectives`` group): every
+forward takes the rank's shard (``parallel/mesh.shard_params``) and
+the config of that shard (``mesh.rank_model_config``: the rank's
+heads), and closes each row-parallel product with one all-reduce
+(``row_parallel``: the LoRA delta of the target is summed inside it,
+and a replicated bias is added once, after it); a vocab-sharded
+``lm_head``'s logits are gathered (``lm_logits``). With ``tp`` None
+the forward is the single-device one, bit for bit.
+
+Deferred KV writes (``kv_tail``, decode steps of a burst, llama family
+only as in JAX): each layer's K/V go into the burst's dense tails
+(``ops/attention.write_to_tail``) instead of the pages, and the decode
+kernel's tail form attends over the pages and the tail; the runner
+flushes the tails to the pages once a burst.
 """
 
 from __future__ import annotations
@@ -31,10 +46,16 @@ from torch.nn import functional as F
 
 from production_stack_tpu_torch.engine.config import ModelConfig
 from production_stack_tpu_torch.engine.lora import layer_stacks, lora_matmul
-from production_stack_tpu_torch.ops.attention import page_slots, write_slots
+from production_stack_tpu_torch.ops.attention import (
+    page_slots,
+    write_slots,
+    write_to_tail,
+)
 from production_stack_tpu_torch.ops.paged_attention_cuda import (
     paged_decode_attention,
     paged_decode_attention_plain,
+    paged_decode_tail_attention,
+    paged_decode_tail_attention_plain,
 )
 from production_stack_tpu_torch.ops.prefill_attention_cuda import (
     paged_prefill_attention,
@@ -145,9 +166,33 @@ def dispatch_attention(config: ModelConfig, q, k_cache, v_cache,
                      f"(got {kind!r})")
 
 
+def tail_attention(q, k, v, kc, vc, page_table, positions, kv_lens,
+                   valid, tails, layer: int, at: Optional[int],
+                   impl: Optional[str] = None) -> torch.Tensor:
+    """A deferred-write decode token: its K/V into the layer's burst
+    tails (slot = position - the frozen ``kv_lens``; rows not ``valid``
+    leave their tails as they are), then one softmax over the pages
+    (positions < kv_lens) and the tail (slot s at kv_lens + s, while at
+    most the query's position), through the decode kernel's tail form
+    ("cuda") or its plain version."""
+    kt, vt = tails[0][layer], tails[1][layer]
+    slot = positions[:, 0] - kv_lens
+    active = valid[:, 0]
+    write_to_tail(kt, k, slot, active)
+    write_to_tail(vt, v, slot, active)
+    impl = impl or ("cuda" if q.is_cuda else "plain")
+    fn = (paged_decode_tail_attention if impl == "cuda"
+          else paged_decode_tail_attention_plain)
+    q_pos = positions[:, 0].to(torch.int32).contiguous()
+    return fn(q[:, 0], kc, vc, page_table, kv_lens, kt, vt, q_pos,
+              layer=at)[:, None]
+
+
 def cached_attention(config: ModelConfig, q, k, v, k_cache, v_cache,
                      page_table, positions, kv_lens, slots, layer: int,
-                     kind: str, impl: Optional[str] = None) -> torch.Tensor:
+                     kind: str, impl: Optional[str] = None,
+                     valid: Optional[torch.Tensor] = None,
+                     kv_tail=None) -> torch.Tensor:
     """Write one layer's K/V into the cache (in place) and attend.
 
     ``k_cache``/``v_cache`` are the per_layer lists (the layer's own
@@ -157,11 +202,15 @@ def cached_attention(config: ModelConfig, q, k, v, k_cache, v_cache,
     ``ops.attention.page_slots``, shared by every layer. A QuantKV
     cache is written through the quantizing path (``write_slots``
     quantizes each slot's row with its own scale), and the kernels
-    dequantize on read."""
+    dequantize on read. With ``kv_tail`` (a deferred burst's decode
+    step) the cache is only read: see ``tail_attention``."""
     if isinstance(k_cache, (list, tuple)):
         kc, vc, at = k_cache[layer], v_cache[layer], None
     else:
         kc, vc, at = k_cache, v_cache, layer
+    if kv_tail is not None:
+        return tail_attention(q, k, v, kc, vc, page_table, positions,
+                              kv_lens, valid, kv_tail, layer, at, impl)
     write_slots(kc, k, *slots, layer=at)
     write_slots(vc, v, *slots, layer=at)
     return dispatch_attention(config, q, kc, vc, page_table, positions,
@@ -176,23 +225,30 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (normed * weight.float()).to(x.dtype)
 
 
+def random_leaf(name: str, shape, dtype: torch.dtype,
+                generator: torch.Generator,
+                device: torch.device) -> torch.Tensor:
+    """One leaf of ``random_init``, by its parameter name: unit norms,
+    zero biases, N(0, 0.02) for the rest (one draw from ``generator``,
+    which must live on ``device``)."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf.endswith("norm") or leaf.endswith("norm_w"):
+        return torch.ones(shape, dtype=dtype, device=device)
+    if leaf == "bias" or leaf.endswith("norm_b"):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    noise = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+    return noise.mul_(0.02).to(dtype)
+
+
 def random_init(params: nn.Module, generator: torch.Generator,
                 device: torch.device) -> nn.Module:
     """Fill a params module of any family in place: N(0, 0.02)
     projections, experts, embeddings and position tables, unit norms,
     zero biases (the JAX inits' distribution, not their bits), drawn in
-    the module's parameter order. ``generator`` must live on
-    ``device``."""
+    the module's parameter order (``random_leaf``)."""
     for name, p in params.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf.endswith("norm") or leaf.endswith("norm_w"):
-            p.fill_(1.0)
-        elif leaf == "bias" or leaf.endswith("norm_b"):
-            p.zero_()
-        else:
-            noise = torch.randn(p.shape, generator=generator,
-                                device=device, dtype=torch.float32)
-            p.copy_(noise.mul_(0.02))
+        p.copy_(random_leaf(name, p.shape, p.dtype, generator, device))
     return params
 
 
@@ -203,17 +259,34 @@ def init_params(config: ModelConfig, generator: torch.Generator,
     return random_init(LlamaParams(config, device), generator, device)
 
 
+def row_parallel(x: torch.Tensor, base, ll, targets, ids, lora_scale,
+                 tp=None) -> torch.Tensor:
+    """A row-parallel projection (attention's output, the MLP's down):
+    the rank's partial product with its LoRA delta, summed over the
+    ranks by ONE all-reduce, then the replicated bias (``row_bias``,
+    parallel/mesh.py) added once. Without ``tp`` it is ``lora_matmul``."""
+    out = lora_matmul(x, base, ll, targets, ids, lora_scale)
+    if tp is None:
+        return out
+    out = tp.all_reduce(out)
+    bias = getattr(base, "row_bias", None)
+    return out if bias is None else out + bias
+
+
 def self_attention(config: ModelConfig, lp: nn.Module, a_in: torch.Tensor,
                    positions: torch.Tensor, page_table, kv_lens, k_cache,
                    v_cache, slots, layer: int, kind: str,
                    impl: Optional[str], ll, ids, lora_scale,
-                   rope: bool = True) -> torch.Tensor:
+                   rope: bool = True, tp=None,
+                   valid: Optional[torch.Tensor] = None,
+                   kv_tail=None) -> torch.Tensor:
     """One layer's attention from its normed input to the output
     projection, shared by every family: the fused q/k/v projection
     (``lp.qkv``, with its bias if the family has one), RoPE where the
     family uses it (llama, mixtral; OPT and GPT-2 add learned positions
     to the embeddings instead), the cache write and the step kind's
-    kernel, then ``lp.o``; each projection with its LoRA deltas."""
+    kernel, then ``lp.o`` (row-parallel under ``tp``); each projection
+    with its LoRA deltas. ``config`` gives the rank's heads."""
     nh, nkv, d = (config.num_attention_heads, config.num_key_value_heads,
                   config.head_dim)
     b, t = a_in.shape[:2]
@@ -230,9 +303,9 @@ def self_attention(config: ModelConfig, lp: nn.Module, a_in: torch.Tensor,
         q = q.contiguous()  # a view of the fused projection's output
     attn = cached_attention(config, q, k, v, k_cache, v_cache, page_table,
                             positions, kv_lens, slots, layer, kind,
-                            impl=impl)
-    return lora_matmul(attn.reshape(b, t, nh * d), lp.o, ll, "wo", ids,
-                       lora_scale)
+                            impl=impl, valid=valid, kv_tail=kv_tail)
+    return row_parallel(attn.reshape(b, t, nh * d), lp.o, ll, "wo", ids,
+                        lora_scale, tp)
 
 
 def lora_args(lora, lora_ids):
@@ -250,8 +323,8 @@ def forward(params: LlamaParams, config: ModelConfig,
             valid: torch.Tensor, k_cache, v_cache, *, kind: str,
             impl: Optional[str] = None,
             select: Optional[torch.Tensor] = None,
-            lora=None, lora_ids: Optional[torch.Tensor] = None
-            ) -> torch.Tensor:
+            lora=None, lora_ids: Optional[torch.Tensor] = None,
+            tp=None, kv_tail=None) -> torch.Tensor:
     """One model invocation over a (possibly padded) token block.
 
     Args:
@@ -272,10 +345,16 @@ def forward(params: LlamaParams, config: ModelConfig,
                   step never materializes [B, T, vocab]
       lora:       optional adapter stacks (engine/lora.py), layer-leading
       lora_ids:   [B] adapter slot per batch row (0 = base model)
+      tp:         the rank's tensor-parallel group (params and config
+                  the rank's shard), or None
+      kv_tail:    a deferred burst's (k tails, v tails), L-lists of
+                  [B, S, kv, d] written in place; ``kv_lens`` is then
+                  the frozen count of tokens in the pages (decode only)
 
-    Returns f32 logits [B, T, vocab], or [B, S, vocab] with ``select``.
-    Every family's forward (models/opt.py, gpt2.py, mixtral.py) has
-    this contract.
+    Returns f32 logits [B, T, vocab], or [B, S, vocab] with ``select``
+    (the full vocabulary on every rank under ``tp``). Every family's
+    forward (models/opt.py, gpt2.py, mixtral.py) has this contract
+    (``kv_tail`` is the llama family's only, as in JAX).
     """
     slots = page_slots(page_table, positions, valid,
                        k_cache[0].shape[-1])
@@ -286,17 +365,27 @@ def forward(params: LlamaParams, config: ModelConfig,
         a_in = rms_norm(x, lp.attn_norm, config.rms_norm_eps)
         x = x + self_attention(config, lp, a_in, positions, page_table,
                                kv_lens, k_cache, v_cache, slots, layer,
-                               kind, impl, ll, ids, lora_scale)
+                               kind, impl, ll, ids, lora_scale, tp=tp,
+                               valid=valid, kv_tail=kv_tail)
         m_in = rms_norm(x, lp.mlp_norm, config.rms_norm_eps)
         gate, up = lora_matmul(m_in, lp.gate_up, ll, GATE_UP_TARGETS, ids,
                                lora_scale).chunk(2, dim=-1)
-        x = x + lora_matmul(F.silu(gate) * up, lp.down, ll, "w_down", ids,
-                            lora_scale)
+        x = x + row_parallel(F.silu(gate) * up, lp.down, ll, "w_down", ids,
+                             lora_scale, tp)
     x = select_slots(x, select)
     x = rms_norm(x, params.final_norm, config.rms_norm_eps)
-    head = (params.embed if params.lm_head is None
-            else params.lm_head.weight)
-    return F.linear(x, head).float()
+    return lm_logits(x, params, tp)
+
+
+def lm_logits(x: torch.Tensor, params: nn.Module, tp=None) -> torch.Tensor:
+    """f32 logits of the final hidden states: the tied embedding
+    (replicated, nothing to gather) or ``lm_head`` (vocab-sharded under
+    ``tp``: the ranks' logits gathered to the full vocabulary, rank
+    order, on every rank)."""
+    if getattr(params, "lm_head", None) is None:
+        return F.linear(x, params.embed).float()
+    logits = F.linear(x, params.lm_head.weight)
+    return (logits if tp is None else tp.all_gather(logits)).float()
 
 
 def select_slots(x: torch.Tensor,
@@ -308,7 +397,7 @@ def select_slots(x: torch.Tensor,
 
 
 def encode(params: LlamaParams, config: ModelConfig,
-           tokens: torch.Tensor) -> torch.Tensor:
+           tokens: torch.Tensor, tp=None) -> torch.Tensor:
     """Dense causal forward returning final-norm hidden states
     [B, T, hidden]: the JAX package's ``llama.encode``, which the
     /v1/embeddings, score and rerank routes pool (engine/embeddings.py).
@@ -318,6 +407,8 @@ def encode(params: LlamaParams, config: ModelConfig,
     softmaxed, in the JAX function's order of operations (the TPU runs
     it outside Pallas as well). Pad tokens sit after a row's last real
     token, so the causal mask keeps them out of every real position.
+    Under ``tp`` (the rank's shard and config) the output and down
+    projections are row-parallel.
     """
     nh, nkv, d = (config.num_attention_heads, config.num_key_value_heads,
                   config.head_dim)
@@ -342,8 +433,9 @@ def encode(params: LlamaParams, config: ModelConfig,
         probs = torch.softmax(scores, dim=-1)
         attn = torch.einsum("bkgts,bskd->btkgd", probs,
                             v.float()).reshape(b, t, nh * d).to(x.dtype)
-        x = x + lp.o(attn)
+        x = x + row_parallel(attn, lp.o, None, "wo", None, None, tp)
         m_in = rms_norm(x, lp.mlp_norm, config.rms_norm_eps)
         gate, up = lp.gate_up(m_in).chunk(2, dim=-1)
-        x = x + lp.down(F.silu(gate) * up)
+        x = x + row_parallel(F.silu(gate) * up, lp.down, None, "w_down",
+                             None, None, tp)
     return rms_norm(x, params.final_norm, config.rms_norm_eps)

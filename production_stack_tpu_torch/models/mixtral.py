@@ -20,6 +20,12 @@ would do E/k times fewer operations; that is later work.
 
 Expert weights are not LoRA targets and not weight-only int8 targets
 (JAX refuses ``--quantization int8`` for mixtral).
+
+Under tensor parallelism the experts are split (parallel/mesh.py): rank
+r holds experts [r E/tp, (r+1) E/tp), the router stays whole, and the
+block's output, the rank's experts' share of the weighted sum, closes
+with one all-reduce (JAX's expert-parallel specs, where GSPMD places
+that psum).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from torch.nn import functional as F
 from production_stack_tpu_torch.engine.config import ModelConfig
 from production_stack_tpu_torch.engine.lora import layer_stacks
 from production_stack_tpu_torch.models.llama import (
+    lm_logits,
     lora_args,
     random_init,
     rms_norm,
@@ -91,11 +98,14 @@ def top_k_lower_index(logits: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_block(x: torch.Tensor, lp: MixtralLayer, top_k: int
+def moe_block(x: torch.Tensor, lp: MixtralLayer, top_k: int, tp=None
               ) -> torch.Tensor:
     """Top-k routed SwiGLU experts, dense: x [B, T, H] -> [B, T, H].
     Router logits in f32 (the product in x's dtype, as JAX casts it),
-    softmax over the top-k values, the combine weights in x's dtype."""
+    softmax over the top-k values, the combine weights in x's dtype.
+    Under ``tp`` the layer holds the rank's experts only: the router
+    picks among all E, the rank weighs its own, and the ranks' sums are
+    reduced."""
     b, t, h = x.shape
     e, ffn = lp.w_gate.shape[:2]
     xf = x.reshape(b * t, h)
@@ -103,11 +113,15 @@ def moe_block(x: torch.Tensor, lp: MixtralLayer, top_k: int
     top_vals, top_idx = top_k_lower_index(router, top_k)
     combine = torch.zeros_like(router).scatter_(
         -1, top_idx, torch.softmax(top_vals, dim=-1))
+    if tp is not None:
+        combine = combine[:, tp.rank * e:(tp.rank + 1) * e]
     hidden = F.silu(F.linear(xf, lp.w_gate.reshape(e * ffn, h)))
     hidden = hidden * F.linear(xf, lp.w_up.reshape(e * ffn, h))
     hidden = hidden.view(b * t, e, ffn) * combine.to(x.dtype)[:, :, None]
     out = F.linear(hidden.reshape(b * t, e * ffn),
                    lp.w_down.reshape(h, e * ffn))
+    if tp is not None:
+        out = tp.all_reduce(out)
     return out.reshape(b, t, h)
 
 
@@ -122,7 +136,8 @@ def forward(params: MixtralParams, config: ModelConfig,
             valid: torch.Tensor, k_cache, v_cache, *, kind: str,
             impl: Optional[str] = None,
             select: Optional[torch.Tensor] = None, lora=None,
-            lora_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+            lora_ids: Optional[torch.Tensor] = None, tp=None
+            ) -> torch.Tensor:
     """Same contract as ``llama.forward``. LoRA applies to the
     attention projections only."""
     slots = page_slots(page_table, positions, valid,
@@ -134,11 +149,9 @@ def forward(params: MixtralParams, config: ModelConfig,
         a_in = rms_norm(x, lp.attn_norm, config.rms_norm_eps)
         x = x + self_attention(config, lp, a_in, positions, page_table,
                                kv_lens, k_cache, v_cache, slots, layer,
-                               kind, impl, ll, ids, lora_scale)
+                               kind, impl, ll, ids, lora_scale, tp=tp)
         m_in = rms_norm(x, lp.mlp_norm, config.rms_norm_eps)
-        x = x + moe_block(m_in, lp, config.num_experts_per_tok)
+        x = x + moe_block(m_in, lp, config.num_experts_per_tok, tp)
     x = select_slots(x, select)
     x = rms_norm(x, params.final_norm, config.rms_norm_eps)
-    head = (params.embed if params.lm_head is None
-            else params.lm_head.weight)
-    return F.linear(x, head).float()
+    return lm_logits(x, params, tp)

@@ -27,6 +27,7 @@ from production_stack_tpu_torch.engine.lora import layer_stacks, lora_matmul
 from production_stack_tpu_torch.models.llama import (
     lora_args,
     random_init,
+    row_parallel,
     select_slots,
     self_attention,
 )
@@ -100,9 +101,12 @@ def decoder_forward(params: OPTParams, config: ModelConfig,
                     activation: Callable[[torch.Tensor], torch.Tensor],
                     impl: Optional[str] = None,
                     select: Optional[torch.Tensor] = None, lora=None,
-                    lora_ids: Optional[torch.Tensor] = None
+                    lora_ids: Optional[torch.Tensor] = None, tp=None
                     ) -> torch.Tensor:
-    """The OPT/GPT-2 body under ``llama.forward``'s contract.
+    """The OPT/GPT-2 body under ``llama.forward``'s contract. Under
+    ``tp`` the output projection and fc2 are row-parallel, their biases
+    replicated and added once after the reduce; the head is the
+    replicated embedding, so nothing is gathered.
 
     The position index (``positions + POS_OFFSET``) is clamped into the
     table: the JAX gather clamps silently, while an out-of-range index
@@ -121,11 +125,12 @@ def decoder_forward(params: OPTParams, config: ModelConfig,
         a_in = layer_norm(x, lp.attn_norm_w, lp.attn_norm_b)
         x = x + self_attention(config, lp, a_in, positions, page_table,
                                kv_lens, k_cache, v_cache, slots, layer,
-                               kind, impl, ll, ids, lora_scale, rope=False)
+                               kind, impl, ll, ids, lora_scale, rope=False,
+                               tp=tp)
         m_in = layer_norm(x, lp.mlp_norm_w, lp.mlp_norm_b)
         hidden = activation(lora_matmul(m_in, lp.fc1, ll, "fc1", ids,
                                         lora_scale))
-        x = x + lora_matmul(hidden, lp.fc2, ll, "fc2", ids, lora_scale)
+        x = x + row_parallel(hidden, lp.fc2, ll, "fc2", ids, lora_scale, tp)
     x = select_slots(x, select)
     x = layer_norm(x, params.final_norm_w, params.final_norm_b)
     return F.linear(x, params.embed).float()
@@ -134,9 +139,9 @@ def decoder_forward(params: OPTParams, config: ModelConfig,
 def forward(params: OPTParams, config: ModelConfig, tokens, positions,
             page_table, kv_lens, valid, k_cache, v_cache, *, kind: str,
             impl: Optional[str] = None, select=None, lora=None,
-            lora_ids=None) -> torch.Tensor:
+            lora_ids=None, tp=None) -> torch.Tensor:
     """Same contract as ``llama.forward``."""
     return decoder_forward(params, config, tokens, positions, page_table,
                            kv_lens, valid, k_cache, v_cache, kind=kind,
                            activation=F.relu, impl=impl, select=select,
-                           lora=lora, lora_ids=lora_ids)
+                           lora=lora, lora_ids=lora_ids, tp=tp)

@@ -112,11 +112,36 @@ def write_to_pages(cache: Cache, new_kv: torch.Tensor,
     return cache
 
 
+def write_to_tail(tail: torch.Tensor, new_kv: torch.Tensor,
+                  slot: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """One decode token into its burst-tail slot (a deferred KV write),
+    IN PLACE; returns ``tail``. The JAX function returns a new array;
+    here the tails are buffers a burst owns (a step graph's, on the
+    card), so the write keeps their addresses.
+
+    Args:
+      tail:   [B, S, kv_heads, head_dim]
+      new_kv: [B, 1, kv_heads, head_dim], this step's K or V
+      slot:   [B] tail slot per row (query position - frozen kv_len)
+      active: [B] bool, rows decoding this step; a frozen row's tail is
+              untouched (its stale slots stay out of attention by
+              position and out of the flush by the emitted count)
+    """
+    s = tail.shape[1]
+    hit = ((torch.arange(s, device=tail.device)[None, :]
+            == slot.long()[:, None]) & active[:, None])
+    tail.copy_(torch.where(hit[..., None, None], new_kv.to(tail.dtype),
+                           tail))
+    return tail
+
+
 def paged_attention(q: torch.Tensor, k_cache_layer: Cache,
                     v_cache_layer: Cache, page_table: torch.Tensor,
                     q_positions: torch.Tensor,
                     kv_lens: torch.Tensor,
-                    layer: Optional[int] = None) -> torch.Tensor:
+                    layer: Optional[int] = None,
+                    k_tail: Optional[torch.Tensor] = None,
+                    v_tail: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal attention of q against a sequence's cached pages.
 
     Args:
@@ -128,6 +153,11 @@ def paged_attention(q: torch.Tensor, k_cache_layer: Cache,
       page_table:  [B, max_pages]
       q_positions: [B, T] absolute positions of the queries
       kv_lens:     [B] number of valid cached tokens
+      k_tail/v_tail: optional [B, S, kv_heads, head_dim] deferred-write
+                   burst tails of tokens not yet in the pages: slot s is
+                   position ``kv_lens + s`` (kv_lens frozen for the
+                   burst), masked by position only, one softmax over
+                   pages and tail (the JAX function's)
 
     An int8 cache keeps its pages int8 through the products and folds
     the per-slot scales in afterwards, as the JAX version does: the K
@@ -169,8 +199,25 @@ def paged_attention(q: torch.Tensor, k_cache_layer: Cache,
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
 
     shape = scores.shape
-    probs = torch.softmax(scores.reshape(*shape[:-2], p_cnt * page),
-                          dim=-1).reshape(shape)
+    flat = scores.reshape(*shape[:-2], p_cnt * page)
+    if k_tail is not None:
+        s_len = k_tail.shape[1]
+        t_scores = torch.einsum("btkgd,bskd->bkgts", qg,
+                                k_tail.float()) * scale
+        tail_pos = (kv_lens.long()[:, None]
+                    + torch.arange(s_len, device=q.device)[None, :])
+        t_mask = tail_pos[:, None, :] <= q_positions.long()[:, :, None]
+        t_scores = torch.where(t_mask[:, None, None], t_scores, NEG_INF)
+        probs = torch.softmax(torch.cat([flat, t_scores], dim=-1), dim=-1)
+        p_pages = probs[..., :p_cnt * page].reshape(shape)
+        p_tail = probs[..., p_cnt * page:]
+        if quantized:
+            p_pages = p_pages * v_scale
+        out = (torch.einsum("bkgtpc,kbpdc->btkgd", p_pages, v)
+               + torch.einsum("bkgts,bskd->btkgd", p_tail,
+                              v_tail.float()))
+        return out.reshape(b, t, num_q_heads, head_dim).to(q.dtype)
+    probs = torch.softmax(flat, dim=-1).reshape(shape)
     if quantized:
         probs = probs * v_scale
     out = torch.einsum("bkgtpc,kbpdc->btkgd", probs, v)

@@ -34,6 +34,19 @@ once per step and keeps bytes in flight on every SM:
   scales stage with the same copies and fold in as the Pallas kernel
   folds them.
 
+The burst-tail form (``paged_decode_tail_attention``) serves a decode
+burst with deferred KV writes (the JAX runner's
+``_decode_burst_deferred_impl``; its XLA attention,
+production_stack_tpu/ops/attention.py ``paged_attention`` with
+``k_tail``/``v_tail``, runs no Pallas kernel): the burst's tokens not
+yet flushed to the pages lie in a dense [B, S <= 32, kv_heads,
+head_dim] tail in the query's type, slot s of row b at position
+``kv_lens[b] + s``, attending iff that position is at most the row's
+query position. On the card the tail is one more split of the same
+launch: a small kernel writes its softmax state after the walk's
+splits, and the merge folds it in last. Its extra bytes are the
+tail's 2 * S * kv_heads * head_dim elements a row, read once.
+
 Contract (the Pallas kernel's): q [B, num_q_heads, head_dim];
 k/v cache [kv_heads, num_pages, head_dim, page_size] (token-minor
 pages), or the stacked [L, kv_heads, ...] cache with ``layer`` (read in
@@ -51,6 +64,7 @@ import torch
 
 from production_stack_tpu_torch.ops.paged_kv_common import (
     COUNTERS,
+    NEG_INF,
     cache_code,
     check_cache,
     check_kernel_operands,
@@ -69,6 +83,9 @@ from production_stack_tpu_torch.ops.paged_kv_common import (
 )
 
 KERNEL_NAME = "paged_decode"
+TAIL_KERNEL_NAME = "paged_decode_tail"
+# The most tail slots a burst carries (csrc/paged_decode.cu kMaxTail).
+MAX_TAIL = 32
 
 
 # Blocks the split aims to put on the card: four for each of the
@@ -192,4 +209,143 @@ def paged_decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                                     chunk_range=(s * per, (s + 1) * per))
                   for s in range(splits)]
         out = merge_partials_plain(*(torch.stack(x) for x in zip(*states)))
+    return out.reshape(b, num_q_heads, head_dim).to(q.dtype)
+
+
+def check_tail(q: torch.Tensor, k_tail: torch.Tensor, v_tail: torch.Tensor,
+               q_pos: torch.Tensor, num_kv_heads: int) -> None:
+    """A burst tail's operands: k/v tails [B, S, kv_heads, head_dim] in
+    q's dtype on q's device, 1 <= S <= MAX_TAIL, contiguous; q_pos [B]
+    int32. Raises on anything else."""
+    b, _, head_dim = q.shape
+    shape = k_tail.shape
+    if (k_tail.dim() != 4 or v_tail.shape != shape or shape[0] != b
+            or shape[2] != num_kv_heads or shape[3] != head_dim
+            or not 1 <= shape[1] <= MAX_TAIL):
+        raise ValueError(
+            f"k/v tails must be [B, 1..{MAX_TAIL}, kv_heads, head_dim] = "
+            f"[{b}, S, {num_kv_heads}, {head_dim}], got "
+            f"{tuple(shape)} and {tuple(v_tail.shape)}")
+    for name, t in (("k_tail", k_tail), ("v_tail", v_tail)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must be {q.dtype} on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if (q_pos.shape != (b,) or q_pos.dtype != torch.int32
+            or q_pos.device != q.device or not q_pos.is_contiguous()):
+        raise ValueError("q_pos must be a contiguous int32 [B] on q's "
+                         "device")
+
+
+def paged_decode_tail_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                                v_cache: torch.Tensor,
+                                page_table: torch.Tensor,
+                                kv_lens: torch.Tensor,
+                                k_tail: torch.Tensor, v_tail: torch.Tensor,
+                                q_pos: torch.Tensor,
+                                layer: Optional[int] = None,
+                                num_splits: Optional[int] = None
+                                ) -> torch.Tensor:
+    """Single-token paged attention over the pages (positions <
+    ``kv_lens``) and a burst tail: slot s of row b at position
+    ``kv_lens[b] + s``, attending iff it is at most ``q_pos[b]``. One
+    softmax over both.
+
+    CPU tensors take the plain version; CUDA tensors launch the tail
+    form of the kernel (int8 pages for a QuantKV cache, stacked with
+    ``layer``) or raise. ``num_splits`` as in
+    ``paged_decode_attention``."""
+    check_cache(k_cache, v_cache, layer)
+    kc, vc, ks, vs = split_cache(k_cache, v_cache)
+    num_kv_heads, num_pages, _, page_size = kc.shape[-4:]
+    check_tail(q, k_tail, v_tail, q_pos, num_kv_heads)
+    if q.device.type == "cpu":
+        return paged_decode_tail_attention_plain(
+            q, k_cache, v_cache, page_table, kv_lens, k_tail, v_tail,
+            q_pos, layer, num_splits or 1)
+    b, num_q_heads, head_dim = q.shape
+    out = torch.empty_like(q)
+    check_kernel_operands(
+        q, kc, vc, (("page_table", page_table), ("kv_lens", kv_lens)),
+        out, ks, vs)
+    if kv_lens.shape != (b,) or page_table.shape[0] != b:
+        raise ValueError("page_table/kv_lens rows must match the batch")
+    splits, per = _split_for(num_splits, b, num_kv_heads,
+                             page_table.shape[1], page_size)
+    # The walk's splits and the tail's slot after them.
+    partials = torch.empty(
+        (b, num_kv_heads, splits + 1, num_q_heads // num_kv_heads,
+         head_dim + 2), dtype=torch.float32, device=q.device)
+    name = counter_name(TAIL_KERNEL_NAME, ks, layer)
+    err = kernel_lib().pstt_paged_decode_tail(
+        dtype_code(q.dtype), cache_code(kc.dtype), q.data_ptr(),
+        kc.data_ptr(), vc.data_ptr(), data_ptr(ks), data_ptr(vs),
+        page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+        partials.data_ptr(), k_tail.data_ptr(), v_tail.data_ptr(),
+        q_pos.data_ptr(), b, num_q_heads, num_kv_heads, head_dim,
+        num_pages, page_size, page_table.shape[1], splits, per,
+        k_tail.shape[1], *layer_args(kc, ks, layer), stream_ptr())
+    check_launch(name, err)
+    COUNTERS.launched(name)
+    return out
+
+
+def tail_partial_plain(q: torch.Tensor, k_tail: torch.Tensor,
+                       v_tail: torch.Tensor, kv_lens: torch.Tensor,
+                       q_pos: torch.Tensor):
+    """The tail's softmax state (m, l, acc) in f32, [B, KV, G, 1 | D]:
+    the tail kernel's function. Slots that do not attend score -1e30
+    and weigh 0; a row with none keeps the empty state (-1e30, 0, 0)."""
+    b, num_q_heads, head_dim = q.shape
+    num_kv_heads, s_len = k_tail.shape[2], k_tail.shape[1]
+    qg = q.float().reshape(b, num_kv_heads, num_q_heads // num_kv_heads,
+                           head_dim)
+    kt = k_tail.float().permute(0, 2, 3, 1)  # [B, KV, D, S]
+    vt = v_tail.float().permute(0, 2, 1, 3)  # [B, KV, S, D]
+    slot_pos = (kv_lens.long()[:, None]
+                + torch.arange(s_len, device=q.device)[None, :])
+    live = (slot_pos <= q_pos.long()[:, None])[:, None, None, :]
+    scores = torch.where(live, (qg @ kt) * (1.0 / head_dim ** 0.5),
+                         NEG_INF)
+    m = scores.amax(-1, keepdim=True)
+    p = torch.where(live, torch.exp(scores - m), 0.0)
+    return m, p.sum(-1, keepdim=True), p @ vt
+
+
+def paged_decode_tail_attention_plain(q: torch.Tensor,
+                                      k_cache: torch.Tensor,
+                                      v_cache: torch.Tensor,
+                                      page_table: torch.Tensor,
+                                      kv_lens: torch.Tensor,
+                                      k_tail: torch.Tensor,
+                                      v_tail: torch.Tensor,
+                                      q_pos: torch.Tensor,
+                                      layer: Optional[int] = None,
+                                      num_splits: int = 1) -> torch.Tensor:
+    """The tail form's function in plain torch: the page walk of
+    ``paged_decode_attention_plain`` in ``num_splits`` ranges to their
+    unnormalised states, the tail's state as one more chunk
+    (``tail_partial_plain``), all merged in split order, the tail last,
+    as the kernel merges them."""
+    check_cache(k_cache, v_cache, layer)
+    kc, vc, ks, vs = split_cache(k_cache, v_cache)
+    if q.is_cuda:
+        COUNTERS.plain_on_cuda(counter_name(TAIL_KERNEL_NAME, ks, layer))
+    b, num_q_heads, head_dim = q.shape
+    num_kv_heads = kc.shape[-4]
+    qg = q.reshape(b, num_kv_heads, num_q_heads // num_kv_heads,
+                   head_dim)
+    kv = kv_lens.long()[:, None, None, None]
+
+    def mask(pos):
+        return pos < kv
+
+    splits, per = _split_for(num_splits, b, num_kv_heads,
+                             page_table.shape[1], kc.shape[-1])
+    states = [page_walk_partial(qg, kc, vc, page_table, kv_lens, mask, ks,
+                                vs, layer,
+                                chunk_range=(s * per, (s + 1) * per))
+              for s in range(splits)]
+    states.append(tail_partial_plain(q, k_tail, v_tail, kv_lens, q_pos))
+    out = merge_partials_plain(*(torch.stack(x) for x in zip(*states)))
     return out.reshape(b, num_q_heads, head_dim).to(q.dtype)

@@ -192,6 +192,12 @@ def kernel_lib() -> ctypes.CDLL:
             lib.pstt_paged_decode.argtypes = (
                 [i32] * 2 + [ptr] * 9 + [i32] * 9 + layer)
             lib.pstt_paged_decode.restype = i32
+            # decode over pages and a burst tail: ... out, split
+            # scratch, k/v tail, query positions, the same 9 ints and
+            # the tail's length.
+            lib.pstt_paged_decode_tail.argtypes = (
+                [i32] * 2 + [ptr] * 12 + [i32] * 10 + layer)
+            lib.pstt_paged_decode_tail.restype = i32
             lib.pstt_paged_prefill.argtypes = (
                 [i32] * 2 + [ptr] * 9 + [i32] * 8 + layer)
             lib.pstt_paged_prefill.restype = i32

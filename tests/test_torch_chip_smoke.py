@@ -159,7 +159,8 @@ sys.exit(smoke.main())
 PHASES_RUN_BY_MAIN = ["kernel_phase", "model_phase", "engine_phase",
                       "graph_phase", "sampling_options_phase",
                       "serving_phase", "fleet_phase", "disagg_phase",
-                      "autotune_phase", "weights_phase", "families_phase"]
+                      "autotune_phase", "weights_phase", "families_phase",
+                      "tp_phase"]
 
 
 @pytest.mark.parametrize("failing", PHASES_RUN_BY_MAIN)
@@ -260,3 +261,46 @@ def test_kernels_line_carries_the_new_geometries():
             entry["name"]]
     assert sorted(line[3]["families"]) == ["gpt2 fc1", "opt-1.3b fc1"]
     assert line[3]["launches"] == 64
+
+
+def test_kernels_line_carries_the_tail_form():
+    """With the tp phase's results the line gains the decode kernel's
+    burst-tail form: the contract's keys, its four forms and
+    ``g4_d128``, each beside the non-tail form's time, its launches
+    those of the deferred server's window."""
+    forms = ("bf16", "int8", "stacked", "int8_stacked")
+    headline = {k: {f: _case(f"{k} {f}", 0.1) for f in forms}
+                for k in chip_smoke.KERNELS}
+    runs = (chip_smoke.MAIN_RUN, chip_smoke.INT8_RUN,
+            chip_smoke.STACKED_RUN, chip_smoke.BURST_RUN,
+            chip_smoke.WEIGHTS_RUN, chip_smoke.MIXTRAL_RUN,
+            chip_smoke.OPT_RUN, chip_smoke.DEFERRED_RUN)
+    launches = {run: {k: 1 for k in chip_smoke.KERNELS} for run in runs}
+    launches[chip_smoke.DEFERRED_RUN]["paged_decode_tail"] = 40
+    for i, (form, _) in enumerate(chip_smoke.DEFERRED_FORMS):
+        launches[f"{chip_smoke.DEFERRED_RUN}_{form}"] = {
+            f"paged_decode_tail_{form}": 10 + i}
+    weights = {"headline": dict(_case("w8", 0.03), dequant_ms=0.09)}
+    families = {
+        "geometries": {k: {g: {"bf16": _case(f"{k} {g}", 0.2),
+                               "int8": _case(f"{k} {g} int8", 0.3)}
+                           for g in chip_smoke.FAMILY_GEOMETRIES}
+                       for k in chip_smoke.KERNELS},
+        "w8": {}}
+    cases = {geo: {f: dict(_case(f"tail {geo} {f}", 0.05), decode_ms=0.04)
+                   for f in forms} for geo in ("bench_1b", "g4_d128")}
+    line = chip_smoke.kernels_line(headline, launches, weights, families,
+                                   {"cases": cases})
+    tail = line[-1]
+    assert tail["name"] == "paged_decode_tail"
+    assert {"name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "decode_ms"} <= set(tail)
+    assert tail["launches"] == 40
+    assert tail["launches_by_run"][chip_smoke.DEFERRED_RUN] == 40
+    assert tail["launches_by_run"][chip_smoke.MAIN_RUN] == 0
+    for i, form in enumerate(("int8", "stacked", "int8_stacked")):
+        assert tail[form]["decode_ms"] == 0.04
+        assert tail[form]["launches"] == 10 + i
+    assert tail["geometries"]["g4_d128"]["int8"]["ms"] == 0.05
+    assert tail["source"].endswith("csrc/paged_decode.cu")

@@ -33,7 +33,11 @@ The engine's step graphs: the tiny engine replaying its steps as CUDA
 graphs gives the eager card run's and the CPU's greedy streams (main
 path, bimodal, int8 stacked, speculative, bursts), its unseeded draws
 differ step to step and repeat at one seed, and a seeded request's
-steps run eagerly and are counted.
+steps run eagerly and are counted. The decode kernel's burst-tail form
+at every geometry, bf16/f32 and int8 pages, stacked and split, tails
+of 1 to 32 slots; deferred-write bursts of the tiny engine against the
+CPU and the eager burst; the tp runner over a one-rank NCCL group
+replaying its collectives inside the step graphs.
 
 Tolerance: f32 at atol = rtol = 1e-4 (the same arithmetic, sums in
 another order); bf16 at atol = rtol = 2e-2 (outputs rounded to bf16,
@@ -1154,3 +1158,180 @@ def test_int8_weight_matmul_refuses_what_the_kernel_does_not_take(dev):
         int8_weight_matmul(x, q.t().contiguous().t(), scale)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         int8_weight_matmul(x.half(), q, scale)
+
+
+# ---- the decode kernel's burst-tail form --------------------------------------
+
+
+def _tail_case(dev, dtype, group, head_dim, page_size, int8, s_len, seed):
+    """(q, k, v, table, kv_lens, k_tail, v_tail, q_pos): rows frozen
+    after 1..s_len tail slots, a pad row (kv_len 0) among them."""
+    kv_lens = [1, 0, 127, 128, 129, 300, 517]
+    k, v, table, lens, g = _inputs(dev, dtype, len(kv_lens), kv_lens,
+                                   group, 2, head_dim, page_size, seed)
+    if int8:
+        k, v = _quantize(k), _quantize(v)
+    b = len(kv_lens)
+    q = torch.randn((b, 2 * group, head_dim), generator=g).to(dev, dtype)
+    k_tail = torch.randn((b, s_len, 2, head_dim), generator=g).to(dev, dtype)
+    v_tail = torch.randn((b, s_len, 2, head_dim), generator=g).to(dev, dtype)
+    live = torch.randint(1, s_len + 1, (b,), generator=g,
+                         dtype=torch.int32).to(dev)
+    q_pos = (lens + live - 1).contiguous()
+    return q, k, v, table, lens, k_tail, v_tail, q_pos
+
+
+@pytest.mark.parametrize("s_len", [1, 4, 32])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype,group,head_dim", GEOMETRIES)
+def test_decode_tail_form_matches_plain(dev, dtype, group, head_dim, int8,
+                                        s_len):
+    """The tail form at every geometry, bf16/f32 and int8 pages, tails
+    of 1, 4 and 32 slots: within tolerance of its plain version (the
+    page walk, then the tail as one more split), the same bits launch
+    to launch, counted under its own name."""
+    from production_stack_tpu_torch.ops.paged_attention_cuda import (
+        paged_decode_tail_attention, paged_decode_tail_attention_plain)
+    args = _tail_case(dev, dtype, group, head_dim, 16, int8, s_len, 31)
+    COUNTERS.reset()
+    got = paged_decode_tail_attention(*args)
+    again = paged_decode_tail_attention(*args)
+    ref = paged_decode_tail_attention_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+    assert torch.equal(got, again)
+    name = "paged_decode_tail" + ("_int8" if int8 else "")
+    assert COUNTERS.launches == {name: 2}
+
+
+@pytest.mark.parametrize("num_splits", [1, 2, 5])
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_tail_form_stacked_and_split(dev, int8, num_splits):
+    """A stacked cache read at its last layer: within tolerance of the
+    plain version and bitwise the per-layer launch on the layer's
+    view, at forced splits of the walk (the tail the split after)."""
+    from production_stack_tpu_torch.ops.paged_attention_cuda import (
+        paged_decode_tail_attention, paged_decode_tail_attention_plain)
+    q, k, v, table, lens, kt, vt, q_pos = _tail_case(
+        dev, torch.bfloat16, 4, 64, 16, int8, 4, 32)
+    g = torch.Generator(device="cpu").manual_seed(33)
+    k5, v5 = _stacked(k, 3, 2, g), _stacked(v, 3, 2, g)
+    rest = (table, lens, kt, vt, q_pos)
+    got = paged_decode_tail_attention(q, k5, v5, *rest, layer=2,
+                                      num_splits=num_splits)
+    ref = paged_decode_tail_attention_plain(q, k5, v5, *rest, layer=2,
+                                            num_splits=num_splits)
+    view = paged_decode_tail_attention(q, k5[2], v5[2], *rest,
+                                       num_splits=num_splits)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **TOL[torch.bfloat16])
+    assert torch.equal(got, view)
+
+
+def test_decode_tail_form_refuses_what_it_does_not_take(dev):
+    from production_stack_tpu_torch.ops.paged_attention_cuda import (
+        paged_decode_tail_attention)
+    q, k, v, table, lens, kt, vt, q_pos = _tail_case(
+        dev, torch.bfloat16, 4, 64, 16, False, 4, 34)
+    for bad in (dict(k_tail=kt.float()), dict(q_pos=q_pos.long()),
+                dict(k_tail=kt[:, :, :1].contiguous())):
+        call = dict(k_tail=kt, v_tail=vt, q_pos=q_pos)
+        call.update(bad)
+        with pytest.raises(ValueError):
+            paged_decode_tail_attention(q, k, v, table, lens, **call)
+
+
+@pytest.mark.parametrize("kv_cache_dtype,cache_layout", [
+    ("auto", "per_layer"), ("auto", "stacked"), ("int8", "per_layer"),
+    ("int8", "stacked")])
+def test_engine_deferred_bursts_on_the_card_match_the_cpu(
+        dev, kv_cache_dtype, cache_layout):
+    """Decode bursts with deferred KV writes: the card runs the tail
+    form of the decode kernel (in the cache's form) inside the burst
+    graphs, and its greedy streams are the CPU's and the eager
+    burst's."""
+    prompts = _tiny_prompts()
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    sp = SamplingParams(temperature=0.0, max_tokens=19, ignore_eos=True)
+    streams = []
+    for device, deferred in (("cpu", True), ("cuda", True),
+                             ("cuda", False)):
+        COUNTERS.reset()
+        engine = _tiny_engine(True, device=device, decode_steps=4,
+                              deferred_kv_writes=deferred,
+                              kv_cache_dtype=kv_cache_dtype,
+                              cache_layout=cache_layout)
+        streams.append([s.output_token_ids
+                        for s in engine.generate_batch(prompts, sp)])
+        if device == "cuda" and deferred:
+            suffix = ("_int8" if kv_cache_dtype == "int8" else "") + (
+                "_stacked" if cache_layout == "stacked" else "")
+            assert COUNTERS.launches.get("paged_decode_tail" + suffix, 0)
+            assert not COUNTERS.plain_cuda_calls
+    assert streams[0] == streams[1] == streams[2]
+
+
+@pytest.mark.parametrize("tp", (2, 4))
+def test_a_rank_makes_its_shard_without_the_whole_model(dev, tp):
+    """bench-1b's rank 1 at tp 2 and 4, random weights made as the
+    runner makes them (``mesh.build_rank_params``): the card's peak
+    while they are made is the rank's shard plus one leaf's f32 draw
+    and its bf16 copy, below the whole model's bytes."""
+    from production_stack_tpu_torch.engine.config import (
+        bench_1b_model_config)
+    from production_stack_tpu_torch.models.llama import random_leaf
+    from production_stack_tpu_torch.models.registry import params_class
+    from production_stack_tpu_torch.parallel import mesh
+    cfg = bench_1b_model_config()
+    meta = list(params_class(cfg)(cfg, torch.device("meta")).parameters())
+    full = sum(p.numel() * p.element_size() for p in meta)
+    largest = max(p.numel() for p in meta)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    shard = mesh.build_rank_params(
+        cfg, lambda path, shape, dtype: random_leaf(path, shape, dtype, gen,
+                                                    dev), 1, tp)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    held = sum(p.numel() * p.element_size() for p in shard.parameters())
+    print(f"bench-1b rank 1 of tp {tp}: peak {peak} bytes while made, "
+          f"shard {held}, whole model {full}")
+    assert held < full
+    assert peak <= held + 6 * largest
+    assert peak < full
+
+
+def test_tp_runner_over_one_nccl_rank_replays_its_collectives(dev):
+    """The tp runner over a one-rank NCCL group, graphs on: the tiny
+    engine's greedy streams are the non-tp engine's, and every captured
+    graph holds its all-reduces and its logits gather."""
+    import torch.distributed as dist
+    from production_stack_tpu_torch.parallel.collectives import (
+        ALL_GATHER, ALL_REDUCE, init_tp_group)
+    from production_stack_tpu_torch.parallel.distributed import free_port
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    prompts = _tiny_prompts()
+    sp = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True)
+    want = [s.output_token_ids for s in _tiny_engine(
+        True, unified_step=True, async_scheduling=True).generate_batch(
+            prompts, sp)]
+    group = init_tp_group(0, 1, "nccl", f"tcp://127.0.0.1:{free_port()}",
+                          dev)
+    try:
+        from production_stack_tpu_torch.engine.engine import LLMEngine
+        base = _tiny_engine(True, device="cpu", unified_step=True,
+                            async_scheduling=True)
+        engine = LLMEngine(base.config, params=base.runner.params,
+                           device="cuda", tp=group)
+        got = [s.output_token_ids
+               for s in engine.generate_batch(prompts, sp)]
+        recorded = engine.runner.graphs.recorded_launches()
+    finally:
+        dist.destroy_process_group()
+    assert got == want
+    assert recorded and all(c.get(ALL_REDUCE) and c.get(ALL_GATHER)
+                            for c in recorded.values())

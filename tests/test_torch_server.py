@@ -121,18 +121,19 @@ def _reference_flags():
 
 
 def test_flags_are_the_jax_servers():
-    """64 of the JAX server's 75 flags, each under its JAX name; the
+    """68 of the JAX server's 75 flags, each under its JAX name; the
     five of disaggregation, the profiler, the observatory and tracing,
     the eleven of autotuning, --pooling, the four small ones,
-    --quantization, the four of LoRA, --tokenizer and --chat-template
-    with the JAX defaults. --device is the port's own."""
+    --quantization, the four of LoRA, --tokenizer, --chat-template,
+    --deferred-kv-writes and the three of tensor parallelism with the
+    JAX defaults and choices. --device is the port's own."""
     reference = _reference_flags()
     assert len(reference) == 76  # 75 flags, one with an alias
     src = (Path(__file__).resolve().parents[1] / "production_stack_tpu_torch"
            / "engine" / "server.py").read_text()
     port = set(re.findall(r'add_argument\(\s*"(--[a-z0-9-]+)"', src))
     assert port - set(reference) == {"--device"}
-    assert len(port) - 1 == 64
+    assert len(port) - 1 == 68
     new = {"--engine-role": "both", "--profile-dir": None,
            "--device-peak-flops": 0.0, "--request-span-log": None,
            "--trace-ring-size": 256,
@@ -148,7 +149,9 @@ def test_flags_are_the_jax_servers():
            "--attention-impl": "auto", "--compilation-cache-dir": None,
            "--quantization": "none", "--lora-modules": None,
            "--max-loras": 8, "--max-lora-rank": 16,
-           "--tokenizer": None, "--chat-template": None}
+           "--tokenizer": None, "--chat-template": None,
+           "--deferred-kv-writes": "auto", "--tensor-parallel-size": 1,
+           "--num-slices": 0, "--mesh-placement": "auto"}
     args = vars(parse_args([]))
     for flag, default in new.items():
         assert flag in port
@@ -161,7 +164,9 @@ def test_flags_are_the_jax_servers():
     for flag, bad in (("--engine-role", "compute"), ("--autotune", "auto"),
                       ("--pooling", "cls"), ("--dtype", "int8"),
                       ("--attention-impl", "triton"),
-                      ("--quantization", "fp8")):
+                      ("--quantization", "fp8"),
+                      ("--deferred-kv-writes", "always"),
+                      ("--tensor-parallel-size", "two")):
         with pytest.raises(SystemExit):
             parse_args([flag, bad])
 
