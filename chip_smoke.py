@@ -4591,15 +4591,16 @@ def _nccl_world_of_one(requests) -> dict:
         build_engine_from_args)
     from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
     from production_stack_tpu_torch.parallel.collectives import (
-        ALL_GATHER, ALL_REDUCE, init_tp_group)
+        TPGroup, init_mesh_groups)
     from production_stack_tpu_torch.parallel.distributed import free_port
     ref, _ = build_engine_from_args(_tp_engine_args())
     want = _engine_streams(ref, requests)
     config, tokenizer = ref.config, ref.tokenizer
     del ref
     torch.cuda.empty_cache()
-    group = init_tp_group(0, 1, "nccl", f"tcp://127.0.0.1:{free_port()}",
-                          torch.device("cuda", 0))
+    init_mesh_groups(0, "nccl", f"tcp://127.0.0.1:{free_port()}",
+                     torch.device("cuda", 0))
+    group = TPGroup(0, 1, "nccl")
     try:
         engine = LLMEngine(config, tokenizer=tokenizer, device="cuda",
                            tp=group)
@@ -4616,8 +4617,9 @@ def _nccl_world_of_one(requests) -> dict:
         raise AssertionError("tp over a one-rank NCCL group: streams "
                              "differ from the non-tp engine's")
     bare = [key for key, counts in recorded.items()
-            if not counts.get(ALL_REDUCE) or not counts.get(ALL_GATHER)]
-    if bare or any(eager.values()) or not launches.get(ALL_REDUCE):
+            if not counts.get("tp_all_reduce")
+            or not counts.get("tp_all_gather")]
+    if bare or any(eager.values()) or not launches.get("tp_all_reduce"):
         raise AssertionError(f"tp NCCL: graphs without their collectives "
                              f"{bare}, eager steps {eager}, launches "
                              f"{launches}")
@@ -4706,6 +4708,296 @@ def tp_phase(vocab: int) -> dict:
     return out
 
 
+# ---- parallel2 phase: pipeline and context parallelism ----------------------
+
+PP_RUN = "serve_pp2_gloo"  # rank 0 of the pp-2 engine's window
+PP_INT8_RUN = "serve_pp2_int8_gloo"  # the same with int8 KV
+CP_RUN = "serve_cp2_gloo"  # rank 0 of the cp-2 engine's window
+GPT2_PP_RUN = "engine_gpt2_pp2_gloo"
+GPT2_CP_RUN = "engine_gpt2_cp2_gloo"
+RING_T = 8192  # tokens of the ring check, RING_T / 2 a rank
+CP_ARGS = ["--max-model-len", "8192", "--long-prefill-threshold", "1024"]
+CP_LONG = 4096  # tokens of each of the cp window's two long prompts
+PAR_DEVICES = ["cuda:0", "cuda:0"]  # two ranks sharing the card
+
+
+def _ring_check(dev) -> dict:
+    """``ring_attention`` over a two-rank sp group on cuda:0 (two fake
+    ranks, one thread each, exchanging card tensors) against
+    ``ring_attention_dense`` at bench-1b's heads (32 q / 8 kv of 64),
+    f32, T = 8192 causal: within F32_TOL."""
+    from production_stack_tpu_torch.ops.ring_attention import (
+        ring_attention, ring_attention_dense)
+    from production_stack_tpu_torch.parallel.collectives import (
+        FakeTPGroup, run_ranks)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, k, v = (torch.randn((1, RING_T, h, 64), generator=gen, device=dev)
+               for h in (32, 8, 8))
+    half = RING_T // 2
+
+    def ring():
+        outs = run_ranks(FakeTPGroup.world(2, axis="sp"), lambda g: (
+            ring_attention(*(x[:, g.rank * half:(g.rank + 1) * half]
+                             for x in (q, k, v)), g)))
+        return torch.cat(outs, dim=1)
+
+    ring()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ring()
+    torch.cuda.synchronize()
+    ring_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    dense = ring_attention_dense(q, k, v)
+    torch.cuda.synchronize()
+    dense_ms = (time.perf_counter() - t0) * 1e3
+    err = (got - dense).abs().max().item()
+    torch.testing.assert_close(got, dense, **F32_TOL)
+    del got, dense, q, k, v
+    torch.cuda.empty_cache()
+    log(f"parallel2 ring attention, 2 sp ranks on one card, T = {RING_T} "
+        f"({half} a rank), 32 q / 8 kv heads of 64, f32, causal: max abs "
+        f"err {err:.3g} against the dense reference (tolerance atol = "
+        f"rtol = {F32_TOL['atol']}); wall {ring_ms:.1f} ms for both ranks "
+        f"(threads sharing the card), dense {dense_ms:.1f} ms ({SMI})")
+    return {"max_abs_err": err, "ring_ms": ring_ms, "dense_ms": dense_ms}
+
+
+def _rank_forms(label, counts_by_rank, forms, need=tuple(KERNELS)) -> None:
+    """Every rank launched each kernel of ``need`` in each of ``forms``
+    (suffixes), and no kernel in another form."""
+    known = ("", "_int8", "_stacked", "_int8_stacked")
+    for rank, counts in counts_by_rank:
+        for kernel in KERNELS:
+            for form in known:
+                n = counts.get(kernel + form, 0)
+                if form in forms and kernel in need and n <= 0:
+                    raise AssertionError(f"{label}: rank {rank} never "
+                                         f"launched {kernel}{form}: {counts}")
+                if form not in forms and n:
+                    raise AssertionError(f"{label}: rank {rank} launched "
+                                         f"{kernel}{form}: {counts}")
+
+
+def _gloo_world(label, flags, requests, ref, want, forms,
+                need=tuple(KERNELS)):
+    """bench-1b over two ranks on cuda:0 over gloo, started as the
+    server starts them (the backend named, graphs off), against the
+    one-rank engine's ``want`` streams: each stream equal or parting at
+    a near tie of ``ref``; each rank's kernel forms counted
+    (``_rank_forms``)."""
+    from production_stack_tpu_torch.engine.server import (
+        build_engine_from_args)
+    from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
+    engine, _ = build_engine_from_args(
+        _tp_engine_args(flags), devices=PAR_DEVICES, tp_backend="gloo")
+    runtime = engine.tp_runtime
+    try:
+        runner = engine.runner
+        if runner.graphs is not None or runner.cache_layout != "stacked":
+            raise AssertionError(f"{label}: graphs {runner.graphs}, "
+                                 f"layout {runner.cache_layout}")
+        COUNTERS.reset()
+        t0 = time.perf_counter()
+        got = _engine_streams(engine, requests)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(COUNTERS.launches)
+        sp_steps = runner.sp_prefill_steps
+        layers = len(runner.params.layers)
+    finally:
+        engine.close()
+    flips = [check_stream(label, f"request {i}", ref, r["prompt"], w, g)
+             for i, (r, w, g) in enumerate(zip(requests, want, got))]
+    workers = runtime.worker_launches
+    if len(workers) != 1:
+        raise AssertionError(f"{label}: worker counts {workers}")
+    _rank_forms(label, [(0, launches)] + sorted(workers.items()), forms,
+                need)
+    tokens = sum(r["max_tokens"] for r in requests)
+    whole = sum(f is None for f in flips)
+    collectives = {k: v for k, v in launches.items()
+                   if k.startswith(("pp_", "sp_", "tp_"))}
+    log(f"{label} ({SMI}): {whole}/{len(requests)} greedy streams "
+        f"byte-identical to the one-rank engine, flips at near ties "
+        f"{[f for f in flips if f]}; {tokens} tokens in {wall:.3f} s, "
+        f"{tokens / wall:.1f} tok/s (eager, host-staged gloo collectives "
+        f"on one card: not a speed); rank 0 holds {layers} layers; its "
+        f"collectives {collectives}; launches rank 0 {launches}, rank 1 "
+        f"{workers[1]}")
+    return {"launches": launches, "wall_s": wall, "tok_s": tokens / wall,
+            "sp_prefill_steps": sp_steps, "flips": flips}
+
+
+def _first_token_ms(engine, prompt) -> float:
+    """Wall ms from a greedy request's arrival to its first token."""
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    t0 = time.perf_counter()
+    seq = engine.sequences[engine.add_request(list(prompt), SamplingParams(
+        temperature=0.0, max_tokens=1, ignore_eos=True))]
+    while seq.num_generated < 1:
+        engine.step()
+    ms = (time.perf_counter() - t0) * 1e3
+    while engine.has_work() or engine._in_flight is not None:
+        engine.step()
+    return ms
+
+
+def _pp_windows(requests) -> dict:
+    """bench-1b at pp 2 (8 layers a stage), bf16 and int8 KV."""
+    from production_stack_tpu_torch.engine.server import (
+        build_engine_from_args)
+    ref, _ = build_engine_from_args(_tp_engine_args())
+    want = _engine_streams(ref, requests)
+    out = {PP_RUN: _gloo_world(
+        "parallel2 pp 2 over gloo on one card",
+        ["--pipeline-parallel-size", "2", "--cache-layout", "auto"],
+        requests, ref, want, ("_stacked",))}
+    del ref
+    torch.cuda.empty_cache()
+    int8 = ["--kv-cache-dtype", "int8"]
+    ref, _ = build_engine_from_args(_tp_engine_args(int8))
+    want = _engine_streams(ref, requests)
+    out[PP_INT8_RUN] = _gloo_world(
+        "parallel2 pp 2 int8 KV over gloo on one card",
+        ["--pipeline-parallel-size", "2"] + int8, requests, ref, want,
+        ("_int8_stacked",))
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cp_window(vocab, requests) -> dict:
+    """bench-1b at cp 2: two 4096-token prompts, each one sp prefill
+    dispatch, and the 16 short ones on the chunked path, against a cp-1
+    engine of the same flags; then each engine's first-token latency of
+    two more long prompts, each alone."""
+    from production_stack_tpu_torch.engine.server import (
+        build_engine_from_args)
+    rng = np.random.RandomState(41)
+    longs = [{"model": "bench-1b", "max_tokens": 32, "ignore_eos": True,
+              "temperature": 0.0,
+              "prompt": rng.randint(258, vocab, size=CP_LONG).tolist()}
+             for _ in range(4)]
+    window = longs[:2] + requests
+    ref, _ = build_engine_from_args(_tp_engine_args(CP_ARGS))
+    want = _engine_streams(ref, window)
+    # Two more long prompts, each cold (no prefix hit) on each engine.
+    chunked_ms = [_first_token_ms(ref, r["prompt"]) for r in longs[2:]]
+    # Once the long prompts run, the short ones' chunks ride unified
+    # steps: the ragged kernel, and no pure prefill step is owed.
+    out = _gloo_world(
+        "parallel2 cp 2 over gloo on one card",
+        ["--context-parallel-size", "2"] + CP_ARGS, window, ref, want,
+        ("_stacked",), need=("paged_decode", "paged_ragged"))
+    if out["sp_prefill_steps"] != 2:
+        raise AssertionError(f"cp 2: {out['sp_prefill_steps']} sp prefill "
+                             "dispatches for 2 long prompts")
+    engine, _ = build_engine_from_args(
+        _tp_engine_args(["--context-parallel-size", "2"] + CP_ARGS),
+        devices=PAR_DEVICES, tp_backend="gloo")
+    try:
+        ring_ms = [_first_token_ms(engine, r["prompt"]) for r in longs[2:]]
+        if engine.runner.sp_prefill_steps != 2:
+            raise AssertionError("cp 2: two long prompts alone took "
+                                 f"{engine.runner.sp_prefill_steps} sp "
+                                 "prefills")
+    finally:
+        engine.close()
+    del ref
+    torch.cuda.empty_cache()
+    log(f"parallel2 cp 2 ({SMI}): a {CP_LONG}-token prompt's first token "
+        f"in {ring_ms} ms (one ring dispatch a run, eager over gloo) "
+        f"against cp 1's chunked prefill (8 graphed chunks of 512) "
+        f"{chunked_ms} ms")
+    out.update(first_token_ms=ring_ms, chunked_first_token_ms=chunked_ms)
+    return out
+
+
+def _gpt2_parallel(label, parallel) -> dict:
+    """GPT-2 (openai-community/gpt2's config, random weights from the
+    seed, bf16 as ``ModelConfig.from_hf_config`` gives it) through ``LLMEngine`` over two gloo ranks on cuda:0,
+    against the one-rank engine: 8 greedy prompts of 40..600 tokens,
+    async and unified on; with cp the prompts from 512 tokens each in
+    one sp dispatch."""
+    from production_stack_tpu_torch.engine.config import (
+        CacheConfig, EngineConfig, ModelConfig, ParallelConfig,
+        SchedulerConfig)
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
+    from production_stack_tpu_torch.parallel.distributed import (
+        start_parallel)
+
+    def cfg(par):
+        return EngineConfig(
+            model=ModelConfig.from_hf_config(FAMILY_CONFIGS["gpt2"],
+                                             "gpt2"),
+            cache=CacheConfig(page_size=128, num_pages=256),
+            scheduler=SchedulerConfig(max_num_seqs=8, max_model_len=1024,
+                                      prefill_chunk_size=256,
+                                      prefill_batch_size=4,
+                                      async_scheduling=True,
+                                      unified_step=True),
+            parallel=ParallelConfig(**par))
+    rng = np.random.RandomState(23)
+    vocab = FAMILY_CONFIGS["gpt2"]["vocab_size"]
+    prompts = [rng.randint(258, vocab, size=n).tolist()
+               for n in np.linspace(40, 600, 8).round().astype(int)]
+    sp = SamplingParams(temperature=0.0, max_tokens=WEIGHTS_OUT,
+                        ignore_eos=True)
+    ref = LLMEngine(cfg({}), device=PAR_DEVICES[0])
+    want = [list(s.output_token_ids)
+            for s in ref.generate_batch(prompts, sp)]
+    config = cfg(parallel)
+    runtime = start_parallel(config, PAR_DEVICES, backend="gloo")
+    try:
+        engine = LLMEngine(config, device=PAR_DEVICES[0],
+                           **runtime.engine_args())
+        COUNTERS.reset()
+        got = [list(s.output_token_ids)
+               for s in engine.generate_batch(prompts, sp)]
+        torch.cuda.synchronize()
+        launches = dict(COUNTERS.launches)
+        sp_steps = engine.runner.sp_prefill_steps
+    finally:
+        runtime.close()
+    flips = [check_stream(label, f"prompt {i}", ref, prompts[i], w, g)
+             for i, (w, g) in enumerate(zip(want, got))]
+    _rank_forms(label, [(0, launches)] + sorted(
+        runtime.worker_launches.items()), ("_stacked",),
+        ("paged_decode", "paged_ragged"))
+    if parallel.get("context_parallel_size", 1) > 1 and sp_steps != 2:
+        raise AssertionError(f"{label}: {sp_steps} sp prefills, expected 2")
+    log(f"{label}: {sum(f is None for f in flips)}/8 streams "
+        f"byte-identical to the one-rank engine, flips at near ties "
+        f"{[f for f in flips if f]}; sp prefills {sp_steps}; launches "
+        f"rank 0 {launches}")
+    del ref
+    torch.cuda.empty_cache()
+    return launches
+
+
+def parallel2_phase(vocab: int) -> dict:
+    """Pipeline and context parallelism on one card: ring attention at
+    T = 8192 against its dense reference, bench-1b at pp 2 (bf16 and
+    int8 KV) and cp 2 over gloo against the one-rank engines, GPT-2 at
+    pp 2 and cp 2 through ``LLMEngine``."""
+    dev = torch.device("cuda", 0)
+    ring = _ring_check(dev)
+    requests = _greedy_requests(vocab)
+    windows = _pp_windows(requests)
+    windows[CP_RUN] = _cp_window(vocab, requests)
+    out = {run: w["launches"] for run, w in windows.items()}
+    out[GPT2_PP_RUN] = _gpt2_parallel("parallel2 gpt2 pp 2",
+                                      {"pipeline_parallel_size": 2})
+    out[GPT2_CP_RUN] = _gpt2_parallel(
+        "parallel2 gpt2 cp 2", {"context_parallel_size": 2,
+                                "long_prefill_threshold": 512})
+    out["ring"], out["windows"] = ring, windows
+    return out
+
+
 def _numbers(h) -> dict:
     """A case's numbers for the ``kernels`` line."""
     out = {"max_abs_err": h["max_abs_err"], "ms": h["ms"],
@@ -4737,8 +5029,7 @@ def kernels_line(headline, launches, weights, families, tp=None) -> list:
             "name": name, **meta,
             "launches": launches[MAIN_RUN].get(name, 0),
             "launches_by_run": {
-                run: counts.get(name + ("_int8_stacked" if run in (
-                    FLEET_INT8_RUN, DISAGG_INT8_RUN) else ""), 0)
+                run: counts.get(name + RUN_FORMS.get(run, ""), 0)
                 for run, counts in launches.items()},
             **_numbers(h["bf16"]),
             "int8": {"launches": launches[INT8_RUN].get(name + "_int8", 0),
@@ -4786,6 +5077,14 @@ def kernels_line(headline, launches, weights, families, tp=None) -> list:
             **tail_numbers(cases["g4_d128"]["bf16"]),
             "int8": tail_numbers(cases["g4_d128"]["int8"])}}})
     return summary
+
+
+# The kernel form each run's ``launches_by_run`` entry counts, where it
+# is not the per-layer bf16 one.
+RUN_FORMS = {FLEET_INT8_RUN: "_int8_stacked",
+             DISAGG_INT8_RUN: "_int8_stacked", PP_RUN: "_stacked",
+             PP_INT8_RUN: "_int8_stacked", CP_RUN: "_stacked",
+             GPT2_PP_RUN: "_stacked", GPT2_CP_RUN: "_stacked"}
 
 
 # ---- main -------------------------------------------------------------------
@@ -4863,6 +5162,10 @@ def main() -> int:
     for run in (DEFERRED_RUN, NCCL_RUN, TP_RUN) + tuple(
             f"{DEFERRED_RUN}_{form}" for form, _ in DEFERRED_FORMS):
         launches[run] = tp[run]
+    torch.cuda.empty_cache()
+    par = parallel2_phase(vocab)
+    for run in (PP_RUN, PP_INT8_RUN, CP_RUN, GPT2_PP_RUN, GPT2_CP_RUN):
+        launches[run] = par[run]
     if launches[DEFERRED_RUN].get("paged_decode_tail", 0) <= 0:
         raise AssertionError("the deferred server's window never launched "
                              "the decode kernel's tail form")

@@ -277,21 +277,33 @@ class SchedulerConfig:
 
 @dataclasses.dataclass
 class ParallelConfig:
-    """Tensor parallelism and its mesh plan (the JAX ParallelConfig's
-    tp fields; pipeline and context parallelism are not ported yet).
-    ``tensor_parallel_size`` ranks, one card each over NCCL, split the
-    heads and the MLP (parallel/mesh.py); ``num_slices`` forces the
-    topology into that many equal slices (0: discover; one host is one
-    slice); ``mesh_placement`` overrides the per-axis placement
-    ("tp=ici,pp=any"; 'auto' keeps tp inside one slice)."""
+    """The mesh of the JAX ParallelConfig but its dp axis: tp x sp x pp
+    ranks, one card each over NCCL. ``tensor_parallel_size`` ranks
+    split the heads and the MLP (parallel/mesh.py);
+    ``pipeline_parallel_size`` stages split the layers
+    (parallel/pipeline_serving.py); ``context_parallel_size`` ranks
+    prefill a prompt of at least ``long_prefill_threshold`` tokens (by
+    default 2 x prefill_chunk_size) in one dispatch, its sequence
+    sharded over them, attention by ring attention
+    (parallel/context_serving.py). ``num_slices`` forces the topology
+    into that many equal slices (0: discover; one host is one slice);
+    ``mesh_placement`` overrides the per-axis placement
+    ("tp=ici,pp=any"; 'auto' keeps tp and sp inside one slice)."""
 
     tensor_parallel_size: int = 1
+    pipeline_parallel_size: int = 1
+    context_parallel_size: int = 1
+    long_prefill_threshold: Optional[int] = None
     num_slices: int = 0
     mesh_placement: str = "auto"
 
     def __post_init__(self):
         if self.tensor_parallel_size < 1:
             raise ValueError("parallel.tensor_parallel_size must be >= 1")
+        if self.pipeline_parallel_size < 1:
+            raise ValueError("parallel.pipeline_parallel_size must be >= 1")
+        if self.context_parallel_size < 1:
+            raise ValueError("parallel.context_parallel_size must be >= 1")
         if self.num_slices < 0:
             raise ValueError("parallel.num_slices must be >= 0")
         # Placement typos are refused here, not at the first dispatch.
@@ -299,6 +311,12 @@ class ParallelConfig:
             parse_placement,
         )
         parse_placement(self.mesh_placement)
+
+    @property
+    def world_size(self) -> int:
+        """Ranks of the tp x sp x pp world."""
+        return (self.tensor_parallel_size * self.pipeline_parallel_size
+                * self.context_parallel_size)
 
 
 @dataclasses.dataclass

@@ -108,15 +108,19 @@ class LLMEngine:
     raises. On the card each step replays a CUDA graph of its kind and
     bucket shape; ``cuda_graphs=False`` runs them eagerly (to compare:
     the server has no such flag, as the JAX server has none). Under
-    tensor parallelism this is rank 0: ``tp`` its group, ``bridge`` the
-    step bridge its runner publishes through (parallel/distributed.py),
-    ``params`` the full weights (the runner keeps its shard), and
-    ``tp_runtime`` the workers ``close`` stops."""
+    tensor, pipeline or context parallelism this is rank 0: ``tp``,
+    ``pp`` and ``sp`` its groups (parallel/collectives.py), ``bridge``
+    the step bridge its runner publishes through
+    (parallel/distributed.py), ``params`` the full weights (the runner
+    keeps its shard and stage), and ``tp_runtime`` the workers
+    ``close`` stops. Under context parallelism a cold prompt of at
+    least ``long_prefill_threshold`` tokens (default 2 x
+    prefill_chunk_size, JAX's) prefills in one dispatch."""
 
     def __init__(self, config: EngineConfig, params=None,
                  tokenizer: Optional[BaseTokenizer] = None, device=None,
                  cuda_graphs: bool = True, tp=None, bridge=None,
-                 tp_runtime=None):
+                 tp_runtime=None, pp=None, sp=None):
         self.config = config
         self.tokenizer = tokenizer or get_tokenizer(None)
         self.cache_manager = PagedCacheManager(config.cache)
@@ -126,11 +130,17 @@ class LLMEngine:
         self.guided_fsm = (build_json_fsm(self.tokenizer)
                            if isinstance(self.tokenizer, ByteTokenizer)
                            else None)
+        sp_threshold = None
+        if config.parallel.context_parallel_size > 1:
+            sp_threshold = (config.parallel.long_prefill_threshold
+                            or 2 * config.scheduler.prefill_chunk_size)
         self.scheduler = Scheduler(config.scheduler, config.cache,
                                    self.cache_manager,
+                                   sp_threshold=sp_threshold,
                                    guided_advance=self._guided_advance)
         self.runner = ModelRunner(config, params=params, device=device,
-                                  cuda_graphs=cuda_graphs, tp=tp)
+                                  cuda_graphs=cuda_graphs, tp=tp, pp=pp,
+                                  sp=sp)
         if bridge is not None:
             self.runner.attach_bridge(bridge)
         self.tp_runtime = tp_runtime
@@ -179,8 +189,11 @@ class LLMEngine:
         self._tracer = None
 
     def close(self) -> None:
-        """Stop the tp workers, if this engine has any."""
+        """Stop the parallel ranks, if this engine has any: its step
+        graphs released first (they may hold the collectives' group)."""
         if self.tp_runtime is not None:
+            if self.runner.graphs is not None:
+                self.runner.graphs.release()
             self.tp_runtime.close()
 
     @property

@@ -63,6 +63,23 @@ a description of its body first, and ranks 1..N-1 replay it through
 ``execute``. A gloo group cannot run inside the step graphs: such a
 runner must be built with ``cuda_graphs=False`` on the card.
 
+Pipeline and context parallelism (``pp``, ``sp``: the rank's groups
+along those axes, parallel/collectives.py). Under pp the runner holds
+its stage: L/S layers of its tp shard (made alone: parallel/mesh.py),
+those layers of the stacked cache and of the adapter stacks, and runs
+every step through ``parallel/pipeline_serving.pp_paged_forward``
+instead of the model's forward; a page is joined from the stages' layer
+slices (and the tp ranks' heads) on read and cut the same way on write.
+Under sp every rank holds the whole tp-cut model and a replica of the
+cache; a cold prompt of at least the scheduler's threshold prefills in
+ONE dispatch (``run_sp_prefill``: ring attention over the sp ranks,
+parallel/context_serving.py), always eagerly (counted as reason
+``sp_prefill``: its T buckets reach the model's length); every other
+step runs replicated on each rank, and a page write goes to every
+replica. Both force the stacked cache layout (``cache_layout`` auto
+resolves stacked, per_layer is refused: JAX's rule), and both ride the
+step bridge as tp does; the JAX runner's refusals are ``check_parallel``.
+
 Deferred KV writes (``SchedulerConfig.deferred_kv_writes``; the JAX
 runner's ``_decode_burst_deferred_impl``): a burst keeps each layer's
 new K/V in dense [B, K, kv, d] tails in the model dtype, attends over
@@ -75,6 +92,7 @@ the cached-token count stays ``positions[:, 0]``.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -100,6 +118,7 @@ from production_stack_tpu_torch.engine.perf_observatory import (
     PerfObservatory,
 )
 from production_stack_tpu_torch.engine.step_graphs import (
+    SP_PREFILL,
     STEP_KINDS,
     StepGraphs,
 )
@@ -119,12 +138,13 @@ from production_stack_tpu_torch.ops.sampling import (
     spec_verify,
     token_logprobs,
 )
-from production_stack_tpu_torch.parallel.mesh import (
-    build_rank_params,
-    cut,
-    rank_model_config,
-    shard_lora_adapter,
-    shard_params,
+from production_stack_tpu_torch.parallel import mesh
+from production_stack_tpu_torch.parallel.context_serving import (
+    sp_prefill_forward,
+)
+from production_stack_tpu_torch.parallel.pipeline_serving import (
+    pp_encode,
+    pp_paged_forward,
 )
 from production_stack_tpu_torch.utils.log import init_logger
 
@@ -201,6 +221,71 @@ def check_deferred_kv(config: EngineConfig) -> None:
         raise NotImplementedError(
             "deferred_kv_writes reads the burst tail through the auto "
             f"decode path (decode impl {model.attention_impl!r})")
+
+
+def check_parallel(config: EngineConfig) -> None:
+    """The JAX runner's refusals of a pipeline- or context-parallel
+    engine it cannot serve, with its messages
+    (engine/model_runner.py), after ``cache_layout`` auto resolved."""
+    model, par = config.model, config.parallel
+    pp, cp, tp = (par.pipeline_parallel_size, par.context_parallel_size,
+                  par.tensor_parallel_size)
+    heads_split = tp > 1 and (model.num_key_value_heads % tp
+                              or model.num_attention_heads % tp)
+    if pp > 1:
+        from production_stack_tpu_torch.parallel.pipeline_serving import (
+            PP_FAMILIES,
+        )
+        if model.architecture not in PP_FAMILIES:
+            raise NotImplementedError(
+                f"pipeline parallelism serves {'/'.join(PP_FAMILIES)} "
+                f"(got {model.architecture!r})")
+        if model.num_hidden_layers % pp:
+            raise ValueError(
+                f"layers {model.num_hidden_layers} must divide by "
+                f"pipeline_parallel_size {pp}")
+        if heads_split:
+            raise ValueError(
+                "pp x tp needs attention/kv heads divisible by "
+                f"tensor_parallel_size {tp}")
+    if cp > 1:
+        from production_stack_tpu_torch.parallel.context_serving import (
+            SP_FAMILIES,
+        )
+        if model.architecture not in SP_FAMILIES:
+            raise NotImplementedError(
+                f"context parallelism serves {'/'.join(SP_FAMILIES)} "
+                f"(got {model.architecture!r})")
+        if pp > 1:
+            raise NotImplementedError(
+                "context parallelism with pipeline parallelism (sp "
+                "composes with tp; pp shards the layer axis the sp "
+                "prefill walks in full)")
+        if heads_split:
+            raise ValueError(
+                "sp x tp needs attention/kv heads divisible by "
+                f"tensor_parallel_size {tp}")
+    if config.scheduler.deferred_kv_writes and (pp > 1 or cp > 1):
+        if config.scheduler.decode_steps <= 1:
+            raise ValueError(
+                "deferred_kv_writes needs decode_steps > 1 (the tail "
+                "flushes once per multi-step burst)")
+        raise NotImplementedError(
+            "deferred_kv_writes with pipeline/context parallelism (the "
+            "pp/sp runners use their own burst bodies)")
+    if config.cache.cache_layout == "per_layer" and (pp > 1 or cp > 1):
+        raise NotImplementedError(
+            "cache_layout='per_layer' with pipeline/context parallelism "
+            "(pp shards the stacked L axis; use the stacked layout)")
+
+
+def _check_group(group, size: int, axis: str, flag: str) -> None:
+    got = 1 if group is None else group.size
+    if got != size:
+        raise ValueError(
+            f"{flag} {size} needs the rank's {axis} group of that size "
+            f"(got {got}; parallel/distributed.start_parallel makes the "
+            "ranks)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -383,33 +468,51 @@ class ModelRunner:
     with. The CPU always runs eagerly."""
 
     def __init__(self, config: EngineConfig, params=None, device=None,
-                 cuda_graphs: bool = True, tp=None):
+                 cuda_graphs: bool = True, tp=None, pp=None, sp=None):
         self.config = config
         self.device = resolve_device(device)
         model_config = config.model
-        # Tensor parallelism: this rank's group (None: one device) and
-        # the config of the rank's shard, which the forward reads.
-        self.tp = tp
+        par = config.parallel
+        if config.cache.cache_layout == "auto":
+            # The JAX engine's rule: stacked for pipeline or context
+            # parallelism (pp cuts the stacked L axis, the sp prefill
+            # writes it whole), per_layer otherwise.
+            config.cache.cache_layout = (
+                "stacked" if (par.pipeline_parallel_size > 1
+                              or par.context_parallel_size > 1)
+                else "per_layer")
+        check_parallel(config)
+        _check_group(pp, par.pipeline_parallel_size, "pp",
+                     "pipeline_parallel_size")
+        _check_group(sp, par.context_parallel_size, "sp",
+                     "context_parallel_size")
+        # Tensor parallelism: this rank's group (None: one device);
+        # pipeline and context parallelism: its pp and sp groups. The
+        # config of the rank's shard (its heads; a stage's layer
+        # count) is what the forward reads.
+        self.tp, self.pp, self.sp = tp, pp, sp
         tp_size = 1 if tp is None else tp.size
-        self.shard_config = rank_model_config(model_config, tp_size)
+        self.layers = (None if pp is None else mesh.stage_layers(
+            model_config.num_hidden_layers, pp.rank, pp.size))
+        self.shard_config = mesh.stage_model_config(
+            model_config, tp_size, *((pp.rank, pp.size) if pp else ()))
         self._fwd_args = {} if tp is None else {"tp": tp}
-        if (tp is not None and not tp.capturable and cuda_graphs
+        groups = [g for g in (tp, pp, sp) if g is not None]
+        if (any(not g.capturable for g in groups) and cuda_graphs
                 and self.device.type == "cuda"):
+            backend = next(g.backend for g in groups if not g.capturable)
             raise ValueError(
-                f"a {tp.backend} tp group cannot run inside the step "
-                "graphs: build the runner with cuda_graphs=False, or give "
-                "each rank its own card (nccl)")
+                f"a {backend} group cannot run inside the step graphs: "
+                "build the runner with cuda_graphs=False, or give each "
+                "rank its own card (nccl)")
         self.deferred = config.scheduler.deferred_kv_writes
         if self.deferred:
             check_deferred_kv(config)
         # The step bridge (parallel/distributed.py) of rank 0 under tp,
-        # and the last dispatch's handle (what an ahead step feeds on).
+        # pp or sp, and the last dispatch's handle (what an ahead step
+        # feeds on).
         self.bridge = None
         self._last_handle = None
-        if config.cache.cache_layout == "auto":
-            # The JAX engine's rule: stacked only for pipeline or
-            # context parallelism, which the port does not serve.
-            config.cache.cache_layout = "per_layer"
         self.cache_layout = config.cache.cache_layout
         # int8 KV: pages quantized on write with per-slot f32 scales
         # (ops/quant_kv.py), dequantized inside the kernels.
@@ -420,6 +523,8 @@ class ModelRunner:
             # Fail at start-up, before the weights are made.
             check_engine_geometry(config)
         _, self._forward = get_model(model_config)
+        if pp is not None:
+            self._forward = functools.partial(pp_paged_forward, pp=pp)
         quantized = model_config.quantization == "int8"
         rank = 0 if tp is None else tp.rank
         if params is None and quantized:
@@ -428,17 +533,24 @@ class ModelRunner:
             logger.info("Initializing random int8 weights for %s",
                         model_config.name)
             params = init_random_quantized(model_config, config.seed,
-                                           self.device, rank, tp_size)
+                                           self.device, rank, tp_size,
+                                           self.layers)
         elif params is None:
             # The families' init_params draws, leaf by leaf, each module
-            # cut to the rank's shard before the next is drawn.
+            # cut to the rank's shard (and stage) before the next is
+            # drawn.
             logger.info("Initializing random weights for %s",
                         model_config.name)
             gen = torch.Generator(device=self.device)
             gen.manual_seed(config.seed)
-            params = build_rank_params(
+            params = mesh.build_rank_params(
                 model_config, lambda path, shape, dtype: llama.random_leaf(
-                    path, shape, dtype, gen, self.device), rank, tp_size)
+                    path, shape, dtype, gen, self.device), rank, tp_size,
+                layers=self.layers)
+        if (self.layers is not None
+                and len(params.layers) == model_config.num_hidden_layers):
+            # Given the whole model: the stage's layers, cut in place.
+            mesh.keep_layers(params, self.layers)
         self.params = params.to(self.device)
         if quantized and not has_quantized_leaves(self.params):
             # Given dense weights: quantized here, in place.
@@ -448,16 +560,15 @@ class ModelRunner:
         if tp is not None:
             # Given full weights: the rank's shard, cut from the full
             # (quantized) set; a rank's shard as built stays.
-            shard_params(self.params, model_config, tp.rank, tp.size)
+            mesh.shard_params(self.params, model_config, tp.rank, tp.size)
         # Multi-LoRA: the adapter stacks, allocated once before the KV
         # pages and written in place by register_lora (the step graphs
         # hold their addresses). None when LoRA is off.
         self.lora_registry: Optional[LoRARegistry] = (
             LoRARegistry(self.shard_config, config.lora.max_loras,
                          config.lora.max_lora_rank, self.device,
-                         shard=(None if tp is None else
-                                lambda a: shard_lora_adapter(
-                                    a, tp.rank, tp.size)))
+                         shard=(None if tp is None and pp is None else
+                                self._shard_adapter))
             if config.lora.enable else None)
 
         # per_layer: one [kv_heads, pages, d, page_size] buffer per
@@ -465,7 +576,7 @@ class ModelRunner:
         # page_size] buffer each, written and read in place at the
         # layer index. For int8 each is a QuantKV of int8 pages and
         # their [(L,) kv_heads, pages, page_size] scales.
-        layers = model_config.num_hidden_layers
+        layers = self.shard_config.num_hidden_layers
         shape = (self.shard_config.num_key_value_heads,
                  config.cache.num_pages, model_config.head_dim,
                  config.cache.page_size)
@@ -498,6 +609,8 @@ class ModelRunner:
         self.unified_span = max(self.spec_width, 1)
         # Last dispatched ragged shape, for occupancy metrics.
         self.last_unified_rows = 0
+        # Context-parallel whole-prompt prefills dispatched.
+        self.sp_prefill_steps = 0
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed + 1)
         # The device performance observatory (engine/perf_observatory.py):
@@ -523,12 +636,23 @@ class ModelRunner:
             StepGraphs(self.device, generators=[self.generator],
                        observatory=self.observatory)
             if cuda_graphs and self.device.type == "cuda" else None)
+        if self.graphs is not None and sp is not None:
+            # Counted from the start, as the other reasons are.
+            self.graphs.eager_steps.setdefault(SP_PREFILL, 0)
         # The guided-decoding automaton's tables on the device
         # (set_guided_tables), or None: no guided row is served.
         self._guided_trans: Optional[torch.Tensor] = None
         self._guided_mask: Optional[torch.Tensor] = None
         # (key, matrix) of the last logit-bias payload (_bias_payload).
         self._bias_cache = None
+
+    def _shard_adapter(self, adapter):
+        """An adapter's pairs cut to this rank: the stage's layers,
+        then the tp cut of its base projections."""
+        adapter = mesh.stage_lora_adapter(adapter, self.layers)
+        if self.tp is None:
+            return adapter
+        return mesh.shard_lora_adapter(adapter, self.tp.rank, self.tp.size)
 
     def set_guided_tables(self, fsm) -> None:
         """Upload the guided-decoding automaton's tables
@@ -624,6 +748,9 @@ class ModelRunner:
             return self._encode(tokens)
 
     def _encode(self, tokens: torch.Tensor) -> torch.Tensor:
+        if self.pp is not None:
+            return pp_encode(self.params, self.shard_config, tokens,
+                             self.pp, self.tp)
         return llama.encode(self.params, self.shard_config, tokens,
                             **self._fwd_args)
 
@@ -681,6 +808,9 @@ class ModelRunner:
                                                       options, seeding)
         if name == "ragged":
             return lambda dev, mode: self._unified_body(dev, mode, options)
+        if name == "sp_prefill":
+            return lambda dev, mode: self._sp_prefill_body(dev, mode,
+                                                           options, seeding)
         raise ValueError(f"unknown step body {spec!r}")
 
     def _run_step(self, kind: str, shape: Tuple[int, ...], payload: dict,
@@ -692,15 +822,19 @@ class ModelRunner:
         names = names + tuple(n for o in options for n in OPTION_INPUTS[o])
         if "lora_ids" in payload:
             names += ("lora_ids",)
+        # The sp whole-prompt prefill runs eagerly: its T buckets reach
+        # the model's length, one graph and its pool a bucket.
+        eager = ("seeded" if "seeds" in payload else
+                 SP_PREFILL if body[0] == "sp_prefill" else None)
         with torch.inference_mode():
-            if self.graphs is not None and "seeds" not in payload:
+            if self.graphs is not None and eager is None:
                 return self.graphs.run(
                     kind, shape, mode,
                     {k: payload[k] for k in names + KNOBS},
                     lambda inputs: fn(inputs, mode),
                     token_source=token_source, options=options)
             if self.graphs is not None:
-                self.graphs.count_eager("seeded")
+                self.graphs.count_eager(eager)
             inputs = self._to_device({k: payload[k] for k in names})
             if token_source is not None:
                 inputs["tokens"] = token_source
@@ -974,7 +1108,10 @@ class ModelRunner:
         fixed width). Returns (tokens, logprobs): one sampled token per
         chunk — None for rows whose prompt is not yet fully prefilled —
         and, when a sampling row asked for logprobs, each row's entry
-        (else None)."""
+        (else None). A context-parallel plan (``plan.sp``) runs as
+        ``run_sp_prefill``."""
+        if plan.sp:
+            return self.run_sp_prefill(plan)
         chunks = plan.chunks
         b = self.prefill_width
         t = self._bucket_for(max(len(c.chunk_tokens) for c in chunks))
@@ -1024,6 +1161,58 @@ class ModelRunner:
                 None if lps is None else
                 [lp[0] if c.is_last_chunk else None
                  for lp, c in zip(lps, chunks)])
+
+    def run_sp_prefill(self, plan: PrefillPlan
+                       ) -> Tuple[List[Optional[int]], Optional[list]]:
+        """Context-parallel whole-prompt prefill (the JAX runner's
+        ``run_sp_prefill``): ONE dispatch covers the plan's one prompt,
+        its T bucketed to a power of two of at least 16 and then to an
+        sp multiple, the sequence sharded over the sp ranks
+        (parallel/context_serving.py). The sampling chain's options and
+        logprobs ride it as they ride a prefill step. Returns
+        ([first token], [its logprobs] or None)."""
+        chunk = plan.chunks[0]
+        seq = chunk.seq
+        n = len(chunk.chunk_tokens)
+        t = 16
+        while t < n:
+            t *= 2
+        t += (-t) % self.sp.size
+        tokens = np.zeros((1, t), np.int32)
+        valid = np.zeros((1, t), bool)
+        tokens[0, :n] = chunk.chunk_tokens
+        valid[0, :n] = True
+        sp = seq.sampling
+        payload = {
+            "tokens": tokens, "valid": valid,
+            "page_table": self._page_table_rows([seq]),
+            "last_index": np.asarray([n - 1], np.int32),
+            "temperature": np.asarray([sp.temperature], np.float32),
+            "top_p": np.asarray([sp.top_p], np.float32),
+            "top_k": np.asarray([sp.top_k], np.int32),
+        }
+        payload.update(self._lora_payload([seq], 1))
+        payload.update(self._seed_payload([seq], 1))
+        opts, options = self._options_payload([seq], 1)
+        payload.update(opts)
+        sampled = self._dispatch(
+            "step", (1, t), payload,
+            ("tokens", "valid", "page_table", "last_index"),
+            ("sp_prefill",), options=options)
+        self._last_handle = None
+        self.sp_prefill_steps += 1
+        toks, lps = DecodeStepHandle([seq], sampled).result()
+        return [toks[0][0]], None if lps is None else [lps[0][0]]
+
+    def _sp_prefill_body(self, dev: dict, mode: str,
+                         options: Tuple[str, ...] = (),
+                         seeding: Optional[dict] = None):
+        logits = sp_prefill_forward(
+            self.params, self.shard_config, dev["tokens"],
+            dev["page_table"], dev["valid"], dev["last_index"],
+            self.k_cache, self.v_cache, sp=self.sp,
+            **self._lora_args(dev), **self._fwd_args)
+        return self._sample_rows(logits, dev, mode, options, seeding)
 
     # ---- decode -------------------------------------------------------------
 
@@ -1412,8 +1601,10 @@ class ModelRunner:
         the CPU the page is a copy too, never a view of the cache (a
         pool holding a view would see the page's slot reused). Under tp
         every rank reads its kv heads and the page is gathered along
-        the head axis: the full page, as the JAX tp engine reads it,
-        the read published to the other ranks first."""
+        the head axis, under pp each stage its layers and the page is
+        gathered along the layer axis: the full page, as the JAX engine
+        reads it off its mesh, the read published to the other ranks
+        first. The sp ranks' replicas are alike; each reads its own."""
         with self._bridge_lock():
             self._publish({"op": "read_page", "page_id": int(page_id)})
             return self._read_page(page_id)
@@ -1425,6 +1616,8 @@ class ModelRunner:
                     else torch.stack([c[:, page_id] for c in plane]))
             if self.tp is not None:
                 page = self.tp.all_gather(page, dim=1)
+            if self.pp is not None:
+                page = self.pp.all_gather(page, dim=0)
             out.append(page.to("cpu", copy=True))
         return tuple(out)
 
@@ -1436,8 +1629,9 @@ class ModelRunner:
         graphs hold the caches' addresses): what ``read_page`` gave, in
         the cache's element type (for an int8 cache, with its scales).
         One host-to-device copy a plane, queued on the steps' stream
-        before any step that reads the page. Under tp the full page is
-        published and every rank writes its kv heads of it."""
+        before any step that reads the page. Under tp, pp and sp the
+        full page is published and every rank writes its part of it:
+        its kv heads, its stage's layers, each sp replica the same."""
         pages = [k_page, v_page]
         if self.kv_quantized:
             if k_scale is None or v_scale is None:
@@ -1457,11 +1651,13 @@ class ModelRunner:
             self._write_page(page_id, pages)
 
     def _write_page(self, page_id: int, pages) -> None:
-        """Each plane of a full page into this rank's cache: under tp
-        its kv heads of it."""
+        """Each plane of a full page into this rank's cache: under pp
+        its stage's layers, under tp its kv heads of them."""
         for (plane, stacked), page in zip(self._page_planes(), pages):
+            if self.layers is not None:
+                page = page[self.layers[0]:self.layers[1]]
             if self.tp is not None:
-                page = cut(page, 1, self.tp.rank, self.tp.size)
+                page = mesh.cut(page, 1, self.tp.rank, self.tp.size)
             page = page.to(self.device)
             if stacked:
                 plane[:, :, page_id] = page

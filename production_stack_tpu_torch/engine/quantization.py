@@ -158,7 +158,7 @@ def quantize_params(params: nn.Module, config: ModelConfig) -> nn.Module:
 
 def init_random_quantized(config: ModelConfig, seed: int,
                           device: torch.device, rank: int = 0,
-                          tp: int = 1) -> nn.Module:
+                          tp: int = 1, layers=None) -> nn.Module:
     """Random int8 weights without materialising the projections in
     full precision: each target is uniform int8 in [-127, 127] with a
     flat 0.02 / 127 scale (the magnitude of the dense init), embeddings,
@@ -168,9 +168,12 @@ def init_random_quantized(config: ModelConfig, seed: int,
     the serving footprint: only the int8 bytes and the non-target
     leaves land on the card. Under tensor parallelism (``tp`` > 1)
     every rank draws the same full leaves and keeps rank ``rank``'s
-    shard of each module as it is made (``parallel/mesh.py``)."""
+    shard of each module as it is made (``parallel/mesh.py``). A
+    pipeline stage (``layers``, its [lo, hi) range) keeps its layers:
+    the others' draws are made on the host and dropped."""
     from production_stack_tpu_torch.models.registry import params_class
     from production_stack_tpu_torch.parallel.mesh import (
+        keep_layers,
         param_specs,
         shard_module,
     )
@@ -183,32 +186,32 @@ def init_random_quantized(config: ModelConfig, seed: int,
     out = params_class(config)(config, torch.device("meta"))
     targets = fused_targets(config)
 
-    def dense(shape):
+    def dense(shape, on):
         host = 0.02 * rng.standard_normal(shape, dtype=np.float32)
-        return torch.from_numpy(host).to(device=device, dtype=dtype)
+        return torch.from_numpy(host).to(device=on, dtype=dtype)
 
-    def leaf(name, shape):
+    def leaf(name, shape, on):
         if name.endswith("norm") or name.endswith("norm_w"):
-            return torch.ones(shape, dtype=dtype, device=device)
+            return torch.ones(shape, dtype=dtype, device=on)
         if name == "bias" or name.endswith("norm_b"):
-            return torch.zeros(shape, dtype=dtype, device=device)
-        return dense(shape)
+            return torch.zeros(shape, dtype=dtype, device=on)
+        return dense(shape, on)
 
-    def quant(lin):
+    def quant(lin, on):
         q = rng.integers(-127, 128,
                          size=(lin.out_features, lin.in_features),
                          dtype=np.int8)
         bias = (None if lin.bias is None else
-                torch.zeros(lin.out_features, dtype=dtype, device=device))
+                torch.zeros(lin.out_features, dtype=dtype, device=on))
         return QuantLinear(
-            torch.from_numpy(q).to(device),
+            torch.from_numpy(q).to(on),
             torch.full((lin.out_features,), 0.02 / 127.0,
-                       dtype=torch.float32, device=device), bias)
+                       dtype=torch.float32, device=on), bias)
 
-    def replace_leaves(module):
+    def replace_leaves(module, on=device):
         for name, p in list(module.named_parameters(recurse=False)):
-            setattr(module, name, nn.Parameter(leaf(name, tuple(p.shape)),
-                                               requires_grad=False))
+            setattr(module, name, nn.Parameter(
+                leaf(name, tuple(p.shape), on), requires_grad=False))
 
     # The draws in the order of the llama-only init this generalises:
     # the embeddings (and position table), the LM head, then each
@@ -223,11 +226,13 @@ def init_random_quantized(config: ModelConfig, seed: int,
     if getattr(out, "lm_head", None) is not None:
         replace_leaves(out.lm_head)
         shard(out.lm_head, "lm_head")
-    for layer in out.layers:
-        replace_leaves(layer)
+    kept = range(*(layers or (0, len(out.layers))))
+    for i, layer in enumerate(out.layers):
+        on = device if i in kept else torch.device("cpu")
+        replace_leaves(layer, on)
         shard(layer, "")
         for name in targets:
-            setattr(layer, name, quant(getattr(layer, name)))
+            setattr(layer, name, quant(getattr(layer, name), on))
             shard(getattr(layer, name), name)
     out.tp_shard = (rank, tp)
-    return out
+    return keep_layers(out, layers)

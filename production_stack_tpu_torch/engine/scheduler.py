@@ -21,8 +21,11 @@ sequence counts in the queue depth but is never planned until the
 engine admits it; a disaggregated handoff parks there too, and a
 prefill-role sequence retires after its first token (``finish_handoff``).
 With a tracer installed (``tracer``) the scheduler emits each request's
-chunk, first-token, preemption and restore events. Not ported yet:
-context-parallel whole-prompt prefill.
+chunk, first-token, preemption and restore events. Under context
+parallelism (``sp_threshold``) a cold prompt (no prefix hit, nothing
+restored) of at least the threshold is planned alone as one
+whole-prompt prefill (``PrefillPlan.sp``), after any chunks already
+gathered.
 """
 
 from __future__ import annotations
@@ -69,9 +72,12 @@ class PrefillChunk:
 class PrefillPlan:
     """One batched prefill step: the next chunk of up to
     ``prefill_batch_size`` DISTINCT waiting sequences, padded to a
-    fixed row count."""
+    fixed row count. ``sp``: a context-parallel whole-prompt plan (one
+    sequence, its whole prompt in one dispatch with the sequence sharded
+    over the sp ranks; parallel/context_serving.py)."""
 
     chunks: List[PrefillChunk]
+    sp: bool = False
 
 
 @dataclass
@@ -99,11 +105,15 @@ class StepPlan:
 
 class Scheduler:
     def __init__(self, config: SchedulerConfig, cache_config: CacheConfig,
-                 cache_manager: PagedCacheManager, guided_advance=None):
+                 cache_manager: PagedCacheManager,
+                 sp_threshold: Optional[int] = None, guided_advance=None):
         # Optional hook(seq, token) advancing a guided row's automaton
         # state as its tokens are appended (the engine binds it, so the
         # host state mirrors the device's).
         self.guided_advance = guided_advance
+        # Prompt length from which a cold prompt takes the
+        # context-parallel whole-prompt prefill (None: never).
+        self.sp_threshold = sp_threshold
         # The engine's tracer (engine/tracing.py), set through
         # LLMEngine.tracer; None = untraced.
         self.tracer = None
@@ -346,6 +356,11 @@ class Scheduler:
             return None
         prefill = self._plan_prefill(
             max_tokens=self.mixed_prefill_budget)
+        if prefill is not None and prefill.sp:
+            # A context-parallel whole-prompt plan runs alone; the
+            # decode rows keep their reserved pages for the next step.
+            self._last_was_prefill = True
+            return StepPlan(prefill=prefill)
         plan_drafts = [drafts.get(s.seq_id, []) for s in self.running]
         if not any(plan_drafts):
             plan_drafts = None
@@ -478,6 +493,36 @@ class Scheduler:
                         self.tracer.event(seq.seq_id, "offload_restore",
                                           pages=len(restored))
                     matched = matched + restored
+                if (self.sp_threshold is not None and not matched
+                        and seq.num_prompt_tokens >= self.sp_threshold):
+                    # A long cold prompt: context-parallel whole-prompt
+                    # prefill, one sequence a dispatch, alone: chunks
+                    # already gathered run first, it follows next step.
+                    if chunks:
+                        break
+                    try:
+                        seq.pages = list(self.cache.allocate_pages(
+                            self._pages_needed(seq,
+                                               seq.num_prompt_tokens)))
+                    except OutOfPagesError:
+                        seq.pages = []
+                        if not self.running:
+                            logger.error(
+                                "Request %s can never fit in the KV "
+                                "cache; aborting", seq.seq_id)
+                            self.waiting.remove(seq)
+                            self._finish(seq, FinishReason.ABORT)
+                            self.newly_aborted.append(seq)
+                            continue
+                        logger.warning("KV cache full: request %s waits",
+                                       seq.seq_id)
+                        return None
+                    if seq.first_scheduled_time is None:
+                        seq.first_scheduled_time = time.time()
+                    return PrefillPlan(chunks=[PrefillChunk(
+                        seq=seq, chunk_start=0,
+                        chunk_tokens=list(seq.prompt_token_ids),
+                        is_last_chunk=True)], sp=True)
                 seq.pages = matched
                 seq.num_hashed_pages = len(matched)
                 seq.num_computed_tokens = len(matched) * self.page_size

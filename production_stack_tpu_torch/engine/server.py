@@ -163,6 +163,7 @@ from production_stack_tpu_torch.engine.embeddings import (
 from production_stack_tpu_torch.engine.engine import LLMEngine, StepOutput
 from production_stack_tpu_torch.engine.model_runner import (
     check_engine_geometry,
+    check_parallel,
     deferred_kv_eligible,
     resolve_device,
     unified_step_eligible,
@@ -187,7 +188,7 @@ from production_stack_tpu_torch.ops import paged_kv_common
 from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
 from production_stack_tpu_torch.parallel import mesh
 from production_stack_tpu_torch.parallel.distributed import (
-    start_tensor_parallel,
+    start_parallel,
 )
 from production_stack_tpu_torch.parallel.topology import (
     MeshPlan,
@@ -1083,10 +1084,12 @@ class EngineServer:
         lines.append("# TYPE vllm:engine_eager_steps_total counter")
         lines += [f'vllm:engine_eager_steps_total{{reason="{reason}"}} '
                   f"{float(n)}" for reason, n in sorted(eager.items())]
-        # The mesh the engine runs on, as the JAX server reports it: the
-        # port serves tp only, so dp, pp and sp are 1.
-        axis_sizes = {"dp": 1, "pp": 1, "sp": 1,
-                      "tp": self.engine.config.parallel.tensor_parallel_size}
+        # The mesh the engine runs on, as the JAX server reports it (the
+        # port serves one replica: dp is 1).
+        par = self.engine.config.parallel
+        axis_sizes = {"dp": 1, "pp": par.pipeline_parallel_size,
+                      "sp": par.context_parallel_size,
+                      "tp": par.tensor_parallel_size}
         lines.append("# TYPE vllm:engine_mesh_shape gauge")
         lines += [f'vllm:engine_mesh_shape{{axis="{axis}"}} '
                   f"{float(axis_sizes[axis])}"
@@ -2168,41 +2171,51 @@ def resolve_attention_impl(flag: str, device: torch.device) -> str:
 def _resolve_deferred_kv(args, model_config) -> bool:
     """--deferred-kv-writes auto|on|off -> bool: 'auto' is on where the
     JAX server's is (the same predicate over the same arguments,
-    ``deferred_kv_eligible``; the port serves neither pp nor cp, so
-    those are 1); an explicit 'on' the runner cannot serve is refused
-    by the runner, as in JAX."""
+    ``deferred_kv_eligible``, pp and cp sizes included); an explicit
+    'on' the runner cannot serve is refused by the runner, as in
+    JAX."""
     if args.deferred_kv_writes == "on":
         return True
     if args.deferred_kv_writes == "off":
         return False
     return deferred_kv_eligible(
         model_config.architecture, args.decode_steps, args.attention_impl,
-        1, 1, args.speculative_k)
+        args.pipeline_parallel_size, args.context_parallel_size,
+        args.speculative_k)
+
+
+def world_size(args) -> int:
+    """Ranks of the flags' tp x sp x pp world."""
+    return (args.tensor_parallel_size * args.pipeline_parallel_size
+            * args.context_parallel_size)
 
 
 def tp_devices(args, device: torch.device) -> list:
-    """The devices of the tp ranks, one a rank, from the mesh plan over
-    this host's topology (``--num-slices``, ``--mesh-placement``): the
-    CUDA devices, or on the CPU that many CPU ranks. A plan wider than
-    the host is refused, as in JAX."""
+    """The devices of the world's ranks, one a rank in global rank
+    order, from the mesh plan over this host's topology
+    (``--num-slices``, ``--mesh-placement``): the CUDA devices, or on
+    the CPU that many CPU ranks. A plan wider than the host is refused,
+    as in JAX."""
     devices = None
     if device.type == "cpu":
-        devices = [device] * args.tensor_parallel_size
+        devices = [device] * world_size(args)
     topology = discover_topology(devices, num_slices=args.num_slices)
     plan = MeshPlan(tp=args.tensor_parallel_size,
+                    pp=args.pipeline_parallel_size,
+                    sp=args.context_parallel_size,
                     placement=parse_placement(args.mesh_placement))
-    return plan.build(topology).tp_devices()
+    return plan.build(topology).world_devices()
 
 
 def build_engine_from_args(args, devices=None, tp_backend=None) -> tuple:
     """(engine, served name) of the parsed flags. ``devices`` and
-    ``tp_backend`` override the tp ranks' devices and backend (two ranks
-    that share one card need gloo, named explicitly); by default the
-    mesh plan picks the devices and NCCL joins them."""
+    ``tp_backend`` override the ranks' devices (global rank order) and
+    backend (ranks that share one card need gloo, named explicitly); by
+    default the mesh plan picks the devices and NCCL joins them."""
     device = resolve_device(args.device)
     resolve_attention_impl(args.attention_impl, device)
     if devices is None:
-        devices = ([device] if args.tensor_parallel_size <= 1
+        devices = ([device] if world_size(args) <= 1
                    and args.num_slices <= 1 else tp_devices(args, device))
     devices = [torch.device(d) for d in devices]
     device = devices[0]
@@ -2253,6 +2266,9 @@ def build_engine_from_args(args, devices=None, tp_backend=None) -> tuple:
             max_queue_len=args.max_queue_len),
         parallel=ParallelConfig(
             tensor_parallel_size=args.tensor_parallel_size,
+            pipeline_parallel_size=args.pipeline_parallel_size,
+            context_parallel_size=args.context_parallel_size,
+            long_prefill_threshold=args.long_prefill_threshold,
             num_slices=args.num_slices,
             mesh_placement=args.mesh_placement),
         offload=OffloadConfig(
@@ -2295,22 +2311,29 @@ def build_engine_from_args(args, devices=None, tp_backend=None) -> tuple:
         step_watchdog_s=args.step_watchdog_s,
     )
     weights_dir = None
-    mesh.check_tp(model_config, len(devices))
+    # The JAX runner's refusals, before any rank is started.
+    check_parallel(config)
+    mesh.check_tp(model_config, args.tensor_parallel_size)
     if args.model not in ("tiny-llama", "tiny-opt", "bench-1b"):
         if device.type == "cuda":
             # Refuse a geometry the kernels lack before reading weights.
             check_engine_geometry(config)
         if not args.random_weights:
-            # Rank 0's shard; the other ranks read their own.
+            # Rank 0's part (tp shard 0 of stage 0); the other ranks
+            # read their own.
             weights_dir = args.model
-            params = load_weights(args.model, model_config, device=device,
-                                  tp=len(devices))
-    tp = None
+            params = load_weights(
+                args.model, model_config, device=device,
+                tp=args.tensor_parallel_size,
+                layers=(None if args.pipeline_parallel_size == 1 else
+                        mesh.stage_layers(model_config.num_hidden_layers,
+                                          0, args.pipeline_parallel_size)))
+    runtime = None
     if len(devices) > 1:
         # Ranks 1..N-1, one card each (NCCL; gloo on the CPU), replay
         # this process's steps through the bridge.
-        tp = start_tensor_parallel(config, devices, backend=tp_backend,
-                                   weights=weights_dir)
+        runtime = start_parallel(config, devices, backend=tp_backend,
+                                 weights=weights_dir)
     # The presets serve with the bench tokenizer at the model's vocab:
     # random-weights greedy ids decode to one character each.
     try:
@@ -2318,12 +2341,10 @@ def build_engine_from_args(args, devices=None, tp_backend=None) -> tuple:
                            tokenizer=tokenizer or BenchTokenizer(
                                model_config.vocab_size),
                            device=device,
-                           cuda_graphs=tp is None or tp.group.capturable,
-                           tp=tp and tp.group, bridge=tp and tp.bridge,
-                           tp_runtime=tp)
+                           **(runtime.engine_args() if runtime else {}))
     except BaseException:
-        if tp is not None:
-            tp.close()
+        if runtime is not None:
+            runtime.close()
         raise
     for module in args.lora_modules or []:
         name, _, path = module.partition("=")
@@ -2392,9 +2413,9 @@ def parse_args(argv=None):
                    choices=["auto", "stacked", "per_layer"],
                    help="KV cache device layout: one stacked [L, ...] "
                         "buffer per k/v, a list of per-layer buffers, or "
-                        "auto (per_layer: the JAX engine's rule, which "
-                        "picks stacked only under pipeline or context "
-                        "parallelism)")
+                        "auto (the JAX engine's rule: stacked under "
+                        "pipeline or context parallelism, which refuse "
+                        "per_layer; per_layer otherwise)")
     p.add_argument("--disable-prefix-caching", action="store_true")
     p.add_argument("--enable-lora", action="store_true",
                    help="multi-LoRA adapter serving")
@@ -2434,6 +2455,18 @@ def parse_args(argv=None):
                    help="ranks that split the heads and the MLP, one "
                         "card each over NCCL (on the CPU: gloo ranks); "
                         "the server starts ranks 1..N-1 itself")
+    p.add_argument("--pipeline-parallel-size", type=int, default=1,
+                   help="layer stages, one rank (times the tp size) "
+                        "each: microbatches hop stage to stage "
+                        "(parallel/pipeline_serving.py)")
+    p.add_argument("--context-parallel-size", type=int, default=1,
+                   help="sequence shards: a long cold prompt prefills in "
+                        "one ring-attention dispatch over the ranks "
+                        "(parallel/context_serving.py)")
+    p.add_argument("--long-prefill-threshold", type=int, default=None,
+                   help="prompt length (tokens) that takes the "
+                        "context-parallel prefill path (default 2 x "
+                        "--prefill-chunk-size)")
     p.add_argument("--num-slices", type=int, default=0,
                    help="force the device topology into N equal "
                         "contiguous slices; 0 discovers it (one host is "
@@ -2441,7 +2474,7 @@ def parse_args(argv=None):
     p.add_argument("--mesh-placement", default="auto",
                    help="per-axis mesh placement as 'axis=ici' / "
                         "'axis=any' pairs (comma separated); 'auto' "
-                        "keeps tp inside one slice")
+                        "keeps tp and sp inside one slice")
     p.add_argument("--seed", type=int, default=0)
     # Offload tiers, QoS, fleet contract and KV economy: the JAX
     # server's flags, names, defaults and choices.

@@ -60,6 +60,7 @@ is no eager fallback.
 from __future__ import annotations
 
 import functools
+import gc
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -70,9 +71,12 @@ from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
 
 # The JAX compile ledger's kinds, and why work on the card may run
 # without a graph: a step with a seeded row, or a chunk of the pooled
-# routes' dense forward (engine/embeddings.py, run on the loop thread).
+# routes' dense forward (engine/embeddings.py, run on the loop thread);
+# a context-parallel engine adds SP_PREFILL, its whole-prompt prefill
+# (whose T buckets reach the model's length).
 STEP_KINDS = ("step", "decode_burst", "spec_verify", "unified")
 EAGER_REASONS = ("seeded", "embed")
+SP_PREFILL = "sp_prefill"
 
 # Alignment of each input's view in the packed buffer, in bytes.
 _ALIGN = 16
@@ -206,13 +210,20 @@ class StepGraphs:
     def keys(self) -> List[tuple]:
         return list(self._entries)
 
+    def release(self) -> None:
+        """Destroy every captured graph (a key captures anew at its next
+        use). NCCL holds a communicator while a graph that captured its
+        collectives lives, so a process group is destroyed after them."""
+        self._entries.clear()
+        gc.collect()
+
     def recorded_launches(self) -> Dict[tuple, Dict[str, int]]:
         """Each key's kernel launches a replay adds, by counter name."""
         return {key: dict(entry.launches)
                 for key, entry in self._entries.items()}
 
     def count_eager(self, reason: str) -> None:
-        self.eager_steps[reason] += 1
+        self.eager_steps[reason] = self.eager_steps.get(reason, 0) + 1
 
     def run(self, kind: str, shape: Tuple[int, ...], mode: str,
             arrays: Dict[str, np.ndarray],

@@ -205,7 +205,8 @@ _PIECES = {"llama": _llama_piece, "mistral": _llama_piece,
 
 def load_weights(model_dir: str, config: ModelConfig,
                  dtype: Optional[torch.dtype] = None,
-                 device=None, rank: int = 0, tp: int = 1) -> nn.Module:
+                 device=None, rank: int = 0, tp: int = 1,
+                 layers=None) -> nn.Module:
     """The checkpoint in ``model_dir`` as ``config``'s params module on
     ``device`` (the card unless the CPU is asked for), in ``dtype``
     (default the config's): rank ``rank``'s shard of ``tp``, with the
@@ -213,14 +214,17 @@ def load_weights(model_dir: str, config: ModelConfig,
     module is finished (``parallel/mesh.finish_module``: quantized,
     then cut) as soon as its last piece is in, so the device holds the
     rank's shard and the modules still being filled, never the whole
-    model. Raises if a leaf of the module is missing from the
-    checkpoint."""
+    model. ``layers``: a pipeline stage's [lo, hi) layer range, whose
+    layers alone are read (the others' tensors are skipped). Raises if
+    a leaf of the module is missing from the checkpoint."""
     from production_stack_tpu_torch.engine.model_runner import (
         resolve_device,
     )
     from production_stack_tpu_torch.parallel.mesh import (
         check_tp,
         finish_module,
+        in_layers,
+        keep_layers,
     )
     device = resolve_device(device)
     dtype = dtype or config.torch_dtype
@@ -232,7 +236,8 @@ def load_weights(model_dir: str, config: ModelConfig,
     # device when its first piece arrives, and set into its module
     # when its last has.
     params = params_class(config)(config, torch.device("meta"), dtype)
-    shapes = {path: p.shape for path, p in params.named_parameters()}
+    shapes = {path: p.shape for path, p in params.named_parameters()
+              if in_layers(path, layers)}
     pending: Dict[str, set] = {}
     for path in shapes:
         pending.setdefault(path.rpartition(".")[0], set()).add(path)
@@ -246,6 +251,8 @@ def load_weights(model_dir: str, config: ModelConfig,
                                  and getattr(params, "lm_head", 0) is None):
                 continue
             path, index, transpose = piece
+            if path not in shapes:
+                continue  # another stage's layer
             if path not in leaves:
                 if filled.get(path):
                     continue  # already complete and set
@@ -282,6 +289,7 @@ def load_weights(model_dir: str, config: ModelConfig,
                          f"(all of) {missing[:8]}"
                          + (" ..." if len(missing) > 8 else ""))
     params.tp_shard = (rank, tp)
+    keep_layers(params, layers)
     logger.info("Loaded %s weights from %s (%.2f GB in %s on %s, rank "
                 "%d of %d)", config.architecture, model_dir, loaded / 1e9,
                 dtype, device, rank, tp)

@@ -11,11 +11,16 @@ dict (the JAX ``quantize_params`` or ``init_random_quantized``: each
 target projection a pair ``(q [L, in, out] int8, scale [L, out]
 f32)``; llama, opt and gpt2) becomes ``QuantLinear``s holding the
 pairs' int8 values and scales, fused and transposed the same way.
+``stage_params_from_numpy`` builds a pipeline stage's params from such
+a dict: its layers' slices of every [L, ...] leaf (an int8 pair's
+weight and scale cut together); an adapter's stacks are cut the same
+way by ``parallel/mesh.stage_lora_adapter``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -97,6 +102,31 @@ def params_from_numpy(params: Dict[str, np.ndarray], config: ModelConfig,
                 layer.w_up.copy_(t(params["w_up"][i]).transpose(1, 2))
                 layer.w_down.copy_(t(params["w_down"][i]).permute(2, 0, 1))
     return out
+
+
+# The JAX leaves without a leading layer axis.
+_SHARED = ("embed", "pos_embed", "final_norm", "final_norm_w",
+           "final_norm_b", "lm_head")
+
+
+def stage_params_from_numpy(params: Dict[str, np.ndarray],
+                            config: ModelConfig, layers: Tuple[int, int],
+                            device):
+    """The params module of the pipeline stage holding layers
+    [lo, hi) of ``config``'s model (``params_from_numpy`` over the
+    stage's slice of every layer-stacked leaf), with the stage's layer
+    count; the shared leaves (embeddings, final norm, head, position
+    table) whole."""
+    lo, hi = layers
+
+    def stage(v):
+        if isinstance(v, tuple):
+            return tuple(np.asarray(x)[lo:hi] for x in v)
+        return np.asarray(v)[lo:hi]
+
+    return params_from_numpy(
+        {k: v if k in _SHARED else stage(v) for k, v in params.items()},
+        dataclasses.replace(config, num_hidden_layers=hi - lo), device)
 
 
 def _quantized_projection(layer, name: str, targets, biases, params: Dict,

@@ -16,8 +16,16 @@ import torch
 from torch.nn import functional as F
 
 from production_stack_tpu_torch.engine.config import ModelConfig
+from production_stack_tpu_torch.models import opt
 from production_stack_tpu_torch.models.llama import random_init
-from production_stack_tpu_torch.models.opt import OPTParams, decoder_forward
+from production_stack_tpu_torch.models.opt import (  # noqa: F401
+    OPTParams,
+    attn_norm,
+    decoder_forward,
+    embed,
+    head,
+    mlp_norm,
+)
 
 
 class GPT2Params(OPTParams):
@@ -45,3 +53,19 @@ def forward(params: GPT2Params, config: ModelConfig, tokens, positions,
                            kv_lens, valid, k_cache, v_cache, kind=kind,
                            activation=gelu_tanh, impl=impl, select=select,
                            lora=lora, lora_ids=lora_ids, tp=tp)
+
+
+def decoder_layers(params: GPT2Params, config: ModelConfig, x, positions,
+                   page_table, kv_lens, valid, k_cache, v_cache, *,
+                   kind: str, impl: Optional[str] = None, lora=None,
+                   lora_ids=None, tp=None) -> torch.Tensor:
+    """A stage's layers (``llama.decoder_layers``' contract)."""
+    return opt.decoder_layers(params, config, x, positions, page_table,
+                              kv_lens, valid, k_cache, v_cache, kind=kind,
+                              activation=gelu_tanh, impl=impl, lora=lora,
+                              lora_ids=lora_ids, tp=tp)
+
+
+def mlp(config: ModelConfig, lp, m_in, ll, ids, lora_scale,
+        tp=None) -> torch.Tensor:
+    return opt.mlp(config, lp, m_in, ll, ids, lora_scale, tp, gelu_tanh)

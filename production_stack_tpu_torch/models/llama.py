@@ -15,9 +15,17 @@ quantized product, plus, with adapter stacks and per-row slot ids,
 each row's LoRA delta (the fused qkv and gate_up take their targets'
 deltas in their column blocks). ``encode`` is the cache-free dense
 forward the pooled routes run (engine/embeddings.py), over unquantized
-weights only. ``self_attention``, ``random_init``, ``lora_args`` and
-``select_slots`` serve the other families too (models/opt.py,
-gpt2.py, mixtral.py).
+weights only. ``self_attention`` (and its ``attention_inputs``),
+``random_init``, ``lora_args`` and ``select_slots`` serve the other
+families too (models/opt.py, gpt2.py, mixtral.py).
+
+``forward`` is ``embed``, ``decoder_layers`` and ``head`` in turn, and
+each family has the three (with a layer's ``attn_norm``, ``mlp_norm``
+and ``mlp``): a pipeline stage runs its own layers through
+``decoder_layers`` (its params hold only those, so the stacked cache
+and the adapter stacks are indexed stage-locally), and the
+context-parallel prefill composes a layer from its parts around ring
+attention (parallel/pipeline_serving.py, context_serving.py).
 
 Tensor parallelism (``tp``, a ``parallel/collectives`` group): every
 forward takes the rank's shard (``parallel/mesh.shard_params``) and
@@ -273,20 +281,14 @@ def row_parallel(x: torch.Tensor, base, ll, targets, ids, lora_scale,
     return out if bias is None else out + bias
 
 
-def self_attention(config: ModelConfig, lp: nn.Module, a_in: torch.Tensor,
-                   positions: torch.Tensor, page_table, kv_lens, k_cache,
-                   v_cache, slots, layer: int, kind: str,
-                   impl: Optional[str], ll, ids, lora_scale,
-                   rope: bool = True, tp=None,
-                   valid: Optional[torch.Tensor] = None,
-                   kv_tail=None) -> torch.Tensor:
-    """One layer's attention from its normed input to the output
-    projection, shared by every family: the fused q/k/v projection
-    (``lp.qkv``, with its bias if the family has one), RoPE where the
+def attention_inputs(config: ModelConfig, lp: nn.Module, a_in: torch.Tensor,
+                     positions: torch.Tensor, ll, ids, lora_scale,
+                     rope: bool = True):
+    """One layer's q [B, T, nh, d], k and v [B, T, nkv, d] from its
+    normed input: the fused q/k/v projection (``lp.qkv``, with its bias
+    if the family has one, and its LoRA deltas), then RoPE where the
     family uses it (llama, mixtral; OPT and GPT-2 add learned positions
-    to the embeddings instead), the cache write and the step kind's
-    kernel, then ``lp.o`` (row-parallel under ``tp``); each projection
-    with its LoRA deltas. ``config`` gives the rank's heads."""
+    to the embeddings instead). ``config`` gives the rank's heads."""
     nh, nkv, d = (config.num_attention_heads, config.num_key_value_heads,
                   config.head_dim)
     b, t = a_in.shape[:2]
@@ -301,11 +303,48 @@ def self_attention(config: ModelConfig, lp: nn.Module, a_in: torch.Tensor,
         k = apply_rope(k, positions, config.rope_theta)
     else:
         q = q.contiguous()  # a view of the fused projection's output
+    return q, k, v
+
+
+def self_attention(config: ModelConfig, lp: nn.Module, a_in: torch.Tensor,
+                   positions: torch.Tensor, page_table, kv_lens, k_cache,
+                   v_cache, slots, layer: int, kind: str,
+                   impl: Optional[str], ll, ids, lora_scale,
+                   rope: bool = True, tp=None,
+                   valid: Optional[torch.Tensor] = None,
+                   kv_tail=None) -> torch.Tensor:
+    """One layer's attention from its normed input to the output
+    projection, shared by every family: ``attention_inputs``, the cache
+    write and the step kind's kernel, then ``lp.o`` (row-parallel under
+    ``tp``) with its LoRA deltas."""
+    b, t = a_in.shape[:2]
+    q, k, v = attention_inputs(config, lp, a_in, positions, ll, ids,
+                               lora_scale, rope)
     attn = cached_attention(config, q, k, v, k_cache, v_cache, page_table,
                             positions, kv_lens, slots, layer, kind,
                             impl=impl, valid=valid, kv_tail=kv_tail)
-    return row_parallel(attn.reshape(b, t, nh * d), lp.o, ll, "wo", ids,
+    return row_parallel(attn.reshape(b, t, -1), lp.o, ll, "wo", ids,
                         lora_scale, tp)
+
+
+def mlp(config: ModelConfig, lp: nn.Module, m_in: torch.Tensor, ll, ids,
+        lora_scale, tp=None) -> torch.Tensor:
+    """The gated SiLU MLP of one layer on its normed input, the down
+    projection row-parallel under ``tp``."""
+    gate, up = lora_matmul(m_in, lp.gate_up, ll, GATE_UP_TARGETS, ids,
+                           lora_scale).chunk(2, dim=-1)
+    return row_parallel(F.silu(gate) * up, lp.down, ll, "w_down", ids,
+                        lora_scale, tp)
+
+
+def attn_norm(config: ModelConfig, lp: nn.Module,
+              x: torch.Tensor) -> torch.Tensor:
+    return rms_norm(x, lp.attn_norm, config.rms_norm_eps)
+
+
+def mlp_norm(config: ModelConfig, lp: nn.Module,
+             x: torch.Tensor) -> torch.Tensor:
+    return rms_norm(x, lp.mlp_norm, config.rms_norm_eps)
 
 
 def lora_args(lora, lora_ids):
@@ -325,7 +364,8 @@ def forward(params: LlamaParams, config: ModelConfig,
             select: Optional[torch.Tensor] = None,
             lora=None, lora_ids: Optional[torch.Tensor] = None,
             tp=None, kv_tail=None) -> torch.Tensor:
-    """One model invocation over a (possibly padded) token block.
+    """One model invocation over a (possibly padded) token block:
+    ``embed``, ``decoder_layers``, ``head``.
 
     Args:
       tokens:     [B, T] token ids
@@ -356,22 +396,50 @@ def forward(params: LlamaParams, config: ModelConfig,
     forward (models/opt.py, gpt2.py, mixtral.py) has this contract
     (``kv_tail`` is the llama family's only, as in JAX).
     """
+    x = embed(params, config, tokens, positions)
+    x = decoder_layers(params, config, x, positions, page_table, kv_lens,
+                       valid, k_cache, v_cache, kind=kind, impl=impl,
+                       lora=lora, lora_ids=lora_ids, tp=tp,
+                       kv_tail=kv_tail)
+    return head(params, config, x, select, tp)
+
+
+def embed(params: LlamaParams, config: ModelConfig, tokens: torch.Tensor,
+          positions: torch.Tensor) -> torch.Tensor:
+    """The token embeddings [B, T, H] (a pipeline's stage 0 computes
+    them)."""
+    del config, positions  # llama has no position table
+    return F.embedding(tokens.long(), params.embed)
+
+
+def decoder_layers(params: nn.Module, config: ModelConfig, x: torch.Tensor,
+                   positions, page_table, kv_lens, valid, k_cache, v_cache,
+                   *, kind: str, impl: Optional[str] = None, lora=None,
+                   lora_ids: Optional[torch.Tensor] = None, tp=None,
+                   kv_tail=None) -> torch.Tensor:
+    """Every layer of ``params.layers`` over the hidden states ``x``
+    (``forward``'s arguments): a pipeline stage's params hold its layers
+    only, its cache and adapter stacks those layers', so the layer index
+    here is the stage-local one."""
     slots = page_slots(page_table, positions, valid,
                        k_cache[0].shape[-1])
     ids, lora_scale = lora_args(lora, lora_ids)
-    x = F.embedding(tokens.long(), params.embed)  # [B, T, H]
     for layer, lp in enumerate(params.layers):
         ll = layer_stacks(lora, layer)
-        a_in = rms_norm(x, lp.attn_norm, config.rms_norm_eps)
+        a_in = attn_norm(config, lp, x)
         x = x + self_attention(config, lp, a_in, positions, page_table,
                                kv_lens, k_cache, v_cache, slots, layer,
                                kind, impl, ll, ids, lora_scale, tp=tp,
                                valid=valid, kv_tail=kv_tail)
-        m_in = rms_norm(x, lp.mlp_norm, config.rms_norm_eps)
-        gate, up = lora_matmul(m_in, lp.gate_up, ll, GATE_UP_TARGETS, ids,
-                               lora_scale).chunk(2, dim=-1)
-        x = x + row_parallel(F.silu(gate) * up, lp.down, ll, "w_down", ids,
-                             lora_scale, tp)
+        x = x + mlp(config, lp, mlp_norm(config, lp, x), ll, ids,
+                    lora_scale, tp)
+    return x
+
+
+def head(params: LlamaParams, config: ModelConfig, x: torch.Tensor,
+         select: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
+    """f32 logits of the final hidden states (at ``select``'s slots):
+    the final norm and ``lm_logits``."""
     x = select_slots(x, select)
     x = rms_norm(x, params.final_norm, config.rms_norm_eps)
     return lm_logits(x, params, tp)
@@ -410,15 +478,22 @@ def encode(params: LlamaParams, config: ModelConfig,
     Under ``tp`` (the rank's shard and config) the output and down
     projections are row-parallel.
     """
+    x = F.embedding(tokens.long(), params.embed)
+    x = encode_layers(params.layers, config, x, tp)
+    return rms_norm(x, params.final_norm, config.rms_norm_eps)
+
+
+def encode_layers(layers, config: ModelConfig, x: torch.Tensor,
+                  tp=None) -> torch.Tensor:
+    """``encode``'s dense causal layers over hidden states [B, T, H]
+    (a pipeline stage runs its own; parallel/pipeline.py)."""
     nh, nkv, d = (config.num_attention_heads, config.num_key_value_heads,
                   config.head_dim)
-    b, t = tokens.shape
-    positions = torch.arange(t, device=tokens.device)[None, :].expand(b, t)
-    x = F.embedding(tokens.long(), params.embed)
-    causal = torch.ones((t, t), dtype=torch.bool,
-                        device=tokens.device).tril()
+    b, t = x.shape[:2]
+    positions = torch.arange(t, device=x.device)[None, :].expand(b, t)
+    causal = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
     group = nh // nkv
-    for lp in params.layers:
+    for lp in layers:
         a_in = rms_norm(x, lp.attn_norm, config.rms_norm_eps)
         q, k, v = lp.qkv(a_in).split([nh * d, nkv * d, nkv * d], dim=-1)
         q = apply_rope(q.reshape(b, t, nh, d), positions,
@@ -438,4 +513,4 @@ def encode(params: LlamaParams, config: ModelConfig,
         gate, up = lp.gate_up(m_in).chunk(2, dim=-1)
         x = x + row_parallel(F.silu(gate) * up, lp.down, None, "w_down",
                              None, None, tp)
-    return rms_norm(x, params.final_norm, config.rms_norm_eps)
+    return x

@@ -103,34 +103,82 @@ def decoder_forward(params: OPTParams, config: ModelConfig,
                     select: Optional[torch.Tensor] = None, lora=None,
                     lora_ids: Optional[torch.Tensor] = None, tp=None
                     ) -> torch.Tensor:
-    """The OPT/GPT-2 body under ``llama.forward``'s contract. Under
-    ``tp`` the output projection and fc2 are row-parallel, their biases
-    replicated and added once after the reduce; the head is the
-    replicated embedding, so nothing is gathered.
+    """The OPT/GPT-2 body under ``llama.forward``'s contract: ``embed``,
+    ``decoder_layers``, ``head``. Under ``tp`` the output projection and
+    fc2 are row-parallel, their biases replicated and added once after
+    the reduce; the head is the replicated embedding, so nothing is
+    gathered."""
+    x = embed(params, config, tokens, positions)
+    x = decoder_layers(params, config, x, positions, page_table, kv_lens,
+                       valid, k_cache, v_cache, kind=kind,
+                       activation=activation, impl=impl, lora=lora,
+                       lora_ids=lora_ids, tp=tp)
+    return head(params, config, x, select)
+
+
+def embed(params: OPTParams, config: ModelConfig, tokens: torch.Tensor,
+          positions: torch.Tensor) -> torch.Tensor:
+    """Token plus learned position embeddings [B, T, H].
 
     The position index (``positions + POS_OFFSET``) is clamped into the
     table: the JAX gather clamps silently, while an out-of-range index
     on the card would end the CUDA context. Real rows never reach the
     clamp (EngineConfig caps max_model_len at the table); pad slots
     index in range."""
+    del config
+    pos = torch.clamp(positions.long() + params.POS_OFFSET, 0,
+                      params.pos_embed.shape[0] - 1)
+    return (F.embedding(tokens.long(), params.embed)
+            + F.embedding(pos, params.pos_embed))
+
+
+def attn_norm(config: ModelConfig, lp: nn.Module,
+              x: torch.Tensor) -> torch.Tensor:
+    return layer_norm(x, lp.attn_norm_w, lp.attn_norm_b)
+
+
+def mlp_norm(config: ModelConfig, lp: nn.Module,
+             x: torch.Tensor) -> torch.Tensor:
+    return layer_norm(x, lp.mlp_norm_w, lp.mlp_norm_b)
+
+
+def mlp(config: ModelConfig, lp: nn.Module, m_in: torch.Tensor, ll, ids,
+        lora_scale, tp=None, activation=F.relu) -> torch.Tensor:
+    """fc1, the activation, fc2 (row-parallel under ``tp``)."""
+    hidden = activation(lora_matmul(m_in, lp.fc1, ll, "fc1", ids,
+                                    lora_scale))
+    return row_parallel(hidden, lp.fc2, ll, "fc2", ids, lora_scale, tp)
+
+
+def decoder_layers(params: nn.Module, config: ModelConfig, x: torch.Tensor,
+                   positions, page_table, kv_lens, valid, k_cache, v_cache,
+                   *, kind: str,
+                   activation: Callable[[torch.Tensor], torch.Tensor],
+                   impl: Optional[str] = None, lora=None,
+                   lora_ids: Optional[torch.Tensor] = None, tp=None
+                   ) -> torch.Tensor:
+    """Every layer of ``params.layers`` (a stage's, stage-local index)
+    over ``x``, as ``llama.decoder_layers``."""
     slots = page_slots(page_table, positions, valid,
                        k_cache[0].shape[-1])
     ids, lora_scale = lora_args(lora, lora_ids)
-    pos = torch.clamp(positions.long() + params.POS_OFFSET, 0,
-                      params.pos_embed.shape[0] - 1)
-    x = (F.embedding(tokens.long(), params.embed)
-         + F.embedding(pos, params.pos_embed))
     for layer, lp in enumerate(params.layers):
         ll = layer_stacks(lora, layer)
-        a_in = layer_norm(x, lp.attn_norm_w, lp.attn_norm_b)
+        a_in = attn_norm(config, lp, x)
         x = x + self_attention(config, lp, a_in, positions, page_table,
                                kv_lens, k_cache, v_cache, slots, layer,
                                kind, impl, ll, ids, lora_scale, rope=False,
                                tp=tp)
-        m_in = layer_norm(x, lp.mlp_norm_w, lp.mlp_norm_b)
-        hidden = activation(lora_matmul(m_in, lp.fc1, ll, "fc1", ids,
-                                        lora_scale))
-        x = x + row_parallel(hidden, lp.fc2, ll, "fc2", ids, lora_scale, tp)
+        x = x + mlp(config, lp, mlp_norm(config, lp, x), ll, ids,
+                    lora_scale, tp, activation)
+    return x
+
+
+def head(params: OPTParams, config: ModelConfig, x: torch.Tensor,
+         select: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
+    """The final LayerNorm and the tied head's f32 logits (at
+    ``select``'s slots); replicated under ``tp``."""
+    del config, tp
     x = select_slots(x, select)
     x = layer_norm(x, params.final_norm_w, params.final_norm_b)
     return F.linear(x, params.embed).float()

@@ -1,7 +1,7 @@
 """Architecture registry mapping config.architecture -> (init, forward),
 the JAX package's ``models/registry.py`` in the port, plus each
 family's params module (what the int8 init and the checkpoint loader
-build)."""
+build) and its module (``get_family``: the stage functions)."""
 
 import importlib
 from typing import Callable, Tuple
@@ -33,6 +33,15 @@ def get_model(config: ModelConfig) -> Tuple[Callable, Callable]:
     """Returns (init_params, forward) for the configured architecture."""
     module, _ = _family(config)
     return module.init_params, module.forward
+
+
+def get_family(config: ModelConfig):
+    """The architecture's module of models/, whose stage functions
+    (``embed``, ``decoder_layers``, ``head``; a layer's ``attn_norm``,
+    ``mlp_norm``, ``mlp``) the pipeline and
+    context-parallel forwards compose (parallel/pipeline_serving.py,
+    context_serving.py)."""
+    return _family(config)[0]
 
 
 def params_class(config: ModelConfig) -> type:

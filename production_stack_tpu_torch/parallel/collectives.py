@@ -1,34 +1,52 @@
-"""The collectives of tensor parallelism, written out.
+"""The collectives of tensor, pipeline and context parallelism, written
+out.
 
 The JAX package has no counterpart: it places weights under
-``NamedSharding``s and GSPMD inserts the collectives. Here a rank runs
-its shard of every layer and the models call the group themselves
-(models/llama.py ``row_parallel``, ``lm_logits``;
-models/mixtral.py's expert combine):
+``NamedSharding``s over a (dp, pp, sp, tp) mesh, GSPMD inserts the
+tp collectives and its pp and sp bodies call ``ppermute``/``psum``/
+``all_gather`` inside ``shard_map``. Here a rank runs its shard and the
+models call its groups themselves:
 
-- ``all_reduce`` sums the row-parallel partials (attention's output
-  projection, the MLP's down projection, the experts' combine), in
-  place;
-- ``all_gather`` joins the vocab-sharded logits along their last axis
-  (and a page read off the ranks' caches along its kv-head axis).
+- tp (models/llama.py ``row_parallel``, ``lm_logits``; models/mixtral.py's
+  expert combine): ``all_reduce`` sums the row-parallel partials in
+  place; ``all_gather`` joins the vocab-sharded logits along their last
+  axis (and a page read off the ranks' caches along its kv-head axis);
+- pp (parallel/pipeline_serving.py): ``shift`` is the stage-to-stage hop
+  (JAX ``ppermute`` with perm i -> i + 1 mod n: rank r receives rank
+  r - 1's tensor); ``masked_sum`` returns the last stage's hidden states
+  to every stage (JAX's psum of ``where(stage == S - 1, x, 0)``);
+  ``all_gather`` joins a page's layer slices;
+- sp (ops/ring_attention.py, parallel/context_serving.py): ``shift``
+  rotates a K/V block around the ring; ``all_gather`` joins the ranks'
+  sequence shards.
 
-``TPGroup`` rides a ``torch.distributed`` process group: NCCL whenever
-each rank has its own card, gloo only where a caller asks for it (two
-ranks sharing one card, and the CPU). A step graph may capture NCCL
-collectives; capturing one over gloo raises (gloo's collectives run on
-the host and cannot be recorded), so a gloo group never turns a
-graphed step eager without saying so. ``FakeTPGroup`` is N ranks in one
-process, one thread each, for the unit tests: its reduction sums the
-ranks' partials in rank order.
+``TPGroup`` is one rank's view of one axis group, riding a
+``torch.distributed`` process group (the default group, or a subgroup
+of the world when several axes are > 1): NCCL whenever each rank has
+its own card, gloo only where a caller asks for it (ranks sharing one
+card, and the CPU). ``shift`` is an all-gather over the axis from which
+each rank keeps its predecessor's part: one collective that NCCL runs
+inside a step graph and gloo runs on CUDA tensors (gloo's send/recv
+take CPU tensors only, and NCCL refuses two ranks on one card). Whether
+a step graph may record a group's collectives is its backend's,
+decided up front (``capturable``); capturing one over gloo raises, so a
+gloo group never turns a graphed step eager without saying so.
+``init_mesh_groups`` joins the world and makes every axis group, every
+rank creating each group in one order. ``FakeTPGroup`` is N ranks in
+one process, one thread each, for the unit tests (``fake_mesh`` the
+groups of a tp x sp x pp world): its reduction sums the ranks' partials
+in rank order.
 
-Each collective counts one in ``COUNTERS`` under ``tp_all_reduce`` or
-``tp_all_gather``, as the kernel wrappers count their launches, so a
-step graph's recorded launches show the collectives it captured and
-every replay adds them.
+Each collective counts one in ``COUNTERS`` under ``<axis>_all_reduce``,
+``<axis>_all_gather``, ``<axis>_hop`` or ``<axis>_sum`` (``tp_all_reduce``,
+``pp_hop``, ``sp_all_gather``, ...), as the kernel wrappers count their
+launches, so a step graph's recorded launches show the collectives it
+captured and every replay adds them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import threading
 from typing import List, Optional
@@ -38,8 +56,7 @@ import torch
 from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
 
 BACKENDS = ("nccl", "gloo")
-ALL_REDUCE = "tp_all_reduce"
-ALL_GATHER = "tp_all_gather"
+AXES = ("pp", "sp", "tp")
 
 
 def _capturing(t: torch.Tensor) -> bool:
@@ -47,14 +64,19 @@ def _capturing(t: torch.Tensor) -> bool:
 
 
 class TPGroup:
-    """One rank's view of its tensor-parallel group (the default
-    process group): ``rank``, ``size`` and its ``backend``."""
+    """One rank's view of one axis group: ``rank`` and ``size`` along
+    ``axis`` ("tp", "pp" or "sp"), its ``backend`` and its process
+    group (``group``; None: the default group, the whole world)."""
 
-    def __init__(self, rank: int, size: int, backend: str):
+    def __init__(self, rank: int, size: int, backend: str,
+                 axis: str = "tp", group=None):
         if backend not in BACKENDS:
             raise ValueError(f"tp backend must be one of {BACKENDS} "
                              f"(got {backend!r})")
+        if axis not in AXES:
+            raise ValueError(f"axis must be one of {AXES} (got {axis!r})")
         self.rank, self.size, self.backend = rank, size, backend
+        self.axis, self.group = axis, group
 
     @property
     def capturable(self) -> bool:
@@ -65,36 +87,102 @@ class TPGroup:
         if not self.capturable and _capturing(t):
             raise RuntimeError(
                 f"a {self.backend} collective cannot be captured in a "
-                "CUDA graph: run this tp group with cuda_graphs=False, "
-                "or give each rank its own card (NCCL)")
+                f"CUDA graph: run this {self.axis} group with "
+                "cuda_graphs=False, or give each rank its own card (nccl)")
+
+    def _parts(self, t: torch.Tensor) -> List[torch.Tensor]:
+        import torch.distributed as dist
+        self._check(t)
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t, group=self.group)
+        return parts
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the ranks, in place; returns it."""
         import torch.distributed as dist
         self._check(t)
-        dist.all_reduce(t)
-        COUNTERS.launched(ALL_REDUCE)
+        dist.all_reduce(t, group=self.group)
+        COUNTERS.launched(f"{self.axis}_all_reduce")
         return t
 
     def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """The ranks' ``t`` joined along ``dim``, rank order."""
-        import torch.distributed as dist
-        self._check(t)
-        t = t.contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.size)]
-        dist.all_gather(parts, t)
-        COUNTERS.launched(ALL_GATHER)
+        parts = self._parts(t)
+        COUNTERS.launched(f"{self.axis}_all_gather")
         return torch.cat(parts, dim=dim)
 
+    def shift(self, t: torch.Tensor) -> torch.Tensor:
+        """The previous rank's ``t`` (rank 0 gets the last rank's): JAX
+        ``ppermute`` with perm i -> i + 1 mod n."""
+        parts = self._parts(t)
+        COUNTERS.launched(f"{self.axis}_hop")
+        return parts[(self.rank - 1) % self.size]
 
-def init_tp_group(rank: int, size: int, backend: str, init_method: str,
-                  device: torch.device,
-                  timeout_s: float = 600.0) -> TPGroup:
-    """Join the default process group (``init_method``
-    tcp://host:port, world ``size``) with ``backend`` and return this
-    rank's ``TPGroup``. NCCL needs a card a rank (``device``); one
-    all-reduce runs at once, eagerly, so the communicator exists before
-    any step graph is captured."""
+    def masked_sum(self, t: torch.Tensor, keep: bool) -> torch.Tensor:
+        """The sum over the ranks of ``t`` where ``keep``, zeros
+        elsewhere: with one keeping rank, its ``t`` on every rank."""
+        import torch.distributed as dist
+        out = t.clone() if keep else torch.zeros_like(t)
+        self._check(out)
+        dist.all_reduce(out, group=self.group)
+        COUNTERS.launched(f"{self.axis}_sum")
+        return out
+
+
+@dataclasses.dataclass
+class MeshGroups:
+    """A rank's groups along the axes of a tp x sp x pp world, None
+    along an axis of size 1."""
+
+    tp: Optional[object] = None
+    pp: Optional[object] = None
+    sp: Optional[object] = None
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a step graph may record every group's collectives."""
+        return all(g.capturable for g in (self.tp, self.pp, self.sp)
+                   if g is not None)
+
+    def abort(self) -> None:
+        """Release the fake ranks waiting on these groups."""
+        for g in (self.tp, self.pp, self.sp):
+            if g is not None:
+                g.abort()
+
+
+def axis_ranks(axis: str, tp: int = 1, pp: int = 1, sp: int = 1
+               ) -> List[List[int]]:
+    """The global ranks of each group along ``axis``, the mesh laid out
+    (pp, sp, tp) with tp fastest (``parallel/topology.AXIS_ORDER``):
+    rank = (pp_index * sp + sp_index) * tp + tp_index."""
+    sizes = {"pp": pp, "sp": sp, "tp": tp}
+    if axis not in sizes:
+        raise ValueError(f"axis must be one of {AXES} (got {axis!r})")
+    groups = {}
+    for r in range(pp * sp * tp):
+        key = tuple(v for a, v in rank_coords(r, tp, pp, sp).items()
+                    if a != axis)
+        groups.setdefault(key, []).append(r)
+    return [groups[k] for k in sorted(groups)]
+
+
+def rank_coords(rank: int, tp: int = 1, pp: int = 1, sp: int = 1) -> dict:
+    """(pp, sp, tp) indices of global ``rank``."""
+    return {"pp": rank // (sp * tp), "sp": rank // tp % sp, "tp": rank % tp}
+
+
+def init_mesh_groups(rank: int, backend: str, init_method: str,
+                     device: torch.device, tp: int = 1, pp: int = 1,
+                     sp: int = 1, timeout_s: float = 600.0) -> MeshGroups:
+    """Join the default process group (``init_method`` tcp://host:port,
+    world tp x sp x pp) with ``backend`` and return this rank's groups.
+    An axis that spans the whole world rides the default group; with
+    two axes > 1 every rank creates every group of each axis in one
+    order (``dist.new_group``'s rule). NCCL needs a card a rank
+    (``device``); one all-reduce runs on each group at once, eagerly,
+    so its communicator exists before any step graph is captured."""
     import torch.distributed as dist
     if backend not in BACKENDS:
         raise ValueError(f"tp backend must be one of {BACKENDS} "
@@ -105,15 +193,32 @@ def init_tp_group(rank: int, size: int, backend: str, init_method: str,
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(device)
+    size = tp * pp * sp
     dist.init_process_group(
         backend, init_method=init_method, world_size=size, rank=rank,
         timeout=datetime.timedelta(seconds=timeout_s))
-    group = TPGroup(rank, size, backend)
+    sizes = {"pp": pp, "sp": sp, "tp": tp}
+    groups = MeshGroups()
+    for axis in AXES:
+        if sizes[axis] == 1:
+            continue
+        mine = None
+        for ranks in axis_ranks(axis, tp=tp, pp=pp, sp=sp):
+            handle = (None if len(ranks) == size else dist.new_group(
+                ranks, backend=backend,
+                timeout=datetime.timedelta(seconds=timeout_s)))
+            if rank in ranks:
+                mine = TPGroup(ranks.index(rank), sizes[axis], backend,
+                               axis=axis, group=handle)
+        setattr(groups, axis, mine)
     warm = torch.zeros((1,), device=device)
     dist.all_reduce(warm)
+    for g in (groups.pp, groups.sp, groups.tp):
+        if g is not None:
+            dist.all_reduce(warm, group=g.group)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return group
+    return groups
 
 
 class _FakeWorld:
@@ -135,13 +240,18 @@ class FakeTPGroup:
     backend = "fake"
     capturable = False
 
-    def __init__(self, rank: int, world: _FakeWorld):
+    def __init__(self, rank: int, world: _FakeWorld, axis: str = "tp"):
         self.rank, self.size, self._world = rank, world.size, world
+        self.axis = axis
 
     @staticmethod
-    def world(size: int, timeout_s: float = 60.0) -> List["FakeTPGroup"]:
+    def world(size: int, timeout_s: float = 60.0,
+              axis: str = "tp") -> List["FakeTPGroup"]:
         shared = _FakeWorld(size, timeout_s)
-        return [FakeTPGroup(r, shared) for r in range(size)]
+        return [FakeTPGroup(r, shared, axis) for r in range(size)]
+
+    def abort(self) -> None:
+        self._world.barrier.abort()
 
     def _exchange(self, t: torch.Tensor) -> List[torch.Tensor]:
         w = self._world
@@ -151,24 +261,54 @@ class FakeTPGroup:
         w.barrier.wait()
         return parts
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+    def _sum(self, t: torch.Tensor) -> torch.Tensor:
         parts = self._exchange(t)
         total = parts[0]
         for p in parts[1:]:
             total = total + p
-        t.copy_(total)
-        COUNTERS.launched(ALL_REDUCE)
+        return t.copy_(total)
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        self._sum(t)
+        COUNTERS.launched(f"{self.axis}_all_reduce")
         return t
 
     def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
         parts = self._exchange(t.contiguous())
-        COUNTERS.launched(ALL_GATHER)
+        COUNTERS.launched(f"{self.axis}_all_gather")
         return torch.cat(parts, dim=dim)
+
+    def shift(self, t: torch.Tensor) -> torch.Tensor:
+        parts = self._exchange(t.contiguous())
+        COUNTERS.launched(f"{self.axis}_hop")
+        return parts[(self.rank - 1) % self.size]
+
+    def masked_sum(self, t: torch.Tensor, keep: bool) -> torch.Tensor:
+        out = self._sum(t.clone() if keep else torch.zeros_like(t))
+        COUNTERS.launched(f"{self.axis}_sum")
+        return out
+
+
+def fake_mesh(tp: int = 1, pp: int = 1, sp: int = 1,
+              timeout_s: float = 60.0) -> List[MeshGroups]:
+    """Each global rank's MeshGroups of a fake tp x sp x pp world, in
+    rank order (``axis_ranks``'s layout), for threads of one process."""
+    sizes = {"pp": pp, "sp": sp, "tp": tp}
+    out = [MeshGroups() for _ in range(tp * pp * sp)]
+    for axis in AXES:
+        if sizes[axis] == 1:
+            continue
+        for ranks in axis_ranks(axis, tp=tp, pp=pp, sp=sp):
+            views = FakeTPGroup.world(len(ranks), timeout_s, axis)
+            for view, r in zip(views, ranks):
+                setattr(out[r], axis, view)
+    return out
 
 
 def run_ranks(groups, fn):
-    """Run ``fn(group)`` for each fake rank in its own thread; returns
-    the results in rank order and raises the first rank's error."""
+    """Run ``fn(group)`` for each fake rank in its own thread (``groups``
+    FakeTPGroups, or a ``fake_mesh``'s MeshGroups); returns the results
+    in rank order and raises the first rank's error."""
     results: List[object] = [None] * len(groups)
     errors: List[Optional[BaseException]] = [None] * len(groups)
 
@@ -177,7 +317,8 @@ def run_ranks(groups, fn):
             results[i] = fn(groups[i])
         except BaseException as exc:  # re-raised below, in rank order
             errors[i] = exc
-            groups[i]._world.barrier.abort()
+            for g in groups:
+                g.abort()
 
     threads = [threading.Thread(target=main, args=(i,))
                for i in range(len(groups))]

@@ -1,4 +1,5 @@
-"""The step bridge of tensor parallelism: one scheduler, N ranks.
+"""The step bridge of tensor, pipeline and context parallelism: one
+scheduler, N ranks.
 
 The JAX package's ``parallel/distributed.py`` (``MultihostStepBridge``)
 in the port. Rank 0, the server's process, owns the scheduler, the page
@@ -20,12 +21,19 @@ it stays idle), or ``FakeTransport``'s in-process queues, with which
 the tests drive the real publish/worker_loop sequence, message check
 and follower ordering included, without processes.
 
-``start_tensor_parallel`` is how the server starts a tp engine: it
-spawns ranks 1..N-1 (one card each, ``torch.multiprocessing`` spawn),
-joins rank 0 to the group and returns the group, the bridge and the
-handle that tears the workers down (``TensorParallelRuntime.close``).
-The JAX bridge's slice liveness, ``init_distributed`` and the
-``--distributed`` flags (multi-host serving) are not ported yet.
+``start_parallel`` is how the server starts a tp x sp x pp engine
+(``ParallelConfig``'s sizes): it spawns ranks 1..N-1 (one card each,
+``torch.multiprocessing`` spawn), joins rank 0 to the world, makes
+every rank's axis groups (parallel/collectives.init_mesh_groups) and
+returns the groups, the bridge and the handle that tears the workers
+down (``TensorParallelRuntime.close``). Each worker makes its own
+stage's (pp) or replica's (sp) tp shard and replays every record: a
+pipeline step's hops and sum, a context-parallel prefill's ring, and
+the page reads and writes that join or cut a page over the stages.
+This is single-host SPMD: the JAX bridge's multi-host half (its slice
+liveness, ``init_distributed`` and the ``--distributed``,
+``--coordinator-address``, ``--num-processes`` and ``--process-id``
+flags) is not ported yet.
 """
 
 from __future__ import annotations
@@ -41,8 +49,9 @@ from typing import List, Optional, Sequence
 import torch
 
 from production_stack_tpu_torch.parallel.collectives import (
-    TPGroup,
-    init_tp_group,
+    MeshGroups,
+    init_mesh_groups,
+    rank_coords,
 )
 from production_stack_tpu_torch.utils.log import init_logger
 
@@ -176,45 +185,65 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def _sizes(config) -> dict:
+    par = config.parallel
+    return {"tp": par.tensor_parallel_size,
+            "sp": par.context_parallel_size,
+            "pp": par.pipeline_parallel_size}
+
+
 def _load_params(config, weights: Optional[str], device: torch.device,
-                 rank: int, size: int):
-    """The rank's shard of a checkpoint directory's weights (every rank
-    reads the checkpoint and keeps its own shard of each module), or
-    None (random, from the config's seed: the runner draws the same
-    full leaves on every rank and keeps its shard)."""
+                 rank: int):
+    """Global rank ``rank``'s part of a checkpoint directory's weights:
+    its stage's layers (pp) of its tp shard (every rank reads the
+    checkpoint and keeps its own part of each module); or None (random,
+    from the config's seed: the runner draws the same full leaves on
+    every rank and keeps its part)."""
     if weights is None:
         return None
     from production_stack_tpu_torch.engine.weights import load_weights
-    return load_weights(weights, config.model, device=device, rank=rank,
-                        tp=size)
+    from production_stack_tpu_torch.parallel.mesh import stage_layers
+    sizes = _sizes(config)
+    at = rank_coords(rank, **sizes)
+    layers = (None if sizes["pp"] == 1 else stage_layers(
+        config.model.num_hidden_layers, at["pp"], sizes["pp"]))
+    return load_weights(weights, config.model, device=device,
+                        rank=at["tp"], tp=sizes["tp"], layers=layers)
 
 
-def _join_groups(rank: int, size: int, device: torch.device, backend: str,
+def _join_groups(config, rank: int, device: torch.device, backend: str,
                  init_method: str):
-    """The tp group and the bridge's gloo group beside it."""
+    """The rank's axis groups and the bridge's gloo group beside them."""
     import torch.distributed as dist
-    tp = init_tp_group(rank, size, backend, init_method, device)
+    groups = init_mesh_groups(rank, backend, init_method, device,
+                              **_sizes(config))
     bridge_group = dist.new_group(backend="gloo", timeout=BRIDGE_TIMEOUT)
-    return tp, bridge_group
+    return groups, bridge_group
 
 
-def worker_main(config, weights: Optional[str], rank: int, size: int,
-                device: str, backend: str, init_method: str,
-                cuda_graphs: bool, report=None) -> None:
+def worker_main(config, weights: Optional[str], rank: int, device: str,
+                backend: str, init_method: str, cuda_graphs: bool,
+                report=None) -> None:
     """Rank ``rank`` > 0: join the groups, build the runner on the
-    rank's shard and replay rank 0's records until shutdown; then put
-    (rank, the kernel launch counts of the rank's run) on ``report``."""
+    rank's shard (its stage under pp, a replica under sp) and replay
+    rank 0's records until shutdown; then put (rank, the kernel launch
+    counts of the rank's run) on ``report``."""
     import torch.distributed as dist
     from production_stack_tpu_torch.engine.model_runner import ModelRunner
     from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
     dev = torch.device(device)
-    tp, bridge_group = _join_groups(rank, size, dev, backend, init_method)
+    groups, bridge_group = _join_groups(config, rank, dev, backend,
+                                        init_method)
     try:
         runner = ModelRunner(config, params=_load_params(config, weights,
-                                                         dev, rank, size),
-                             device=dev, cuda_graphs=cuda_graphs, tp=tp)
+                                                         dev, rank),
+                             device=dev, cuda_graphs=cuda_graphs,
+                             tp=groups.tp, pp=groups.pp, sp=groups.sp)
         StepBridge(runner, TorchBroadcastEndpoint(bridge_group)
                    ).worker_loop()
+        if runner.graphs is not None:
+            # Before the group goes: the graphs may hold its collectives.
+            runner.graphs.release()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         if report is not None:
@@ -224,14 +253,15 @@ def worker_main(config, weights: Optional[str], rank: int, size: int,
 
 
 class TensorParallelRuntime:
-    """Rank 0's side of a tp engine: ``group`` (its TPGroup),
-    ``bridge`` (the runner publishes through it) and the worker
-    processes. ``close`` releases the workers and waits for them."""
+    """Rank 0's side of a parallel engine: ``groups`` (its
+    MeshGroups), ``bridge`` (the runner publishes through it) and the
+    worker processes. ``close`` releases the workers and waits for
+    them."""
 
-    def __init__(self, group: TPGroup, bridge: StepBridge,
+    def __init__(self, groups: MeshGroups, bridge: StepBridge,
                  procs: List, devices: Sequence[torch.device],
                  report=None):
-        self.group, self.bridge = group, bridge
+        self.groups, self.bridge = groups, bridge
         self.procs = procs
         self.devices = list(devices)
         self.closed = False
@@ -240,13 +270,26 @@ class TensorParallelRuntime:
         # run ({rank: {counter: launches}}).
         self.worker_launches = {}
 
+    def engine_args(self) -> dict:
+        """The LLMEngine arguments of rank 0 (its groups, the bridge,
+        this runtime)."""
+        return {"tp": self.groups.tp, "pp": self.groups.pp,
+                "sp": self.groups.sp, "bridge": self.bridge,
+                "tp_runtime": self,
+                "cuda_graphs": self.groups.capturable}
+
     def close(self, timeout_s: float = 30.0) -> None:
+        """Release the workers, wait for them and leave the world. Each
+        stage is bounded by ``timeout_s``: a bridge or a process group
+        that does not let go raises (the workers stopped first) rather
+        than hang the caller."""
         import torch.distributed as dist
         if self.closed:
             return
         self.closed = True
         try:
-            self.bridge.shutdown()
+            _bounded(self.bridge.shutdown, timeout_s,
+                     "the step bridge's shutdown record")
             deadline = time.monotonic() + timeout_s
             while (self._report is not None
                    and len(self.worker_launches) < len(self.procs)):
@@ -259,7 +302,31 @@ class TensorParallelRuntime:
         finally:
             _stop(self.procs, timeout_s)
             if dist.is_initialized():
-                dist.destroy_process_group()
+                _bounded(dist.destroy_process_group, timeout_s,
+                         "rank 0's process group teardown (a collective "
+                         "left in flight, or a step graph still holding "
+                         "its communicator)")
+
+
+def _bounded(fn, timeout_s: float, what: str) -> None:
+    """Run ``fn`` on a daemon thread; raise if it does not return
+    within ``timeout_s`` (the thread is left blocked), and re-raise
+    what it raised."""
+    failure: List[BaseException] = []
+
+    def call():
+        try:
+            fn()
+        except BaseException as e:  # re-raised on the caller's thread
+            failure.append(e)
+
+    t = threading.Thread(target=call, name="parallel-close", daemon=True)
+    t.start()
+    t.join(timeout_s)
+    if t.is_alive():
+        raise RuntimeError(f"{what} did not finish in {timeout_s} s")
+    if failure:
+        raise failure[0]
 
 
 def _stop(procs, timeout_s: float) -> None:
@@ -275,23 +342,29 @@ def _stop(procs, timeout_s: float) -> None:
             p.join()
 
 
-def start_tensor_parallel(config, devices: Sequence[torch.device],
-                          backend: Optional[str] = None,
-                          weights: Optional[str] = None,
-                          cuda_graphs: Optional[bool] = None
-                          ) -> TensorParallelRuntime:
-    """Spawn ranks 1..N-1 on ``devices[1:]`` and join rank 0 (this
-    process, on ``devices[0]``). ``backend``: NCCL when every rank has
-    its own card, which is the default on CUDA devices; gloo is taken
-    only where the caller names it (ranks sharing one card) or on the
-    CPU. ``weights``: a checkpoint directory every rank reads, or None
-    for random weights from the config's seed. ``cuda_graphs``: the
-    step graphs on every rank (default: on exactly when the backend is
+def start_parallel(config, devices: Sequence[torch.device],
+                   backend: Optional[str] = None,
+                   weights: Optional[str] = None,
+                   cuda_graphs: Optional[bool] = None
+                   ) -> TensorParallelRuntime:
+    """Spawn ranks 1..N-1 of the config's tp x sp x pp world on
+    ``devices[1:]`` (N = ``ParallelConfig.world_size``, global rank
+    order (pp, sp, tp), tp fastest) and join rank 0 (this process, on
+    ``devices[0]``). ``backend``: NCCL when every rank has its own
+    card, which is the default on CUDA devices; gloo is taken only
+    where the caller names it (ranks sharing one card) or on the CPU.
+    ``weights``: a checkpoint directory every rank reads, or None for
+    random weights from the config's seed. ``cuda_graphs``: the step
+    graphs on every rank (default: on exactly when the backend is
     NCCL). A failed start stops the workers before it raises."""
     devices = [torch.device(d) for d in devices]
     size = len(devices)
     if size < 2:
-        raise ValueError("tensor parallelism needs at least two ranks")
+        raise ValueError("a parallel engine needs at least two ranks")
+    if size != config.parallel.world_size:
+        raise ValueError(
+            f"{size} devices for a world of {config.parallel.world_size} "
+            "ranks (tensor x context x pipeline parallel sizes)")
     cuda = devices[0].type == "cuda"
     if backend is None:
         if cuda and len({str(d) for d in devices}) < size:
@@ -306,18 +379,19 @@ def start_tensor_parallel(config, devices: Sequence[torch.device],
     report = ctx.Queue()
     procs = [ctx.Process(
         target=worker_main, daemon=True,
-        args=(config, weights, rank, size, str(devices[rank]), backend,
+        args=(config, weights, rank, str(devices[rank]), backend,
               init_method, cuda_graphs, report))
         for rank in range(1, size)]
     for p in procs:
         p.start()
     try:
-        group, bridge_group = _join_groups(0, size, devices[0], backend,
-                                           init_method)
+        groups, bridge_group = _join_groups(config, 0, devices[0], backend,
+                                            init_method)
     except BaseException:
         _stop(procs, 0.0)
         raise
     bridge = StepBridge(None, TorchBroadcastEndpoint(bridge_group))
-    logger.info("tensor parallelism: %d ranks over %s on %s", size,
-                backend, ", ".join(str(d) for d in devices))
-    return TensorParallelRuntime(group, bridge, procs, devices, report)
+    logger.info("parallel engine: %s ranks (tp x sp x pp) over %s on %s",
+                "x".join(str(n) for n in _sizes(config).values()), backend,
+                ", ".join(str(d) for d in devices))
+    return TensorParallelRuntime(groups, bridge, procs, devices, report)

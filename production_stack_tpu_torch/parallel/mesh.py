@@ -32,6 +32,20 @@ gives a rank its kv heads of every cache form; ``shard_lora_adapter``
 cuts an adapter's A/B pairs as their base projections are cut (JAX
 ``engine/lora.py`` ``lora_stack_specs``); ``rank_model_config`` is the
 model config of one rank's shard (its heads and widths).
+
+Pipeline parallelism cuts along the layers as well (JAX places the
+stacked [L, ...] leaves, the caches and the adapter stacks ``P('pp',
+...)``): a stage holds its L/S layers (``stage_layers``), the
+embedding, the final norm and the head (every stage computes the
+logits) and GPT-2's position table. ``build_rank_params``, the int8
+init and the checkpoint loader take the stage's ``layers`` range and
+make only those layers' modules (the random draws of the others are
+drawn and dropped, so a stage's weights are the full model's);
+``keep_layers`` cuts a full params module to a stage in place,
+``stage_lora_adapter`` an adapter's pairs, and ``stage_model_config``
+is the config a stage's forward and cache read (its heads and its
+layer count). Context parallelism replicates the tp-cut model and the
+cache over its sp ranks: nothing more to cut.
 """
 
 from __future__ import annotations
@@ -133,6 +147,58 @@ def rank_model_config(config: ModelConfig, tp: int) -> ModelConfig:
         config, num_attention_heads=config.num_attention_heads // tp,
         num_key_value_heads=config.num_key_value_heads // tp,
         intermediate_size=ffn, head_dim=config.head_dim)
+
+
+def stage_layers(num_layers: int, stage: int = 0,
+                 stages: int = 1) -> Tuple[int, int]:
+    """The [lo, hi) layer range of pipeline stage ``stage`` of
+    ``stages`` (JAX's refusal when the layers do not divide)."""
+    if num_layers % stages:
+        raise ValueError(f"layers {num_layers} must divide by "
+                         f"pipeline_parallel_size {stages}")
+    per = num_layers // stages
+    return stage * per, (stage + 1) * per
+
+
+def stage_model_config(config: ModelConfig, tp: int = 1, stage: int = 0,
+                       stages: int = 1) -> ModelConfig:
+    """The config of a pipeline stage's tp shard: ``rank_model_config``
+    with the stage's layer count."""
+    shard = rank_model_config(config, tp)
+    if stages == 1:
+        return shard
+    lo, hi = stage_layers(config.num_hidden_layers, stage, stages)
+    return dataclasses.replace(shard, num_hidden_layers=hi - lo)
+
+
+def in_layers(path: str, layers: Optional[Tuple[int, int]]) -> bool:
+    """Whether the leaf or module at ``path`` belongs to a stage of
+    layer range ``layers`` (None: every layer): everything outside
+    ``layers.<i>`` does."""
+    if layers is None or not path.startswith("layers."):
+        return True
+    return layers[0] <= int(path.split(".")[1]) < layers[1]
+
+
+def keep_layers(params: nn.Module, layers: Optional[Tuple[int, int]]
+                ) -> nn.Module:
+    """Cut a params module to the stage of layer range ``layers`` in
+    place (None or all of them: as it is); returns it."""
+    if layers is None or layers == (0, len(params.layers)):
+        return params
+    params.layers = nn.ModuleList(list(params.layers)[layers[0]:layers[1]])
+    return params
+
+
+def stage_lora_adapter(adapter, layers: Optional[Tuple[int, int]]):
+    """An adapter's per-target (A [L, in, r], B [L, r, out]) pairs cut
+    to the stage's layers (JAX shards the stacks' L axis over pp)."""
+    if layers is None:
+        return adapter
+    lo, hi = layers
+    return dataclasses.replace(adapter, weights={
+        tgt: (np.asarray(a)[lo:hi], np.asarray(b)[lo:hi])
+        for tgt, (a, b) in adapter.weights.items()})
 
 
 def cut(t, axis: int, rank: int, tp: int, parts=None):
@@ -249,14 +315,17 @@ def finish_module(params: nn.Module, path: str, config: ModelConfig,
 
 
 def build_rank_params(config: ModelConfig, leaf: Callable, rank: int = 0,
-                      tp: int = 1, dtype: Optional[torch.dtype] = None
+                      tp: int = 1, dtype: Optional[torch.dtype] = None,
+                      layers: Optional[Tuple[int, int]] = None
                       ) -> nn.Module:
     """Rank ``rank``'s params module of ``tp``, made one module at a
     time: ``leaf(path, shape, dtype)`` gives each full leaf on the
     device, in the module's parameter order, and each module is
     finished (``finish_module``) before the next is made. The device
     holds the rank's shard and one module in full, never the whole
-    model."""
+    model. ``layers``: a pipeline stage's layer range; the leaves of
+    the other layers are drawn (the draws stay the full model's) and
+    dropped."""
     check_tp(config, tp)
     params = params_class(config)(config, torch.device("meta"), dtype)
     with torch.no_grad():
@@ -264,13 +333,15 @@ def build_rank_params(config: ModelConfig, leaf: Callable, rank: int = 0,
             own = list(module.named_parameters(recurse=False))
             for name, p in own:
                 full = f"{path}.{name}" if path else name
-                setattr(module, name, nn.Parameter(
-                    leaf(full, tuple(p.shape), p.dtype),
-                    requires_grad=False))
-            if own:
+                value = leaf(full, tuple(p.shape), p.dtype)
+                if in_layers(path, layers):
+                    setattr(module, name, nn.Parameter(
+                        value, requires_grad=False))
+                del value
+            if own and in_layers(path, layers):
                 finish_module(params, path, config, rank, tp)
     params.tp_shard = (rank, tp)
-    return params
+    return keep_layers(params, layers)
 
 
 def shard_cache(cache, rank: int, tp: int):

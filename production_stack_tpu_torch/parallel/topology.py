@@ -146,6 +146,12 @@ class DeviceGrid:
         """The devices of one tp group, rank order."""
         return list(self.devices[dp, pp, sp])
 
+    def world_devices(self, dp: int = 0) -> list:
+        """The devices of one replica's tp x sp x pp ranks, in global
+        rank order ((pp, sp, tp), tp fastest:
+        parallel/collectives.axis_ranks)."""
+        return list(self.devices[dp].reshape(-1))
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshPlan:

@@ -1,31 +1,40 @@
-"""Tensor parallelism across cards: streams against tp 1, and tok/s.
+"""Tensor, pipeline and context parallelism across cards: streams
+against one rank, and tok/s.
 
     python -m production_stack_tpu_torch.tools.tp_serving [--sizes 1 2 4]
+        [--pp 1 2] [--cp 1 2]
 
 Builds each engine the way the server builds it (``--model bench-1b
 --random-weights`` at ``chip_smoke.py``'s serving flags, plus
-``--tensor-parallel-size N``): ranks 1..N-1 spawned on cards 1..N-1 and
-joined over NCCL, every step a CUDA graph with its all-reduces and its
-logits gather inside. Sizes run in the order given and then in reverse
-(1 2 4 4 2 1), so a warm-up drift does not favour one size. Each engine
-serves ``chip_smoke.py``'s 16 prompts (64..700 random tokens, greedy,
+``--tensor-parallel-size T --pipeline-parallel-size P
+--context-parallel-size C`` for every combination of ``--sizes`` (tp),
+``--pp`` and ``--cp`` but pp with cp, which the engine refuses): ranks
+1..N-1 spawned on cards 1..N-1 and joined over NCCL, every step a CUDA
+graph with its collectives inside (pp's hops and sum, tp's reduces and
+gathers; the cp whole-prompt prefill eager, counted). Under cp a prompt
+of at least 512 tokens (5 of the 16) prefills in one ring dispatch.
+Runs go in the order given and then in reverse (1 2 4 4 2 1), so a
+warm-up drift does not favour one. Each engine serves
+``chip_smoke.py``'s 16 prompts (64..700 random tokens, greedy,
 32 out) twice: an untimed round that captures the graphs, then a timed
 round. Prints, one JSON line a run, the size, tok/s of the timed round
 (host clock around the round, which ends in a read of every token) and
 its greedy streams against the first tp-1 engine's: equal, or equal up
 to a first flip at a near tie of that engine (its top-1 margin under
 ``NEAR_TIE_LOGITS``, as ``chip_smoke.py`` holds resumed streams: the
-row-parallel sums run in another order in bf16). A flip at a wider
-margin fails the run. The card's name and power limit come first.
+row-parallel sums, a stage's microbatch GEMMs and the ring run in
+another order in bf16). A flip at a wider margin fails the run. The
+card's name and power limit come first.
 
 ``--device cpu`` (with ``--model DIR --tokenizer bench``, a checkpoint
-whose heads divide by the sizes) rehearses the same ranks over gloo on
-the CPU.
+whose heads and layers divide by the sizes) rehearses the same ranks
+over gloo on the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import time
@@ -40,12 +49,17 @@ from production_stack_tpu_torch.engine.server import (
     parse_args,
 )
 
-# chip_smoke.py's serving flags.
+# chip_smoke.py's serving flags, prefix caching off: the timed round
+# prefills every prompt anew (and a cp engine's long prompts take their
+# ring dispatch).
 SERVER_ARGS = ["--model", "bench-1b", "--random-weights",
                "--page-size", "128", "--num-pages", "512",
                "--max-num-seqs", "32", "--max-model-len", "1024",
                "--prefill-chunk-size", "512", "--prefill-batch-size", "8",
-               "--async-scheduling", "auto", "--unified-step", "auto"]
+               "--async-scheduling", "auto", "--unified-step", "auto",
+               "--disable-prefix-caching",
+               # Below the longest prompts (700): a cp engine's ring runs.
+               "--long-prefill-threshold", "512"]
 # The largest top-1 margin, in logits, at which two greedy streams of
 # the same weights may part (chip_smoke.py's rule).
 NEAR_TIE_LOGITS = 0.125
@@ -95,7 +109,12 @@ def flip(ref_engine, prompt, want, got) -> Optional[tuple]:
 
 def run(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--sizes", type=int, nargs="+", default=[1, 2])
+    p.add_argument("--sizes", type=int, nargs="+", default=[1, 2],
+                   help="tensor-parallel sizes")
+    p.add_argument("--pp", type=int, nargs="+", default=[1],
+                   help="pipeline-parallel sizes")
+    p.add_argument("--cp", type=int, nargs="+", default=[1],
+                   help="context-parallel sizes")
     p.add_argument("--device", default=None)
     p.add_argument("--model", default=None)
     p.add_argument("--tokenizer", default=None)
@@ -117,9 +136,15 @@ def run(argv=None) -> int:
                       "cards": torch.cuda.device_count()}), flush=True)
     ref = batch = want = None
     failed = False
-    for size in list(args.sizes) + list(reversed(args.sizes)):
+    runs = [r for r in itertools.product(args.sizes, args.pp, args.cp)
+            if r[1] == 1 or r[2] == 1]
+    for tp, pp, cp in runs + runs[::-1]:
         engine, _ = build_engine_from_args(parse_args(
-            SERVER_ARGS + extra + ["--tensor-parallel-size", str(size)]))
+            SERVER_ARGS + extra + [
+                "--tensor-parallel-size", str(tp),
+                "--pipeline-parallel-size", str(pp),
+                "--context-parallel-size", str(cp)]))
+        size = tp * pp * cp
         try:
             if batch is None:
                 batch = prompts(engine.config.model.vocab_size)
@@ -141,10 +166,12 @@ def run(argv=None) -> int:
         wide = [f for f in flips if not f[2] < NEAR_TIE_LOGITS]
         failed |= bool(wide)
         print(json.dumps({
-            "tp": size, "card": card, "tokens": OUT * len(batch),
+            "tp": tp, "pp": pp, "cp": cp, "card": card,
+            "tokens": OUT * len(batch),
             "seconds": wall, "tok_s": OUT * len(batch) / wall,
-            "streams_equal_to_tp1": len(batch) - len(flips),
+            "streams_equal_to_one_rank": len(batch) - len(flips),
             "flips": flips, "wide_flips": wide,
+            "sp_prefills": engine.runner.sp_prefill_steps,
             "graphs": engine.runner.graphs is not None}), flush=True)
         if ref is not engine:
             del engine

@@ -37,7 +37,12 @@ steps run eagerly and are counted. The decode kernel's burst-tail form
 at every geometry, bf16/f32 and int8 pages, stacked and split, tails
 of 1 to 32 slots; deferred-write bursts of the tiny engine against the
 CPU and the eager burst; the tp runner over a one-rank NCCL group
-replaying its collectives inside the step graphs.
+replaying its collectives inside the step graphs. Pipeline and context
+parallelism: ring attention over two fake sp ranks on the card against
+its dense reference at bench-1b's heads; the staged forward over a
+one-rank NCCL pp group keeping its masked sum inside every graph; the
+context-parallel prefill over a one-rank NCCL sp group running eagerly
+and counted, every other step graphed.
 
 Tolerance: f32 at atol = rtol = 1e-4 (the same arithmetic, sums in
 another order); bf16 at atol = rtol = 2e-2 (outputs rounded to bf16,
@@ -1311,7 +1316,7 @@ def test_tp_runner_over_one_nccl_rank_replays_its_collectives(dev):
     graph holds its all-reduces and its logits gather."""
     import torch.distributed as dist
     from production_stack_tpu_torch.parallel.collectives import (
-        ALL_GATHER, ALL_REDUCE, init_tp_group)
+        TPGroup, init_mesh_groups)
     from production_stack_tpu_torch.parallel.distributed import free_port
     from production_stack_tpu_torch.engine.sequence import SamplingParams
     prompts = _tiny_prompts()
@@ -1319,8 +1324,8 @@ def test_tp_runner_over_one_nccl_rank_replays_its_collectives(dev):
     want = [s.output_token_ids for s in _tiny_engine(
         True, unified_step=True, async_scheduling=True).generate_batch(
             prompts, sp)]
-    group = init_tp_group(0, 1, "nccl", f"tcp://127.0.0.1:{free_port()}",
-                          dev)
+    init_mesh_groups(0, "nccl", f"tcp://127.0.0.1:{free_port()}", dev)
+    group = TPGroup(0, 1, "nccl")
     try:
         from production_stack_tpu_torch.engine.engine import LLMEngine
         base = _tiny_engine(True, device="cpu", unified_step=True,
@@ -1333,5 +1338,85 @@ def test_tp_runner_over_one_nccl_rank_replays_its_collectives(dev):
     finally:
         dist.destroy_process_group()
     assert got == want
-    assert recorded and all(c.get(ALL_REDUCE) and c.get(ALL_GATHER)
-                            for c in recorded.values())
+    assert recorded and all(
+        c.get("tp_all_reduce") and c.get("tp_all_gather")
+        for c in recorded.values())
+
+
+def test_ring_attention_at_bench_1b_heads(dev):
+    """Two fake sp ranks on the card, bench-1b's heads (32 q / 8 kv of
+    64), f32, T = 2048: within 1e-4 of the dense reference."""
+    from production_stack_tpu_torch.ops.ring_attention import (
+        ring_attention, ring_attention_dense)
+    from production_stack_tpu_torch.parallel.collectives import (
+        FakeTPGroup, run_ranks)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn((1, 2048, h, 64), generator=gen, device=dev)
+               for h in (32, 8, 8))
+    outs = run_ranks(FakeTPGroup.world(2, axis="sp"), lambda g: (
+        ring_attention(*(x[:, g.rank * 1024:(g.rank + 1) * 1024]
+                         for x in (q, k, v)), g)))
+    torch.testing.assert_close(torch.cat(outs, dim=1),
+                               ring_attention_dense(q, k, v), rtol=1e-4,
+                               atol=1e-4)
+
+
+def _one_rank_axis_engine(dev, axis, **sched):
+    """The tiny engine (stacked cache) and the same engine over a
+    one-rank NCCL ``axis`` group, graphs on."""
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.parallel.collectives import (
+        TPGroup, init_mesh_groups)
+    from production_stack_tpu_torch.parallel.distributed import free_port
+    plain = _tiny_engine(True, cache_layout="stacked", **sched)
+    init_mesh_groups(0, "nccl", f"tcp://127.0.0.1:{free_port()}", dev)
+    base = _tiny_engine(True, device="cpu", cache_layout="stacked", **sched)
+    engine = LLMEngine(base.config, params=base.runner.params,
+                       device="cuda",
+                       **{axis: TPGroup(0, 1, "nccl", axis=axis)})
+    return plain, engine
+
+
+def test_pp_runner_over_one_nccl_rank_keeps_its_sum_in_the_graphs(dev):
+    """The staged forward over a one-rank NCCL pp group: greedy streams
+    those of the plain stacked engine, every captured graph holding the
+    stage's masked sum."""
+    import torch.distributed as dist
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    sp = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True)
+    try:
+        plain, engine = _one_rank_axis_engine(dev, "pp", unified_step=True,
+                                              async_scheduling=True)
+        want = [s.output_token_ids
+                for s in plain.generate_batch(_tiny_prompts(), sp)]
+        got = [s.output_token_ids
+               for s in engine.generate_batch(_tiny_prompts(), sp)]
+        recorded = engine.runner.graphs.recorded_launches()
+    finally:
+        dist.destroy_process_group()
+    assert got == want
+    assert recorded and all(c.get("pp_sum") for c in recorded.values())
+
+
+def test_sp_prefill_over_one_nccl_rank_runs_eagerly_and_counts(dev):
+    """A one-rank NCCL sp group: a prompt over the threshold prefills in
+    one ring dispatch, eagerly and counted (reason ``sp_prefill``);
+    every other step replays its graph; the greedy streams are those of
+    the plain stacked engine, which prefills in chunks."""
+    import torch.distributed as dist
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    sp = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True)
+    prompts = _tiny_prompts()
+    try:
+        plain, engine = _one_rank_axis_engine(dev, "sp")
+        engine.scheduler.sp_threshold = 64
+        want = [s.output_token_ids for s in plain.generate_batch(prompts, sp)]
+        got = [s.output_token_ids for s in engine.generate_batch(prompts, sp)]
+        eager = dict(engine.runner.graphs.eager_steps)
+    finally:
+        dist.destroy_process_group()
+    long_prompts = sum(len(p) >= 64 for p in prompts)
+    assert long_prompts == 1
+    assert engine.runner.sp_prefill_steps == long_prompts
+    assert eager["sp_prefill"] == long_prompts
+    assert got == want

@@ -121,19 +121,20 @@ def _reference_flags():
 
 
 def test_flags_are_the_jax_servers():
-    """68 of the JAX server's 75 flags, each under its JAX name; the
+    """71 of the JAX server's 75 flags, each under its JAX name; the
     five of disaggregation, the profiler, the observatory and tracing,
     the eleven of autotuning, --pooling, the four small ones,
     --quantization, the four of LoRA, --tokenizer, --chat-template,
-    --deferred-kv-writes and the three of tensor parallelism with the
-    JAX defaults and choices. --device is the port's own."""
+    --deferred-kv-writes, the three of tensor parallelism and the three
+    of pipeline and context parallelism with the JAX defaults and
+    choices. --device is the port's own."""
     reference = _reference_flags()
     assert len(reference) == 76  # 75 flags, one with an alias
     src = (Path(__file__).resolve().parents[1] / "production_stack_tpu_torch"
            / "engine" / "server.py").read_text()
     port = set(re.findall(r'add_argument\(\s*"(--[a-z0-9-]+)"', src))
     assert port - set(reference) == {"--device"}
-    assert len(port) - 1 == 68
+    assert len(port) - 1 == 71
     new = {"--engine-role": "both", "--profile-dir": None,
            "--device-peak-flops": 0.0, "--request-span-log": None,
            "--trace-ring-size": 256,
@@ -151,7 +152,9 @@ def test_flags_are_the_jax_servers():
            "--max-loras": 8, "--max-lora-rank": 16,
            "--tokenizer": None, "--chat-template": None,
            "--deferred-kv-writes": "auto", "--tensor-parallel-size": 1,
-           "--num-slices": 0, "--mesh-placement": "auto"}
+           "--num-slices": 0, "--mesh-placement": "auto",
+           "--pipeline-parallel-size": 1, "--context-parallel-size": 1,
+           "--long-prefill-threshold": None}
     args = vars(parse_args([]))
     for flag, default in new.items():
         assert flag in port

@@ -142,6 +142,19 @@ def test_each_key_is_captured_once_and_replayed():
     assert graphs.capture_seconds["step"] > 0
 
 
+def test_released_graphs_are_captured_anew():
+    """``release`` drops every graph (a parallel engine's close does so
+    before its process group goes); the next use of a key captures it
+    again, with the same outputs."""
+    graphs = StepGraphs(CPU, graph_factory=RecordingGraph)
+    graphs.run("step", (3, 1), "greedy", _arrays([1, 2, 3]), _double)
+    graphs.release()
+    assert graphs.keys() == []
+    out = graphs.run("step", (3, 1), "greedy", _arrays([4, 5, 6]), _double)
+    assert out.tolist() == [8, 10, 12]
+    assert graphs.captures["step"] == 2
+
+
 def test_sampler_modes_and_shapes_are_separate_keys():
     graphs = StepGraphs(CPU, graph_factory=RecordingGraph)
     graphs.run("step", (3, 1), "greedy", _arrays([1, 2, 3]), _double)

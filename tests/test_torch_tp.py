@@ -68,8 +68,6 @@ from production_stack_tpu_torch.models.convert import params_from_numpy
 from production_stack_tpu_torch.models.llama import row_parallel
 from production_stack_tpu_torch.parallel import mesh
 from production_stack_tpu_torch.parallel.collectives import (
-    ALL_GATHER,
-    ALL_REDUCE,
     FakeTPGroup,
     TPGroup,
     run_ranks,
@@ -752,8 +750,8 @@ def test_collectives_are_counted_a_call():
         g.all_gather(torch.full((2, 1), float(g.rank)))))
     assert outs[0][0].tolist() == [3.0, 3.0, 3.0]
     assert outs[1][1].tolist() == [[0.0, 1.0], [0.0, 1.0]]
-    assert COUNTERS.launches[ALL_REDUCE] == TP
-    assert COUNTERS.launches[ALL_GATHER] == TP
+    assert COUNTERS.launches["tp_all_reduce"] == TP
+    assert COUNTERS.launches["tp_all_gather"] == TP
     COUNTERS.reset()
 
 
