@@ -340,7 +340,28 @@ its result line:
     the server starts them (the backend named, graphs off), the 16
     greedy requests held to the tp-1 engine's streams (equal, or equal
     to a first flip at a near tie: ``check_stream``), each rank's three
-    kernels counted and the ranks' counts equal.
+    kernels counted and the ranks' counts equal;
+20. parallel2: pipeline and context parallelism on one card, two ranks
+    over gloo (graphs off): ring attention at T = 8192 against its dense
+    reference; bench-1b at pp 2 (bf16 and int8 KV) and at cp 2 against
+    the one-rank engines (streams equal or parting at near ties, each
+    rank launching the stacked forms only); at cp 2 the two 4096-token
+    prompts take one sp dispatch each, and each rank ran exactly half
+    the rows of every unified dispatch (``ModelRunner.sp_split_rows``);
+    GPT-2 at pp 2 and cp 2;
+21. distributed: multi-host serving, two ``--distributed`` server
+    processes on cuda:0 (``--num-processes 2``, one rank each; process
+    0 serves HTTP, process 1 replays): bench-1b at tp 2, then at pp 2.
+    The launcher must take gloo with graphs off (the two processes
+    share the card); the 16 greedy requests of the tp phase go through
+    HTTP, their texts held to a one-process engine of the same size over
+    gloo with the same resolved flags (``--async-scheduling off
+    --unified-step off``): equal, or parting at a near tie of that
+    engine, margins printed. Each process's rank launched the decode
+    and prefill kernels (pp: their stacked forms only) and the two
+    ranks' counts are equal; /metrics reads slice 0 and, after the
+    requests, slices 0 and 1 live; process 1 exits 0 within 60 s of
+    process 0's shutdown.
 
 ``python3 chip_smoke.py --only fleet`` (any phase names) runs the
 kernel build and those phases alone, for development, and prints no
@@ -360,7 +381,11 @@ decode-role handoff windows as ``disagg_handoff`` and
 windows as ``serve_mixtral`` and ``serve_opt``, and its GPT-2 engine
 as ``engine_gpt2``; the tp phase's deferred window as
 ``serve_deferred``, its one-rank NCCL engine as ``engine_tp1_nccl``
-and rank 0 of its tp-2 engine as ``serve_tp2_gloo``). Each attention
+and rank 0 of its tp-2 engine as ``serve_tp2_gloo``; the parallel2
+phase's rank 0 windows as ``serve_pp2_gloo``, ``serve_pp2_int8_gloo``,
+``serve_cp2_gloo``, ``engine_gpt2_pp2_gloo`` and
+``engine_gpt2_cp2_gloo``; the distributed phase's process 0 windows as
+``serve_tp2_distributed`` and ``serve_pp2_distributed``). Each attention
 kernel's ``geometries`` object
 holds, keyed ``g4_d128`` and ``g1_d64``, the same numbers at that
 geometry with the launches of its serving run, and ``int8``. The
@@ -4719,6 +4744,10 @@ RING_T = 8192  # tokens of the ring check, RING_T / 2 a rank
 CP_ARGS = ["--max-model-len", "8192", "--long-prefill-threshold", "1024"]
 CP_LONG = 4096  # tokens of each of the cp window's two long prompts
 PAR_DEVICES = ["cuda:0", "cuda:0"]  # two ranks sharing the card
+# The cp window's tok/s as this script recorded it while the unified
+# blocks ran replicated on each sp rank (an H100 80GB HBM3 at 700 W):
+# printed beside the split form's, a record, not this run's figure.
+CP_REPLICATED_TOK_S = 184.3
 
 
 def _ring_check(dev) -> dict:
@@ -4785,7 +4814,8 @@ def _gloo_world(label, flags, requests, ref, want, forms,
     server starts them (the backend named, graphs off), against the
     one-rank engine's ``want`` streams: each stream equal or parting at
     a near tie of ``ref``; each rank's kernel forms counted
-    (``_rank_forms``)."""
+    (``_rank_forms``); under cp each rank's split ragged rows
+    (``ModelRunner.sp_split_rows``: half of every unified block's)."""
     from production_stack_tpu_torch.engine.server import (
         build_engine_from_args)
     from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
@@ -4805,6 +4835,7 @@ def _gloo_world(label, flags, requests, ref, want, forms,
         launches = dict(COUNTERS.launches)
         sp_steps = runner.sp_prefill_steps
         layers = len(runner.params.layers)
+        split = {0: {k: list(v) for k, v in runner.sp_split_rows.items()}}
     finally:
         engine.close()
     flips = [check_stream(label, f"request {i}", ref, r["prompt"], w, g)
@@ -4814,6 +4845,19 @@ def _gloo_world(label, flags, requests, ref, want, forms,
         raise AssertionError(f"{label}: worker counts {workers}")
     _rank_forms(label, [(0, launches)] + sorted(workers.items()), forms,
                 need)
+    split.update(runtime.worker_split_rows)
+    if runner.sp is not None:
+        # Each rank ran R / 2 rows of every unified block, the same
+        # blocks on both ranks.
+        if not split[0].get("unified") or split[0] != split[1] or any(
+                mine * 2 != rows for counts in split.values()
+                for _, mine, rows in counts.values()):
+            raise AssertionError(f"{label}: split ragged rows {split}")
+        log(f"{label}: the unified dispatches split over the two sp "
+            f"ranks, [dispatches, rows a rank ran, rows of the blocks] "
+            f"by rank {split}; ragged launches rank 0 "
+            f"{launches.get('paged_ragged_stacked', 0)}, rank 1 "
+            f"{workers[1].get('paged_ragged_stacked', 0)}")
     tokens = sum(r["max_tokens"] for r in requests)
     whole = sum(f is None for f in flips)
     collectives = {k: v for k, v in launches.items()
@@ -4826,7 +4870,7 @@ def _gloo_world(label, flags, requests, ref, want, forms,
         f"collectives {collectives}; launches rank 0 {launches}, rank 1 "
         f"{workers[1]}")
     return {"launches": launches, "wall_s": wall, "tok_s": tokens / wall,
-            "sp_prefill_steps": sp_steps, "flips": flips}
+            "sp_prefill_steps": sp_steps, "flips": flips, "split": split}
 
 
 def _first_token_ms(engine, prompt) -> float:
@@ -4906,6 +4950,10 @@ def _cp_window(vocab, requests) -> dict:
         engine.close()
     del ref
     torch.cuda.empty_cache()
+    log(f"parallel2 cp 2 ({SMI}): {out['tok_s']:.1f} tok/s with the "
+        f"unified blocks split over the sp ranks (the replicated form's "
+        f"recorded window: {CP_REPLICATED_TOK_S} tok/s; eager over gloo "
+        f"on one card, not a speed)")
     log(f"parallel2 cp 2 ({SMI}): a {CP_LONG}-token prompt's first token "
         f"in {ring_ms} ms (one ring dispatch a run, eager over gloo) "
         f"against cp 1's chunked prefill (8 graphed chunks of 512) "
@@ -4998,6 +5046,196 @@ def parallel2_phase(vocab: int) -> dict:
     return out
 
 
+# ---- distributed phase: multi-host serving ----------------------------------
+
+DIST_TP_RUN = "serve_tp2_distributed"  # process 0 of the tp-2 world
+DIST_PP_RUN = "serve_pp2_distributed"  # process 0 of the pp-2 world
+DIST_RESOLVED = ["--async-scheduling", "off", "--unified-step", "off"]
+DIST_EXIT_S = 60.0  # process 1's bound after process 0's shutdown
+DIST_START_S = 240.0
+
+
+def _metric_lines(url) -> list:
+    with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+        return r.read().decode().splitlines()
+
+
+def _launches_on_metrics(lines) -> dict:
+    """The kernel launch counters of a /metrics page."""
+    out = {}
+    for line in lines:
+        m = re.match(r'vllm:engine_kernel_launches_total\{kernel="(\w+)"\} '
+                     r"(\S+)", line)
+        if m:
+            out[m.group(1)] = int(float(m.group(2)))
+    return out
+
+
+def _text_flip(engine, prompt, ref_ids, got_text):
+    """Where ``got_text`` (a stream served as text) parts from the
+    engine's ``ref_ids``: (token index, margin of the engine's pick over
+    the best of its top 20 that decodes to the served text), or None
+    when the texts are equal."""
+    tok = engine.tokenizer
+    if tok.decode(ref_ids) == got_text:
+        return None
+    k = next((i for i in range(len(ref_ids))
+              if not got_text.startswith(tok.decode(ref_ids[:i + 1]))),
+             None)
+    if k is None:  # the engine's whole stream is a prefix of the text
+        return len(ref_ids), float("inf")
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    sid = engine.add_request(list(prompt) + ref_ids[:k], SamplingParams(
+        temperature=0.0, max_tokens=1, logprobs=True, top_logprobs=20,
+        ignore_eos=True))
+    entry = None
+    while entry is None:
+        for out in engine.step():
+            if out.seq_id == sid and out.logprobs is not None:
+                entry = out.logprobs
+    while engine.has_work():
+        engine.step()
+    tops = dict(entry[1])
+    served = [t for t in tops if got_text.startswith(
+        tok.decode(ref_ids[:k] + [t]))]
+    margin = (max(tops.values()) - max(tops[t] for t in served)
+              if served else float("inf"))
+    return k, margin
+
+
+def _distributed_world(label, flags, requests, forms, need) -> dict:
+    """bench-1b over two ``--distributed`` server processes on cuda:0,
+    one rank each (process 0 serves HTTP), against a one-process engine
+    of the same size over gloo with the resolved flags: the 16 greedy
+    requests through HTTP at once, each text equal to the engine's or
+    parting at a near tie of it; gloo taken with graphs off; each
+    rank's kernel forms counted and the ranks' counts equal; the slice
+    gauges; process 1 gone with code 0 within DIST_EXIT_S of process
+    0's shutdown."""
+    from production_stack_tpu_torch.engine.server import (
+        build_engine_from_args)
+    here = os.path.dirname(os.path.abspath(__file__))
+    ref, _ = build_engine_from_args(
+        _tp_engine_args(flags + DIST_RESOLVED), devices=PAR_DEVICES,
+        tp_backend="gloo")
+    try:
+        t0 = time.perf_counter()
+        want = _engine_streams(ref, requests)
+        torch.cuda.synchronize()
+        ref_wall = time.perf_counter() - t0
+        port, coord = _free_port(), _free_port()
+        logs = [tempfile.NamedTemporaryFile("w+", suffix=f".p{i}.log")
+                for i in range(2)]
+        cmd = [sys.executable, "-m",
+               "production_stack_tpu_torch.engine.server", *SERVER_ARGS,
+               *flags, "--distributed", "--coordinator-address",
+               f"127.0.0.1:{coord}", "--num-processes", "2", "--host",
+               "127.0.0.1", "--port", str(port)]
+        procs = [subprocess.Popen(
+            cmd + ["--process-id", str(i)], cwd=here, stdout=logs[i],
+            stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": here}) for i in range(2)]
+        url = f"http://127.0.0.1:{port}"
+        try:
+            deadline = time.monotonic() + DIST_START_S
+            while True:
+                try:
+                    urllib.request.urlopen(url + "/health", timeout=2)
+                    break
+                except OSError:
+                    if (any(p.poll() is not None for p in procs)
+                            or time.monotonic() > deadline):
+                        raise AssertionError(f"{label}: process 0 never "
+                                             "served")
+                    time.sleep(0.5)
+            before = _metric_lines(url)
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(requests)) as pool:
+                texts = list(pool.map(lambda r: _post(
+                    url + "/v1/completions", r)["choices"][0]["text"],
+                    requests))
+            wall = time.perf_counter() - t0
+            after = _metric_lines(url)
+        finally:
+            procs[0].terminate()
+            procs[0].wait(timeout=120)
+            stopped = time.monotonic()
+            try:
+                code1 = procs[1].wait(timeout=DIST_EXIT_S)
+            except subprocess.TimeoutExpired:
+                procs[1].kill()
+                procs[1].wait()
+                code1 = None
+            exit_s = time.monotonic() - stopped
+            outs = []
+            for f in logs:
+                f.seek(0)
+                outs.append(f.read())
+                f.close()
+        flips = [_text_flip(ref, r["prompt"], w, t)
+                 for r, w, t in zip(requests, want, texts)]
+    finally:
+        ref.close()
+    for i, out in enumerate(outs):
+        for line in out.splitlines()[-40:]:
+            log(f"{label} process {i}: {line}")
+    if code1 != 0 or exit_s > DIST_EXIT_S:
+        raise AssertionError(f"{label}: process 1 exit code {code1} "
+                             f"{exit_s:.1f} s after process 0's shutdown")
+    if "backend gloo (step graphs off)" not in outs[0]:
+        raise AssertionError(f"{label}: the launcher took another backend")
+    bad = [(i, f) for i, f in enumerate(flips)
+           if f is not None and not f[1] < NEAR_TIE_LOGITS]
+    if bad:
+        raise AssertionError(f"{label}: streams part beyond near ties "
+                             f"(request, (token, margin)) {bad}")
+    m = re.search(r"distributed process 1: kernel launches by rank "
+                  r"(\{.*\})", outs[1])
+    rank1 = json.loads(m.group(1))["1"]
+    rank0 = _launches_on_metrics(after)
+    _rank_forms(label, [(0, rank0), (1, rank1)], forms, need)
+    if rank0 != rank1:
+        raise AssertionError(f"{label}: rank launches differ: rank 0 "
+                             f"{rank0}, rank 1 {rank1}")
+    if "vllm:engine_slice_id 0.0" not in before or any(
+            f'vllm:engine_slice_live{{slice="{i}"}} 1.0' not in after
+            for i in (0, 1)):
+        raise AssertionError(f"{label}: slice gauges "
+                             f"{[x for x in after if 'slice' in x]}")
+    tokens = sum(r["max_tokens"] for r in requests)
+    whole = sum(f is None for f in flips)
+    log(f"{label} ({SMI}): {whole}/{len(requests)} greedy texts "
+        f"byte-identical to the one-process engine over gloo, flips at "
+        f"near ties (request, (token, margin)) "
+        f"{[(i, f) for i, f in enumerate(flips) if f]}; {tokens} tokens in "
+        f"{wall:.3f} s, {tokens / wall:.1f} tok/s through HTTP, the "
+        f"one-process engine {tokens / ref_wall:.1f} tok/s in the same "
+        f"call (eager, host-staged gloo across two processes on one card: "
+        f"not a speed); process 1 left "
+        f"{exit_s:.2f} s after process 0's shutdown; launches a rank "
+        f"{rank0}")
+    torch.cuda.empty_cache()
+    return {"launches": rank0, "tok_s": tokens / wall,
+            "ref_tok_s": tokens / ref_wall, "flips": flips, "exit_s": exit_s}
+
+
+def distributed_phase(vocab: int) -> dict:
+    """Multi-host serving on one card: bench-1b at tp 2 and at pp 2
+    over two ``--distributed`` server processes (``_distributed_world``).
+    tp crosses the processes, so its placement is named ``any``, as a
+    tp axis over two hosts needs."""
+    requests = _greedy_requests(vocab)
+    tp = _distributed_world(
+        "distributed tp 2", ["--tensor-parallel-size", "2",
+                             "--mesh-placement", "tp=any"],
+        requests, ("",), ("paged_decode", "paged_prefill"))
+    pp = _distributed_world(
+        "distributed pp 2", ["--pipeline-parallel-size", "2"], requests,
+        ("_stacked",), ("paged_decode", "paged_prefill"))
+    return {DIST_TP_RUN: tp["launches"], DIST_PP_RUN: pp["launches"],
+            "tp": tp, "pp": pp}
+
+
 def _numbers(h) -> dict:
     """A case's numbers for the ``kernels`` line."""
     out = {"max_abs_err": h["max_abs_err"], "ms": h["ms"],
@@ -5084,7 +5322,8 @@ def kernels_line(headline, launches, weights, families, tp=None) -> list:
 RUN_FORMS = {FLEET_INT8_RUN: "_int8_stacked",
              DISAGG_INT8_RUN: "_int8_stacked", PP_RUN: "_stacked",
              PP_INT8_RUN: "_int8_stacked", CP_RUN: "_stacked",
-             GPT2_PP_RUN: "_stacked", GPT2_CP_RUN: "_stacked"}
+             GPT2_PP_RUN: "_stacked", GPT2_CP_RUN: "_stacked",
+             DIST_PP_RUN: "_stacked"}
 
 
 # ---- main -------------------------------------------------------------------
@@ -5166,6 +5405,10 @@ def main() -> int:
     par = parallel2_phase(vocab)
     for run in (PP_RUN, PP_INT8_RUN, CP_RUN, GPT2_PP_RUN, GPT2_CP_RUN):
         launches[run] = par[run]
+    torch.cuda.empty_cache()
+    multihost = distributed_phase(vocab)
+    for run in (DIST_TP_RUN, DIST_PP_RUN):
+        launches[run] = multihost[run]
     if launches[DEFERRED_RUN].get("paged_decode_tail", 0) <= 0:
         raise AssertionError("the deferred server's window never launched "
                              "the decode kernel's tail form")

@@ -190,7 +190,11 @@ class LLMEngine:
 
     def close(self) -> None:
         """Stop the parallel ranks, if this engine has any: its step
-        graphs released first (they may hold the collectives' group)."""
+        graphs released first (they may hold the collectives' group).
+        A ``--distributed`` coordinator cannot join another host's
+        processes: its runtime sends the shutdown record (bounded),
+        joins only the ranks this process spawned and leaves the world;
+        each other process leaves its loop on that record and exits."""
         if self.tp_runtime is not None:
             if self.runner.graphs is not None:
                 self.runner.graphs.release()

@@ -74,9 +74,12 @@ Under sp every rank holds the whole tp-cut model and a replica of the
 cache; a cold prompt of at least the scheduler's threshold prefills in
 ONE dispatch (``run_sp_prefill``: ring attention over the sp ranks,
 parallel/context_serving.py), always eagerly (counted as reason
-``sp_prefill``: its T buckets reach the model's length); every other
-step runs replicated on each rank, and a page write goes to every
-replica. Both force the stacked cache layout (``cache_layout`` auto
+``sp_prefill``: its T buckets reach the model's length); a unified or
+verify block splits its rows over the sp ranks (``shard_rows_forward``:
+R padded to an sp multiple, the live slots' K/V shared, the span's
+logits gathered; counted in ``sp_split_rows``), every other step runs
+replicated on each rank, and a page write goes to every replica. Both
+force the stacked cache layout (``cache_layout`` auto
 resolves stacked, per_layer is refused: JAX's rule), and both ride the
 step bridge as tp does; the JAX runner's refusals are ``check_parallel``.
 
@@ -140,6 +143,8 @@ from production_stack_tpu_torch.ops.sampling import (
 )
 from production_stack_tpu_torch.parallel import mesh
 from production_stack_tpu_torch.parallel.context_serving import (
+    share_slots,
+    shard_rows_forward,
     sp_prefill_forward,
 )
 from production_stack_tpu_torch.parallel.pipeline_serving import (
@@ -316,12 +321,24 @@ def check_engine_geometry(config: EngineConfig) -> None:
         else model.torch_dtype)
 
 
-def unified_step_eligible(engine_role: str = "both") -> bool:
+def unified_step_eligible(engine_role: str = "both",
+                          distributed: bool = False) -> bool:
     """The eligibility rule of the unified ragged step, the JAX
-    runner's for one host: out for a disaggregated role engine, which by
-    construction never holds prefill and decode work at once (the
-    server's ``--unified-step auto`` resolves through it)."""
-    return engine_role == "both"
+    runner's: out for a disaggregated role engine, which by
+    construction never holds prefill and decode work at once, and for a
+    multi-host (``distributed``) server, as in JAX (the server's
+    ``--unified-step auto`` resolves through it)."""
+    return engine_role == "both" and not distributed
+
+
+def async_scheduling_eligible(decode_steps: int, speculative_k: int,
+                              distributed: bool = False) -> bool:
+    """The eligibility rule of the async pipeline, the JAX runner's:
+    single-step decode (a burst already amortizes the host round trip,
+    a verify step's commit count is data-dependent) on one host (the
+    server's ``--async-scheduling auto`` resolves through it; a
+    prefill-role server resolves it off besides)."""
+    return decode_steps == 1 and speculative_k == 0 and not distributed
 
 
 def prefill_buckets(chunk_size: int) -> List[int]:
@@ -525,6 +542,9 @@ class ModelRunner:
         _, self._forward = get_model(model_config)
         if pp is not None:
             self._forward = functools.partial(pp_paged_forward, pp=pp)
+        if sp is not None:
+            # Unified and verify dispatches split their rows over sp.
+            self._forward = shard_rows_forward(self._forward, sp)
         quantized = model_config.quantization == "int8"
         rank = 0 if tp is None else tp.rank
         if params is None and quantized:
@@ -609,8 +629,12 @@ class ModelRunner:
         self.unified_span = max(self.spec_width, 1)
         # Last dispatched ragged shape, for occupancy metrics.
         self.last_unified_rows = 0
-        # Context-parallel whole-prompt prefills dispatched.
+        # Context-parallel whole-prompt prefills dispatched, and per
+        # split kind ("unified", "spec_verify") the [dispatches, rows
+        # this rank computed, rows of the blocks] of the split ragged
+        # dispatches (shard_rows_forward).
         self.sp_prefill_steps = 0
+        self.sp_split_rows = {}
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(config.seed + 1)
         # The device performance observatory (engine/perf_observatory.py):
@@ -819,6 +843,11 @@ class ModelRunner:
                   options: Tuple[str, ...]):
         fn = self._body(body, options, self._seeding(payload))
         mode = sampler_mode(*(payload[k] for k in KNOBS))
+        if "share_slots" in payload:
+            rows = shape[0]
+            counts = self.sp_split_rows.setdefault(kind, [0, 0, 0])
+            for i, n in enumerate((1, rows // self.sp.size, rows)):
+                counts[i] += n
         names = names + tuple(n for o in options for n in OPTION_INPUTS[o])
         if "lora_ids" in payload:
             names += ("lora_ids",)
@@ -932,11 +961,13 @@ class ModelRunner:
                             - dev["draft_lens"].long(), min=0)
         idx = torch.clamp(start[:, None] + torch.arange(
             s, device=self.device)[None, :], 0, tokens.shape[1] - 1)
+        split = ({"share_slots": dev["share_slots"]}
+                 if "share_slots" in dev else {})
         span = self._forward(
             self.params, self.shard_config, tokens, dev["positions"],
             dev["page_table"], dev["kv_lens"], dev["valid"],
             self.k_cache, self.v_cache, select=idx, kind="ragged",
-            **self._lora_args(dev), **self._fwd_args)
+            **self._lora_args(dev), **self._fwd_args, **split)
         out = spec_verify(span, dev["drafts"], dev["draft_lens"],
                           dev["temperature"], dev["top_p"], dev["top_k"],
                           generator=self.generator, mode=mode)
@@ -1434,7 +1465,7 @@ class ModelRunner:
         guarantees row eligibility and pages for total_len +
         draft_len tokens."""
         seqs = plan.seqs[: self.decode_width]
-        b, s = self.decode_width, self.spec_width
+        b, s = self._split_rows(self.decode_width), self.spec_width
         tokens = np.zeros((b, s), np.int32)
         positions = np.zeros((b, s), np.int32)
         valid = np.zeros((b, s), bool)
@@ -1470,11 +1501,29 @@ class ModelRunner:
         }
         payload.update(self._lora_payload(seqs, b))
         _, options = self._options_payload(seqs, b, row_inputs=False)
+        shape, names = self._ragged_split(payload, (b, s))
         self._last_handle = SpecStepHandle(
             list(seqs), [list(plan.drafts[i]) for i in range(len(seqs))],
-            self._dispatch("spec_verify", (b, s), payload, RAGGED_INPUTS,
+            self._dispatch("spec_verify", shape, payload, names,
                            ("ragged",), options=options))
         return self._last_handle
+
+    def _split_rows(self, rows: int) -> int:
+        """A ragged block's row count, padded to a multiple of the sp
+        size under context parallelism (each rank runs R/sp rows)."""
+        return rows if self.sp is None else rows + (-rows) % self.sp.size
+
+    def _ragged_split(self, payload: dict, shape: Tuple[int, int]):
+        """(key shape, input names) of a ragged dispatch; under context
+        parallelism the payload gains each rank's live slots
+        (``share_slots``), whose width joins the key (a step graph a
+        width)."""
+        if self.sp is None or shape[1] <= 1:
+            return shape, RAGGED_INPUTS
+        payload["share_slots"] = share_slots(payload["valid"],
+                                             self.sp.size)
+        return (shape + (payload["share_slots"].shape[1],),
+                RAGGED_INPUTS + ("share_slots",))
 
     # ---- unified ragged step ------------------------------------------------
 
@@ -1495,7 +1544,7 @@ class ModelRunner:
         chunks = plan.prefill.chunks[: self.prefill_width]
         spec_drafts = plan.decode.drafts
         off = len(seqs)
-        r = self._row_bucket_for(off + len(chunks))
+        r = self._split_rows(self._row_bucket_for(off + len(chunks)))
         self.last_unified_rows = r
         s = self.unified_span
         w = max(self._bucket_for(max(len(c.chunk_tokens)
@@ -1545,8 +1594,9 @@ class ModelRunner:
         rows = list(seqs) + [c.seq if c.is_last_chunk else None
                              for c in chunks]
         _, options = self._options_payload(rows, r, row_inputs=False)
+        shape, names = self._ragged_split(payload, (r, w))
         toks, lps = _row_results(rows, self._dispatch(
-            "unified", (r, w), payload, RAGGED_INPUTS, ("ragged",),
+            "unified", shape, payload, names, ("ragged",),
             options=options))
         self._last_handle = None
         prefill_out = [toks[off + j][0] if c.is_last_chunk else None

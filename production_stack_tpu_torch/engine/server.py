@@ -79,9 +79,12 @@ Fleet contract, as the JAX server keeps it:
   Streams are sent with chunked transfer encoding, so a cut reads as
   one to the client.
 
-Flags: 64 of the JAX server's 75, with the same names, defaults and
-meanings (``parse_args``); the other 11 (the 10 of parallelism and
-``--deferred-kv-writes``) are absent and argparse refuses them.
+Flags: all 75 of the JAX server's, with the same names, defaults and
+meanings (``parse_args``). ``--distributed`` (with
+``--coordinator-address``, ``--num-processes``, ``--process-id``) makes
+this process one of a multi-host world: process 0 serves HTTP and
+renders the bridge's slice liveness on ``/metrics``; every other
+process replays its steps (``run_worker_from_args``) and never serves.
 ``--chat-template`` (inline Jinja source or a file) is rendered once at
 start-up, so a broken template stops the server there. ``--device`` is the port's own (the
 card unless ``cpu`` is asked for).
@@ -162,6 +165,7 @@ from production_stack_tpu_torch.engine.embeddings import (
 )
 from production_stack_tpu_torch.engine.engine import LLMEngine, StepOutput
 from production_stack_tpu_torch.engine.model_runner import (
+    async_scheduling_eligible,
     check_engine_geometry,
     check_parallel,
     deferred_kv_eligible,
@@ -188,12 +192,20 @@ from production_stack_tpu_torch.ops import paged_kv_common
 from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
 from production_stack_tpu_torch.parallel import mesh
 from production_stack_tpu_torch.parallel.distributed import (
+    DistributedProcess,
+    init_distributed,
+    is_coordinator,
+    run_distributed_worker,
+    start_distributed,
     start_parallel,
 )
 from production_stack_tpu_torch.parallel.topology import (
     MeshPlan,
     discover_topology,
     parse_placement,
+    process_slices,
+    process_topology,
+    slice_of_process,
 )
 from production_stack_tpu_torch.qos import (
     PRIORITY_HEADER,
@@ -1094,6 +1106,22 @@ class EngineServer:
         lines += [f'vllm:engine_mesh_shape{{axis="{axis}"}} '
                   f"{float(axis_sizes[axis])}"
                   for axis in ("dp", "pp", "sp", "tp")]
+        # The slice this process serves and each slice's liveness, as
+        # the JAX server reports them: on one host slice 0, live; in a
+        # multi-host world the bridge's ledger.
+        slice_id, live = 0, {0: True}
+        runtime = self.engine.tp_runtime
+        if runtime is not None and runtime.process is not None:
+            process, bridge = runtime.process, runtime.bridge
+            slice_id = slice_of_process(process.process_id,
+                                        process.num_processes,
+                                        bridge.num_slices)
+            live = bridge.check_liveness()
+        lines += ["# TYPE vllm:engine_slice_id gauge",
+                  f"vllm:engine_slice_id {float(slice_id)}",
+                  "# TYPE vllm:engine_slice_live gauge"]
+        lines += [f'vllm:engine_slice_live{{slice="{i}"}} {float(on)}'
+                  for i, on in sorted(live.items())]
         return lines
 
     def parse_completion(self, body: dict, chat: bool):
@@ -2140,14 +2168,15 @@ class EngineHTTPServer(ThreadingHTTPServer):
 def _resolve(flag: str, eligible: bool = True) -> bool:
     """--async-scheduling / --unified-step auto|on|off: 'auto' is on
     where the JAX engine's 'auto' turns the feature on, else off; an
-    explicit 'on' is honoured. The port serves one model on one device,
-    so 'auto' turns the unified step on for a monolithic engine
-    (``unified_step_eligible``: a role engine never holds prefill and
-    decode work at once) and the async pipeline on for single-step
-    decode without --speculative-k on any role but prefill (the JAX
-    engine's async_scheduling_eligible: a burst already amortizes the
-    host round trip, a verify step's commit count is data-dependent,
-    and a prefill-role engine has no decode step to overlap)."""
+    explicit 'on' is honoured. 'auto' turns the unified step on for a
+    monolithic engine on one host (``unified_step_eligible``: a role
+    engine never holds prefill and decode work at once) and the async
+    pipeline on for single-step decode without --speculative-k on one
+    host and any role but prefill (``async_scheduling_eligible``: a
+    burst already amortizes the host round trip, a verify step's commit
+    count is data-dependent, and a prefill-role engine has no decode
+    step to overlap); both resolve off under --distributed, as in
+    JAX."""
     return flag == "on" or (flag == "auto" and eligible)
 
 
@@ -2207,31 +2236,58 @@ def tp_devices(args, device: torch.device) -> list:
     return plan.build(topology).world_devices()
 
 
-def build_engine_from_args(args, devices=None, tp_backend=None) -> tuple:
-    """(engine, served name) of the parsed flags. ``devices`` and
-    ``tp_backend`` override the ranks' devices (global rank order) and
-    backend (ranks that share one card need gloo, named explicitly); by
-    default the mesh plan picks the devices and NCCL joins them."""
-    device = resolve_device(args.device)
-    resolve_attention_impl(args.attention_impl, device)
-    if devices is None:
-        devices = ([device] if world_size(args) <= 1
-                   and args.num_slices <= 1 else tp_devices(args, device))
-    devices = [torch.device(d) for d in devices]
-    device = devices[0]
+def distributed_process(args) -> Optional[DistributedProcess]:
+    """This process's place in a ``--distributed`` world (None without
+    the flag), after the JAX server's refusals: the offload tiers are
+    host-0-local state, and a context-parallel prefill is refused at
+    start-up rather than on the first long prompt."""
+    if not args.distributed:
+        return None
+    if args.enable_kv_offload or args.kv_remote_url:
+        raise ValueError(
+            "KV offload tiers are host-0-local state and are not "
+            "yet supported in multi-host mode")
+    if args.context_parallel_size > 1:
+        raise ValueError(
+            "--context-parallel-size > 1 is not yet supported "
+            "with --distributed (single-host sp only)")
+    return init_distributed(args.coordinator_address, args.num_processes,
+                            args.process_id)
+
+
+def process_devices(args, device: torch.device,
+                    process: DistributedProcess) -> list:
+    """The devices of this process's ranks of a ``--distributed``
+    world (its L = world / processes ranks: that many CPU ranks, or
+    cards 0..L-1), after the mesh plan is checked against the processes
+    (``process_topology``: an "ici" axis may not cross a slice)."""
+    per = len(process.local_ranks(world_size(args)))
+    MeshPlan(tp=args.tensor_parallel_size, pp=args.pipeline_parallel_size,
+             sp=args.context_parallel_size,
+             placement=parse_placement(args.mesh_placement)).validate(
+        process_topology(process.num_processes, per, args.num_slices))
+    if device.type == "cpu":
+        return [device] * per
+    if torch.cuda.device_count() < per:
+        raise ValueError(f"process {process.process_id} holds {per} ranks "
+                         f"but sees {torch.cuda.device_count()} cards")
+    return [torch.device("cuda", i) for i in range(per)]
+
+
+def engine_config_from_args(args, device: torch.device) -> tuple:
+    """(EngineConfig, the checkpoint directory every rank reads or None)
+    of the parsed flags, after the JAX runner's refusals."""
     if args.compilation_cache_dir:
         paged_kv_common.set_build_root(
             os.path.join(args.compilation_cache_dir, "kernels"))
-    params, tokenizer = None, None
     if args.model in ("tiny-llama", "tiny-opt"):
         model_config = tiny_model_config(args.model.split("-")[1])
     elif args.model == "bench-1b":
         model_config = bench_1b_model_config()
     else:
-        # A local HF checkpoint directory: its config, its weights
-        # (unless --random-weights) and its tokenizer (or --tokenizer).
+        # A local HF checkpoint directory: its config and its weights
+        # (unless --random-weights).
         model_config = load_model_config(args.model)
-        tokenizer = get_tokenizer(args.tokenizer or args.model)
     if args.dtype:
         # On the card the runner refuses a geometry the kernels are not
         # built for, naming the missing PSTT_FOR_EACH_GEOMETRY line.
@@ -2254,12 +2310,15 @@ def build_engine_from_args(args, devices=None, tp_backend=None) -> tuple:
             decode_steps=args.decode_steps,
             async_scheduling=_resolve(
                 args.async_scheduling,
-                eligible=(args.decode_steps <= 1 and args.speculative_k == 0
-                          and args.engine_role != "prefill")),
+                eligible=(async_scheduling_eligible(
+                    args.decode_steps, args.speculative_k,
+                    distributed=args.distributed)
+                    and args.engine_role != "prefill")),
             unified_step=_resolve(
                 args.unified_step,
                 eligible=unified_step_eligible(
-                    engine_role=args.engine_role)),
+                    engine_role=args.engine_role,
+                    distributed=args.distributed)),
             speculative_k=args.speculative_k,
             speculative_min_match=args.speculative_min_match,
             deferred_kv_writes=_resolve_deferred_kv(args, model_config),
@@ -2319,17 +2378,51 @@ def build_engine_from_args(args, devices=None, tp_backend=None) -> tuple:
             # Refuse a geometry the kernels lack before reading weights.
             check_engine_geometry(config)
         if not args.random_weights:
-            # Rank 0's part (tp shard 0 of stage 0); the other ranks
-            # read their own.
             weights_dir = args.model
-            params = load_weights(
-                args.model, model_config, device=device,
-                tp=args.tensor_parallel_size,
-                layers=(None if args.pipeline_parallel_size == 1 else
-                        mesh.stage_layers(model_config.num_hidden_layers,
-                                          0, args.pipeline_parallel_size)))
+    return config, weights_dir
+
+
+def build_engine_from_args(args, devices=None, tp_backend=None) -> tuple:
+    """(engine, served name) of the parsed flags. ``devices`` and
+    ``tp_backend`` override the ranks' devices (global rank order) and
+    backend (ranks that share one card need gloo, named explicitly); by
+    default the mesh plan picks the devices and NCCL joins them. Under
+    ``--distributed`` this is process 0's engine, the coordinator's,
+    and the cards decide the backend (``start_distributed``)."""
+    process = distributed_process(args)
+    device = resolve_device(args.device)
+    resolve_attention_impl(args.attention_impl, device)
+    if devices is None and process is not None:
+        devices = process_devices(args, device, process)
+    elif devices is None:
+        devices = ([device] if world_size(args) <= 1
+                   and args.num_slices <= 1 else tp_devices(args, device))
+    devices = [torch.device(d) for d in devices]
+    device = devices[0]
+    config, weights_dir = engine_config_from_args(args, device)
+    model_config = config.model
+    params, tokenizer = None, None
+    if args.model not in ("tiny-llama", "tiny-opt", "bench-1b"):
+        # A checkpoint directory's tokenizer (or --tokenizer).
+        tokenizer = get_tokenizer(args.tokenizer or args.model)
+    if weights_dir is not None:
+        # Rank 0's part (tp shard 0 of stage 0); the other ranks read
+        # their own.
+        params = load_weights(
+            weights_dir, model_config, device=device,
+            tp=args.tensor_parallel_size,
+            layers=(None if args.pipeline_parallel_size == 1 else
+                    mesh.stage_layers(model_config.num_hidden_layers,
+                                      0, args.pipeline_parallel_size)))
     runtime = None
-    if len(devices) > 1:
+    if process is not None:
+        # Rank 0 of a multi-host world: the other processes join at the
+        # coordinator's address and replay this process's steps.
+        runtime = start_distributed(
+            config, devices, process, weights=weights_dir,
+            num_slices=process_slices(process.num_processes,
+                                      args.num_slices))
+    elif len(devices) > 1:
         # Ranks 1..N-1, one card each (NCCL; gloo on the CPU), replay
         # this process's steps through the bridge.
         runtime = start_parallel(config, devices, backend=tp_backend,
@@ -2360,6 +2453,19 @@ def build_engine_from_args(args, devices=None, tp_backend=None) -> tuple:
             ring_size=max(1, args.trace_ring_size),
             role=args.engine_role)
     return engine, args.served_model_name or args.model
+
+
+def run_worker_from_args(args) -> dict:
+    """A ``--distributed`` process other than 0: build its ranks'
+    runners and replay the coordinator's records until its shutdown
+    record (``run_distributed_worker``); it never serves HTTP. Returns
+    its ranks' kernel launch counts."""
+    process = distributed_process(args)
+    device = resolve_device(args.device)
+    resolve_attention_impl(args.attention_impl, device)
+    devices = process_devices(args, device, process)
+    config, weights_dir = engine_config_from_args(args, devices[0])
+    return run_distributed_worker(config, devices, process, weights_dir)
 
 
 def parse_args(argv=None):
@@ -2574,6 +2680,16 @@ def parse_args(argv=None):
                         "DIR/kernels/<source hash>/ instead of "
                         "build/kernels/, so a restarted pod skips the "
                         "nvcc build")
+    # Multi-host serving (parallel/distributed.py): one server process a
+    # host; process 0 serves HTTP, the others replay its steps.
+    p.add_argument("--distributed", action="store_true",
+                   help="Join a multi-host world of --num-processes "
+                        "server processes at --coordinator-address")
+    p.add_argument("--coordinator-address", default=None,
+                   help="host:port of the rendezvous store, hosted by "
+                        "process 0")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     # Self-tuning controllers: the JAX server's flags.
     p.add_argument("--autotune", default="off",
                    choices=["off", "shadow", "on"],
@@ -2650,6 +2766,12 @@ def make_server(argv=None, devices=None,
 
 
 def main(argv=None) -> None:
+    args = parse_args(argv)
+    if not is_coordinator(distributed_process(args)):
+        # Workers never serve HTTP: they mirror process 0's steps and
+        # exit when its shutdown record arrives.
+        run_worker_from_args(args)
+        return
     server = make_server(argv)
     # SIGTERM stops serving as a drain-exit does, so the tp workers
     # are released and joined on the way out.

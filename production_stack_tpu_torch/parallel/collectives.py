@@ -173,11 +173,13 @@ def rank_coords(rank: int, tp: int = 1, pp: int = 1, sp: int = 1) -> dict:
     return {"pp": rank // (sp * tp), "sp": rank // tp % sp, "tp": rank % tp}
 
 
-def init_mesh_groups(rank: int, backend: str, init_method: str,
+def init_mesh_groups(rank: int, backend: str, init_method: Optional[str],
                      device: torch.device, tp: int = 1, pp: int = 1,
-                     sp: int = 1, timeout_s: float = 600.0) -> MeshGroups:
+                     sp: int = 1, timeout_s: float = 600.0,
+                     store=None) -> MeshGroups:
     """Join the default process group (``init_method`` tcp://host:port,
-    world tp x sp x pp) with ``backend`` and return this rank's groups.
+    or a rendezvous ``store`` already made; world tp x sp x pp) with
+    ``backend`` and return this rank's groups.
     An axis that spans the whole world rides the default group; with
     two axes > 1 every rank creates every group of each axis in one
     order (``dist.new_group``'s rule). NCCL needs a card a rank
@@ -195,8 +197,8 @@ def init_mesh_groups(rank: int, backend: str, init_method: str,
         torch.cuda.set_device(device)
     size = tp * pp * sp
     dist.init_process_group(
-        backend, init_method=init_method, world_size=size, rank=rank,
-        timeout=datetime.timedelta(seconds=timeout_s))
+        backend, init_method=init_method, store=store, world_size=size,
+        rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
     sizes = {"pp": pp, "sp": sp, "tp": tp}
     groups = MeshGroups()
     for axis in AXES:

@@ -19,13 +19,24 @@ its sequence over an sp group, the JAX package's
 - The head runs on the last prompt token's row only: the rank holding
   it is found from ``last_index``, its row gathered over sp.
 
-JAX's ``shard_w_forward`` (the W axis of unified and verify dispatches
-split over sp) is not ported: the sp ranks run those dispatches
-replicated, the same math and the same streams.
+The unified and verify dispatches (``shard_rows_forward``, JAX's
+``shard_w_forward``): each sp rank runs 1/sp of the [R, W] block's
+token work. JAX pins the W axis to sp and lets GSPMD split the query
+columns; here the split is by rows, which needs no change to the ragged
+kernel: rank r runs rows ``[r R/sp, (r + 1) R/sp)`` (R a multiple of
+the sp size: the runner pads the block) through the model on their own
+page tables and descriptors, then every rank's freshly written K/V
+slots are all-gathered and written into every replica
+(``share_slot_writes``, one gather a step over every layer: the live
+slots only, ``share_slots`` from the host), and the sampled span's
+logits are gathered over sp, so every rank samples the whole block as
+before. The math per row is unchanged; single-token decode dispatches
+do not pass through it.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from production_stack_tpu_torch.engine.config import ModelConfig
@@ -33,6 +44,7 @@ from production_stack_tpu_torch.engine.lora import layer_stacks
 from production_stack_tpu_torch.models import llama
 from production_stack_tpu_torch.models.registry import get_family
 from production_stack_tpu_torch.ops.attention import page_slots, write_slots
+from production_stack_tpu_torch.ops.quant_kv import QuantKV
 from production_stack_tpu_torch.ops.ring_attention import ring_attention
 
 SP_FAMILIES = ("llama", "mistral", "qwen2", "gpt2")
@@ -93,3 +105,80 @@ def sp_prefill_forward(params, config: ModelConfig, tokens: torch.Tensor,
     held = sp.all_gather(x[rows, local][:, None], dim=1)  # [B, n, H]
     return fam.head(params, config, held[rows, last // tl][:, None],
                     None, tp)[:, 0]
+
+
+def share_slots(valid: np.ndarray, n: int) -> np.ndarray:
+    """[n, m] int32: for each sp rank, the flat indices into the [R, W]
+    block (R a multiple of ``n``) of the live slots of its rows, first
+    in row-major order, then dead slots (trash page) up to ``m``: the
+    largest rank's live count rounded up to a power of two and capped
+    at its R/n * W slots, so that a step graph keyed on ``m`` serves
+    many steps."""
+    r, w = valid.shape
+    seg = r // n * w
+    flat = valid.reshape(n, seg)
+    most = int(flat.sum(axis=1).max())
+    m = min(seg, 1 << max(most - 1, 0).bit_length())
+    out = np.empty((n, m), np.int32)
+    for j in range(n):
+        out[j] = j * seg + np.concatenate([np.flatnonzero(flat[j]),
+                                           np.flatnonzero(~flat[j])])[:m]
+    return out
+
+
+def share_slot_writes(k_cache, v_cache, page_table: torch.Tensor,
+                      positions: torch.Tensor, valid: torch.Tensor,
+                      slots: torch.Tensor, sp) -> None:
+    """Every sp replica's stacked caches take the K/V each rank wrote
+    for its rows: this rank's ``slots[sp.rank]`` (flat indices of the
+    [R, W] block) read off every layer, all-gathered over ``sp`` in one
+    collective (two for int8: values and scales) and written at every
+    rank's slots. Dead entries read and write the trash page."""
+    pages, offsets = page_slots(page_table, positions, valid,
+                                k_cache.shape[-1])
+    mine, every = slots[sp.rank].long(), slots.reshape(-1).long()
+    p, o = pages[mine], offsets[mine]
+    pa, oa = pages[every], offsets[every]
+    quant = isinstance(k_cache, QuantKV)
+    data = [(c.data if quant else c) for c in (k_cache, v_cache)]
+    # [L, kv, pages, d, ps] at (page, offset) pairs: [m, L, kv, d].
+    got = sp.all_gather(torch.stack([c[:, :, p, :, o] for c in data]),
+                        dim=1)
+    for c, new in zip(data, got):
+        c[:, :, pa, :, oa] = new
+    if quant:
+        # [L, kv, pages, ps] scales at the pairs: [L, kv, m].
+        got = sp.all_gather(torch.stack([c.scale[:, :, p, o]
+                                         for c in (k_cache, v_cache)]),
+                            dim=-1)
+        for c, new in zip((k_cache, v_cache), got):
+            c.scale[:, :, pa, oa] = new
+
+
+def shard_rows_forward(forward, sp):
+    """The engine forward of a context-parallel runner: a ragged
+    dispatch given ``share_slots`` (a unified or verify block, W > 1)
+    runs this rank's rows only, shares its K/V writes with the other
+    replicas and gathers the span's logits over ``sp``; any other call
+    passes through (decode, prefill chunks)."""
+
+    def wrapped(params, config, tokens, positions, page_table, kv_lens,
+                valid, k_cache, v_cache, *, select=None, lora=None,
+                lora_ids=None, share_slots=None, **kwargs):
+        if share_slots is None or tokens.shape[1] <= 1:
+            return forward(params, config, tokens, positions, page_table,
+                           kv_lens, valid, k_cache, v_cache, select=select,
+                           lora=lora, lora_ids=lora_ids, **kwargs)
+        per = tokens.shape[0] // sp.size
+        mine = slice(sp.rank * per, (sp.rank + 1) * per)
+        logits = forward(
+            params, config, tokens[mine], positions[mine],
+            page_table[mine], kv_lens[mine], valid[mine], k_cache, v_cache,
+            select=None if select is None else select[mine], lora=lora,
+            lora_ids=None if lora_ids is None else lora_ids[mine],
+            **kwargs)
+        share_slot_writes(k_cache, v_cache, page_table, positions, valid,
+                          share_slots, sp)
+        return sp.all_gather(logits, dim=0)
+
+    return wrapped

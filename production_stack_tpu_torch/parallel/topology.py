@@ -13,7 +13,9 @@ straddle a slice, "any" = may cross slices). It validates against the
 topology, so a tp axis wider than a slice, or a plan that needs more
 devices than exist, is a ``ValueError`` at start-up. ``build`` lays the
 devices out slice-major in (dp, pp, sp, tp) order; the port serves the
-tp axis (``tp_devices``: one device a rank).
+tp axis (``tp_devices``: one device a rank). A multi-host world
+(``--distributed``) has a slice a server process, or ``--num-slices``
+of them (``process_slices``, ``slice_of_process``).
 
 Pure Python beside ``torch.device``: no JAX, no collective.
 """
@@ -48,7 +50,8 @@ _FAKE_SLICES_ENV = "PSTPU_NUM_SLICES"
 @dataclasses.dataclass(frozen=True)
 class DeviceTopology:
     """Devices grouped into slices, slice-major. ``source``: "forced"
-    (a num_slices override) or "flat" (one slice: one host's cards)."""
+    (a num_slices override), "flat" (one slice: one host's cards) or
+    "process" (a multi-host world's server processes)."""
 
     slices: Tuple[Tuple[object, ...], ...]
     source: str = "flat"
@@ -108,6 +111,43 @@ def discover_topology(devices: Optional[Sequence] = None,
                   for i in range(num_slices)),
             source="forced")
     return DeviceTopology((tuple(devices),), source="flat")
+
+
+def process_slices(num_processes: int, num_slices: int = 0) -> int:
+    """The slice count of a multi-host world of ``num_processes``
+    server processes: ``num_slices`` (which must divide them), or with
+    0 one slice a process, as JAX's discovery groups devices by
+    process."""
+    if num_slices <= 0:
+        return num_processes
+    if num_slices > num_processes or num_processes % num_slices:
+        raise ValueError(f"num_slices={num_slices} must evenly divide the "
+                         f"{num_processes} processes")
+    return num_slices
+
+
+def process_topology(num_processes: int, per_process: int,
+                     num_slices: int = 0) -> DeviceTopology:
+    """The topology of a multi-host world: ``per_process`` ranks on
+    each of ``num_processes`` server processes, named (process, local
+    index), grouped into ``process_slices`` slices, so that a
+    ``MeshPlan`` is checked against the processes as JAX checks it
+    against its process-grouped devices (an "ici" axis may not cross
+    one)."""
+    n = process_slices(num_processes, num_slices)
+    devices = [(p, i) for p in range(num_processes)
+               for i in range(per_process)]
+    size = len(devices) // n
+    return DeviceTopology(tuple(tuple(devices[i * size:(i + 1) * size])
+                                for i in range(n)), source="process")
+
+
+def slice_of_process(process_index: int, num_processes: int,
+                     num_slices: int) -> int:
+    """The slice of a process: processes map to slices contiguously,
+    slice-major (JAX's ``MultihostStepBridge.slice_of_process``)."""
+    n = max(1, num_processes)
+    return min(num_slices - 1, process_index * num_slices // n)
 
 
 def parse_placement(text: str) -> Dict[str, str]:

@@ -52,6 +52,7 @@ from production_stack_tpu_torch.parallel.context_serving import (
 from tests import test_model_parity as parity
 from tests import test_torch_model_families as fam
 from tests import test_torch_pipeline as pipe
+from tests.test_torch_cuda_kernels import split_against_whole
 
 torch.set_num_threads(2)
 
@@ -198,9 +199,9 @@ ENGINES = {
 }
 
 
-def _jax_engine(sp, tp, family, quant, lora, bias, np_params):
+def _jax_engine(sp, tp, family, quant, lora, bias, np_params, **sched):
     jcfg = _engine_config(jax_config, sp, tp, family, quant, lora,
-                          bias=bias)
+                          bias=bias, **sched)
     jmesh = (jax_mesh.build_mesh(context_parallel_size=sp,
                                  tensor_parallel_size=tp)
              if sp * tp > 1 else None)
@@ -282,6 +283,171 @@ def test_cp2_step_kinds_after_an_sp_prefill_equal_cp1(variant):
         got = pipe.run_streams(fm.engine, prompts, pipe._port_sampling(12))
     assert got == single
     assert fm.engine.runner.sp_prefill_steps == 2
+
+
+# ---- (c) unified and verify dispatches split over the sp ranks ------------
+
+
+SHORT = list(range(9, 29))  # a chunked prompt that mixes with decode rows
+
+
+@pytest.mark.parametrize("case", sorted(ENGINES))
+def test_cp_unified_streams_match_jax(case):
+    """Each engine case of ``test_cp_engine_streams_match_jax`` with the
+    unified step on in both engines and a short prompt beside its own,
+    so that prefill chunks ride unified [R, W] blocks with decode rows:
+    greedy streams byte-identical to the JAX cp engine's (its W axis
+    split over sp, the port's rows), and on every rank each unified
+    dispatch computed R/sp of its rows."""
+    kw = dict(ENGINES[case])
+    sp, tp = kw.pop("sp"), kw.pop("tp", 1)
+    family, quant = kw.pop("family", "llama"), kw.pop("quant", "none")
+    lora, bias = kw.pop("lora", False), kw.pop("bias", False)
+    prompts = kw.pop("prompts", [LONG]) + [SHORT]
+    names = None
+    if lora:
+        prompts = [LONG, list(range(7, 7 + 90)), SHORT]
+        names = [None, "adapter-x", None]
+    np_params = _weights(family, quant, bias)
+    want = pipe.run_streams(
+        _jax_engine(sp, tp, family, quant, lora, bias, np_params,
+                    unified_step=True), prompts, pipe._jax_sampling(), names)
+    cfg = _engine_config(config, sp, tp, family, quant, lora, bias=bias,
+                         unified_step=True)
+    with pipe.FakeMesh(cfg, lambda: params_from_numpy(
+            np_params, cfg.model, "cpu")) as fm:
+        if lora:
+            fm.engine.runner.register_lora(LoRAAdapter(
+                name="adapter-x", rank=4, scaling=0.5,
+                weights=pipe._adapter_pairs(cfg.model)))
+        got = pipe.run_streams(fm.engine, prompts, pipe._port_sampling(),
+                               names)
+    assert got == want
+    for runner in fm.runners:
+        dispatches, mine, rows = runner.sp_split_rows["unified"]
+        assert dispatches > 0 and mine * sp == rows
+
+
+def _split_spy(monkeypatch):
+    """Wrap every runner's split forward so that each ragged call of
+    the model on a rank records (the rank's sp group, rows run)."""
+    from production_stack_tpu_torch.engine import model_runner
+    seen = []
+    real = model_runner.shard_rows_forward
+
+    def spying(forward, sp):
+        def inner(*args, **kwargs):
+            if kwargs.get("kind") == "ragged":
+                seen.append((sp, args[2].shape[0]))
+            return forward(*args, **kwargs)
+        return real(inner, sp)
+
+    monkeypatch.setattr(model_runner, "shard_rows_forward", spying)
+    return seen
+
+
+SPEC_PROMPTS = [[5, 6, 7, 8] * 6, list(range(40, 140)), SHORT]
+# The 300-token prompt is still in chunks when the first drafts come.
+MIXED_PROMPTS = [[5, 6, 7, 8] * 6, list(range(40, 340)), SHORT]
+
+
+def _spec_engine_config(sp, tp=1):
+    """Speculative decoding with the unified step: decode rows carry
+    drafts (the repeating prompt) in unified blocks beside the chunks
+    of a 100-token prompt (the threshold above it), and verify blocks
+    once no prefill is left."""
+    return _engine_config(config, sp, tp, threshold=512, speculative_k=3,
+                          unified_step=True)
+
+
+@pytest.mark.parametrize("sp,tp", [(2, 1), (4, 1), (2, 2)])
+def test_each_sp_rank_runs_its_share_of_unified_and_verify(sp, tp,
+                                                           monkeypatch):
+    """Every unified and verify dispatch of a speculative cp engine:
+    each fake sp rank ran exactly R/sp of the block's rows through the
+    model (the spy), as its counter says, and the greedy streams equal
+    the port's cp 1 engine's."""
+    seen = _split_spy(monkeypatch)
+    np_params = _weights()
+    single = pipe.run_streams(LLMEngine(
+        _spec_engine_config(1), params=params_from_numpy(
+            np_params, _spec_engine_config(1).model, "cpu"),
+        device="cpu"), SPEC_PROMPTS, pipe._port_sampling(12))
+    cfg = _spec_engine_config(sp, tp)
+    with pipe.FakeMesh(cfg, lambda: params_from_numpy(
+            np_params, cfg.model, "cpu")) as fm:
+        got = pipe.run_streams(fm.engine, SPEC_PROMPTS,
+                               pipe._port_sampling(12))
+    assert got == single
+    for runner in fm.runners:
+        counts = runner.sp_split_rows
+        assert set(counts) == {"unified", "spec_verify"}, counts
+        calls = [n for g, n in seen if g is runner.sp]
+        assert len(calls) == sum(c[0] for c in counts.values())
+        assert sum(calls) == sum(c[1] for c in counts.values())
+        for dispatches, mine, rows in counts.values():
+            assert dispatches > 0 and mine * sp == rows
+
+
+def test_every_replica_holds_the_same_pages_after_a_mixed_step(
+        monkeypatch):
+    """A unified block with a verify row (a decode row and its drafts)
+    and a prefill chunk row, split over two sp ranks of two tp ranks:
+    afterwards every sp replica's cache is bitwise the others' (the
+    same tp index), every page but the trash page, int8 scales
+    included."""
+    steps = []
+    from production_stack_tpu_torch.engine import model_runner
+    real = model_runner.ModelRunner._run_step
+
+    def recording(self, kind, shape, payload, *args):
+        if self.tp is None or self.tp.rank == 0 and self.sp.rank == 0:
+            steps.append((kind, payload))
+        return real(self, kind, shape, payload, *args)
+
+    monkeypatch.setattr(model_runner.ModelRunner, "_run_step", recording)
+    for kv in ("auto", "int8"):
+        cfg = _spec_engine_config(2, 2)
+        cfg.cache.kv_cache_dtype = kv
+        with pipe.FakeMesh(cfg) as fm:
+            pipe.run_streams(fm.engine, MIXED_PROMPTS,
+                             pipe._port_sampling(12))
+        mixed = [p for k, p in steps if k == "unified"
+                 and (p["draft_lens"] > 0).any()
+                 and (p["valid"].sum(axis=1) > 4).any()]
+        assert mixed, "no unified block held a verify row and a chunk"
+        steps.clear()
+        # Global rank (sp, tp), tp fastest: sp replicas r and r + 2.
+        for a, b in ((0, 2), (1, 3)):
+            for name in ("k_cache", "v_cache"):
+                x, y = (getattr(fm.runners[i], name) for i in (a, b))
+                leaves = ((x.data, y.data), (x.scale, y.scale)) if (
+                    kv == "int8") else ((x, y),)
+                for u, v in leaves:
+                    assert torch.equal(u[:, :, 1:], v[:, :, 1:]), (kv, name)
+
+
+@pytest.mark.parametrize("sp", [2, 3])
+@pytest.mark.parametrize("kv", ["auto", "int8"])
+def test_a_split_ragged_block_is_the_whole_blocks(sp, kv):
+    """``shard_rows_forward`` over fake sp ranks: each rank's logits
+    are the whole block's forward's within 1e-5 (f32), and each rank's
+    cache holds every row's new K/V as the whole run's does (the trash
+    page aside), int8 values and scales included."""
+    split, whole, ranks, whole_caches = split_against_whole("cpu", sp, kv)
+    for logits in split:
+        torch.testing.assert_close(logits, whole, **TOL)
+    for kc, vc in ranks:
+        for got, want in zip((kc, vc), whole_caches):
+            leaves = ((got.data, want.data), (got.scale, want.scale)) if (
+                kv == "int8") else ((got, want),)
+            for a, b in leaves:
+                if a.dtype == torch.int8:
+                    assert (a[:, :, 1:].int() - b[:, :, 1:].int()
+                            ).abs().max() <= 1
+                else:
+                    torch.testing.assert_close(a[:, :, 1:], b[:, :, 1:],
+                                               **TOL)
 
 
 def test_logprobs_and_penalties_ride_the_sp_prefill():

@@ -1420,3 +1420,109 @@ def test_sp_prefill_over_one_nccl_rank_runs_eagerly_and_counts(dev):
     assert engine.runner.sp_prefill_steps == long_prompts
     assert eager["sp_prefill"] == long_prompts
     assert got == want
+
+
+def split_against_whole(device, sp=2, kv="auto"):
+    """One ragged [R, W] block (decode rows with drafts, a prefill chunk
+    row, pad rows; R = 6, W = 16) through ``shard_rows_forward`` over
+    ``sp`` fake ranks in threads, each with its own stacked cache,
+    against the model's forward over the whole block on one cache: (the
+    split logits, the whole logits, each rank's k and v caches, the
+    whole run's), the model tiny-llama f32 on ``device``."""
+    from production_stack_tpu_torch.engine.config import tiny_model_config
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.ops.quant_kv import quant_cache_zeros
+    from production_stack_tpu_torch.parallel.collectives import (
+        FakeTPGroup, run_ranks)
+    from production_stack_tpu_torch.parallel.context_serving import (
+        share_slots, shard_rows_forward)
+    cfg = tiny_model_config("llama")
+    params = llama.init_params(cfg, torch.Generator().manual_seed(1),
+                               torch.device("cpu")).to(device)
+    r, w, ps, pages = 6, 16, 16, 24
+    rng = np.random.RandomState(2)
+    tokens = rng.randint(1, 500, size=(r, w)).astype(np.int32)
+    positions = np.zeros((r, w), np.int32)
+    valid = np.zeros((r, w), bool)
+    table = np.zeros((r, 4), np.int32)
+    table[:4] = np.arange(1, 17).reshape(4, 4)
+    # Rows 0-2 decode with 0, 2 and 3 drafts at 20, 35 and 50 tokens;
+    # row 3 a 16-token chunk from 32; rows 4, 5 pad.
+    for i, (start, n) in enumerate([(20, 1), (35, 3), (50, 4), (32, 16)]):
+        positions[i, :n] = np.arange(start, start + n)
+        valid[i, :n] = True
+    kv_lens = np.where(valid.any(1), positions.max(1) + 1, 0)
+    kv_lens = kv_lens.astype(np.int32)
+    last = (valid.sum(1) - 1).clip(0)
+    select = np.minimum(np.maximum(last[:, None] - 3, 0)
+                        + np.arange(4)[None, :], w - 1)
+    t = {k: torch.from_numpy(v).to(device) for k, v in dict(
+        tokens=tokens, positions=positions, valid=valid, table=table,
+        kv_lens=kv_lens, select=select.astype(np.int64)).items()}
+    shape = (cfg.num_hidden_layers, cfg.num_key_value_heads, pages,
+             cfg.head_dim, ps)
+    gen = torch.Generator().manual_seed(4)
+    history = torch.randn(shape, generator=gen).to(device)
+
+    def caches():
+        if kv == "int8":
+            out = [quant_cache_zeros(shape, device) for _ in range(2)]
+            for c in out:
+                c.data.copy_((history * 50).to(torch.int8))
+                c.scale.fill_(0.02)
+            return out
+        return [history.clone(), history.clone()]
+
+    def run(forward, kc, vc, **kw):
+        return forward(params, cfg, t["tokens"], t["positions"], t["table"],
+                       t["kv_lens"], t["valid"], kc, vc, select=t["select"],
+                       kind="ragged", **kw)
+
+    whole_k, whole_v = caches()
+    whole = run(llama.forward, whole_k, whole_v)
+    slots = torch.from_numpy(share_slots(valid, sp)).to(device)
+    ranks = [caches() for _ in range(sp)]
+    split = run_ranks(FakeTPGroup.world(sp, axis="sp"), lambda g: run(
+        shard_rows_forward(llama.forward, g), *ranks[g.rank],
+        share_slots=slots))
+    return split, whole, ranks, (whole_k, whole_v)
+
+
+def test_cp_split_ragged_block_on_the_card_is_the_replicated_blocks(dev):
+    """``shard_rows_forward`` over two fake sp ranks on the card (the
+    ragged kernel on each rank's rows, K/V shared over the ranks)
+    against the replicated path, the whole block through the ragged
+    kernel on one cache: logits within 1e-4 (f32 tiny-llama), and each
+    rank's cache the whole run's (the trash page aside)."""
+    split, whole, ranks, whole_caches = split_against_whole(dev)
+    for logits in split:
+        torch.testing.assert_close(logits, whole, rtol=1e-4, atol=1e-4)
+    for caches in ranks:
+        for got, want in zip(caches, whole_caches):
+            torch.testing.assert_close(got[:, :, 1:], want[:, :, 1:],
+                                       rtol=1e-4, atol=1e-4)
+
+
+def test_sp_unified_and_verify_over_one_nccl_rank_replay_their_graphs(dev):
+    """A one-rank NCCL sp group with the unified step and speculative
+    drafts, graphs on: each unified and verify dispatch runs through the
+    row split (its K/V share and logits gather captured in the step's
+    graph), and the greedy streams are the plain stacked engine's."""
+    import torch.distributed as dist
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    sp = SamplingParams(temperature=0.0, max_tokens=16, ignore_eos=True)
+    prompts = _tiny_prompts()
+    try:
+        plain, engine = _one_rank_axis_engine(
+            dev, "sp", unified_step=True, speculative_k=3)
+        want = [s.output_token_ids for s in plain.generate_batch(prompts, sp)]
+        got = [s.output_token_ids for s in engine.generate_batch(prompts, sp)]
+        recorded = engine.runner.graphs.recorded_launches()
+        split = dict(engine.runner.sp_split_rows)
+    finally:
+        dist.destroy_process_group()
+    assert got == want
+    assert set(split) == {"unified", "spec_verify"}, split
+    ragged = [c for key, c in recorded.items()
+              if key[0] in ("unified", "spec_verify")]
+    assert ragged and all(c.get("sp_all_gather") for c in ragged)

@@ -791,6 +791,7 @@ def jax_checkpoint_streams(path, prompts, parallel):
             prefill_batch_size=2),
         parallel=jax_config.ParallelConfig(**parallel))
     jmesh = jax_mesh.build_mesh(
+        tensor_parallel_size=parallel.get("tensor_parallel_size", 1),
         pipeline_parallel_size=parallel.get("pipeline_parallel_size", 1),
         context_parallel_size=parallel.get("context_parallel_size", 1))
     engine = JaxEngine(cfg, mesh=jmesh,

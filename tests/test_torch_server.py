@@ -121,20 +121,26 @@ def _reference_flags():
 
 
 def test_flags_are_the_jax_servers():
-    """71 of the JAX server's 75 flags, each under its JAX name; the
+    """All 75 of the JAX server's flags, each under its JAX name; the
     five of disaggregation, the profiler, the observatory and tracing,
     the eleven of autotuning, --pooling, the four small ones,
     --quantization, the four of LoRA, --tokenizer, --chat-template,
-    --deferred-kv-writes, the three of tensor parallelism and the three
-    of pipeline and context parallelism with the JAX defaults and
-    choices. --device is the port's own."""
+    --deferred-kv-writes, the three of tensor parallelism, the three
+    of pipeline and context parallelism and the four of multi-host
+    serving with the JAX defaults and choices. --device is the port's
+    own."""
     reference = _reference_flags()
     assert len(reference) == 76  # 75 flags, one with an alias
     src = (Path(__file__).resolve().parents[1] / "production_stack_tpu_torch"
            / "engine" / "server.py").read_text()
     port = set(re.findall(r'add_argument\(\s*"(--[a-z0-9-]+)"', src))
     assert port - set(reference) == {"--device"}
-    assert len(port) - 1 == 71
+    assert set(reference) - port == {"--profiler-dir"}  # the alias
+    assert len(port) - 1 == 75
+    # --distributed is store_true in both: no default in the source.
+    assert reference["--distributed"] is None
+    assert parse_args([]).distributed is False
+    assert parse_args(["--distributed"]).distributed is True
     new = {"--engine-role": "both", "--profile-dir": None,
            "--device-peak-flops": 0.0, "--request-span-log": None,
            "--trace-ring-size": 256,
@@ -154,7 +160,9 @@ def test_flags_are_the_jax_servers():
            "--deferred-kv-writes": "auto", "--tensor-parallel-size": 1,
            "--num-slices": 0, "--mesh-placement": "auto",
            "--pipeline-parallel-size": 1, "--context-parallel-size": 1,
-           "--long-prefill-threshold": None}
+           "--long-prefill-threshold": None,
+           "--coordinator-address": None, "--num-processes": None,
+           "--process-id": None}
     args = vars(parse_args([]))
     for flag, default in new.items():
         assert flag in port
@@ -169,7 +177,8 @@ def test_flags_are_the_jax_servers():
                       ("--attention-impl", "triton"),
                       ("--quantization", "fp8"),
                       ("--deferred-kv-writes", "always"),
-                      ("--tensor-parallel-size", "two")):
+                      ("--tensor-parallel-size", "two"),
+                      ("--num-processes", "two")):
         with pytest.raises(SystemExit):
             parse_args([flag, bad])
 
@@ -803,6 +812,53 @@ def _jax_server(argv):
     return _serve_app_in_thread(jax_server.EngineServer(
         engine, name, chat_template=jax_server._load_chat_template(args)
     ).build_app())
+
+
+def _metric_names(text: str) -> set:
+    """The sample names of a Prometheus text page, labels aside."""
+    return {re.match(r"[^{ ]+", line).group(0)
+            for line in text.splitlines() if line and line[0] != "#"}
+
+
+# Names only the port's /metrics has: the steps the card ran without a
+# step graph (the graphs have no JAX counterpart), and the JAX engine's
+# own stats() counters of checkpoints, resumes and the offload tier,
+# which its server keeps off the page.
+PORT_ONLY_METRICS = {
+    "vllm:engine_eager_steps_total", "vllm:checkpoint_ships_total",
+    "vllm:checkpoint_kv_bytes_total", "vllm:stream_resumes_total",
+    "vllm:kv_offload_host_pages", "vllm:kv_offload_host_bytes",
+    "vllm:kv_offload_host_hit_rate", "vllm:kv_offload_offloaded_pages",
+    "vllm:kv_offload_restored_pages"}
+
+
+def test_metrics_names_are_the_jax_servers():
+    """Both servers at tiny-llama on the CPU, one completion each: every
+    metric name of the JAX server's /metrics (labels aside) on the
+    port's, the slice gauges included and each reading slice 0 live,
+    and nothing more than the port's own PORT_ONLY_METRICS."""
+    argv = ["--model", "tiny-llama", "--max-model-len", "128",
+            "--num-pages", "64"]
+    port_url, port_stop = _serve(make_server(
+        argv + ["--device", "cpu", "--host", "127.0.0.1", "--port", "0"]))
+    jax_url, jax_stop = _jax_server(argv + ["--random-weights"])
+    try:
+        pages = []
+        for url in (port_url, jax_url):
+            status, _ = _post(url + "/v1/completions", {
+                "prompt": "hi", "max_tokens": 4, "temperature": 0})
+            assert status == 200
+            pages.append(_get(url + "/metrics")[1])
+    finally:
+        port_stop()
+        jax_stop()
+    ours, theirs = (_metric_names(p) for p in pages)
+    assert ours - PORT_ONLY_METRICS == theirs and PORT_ONLY_METRICS <= ours, (
+        f"only the port's: {sorted(ours - theirs)}; "
+        f"only the JAX server's: {sorted(theirs - ours)}")
+    for page in pages:
+        assert "vllm:engine_slice_id 0.0" in page.splitlines()
+        assert 'vllm:engine_slice_live{slice="0"} 1.0' in page.splitlines()
 
 
 @pytest.mark.parametrize("tokenizer", [[], ["--tokenizer", "bench"]],
