@@ -361,7 +361,28 @@ its result line:
     and prefill kernels (pp: their stacked forms only) and the two
     ranks' counts are equal; /metrics reads slice 0 and, after the
     requests, slices 0 and 1 live; process 1 exits 0 within 60 s of
-    process 0's shutdown.
+    process 0's shutdown;
+22. training: the dense training forwards with gradients at bench-1b's
+    full width cut to 4 layers (f32 weights from a seed, B = 2, T =
+    1024, loss mean(logits ** 2), no TF32). One rank's
+    ``forward_train`` forward and backward (a warm-up, then timed),
+    then four ranks spawned on cuda:0 run, over gloo, cp 2
+    (``context_parallel_forward``, ring attention), pp 2 (GPipe
+    ``pipeline_forward``, M = 2) and dp 2 x cp 2, each rank after
+    ``sync_grads`` over sp and dp holding every leaf's gradient (pp:
+    its stage's layers, the final norm and head, the embedding on stage
+    0) within relative L2 1e-3 of the one-rank gradient it computed
+    itself, its logits within 1e-4, finite and [2, 1024, 32128]; the
+    same cp 2 with bf16 weights is printed (relative L2 and cosine by
+    leaf), not held. Printed: forward, backward and ``sync_grads`` ms
+    and peak GB by rank, beside the card's name and power limit. Then
+    a bench-1b server process of its own with ``PSTPU_TIMING=1`` and
+    the first serving run's flags takes the 16 greedy requests, then 16
+    more of the same lengths: after each round its ``/debug/compiles``
+    ``timings`` must name decode, prefill and unified, each counted,
+    with one logged ``timing`` line a counted dispatch; each round's
+    dispatches and mean wall by kind are printed (the first's include
+    the graph captures).
 
 ``python3 chip_smoke.py --only fleet`` (any phase names) runs the
 kernel build and those phases alone, for development, and prints no
@@ -5236,6 +5257,351 @@ def distributed_phase(vocab: int) -> dict:
             "tp": tp, "pp": pp}
 
 
+# ---- training phase: the dense training forwards with gradients --------------
+
+TRAIN_LAYERS = 4  # bench-1b at full width, cut to 4 of its 16 layers
+TRAIN_SHAPE = (2, 1024)  # B, T of the tokens
+TRAIN_SEED = 23
+TRAIN_REL_L2 = 1e-3
+# (label, world sizes, weight dtype) of each world, in the order the same
+# spawned ranks run them (a process a rank, every rank on cuda:0, gloo);
+# the bf16 world is printed, not held to the bound.
+TRAIN_WORLDS = (("cp 2", {"sp": 2}, torch.float32),
+                ("pp 2", {"pp": 2}, torch.float32),
+                ("dp 2 x cp 2", {"dp": 2, "sp": 2}, torch.float32),
+                ("cp 2 bf16", {"sp": 2}, torch.bfloat16))
+TRAIN_RANKS = 4
+TRAIN_TIMEOUT_S = 420.0
+TIMING_KINDS = ("decode", "prefill", "unified")
+
+
+def _train_model(dev, dtype=torch.float32):
+    """(config, params, tokens): bench-1b's geometry with TRAIN_LAYERS
+    layers, f32 weights from TRAIN_SEED (cast to ``dtype``) that require
+    grad, and [B, T] tokens from the same generator, on ``dev``."""
+    import dataclasses
+    from production_stack_tpu_torch.engine.config import (
+        bench_1b_model_config)
+    from production_stack_tpu_torch.models import llama
+    cfg = dataclasses.replace(bench_1b_model_config(),
+                              num_hidden_layers=TRAIN_LAYERS,
+                              dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    params = llama.init_params(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, TRAIN_SHAPE, generator=gen,
+                           device=dev)
+    return cfg, params.to(dtype).requires_grad_(True), tokens
+
+
+def _train_step(forward, params):
+    """One forward and backward of the loss mean(logits ** 2): (logits
+    detached, forward ms, backward ms), the gradients left on
+    ``params``; the card synchronized around each."""
+    params.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = forward()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    (logits ** 2).mean().backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return logits.detach(), (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def _grad_stats(g, ref) -> tuple:
+    """(relative L2, cosine) of gradient ``g`` against ``ref``, in f32."""
+    g, ref = g.float(), ref.float()
+    norm = torch.linalg.vector_norm
+    return ((norm(g - ref) / norm(ref)).item(),
+            ((g * ref).sum() / (norm(g) * norm(ref))).item())
+
+
+def _stage_leaves(names, stage, stages) -> set:
+    """The leaves whose gradient a pp stage holds whole: its layers', the
+    final norm's and the head's, and on stage 0 the embedding's."""
+    lo = stage * TRAIN_LAYERS // stages
+    hi = (stage + 1) * TRAIN_LAYERS // stages
+    mine = {f"layers.{i}." for i in range(lo, hi)}
+    return {n for n in names
+            if n.startswith(tuple(mine)) or n in ("final_norm",
+                                                  "lm_head.weight")
+            or (n == "embed" and stage == 0)}
+
+
+def _train_worker(rank, inits, queue) -> None:
+    """Rank ``rank`` of the training worlds (spawned; every rank on
+    cuda:0): the one-rank ``forward_train`` gradient first, then, in
+    each world of TRAIN_WORLDS that has the rank, the world's forward
+    and backward over gloo, ``sync_grads`` over sp and dp, and every
+    leaf's gradient against the one-rank one; each world's figures go
+    on ``queue``."""
+    import math
+    import traceback
+    import torch.distributed as dist
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.parallel.collectives import (
+        init_mesh_groups, sync_grads)
+    from production_stack_tpu_torch.parallel.context import (
+        context_parallel_forward)
+    from production_stack_tpu_torch.parallel.pipeline import (
+        pipeline_forward)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        cfg, params, tokens = _train_model(dev)
+        want, _, _ = _train_step(
+            lambda: llama.forward_train(params, cfg, tokens), params)
+        ref = {n: p.grad for n, p in params.named_parameters()}
+        params.zero_grad(set_to_none=True)
+        for (label, sizes, dtype), init in zip(TRAIN_WORLDS, inits):
+            if rank >= math.prod(sizes.values()):
+                continue
+            groups = init_mesh_groups(rank, "gloo", init, dev, **sizes)
+            model = params
+            if dtype != torch.float32:
+                model = _train_model(dev, dtype)[1]
+            if groups.pp is not None:
+                def forward():
+                    return pipeline_forward(model, cfg, tokens, groups.pp)
+            else:
+                def forward():
+                    return context_parallel_forward(model, cfg, tokens,
+                                                    groups.sp, groups.dp)
+            torch.cuda.reset_peak_memory_stats(dev)
+            resident = torch.cuda.memory_allocated(dev)
+            logits, fwd_ms, bwd_ms = _train_step(forward, model)
+            t0 = time.perf_counter()
+            sync_grads(model, groups.sp, groups.dp)
+            torch.cuda.synchronize()
+            sync_ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated(dev)
+            leaves = {n: _grad_stats(p.grad, ref[n])
+                      for n, p in model.named_parameters()
+                      if p.grad is not None}
+            want_leaves = (set(ref) if groups.pp is None else _stage_leaves(
+                ref, groups.pp.rank, groups.pp.size))
+            queue.put(("world", label, rank, {
+                "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "sync_ms": sync_ms,
+                "resident": resident, "peak": peak, "leaves": leaves,
+                "want_leaves": sorted(want_leaves),
+                "logits": (list(logits.shape),
+                           bool(torch.isfinite(logits).all()),
+                           _grad_stats(logits, want)[0])}))
+            model.zero_grad(set_to_none=True)
+            del logits, model
+            dist.destroy_process_group()
+            torch.cuda.empty_cache()
+        queue.put(("done", None, rank, None))
+    except BaseException:
+        queue.put(("error", None, rank, traceback.format_exc()))
+        raise
+
+
+def _train_worlds() -> dict:
+    """Spawn TRAIN_RANKS ranks, collect every world's figures, and stop
+    every rank: {(label, rank): figures}."""
+    import queue as queues
+    ctx = torch.multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    inits = [f"tcp://127.0.0.1:{_free_port()}" for _ in TRAIN_WORLDS]
+    procs = [ctx.Process(target=_train_worker, args=(r, inits, out))
+             for r in range(TRAIN_RANKS)]
+    for p in procs:
+        p.start()
+    results, done = {}, 0
+    deadline = time.monotonic() + TRAIN_TIMEOUT_S
+    try:
+        while done < TRAIN_RANKS:
+            try:
+                kind, label, rank, body = out.get(timeout=5.0)
+            except queues.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > deadline:
+                    raise AssertionError(f"training ranks: exit codes "
+                                         f"{[p.exitcode for p in procs]}, "
+                                         f"{done} done")
+                continue
+            if kind == "error":
+                raise AssertionError(f"training rank {rank}: {body}")
+            if kind == "done":
+                done += 1
+            else:
+                results[(label, rank)] = body
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return results
+
+
+def _timing_server(vocab) -> dict:
+    """A bench-1b server process of its own (the first serving run's
+    flags) with PSTPU_TIMING=1 and the 16 greedy requests, twice (the
+    first round captures the step graphs; the second has prompts of the
+    same lengths drawn anew, so its prefills miss the prefix cache):
+    after each round its ``/debug/compiles`` ``timings`` must name
+    decode, prefill and unified, each counted, with one logged
+    ``timing`` line a counted dispatch. Returns {round: {kind: (count,
+    mean wall ms)}}, the second round's the ledger's growth over it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    url = f"http://127.0.0.1:{port}"
+    logf = tempfile.NamedTemporaryFile("w+", suffix=".timing.log")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "production_stack_tpu_torch.engine.server",
+         *SERVER_ARGS, "--host", "127.0.0.1", "--port", str(port)],
+        cwd=here, stdout=logf, stderr=subprocess.STDOUT,
+        env={**os.environ, "PYTHONPATH": here, "PSTPU_TIMING": "1"})
+    try:
+        deadline = time.monotonic() + DIST_START_S
+        while True:
+            try:
+                urllib.request.urlopen(url + "/health", timeout=2)
+                break
+            except OSError:
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError("the timing server never served")
+                time.sleep(0.5)
+        rounds = []
+        for seed in (0, 1):
+            requests = _greedy_requests(vocab, seed)
+            with ThreadPoolExecutor(len(requests)) as pool:
+                answers = list(pool.map(lambda r: _post(
+                    url + "/v1/completions", r), requests))
+            if any(not a["choices"][0]["text"] for a in answers):
+                raise AssertionError("the timing server gave an empty "
+                                     "completion")
+            rounds.append(_get_json(url + "/debug/compiles")["timings"])
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        logf.seek(0)
+        text = logf.read()
+        logf.close()
+    lines = re.findall(r"timing (\w+) t=(\d+) ([0-9.]+)", text)
+    first, total = rounds
+    second = {k: {f: v[f] - first.get(k, {}).get(f, 0) for f in v}
+              for k, v in total.items()}
+    for label, timings in (("first", first), ("second", second)):
+        missing = [k for k in TIMING_KINDS
+                   if timings.get(k, {}).get("count", 0) <= 0]
+        if missing:
+            raise AssertionError(f"the {label} round's timings {timings} "
+                                 f"miss {missing}")
+    if len(lines) != sum(v["count"] for v in total.values()):
+        raise AssertionError(f"timings {total}, {len(lines)} timing lines")
+    return {label: {k: (v["count"], 1e3 * v["wall_seconds"] / v["count"])
+                    for k, v in timings.items() if v["count"]}
+            for label, timings in (("first", first), ("second", second))}
+
+
+def training_phase(vocab: int) -> dict:
+    """The dense training forwards with gradients at bench-1b's full
+    width (TRAIN_LAYERS layers, f32, B x T = TRAIN_SHAPE, loss
+    mean(logits ** 2)): one rank's ``forward_train``, then cp 2, pp 2
+    and dp 2 x cp 2 over gloo ranks on the one card, every rank's
+    gradient after ``sync_grads`` within relative L2 TRAIN_REL_L2 of the
+    one-rank gradient on every leaf (pp: the leaves its stage holds
+    whole), the same cp 2 in bf16 printed; then the PSTPU_TIMING
+    dispatch ledger of a server process of its own."""
+    from production_stack_tpu_torch.models import llama
+    dev = torch.device("cuda", 0)
+    # What the earlier phases still hold: the peak is read above it.
+    held = torch.cuda.memory_allocated(dev)
+    cfg, params, tokens = _train_model(dev)
+    one = []
+    for _ in range(2):  # a warm-up, then the timed run
+        torch.cuda.reset_peak_memory_stats(dev)
+        logits, fwd_ms, bwd_ms = _train_step(
+            lambda: llama.forward_train(params, cfg, tokens), params)
+        one.append((fwd_ms, bwd_ms,
+                    torch.cuda.max_memory_allocated(dev) - held))
+    if (list(logits.shape) != list(TRAIN_SHAPE) + [cfg.vocab_size]
+            or not torch.isfinite(logits).all()
+            or not all(torch.isfinite(p.grad).all()
+                       for p in params.parameters())):
+        raise AssertionError("training: the one-rank forward_train gave "
+                             "non-finite logits or gradients")
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    del logits, params
+    torch.cuda.empty_cache()
+    log(f"training one rank ({SMI}): bench-1b at full width, "
+        f"{TRAIN_LAYERS} layers, f32 ({weights / 1e9:.3f} GB of weights), "
+        f"B x T = {TRAIN_SHAPE}, loss mean(logits ** 2): forward "
+        f"{one[1][0]:.2f} ms, backward {one[1][1]:.2f} ms, peak "
+        f"{one[1][2] / 1e9:.3f} GB above the {held / 1e9:.3f} GB the "
+        f"earlier phases hold (no TF32)")
+    results = _train_worlds()
+    worlds = {}
+    for label, sizes, dtype in TRAIN_WORLDS:
+        ranks = [results[(label, r)] for r in range(
+            int(np.prod(list(sizes.values()))))]
+        for rank, fig in enumerate(ranks):
+            shape, finite, logits_rel = fig["logits"]
+            if (shape != list(TRAIN_SHAPE) + [cfg.vocab_size]
+                    or not finite):
+                raise AssertionError(f"training {label} rank {rank}: "
+                                     f"logits {shape}, finite {finite}")
+            if sorted(fig["leaves"]) != fig["want_leaves"]:
+                raise AssertionError(
+                    f"training {label} rank {rank}: gradients on "
+                    f"{sorted(fig['leaves'])}, want {fig['want_leaves']}")
+            worst = max(fig["leaves"].items(), key=lambda kv: kv[1][0])
+            if dtype == torch.float32 and not (
+                    worst[1][0] <= TRAIN_REL_L2 and logits_rel <= 1e-4):
+                raise AssertionError(
+                    f"training {label} rank {rank}: leaf {worst[0]} at "
+                    f"relative L2 {worst[1][0]:.3g} (bound {TRAIN_REL_L2}), "
+                    f"logits at {logits_rel:.3g}")
+        rels = [v[0] for f in ranks for v in f["leaves"].values()]
+        coss = [v[1] for f in ranks for v in f["leaves"].values()]
+        worlds[label] = {
+            "fwd_ms": [f["fwd_ms"] for f in ranks],
+            "bwd_ms": [f["bwd_ms"] for f in ranks],
+            "sync_ms": [f["sync_ms"] for f in ranks],
+            "peak_gb": [f["peak"] / 1e9 for f in ranks],
+            "max_rel_l2": max(rels), "min_cosine": min(coss)}
+        bf16 = dtype != torch.float32
+        log(f"training {label} ({SMI}): {len(ranks)} gloo ranks on cuda:0, "
+            f"{'bf16 weights (printed, not held)' if bf16 else 'f32'}; "
+            f"every rank's gradient after sync_grads against the one-rank "
+            f"f32 gradient over {len(ranks[0]['leaves'])} leaves a rank: "
+            f"max relative L2 {max(rels):.3g}"
+            f"{'' if bf16 else f' (bound {TRAIN_REL_L2})'}, min cosine "
+            f"{min(coss):.6f}; logits relative L2 "
+            f"{max(f['logits'][2] for f in ranks):.3g}; forward ms by rank "
+            f"{[round(x, 2) for x in worlds[label]['fwd_ms']]}, backward "
+            f"{[round(x, 2) for x in worlds[label]['bwd_ms']]}, sync_grads "
+            f"{[round(x, 2) for x in worlds[label]['sync_ms']]}; peak GB by "
+            f"rank {[round(x, 3) for x in worlds[label]['peak_gb']]} "
+            f"(resident before "
+            f"{[round(f['resident'] / 1e9, 3) for f in ranks]}: weights, "
+            f"the one-rank gradient kept for the check)")
+        if bf16:
+            per_leaf = {n: (round(v[0], 4), round(v[1], 6)) for n, v in
+                        ranks[0]["leaves"].items()}
+            log(f"training {label}: rank 0 (relative L2, cosine) by leaf "
+                f"{per_leaf}")
+    timings = _timing_server(vocab)
+    log(f"training PSTPU_TIMING server ({SMI}): bench-1b, the 16 greedy "
+        f"requests, async and unified on; dispatches and mean wall ms by "
+        f"kind, the first round (graph captures included) "
+        f"{({k: (n, round(ms, 3)) for k, (n, ms) in timings['first'].items()})}"
+        f", the second "
+        f"{({k: (n, round(ms, 3)) for k, (n, ms) in timings['second'].items()})}")
+    return {"one_rank": one[1], "worlds": worlds, "timings": timings}
+
+
 def _numbers(h) -> dict:
     """A case's numbers for the ``kernels`` line."""
     out = {"max_abs_err": h["max_abs_err"], "ms": h["ms"],
@@ -5409,6 +5775,8 @@ def main() -> int:
     multihost = distributed_phase(vocab)
     for run in (DIST_TP_RUN, DIST_PP_RUN):
         launches[run] = multihost[run]
+    torch.cuda.empty_cache()
+    training_phase(vocab)
     if launches[DEFERRED_RUN].get("paged_decode_tail", 0) <= 0:
         raise AssertionError("the deferred server's window never launched "
                              "the decode kernel's tail form")

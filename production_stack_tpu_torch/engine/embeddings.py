@@ -26,6 +26,7 @@ from production_stack_tpu_torch.engine.config import ModelConfig
 from production_stack_tpu_torch.engine.quantization import (
     has_quantized_leaves,
 )
+from production_stack_tpu_torch.engine.sequence import in_vocab
 from production_stack_tpu_torch.models import llama
 
 _POOLING_MODES = ("last", "mean")
@@ -92,9 +93,12 @@ class Embedder:
 
     def embed_batch(self, token_lists: List[List[int]],
                     run: Optional[Callable] = None) -> np.ndarray:
-        """Embed tokenized inputs; returns [N, hidden] float32. ``run``
-        executes each chunk's zero-argument function (the server's:
-        on the engine loop's thread); None calls it here."""
+        """Embed tokenized inputs; returns [N, hidden] float32. Each
+        input's ids are mapped into the vocabulary as the JAX gather
+        reads them (``sequence.in_vocab``) before its chunk is
+        published or reaches the device. ``run`` executes each chunk's
+        zero-argument function (the server's: on the engine loop's
+        thread); None calls it here."""
         out = np.zeros((len(token_lists), self.config.hidden_size),
                        np.float32)
         i = 0
@@ -105,7 +109,7 @@ class Embedder:
             tokens = np.zeros((b, t), np.int32)
             lengths = np.zeros((b,), np.int32)
             for j, ids in enumerate(chunk):
-                ids = ids[:t]
+                ids = in_vocab(ids[:t], self.config.vocab_size)
                 tokens[j, :len(ids)] = ids
                 lengths[j] = len(ids)
 

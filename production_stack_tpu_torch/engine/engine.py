@@ -79,6 +79,7 @@ from production_stack_tpu_torch.engine.sequence import (
     SamplingParams,
     Sequence,
     SequenceState,
+    in_vocab,
 )
 from production_stack_tpu_torch.engine.tokenizer import (
     BaseTokenizer,
@@ -394,14 +395,10 @@ class LLMEngine:
         return seq.seq_id
 
     def _in_vocab(self, token_ids) -> List[int]:
-        """Prompt ids as the JAX model's embedding gather reads them: a
-        negative id counts from the end, then the index is clamped into
-        the table (the port's embedding would raise on the CPU and
-        fault the card). Sampled ids are always in the vocabulary, so
-        only the host's ids are mapped, once, here."""
-        vocab = self.config.model.vocab_size
-        return [min(max(int(t), -vocab), vocab - 1) % vocab
-                for t in token_ids]
+        """Prompt ids as the JAX model's embedding gather reads them
+        (``sequence.in_vocab``). Sampled ids are always in the
+        vocabulary, so only the host's ids are mapped, once, here."""
+        return in_vocab(token_ids, self.config.model.vocab_size)
 
     def _add(self, seq: Sequence) -> None:
         """Queue ``seq`` (caller holds the lock)."""

@@ -90,12 +90,24 @@ the pages and the tail through the decode kernel's tail form, and
 flushes the tails to the pages once, at the end of the burst, through
 ``write_to_pages``; the pages hold the pre-burst tokens throughout, so
 the cached-token count stays ``positions[:, 0]``.
+
+``PSTPU_TIMING`` (read as the JAX runner reads it): each dispatch is
+clocked by kind, as in JAX ("prefill", "decode" with t the burst's
+window, "spec", "unified"), from its launch to the read of its sampled
+tokens, logged as ``timing <kind> t=<n> <s>`` and folded into the
+observatory (``/debug/compiles``' ``timings``). No sync is added: an
+async step's clock stops where the engine reads its result, and a
+prefill chunk whose token nobody reads (not its prompt's last) stops at
+its dispatch's return, its card time then landing in the next read.
+Unset, no clock is read.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import os
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -183,6 +195,17 @@ OPTION_INPUTS = {
     # (its tails are buffers of its own graph).
     "deferred": (),
 }
+
+
+# PSTPU_TIMING=1: log each dispatch's wall (its launch to the read of
+# its sampled tokens) as "timing <kind> t=<window|bucket> <seconds>" and
+# fold it into the observatory by kind.
+_TIMING = (os.environ.get("PSTPU_TIMING", "0").strip().lower()
+           in ("1", "true", "yes", "on"))
+
+
+def _timing_log(kind: str, t: int, wall: float) -> None:
+    logger.info("timing %s t=%d %.4f", kind, t, wall)
 
 
 # Model families served by the deferred-KV-write burst (the kv_tail
@@ -414,7 +437,7 @@ class DecodeStepHandle:
     is_spec = False
     drafts = None
 
-    def __init__(self, rows, sampled):
+    def __init__(self, rows, sampled, clock=None):
         # List[Optional[Sequence]]: None rows are plan-ahead slots
         # whose sequence was already known to finish (dispatched as
         # masked pad rows so row alignment with token_source holds).
@@ -428,6 +451,9 @@ class DecodeStepHandle:
         # drops the rows whose verify committed more (their sample
         # came from incomplete context).
         self.expected_lens: Optional[List[Optional[int]]] = None
+        # PSTPU_TIMING: the runner's clock of this dispatch
+        # (ModelRunner._clock), stopped by the step's one read.
+        self.clock = clock
 
     @property
     def token_source(self) -> torch.Tensor:
@@ -437,10 +463,14 @@ class DecodeStepHandle:
 
     def result(self) -> Tuple[List[List[int]], Optional[list]]:
         if self.token_source.dim() == 2:
-            return _row_results(self.rows, self.sampled)
-        one = (tuple(t[:, None] for t in self.sampled)
-               if isinstance(self.sampled, tuple) else self.sampled[:, None])
-        return _row_results(self.rows, one)
+            out = _row_results(self.rows, self.sampled)
+        else:
+            one = (tuple(t[:, None] for t in self.sampled)
+                   if isinstance(self.sampled, tuple)
+                   else self.sampled[:, None])
+            out = _row_results(self.rows, one)
+        _stop(self)
+        return out
 
 
 class SpecStepHandle:
@@ -462,12 +492,13 @@ class SpecStepHandle:
     # (the engine breaks the pipeline instead).
     expected_lens = None
 
-    def __init__(self, rows, drafts, sampled):
+    def __init__(self, rows, drafts, sampled, clock=None):
         self.rows = rows  # List[Sequence], no None slots
         self.drafts = drafts  # per-row draft lists, parallel to rows
         # [B, K + 1], -1 past each row's tokens; with logprobs a tuple
         # as in DecodeStepHandle, per span position.
         self.sampled = sampled
+        self.clock = clock
 
     @property
     def token_source(self) -> torch.Tensor:
@@ -476,7 +507,16 @@ class SpecStepHandle:
         return out[:, 0]
 
     def result(self) -> Tuple[List[List[int]], Optional[list]]:
-        return _row_results(self.rows, self.sampled)
+        out = _row_results(self.rows, self.sampled)
+        _stop(self)
+        return out
+
+
+def _stop(handle) -> None:
+    """Stop a handle's PSTPU_TIMING clock, once, after its read."""
+    if handle.clock is not None:
+        handle.clock()
+        handle.clock = None
 
 
 class ModelRunner:
@@ -754,6 +794,23 @@ class ModelRunner:
         if body in ("decode", "burst"):
             return DecodeStepHandle(None, out)
         return None
+
+    def _record_timing(self, kind: str, t: int, wall: float) -> None:
+        """PSTPU_TIMING walls: the log line, and the same wall folded
+        into the observatory's dispatch ledger."""
+        _timing_log(kind, t, wall)
+        if self.observatory is not None:
+            self.observatory.on_timing(kind, wall)
+
+    def _clock(self, kind: str, t: int):
+        """With PSTPU_TIMING set, a clock started now: calling it records
+        the wall of a dispatch of ``kind``; None otherwise (no clock is
+        read)."""
+        if not _TIMING:
+            return None
+        t0 = time.perf_counter()
+        return lambda: self._record_timing(kind, t,
+                                           time.perf_counter() - t0)
 
     def register_lora(self, adapter) -> int:
         """Install an adapter (the full A/B pairs): under tp every rank
@@ -1178,15 +1235,18 @@ class ModelRunner:
         payload.update(self._seed_payload(sampling_rows, b))
         opts, options = self._options_payload(sampling_rows, b)
         payload.update(opts)
+        clock = self._clock("prefill", t)
         sampled = self._dispatch(
             "step", (b, t), payload, ("tokens", "positions", "valid",
                                       "page_table", "kv_lens",
                                       "last_index"),
             ("prefill",), options=options)
         self._last_handle = None
+        handle = DecodeStepHandle(sampling_rows, sampled, clock)
         if not any(c.is_last_chunk for c in chunks):
+            _stop(handle)  # no read: the wall of the dispatch alone
             return [None] * len(chunks), None
-        toks, lps = DecodeStepHandle(sampling_rows, sampled).result()
+        toks, lps = handle.result()
         return ([tk[0] if c.is_last_chunk else None
                  for tk, c in zip(toks, chunks)],
                 None if lps is None else
@@ -1226,13 +1286,14 @@ class ModelRunner:
         payload.update(self._seed_payload([seq], 1))
         opts, options = self._options_payload([seq], 1)
         payload.update(opts)
+        clock = self._clock("prefill", t)
         sampled = self._dispatch(
             "step", (1, t), payload,
             ("tokens", "valid", "page_table", "last_index"),
             ("sp_prefill",), options=options)
         self._last_handle = None
         self.sp_prefill_steps += 1
-        toks, lps = DecodeStepHandle([seq], sampled).result()
+        toks, lps = DecodeStepHandle([seq], sampled, clock).result()
         return [toks[0][0]], None if lps is None else [lps[0][0]]
 
     def _sp_prefill_body(self, dev: dict, mode: str,
@@ -1299,6 +1360,7 @@ class ModelRunner:
         opts, options = self._options_payload(rows, b, row_inputs=not ahead)
         payload.update(opts)
         names = ("tokens", "positions", "valid", "page_table", "kv_lens")
+        clock = self._clock("decode", window)
         if window > 1:
             payload.update(self._burst_payload(rows, b))
             if self.deferred:
@@ -1307,11 +1369,11 @@ class ModelRunner:
                 "decode_burst", (b, window, payload["stop_tokens"].shape[1]),
                 payload, names + ("budgets", "stop_tokens"),
                 ("burst", window), options=options)
-            self._last_handle = DecodeStepHandle(rows, sampled)
-            return self._last_handle
-        self._last_handle = DecodeStepHandle(rows, self._dispatch(
-            "step", (b, 1), payload, names, ("decode",),
-            token_source=token_source, options=options))
+        else:
+            sampled = self._dispatch(
+                "step", (b, 1), payload, names, ("decode",),
+                token_source=token_source, options=options)
+        self._last_handle = DecodeStepHandle(rows, sampled, clock)
         return self._last_handle
 
     def _burst_payload(self, rows, pad_to: int) -> dict:
@@ -1502,10 +1564,11 @@ class ModelRunner:
         payload.update(self._lora_payload(seqs, b))
         _, options = self._options_payload(seqs, b, row_inputs=False)
         shape, names = self._ragged_split(payload, (b, s))
+        clock = self._clock("spec", s)
         self._last_handle = SpecStepHandle(
             list(seqs), [list(plan.drafts[i]) for i in range(len(seqs))],
             self._dispatch("spec_verify", shape, payload, names,
-                           ("ragged",), options=options))
+                           ("ragged",), options=options), clock)
         return self._last_handle
 
     def _split_rows(self, rows: int) -> int:
@@ -1595,9 +1658,12 @@ class ModelRunner:
                              for c in chunks]
         _, options = self._options_payload(rows, r, row_inputs=False)
         shape, names = self._ragged_split(payload, (r, w))
+        clock = self._clock("unified", w)
         toks, lps = _row_results(rows, self._dispatch(
             "unified", shape, payload, names, ("ragged",),
             options=options))
+        if clock is not None:
+            clock()
         self._last_handle = None
         prefill_out = [toks[off + j][0] if c.is_last_chunk else None
                        for j, c in enumerate(chunks)]

@@ -24,9 +24,12 @@
   back, so a phase served by the plain version on the card cannot
   occur; the gauge shows which kernel each phase ran.
 
-The JAX ledger also folds in per-kind dispatch walls (its
-``PSTPU_TIMING`` clocks); the port's runner measures none, so
-``compile_report``'s ``timings`` stays empty.
+- **Dispatch timing fold-in**: with ``PSTPU_TIMING`` set, the runner
+  clocks each dispatch from its launch to the read of its sampled
+  tokens (engine/model_runner.py) and folds the wall in here by kind
+  (``on_timing``); ``compile_report``'s ``timings`` carries ``{kind:
+  {count, wall_seconds}}``, as the JAX ledger's does, and stays empty
+  with the variable unset.
 
 Everything is counter arithmetic on the engine's step thread: no device
 transfer and no synchronization. Readers (the ``/metrics`` handler, the
@@ -114,6 +117,10 @@ class PerfObservatory:
         # Attention impl by phase.
         self._attention_impls: Dict[str, str] = {}
 
+        # PSTPU_TIMING dispatch walls by kind.
+        self._dispatch_count: Dict[str, int] = {}
+        self._dispatch_seconds: Dict[str, float] = {}
+
     # ---- capture ledger ----------------------------------------------------
 
     def register_kind(self, kind: str) -> None:
@@ -161,6 +168,20 @@ class PerfObservatory:
             items = items[-limit:]
         return items
 
+    # ---- dispatch timing ---------------------------------------------------
+
+    def on_timing(self, kind: str, wall: float) -> None:
+        """One clocked dispatch of ``kind`` that took ``wall`` seconds."""
+        self._dispatch_count[kind] = self._dispatch_count.get(kind, 0) + 1
+        self._dispatch_seconds[kind] = (
+            self._dispatch_seconds.get(kind, 0.0) + float(wall))
+
+    def dispatch_timings(self) -> Dict[str, Dict[str, float]]:
+        return {kind: {"count": self._dispatch_count[kind],
+                       "wall_seconds": round(
+                           self._dispatch_seconds.get(kind, 0.0), 6)}
+                for kind in sorted(self._dispatch_count)}
+
     def compile_report(self, limit: int = 32) -> Dict[str, Any]:
         return {
             "events": self.compile_events_by_kind(),
@@ -168,7 +189,7 @@ class PerfObservatory:
                         for k, v in self._compile_seconds.items()},
             "executable_cache_sizes": self.executable_cache_sizes(),
             "recent": self.recent_compiles(limit),
-            "timings": {},  # no per-kind dispatch wall is measured
+            "timings": self.dispatch_timings(),
         }
 
     # ---- memory ledger -----------------------------------------------------

@@ -8,6 +8,17 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 
+def in_vocab(token_ids, vocab_size: int) -> List[int]:
+    """Token ids from the host as the JAX model's embedding gather reads
+    them: a negative id counts from the end, then the index is clamped
+    into the table (the port's embedding would raise on the CPU and
+    fault the card). Prompts (``LLMEngine``) and the pooled routes'
+    inputs (``engine/embeddings.Embedder``) are mapped here, before any
+    is published to another rank or reaches the device."""
+    return [min(max(int(t), -vocab_size), vocab_size - 1) % vocab_size
+            for t in token_ids]
+
+
 @dataclass
 class SamplingParams:
     max_tokens: int = 128

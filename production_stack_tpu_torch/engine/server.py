@@ -1806,8 +1806,9 @@ class EngineServer:
     def debug_compiles(self, query: dict) -> tuple:
         """GET /debug/compiles[?limit=N]: the observatory's capture
         ledger: events and seconds by kind, graphs held, the ring of
-        recent captures with their bucket shapes (``timings`` empty: no
-        dispatch wall is measured)."""
+        recent captures with their bucket shapes, and under
+        ``timings`` the PSTPU_TIMING dispatch walls by kind ({} with the
+        variable unset)."""
         obs = self.engine.runner.observatory
         if obs is None:
             return _error(404, "observatory disabled")

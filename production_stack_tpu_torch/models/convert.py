@@ -14,7 +14,10 @@ pairs' int8 values and scales, fused and transposed the same way.
 ``stage_params_from_numpy`` builds a pipeline stage's params from such
 a dict: its layers' slices of every [L, ...] leaf (an int8 pair's
 weight and scale cut together); an adapter's stacks are cut the same
-way by ``parallel/mesh.stage_lora_adapter``.
+way by ``parallel/mesh.stage_lora_adapter``. ``params_to_numpy`` is
+the inverse over dense weights, or over their gradients, so that a
+gradient of the port's forward is held against ``jax.grad``'s dict
+leaf by leaf.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from production_stack_tpu_torch.engine.config import ModelConfig
 from production_stack_tpu_torch.engine.quantization import (
     QuantLinear,
     fused_targets,
+    has_quantized_leaves,
 )
 from production_stack_tpu_torch.models.registry import params_class
 
@@ -101,6 +105,67 @@ def params_from_numpy(params: Dict[str, np.ndarray], config: ModelConfig,
                 layer.w_gate.copy_(t(params["w_gate"][i]).transpose(1, 2))
                 layer.w_up.copy_(t(params["w_up"][i]).transpose(1, 2))
                 layer.w_down.copy_(t(params["w_down"][i]).permute(2, 0, 1))
+    return out
+
+
+def _target_widths(config: ModelConfig, targets) -> list:
+    """The output widths of a fused projection's targets, in column
+    order."""
+    nh, nkv, d = (config.num_attention_heads, config.num_key_value_heads,
+                  config.head_dim)
+    ffn = config.intermediate_size
+    widths = {"wq": nh * d, "wk": nkv * d, "wv": nkv * d, "w_gate": ffn,
+              "w_up": ffn}
+    return [widths[n] for n in targets]
+
+
+def params_to_numpy(params, config: ModelConfig,
+                    grad: bool = False) -> Dict[str, np.ndarray]:
+    """The JAX-layout numpy dict of a dense params module, the inverse
+    of ``params_from_numpy``: every fused projection split back into its
+    targets (and its bias into theirs), each [out, in] weight turned to
+    [in, out], the per-layer leaves stacked along a leading [L, ...]
+    axis. ``grad``: the leaves' gradients in the same layout instead
+    (zeros where a leaf has none), to hold them against ``jax.grad``'s
+    dict. The dtype is kept (f32 gives the JAX dict's bits)."""
+    if has_quantized_leaves(params):
+        raise ValueError("params_to_numpy takes dense weights only")
+    family = _family(config)
+
+    def value(p: torch.Tensor) -> np.ndarray:
+        if grad:
+            p = torch.zeros_like(p) if p.grad is None else p.grad
+        return p.detach().cpu().numpy()
+
+    out = {jax_name: value(getattr(params, name))
+           for name, jax_name in _TOP[family].items()}
+    if getattr(params, "lm_head", None) is not None:
+        out["lm_head"] = value(params.lm_head.weight).T
+    layers: Dict[str, list] = {}
+
+    def put(name, arr):
+        layers.setdefault(name, []).append(arr)
+
+    for layer in params.layers:
+        for name in _LAYER[family]:
+            put(name, value(getattr(layer, name)))
+        for name, targets in fused_targets(config).items():
+            lin = getattr(layer, name)
+            cuts = np.cumsum(_target_widths(config, targets)
+                             if len(targets) > 1 else [])[:-1]
+            for n, w in zip(targets, np.split(value(lin.weight).T, cuts,
+                                              axis=1)):
+                put(n, w)
+            if lin.bias is not None and name in _BIASES:
+                for n, b in zip(_BIASES[name],
+                                np.split(value(lin.bias), cuts)):
+                    put(n, b)
+        if config.architecture == "mixtral":
+            put("moe_gate", value(layer.moe_gate.weight).T)
+            put("w_gate", value(layer.w_gate).transpose(0, 2, 1))
+            put("w_up", value(layer.w_up).transpose(0, 2, 1))
+            put("w_down", value(layer.w_down).transpose(1, 2, 0))
+    out.update({name: np.stack(arrs) for name, arrs in layers.items()})
     return out
 
 

@@ -15,9 +15,11 @@ quantized product, plus, with adapter stacks and per-row slot ids,
 each row's LoRA delta (the fused qkv and gate_up take their targets'
 deltas in their column blocks). ``encode`` is the cache-free dense
 forward the pooled routes run (engine/embeddings.py), over unquantized
-weights only. ``self_attention`` (and its ``attention_inputs``),
-``random_init``, ``lora_args`` and ``select_slots`` serve the other
-families too (models/opt.py, gpt2.py, mixtral.py).
+weights only; ``forward_train`` is ``encode`` and the head, the
+differentiable forward of training. ``self_attention`` (and its
+``attention_inputs``), ``random_init``, ``lora_args`` and
+``select_slots`` serve the other families too (models/opt.py, gpt2.py,
+mixtral.py).
 
 ``forward`` is ``embed``, ``decoder_layers`` and ``head`` in turn, and
 each family has the three (with a layer's ``attn_norm``, ``mlp_norm``
@@ -462,6 +464,19 @@ def select_slots(x: torch.Tensor,
     if select is None:
         return x
     return torch.take_along_dim(x, select[:, :, None], dim=1)
+
+
+def forward_train(params: LlamaParams, config: ModelConfig,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """Cache-free dense causal forward for training and fine-tuning, the
+    JAX package's ``llama.forward_train``: ``encode``, then the head;
+    f32 logits [B, T, vocab]. The serving numerics without a paged cache
+    or a kernel, and no inference or no-grad mode on the path, so it
+    records autograd whenever the caller has set ``requires_grad`` on
+    the leaves (``LlamaParams`` are made without it:
+    ``params.requires_grad_(True)``). The llama family: llama, mistral
+    and qwen2 with its q/k/v biases."""
+    return lm_logits(encode(params, config, tokens), params)
 
 
 def encode(params: LlamaParams, config: ModelConfig,

@@ -13,6 +13,12 @@ plain PyTorch: the JAX function reaches no ``pl.pallas_call`` (it is
 K and V ride one hop together (one collective a hop), and the hop
 after the last block, whose result JAX discards, is not taken.
 
+It is differentiable, as JAX's is: while autograd records, each hop is
+``parallel/collectives.hop``, whose backward is the reverse hop (n - 1
+of them a call, the last block taking none forward or back); the
+running max is held constant (the result does not depend on it), so
+the gradient takes no path through it.
+
 ``ring_attention_dense`` is the single-process reference: causal GQA
 attention over the whole sequence in f32, for the tests and the card's
 check.
@@ -23,6 +29,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from production_stack_tpu_torch.parallel.collectives import hop
 
 NEG_INF = -1e30
 
@@ -65,7 +73,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if causal:
             mask = kv_pos[None, :] <= q_pos[:, None]  # [Tq, Tkv]
             scores = torch.where(mask, scores, NEG_INF)
-        new_m = torch.maximum(m, scores.amax(dim=-1))
+        new_m = torch.maximum(m, scores.amax(dim=-1)).detach()
         # A fully masked block keeps new_m finite through the old m; the
         # first hop's diagonal block is never fully masked.
         correction = torch.exp(m - new_m)
@@ -75,7 +83,7 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "bkgts,bskd->bkgtd", p, kv[1].float())
         m = new_m
         if step < n - 1:
-            kv = group.shift(kv)
+            kv = hop(group, kv)
     out = o / l[..., None]  # [B, kv, g, Tq, d]
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq, d).to(q.dtype)
 

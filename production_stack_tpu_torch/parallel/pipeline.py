@@ -1,5 +1,5 @@
 """Pipeline parallelism's dense forward: layer stages over a pp group,
-the JAX package's ``parallel/pipeline.py`` in the port (forward only).
+the JAX package's ``parallel/pipeline.py`` in the port.
 
 A GPipe schedule of ``M + S - 1`` ticks over M microbatches and S
 stages: at tick i stage s runs microbatch i - s (stage 0 embeds it
@@ -11,6 +11,16 @@ block of microbatches a stage: the same [B, T, vocab]). The layer body
 is the dense causal forward of ``models/llama.encode`` (f32 scores,
 with the llama family's q/k/v biases where the config has them), the
 numerics of JAX's ``_layer_block``.
+
+It is differentiable, as JAX's is through ``ppermute`` and ``psum``:
+while autograd records, the hops and the masked sum are the autograd
+collectives of ``parallel/collectives.py`` (a replicated loss: every
+stage computes the same scalar from the same logits), and one ``link``
+threads every hop of the stage into the hidden states, so every stage's
+backward takes every reverse hop, in reverse tick order, bubbles
+included. Each stage's gradient then covers its own layers; the head's
+(every stage computes it whole) is whole on every stage, and the
+embedding's, gathered on stage 0 only, is whole there.
 """
 
 from __future__ import annotations
@@ -22,19 +32,30 @@ from torch.nn import functional as F
 
 from production_stack_tpu_torch.engine.config import ModelConfig
 from production_stack_tpu_torch.models import llama
+from production_stack_tpu_torch.parallel.collectives import (
+    hop,
+    masked_sum,
+    recording,
+)
 from production_stack_tpu_torch.parallel.mesh import stage_layers
 
 
 def gpipe_ticks(pp, microbatches: int, first: Callable[[int], torch.Tensor],
                 layers: Callable[[torch.Tensor, int], torch.Tensor],
-                bubble: Callable[[], torch.Tensor]) -> List[torch.Tensor]:
+                bubble: Callable[[], torch.Tensor],
+                link: Optional[torch.Tensor] = None):
     """The GPipe schedule on this rank's stage: M + S - 1 ticks, at tick
     i microbatch m = i - s through ``layers(x, m)``, ``x`` being
     ``first(m)`` on stage 0 and what the previous stage handed on
     otherwise; a bubble tick computes nothing and hands on ``bubble()``
     (every rank takes every hop, in one order; the hop after the last
     tick, whose result JAX discards, is not taken). Returns the last
-    stage's outputs in microbatch order ([] on the other stages)."""
+    stage's outputs in microbatch order ([] on the other stages).
+
+    ``link`` (training: a 0-dim tensor that requires grad) is threaded
+    through every hop (``collectives.hop``) and returned beside the
+    outputs, ``(banked, link)``; the caller adds it to what the stage's
+    loss reads, so the stage's backward reaches every hop."""
     stages, stage = pp.size, pp.rank
     x_recv, banked = None, []
     ticks = microbatches + stages - 1
@@ -47,8 +68,11 @@ def gpipe_ticks(pp, microbatches: int, first: Callable[[int], torch.Tensor],
         else:
             x_out = bubble()
         if tick < ticks - 1:
-            x_recv = pp.shift(x_out)
-    return banked
+            if link is None:
+                x_recv = hop(pp, x_out)
+            else:
+                x_recv, link = hop(pp, x_out, link)
+    return banked if link is None else (banked, link)
 
 
 def pipeline_forward(params, config: ModelConfig, tokens: torch.Tensor, pp,
@@ -64,7 +88,9 @@ def pipeline_forward(params, config: ModelConfig, tokens: torch.Tensor, pp,
       tokens: [B, T]; B must divide by the microbatches.
       num_microbatches: M, default the pp size; must divide by it.
 
-    Returns f32 logits [B, T, vocab] on every stage.
+    Returns f32 logits [B, T, vocab] on every stage. Differentiable
+    while autograd records on the stage's weights (the same on every
+    stage: see the module docstring).
     """
     stages, stage = pp.size, pp.rank
     m_count = num_microbatches or stages
@@ -85,15 +111,23 @@ def pipeline_forward(params, config: ModelConfig, tokens: torch.Tensor, pp,
         lo, hi = stage_layers(layers_total, stage, stages)
         layers = list(layers)[lo:hi]
     mb = b // m_count
+    link = (torch.zeros((), dtype=params.embed.dtype, device=tokens.device,
+                        requires_grad=True)
+            if recording(*params.parameters()) else None)
     banked = gpipe_ticks(
         pp, m_count,
         lambda m: F.embedding(tokens[m * mb:(m + 1) * mb].long(),
                               params.embed),
         lambda x, m: llama.encode_layers(layers, config, x),
         lambda: torch.zeros((mb, t, config.hidden_size),
-                            dtype=params.embed.dtype, device=tokens.device))
+                            dtype=params.embed.dtype, device=tokens.device),
+        link)
+    if link is not None:
+        banked, link = banked
     hidden = (torch.cat(banked) if banked else torch.zeros(
         (b, t, config.hidden_size), dtype=params.embed.dtype,
         device=tokens.device))
-    hidden = pp.masked_sum(hidden, stage == stages - 1)
+    if link is not None:
+        hidden = hidden + link  # + 0: the chain of hops into the loss
+    hidden = masked_sum(pp, hidden, stage == stages - 1)
     return llama.head(params, config, hidden)

@@ -160,7 +160,8 @@ PHASES_RUN_BY_MAIN = ["kernel_phase", "model_phase", "engine_phase",
                       "graph_phase", "sampling_options_phase",
                       "serving_phase", "fleet_phase", "disagg_phase",
                       "autotune_phase", "weights_phase", "families_phase",
-                      "tp_phase", "parallel2_phase"]
+                      "tp_phase", "parallel2_phase", "distributed_phase",
+                      "training_phase"]
 
 
 @pytest.mark.parametrize("failing", PHASES_RUN_BY_MAIN)

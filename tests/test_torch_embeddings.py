@@ -310,6 +310,32 @@ def test_pooled_route_errors_match_jax(servers, case):
     assert got == ref
 
 
+OUT_OF_VOCAB = {"input": [[5, 600, -3, 7], [-1, 511, 512, 100000, -100000],
+                           [9999] * 20]}
+
+
+def test_out_of_vocab_ids_embed_as_the_jax_gather_reads_them(servers):
+    """Ids at or past the vocabulary and negative ids on /v1/embeddings:
+    200 on both servers, and the port's vectors the JAX embedder's
+    (whose gather wraps a negative id and clamps the rest), cosine at
+    least 0.9999 each."""
+    port_url, jax_url = servers
+    status, got = _post(port_url + "/v1/embeddings", OUT_OF_VOCAB)
+    ref_status, ref = _post(jax_url + "/v1/embeddings", OUT_OF_VOCAB)
+    assert status == ref_status == 200, got
+    for mine, theirs in zip(got["data"], ref["data"]):
+        a, b = (np.asarray(x["embedding"], np.float64)
+                for x in (mine, theirs))
+        assert a @ b / np.linalg.norm(a) / np.linalg.norm(b) >= 0.9999
+    assert got["usage"] == ref["usage"]
+    # The same ids mapped by hand give the same vectors.
+    _, mapped = _post(port_url + "/v1/embeddings", {"input": [
+        [5, 511, 509, 7], [511, 511, 511, 511, 0], [511] * 20]})
+    np.testing.assert_allclose(
+        [d["embedding"] for d in got["data"]],
+        [d["embedding"] for d in mapped["data"]], atol=ATOL, rtol=0)
+
+
 def test_scores_are_the_vectors_cosines(weights):
     server = _PortServer(_port_engine(weights))
     try:

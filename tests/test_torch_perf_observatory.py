@@ -6,7 +6,9 @@ engine's token count on the same run, the capture ledger (first run then
 stable, one event a new bucket shape) driven through ``StepGraphs``'
 stand-in graph class, the memory ledger's bytes equal to the JAX
 ledger's at the same config (f32, bf16 and int8 KV), ``/debug/compiles``
-and ``/debug/memory`` and their 404 without an observatory, and the
+and ``/debug/memory`` and their 404 without an observatory, the
+PSTPU_TIMING dispatch ledger under ``/debug/compiles``' ``timings``
+against the JAX server's on the same greedy requests, and the
 ``/metrics`` names against the JAX server's text and the router's
 parser.
 
@@ -26,13 +28,16 @@ import jax
 import jax.numpy as jnp
 
 from production_stack_tpu.engine import config as jax_config
+from production_stack_tpu.engine import model_runner as jax_model_runner
 from production_stack_tpu.engine.engine import LLMEngine as JaxEngine
+from production_stack_tpu.engine.server import EngineServer as JaxServer
 from production_stack_tpu.engine.sequence import (
     SamplingParams as JaxSampling,
 )
 from production_stack_tpu.models import llama as jax_llama
 from production_stack_tpu.router.stats.engine_stats import EngineStats
 from production_stack_tpu_torch.engine import config as port_config
+from production_stack_tpu_torch.engine import model_runner
 from production_stack_tpu_torch.engine.engine import LLMEngine
 from production_stack_tpu_torch.engine.perf_observatory import (
     PEAK_FLOPS_BY_DEVICE_KIND,
@@ -44,7 +49,11 @@ from production_stack_tpu_torch.engine.step_graphs import (
     StepGraphs,
 )
 from production_stack_tpu_torch.models.convert import params_from_numpy
-from tests.test_torch_crash_recovery import PortServer, request
+from tests.test_torch_crash_recovery import (
+    PortServer,
+    _serve_app_in_thread,
+    request,
+)
 from tests.test_torch_step_graphs import RecordingGraph
 
 torch.set_num_threads(2)
@@ -59,7 +68,7 @@ def weights():
             jax_llama.init_params(cfg, jax.random.PRNGKey(11)).items()}
 
 
-def _config(cfg, kv_dtype="auto", dtype=None):
+def _config(cfg, kv_dtype="auto", dtype=None, **sched):
     model = cfg.tiny_model_config("llama")
     if dtype is not None:
         model = dataclasses.replace(model, dtype=dtype)
@@ -68,7 +77,7 @@ def _config(cfg, kv_dtype="auto", dtype=None):
         cache=cfg.CacheConfig(page_size=16, num_pages=128,
                               kv_cache_dtype=kv_dtype),
         scheduler=cfg.SchedulerConfig(max_num_seqs=4, max_model_len=256,
-                                      prefill_chunk_size=32))
+                                      prefill_chunk_size=32, **sched))
 
 
 def _engine(weights, kv_dtype="auto", graphed=False):
@@ -186,11 +195,101 @@ def test_compiles_route_and_metrics_agree_with_the_graphs(weights):
     assert report["events"] == captures and captures["step"] == 2
     assert report["executable_cache_sizes"]["step"] == 2
     assert len(report["recent"]) == 2 and len(one["recent"]) == 1
-    assert report["timings"] == {}  # the port measures no dispatch wall
+    assert report["timings"] == {}  # PSTPU_TIMING unset: no clock
     stats = EngineStats.from_prometheus_text(metrics)
     assert stats.compile_events_by_kind == {k: float(v)
                                             for k, v in captures.items()}
     assert stats.executable_cache_size_by_kind["step"] == 2.0
+
+
+# ---- the PSTPU_TIMING dispatch ledger --------------------------------------------
+
+
+def _timed_requests(engine, sampling):
+    """The same greedy requests on either engine: two prompts prefilled
+    together, two decode steps, a third prompt arriving (unified mixed
+    steps, one over a 40-token prompt's two chunks), then to the end."""
+    def add(prompt):
+        return engine.sequences[engine.add_request(prompt, sampling(
+            temperature=0.0, max_tokens=6, ignore_eos=True))]
+
+    seqs = [add(list(range(2 + i, 14 + i))) for i in range(2)]
+    for _ in range(2):
+        engine.step()
+    seqs.append(add(list(range(40, 80))))
+    while engine.has_work():
+        engine.step()
+    return [list(seq.output_token_ids) for seq in seqs]
+
+
+@pytest.mark.parametrize("timing,spec_k", [(True, 0), (False, 0),
+                                            (True, 2)])
+def test_timings_carry_the_jax_servers_dispatch_kinds(weights, monkeypatch,
+                                                      timing, spec_k):
+    """With PSTPU_TIMING on (both packages' flag monkeypatched), the same
+    greedy requests through the port's engine and the JAX engine (unified
+    step on, async off; and with prompt-lookup drafts of 2): each
+    ``/debug/compiles`` ``timings`` has the same kinds with the same
+    dispatch counts, every wall positive, and the port logs JAX's
+    ``timing <kind> t=<n> <s>`` line. Off, both read {}."""
+    monkeypatch.setattr(model_runner, "_TIMING", timing)
+    monkeypatch.setattr(jax_model_runner, "_TIMING", timing)
+    cfg = _config(port_config, unified_step=True, speculative_k=spec_k)
+    engine = LLMEngine(cfg, params=params_from_numpy(weights, cfg.model,
+                                                     "cpu"), device="cpu")
+    lines = []
+    monkeypatch.setattr(model_runner, "_timing_log",
+                        lambda kind, t, wall: lines.append((kind, t, wall)))
+    ours = _timed_requests(engine, SamplingParams)
+    jax_engine = JaxEngine(_config(jax_config, unified_step=True,
+                                   speculative_k=spec_k), params={
+        k: jnp.asarray(v) for k, v in weights.items()})
+    theirs = _timed_requests(jax_engine, JaxSampling)
+    assert ours == theirs
+    with PortServer(engine) as srv:
+        got = json.loads(request("GET", srv.url + "/debug/compiles")[1])
+    url, stop = _serve_app_in_thread(
+        JaxServer(jax_engine, "tiny-llama").build_app())
+    try:
+        want = json.loads(request("GET", url + "/debug/compiles")[1])
+    finally:
+        stop()
+    if not timing:
+        assert got["timings"] == want["timings"] == {} and not lines
+        return
+    assert set(got["timings"]) == set(want["timings"]) == (
+        {"decode", "prefill", "unified"} | ({"spec"} if spec_k else set()))
+    assert {k: v["count"] for k, v in got["timings"].items()} == {
+        k: v["count"] for k, v in want["timings"].items()}
+    assert all(v["wall_seconds"] > 0 for v in got["timings"].values())
+    assert len(lines) == sum(v["count"] for v in got["timings"].values())
+    assert {kind for kind, _, _ in lines} == set(got["timings"])
+    assert (("spec", spec_k + 1) if spec_k else ("decode", 1)) in {
+        (kind, t) for kind, t, _ in lines}
+
+
+def test_async_decodes_are_clocked_at_their_read(weights, monkeypatch):
+    """Under async scheduling each decode dispatch is clocked from its
+    launch to the engine's read of its result (no read of its own): one
+    wall a dispatch, the greedy streams those of the unclocked engine."""
+    cfg = _config(port_config, async_scheduling=True)
+
+    def engine():
+        return LLMEngine(cfg, params=params_from_numpy(weights, cfg.model,
+                                                       "cpu"), device="cpu")
+
+    want = _timed_requests(engine(), SamplingParams)
+    monkeypatch.setattr(model_runner, "_TIMING", True)
+    clocked = engine()
+    runner = clocked.runner
+    dispatched = []
+    dispatch = runner.dispatch_decode
+    monkeypatch.setattr(runner, "dispatch_decode", lambda *a, **k: (
+        dispatched.append(1), dispatch(*a, **k))[1])
+    assert _timed_requests(clocked, SamplingParams) == want
+    timings = runner.observatory.dispatch_timings()
+    assert timings["decode"]["count"] == len(dispatched) > 0
+    assert timings["decode"]["wall_seconds"] > 0
 
 
 # ---- the memory ledger -----------------------------------------------------------

@@ -10,7 +10,7 @@ math in the same order.
 
 Also here: the ring's dense reference, the hops a call takes, the
 groups' collectives (``shift``, ``masked_sum``, ``all_gather``) and the
-rank layout of a tp x sp x pp world against the JAX mesh's. The card's
+rank layout of a dp x pp x sp x tp world against the JAX mesh's. The card's
 checks are in tests/test_torch_cuda_kernels.py.
 """
 
@@ -27,7 +27,7 @@ from production_stack_tpu.engine.config import (
 )
 from production_stack_tpu.models import llama as jax_llama
 from production_stack_tpu.ops.ring_attention import ring_attention_sharded
-from production_stack_tpu.parallel import mesh as jax_mesh
+from production_stack_tpu.parallel import topology as jax_topology
 from production_stack_tpu.parallel.context import (
     context_parallel_forward as jax_context_parallel_forward,
 )
@@ -173,28 +173,35 @@ def test_shift_masked_sum_and_gather_of_a_group():
 
 
 @pytest.mark.parametrize("sizes", [dict(tp=2, pp=2), dict(tp=2, sp=2),
-                                   dict(pp=4), dict(sp=2, tp=4)])
+                                   dict(pp=4), dict(sp=2, tp=4),
+                                   dict(dp=2, sp=2), dict(dp=2, sp=4),
+                                   dict(dp=2, pp=2, tp=2),
+                                   dict(dp=4, pp=2)])
 def test_the_world_is_laid_out_as_the_jax_mesh(sizes):
-    """Global rank r's (pp, sp, tp) coordinates are those of device r of
-    JAX's ``build_mesh`` (dp, pp, sp, tp), tp fastest; each axis group
-    is the JAX mesh's line along that axis; ``fake_mesh`` gives every
-    rank its groups at those coordinates."""
-    tp, pp, sp = (sizes.get(a, 1) for a in ("tp", "pp", "sp"))
-    jmesh = jax_mesh.build_mesh(tensor_parallel_size=tp,
-                                pipeline_parallel_size=pp,
-                                context_parallel_size=sp)
-    ids = np.vectorize(lambda d: d.id)(jmesh.devices)[0]  # [pp, sp, tp]
+    """Global rank r's (dp, pp, sp, tp) coordinates are those of device
+    r of JAX's ``MeshPlan`` mesh (``build_mesh``'s, AXIS_ORDER (dp, pp,
+    sp, tp)), tp fastest; each axis group is the JAX mesh's line along
+    that axis; ``fake_mesh`` gives every rank its groups at those
+    coordinates. dp defaults to 1: a serving world is laid out as
+    before."""
+    tp, pp, sp, dp = (sizes.get(a, 1) for a in ("tp", "pp", "sp", "dp"))
+    jmesh = jax_topology.MeshPlan(tp=tp, dp=dp, pp=pp, sp=sp).build(
+        jax_topology.discover_topology())
+    assert jmesh.axis_names == ("dp", "pp", "sp", "tp")
+    ids = np.vectorize(lambda d: d.id)(jmesh.devices)  # [dp, pp, sp, tp]
     order = {int(i): r for r, i in enumerate(ids.reshape(-1))}
-    for r in range(tp * pp * sp):
-        at = rank_coords(r, tp=tp, pp=pp, sp=sp)
-        assert int(ids[at["pp"], at["sp"], at["tp"]]) == ids.reshape(-1)[r]
-    lines = {"pp": ids.transpose(1, 2, 0).reshape(-1, pp),
-             "sp": ids.transpose(0, 2, 1).reshape(-1, sp),
-             "tp": ids.reshape(-1, tp)}
-    mesh = fake_mesh(tp=tp, pp=pp, sp=sp)
-    for axis, line in lines.items():
+    for r in range(tp * pp * sp * dp):
+        at = rank_coords(r, tp=tp, pp=pp, sp=sp, dp=dp)
+        assert int(ids[at["dp"], at["pp"], at["sp"], at["tp"]]) == (
+            ids.reshape(-1)[r])
+        if dp == 1:
+            assert rank_coords(r, tp=tp, pp=pp, sp=sp) == at
+    axes = ("dp", "pp", "sp", "tp")
+    mesh = fake_mesh(tp=tp, pp=pp, sp=sp, dp=dp)
+    for j, axis in enumerate(axes):
+        line = np.moveaxis(ids, j, -1).reshape(-1, ids.shape[j])
         want = sorted(sorted(order[int(i)] for i in row) for row in line)
-        assert axis_ranks(axis, tp=tp, pp=pp, sp=sp) == want
+        assert axis_ranks(axis, tp=tp, pp=pp, sp=sp, dp=dp) == want
         for ranks in want:
             views = [getattr(mesh[r], axis) for r in ranks]
             if len(ranks) == 1:

@@ -741,6 +741,33 @@ def test_pooled_routes_under_tp_match_tp1():
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
+def test_out_of_vocab_pooled_ids_leave_the_workers_serving():
+    """An id past the vocabulary and a negative id on the pooled path of
+    a tp-2 engine: mapped before rank 0 publishes the chunk (the JAX
+    gather's wrap and clamp), so the vectors are tp 1's of the mapped
+    ids, and the worker rank then serves the greedy streams of tp 1."""
+    from production_stack_tpu_torch.engine.embeddings import Embedder
+    model = config.tiny_model_config("llama")
+    texts = [[1, 2, 100000, 4], [-1, 6, -600, 8]]
+    mapped = [[1, 2, 511, 4], [511, 6, 0, 8]]
+
+    def embed(engine, ids):
+        return Embedder(model, engine.runner.params, max_len=256,
+                        encode_fn=engine.runner.encode).embed_batch(ids)
+
+    single_engine = LLMEngine(_engine_config(config, model), device="cpu")
+    want = embed(single_engine, mapped)
+    single = _run_streams(single_engine, GREEDY)
+    tp = FakeTP(_engine_config(config, model, TP))
+    try:
+        got = embed(tp.engine, texts)
+        ours = _run_streams(tp.engine, GREEDY)
+    finally:
+        tp.close()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    assert ours == single
+
+
 def test_collectives_are_counted_a_call():
     from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
     COUNTERS.reset()
