@@ -310,7 +310,39 @@ its result line:
     8 greedy prompts against each alone, the three kernels launched.
     Bytes, write seconds, the server's start seconds (the load
     included), tok/s and the graph pool are printed;
-19. tp: tensor parallelism and deferred KV writes. The decode kernel's
+19. geometries: every query group, head_dim and dtype the JAX engine
+    serves, on the three attention kernels. The sweep: each kernel
+    (decode at the wrapper's split and at one, stacked at layer 1 of 2
+    and bitwise the per-layer launch on its view, the burst-tail form;
+    prefill; ragged) against its plain version at B = 3, two kv heads,
+    kv lens 130 and 300 and a pad row, page 16, over dtype {bf16, f16,
+    f32} x cache {same, int8} x group {1..8, 16} x head_dim {64, 80,
+    128} (BF16_TOL for bf16 and f16, F32_TOL for f32), with
+    ``pstt_kernel_supports`` and ``pstt_decode_group_tile`` held to the
+    Python rule on every point and on points outside it (head_dim 96
+    and 256, a mixed cache, group 0). Then timed like the headline
+    cases: Llama-3-70B's group 8 at head_dim 128 (``g8_d128``, bf16 and
+    int8 KV), OPT-2.7b's head_dim 80 in f16 (``g1_d80``), Qwen2-0.5B's
+    group 7 at 64 in f32 (``g7_d64``, its bound at the f32 FMA rate)
+    and Llama-2-7B's group 1 at 128 (``g1_d128``); and the int8-weight
+    kernel's f16 form at OPT-2.7b's projections (M = 1, 32, 160; timed
+    at 32). Then checkpoints written from published configs and served
+    (``--model DIR --tokenizer bench``, page 128, the families phase's
+    flags and 16 greedy requests): Meta-Llama-3-70B at 4 of 80 layers
+    (bf16, then ``--kv-cache-dtype int8``), OPT-2.7b whole at
+    ``--dtype float16`` and Qwen2-0.5B whole at ``--dtype float32``;
+    then bench-1b at ``--quantization int8 --dtype float16``. Each
+    server: the weights phase's window (tok/s, the three kernels
+    launched, no plain call, no eager step), each attention call of the
+    model check held to its plain version, and the 16 requests again,
+    submitted together, through an eager engine (``cuda_graphs=False``)
+    over the server's params, byte-identical to the window's graphed
+    streams. Printed, not held:
+    the model check's logits against the plain reference and where a
+    batched stream parts from the same request alone, with margins (at
+    Llama-3-70B's width the bf16 logits step by 1/16 near |11|, so a
+    flip two steps apart meets ``NEAR_TIE_LOGITS`` itself);
+20. tp: tensor parallelism and deferred KV writes. The decode kernel's
     burst-tail form against its plain version (bf16 tolerance, bitwise
     stacked = per-layer view, two launches the same bits) at B = 32,
     kv lens 1..896, S = 4 tail slots with each row frozen after 1..4 of
@@ -341,7 +373,7 @@ its result line:
     greedy requests held to the tp-1 engine's streams (equal, or equal
     to a first flip at a near tie: ``check_stream``), each rank's three
     kernels counted and the ranks' counts equal;
-20. parallel2: pipeline and context parallelism on one card, two ranks
+21. parallel2: pipeline and context parallelism on one card, two ranks
     over gloo (graphs off): ring attention at T = 8192 against its dense
     reference; bench-1b at pp 2 (bf16 and int8 KV) and at cp 2 against
     the one-rank engines (streams equal or parting at near ties, each
@@ -349,7 +381,7 @@ its result line:
     prompts take one sp dispatch each, and each rank ran exactly half
     the rows of every unified dispatch (``ModelRunner.sp_split_rows``);
     GPT-2 at pp 2 and cp 2;
-21. distributed: multi-host serving, two ``--distributed`` server
+22. distributed: multi-host serving, two ``--distributed`` server
     processes on cuda:0 (``--num-processes 2``, one rank each; process
     0 serves HTTP, process 1 replays): bench-1b at tp 2, then at pp 2.
     The launcher must take gloo with graphs off (the two processes
@@ -362,7 +394,7 @@ its result line:
     ranks' counts are equal; /metrics reads slice 0 and, after the
     requests, slices 0 and 1 live; process 1 exits 0 within 60 s of
     process 0's shutdown;
-22. training: the dense training forwards with gradients at bench-1b's
+23. training: the dense training forwards with gradients at bench-1b's
     full width cut to 4 layers (f32 weights from a seed, B = 2, T =
     1024, loss mean(logits ** 2), no TF32). One rank's
     ``forward_train`` forward and backward (a warm-up, then timed),
@@ -400,7 +432,10 @@ decode-role handoff windows as ``disagg_handoff`` and
 ``serve_autotune``; the weights phase's int8 and LoRA windows as
 ``serve_int8_weights`` and ``serve_lora``; the families phase's
 windows as ``serve_mixtral`` and ``serve_opt``, and its GPT-2 engine
-as ``engine_gpt2``; the tp phase's deferred window as
+as ``engine_gpt2``; the geometries phase's windows as
+``serve_llama3_70b``, ``serve_llama3_70b_int8``,
+``serve_opt_2.7b_f16``, ``serve_qwen2_0.5b_f32`` and
+``serve_int8_weights_f16``; the tp phase's deferred window as
 ``serve_deferred``, its one-rank NCCL engine as ``engine_tp1_nccl``
 and rank 0 of its tp-2 engine as ``serve_tp2_gloo``; the parallel2
 phase's rank 0 windows as ``serve_pp2_gloo``, ``serve_pp2_int8_gloo``,
@@ -409,7 +444,12 @@ phase's rank 0 windows as ``serve_pp2_gloo``, ``serve_pp2_int8_gloo``,
 ``serve_tp2_distributed`` and ``serve_pp2_distributed``). Each attention
 kernel's ``geometries`` object
 holds, keyed ``g4_d128`` and ``g1_d64``, the same numbers at that
-geometry with the launches of its serving run, and ``int8``. The
+geometry with the launches of its serving run, and ``int8``; and the
+geometries phase's rows ``g8_d128`` (with ``int8``), ``g1_d80``,
+``g7_d64`` and ``g1_d128``, each with its ``dtype`` and the launches
+of the run that served it (0 for ``g1_d128``, which none serves). The
+int8-weight GEMM's ``f16`` object holds OPT-2.7b's projections and the
+launches of the f16 int8-weight server. The
 int8-weight GEMM's entry reports its headline case (gate_up at M = 32)
 and its launches in the int8 server's window, and under ``families``
 OPT-1.3b's and GPT-2's projections at M = 32. The decode kernel's
@@ -443,6 +483,8 @@ import torch
 # second.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+# f32 outside the tensor cores: the f32 forms of the kernels run FMA.
+F32_FLOPS_PER_S = 67e12
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 L2_FLUSH_BYTES = 128 << 20  # > the H100's 50 MB L2
@@ -686,7 +728,7 @@ def decode_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None,
     got = call(paged_decode_attention)
     ref = call(paged_decode_attention_plain)
     torch.cuda.synchronize()
-    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     err = (got.float() - ref.float()).abs().max().item()
     torch.testing.assert_close(got.float(), ref.float(), **tol,
                                msg=lambda m: f"{name}: {m}")
@@ -728,7 +770,7 @@ def decode_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None,
             plain_ms=timer.ms(lambda: call(paged_decode_attention_plain),
                               iters=5),
             library_ms=timer.ms(lambda: sdpa(qd, kd, vd, attn_mask=mask)),
-            **_bound(nbytes, flops))
+            **_bound(nbytes, flops, dtype))
         if view is not None:
             out["per_layer_ms"] = timer.ms(
                 lambda: view(paged_decode_attention))
@@ -766,7 +808,7 @@ def prefill_case(name, rows, t, ps, dtype, dev, gen, timer=None, nh=32,
     got = call(paged_prefill_attention)
     ref = call(paged_prefill_attention_plain)
     torch.cuda.synchronize()
-    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     err = (got.float() - ref.float()).abs().max().item()
     torch.testing.assert_close(got.float(), ref.float(), **tol,
                                msg=lambda m: f"{name}: {m}")
@@ -800,7 +842,7 @@ def prefill_case(name, rows, t, ps, dtype, dev, gen, timer=None, nh=32,
                 < torch.tensor([n for _, n in rows], device=dev)[:, None])
         n_slots = int(live.sum())
         live_bound = _bound(kv_bytes + 2 * n_slots * slot_bytes + small,
-                            4 * nh * d * int(visible[live].sum()))
+                            4 * nh * d * int(visible[live].sum()), dtype)
         kmax = max(kv_lens)
         kd = _dense_kv(dense[0], table, kmax, nh // kv)
         vd = _dense_kv(dense[1], table, kmax, nh // kv)
@@ -815,7 +857,7 @@ def prefill_case(name, rows, t, ps, dtype, dev, gen, timer=None, nh=32,
                               iters=5),
             library_ms=timer.ms(
                 lambda: sdpa(qd, kd, vd, attn_mask=mask[:, None])),
-            **_bound(nbytes, flops),
+            **_bound(nbytes, flops, dtype),
             live_bound_ms=live_bound["bound_ms"],
             live_bound_by=live_bound["bound_by"])
         if view is not None:
@@ -847,15 +889,15 @@ def ragged_case(name, rows, w, ps, dtype, dev, gen, timer=None, nh=32,
                                stack, gen)
 
     def plain(*args, **kwargs):
-        # The bf16 kernel feeds its probabilities to p . v as bf16.
-        if dtype == torch.bfloat16:
-            kwargs["p_dtype"] = torch.bfloat16
+        # The 16-bit kernel feeds its probabilities to p . v in its type.
+        if dtype != torch.float32:
+            kwargs["p_dtype"] = dtype
         return paged_ragged_attention_plain(*args, **kwargs)
 
     got = call(paged_ragged_attention)
     ref = call(plain)
     torch.cuda.synchronize()
-    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     err = (got.float() - ref.float()).abs().max().item()
     torch.testing.assert_close(got.float(), ref.float(), **tol,
                                msg=lambda m: f"{name}: {m}")
@@ -888,9 +930,9 @@ def ragged_case(name, rows, w, ps, dtype, dev, gen, timer=None, nh=32,
         # every output slot (dead ones as 0); its live slots alone read
         # and write only theirs.
         bound = _bound(kv_bytes + (n_live + b * w) * slot_bytes + small,
-                       flops)
+                       flops, dtype)
         live_bound = _bound(kv_bytes + 2 * n_live * slot_bytes + small,
-                            flops)
+                            flops, dtype)
         kmax = max(kv_lens)
         kd = _dense_kv(dense[0], table, kmax, nh // kv)
         vd = _dense_kv(dense[1], table, kmax, nh // kv)
@@ -914,9 +956,13 @@ def ragged_case(name, rows, w, ps, dtype, dev, gen, timer=None, nh=32,
     return out
 
 
-def _bound(nbytes: int, flops: int) -> dict:
+def _bound(nbytes: int, flops: int, dtype=torch.bfloat16) -> dict:
+    """The least time of the work: its bytes over the HBM rate or its
+    operations over the peak of their type (bf16 and f16 on the tensor
+    cores, f32 on the FMA units), whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    peak = F32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+    t_ops = flops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -3475,13 +3521,14 @@ def _write_peft_adapter(path, cfg, seed) -> None:
                   f)
 
 
-def _weights_window(label, srv, prompts, models=None) -> dict:
+def _weights_window(label, srv, prompts, models=None, form="") -> dict:
     """The 16 greedy requests submitted together (the engine loop held
     until all are queued), once as a warm-up (the graphs' captures),
     then counted: the counters set to 0 just before and read just
     after; then each request alone on the same server. Checks the
-    window's launches and graphs; stops the server (its engine stays
-    for ``near_tie``)."""
+    window's launches (of each kernel's ``form``: "" per-layer at the
+    model's dtype, "_int8" over an int8 cache) and graphs; stops the
+    server (its engine stays for ``near_tie``)."""
     from production_stack_tpu_torch.ops.paged_kv_common import COUNTERS
     graphs = srv.engine.runner.graphs
     _, warm_wall = _gated_streams(srv, prompts, WEIGHTS_OUT, models)
@@ -3516,9 +3563,9 @@ def _weights_window(label, srv, prompts, models=None) -> dict:
     run["alone"] = [srv.tokens_after(p) for p in prompts]
     srv.stop()
     for kernel in KERNELS:
-        if run["launches"].get(kernel, 0) <= 0:
+        if run["launches"].get(kernel + form, 0) <= 0:
             raise AssertionError(f"{label}: the window never launched "
-                                 f"{kernel}")
+                                 f"{kernel + form}")
     if run["plain"] or any(run["eager"].values()):
         raise AssertionError(f"{label}: plain calls on CUDA {run['plain']}"
                              f" or eager steps {run['eager']}")
@@ -3751,6 +3798,31 @@ def _hf_tensors(arch, hf):
     ``arch`` at the config ``hf``, in file groups: [(file stem,
     [...])]. kind: "w" N(0, 0.02), "b" N(0, 0.02) (biases), "one",
     "embed_routed" and "router" (Mixtral's, see ROUTE_SIGNAL)."""
+    if arch in ("llama", "qwen2"):
+        h, f = hf["hidden_size"], hf["intermediate_size"]
+        d = h // hf["num_attention_heads"]
+        qd, kvd = hf["num_attention_heads"] * d, hf["num_key_value_heads"] * d
+        top = [("model.embed_tokens.weight", (hf["vocab_size"], h), "w"),
+               ("model.norm.weight", (h,), "one")]
+        if not hf["tie_word_embeddings"]:
+            top.append(("lm_head.weight", (hf["vocab_size"], h), "w"))
+        groups = [("model-embed", top)]
+        for i in range(hf["num_hidden_layers"]):
+            p = f"model.layers.{i}."
+            layer = [(p + "input_layernorm.weight", (h,), "one"),
+                     (p + "post_attention_layernorm.weight", (h,), "one"),
+                     (p + "self_attn.q_proj.weight", (qd, h), "w"),
+                     (p + "self_attn.k_proj.weight", (kvd, h), "w"),
+                     (p + "self_attn.v_proj.weight", (kvd, h), "w"),
+                     (p + "self_attn.o_proj.weight", (h, qd), "w"),
+                     (p + "mlp.gate_proj.weight", (f, h), "w"),
+                     (p + "mlp.up_proj.weight", (f, h), "w"),
+                     (p + "mlp.down_proj.weight", (h, f), "w")]
+            if arch == "qwen2":
+                layer += [(p + f"self_attn.{x}_proj.bias", (n,), "b")
+                          for x, n in (("q", qd), ("k", kvd), ("v", kvd))]
+            groups.append((f"model-layer-{i:03d}", layer))
+        return groups
     if arch == "mixtral":
         h, f, e = hf["hidden_size"], hf["intermediate_size"], hf[
             "num_local_experts"]
@@ -3847,12 +3919,13 @@ def _hf_tensor(index, shape, kind, dtype, seed):
     return x.to(dtype).cpu()
 
 
-def write_checkpoint(path, arch, seed) -> dict:
+def write_checkpoint(path, arch, seed, hf=None, dtype=None) -> dict:
     """``config.json`` and safetensors shards of random weights (from
-    ``seed``) for ``arch`` at FAMILY_CONFIGS' shapes; returns {name:
-    (index, shape, kind)} of every tensor, and logs bytes and
-    seconds."""
-    hf, dtype = FAMILY_CONFIGS[arch], FAMILY_DTYPES[arch]
+    ``seed``) for ``arch`` at FAMILY_CONFIGS' shapes (or the config
+    ``hf``, written in ``dtype``); returns {name: (index, shape, kind)}
+    of every tensor, and logs bytes and seconds."""
+    hf = hf or FAMILY_CONFIGS[arch]
+    dtype = dtype or FAMILY_DTYPES[arch]
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(hf, f)
@@ -3868,7 +3941,7 @@ def write_checkpoint(path, arch, seed) -> dict:
             index += 1
         nbytes += write_safetensors(os.path.join(
             path, stem + ".safetensors"), specs)
-    log(f"families {arch}: checkpoint of {index} tensors, "
+    log(f"checkpoint {arch}: {index} tensors, "
         f"{nbytes / 1e9:.3f} GB in {dtype}, written in "
         f"{time.perf_counter() - t0:.1f} s")
     return written
@@ -3984,12 +4057,16 @@ def _family_kernel_cases(dev) -> dict:
              for name, by_geo in out.items()}, w8)
 
 
-def _family_forwards(dev, cfg, params, label) -> None:
+def _family_forwards(dev, cfg, params, label, kv_dtype="bf16",
+                     hold_logits=True) -> None:
     """The model check: prefill T = 512, a decode step and a verify
     block through the family's ``forward``, the kernels against the
-    plain versions rounded as the kernels round (``plain_bf16p``). In
-    the kernels' run every attention call is also held, on its own
-    inputs, to the plain version (BF16_TOL); for Mixtral the smallest
+    plain versions rounded as the kernels round (``plain_bf16p``), over
+    a fresh per-layer cache of the model's dtype (``kv_dtype`` "int8":
+    an int8 one). In the kernels' run every attention call is also
+    held, on its own inputs, to the plain version (BF16_TOL, F32_TOL
+    for f32 queries); the logits are held by ``compare_logits``, or
+    with ``hold_logits`` False printed only. For Mixtral the smallest
     router gaps (1st against 2nd, 2nd against 3rd expert logit) are
     printed."""
     from production_stack_tpu_torch.models import llama, mixtral
@@ -4013,7 +4090,8 @@ def _family_forwards(dev, cfg, params, label) -> None:
         if impl == "cuda":
             ref = dispatch(*args, impl="plain_bf16p", layer=layer)
             torch.testing.assert_close(
-                out.float(), ref.float(), **BF16_TOL,
+                out.float(), ref.float(),
+                **(F32_TOL if q.dtype == torch.float32 else BF16_TOL),
                 msg=lambda m: f"families {label} {kind} attention: {m}")
             err = (out.float() - ref.float()).abs().max().item()
             calls[kind] = max(calls.get(kind, 0.0), err)
@@ -4023,15 +4101,15 @@ def _family_forwards(dev, cfg, params, label) -> None:
     llama.dispatch_attention = held
     try:
         results = {impl: _forwards(dev, cfg, params, tokens,
-                                   _model_caches(dev, cfg, "bf16",
+                                   _model_caches(dev, cfg, kv_dtype,
                                                  "per_layer"), impl)
                    for impl in ("cuda", "plain_bf16p")}
     finally:
         mixtral.top_k_lower_index = top_k
         llama.dispatch_attention = dispatch
-    log(f"families {label}: every attention call of the kernels' forward "
-        f"within {BF16_TOL} of the plain version on its inputs, max abs err "
-        f"by kind {calls}")
+    log(f"{label}: every attention call of the kernels' forward within "
+        f"tolerance of the plain version on its inputs, max abs err by "
+        f"kind {calls}")
     if gaps:
         log(f"families {label} router: smallest gaps, 1st to 2nd "
             f"{min(g[0] for g in gaps):.3e}, 2nd to 3rd "
@@ -4043,7 +4121,7 @@ def _family_forwards(dev, cfg, params, label) -> None:
             f"|cuda - plain| {c['diff']:.3e} (max |logit| {c['scale']:.3e})"
             f", {c['flips']} flips of {c['positions']}, margins "
             f"{[f'{m:.3e}' for m in c['margins']]}")
-        if not c["ok"]:
+        if hold_logits and not c["ok"]:
             raise AssertionError(f"families {label} {phase}: the kernels' "
                                  "and the plain versions' logits disagree")
 
@@ -4228,6 +4306,432 @@ def families_phase(vocab: int) -> dict:
     return out
 
 
+# ---- geometries phase -------------------------------------------------------
+
+# The serving runs of the geometries phase (``launches_by_run`` keys)
+# and their checkpoints, written from published config.json values.
+LLAMA70_RUN = "serve_llama3_70b"
+LLAMA70_INT8_RUN = "serve_llama3_70b_int8"
+OPT27_RUN = "serve_opt_2.7b_f16"
+QWEN05_RUN = "serve_qwen2_0.5b_f32"
+W8_F16_RUN = "serve_int8_weights_f16"
+LLAMA70_LAYERS = 4
+GEOMETRY_CONFIGS = {
+    # meta-llama/Meta-Llama-3-70B/config.json, 4 of 80 layers: group 8
+    # (64 q over 8 kv heads) at head_dim 128, also Llama-2-70B's and
+    # Qwen2-72B's.
+    "llama3-70b": {"architectures": ["LlamaForCausalLM"],
+                   "vocab_size": 128256, "hidden_size": 8192,
+                   "intermediate_size": 28672,
+                   "num_hidden_layers": LLAMA70_LAYERS,
+                   "num_attention_heads": 64, "num_key_value_heads": 8,
+                   "max_position_embeddings": 8192, "rms_norm_eps": 1e-5,
+                   "rope_theta": 500000.0, "tie_word_embeddings": False,
+                   "torch_dtype": "bfloat16"},
+    # facebook/opt-2.7b/config.json, whole: group 1 at head_dim 80
+    # (2560 / 32).
+    "opt-2.7b": {"architectures": ["OPTForCausalLM"], "vocab_size": 50272,
+                 "hidden_size": 2560, "ffn_dim": 10240,
+                 "num_hidden_layers": 32, "num_attention_heads": 32,
+                 "max_position_embeddings": 2048,
+                 "do_layer_norm_before": True, "word_embed_proj_dim": 2560,
+                 "torch_dtype": "float16"},
+    # Qwen/Qwen2-0.5B/config.json, whole: group 7 (14 q over 2 kv heads)
+    # at head_dim 64, tied embeddings.
+    "qwen2-0.5b": {"architectures": ["Qwen2ForCausalLM"],
+                   "vocab_size": 151936, "hidden_size": 896,
+                   "intermediate_size": 4864, "num_hidden_layers": 24,
+                   "num_attention_heads": 14, "num_key_value_heads": 2,
+                   "max_position_embeddings": 131072,
+                   "rms_norm_eps": 1e-6, "rope_theta": 1000000.0,
+                   "tie_word_embeddings": True, "torch_dtype": "bfloat16"},
+}
+# (architecture, dtype the checkpoint is written and served in, the
+# server's dtype flags, seed) of each.
+GEOMETRY_MODELS = {
+    "llama3-70b": ("llama", torch.bfloat16, [], 41),
+    "opt-2.7b": ("opt", torch.float16, ["--dtype", "float16"], 42),
+    "qwen2-0.5b": ("qwen2", torch.float32, ["--dtype", "float32"], 43),
+}
+# 16 requests of at most 700 + 32 tokens take 6 pages of 128 each.
+GEOMETRY_PAGES = 128
+# The kernel sweep: every point is served (kernel_geometry_supported).
+SWEEP_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+SWEEP_GROUPS = (1, 2, 3, 4, 5, 6, 7, 8, 16)
+SWEEP_HEAD_DIMS = (64, 80, 128)
+# Points outside it (dtype, cache dtype or None for the same, group,
+# head_dim), each refused by the rule and by the library.
+SWEEP_REFUSED = ((torch.bfloat16, None, 4, 96),
+                 (torch.float16, None, 8, 256),
+                 (torch.float32, torch.int8, 2, 96),
+                 (torch.bfloat16, torch.float16, 4, 64),
+                 (torch.bfloat16, None, 0, 64))
+# The timed rows: (q heads, kv heads, head_dim, dtype, KV forms).
+GEOMETRY_ROWS = {
+    "g8_d128": (64, 8, 128, torch.bfloat16, (False, True)),
+    "g1_d80": (32, 32, 80, torch.float16, (False,)),
+    "g7_d64": (14, 2, 64, torch.float32, (False,)),
+    "g1_d128": (32, 32, 128, torch.bfloat16, (False,)),
+}
+# The serving run whose launches each row's form reports (g1_d128,
+# Llama-2-7B's geometry, is served by no run of this script).
+GEOMETRY_ROW_RUNS = {("g8_d128", "bfloat16"): LLAMA70_RUN,
+                     ("g8_d128", "int8"): LLAMA70_INT8_RUN,
+                     ("g1_d80", "float16"): OPT27_RUN,
+                     ("g7_d64", "float32"): QWEN05_RUN}
+# OPT-2.7b's projections as (K, N), for the int8-weight kernel's f16
+# form.
+OPT27_PROJECTIONS = {"qkv": (2560, 7680), "o": (2560, 2560),
+                     "fc1": (2560, 10240), "fc2": (10240, 2560)}
+
+
+def _sweep_point(dev, gen, dtype, int8, group, d) -> float:
+    """Every kernel at one point of the sweep, small shapes: B = 3 rows,
+    two kv heads, kv lens 130 and 300 (past the 128- and 256-token chunk
+    edges) and a pad row, page 16. Decode per layer (the wrapper's
+    split and one split), stacked (layer 1 of 2, bitwise the per-layer
+    launch on its view) and its tail form (S = 4); prefill (T = 24,
+    rows starting at 120 and 280); ragged (W = 5: a decode row, a pad
+    row, a 5-slot verify row). Each against its plain version; returns
+    the largest error."""
+    from production_stack_tpu_torch.ops import paged_attention_cuda as pa
+    from production_stack_tpu_torch.ops.prefill_attention_cuda import (
+        paged_prefill_attention, paged_prefill_attention_plain)
+    from production_stack_tpu_torch.ops.ragged_attention_cuda import (
+        paged_ragged_attention, paged_ragged_attention_plain)
+    kv, ps, max_pages = 2, 16, 24
+    nh, num_pages = kv * group, 3 * max_pages + 1
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    p16 = {} if dtype == torch.float32 else {"p_dtype": dtype}
+    tag = (f"sweep {str(dtype)[6:]}{'/int8' if int8 else ''} g{group} "
+           f"d{d}")
+    (kc, vc), _ = _caches(kv, num_pages, d, ps, dtype, dev, gen, int8)
+    worst = 0.0
+
+    def held(what, got, ref):
+        nonlocal worst
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), **tol,
+                                   msg=lambda m: f"{tag} {what}: {m}")
+        worst = max(worst, (got.float() - ref.float()).abs().max().item())
+
+    lens_l = [130, 0, 300]
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    table = _page_table(lens_l, ps, max_pages, num_pages, gen, dev)
+    q = torch.randn((3, nh, d), generator=gen, device=dev).to(dtype)
+    want = pa.paged_decode_attention_plain(q, kc, vc, table, lens)
+    for splits in (None, 1):
+        got = pa.paged_decode_attention(q, kc, vc, table, lens,
+                                        num_splits=splits)
+        held(f"decode splits={splits}", got, want)
+        if got[1].abs().max().item() != 0.0:
+            raise AssertionError(f"{tag}: the decode pad row is not 0")
+    k5, v5 = (_stack_at(c, 2, 1, gen) for c in (kc, vc))
+    got5 = pa.paged_decode_attention(q, k5, v5, table, lens, layer=1)
+    held("decode stacked", got5, pa.paged_decode_attention_plain(
+        q, k5, v5, table, lens, layer=1))
+    if not torch.equal(got5, pa.paged_decode_attention(q, k5[1], v5[1],
+                                                        table, lens)):
+        raise AssertionError(f"{tag}: stacked decode differs from the "
+                             "per-layer launch on its view")
+    k_tail, v_tail = (torch.randn((3, 4, kv, d), generator=gen,
+                                  device=dev).to(dtype) for _ in range(2))
+    q_pos = (lens + torch.tensor([3, 0, 1], dtype=torch.int32,
+                                 device=dev)).contiguous()
+    tail = (q, kc, vc, table, lens, k_tail, v_tail, q_pos)
+    held("decode tail", pa.paged_decode_tail_attention(*tail),
+         pa.paged_decode_tail_attention_plain(*tail))
+
+    rows = [(120, 24), (0, 0), (280, 20)]
+    kv_lens = [s + n if n else 0 for s, n in rows]
+    plens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    ptable = _page_table(kv_lens, ps, max_pages, num_pages, gen, dev)
+    starts = torch.tensor([s if n else 0 for s, n in rows],
+                          dtype=torch.int32, device=dev)
+    pos = (starts[:, None] + torch.arange(24, dtype=torch.int32,
+                                          device=dev)[None]).contiguous()
+    qp = torch.randn((3, 24, nh, d), generator=gen, device=dev).to(dtype)
+    args = (qp, kc, vc, ptable, pos, plens)
+    held("prefill", paged_prefill_attention(*args),
+         paged_prefill_attention_plain(*args, **p16))
+
+    rrows = [(130, 0), (0, -1), (300, 4)]
+    rlens = torch.tensor([n for n, _ in rrows], dtype=torch.int32,
+                         device=dev)
+    last = torch.tensor([li for _, li in rrows], dtype=torch.int32,
+                        device=dev)
+    rtable = _page_table([n for n, _ in rrows], ps, max_pages, num_pages,
+                         gen, dev)
+    qr = torch.randn((3, 5, nh, d), generator=gen, device=dev).to(dtype)
+    rargs = (qr, kc, vc, rtable, rlens, last)
+    got = paged_ragged_attention(*rargs)
+    held("ragged", got, paged_ragged_attention_plain(*rargs, **p16))
+    if got[1].abs().max().item() != 0.0 or got[0, 1:].abs().max().item():
+        raise AssertionError(f"{tag}: ragged dead slots are not 0")
+    return worst
+
+
+def _geometry_sweep(dev) -> dict:
+    """The kernel sweep over dtype {bf16, f16, f32} x cache {same, int8}
+    x group {1..8, 16} x head_dim {64, 80, 128} (``_sweep_point``), and
+    the library's ``pstt_kernel_supports`` and
+    ``pstt_decode_group_tile`` against the Python rule on every point
+    and on points outside it. Returns the largest error by form."""
+    from production_stack_tpu_torch.ops import paged_kv_common as pkc
+    from production_stack_tpu_torch.ops.paged_attention_cuda import (
+        decode_group_tile)
+    lib = pkc.kernel_lib()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    t0 = time.perf_counter()
+    worst, points = {}, 0
+    for dtype in SWEEP_DTYPES:
+        for int8 in (False, True):
+            cache = torch.int8 if int8 else dtype
+            key = f"{str(dtype)[6:]}{'/int8' if int8 else ''}"
+            for d in SWEEP_HEAD_DIMS:
+                for group in SWEEP_GROUPS:
+                    said = lib.pstt_kernel_supports(
+                        pkc.dtype_code(dtype), pkc.cache_code(cache),
+                        group, d)
+                    if not (said and pkc.kernel_geometry_supported(
+                            dtype, cache, group, d)):
+                        raise AssertionError(f"{key} g{group} d{d}: the "
+                                             f"library says {said}, the "
+                                             "rule refuses or disagrees")
+                    if (lib.pstt_decode_group_tile(group, d)
+                            != decode_group_tile(group, d)):
+                        raise AssertionError(f"group tile of g{group} d{d}:"
+                                             " library and host differ")
+                    err = _sweep_point(dev, gen, dtype, int8, group, d)
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    points += 1
+    for dtype, cache, group, d in SWEEP_REFUSED:
+        rule = pkc.kernel_geometry_refusal(dtype, cache, group, d)
+        said = lib.pstt_kernel_supports(pkc.dtype_code(dtype),
+                                        pkc.cache_code(cache or dtype),
+                                        group, d)
+        if rule is None or said:
+            raise AssertionError(f"{dtype} {cache} g{group} d{d}: rule "
+                                 f"{rule!r}, library {said}")
+    torch.cuda.empty_cache()
+    log(f"geometries sweep: {points} points x 7 launches (decode at the "
+        f"wrapper's split and at one, stacked, tail; prefill; ragged), "
+        f"each within tolerance of its plain version, in "
+        f"{time.perf_counter() - t0:.1f} s; largest error by form {worst}; "
+        f"the rule and pstt_kernel_supports agree on them and refuse "
+        f"{len(SWEEP_REFUSED)} points outside (head_dim 96 and 256, a "
+        f"mixed cache, group 0)")
+    return worst
+
+
+def _geometry_kernel_cases(dev) -> tuple:
+    """The new rows at the kernel phase's headline shapes (decode B =
+    32, kv lens 1..1024; prefill B = 8, T = 512, first chunk; ragged R
+    = 40, W = 512, the unified step), timed against the plain version,
+    the bound and SDPA: Llama-3-70B's g8_d128 (bf16 and int8 KV),
+    OPT-2.7b's g1_d80 (f16), Qwen2-0.5B's g7_d64 (f32), Llama-2-7B's
+    g1_d128 (bf16). Then the int8-weight kernel's f16 form at OPT-2.7b's
+    projections, M = 1, 32 and 160 (timed at 32). Returns {kernel: {row:
+    {form: case}}} and the int8-weight cases."""
+    from production_stack_tpu_torch.engine.quantization import (
+        dequant_matmul)
+    from production_stack_tpu_torch.ops.int8_matmul_cuda import (
+        int8_weight_matmul, int8_weight_matmul_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    timer = Timer(dev)
+    lens = np.linspace(1, 1024, 32).round().astype(int).tolist()
+    lens[7] = lens[21] = 0
+    first = [(0, n) for n in [512, 448, 384, 320, 256, 0, 128, 64]]
+    decode_lens = np.linspace(70, 1024, 28).round().astype(int).tolist()
+    unified = ([(n, 0) for n in decode_lens]
+               + [(512, 511), (448, 447), (300, 299), (64, 63),
+                  (700, 187), (612, 99), (1012, 499), (200, 199)]
+               + [(0, -1)] * 4)
+    out = {name: {} for name in KERNELS}
+    for row, (nh, kv, d, dtype, forms) in GEOMETRY_ROWS.items():
+        shape = dict(nh=nh, kv=kv, d=d)
+        for int8 in forms:
+            form = "int8" if int8 else str(dtype)[6:]
+            tag = f"{row} {form}"
+            cases = {
+                "paged_decode": decode_case(
+                    f"decode {tag} B=32 ps=128", 32, lens, 128, dtype, dev,
+                    gen, timer, num_pages=512, int8=int8, **shape),
+                "paged_prefill": prefill_case(
+                    f"prefill {tag} B=8 T=512 first chunk ps=128", first,
+                    512, 128, dtype, dev, gen, timer, int8=int8, **shape),
+                "paged_ragged": ragged_case(
+                    f"ragged {tag} unified R=40 W=512 ps=128", unified, 512,
+                    128, dtype, dev, gen, timer, int8=int8, **shape),
+            }
+            for name, r in cases.items():
+                log("geometries kernel case " + json.dumps(r))
+                out[name].setdefault(row, {})[form] = r
+            torch.cuda.empty_cache()
+    w8 = {}
+    for proj, (k, n) in OPT27_PROJECTIONS.items():
+        q = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        scale = (torch.rand((n,), generator=gen, device=dev) + 0.5) * (
+            0.02 / 127)
+        dense = (q.float() * scale[:, None]).half()
+        err = 0.0
+        for m in (1, 32, 160):
+            x = torch.randn((m, k), generator=gen, device=dev).half()
+            got = int8_weight_matmul(x, q, scale)
+            want = int8_weight_matmul_plain(x, q, scale)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+            err = max(err, (got.float() - want.float()).abs().max().item())
+            if not torch.equal(got, int8_weight_matmul(x, q, scale)):
+                raise AssertionError("int8_weight_matmul f16: two launches "
+                                     "gave different bits")
+        x = torch.randn((32, k), generator=gen, device=dev).half()
+        r = {"case": f"int8_weight_matmul f16 opt-2.7b {proj} M=32 K={k} "
+                     f"N={n}", "max_abs_err": err,
+             "ms": timer.ms(lambda: int8_weight_matmul(x, q, scale)),
+             "plain_ms": timer.ms(
+                 lambda: int8_weight_matmul_plain(x, q, scale)),
+             "library_ms": timer.ms(lambda: torch.matmul(x, dense.t())),
+             "dequant_ms": timer.ms(lambda: dequant_matmul(x, q, scale)),
+             **_w8_bound(32, k, n)}
+        log("geometries kernel case " + json.dumps(r))
+        w8[proj] = r
+    for name, by_row in out.items():
+        for row, forms in by_row.items():
+            log(f"geometries kernel {name} {row}: " + "; ".join(
+                f"{form} {c['ms']:.5f} ms (bound {c['bound_ms']:.5f} by "
+                f"{c['bound_by']}, SDPA {c['library_ms']:.5f}, plain "
+                f"{c['plain_ms']:.4f}, max abs err {c['max_abs_err']:.3e})"
+                for form, c in forms.items()) + f"; {SMI}")
+    return out, w8
+
+
+def _eager_batch(label, srv, prompts, graphed) -> None:
+    """The prompts submitted together to an eager engine
+    (``cuda_graphs=False``) over the server's params and configuration,
+    as the window submitted them to the graphed server: every stream
+    byte-identical to the server's."""
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+    engine = LLMEngine(srv.engine.config, params=srv.engine.runner.params,
+                       cuda_graphs=False)
+    t0 = time.perf_counter()
+    got = [list(s.output_token_ids) for s in engine.generate_batch(
+        prompts, SamplingParams(temperature=0.0, max_tokens=WEIGHTS_OUT,
+                                ignore_eos=True))]
+    wall = time.perf_counter() - t0
+    for i, (e, g) in enumerate(zip(got, graphed)):
+        if e != g:
+            raise AssertionError(f"{label}: request {i}, eager {e} against "
+                                 f"graphed {g}")
+    log(f"{label}: {len(prompts)}/{len(prompts)} streams byte-identical "
+        f"eager and graphed, submitted together ({wall:.1f} s eager)")
+
+
+def _geometry_server(label, path, extra, prompts, kv_dtype="bf16") -> dict:
+    """A server on ``--model path`` (None: the bench-1b preset) with
+    ``extra`` flags: the weights phase's window (16 greedy requests
+    together, counted; then each alone), each attention call of the
+    model check held to its plain version, and the requests again
+    through an eager engine, submitted together, byte-identical to the
+    window's. The model check's logits and where a batched stream parts
+    from the request alone are printed."""
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    model = ["--model", path] if path else ["--model", "bench-1b",
+                                            "--random-weights"]
+    srv = _Server(model + ["--num-pages", str(GEOMETRY_PAGES)]
+                  + FAMILY_SERVER_ARGS + extra, base=[])
+    cfg = srv.engine.config
+    log(f"{label}: server up in {time.perf_counter() - t0:.1f} s (the "
+        f"load included); {cfg.model.architecture}, {cfg.model.dtype}, "
+        f"{cfg.model.num_attention_heads} q / "
+        f"{cfg.model.num_key_value_heads} kv heads of "
+        f"{cfg.model.head_dim}, {cfg.model.num_hidden_layers} layers, KV "
+        f"{cfg.cache.resolved_kv_dtype()}, quantization "
+        f"{cfg.model.quantization}; allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    run = _weights_window(label, srv, prompts,
+                          form="_int8" if kv_dtype == "int8" else "")
+    with torch.inference_mode():
+        _family_forwards(dev, cfg.model, srv.engine.runner.params, label,
+                         kv_dtype, hold_logits=False)
+    parted = []
+    for i, (alone, ids) in enumerate(zip(run["alone"], run["ids"])):
+        flip = next((j for j, (x, y) in enumerate(zip(alone, ids))
+                     if x != y), None)
+        if flip is not None:
+            parted.append((i, flip, near_tie(srv.engine, prompts[i]
+                                             + alone[:flip], ids[flip])))
+    log(f"{label}: {len(prompts) - len(parted)}/{len(prompts)} streams "
+        f"byte-identical batched and alone, the others parting at (row, "
+        f"index, the alone engine's margin) {parted}; {SMI}")
+    _eager_batch(label, srv, prompts, run["ids"])
+    srv.close()
+    return run
+
+
+def geometries_phase(vocab: int) -> dict:
+    """Every query group, head_dim and dtype the JAX engine serves, on
+    the three attention kernels: the kernel sweep, the new timed rows,
+    then three checkpoints written from published configs and served:
+    Llama-3-70B (4 layers; bf16, then int8 KV), OPT-2.7b at float16 and
+    Qwen2-0.5B at float32; then bench-1b at --quantization int8 --dtype
+    float16 (the int8-weight kernel's f16 form). Returns the timed
+    cases, the int8-weight cases and each run's launches."""
+    import gc
+    import shutil
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"sweep": _geometry_sweep(dev)}
+    out["rows"], out["w8"] = _geometry_kernel_cases(dev)
+    torch.cuda.empty_cache()
+    runs = {"llama3-70b": ((LLAMA70_RUN, [], "bf16"),
+                           (LLAMA70_INT8_RUN,
+                            ["--kv-cache-dtype", "int8"], "int8")),
+            "opt-2.7b": ((OPT27_RUN, [], "bf16"),),
+            "qwen2-0.5b": ((QWEN05_RUN, [], "bf16"),)}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-geometries-")
+    try:
+        for model, served in runs.items():
+            arch, dtype, flags, seed = GEOMETRY_MODELS[model]
+            hf = GEOMETRY_CONFIGS[model]
+            path = os.path.join(tmp, model)
+            write_checkpoint(path, arch, seed, hf=hf, dtype=dtype)
+            rng = np.random.RandomState(21)
+            prompts = [rng.randint(258, hf["vocab_size"], size=n).tolist()
+                       for n in np.linspace(64, 700, 16).round().astype(int)]
+            for run, extra, kv_dtype in served:
+                out[run] = _geometry_server(
+                    f"geometries {run}", path, flags + extra, prompts,
+                    kv_dtype)["launches"]
+                gc.collect()
+                torch.cuda.empty_cache()
+            shutil.rmtree(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rng = np.random.RandomState(21)
+    prompts = [rng.randint(258, vocab, size=n).tolist()
+               for n in np.linspace(64, 700, 16).round().astype(int)]
+    out[W8_F16_RUN] = _geometry_server(
+        f"geometries {W8_F16_RUN}", None,
+        ["--quantization", "int8", "--dtype", "float16"],
+        prompts)["launches"]
+    if out[W8_F16_RUN].get("int8_weight_matmul", 0) <= 0:
+        raise AssertionError("the int8 f16 server never launched the "
+                             "int8-weight kernel")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"geometries: phase passed in {time.perf_counter() - t_phase:.1f} s"
+        f"; {SMI}")
+    return out
+
+
 # ---- tp phase -----------------------------------------------------------------
 
 # The decode kernel's burst-tail form: its entry in the ``kernels``
@@ -4279,7 +4783,7 @@ def tail_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None, nh=32,
     got = call(pa.paged_decode_tail_attention)
     ref = call(pa.paged_decode_tail_attention_plain)
     torch.cuda.synchronize()
-    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     err = (got.float() - ref.float()).abs().max().item()
     torch.testing.assert_close(got.float(), ref.float(), **tol,
                                msg=lambda m: f"{name}: {m}")
@@ -5614,7 +6118,8 @@ def _numbers(h) -> dict:
     return out
 
 
-def kernels_line(headline, launches, weights, families, tp=None) -> list:
+def kernels_line(headline, launches, weights, families, tp=None,
+                 geometries=None) -> list:
     """The ``kernels`` JSON line's entries: each attention kernel with
     its bf16 per-layer numbers, its ``int8``, ``stacked`` and
     ``int8_stacked`` forms, and its ``geometries`` (``g4_d128`` and
@@ -5624,7 +6129,12 @@ def kernels_line(headline, launches, weights, families, tp=None) -> list:
     decode kernel's burst-tail form at bench-1b (its four forms, each
     with the non-tail form's time at the same pages as ``decode_ms``,
     its launches those of the deferred server of that cache form) and
-    at ``g4_d128`` (from the tp phase's results ``tp``)."""
+    at ``g4_d128`` (from the tp phase's results ``tp``). With the
+    geometries phase's results (``geometries``), each attention kernel's
+    ``geometries`` also holds its rows (``g8_d128`` with ``int8``,
+    ``g1_d80``, ``g7_d64``, ``g1_d128``: the numbers of the row's dtype
+    and the launches of the run that served it, 0 where none did), and
+    the int8-weight GEMM its f16 form at OPT-2.7b's projections."""
     geometry_runs = {"g4_d128": MIXTRAL_RUN, "g1_d64": OPT_RUN}
     summary = []
     for name, meta in KERNELS.items():
@@ -5648,6 +6158,20 @@ def kernels_line(headline, launches, weights, families, tp=None) -> list:
                       "int8": _numbers(
                           families["geometries"][name][geo]["int8"])}
                 for geo, run in geometry_runs.items()}})
+    if geometries is not None:
+        for entry in summary:
+            name = entry["name"]
+            for row, forms in geometries["rows"][name].items():
+                numbers = {}
+                for form, case in forms.items():
+                    run = GEOMETRY_ROW_RUNS.get((row, form))
+                    counter = name + ("_int8" if form == "int8" else "")
+                    numbers[form] = {
+                        "dtype": "bfloat16" if form == "int8" else form,
+                        "launches": launches.get(run, {}).get(counter, 0),
+                        **_numbers(case)}
+                first = numbers.pop(next(iter(forms)))
+                entry["geometries"][row] = {**first, **numbers}
     # The int8-weight GEMM's path is the int8-weight server's window.
     w8 = "int8_weight_matmul"
     summary.append({
@@ -5659,6 +6183,11 @@ def kernels_line(headline, launches, weights, families, tp=None) -> list:
         "dequant_ms": weights["headline"]["dequant_ms"],
         "families": {case: dict(_numbers(c), dequant_ms=c["dequant_ms"])
                      for case, c in families["w8"].items()}})
+    if geometries is not None:
+        summary[-1]["f16"] = {
+            "launches": launches.get(W8_F16_RUN, {}).get(w8, 0),
+            "opt-2.7b": {proj: dict(_numbers(c), dequant_ms=c["dequant_ms"])
+                         for proj, c in geometries["w8"].items()}}
     if tp is None:
         return summary
     tail = "paged_decode_tail"
@@ -5685,7 +6214,7 @@ def kernels_line(headline, launches, weights, families, tp=None) -> list:
 
 # The kernel form each run's ``launches_by_run`` entry counts, where it
 # is not the per-layer bf16 one.
-RUN_FORMS = {FLEET_INT8_RUN: "_int8_stacked",
+RUN_FORMS = {FLEET_INT8_RUN: "_int8_stacked", LLAMA70_INT8_RUN: "_int8",
              DISAGG_INT8_RUN: "_int8_stacked", PP_RUN: "_stacked",
              PP_INT8_RUN: "_int8_stacked", CP_RUN: "_stacked",
              GPT2_PP_RUN: "_stacked", GPT2_CP_RUN: "_stacked",
@@ -5763,6 +6292,11 @@ def main() -> int:
     launches[OPT_RUN] = families[OPT_RUN]
     launches[GPT2_RUN] = families[GPT2_RUN]
     torch.cuda.empty_cache()
+    geometries = geometries_phase(vocab)
+    for run in (LLAMA70_RUN, LLAMA70_INT8_RUN, OPT27_RUN, QWEN05_RUN,
+                W8_F16_RUN):
+        launches[run] = geometries[run]
+    torch.cuda.empty_cache()
     tp = tp_phase(vocab)
     for run in (DEFERRED_RUN, NCCL_RUN, TP_RUN) + tuple(
             f"{DEFERRED_RUN}_{form}" for form, _ in DEFERRED_FORMS):
@@ -5780,7 +6314,8 @@ def main() -> int:
     if launches[DEFERRED_RUN].get("paged_decode_tail", 0) <= 0:
         raise AssertionError("the deferred server's window never launched "
                              "the decode kernel's tail form")
-    summary = kernels_line(headline, launches, weights, families, tp)
+    summary = kernels_line(headline, launches, weights, families, tp,
+                           geometries)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s, the kernel build included")
     print(json.dumps({"kernels": summary}), flush=True)

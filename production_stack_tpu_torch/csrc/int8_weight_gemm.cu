@@ -38,7 +38,9 @@
 //     chunk), rows padded by 16 bytes (conflict-free 16-byte reads), and
 //     read by all eight warps;
 //   - int8 becomes bf16 exactly in registers (byte_perm into the
-//     mantissa of 2^23 + 128 + b, one f32 subtraction, the upper half);
+//     mantissa of 2^23 + 128 + b, one f32 subtraction, the upper half),
+//     or f16 (the same f32 values, packed by the conversion
+//     instruction: exact, |b| <= 128);
 //   - a split over K (grid.y) keeps enough blocks on the 132 SMs when N
 //     is small; each split writes f32 partial sums and a second small
 //     kernel adds them in split order, scales and rounds once (no
@@ -49,12 +51,18 @@
 //
 // The sum is f32, the scale is applied in f32 and the result is rounded
 // once to the output type, as the plain version
-// (ops/int8_matmul_cuda.int8_weight_matmul_plain) computes it. An f32
+// (ops/int8_matmul_cuda.int8_weight_matmul_plain) computes it. bf16
+// and f16 activations (T) take the same tensor-core kernel, with
+// mma.sync in their form (the JAX dot runs in any dtype: --quantization
+// int8 --dtype float16 serves through the f16 form). An f32
 // activation (the tiny test geometry) takes an f32 FMA kernel instead:
 // a warp a weight row, lanes over K, a fixed shuffle reduction.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 #include <stdint.h>
 
 namespace pstt_w8 {
@@ -67,7 +75,7 @@ constexpr int kFmaWarps = 8;  // f32 kernel: weight rows a block
 constexpr int kFmaRows = 8;   // f32 kernel: activation rows a block
 
 // The activations' chunk in shared memory: 8 * XT rows of 64 * STEPS
-// bf16, each row padded by 16 bytes. A block holds two.
+// 16-bit values, each row padded by 16 bytes. A block holds two.
 template <int XT, int STEPS>
 struct Chunk {
   static constexpr int kRows = 8 * XT;
@@ -77,24 +85,42 @@ struct Chunk {
   static constexpr int kPieces = kRows * (kK / 8);  // 16-byte pieces
 };
 
-// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+// c += a (16 x 16, row) * b (16 x 8, col), T (bf16 or f16) in, f32
+// accumulate.
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], uint32_t a0,
+                                      uint32_t a1, uint32_t a2, uint32_t a3,
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+  }
 }
 
-// Four int8 of one word to two words of bf16 pairs, exactly: lo holds
-// bytes 0 and 1 (byte 0 in its low half), hi bytes 2 and 3. Byte b + 128
-// goes into the low mantissa byte of 2^23; subtracting 2^23 + 128
-// leaves b as an f32 whose upper 16 bits are its bf16.
-__device__ __forceinline__ void i8x4_to_bf16x4(uint32_t w, uint32_t& lo,
-                                               uint32_t& hi) {
+__device__ __forceinline__ __nv_bfloat16 round_to(float x, __nv_bfloat16) {
+  return __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ __half round_to(float x, __half) {
+  return __float2half_rn(x);
+}
+
+// Four int8 of one word to two words of T pairs (bf16 or f16),
+// exactly: lo holds bytes 0 and 1 (byte 0 in its low half), hi bytes 2
+// and 3. Byte b + 128 goes into the low mantissa byte of 2^23;
+// subtracting 2^23 + 128 leaves b as an f32, whose upper 16 bits are its
+// bf16, and which the f16 conversion packs exactly.
+template <typename T>
+__device__ __forceinline__ void i8x4_to_16x4(uint32_t w, uint32_t& lo,
+                                             uint32_t& hi) {
   const uint32_t u = w ^ 0x80808080u;
   const uint32_t magic = 0x4B000000u;
   const float bias = 8388736.0f;  // 2^23 + 128
@@ -102,8 +128,15 @@ __device__ __forceinline__ void i8x4_to_bf16x4(uint32_t w, uint32_t& lo,
   const float f1 = __uint_as_float(__byte_perm(u, magic, 0x7651)) - bias;
   const float f2 = __uint_as_float(__byte_perm(u, magic, 0x7652)) - bias;
   const float f3 = __uint_as_float(__byte_perm(u, magic, 0x7653)) - bias;
-  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 l2 = __floats2half2_rn(f0, f1);
+    const __half2 h2 = __floats2half2_rn(f2, f3);
+    lo = *reinterpret_cast<const uint32_t*>(&l2);
+    hi = *reinterpret_cast<const uint32_t*>(&h2);
+  } else {
+    lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+    hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+  }
 }
 
 // 16 bytes from global to shared memory, asynchronously (cp.async);
@@ -137,9 +170,9 @@ __device__ __forceinline__ void load_weights(int4 (&dst)[STEPS][2],
 
 // The activations' chunk at kc into ``dst`` with asynchronous 16-byte
 // copies, zeros past M and past the K range.
-template <int XT, int STEPS>
+template <int XT, int STEPS, typename T>
 __device__ __forceinline__ void stage_activations(
-    unsigned char* dst, const __nv_bfloat16* x, int M, int K, int kc,
+    unsigned char* dst, const T* x, int M, int K, int kc,
     int k_end) {
   using C = Chunk<XT, STEPS>;
   for (int p = threadIdx.x; p < C::kPieces; p += kThreads) {
@@ -155,12 +188,10 @@ __device__ __forceinline__ void stage_activations(
 // One block: kWarps warps, each over 16 weight rows, the block's K
 // range [k_begin, k_end) in chunks, every activation row (XT tiles of
 // 8; rows >= M read as zero and are never written).
-template <int XT, int STEPS>
+template <typename T, int XT, int STEPS>
 __global__ void __launch_bounds__(kThreads)
-    w8_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                  const int8_t* __restrict__ q,
-                  const float* __restrict__ scale,
-                  __nv_bfloat16* __restrict__ out,
+    w8_mma_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
+                  const float* __restrict__ scale, T* __restrict__ out,
                   float* __restrict__ partial, int M, int N, int K,
                   int k_per_split) {
   using C = Chunk<XT, STEPS>;
@@ -212,18 +243,18 @@ __global__ void __launch_bounds__(kThreads)
     if (active) {
 #pragma unroll
       for (int s = 0; s < STEPS; ++s) {
-        // A fragments: a[h][w] is the bf16 pair of k 16 quad + 2w, +1 of
+        // A fragments: a[h][w] is the T pair of k 16 quad + 2w, +1 of
         // row half h.
         uint32_t a[2][8];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          i8x4_to_bf16x4(static_cast<uint32_t>(cur[s][h].x), a[h][0],
+          i8x4_to_16x4<T>(static_cast<uint32_t>(cur[s][h].x), a[h][0],
                          a[h][1]);
-          i8x4_to_bf16x4(static_cast<uint32_t>(cur[s][h].y), a[h][2],
+          i8x4_to_16x4<T>(static_cast<uint32_t>(cur[s][h].y), a[h][2],
                          a[h][3]);
-          i8x4_to_bf16x4(static_cast<uint32_t>(cur[s][h].z), a[h][4],
+          i8x4_to_16x4<T>(static_cast<uint32_t>(cur[s][h].z), a[h][4],
                          a[h][5]);
-          i8x4_to_bf16x4(static_cast<uint32_t>(cur[s][h].w), a[h][6],
+          i8x4_to_16x4<T>(static_cast<uint32_t>(cur[s][h].w), a[h][6],
                          a[h][7]);
         }
 #pragma unroll
@@ -236,7 +267,7 @@ __global__ void __launch_bounds__(kThreads)
                                  hi.x, hi.y, hi.z, hi.w};
 #pragma unroll
           for (int t = 0; t < 4; ++t)
-            mma_bf16(acc[j], a[0][2 * t], a[1][2 * t], a[0][2 * t + 1],
+            mma16<T>(acc[j], a[0][2 * t], a[1][2 * t], a[0][2 * t + 1],
                      a[1][2 * t + 1], b[2 * t], b[2 * t + 1]);
         }
       }
@@ -263,23 +294,24 @@ __global__ void __launch_bounds__(kThreads)
             acc[j][e];
       } else {
         out[static_cast<size_t>(m) * N + n] =
-            __float2bfloat16_rn(acc[j][e] * scale[n]);
+            round_to(acc[j][e] * scale[n], T());
       }
     }
 }
 
 // The splits' partial sums, added in split order, scaled, rounded once.
+template <typename T>
 __global__ void w8_reduce_kernel(const float* __restrict__ partial,
                                  const float* __restrict__ scale,
-                                 __nv_bfloat16* __restrict__ out, int M,
-                                 int N, int splits) {
+                                 T* __restrict__ out, int M, int N,
+                                 int splits) {
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
   const size_t total = static_cast<size_t>(M) * N;
   if (i >= total) return;
   float sum = 0.f;
   for (int s = 0; s < splits; ++s) sum += partial[s * total + i];
-  out[i] = __float2bfloat16_rn(sum * scale[i % N]);
+  out[i] = round_to(sum * scale[i % N], T());
 }
 
 // f32 activations: a warp a weight row, kFmaRows activation rows a
@@ -325,7 +357,7 @@ __global__ void __launch_bounds__(kFmaWarps * 32)
   }
 }
 
-template <int XT, int STEPS>
+template <typename T, int XT, int STEPS>
 int launch_mma(const void* x, const void* q, const void* scale, void* out,
                void* partial, int M, int N, int K, int splits,
                int k_per_split, cudaStream_t stream) {
@@ -337,26 +369,24 @@ int launch_mma(const void* x, const void* q, const void* scale, void* out,
   static bool opted_in = false;
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        w8_mma_kernel<XT, STEPS>,
+        w8_mma_kernel<T, XT, STEPS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
   const dim3 grid((N + kBlockRows - 1) / kBlockRows, splits);
-  w8_mma_kernel<XT, STEPS><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale),
-      static_cast<__nv_bfloat16*>(out),
+  w8_mma_kernel<T, XT, STEPS><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const int8_t*>(q),
+      static_cast<const float*>(scale), static_cast<T*>(out),
       splits > 1 ? static_cast<float*>(partial) : nullptr, M, N, K,
       k_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const size_t total = static_cast<size_t>(M) * N;
-  w8_reduce_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0,
-                     stream>>>(static_cast<const float*>(partial),
-                               static_cast<const float*>(scale),
-                               static_cast<__nv_bfloat16*>(out), M, N,
-                               splits);
+  w8_reduce_kernel<T><<<static_cast<unsigned>((total + 255) / 256), 256, 0,
+                        stream>>>(static_cast<const float*>(partial),
+                                  static_cast<const float*>(scale),
+                                  static_cast<T*>(out), M, N, splits);
   return cudaGetLastError();
 }
 
@@ -369,12 +399,12 @@ int launch_mma(const void* x, const void* q, const void* scale, void* out,
 #define PSTT_W8_FOR_EACH_TILES(X) \
   X(1, 4) X(2, 4) X(4, 4) X(8, 4) X(12, 2) X(16, 2) X(20, 2)
 
-// dtype: 0 bf16 (tensor cores; K a multiple of 64), 1 f32 (FMA; K a
-// multiple of 4). x [M, K], q [N, K] int8, scale [N] f32, out [M, N] in
-// x's type; partial: f32 [splits, M, N] scratch when splits > 1 (bf16
-// only). x_tiles: the activation row tiles of the launch (a line of
-// PSTT_W8_FOR_EACH_TILES). Returns cudaGetLastError() after the
-// launches.
+// dtype: 0 bf16 or 3 f16 (tensor cores; K a multiple of 64), 1 f32
+// (FMA; K a multiple of 4). x [M, K], q [N, K] int8, scale [N] f32, out
+// [M, N] in x's type; partial: f32 [splits, M, N] scratch when splits >
+// 1 (bf16 and f16 only). x_tiles: the activation row tiles of the
+// launch (a line of PSTT_W8_FOR_EACH_TILES). Returns cudaGetLastError()
+// after the launches.
 extern "C" int pstt_int8_weight_matmul(int dtype, const void* x,
                                        const void* q, const void* scale,
                                        void* out, void* partial, int M,
@@ -394,15 +424,19 @@ extern "C" int pstt_int8_weight_matmul(int dtype, const void* x,
         K);
     return cudaGetLastError();
   }
-  if (dtype != 0 || K % pstt_w8::kStepK || splits < 1 ||
+  if ((dtype != 0 && dtype != 3) || K % pstt_w8::kStepK || splits < 1 ||
       k_per_split % pstt_w8::kStepK || k_per_split <= 0 ||
       static_cast<long long>(splits - 1) * k_per_split >= K ||
       (splits > 1 && partial == nullptr) || M > 8 * x_tiles)
     return cudaErrorInvalidValue;
-#define PSTT_W8_CASE(XT, STEPS)                                           \
-  if (x_tiles == XT)                                                      \
-    return pstt_w8::launch_mma<XT, STEPS>(x, q, scale, out, partial, M,   \
-                                          N, K, splits, k_per_split, s);
+#define PSTT_W8_CASE(XT, STEPS)                                          \
+  if (x_tiles == XT)                                                     \
+    return dtype == 3 ? pstt_w8::launch_mma<__half, XT, STEPS>(          \
+                            x, q, scale, out, partial, M, N, K, splits,  \
+                            k_per_split, s)                              \
+                      : pstt_w8::launch_mma<__nv_bfloat16, XT, STEPS>(   \
+                            x, q, scale, out, partial, M, N, K, splits,  \
+                            k_per_split, s);
   PSTT_W8_FOR_EACH_TILES(PSTT_W8_CASE)
 #undef PSTT_W8_CASE
   return cudaErrorInvalidValue;

@@ -1,0 +1,607 @@
+// The decode kernels' templates: the split walk, the merge, the
+// burst-tail kernel and their launch (paged_decode.cu describes the
+// design and holds the C interface). paged_decode_bf16.cu,
+// paged_decode_f16.cu and paged_decode_f32.cu instantiate them a query
+// type each.
+
+#pragma once
+
+#include "paged_kv_common.cuh"
+
+namespace pstt {
+
+// One launch's operands and shapes.
+struct DecodeArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* ks;
+  const void* vs;
+  const void* pt;
+  const void* kv_lens;
+  void* out;
+  void* partials;
+  int batch, num_q_heads, num_kv_heads, num_pages, page_size, max_pages;
+  int num_splits, chunks_per_split;
+  LayerOffsets layer;
+  const void* k_tail;
+  const void* v_tail;
+  const void* q_pos;
+  int tail_len;
+  cudaStream_t stream;
+};
+
+namespace {
+
+constexpr int kDecodeThreads = 128;
+constexpr int kDecodeWarps = kDecodeThreads / 32;
+constexpr int kTok = 4;  // adjacent tokens a thread owns in a chunk
+constexpr int kDQ = 4;   // head-dim quarters: thread dq owns d = dq + 4 i
+static_assert(kDecodeWarps * (32 / kDQ) * kTok == kChunk,
+              "the threads' tokens must tile the chunk");
+
+// The widest group tile at head dim D, and the tile a group runs
+// (the host's ops/paged_attention_cuda.decode_group_tile).
+constexpr int max_group_tile(int d) { return d <= 64 ? 8 : 4; }
+constexpr int group_tile(int group, int d) {
+  if (group <= 1) return 1;
+  return group <= 4 ? 4 : max_group_tile(d);
+}
+
+// Most shared memory a block may have (227 KB).
+constexpr int kMaxBlockSmem = 232448;
+
+// Shared memory of one block, in bytes: the stages of the chunk's K and
+// V planes in the cache's type (and of its scales), q as f32, and the
+// warps' partials for the merge at the end. Two stages where they fit
+// a block, else one (an f32 cache at head_dim 128).
+template <typename C, int D, int GT>
+struct DecodeSmem {
+  static constexpr bool kQuant = kQuantized<C>;
+  static constexpr int kRow = kChunk * (int)sizeof(C);
+  static constexpr int kPlane = D * kRow;
+  static constexpr int kScale = kQuant ? kChunk * 4 : 0;
+  static constexpr int kPart = GT * (D + 2) * 4;  // acc[GT][D], m, l
+  static constexpr int kRest = 2 * 2 * kScale + D * GT * 4 +
+                               kDecodeWarps * kPart;
+  static constexpr int kStages =
+      2 * 2 * kPlane + kRest <= kMaxBlockSmem ? 2 : 1;
+  static constexpr int stages = 0;  // [kStages][2][kPlane]
+  static constexpr int scales =
+      stages + kStages * 2 * kPlane;                // [2][2][kChunk]
+  static constexpr int q = scales + 2 * 2 * kScale;  // [D][GT] f32
+  static constexpr int parts = q + D * GT * 4;       // [kDecodeWarps][kPart]
+  static constexpr int bytes = parts + kDecodeWarps * kPart;
+  static_assert(bytes <= kMaxBlockSmem, "a decode block's shared memory");
+};
+
+// Byte offset of (head dim d, chunk token col) in a staged plane. The
+// four head dims d..d+3 a warp reads together land on different banks:
+// each quarter's 8 lanes read one 32 * sizeof(C)-byte window of a row.
+template <typename C>
+__device__ __forceinline__ uint32_t plane_offset(int d, int col) {
+  const uint32_t swz = ((uint32_t)(d & 3) * 32u * sizeof(C)) & 127u;
+  return (uint32_t)d * (kChunk * sizeof(C)) +
+         (((uint32_t)col * sizeof(C)) ^ swz);
+}
+
+// Four adjacent tokens of one head dim, as f32.
+__device__ __forceinline__ void load_tok4(const unsigned char* p,
+                                          float (&f)[4], float) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  f[0] = x.x;
+  f[1] = x.y;
+  f[2] = x.z;
+  f[3] = x.w;
+}
+__device__ __forceinline__ void load_tok4(const unsigned char* p,
+                                          float (&f)[4], __nv_bfloat16) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
+  f[0] = lo.x;
+  f[1] = lo.y;
+  f[2] = hi.x;
+  f[3] = hi.y;
+}
+__device__ __forceinline__ void load_tok4(const unsigned char* p,
+                                          float (&f)[4], __half) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __half22float2(*reinterpret_cast<const __half2*>(&x.x));
+  const float2 hi = __half22float2(*reinterpret_cast<const __half2*>(&x.y));
+  f[0] = lo.x;
+  f[1] = lo.y;
+  f[2] = hi.x;
+  f[3] = hi.y;
+}
+__device__ __forceinline__ void load_tok4(const unsigned char* p,
+                                          float (&f)[4], int8_t) {
+  const char4 x = *reinterpret_cast<const char4*>(p);
+  f[0] = (float)x.x;
+  f[1] = (float)x.y;
+  f[2] = (float)x.z;
+  f[3] = (float)x.w;
+}
+
+// Where block (b, y, split) writes, and the merge reads, its partial;
+// y = kv head * tiles + group tile runs over gridDim.y = ys.
+template <int D, int GT>
+__device__ __forceinline__ size_t partial_offset(int b, int y, int ys,
+                                                 int num_splits, int split) {
+  return (((size_t)b * ys + y) * num_splits + split) * (GT * (D + 2));
+}
+
+// This block's group tile: its kv head, where its first query head
+// starts in q and out, and how many of its GT heads are live (< G).
+template <int D, int GT>
+struct GroupTile {
+  int h;
+  int live;
+  size_t row_offset;
+
+  __device__ __forceinline__ GroupTile(int b, int num_q_heads, int group,
+                                       int tiles) {
+    h = blockIdx.y / tiles;
+    const int g0 = (blockIdx.y - h * tiles) * GT;
+    live = min(GT, group - g0);
+    row_offset = ((size_t)b * num_q_heads + (size_t)h * group + g0) * D;
+  }
+};
+
+template <typename T, typename C, int D, int GT>
+__global__ void __launch_bounds__(kDecodeThreads)
+paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
+                    const C* __restrict__ v_cache,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ page_table,
+                    const int* __restrict__ kv_lens, T* __restrict__ out,
+                    float* __restrict__ partials, int num_q_heads,
+                    int group, int tiles, int num_pages, int page_size,
+                    int max_pages, int part_splits, int chunks_per_split,
+                    LayerOffsets layer) {
+  constexpr bool QUANT = kQuantized<C>;
+  constexpr int NT = kDecodeThreads;
+  constexpr int DI = D / kDQ;  // head dims a thread owns
+  constexpr int PW = D + 2;    // words of one query head's partial
+  static_assert(D % kDQ == 0, "head dim must split in quarters");
+  using L = DecodeSmem<C, D, GT>;
+  extern __shared__ uint4 smem_decode[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_decode);
+  const uint32_t base = smem_u32(smem);
+  float* qs = reinterpret_cast<float*>(smem + L::q);
+  float* parts = reinterpret_cast<float*>(smem + L::parts);
+
+  const int b = blockIdx.x;
+  const GroupTile<D, GT> tile(b, num_q_heads, group, tiles);
+  const int h = tile.h;
+  const int split = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int kv_len = kv_lens[b];
+  const int n_chunks = (kv_len + kChunk - 1) / kChunk;
+  const int c_begin = split * chunks_per_split;
+  const int c_end = min(c_begin + chunks_per_split, n_chunks);
+  T* o = out + tile.row_offset;
+  // part_splits counts the partials' slots: the walk's splits, and a
+  // burst tail's slot after them. One slot: the walk writes the output.
+  float* part = part_splits > 1
+                    ? partials + partial_offset<D, GT>(b, blockIdx.y,
+                                                       gridDim.y,
+                                                       part_splits, split)
+                    : nullptr;
+
+  if (c_begin >= c_end) {
+    // Nothing of this row lies in the range: no load. One split: the
+    // row is a pad row and its output is exact 0.
+    if (part_splits == 1) {
+      for (int i = tid; i < tile.live * D; i += NT) o[i] = from_f32<T>(0.f);
+    } else {
+      for (int i = tid; i < GT * PW; i += NT)
+        part[i] = (i % PW == D) ? kNegInf : 0.f;
+    }
+    return;
+  }
+
+  const size_t head_elems = (size_t)num_pages * D * page_size;
+  const size_t head_slots = (size_t)num_pages * page_size;
+  const C* k_head = k_cache + layer.data() + h * head_elems;
+  const C* v_head = v_cache + layer.data() + h * head_elems;
+  const float* ks_head =
+      QUANT ? k_scale + layer.scale() + h * head_slots : nullptr;
+  const float* vs_head =
+      QUANT ? v_scale + layer.scale() + h * head_slots : nullptr;
+  const int* pt_row = page_table + (size_t)b * max_pages;
+  const int pages_live = min((kv_len + page_size - 1) / page_size, max_pages);
+
+  // Start the copies of chunk c into stage st.
+  auto start_copies = [&](int c, int st) {
+    stage_chunk_async<C, D, NT>(
+        k_head, v_head, pt_row, c, pages_live, page_size,
+        base + L::stages + (st * 2 + 0) * L::kPlane,
+        base + L::stages + (st * 2 + 1) * L::kPlane,
+        [](int d, int col) { return plane_offset<C>(d, col); });
+    if constexpr (QUANT)
+      stage_scales_async<NT>(ks_head, vs_head, pt_row, c, pages_live,
+                             page_size,
+                             base + L::scales + (st * 2 + 0) * L::kScale,
+                             base + L::scales + (st * 2 + 1) * L::kScale);
+    cp_async_commit();
+  };
+  start_copies(c_begin, 0);
+
+  // q of the tile's GT query heads, as f32 [D][GT] (zeros past G): one
+  // broadcast read a head dim.
+  for (int i = tid; i < GT * D; i += NT) {
+    const int g = i / D;
+    const int d = i - g * D;
+    qs[d * GT + g] = g < tile.live ? to_f32(q[tile.row_offset + i]) : 0.f;
+  }
+
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int dq = lane & (kDQ - 1);
+  const int tok0 = (warp * (32 / kDQ) + lane / kDQ) * kTok;  // in the chunk
+  const float scale = rsqrtf((float)D);
+
+  float m[GT], l[GT], acc[GT][DI];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DI; ++i) acc[g][i] = 0.f;
+  }
+
+  for (int c = c_begin; c < c_end; ++c) {
+    const int st = L::kStages == 2 ? (c - c_begin) & 1 : 0;
+    if constexpr (L::kStages == 2) {
+      // Start chunk c + 1 into the stage chunk c - 1 left (its readers
+      // passed the barrier that ended that iteration), wait for chunk c.
+      if (c + 1 < c_end) {
+        start_copies(c + 1, st ^ 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {
+      // One stage: chunk c's copies start once the barrier that ended
+      // the last iteration freed it.
+      if (c > c_begin) start_copies(c, 0);
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const unsigned char* kp = smem + L::stages + (st * 2 + 0) * L::kPlane;
+    const unsigned char* vp = smem + L::stages + (st * 2 + 1) * L::kPlane;
+    const float* kss =
+        reinterpret_cast<const float*>(smem + L::scales) + (st * 2) * kChunk;
+    const float* vss = kss + kChunk;
+
+    // Partial scores of this thread's 4 tokens over its head dims.
+    float s[GT][kTok];
+#pragma unroll
+    for (int g = 0; g < GT; ++g)
+#pragma unroll
+      for (int x = 0; x < kTok; ++x) s[g][x] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DI; ++i) {
+      const int d = dq + kDQ * i;
+      float kf[kTok];
+      load_tok4(kp + plane_offset<C>(d, tok0), kf, C());
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        const float qv = qs[d * GT + g];
+#pragma unroll
+        for (int x = 0; x < kTok; ++x) s[g][x] = fmaf(qv, kf[x], s[g][x]);
+      }
+    }
+    // Sum the four quarters: every lane of a quad then holds the scores.
+#pragma unroll
+    for (int g = 0; g < GT; ++g)
+#pragma unroll
+      for (int x = 0; x < kTok; ++x) {
+        s[g][x] += __shfl_xor_sync(0xffffffffu, s[g][x], 1);
+        s[g][x] += __shfl_xor_sync(0xffffffffu, s[g][x], 2);
+      }
+
+    // Scale, fold the K scales, mask; the warp's online softmax.
+    bool valid[kTok];
+    float kscale[kTok], vscale[kTok];
+#pragma unroll
+    for (int x = 0; x < kTok; ++x) {
+      valid[x] = c * kChunk + tok0 + x < kv_len;
+      kscale[x] = vscale[x] = 1.f;
+      if constexpr (QUANT) {
+        kscale[x] = kss[tok0 + x];
+        vscale[x] = vss[tok0 + x];
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int x = 0; x < kTok; ++x) {
+        float sc = s[g][x] * scale;
+        if constexpr (QUANT) sc *= kscale[x];
+        s[g][x] = valid[x] ? sc : kNegInf;
+        mx = fmaxf(mx, s[g][x]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      const float m_new = fmaxf(m[g], mx);
+      const float alpha = expf(m[g] - m_new);
+      m[g] = m_new;
+      l[g] *= alpha;
+#pragma unroll
+      for (int i = 0; i < DI; ++i) acc[g][i] *= alpha;
+#pragma unroll
+      for (int x = 0; x < kTok; ++x) {
+        const float p = valid[x] ? expf(s[g][x] - m_new) : 0.f;
+        l[g] += p;  // l sums the unscaled p
+        s[g][x] = QUANT ? p * vscale[x] : p;
+      }
+    }
+
+    // acc += p . v over this thread's tokens and head dims.
+#pragma unroll
+    for (int i = 0; i < DI; ++i) {
+      const int d = dq + kDQ * i;
+      float vf[kTok];
+      load_tok4(vp + plane_offset<C>(d, tok0), vf, C());
+#pragma unroll
+      for (int g = 0; g < GT; ++g)
+#pragma unroll
+        for (int x = 0; x < kTok; ++x)
+          acc[g][i] = fmaf(s[g][x], vf[x], acc[g][i]);
+    }
+    __syncthreads();  // stage st is free again
+  }
+
+  // The warp's totals: sum acc and l over its 8 token groups (l was
+  // summed per thread; the four quarters of a group hold the same l).
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+#pragma unroll
+    for (int o2 = kDQ; o2 < 32; o2 <<= 1) {
+      l[g] += __shfl_xor_sync(0xffffffffu, l[g], o2);
+#pragma unroll
+      for (int i = 0; i < DI; ++i)
+        acc[g][i] += __shfl_xor_sync(0xffffffffu, acc[g][i], o2);
+    }
+  }
+  if (lane < kDQ) {
+    float* mine = parts + warp * (GT * PW);
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+#pragma unroll
+      for (int i = 0; i < DI; ++i) mine[g * PW + dq + kDQ * i] = acc[g][i];
+      if (lane == 0) {
+        mine[g * PW + D] = m[g];
+        mine[g * PW + D + 1] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+
+  // Merge the four warps in warp order; write the output of the live
+  // heads (one split) or this block's partial (every head of the tile).
+  for (int i = tid; i < GT * D; i += NT) {
+    const int g = i / D;
+    const int d = i - g * D;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w)
+      mx = fmaxf(mx, parts[w * (GT * PW) + g * PW + D]);
+    float tot = 0.f, tot_l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) {
+      const float* pw = parts + w * (GT * PW) + g * PW;
+      const float e = expf(pw[D] - mx);
+      tot = fmaf(e, pw[d], tot);
+      tot_l = fmaf(e, pw[D + 1], tot_l);
+    }
+    if (part_splits == 1) {
+      if (g < tile.live) o[i] = from_f32<T>(tot / fmaxf(tot_l, 1e-30f));
+    } else {
+      part[g * PW + d] = tot;
+      if (d == 0) {
+        part[g * PW + D] = mx;
+        part[g * PW + D + 1] = tot_l;
+      }
+    }
+  }
+}
+
+// Merge the splits' partials of one (row, kv head, group tile) in split
+// order: thread (g, d) of GT * D (at most 512). A row whose every split
+// is empty has m = -1e30 and l = 0 everywhere: weights exp(0) = 1 over
+// zeros, exact 0. Heads past G are not written.
+template <typename T, int D, int GT>
+__global__ void __launch_bounds__(GT* D)
+paged_decode_merge_kernel(const float* __restrict__ partials,
+                          T* __restrict__ out, int num_q_heads, int group,
+                          int tiles, int num_splits) {
+  constexpr int PW = D + 2;
+  const int b = blockIdx.x;
+  const GroupTile<D, GT> tile(b, num_q_heads, group, tiles);
+  const int g = threadIdx.x / D;
+  const int d = threadIdx.x - g * D;
+  if (g >= tile.live) return;
+  const float* p = partials +
+                   partial_offset<D, GT>(b, blockIdx.y, gridDim.y,
+                                         num_splits, 0) +
+                   g * PW;
+  float mx = kNegInf;
+  for (int s = 0; s < num_splits; ++s)
+    mx = fmaxf(mx, p[(size_t)s * (GT * PW) + D]);
+  float tot = 0.f, tot_l = 0.f;
+  for (int s = 0; s < num_splits; ++s) {
+    const float* ps = p + (size_t)s * (GT * PW);
+    const float e = expf(ps[D] - mx);
+    tot = fmaf(e, ps[d], tot);
+    tot_l = fmaf(e, ps[D + 1], tot_l);
+  }
+  out[tile.row_offset + (size_t)g * D + d] =
+      from_f32<T>(tot / fmaxf(tot_l, 1e-30f));
+}
+
+
+// The most tail slots a burst carries (the JAX tail's bound).
+constexpr int kMaxTail = 32;
+
+// A burst tail's partial of one (row, kv head, group tile), into the
+// slot `tail_slot` of the partials: thread (g, slot) scores, one thread
+// a query head the softmax over at most 32 slots, thread (g, d) p . v.
+// Slot s attends iff kv_lens[b] + s <= q_pos[b]; a row none of whose
+// slots attends writes the empty partial (0, -1e30, 0). Heads past G
+// score with q = 0; the merge never writes them.
+template <typename T, int D, int GT>
+__global__ void __launch_bounds__(kDecodeThreads)
+paged_decode_tail_kernel(const T* __restrict__ q,
+                         const T* __restrict__ k_tail,
+                         const T* __restrict__ v_tail,
+                         const int* __restrict__ kv_lens,
+                         const int* __restrict__ q_pos,
+                         float* __restrict__ partials, int num_q_heads,
+                         int group, int tiles, int kv_heads, int tail_len,
+                         int part_splits) {
+  constexpr int NT = kDecodeThreads;
+  constexpr int PW = D + 2;
+  __shared__ float qs[GT * D];
+  __shared__ float ps[GT * kMaxTail];
+  __shared__ float ms[GT];
+  __shared__ float ls[GT];
+  const int b = blockIdx.x;
+  const GroupTile<D, GT> tile(b, num_q_heads, group, tiles);
+  const int h = tile.h;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < GT * D; i += NT)
+    qs[i] = i < tile.live * D ? to_f32(q[tile.row_offset + i]) : 0.f;
+  __syncthreads();
+
+  const int live = max(0, min(tail_len, q_pos[b] - kv_lens[b] + 1));
+  const float scale = rsqrtf((float)D);
+  for (int i = tid; i < GT * tail_len; i += NT) {
+    const int g = i / tail_len;
+    const int s = i - g * tail_len;
+    const T* kr = k_tail + (((size_t)b * tail_len + s) * kv_heads + h) * D;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) acc = fmaf(qs[g * D + d], to_f32(kr[d]), acc);
+    ps[g * kMaxTail + s] = s < live ? acc * scale : kNegInf;
+  }
+  __syncthreads();
+  if (tid < GT) {
+    float* p = ps + tid * kMaxTail;
+    float mx = kNegInf;
+    for (int s = 0; s < live; ++s) mx = fmaxf(mx, p[s]);
+    float l = 0.f;
+    for (int s = 0; s < tail_len; ++s) {
+      const float e = s < live ? expf(p[s] - mx) : 0.f;
+      p[s] = e;
+      l += e;
+    }
+    ms[tid] = mx;
+    ls[tid] = l;
+  }
+  __syncthreads();
+  float* part = partials + partial_offset<D, GT>(b, blockIdx.y, gridDim.y,
+                                                 part_splits,
+                                                 part_splits - 1);
+  for (int i = tid; i < GT * D; i += NT) {
+    const int g = i / D;
+    const int d = i - g * D;
+    const T* vr = v_tail + ((size_t)b * tail_len * kv_heads + h) * D + d;
+    float acc = 0.f;
+    for (int s = 0; s < tail_len; ++s)
+      acc = fmaf(ps[g * kMaxTail + s],
+                 to_f32(vr[(size_t)s * kv_heads * D]), acc);
+    part[g * PW + d] = acc;
+    if (d == 0) {
+      part[g * PW + D] = ms[g];
+      part[g * PW + D + 1] = ls[g];
+    }
+  }
+}
+
+
+
+template <typename T, typename C, int D, int GT>
+int launch(const DecodeArgs& a) {
+  if (kQuantized<C> && (a.ks == nullptr || a.vs == nullptr))
+    return cudaErrorInvalidValue;
+  const bool tail = a.k_tail != nullptr;
+  const int part_splits = a.num_splits + (tail ? 1 : 0);
+  const int group = a.num_q_heads / a.num_kv_heads;
+  const int tiles = (group + GT - 1) / GT;
+  const dim3 grid(a.batch, a.num_kv_heads * tiles);
+  constexpr size_t smem = DecodeSmem<C, D, GT>::bytes;
+  auto kernel = paged_decode_kernel<T, C, D, GT>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<dim3(grid.x, grid.y, a.num_splits), kDecodeThreads, smem,
+           a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const C*>(a.k),
+      static_cast<const C*>(a.v), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.pt),
+      static_cast<const int*>(a.kv_lens), static_cast<T*>(a.out),
+      static_cast<float*>(a.partials), a.num_q_heads, group, tiles,
+      a.num_pages, a.page_size, a.max_pages, part_splits,
+      a.chunks_per_split, a.layer);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || part_splits == 1) return err;
+  if (tail) {
+    paged_decode_tail_kernel<T, D, GT>
+        <<<grid, kDecodeThreads, 0, a.stream>>>(
+            static_cast<const T*>(a.q), static_cast<const T*>(a.k_tail),
+            static_cast<const T*>(a.v_tail),
+            static_cast<const int*>(a.kv_lens),
+            static_cast<const int*>(a.q_pos),
+            static_cast<float*>(a.partials), a.num_q_heads, group, tiles,
+            a.num_kv_heads, a.tail_len, part_splits);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  paged_decode_merge_kernel<T, D, GT><<<grid, GT * D, 0, a.stream>>>(
+      static_cast<const float*>(a.partials), static_cast<T*>(a.out),
+      a.num_q_heads, group, tiles, part_splits);
+  return cudaGetLastError();
+}
+
+// The launch at the group tile group_tile() picks (a tile wider than
+// max_group_tile(D) is never built).
+template <typename T, typename C, int D>
+int launch_tiled(const DecodeArgs& a) {
+  const int gt = group_tile(a.num_q_heads / a.num_kv_heads, D);
+  if (gt == 1) return launch<T, C, D, 1>(a);
+  if (gt == 4) return launch<T, C, D, 4>(a);
+  if constexpr (max_group_tile(D) >= 8) {
+    if (gt == 8) return launch<T, C, D, 8>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The launch of one query type (the dtype code's T) at any cache type
+// and head dim of PSTT_FOR_EACH_GEOMETRY: paged_decode_{bf16,f16,f32}.cu
+// instantiate the kernels a query type each, so the three compile in
+// parallel. cudaErrorInvalidValue for a cache dtype or head dim the list
+// lacks.
+int decode_launch_bf16(const DecodeArgs& args, int cache_dtype,
+                       int head_dim);
+int decode_launch_f16(const DecodeArgs& args, int cache_dtype,
+                      int head_dim);
+int decode_launch_f32(const DecodeArgs& args, int cache_dtype,
+                      int head_dim);
+
+}  // namespace pstt
+
+// The body of a decode_launch_<type>: one case a line of the type's
+// list.
+#define PSTT_DECODE_CASE(code, T, ccode, C, D) \
+  if (cache_dtype == ccode && head_dim == D)   \
+    return pstt::launch_tiled<T, C, D>(args);

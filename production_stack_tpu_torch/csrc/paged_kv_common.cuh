@@ -2,10 +2,10 @@
 // share (paged_decode.cu, paged_prefill.cu, paged_ragged.cu): the
 // geometries they are built for, the layer offsets, row maps and masks,
 // the asynchronous staging of a chunk (cp.async), and page_walk_block,
-// the f32 FMA page walk. The f32 prefill and ragged geometries run
-// page_walk_block; the bf16 prefill and ragged geometries run the
-// tensor-core walk of paged_walk_mma.cuh, decode its own split walk
-// (paged_decode.cu). The contract below is the same for all of them.
+// the f32 FMA page walk. f32 prefill and ragged run page_walk_block;
+// bf16 and f16 prefill and ragged run the tensor-core walk of
+// paged_walk_mma.cuh, decode its own split walk (paged_decode.cu). The
+// contract below is the same for all of them.
 //
 // Counterpart of make_page_dma / run_page_walk in the JAX package's
 // ops/paged_kv_common.py. One block owns one (row, kv head) pair and a
@@ -42,6 +42,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,28 +54,36 @@ constexpr int kChunk = 128;           // tokens per walk step
 constexpr int kStride = kChunk + 1;   // smem row stride of K, V, scores
 constexpr float kNegInf = -1e30f;
 
-// The one list of what the kernels are built for: X(dtype code, query
-// and output type, cache dtype code, cache element type, query group =
-// q heads per kv head, head dim), one entry per model config and KV
-// cache dtype the engine serves. Codes: 0 bf16, 1 f32, 2 int8 (the
-// host's _DTYPE_CODES / _CACHE_CODES). All three kernels dispatch
-// through it, and pstt_kernel_supports() (paged_decode.cu) answers the
-// host from it.
-// Add a line when a config needs another geometry.
-#define PSTT_FOR_EACH_GEOMETRY(X)                                       \
-  X(0, __nv_bfloat16, 0, __nv_bfloat16, 4, 64) /* bench-1b */           \
-  X(0, __nv_bfloat16, 2, int8_t, 4, 64)  /* bench-1b, int8 KV */        \
-  /* Mixtral-8x7B, Mistral-7B, Llama-3-8B */                          \
-  X(0, __nv_bfloat16, 0, __nv_bfloat16, 4, 128)                         \
-  X(0, __nv_bfloat16, 2, int8_t, 4, 128) /* the same, int8 KV */        \
-  X(0, __nv_bfloat16, 0, __nv_bfloat16, 7, 128) /* Qwen2-7B */          \
-  X(0, __nv_bfloat16, 2, int8_t, 7, 128) /* Qwen2-7B, int8 KV */        \
-  X(0, __nv_bfloat16, 0, __nv_bfloat16, 1, 64) /* OPT to 2.7b, GPT-2 */ \
-  X(0, __nv_bfloat16, 2, int8_t, 1, 64)  /* the same, int8 KV */        \
-  X(1, float, 1, float, 2, 32)           /* tiny-llama */               \
-  X(1, float, 2, int8_t, 2, 32)          /* tiny-llama, int8 KV */      \
-  X(1, float, 1, float, 1, 32)           /* tiny-opt, tiny-gpt2 */      \
-  X(1, float, 2, int8_t, 1, 32)          /* the same, int8 KV */
+// What the kernels are built for: every query and output type (codes:
+// 0 bf16, 1 f32, 3 f16, the host's _DTYPE_CODES) over a cache of the
+// same type or int8 (cache code 2, the host's _CACHE_CODES), at every
+// head dim of PSTT_FOR_EACH_HEAD_DIM. The query group (q heads per kv
+// head) is a run-time value of every kernel: any group of 1 or more.
+// All three kernels dispatch through PSTT_FOR_EACH_GEOMETRY, and
+// pstt_kernel_supports() (paged_decode.cu) answers the host from it;
+// ops/paged_kv_common.kernel_geometry_supported is the same rule.
+//
+// Head dims: 64 (bench-1b, TinyLlama, Qwen2-0.5B, OPT to 1.3b, GPT-2),
+// 80 (OPT-2.7b: 2560 / 32), 128 (Llama, Mistral, Mixtral, the other
+// Qwen2 and the larger OPT checkpoints) and 32 (the tiny test configs).
+#define PSTT_FOR_EACH_HEAD_DIM(X, code, T, ccode, C) \
+  X(code, T, ccode, C, 32)                           \
+  X(code, T, ccode, C, 64)                           \
+  X(code, T, ccode, C, 80)                           \
+  X(code, T, ccode, C, 128)
+#define PSTT_FOR_EACH_BF16_GEOMETRY(X)                          \
+  PSTT_FOR_EACH_HEAD_DIM(X, 0, __nv_bfloat16, 0, __nv_bfloat16) \
+  PSTT_FOR_EACH_HEAD_DIM(X, 0, __nv_bfloat16, 2, int8_t)
+#define PSTT_FOR_EACH_F16_GEOMETRY(X)           \
+  PSTT_FOR_EACH_HEAD_DIM(X, 3, __half, 3, __half) \
+  PSTT_FOR_EACH_HEAD_DIM(X, 3, __half, 2, int8_t)
+#define PSTT_FOR_EACH_F32_GEOMETRY(X)         \
+  PSTT_FOR_EACH_HEAD_DIM(X, 1, float, 1, float) \
+  PSTT_FOR_EACH_HEAD_DIM(X, 1, float, 2, int8_t)
+#define PSTT_FOR_EACH_GEOMETRY(X) \
+  PSTT_FOR_EACH_BF16_GEOMETRY(X)  \
+  PSTT_FOR_EACH_F16_GEOMETRY(X)   \
+  PSTT_FOR_EACH_F32_GEOMETRY(X)
 
 template <typename C>
 constexpr bool kQuantized = std::is_same<C, int8_t>::value;
@@ -88,6 +97,10 @@ __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 template <>
+__device__ __forceinline__ float to_f32<__half>(__half x) {
+  return __half2float(x);
+}
+template <>
 __device__ __forceinline__ float to_f32<int8_t>(int8_t x) {
   return (float)x;
 }
@@ -99,6 +112,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // Shared memory of one block, in floats. A quantized cache (QUANT)
@@ -321,8 +338,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// log2 of a power of two (page sizes divide 128, head dims are 32, 64
-// or 128: the staging loops shift where stage_chunk divides).
+// log2 of a power of two (page sizes divide 128: the staging loops
+// shift where stage_chunk divides; head dims need not be powers of two,
+// 80 is one, and are divided by as compile-time constants).
 __device__ __forceinline__ int log2_pow2(int x) { return __ffs(x) - 1; }
 
 // Start the copies of one 128-token chunk of K and V pages. `off(d,
@@ -336,18 +354,20 @@ __device__ __forceinline__ void stage_chunk_async(
     int page_size, uint32_t k_dst, uint32_t v_dst, Off off) {
   constexpr int kVec = 16 / sizeof(C);
   const int ps_shift = log2_pow2(page_size);
-  const int page_shift = ps_shift + log2_pow2(D);  // D * page_size elems
   const int first_page = chunk << (log2_pow2(kChunk) - ps_shift);
   for (int i = threadIdx.x; i < D * kChunk / kVec; i += NT) {
     const int e = i * kVec;
-    const int j = e >> page_shift;
-    const int rem = e - (j << page_shift);
-    const int d = rem >> ps_shift;
-    const int col = rem - (d << ps_shift);
+    // e = (j * D + d) * page_size + col: page j of the chunk, head dim
+    // d, token col of the page.
+    const int jd = e >> ps_shift;
+    const int j = jd / D;
+    const int rem = e - ((j * D) << ps_shift);  // d * page_size + col
+    const int d = jd - j * D;
+    const int col = e & (page_size - 1);
     const int lp = first_page + j;
     const bool live = lp < pages_live;
     const size_t src =
-        live ? ((size_t)pt_row[lp] << page_shift) + rem : (size_t)0;
+        live ? (((size_t)pt_row[lp] * D) << ps_shift) + rem : (size_t)0;
     const uint32_t o = off(d, (j << ps_shift) + col);
     cp_async16(k_dst + o, k_head + src, live);
     cp_async16(v_dst + o, v_head + src, live);
@@ -414,9 +434,11 @@ __device__ void page_walk_block(const T* __restrict__ q,
   constexpr int TX = NT / TY;
   constexpr int RM = ROWS / TY;
   constexpr int TN = kChunk / TX;
-  constexpr int DN = D / TX;
-  static_assert(ROWS % TY == 0 && D % TX == 0 && kChunk % TX == 0,
-                "thread layout must tile the rows, head dim and chunk");
+  // Head dims a thread owns: tx + TX * j < D (the last j is cut where
+  // TX does not divide D, as at 80 over 32 columns).
+  constexpr int DN = (D + TX - 1) / TX;
+  static_assert(ROWS % TY == 0 && kChunk % TX == 0,
+                "thread layout must tile the rows and the chunk");
   using L = SmemLayout<D, ROWS, QUANT>;
   constexpr int QS = L::kQStride;
   extern __shared__ float smem[];
@@ -538,7 +560,10 @@ __device__ void page_walk_block(const T* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < RM; ++i) pv[i] = ss[(ty * RM + i) * kStride + t];
 #pragma unroll
-      for (int j = 0; j < DN; ++j) vv[j] = vs[(tx + TX * j) * kStride + t];
+      for (int j = 0; j < DN; ++j)
+        vv[j] = (D % TX == 0 || tx + TX * j < D)
+                    ? vs[(tx + TX * j) * kStride + t]
+                    : 0.f;
 #pragma unroll
       for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -554,7 +579,9 @@ __device__ void page_walk_block(const T* __restrict__ q,
     const float denom = fmaxf(ls[r], 1e-30f);
     T* dst = out + rows.offset(r);
 #pragma unroll
-    for (int j = 0; j < DN; ++j) dst[tx + TX * j] = from_f32<T>(acc[i][j] / denom);
+    for (int j = 0; j < DN; ++j)
+      if (D % TX == 0 || tx + TX * j < D)
+        dst[tx + TX * j] = from_f32<T>(acc[i][j] / denom);
   }
 }
 

@@ -12,15 +12,17 @@
 // head_dim operations per visible (query, token) pair over K/V that
 // the G * T rows of a kv head share, far above the card's ridge of
 // about 295 bf16 operations per byte; so the products have to run on
-// the tensor cores. The bf16 geometries (bf16 or int8 cache) take the
-// tensor-core walk of paged_walk_mma.cuh: one block of 4 warps, each
-// warp 16 rows with q in registers, bf16 mma.sync for q.k^T and p.v,
-// scores and probabilities in registers, K/V staged in 16 bits through
-// two cp.async stages (68 KB a block and three blocks an SM at
-// head_dim 64; at 128 one stage of 68 KB, two blocks an SM). The f32
-// geometries (tiny-llama, held to 1e-4) keep page_walk_block
-// (paged_kv_common.cuh): f32 FMA over f32 tiles, one block of 256
-// threads a tile. The choice is by type, at compile time.
+// the tensor cores. bf16 and f16 queries (over a cache of their type
+// or int8) take the tensor-core walk of paged_walk_mma.cuh: one block
+// of 4 warps, each warp 16 rows with q in registers, mma.sync in the
+// query's type for q.k^T and p.v, scores and probabilities in
+// registers, K/V staged in 16 bits through two cp.async stages (68 KB
+// a block and three blocks an SM at head_dim 64; at 128 one stage of
+// 68 KB, two blocks an SM). f32 queries (held to 1e-4) keep
+// page_walk_block (paged_kv_common.cuh): f32 FMA over f32 tiles, one
+// block of 256 threads a tile (200 KB of shared memory at head_dim
+// 128). The choice is by type, at compile time; the query group is a
+// run-time value of both walks (any group: G * T rows cut into tiles).
 //
 // C interface (loaded with ctypes by ops/paged_kv_common.py):
 //   q/out [B, T, num_q_heads, D]; k/v cache [kv_heads, num_pages, D,
@@ -28,7 +30,8 @@
 //   `layer`; k/v scale [(L,) kv_heads, num_pages, page_size] f32 for an
 //   int8 cache, else null; page_table [B, max_pages], q_positions
 //   [B, T] (row starts read only), kv_lens [B], all int32; dtype (q,
-//   out) 0 = bf16, 1 = f32; cache_dtype 0 = bf16, 1 = f32, 2 = int8;
+//   out) 0 = bf16, 1 = f32, 3 = f16; cache_dtype the same code, or 2 =
+//   int8;
 //   layer_stride / scale_layer_stride as in paged_decode.cu.
 // Launches on `stream`, allocates nothing, does not synchronise, and
 // returns cudaGetLastError() after the launch.
@@ -78,10 +81,11 @@ paged_prefill_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
 constexpr int kMmaWarps = kTileRows / 16;  // a warp owns 16 rows
 constexpr int kMmaThreads = kMmaWarps * 32;
 
-// The bf16 geometries: the same tile and grid on the tensor-core walk.
-template <typename C, int D>
+// 16-bit queries (T bf16 or f16): the same tile and grid on the
+// tensor-core walk.
+template <typename T, typename C, int D>
 __global__ void __launch_bounds__(kMmaThreads, mma_blocks_per_sm<C, D>())
-paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
+paged_prefill_mma_kernel(const T* __restrict__ q,
                          const C* __restrict__ k_cache,
                          const C* __restrict__ v_cache,
                          const float* __restrict__ k_scale,
@@ -89,7 +93,7 @@ paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const int* __restrict__ page_table,
                          const int* __restrict__ q_positions,
                          const int* __restrict__ kv_lens,
-                         __nv_bfloat16* __restrict__ out, int tokens,
+                         T* __restrict__ out, int tokens,
                          int num_q_heads, int group, int num_pages,
                          int page_size, int max_pages, LayerOffsets layer) {
   const int tile = blockIdx.x;
@@ -103,7 +107,7 @@ paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t head_slots = (size_t)num_pages * page_size;
   RowMap rows{((size_t)b * tokens * num_q_heads + (size_t)h * group) * D,
               tokens, num_q_heads, D, row0};
-  page_walk_block_mma<C, D, kMmaWarps>(
+  page_walk_block_mma<T, C, D, kMmaWarps>(
       q, out, rows, k_cache + layer.data() + h * head_elems,
       v_cache + layer.data() + h * head_elems,
       kQuantized<C> ? k_scale + layer.scale() + h * head_slots : nullptr,
@@ -123,9 +127,9 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   const int group = num_q_heads / num_kv_heads;
   const int tiles = (group * tokens + kTileRows - 1) / kTileRows;
   const dim3 grid(tiles, num_kv_heads, batch);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (!std::is_same<T, float>::value) {
     constexpr size_t smem = MmaSmem<C, D>::bytes;
-    auto kernel = paged_prefill_mma_kernel<C, D>;
+    auto kernel = paged_prefill_mma_kernel<T, C, D>;
     static const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (attr != cudaSuccess) return attr;
@@ -176,11 +180,9 @@ extern "C" int pstt_paged_prefill(int dtype, int cache_dtype,
     return cudaErrorInvalidValue;
   const pstt::LayerOffsets offsets{layer, layer_stride, scale_layer_stride};
   if (batch == 0 || tokens == 0) return cudaSuccess;
-  const int group = num_q_heads / num_kv_heads;
   auto s = static_cast<cudaStream_t>(stream);
-#define PSTT_PREFILL_CASE(code, T, ccode, C, G, D)                         \
-  if (dtype == code && cache_dtype == ccode && group == G &&               \
-      head_dim == D)                                                       \
+#define PSTT_PREFILL_CASE(code, T, ccode, C, D)                            \
+  if (dtype == code && cache_dtype == ccode && head_dim == D)              \
     return pstt::launch<T, C, D>(q, k, v, k_scale, v_scale, page_table,    \
                                  q_positions, kv_lens, out, batch, tokens, \
                                  num_q_heads, num_kv_heads, num_pages,     \

@@ -21,21 +21,23 @@
 // What bounds it: at the widest mixed step, the chunk rows' arithmetic
 // (the work of a first and a second prefill chunk) and the bytes of
 // the decode rows' K/V and of the block's output (every slot, dead
-// ones included, is written). So the bf16 geometries (bf16 or int8
-// cache) take the tensor-core walk of paged_walk_mma.cuh, as prefill
-// does: one block of 4 warps, each warp 16 rows with q in registers,
-// bf16 mma.sync for q.k^T and p.v (the probabilities enter p.v as
-// bf16), K/V staged in 16 bits through two cp.async stages, 68 KB a
+// ones included, is written). So bf16 and f16 queries (over a cache
+// of their type or int8) take the tensor-core walk of
+// paged_walk_mma.cuh, as prefill does: one block of 4 warps, each warp
+// 16 rows with q in registers, mma.sync in the query's type for q.k^T
+// and p.v (the probabilities enter p.v in that type), K/V staged in
+// 16 bits through two cp.async stages, 68 KB a
 // block and three blocks an SM at head_dim 64 (at 128 one stage of 68
 // KB, two blocks an SM). One row block serves every tile: a warp
 // none of whose 16 rows is live skips every product, so a decode row's
 // tile (G = 4 live rows) multiplies on one warp and a verify row's
-// ((K + 1) * G = 20) on two, while all four share the copies. The f32
-// geometries (tiny-llama, held to 1e-4) keep page_walk_block
-// (paged_kv_common.cuh, f32 FMA) with the narrowest of three row
-// blocks (8, 32 or 64 rows) that holds the tile's live rows. The
-// choice is by type, at compile time. An int8 cache stages as int8
-// pages and their scales, folded in the Pallas order.
+// ((K + 1) * G = 20) on two, while all four share the copies. f32
+// queries (held to 1e-4) keep page_walk_block (paged_kv_common.cuh,
+// f32 FMA) with the narrowest of three row blocks (8, 32 or 64 rows)
+// that holds the tile's live rows. The choice is by type, at compile
+// time; the query group is a run-time value (any group: G * W slot-
+// major rows cut into tiles). An int8 cache stages as int8 pages and
+// their scales, folded in the Pallas order.
 //
 // C interface (loaded with ctypes by ops/paged_kv_common.py):
 //   q/out [R, W, num_q_heads, D]; k/v cache [kv_heads, num_pages, D,
@@ -43,7 +45,8 @@
 //   `layer`; k/v scale [(L,) kv_heads, num_pages, page_size] f32 for an
 //   int8 cache, else null; page_table [R, max_pages], kv_lens [R],
 //   last_index [R], draft_lens [R] or null, all int32; dtype (q, out)
-//   0 = bf16, 1 = f32; cache_dtype 0 = bf16, 1 = f32, 2 = int8;
+//   0 = bf16, 1 = f32, 3 = f16; cache_dtype the same code, or 2 =
+//   int8;
 //   layer_stride / scale_layer_stride as in paged_decode.cu.
 // Launches on `stream`, allocates nothing, does not synchronise, and
 // returns cudaGetLastError() after the launch.
@@ -87,7 +90,8 @@ __device__ __forceinline__ RaggedTile ragged_tile(
 }
 
 // Rows [tile.live, tile.tile_rows) of the tile: exact 0, one 16-byte
-// store a thread at a time (a row is D * sizeof(T) = 128 bytes).
+// store a thread at a time (a row is D * sizeof(T) bytes, a multiple
+// of 16 at every head dim and type built).
 template <typename T, int D, int NT>
 __device__ __forceinline__ void zero_dead_rows(T* __restrict__ out,
                                                const RaggedTile& tile) {
@@ -124,8 +128,8 @@ struct RaggedHead {
   }
 };
 
-// The f32 geometries: f32 FMA over f32 tiles, with the narrowest row
-// block that holds the tile's live rows.
+// f32 queries: f32 FMA over f32 tiles, with the narrowest row block
+// that holds the tile's live rows.
 template <typename T, typename C, int D>
 __global__ void __launch_bounds__(kRaggedThreads)
 paged_ragged_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
@@ -160,12 +164,12 @@ paged_ragged_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
   }
 }
 
-// The bf16 geometries: the same tile and grid on the tensor-core walk,
-// one row block for every tile (warps with no live row skip their
-// products).
-template <typename C, int D>
+// 16-bit queries (T bf16 or f16): the same tile and grid on the
+// tensor-core walk, one row block for every tile (warps with no live
+// row skip their products).
+template <typename T, typename C, int D>
 __global__ void __launch_bounds__(kMmaThreads, mma_blocks_per_sm<C, D>())
-paged_ragged_mma_kernel(const __nv_bfloat16* __restrict__ q,
+paged_ragged_mma_kernel(const T* __restrict__ q,
                         const C* __restrict__ k_cache,
                         const C* __restrict__ v_cache,
                         const float* __restrict__ k_scale,
@@ -173,16 +177,16 @@ paged_ragged_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const int* __restrict__ page_table,
                         const int* __restrict__ kv_lens,
                         const int* __restrict__ last_index,
-                        __nv_bfloat16* __restrict__ out, int width,
+                        T* __restrict__ out, int width,
                         int num_q_heads, int group, int num_pages,
                         int page_size, int max_pages, LayerOffsets layer) {
   const RaggedTile tile =
       ragged_tile<D>(kv_lens, last_index, width, num_q_heads, group);
-  zero_dead_rows<__nv_bfloat16, D, kMmaThreads>(out, tile);
+  zero_dead_rows<T, D, kMmaThreads>(out, tile);
   if (tile.live == 0) return;
   const RaggedHead<C, D> head(k_cache, v_cache, k_scale, v_scale, num_pages,
                               page_size, layer);
-  page_walk_block_mma<C, D, kMmaWarps>(
+  page_walk_block_mma<T, C, D, kMmaWarps>(
       q, out, tile.rows, head.k, head.v, head.ks, head.vs,
       page_table + (size_t)blockIdx.z * max_pages, max_pages, page_size,
       tile.mask.kv_len, tile.mask, tile.live);
@@ -199,9 +203,9 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   const int group = num_q_heads / num_kv_heads;
   const int tiles = (group * width + kRaggedTile - 1) / kRaggedTile;
   const dim3 grid(tiles, num_kv_heads, rows);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (!std::is_same<T, float>::value) {
     constexpr size_t smem = MmaSmem<C, D>::bytes;
-    auto kernel = paged_ragged_mma_kernel<C, D>;
+    auto kernel = paged_ragged_mma_kernel<T, C, D>;
     static const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (attr != cudaSuccess) return attr;
@@ -255,11 +259,9 @@ extern "C" int pstt_paged_ragged(int dtype, int cache_dtype, const void* q,
     return cudaErrorInvalidValue;
   const pstt::LayerOffsets offsets{layer, layer_stride, scale_layer_stride};
   if (rows == 0 || width == 0) return cudaSuccess;
-  const int group = num_q_heads / num_kv_heads;
   auto s = static_cast<cudaStream_t>(stream);
-#define PSTT_RAGGED_CASE(code, T, ccode, C, G, D)                          \
-  if (dtype == code && cache_dtype == ccode && group == G &&               \
-      head_dim == D)                                                       \
+#define PSTT_RAGGED_CASE(code, T, ccode, C, D)                             \
+  if (dtype == code && cache_dtype == ccode && head_dim == D)              \
     return pstt::launch<T, C, D>(q, k, v, k_scale, v_scale, page_table,    \
                                  kv_lens, last_index, out, rows, width,    \
                                  num_q_heads, num_kv_heads, num_pages,     \

@@ -1,4 +1,5 @@
-// The tensor-core page walk for 16-bit queries (paged_prefill.cu with
+// The tensor-core page walk for 16-bit queries, bf16 or f16 (T), over
+// a cache of the same type or int8 (paged_prefill.cu with
 // CausalMask / RowMap, paged_ragged.cu with RaggedMask / SlotMajorRows:
 // the mask and the row map are template parameters exactly as in
 // page_walk_block).
@@ -9,8 +10,10 @@
 // can see; a row with nothing to see writes exact 0, rows >= nrows are
 // never written. What differs is how the card is used:
 //
-//   - q.k^T and p.v run on the tensor cores as bf16 mma.sync
-//     (m16n8k16, f32 accumulation). Each warp owns 16 query rows and
+//   - q.k^T and p.v run on the tensor cores as mma.sync m16n8k16 in
+//     the query's type (its bf16 or f16 form, f32 accumulation): D / 16
+//     k steps of q.k^T and D / 8 n tiles of p.v (five and ten at
+//     head_dim 80). Each warp owns 16 query rows and
 //     keeps their q fragments in registers for the whole walk. A page
 //     of one kv head is [D, page_size] token-minor, so K as it lies is
 //     the B operand of q.k^T with n (the token) contiguous: ldmatrix
@@ -19,25 +22,27 @@
 //   - Scores never touch shared memory. The accumulator fragment of
 //     q.k^T is scaled, masked and exponentiated in registers (row max
 //     over the quad with two shuffles; exp2f with log2(e) / sqrt(D)
-//     folded into the scale), and packed to bf16 in place as the A
+//     folded into the scale), and packed to T in place as the A
 //     fragment of p.v (the m16n8 accumulator layout is the m16k16 A
 //     layout). m, l and the output accumulator stay in registers; l
 //     sums the unrounded probabilities. The softmax steps 64 tokens at
 //     a time, which halves the score registers.
-//   - K and V stage as bf16, never as f32: a chunk of both is 32 KB
+//   - K and V stage in 16 bits, never as f32: a chunk of both is 32 KB
 //     at head_dim 64, in two stages filled with cp.async, so chunk
 //     c + 1 arrives while chunk c is multiplied. Rows are padded by 16
 //     bytes (272 a row): the eight 16-byte rows of an ldmatrix tile
 //     then fall on eight different bank groups. 68 KB a block, three
-//     blocks an SM. At head_dim 128 every tile, and each warp's output
+//     blocks an SM. At head_dim 80, two stages of 85 KB, two blocks an
+//     SM. At head_dim 128 every tile, and each warp's output
 //     accumulators, double: one stage of 68 KB, two blocks an SM (the
 //     other block's products overlap a block's copies).
 //   - An int8 cache stages its raw pages (two stages of 16 KB) and its
 //     scales with the same copies; each chunk is then converted once
-//     to the bf16 tile (exact: |x| <= 127) and runs the same products.
+//     to the T tile (exact in bf16 and f16: |x| <= 127) and runs the
+//     same products.
 //     The scales fold in the Pallas order: score column t times
 //     k_scale[t] after the product, l sums the unscaled p, p *
-//     v_scale[t] before the conversion to bf16.
+//     v_scale[t] before the conversion to T.
 //   - The mask is applied only where it cuts: a 64-token step wholly
 //     below every limit of the warp skips the compares, and 16-token
 //     groups past the warp's highest limit skip their products.
@@ -48,19 +53,20 @@
 
 namespace pstt {
 
-constexpr int kMmaRowBytes = kChunk * 2 + 16;  // a padded bf16 tile row
+constexpr int kMmaRowBytes = kChunk * 2 + 16;  // a padded 16-bit tile row
 constexpr int kMmaStep = 64;                   // tokens per softmax step
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of one block, in bytes. Full precision: kStages stages
-// of bf16 K and V tiles. Quantized: one bf16 tile pair, kStages stages
+// of 16-bit K and V tiles. Quantized: one 16-bit tile pair, kStages stages
 // of raw int8 planes and two of the chunk's scales (the products read
-// chunk c's scales while chunk c + 1's arrive). Two stages at head_dim
-// 64; one at 128, where two would leave one block (four warps) an SM.
+// chunk c's scales while chunk c + 1's arrive). Two stages up to
+// head_dim 80; one at 128, where two would leave one block (four
+// warps) an SM.
 template <typename C, int D>
 struct MmaSmem {
   static constexpr bool kQuant = kQuantized<C>;
-  static constexpr int kStages = D <= 64 ? 2 : 1;
+  static constexpr int kStages = D <= 80 ? 2 : 1;
   static constexpr int kTile = D * kMmaRowBytes;
   static constexpr int kTileStages = kQuant ? 1 : kStages;
   static constexpr int kRaw = kQuant ? D * kChunk : 0;
@@ -75,8 +81,9 @@ struct MmaSmem {
 // Blocks of the walk an SM holds, the minimum its __launch_bounds__
 // promise: as many as the SM's 233,472 bytes of shared memory take (1
 // KB of it reserved a block), at most three at head_dim 64 (68 KB a
-// block: 170 registers a thread) and two at 128 (68 KB and 102 KB
-// int8: 255 registers, where a warp's 64 f32 output accumulators fit).
+// block: 170 registers a thread) and two above (85 KB at 80; 68 KB and
+// 102 KB int8 at 128: 255 registers, where a warp's 64 f32 output
+// accumulators fit).
 template <typename C, int D>
 constexpr int mma_blocks_per_sm() {
   constexpr int fit = 233472 / (MmaSmem<C, D>::bytes + 1024);
@@ -84,8 +91,18 @@ constexpr int mma_blocks_per_sm() {
   return fit < 1 ? 1 : (fit > most ? most : fit);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// Two f32 values as one word of two T (bf16 or f16), lo in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo,
+                                                         float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  const __half2 h = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
@@ -105,15 +122,24 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
-// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// c += a (16 x 16, row) * b (16 x 8, col), T (bf16 or f16) in, f32
+// accumulate.
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
 // The walk for one block of WARPS * 16 rows. Fragment coordinates of
@@ -121,15 +147,15 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
 // columns 2 * quad + {0, 1} of their 16 x 8 tile, values 2, 3 at row
 // grp + 8.
 //
-//   q, out:      the layer's bf16 query/output
+//   q, out:      the layer's query/output, in T
 //   k/v_head:    this kv head's [num_pages, D, page_size] pages
 //   k/v_scale_head: this kv head's [num_pages, page_size] scales (int8
 //                cache only; null otherwise)
 //   pt_row:      this row's page-table entries (max_pages of them)
 //   nrows:       valid rows of the block; the rest are pad
-template <typename C, int D, int WARPS, class Mask, class Rows>
+template <typename T, typename C, int D, int WARPS, class Mask, class Rows>
 __device__ void page_walk_block_mma(
-    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out,
+    const T* __restrict__ q, T* __restrict__ out,
     Rows rows, const C* __restrict__ k_head, const C* __restrict__ v_head,
     const float* __restrict__ k_scale_head,
     const float* __restrict__ v_scale_head, const int* __restrict__ pt_row,
@@ -239,7 +265,7 @@ __device__ void page_walk_block_mma(
           uint32_t w[8];
 #pragma unroll
           for (int p = 0; p < 8; ++p)
-            w[p] = pack_bf16((float)x[2 * p], (float)x[2 * p + 1]);
+            w[p] = pack2<T>((float)x[2 * p], (float)x[2 * p + 1]);
           uint4* dst = reinterpret_cast<uint4*>(
               smem + L::tiles + which * L::kTile + d * kMmaRowBytes +
               col * 2);
@@ -306,8 +332,8 @@ __device__ void page_walk_block_mma(
             const int tok = tok0 + g2 * 16 + (lane >> 4) * 8;
             uint32_t b[4];
             ldmatrix_x4_trans(b, k_tile + d * kMmaRowBytes + tok * 2);
-            mma_bf16(s[2 * g2], qa[kk], b[0], b[1]);
-            mma_bf16(s[2 * g2 + 1], qa[kk], b[2], b[3]);
+            mma16<T>(s[2 * g2], qa[kk], b[0], b[1]);
+            mma16<T>(s[2 * g2 + 1], qa[kk], b[2], b[3]);
           }
         }
       }
@@ -359,7 +385,7 @@ __device__ void page_walk_block_mma(
         acc[i][2] *= a1;
         acc[i][3] *= a1;
       }
-      // p, packed to bf16 as the A fragments of p.v: score tiles 2 g2
+      // p, packed to T as the A fragments of p.v: score tiles 2 g2
       // and 2 g2 + 1 are the low and high k halves of k step g2.
       uint32_t pa[kMmaStep / 16][4];
 #pragma unroll
@@ -378,8 +404,8 @@ __device__ void page_walk_block_mma(
           p2 *= v2.x;
           p3 *= v2.y;
         }
-        pa[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
-        pa[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+        pa[nt >> 1][(nt & 1) * 2 + 0] = pack2<T>(p0, p1);
+        pa[nt >> 1][(nt & 1) * 2 + 1] = pack2<T>(p2, p3);
       }
 
       // acc += p . v over the visible 16-token groups.
@@ -394,8 +420,8 @@ __device__ void page_walk_block_mma(
             const int tok = tok0 + g2 * 16 + ((lane >> 3) & 1) * 8;
             uint32_t b[4];
             ldmatrix_x4(b, v_tile + d * kMmaRowBytes + tok * 2);
-            mma_bf16(acc[2 * dp], pa[g2], b[0], b[1]);
-            mma_bf16(acc[2 * dp + 1], pa[g2], b[2], b[3]);
+            mma16<T>(acc[2 * dp], pa[g2], b[0], b[1]);
+            mma16<T>(acc[2 * dp + 1], pa[g2], b[2], b[3]);
           }
         }
       }
@@ -414,13 +440,13 @@ __device__ void page_walk_block_mma(
     uint32_t* dst = reinterpret_cast<uint32_t*>(out + rows.offset(r0));
 #pragma unroll
     for (int i = 0; i < DN; ++i)
-      dst[i * 4 + quad] = pack_bf16(acc[i][0] / den0, acc[i][1] / den0);
+      dst[i * 4 + quad] = pack2<T>(acc[i][0] / den0, acc[i][1] / den0);
   }
   if (r1 < nrows) {
     uint32_t* dst = reinterpret_cast<uint32_t*>(out + rows.offset(r1));
 #pragma unroll
     for (int i = 0; i < DN; ++i)
-      dst[i * 4 + quad] = pack_bf16(acc[i][2] / den1, acc[i][3] / den1);
+      dst[i * 4 + quad] = pack2<T>(acc[i][2] / den1, acc[i][3] / den1);
   }
 }
 

@@ -331,11 +331,13 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_engine_geometry(config: EngineConfig) -> None:
-    """On the card: build (or find) and load the kernel library, and
-    raise unless the model's geometry, with the cache's dtype (and for
-    int8 a page size that is a multiple of 16), is one it is built for
-    (a ``PSTT_FOR_EACH_GEOMETRY`` line). The card never serves through
-    the plain versions."""
+    """On the card: raise, naming the rule it breaks, unless the
+    kernels serve the model's geometry with the cache's dtype
+    (``kernel_geometry_supported``: bf16, f16 or f32 over the same type
+    or int8, any query group, head_dim 32, 64, 80 or 128; and a page
+    size the walks take, a multiple of 16 for int8), then build (or
+    find) and load the kernel library and hold it to the same answer.
+    The card never serves through the plain versions."""
     model = config.model
     check_kernel_shapes(
         model.num_attention_heads, model.num_key_value_heads,

@@ -2290,8 +2290,8 @@ def engine_config_from_args(args, device: torch.device) -> tuple:
         # (unless --random-weights).
         model_config = load_model_config(args.model)
     if args.dtype:
-        # On the card the runner refuses a geometry the kernels are not
-        # built for, naming the missing PSTT_FOR_EACH_GEOMETRY line.
+        # On the card the runner refuses a geometry the kernels do not
+        # serve, naming the rule it breaks.
         model_config.dtype = args.dtype
     model_config.quantization = args.quantization
     model_config.attention_impl = args.attention_impl
@@ -2490,11 +2490,11 @@ def parse_args(argv=None):
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--dtype", default=None,
                    choices=[None, "bfloat16", "float32", "float16"],
-                   help="model dtype (default: the preset's); on the card "
-                        "only a dtype, query group and head_dim with a "
-                        "line in PSTT_FOR_EACH_GEOMETRY "
-                        "(csrc/paged_kv_common.cuh) is served, any other "
-                        "is refused at start")
+                   help="model dtype (default: the preset's), for any "
+                        "model; on the card the attention kernels take "
+                        "bf16, f16 or f32 at any query group and "
+                        "head_dim 32, 64, 80 or 128, and refuse any "
+                        "other head_dim at start, naming the rule")
     p.add_argument("--attention-impl", default="auto",
                    choices=["auto", "xla", "pallas", "pallas-interpret"],
                    help="the JAX server's values: auto and pallas run the "

@@ -142,9 +142,10 @@ def dispatch_attention(config: ModelConfig, q, k_cache, v_cache,
     ``impl`` is "cuda" (the kernel wrappers, which take the plain
     version for CPU tensors), "plain" (the plain versions, on any
     device) or "plain_bf16p" (the plain versions rounded as the card's
-    kernels round: for bf16 queries the prefill and ragged walks feed
-    their probabilities to p . v as bf16, as the tensor-core walk does;
-    decode and f32 queries take the f32 walk, as their kernels do). The
+    kernels round: for bf16 and f16 queries the prefill and ragged walks
+    feed their probabilities to p . v in the query's type, as the
+    tensor-core walk does; decode and f32 queries take the f32 walk, as
+    their kernels do). The
     default follows the tensors: "cuda" on the card, "plain" on the
     CPU; the engine never asks for a plain impl on the card.
     """
@@ -154,10 +155,10 @@ def dispatch_attention(config: ModelConfig, q, k_cache, v_cache,
         raise ValueError(f"attention impl must be one of "
                          f"{ATTENTION_IMPLS} (got {impl!r})")
     cuda = impl == "cuda"
-    # The walks that feed bf16 probabilities to p . v on the card.
-    rounded = ({"p_dtype": torch.bfloat16}
-               if impl == "plain_bf16p" and q.dtype == torch.bfloat16
-               else {})
+    # The walks that feed 16-bit probabilities to p . v on the card.
+    rounded = ({"p_dtype": q.dtype}
+               if impl == "plain_bf16p"
+               and q.dtype in (torch.bfloat16, torch.float16) else {})
     if kind == "decode":
         fn = paged_decode_attention if cuda else paged_decode_attention_plain
         return fn(q[:, 0], k_cache, v_cache, page_table, kv_lens,

@@ -50,10 +50,10 @@ KERNEL_NAME = "int8_weight_matmul"
 # the dequantize-then-matmul form it would otherwise take.
 INT8_KERNEL_MAX_ROWS = 160
 
-# Activation rows a tile of the bf16 kernel, and the row tiles it is
-# built for with the 64-value steps of K a chunk holds at each
-# (PSTT_W8_FOR_EACH_TILES in csrc/int8_weight_gemm.cu): the activations'
-# chunk, staged in shared memory, stays under 48 KB.
+# Activation rows a tile of the 16-bit (bf16 or f16) kernel, and the
+# row tiles it is built for with the 64-value steps of K a chunk holds
+# at each (PSTT_W8_FOR_EACH_TILES in csrc/int8_weight_gemm.cu): the
+# activations' chunk, staged in shared memory, stays under 48 KB.
 ROWS_A_TILE = 8
 X_TILES = {1: 4, 2: 4, 4: 4, 8: 4, 12: 2, 16: 2, 20: 2}
 # Weight rows a block (eight warps of 16).
@@ -95,8 +95,9 @@ def _check(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor
     dev = x2.device
     if dev.type != "cuda":
         raise ValueError("kernel operands must be CUDA tensors")
-    if x2.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"x must be bfloat16 or float32, got {x2.dtype}")
+    if x2.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise ValueError(f"x must be bfloat16, float16 or float32, got "
+                         f"{x2.dtype}")
     if q.device != dev or q.dtype != torch.int8 or q.dim() != 2:
         raise ValueError(f"q must be a [N, K] int8 tensor on {dev}")
     if (scale.device != dev or scale.dtype != torch.float32
@@ -110,7 +111,7 @@ def _check(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor
     k = q.shape[1]
     if x2.shape[1] != k:
         raise ValueError(f"x has {x2.shape[1]} columns, q {k}")
-    step = STEP_K if x2.dtype == torch.bfloat16 else 4
+    step = 4 if x2.dtype == torch.float32 else STEP_K
     if k % step:
         raise ValueError(f"K = {k} must be a multiple of {step} for "
                          f"{x2.dtype} activations")
@@ -121,7 +122,7 @@ def _check(x2: torch.Tensor, q: torch.Tensor, scale: torch.Tensor
 
 def int8_weight_matmul(x: torch.Tensor, q: torch.Tensor,
                        scale: torch.Tensor) -> torch.Tensor:
-    """``(x @ q^T) * scale`` in x's dtype: x [..., K] (bf16 or f32),
+    """``(x @ q^T) * scale`` in x's dtype: x [..., K] (bf16, f16 or f32),
     q [N, K] int8, scale [N] f32 -> [..., N].
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
@@ -134,7 +135,7 @@ def int8_weight_matmul(x: torch.Tensor, q: torch.Tensor,
     _check(x2, q, scale)
     m, n = x2.shape[0], q.shape[0]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if x.dtype == torch.bfloat16:
+    if x.dtype != torch.float32:  # the tensor-core kernel, bf16 or f16
         tiles = x_tiles(max(m, 1))
         splits, per = int8_weight_splits(m, n, k)
     else:

@@ -12,8 +12,11 @@ far below the ~295 operations per byte where the H100's tensor cores
 and not its memory become the limit. So the design reads each KV byte
 once per step and keeps bytes in flight on every SM:
 
-- the G query heads that share a kv head share every staged page (one
-  block serves all of them);
+- the G query heads that share a kv head share every staged page: one
+  block serves a group tile of them (``decode_group_tile``: the whole
+  group up to 4, or 8 at head_dim 64 and below; a larger group runs
+  ceil(G / tile) blocks a kv head, the last one's spare heads loading
+  zeros and never written);
 - split-KV: a (row, kv head) pair's 128-token chunks are cut into
   ``num_splits`` ranges, one block each, so that a small batch or a few
   long rows still fill the card's 132 SMs; each block writes its
@@ -94,6 +97,29 @@ MAX_TAIL = 32
 TARGET_BLOCKS = 4 * 132
 
 
+def decode_group_tile(group: int, head_dim: int) -> int:
+    """The query heads one decode block covers (csrc/paged_decode.cu
+    ``group_tile``; the library's ``pstt_decode_group_tile``): 1 for a
+    group of 1, 4 up to 4, else the widest tile of the head dim (8 at
+    64 and below, 4 above, where 8 heads' accumulators would pass a
+    thread's 255 registers)."""
+    if group <= 1:
+        return 1
+    return 4 if group <= 4 or head_dim > 64 else 8
+
+
+def _partials(q: torch.Tensor, num_kv_heads: int, slots: int
+              ) -> torch.Tensor:
+    """f32 scratch of the splits' (and a tail's) softmax states, tile-
+    major within a kv head: [B, kv_heads * tiles, slots, tile,
+    head_dim + 2] (acc[head_dim], m, l of each head of the tile)."""
+    b, num_q_heads, head_dim = q.shape
+    group = num_q_heads // num_kv_heads
+    tile = decode_group_tile(group, head_dim)
+    return torch.empty((b, num_kv_heads * -(-group // tile), slots, tile,
+                        head_dim + 2), dtype=torch.float32, device=q.device)
+
+
 def decode_splits(batch: int, num_kv_heads: int, max_pages: int,
                   page_size: int) -> Tuple[int, int]:
     """(number of splits, chunks of one split) of a decode launch.
@@ -155,10 +181,7 @@ def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("page_table/kv_lens rows must match the batch")
     splits, per = _split_for(num_splits, b, num_kv_heads,
                              page_table.shape[1], page_size)
-    # Each split's softmax state of every query head: acc[D], m, l.
-    partials = None if splits == 1 else torch.empty(
-        (b, num_kv_heads, splits, num_q_heads // num_kv_heads,
-         head_dim + 2), dtype=torch.float32, device=q.device)
+    partials = None if splits == 1 else _partials(q, num_kv_heads, splits)
     name = counter_name(KERNEL_NAME, ks, layer)
     err = kernel_lib().pstt_paged_decode(
         dtype_code(q.dtype), cache_code(kc.dtype), q.data_ptr(),
@@ -273,9 +296,7 @@ def paged_decode_tail_attention(q: torch.Tensor, k_cache: torch.Tensor,
     splits, per = _split_for(num_splits, b, num_kv_heads,
                              page_table.shape[1], page_size)
     # The walk's splits and the tail's slot after them.
-    partials = torch.empty(
-        (b, num_kv_heads, splits + 1, num_q_heads // num_kv_heads,
-         head_dim + 2), dtype=torch.float32, device=q.device)
+    partials = _partials(q, num_kv_heads, splits + 1)
     name = counter_name(TAIL_KERNEL_NAME, ks, layer)
     err = kernel_lib().pstt_paged_decode_tail(
         dtype_code(q.dtype), cache_code(kc.dtype), q.data_ptr(),

@@ -14,6 +14,9 @@ half:
   loads it. The build runs at first use, from the checkout's sources
   only;
 - the launch counters that show a run went through the kernels;
+- what the kernels serve (``kernel_geometry_supported``: bf16, f16 or
+  f32 over the same type or int8, any query group, head_dim 32, 64, 80
+  or 128), the rule the engine refuses a model by at start-up;
 - operand checks common to the wrappers, and the split of an int8
   cache (a ``QuantKV``, ops/quant_kv.py) into its data and scales;
 - the plain chunked page walk in torch: the same 128-token chunks,
@@ -49,15 +52,15 @@ NEG_INF = -1e30
 CHUNK_TOKENS = 128
 
 # dtype codes of the C interface: of the query/output and of the
-# cache's elements (an int8 cache's scales are always f32). Which
-# (dtype, cache dtype, query group, head dim) the kernels are built
-# for is listed once, in csrc/paged_kv_common.cuh
-# (PSTT_FOR_EACH_GEOMETRY), and asked of the library.
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+# cache's elements (an int8 cache's scales are always f32).
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 3}
 _CACHE_CODES = {**_DTYPE_CODES, torch.int8: 2}
-# The element types of those lines, for a message naming a missing one.
-_C_TYPES = {torch.bfloat16: "__nv_bfloat16", torch.float32: "float",
-            torch.float16: "__half", torch.int8: "int8_t"}
+# The head dims the kernels are built for: 64, 80 and 128, the ones the
+# six architectures publish, and 32 (the tiny test configs). The rule
+# of kernel_geometry_supported is csrc/paged_kv_common.cuh's
+# PSTT_FOR_EACH_GEOMETRY, which the library's pstt_kernel_supports
+# answers from.
+KERNEL_HEAD_DIMS = (32, 64, 80, 128)
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[2]
@@ -206,6 +209,8 @@ def kernel_lib() -> ctypes.CDLL:
             lib.pstt_paged_ragged.restype = i32
             lib.pstt_kernel_supports.argtypes = [i32] * 4
             lib.pstt_kernel_supports.restype = i32
+            lib.pstt_decode_group_tile.argtypes = [i32] * 2
+            lib.pstt_decode_group_tile.restype = i32
             # int8-weight GEMM (ops/int8_matmul_cuda.py): dtype, x, q,
             # scale, out, partials, M, N, K, row tiles, splits, K a
             # split, stream.
@@ -341,35 +346,59 @@ def check_kernel_operands(q, k_cache, v_cache, int_operands, out,
                         q.dtype, cache_dtype)
 
 
+def kernel_geometry_refusal(dtype: torch.dtype,
+                            cache_dtype: Optional[torch.dtype],
+                            group: int, head_dim: int) -> Optional[str]:
+    """The rule a geometry breaks, or None where the kernels serve it:
+    q and out bf16, f16 or f32 over a cache of the same type or int8,
+    any query group (q heads per kv head) of 1 or more, head_dim 32,
+    64, 80 or 128. Pure Python: the CPU tests read it, and the
+    library's ``pstt_kernel_supports`` answers the same."""
+    cache_dtype = cache_dtype or dtype
+    if dtype not in _DTYPE_CODES:
+        return (f"the kernels take bf16, f16 or f32 queries, not "
+                f"{dtype}")
+    if cache_dtype not in (dtype, torch.int8):
+        return (f"the kernels read a cache of the query's type or int8, "
+                f"not {cache_dtype} under {dtype} queries")
+    if group < 1:
+        return f"the query group must be 1 or more, not {group}"
+    if head_dim not in KERNEL_HEAD_DIMS:
+        return (f"the kernels are built for head_dim "
+                f"{', '.join(map(str, KERNEL_HEAD_DIMS))}, not {head_dim}")
+    return None
+
+
+def kernel_geometry_supported(dtype: torch.dtype,
+                              cache_dtype: Optional[torch.dtype],
+                              group: int, head_dim: int) -> bool:
+    """Whether the kernels serve this geometry
+    (``kernel_geometry_refusal`` finds no rule broken)."""
+    return kernel_geometry_refusal(dtype, cache_dtype, group,
+                                   head_dim) is None
+
+
 def check_kernel_shapes(num_q_heads: int, num_kv_heads: int,
                         head_dim: int, page_size: int,
                         dtype: torch.dtype,
                         cache_dtype: Optional[torch.dtype] = None) -> None:
-    """Raise NotImplementedError on a geometry the kernels are not
-    built for (asked of the kernel library, which it loads).
+    """Raise NotImplementedError, naming the rule, on a geometry the
+    kernels do not serve (``kernel_geometry_refusal``) or a page size
+    they do not walk; then ask the kernel library (which it builds and
+    loads) the same question, and raise RuntimeError if it disagrees.
     ``cache_dtype`` is the cache's element type (default ``dtype``;
     torch.int8 for an int8 cache). The runner calls it at start-up on
-    the card, so an unsupported model fails there and not at its first
-    step."""
+    the card, so an unsupported model fails there, before any weight
+    is read, and not at its first step."""
     cache_dtype = cache_dtype or dtype
-    if num_q_heads % num_kv_heads:
+    if num_kv_heads < 1 or num_q_heads % num_kv_heads:
         raise ValueError("num_q_heads must be a multiple of kv heads")
     group = num_q_heads // num_kv_heads
-    line = geometry_line(dtype, cache_dtype, group, head_dim)
-    if dtype not in _DTYPE_CODES or cache_dtype not in _CACHE_CODES:
+    refusal = kernel_geometry_refusal(dtype, cache_dtype, group, head_dim)
+    if refusal is not None:
         raise NotImplementedError(
-            f"kernels take bf16 or f32 operands over a cache of the same "
-            f"type or int8 (got {dtype} over {cache_dtype}): serving it "
-            f"needs a dtype code and the line {line} in "
-            "PSTT_FOR_EACH_GEOMETRY (csrc/paged_kv_common.cuh)")
-    if not kernel_lib().pstt_kernel_supports(
-            _DTYPE_CODES[dtype], _CACHE_CODES[cache_dtype], group,
-            head_dim):
-        raise NotImplementedError(
-            f"the kernels are not built for query group {group}, "
-            f"head_dim {head_dim}, {dtype} over a {cache_dtype} cache: "
-            f"PSTT_FOR_EACH_GEOMETRY (csrc/paged_kv_common.cuh) has no "
-            f"line {line}")
+            f"query group {group}, head_dim {head_dim}, {dtype} over a "
+            f"{cache_dtype} cache is not served on the card: {refusal}")
     if (page_size > CHUNK_TOKENS or CHUNK_TOKENS % page_size
             or (page_size * cache_dtype.itemsize) % 16):
         raise NotImplementedError(
@@ -377,17 +406,14 @@ def check_kernel_shapes(num_q_heads: int, num_kv_heads: int,
             "of whole pages with 16-byte loads (page_size must divide "
             f"128 and hold a multiple of 16 bytes of {cache_dtype}, so "
             "a multiple of 16 for an int8 cache)")
-
-
-def geometry_line(dtype: torch.dtype, cache_dtype: torch.dtype,
-                  group: int, head_dim: int) -> str:
-    """The ``PSTT_FOR_EACH_GEOMETRY`` line that builds the kernels for
-    this geometry ("?" for a dtype with no code yet)."""
-    return (f"X({_DTYPE_CODES.get(dtype, '?')}, "
-            f"{_C_TYPES.get(dtype, dtype)}, "
-            f"{_CACHE_CODES.get(cache_dtype, '?')}, "
-            f"{_C_TYPES.get(cache_dtype, cache_dtype)}, {group}, "
-            f"{head_dim})")
+    if not kernel_lib().pstt_kernel_supports(
+            _DTYPE_CODES[dtype], _CACHE_CODES[cache_dtype], group,
+            head_dim):
+        raise RuntimeError(
+            f"the kernel library refuses query group {group}, head_dim "
+            f"{head_dim}, {dtype} over {cache_dtype}, which "
+            "kernel_geometry_supported serves: PSTT_FOR_EACH_GEOMETRY "
+            "(csrc/paged_kv_common.cuh) and the Python rule disagree")
 
 
 def set_build_root(root) -> None:

@@ -12,22 +12,25 @@ What bounds it on the card: at long T, operations. A 512-token chunk
 does 4 * num_q_heads * head_dim * (visible tokens) operations per
 query while the KV it reads is shared by the G * T query rows of a kv
 head, so it sits far above the ~295 operations per byte ridge, and the
-products have to run on the tensor cores. For bf16 queries (over a bf16
-or an int8 cache) the kernel is the tensor-core walk of
-``csrc/paged_walk_mma.cuh``: blocks of 64 query rows (grid: query tile,
-kv_head, batch), four warps of 16 rows with q in registers; q.k^T and
-p.v as bf16 ``mma.sync`` with f32 accumulation, K and V fed by
+products have to run on the tensor cores. For bf16 and f16 queries
+(over a cache of their type or int8) the kernel is the tensor-core walk
+of ``csrc/paged_walk_mma.cuh``: blocks of 64 query rows (grid: query
+tile, kv_head, batch; any query group, its G * T rows cut into tiles),
+four warps of 16 rows with q in registers; q.k^T and p.v as
+``mma.sync`` in the query's type with f32 accumulation, K and V fed by
 ``ldmatrix`` from the pages as they lie (token-minor, nothing
 transposed); scores, probabilities, m, l and the output accumulator in
 registers (softmax with quad shuffles and ``exp2f``), the probabilities
-packed to bf16 in place as the next product's operand; K/V staged in 16
-bits through two stages of asynchronous copies (68 KB a block, three
-blocks an SM); the mask compared only where it cuts. An int8 cache (a
-QuantKV) stages its raw pages and scales with the same copies, converts
-each chunk once to bf16 (exact) and folds the scales into the scores
-and the probabilities in the Pallas order. A tile stops walking at the
-last chunk its highest query position can see. f32 queries (tiny-llama,
-held to 1e-4) keep the f32 FMA walk of ``csrc/paged_kv_common.cuh``.
+packed to the query's type in place as the next product's operand; K/V
+staged in 16 bits through two stages of asynchronous copies (68 KB a
+block, three blocks an SM, at head_dim 64); the mask compared only
+where it cuts. An int8 cache (a QuantKV) stages its raw pages and
+scales with the same copies, converts each chunk once to the query's
+type (exact) and folds the scales into the scores and the
+probabilities in the Pallas order. A tile stops walking at the last
+chunk its highest query position can see. f32 queries (held to 1e-4)
+keep the f32 FMA walk of ``csrc/paged_kv_common.cuh``. Head dims 32,
+64, 80 and 128 (``paged_kv_common.kernel_geometry_supported``).
 
 Contract (the Pallas kernel's): q [B, T, num_q_heads, head_dim]; the
 per-layer or, with ``layer``, the stacked cache, as the decode kernel
@@ -117,8 +120,8 @@ def paged_prefill_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     query positions rebuilt as ``q_positions[:, 0] + t``, the causal
     mask, the online softmax and, for a QuantKV cache, the same fold of
     its scales; a stacked cache is walked at ``layer``. ``p_dtype`` =
-    torch.bfloat16 gives the tensor-core kernel's rounding: the
-    probabilities enter p . v rounded to bf16 while l sums the
+    the query's 16-bit type gives the tensor-core kernel's rounding:
+    the probabilities enter p . v rounded to it while l sums the
     unrounded ones. The default is the f32 walk."""
     check_cache(k_cache, v_cache, layer)
     kc, vc, ks, vs = split_cache(k_cache, v_cache)

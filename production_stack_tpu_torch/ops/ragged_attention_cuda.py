@@ -17,17 +17,18 @@ slot of a decode row against the row's whole cache — 511 of 512 slots
 were pad. This kernel masks them per row: query rows are flattened
 slot-major, so a row's live slots are one prefix of its tiles; a tile
 past them writes zeros without reading K/V, and a tile with few live
-rows walks the row's pages once for all of them. For bf16 queries (over
-a bf16 or an int8 cache) the walk is the prefill kernel's tensor-core
-walk (``csrc/paged_walk_mma.cuh``: four warps of 16 rows, bf16
-``mma.sync``, probabilities entering p.v as bf16, K/V through two
-stages of asynchronous copies, three blocks an SM), one row block for
-every tile: a warp with no live row skips its products, so a decode
-row's tile (G live rows) multiplies on one warp and a verify row's
-((K + 1) * G) on two. f32 queries (tiny-llama, held to 1e-4) keep the
-f32 FMA walk with a narrow row block. An int8 cache (a QuantKV) stages
-as int8 pages and their per-slot scales, folded in as in the Pallas
-kernel.
+rows walks the row's pages once for all of them. For bf16 and f16
+queries (over a cache of their type or int8) the walk is the prefill
+kernel's tensor-core walk (``csrc/paged_walk_mma.cuh``: four warps of 16
+rows, ``mma.sync`` in the query's type, probabilities entering p.v in
+that type, K/V through two stages of asynchronous copies, three blocks
+an SM at head_dim 64), one row block for every tile: a warp with no
+live row skips its products, so a decode row's tile (G live rows)
+multiplies on one warp and a verify row's ((K + 1) * G) on two. f32
+queries (held to 1e-4) keep the f32 FMA walk with a narrow row block.
+An int8 cache (a QuantKV) stages as int8 pages and their per-slot
+scales, folded in as in the Pallas kernel. Any query group; head dims
+32, 64, 80 and 128.
 
 Contract (the Pallas kernel's): q [R, W, num_q_heads, head_dim]; the
 per-layer or, with ``layer``, the stacked cache, as the decode kernel
@@ -122,9 +123,10 @@ def paged_ragged_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     """The kernel's function in plain torch: the same chunked page walk
     with the ragged mask and the online softmax, dead slots zeroed; a
     stacked cache is walked at ``layer``. ``draft_lens`` is not read,
-    as in the kernel. ``p_dtype`` = torch.bfloat16 gives the tensor-core
-    kernel's rounding: the probabilities enter p . v rounded to bf16
-    while l sums the unrounded ones. The default is the f32 walk."""
+    as in the kernel. ``p_dtype`` = the query's 16-bit type gives the
+    tensor-core kernel's rounding: the probabilities enter p . v rounded
+    to it while l sums the unrounded ones. The default is the f32
+    walk."""
     del draft_lens
     check_cache(k_cache, v_cache, layer)
     kc, vc, ks, vs = split_cache(k_cache, v_cache)

@@ -1,7 +1,8 @@
 """Device time of the three attention kernels at their headline shapes.
 
     python production_stack_tpu_torch/tools/kernel_times.py [--repo DIR] \
-        [--geometry bench-1b|g4_d128|g1_d64|g7_d128]
+        [--geometry bench-1b|g4_d128|g1_d64|g7_d128|g8_d128|g1_d80|
+                    g7_d64|g1_d128]
 
 Times ``paged_decode_attention`` (B = 32, kv lens spread over 1..1024
 with two pad rows, page size 128), ``paged_prefill_attention`` (B = 8,
@@ -16,7 +17,12 @@ geometry (32 q / 8 kv heads, head_dim 64, bf16) or the one
 ``--geometry`` names (``g4_d128``: Mixtral-8x7B's, Mistral-7B's and
 Llama-3-8B's 32 q over 8 kv heads at head_dim 128; ``g1_d64``:
 OPT-1.3b's 32 heads of 64, one q head a kv head; ``g7_d128``:
-Qwen2-7B's 28 q over 4 kv heads at 128), over a bf16 and an int8 cache, through the public wrappers of the checkout at ``--repo``
+Qwen2-7B's 28 q over 4 kv heads at 128; ``g8_d128``: Llama-3-70B's 64
+q over 8 kv heads at 128; ``g1_d80``: OPT-2.7b's 32 heads of 80 in f16;
+``g7_d64``: Qwen2-0.5B's 14 q over 2 kv heads at 64 in f32;
+``g1_d128``: Llama-2-7B's 32 heads of 128), in the geometry's dtype
+(bf16 where none is named) over a cache of that type and an int8 one,
+through the public wrappers of the checkout at ``--repo``
 (default: the checkout this file lies in). The unified block also runs
 in the stacked form, its K/V at layer 15 of a [16, ...] cache whose
 other layers are random, timed beside the per-layer launch in the order
@@ -79,9 +85,15 @@ STACK = (16, 15)
 PROJECTIONS = {"qkv": (2048, 3072), "o": (2048, 2048),
                "gate_up": (2048, 11264), "down": (5632, 2048)}
 DECODE_ROWS = 32
-# (q heads, kv heads, head_dim) by --geometry.
-GEOMETRIES = {"bench-1b": (32, 8, 64), "g4_d128": (32, 8, 128),
-              "g1_d64": (32, 32, 64), "g7_d128": (28, 4, 128)}
+# (q heads, kv heads, head_dim, dtype) by --geometry.
+GEOMETRIES = {"bench-1b": (32, 8, 64, torch.bfloat16),
+              "g4_d128": (32, 8, 128, torch.bfloat16),
+              "g1_d64": (32, 32, 64, torch.bfloat16),
+              "g7_d128": (28, 4, 128, torch.bfloat16),
+              "g8_d128": (64, 8, 128, torch.bfloat16),
+              "g1_d80": (32, 32, 80, torch.float16),
+              "g7_d64": (14, 2, 64, torch.float32),
+              "g1_d128": (32, 32, 128, torch.bfloat16)}
 
 
 def _stack_at(cache, gen):
@@ -146,12 +158,11 @@ def main(argv=None) -> int:
         for _ in range(20):
             x @ x
         torch.cuda.synchronize()
-    (nh, kv, d), ps, max_pages = GEOMETRIES[args.geometry], 128, 8
-    bf16 = torch.bfloat16
+    (nh, kv, d, dtype), ps, max_pages = GEOMETRIES[args.geometry], 128, 8
 
     def caches(num_pages, int8):
         k, v = (torch.randn((kv, num_pages, d, ps), generator=gen)
-                .to(dev, bf16) for _ in range(2))
+                .to(dev, dtype) for _ in range(2))
         if not int8:
             return k, v
 
@@ -167,7 +178,7 @@ def main(argv=None) -> int:
         lens = np.linspace(1, 1024, 32).round().astype(int).tolist()
         lens[7] = lens[21] = 0
         k, v = caches(512, int8)
-        q = torch.randn((32, nh, d), generator=gen).to(dev, bf16)
+        q = torch.randn((32, nh, d), generator=gen).to(dev, dtype)
         table = _table(lens, ps, max_pages, 512, gen, dev)
         kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         out["paged_decode" + tag] = _ms(
@@ -184,7 +195,7 @@ def main(argv=None) -> int:
 
         live = [512, 448, 384, 320, 256, 0, 128, 64]
         k, v = caches(8 * max_pages + 1, int8)
-        q = torch.randn((8, 512, nh, d), generator=gen).to(dev, bf16)
+        q = torch.randn((8, 512, nh, d), generator=gen).to(dev, dtype)
         table = _table(live, ps, max_pages, 8 * max_pages + 1, gen, dev)
         kv_lens = torch.tensor(live, dtype=torch.int32, device=dev)
         pos = torch.arange(512, dtype=torch.int32, device=dev).repeat(8, 1)
@@ -211,7 +222,7 @@ def main(argv=None) -> int:
             pages = len(rows) * max_pages + 1
             k, v = caches(pages, int8)
             q = torch.randn((len(rows), w, nh, d), generator=gen).to(dev,
-                                                                     bf16)
+                                                                     dtype)
             table = _table([n for n, _ in rows], ps, max_pages, pages, gen,
                            dev)
             kv_lens = torch.tensor([n for n, _ in rows], dtype=torch.int32,

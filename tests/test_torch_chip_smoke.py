@@ -160,8 +160,8 @@ PHASES_RUN_BY_MAIN = ["kernel_phase", "model_phase", "engine_phase",
                       "graph_phase", "sampling_options_phase",
                       "serving_phase", "fleet_phase", "disagg_phase",
                       "autotune_phase", "weights_phase", "families_phase",
-                      "tp_phase", "parallel2_phase", "distributed_phase",
-                      "training_phase"]
+                      "geometries_phase", "tp_phase", "parallel2_phase",
+                      "distributed_phase", "training_phase"]
 
 
 @pytest.mark.parametrize("failing", PHASES_RUN_BY_MAIN)
@@ -305,3 +305,69 @@ def test_kernels_line_carries_the_tail_form():
         assert tail[form]["launches"] == 10 + i
     assert tail["geometries"]["g4_d128"]["int8"]["ms"] == 0.05
     assert tail["source"].endswith("csrc/paged_decode.cu")
+
+
+def test_kernels_line_carries_the_geometries_rows():
+    """With the geometries phase's results each attention kernel's
+    ``geometries`` also holds ``g8_d128`` (with ``int8``), ``g1_d80``,
+    ``g7_d64`` and ``g1_d128``: the contract's numbers, the row's dtype
+    and the launches of the run that served it (0 for g1_d128, which
+    no run serves); the int8-weight GEMM gains its f16 form."""
+    forms = ("bf16", "int8", "stacked", "int8_stacked")
+    headline = {k: {f: _case(f"{k} {f}", 0.1) for f in forms}
+                for k in chip_smoke.KERNELS}
+    runs = (chip_smoke.MAIN_RUN, chip_smoke.INT8_RUN,
+            chip_smoke.STACKED_RUN, chip_smoke.BURST_RUN,
+            chip_smoke.WEIGHTS_RUN, chip_smoke.MIXTRAL_RUN,
+            chip_smoke.OPT_RUN, chip_smoke.LLAMA70_RUN, chip_smoke.OPT27_RUN,
+            chip_smoke.QWEN05_RUN)
+    launches = {run: {k: 7 for k in chip_smoke.KERNELS} for run in runs}
+    launches[chip_smoke.LLAMA70_INT8_RUN] = {
+        k + "_int8": 9 for k in chip_smoke.KERNELS}
+    launches[chip_smoke.W8_F16_RUN] = {"int8_weight_matmul": 64}
+    weights = {"headline": dict(_case("w8", 0.03), dequant_ms=0.09)}
+    families = {
+        "geometries": {k: {g: {"bf16": _case(f"{k} {g}", 0.2),
+                               "int8": _case(f"{k} {g} int8", 0.3)}
+                           for g in chip_smoke.FAMILY_GEOMETRIES}
+                       for k in chip_smoke.KERNELS},
+        "w8": {}}
+    rows = {k: {"g8_d128": {"bfloat16": _case("a", 0.4),
+                            "int8": _case("b", 0.5)},
+                "g1_d80": {"float16": _case("c", 0.6)},
+                "g7_d64": {"float32": _case("d", 0.7)},
+                "g1_d128": {"bfloat16": _case("e", 0.8)}}
+            for k in chip_smoke.KERNELS}
+    geometries = {"rows": rows,
+                  "w8": {"fc1": dict(_case("f16 fc1", 0.05),
+                                     dequant_ms=0.1)}}
+    line = chip_smoke.kernels_line(headline, launches, weights, families,
+                                   geometries=geometries)
+    for entry in line[:3]:
+        geos = entry["geometries"]
+        assert sorted(geos) == ["g1_d128", "g1_d64", "g1_d80", "g4_d128",
+                                "g7_d64", "g8_d128"]
+        assert geos["g8_d128"]["ms"] == 0.4
+        assert geos["g8_d128"]["dtype"] == "bfloat16"
+        assert geos["g8_d128"]["launches"] == 7
+        assert geos["g8_d128"]["int8"]["ms"] == 0.5
+        assert geos["g8_d128"]["int8"]["launches"] == 9
+        assert geos["g1_d80"]["dtype"] == "float16"
+        assert geos["g7_d64"]["launches"] == 7
+        assert geos["g1_d128"]["launches"] == 0
+        assert {"ms", "bound_ms", "bound_by", "library_ms", "plain_ms",
+                "max_abs_err"} <= set(geos["g1_d80"])
+        assert entry["launches_by_run"][chip_smoke.LLAMA70_INT8_RUN] == 9
+    assert line[3]["f16"]["launches"] == 64
+    assert line[3]["f16"]["opt-2.7b"]["fc1"]["ms"] == 0.05
+
+
+def test_bound_takes_the_f32_fma_peak():
+    """An f32 case's operations are bounded at the FMA units' rate, a
+    16-bit one's at the tensor cores'."""
+    flops = int(67e9)
+    f32 = chip_smoke._bound(0, flops, torch.float32)
+    f16 = chip_smoke._bound(0, flops, torch.float16)
+    assert f32["bound_ms"] == pytest.approx(1.0)
+    assert f16["bound_ms"] == pytest.approx(67 / 989)
+    assert f32["bound_by"] == "operations"

@@ -6,12 +6,16 @@ machine with an NVIDIA GPU:
 
     python -m pytest -m cuda tests/test_torch_cuda_kernels.py -q
 
-Covers every geometry the kernels are built for (bench-1b: bf16,
-query group 4, head_dim 64; Mixtral-8x7B, Mistral-7B and Llama-3-8B:
-bf16, group 4, head_dim 128; Qwen2-7B: bf16, group 7, head_dim 128;
-OPT and GPT-2: bf16, group 1, head_dim 64; tiny-llama: f32, query
-group 2, head_dim 32; tiny-opt and tiny-gpt2: f32, group 1, head_dim
-32), page sizes 8 to 128, pad rows, first and later prefill chunks,
+Covers published geometries in each dtype (bench-1b: bf16, query
+group 4, head_dim 64; Mixtral-8x7B, Mistral-7B and Llama-3-8B: bf16,
+group 4, head_dim 128; Qwen2-7B: bf16, group 7, head_dim 128; OPT and
+GPT-2: bf16, group 1, head_dim 64; tiny-llama: f32, query group 2,
+head_dim 32; tiny-opt and tiny-gpt2: f32, group 1, head_dim 32;
+Llama-3-70B: bf16, group 8, head_dim 128; OPT-2.7b: f16, group 1,
+head_dim 80; Qwen2-0.5B: f32, group 7, head_dim 64; Llama-2-7B: bf16,
+group 1, head_dim 128; f16 at group 3, head_dim 128; bf16 at group 16;
+chip_smoke.py's geometries phase sweeps the whole grid), page sizes 8
+to 128, pad rows, first and later prefill chunks,
 ragged blocks (mixed decode, chunk and pad rows; verify spans; every
 slot compared, dead ones exact 0), the int8 form of all three kernels
 (a QuantKV cache quantized from the same K/V; page sizes 16 to 128),
@@ -45,10 +49,10 @@ context-parallel prefill over a one-rank NCCL sp group running eagerly
 and counted, every other step graphed.
 
 Tolerance: f32 at atol = rtol = 1e-4 (the same arithmetic, sums in
-another order); bf16 at atol = rtol = 2e-2 (outputs rounded to bf16,
-compared in f32). The bf16 ragged kernel is held against the plain
-version with its rounding (``p_dtype=torch.bfloat16``: probabilities
-enter p . v as bf16).
+another order); bf16 and f16 at atol = rtol = 2e-2 (outputs rounded to
+their type, compared in f32). The 16-bit ragged kernel is held against
+the plain version with its rounding (``p_dtype``: probabilities enter
+p . v in the query's type).
 """
 
 import numpy as np
@@ -72,25 +76,35 @@ from production_stack_tpu_torch.ops.ragged_attention_cuda import (
 
 pytestmark = pytest.mark.cuda
 
-# (dtype, query group, head dim) of each model config the kernels are
-# built for (csrc/paged_kv_common.cuh, PSTT_FOR_EACH_GEOMETRY).
+# (dtype, query group, head dim) of model configs the kernels serve
+# (csrc/paged_kv_common.cuh, PSTT_FOR_EACH_GEOMETRY: any group, head
+# dims 32, 64, 80 and 128): bench-1b, Mixtral-8x7B, Qwen2-7B, OPT-1.3b,
+# the tiny configs, Llama-3-70B (group 8), OPT-2.7b at f16 (head_dim
+# 80), Qwen2-0.5B at f32 (group 7), Llama-2-7B (group 1 at 128),
+# Llama-3.2-3B at f16 (group 3), Llama-3.1-405B (group 16).
 GEOMETRIES = [(torch.bfloat16, 4, 64), (torch.bfloat16, 4, 128),
               (torch.bfloat16, 7, 128), (torch.bfloat16, 1, 64),
-              (torch.float32, 2, 32), (torch.float32, 1, 32)]
+              (torch.float32, 2, 32), (torch.float32, 1, 32),
+              (torch.bfloat16, 8, 128), (torch.float16, 1, 80),
+              (torch.float32, 7, 64), (torch.bfloat16, 1, 128),
+              (torch.float16, 3, 128), (torch.bfloat16, 16, 128)]
 # The tensor-core walk's published geometries: (query group, kv heads,
-# head_dim) of bench-1b, Mixtral-8x7B and OPT-1.3b.
-MMA_GEOMETRIES = [(4, 8, 64), (4, 8, 128), (1, 32, 64)]
+# head_dim) of bench-1b, Mixtral-8x7B, OPT-1.3b, Llama-3-70B, OPT-2.7b
+# and TinyLlama-1.1B.
+MMA_GEOMETRIES = [(4, 8, 64), (4, 8, 128), (1, 32, 64), (8, 8, 128),
+                  (1, 32, 80), (8, 4, 64)]
 
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
-       torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+       torch.bfloat16: dict(atol=2e-2, rtol=2e-2),
+       torch.float16: dict(atol=2e-2, rtol=2e-2)}
 
 
 def _ragged_plain(*args, **kwargs):
     """The ragged kernel's plain version rounded as the kernel rounds:
-    bf16 queries run the tensor-core walk, whose probabilities enter
-    p . v as bf16; f32 queries the f32 walk."""
-    if args[0].dtype == torch.bfloat16:
-        kwargs["p_dtype"] = torch.bfloat16
+    bf16 and f16 queries run the tensor-core walk, whose probabilities
+    enter p . v in the query's type; f32 queries the f32 walk."""
+    if args[0].dtype != torch.float32:
+        kwargs["p_dtype"] = args[0].dtype
     return paged_ragged_attention_plain(*args, **kwargs)
 
 

@@ -16,8 +16,8 @@ the attention sums run in another order (page walk against one
 softmax), and each layer's rounding carries into the next.
 
 Also here: the registry's architectures, the learned-position clamp,
-the MoE's top-k ties, and the source-text check that the six
-architectures' published bf16 geometries have their kernel lines.
+the MoE's top-k ties, and the check that the six architectures'
+published geometries are ones the kernels serve, at every dtype.
 """
 
 import dataclasses
@@ -232,17 +232,17 @@ PUBLISHED = [
 @pytest.mark.parametrize("arch,source,nh,nkv,d", PUBLISHED,
                          ids=[p[0] for p in PUBLISHED])
 def test_published_geometries_have_kernel_lines(arch, source, nh, nkv, d):
-    """The line ``check_kernel_shapes`` would ask for, bf16 pages and
-    int8 pages, is in PSTT_FOR_EACH_GEOMETRY."""
+    """The geometry ``check_kernel_shapes`` asks about, over bf16 pages
+    and int8 pages and at every --dtype, is one the kernels serve
+    (``kernel_geometry_supported``, the rule PSTT_FOR_EACH_GEOMETRY
+    instantiates)."""
     from production_stack_tpu_torch.ops.paged_kv_common import (
-        geometry_line,
+        kernel_geometry_supported,
     )
-    src = (Path(__file__).resolve().parents[1] / "production_stack_tpu_torch"
-           / "csrc" / "paged_kv_common.cuh").read_text()
-    lines = set(re.findall(r"X\(\d, [\w ]+, \d, [\w ]+, \d+, \d+\)", src))
-    for cache in (torch.bfloat16, torch.int8):
-        line = geometry_line(torch.bfloat16, cache, nh // nkv, d)
-        assert line in lines, (source, line)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for cache in (dtype, torch.int8):
+            assert kernel_geometry_supported(dtype, cache, nh // nkv, d), (
+                source, dtype, cache)
 
 
 # ---- adapters and int8 weights on the families ------------------------------

@@ -664,47 +664,102 @@ def test_disable_prefix_caching_flag(disabled):
 
 
 class _FakeKernelLib:
-    """The kernel library's support question, answered from the lines
-    of PSTT_FOR_EACH_GEOMETRY (csrc/paged_kv_common.cuh)."""
+    """The kernel library's support question, answered from
+    PSTT_FOR_EACH_GEOMETRY (csrc/paged_kv_common.cuh): the (dtype code,
+    cache code) pairs it instantiates, at every head dim of
+    PSTT_FOR_EACH_HEAD_DIM, for any query group of 1 or more."""
 
-    LINES = {(0, 0, 4, 64), (0, 2, 4, 64), (0, 0, 4, 128), (0, 2, 4, 128),
-             (0, 0, 7, 128), (0, 2, 7, 128), (0, 0, 1, 64), (0, 2, 1, 64),
-             (1, 1, 2, 32), (1, 2, 2, 32), (1, 1, 1, 32), (1, 2, 1, 32)}
+    _SRC = (Path(__file__).resolve().parents[1] / "production_stack_tpu_torch"
+            / "csrc" / "paged_kv_common.cuh").read_text()
+    PAIRS = {tuple(map(int, x)) for x in re.findall(
+        r"PSTT_FOR_EACH_HEAD_DIM\(X, (\d), [\w ]+, (\d), [\w ]+\)", _SRC)}
+    HEAD_DIMS = {int(x) for x in re.findall(
+        r"X\(code, T, ccode, C, (\d+)\)", _SRC)}
 
     def pstt_kernel_supports(self, dtype, cache_dtype, group, head_dim):
-        return int((dtype, cache_dtype, group, head_dim) in self.LINES)
+        return int((dtype, cache_dtype) in self.PAIRS and group >= 1
+                   and head_dim in self.HEAD_DIMS)
 
 
 def test_fake_kernel_lib_is_the_geometry_list():
-    src = (Path(__file__).resolve().parents[1] / "production_stack_tpu_torch"
-           / "csrc" / "paged_kv_common.cuh").read_text()
-    lines = re.findall(r"X\((\d), [\w ]+, (\d), [\w ]+, (\d+), (\d+)\)", src)
-    assert {tuple(map(int, x)) for x in lines} == _FakeKernelLib.LINES
+    """The fake answers as the instantiation list reads, and the list is
+    the Python rule (kernel_geometry_supported) over dtype codes, cache
+    codes, groups and head dims, in and out of it."""
+    from production_stack_tpu_torch.ops import paged_kv_common
+    assert _FakeKernelLib.PAIRS == {(0, 0), (0, 2), (3, 3), (3, 2), (1, 1),
+                                    (1, 2)}
+    assert _FakeKernelLib.HEAD_DIMS == set(paged_kv_common.KERNEL_HEAD_DIMS)
+    codes = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 3,
+             torch.int8: 2}
+    fake = _FakeKernelLib()
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for cache in codes:
+            for group in (0, 1, 3, 7, 8, 16):
+                for d in (32, 64, 80, 96, 128, 256):
+                    assert bool(fake.pstt_kernel_supports(
+                        codes[dtype], codes[cache], group, d)) == (
+                        paged_kv_common.kernel_geometry_supported(
+                            dtype, cache, group, d)), (dtype, cache, group, d)
 
 
-@pytest.mark.parametrize("model,dtype,line", [
-    ("bench-1b", "float32", "X(1, float, 1, float, 4, 64)"),
-    ("bench-1b", "float16", "X(?, __half, ?, __half, 4, 64)"),
-    ("tiny-llama", "bfloat16", "X(0, __nv_bfloat16, 0, __nv_bfloat16, 2, "
-                               "32)"),
+def _checkpoint_config(tmp_path, head_dim):
+    """A llama config.json whose heads are ``head_dim`` wide (no
+    weights: the gate runs before any is read)."""
+    import json
+    heads = 8
+    (tmp_path / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "vocab_size": 512,
+        "hidden_size": heads * head_dim, "intermediate_size": 256,
+        "num_hidden_layers": 2, "num_attention_heads": heads,
+        "num_key_value_heads": 2, "head_dim": head_dim}))
+    return str(tmp_path)
+
+
+@pytest.mark.parametrize("head_dim,dtype,rule", [
+    (96, "bfloat16", "head_dim 32, 64, 80, 128, not 96"),
+    (256, "float16", "head_dim 32, 64, 80, 128, not 256"),
+    (96, "float32", "head_dim 32, 64, 80, 128, not 96"),
 ])
-def test_dtype_the_kernels_lack_is_refused_on_the_card(monkeypatch, model,
-                                                       dtype, line):
-    """--dtype on the card: a geometry without its line is refused at
-    start, before any weight is made, naming the missing line; never
-    served through the plain path."""
+def test_dtype_the_kernels_lack_is_refused_on_the_card(monkeypatch, tmp_path,
+                                                       head_dim, dtype,
+                                                       rule):
+    """--dtype on the card: a geometry the kernels do not serve is
+    refused at start, before any weight is made, naming the rule it
+    breaks; never served through the plain path."""
     from production_stack_tpu_torch.ops import paged_kv_common
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(paged_kv_common, "kernel_lib", _FakeKernelLib)
     with pytest.raises(NotImplementedError) as err:
-        build_engine_from_args(parse_args(["--model", model, "--dtype",
-                                           dtype]))
-    assert line in str(err.value)
-    assert "PSTT_FOR_EACH_GEOMETRY" in str(err.value)
+        build_engine_from_args(parse_args([
+            "--model", _checkpoint_config(tmp_path, head_dim),
+            "--random-weights", "--tokenizer", "bench", "--dtype", dtype]))
+    assert rule in str(err.value)
+    assert f"query group 4, head_dim {head_dim}" in str(err.value)
     # The preset dtypes pass the same question.
     paged_kv_common.check_kernel_shapes(32, 8, 64, 128, torch.bfloat16)
     paged_kv_common.check_kernel_shapes(4, 2, 32, 16, torch.float32,
                                         torch.int8)
+
+
+@pytest.mark.parametrize("model,dtype", [("bench-1b", "float32"),
+                                         ("bench-1b", "float16"),
+                                         ("tiny-llama", "bfloat16"),
+                                         ("tiny-opt", "float16")])
+def test_dtype_the_kernels_serve_passes_the_gate(monkeypatch, model, dtype):
+    """Every --dtype of a preset passes the start-up gate on the card:
+    the rule and the library (its instantiation list) both serve it."""
+    from production_stack_tpu_torch.engine.model_runner import (
+        check_engine_geometry)
+    from production_stack_tpu_torch.engine.server import (
+        engine_config_from_args)
+    from production_stack_tpu_torch.ops import paged_kv_common
+    monkeypatch.setattr(paged_kv_common, "kernel_lib", _FakeKernelLib)
+    config, _ = engine_config_from_args(
+        parse_args(["--model", model, "--dtype", dtype]),
+        torch.device("cpu"))
+    for kv in ("auto", "int8"):
+        config.cache.kv_cache_dtype = kv
+        check_engine_geometry(config)
 
 
 def test_dtype_applies_on_the_cpu():
