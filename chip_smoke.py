@@ -295,7 +295,7 @@ its result line:
     ``torch.matmul``. Then checkpoint directories this script writes
     (``config.json`` and safetensors shards of random weights from a
     seed, by its own writer, into a temporary directory removed after):
-    Mixtral-8x7B at full width with 4 of its 32 layers (bf16) and
+    Mixtral-8x7B at full width with 2 of its 32 layers (bf16) and
     OPT-1.3b at full size (float16, as published: the loader casts to
     bf16), each served with ``--model DIR --tokenizer bench`` (16
     sequences, prefill batch 4, chunk 256, page 128, async and unified
@@ -328,9 +328,10 @@ its result line:
     kernel's f16 form at OPT-2.7b's projections (M = 1, 32, 160; timed
     at 32). Then checkpoints written from published configs and served
     (``--model DIR --tokenizer bench``, page 128, the families phase's
-    flags and 16 greedy requests): Meta-Llama-3-70B at 4 of 80 layers
-    (bf16, then ``--kv-cache-dtype int8``), OPT-2.7b whole at
-    ``--dtype float16`` and Qwen2-0.5B whole at ``--dtype float32``;
+    flags and 16 greedy requests): Meta-Llama-3-70B at 2 of 80 layers
+    (bf16, then ``--kv-cache-dtype int8``), OPT-2.7b at 16 of 32
+    layers at ``--dtype float16`` and Qwen2-0.5B at 12 of 24 layers at
+    ``--dtype float32``;
     then bench-1b at ``--quantization int8 --dtype float16``. Each
     server: the weights phase's window (tok/s, the three kernels
     launched, no plain call, no eager step), each attention call of the
@@ -342,7 +343,33 @@ its result line:
     batched stream parts from the same request alone, with margins (at
     Llama-3-70B's width the bf16 logits step by 1/16 near |11|, so a
     flip two steps apart meets ``NEAR_TIE_LOGITS`` itself);
-20. tp: tensor parallelism and deferred KV writes. The decode kernel's
+20. pages: every page size the JAX engine serves, on the three
+    attention kernels (a chunk is tokens [128 c, 128 c + 128) of a row
+    whatever the page). The sweep: each kernel (decode at the wrapper's
+    split, over several chunks, and at one split; stacked at layer 1 of
+    2 and bitwise the per-layer launch on its view; the burst-tail
+    form; prefill; ragged) against its plain version at pages 1, 8, 12,
+    16, 24, 48, 96, 128, 200, 256, 384 and 512 over bf16 and int8
+    caches at bench-1b's geometry (group 4, head_dim 64), and f16 at
+    group 1, head_dim 80 and f32 at group 7, head_dim 64 at pages 8, 48
+    and 256, with kv lens just before, at and after a page edge and the
+    chunk edge (for page 48: 47, 48, 49, 127, 128, 129, 144), a row of
+    several chunks and a pad row (BF16_TOL for bf16 and f16, F32_TOL for
+    f32), and ``pstt_page_size_supported`` held to the Python rule at
+    every point and at pages 0 and -16 (refused). Then bench-1b's
+    headline cases (decode B = 32; prefill B = 8, T = 512, first and
+    second chunk; ragged R = 40, W = 512) timed at pages 16 and 256,
+    bf16 and int8, and at an int8 page of 8 (decode, prefill), beside
+    page 128 in the same call. Then bench-1b served at ``--page-size
+    256 --num-pages 256`` (per layer, bf16 KV) and at ``--page-size 8
+    --num-pages 8192 --kv-cache-dtype int8 --cache-layout stacked``
+    with the families phase's flags: 16 greedy requests submitted
+    together (tok/s; decode, prefill and ragged launched in the run's
+    form, no plain call, no eager step), each attention call of the
+    model check over a cache of the server's page size and layout held
+    to its plain version, and the same requests through an eager engine
+    byte-identical to the graphed streams;
+21. tp: tensor parallelism and deferred KV writes. The decode kernel's
     burst-tail form against its plain version (bf16 tolerance, bitwise
     stacked = per-layer view, two launches the same bits) at B = 32,
     kv lens 1..896, S = 4 tail slots with each row frozen after 1..4 of
@@ -373,7 +400,7 @@ its result line:
     greedy requests held to the tp-1 engine's streams (equal, or equal
     to a first flip at a near tie: ``check_stream``), each rank's three
     kernels counted and the ranks' counts equal;
-21. parallel2: pipeline and context parallelism on one card, two ranks
+22. parallel2: pipeline and context parallelism on one card, two ranks
     over gloo (graphs off): ring attention at T = 8192 against its dense
     reference; bench-1b at pp 2 (bf16 and int8 KV) and at cp 2 against
     the one-rank engines (streams equal or parting at near ties, each
@@ -381,7 +408,7 @@ its result line:
     prompts take one sp dispatch each, and each rank ran exactly half
     the rows of every unified dispatch (``ModelRunner.sp_split_rows``);
     GPT-2 at pp 2 and cp 2;
-22. distributed: multi-host serving, two ``--distributed`` server
+23. distributed: multi-host serving, two ``--distributed`` server
     processes on cuda:0 (``--num-processes 2``, one rank each; process
     0 serves HTTP, process 1 replays): bench-1b at tp 2, then at pp 2.
     The launcher must take gloo with graphs off (the two processes
@@ -394,8 +421,8 @@ its result line:
     ranks' counts are equal; /metrics reads slice 0 and, after the
     requests, slices 0 and 1 live; process 1 exits 0 within 60 s of
     process 0's shutdown;
-23. training: the dense training forwards with gradients at bench-1b's
-    full width cut to 4 layers (f32 weights from a seed, B = 2, T =
+24. training: the dense training forwards with gradients at bench-1b's
+    full width cut to 2 layers (f32 weights from a seed, B = 2, T =
     1024, loss mean(logits ** 2), no TF32). One rank's
     ``forward_train`` forward and backward (a warm-up, then timed),
     then four ranks spawned on cuda:0 run, over gloo, cp 2
@@ -435,7 +462,9 @@ windows as ``serve_mixtral`` and ``serve_opt``, and its GPT-2 engine
 as ``engine_gpt2``; the geometries phase's windows as
 ``serve_llama3_70b``, ``serve_llama3_70b_int8``,
 ``serve_opt_2.7b_f16``, ``serve_qwen2_0.5b_f32`` and
-``serve_int8_weights_f16``; the tp phase's deferred window as
+``serve_int8_weights_f16``; the pages phase's servers as
+``serve_page256`` and, counting the int8 stacked form,
+``serve_page8_int8_stacked``; the tp phase's deferred window as
 ``serve_deferred``, its one-rank NCCL engine as ``engine_tp1_nccl``
 and rank 0 of its tp-2 engine as ``serve_tp2_gloo``; the parallel2
 phase's rank 0 windows as ``serve_pp2_gloo``, ``serve_pp2_int8_gloo``,
@@ -447,7 +476,11 @@ holds, keyed ``g4_d128`` and ``g1_d64``, the same numbers at that
 geometry with the launches of its serving run, and ``int8``; and the
 geometries phase's rows ``g8_d128`` (with ``int8``), ``g1_d80``,
 ``g7_d64`` and ``g1_d128``, each with its ``dtype`` and the launches
-of the run that served it (0 for ``g1_d128``, which none serves). The
+of the run that served it (0 for ``g1_d128``, which none serves). Each
+attention kernel's ``pages`` object holds the pages phase's rows,
+keyed ``ps128``, ``ps16``, ``ps256`` and ``ps8`` (``int8`` beside the
+bf16 numbers; the prefill kernel's second chunk as ``second_chunk``),
+each with the launches of the run that served it. The
 int8-weight GEMM's ``f16`` object holds OPT-2.7b's projections and the
 launches of the f16 int8-weight server. The
 int8-weight GEMM's entry reports its headline case (gate_up at M = 32)
@@ -718,7 +751,7 @@ def decode_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None,
         return paged_attention_cuda.paged_decode_attention(
             *args, num_splits=num_splits, **kwargs)
 
-    max_pages = max_len // ps
+    max_pages = -(-max_len // ps)
     num_pages = num_pages or (b * max_pages + 1)
     (kc, vc), dense = _caches(kv, num_pages, d, ps, dtype, dev, gen, int8)
     q = torch.randn((b, nh, d), generator=gen, device=dev).to(dtype)
@@ -792,7 +825,7 @@ def prefill_case(name, rows, t, ps, dtype, dev, gen, timer=None, nh=32,
     from production_stack_tpu_torch.ops.prefill_attention_cuda import (
         paged_prefill_attention, paged_prefill_attention_plain)
     b = len(rows)
-    max_pages = max_len // ps
+    max_pages = -(-max_len // ps)
     num_pages = b * max_pages + 1
     (kc, vc), dense = _caches(kv, num_pages, d, ps, dtype, dev, gen, int8)
     q = torch.randn((b, t, nh, d), generator=gen, device=dev).to(dtype)
@@ -875,7 +908,7 @@ def ragged_case(name, rows, w, ps, dtype, dev, gen, timer=None, nh=32,
     from production_stack_tpu_torch.ops.ragged_attention_cuda import (
         paged_ragged_attention, paged_ragged_attention_plain)
     b = len(rows)
-    max_pages = max_len // ps
+    max_pages = -(-max_len // ps)
     num_pages = b * max_pages + 1
     (kc, vc), dense = _caches(kv, num_pages, d, ps, dtype, dev, gen, int8)
     q = torch.randn((b, w, nh, d), generator=gen, device=dev).to(dtype)
@@ -968,6 +1001,31 @@ def _bound(nbytes: int, flops: int, dtype=torch.bfloat16) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
+def _headline_rows() -> dict:
+    """The rows of the headline cases: decode ``lens`` (32 rows, kv lens
+    over 1..1024, rows 7 and 21 pad); prefill ``first`` and ``second``
+    chunks (8 rows of a 512-token bucket, live lengths over 64..512,
+    row 5 pad); the widest unified mixed step of the serving
+    configuration, R = max_num_seqs + prefill_batch_size = 40 rows at W
+    = 512, as the prefill kernel takes it (``unified_prefill``: 28
+    decode rows of one live slot at kv_len - 1, 8 prefill-chunk rows of
+    first and second chunks, 4 pad rows) and as the ragged kernel takes
+    it (``unified``: (kv_len, last_index) a row, pad rows at kv_len 0
+    and last_index -1 as the runner lays them out)."""
+    lens = np.linspace(1, 1024, 32).round().astype(int).tolist()
+    lens[7] = lens[21] = 0
+    live = [512, 448, 384, 320, 256, 0, 128, 64]
+    decode_lens = np.linspace(70, 1024, 28).round().astype(int).tolist()
+    unified = ([(n - 1, 1) for n in decode_lens]
+               + [(0, 512), (0, 448), (0, 300), (0, 64), (512, 188),
+                  (512, 100), (512, 500), (0, 200)] + [(0, 0)] * 4)
+    return {"lens": lens, "first": [(0, n) for n in live],
+            "second": [(512, n) for n in live], "decode_lens": decode_lens,
+            "unified_prefill": unified,
+            "unified": [(start + n, n - 1) if n else (0, -1)
+                        for start, n in unified]}
+
+
 def kernel_phase(dev) -> dict:
     """Returns {kernel name: {form: headline case}} for the forms
     "bf16", "int8", "stacked" and "int8_stacked", after checking every
@@ -976,27 +1034,10 @@ def kernel_phase(dev) -> dict:
     gen.manual_seed(0)
     timer = Timer(dev)
     bf16 = torch.bfloat16
-    # Decode: 32 rows, kv lens spread over 1..1024, rows 7 and 21 pad.
-    lens = np.linspace(1, 1024, 32).round().astype(int).tolist()
-    lens[7] = lens[21] = 0
-    # Prefill: 8 rows of a 512-token bucket, live lengths spread over
-    # 64..512, row 5 pad.
-    live = [512, 448, 384, 320, 256, 0, 128, 64]
-    first = [(0, n) for n in live]
-    second = [(512, n) for n in live]
-    # The widest unified mixed step of the serving configuration: R =
-    # max_num_seqs + prefill_batch_size = 40 rows at W = 512. 28 decode
-    # rows (one live slot at kv_len - 1, 511 pad slots), 8 prefill-chunk
-    # rows (first and second chunks), 4 pad rows.
-    decode_lens = np.linspace(70, 1024, 28).round().astype(int).tolist()
-    unified = ([(n - 1, 1) for n in decode_lens]
-               + [(0, 512), (0, 448), (0, 300), (0, 64), (512, 188),
-                  (512, 100), (512, 500), (0, 200)] + [(0, 0)] * 4)
-    # The same step as the ragged kernel takes it: (kv_len, last_index)
-    # per row, pad rows at kv_len 0 and last_index -1 as the runner
-    # lays them out.
-    unified_ragged = [(start + n, n - 1) if n else (0, -1)
-                      for start, n in unified]
+    rows = _headline_rows()
+    lens, first, second = rows["lens"], rows["first"], rows["second"]
+    decode_lens, unified = rows["decode_lens"], rows["unified_prefill"]
+    unified_ragged = rows["unified"]
     # A verify block of the speculative path at K = 4: 32 rows with kv
     # lens over 1..1024 (drafts included), draft lens 0..4, rows 9 and
     # 26 pad.
@@ -1232,12 +1273,14 @@ def model_phase(dev) -> None:
 PHASES = ("prefill T=512", "decode T=1", "verify T=5 (ragged)")
 
 
-def _model_caches(dev, cfg, kv_dtype, layout):
-    """Fresh k and v caches of 8 pages of 128 tokens: a list of
-    per-layer buffers, or one stacked buffer each."""
+def _model_caches(dev, cfg, kv_dtype, layout, page_size=128):
+    """Fresh k and v caches of the pages ``_forwards`` writes (5 of 128
+    tokens at the default page size) and 3 more: a list of per-layer
+    buffers, or one stacked buffer each."""
     from production_stack_tpu_torch.ops.quant_kv import quant_cache_zeros
 
-    shape = (cfg.num_key_value_heads, 8, cfg.head_dim, 128)
+    shape = (cfg.num_key_value_heads, -(-(512 + 6) // page_size) + 3,
+             cfg.head_dim, page_size)
     layers = cfg.num_hidden_layers
 
     def cache(shape):
@@ -1259,7 +1302,11 @@ def _forwards(dev, cfg, params, tokens, caches, impl):
     forward = get_model(cfg)[1]
 
     t = 512
-    table = torch.tensor([[1, 2, 3, 4, 5]], dtype=torch.int32, device=dev)
+    page_size = (caches[0][0] if isinstance(caches[0], list)
+                 else caches[0]).shape[-1]
+    # Pages 1.. of the 518 tokens (page 0 is the trash page).
+    table = torch.arange(1, 1 + -(-(t + 6) // page_size), dtype=torch.int32,
+                         device=dev)[None]
     with torch.inference_mode():
         prefill = forward(
             params, cfg, tokens[:, :t],
@@ -3521,11 +3568,12 @@ def _write_peft_adapter(path, cfg, seed) -> None:
                   f)
 
 
-def _weights_window(label, srv, prompts, models=None, form="") -> dict:
+def _weights_window(label, srv, prompts, models=None, form="",
+                    alone=True) -> dict:
     """The 16 greedy requests submitted together (the engine loop held
     until all are queued), once as a warm-up (the graphs' captures),
     then counted: the counters set to 0 just before and read just
-    after; then each request alone on the same server. Checks the
+    after; then (``alone``) each request alone on the same server. Checks the
     window's launches (of each kernel's ``form``: "" per-layer at the
     model's dtype, "_int8" over an int8 cache) and graphs; stops the
     server (its engine stays for ``near_tie``)."""
@@ -3548,7 +3596,7 @@ def _weights_window(label, srv, prompts, models=None, form="") -> dict:
            "recorded": graphs.recorded_launches(),
            "ids": [srv.tokens_after(p) for p in prompts]}
     srv.finished.clear()
-    for i, prompt in enumerate(prompts):
+    for i, prompt in enumerate(prompts if alone else ()):
         body = {"prompt": prompt, "max_tokens": WEIGHTS_OUT,
                 "temperature": 0.0, "ignore_eos": True}
         if models is not None:
@@ -3560,7 +3608,8 @@ def _weights_window(label, srv, prompts, models=None, form="") -> dict:
             raise AssertionError(f"{label}: the response names "
                                  f"{json.loads(text)['model']}, the "
                                  f"request {models[i]}")
-    run["alone"] = [srv.tokens_after(p) for p in prompts]
+    if alone:
+        run["alone"] = [srv.tokens_after(p) for p in prompts]
     srv.stop()
     for kernel in KERNELS:
         if run["launches"].get(kernel + form, 0) <= 0:
@@ -3727,9 +3776,9 @@ def write_safetensors(path, specs) -> int:
 MIXTRAL_RUN = "serve_mixtral"
 OPT_RUN = "serve_opt"
 GPT2_RUN = "engine_gpt2"
-MIXTRAL_LAYERS = 4
+MIXTRAL_LAYERS = 2
 FAMILY_CONFIGS = {
-    # mistralai/Mixtral-8x7B-v0.1/config.json, 4 of 32 layers
+    # mistralai/Mixtral-8x7B-v0.1/config.json, 2 of 32 layers
     "mixtral": {"architectures": ["MixtralForCausalLM"],
                 "vocab_size": 32000, "hidden_size": 4096,
                 "intermediate_size": 14336,
@@ -4058,12 +4107,13 @@ def _family_kernel_cases(dev) -> dict:
 
 
 def _family_forwards(dev, cfg, params, label, kv_dtype="bf16",
-                     hold_logits=True) -> None:
+                     hold_logits=True, page_size=128,
+                     layout="per_layer") -> None:
     """The model check: prefill T = 512, a decode step and a verify
     block through the family's ``forward``, the kernels against the
     plain versions rounded as the kernels round (``plain_bf16p``), over
-    a fresh per-layer cache of the model's dtype (``kv_dtype`` "int8":
-    an int8 one). In the kernels' run every attention call is also
+    a fresh cache of the model's dtype (``kv_dtype`` "int8": an int8
+    one) in pages of ``page_size`` and the ``layout``. In the kernels' run every attention call is also
     held, on its own inputs, to the plain version (BF16_TOL, F32_TOL
     for f32 queries); the logits are held by ``compare_logits``, or
     with ``hold_logits`` False printed only. For Mixtral the smallest
@@ -4102,7 +4152,7 @@ def _family_forwards(dev, cfg, params, label, kv_dtype="bf16",
     try:
         results = {impl: _forwards(dev, cfg, params, tokens,
                                    _model_caches(dev, cfg, kv_dtype,
-                                                 "per_layer"), impl)
+                                                 layout, page_size), impl)
                    for impl in ("cuda", "plain_bf16p")}
     finally:
         mixtral.top_k_lower_index = top_k
@@ -4272,10 +4322,10 @@ def families_phase(vocab: int) -> dict:
                     ("model.embed_tokens.weight", "embed", (), False),
                     ("model.layers.0.self_attn.q_proj.weight",
                      "layers.0.qkv.weight", (slice(0, 4096),), False),
-                    ("model.layers.3.block_sparse_moe.experts.5.w2.weight",
-                     "layers.3.w_down", (slice(None), 5), False),
-                    ("model.layers.2.block_sparse_moe.experts.7.w1.weight",
-                     "layers.2.w_gate", (7,), False),
+                    ("model.layers.1.block_sparse_moe.experts.5.w2.weight",
+                     "layers.1.w_down", (slice(None), 5), False),
+                    ("model.layers.0.block_sparse_moe.experts.7.w1.weight",
+                     "layers.0.w_gate", (7,), False),
                     ("lm_head.weight", "lm_head.weight", (), False)]),
                 ("opt", OPT_RUN, OPT_PAGES, 32, [
                     ("model.decoder.embed_tokens.weight", "embed", (),
@@ -4315,9 +4365,9 @@ LLAMA70_INT8_RUN = "serve_llama3_70b_int8"
 OPT27_RUN = "serve_opt_2.7b_f16"
 QWEN05_RUN = "serve_qwen2_0.5b_f32"
 W8_F16_RUN = "serve_int8_weights_f16"
-LLAMA70_LAYERS = 4
+LLAMA70_LAYERS = 2
 GEOMETRY_CONFIGS = {
-    # meta-llama/Meta-Llama-3-70B/config.json, 4 of 80 layers: group 8
+    # meta-llama/Meta-Llama-3-70B/config.json, 2 of 80 layers: group 8
     # (64 q over 8 kv heads) at head_dim 128, also Llama-2-70B's and
     # Qwen2-72B's.
     "llama3-70b": {"architectures": ["LlamaForCausalLM"],
@@ -4328,19 +4378,19 @@ GEOMETRY_CONFIGS = {
                    "max_position_embeddings": 8192, "rms_norm_eps": 1e-5,
                    "rope_theta": 500000.0, "tie_word_embeddings": False,
                    "torch_dtype": "bfloat16"},
-    # facebook/opt-2.7b/config.json, whole: group 1 at head_dim 80
-    # (2560 / 32).
+    # facebook/opt-2.7b/config.json, 16 of 32 layers: group 1 at
+    # head_dim 80 (2560 / 32).
     "opt-2.7b": {"architectures": ["OPTForCausalLM"], "vocab_size": 50272,
                  "hidden_size": 2560, "ffn_dim": 10240,
-                 "num_hidden_layers": 32, "num_attention_heads": 32,
+                 "num_hidden_layers": 16, "num_attention_heads": 32,
                  "max_position_embeddings": 2048,
                  "do_layer_norm_before": True, "word_embed_proj_dim": 2560,
                  "torch_dtype": "float16"},
-    # Qwen/Qwen2-0.5B/config.json, whole: group 7 (14 q over 2 kv heads)
-    # at head_dim 64, tied embeddings.
+    # Qwen/Qwen2-0.5B/config.json, 12 of 24 layers: group 7 (14 q over
+    # 2 kv heads) at head_dim 64, tied embeddings.
     "qwen2-0.5b": {"architectures": ["Qwen2ForCausalLM"],
                    "vocab_size": 151936, "hidden_size": 896,
-                   "intermediate_size": 4864, "num_hidden_layers": 24,
+                   "intermediate_size": 4864, "num_hidden_layers": 12,
                    "num_attention_heads": 14, "num_key_value_heads": 2,
                    "max_position_embeddings": 131072,
                    "rms_norm_eps": 1e-6, "rope_theta": 1000000.0,
@@ -4678,7 +4728,7 @@ def geometries_phase(vocab: int) -> dict:
     """Every query group, head_dim and dtype the JAX engine serves, on
     the three attention kernels: the kernel sweep, the new timed rows,
     then three checkpoints written from published configs and served:
-    Llama-3-70B (4 layers; bf16, then int8 KV), OPT-2.7b at float16 and
+    Llama-3-70B (2 layers; bf16, then int8 KV), OPT-2.7b at float16 and
     Qwen2-0.5B at float32; then bench-1b at --quantization int8 --dtype
     float16 (the int8-weight kernel's f16 form). Returns the timed
     cases, the int8-weight cases and each run's launches."""
@@ -4729,6 +4779,279 @@ def geometries_phase(vocab: int) -> dict:
     torch.cuda.empty_cache()
     log(f"geometries: phase passed in {time.perf_counter() - t_phase:.1f} s"
         f"; {SMI}")
+    return out
+
+
+# ---- pages phase --------------------------------------------------------------
+
+# The serving runs of the pages phase (``launches_by_run`` keys): bench-1b
+# at page 256, per layer, bf16 KV; and at an int8 page of 8, stacked.
+PAGES_256_RUN = "serve_page256"
+PAGES_INT8_RUN = "serve_page8_int8_stacked"
+PAGES_SERVERS = (
+    (PAGES_256_RUN, ["--page-size", "256", "--num-pages", "256"], "bf16",
+     "per_layer", ""),
+    (PAGES_INT8_RUN, ["--page-size", "8", "--num-pages", "8192",
+                      "--kv-cache-dtype", "int8", "--cache-layout",
+                      "stacked"], "int8", "stacked", "_int8_stacked"))
+# The sweep: every page size at bench-1b's geometry (group 4, head_dim
+# 64) over bf16 and int8 caches; f16 at OPT-2.7b's (group 1, head_dim
+# 80) and f32 at Qwen2-0.5B's (group 7, head_dim 64) at three of them.
+PAGE_SWEEP = (1, 8, 12, 16, 24, 48, 96, 128, 200, 256, 384, 512)
+PAGE_SWEEP_OTHER = ((torch.float16, 1, 80), (torch.float32, 7, 64))
+PAGE_SWEEP_OTHER_PAGES = (8, 48, 256)
+# Page sizes under one token: refused by the rule and by the library.
+PAGE_REFUSED = (0, -16)
+# The timed rows (bench-1b's headline shapes) by page size and caches;
+# page 128 is the kernel phase's, re-timed in the same call.
+PAGE_ROWS = ((128, (False, True)), (16, (False, True)),
+             (256, (False, True)), (8, (True,)))
+# The serving run (and its counters' form) whose launches each timed
+# row reports: page 128 the main path's and the int8 run's, page 256
+# and the int8 page of 8 this phase's servers; no run serves page 16.
+PAGE_ROW_RUNS = {("ps128", "bf16"): (MAIN_RUN, ""),
+                 ("ps128", "int8"): (INT8_RUN, "_int8"),
+                 ("ps256", "bf16"): (PAGES_256_RUN, ""),
+                 ("ps8", "int8"): (PAGES_INT8_RUN, "_int8_stacked")}
+
+
+def _page_sweep_point(dev, gen, dtype, int8, group, d, ps) -> float:
+    """Every kernel form at one page size, small shapes, two kv heads:
+    decode over kv lens just before, at and after a page edge and the
+    chunk edge, at 144, a row of several chunks and a pad row (per
+    layer at the wrapper's split and at one, stacked at layer 1 of 2 and
+    bitwise the per-layer launch on its view, the burst-tail form);
+    prefill (T = 24 from a page edge, across the chunk edge and past a
+    second chunk; a pad row); ragged (W = 5: a decode row at a page
+    edge, a verify row across the chunk edge, a chunk row, a pad row).
+    Each against its plain version; returns the largest error."""
+    from production_stack_tpu_torch.ops import paged_attention_cuda as pa
+    from production_stack_tpu_torch.ops.prefill_attention_cuda import (
+        paged_prefill_attention, paged_prefill_attention_plain)
+    from production_stack_tpu_torch.ops.ragged_attention_cuda import (
+        paged_ragged_attention, paged_ragged_attention_plain)
+    kv, nh = 2, 2 * group
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    p16 = {} if dtype == torch.float32 else {"p_dtype": dtype}
+    tag = (f"pages ps={ps} {str(dtype)[6:]}{'/int8' if int8 else ''} "
+           f"g{group} d{d}")
+    lens_l = [max(ps - 1, 1), ps, ps + 1, 127, 128, 129, 144,
+              max(600, 2 * ps + 7), 0]
+    max_pages = -(-max(lens_l) // ps) + 1
+    num_pages = len(lens_l) * max_pages + 1
+    (kc, vc), _ = _caches(kv, num_pages, d, ps, dtype, dev, gen, int8)
+    worst = 0.0
+
+    def held(what, got, ref):
+        nonlocal worst
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), **tol,
+                                   msg=lambda m: f"{tag} {what}: {m}")
+        worst = max(worst, (got.float() - ref.float()).abs().max().item())
+
+    b = len(lens_l)
+    lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    table = _page_table(lens_l, ps, max_pages, num_pages, gen, dev)
+    q = torch.randn((b, nh, d), generator=gen, device=dev).to(dtype)
+    splits = pa.decode_splits(b, kv, max_pages, ps)
+    if splits[0] < 2:
+        raise AssertionError(f"{tag}: the decode split {splits} walks "
+                             "one range")
+    want = pa.paged_decode_attention_plain(q, kc, vc, table, lens,
+                                           num_splits=splits[0])
+    for n in (None, 1):
+        got = pa.paged_decode_attention(q, kc, vc, table, lens,
+                                        num_splits=n)
+        held(f"decode splits={n}", got, want)
+        if got[-1].abs().max().item() != 0.0:
+            raise AssertionError(f"{tag}: the decode pad row is not 0")
+    k5, v5 = (_stack_at(c, 2, 1, gen) for c in (kc, vc))
+    got5 = pa.paged_decode_attention(q, k5, v5, table, lens, layer=1)
+    held("decode stacked", got5, pa.paged_decode_attention_plain(
+        q, k5, v5, table, lens, layer=1))
+    if not torch.equal(got5, pa.paged_decode_attention(q, k5[1], v5[1],
+                                                        table, lens)):
+        raise AssertionError(f"{tag}: stacked decode differs from the "
+                             "per-layer launch on its view")
+    k_tail, v_tail = (torch.randn((b, 4, kv, d), generator=gen,
+                                  device=dev).to(dtype) for _ in range(2))
+    q_pos = (lens + torch.arange(b, dtype=torch.int32, device=dev) % 4
+             ).contiguous()
+    tail = (q, kc, vc, table, lens, k_tail, v_tail, q_pos)
+    held("decode tail", pa.paged_decode_tail_attention(*tail),
+         pa.paged_decode_tail_attention_plain(*tail))
+
+    rows = [(max(ps - 5, 0), 24), (120, 24), (250, 20), (0, 0)]
+    kv_lens = [s + n if n else 0 for s, n in rows]
+    plens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    ptable = _page_table(kv_lens, ps, max_pages, num_pages, gen, dev)
+    starts = torch.tensor([s if n else 0 for s, n in rows],
+                          dtype=torch.int32, device=dev)
+    pos = (starts[:, None] + torch.arange(24, dtype=torch.int32,
+                                          device=dev)[None]).contiguous()
+    qp = torch.randn((4, 24, nh, d), generator=gen, device=dev).to(dtype)
+    args = (qp, kc, vc, ptable, pos, plens)
+    got = paged_prefill_attention(*args)
+    held("prefill", got, paged_prefill_attention_plain(*args, **p16))
+    if got[-1].abs().max().item() != 0.0:
+        raise AssertionError(f"{tag}: the prefill pad row is not 0")
+
+    rrows = [(ps, 0), (130, 4), (300, 4), (0, -1)]
+    rlens = torch.tensor([n for n, _ in rrows], dtype=torch.int32,
+                         device=dev)
+    last = torch.tensor([li for _, li in rrows], dtype=torch.int32,
+                        device=dev)
+    rtable = _page_table([n for n, _ in rrows], ps, max_pages, num_pages,
+                         gen, dev)
+    qr = torch.randn((4, 5, nh, d), generator=gen, device=dev).to(dtype)
+    rargs = (qr, kc, vc, rtable, rlens, last)
+    got = paged_ragged_attention(*rargs)
+    held("ragged", got, paged_ragged_attention_plain(*rargs, **p16))
+    if got[-1].abs().max().item() != 0.0 or got[0, 1:].abs().max().item():
+        raise AssertionError(f"{tag}: ragged dead slots are not 0")
+    return worst
+
+
+def _page_sweep(dev) -> dict:
+    """The sweep over page sizes (``_page_sweep_point``), and the
+    library's ``pstt_page_size_supported`` against the Python rule at
+    every point and at pages under one token. Returns the largest error
+    by form."""
+    from production_stack_tpu_torch.ops import paged_kv_common as pkc
+    lib = pkc.kernel_lib()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    t0 = time.perf_counter()
+    points = [(torch.bfloat16, int8, 4, 64, ps) for ps in PAGE_SWEEP
+              for int8 in (False, True)]
+    points += [(dtype, int8, group, d, ps)
+               for dtype, group, d in PAGE_SWEEP_OTHER
+               for ps in PAGE_SWEEP_OTHER_PAGES for int8 in (False, True)]
+    worst = {}
+    for dtype, int8, group, d, ps in points:
+        cache = torch.int8 if int8 else dtype
+        said = lib.pstt_page_size_supported(ps)
+        if not (said and pkc.kernel_page_size_supported(ps)):
+            raise AssertionError(f"page {ps}: the library says {said}, the "
+                                 "rule refuses or disagrees")
+        key = f"{str(dtype)[6:]}{'/int8' if int8 else ''}"
+        worst[key] = max(worst.get(key, 0.0), _page_sweep_point(
+            dev, gen, dtype, int8, group, d, ps))
+    for ps in PAGE_REFUSED:
+        said = lib.pstt_page_size_supported(ps)
+        if said or pkc.kernel_page_size_refusal(ps) is None:
+            raise AssertionError(f"page {ps}: the library says {said}, the "
+                                 f"rule {pkc.kernel_page_size_refusal(ps)!r}")
+    torch.cuda.empty_cache()
+    log(f"pages sweep: {len(points)} points x 7 launches (decode at the "
+        f"wrapper's split and at one, stacked, tail; prefill; ragged) at "
+        f"pages {PAGE_SWEEP}, each within tolerance of its plain version, "
+        f"in {time.perf_counter() - t0:.1f} s; largest error by form "
+        f"{worst}; the rule and pstt_page_size_supported agree on them and "
+        f"refuse pages {PAGE_REFUSED}")
+    return worst
+
+
+def _page_kernel_cases(dev) -> dict:
+    """bench-1b's headline cases at each page size of ``PAGE_ROWS`` (page
+    128 again beside the others, in this call): decode B = 32, kv lens
+    1..1024; prefill B = 8, T = 512, first and second chunk; ragged R =
+    40, W = 512, the unified step; bf16 and int8 caches (the int8 page
+    of 8: decode and prefill). Returns {kernel: {"ps<P>": {form:
+    case}}}, the second chunk under ``paged_prefill_second``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    timer = Timer(dev)
+    rows = _headline_rows()
+    out = {name: {} for name in list(KERNELS) + ["paged_prefill_second"]}
+
+    bf16 = torch.bfloat16
+    for ps, forms in PAGE_ROWS:
+        for int8 in forms:
+            form = "int8" if int8 else "bf16"
+            tag = f"{'bf16/int8' if int8 else 'bf16'} ps={ps}"
+            cases = {
+                "paged_decode": decode_case(
+                    f"decode {tag} B=32", 32, rows["lens"], ps, bf16, dev,
+                    gen, timer, num_pages=512 * 128 // ps, int8=int8),
+                "paged_prefill": prefill_case(
+                    f"prefill {tag} B=8 T=512 first chunk", rows["first"],
+                    512, ps, bf16, dev, gen, timer, int8=int8),
+                "paged_prefill_second": prefill_case(
+                    f"prefill {tag} B=8 T=512 second chunk", rows["second"],
+                    512, ps, bf16, dev, gen, timer, int8=int8),
+            }
+            if ps != 8:
+                cases["paged_ragged"] = ragged_case(
+                    f"ragged {tag} unified R=40 W=512", rows["unified"],
+                    512, ps, bf16, dev, gen, timer, int8=int8)
+            for name, r in cases.items():
+                log("pages kernel case " + json.dumps(r))
+                out[name].setdefault(f"ps{ps}", {})[form] = r
+            torch.cuda.empty_cache()
+    for name, by_page in out.items():
+        for page, forms in by_page.items():
+            log(f"pages kernel {name} {page}: " + "; ".join(
+                f"{form} {c['ms']:.5f} ms (bound {c['bound_ms']:.5f} by "
+                f"{c['bound_by']}, SDPA {c['library_ms']:.5f}, plain "
+                f"{c['plain_ms']:.4f}, max abs err {c['max_abs_err']:.3e})"
+                for form, c in forms.items()) + f"; {SMI}")
+    return out
+
+
+def _pages_server(label, extra, prompts, kv_dtype, layout, form) -> dict:
+    """bench-1b with ``extra`` page flags and the families phase's
+    flags: the 16 greedy requests submitted together, once as a
+    warm-up, then counted (tok/s; the three kernels launched in the
+    run's form, no plain call, no eager step, no capture in the
+    window), each attention call of the model check over a cache of the
+    server's page size and layout held to its plain version, and the
+    requests again through an eager engine, byte-identical to the
+    graphed streams."""
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    srv = _Server(["--model", "bench-1b", "--random-weights"]
+                  + FAMILY_SERVER_ARGS + extra, base=[])
+    cfg = srv.engine.config
+    log(f"{label}: server up in {time.perf_counter() - t0:.1f} s; page "
+        f"{cfg.cache.page_size}, {cfg.cache.num_pages} pages, KV "
+        f"{cfg.cache.resolved_kv_dtype()}, layout "
+        f"{srv.engine.runner.cache_layout}; allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    run = _weights_window(label, srv, prompts, form=form, alone=False)
+    with torch.inference_mode():
+        _family_forwards(dev, cfg.model, srv.engine.runner.params, label,
+                         kv_dtype, hold_logits=False,
+                         page_size=cfg.cache.page_size, layout=layout)
+    _eager_batch(label, srv, prompts, run["ids"])
+    srv.close()
+    log(f"{label}: {run['tok_s']:.1f} tok/s; {SMI}")
+    return run
+
+
+def pages_phase(vocab: int) -> dict:
+    """Every page size the JAX engine serves, on the three attention
+    kernels: the sweep, the timed rows at pages 16, 256 and an int8 page
+    of 8 beside page 128, then bench-1b served at page 256 (per layer,
+    bf16 KV) and at an int8 page of 8 (stacked). Returns the sweep's
+    errors, the timed cases and each run's launches."""
+    import gc
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"sweep": _page_sweep(dev), "rows": _page_kernel_cases(dev)}
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(21)
+    prompts = [rng.randint(258, vocab, size=n).tolist()
+               for n in np.linspace(64, 700, 16).round().astype(int)]
+    for run, extra, kv_dtype, layout, form in PAGES_SERVERS:
+        out[run] = _pages_server(f"pages {run}", extra, prompts, kv_dtype,
+                                 layout, form)["launches"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"pages: phase passed in {time.perf_counter() - t_phase:.1f} s; "
+        f"{SMI}")
     return out
 
 
@@ -6119,7 +6442,7 @@ def _numbers(h) -> dict:
 
 
 def kernels_line(headline, launches, weights, families, tp=None,
-                 geometries=None) -> list:
+                 geometries=None, pages=None) -> list:
     """The ``kernels`` JSON line's entries: each attention kernel with
     its bf16 per-layer numbers, its ``int8``, ``stacked`` and
     ``int8_stacked`` forms, and its ``geometries`` (``g4_d128`` and
@@ -6134,7 +6457,13 @@ def kernels_line(headline, launches, weights, families, tp=None,
     ``geometries`` also holds its rows (``g8_d128`` with ``int8``,
     ``g1_d80``, ``g7_d64``, ``g1_d128``: the numbers of the row's dtype
     and the launches of the run that served it, 0 where none did), and
-    the int8-weight GEMM its f16 form at OPT-2.7b's projections."""
+    the int8-weight GEMM its f16 form at OPT-2.7b's projections. With
+    the pages phase's results (``pages``), each attention kernel's
+    ``pages`` holds its rows keyed ``ps128``, ``ps16``, ``ps256`` and
+    ``ps8`` (bf16 numbers with ``int8`` beside them; the int8 page of 8
+    alone under ``int8``; the prefill kernel's second chunk under
+    ``second_chunk``), each with the launches of the run that served
+    that page and cache (``PAGE_ROW_RUNS``; 0 where none did)."""
     geometry_runs = {"g4_d128": MIXTRAL_RUN, "g1_d64": OPT_RUN}
     summary = []
     for name, meta in KERNELS.items():
@@ -6158,6 +6487,25 @@ def kernels_line(headline, launches, weights, families, tp=None,
                       "int8": _numbers(
                           families["geometries"][name][geo]["int8"])}
                 for geo, run in geometry_runs.items()}})
+    if pages is not None:
+        for entry in summary:
+            name = entry["name"]
+            entry["pages"] = {}
+            for page, forms in pages["rows"][name].items():
+                row = {}
+                for form, case in forms.items():
+                    run, suffix = PAGE_ROW_RUNS.get((page, form), (None, ""))
+                    numbers = {"launches": launches.get(run, {}).get(
+                        name + suffix, 0), **_numbers(case)}
+                    if form == "bf16":
+                        row.update(numbers)
+                    else:
+                        row[form] = numbers
+                second = pages["rows"].get(name + "_second", {}).get(page)
+                if second is not None:
+                    row["second_chunk"] = {
+                        form: _numbers(case) for form, case in second.items()}
+                entry["pages"][page] = row
     if geometries is not None:
         for entry in summary:
             name = entry["name"]
@@ -6215,6 +6563,7 @@ def kernels_line(headline, launches, weights, families, tp=None,
 # The kernel form each run's ``launches_by_run`` entry counts, where it
 # is not the per-layer bf16 one.
 RUN_FORMS = {FLEET_INT8_RUN: "_int8_stacked", LLAMA70_INT8_RUN: "_int8",
+             PAGES_INT8_RUN: "_int8_stacked",
              DISAGG_INT8_RUN: "_int8_stacked", PP_RUN: "_stacked",
              PP_INT8_RUN: "_int8_stacked", CP_RUN: "_stacked",
              GPT2_PP_RUN: "_stacked", GPT2_CP_RUN: "_stacked",
@@ -6297,6 +6646,10 @@ def main() -> int:
                 W8_F16_RUN):
         launches[run] = geometries[run]
     torch.cuda.empty_cache()
+    pages = pages_phase(vocab)
+    for run, *_ in PAGES_SERVERS:
+        launches[run] = pages[run]
+    torch.cuda.empty_cache()
     tp = tp_phase(vocab)
     for run in (DEFERRED_RUN, NCCL_RUN, TP_RUN) + tuple(
             f"{DEFERRED_RUN}_{form}" for form, _ in DEFERRED_FORMS):
@@ -6315,7 +6668,7 @@ def main() -> int:
         raise AssertionError("the deferred server's window never launched "
                              "the decode kernel's tail form")
     summary = kernels_line(headline, launches, weights, families, tp,
-                           geometries)
+                           geometries, pages)
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - t_start:.1f} s, the kernel build included")
     print(json.dumps({"kernels": summary}), flush=True)

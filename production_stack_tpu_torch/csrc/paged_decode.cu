@@ -22,7 +22,8 @@
 //     whose every split is empty (a pad row) merges to exact 0.
 //   - Bytes in flight the whole time: a chunk's K and V pages stage as
 //     they lie in device memory, in the cache's own type (bf16, f32 or
-//     int8 plus its scales), through two stages of 16-byte cp.async, so
+//     int8 plus its scales), through two stages of cp.async (16 bytes
+//     a copy, or as wide as a page row allows: stage_chunk_async), so
 //     chunk c + 1 arrives while chunk c is used. Nothing is expanded to
 //     f32 in shared memory: 64 KB of stages a block at bf16 (32 KB at
 //     int8), three blocks an SM, at head_dim 64; twice that at head_dim
@@ -78,9 +79,12 @@
 // and q_pos [B] int32; its partials hold num_splits + 1 slots.
 // Launches on `stream`, allocates nothing, does not synchronise, and
 // returns cudaGetLastError() after the launch. A dtype or head dim
-// outside PSTT_FOR_EACH_GEOMETRY returns cudaErrorInvalidValue;
-// pstt_kernel_supports(dtype, cache_dtype, group, head_dim) tells the
-// host first.
+// outside PSTT_FOR_EACH_GEOMETRY, or a page size under 1
+// (page_size_ok), returns cudaErrorInvalidValue;
+// pstt_kernel_supports(dtype, cache_dtype, group, head_dim) and
+// pstt_page_size_supported(page_size) tell the host first.
+// Any page size of 1 or more: a split's chunks are 128 tokens of the
+// row, a page of 256 tokens two of them.
 //
 // The kernels' templates are in paged_decode.cuh; paged_decode_bf16.cu,
 // paged_decode_f16.cu and paged_decode_f32.cu instantiate them a query
@@ -103,8 +107,8 @@ int paged_decode_entry(int dtype, int cache_dtype, const void* q,
                        void* stream) {
   const bool tail = k_tail != nullptr;
   if (num_kv_heads <= 0 || num_q_heads < num_kv_heads ||
-      num_q_heads % num_kv_heads || page_size <= 0 ||
-      pstt::kChunk % page_size || layer < 0 || layer_stride < 0 ||
+      num_q_heads % num_kv_heads || !pstt::page_size_ok(page_size) ||
+      layer < 0 || layer_stride < 0 ||
       scale_layer_stride < 0 || num_splits < 1 || chunks_per_split < 1 ||
       ((num_splits > 1 || tail) && partials == nullptr) ||
       (tail && (v_tail == nullptr || q_pos == nullptr || tail_len < 1 ||
@@ -181,6 +185,13 @@ extern "C" int pstt_kernel_supports(int dtype, int cache_dtype, int group,
   PSTT_FOR_EACH_GEOMETRY(PSTT_SUPPORTS_CASE)
 #undef PSTT_SUPPORTS_CASE
   return 0;
+}
+
+// 1 if the kernels (decode, prefill, ragged) walk pages of this many
+// tokens, else 0: every page of 1 token or more (page_size_ok), over
+// every cache the kernels read.
+extern "C" int pstt_page_size_supported(int page_size) {
+  return pstt::page_size_ok(page_size) ? 1 : 0;
 }
 
 // The decode kernel's group tile for this query group and head dim

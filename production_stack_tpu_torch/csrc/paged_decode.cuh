@@ -75,14 +75,15 @@ struct DecodeSmem {
   static_assert(bytes <= kMaxBlockSmem, "a decode block's shared memory");
 };
 
-// Byte offset of (head dim d, chunk token col) in a staged plane. The
-// four head dims d..d+3 a warp reads together land on different banks:
-// each quarter's 8 lanes read one 32 * sizeof(C)-byte window of a row.
+// Byte offset of (head dim d, chunk token col) in a staged plane, rows
+// of kChunk tokens swizzled (PlaneLayout{kChunk * sizeof(C), true}, the
+// layout stage_chunk_async fills). The four head dims d..d+3 a warp
+// reads together land on different banks: each quarter's 8 lanes read
+// one 32 * sizeof(C)-byte window of a row.
 template <typename C>
 __device__ __forceinline__ uint32_t plane_offset(int d, int col) {
-  const uint32_t swz = ((uint32_t)(d & 3) * 32u * sizeof(C)) & 127u;
-  return (uint32_t)d * (kChunk * sizeof(C)) +
-         (((uint32_t)col * sizeof(C)) ^ swz);
+  return PlaneLayout{kChunk * (int)sizeof(C), true}.offset(d, col,
+                                                           sizeof(C));
 }
 
 // Four adjacent tokens of one head dim, as f32.
@@ -221,7 +222,7 @@ paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
         k_head, v_head, pt_row, c, pages_live, page_size,
         base + L::stages + (st * 2 + 0) * L::kPlane,
         base + L::stages + (st * 2 + 1) * L::kPlane,
-        [](int d, int col) { return plane_offset<C>(d, col); });
+        PlaneLayout{kChunk * (int)sizeof(C), true});
     if constexpr (QUANT)
       stage_scales_async<NT>(ks_head, vs_head, pt_row, c, pages_live,
                              page_size,

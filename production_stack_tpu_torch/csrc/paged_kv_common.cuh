@@ -10,10 +10,14 @@
 // Counterpart of make_page_dma / run_page_walk in the JAX package's
 // ops/paged_kv_common.py. One block owns one (row, kv head) pair and a
 // block of ROWS query rows of that kv head. For each 128-token chunk
-// of the row's pages (128 / page_size whole pages) it
-//   - stages the chunk's K and V pages ([head_dim, page_size] each,
-//     token-minor) from device memory into shared memory with 16-byte
-//     coalesced loads, converting to f32; pages past
+// of the row (tokens [128 c, 128 c + 128), token t at page
+// page_table[row, t / page_size], slot t % page_size, for any page
+// size: a page of 256 tokens is two chunks, one of 48 straddles chunk
+// edges) it
+//   - stages the chunk's K and V tokens (each page [head_dim,
+//     page_size], token-minor) from device memory into shared memory
+//     with coalesced loads (16 bytes, or as wide as the page row
+//     allows: stage_chunk), converting to f32; tokens of pages past
 //     ceil(kv_len / page_size) are not read and stage as zeros;
 //   - computes q.k^T / sqrt(head_dim) in f32 and sets scores outside
 //     the mask to -1e30;
@@ -23,10 +27,10 @@
 //
 // The cache's element type C is a template parameter apart from the
 // query/output type T. With C = int8_t the cache is quantized: int8
-// pages (16 tokens a 16-byte load) plus one f32 scale per (kv head,
-// page, slot), [kv_heads, num_pages, page_size]. The chunk's 128 K and
-// V scales are staged beside its pages (zeros past the live pages)
-// and folded in as the Pallas kernels fold them: the scores are
+// pages (16 tokens a 16-byte load at whole pages) plus one f32 scale
+// per (kv head, page, slot), [kv_heads, num_pages, page_size]. The
+// chunk's 128 K and V scales are staged beside its pages (zeros past
+// the live pages) and folded in as the Pallas kernels fold them: the scores are
 // (q . k_int8) / sqrt(D) * k_scale[token], l sums the unscaled
 // probabilities, and p * v_scale[token] enters p . v. That is the
 // plain version's order exactly, and costs 2 * ROWS * 128 multiplies
@@ -87,6 +91,15 @@ constexpr float kNegInf = -1e30f;
 
 template <typename C>
 constexpr bool kQuantized = std::is_same<C, int8_t>::value;
+
+// The page sizes the kernels walk: every page of 1 token or more (a
+// chunk is 128 tokens of a row whatever the page; see stage_chunk). The
+// launchers refuse any other, and pstt_page_size_supported()
+// (paged_decode.cu) answers the host from it;
+// ops/paged_kv_common.kernel_page_size_supported is the same rule.
+__host__ __device__ constexpr bool page_size_ok(int page_size) {
+  return page_size >= 1;
+}
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -243,16 +256,117 @@ struct RaggedMask {
   }
 };
 
-// Stage one 128-token chunk of K and V pages into shared memory as
-// f32 [D][kStride] tiles. Page j of the chunk fills columns
-// [j * page_size, (j + 1) * page_size). A 16-byte load holds 8 bf16,
-// 4 f32 or 16 int8 tokens of one head dim, so the page size must hold
-// a multiple of 16 bytes (the host checks it).
+// How a chunk is staged at a page size. A power of two up to 128 whose
+// page row holds a multiple of 16 bytes of C (bf16 and f16 from 8
+// tokens, f32 from 4, int8 from 16) takes whole pages a chunk with
+// 16-byte copies, the position shifted where it could be divided (the
+// path of page 128 and of the server's default 16, kept for its
+// speed). Any other page takes the general staging:
+// each token's page and slot by division, with the widest copy that no
+// page edge cuts and that keeps the page row's alignment
+// (copy_elems). The launch picks the path by page size at run time.
+template <typename C>
+__host__ __device__ __forceinline__ bool whole_page_staging(int page_size) {
+  return page_size <= kChunk && (page_size & (page_size - 1)) == 0 &&
+         page_size * (int)sizeof(C) % 16 == 0;
+}
+
+// Elements of `esz` bytes a copy of the general staging moves: the
+// largest power of two that divides the page size, at most 16 bytes. A copy starts at
+// a multiple of it in the row's token order, so it never crosses a page
+// edge (a multiple of the page size) or a chunk edge (of 128), and its
+// source lies at a multiple of its own width in bytes: every page row
+// starts at a multiple of page_size elements from the 256-byte aligned
+// cache. Copies of 16, 8 or 4 bytes; 2 or 1 where the page size is
+// odd, or is 2 mod 4 in int8.
+__device__ __forceinline__ int copy_elems(int page_size, int esz) {
+  return min(page_size & -page_size, 16 / esz);
+}
+
+// `bytes` (1, 2, 4, 8 or 16, aligned) of device memory, zero-extended
+// into a 16-byte word.
+__device__ __forceinline__ uint4 load_bytes(const void* src, int bytes) {
+  uint4 r = make_uint4(0, 0, 0, 0);
+  switch (bytes) {
+    case 16:
+      r = *reinterpret_cast<const uint4*>(src);
+      break;
+    case 8: {
+      const uint2 x = *reinterpret_cast<const uint2*>(src);
+      r.x = x.x;
+      r.y = x.y;
+      break;
+    }
+    case 4:
+      r.x = *reinterpret_cast<const uint32_t*>(src);
+      break;
+    case 2:
+      r.x = *reinterpret_cast<const uint16_t*>(src);
+      break;
+    default:
+      r.x = *reinterpret_cast<const uint8_t*>(src);
+  }
+  return r;
+}
+
+// The general staging of stage_chunk (a page that whole_page_staging
+// does not take): copy_elems tokens of one head dim a load, each
+// token's page and slot by division. Not inlined, the head dim and the
+// thread count taken at run time: one body a cache type serves every
+// instance of page_walk_block, which keeps its registers and the build
+// as they were before the general path.
+template <typename C>
+__device__ __noinline__ void stage_chunk_any(
+    const C* __restrict__ k_head, const C* __restrict__ v_head,
+    const int* __restrict__ pt_row, int chunk, int pages_live,
+    int page_size, int head_dim, int nthreads, float* __restrict__ ks,
+    float* __restrict__ vs) {
+  constexpr int kVec = 16 / sizeof(C);
+  const int vec = copy_elems(page_size, sizeof(C));
+  const int row_shift = __ffs(kChunk / vec) - 1;  // log2 copies a row
+  for (int i = threadIdx.x; i < head_dim << row_shift; i += nthreads) {
+    const int d = i >> row_shift;
+    const int col = (i - (d << row_shift)) * vec;
+    const int pos = chunk * kChunk + col;
+    const int lp = pos / page_size;
+    uint4 kraw = make_uint4(0, 0, 0, 0);
+    uint4 vraw = make_uint4(0, 0, 0, 0);
+    if (lp < pages_live) {
+      const size_t src = ((size_t)pt_row[lp] * head_dim + d) * page_size +
+                         (pos - lp * page_size);
+      kraw = load_bytes(k_head + src, vec * (int)sizeof(C));
+      vraw = load_bytes(v_head + src, vec * (int)sizeof(C));
+    }
+    const C* ke = reinterpret_cast<const C*>(&kraw);
+    const C* ve = reinterpret_cast<const C*>(&vraw);
+    float* kd = ks + d * kStride + col;
+    float* vd = vs + d * kStride + col;
+#pragma unroll
+    for (int x = 0; x < kVec; ++x) {
+      if (x < vec) {
+        kd[x] = to_f32(ke[x]);
+        vd[x] = to_f32(ve[x]);
+      }
+    }
+  }
+}
+
+// Stage one 128-token chunk of K and V into shared memory as f32
+// [D][kStride] tiles: token t of the chunk fills column t. With whole
+// pages (whole_page_staging), page j of the chunk fills columns
+// [j * page_size, (j + 1) * page_size) with 16-byte loads (8 bf16 or
+// f16, 4 f32 or 16 int8 tokens of one head dim); any other page takes
+// stage_chunk_any.
 template <typename C, int D, int NT>
 __device__ __forceinline__ void stage_chunk(
     const C* __restrict__ k_head, const C* __restrict__ v_head,
     const int* __restrict__ pt_row, int chunk, int pages_live,
     int page_size, float* __restrict__ ks, float* __restrict__ vs) {
+  if (!whole_page_staging<C>(page_size)) {
+    stage_chunk_any<C>(k_head, v_head, pt_row, chunk, pages_live,
+                       page_size, D, NT, ks, vs);
+    return;
+  }
   constexpr int kVec = 16 / sizeof(C);
   const int pages_per_chunk = kChunk / page_size;
   const int page_elems = D * page_size;
@@ -282,23 +396,23 @@ __device__ __forceinline__ void stage_chunk(
   }
 }
 
-// Stage the chunk's 128 K and V scales of a quantized cache: token
-// col of page j of the chunk reads slot col of that page's scale row;
-// pages past the live ones stage as zeros (their scores are masked).
+// Stage the chunk's 128 K and V scales of a quantized cache: token t of
+// the chunk reads slot t % page_size of its page's scale row, whatever
+// the page size; tokens of pages past the live ones stage as zeros
+// (their scores are masked).
 template <int NT>
 __device__ __forceinline__ void stage_scales(
     const float* __restrict__ k_scale_head,
     const float* __restrict__ v_scale_head,
     const int* __restrict__ pt_row, int chunk, int pages_live,
     int page_size, float* __restrict__ kss, float* __restrict__ vss) {
-  const int pages_per_chunk = kChunk / page_size;
   for (int i = threadIdx.x; i < kChunk; i += NT) {
-    const int j = i / page_size;
-    const int col = i - j * page_size;
-    const int lp = chunk * pages_per_chunk + j;
+    const int pos = chunk * kChunk + i;
+    const int lp = pos / page_size;
     float kx = 0.f, vx = 0.f;
     if (lp < pages_live) {
-      const size_t src = (size_t)pt_row[lp] * page_size + col;
+      const size_t src =
+          (size_t)pt_row[lp] * page_size + (pos - lp * page_size);
       kx = k_scale_head[src];
       vx = v_scale_head[src];
     }
@@ -311,10 +425,11 @@ __device__ __forceinline__ void stage_scales(
 //
 // The redesigned kernels (paged_walk_mma.cuh, paged_decode.cu) stage a
 // chunk as it lies in device memory, in the cache's own element type,
-// with 16-byte cp.async copies that land in shared memory while the
-// block computes on the chunk before. A copy with `live` false reads
-// nothing and writes 16 zero bytes: pages past the live ones stage as
-// zeros, as stage_chunk stages them.
+// with cp.async copies that land in shared memory while the block
+// computes on the chunk before: 16 bytes a copy with whole pages
+// (whole_page_staging), copy_elems tokens a copy at any other page. A
+// copy with `live` false reads nothing and writes zeros: pages past the
+// live ones stage as zeros, as stage_chunk stages them.
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -332,26 +447,118 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// Copy `bytes` (1, 2, 4, 8 or 16, aligned at both ends) from device to
+// shared memory, or zeros where `live` is false. cp.async takes 4, 8 and
+// 16 bytes; 2 and 1 (an odd page, or an int8 page of 2 mod 4 tokens)
+// are a load and a store, done when the barrier after the wait passes.
+__device__ __forceinline__ void cp_async_bytes(uint32_t dst, const void* src,
+                                               int bytes, bool live) {
+  const int n = live ? bytes : 0;
+  switch (bytes) {
+    case 16:
+      cp_async16(dst, src, live);
+      break;
+    case 8:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+                   "l"(src), "r"(n)
+                   : "memory");
+      break;
+    case 4:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+                   "l"(src), "r"(n)
+                   : "memory");
+      break;
+    case 2: {
+      const unsigned short x =
+          live ? *reinterpret_cast<const unsigned short*>(src) : 0;
+      asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(x) : "memory");
+      break;
+    }
+    default: {
+      const unsigned short x =
+          live ? *reinterpret_cast<const unsigned char*>(src) : 0;
+      asm volatile("st.shared.u8 [%0], %1;\n" ::"r"(dst), "h"(x) : "memory");
+    }
+  }
+}
+
 // Wait until at most N of this thread's committed groups are pending.
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// log2 of a power of two (page sizes divide 128: the staging loops
-// shift where stage_chunk divides; head dims need not be powers of two,
-// 80 is one, and are divided by as compile-time constants).
+// log2 of a power of two (with whole pages the page size is one: the
+// staging loops shift where the general staging divides; head dims need
+// not be powers of two, 80 is one, and are divided by as compile-time
+// constants).
 __device__ __forceinline__ int log2_pow2(int x) { return __ffs(x) - 1; }
 
-// Start the copies of one 128-token chunk of K and V pages. `off(d,
-// col)` is the byte offset of head dim d, chunk token col inside a
-// destination plane (the caller's layout: padded rows for ldmatrix, a
-// swizzle for the decode kernel's reads). The caller commits the group.
-template <typename C, int D, int NT, class Off>
+// Where head dim d, chunk token col lands in a destination plane of
+// staged K or V, in bytes: rows of `row_bytes` a head dim (padded for
+// ldmatrix in the tensor-core walk), the row offset XORed by the head
+// dim where `swizzle` (the decode kernel's reads: each quarter of a
+// warp on its own banks). Either keeps an aligned run of up to 16 bytes
+// contiguous.
+struct PlaneLayout {
+  int row_bytes;
+  bool swizzle;
+  __device__ __forceinline__ uint32_t offset(int d, int col,
+                                             int esz) const {
+    const uint32_t swz =
+        swizzle ? ((uint32_t)(d & 3) * 32u * (uint32_t)esz) & 127u : 0u;
+    return (uint32_t)d * (uint32_t)row_bytes +
+           (((uint32_t)col * (uint32_t)esz) ^ swz);
+  }
+};
+
+// The general staging of stage_chunk_async (a page whole_page_staging
+// does not take): copy_elems tokens of one head dim a copy, each token's
+// page and slot by division. Not inlined and untemplated (head dim,
+// element size and thread count at run time): one body serves every
+// kernel instance, so the instances keep their registers and the build
+// its time.
+static __device__ __noinline__ void stage_chunk_async_any(
+    const unsigned char* __restrict__ k_head,
+    const unsigned char* __restrict__ v_head,
+    const int* __restrict__ pt_row, int chunk, int pages_live,
+    int page_size, int head_dim, int esz, int nthreads, uint32_t k_dst,
+    uint32_t v_dst, PlaneLayout layout) {
+  const int vec = copy_elems(page_size, esz);
+  const int bytes = vec * esz;
+  const int row_shift = __ffs(kChunk / vec) - 1;  // log2 copies a row
+  for (int i = threadIdx.x; i < head_dim << row_shift; i += nthreads) {
+    const int d = i >> row_shift;
+    const int col = (i - (d << row_shift)) * vec;
+    const int pos = chunk * kChunk + col;
+    const int lp = pos / page_size;
+    const bool live = lp < pages_live;
+    const size_t src =
+        live ? (((size_t)pt_row[lp] * head_dim + d) * page_size +
+                (pos - lp * page_size)) * esz
+             : (size_t)0;
+    const uint32_t o = layout.offset(d, col, esz);
+    cp_async_bytes(k_dst + o, k_head + src, bytes, live);
+    cp_async_bytes(v_dst + o, v_head + src, bytes, live);
+  }
+}
+
+// Start the copies of one 128-token chunk of K and V into planes laid
+// out as `layout` says. The caller commits the group. Whole pages
+// (whole_page_staging) copy 16 bytes a copy, page by page; any other
+// page takes stage_chunk_async_any.
+template <typename C, int D, int NT>
 __device__ __forceinline__ void stage_chunk_async(
     const C* __restrict__ k_head, const C* __restrict__ v_head,
     const int* __restrict__ pt_row, int chunk, int pages_live,
-    int page_size, uint32_t k_dst, uint32_t v_dst, Off off) {
+    int page_size, uint32_t k_dst, uint32_t v_dst, PlaneLayout layout) {
+  if (!whole_page_staging<C>(page_size)) {
+    stage_chunk_async_any(reinterpret_cast<const unsigned char*>(k_head),
+                          reinterpret_cast<const unsigned char*>(v_head),
+                          pt_row, chunk, pages_live, page_size, D,
+                          (int)sizeof(C), NT, k_dst, v_dst, layout);
+    return;
+  }
   constexpr int kVec = 16 / sizeof(C);
   const int ps_shift = log2_pow2(page_size);
   const int first_page = chunk << (log2_pow2(kChunk) - ps_shift);
@@ -368,20 +575,48 @@ __device__ __forceinline__ void stage_chunk_async(
     const bool live = lp < pages_live;
     const size_t src =
         live ? (((size_t)pt_row[lp] * D) << ps_shift) + rem : (size_t)0;
-    const uint32_t o = off(d, (j << ps_shift) + col);
+    const uint32_t o = layout.offset(d, (j << ps_shift) + col, sizeof(C));
     cp_async16(k_dst + o, k_head + src, live);
     cp_async16(v_dst + o, v_head + src, live);
   }
 }
 
+// The general staging of stage_scales_async: copy_elems scales a copy
+// (at most 4), each token's page and slot by division; not inlined, as
+// stage_chunk_async_any.
+static __device__ __noinline__ void stage_scales_async_any(
+    const float* __restrict__ k_scale_head,
+    const float* __restrict__ v_scale_head,
+    const int* __restrict__ pt_row, int chunk, int pages_live,
+    int page_size, int nthreads, uint32_t ks_dst, uint32_t vs_dst) {
+  const int vec = copy_elems(page_size, 4);
+  for (int i = threadIdx.x; i < kChunk / vec; i += nthreads) {
+    const int tok = i * vec;
+    const int pos = chunk * kChunk + tok;
+    const int lp = pos / page_size;
+    const bool live = lp < pages_live;
+    const size_t src =
+        live ? (size_t)pt_row[lp] * page_size + (pos - lp * page_size)
+             : (size_t)0;
+    cp_async_bytes(ks_dst + tok * 4, k_scale_head + src, vec * 4, live);
+    cp_async_bytes(vs_dst + tok * 4, v_scale_head + src, vec * 4, live);
+  }
+}
+
 // Start the copies of the chunk's 128 K and V scales of a quantized
-// cache (4 scales a copy; an int8 page holds a multiple of 16 tokens).
+// cache: 4 scales a copy where the page is a power of two from 4 to 128
+// (shifted), else stage_scales_async_any.
 template <int NT>
 __device__ __forceinline__ void stage_scales_async(
     const float* __restrict__ k_scale_head,
     const float* __restrict__ v_scale_head,
     const int* __restrict__ pt_row, int chunk, int pages_live,
     int page_size, uint32_t ks_dst, uint32_t vs_dst) {
+  if (!whole_page_staging<float>(page_size)) {
+    stage_scales_async_any(k_scale_head, v_scale_head, pt_row, chunk,
+                           pages_live, page_size, NT, ks_dst, vs_dst);
+    return;
+  }
   const int ps_shift = log2_pow2(page_size);
   const int first_page = chunk << (log2_pow2(kChunk) - ps_shift);
   for (int i = threadIdx.x; i < kChunk / 4; i += NT) {

@@ -254,7 +254,7 @@ extern "C" int pstt_paged_ragged(int dtype, int cache_dtype, const void* q,
                                  void* stream) {
   (void)draft_lens;  // the draft span masks itself causally
   if (num_kv_heads <= 0 || num_q_heads % num_kv_heads ||
-      page_size <= 0 || pstt::kChunk % page_size || layer < 0 ||
+      !pstt::page_size_ok(page_size) || layer < 0 ||
       layer_stride < 0 || scale_layer_stride < 0)
     return cudaErrorInvalidValue;
   const pstt::LayerOffsets offsets{layer, layer_stride, scale_layer_stride};

@@ -28,7 +28,9 @@
 //     sums the unrounded probabilities. The softmax steps 64 tokens at
 //     a time, which halves the score registers.
 //   - K and V stage in 16 bits, never as f32: a chunk of both is 32 KB
-//     at head_dim 64, in two stages filled with cp.async, so chunk
+//     at head_dim 64, in two stages filled with cp.async
+//     (stage_chunk_async: any page size, a page that straddles a chunk
+//     edge staged token by token, dead pages as zeros), so chunk
 //     c + 1 arrives while chunk c is multiplied. Rows are padded by 16
 //     bytes (272 a row): the eight 16-byte rows of an ldmatrix tile
 //     then fall on eight different bank groups. 68 KB a block, three
@@ -228,7 +230,7 @@ __device__ void page_walk_block_mma(
           k_head, v_head, pt_row, c, pages_live, page_size,
           base + L::raw + (sd * 2 + 0) * L::kRaw,
           base + L::raw + (sd * 2 + 1) * L::kRaw,
-          [](int d, int col) { return (uint32_t)(d * kChunk + col); });
+          PlaneLayout{kChunk, false});
       stage_scales_async<NT>(k_scale_head, v_scale_head, pt_row, c,
                              pages_live, page_size,
                              base + L::scales + (st * 2 + 0) * L::kScale,
@@ -237,9 +239,8 @@ __device__ void page_walk_block_mma(
       stage_chunk_async<C, D, NT>(
           k_head, v_head, pt_row, c, pages_live, page_size,
           base + L::tiles + (sd * 2 + 0) * L::kTile,
-          base + L::tiles + (sd * 2 + 1) * L::kTile, [](int d, int col) {
-            return (uint32_t)(d * kMmaRowBytes + col * 2);
-          });
+          base + L::tiles + (sd * 2 + 1) * L::kTile,
+          PlaneLayout{kMmaRowBytes, false});
     }
     cp_async_commit();
   };

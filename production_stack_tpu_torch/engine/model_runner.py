@@ -334,9 +334,10 @@ def check_engine_geometry(config: EngineConfig) -> None:
     """On the card: raise, naming the rule it breaks, unless the
     kernels serve the model's geometry with the cache's dtype
     (``kernel_geometry_supported``: bf16, f16 or f32 over the same type
-    or int8, any query group, head_dim 32, 64, 80 or 128; and a page
-    size the walks take, a multiple of 16 for int8), then build (or
-    find) and load the kernel library and hold it to the same answer.
+    or int8, any query group, head_dim 32, 64, 80 or 128; and
+    ``kernel_page_size_supported``: any page of 1 token or more), then
+    build (or find) and load the kernel library and hold it to the same
+    answers.
     The card never serves through the plain versions."""
     model = config.model
     check_kernel_shapes(

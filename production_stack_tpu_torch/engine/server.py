@@ -2507,15 +2507,17 @@ def parse_args(argv=None):
                    help="weight-only quantization: int8 projections with "
                         "per-channel scales (half the weight bytes a "
                         "decode step reads)")
-    p.add_argument("--page-size", type=int, default=16)
+    p.add_argument("--page-size", type=int, default=16,
+                   help="tokens a KV page holds: any size of 1 or more, "
+                        "with every --kv-cache-dtype (the kernels walk "
+                        "128-token chunks whatever the page)")
     p.add_argument("--num-pages", type=int, default=512)
     p.add_argument("--kv-cache-dtype", default="auto",
                    choices=["auto", "bf16", "int8"],
                    help="KV page storage: auto/bf16 keep the model's "
                         "dtype; int8 quantizes on write (one f32 scale "
                         "per slot) and spends the same device bytes on "
-                        "about 1.9x the pages; on the card it needs a "
-                        "page size that is a multiple of 16")
+                        "about 1.9x the pages, at any --page-size")
     p.add_argument("--cache-layout", default="auto",
                    choices=["auto", "stacked", "per_layer"],
                    help="KV cache device layout: one stacked [L, ...] "

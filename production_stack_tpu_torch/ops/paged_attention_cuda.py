@@ -28,7 +28,8 @@ once per step and keeps bytes in flight on every SM:
   its row's kv_len loads nothing, and a pad row (kv_len 0) merges to
   exact 0. One split is the same kernel writing the output directly;
 - pages stage as they lie in device memory, in the cache's own type,
-  through two stages of asynchronous 16-byte copies (cp.async): the
+  through two stages of asynchronous copies (cp.async; 16 bytes, or as
+  wide as a page row of any other size allows): the
   next chunk arrives while this one is used, and nothing is expanded
   to f32 in shared memory (64 KB of stages a block at bf16, three
   blocks an SM);
@@ -125,9 +126,11 @@ def decode_splits(batch: int, num_kv_heads: int, max_pages: int,
     """(number of splits, chunks of one split) of a decode launch.
 
     A function of host-known shapes only: the table's width gives the
-    most chunks a row can hold, and the split grows until batch *
-    kv heads * splits reaches ``TARGET_BLOCKS`` or every split holds one
-    chunk. The splits cover every chunk of the table exactly once:
+    most 128-token chunks a row can hold, whatever the page size (a page
+    of 256 tokens is two chunks, and a split's ``chunk_range`` means the
+    same tokens in the kernel and in ``page_walk_partial``), and the
+    split grows until batch * kv heads * splits reaches
+    ``TARGET_BLOCKS`` or every split holds one chunk. The splits cover every chunk of the table exactly once:
     split s walks chunks [s * per, min((s + 1) * per, chunks))."""
     chunks = max(1, -(-max_pages * page_size // CHUNK_TOKENS))
     want = -(-TARGET_BLOCKS // max(1, batch * num_kv_heads))

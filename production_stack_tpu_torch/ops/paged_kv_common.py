@@ -16,13 +16,16 @@ half:
 - the launch counters that show a run went through the kernels;
 - what the kernels serve (``kernel_geometry_supported``: bf16, f16 or
   f32 over the same type or int8, any query group, head_dim 32, 64, 80
-  or 128), the rule the engine refuses a model by at start-up;
+  or 128; ``kernel_page_size_supported``: any page of 1 token or more),
+  the rules the engine refuses a model by at start-up;
 - operand checks common to the wrappers, and the split of an int8
   cache (a ``QuantKV``, ops/quant_kv.py) into its data and scales;
-- the plain chunked page walk in torch: the same 128-token chunks,
-  the same mask, the same online softmax (m, l, acc in f32), the same
-  fold of an int8 cache's scales and the same zero output for a row
-  with no cached tokens as the kernels. It is what a wrapper runs for
+- the plain chunked page walk in torch: the same 128-token chunks
+  (token t of a row at page ``page_table[row, t // page_size]``, slot
+  ``t % page_size``, whatever the page size), the same mask, the same
+  online softmax (m, l, acc in f32), the same fold of an int8 cache's
+  scales and the same zero output for a row with no cached tokens as
+  the kernels. It is what a wrapper runs for
   CPU tensors, and what the kernels are compared with on the card. It
   also walks a range of chunks to the unnormalised state and merges
   such states, as the decode kernel's splits do, and can round the
@@ -47,8 +50,10 @@ from production_stack_tpu_torch.ops.quant_kv import QuantKV
 
 NEG_INF = -1e30
 
-# Tokens per step of the page walk: a chunk is 128 // page_size
-# pages, so the kernels' thread layout is the same at every page size.
+# Tokens per step of the page walk: chunk c is tokens [128 c, 128 c +
+# 128) of a row, whatever the page size (a page of 256 is two chunks, a
+# page of 48 straddles chunk edges), so the kernels' thread layout and
+# the decode kernel's splits are the same at every page size.
 CHUNK_TOKENS = 128
 
 # dtype codes of the C interface: of the query/output and of the
@@ -209,6 +214,8 @@ def kernel_lib() -> ctypes.CDLL:
             lib.pstt_paged_ragged.restype = i32
             lib.pstt_kernel_supports.argtypes = [i32] * 4
             lib.pstt_kernel_supports.restype = i32
+            lib.pstt_page_size_supported.argtypes = [i32]
+            lib.pstt_page_size_supported.restype = i32
             lib.pstt_decode_group_tile.argtypes = [i32] * 2
             lib.pstt_decode_group_tile.restype = i32
             # int8-weight GEMM (ops/int8_matmul_cuda.py): dtype, x, q,
@@ -378,14 +385,34 @@ def kernel_geometry_supported(dtype: torch.dtype,
                                    head_dim) is None
 
 
+def kernel_page_size_refusal(page_size: int) -> Optional[str]:
+    """The rule a page size breaks, or None where the kernels walk it:
+    any page of 1 token or more, over every cache dtype. A chunk is 128
+    tokens of a row whatever the page (a page of 256 is two chunks, one
+    of 48 straddles chunk edges), and each copy is as wide as the page
+    row's bytes allow (``stage_chunk_async``, csrc/paged_kv_common.cuh).
+    Pure Python: the CPU tests read it, and the library's
+    ``pstt_page_size_supported`` answers the same."""
+    if page_size < 1:
+        return f"a page holds 1 token or more, not {page_size}"
+    return None
+
+
+def kernel_page_size_supported(page_size: int) -> bool:
+    """Whether the kernels walk pages of ``page_size`` tokens
+    (``kernel_page_size_refusal`` finds no rule broken)."""
+    return kernel_page_size_refusal(page_size) is None
+
+
 def check_kernel_shapes(num_q_heads: int, num_kv_heads: int,
                         head_dim: int, page_size: int,
                         dtype: torch.dtype,
                         cache_dtype: Optional[torch.dtype] = None) -> None:
     """Raise NotImplementedError, naming the rule, on a geometry the
     kernels do not serve (``kernel_geometry_refusal``) or a page size
-    they do not walk; then ask the kernel library (which it builds and
-    loads) the same question, and raise RuntimeError if it disagrees.
+    they do not walk (``kernel_page_size_refusal``); then ask the kernel
+    library (which it builds and loads) the same questions, and raise
+    RuntimeError if it disagrees.
     ``cache_dtype`` is the cache's element type (default ``dtype``;
     torch.int8 for an int8 cache). The runner calls it at start-up on
     the card, so an unsupported model fails there, before any weight
@@ -399,13 +426,10 @@ def check_kernel_shapes(num_q_heads: int, num_kv_heads: int,
         raise NotImplementedError(
             f"query group {group}, head_dim {head_dim}, {dtype} over a "
             f"{cache_dtype} cache is not served on the card: {refusal}")
-    if (page_size > CHUNK_TOKENS or CHUNK_TOKENS % page_size
-            or (page_size * cache_dtype.itemsize) % 16):
-        raise NotImplementedError(
-            f"page_size {page_size}: the kernels walk 128-token chunks "
-            "of whole pages with 16-byte loads (page_size must divide "
-            f"128 and hold a multiple of 16 bytes of {cache_dtype}, so "
-            "a multiple of 16 for an int8 cache)")
+    refusal = kernel_page_size_refusal(page_size)
+    if refusal is not None:
+        raise NotImplementedError(f"page_size {page_size} is not served "
+                                  f"on the card: {refusal}")
     if not kernel_lib().pstt_kernel_supports(
             _DTYPE_CODES[dtype], _CACHE_CODES[cache_dtype], group,
             head_dim):
@@ -414,6 +438,12 @@ def check_kernel_shapes(num_q_heads: int, num_kv_heads: int,
             f"{head_dim}, {dtype} over {cache_dtype}, which "
             "kernel_geometry_supported serves: PSTT_FOR_EACH_GEOMETRY "
             "(csrc/paged_kv_common.cuh) and the Python rule disagree")
+    if not kernel_lib().pstt_page_size_supported(page_size):
+        raise RuntimeError(
+            f"the kernel library refuses page_size {page_size}, which "
+            "kernel_page_size_supported serves: the "
+            "launchers' page check (csrc/paged_decode.cu "
+            "pstt_page_size_supported) and the Python rule disagree")
 
 
 def set_build_root(root) -> None:
@@ -478,7 +508,9 @@ def page_walk_plain(q_rows: torch.Tensor, k_cache: torch.Tensor,
                (the tensor-core walk feeds them to the product as
                bf16); l still sums the unrounded ones. Default: none
 
-    Walks ceil(kv_len / 128) chunks per row: pages of a chunk past
+    Walks ceil(kv_len / 128) chunks per row, chunk c holding tokens
+    [128 c, 128 c + 128) (token t at page ``page_table[row, t //
+    page_size]``, slot ``t % page_size``): tokens of pages past
     ceil(kv_len / page_size) read as zeros, scores outside the mask
     are -1e30, and m, l, acc run the online softmax in f32. An int8
     cache follows the Pallas kernels' order: the scores are
@@ -514,17 +546,13 @@ def page_walk_partial(q_rows: torch.Tensor, k_cache: torch.Tensor,
             k_scale, v_scale = k_scale[layer], v_scale[layer]
     b, kvh, rows, d = q_rows.shape
     page_size = k_cache.shape[-1]
-    pages_per_chunk = max(1, CHUNK_TOKENS // page_size)
-    chunk = pages_per_chunk * page_size
+    chunk = CHUNK_TOKENS
     dev = q_rows.device
     kv_lens = kv_lens.long()
     max_pages = page_table.shape[1]
-    n_chunks = -(-max_pages // pages_per_chunk)
-    if max_pages % pages_per_chunk:
-        page_table = torch.nn.functional.pad(
-            page_table, (0, n_chunks * pages_per_chunk - max_pages))
+    n_chunks = -(-max_pages * page_size // chunk)
     page_table = page_table.long()
-    pages_needed = -(-kv_lens // page_size)
+    pages_live = torch.clamp(-(-kv_lens // page_size), max=max_pages)
     row_chunks = -(-kv_lens // chunk)
     walk = min(n_chunks, int(row_chunks.max()) if b else 0)
     begin, end = (0, walk) if chunk_range is None else chunk_range
@@ -534,20 +562,30 @@ def page_walk_partial(q_rows: torch.Tensor, k_cache: torch.Tensor,
     m = torch.full((b, kvh, rows, 1), NEG_INF, device=dev)
     l = torch.zeros((b, kvh, rows, 1), device=dev)
     acc = torch.zeros((b, kvh, rows, d), device=dev)
-    lane = torch.arange(pages_per_chunk, device=dev)
+    # Chunk c stages the n whole pages that its tokens [128 c, 128 c +
+    # 128) touch, dead pages (past the row's last) as zeros, and takes
+    # its 128 tokens from them, starting at slot lo of the first: a page
+    # that divides 128 gives lo = 0 and n = 128 // page_size, a page of
+    # 256 one page a chunk, a page of 48 three or four.
     for c in range(begin, min(end, walk)):
-        ids = page_table[:, c * pages_per_chunk:(c + 1) * pages_per_chunk]
-        live = (c * pages_per_chunk + lane)[None] < pages_needed[:, None]
+        first = c * chunk // page_size
+        pages = torch.arange(first, (c * chunk + chunk - 1) // page_size + 1,
+                             device=dev)
+        ids = page_table[:, torch.clamp(pages, max=max_pages - 1)]
+        live = pages[None] < pages_live[:, None]  # [B, n]
+        lo, span = c * chunk - first * page_size, len(pages) * page_size
 
         def stage(cache):
-            tile = cache[:, ids].float()  # [KV, B, ppc, D, ps]
+            tile = cache[:, ids].float()  # [KV, B, n, D, ps]
             tile = torch.where(live[None, :, :, None, None], tile, 0.0)
-            return tile.permute(1, 0, 3, 2, 4).reshape(b, kvh, d, chunk)
+            tile = tile.permute(1, 0, 3, 2, 4).reshape(b, kvh, d, span)
+            return tile[..., lo:lo + chunk]
 
         def stage_scale(scales):
-            tile = scales[:, ids]  # [KV, B, ppc, ps]
+            tile = scales[:, ids]  # [KV, B, n, ps]
             tile = torch.where(live[None, :, :, None], tile, 0.0)
-            return tile.permute(1, 0, 2, 3).reshape(b, kvh, 1, chunk)
+            tile = tile.permute(1, 0, 2, 3).reshape(b, kvh, 1, span)
+            return tile[..., lo:lo + chunk]
 
         k, v = stage(k_cache), stage(v_cache)
         s = (q @ k) * scale  # [B, KV, R, C]

@@ -2,7 +2,7 @@
 
     python production_stack_tpu_torch/tools/kernel_times.py [--repo DIR] \
         [--geometry bench-1b|g4_d128|g1_d64|g7_d128|g8_d128|g1_d80|
-                    g7_d64|g1_d128]
+                    g7_d64|g1_d128] [--page-size P]
 
 Times ``paged_decode_attention`` (B = 32, kv lens spread over 1..1024
 with two pad rows, page size 128), ``paged_prefill_attention`` (B = 8,
@@ -23,7 +23,10 @@ q over 8 kv heads at 128; ``g1_d80``: OPT-2.7b's 32 heads of 80 in f16;
 ``g1_d128``: Llama-2-7B's 32 heads of 128), in the geometry's dtype
 (bf16 where none is named) over a cache of that type and an int8 one,
 through the public wrappers of the checkout at ``--repo``
-(default: the checkout this file lies in). The unified block also runs
+(default: the checkout this file lies in). ``--page-size P`` (default
+128) times the same rows over pages of P tokens (the same 1024-token
+table width; a checkout whose kernels refuse P raises). The unified
+block also runs
 in the stacked form, its K/V at layer 15 of a [16, ...] cache whose
 other layers are random, timed beside the per-layer launch in the order
 per-layer, stacked, stacked, per-layer (``_stacked`` and
@@ -131,6 +134,8 @@ def main(argv=None) -> int:
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
     p.add_argument("--geometry", default="bench-1b",
                    choices=sorted(GEOMETRIES))
+    p.add_argument("--page-size", type=int, default=128,
+                   help="tokens a page holds (default 128)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA device")
@@ -158,7 +163,10 @@ def main(argv=None) -> int:
         for _ in range(20):
             x @ x
         torch.cuda.synchronize()
-    (nh, kv, d, dtype), ps, max_pages = GEOMETRIES[args.geometry], 128, 8
+    (nh, kv, d, dtype), ps = GEOMETRIES[args.geometry], args.page_size
+    max_pages = -(-1024 // ps)
+    # The decode rows' page budget: 65,536 tokens (512 pages at 128).
+    decode_pages = max(512 * 128 // ps, 32 * max_pages + 1)
 
     def caches(num_pages, int8):
         k, v = (torch.randn((kv, num_pages, d, ps), generator=gen)
@@ -172,14 +180,15 @@ def main(argv=None) -> int:
                            scale.contiguous())
         return quant(k), quant(v)
 
-    out = {"repo": os.path.abspath(args.repo), "geometry": args.geometry}
+    out = {"repo": os.path.abspath(args.repo), "geometry": args.geometry,
+           "page_size": ps}
     for int8 in (False, True):
         tag = "_int8" if int8 else ""
         lens = np.linspace(1, 1024, 32).round().astype(int).tolist()
         lens[7] = lens[21] = 0
-        k, v = caches(512, int8)
+        k, v = caches(decode_pages, int8)
         q = torch.randn((32, nh, d), generator=gen).to(dev, dtype)
-        table = _table(lens, ps, max_pages, 512, gen, dev)
+        table = _table(lens, ps, max_pages, decode_pages, gen, dev)
         kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         out["paged_decode" + tag] = _ms(
             lambda: paged_decode_attention(q, k, v, table, kv_lens), flush)

@@ -160,7 +160,8 @@ PHASES_RUN_BY_MAIN = ["kernel_phase", "model_phase", "engine_phase",
                       "graph_phase", "sampling_options_phase",
                       "serving_phase", "fleet_phase", "disagg_phase",
                       "autotune_phase", "weights_phase", "families_phase",
-                      "geometries_phase", "tp_phase", "parallel2_phase",
+                      "geometries_phase", "pages_phase", "tp_phase",
+                      "parallel2_phase",
                       "distributed_phase", "training_phase"]
 
 
@@ -360,6 +361,60 @@ def test_kernels_line_carries_the_geometries_rows():
         assert entry["launches_by_run"][chip_smoke.LLAMA70_INT8_RUN] == 9
     assert line[3]["f16"]["launches"] == 64
     assert line[3]["f16"]["opt-2.7b"]["fc1"]["ms"] == 0.05
+
+
+def test_kernels_line_carries_the_pages_rows():
+    """With the pages phase's results each attention kernel's ``pages``
+    holds its rows at pages 128, 16, 256 and 8: the contract's numbers,
+    ``int8`` beside bf16, the launches of the run that served that page
+    and cache (0 at page 16, which no run serves), the prefill kernel's
+    second chunk; the pages servers appear in ``launches_by_run``."""
+    forms = ("bf16", "int8", "stacked", "int8_stacked")
+    headline = {k: {f: _case(f"{k} {f}", 0.1) for f in forms}
+                for k in chip_smoke.KERNELS}
+    runs = (chip_smoke.MAIN_RUN, chip_smoke.STACKED_RUN,
+            chip_smoke.BURST_RUN, chip_smoke.WEIGHTS_RUN,
+            chip_smoke.MIXTRAL_RUN, chip_smoke.OPT_RUN,
+            chip_smoke.PAGES_256_RUN)
+    launches = {run: {k: 7 for k in chip_smoke.KERNELS} for run in runs}
+    launches[chip_smoke.INT8_RUN] = {k + "_int8": 5
+                                     for k in chip_smoke.KERNELS}
+    launches[chip_smoke.PAGES_INT8_RUN] = {
+        k + "_int8_stacked": 9 for k in chip_smoke.KERNELS}
+    weights = {"headline": dict(_case("w8", 0.03), dequant_ms=0.09)}
+    families = {
+        "geometries": {k: {g: {"bf16": _case(f"{k} {g}", 0.2),
+                               "int8": _case(f"{k} {g} int8", 0.3)}
+                           for g in chip_smoke.FAMILY_GEOMETRIES}
+                       for k in chip_smoke.KERNELS},
+        "w8": {}}
+
+    def page_rows(kernel):
+        rows = {f"ps{ps}": {"bf16": _case("a", 0.4), "int8": _case("b", 0.5)}
+                for ps in (128, 16, 256)}
+        rows["ps8"] = {"int8": _case("c", 0.6)}
+        return rows
+
+    rows = {k: page_rows(k) for k in list(chip_smoke.KERNELS)
+            + ["paged_prefill_second"]}
+    line = chip_smoke.kernels_line(headline, launches, weights, families,
+                                   pages={"rows": rows})
+    for entry in line[:3]:
+        pages = entry["pages"]
+        assert sorted(pages) == ["ps128", "ps16", "ps256", "ps8"]
+        assert pages["ps128"]["ms"] == 0.4
+        assert pages["ps128"]["launches"] == 7
+        assert pages["ps128"]["int8"]["launches"] == 5
+        assert pages["ps16"]["launches"] == 0
+        assert pages["ps256"]["launches"] == 7
+        assert pages["ps8"]["int8"]["ms"] == 0.6
+        assert pages["ps8"]["int8"]["launches"] == 9
+        assert {"ms", "bound_ms", "bound_by", "library_ms", "plain_ms",
+                "max_abs_err"} <= set(pages["ps16"]["int8"])
+        assert entry["launches_by_run"][chip_smoke.PAGES_INT8_RUN] == 9
+        assert entry["launches_by_run"][chip_smoke.PAGES_256_RUN] == 7
+        assert ("second_chunk" in pages["ps16"]) == (
+            entry["name"] == "paged_prefill")
 
 
 def test_bound_takes_the_f32_fma_peak():

@@ -412,13 +412,15 @@ def test_geometries_outside_the_rule_are_refused(dtype, cache, group, d,
 
 def test_check_kernel_shapes_names_the_rule():
     """The start-up check raises before asking the library (which it
-    never reaches here), naming the rule; the page-size rule stays."""
+    never reaches here), naming the rule; the page rule accepts an int8
+    page of 8 and refuses only a page under one token."""
     from production_stack_tpu_torch.ops.paged_kv_common import (
-        check_kernel_shapes)
+        check_kernel_shapes, kernel_page_size_supported)
     with pytest.raises(NotImplementedError, match="not 96"):
         check_kernel_shapes(8, 2, 96, 16, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="page_size 8"):
-        check_kernel_shapes(8, 2, 64, 8, torch.float16, torch.int8)
+    assert kernel_page_size_supported(8)
+    with pytest.raises(NotImplementedError, match="page_size 0"):
+        check_kernel_shapes(8, 2, 64, 0, torch.float16, torch.int8)
     assert KERNEL_HEAD_DIMS == (32, 64, 80, 128)
 
 

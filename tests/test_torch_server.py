@@ -664,10 +664,11 @@ def test_disable_prefix_caching_flag(disabled):
 
 
 class _FakeKernelLib:
-    """The kernel library's support question, answered from
+    """The kernel library's support questions, answered from
     PSTT_FOR_EACH_GEOMETRY (csrc/paged_kv_common.cuh): the (dtype code,
     cache code) pairs it instantiates, at every head dim of
-    PSTT_FOR_EACH_HEAD_DIM, for any query group of 1 or more."""
+    PSTT_FOR_EACH_HEAD_DIM, for any query group of 1 or more; and any
+    page of 1 token or more over those caches (page_size_ok)."""
 
     _SRC = (Path(__file__).resolve().parents[1] / "production_stack_tpu_torch"
             / "csrc" / "paged_kv_common.cuh").read_text()
@@ -679,6 +680,9 @@ class _FakeKernelLib:
     def pstt_kernel_supports(self, dtype, cache_dtype, group, head_dim):
         return int((dtype, cache_dtype) in self.PAIRS and group >= 1
                    and head_dim in self.HEAD_DIMS)
+
+    def pstt_page_size_supported(self, page_size):
+        return int(page_size >= 1)
 
 
 def test_fake_kernel_lib_is_the_geometry_list():
