@@ -310,37 +310,42 @@ its result line:
     8 greedy prompts against each alone, the three kernels launched.
     Bytes, write seconds, the server's start seconds (the load
     included), tok/s and the graph pool are printed;
-19. geometries: every query group, head_dim and dtype the JAX engine
-    serves, on the three attention kernels. The sweep: each kernel
-    (decode at the wrapper's split and at one, stacked at layer 1 of 2
-    and bitwise the per-layer launch on its view, the burst-tail form;
-    prefill; ragged) against its plain version at B = 3, two kv heads,
-    kv lens 130 and 300 and a pad row, page 16, over dtype {bf16, f16,
-    f32} x cache {same, int8} x group {1..8, 16} x head_dim {64, 80,
-    128} (BF16_TOL for bf16 and f16, F32_TOL for f32), with
-    ``pstt_kernel_supports`` and ``pstt_decode_group_tile`` held to the
-    Python rule on every point and on points outside it (head_dim 96
-    and 256, a mixed cache, group 0). Then timed like the headline
-    cases: Llama-3-70B's group 8 at head_dim 128 (``g8_d128``, bf16 and
-    int8 KV), OPT-2.7b's head_dim 80 in f16 (``g1_d80``), Qwen2-0.5B's
-    group 7 at 64 in f32 (``g7_d64``, its bound at the f32 FMA rate)
-    and Llama-2-7B's group 1 at 128 (``g1_d128``); and the int8-weight
-    kernel's f16 form at OPT-2.7b's projections (M = 1, 32, 160; timed
-    at 32). Then checkpoints written from published configs and served
-    (``--model DIR --tokenizer bench``, page 128, the families phase's
-    flags and 16 greedy requests): Meta-Llama-3-70B at 2 of 80 layers
-    (bf16, then ``--kv-cache-dtype int8``), OPT-2.7b at 16 of 32
-    layers at ``--dtype float16`` and Qwen2-0.5B at 12 of 24 layers at
-    ``--dtype float32``;
-    then bench-1b at ``--quantization int8 --dtype float16``. Each
+19. geometries: every query group, head_dim up to 256 and dtype the
+    JAX engine serves, on the three attention kernels. The sweep: each
+    kernel (decode at the wrapper's split and at one, stacked at layer
+    1 of 2 and bitwise the per-layer launch on its view, the burst-tail
+    form; prefill; ragged) against its plain version at B = 3, two kv
+    heads, kv lens 130 and 300 and a pad row, over dtype {bf16, f16,
+    f32} x cache {same, int8}: group {1..8, 16} x head_dim {64, 80, 128}
+    at page 16, and group {1, 3, 4, 8} x head_dim {96, 100, 160, 256}
+    (padded in the kernel but 256) at pages 128 and 16 (BF16_TOL for
+    bf16 and f16, F32_TOL for f32), with ``pstt_kernel_supports`` and
+    ``pstt_decode_group_tile`` held to the Python rule on every point
+    and on points outside it (head_dim 0 and 288, int8 queries, a mixed
+    cache, group 0). Then timed like the headline cases: Llama-3-70B's
+    group 8 at head_dim 128 (``g8_d128``, bf16 and int8 KV), OPT-2.7b's
+    head_dim 80 in f16 (``g1_d80``), Qwen2-0.5B's group 7 at 64 in f32
+    (``g7_d64``, its bound at the f32 FMA rate), Llama-2-7B's group 1
+    at 128 (``g1_d128``), Falcon3-7B's group 3 at 256 (``g3_d256``, bf16
+    and int8 KV) and OpenLLaMA-3B's head_dim 100 in f16 (``g1_d100``);
+    and the int8-weight kernel's f16 form at OPT-2.7b's projections (M
+    = 1, 32, 160; timed at 32). Then checkpoints written from published
+    configs and served (``--model DIR --tokenizer bench``, page 128, the
+    families phase's flags and 16 greedy requests): Meta-Llama-3-70B at
+    2 of 80 layers (bf16, then ``--kv-cache-dtype int8``), OPT-2.7b at
+    16 of 32 layers at ``--dtype float16``, Qwen2-0.5B at 12 of 24
+    layers at ``--dtype float32``, Falcon3-7B-Base at 1 of 28 layers
+    (bf16, then ``--kv-cache-dtype int8``) and OpenLLaMA-3B at 2 of 26
+    layers at ``--dtype float16``; then bench-1b at ``--quantization int8 --dtype float16``. Each
     server: the weights phase's window (tok/s, the three kernels
     launched, no plain call, no eager step), each attention call of the
     model check held to its plain version, and the 16 requests again,
     submitted together, through an eager engine (``cuda_graphs=False``)
     over the server's params, byte-identical to the window's graphed
     streams. Printed, not held:
-    the model check's logits against the plain reference and where a
-    batched stream parts from the same request alone, with margins (at
+    the model check's logits against the plain reference and, but for
+    Falcon3 and OpenLLaMA (GEOMETRY_ALONE), where a batched stream parts
+    from the same request alone, with margins (at
     Llama-3-70B's width the bf16 logits step by 1/16 near |11|, so a
     flip two steps apart meets ``NEAR_TIE_LOGITS`` itself);
 20. pages: every page size the JAX engine serves, on the three
@@ -461,7 +466,8 @@ decode-role handoff windows as ``disagg_handoff`` and
 windows as ``serve_mixtral`` and ``serve_opt``, and its GPT-2 engine
 as ``engine_gpt2``; the geometries phase's windows as
 ``serve_llama3_70b``, ``serve_llama3_70b_int8``,
-``serve_opt_2.7b_f16``, ``serve_qwen2_0.5b_f32`` and
+``serve_opt_2.7b_f16``, ``serve_qwen2_0.5b_f32``, ``serve_falcon3_7b``,
+``serve_falcon3_7b_int8``, ``serve_open_llama_3b_f16`` and
 ``serve_int8_weights_f16``; the pages phase's servers as
 ``serve_page256`` and, counting the int8 stacked form,
 ``serve_page8_int8_stacked``; the tp phase's deferred window as
@@ -475,7 +481,8 @@ kernel's ``geometries`` object
 holds, keyed ``g4_d128`` and ``g1_d64``, the same numbers at that
 geometry with the launches of its serving run, and ``int8``; and the
 geometries phase's rows ``g8_d128`` (with ``int8``), ``g1_d80``,
-``g7_d64`` and ``g1_d128``, each with its ``dtype`` and the launches
+``g7_d64``, ``g1_d128``, ``g3_d256`` (with ``int8``) and ``g1_d100``,
+each with its ``dtype`` and the launches
 of the run that served it (0 for ``g1_d128``, which none serves). Each
 attention kernel's ``pages`` object holds the pages phase's rows,
 keyed ``ps128``, ``ps16``, ``ps256`` and ``ps8`` (``int8`` beside the
@@ -4365,6 +4372,9 @@ LLAMA70_INT8_RUN = "serve_llama3_70b_int8"
 OPT27_RUN = "serve_opt_2.7b_f16"
 QWEN05_RUN = "serve_qwen2_0.5b_f32"
 W8_F16_RUN = "serve_int8_weights_f16"
+FALCON3_RUN = "serve_falcon3_7b"
+FALCON3_INT8_RUN = "serve_falcon3_7b_int8"
+OPEN_LLAMA_RUN = "serve_open_llama_3b_f16"
 LLAMA70_LAYERS = 2
 GEOMETRY_CONFIGS = {
     # meta-llama/Meta-Llama-3-70B/config.json, 2 of 80 layers: group 8
@@ -4395,6 +4405,29 @@ GEOMETRY_CONFIGS = {
                    "max_position_embeddings": 131072,
                    "rms_norm_eps": 1e-6, "rope_theta": 1000000.0,
                    "tie_word_embeddings": True, "torch_dtype": "bfloat16"},
+    # tiiuae/Falcon3-7B-Base/config.json, 1 of 28 layers (cut for the
+    # phase's time): group 3 (12 q over 4 kv heads) at the explicit
+    # head_dim 256, the head-dim tile 256 itself.
+    "falcon3-7b": {"architectures": ["LlamaForCausalLM"],
+                   "vocab_size": 131072, "hidden_size": 3072,
+                   "intermediate_size": 23040, "num_hidden_layers": 1,
+                   "num_attention_heads": 12, "num_key_value_heads": 4,
+                   "head_dim": 256, "max_position_embeddings": 32768,
+                   "rms_norm_eps": 1e-6, "rope_theta": 1000042.0,
+                   "tie_word_embeddings": False,
+                   "torch_dtype": "bfloat16"},
+    # openlm-research/open_llama_3b/config.json, 2 of 26 layers (cut for
+    # the phase's time): group 1 (32 heads, no GQA) at head_dim 100
+    # (3200 / 32), padded in the kernel to the tile 128.
+    "open-llama-3b": {"architectures": ["LlamaForCausalLM"],
+                      "vocab_size": 32000, "hidden_size": 3200,
+                      "intermediate_size": 8640, "num_hidden_layers": 2,
+                      "num_attention_heads": 32,
+                      "num_key_value_heads": 32,
+                      "max_position_embeddings": 2048,
+                      "rms_norm_eps": 1e-6,
+                      "tie_word_embeddings": False,
+                      "torch_dtype": "float16"},
 }
 # (architecture, dtype the checkpoint is written and served in, the
 # server's dtype flags, seed) of each.
@@ -4402,18 +4435,31 @@ GEOMETRY_MODELS = {
     "llama3-70b": ("llama", torch.bfloat16, [], 41),
     "opt-2.7b": ("opt", torch.float16, ["--dtype", "float16"], 42),
     "qwen2-0.5b": ("qwen2", torch.float32, ["--dtype", "float32"], 43),
+    "falcon3-7b": ("llama", torch.bfloat16, [], 44),
+    "open-llama-3b": ("llama", torch.float16, ["--dtype", "float16"], 45),
 }
 # 16 requests of at most 700 + 32 tokens take 6 pages of 128 each.
 GEOMETRY_PAGES = 128
+# The checkpoints whose servers also serve each request alone after the
+# window (where a batched stream parts from it is printed, not held);
+# Falcon3's and OpenLLaMA's skip that pass, for the phase's time.
+GEOMETRY_ALONE = ("llama3-70b", "opt-2.7b", "qwen2-0.5b")
 # The kernel sweep: every point is served (kernel_geometry_supported).
+# The tiles' own head dims over every group at page 16; then head dims
+# padded in the kernel (96 and 100 at the tile 128, 160 at 256) and the
+# tile 256 over groups 1, 3, 4 and 8 at pages 128 and 16.
 SWEEP_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 SWEEP_GROUPS = (1, 2, 3, 4, 5, 6, 7, 8, 16)
 SWEEP_HEAD_DIMS = (64, 80, 128)
+SWEEP_PADDED = ((96, 100, 160, 256), (1, 3, 4, 8), (128, 16))
 # Points outside it (dtype, cache dtype or None for the same, group,
-# head_dim), each refused by the rule and by the library.
-SWEEP_REFUSED = ((torch.bfloat16, None, 4, 96),
-                 (torch.float16, None, 8, 256),
-                 (torch.float32, torch.int8, 2, 96),
+# head_dim), each refused by the rule and by the library: head_dim 0
+# and 288, int8 queries (no query type of the kernels), a mixed cache,
+# group 0.
+SWEEP_REFUSED = ((torch.bfloat16, None, 4, 0),
+                 (torch.float16, torch.int8, 3, 288),
+                 (torch.float32, None, 1, 288),
+                 (torch.int8, None, 4, 64),
                  (torch.bfloat16, torch.float16, 4, 64),
                  (torch.bfloat16, None, 0, 64))
 # The timed rows: (q heads, kv heads, head_dim, dtype, KV forms).
@@ -4422,23 +4468,28 @@ GEOMETRY_ROWS = {
     "g1_d80": (32, 32, 80, torch.float16, (False,)),
     "g7_d64": (14, 2, 64, torch.float32, (False,)),
     "g1_d128": (32, 32, 128, torch.bfloat16, (False,)),
+    "g3_d256": (12, 4, 256, torch.bfloat16, (False, True)),
+    "g1_d100": (32, 32, 100, torch.float16, (False,)),
 }
 # The serving run whose launches each row's form reports (g1_d128,
 # Llama-2-7B's geometry, is served by no run of this script).
 GEOMETRY_ROW_RUNS = {("g8_d128", "bfloat16"): LLAMA70_RUN,
                      ("g8_d128", "int8"): LLAMA70_INT8_RUN,
                      ("g1_d80", "float16"): OPT27_RUN,
-                     ("g7_d64", "float32"): QWEN05_RUN}
+                     ("g7_d64", "float32"): QWEN05_RUN,
+                     ("g3_d256", "bfloat16"): FALCON3_RUN,
+                     ("g3_d256", "int8"): FALCON3_INT8_RUN,
+                     ("g1_d100", "float16"): OPEN_LLAMA_RUN}
 # OPT-2.7b's projections as (K, N), for the int8-weight kernel's f16
 # form.
 OPT27_PROJECTIONS = {"qkv": (2560, 7680), "o": (2560, 2560),
                      "fc1": (2560, 10240), "fc2": (10240, 2560)}
 
 
-def _sweep_point(dev, gen, dtype, int8, group, d) -> float:
+def _sweep_point(dev, gen, dtype, int8, group, d, ps=16) -> float:
     """Every kernel at one point of the sweep, small shapes: B = 3 rows,
     two kv heads, kv lens 130 and 300 (past the 128- and 256-token chunk
-    edges) and a pad row, page 16. Decode per layer (the wrapper's
+    edges) and a pad row, page ``ps``. Decode per layer (the wrapper's
     split and one split), stacked (layer 1 of 2, bitwise the per-layer
     launch on its view) and its tail form (S = 4); prefill (T = 24,
     rows starting at 120 and 280); ragged (W = 5: a decode row, a pad
@@ -4449,12 +4500,12 @@ def _sweep_point(dev, gen, dtype, int8, group, d) -> float:
         paged_prefill_attention, paged_prefill_attention_plain)
     from production_stack_tpu_torch.ops.ragged_attention_cuda import (
         paged_ragged_attention, paged_ragged_attention_plain)
-    kv, ps, max_pages = 2, 16, 24
+    kv, max_pages = 2, 24
     nh, num_pages = kv * group, 3 * max_pages + 1
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
     p16 = {} if dtype == torch.float32 else {"p_dtype": dtype}
     tag = (f"sweep {str(dtype)[6:]}{'/int8' if int8 else ''} g{group} "
-           f"d{d}")
+           f"d{d} ps{ps}")
     (kc, vc), _ = _caches(kv, num_pages, d, ps, dtype, dev, gen, int8)
     worst = 0.0
 
@@ -4522,11 +4573,13 @@ def _sweep_point(dev, gen, dtype, int8, group, d) -> float:
 
 
 def _geometry_sweep(dev) -> dict:
-    """The kernel sweep over dtype {bf16, f16, f32} x cache {same, int8}
-    x group {1..8, 16} x head_dim {64, 80, 128} (``_sweep_point``), and
-    the library's ``pstt_kernel_supports`` and
-    ``pstt_decode_group_tile`` against the Python rule on every point
-    and on points outside it. Returns the largest error by form."""
+    """The kernel sweep over dtype {bf16, f16, f32} x cache {same, int8}:
+    group {1..8, 16} x head_dim {64, 80, 128} at page 16, and group {1,
+    3, 4, 8} x head_dim {96, 100, 160, 256} at pages 128 and 16
+    (``_sweep_point``); the library's ``pstt_kernel_supports`` and
+    ``pstt_decode_group_tile`` against the Python rule on every point,
+    on every head_dim 0..300 and on points outside it. Returns the
+    largest error by form."""
     from production_stack_tpu_torch.ops import paged_kv_common as pkc
     from production_stack_tpu_torch.ops.paged_attention_cuda import (
         decode_group_tile)
@@ -4534,31 +4587,50 @@ def _geometry_sweep(dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(18)
     t0 = time.perf_counter()
+    dims, groups, pages = SWEEP_PADDED
+    grid = ([(d, g, 16) for d in SWEEP_HEAD_DIMS for g in SWEEP_GROUPS]
+            + [(d, g, ps) for d in dims for g in groups for ps in pages])
     worst, points = {}, 0
     for dtype in SWEEP_DTYPES:
         for int8 in (False, True):
             cache = torch.int8 if int8 else dtype
             key = f"{str(dtype)[6:]}{'/int8' if int8 else ''}"
-            for d in SWEEP_HEAD_DIMS:
-                for group in SWEEP_GROUPS:
-                    said = lib.pstt_kernel_supports(
-                        pkc.dtype_code(dtype), pkc.cache_code(cache),
-                        group, d)
-                    if not (said and pkc.kernel_geometry_supported(
-                            dtype, cache, group, d)):
-                        raise AssertionError(f"{key} g{group} d{d}: the "
-                                             f"library says {said}, the "
-                                             "rule refuses or disagrees")
-                    if (lib.pstt_decode_group_tile(group, d)
-                            != decode_group_tile(group, d)):
-                        raise AssertionError(f"group tile of g{group} d{d}:"
-                                             " library and host differ")
-                    err = _sweep_point(dev, gen, dtype, int8, group, d)
-                    worst[key] = max(worst.get(key, 0.0), err)
-                    points += 1
+            for d, group, ps in grid:
+                said = lib.pstt_kernel_supports(
+                    pkc.dtype_code(dtype), pkc.cache_code(cache), group, d)
+                if not (said and pkc.kernel_geometry_supported(
+                        dtype, cache, group, d)):
+                    raise AssertionError(f"{key} g{group} d{d}: the "
+                                         f"library says {said}, the "
+                                         "rule refuses or disagrees")
+                if (lib.pstt_decode_group_tile(group, d)
+                        != decode_group_tile(group, d)):
+                    raise AssertionError(f"group tile of g{group} d{d}:"
+                                         " library and host differ")
+                try:
+                    err = _sweep_point(dev, gen, dtype, int8, group, d, ps)
+                except RuntimeError as e:
+                    raise RuntimeError(f"sweep {key} g{group} d{d} ps{ps}: "
+                                       f"{e}") from e
+                worst[key] = max(worst.get(key, 0.0), err)
+                points += 1
+    for d in range(0, 301):
+        for dtype in SWEEP_DTYPES:
+            for cache in (dtype, torch.int8):
+                said = bool(lib.pstt_kernel_supports(
+                    pkc.dtype_code(dtype), pkc.cache_code(cache), 3, d))
+                if said != pkc.kernel_geometry_supported(dtype, cache, 3, d):
+                    raise AssertionError(f"head_dim {d}, {dtype} over "
+                                         f"{cache}: library {said}, the "
+                                         "rule the other way")
+        if pkc.kernel_head_dim_tile(d) is not None and any(
+                lib.pstt_decode_group_tile(g, d) != decode_group_tile(g, d)
+                for g in (1, 2, 3, 4, 5, 8, 16)):
+            raise AssertionError(f"group tiles at head_dim {d}: library "
+                                 "and host differ")
     for dtype, cache, group, d in SWEEP_REFUSED:
         rule = pkc.kernel_geometry_refusal(dtype, cache, group, d)
-        said = lib.pstt_kernel_supports(pkc.dtype_code(dtype),
+        said = lib.pstt_kernel_supports(pkc.cache_code(dtype),
                                         pkc.cache_code(cache or dtype),
                                         group, d)
         if rule is None or said:
@@ -4569,9 +4641,10 @@ def _geometry_sweep(dev) -> dict:
         f"wrapper's split and at one, stacked, tail; prefill; ragged), "
         f"each within tolerance of its plain version, in "
         f"{time.perf_counter() - t0:.1f} s; largest error by form {worst}; "
-        f"the rule and pstt_kernel_supports agree on them and refuse "
-        f"{len(SWEEP_REFUSED)} points outside (head_dim 96 and 256, a "
-        f"mixed cache, group 0)")
+        f"the rule and pstt_kernel_supports agree on them, on every "
+        f"head_dim 0..300 (and pstt_decode_group_tile with the host), and "
+        f"refuse {len(SWEEP_REFUSED)} points outside (head_dim 0 and 288, "
+        f"int8 queries, a mixed cache, group 0)")
     return worst
 
 
@@ -4581,7 +4654,8 @@ def _geometry_kernel_cases(dev) -> tuple:
     = 40, W = 512, the unified step), timed against the plain version,
     the bound and SDPA: Llama-3-70B's g8_d128 (bf16 and int8 KV),
     OPT-2.7b's g1_d80 (f16), Qwen2-0.5B's g7_d64 (f32), Llama-2-7B's
-    g1_d128 (bf16). Then the int8-weight kernel's f16 form at OPT-2.7b's
+    g1_d128 (bf16), Falcon3-7B's g3_d256 (bf16 and int8 KV) and
+    OpenLLaMA-3B's g1_d100 (f16, padded to the tile 128). Then the int8-weight kernel's f16 form at OPT-2.7b's
     projections, M = 1, 32 and 160 (timed at 32). Returns {kernel: {row:
     {form: case}}} and the int8-weight cases."""
     from production_stack_tpu_torch.engine.quantization import (
@@ -4681,14 +4755,15 @@ def _eager_batch(label, srv, prompts, graphed) -> None:
         f"eager and graphed, submitted together ({wall:.1f} s eager)")
 
 
-def _geometry_server(label, path, extra, prompts, kv_dtype="bf16") -> dict:
+def _geometry_server(label, path, extra, prompts, kv_dtype="bf16",
+                     alone=True) -> dict:
     """A server on ``--model path`` (None: the bench-1b preset) with
     ``extra`` flags: the weights phase's window (16 greedy requests
-    together, counted; then each alone), each attention call of the
-    model check held to its plain version, and the requests again
-    through an eager engine, submitted together, byte-identical to the
-    window's. The model check's logits and where a batched stream parts
-    from the request alone are printed."""
+    together, counted; then, with ``alone``, each alone), each attention
+    call of the model check held to its plain version, and the requests
+    again through an eager engine, submitted together, byte-identical to
+    the window's. The model check's logits and where a batched stream
+    parts from the request alone are printed."""
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     model = ["--model", path] if path else ["--model", "bench-1b",
@@ -4705,33 +4780,37 @@ def _geometry_server(label, path, extra, prompts, kv_dtype="bf16") -> dict:
         f"{cfg.model.quantization}; allocated "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     run = _weights_window(label, srv, prompts,
-                          form="_int8" if kv_dtype == "int8" else "")
+                          form="_int8" if kv_dtype == "int8" else "",
+                          alone=alone)
     with torch.inference_mode():
         _family_forwards(dev, cfg.model, srv.engine.runner.params, label,
                          kv_dtype, hold_logits=False)
     parted = []
-    for i, (alone, ids) in enumerate(zip(run["alone"], run["ids"])):
-        flip = next((j for j, (x, y) in enumerate(zip(alone, ids))
+    for i, (one, ids) in enumerate(zip(run.get("alone", ()), run["ids"])):
+        flip = next((j for j, (x, y) in enumerate(zip(one, ids))
                      if x != y), None)
         if flip is not None:
             parted.append((i, flip, near_tie(srv.engine, prompts[i]
-                                             + alone[:flip], ids[flip])))
-    log(f"{label}: {len(prompts) - len(parted)}/{len(prompts)} streams "
-        f"byte-identical batched and alone, the others parting at (row, "
-        f"index, the alone engine's margin) {parted}; {SMI}")
+                                             + one[:flip], ids[flip])))
+    if alone:
+        log(f"{label}: {len(prompts) - len(parted)}/{len(prompts)} streams "
+            f"byte-identical batched and alone, the others parting at "
+            f"(row, index, the alone engine's margin) {parted}; {SMI}")
     _eager_batch(label, srv, prompts, run["ids"])
     srv.close()
     return run
 
 
 def geometries_phase(vocab: int) -> dict:
-    """Every query group, head_dim and dtype the JAX engine serves, on
-    the three attention kernels: the kernel sweep, the new timed rows,
-    then three checkpoints written from published configs and served:
-    Llama-3-70B (2 layers; bf16, then int8 KV), OPT-2.7b at float16 and
-    Qwen2-0.5B at float32; then bench-1b at --quantization int8 --dtype
-    float16 (the int8-weight kernel's f16 form). Returns the timed
-    cases, the int8-weight cases and each run's launches."""
+    """Every query group, head_dim up to 256 and dtype the JAX engine
+    serves, on the three attention kernels: the kernel sweep, the timed
+    rows, then five checkpoints written from published configs and
+    served: Llama-3-70B (2 layers; bf16, then int8 KV), OPT-2.7b at
+    float16, Qwen2-0.5B at float32, Falcon3-7B (1 layer, head_dim 256;
+    bf16, then int8 KV) and OpenLLaMA-3B (2 layers, head_dim 100) at
+    float16; then bench-1b at --quantization int8 --dtype float16 (the
+    int8-weight kernel's f16 form). Returns the timed cases, the
+    int8-weight cases and each run's launches."""
     import gc
     import shutil
     dev = torch.device("cuda", 0)
@@ -4745,7 +4824,11 @@ def geometries_phase(vocab: int) -> dict:
                            (LLAMA70_INT8_RUN,
                             ["--kv-cache-dtype", "int8"], "int8")),
             "opt-2.7b": ((OPT27_RUN, [], "bf16"),),
-            "qwen2-0.5b": ((QWEN05_RUN, [], "bf16"),)}
+            "qwen2-0.5b": ((QWEN05_RUN, [], "bf16"),),
+            "falcon3-7b": ((FALCON3_RUN, [], "bf16"),
+                           (FALCON3_INT8_RUN,
+                            ["--kv-cache-dtype", "int8"], "int8")),
+            "open-llama-3b": ((OPEN_LLAMA_RUN, [], "bf16"),)}
     tmp = tempfile.mkdtemp(prefix="chip-smoke-geometries-")
     try:
         for model, served in runs.items():
@@ -4759,7 +4842,7 @@ def geometries_phase(vocab: int) -> dict:
             for run, extra, kv_dtype in served:
                 out[run] = _geometry_server(
                     f"geometries {run}", path, flags + extra, prompts,
-                    kv_dtype)["launches"]
+                    kv_dtype, alone=model in GEOMETRY_ALONE)["launches"]
                 gc.collect()
                 torch.cuda.empty_cache()
             shutil.rmtree(path)
@@ -6563,6 +6646,7 @@ def kernels_line(headline, launches, weights, families, tp=None,
 # The kernel form each run's ``launches_by_run`` entry counts, where it
 # is not the per-layer bf16 one.
 RUN_FORMS = {FLEET_INT8_RUN: "_int8_stacked", LLAMA70_INT8_RUN: "_int8",
+             FALCON3_INT8_RUN: "_int8",
              PAGES_INT8_RUN: "_int8_stacked",
              DISAGG_INT8_RUN: "_int8_stacked", PP_RUN: "_stacked",
              PP_INT8_RUN: "_int8_stacked", CP_RUN: "_stacked",
@@ -6602,7 +6686,7 @@ def main() -> int:
     for text in ptxas:
         for line in text.splitlines():
             if ("Compiling entry function" in line or "registers" in line
-                    or "spill" in line):
+                    or "spill" in line or line.startswith("nvcc ")):
                 log(line.strip())
 
     from production_stack_tpu_torch.engine.config import (
@@ -6643,7 +6727,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     geometries = geometries_phase(vocab)
     for run in (LLAMA70_RUN, LLAMA70_INT8_RUN, OPT27_RUN, QWEN05_RUN,
-                W8_F16_RUN):
+                FALCON3_RUN, FALCON3_INT8_RUN, OPEN_LLAMA_RUN, W8_F16_RUN):
         launches[run] = geometries[run]
     torch.cuda.empty_cache()
     pages = pages_phase(vocab)

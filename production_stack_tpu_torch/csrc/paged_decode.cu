@@ -29,18 +29,28 @@
 //     int8), three blocks an SM, at head_dim 64; twice that at head_dim
 //     128, one block an SM at bf16. An f32 cache at head_dim 128 would
 //     need 256 KB for two stages: it takes one (128 KB), and its copies
-//     no longer overlap the arithmetic of the block before.
+//     no longer overlap the arithmetic of the block before. At head_dim
+//     256 a bf16 or f16 cache takes one stage (128 KB), an int8 one two
+//     (64 KB each), and an f32 one stages K, then V, through one 128 KB
+//     plane (DecodeSmem::kSerial).
 //
 // The query group G (q heads per kv head) is a run-time value. A block
 // covers a compile-time group tile of GT query heads; the grid's y axis
 // runs over kv heads x ceil(G / GT) tiles, and in the last tile the
 // heads past G load zeros and are never written. GT is the fewest of
-// 1, 4 and 8 that holds G, at most 8 at head_dim 64 and below and 4
-// above (group_tile(): a thread holds GT * D / 4 f32 accumulators, and
-// GT = 8 at head_dim 80 or 128 would pass the 255 registers a thread
-// may have). G = 1 and bench-1b's G = 4 run exactly their own tile;
-// Llama-3-70B's G = 8 at head_dim 128 runs two tiles of 4, which read
-// the kv head's pages twice.
+// 1, 4 and 8 that holds G, at most 8 at head_dim 64 and below, 4 up to
+// 128 and 2 at 256 (group_tile(): a thread holds GT * D / 4 f32
+// accumulators, and GT = 8 at head_dim 80 or 128, or 4 at 256, would
+// pass the 255 registers a thread may have). G = 1 and bench-1b's G = 4
+// run exactly their own tile; Llama-3-70B's G = 8 at head_dim 128 runs
+// two tiles of 4, and Falcon3's G = 3 at 256 two tiles of 2 (the second
+// with one live head): each reads the kv head's pages twice.
+//
+// Head dims: every head_dim from 1 to 256 runs at its tile
+// (head_dim_tile, paged_kv_common.cuh), padded below it: q's and out's
+// rows and the pages are read at the real head_dim, the planes' rows
+// past it are zero (written once a block), and the partials keep the
+// tile's width (GT x (tile + 2) words).
 //
 // The arithmetic stays under the copy with plain f32 FMA: thread
 // (token group, head-dim quarter) of 128 reads 4 adjacent tokens of one
@@ -64,22 +74,22 @@
 // launch.
 //
 // C interface (loaded with ctypes by ops/paged_kv_common.py):
-//   q [B, num_q_heads, D]; k/v cache [kv_heads, num_pages, D, page_size],
-//   or the stacked [L, kv_heads, num_pages, D, page_size] cache read at
-//   `layer`; k/v scale [(L,) kv_heads, num_pages, page_size] f32 for an
+//   q [B, num_q_heads, D]; k/v cache [kv_heads, num_pages, D, page_size]
+//   (D the real head_dim), or the stacked [L, kv_heads, num_pages, D,
+//   page_size] cache read at `layer`; k/v scale [(L,) kv_heads, num_pages, page_size] f32 for an
 //   int8 cache, else null; page_table [B, max_pages] int32; kv_lens [B]
 //   int32; out [B, num_q_heads, D]; partials: f32 scratch [B, kv_heads
-//   * tiles, num_splits, GT, D + 2], tile-major within a kv head, with
-//   GT = pstt_decode_group_tile(G, D) and tiles = ceil(G / GT) (null
-//   with one split); dtype (q, out) 0 = bf16, 1 = f32, 3 = f16;
+//   * tiles, num_splits, GT, tile + 2], tile-major within a kv head, with
+//   tile = head_dim_tile(D), GT = pstt_decode_group_tile(G, D) and tiles
+//   = ceil(G / GT) (null with one split); dtype (q, out) 0 = bf16, 1 = f32, 3 = f16;
 //   cache_dtype the same code, or 2 = int8;
 //   layer_stride / scale_layer_stride: elements between two layers of
 //   the data / the scales (the per-layer form is layer 0 with strides 0).
 // The tail form adds k_tail / v_tail [B, tail_len, kv_heads, D] (dtype)
 // and q_pos [B] int32; its partials hold num_splits + 1 slots.
 // Launches on `stream`, allocates nothing, does not synchronise, and
-// returns cudaGetLastError() after the launch. A dtype or head dim
-// outside PSTT_FOR_EACH_GEOMETRY, or a page size under 1
+// returns cudaGetLastError() after the launch. A dtype outside
+// PSTT_FOR_EACH_GEOMETRY, a head dim no tile holds, or a page size under 1
 // (page_size_ok), returns cudaErrorInvalidValue;
 // pstt_kernel_supports(dtype, cache_dtype, group, head_dim) and
 // pstt_page_size_supported(page_size) tell the host first.
@@ -120,14 +130,15 @@ int paged_decode_entry(int dtype, int cache_dtype, const void* q,
       num_q_heads, num_kv_heads, num_pages, page_size, max_pages,
       num_splits, chunks_per_split,
       pstt::LayerOffsets{layer, layer_stride, scale_layer_stride}, k_tail,
-      v_tail, q_pos, tail_len, static_cast<cudaStream_t>(stream)};
+      v_tail, q_pos, tail_len, head_dim,
+      static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case 0:
-      return pstt::decode_launch_bf16(args, cache_dtype, head_dim);
+      return pstt::decode_launch_bf16(args, cache_dtype);
     case 3:
-      return pstt::decode_launch_f16(args, cache_dtype, head_dim);
+      return pstt::decode_launch_f16(args, cache_dtype);
     case 1:
-      return pstt::decode_launch_f32(args, cache_dtype, head_dim);
+      return pstt::decode_launch_f32(args, cache_dtype);
     default:
       return cudaErrorInvalidValue;
   }
@@ -175,12 +186,14 @@ extern "C" int pstt_paged_decode_tail(
 // 1 if the kernels (decode, prefill, ragged: all three dispatch through
 // PSTT_FOR_EACH_GEOMETRY) are built for this dtype code, cache dtype
 // code, query group and head dim, else 0. The group is any of 1 or
-// more (the kernels take it at run time).
+// more (the kernels take it at run time); the head dim any of 1 to
+// kMaxHeadDim, run at its tile (head_dim_tile).
 extern "C" int pstt_kernel_supports(int dtype, int cache_dtype, int group,
                                     int head_dim) {
   if (group < 1) return 0;
-#define PSTT_SUPPORTS_CASE(code, T, ccode, C, D)              \
-  if (dtype == code && cache_dtype == ccode && head_dim == D) \
+  const int tile = pstt::head_dim_tile(head_dim);
+#define PSTT_SUPPORTS_CASE(code, T, ccode, C, D)          \
+  if (dtype == code && cache_dtype == ccode && tile == D) \
     return 1;
   PSTT_FOR_EACH_GEOMETRY(PSTT_SUPPORTS_CASE)
 #undef PSTT_SUPPORTS_CASE
@@ -195,7 +208,9 @@ extern "C" int pstt_page_size_supported(int page_size) {
 }
 
 // The decode kernel's group tile for this query group and head dim
-// (the partials' GT; the host sizes the scratch from it).
+// (the partials' GT; the host sizes the scratch from it, with rows of
+// the head dim's tile + 2 words); 0 for a head dim no tile holds.
 extern "C" int pstt_decode_group_tile(int group, int head_dim) {
-  return pstt::group_tile(group, head_dim);
+  const int tile = pstt::head_dim_tile(head_dim);
+  return tile ? pstt::group_tile(group, tile) : 0;
 }

@@ -28,6 +28,7 @@ struct DecodeArgs {
   const void* v_tail;
   const void* q_pos;
   int tail_len;
+  int head_dim;
   cudaStream_t stream;
 };
 
@@ -40,21 +41,24 @@ constexpr int kDQ = 4;   // head-dim quarters: thread dq owns d = dq + 4 i
 static_assert(kDecodeWarps * (32 / kDQ) * kTok == kChunk,
               "the threads' tokens must tile the chunk");
 
-// The widest group tile at head dim D, and the tile a group runs
-// (the host's ops/paged_attention_cuda.decode_group_tile).
-constexpr int max_group_tile(int d) { return d <= 64 ? 8 : 4; }
+// The widest group tile at head-dim tile D, and the tile a group runs
+// (the host's ops/paged_attention_cuda.decode_group_tile): a thread
+// holds GT * D / 4 f32 accumulators, which must stay well within its
+// 255 registers (128 at GT 4 and D 128, and at GT 2 and D 256).
+constexpr int max_group_tile(int d) { return d <= 64 ? 8 : d <= 128 ? 4 : 2; }
 constexpr int group_tile(int group, int d) {
   if (group <= 1) return 1;
-  return group <= 4 ? 4 : max_group_tile(d);
+  const int gt = group <= 4 ? 4 : 8;
+  return gt < max_group_tile(d) ? gt : max_group_tile(d);
 }
-
-// Most shared memory a block may have (227 KB).
-constexpr int kMaxBlockSmem = 232448;
 
 // Shared memory of one block, in bytes: the stages of the chunk's K and
 // V planes in the cache's type (and of its scales), q as f32, and the
 // warps' partials for the merge at the end. Two stages where they fit
-// a block, else one (an f32 cache at head_dim 128).
+// a block, else one (an f32 cache at head_dim 128, a bf16 or f16 one at
+// 256: 128 KB). Where not even one stage of both planes fits (an f32
+// cache at 256: 256 KB), the chunk stages K, then V, through one plane
+// (kSerial): its copies then overlap no arithmetic of the block.
 template <typename C, int D, int GT>
 struct DecodeSmem {
   static constexpr bool kQuant = kQuantized<C>;
@@ -66,9 +70,11 @@ struct DecodeSmem {
                                kDecodeWarps * kPart;
   static constexpr int kStages =
       2 * 2 * kPlane + kRest <= kMaxBlockSmem ? 2 : 1;
-  static constexpr int stages = 0;  // [kStages][2][kPlane]
+  static constexpr bool kSerial = 2 * kPlane + kRest > kMaxBlockSmem;
+  static constexpr int kPlanes = kSerial ? 1 : kStages * 2;
+  static constexpr int stages = 0;  // [kStages][2][kPlane], or [kPlane]
   static constexpr int scales =
-      stages + kStages * 2 * kPlane;                // [2][2][kChunk]
+      stages + kPlanes * kPlane;                    // [2][2][kChunk]
   static constexpr int q = scales + 2 * 2 * kScale;  // [D][GT] f32
   static constexpr int parts = q + D * GT * 4;       // [kDecodeWarps][kPart]
   static constexpr int bytes = parts + kDecodeWarps * kPart;
@@ -135,19 +141,20 @@ __device__ __forceinline__ size_t partial_offset(int b, int y, int ys,
 }
 
 // This block's group tile: its kv head, where its first query head
-// starts in q and out, and how many of its GT heads are live (< G).
-template <int D, int GT>
+// starts in q and out (rows of the real head dim hd), and how many of
+// its GT heads are live (< G).
+template <int GT>
 struct GroupTile {
   int h;
   int live;
   size_t row_offset;
 
   __device__ __forceinline__ GroupTile(int b, int num_q_heads, int group,
-                                       int tiles) {
+                                       int tiles, int hd) {
     h = blockIdx.y / tiles;
     const int g0 = (blockIdx.y - h * tiles) * GT;
     live = min(GT, group - g0);
-    row_offset = ((size_t)b * num_q_heads + (size_t)h * group + g0) * D;
+    row_offset = ((size_t)b * num_q_heads + (size_t)h * group + g0) * hd;
   }
 };
 
@@ -162,7 +169,7 @@ paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
                     float* __restrict__ partials, int num_q_heads,
                     int group, int tiles, int num_pages, int page_size,
                     int max_pages, int part_splits, int chunks_per_split,
-                    LayerOffsets layer) {
+                    LayerOffsets layer, int hd) {
   constexpr bool QUANT = kQuantized<C>;
   constexpr int NT = kDecodeThreads;
   constexpr int DI = D / kDQ;  // head dims a thread owns
@@ -176,7 +183,7 @@ paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
   float* parts = reinterpret_cast<float*>(smem + L::parts);
 
   const int b = blockIdx.x;
-  const GroupTile<D, GT> tile(b, num_q_heads, group, tiles);
+  const GroupTile<GT> tile(b, num_q_heads, group, tiles, hd);
   const int h = tile.h;
   const int split = blockIdx.z;
   const int tid = threadIdx.x;
@@ -197,7 +204,7 @@ paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
     // Nothing of this row lies in the range: no load. One split: the
     // row is a pad row and its output is exact 0.
     if (part_splits == 1) {
-      for (int i = tid; i < tile.live * D; i += NT) o[i] = from_f32<T>(0.f);
+      for (int i = tid; i < tile.live * hd; i += NT) o[i] = from_f32<T>(0.f);
     } else {
       for (int i = tid; i < GT * PW; i += NT)
         part[i] = (i % PW == D) ? kNegInf : 0.f;
@@ -205,7 +212,7 @@ paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
     return;
   }
 
-  const size_t head_elems = (size_t)num_pages * D * page_size;
+  const size_t head_elems = (size_t)num_pages * hd * page_size;
   const size_t head_slots = (size_t)num_pages * page_size;
   const C* k_head = k_cache + layer.data() + h * head_elems;
   const C* v_head = v_cache + layer.data() + h * head_elems;
@@ -216,35 +223,52 @@ paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
   const int* pt_row = page_table + (size_t)b * max_pages;
   const int pages_live = min((kv_len + page_size - 1) / page_size, max_pages);
 
-  // Start the copies of chunk c into stage st.
-  auto start_copies = [&](int c, int st) {
-    stage_chunk_async<C, D, NT>(
-        k_head, v_head, pt_row, c, pages_live, page_size,
+  // Start the copies of chunk c into stage st: K and V, or (kSerial)
+  // the planes named, into the one plane (and the scales with K).
+  auto start_copies = [&](int c, int st, auto planes) {
+    constexpr int P = decltype(planes)::value;
+    stage_chunk_async<C, D, NT, kChunk, P>(
+        k_head, v_head, pt_row, c * kChunk, pages_live, page_size, hd,
         base + L::stages + (st * 2 + 0) * L::kPlane,
-        base + L::stages + (st * 2 + 1) * L::kPlane,
+        base + L::stages + (L::kSerial ? 0 : st * 2 + 1) * L::kPlane,
         PlaneLayout{kChunk * (int)sizeof(C), true});
-    if constexpr (QUANT)
-      stage_scales_async<NT>(ks_head, vs_head, pt_row, c, pages_live,
-                             page_size,
+    if constexpr (QUANT && (P & kPlaneK) != 0)
+      stage_scales_async<NT>(ks_head, vs_head, pt_row, c * kChunk,
+                             pages_live, page_size,
                              base + L::scales + (st * 2 + 0) * L::kScale,
                              base + L::scales + (st * 2 + 1) * L::kScale);
     cp_async_commit();
   };
-  start_copies(c_begin, 0);
+  using KV = std::integral_constant<int, kPlanesKV>;
+  using KOnly = std::integral_constant<int, kPlaneK>;
+  using VOnly = std::integral_constant<int, kPlaneV>;
+  // The planes' rows d >= head_dim: zero for the whole walk (the
+  // whole-page copies write them as zeros, the general staging of other
+  // pages not at all).
+  for (int p = 0; p < L::kPlanes; ++p)
+    zero_words<uint4, NT>(
+        reinterpret_cast<uint4*>(smem + L::stages + p * L::kPlane),
+        hd * L::kRow / 16, D * L::kRow / 16);
+  if constexpr (L::kSerial)
+    start_copies(c_begin, 0, KOnly());
+  else
+    start_copies(c_begin, 0, KV());
 
-  // q of the tile's GT query heads, as f32 [D][GT] (zeros past G): one
-  // broadcast read a head dim.
+  // q of the tile's GT query heads, as f32 [D][GT] (zeros past G and
+  // past head_dim): one broadcast read a head dim.
   for (int i = tid; i < GT * D; i += NT) {
     const int g = i / D;
     const int d = i - g * D;
-    qs[d * GT + g] = g < tile.live ? to_f32(q[tile.row_offset + i]) : 0.f;
+    qs[d * GT + g] = g < tile.live && d < hd
+                         ? to_f32(q[tile.row_offset + g * hd + d])
+                         : 0.f;
   }
 
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int dq = lane & (kDQ - 1);
   const int tok0 = (warp * (32 / kDQ) + lane / kDQ) * kTok;  // in the chunk
-  const float scale = rsqrtf((float)D);
+  const float scale = rsqrtf((float)hd);
 
   float m[GT], l[GT], acc[GT][DI];
 #pragma unroll
@@ -257,11 +281,15 @@ paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
 
   for (int c = c_begin; c < c_end; ++c) {
     const int st = L::kStages == 2 ? (c - c_begin) & 1 : 0;
-    if constexpr (L::kStages == 2) {
+    if constexpr (L::kSerial) {
+      // K through the one plane; V follows once the scores are taken.
+      if (c > c_begin) start_copies(c, 0, KOnly());
+      cp_async_wait<0>();
+    } else if constexpr (L::kStages == 2) {
       // Start chunk c + 1 into the stage chunk c - 1 left (its readers
       // passed the barrier that ended that iteration), wait for chunk c.
       if (c + 1 < c_end) {
-        start_copies(c + 1, st ^ 1);
+        start_copies(c + 1, st ^ 1, KV());
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
@@ -269,12 +297,13 @@ paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
     } else {
       // One stage: chunk c's copies start once the barrier that ended
       // the last iteration freed it.
-      if (c > c_begin) start_copies(c, 0);
+      if (c > c_begin) start_copies(c, 0, KV());
       cp_async_wait<0>();
     }
     __syncthreads();
     const unsigned char* kp = smem + L::stages + (st * 2 + 0) * L::kPlane;
-    const unsigned char* vp = smem + L::stages + (st * 2 + 1) * L::kPlane;
+    const unsigned char* vp =
+        smem + L::stages + (L::kSerial ? 0 : st * 2 + 1) * L::kPlane;
     const float* kss =
         reinterpret_cast<const float*>(smem + L::scales) + (st * 2) * kChunk;
     const float* vss = kss + kChunk;
@@ -345,6 +374,14 @@ paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
       }
     }
 
+    if constexpr (L::kSerial) {
+      // Every thread is done with K: V into the same plane.
+      __syncthreads();
+      start_copies(c, 0, VOnly());
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+
     // acc += p . v over this thread's tokens and head dims.
 #pragma unroll
     for (int i = 0; i < DI; ++i) {
@@ -404,7 +441,8 @@ paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
       tot_l = fmaf(e, pw[D + 1], tot_l);
     }
     if (part_splits == 1) {
-      if (g < tile.live) o[i] = from_f32<T>(tot / fmaxf(tot_l, 1e-30f));
+      if (g < tile.live && d < hd)
+        o[g * hd + d] = from_f32<T>(tot / fmaxf(tot_l, 1e-30f));
     } else {
       part[g * PW + d] = tot;
       if (d == 0) {
@@ -418,18 +456,19 @@ paged_decode_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
 // Merge the splits' partials of one (row, kv head, group tile) in split
 // order: thread (g, d) of GT * D (at most 512). A row whose every split
 // is empty has m = -1e30 and l = 0 everywhere: weights exp(0) = 1 over
-// zeros, exact 0. Heads past G are not written.
+// zeros, exact 0. Heads past G and head dims past head_dim are not
+// written.
 template <typename T, int D, int GT>
 __global__ void __launch_bounds__(GT* D)
 paged_decode_merge_kernel(const float* __restrict__ partials,
                           T* __restrict__ out, int num_q_heads, int group,
-                          int tiles, int num_splits) {
+                          int tiles, int num_splits, int hd) {
   constexpr int PW = D + 2;
   const int b = blockIdx.x;
-  const GroupTile<D, GT> tile(b, num_q_heads, group, tiles);
+  const GroupTile<GT> tile(b, num_q_heads, group, tiles, hd);
   const int g = threadIdx.x / D;
   const int d = threadIdx.x - g * D;
-  if (g >= tile.live) return;
+  if (g >= tile.live || d >= hd) return;
   const float* p = partials +
                    partial_offset<D, GT>(b, blockIdx.y, gridDim.y,
                                          num_splits, 0) +
@@ -444,7 +483,7 @@ paged_decode_merge_kernel(const float* __restrict__ partials,
     tot = fmaf(e, ps[d], tot);
     tot_l = fmaf(e, ps[D + 1], tot_l);
   }
-  out[tile.row_offset + (size_t)g * D + d] =
+  out[tile.row_offset + (size_t)g * hd + d] =
       from_f32<T>(tot / fmaxf(tot_l, 1e-30f));
 }
 
@@ -457,7 +496,8 @@ constexpr int kMaxTail = 32;
 // a query head the softmax over at most 32 slots, thread (g, d) p . v.
 // Slot s attends iff kv_lens[b] + s <= q_pos[b]; a row none of whose
 // slots attends writes the empty partial (0, -1e30, 0). Heads past G
-// score with q = 0; the merge never writes them.
+// score with q = 0; the merge never writes them. The tail's rows are
+// of the real head dim hd; the partial's head dims past it hold 0.
 template <typename T, int D, int GT>
 __global__ void __launch_bounds__(kDecodeThreads)
 paged_decode_tail_kernel(const T* __restrict__ q,
@@ -467,7 +507,7 @@ paged_decode_tail_kernel(const T* __restrict__ q,
                          const int* __restrict__ q_pos,
                          float* __restrict__ partials, int num_q_heads,
                          int group, int tiles, int kv_heads, int tail_len,
-                         int part_splits) {
+                         int part_splits, int hd) {
   constexpr int NT = kDecodeThreads;
   constexpr int PW = D + 2;
   __shared__ float qs[GT * D];
@@ -475,22 +515,27 @@ paged_decode_tail_kernel(const T* __restrict__ q,
   __shared__ float ms[GT];
   __shared__ float ls[GT];
   const int b = blockIdx.x;
-  const GroupTile<D, GT> tile(b, num_q_heads, group, tiles);
+  const GroupTile<GT> tile(b, num_q_heads, group, tiles, hd);
   const int h = tile.h;
   const int tid = threadIdx.x;
-  for (int i = tid; i < GT * D; i += NT)
-    qs[i] = i < tile.live * D ? to_f32(q[tile.row_offset + i]) : 0.f;
+  for (int i = tid; i < GT * D; i += NT) {
+    const int g = i / D;
+    const int d = i - g * D;
+    qs[i] = g < tile.live && d < hd
+                ? to_f32(q[tile.row_offset + g * hd + d])
+                : 0.f;
+  }
   __syncthreads();
 
   const int live = max(0, min(tail_len, q_pos[b] - kv_lens[b] + 1));
-  const float scale = rsqrtf((float)D);
+  const float scale = rsqrtf((float)hd);
   for (int i = tid; i < GT * tail_len; i += NT) {
     const int g = i / tail_len;
     const int s = i - g * tail_len;
-    const T* kr = k_tail + (((size_t)b * tail_len + s) * kv_heads + h) * D;
+    const T* kr = k_tail + (((size_t)b * tail_len + s) * kv_heads + h) * hd;
     float acc = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) acc = fmaf(qs[g * D + d], to_f32(kr[d]), acc);
+    for (int d = 0; d < hd; ++d) acc = fmaf(qs[g * D + d], to_f32(kr[d]), acc);
     ps[g * kMaxTail + s] = s < live ? acc * scale : kNegInf;
   }
   __syncthreads();
@@ -514,11 +559,13 @@ paged_decode_tail_kernel(const T* __restrict__ q,
   for (int i = tid; i < GT * D; i += NT) {
     const int g = i / D;
     const int d = i - g * D;
-    const T* vr = v_tail + ((size_t)b * tail_len * kv_heads + h) * D + d;
     float acc = 0.f;
-    for (int s = 0; s < tail_len; ++s)
-      acc = fmaf(ps[g * kMaxTail + s],
-                 to_f32(vr[(size_t)s * kv_heads * D]), acc);
+    if (d < hd) {
+      const T* vr = v_tail + ((size_t)b * tail_len * kv_heads + h) * hd + d;
+      for (int s = 0; s < tail_len; ++s)
+        acc = fmaf(ps[g * kMaxTail + s],
+                   to_f32(vr[(size_t)s * kv_heads * hd]), acc);
+    }
     part[g * PW + d] = acc;
     if (d == 0) {
       part[g * PW + D] = ms[g];
@@ -534,6 +581,7 @@ int launch(const DecodeArgs& a) {
   if (kQuantized<C> && (a.ks == nullptr || a.vs == nullptr))
     return cudaErrorInvalidValue;
   const bool tail = a.k_tail != nullptr;
+  const int hd = a.head_dim;
   const int part_splits = a.num_splits + (tail ? 1 : 0);
   const int group = a.num_q_heads / a.num_kv_heads;
   const int tiles = (group + GT - 1) / GT;
@@ -551,7 +599,7 @@ int launch(const DecodeArgs& a) {
       static_cast<const int*>(a.kv_lens), static_cast<T*>(a.out),
       static_cast<float*>(a.partials), a.num_q_heads, group, tiles,
       a.num_pages, a.page_size, a.max_pages, part_splits,
-      a.chunks_per_split, a.layer);
+      a.chunks_per_split, a.layer, hd);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || part_splits == 1) return err;
   if (tail) {
@@ -562,13 +610,13 @@ int launch(const DecodeArgs& a) {
             static_cast<const int*>(a.kv_lens),
             static_cast<const int*>(a.q_pos),
             static_cast<float*>(a.partials), a.num_q_heads, group, tiles,
-            a.num_kv_heads, a.tail_len, part_splits);
+            a.num_kv_heads, a.tail_len, part_splits, hd);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   paged_decode_merge_kernel<T, D, GT><<<grid, GT * D, 0, a.stream>>>(
       static_cast<const float*>(a.partials), static_cast<T*>(a.out),
-      a.num_q_heads, group, tiles, part_splits);
+      a.num_q_heads, group, tiles, part_splits, hd);
   return cudaGetLastError();
 }
 
@@ -578,7 +626,12 @@ template <typename T, typename C, int D>
 int launch_tiled(const DecodeArgs& a) {
   const int gt = group_tile(a.num_q_heads / a.num_kv_heads, D);
   if (gt == 1) return launch<T, C, D, 1>(a);
-  if (gt == 4) return launch<T, C, D, 4>(a);
+  if constexpr (max_group_tile(D) == 2) {
+    if (gt == 2) return launch<T, C, D, 2>(a);
+  }
+  if constexpr (max_group_tile(D) >= 4) {
+    if (gt == 4) return launch<T, C, D, 4>(a);
+  }
   if constexpr (max_group_tile(D) >= 8) {
     if (gt == 8) return launch<T, C, D, 8>(a);
   }
@@ -588,21 +641,18 @@ int launch_tiled(const DecodeArgs& a) {
 }  // namespace
 
 // The launch of one query type (the dtype code's T) at any cache type
-// and head dim of PSTT_FOR_EACH_GEOMETRY: paged_decode_{bf16,f16,f32}.cu
-// instantiate the kernels a query type each, so the three compile in
-// parallel. cudaErrorInvalidValue for a cache dtype or head dim the list
-// lacks.
-int decode_launch_bf16(const DecodeArgs& args, int cache_dtype,
-                       int head_dim);
-int decode_launch_f16(const DecodeArgs& args, int cache_dtype,
-                      int head_dim);
-int decode_launch_f32(const DecodeArgs& args, int cache_dtype,
-                      int head_dim);
+// and head-dim tile of PSTT_FOR_EACH_GEOMETRY: paged_decode_{bf16,f16,
+// f32}.cu instantiate the kernels a query type each, so the three
+// compile in parallel. cudaErrorInvalidValue for a cache dtype or head
+// dim the list lacks.
+int decode_launch_bf16(const DecodeArgs& args, int cache_dtype);
+int decode_launch_f16(const DecodeArgs& args, int cache_dtype);
+int decode_launch_f32(const DecodeArgs& args, int cache_dtype);
 
 }  // namespace pstt
 
 // The body of a decode_launch_<type>: one case a line of the type's
-// list.
-#define PSTT_DECODE_CASE(code, T, ccode, C, D) \
-  if (cache_dtype == ccode && head_dim == D)   \
+// list, at the head dim's tile.
+#define PSTT_DECODE_CASE(code, T, ccode, C, D)                        \
+  if (cache_dtype == ccode && pstt::head_dim_tile(args.head_dim) == D) \
     return pstt::launch_tiled<T, C, D>(args);

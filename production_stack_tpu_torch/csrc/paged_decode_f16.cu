@@ -1,10 +1,9 @@
 // The decode kernels instantiated for f16 queries (every cache type
-// and head dim of PSTT_FOR_EACH_F16_GEOMETRY): see paged_decode.cu.
+// and head-dim tile of PSTT_FOR_EACH_F16_GEOMETRY): see paged_decode.cu.
 
 #include "paged_decode.cuh"
 
-int pstt::decode_launch_f16(const DecodeArgs& args, int cache_dtype,
-                            int head_dim) {
+int pstt::decode_launch_f16(const DecodeArgs& args, int cache_dtype) {
   PSTT_FOR_EACH_F16_GEOMETRY(PSTT_DECODE_CASE)
   return cudaErrorInvalidValue;
 }

@@ -18,7 +18,8 @@
 //     page_size], token-minor) from device memory into shared memory
 //     with coalesced loads (16 bytes, or as wide as the page row
 //     allows: stage_chunk), converting to f32; tokens of pages past
-//     ceil(kv_len / page_size) are not read and stage as zeros;
+//     ceil(kv_len / page_size) are not read and stage as zeros (at
+//     head-dim tile 256, half a chunk at a time: walk_span);
 //   - computes q.k^T / sqrt(head_dim) in f32 and sets scores outside
 //     the mask to -1e30;
 //   - runs the online softmax (m, l, acc in f32) and accumulates p.v.
@@ -31,7 +32,7 @@
 // per (kv head, page, slot), [kv_heads, num_pages, page_size]. The
 // chunk's 128 K and V scales are staged beside its pages (zeros past
 // the live pages) and folded in as the Pallas kernels fold them: the scores are
-// (q . k_int8) / sqrt(D) * k_scale[token], l sums the unscaled
+// (q . k_int8) / sqrt(head_dim) * k_scale[token], l sums the unscaled
 // probabilities, and p * v_scale[token] enters p . v. That is the
 // plain version's order exactly, and costs 2 * ROWS * 128 multiplies
 // a chunk where scaling each staged element would cost 2 * D * 128.
@@ -55,26 +56,42 @@
 namespace pstt {
 
 constexpr int kChunk = 128;           // tokens per walk step
-constexpr int kStride = kChunk + 1;   // smem row stride of K, V, scores
 constexpr float kNegInf = -1e30f;
 
 // What the kernels are built for: every query and output type (codes:
 // 0 bf16, 1 f32, 3 f16, the host's _DTYPE_CODES) over a cache of the
 // same type or int8 (cache code 2, the host's _CACHE_CODES), at every
-// head dim of PSTT_FOR_EACH_HEAD_DIM. The query group (q heads per kv
-// head) is a run-time value of every kernel: any group of 1 or more.
+// head_dim from 1 to kMaxHeadDim. The query group (q heads per kv head)
+// is a run-time value of every kernel: any group of 1 or more.
 // All three kernels dispatch through PSTT_FOR_EACH_GEOMETRY, and
 // pstt_kernel_supports() (paged_decode.cu) answers the host from it;
 // ops/paged_kv_common.kernel_geometry_supported is the same rule.
 //
-// Head dims: 64 (bench-1b, TinyLlama, Qwen2-0.5B, OPT to 1.3b, GPT-2),
-// 80 (OPT-2.7b: 2560 / 32), 128 (Llama, Mistral, Mixtral, the other
-// Qwen2 and the larger OPT checkpoints) and 32 (the tiny test configs).
+// Head dims: each kernel is built for the head-dim tiles below, in
+// ascending order, and a head_dim runs at the smallest tile at or above
+// it (head_dim_tile), as the Pallas kernels pad head_dim to their lane
+// tile. One instance a tile serves its own head_dim and every smaller
+// one: the tile D sizes the shared memory, the registers and the
+// products at compile time, the real head_dim is a run-time value. A
+// kernel reads and writes only head dims d < head_dim of the cache, q
+// and out; shared-memory rows d >= head_dim are zero, written once a
+// block (the Pallas kernels' zero_pad_sublanes), and so are q's; the
+// scale is 1 / sqrt(head_dim). The staging loops run over the tile's D
+// rows (rows past head_dim copy zeros), so their trip counts stay
+// constants and the tile's own head_dim keeps its time without an
+// instance of its own (one doubled the build). The cache keeps its real
+// head_dim: [kv_heads, num_pages, head_dim, page_size]. Head dims that
+// are a tile: 64 (bench-1b, TinyLlama, Qwen2-0.5B, OPT to 1.3b, GPT-2),
+// 80 (OPT-2.7b), 128 (Llama, Mistral, Mixtral, the larger Qwen2 and OPT
+// checkpoints), 256 (the Falcon3 family) and 32 (the tiny test
+// configs); padded, for example, 100 at 128 (OpenLLaMA-3B), 96 at 128,
+// 160 at 256.
 #define PSTT_FOR_EACH_HEAD_DIM(X, code, T, ccode, C) \
   X(code, T, ccode, C, 32)                           \
   X(code, T, ccode, C, 64)                           \
   X(code, T, ccode, C, 80)                           \
-  X(code, T, ccode, C, 128)
+  X(code, T, ccode, C, 128)                          \
+  X(code, T, ccode, C, 256)
 #define PSTT_FOR_EACH_BF16_GEOMETRY(X)                          \
   PSTT_FOR_EACH_HEAD_DIM(X, 0, __nv_bfloat16, 0, __nv_bfloat16) \
   PSTT_FOR_EACH_HEAD_DIM(X, 0, __nv_bfloat16, 2, int8_t)
@@ -91,6 +108,30 @@ constexpr float kNegInf = -1e30f;
 
 template <typename C>
 constexpr bool kQuantized = std::is_same<C, int8_t>::value;
+
+constexpr int kMaxHeadDim = 256;  // the widest tile
+constexpr int kMaxBlockSmem = 232448;  // most shared memory a block may have
+
+// The tile a head_dim runs at: the smallest of PSTT_FOR_EACH_HEAD_DIM at
+// or above it; 0 for a head_dim under 1 or past kMaxHeadDim.
+__host__ __device__ constexpr int head_dim_tile(int head_dim) {
+  if (head_dim < 1) return 0;
+#define PSTT_TILE_AT_LEAST(code, T, ccode, C, D) \
+  if (head_dim <= D) return D;
+  PSTT_FOR_EACH_HEAD_DIM(PSTT_TILE_AT_LEAST, 0, float, 0, float)
+#undef PSTT_TILE_AT_LEAST
+  return 0;
+}
+
+// Tokens a walk stages at a time at head-dim tile D: a 128-token chunk,
+// or half of one at tile 256, where a chunk of K and V staged whole
+// passes the block's shared memory (page_walk_block: two f32 planes of
+// 256 x 129 words are 264 KB; the tensor-core walk then keeps two
+// stages of half chunks). A chunk stays 128 tokens of a row: the decode
+// kernel's splits and the plain walk count in chunks.
+__host__ __device__ constexpr int walk_span(int d) {
+  return d > 128 ? kChunk / 2 : kChunk;
+}
 
 // The page sizes the kernels walk: every page of 1 token or more (a
 // chunk is 128 tokens of a row whatever the page; see stage_chunk). The
@@ -131,23 +172,31 @@ __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half_rn(x);
 }
 
-// Shared memory of one block, in floats. A quantized cache (QUANT)
-// adds the chunk's K and V scales.
+// Shared memory of one block of page_walk_block, in floats. A quantized
+// cache (QUANT) adds the span's K and V scales. K and V stage a span of
+// walk_span(D) tokens: a chunk up to head_dim 128 (194 KB at 128 and 64
+// rows); half a chunk at 256 (212 KB at 64 rows), where a whole one
+// would need 264 KB for K and V alone. Staging K then V in one plane
+// would not fit either (q, one 256 x 129 plane and the scores are 227.3
+// KB at 64 rows), and half chunks keep the one-pass body of the walk.
 template <int D, int ROWS, bool QUANT = false>
 struct SmemLayout {
+  static constexpr int kSpan = walk_span(D);
+  static constexpr int kSStride = kSpan + 1;  // row stride of K, V, scores
   static constexpr int kQStride = D + 1;
-  static constexpr int kScales = QUANT ? kChunk : 0;
+  static constexpr int kScales = QUANT ? kSpan : 0;
   static constexpr int q = 0;                          // [ROWS][D + 1]
-  static constexpr int k = q + ROWS * kQStride;        // [D][kStride]
-  static constexpr int v = k + D * kStride;            // [D][kStride]
-  static constexpr int s = v + D * kStride;            // [ROWS][kStride]
-  static constexpr int m = s + ROWS * kStride;         // [ROWS]
+  static constexpr int k = q + ROWS * kQStride;        // [D][kSStride]
+  static constexpr int v = k + D * kSStride;           // [D][kSStride]
+  static constexpr int s = v + D * kSStride;           // [ROWS][kSStride]
+  static constexpr int m = s + ROWS * kSStride;        // [ROWS]
   static constexpr int l = m + ROWS;                   // [ROWS]
   static constexpr int alpha = l + ROWS;               // [ROWS]
   static constexpr int ks = alpha + ROWS;              // [kScales]
   static constexpr int vs = ks + kScales;              // [kScales]
   static constexpr int total = vs + kScales;
   static constexpr size_t bytes = total * sizeof(float);
+  static_assert(bytes <= kMaxBlockSmem, "a walk block's shared memory");
 };
 
 // Where one layer of a stacked [L, kv_heads, num_pages, D, page_size]
@@ -311,23 +360,23 @@ __device__ __forceinline__ uint4 load_bytes(const void* src, int bytes) {
 
 // The general staging of stage_chunk (a page that whole_page_staging
 // does not take): copy_elems tokens of one head dim a load, each
-// token's page and slot by division. Not inlined, the head dim and the
-// thread count taken at run time: one body a cache type serves every
-// instance of page_walk_block, which keeps its registers and the build
-// as they were before the general path.
+// token's page and slot by division. Not inlined, the head dim, the
+// span and the thread count taken at run time: one body a cache type
+// serves every instance of page_walk_block, which keeps its registers
+// and the build as they were before the general path.
 template <typename C>
 __device__ __noinline__ void stage_chunk_any(
     const C* __restrict__ k_head, const C* __restrict__ v_head,
-    const int* __restrict__ pt_row, int chunk, int pages_live,
+    const int* __restrict__ pt_row, int pos0, int span, int pages_live,
     int page_size, int head_dim, int nthreads, float* __restrict__ ks,
     float* __restrict__ vs) {
   constexpr int kVec = 16 / sizeof(C);
   const int vec = copy_elems(page_size, sizeof(C));
-  const int row_shift = __ffs(kChunk / vec) - 1;  // log2 copies a row
+  const int row_shift = __ffs(span / vec) - 1;  // log2 copies a row
   for (int i = threadIdx.x; i < head_dim << row_shift; i += nthreads) {
     const int d = i >> row_shift;
     const int col = (i - (d << row_shift)) * vec;
-    const int pos = chunk * kChunk + col;
+    const int pos = pos0 + col;
     const int lp = pos / page_size;
     uint4 kraw = make_uint4(0, 0, 0, 0);
     uint4 vraw = make_uint4(0, 0, 0, 0);
@@ -339,8 +388,8 @@ __device__ __noinline__ void stage_chunk_any(
     }
     const C* ke = reinterpret_cast<const C*>(&kraw);
     const C* ve = reinterpret_cast<const C*>(&vraw);
-    float* kd = ks + d * kStride + col;
-    float* vd = vs + d * kStride + col;
+    float* kd = ks + d * (span + 1) + col;
+    float* vd = vs + d * (span + 1) + col;
 #pragma unroll
     for (int x = 0; x < kVec; ++x) {
       if (x < vec) {
@@ -351,43 +400,50 @@ __device__ __noinline__ void stage_chunk_any(
   }
 }
 
-// Stage one 128-token chunk of K and V into shared memory as f32
-// [D][kStride] tiles: token t of the chunk fills column t. With whole
-// pages (whole_page_staging), page j of the chunk fills columns
-// [j * page_size, (j + 1) * page_size) with 16-byte loads (8 bf16 or
-// f16, 4 f32 or 16 int8 tokens of one head dim); any other page takes
-// stage_chunk_any.
-template <typename C, int D, int NT>
+// Stage the W tokens [pos0, pos0 + W) of a row's K and V (pos0 a
+// multiple of W; W = walk_span(D)) into shared memory as f32 [D][W + 1]
+// tiles: token pos0 + t fills column t, head dims d < head_dim from the
+// cache and rows d >= head_dim as zeros. With whole pages
+// (whole_page_staging), the span's part of page j fills columns
+// [j * tp, (j + 1) * tp), tp = min(page_size, W) tokens from slot
+// pos0 % page_size, with 16-byte loads (8 bf16 or f16, 4 f32 or 16
+// int8 tokens of one head dim); any other page takes stage_chunk_any.
+template <typename C, int D, int NT, int W>
 __device__ __forceinline__ void stage_chunk(
     const C* __restrict__ k_head, const C* __restrict__ v_head,
-    const int* __restrict__ pt_row, int chunk, int pages_live,
-    int page_size, float* __restrict__ ks, float* __restrict__ vs) {
+    const int* __restrict__ pt_row, int pos0, int pages_live,
+    int page_size, int head_dim, float* __restrict__ ks,
+    float* __restrict__ vs) {
   if (!whole_page_staging<C>(page_size)) {
-    stage_chunk_any<C>(k_head, v_head, pt_row, chunk, pages_live,
-                       page_size, D, NT, ks, vs);
+    stage_chunk_any<C>(k_head, v_head, pt_row, pos0, W, pages_live,
+                       page_size, head_dim, NT, ks, vs);
     return;
   }
   constexpr int kVec = 16 / sizeof(C);
-  const int pages_per_chunk = kChunk / page_size;
-  const int page_elems = D * page_size;
-  for (int i = threadIdx.x; i < D * kChunk / kVec; i += NT) {
+  constexpr bool kWhole = W == kChunk;  // whole pages of the chunk
+  const int tp = kWhole ? page_size : min(page_size, W);
+  const int lo = kWhole ? 0 : pos0 % page_size;
+  const int first_page = pos0 / page_size;
+  const int span_elems = D * tp;  // of one page in the span, tile rows
+  for (int i = threadIdx.x; i < D * W / kVec; i += NT) {
     const int e = i * kVec;
-    const int j = e / page_elems;
-    const int rem = e - j * page_elems;
-    const int d = rem / page_size;
-    const int col = rem - d * page_size;
-    const int lp = chunk * pages_per_chunk + j;
+    const int j = e / span_elems;
+    const int rem = e - j * span_elems;
+    const int d = rem / tp;
+    const int col = rem - d * tp;
+    const int lp = first_page + j;
     uint4 kraw = make_uint4(0, 0, 0, 0);
     uint4 vraw = make_uint4(0, 0, 0, 0);
-    if (lp < pages_live) {
-      const size_t src = (size_t)pt_row[lp] * page_elems + rem;
+    if (lp < pages_live && d < head_dim) {
+      const size_t src =
+          ((size_t)pt_row[lp] * head_dim + d) * page_size + lo + col;
       kraw = *reinterpret_cast<const uint4*>(k_head + src);
       vraw = *reinterpret_cast<const uint4*>(v_head + src);
     }
     const C* ke = reinterpret_cast<const C*>(&kraw);
     const C* ve = reinterpret_cast<const C*>(&vraw);
-    float* kd = ks + d * kStride + j * page_size + col;
-    float* vd = vs + d * kStride + j * page_size + col;
+    float* kd = ks + d * (W + 1) + j * tp + col;
+    float* vd = vs + d * (W + 1) + j * tp + col;
 #pragma unroll
     for (int x = 0; x < kVec; ++x) {
       kd[x] = to_f32(ke[x]);
@@ -396,18 +452,18 @@ __device__ __forceinline__ void stage_chunk(
   }
 }
 
-// Stage the chunk's 128 K and V scales of a quantized cache: token t of
-// the chunk reads slot t % page_size of its page's scale row, whatever
+// Stage the span's W K and V scales of a quantized cache: token pos0 + t
+// reads slot (pos0 + t) % page_size of its page's scale row, whatever
 // the page size; tokens of pages past the live ones stage as zeros
 // (their scores are masked).
-template <int NT>
+template <int NT, int W>
 __device__ __forceinline__ void stage_scales(
     const float* __restrict__ k_scale_head,
     const float* __restrict__ v_scale_head,
-    const int* __restrict__ pt_row, int chunk, int pages_live,
+    const int* __restrict__ pt_row, int pos0, int pages_live,
     int page_size, float* __restrict__ kss, float* __restrict__ vss) {
-  for (int i = threadIdx.x; i < kChunk; i += NT) {
-    const int pos = chunk * kChunk + i;
+  for (int i = threadIdx.x; i < W; i += NT) {
+    const int pos = pos0 + i;
     const int lp = pos / page_size;
     float kx = 0.f, vx = 0.f;
     if (lp < pages_live) {
@@ -418,6 +474,19 @@ __device__ __forceinline__ void stage_scales(
     }
     kss[i] = kx;
     vss[i] = vx;
+  }
+}
+
+// Zero words [first, last) of shared memory with NT threads: the pad
+// rows d >= head_dim of a staged plane, once a block.
+template <typename Word, int NT>
+__device__ __forceinline__ void zero_words(Word* __restrict__ base,
+                                           int first, int last) {
+  for (int i = first + threadIdx.x; i < last; i += NT) {
+    if constexpr (std::is_same<Word, uint4>::value)
+      base[i] = make_uint4(0, 0, 0, 0);
+    else
+      base[i] = Word(0);
   }
 }
 
@@ -515,22 +584,22 @@ struct PlaneLayout {
 // The general staging of stage_chunk_async (a page whole_page_staging
 // does not take): copy_elems tokens of one head dim a copy, each token's
 // page and slot by division. Not inlined and untemplated (head dim,
-// element size and thread count at run time): one body serves every
-// kernel instance, so the instances keep their registers and the build
-// its time.
+// span, element size, thread count and the planes to copy, K's bit 1
+// and V's bit 2, at run time): one body serves every kernel instance,
+// so the instances keep their registers and the build its time.
 static __device__ __noinline__ void stage_chunk_async_any(
     const unsigned char* __restrict__ k_head,
     const unsigned char* __restrict__ v_head,
-    const int* __restrict__ pt_row, int chunk, int pages_live,
-    int page_size, int head_dim, int esz, int nthreads, uint32_t k_dst,
-    uint32_t v_dst, PlaneLayout layout) {
+    const int* __restrict__ pt_row, int pos0, int span, int pages_live,
+    int page_size, int head_dim, int esz, int nthreads, int planes,
+    uint32_t k_dst, uint32_t v_dst, PlaneLayout layout) {
   const int vec = copy_elems(page_size, esz);
   const int bytes = vec * esz;
-  const int row_shift = __ffs(kChunk / vec) - 1;  // log2 copies a row
+  const int row_shift = __ffs(span / vec) - 1;  // log2 copies a row
   for (int i = threadIdx.x; i < head_dim << row_shift; i += nthreads) {
     const int d = i >> row_shift;
     const int col = (i - (d << row_shift)) * vec;
-    const int pos = chunk * kChunk + col;
+    const int pos = pos0 + col;
     const int lp = pos / page_size;
     const bool live = lp < pages_live;
     const size_t src =
@@ -538,46 +607,66 @@ static __device__ __noinline__ void stage_chunk_async_any(
                 (pos - lp * page_size)) * esz
              : (size_t)0;
     const uint32_t o = layout.offset(d, col, esz);
-    cp_async_bytes(k_dst + o, k_head + src, bytes, live);
-    cp_async_bytes(v_dst + o, v_head + src, bytes, live);
+    if (planes & 1) cp_async_bytes(k_dst + o, k_head + src, bytes, live);
+    if (planes & 2) cp_async_bytes(v_dst + o, v_head + src, bytes, live);
   }
 }
 
-// Start the copies of one 128-token chunk of K and V into planes laid
-// out as `layout` says. The caller commits the group. Whole pages
-// (whole_page_staging) copy 16 bytes a copy, page by page; any other
-// page takes stage_chunk_async_any.
-template <typename C, int D, int NT>
+// The planes stage_chunk_async copies: K and V, or one of them (the
+// decode kernel's f32 cache at tile 256 stages K, then V, through one
+// plane).
+constexpr int kPlaneK = 1;
+constexpr int kPlaneV = 2;
+constexpr int kPlanesKV = kPlaneK | kPlaneV;
+
+// Start the copies of the W tokens [pos0, pos0 + W) of a row's K and V
+// (pos0 a multiple of W) into planes of D rows laid out as `layout`
+// says: head dims d < head_dim from the cache, rows d >= head_dim as
+// zeros, each row's tokens in order. The caller commits the group.
+// Whole pages (whole_page_staging) copy 16 bytes a copy, page by page
+// (tp = min(page_size, W) tokens of each from slot pos0 % page_size),
+// over the tile's D rows so that the loop's trip count is a constant;
+// any other page takes stage_chunk_async_any.
+template <typename C, int D, int NT, int W = kChunk,
+          int PLANES = kPlanesKV>
 __device__ __forceinline__ void stage_chunk_async(
     const C* __restrict__ k_head, const C* __restrict__ v_head,
-    const int* __restrict__ pt_row, int chunk, int pages_live,
-    int page_size, uint32_t k_dst, uint32_t v_dst, PlaneLayout layout) {
+    const int* __restrict__ pt_row, int pos0, int pages_live,
+    int page_size, int head_dim, uint32_t k_dst, uint32_t v_dst,
+    PlaneLayout layout) {
   if (!whole_page_staging<C>(page_size)) {
     stage_chunk_async_any(reinterpret_cast<const unsigned char*>(k_head),
                           reinterpret_cast<const unsigned char*>(v_head),
-                          pt_row, chunk, pages_live, page_size, D,
-                          (int)sizeof(C), NT, k_dst, v_dst, layout);
+                          pt_row, pos0, W, pages_live, page_size,
+                          head_dim, (int)sizeof(C), NT, PLANES, k_dst,
+                          v_dst, layout);
     return;
   }
   constexpr int kVec = 16 / sizeof(C);
+  constexpr bool kWhole = W == kChunk;  // whole pages of the chunk
   const int ps_shift = log2_pow2(page_size);
-  const int first_page = chunk << (log2_pow2(kChunk) - ps_shift);
-  for (int i = threadIdx.x; i < D * kChunk / kVec; i += NT) {
+  const int tp_shift = kWhole ? ps_shift : min(ps_shift, log2_pow2(W));
+  const int lo = kWhole ? 0 : pos0 & (page_size - 1);
+  const int first_page = pos0 >> ps_shift;
+  for (int i = threadIdx.x; i < D * W / kVec; i += NT) {
     const int e = i * kVec;
-    // e = (j * D + d) * page_size + col: page j of the chunk, head dim
-    // d, token col of the page.
-    const int jd = e >> ps_shift;
+    // e = (j * D + d) * tp + col: page j of the span, head dim d of the
+    // tile, token col of the page's part.
+    const int jd = e >> tp_shift;
     const int j = jd / D;
-    const int rem = e - ((j * D) << ps_shift);  // d * page_size + col
     const int d = jd - j * D;
-    const int col = e & (page_size - 1);
+    const int col = e & ((1 << tp_shift) - 1);
     const int lp = first_page + j;
-    const bool live = lp < pages_live;
+    const bool live = lp < pages_live && d < head_dim;
     const size_t src =
-        live ? (((size_t)pt_row[lp] * D) << ps_shift) + rem : (size_t)0;
-    const uint32_t o = layout.offset(d, (j << ps_shift) + col, sizeof(C));
-    cp_async16(k_dst + o, k_head + src, live);
-    cp_async16(v_dst + o, v_head + src, live);
+        live ? ((((size_t)pt_row[lp] * head_dim + d) << ps_shift) + lo +
+                col)
+             : (size_t)0;
+    const uint32_t o = layout.offset(d, (j << tp_shift) + col, sizeof(C));
+    if constexpr ((PLANES & kPlaneK) != 0)
+      cp_async16(k_dst + o, k_head + src, live);
+    if constexpr ((PLANES & kPlaneV) != 0)
+      cp_async16(v_dst + o, v_head + src, live);
   }
 }
 
@@ -587,12 +676,12 @@ __device__ __forceinline__ void stage_chunk_async(
 static __device__ __noinline__ void stage_scales_async_any(
     const float* __restrict__ k_scale_head,
     const float* __restrict__ v_scale_head,
-    const int* __restrict__ pt_row, int chunk, int pages_live,
+    const int* __restrict__ pt_row, int pos0, int span, int pages_live,
     int page_size, int nthreads, uint32_t ks_dst, uint32_t vs_dst) {
   const int vec = copy_elems(page_size, 4);
-  for (int i = threadIdx.x; i < kChunk / vec; i += nthreads) {
+  for (int i = threadIdx.x; i < span / vec; i += nthreads) {
     const int tok = i * vec;
-    const int pos = chunk * kChunk + tok;
+    const int pos = pos0 + tok;
     const int lp = pos / page_size;
     const bool live = lp < pages_live;
     const size_t src =
@@ -603,27 +692,26 @@ static __device__ __noinline__ void stage_scales_async_any(
   }
 }
 
-// Start the copies of the chunk's 128 K and V scales of a quantized
-// cache: 4 scales a copy where the page is a power of two from 4 to 128
+// Start the copies of the span's W K and V scales of a quantized cache:
+// 4 scales a copy where the page is a power of two from 4 to 128
 // (shifted), else stage_scales_async_any.
-template <int NT>
+template <int NT, int W = kChunk>
 __device__ __forceinline__ void stage_scales_async(
     const float* __restrict__ k_scale_head,
     const float* __restrict__ v_scale_head,
-    const int* __restrict__ pt_row, int chunk, int pages_live,
+    const int* __restrict__ pt_row, int pos0, int pages_live,
     int page_size, uint32_t ks_dst, uint32_t vs_dst) {
   if (!whole_page_staging<float>(page_size)) {
-    stage_scales_async_any(k_scale_head, v_scale_head, pt_row, chunk,
+    stage_scales_async_any(k_scale_head, v_scale_head, pt_row, pos0, W,
                            pages_live, page_size, NT, ks_dst, vs_dst);
     return;
   }
   const int ps_shift = log2_pow2(page_size);
-  const int first_page = chunk << (log2_pow2(kChunk) - ps_shift);
-  for (int i = threadIdx.x; i < kChunk / 4; i += NT) {
+  for (int i = threadIdx.x; i < W / 4; i += NT) {
     const int tok = i * 4;
-    const int j = tok >> ps_shift;
-    const int col = tok - (j << ps_shift);
-    const int lp = first_page + j;
+    const int pos = pos0 + tok;
+    const int lp = pos >> ps_shift;
+    const int col = pos & (page_size - 1);
     const bool live = lp < pages_live;
     const size_t src =
         live ? ((size_t)pt_row[lp] << ps_shift) + col : (size_t)0;
@@ -646,14 +734,17 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // The walk for one block. Threads form a TY x TX grid: thread (ty, tx)
 // computes scores of rows ty*RM .. ty*RM+RM-1 at tokens tx + TX*j, and
-// owns the outputs of the same rows at head dims tx + TX*j.
+// owns the outputs of the same rows at head dims tx + TX*j. It steps
+// walk_span(D) tokens at a time (a chunk; half of one at tile 256).
 //
-//   q, out:      the layer's [B, T, num_q_heads, D] query/output
-//   k/v_head:    this kv head's [num_pages, D, page_size] pages
+//   q, out:      the layer's [B, T, num_q_heads, head_dim] query/output
+//   k/v_head:    this kv head's [num_pages, head_dim, page_size] pages
 //   k/v_scale_head: this kv head's [num_pages, page_size] scales (int8
 //                cache only; null otherwise)
 //   pt_row:      this row's page-table entries (max_pages of them)
 //   nrows:       valid rows of the block (<= ROWS); the rest are pad
+//   hd:          the real head dim, at most D: rows d >= hd of q, K
+//                and V are zero in shared memory
 template <typename T, typename C, int D, int ROWS, int TY, int NT,
           class Mask, class Rows>
 __device__ void page_walk_block(const T* __restrict__ q,
@@ -664,18 +755,20 @@ __device__ void page_walk_block(const T* __restrict__ q,
                                 const float* __restrict__ v_scale_head,
                                 const int* __restrict__ pt_row,
                                 int max_pages, int page_size, int kv_len,
-                                Mask mask, int nrows) {
+                                Mask mask, int nrows, int hd) {
   constexpr bool QUANT = kQuantized<C>;
+  constexpr int W = walk_span(D);
   constexpr int TX = NT / TY;
   constexpr int RM = ROWS / TY;
-  constexpr int TN = kChunk / TX;
+  constexpr int TN = W / TX;
   // Head dims a thread owns: tx + TX * j < D (the last j is cut where
   // TX does not divide D, as at 80 over 32 columns).
   constexpr int DN = (D + TX - 1) / TX;
-  static_assert(ROWS % TY == 0 && kChunk % TX == 0,
-                "thread layout must tile the rows and the chunk");
+  static_assert(ROWS % TY == 0 && W % TX == 0,
+                "thread layout must tile the rows and the span");
   using L = SmemLayout<D, ROWS, QUANT>;
   constexpr int QS = L::kQStride;
+  constexpr int S = L::kSStride;
   extern __shared__ float smem[];
   float* qs = smem + L::q;
   float* ks = smem + L::k;
@@ -692,13 +785,16 @@ __device__ void page_walk_block(const T* __restrict__ q,
   const int tx = tid - ty * TX;
   const int warp = tid / 32;
   const int lane = tid & 31;
-  const float scale = rsqrtf((float)D);
+  const float scale = rsqrtf((float)hd);
 
   for (int i = tid; i < ROWS * D; i += NT) {
     const int r = i / D;
     const int d = i - r * D;
-    qs[r * QS + d] = r < nrows ? to_f32(q[rows.offset(r) + d]) : 0.f;
+    qs[r * QS + d] =
+        r < nrows && d < hd ? to_f32(q[rows.offset(r) + d]) : 0.f;
   }
+  zero_words<float, NT>(ks, hd * S, D * S);
+  zero_words<float, NT>(vs, hd * S, D * S);
   for (int r = tid; r < ROWS; r += NT) {
     ms[r] = kNegInf;
     ls[r] = 0.f;
@@ -713,29 +809,30 @@ __device__ void page_walk_block(const T* __restrict__ q,
     for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
 
   const int pages_live = min((kv_len + page_size - 1) / page_size, max_pages);
-  const int n_chunks = (mask.max_limit(nrows) + kChunk - 1) / kChunk;
+  const int n_spans = (mask.max_limit(nrows) + W - 1) / W;
 
-  for (int c = 0; c < n_chunks; ++c) {
-    __syncthreads();  // the previous chunk's readers are done
-    stage_chunk<C, D, NT>(k_head, v_head, pt_row, c, pages_live,
-                          page_size, ks, vs);
+  for (int c = 0; c < n_spans; ++c) {
+    __syncthreads();  // the previous span's readers are done
+    stage_chunk<C, D, NT, W>(k_head, v_head, pt_row, c * W, pages_live,
+                             page_size, hd, ks, vs);
     if constexpr (QUANT)
-      stage_scales<NT>(k_scale_head, v_scale_head, pt_row, c, pages_live,
-                       page_size, kss, vss);
+      stage_scales<NT, W>(k_scale_head, v_scale_head, pt_row, c * W,
+                          pages_live, page_size, kss, vss);
     __syncthreads();
 
-    // Scores: [RM] x [TN] register tile, contracted over D.
+    // Scores: [RM] x [TN] register tile, contracted over the real head
+    // dims.
     float sacc[RM][TN];
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) sacc[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < hd; ++d) {
       float qv[RM], kv[TN];
 #pragma unroll
       for (int i = 0; i < RM; ++i) qv[i] = qs[(ty * RM + i) * QS + d];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) kv[j] = ks[d * kStride + tx + TX * j];
+      for (int j = 0; j < TN; ++j) kv[j] = ks[d * S + tx + TX * j];
 #pragma unroll
       for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -746,25 +843,25 @@ __device__ void page_walk_block(const T* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int tok = tx + TX * j;
-        const int pos = c * kChunk + tok;
+        const int pos = c * W + tok;
         float sc = sacc[i][j] * scale;
         if constexpr (QUANT) sc *= kss[tok];  // fold the K scales
-        ss[(ty * RM + i) * kStride + tok] = pos < lim[i] ? sc : kNegInf;
+        ss[(ty * RM + i) * S + tok] = pos < lim[i] ? sc : kNegInf;
       }
     __syncthreads();
 
     // Online softmax, one warp per row.
     for (int r = warp; r < ROWS; r += NT / 32) {
-      float* row = ss + r * kStride;
+      float* row = ss + r * S;
       float mx = kNegInf;
 #pragma unroll
-      for (int x = lane; x < kChunk; x += 32) mx = fmaxf(mx, row[x]);
+      for (int x = lane; x < W; x += 32) mx = fmaxf(mx, row[x]);
       mx = warp_max(mx);
       const float m_old = ms[r];
       const float m_new = fmaxf(m_old, mx);
       float sum = 0.f;
 #pragma unroll
-      for (int x = lane; x < kChunk; x += 32) {
+      for (int x = lane; x < W; x += 32) {
         const float p = expf(row[x] - m_new);
         // l sums p; p . v takes p * v_scale (the V scales' fold).
         if constexpr (QUANT)
@@ -790,14 +887,14 @@ __device__ void page_walk_block(const T* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < DN; ++j) acc[i][j] *= alpha;
     }
-    for (int t = 0; t < kChunk; ++t) {
+    for (int t = 0; t < W; ++t) {
       float pv[RM], vv[DN];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) pv[i] = ss[(ty * RM + i) * kStride + t];
+      for (int i = 0; i < RM; ++i) pv[i] = ss[(ty * RM + i) * S + t];
 #pragma unroll
       for (int j = 0; j < DN; ++j)
         vv[j] = (D % TX == 0 || tx + TX * j < D)
-                    ? vs[(tx + TX * j) * kStride + t]
+                    ? vs[(tx + TX * j) * S + t]
                     : 0.f;
 #pragma unroll
       for (int i = 0; i < RM; ++i)
@@ -815,7 +912,7 @@ __device__ void page_walk_block(const T* __restrict__ q,
     T* dst = out + rows.offset(r);
 #pragma unroll
     for (int j = 0; j < DN; ++j)
-      if (D % TX == 0 || tx + TX * j < D)
+      if (tx + TX * j < hd)
         dst[tx + TX * j] = from_f32<T>(acc[i][j] / denom);
   }
 }

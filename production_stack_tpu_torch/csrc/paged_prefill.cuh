@@ -1,0 +1,174 @@
+// The chunked-prefill kernels' templates and their launch
+// (paged_prefill.cu describes the design and holds the C interface).
+// paged_prefill_bf16.cu, paged_prefill_f16.cu and paged_prefill_f32.cu
+// instantiate them a query type each, so the three compile in parallel.
+
+#pragma once
+
+#include "paged_kv_common.cuh"
+#include "paged_walk_mma.cuh"
+
+namespace pstt {
+
+// One launch's operands and shapes.
+struct PrefillArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* ks;
+  const void* vs;
+  const void* pt;
+  const void* q_positions;
+  const void* kv_lens;
+  void* out;
+  int batch, tokens, num_q_heads, num_kv_heads, head_dim, num_pages,
+      page_size, max_pages;
+  LayerOffsets layer;
+  cudaStream_t stream;
+};
+
+namespace {
+
+constexpr int kTileRows = kMmaRows;
+// The f32 walk: 16 x 16 threads, 4 rows x 8 tokens each (4 at tile 256).
+constexpr int kPrefillThreads = 256;
+constexpr int kTileTY = 16;
+
+// Where a block's rows and its kv head's pages lie, at the real head
+// dim `hd`.
+struct PrefillTile {
+  RowMap rows;
+  CausalMask mask;
+  int nrows;
+  int kv_len;
+  size_t head_elems, head_slots;
+
+  __device__ __forceinline__ PrefillTile(
+      const int* __restrict__ q_positions, const int* __restrict__ kv_lens,
+      int tokens, int num_q_heads, int group, int num_pages, int page_size,
+      int hd) {
+    const int row0 = blockIdx.x * kTileRows;
+    const int h = blockIdx.y;
+    const int b = blockIdx.z;
+    nrows = min(kTileRows, group * tokens - row0);
+    kv_len = kv_lens[b];
+    const int q_start = q_positions[(size_t)b * tokens];
+    head_elems = (size_t)num_pages * hd * page_size;
+    head_slots = (size_t)num_pages * page_size;
+    rows = RowMap{((size_t)b * tokens * num_q_heads + (size_t)h * group) * hd,
+                  tokens, num_q_heads, hd, row0};
+    mask = CausalMask{kv_len, q_start, tokens, row0};
+  }
+};
+
+template <typename T, typename C, int D>
+__global__ void __launch_bounds__(kPrefillThreads)
+paged_prefill_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
+                     const C* __restrict__ v_cache,
+                     const float* __restrict__ k_scale,
+                     const float* __restrict__ v_scale,
+                     const int* __restrict__ page_table,
+                     const int* __restrict__ q_positions,
+                     const int* __restrict__ kv_lens, T* __restrict__ out,
+                     int tokens, int num_q_heads, int group, int num_pages,
+                     int page_size, int max_pages, LayerOffsets layer,
+                     int hd) {
+  const PrefillTile t(q_positions, kv_lens, tokens, num_q_heads, group,
+                      num_pages, page_size, hd);
+  const int h = blockIdx.y;
+  page_walk_block<T, C, D, kTileRows, kTileTY, kPrefillThreads>(
+      q, out, t.rows, k_cache + layer.data() + h * t.head_elems,
+      v_cache + layer.data() + h * t.head_elems,
+      kQuantized<C> ? k_scale + layer.scale() + h * t.head_slots : nullptr,
+      kQuantized<C> ? v_scale + layer.scale() + h * t.head_slots : nullptr,
+      page_table + (size_t)blockIdx.z * max_pages, max_pages, page_size,
+      t.kv_len, t.mask, t.nrows, hd);
+}
+
+constexpr int kMmaWarps = kTileRows / 16;  // a warp owns 16 rows
+constexpr int kMmaThreads = kMmaWarps * 32;
+
+// 16-bit queries (T bf16 or f16): the same tile and grid on the
+// tensor-core walk.
+template <typename T, typename C, int D>
+__global__ void __launch_bounds__(kMmaThreads, mma_blocks_per_sm<C, D>())
+paged_prefill_mma_kernel(const T* __restrict__ q,
+                         const C* __restrict__ k_cache,
+                         const C* __restrict__ v_cache,
+                         const float* __restrict__ k_scale,
+                         const float* __restrict__ v_scale,
+                         const int* __restrict__ page_table,
+                         const int* __restrict__ q_positions,
+                         const int* __restrict__ kv_lens,
+                         T* __restrict__ out, int tokens,
+                         int num_q_heads, int group, int num_pages,
+                         int page_size, int max_pages, LayerOffsets layer,
+                         int hd) {
+  const PrefillTile t(q_positions, kv_lens, tokens, num_q_heads, group,
+                      num_pages, page_size, hd);
+  const int h = blockIdx.y;
+  page_walk_block_mma<T, C, D, kMmaWarps>(
+      q, out, t.rows, k_cache + layer.data() + h * t.head_elems,
+      v_cache + layer.data() + h * t.head_elems,
+      kQuantized<C> ? k_scale + layer.scale() + h * t.head_slots : nullptr,
+      kQuantized<C> ? v_scale + layer.scale() + h * t.head_slots : nullptr,
+      page_table + (size_t)blockIdx.z * max_pages, max_pages, page_size,
+      t.kv_len, t.mask, t.nrows, hd);
+}
+
+template <typename T, typename C, int D>
+int launch(const PrefillArgs& a) {
+  if (kQuantized<C> && (a.ks == nullptr || a.vs == nullptr))
+    return cudaErrorInvalidValue;
+  const int group = a.num_q_heads / a.num_kv_heads;
+  const int tiles = (group * a.tokens + kTileRows - 1) / kTileRows;
+  const dim3 grid(tiles, a.num_kv_heads, a.batch);
+  if constexpr (!std::is_same<T, float>::value) {
+    constexpr size_t smem = MmaSmem<C, D>::bytes;
+    auto kernel = paged_prefill_mma_kernel<T, C, D>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (attr != cudaSuccess) return attr;
+    kernel<<<grid, kMmaThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const C*>(a.k),
+        static_cast<const C*>(a.v), static_cast<const float*>(a.ks),
+        static_cast<const float*>(a.vs), static_cast<const int*>(a.pt),
+        static_cast<const int*>(a.q_positions),
+        static_cast<const int*>(a.kv_lens), static_cast<T*>(a.out),
+        a.tokens, a.num_q_heads, group, a.num_pages, a.page_size,
+        a.max_pages, a.layer, a.head_dim);
+  } else {
+    constexpr size_t smem = SmemLayout<D, kTileRows, kQuantized<C>>::bytes;
+    auto kernel = paged_prefill_kernel<T, C, D>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (attr != cudaSuccess) return attr;
+    kernel<<<grid, kPrefillThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const C*>(a.k),
+        static_cast<const C*>(a.v), static_cast<const float*>(a.ks),
+        static_cast<const float*>(a.vs), static_cast<const int*>(a.pt),
+        static_cast<const int*>(a.q_positions),
+        static_cast<const int*>(a.kv_lens), static_cast<T*>(a.out),
+        a.tokens, a.num_q_heads, group, a.num_pages, a.page_size,
+        a.max_pages, a.layer, a.head_dim);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The launch of one query type (the dtype code's T) at any cache type
+// and head dim of PSTT_FOR_EACH_GEOMETRY: paged_prefill_{bf16,f16,f32}.cu
+// instantiate the kernels a query type each. cudaErrorInvalidValue for a
+// cache dtype or head dim the list lacks.
+int prefill_launch_bf16(const PrefillArgs& args, int cache_dtype);
+int prefill_launch_f16(const PrefillArgs& args, int cache_dtype);
+int prefill_launch_f32(const PrefillArgs& args, int cache_dtype);
+
+}  // namespace pstt
+
+// The body of a prefill_launch_<type>: one case a line of the type's
+// list, at the head dim's tile.
+#define PSTT_PREFILL_CASE(code, T, ccode, C, D)                       \
+  if (cache_dtype == ccode && pstt::head_dim_tile(args.head_dim) == D) \
+    return pstt::launch<T, C, D>(args);

@@ -37,7 +37,14 @@
 //     blocks an SM. At head_dim 80, two stages of 85 KB, two blocks an
 //     SM. At head_dim 128 every tile, and each warp's output
 //     accumulators, double: one stage of 68 KB, two blocks an SM (the
-//     other block's products overlap a block's copies).
+//     other block's products overlap a block's copies). At head_dim
+//     256 the walk stages half a chunk at a time (walk_span), in two
+//     stages, and reads q from shared memory (MmaSmem): one block an SM.
+//   - Head dims pad to the tile D as in page_walk_block: the walk loads
+//     q's and stores out's head dims d < head_dim only (load_pair,
+//     store_pair), stages K and V rows d < head_dim, and zeroes the
+//     tiles' rows d >= head_dim once a block; the products run over
+//     the whole tile.
 //   - An int8 cache stages its raw pages (two stages of 16 KB) and its
 //     scales with the same copies; each chunk is then converted once
 //     to the T tile (exact in bf16 and f16: |x| <= 127) and runs the
@@ -55,29 +62,42 @@
 
 namespace pstt {
 
-constexpr int kMmaRowBytes = kChunk * 2 + 16;  // a padded 16-bit tile row
-constexpr int kMmaStep = 64;                   // tokens per softmax step
+constexpr int kMmaStep = 64;   // tokens per softmax step
+constexpr int kMmaRows = 64;   // query rows of a block: four warps of 16
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of one block, in bytes. Full precision: kStages stages
-// of 16-bit K and V tiles. Quantized: one 16-bit tile pair, kStages stages
-// of raw int8 planes and two of the chunk's scales (the products read
-// chunk c's scales while chunk c + 1's arrive). Two stages up to
-// head_dim 80; one at 128, where two would leave one block (four
-// warps) an SM.
+// of 16-bit K and V tiles of a span (walk_span(D) tokens, rows padded by
+// 16 bytes). Quantized: one 16-bit tile pair, kStages stages of raw int8
+// planes and two of the span's scales (the products read span c's
+// scales while span c + 1's arrive). Up to head_dim 80, two stages of
+// chunks; one at 128, where two would leave one block (four warps) an
+// SM. At 256, two stages of half chunks (a chunk's K and V tiles alone
+// are 139 KB, which one stage would hold with no copy under the
+// products), and q as a [64][D] tile (kQRow bytes a row): 64 q
+// fragment registers a thread beside 128 output accumulators would pass
+// the 255 a thread may have, so each k step of q.k^T reads its q
+// fragment from shared memory (ldmatrix). 177 KB bf16, 170 KB int8: one
+// block an SM.
 template <typename C, int D>
 struct MmaSmem {
   static constexpr bool kQuant = kQuantized<C>;
-  static constexpr int kStages = D <= 80 ? 2 : 1;
-  static constexpr int kTile = D * kMmaRowBytes;
+  static constexpr int kSpan = walk_span(D);
+  static constexpr int kRowBytes = kSpan * 2 + 16;  // a padded tile row
+  static constexpr int kStages = D <= 80 || D > 128 ? 2 : 1;
+  static constexpr bool kQSmem = D > 128;
+  static constexpr int kQRow = D * 2 + 16;
+  static constexpr int kTile = D * kRowBytes;
   static constexpr int kTileStages = kQuant ? 1 : kStages;
-  static constexpr int kRaw = kQuant ? D * kChunk : 0;
-  static constexpr int kScale = kQuant ? kChunk * 4 : 0;
+  static constexpr int kRaw = kQuant ? D * kSpan : 0;
+  static constexpr int kScale = kQuant ? kSpan * 4 : 0;
   static constexpr int tiles = 0;  // [kTileStages][2][kTile]
   static constexpr int raw =
       tiles + kTileStages * 2 * kTile;  // [kStages][2][kRaw]
-  static constexpr int scales = raw + kStages * 2 * kRaw;  // [2][2][kChunk]
-  static constexpr int bytes = scales + 2 * 2 * kScale;
+  static constexpr int scales = raw + kStages * 2 * kRaw;  // [2][2][kSpan]
+  static constexpr int q = scales + 2 * 2 * kScale;  // [kMmaRows][kQRow]
+  static constexpr int bytes = q + (kQSmem ? kMmaRows * kQRow : 0);
+  static_assert(bytes <= kMaxBlockSmem, "a walk block's shared memory");
 };
 
 // Blocks of the walk an SM holds, the minimum its __launch_bounds__
@@ -85,7 +105,7 @@ struct MmaSmem {
 // KB of it reserved a block), at most three at head_dim 64 (68 KB a
 // block: 170 registers a thread) and two above (85 KB at 80; 68 KB and
 // 102 KB int8 at 128: 255 registers, where a warp's 64 f32 output
-// accumulators fit).
+// accumulators fit); one at 256 (its 128 accumulators a thread).
 template <typename C, int D>
 constexpr int mma_blocks_per_sm() {
   constexpr int fit = 233472 / (MmaSmem<C, D>::bytes + 1024);
@@ -124,6 +144,47 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
+// Elements d and d + 1 (d even) of a 16-bit row as one word (d in the
+// low half), zeros at d >= head_dim: one 4-byte load where head_dim is
+// even (every row then starts at a multiple of 4 bytes), else (ODD) two
+// 2-byte loads. The caller picks ODD once, outside its unrolled loops,
+// so that the loads of a fragment set issue together.
+template <bool ODD, typename T>
+__device__ __forceinline__ uint32_t load_pair(const T* row, int d,
+                                              int head_dim) {
+  if constexpr (!ODD) {
+    return d < head_dim ? *reinterpret_cast<const uint32_t*>(row + d) : 0u;
+  } else {
+    const uint16_t* h = reinterpret_cast<const uint16_t*>(row);
+    const uint32_t lo = d < head_dim ? h[d] : 0u;
+    const uint32_t hi = d + 1 < head_dim ? h[d + 1] : 0u;
+    return lo | (hi << 16);
+  }
+}
+
+// Store the word of load_pair: head dims d >= head_dim are not written.
+template <bool ODD, typename T>
+__device__ __forceinline__ void store_pair(T* row, int d, int head_dim,
+                                           uint32_t w) {
+  if constexpr (!ODD) {
+    if (d < head_dim) *reinterpret_cast<uint32_t*>(row + d) = w;
+  } else {
+    uint16_t* h = reinterpret_cast<uint16_t*>(row);
+    if (d < head_dim) h[d] = (uint16_t)(w & 0xffffu);
+    if (d + 1 < head_dim) h[d + 1] = (uint16_t)(w >> 16);
+  }
+}
+
+// f(std::true_type) for an odd head_dim, f(std::false_type) for an even
+// one: the parity as a compile-time value of f's body.
+template <class F>
+__device__ __forceinline__ void by_parity(int head_dim, F f) {
+  if (head_dim & 1)
+    f(std::true_type());
+  else
+    f(std::false_type());
+}
+
 // c += a (16 x 16, row) * b (16 x 8, col), T (bf16 or f16) in, f32
 // accumulate.
 template <typename T>
@@ -150,25 +211,31 @@ __device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
 // grp + 8.
 //
 //   q, out:      the layer's query/output, in T
-//   k/v_head:    this kv head's [num_pages, D, page_size] pages
+//   k/v_head:    this kv head's [num_pages, head_dim, page_size] pages
 //   k/v_scale_head: this kv head's [num_pages, page_size] scales (int8
 //                cache only; null otherwise)
 //   pt_row:      this row's page-table entries (max_pages of them)
 //   nrows:       valid rows of the block; the rest are pad
-template <typename T, typename C, int D, int WARPS, class Mask, class Rows>
+//   hd:          the real head dim, at most D
+template <typename T, typename C, int D, int WARPS, class Mask,
+          class Rows>
 __device__ void page_walk_block_mma(
     const T* __restrict__ q, T* __restrict__ out,
     Rows rows, const C* __restrict__ k_head, const C* __restrict__ v_head,
     const float* __restrict__ k_scale_head,
     const float* __restrict__ v_scale_head, const int* __restrict__ pt_row,
-    int max_pages, int page_size, int kv_len, Mask mask, int nrows) {
+    int max_pages, int page_size, int kv_len, Mask mask, int nrows,
+    int hd) {
   constexpr bool QUANT = kQuantized<C>;
   constexpr int NT = WARPS * 32;
   constexpr int KS = D / 16;  // k steps of q.k^T, n-tile pairs of p.v
   constexpr int DN = D / 8;   // n tiles of the output
   constexpr int STEP_TILES = kMmaStep / 8;
-  static_assert(D % 16 == 0, "head dim must tile the mma k step");
+  static_assert(D % 16 == 0, "a head-dim tile must tile the mma k step");
+  static_assert(WARPS * 16 == kMmaRows, "a block is kMmaRows rows");
   using L = MmaSmem<C, D>;
+  constexpr int W = L::kSpan;
+  constexpr int RB = L::kRowBytes;
   extern __shared__ uint4 smem_mma[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem_mma);
   const uint32_t base = smem_u32(smem);
@@ -181,20 +248,41 @@ __device__ void page_walk_block_mma(
   const int r0 = warp * 16 + grp;
   const int r1 = r0 + 8;
 
-  // q fragments: the A operand of every q.k^T product of the walk.
-  uint32_t qa[KS][4];
+  // q: the A operand of every q.k^T product of the walk. In registers
+  // up to head_dim 128; at 256 a [kMmaRows][D] tile (rows past nrows and
+  // head dims past head_dim zero), read a k step at a time.
+  constexpr int QREGS = L::kQSmem ? 1 : KS;
+  uint32_t qa[QREGS][4];
+  by_parity(hd, [&](auto odd) {
+    constexpr bool ODD = decltype(odd)::value;
+    if constexpr (L::kQSmem) {
+      for (int i = tid; i < kMmaRows * (D / 2); i += NT) {
+        const int r = i / (D / 2);
+        const int d = (i - r * (D / 2)) * 2;
+        *reinterpret_cast<uint32_t*>(smem + L::q + r * L::kQRow + d * 2) =
+            r < nrows ? load_pair<ODD>(q + rows.offset(r), d, hd) : 0u;
+      }
+    } else {
+      const T* p0 = q + (r0 < nrows ? rows.offset(r0) : rows.offset(0));
+      const T* p1 = q + (r1 < nrows ? rows.offset(r1) : rows.offset(0));
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int d = kk * 16 + quad * 2;
-    const uint32_t* p0 = reinterpret_cast<const uint32_t*>(
-        q + (r0 < nrows ? rows.offset(r0) : rows.offset(0)) + d);
-    const uint32_t* p1 = reinterpret_cast<const uint32_t*>(
-        q + (r1 < nrows ? rows.offset(r1) : rows.offset(0)) + d);
-    qa[kk][0] = r0 < nrows ? p0[0] : 0u;
-    qa[kk][1] = r1 < nrows ? p1[0] : 0u;
-    qa[kk][2] = r0 < nrows ? p0[4] : 0u;
-    qa[kk][3] = r1 < nrows ? p1[4] : 0u;
-  }
+      for (int kk = 0; kk < KS; ++kk) {
+        const int d = kk * 16 + quad * 2;
+        qa[kk][0] = r0 < nrows ? load_pair<ODD>(p0, d, hd) : 0u;
+        qa[kk][1] = r1 < nrows ? load_pair<ODD>(p1, d, hd) : 0u;
+        qa[kk][2] = r0 < nrows ? load_pair<ODD>(p0, d + 8, hd) : 0u;
+        qa[kk][3] = r1 < nrows ? load_pair<ODD>(p1, d + 8, hd) : 0u;
+      }
+    }
+  });
+  // The tiles' rows d >= head_dim: zero for the whole walk (the
+  // whole-page copies write them as zeros, the general staging of other
+  // pages not at all).
+#pragma unroll
+  for (int t = 0; t < L::kTileStages * 2; ++t)
+    zero_words<uint4, NT>(
+        reinterpret_cast<uint4*>(smem + L::tiles + t * L::kTile),
+        hd * RB / 16, D * RB / 16);
 
   // Limits of this thread's two rows, and the warp's lowest and
   // highest: pad rows see nothing.
@@ -214,50 +302,48 @@ __device__ void page_walk_block_mma(
   for (int i = 0; i < DN; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  const float scale_log2 = rsqrtf((float)D) * kLog2e;
+  const float scale_log2 = rsqrtf((float)hd) * kLog2e;
 
   const int pages_live = min((kv_len + page_size - 1) / page_size, max_pages);
-  const int n_chunks =
-      nrows > 0 ? (mask.max_limit(nrows) + kChunk - 1) / kChunk : 0;
+  const int n_spans = nrows > 0 ? (mask.max_limit(nrows) + W - 1) / W : 0;
 
-  // Start the copies of chunk c: K/V into stage c & 1 (stage 0 with
-  // one stage), an int8 cache's scales into stage c & 1.
+  // Start the copies of span c (tokens [c W, c W + W)): K/V into stage
+  // c & 1 (stage 0 with one stage), an int8 cache's scales into stage
+  // c & 1.
   auto start_copies = [&](int c) {
     const int st = c & 1;
     const int sd = L::kStages == 2 ? st : 0;
     if constexpr (QUANT) {
-      stage_chunk_async<C, D, NT>(
-          k_head, v_head, pt_row, c, pages_live, page_size,
+      stage_chunk_async<C, D, NT, W>(
+          k_head, v_head, pt_row, c * W, pages_live, page_size, hd,
           base + L::raw + (sd * 2 + 0) * L::kRaw,
-          base + L::raw + (sd * 2 + 1) * L::kRaw,
-          PlaneLayout{kChunk, false});
-      stage_scales_async<NT>(k_scale_head, v_scale_head, pt_row, c,
-                             pages_live, page_size,
-                             base + L::scales + (st * 2 + 0) * L::kScale,
-                             base + L::scales + (st * 2 + 1) * L::kScale);
+          base + L::raw + (sd * 2 + 1) * L::kRaw, PlaneLayout{W, false});
+      stage_scales_async<NT, W>(k_scale_head, v_scale_head, pt_row, c * W,
+                                pages_live, page_size,
+                                base + L::scales + (st * 2 + 0) * L::kScale,
+                                base + L::scales + (st * 2 + 1) * L::kScale);
     } else {
-      stage_chunk_async<C, D, NT>(
-          k_head, v_head, pt_row, c, pages_live, page_size,
+      stage_chunk_async<C, D, NT, W>(
+          k_head, v_head, pt_row, c * W, pages_live, page_size, hd,
           base + L::tiles + (sd * 2 + 0) * L::kTile,
-          base + L::tiles + (sd * 2 + 1) * L::kTile,
-          PlaneLayout{kMmaRowBytes, false});
+          base + L::tiles + (sd * 2 + 1) * L::kTile, PlaneLayout{RB, false});
     }
     cp_async_commit();
   };
 
-  if (n_chunks > 0) start_copies(0);
-  for (int c = 0; c < n_chunks; ++c) {
+  if (n_spans > 0) start_copies(0);
+  for (int c = 0; c < n_spans; ++c) {
     const int st = c & 1;
     const int sd = L::kStages == 2 ? st : 0;
     uint32_t k_tile, v_tile;
     if constexpr (QUANT) {
-      // The raw chunk has landed and every warp is done with the tile:
-      // convert it, start the next chunk's copies, then compute.
+      // The raw span has landed and every warp is done with the tile:
+      // convert it, start the next span's copies, then compute.
       cp_async_wait<0>();
       __syncthreads();
-      for (int i = tid; i < D * kChunk / 16; i += NT) {
-        const int d = i >> 3;
-        const int col = (i & 7) * 16;
+      for (int i = tid; i < D * W / 16; i += NT) {
+        const int d = i / (W / 16);
+        const int col = (i - d * (W / 16)) * 16;
 #pragma unroll
         for (int which = 0; which < 2; ++which) {
           const uint4 rawv = *reinterpret_cast<const uint4*>(
@@ -268,8 +354,7 @@ __device__ void page_walk_block_mma(
           for (int p = 0; p < 8; ++p)
             w[p] = pack2<T>((float)x[2 * p], (float)x[2 * p + 1]);
           uint4* dst = reinterpret_cast<uint4*>(
-              smem + L::tiles + which * L::kTile + d * kMmaRowBytes +
-              col * 2);
+              smem + L::tiles + which * L::kTile + d * RB + col * 2);
           dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
           dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
         }
@@ -277,23 +362,23 @@ __device__ void page_walk_block_mma(
       // One raw stage: every thread's conversion reads of it come
       // first.
       if constexpr (L::kStages == 1) __syncthreads();
-      if (c + 1 < n_chunks) start_copies(c + 1);
+      if (c + 1 < n_spans) start_copies(c + 1);
       __syncthreads();
       k_tile = base + L::tiles;
       v_tile = base + L::tiles + L::kTile;
     } else {
       if constexpr (L::kStages == 2) {
-        // Start chunk c + 1 into the stage chunk c - 1 left (its
-        // readers passed the barrier that ended that iteration), wait
-        // for chunk c.
-        if (c + 1 < n_chunks) {
+        // Start span c + 1 into the stage span c - 1 left (its readers
+        // passed the barrier that ended that iteration), wait for span
+        // c.
+        if (c + 1 < n_spans) {
           start_copies(c + 1);
           cp_async_wait<1>();
         } else {
           cp_async_wait<0>();
         }
       } else {
-        // One stage: chunk c's copies start once the barrier that ended
+        // One stage: span c's copies start once the barrier that ended
         // the last iteration freed it; the SM's other block computes
         // meanwhile.
         if (c > 0) start_copies(c);
@@ -304,13 +389,13 @@ __device__ void page_walk_block_mma(
       v_tile = base + L::tiles + (sd * 2 + 1) * L::kTile;
     }
     const float* kss =
-        reinterpret_cast<const float*>(smem + L::scales) + (st * 2) * kChunk;
-    const float* vss = kss + kChunk;
+        reinterpret_cast<const float*>(smem + L::scales) + (st * 2) * W;
+    const float* vss = kss + W;
 
-    const int cbase = c * kChunk;
+    const int cbase = c * W;
 #pragma unroll 1
-    for (int step = 0; step < kChunk / kMmaStep; ++step) {
-      const int tok0 = step * kMmaStep;  // in the chunk
+    for (int step = 0; step < W / kMmaStep; ++step) {
+      const int tok0 = step * kMmaStep;  // in the span
       const int visible = wmax - (cbase + tok0);
       if (visible <= 0) break;  // nothing more for this warp here
       // 16-token groups of this step any row of the warp can see.
@@ -324,6 +409,14 @@ __device__ void page_walk_block_mma(
         for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
+        uint32_t(&a)[4] = qa[L::kQSmem ? 0 : kk];
+        if constexpr (L::kQSmem) {
+          // Four 8 x 8 tiles of q: rows warp * 16 + {0, 8}, head dims
+          // 16 kk + {0, 8}; lane / 8 picks the tile.
+          const int r = warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+          const int d = kk * 16 + (lane >> 4) * 8;
+          ldmatrix_x4(a, base + L::q + r * L::kQRow + d * 2);
+        }
 #pragma unroll
         for (int g2 = 0; g2 < kMmaStep / 16; ++g2) {
           if (g2 < groups) {
@@ -332,9 +425,9 @@ __device__ void page_walk_block_mma(
             const int d = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
             const int tok = tok0 + g2 * 16 + (lane >> 4) * 8;
             uint32_t b[4];
-            ldmatrix_x4_trans(b, k_tile + d * kMmaRowBytes + tok * 2);
-            mma16<T>(s[2 * g2], qa[kk], b[0], b[1]);
-            mma16<T>(s[2 * g2 + 1], qa[kk], b[2], b[3]);
+            ldmatrix_x4_trans(b, k_tile + d * RB + tok * 2);
+            mma16<T>(s[2 * g2], a, b[0], b[1]);
+            mma16<T>(s[2 * g2 + 1], a, b[2], b[3]);
           }
         }
       }
@@ -420,7 +513,7 @@ __device__ void page_walk_block_mma(
             const int d = dp * 16 + (lane >> 4) * 8 + (lane & 7);
             const int tok = tok0 + g2 * 16 + ((lane >> 3) & 1) * 8;
             uint32_t b[4];
-            ldmatrix_x4(b, v_tile + d * kMmaRowBytes + tok * 2);
+            ldmatrix_x4(b, v_tile + d * RB + tok * 2);
             mma16<T>(acc[2 * dp], pa[g2], b[0], b[1]);
             mma16<T>(acc[2 * dp + 1], pa[g2], b[2], b[3]);
           }
@@ -437,18 +530,23 @@ __device__ void page_walk_block_mma(
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float den0 = fmaxf(l0, 1e-30f);
   const float den1 = fmaxf(l1, 1e-30f);
-  if (r0 < nrows) {
-    uint32_t* dst = reinterpret_cast<uint32_t*>(out + rows.offset(r0));
+  by_parity(hd, [&](auto odd) {
+    constexpr bool ODD = decltype(odd)::value;
+    if (r0 < nrows) {
+      T* dst = out + rows.offset(r0);
 #pragma unroll
-    for (int i = 0; i < DN; ++i)
-      dst[i * 4 + quad] = pack2<T>(acc[i][0] / den0, acc[i][1] / den0);
-  }
-  if (r1 < nrows) {
-    uint32_t* dst = reinterpret_cast<uint32_t*>(out + rows.offset(r1));
+      for (int i = 0; i < DN; ++i)
+        store_pair<ODD>(dst, i * 8 + quad * 2, hd,
+                        pack2<T>(acc[i][0] / den0, acc[i][1] / den0));
+    }
+    if (r1 < nrows) {
+      T* dst = out + rows.offset(r1);
 #pragma unroll
-    for (int i = 0; i < DN; ++i)
-      dst[i * 4 + quad] = pack2<T>(acc[i][2] / den1, acc[i][3] / den1);
-  }
+      for (int i = 0; i < DN; ++i)
+        store_pair<ODD>(dst, i * 8 + quad * 2, hd,
+                        pack2<T>(acc[i][2] / den1, acc[i][3] / den1));
+    }
+  });
 }
 
 }  // namespace pstt

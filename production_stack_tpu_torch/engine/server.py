@@ -2492,9 +2492,9 @@ def parse_args(argv=None):
                    choices=[None, "bfloat16", "float32", "float16"],
                    help="model dtype (default: the preset's), for any "
                         "model; on the card the attention kernels take "
-                        "bf16, f16 or f32 at any query group and "
-                        "head_dim 32, 64, 80 or 128, and refuse any "
-                        "other head_dim at start, naming the rule")
+                        "bf16, f16 or f32 at any query group and any "
+                        "head_dim from 1 to 256, and refuse a larger "
+                        "head_dim at start, naming the rule")
     p.add_argument("--attention-impl", default="auto",
                    choices=["auto", "xla", "pallas", "pallas-interpret"],
                    help="the JAX server's values: auto and pallas run the "

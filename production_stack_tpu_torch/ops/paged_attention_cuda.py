@@ -14,9 +14,9 @@ once per step and keeps bytes in flight on every SM:
 
 - the G query heads that share a kv head share every staged page: one
   block serves a group tile of them (``decode_group_tile``: the whole
-  group up to 4, or 8 at head_dim 64 and below; a larger group runs
-  ceil(G / tile) blocks a kv head, the last one's spare heads loading
-  zeros and never written);
+  group up to 4, or 8 at head_dim 64 and below; 2 at the head-dim tile
+  256; a larger group runs ceil(G / tile) blocks a kv head, the last
+  one's spare heads loading zeros and never written);
 - split-KV: a (row, kv head) pair's 128-token chunks are cut into
   ``num_splits`` ranges, one block each, so that a small batch or a few
   long rows still fill the card's 132 SMs; each block writes its
@@ -77,6 +77,7 @@ from production_stack_tpu_torch.ops.paged_kv_common import (
     data_ptr,
     dtype_code,
     CHUNK_TOKENS,
+    kernel_head_dim_tile,
     kernel_lib,
     layer_args,
     merge_partials_plain,
@@ -99,26 +100,34 @@ TARGET_BLOCKS = 4 * 132
 
 
 def decode_group_tile(group: int, head_dim: int) -> int:
-    """The query heads one decode block covers (csrc/paged_decode.cu
-    ``group_tile``; the library's ``pstt_decode_group_tile``): 1 for a
-    group of 1, 4 up to 4, else the widest tile of the head dim (8 at
-    64 and below, 4 above, where 8 heads' accumulators would pass a
-    thread's 255 registers)."""
+    """The query heads one decode block covers (csrc/paged_decode.cuh
+    ``group_tile`` at the head dim's tile; the library's
+    ``pstt_decode_group_tile``): 1 for a group of 1, else 4 up to 4 and
+    8 above, at most the widest tile of the head-dim tile (8 at 64 and
+    below, 4 to 128, 2 at 256), where more heads' accumulators would
+    pass a thread's 255 registers. Raises ValueError for a head_dim no
+    tile holds."""
+    tile = kernel_head_dim_tile(head_dim)
+    if tile is None:
+        raise ValueError(f"no kernel tile holds head_dim {head_dim}")
+    widest = 8 if tile <= 64 else 4 if tile <= 128 else 2
     if group <= 1:
         return 1
-    return 4 if group <= 4 or head_dim > 64 else 8
+    return min(4 if group <= 4 else 8, widest)
 
 
 def _partials(q: torch.Tensor, num_kv_heads: int, slots: int
               ) -> torch.Tensor:
     """f32 scratch of the splits' (and a tail's) softmax states, tile-
     major within a kv head: [B, kv_heads * tiles, slots, tile,
-    head_dim + 2] (acc[head_dim], m, l of each head of the tile)."""
+    head-dim tile + 2] (acc over the head-dim tile, m, l of each head of
+    the group tile)."""
     b, num_q_heads, head_dim = q.shape
     group = num_q_heads // num_kv_heads
     tile = decode_group_tile(group, head_dim)
     return torch.empty((b, num_kv_heads * -(-group // tile), slots, tile,
-                        head_dim + 2), dtype=torch.float32, device=q.device)
+                        kernel_head_dim_tile(head_dim) + 2),
+                       dtype=torch.float32, device=q.device)
 
 
 def decode_splits(batch: int, num_kv_heads: int, max_pages: int,

@@ -15,8 +15,9 @@ half:
   only;
 - the launch counters that show a run went through the kernels;
 - what the kernels serve (``kernel_geometry_supported``: bf16, f16 or
-  f32 over the same type or int8, any query group, head_dim 32, 64, 80
-  or 128; ``kernel_page_size_supported``: any page of 1 token or more),
+  f32 over the same type or int8, any query group, any head_dim from 1
+  to 256, run at its tile (``kernel_head_dim_tile``);
+  ``kernel_page_size_supported``: any page of 1 token or more),
   the rules the engine refuses a model by at start-up;
 - operand checks common to the wrappers, and the split of an int8
   cache (a ``QuantKV``, ops/quant_kv.py) into its data and scales;
@@ -42,6 +43,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -60,12 +63,15 @@ CHUNK_TOKENS = 128
 # cache's elements (an int8 cache's scales are always f32).
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 3}
 _CACHE_CODES = {**_DTYPE_CODES, torch.int8: 2}
-# The head dims the kernels are built for: 64, 80 and 128, the ones the
-# six architectures publish, and 32 (the tiny test configs). The rule
-# of kernel_geometry_supported is csrc/paged_kv_common.cuh's
-# PSTT_FOR_EACH_GEOMETRY, which the library's pstt_kernel_supports
-# answers from.
-KERNEL_HEAD_DIMS = (32, 64, 80, 128)
+# The head-dim tiles the kernels are built for, in ascending order: a
+# head_dim runs at the smallest tile at or above it, padded inside the
+# kernel where it is smaller (kernel_head_dim_tile), as the Pallas
+# kernels pad head_dim to their 128-lane tile. The rule of
+# kernel_geometry_supported is csrc/paged_kv_common.cuh's
+# PSTT_FOR_EACH_GEOMETRY and head_dim_tile, which the library's
+# pstt_kernel_supports answers from.
+KERNEL_HEAD_DIM_TILES = (32, 64, 80, 128, 256)
+MAX_KERNEL_HEAD_DIM = KERNEL_HEAD_DIM_TILES[-1]
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[2]
@@ -145,8 +151,9 @@ def build_kernels(log: Optional[Callable[[str], None]] = None
                   ) -> pathlib.Path:
     """Build the kernel library if no build of these exact sources
     exists; returns its path. Raises with the compiler's output when a
-    source does not compile. ``log`` receives the compiler's output
-    (``-Xptxas -v``: registers, shared memory and spills per kernel)."""
+    source does not compile. ``log`` receives, a source at a time, its
+    compile seconds and the compiler's output (``-Xptxas -v``:
+    registers, shared memory and spills per kernel)."""
     out_dir = BUILD_ROOT / _source_digest()
     lib = out_dir / LIB_NAME
     if lib.exists():
@@ -156,18 +163,24 @@ def build_kernels(log: Optional[Callable[[str], None]] = None
     out_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs = [os.path.join(tmp, src.stem + ".o") for src in sources]
-        procs = [subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", str(src),
-             "-o", obj],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for src, obj in zip(sources, objs)]
+
+        def compile_one(src, obj):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", str(src),
+                 "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            return proc, time.perf_counter() - t0
+
+        # One nvcc a source, all started together.
+        with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+            done = list(pool.map(compile_one, sources, objs))
         failed = []
-        for src, proc in zip(sources, procs):
-            out, _ = proc.communicate()
-            if log is not None and out:
-                log(f"nvcc {src.name}:\n{out}")
+        for src, (proc, seconds) in zip(sources, done):
+            if log is not None:
+                log(f"nvcc {src.name}: {seconds:.1f} s\n{proc.stdout}")
             if proc.returncode:
-                failed.append(f"{src.name}:\n{out}")
+                failed.append(f"{src.name}:\n{proc.stdout}")
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
         tmp_lib = os.path.join(tmp, LIB_NAME)
@@ -353,14 +366,30 @@ def check_kernel_operands(q, k_cache, v_cache, int_operands, out,
                         q.dtype, cache_dtype)
 
 
+def kernel_head_dim_tile(head_dim: int) -> Optional[int]:
+    """The head-dim tile the kernels run ``head_dim`` at: the smallest
+    of ``KERNEL_HEAD_DIM_TILES`` at or above it (100 runs at 128, 160 at
+    256), or None for a head_dim under 1 or past 256. Below its tile a
+    head_dim is padded inside the kernel: q, out and the cache keep
+    their real head_dim, the staged rows past it are zero and the scale
+    is 1 / sqrt(head_dim). Pure Python: csrc/paged_kv_common.cuh's
+    ``head_dim_tile`` is the same rule."""
+    if head_dim < 1:
+        return None
+    return next((t for t in KERNEL_HEAD_DIM_TILES if head_dim <= t),
+                None)
+
+
 def kernel_geometry_refusal(dtype: torch.dtype,
                             cache_dtype: Optional[torch.dtype],
                             group: int, head_dim: int) -> Optional[str]:
     """The rule a geometry breaks, or None where the kernels serve it:
     q and out bf16, f16 or f32 over a cache of the same type or int8,
-    any query group (q heads per kv head) of 1 or more, head_dim 32,
-    64, 80 or 128. Pure Python: the CPU tests read it, and the
-    library's ``pstt_kernel_supports`` answers the same."""
+    any query group (q heads per kv head) of 1 or more, any head_dim
+    from 1 to 256 (run at its tile, ``kernel_head_dim_tile``: the tiles
+    32, 64, 80, 128 and 256, padded in the kernel below a tile). Pure
+    Python: the CPU tests read it, and the library's
+    ``pstt_kernel_supports`` answers the same."""
     cache_dtype = cache_dtype or dtype
     if dtype not in _DTYPE_CODES:
         return (f"the kernels take bf16, f16 or f32 queries, not "
@@ -370,9 +399,11 @@ def kernel_geometry_refusal(dtype: torch.dtype,
                 f"not {cache_dtype} under {dtype} queries")
     if group < 1:
         return f"the query group must be 1 or more, not {group}"
-    if head_dim not in KERNEL_HEAD_DIMS:
-        return (f"the kernels are built for head_dim "
-                f"{', '.join(map(str, KERNEL_HEAD_DIMS))}, not {head_dim}")
+    if kernel_head_dim_tile(head_dim) is None:
+        return (f"the kernels serve head_dim 1 to {MAX_KERNEL_HEAD_DIM} "
+                f"(padded in the kernel to a tile of "
+                f"{', '.join(map(str, KERNEL_HEAD_DIM_TILES))}), not "
+                f"{head_dim}")
     return None
 
 

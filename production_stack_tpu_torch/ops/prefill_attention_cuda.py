@@ -29,8 +29,12 @@ scales with the same copies, converts each chunk once to the query's
 type (exact) and folds the scales into the scores and the
 probabilities in the Pallas order. A tile stops walking at the last
 chunk its highest query position can see. f32 queries (held to 1e-4)
-keep the f32 FMA walk of ``csrc/paged_kv_common.cuh``. Head dims 32,
-64, 80 and 128 (``paged_kv_common.kernel_geometry_supported``).
+keep the f32 FMA walk of ``csrc/paged_kv_common.cuh``. Any head_dim
+from 1 to 256, run at its tile (32, 64, 80, 128 or 256,
+``paged_kv_common.kernel_head_dim_tile``) and padded in the kernel
+below it, as the Pallas kernel pads head_dim to its lane tile: no copy
+of q or of the cache. At the tile 256 the walk stages half a chunk at a
+time and reads q from shared memory.
 
 Contract (the Pallas kernel's): q [B, T, num_q_heads, head_dim]; the
 per-layer or, with ``layer``, the stacked cache, as the decode kernel

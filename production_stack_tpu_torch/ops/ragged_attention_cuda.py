@@ -27,8 +27,10 @@ live row skips its products, so a decode row's tile (G live rows)
 multiplies on one warp and a verify row's ((K + 1) * G) on two. f32
 queries (held to 1e-4) keep the f32 FMA walk with a narrow row block.
 An int8 cache (a QuantKV) stages as int8 pages and their per-slot
-scales, folded in as in the Pallas kernel. Any query group; head dims
-32, 64, 80 and 128.
+scales, folded in as in the Pallas kernel. Any query group; any
+head_dim from 1 to 256, run at its tile (32, 64, 80, 128 or 256,
+``paged_kv_common.kernel_head_dim_tile``) and padded in the kernel
+below it, as the Pallas kernel pads head_dim to its lane tile.
 
 Contract (the Pallas kernel's): q [R, W, num_q_heads, head_dim]; the
 per-layer or, with ``layer``, the stacked cache, as the decode kernel

@@ -2,7 +2,7 @@
 
     python production_stack_tpu_torch/tools/kernel_times.py [--repo DIR] \
         [--geometry bench-1b|g4_d128|g1_d64|g7_d128|g8_d128|g1_d80|
-                    g7_d64|g1_d128] [--page-size P]
+                    g7_d64|g1_d128|g3_d256|g1_d100] [--page-size P]
 
 Times ``paged_decode_attention`` (B = 32, kv lens spread over 1..1024
 with two pad rows, page size 128), ``paged_prefill_attention`` (B = 8,
@@ -20,7 +20,9 @@ OPT-1.3b's 32 heads of 64, one q head a kv head; ``g7_d128``:
 Qwen2-7B's 28 q over 4 kv heads at 128; ``g8_d128``: Llama-3-70B's 64
 q over 8 kv heads at 128; ``g1_d80``: OPT-2.7b's 32 heads of 80 in f16;
 ``g7_d64``: Qwen2-0.5B's 14 q over 2 kv heads at 64 in f32;
-``g1_d128``: Llama-2-7B's 32 heads of 128), in the geometry's dtype
+``g1_d128``: Llama-2-7B's 32 heads of 128; ``g3_d256``: Falcon3-7B's
+12 q over 4 kv heads at 256; ``g1_d100``: OpenLLaMA-3B's 32 heads of
+100 in f16, padded in the kernel to 128), in the geometry's dtype
 (bf16 where none is named) over a cache of that type and an int8 one,
 through the public wrappers of the checkout at ``--repo``
 (default: the checkout this file lies in). ``--page-size P`` (default
@@ -96,7 +98,9 @@ GEOMETRIES = {"bench-1b": (32, 8, 64, torch.bfloat16),
               "g8_d128": (64, 8, 128, torch.bfloat16),
               "g1_d80": (32, 32, 80, torch.float16),
               "g7_d64": (14, 2, 64, torch.float32),
-              "g1_d128": (32, 32, 128, torch.bfloat16)}
+              "g1_d128": (32, 32, 128, torch.bfloat16),
+              "g3_d256": (12, 4, 256, torch.bfloat16),
+              "g1_d100": (32, 32, 100, torch.float16)}
 
 
 def _stack_at(cache, gen):

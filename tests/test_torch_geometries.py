@@ -65,7 +65,7 @@ from production_stack_tpu_torch.ops.paged_attention_cuda import (
     paged_decode_attention_plain,
 )
 from production_stack_tpu_torch.ops.paged_kv_common import (
-    KERNEL_HEAD_DIMS,
+    KERNEL_HEAD_DIM_TILES,
     kernel_geometry_refusal,
     kernel_geometry_supported,
 )
@@ -397,8 +397,8 @@ def test_published_configs_are_served(source, nh, nkv, d):
 
 
 @pytest.mark.parametrize("dtype,cache,group,d,rule", [
-    (torch.bfloat16, None, 4, 96, "head_dim 32, 64, 80, 128, not 96"),
-    (torch.float16, torch.int8, 8, 256, "head_dim 32, 64, 80, 128, not 256"),
+    (torch.bfloat16, None, 4, 288, "head_dim 1 to 256"),
+    (torch.float16, torch.int8, 8, 288, "not 288"),
     (torch.float64, None, 4, 64, "bf16, f16 or f32 queries"),
     (torch.int8, None, 4, 64, "bf16, f16 or f32 queries"),
     (torch.bfloat16, torch.float16, 4, 64, "a cache of the query's type"),
@@ -416,18 +416,19 @@ def test_check_kernel_shapes_names_the_rule():
     page of 8 and refuses only a page under one token."""
     from production_stack_tpu_torch.ops.paged_kv_common import (
         check_kernel_shapes, kernel_page_size_supported)
-    with pytest.raises(NotImplementedError, match="not 96"):
-        check_kernel_shapes(8, 2, 96, 16, torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="not 288"):
+        check_kernel_shapes(8, 2, 288, 16, torch.bfloat16)
     assert kernel_page_size_supported(8)
     with pytest.raises(NotImplementedError, match="page_size 0"):
         check_kernel_shapes(8, 2, 64, 0, torch.float16, torch.int8)
-    assert KERNEL_HEAD_DIMS == (32, 64, 80, 128)
+    assert KERNEL_HEAD_DIM_TILES == (32, 64, 80, 128, 256)
 
 
 @pytest.mark.parametrize("group,d,tile", [
     (1, 64, 1), (2, 64, 4), (4, 64, 4), (5, 64, 8), (8, 64, 8),
     (16, 64, 8), (1, 80, 1), (7, 80, 4), (8, 128, 4), (16, 128, 4),
-    (3, 32, 4), (7, 32, 8)])
+    (3, 32, 4), (7, 32, 8), (1, 256, 1), (3, 256, 2), (8, 256, 2),
+    (2, 100, 4), (8, 100, 4), (3, 160, 2), (5, 33, 8), (8, 65, 4)])
 def test_decode_group_tile(group, d, tile):
     """The tile is the partials' GT (csrc/paged_decode.cu group_tile;
     the card checks the library's answer against this one)."""
@@ -436,13 +437,17 @@ def test_decode_group_tile(group, d, tile):
 
 def test_decode_scratch_is_tile_major():
     """The wrapper's scratch shape: [B, kv_heads * tiles, slots, GT,
-    head_dim + 2]."""
+    head-dim tile + 2]."""
     from production_stack_tpu_torch.ops.paged_attention_cuda import (
         _partials)
     q = torch.zeros(3, 2 * 7, 128)
     assert tuple(_partials(q, 2, 5).shape) == (3, 4, 5, 4, 130)
     q = torch.zeros(3, 16, 64)
     assert tuple(_partials(q, 1, 2).shape) == (3, 2, 2, 8, 66)
+    q = torch.zeros(3, 4 * 3, 256)  # Falcon3-7B: two tiles of 2
+    assert tuple(_partials(q, 4, 2).shape) == (3, 8, 2, 2, 258)
+    q = torch.zeros(3, 32, 100)  # OpenLLaMA-3B: padded to 128
+    assert tuple(_partials(q, 32, 3).shape) == (3, 32, 3, 1, 130)
 
 
 def test_tiny_engine_config_fields_match():

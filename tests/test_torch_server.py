@@ -666,20 +666,21 @@ def test_disable_prefix_caching_flag(disabled):
 class _FakeKernelLib:
     """The kernel library's support questions, answered from
     PSTT_FOR_EACH_GEOMETRY (csrc/paged_kv_common.cuh): the (dtype code,
-    cache code) pairs it instantiates, at every head dim of
-    PSTT_FOR_EACH_HEAD_DIM, for any query group of 1 or more; and any
-    page of 1 token or more over those caches (page_size_ok)."""
+    cache code) pairs it instantiates, at every head dim that a tile of
+    PSTT_FOR_EACH_HEAD_DIM holds (head_dim_tile: 1 up to the widest
+    tile), for any query group of 1 or more; and any page of 1 token or
+    more over those caches (page_size_ok)."""
 
     _SRC = (Path(__file__).resolve().parents[1] / "production_stack_tpu_torch"
             / "csrc" / "paged_kv_common.cuh").read_text()
     PAIRS = {tuple(map(int, x)) for x in re.findall(
         r"PSTT_FOR_EACH_HEAD_DIM\(X, (\d), [\w ]+, (\d), [\w ]+\)", _SRC)}
-    HEAD_DIMS = {int(x) for x in re.findall(
-        r"X\(code, T, ccode, C, (\d+)\)", _SRC)}
+    TILES = [int(x) for x in re.findall(
+        r"X\(code, T, ccode, C, (\d+)\)", _SRC)]
 
     def pstt_kernel_supports(self, dtype, cache_dtype, group, head_dim):
         return int((dtype, cache_dtype) in self.PAIRS and group >= 1
-                   and head_dim in self.HEAD_DIMS)
+                   and any(1 <= head_dim <= t for t in self.TILES))
 
     def pstt_page_size_supported(self, page_size):
         return int(page_size >= 1)
@@ -692,14 +693,16 @@ def test_fake_kernel_lib_is_the_geometry_list():
     from production_stack_tpu_torch.ops import paged_kv_common
     assert _FakeKernelLib.PAIRS == {(0, 0), (0, 2), (3, 3), (3, 2), (1, 1),
                                     (1, 2)}
-    assert _FakeKernelLib.HEAD_DIMS == set(paged_kv_common.KERNEL_HEAD_DIMS)
+    assert _FakeKernelLib.TILES == list(
+        paged_kv_common.KERNEL_HEAD_DIM_TILES)
     codes = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 3,
              torch.int8: 2}
     fake = _FakeKernelLib()
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for cache in codes:
             for group in (0, 1, 3, 7, 8, 16):
-                for d in (32, 64, 80, 96, 128, 256):
+                for d in (0, 1, 32, 33, 64, 80, 96, 100, 128, 160, 256,
+                          257, 288):
                     assert bool(fake.pstt_kernel_supports(
                         codes[dtype], codes[cache], group, d)) == (
                         paged_kv_common.kernel_geometry_supported(
@@ -720,9 +723,9 @@ def _checkpoint_config(tmp_path, head_dim):
 
 
 @pytest.mark.parametrize("head_dim,dtype,rule", [
-    (96, "bfloat16", "head_dim 32, 64, 80, 128, not 96"),
-    (256, "float16", "head_dim 32, 64, 80, 128, not 256"),
-    (96, "float32", "head_dim 32, 64, 80, 128, not 96"),
+    (288, "bfloat16", "head_dim 1 to 256"),
+    (288, "float16", "not 288"),
+    (320, "float32", "head_dim 1 to 256"),
 ])
 def test_dtype_the_kernels_lack_is_refused_on_the_card(monkeypatch, tmp_path,
                                                        head_dim, dtype,
