@@ -310,24 +310,31 @@ its result line:
     8 greedy prompts against each alone, the three kernels launched.
     Bytes, write seconds, the server's start seconds (the load
     included), tok/s and the graph pool are printed;
-19. geometries: every query group, head_dim up to 256 and dtype the
-    JAX engine serves, on the three attention kernels. The sweep: each
+19. geometries: every query group, head_dim and dtype the JAX engine
+    serves, on the three attention kernels. The sweep: each
     kernel (decode at the wrapper's split and at one, stacked at layer
     1 of 2 and bitwise the per-layer launch on its view, the burst-tail
     form; prefill; ragged) against its plain version at B = 3, two kv
     heads, kv lens 130 and 300 and a pad row, over dtype {bf16, f16,
     f32} x cache {same, int8}: group {1..8, 16} x head_dim {64, 80, 128}
     at page 16, and group {1, 3, 4, 8} x head_dim {96, 100, 160, 256}
-    (padded in the kernel but 256) at pages 128 and 16 (BF16_TOL for
-    bf16 and f16, F32_TOL for f32), with ``pstt_kernel_supports`` and
-    ``pstt_decode_group_tile`` held to the Python rule on every point
-    and on points outside it (head_dim 0 and 288, int8 queries, a mixed
-    cache, group 0). Then timed like the headline cases: Llama-3-70B's
+    (padded in the kernel but 256) and head_dim {257, 288, 320, 384,
+    448, 512, 576, 640, 1024} (slabs of 128, the last padded but at 384,
+    512 and 1024) at pages 128 and 16 (BF16_TOL for bf16 and f16,
+    F32_TOL for f32), with ``pstt_kernel_supports`` and
+    ``pstt_decode_group_tile`` held to the Python rule on every point,
+    at every head_dim 0..1100 and on points outside it (head_dim 0 and
+    -1, int8 queries, a mixed cache, group 0). Then timed like the
+    headline cases (each time a mean over its launches, the median
+    logged beside it and a mean 10% off its median flagged):
+    Llama-3-70B's
     group 8 at head_dim 128 (``g8_d128``, bf16 and int8 KV), OPT-2.7b's
     head_dim 80 in f16 (``g1_d80``), Qwen2-0.5B's group 7 at 64 in f32
     (``g7_d64``, its bound at the f32 FMA rate), Llama-2-7B's group 1
     at 128 (``g1_d128``), Falcon3-7B's group 3 at 256 (``g3_d256``, bf16
-    and int8 KV) and OpenLLaMA-3B's head_dim 100 in f16 (``g1_d100``);
+    and int8 KV), OpenLLaMA-3B's head_dim 100 in f16 (``g1_d100``), the
+    slab walk's 6 q over 2 kv heads at 512 (``g3_d512``, bf16 and int8
+    KV: g3_d256's K/V bytes) and 16 heads of 320 in f16 (``g1_d320``);
     and the int8-weight kernel's f16 form at OPT-2.7b's projections (M
     = 1, 32, 160; timed at 32). Then checkpoints written from published
     configs and served (``--model DIR --tokenizer bench``, page 128, the
@@ -335,8 +342,12 @@ its result line:
     2 of 80 layers (bf16, then ``--kv-cache-dtype int8``), OPT-2.7b at
     16 of 32 layers at ``--dtype float16``, Qwen2-0.5B at 12 of 24
     layers at ``--dtype float32``, Falcon3-7B-Base at 1 of 28 layers
-    (bf16, then ``--kv-cache-dtype int8``) and OpenLLaMA-3B at 2 of 26
-    layers at ``--dtype float16``; then bench-1b at ``--quantization int8 --dtype float16``. Each
+    (bf16, then ``--kv-cache-dtype int8``), OpenLLaMA-3B at 2 of 26
+    layers at ``--dtype float16`` and, not a published checkpoint, a
+    llama written to reach the slab walk (Falcon3-7B's widths, 6 q over
+    2 kv heads at an explicit head_dim 512, 1 layer; bf16, then
+    ``--kv-cache-dtype int8``: ``serve_geometry_d512`` and
+    ``serve_geometry_d512_int8``); then bench-1b at ``--quantization int8 --dtype float16``. Each
     server: the weights phase's window (tok/s, the three kernels
     launched, no plain call, no eager step), each attention call of the
     model check held to its plain version, and the 16 requests again,
@@ -344,7 +355,7 @@ its result line:
     over the server's params, byte-identical to the window's graphed
     streams. Printed, not held:
     the model check's logits against the plain reference and, but for
-    Falcon3 and OpenLLaMA (GEOMETRY_ALONE), where a batched stream parts
+    Falcon3, OpenLLaMA and d512 (GEOMETRY_ALONE), where a batched stream parts
     from the same request alone, with margins (at
     Llama-3-70B's width the bf16 logits step by 1/16 near |11|, so a
     flip two steps apart meets ``NEAR_TIE_LOGITS`` itself);
@@ -481,9 +492,10 @@ kernel's ``geometries`` object
 holds, keyed ``g4_d128`` and ``g1_d64``, the same numbers at that
 geometry with the launches of its serving run, and ``int8``; and the
 geometries phase's rows ``g8_d128`` (with ``int8``), ``g1_d80``,
-``g7_d64``, ``g1_d128``, ``g3_d256`` (with ``int8``) and ``g1_d100``,
-each with its ``dtype`` and the launches
-of the run that served it (0 for ``g1_d128``, which none serves). Each
+``g7_d64``, ``g1_d128``, ``g3_d256`` (with ``int8``), ``g1_d100``,
+``g3_d512`` (with ``int8``) and ``g1_d320``, each with its ``dtype``
+and the launches of the run that served it (0 for ``g1_d128`` and
+``g1_d320``, which none serves). Each
 attention kernel's ``pages`` object holds the pages phase's rows,
 keyed ``ps128``, ``ps16``, ``ps256`` and ``ps8`` (``int8`` beside the
 bf16 numbers; the prefill kernel's second chunk as ``second_chunk``),
@@ -599,10 +611,16 @@ class Timer:
     # less than that between queueing the wait and the launch (a shared
     # host's other processes) still has the launch queued in time.
     HEAD_START_CYCLES = 4_000_000
+    # A mean more than this share away from the median of its launches
+    # is flagged in the log (a stall or a clock change inside the
+    # window): the mean keeps every launch, the median is printed beside
+    # it.
+    SPREAD_FLAG = 0.10
 
     def __init__(self, dev):
         self.flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
                                      device=dev)
+        self.last_median = None  # the last ms() window's median
         # Half a second of dense work first: the first timed case of a
         # process otherwise reads up to 1.6x high (the card's clocks).
         x = torch.randn((4096, 4096), device=dev).to(torch.bfloat16)
@@ -613,9 +631,11 @@ class Timer:
             torch.cuda.synchronize()
 
     def ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
+        """The mean device ms a launch of ``fn`` over ``iters`` launches
+        (every one counted); the median lands in ``last_median``, and a
+        mean that parts from it by more than SPREAD_FLAG is logged."""
         for _ in range(warmup):
             fn()
-        total = 0.0
         pairs = []
         for _ in range(iters):
             torch.cuda._sleep(self.HEAD_START_CYCLES)
@@ -627,9 +647,14 @@ class Timer:
             end.record()
             pairs.append((start, end))
             torch.cuda.synchronize()
-        for start, end in pairs:
-            total += start.elapsed_time(end)
-        return total / iters
+        times = sorted(start.elapsed_time(end) for start, end in pairs)
+        mean = sum(times) / iters
+        self.last_median = (times[(iters - 1) // 2] + times[iters // 2]) / 2
+        if abs(mean - self.last_median) > self.SPREAD_FLAG * self.last_median:
+            log(f"timer flag: mean {mean:.5f} ms is {mean / self.last_median:.2f}"
+                f"x the median {self.last_median:.5f} ms of {iters} launches "
+                f"(max {times[-1]:.5f})")
+        return mean
 
 
 # ---- kernel phase -----------------------------------------------------------
@@ -807,6 +832,7 @@ def decode_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None,
         sdpa = torch.nn.functional.scaled_dot_product_attention
         out.update(
             ms=timer.ms(lambda: call(paged_decode_attention)),
+            median_ms=timer.last_median,
             plain_ms=timer.ms(lambda: call(paged_decode_attention_plain),
                               iters=5),
             library_ms=timer.ms(lambda: sdpa(qd, kd, vd, attn_mask=mask)),
@@ -893,6 +919,7 @@ def prefill_case(name, rows, t, ps, dtype, dev, gen, timer=None, nh=32,
         sdpa = torch.nn.functional.scaled_dot_product_attention
         out.update(
             ms=timer.ms(lambda: call(paged_prefill_attention)),
+            median_ms=timer.last_median,
             plain_ms=timer.ms(lambda: call(paged_prefill_attention_plain),
                               iters=5),
             library_ms=timer.ms(
@@ -983,6 +1010,7 @@ def ragged_case(name, rows, w, ps, dtype, dev, gen, timer=None, nh=32,
         sdpa = torch.nn.functional.scaled_dot_product_attention
         out.update(
             ms=timer.ms(lambda: call(paged_ragged_attention)),
+            median_ms=timer.last_median,
             plain_ms=timer.ms(lambda: call(plain), iters=5),
             library_ms=timer.ms(
                 lambda: sdpa(qd, kd, vd, attn_mask=mask[:, None])),
@@ -4375,6 +4403,8 @@ W8_F16_RUN = "serve_int8_weights_f16"
 FALCON3_RUN = "serve_falcon3_7b"
 FALCON3_INT8_RUN = "serve_falcon3_7b_int8"
 OPEN_LLAMA_RUN = "serve_open_llama_3b_f16"
+D512_RUN = "serve_geometry_d512"
+D512_INT8_RUN = "serve_geometry_d512_int8"
 LLAMA70_LAYERS = 2
 GEOMETRY_CONFIGS = {
     # meta-llama/Meta-Llama-3-70B/config.json, 2 of 80 layers: group 8
@@ -4428,6 +4458,19 @@ GEOMETRY_CONFIGS = {
                       "rms_norm_eps": 1e-6,
                       "tie_word_embeddings": False,
                       "torch_dtype": "float16"},
+    # Not a published checkpoint: a geometry written to reach the slab
+    # walk of the kernels (head_dim above 256, here 4 slabs of 128), on
+    # the published widths of tiiuae/Falcon3-7B-Base/config.json (hidden
+    # 3072, FFN 23040, vocab 131072, rope theta 1000042, rms_norm_eps
+    # 1e-6) but 6 q heads over 2 kv heads at an explicit head_dim 512:
+    # Falcon3's group 3, the q width equal to hidden. 1 layer.
+    "d512": {"architectures": ["LlamaForCausalLM"],
+             "vocab_size": 131072, "hidden_size": 3072,
+             "intermediate_size": 23040, "num_hidden_layers": 1,
+             "num_attention_heads": 6, "num_key_value_heads": 2,
+             "head_dim": 512, "max_position_embeddings": 32768,
+             "rms_norm_eps": 1e-6, "rope_theta": 1000042.0,
+             "tie_word_embeddings": False, "torch_dtype": "bfloat16"},
 }
 # (architecture, dtype the checkpoint is written and served in, the
 # server's dtype flags, seed) of each.
@@ -4437,28 +4480,33 @@ GEOMETRY_MODELS = {
     "qwen2-0.5b": ("qwen2", torch.float32, ["--dtype", "float32"], 43),
     "falcon3-7b": ("llama", torch.bfloat16, [], 44),
     "open-llama-3b": ("llama", torch.float16, ["--dtype", "float16"], 45),
+    "d512": ("llama", torch.bfloat16, [], 46),
 }
 # 16 requests of at most 700 + 32 tokens take 6 pages of 128 each.
 GEOMETRY_PAGES = 128
 # The checkpoints whose servers also serve each request alone after the
 # window (where a batched stream parts from it is printed, not held);
-# Falcon3's and OpenLLaMA's skip that pass, for the phase's time.
+# Falcon3's, OpenLLaMA's and d512's skip that pass, for the phase's time.
 GEOMETRY_ALONE = ("llama3-70b", "opt-2.7b", "qwen2-0.5b")
 # The kernel sweep: every point is served (kernel_geometry_supported).
 # The tiles' own head dims over every group at page 16; then head dims
 # padded in the kernel (96 and 100 at the tile 128, 160 at 256) and the
-# tile 256 over groups 1, 3, 4 and 8 at pages 128 and 16.
+# tile 256 over groups 1, 3, 4 and 8 at pages 128 and 16; then head
+# dims above 256, run as slabs of 128 (3 to 8 slabs; 257, 288, 320,
+# 448, 576 and 640 pad the last), over the same groups and pages.
 SWEEP_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 SWEEP_GROUPS = (1, 2, 3, 4, 5, 6, 7, 8, 16)
 SWEEP_HEAD_DIMS = (64, 80, 128)
 SWEEP_PADDED = ((96, 100, 160, 256), (1, 3, 4, 8), (128, 16))
+SWEEP_SLABS = ((257, 288, 320, 384, 448, 512, 576, 640, 1024),
+               (1, 3, 4, 8), (16, 128))
 # Points outside it (dtype, cache dtype or None for the same, group,
 # head_dim), each refused by the rule and by the library: head_dim 0
-# and 288, int8 queries (no query type of the kernels), a mixed cache,
+# and -1, int8 queries (no query type of the kernels), a mixed cache,
 # group 0.
 SWEEP_REFUSED = ((torch.bfloat16, None, 4, 0),
-                 (torch.float16, torch.int8, 3, 288),
-                 (torch.float32, None, 1, 288),
+                 (torch.float16, torch.int8, 3, 0),
+                 (torch.float32, None, 1, -1),
                  (torch.int8, None, 4, 64),
                  (torch.bfloat16, torch.float16, 4, 64),
                  (torch.bfloat16, None, 0, 64))
@@ -4470,6 +4518,11 @@ GEOMETRY_ROWS = {
     "g1_d128": (32, 32, 128, torch.bfloat16, (False,)),
     "g3_d256": (12, 4, 256, torch.bfloat16, (False, True)),
     "g1_d100": (32, 32, 100, torch.float16, (False,)),
+    # Slabs: g3_d512 moves g3_d256's K/V bytes (2 kv heads at 512 against
+    # 4 at 256), so the two rows compare directly; g1_d320 (16 heads)
+    # pads its third slab.
+    "g3_d512": (6, 2, 512, torch.bfloat16, (False, True)),
+    "g1_d320": (16, 16, 320, torch.float16, (False,)),
 }
 # The serving run whose launches each row's form reports (g1_d128,
 # Llama-2-7B's geometry, is served by no run of this script).
@@ -4479,7 +4532,9 @@ GEOMETRY_ROW_RUNS = {("g8_d128", "bfloat16"): LLAMA70_RUN,
                      ("g7_d64", "float32"): QWEN05_RUN,
                      ("g3_d256", "bfloat16"): FALCON3_RUN,
                      ("g3_d256", "int8"): FALCON3_INT8_RUN,
-                     ("g1_d100", "float16"): OPEN_LLAMA_RUN}
+                     ("g1_d100", "float16"): OPEN_LLAMA_RUN,
+                     ("g3_d512", "bfloat16"): D512_RUN,
+                     ("g3_d512", "int8"): D512_INT8_RUN}
 # OPT-2.7b's projections as (K, N), for the int8-weight kernel's f16
 # form.
 OPT27_PROJECTIONS = {"qkv": (2560, 7680), "o": (2560, 2560),
@@ -4575,10 +4630,11 @@ def _sweep_point(dev, gen, dtype, int8, group, d, ps=16) -> float:
 def _geometry_sweep(dev) -> dict:
     """The kernel sweep over dtype {bf16, f16, f32} x cache {same, int8}:
     group {1..8, 16} x head_dim {64, 80, 128} at page 16, and group {1,
-    3, 4, 8} x head_dim {96, 100, 160, 256} at pages 128 and 16
+    3, 4, 8} x head_dim {96, 100, 160, 256} and the slabs' {257, 288,
+    320, 384, 448, 512, 576, 640, 1024} at pages 128 and 16
     (``_sweep_point``); the library's ``pstt_kernel_supports`` and
     ``pstt_decode_group_tile`` against the Python rule on every point,
-    on every head_dim 0..300 and on points outside it. Returns the
+    on every head_dim 0..1100 and on points outside it. Returns the
     largest error by form."""
     from production_stack_tpu_torch.ops import paged_kv_common as pkc
     from production_stack_tpu_torch.ops.paged_attention_cuda import (
@@ -4587,9 +4643,9 @@ def _geometry_sweep(dev) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(18)
     t0 = time.perf_counter()
-    dims, groups, pages = SWEEP_PADDED
-    grid = ([(d, g, 16) for d in SWEEP_HEAD_DIMS for g in SWEEP_GROUPS]
-            + [(d, g, ps) for d in dims for g in groups for ps in pages])
+    grid = [(d, g, 16) for d in SWEEP_HEAD_DIMS for g in SWEEP_GROUPS]
+    for dims, groups, pages in (SWEEP_PADDED, SWEEP_SLABS):
+        grid += [(d, g, ps) for d in dims for g in groups for ps in pages]
     worst, points = {}, 0
     for dtype in SWEEP_DTYPES:
         for int8 in (False, True):
@@ -4614,7 +4670,7 @@ def _geometry_sweep(dev) -> dict:
                                        f"{e}") from e
                 worst[key] = max(worst.get(key, 0.0), err)
                 points += 1
-    for d in range(0, 301):
+    for d in range(0, 1101):
         for dtype in SWEEP_DTYPES:
             for cache in (dtype, torch.int8):
                 said = bool(lib.pstt_kernel_supports(
@@ -4642,8 +4698,8 @@ def _geometry_sweep(dev) -> dict:
         f"each within tolerance of its plain version, in "
         f"{time.perf_counter() - t0:.1f} s; largest error by form {worst}; "
         f"the rule and pstt_kernel_supports agree on them, on every "
-        f"head_dim 0..300 (and pstt_decode_group_tile with the host), and "
-        f"refuse {len(SWEEP_REFUSED)} points outside (head_dim 0 and 288, "
+        f"head_dim 0..1100 (and pstt_decode_group_tile with the host), and "
+        f"refuse {len(SWEEP_REFUSED)} points outside (head_dim 0 and -1, "
         f"int8 queries, a mixed cache, group 0)")
     return worst
 
@@ -4726,7 +4782,8 @@ def _geometry_kernel_cases(dev) -> tuple:
     for name, by_row in out.items():
         for row, forms in by_row.items():
             log(f"geometries kernel {name} {row}: " + "; ".join(
-                f"{form} {c['ms']:.5f} ms (bound {c['bound_ms']:.5f} by "
+                f"{form} {c['ms']:.5f} ms (median {c['median_ms']:.5f}, "
+                f"bound {c['bound_ms']:.5f} by "
                 f"{c['bound_by']}, SDPA {c['library_ms']:.5f}, plain "
                 f"{c['plain_ms']:.4f}, max abs err {c['max_abs_err']:.3e})"
                 for form, c in forms.items()) + f"; {SMI}")
@@ -4802,13 +4859,14 @@ def _geometry_server(label, path, extra, prompts, kv_dtype="bf16",
 
 
 def geometries_phase(vocab: int) -> dict:
-    """Every query group, head_dim up to 256 and dtype the JAX engine
-    serves, on the three attention kernels: the kernel sweep, the timed
-    rows, then five checkpoints written from published configs and
-    served: Llama-3-70B (2 layers; bf16, then int8 KV), OPT-2.7b at
-    float16, Qwen2-0.5B at float32, Falcon3-7B (1 layer, head_dim 256;
-    bf16, then int8 KV) and OpenLLaMA-3B (2 layers, head_dim 100) at
-    float16; then bench-1b at --quantization int8 --dtype float16 (the
+    """Every query group, head_dim and dtype the JAX engine serves, on
+    the three attention kernels: the kernel sweep, the timed rows, then
+    five checkpoints written from published configs and served:
+    Llama-3-70B (2 layers; bf16, then int8 KV), OPT-2.7b at float16,
+    Qwen2-0.5B at float32, Falcon3-7B (1 layer, head_dim 256; bf16, then
+    int8 KV) and OpenLLaMA-3B (2 layers, head_dim 100) at float16, and a
+    written llama at head_dim 512 (the slab walk; bf16, then int8 KV);
+    then bench-1b at --quantization int8 --dtype float16 (the
     int8-weight kernel's f16 form). Returns the timed cases, the
     int8-weight cases and each run's launches."""
     import gc
@@ -4828,7 +4886,9 @@ def geometries_phase(vocab: int) -> dict:
             "falcon3-7b": ((FALCON3_RUN, [], "bf16"),
                            (FALCON3_INT8_RUN,
                             ["--kv-cache-dtype", "int8"], "int8")),
-            "open-llama-3b": ((OPEN_LLAMA_RUN, [], "bf16"),)}
+            "open-llama-3b": ((OPEN_LLAMA_RUN, [], "bf16"),),
+            "d512": ((D512_RUN, [], "bf16"),
+                     (D512_INT8_RUN, ["--kv-cache-dtype", "int8"], "int8"))}
     tmp = tempfile.mkdtemp(prefix="chip-smoke-geometries-")
     try:
         for model, served in runs.items():
@@ -6646,7 +6706,7 @@ def kernels_line(headline, launches, weights, families, tp=None,
 # The kernel form each run's ``launches_by_run`` entry counts, where it
 # is not the per-layer bf16 one.
 RUN_FORMS = {FLEET_INT8_RUN: "_int8_stacked", LLAMA70_INT8_RUN: "_int8",
-             FALCON3_INT8_RUN: "_int8",
+             FALCON3_INT8_RUN: "_int8", D512_INT8_RUN: "_int8",
              PAGES_INT8_RUN: "_int8_stacked",
              DISAGG_INT8_RUN: "_int8_stacked", PP_RUN: "_stacked",
              PP_INT8_RUN: "_int8_stacked", CP_RUN: "_stacked",
@@ -6727,7 +6787,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     geometries = geometries_phase(vocab)
     for run in (LLAMA70_RUN, LLAMA70_INT8_RUN, OPT27_RUN, QWEN05_RUN,
-                FALCON3_RUN, FALCON3_INT8_RUN, OPEN_LLAMA_RUN, W8_F16_RUN):
+                FALCON3_RUN, FALCON3_INT8_RUN, OPEN_LLAMA_RUN, D512_RUN,
+                D512_INT8_RUN, W8_F16_RUN):
         launches[run] = geometries[run]
     torch.cuda.empty_cache()
     pages = pages_phase(vocab)

@@ -50,7 +50,13 @@
 // (head_dim_tile, paged_kv_common.cuh), padded below it: q's and out's
 // rows and the pages are read at the real head_dim, the planes' rows
 // past it are zero (written once a block), and the partials keep the
-// tile's width (GT x (tile + 2) words).
+// tile's width (GT x (tile + 2) words). Above 256 a head_dim runs as
+// head_dim_slabs() slabs of 128 (paged_kv_common.cuh's slab design;
+// paged_decode_slab_kernel): a block a (row, kv head, group tile,
+// slab, split), K staged a slab at a time through a ring of two planes
+// and the own V slab beside them, the scores summed over the slabs,
+// the partials (and the merge's and the tail's grids) one slab each,
+// GT x (128 + 2) words, the group tile that of the tile 128.
 //
 // The arithmetic stays under the copy with plain f32 FMA: thread
 // (token group, head-dim quarter) of 128 reads 4 adjacent tokens of one
@@ -79,9 +85,10 @@
 //   page_size] cache read at `layer`; k/v scale [(L,) kv_heads, num_pages, page_size] f32 for an
 //   int8 cache, else null; page_table [B, max_pages] int32; kv_lens [B]
 //   int32; out [B, num_q_heads, D]; partials: f32 scratch [B, kv_heads
-//   * tiles, num_splits, GT, tile + 2], tile-major within a kv head, with
-//   tile = head_dim_tile(D), GT = pstt_decode_group_tile(G, D) and tiles
-//   = ceil(G / GT) (null with one split); dtype (q, out) 0 = bf16, 1 = f32, 3 = f16;
+//   * tiles * slabs, num_splits, GT, tile + 2], tile-major within a kv
+//   head (slab fastest), with tile = head_dim_tile(D), slabs =
+//   head_dim_slabs(D), GT = pstt_decode_group_tile(G, D) and tiles =
+//   ceil(G / GT) (null with one split); dtype (q, out) 0 = bf16, 1 = f32, 3 = f16;
 //   cache_dtype the same code, or 2 = int8;
 //   layer_stride / scale_layer_stride: elements between two layers of
 //   the data / the scales (the per-layer form is layer 0 with strides 0).
@@ -89,7 +96,7 @@
 // and q_pos [B] int32; its partials hold num_splits + 1 slots.
 // Launches on `stream`, allocates nothing, does not synchronise, and
 // returns cudaGetLastError() after the launch. A dtype outside
-// PSTT_FOR_EACH_GEOMETRY, a head dim no tile holds, or a page size under 1
+// PSTT_FOR_EACH_GEOMETRY, a head dim under 1, or a page size under 1
 // (page_size_ok), returns cudaErrorInvalidValue;
 // pstt_kernel_supports(dtype, cache_dtype, group, head_dim) and
 // pstt_page_size_supported(page_size) tell the host first.
@@ -186,14 +193,16 @@ extern "C" int pstt_paged_decode_tail(
 // 1 if the kernels (decode, prefill, ragged: all three dispatch through
 // PSTT_FOR_EACH_GEOMETRY) are built for this dtype code, cache dtype
 // code, query group and head dim, else 0. The group is any of 1 or
-// more (the kernels take it at run time); the head dim any of 1 to
-// kMaxHeadDim, run at its tile (head_dim_tile).
+// more (the kernels take it at run time); the head dim any of 1 or
+// more, run at its tile up to kMaxHeadDim and as head_dim_slabs()
+// slabs of the tile kSlabDim above it.
 extern "C" int pstt_kernel_supports(int dtype, int cache_dtype, int group,
                                     int head_dim) {
   if (group < 1) return 0;
   const int tile = pstt::head_dim_tile(head_dim);
-#define PSTT_SUPPORTS_CASE(code, T, ccode, C, D)          \
-  if (dtype == code && cache_dtype == ccode && tile == D) \
+  const bool slabs = pstt::head_dim_slabs(head_dim) > 1;
+#define PSTT_SUPPORTS_CASE(code, T, ccode, C, D, SLABS)                  \
+  if (dtype == code && cache_dtype == ccode && tile == D && slabs == SLABS) \
     return 1;
   PSTT_FOR_EACH_GEOMETRY(PSTT_SUPPORTS_CASE)
 #undef PSTT_SUPPORTS_CASE
@@ -209,7 +218,7 @@ extern "C" int pstt_page_size_supported(int page_size) {
 
 // The decode kernel's group tile for this query group and head dim
 // (the partials' GT; the host sizes the scratch from it, with rows of
-// the head dim's tile + 2 words); 0 for a head dim no tile holds.
+// the head dim's tile or slab + 2 words); 0 for a head dim under 1.
 extern "C" int pstt_decode_group_tile(int group, int head_dim) {
   const int tile = pstt::head_dim_tile(head_dim);
   return tile ? pstt::group_tile(group, tile) : 0;

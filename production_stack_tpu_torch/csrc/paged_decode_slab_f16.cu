@@ -1,0 +1,9 @@
+// The decode kernels' slab walk (head dims above 256, see
+// paged_kv_common.cuh) for f16 queries over a cache of their type and
+// over int8, in a source of its own so that it compiles beside the
+// tile kernels of paged_decode_f16.cu: see paged_decode.cu.
+
+#include "paged_decode.cuh"
+
+PSTT_DECODE_SLAB_LAUNCH(__half, __half)
+PSTT_DECODE_SLAB_LAUNCH(__half, int8_t)

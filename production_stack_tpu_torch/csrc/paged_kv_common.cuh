@@ -44,6 +44,36 @@
 // Shared-memory rows have an odd stride in words, so a warp reading one
 // column of K, V or the scores touches 32 different banks.
 
+// Head dims above the widest tile (kMaxHeadDim, 256) run as slabs:
+// n = ceil(head_dim / kSlabDim) slabs of the tile kSlabDim = 128
+// (head_dim_slabs), the last one padded in the kernel as a head_dim
+// below its tile is. The slab is a grid axis: a block owns one output
+// slab, so its p . v accumulators, its V plane and its output are the
+// tile 128's. It builds the scores over the whole head_dim, walking q
+// . k^T a slab at a time: each span stages one K slab and one q slab
+// (into the same planes, or rings of two of them, whatever the
+// head_dim), adds into the scores, and stages its own V slab with the
+// last K slab; one online softmax over the full scores, with the real
+// 1 / sqrt(head_dim), and the int8 scales folded in the Pallas order.
+// Every block of a (row, kv head) computes the same m and l, so the
+// decode kernel's partials and merge only gain the slab in their grid
+// axis. Shared memory and registers stay those of the tile 128,
+// whatever the head_dim. The price: each of the n blocks reads all of
+// K (K is read n times, V once) and computes all of q . k^T.
+//
+// Why 128 and not 256: at 256 every layout is at the card's limit (the
+// tensor-core walk's 128 accumulators a thread, decode's group tile of
+// 2 at 255 registers, an f32 decode cache's K then V through one 128
+// KB plane, the f32 walk's 212 KB), and a slab walk needs room beside
+// them for a ring of K slabs, a q slab and the scores a span. At 128
+// each of them fits: decode keeps a group tile of 4 (Falcon3's group
+// 3 in one tile, where 256 would take two and read K twice more) and
+// stages even an f32 cache's two K slabs and its V slab in 192 KB; the
+// tensor-core walk keeps 64 accumulators and stages q, K and V slabs
+// of 64 tokens (90 KB, two blocks an SM); the f32 walk keeps its
+// tile-128 layout (194 KB). 256 would read K half as often (n halves)
+// and is left to a later measurement.
+
 #pragma once
 
 #include <cuda_bf16.h>
@@ -61,37 +91,40 @@ constexpr float kNegInf = -1e30f;
 // What the kernels are built for: every query and output type (codes:
 // 0 bf16, 1 f32, 3 f16, the host's _DTYPE_CODES) over a cache of the
 // same type or int8 (cache code 2, the host's _CACHE_CODES), at every
-// head_dim from 1 to kMaxHeadDim. The query group (q heads per kv head)
-// is a run-time value of every kernel: any group of 1 or more.
+// head_dim of 1 or more. The query group (q heads per kv head) is a
+// run-time value of every kernel: any group of 1 or more.
 // All three kernels dispatch through PSTT_FOR_EACH_GEOMETRY, and
 // pstt_kernel_supports() (paged_decode.cu) answers the host from it;
 // ops/paged_kv_common.kernel_geometry_supported is the same rule.
 //
 // Head dims: each kernel is built for the head-dim tiles below, in
-// ascending order, and a head_dim runs at the smallest tile at or above
-// it (head_dim_tile), as the Pallas kernels pad head_dim to their lane
-// tile. One instance a tile serves its own head_dim and every smaller
-// one: the tile D sizes the shared memory, the registers and the
-// products at compile time, the real head_dim is a run-time value. A
-// kernel reads and writes only head dims d < head_dim of the cache, q
-// and out; shared-memory rows d >= head_dim are zero, written once a
-// block (the Pallas kernels' zero_pad_sublanes), and so are q's; the
-// scale is 1 / sqrt(head_dim). The staging loops run over the tile's D
-// rows (rows past head_dim copy zeros), so their trip counts stay
-// constants and the tile's own head_dim keeps its time without an
-// instance of its own (one doubled the build). The cache keeps its real
-// head_dim: [kv_heads, num_pages, head_dim, page_size]. Head dims that
-// are a tile: 64 (bench-1b, TinyLlama, Qwen2-0.5B, OPT to 1.3b, GPT-2),
-// 80 (OPT-2.7b), 128 (Llama, Mistral, Mixtral, the larger Qwen2 and OPT
-// checkpoints), 256 (the Falcon3 family) and 32 (the tiny test
-// configs); padded, for example, 100 at 128 (OpenLLaMA-3B), 96 at 128,
-// 160 at 256.
+// ascending order, and a head_dim up to the widest runs at the smallest
+// tile at or above it (head_dim_tile), as the Pallas kernels pad
+// head_dim to their lane tile. One instance a tile serves its own
+// head_dim and every smaller one: the tile D sizes the shared memory,
+// the registers and the products at compile time, the real head_dim is
+// a run-time value. A kernel reads and writes only head dims d <
+// head_dim of the cache, q and out; shared-memory rows d >= head_dim
+// are zero, written once a block (the Pallas kernels' zero_pad_sublanes),
+// and so are q's; the scale is 1 / sqrt(head_dim). The staging loops
+// run over the tile's D rows (rows past head_dim copy zeros), so their
+// trip counts stay constants and the tile's own head_dim keeps its time
+// without an instance of its own (one doubled the build). The cache
+// keeps its real head_dim: [kv_heads, num_pages, head_dim, page_size].
+// Head dims that are a tile: 64 (bench-1b, TinyLlama, Qwen2-0.5B, OPT
+// to 1.3b, GPT-2), 80 (OPT-2.7b), 128 (Llama, Mistral, Mixtral, the
+// larger Qwen2 and OPT checkpoints), 256 (the Falcon3 family) and 32
+// (the tiny test configs); padded, for example, 100 at 128
+// (OpenLLaMA-3B), 96 at 128, 160 at 256. The last instance (SLABS true)
+// is the slab walk of the tile kSlabDim: every head_dim above 256, in
+// head_dim_slabs() slabs (see the slab design above).
 #define PSTT_FOR_EACH_HEAD_DIM(X, code, T, ccode, C) \
-  X(code, T, ccode, C, 32)                           \
-  X(code, T, ccode, C, 64)                           \
-  X(code, T, ccode, C, 80)                           \
-  X(code, T, ccode, C, 128)                          \
-  X(code, T, ccode, C, 256)
+  X(code, T, ccode, C, 32, false)                    \
+  X(code, T, ccode, C, 64, false)                    \
+  X(code, T, ccode, C, 80, false)                    \
+  X(code, T, ccode, C, 128, false)                   \
+  X(code, T, ccode, C, 256, false)                   \
+  X(code, T, ccode, C, 128, true)
 #define PSTT_FOR_EACH_BF16_GEOMETRY(X)                          \
   PSTT_FOR_EACH_HEAD_DIM(X, 0, __nv_bfloat16, 0, __nv_bfloat16) \
   PSTT_FOR_EACH_HEAD_DIM(X, 0, __nv_bfloat16, 2, int8_t)
@@ -110,17 +143,33 @@ template <typename C>
 constexpr bool kQuantized = std::is_same<C, int8_t>::value;
 
 constexpr int kMaxHeadDim = 256;  // the widest tile
+constexpr int kSlabDim = 128;     // the slab width above it
 constexpr int kMaxBlockSmem = 232448;  // most shared memory a block may have
 
 // The tile a head_dim runs at: the smallest of PSTT_FOR_EACH_HEAD_DIM at
-// or above it; 0 for a head_dim under 1 or past kMaxHeadDim.
+// or above it up to kMaxHeadDim, the slab width kSlabDim above it; 0
+// for a head_dim under 1.
 __host__ __device__ constexpr int head_dim_tile(int head_dim) {
   if (head_dim < 1) return 0;
-#define PSTT_TILE_AT_LEAST(code, T, ccode, C, D) \
-  if (head_dim <= D) return D;
+#define PSTT_TILE_AT_LEAST(code, T, ccode, C, D, SLABS) \
+  if (!SLABS && head_dim <= D) return D;
   PSTT_FOR_EACH_HEAD_DIM(PSTT_TILE_AT_LEAST, 0, float, 0, float)
 #undef PSTT_TILE_AT_LEAST
-  return 0;
+  return kSlabDim;
+}
+
+// The slabs a head_dim runs as: 1 up to kMaxHeadDim (its tile), else
+// ceil(head_dim / kSlabDim) (the last one padded in the kernel). The
+// host's ops/paged_kv_common.kernel_head_dim_slabs is the same rule.
+__host__ __device__ constexpr int head_dim_slabs(int head_dim) {
+  return head_dim <= kMaxHeadDim ? 1 : (head_dim + kSlabDim - 1) / kSlabDim;
+}
+
+// The head dims of slab `slab` a block fills from the cache and q:
+// kSlabDim, or fewer in the last slab.
+__host__ __device__ constexpr int slab_rows(int head_dim, int slab) {
+  return head_dim - slab * kSlabDim < kSlabDim ? head_dim - slab * kSlabDim
+                                               : kSlabDim;
 }
 
 // Tokens a walk stages at a time at head-dim tile D: a 128-token chunk,
@@ -400,23 +449,70 @@ __device__ __noinline__ void stage_chunk_any(
   }
 }
 
+// The general staging of a slab walk's stage_chunk (SLAB): the planes
+// named, rows d < rows, inlined into the slab instances (a call from
+// their loop spilled around it).
+template <typename C>
+__device__ __forceinline__ void stage_chunk_any_rows(
+    const C* __restrict__ k_head, const C* __restrict__ v_head,
+    const int* __restrict__ pt_row, int pos0, int span, int pages_live,
+    int page_size, int head_dim, int rows, int planes, int nthreads,
+    float* __restrict__ ks, float* __restrict__ vs) {
+  constexpr int kVec = 16 / sizeof(C);
+  const int vec = copy_elems(page_size, sizeof(C));
+  const int row_shift = __ffs(span / vec) - 1;  // log2 copies a row
+  for (int i = threadIdx.x; i < rows << row_shift; i += nthreads) {
+    const int d = i >> row_shift;
+    const int col = (i - (d << row_shift)) * vec;
+    const int pos = pos0 + col;
+    const int lp = pos / page_size;
+    uint4 kraw = make_uint4(0, 0, 0, 0);
+    uint4 vraw = make_uint4(0, 0, 0, 0);
+    if (lp < pages_live) {
+      const size_t src = ((size_t)pt_row[lp] * head_dim + d) * page_size +
+                         (pos - lp * page_size);
+      if (planes & 1) kraw = load_bytes(k_head + src, vec * (int)sizeof(C));
+      if (planes & 2) vraw = load_bytes(v_head + src, vec * (int)sizeof(C));
+    }
+    const C* ke = reinterpret_cast<const C*>(&kraw);
+    const C* ve = reinterpret_cast<const C*>(&vraw);
+    float* kd = ks + d * (span + 1) + col;
+    float* vd = vs + d * (span + 1) + col;
+#pragma unroll
+    for (int x = 0; x < kVec; ++x) {
+      if (x < vec) {
+        if (planes & 1) kd[x] = to_f32(ke[x]);
+        if (planes & 2) vd[x] = to_f32(ve[x]);
+      }
+    }
+  }
+}
+
 // Stage the W tokens [pos0, pos0 + W) of a row's K and V (pos0 a
 // multiple of W; W = walk_span(D)) into shared memory as f32 [D][W + 1]
-// tiles: token pos0 + t fills column t, head dims d < head_dim from the
-// cache and rows d >= head_dim as zeros. With whole pages
+// tiles: token pos0 + t fills column t, head dims d < rows from the
+// cache (rows of head_dim elements a page: a slab's pointers start at
+// its first head dim) and rows d >= rows as zeros. With whole pages
 // (whole_page_staging), the span's part of page j fills columns
 // [j * tp, (j + 1) * tp), tp = min(page_size, W) tokens from slot
 // pos0 % page_size, with 16-byte loads (8 bf16 or f16, 4 f32 or 16
 // int8 tokens of one head dim); any other page takes stage_chunk_any.
-template <typename C, int D, int NT, int W>
+// PLANES names the planes staged (kPlaneK, kPlaneV or both); SLAB: the
+// slab walk's call (rows may be fewer than head_dim), where the tile
+// instances call the general staging's entry they always have.
+template <typename C, int D, int NT, int W, int PLANES = 3, bool SLAB = false>
 __device__ __forceinline__ void stage_chunk(
     const C* __restrict__ k_head, const C* __restrict__ v_head,
     const int* __restrict__ pt_row, int pos0, int pages_live,
-    int page_size, int head_dim, float* __restrict__ ks,
+    int page_size, int head_dim, int rows, float* __restrict__ ks,
     float* __restrict__ vs) {
   if (!whole_page_staging<C>(page_size)) {
-    stage_chunk_any<C>(k_head, v_head, pt_row, pos0, W, pages_live,
-                       page_size, head_dim, NT, ks, vs);
+    if constexpr (!SLAB)
+      stage_chunk_any<C>(k_head, v_head, pt_row, pos0, W, pages_live,
+                         page_size, head_dim, NT, ks, vs);
+    else
+      stage_chunk_any_rows<C>(k_head, v_head, pt_row, pos0, W, pages_live,
+                              page_size, head_dim, rows, PLANES, NT, ks, vs);
     return;
   }
   constexpr int kVec = 16 / sizeof(C);
@@ -434,11 +530,13 @@ __device__ __forceinline__ void stage_chunk(
     const int lp = first_page + j;
     uint4 kraw = make_uint4(0, 0, 0, 0);
     uint4 vraw = make_uint4(0, 0, 0, 0);
-    if (lp < pages_live && d < head_dim) {
+    if (lp < pages_live && d < (SLAB ? rows : head_dim)) {
       const size_t src =
           ((size_t)pt_row[lp] * head_dim + d) * page_size + lo + col;
-      kraw = *reinterpret_cast<const uint4*>(k_head + src);
-      vraw = *reinterpret_cast<const uint4*>(v_head + src);
+      if constexpr ((PLANES & 1) != 0)
+        kraw = *reinterpret_cast<const uint4*>(k_head + src);
+      if constexpr ((PLANES & 2) != 0)
+        vraw = *reinterpret_cast<const uint4*>(v_head + src);
     }
     const C* ke = reinterpret_cast<const C*>(&kraw);
     const C* ve = reinterpret_cast<const C*>(&vraw);
@@ -446,8 +544,8 @@ __device__ __forceinline__ void stage_chunk(
     float* vd = vs + d * (W + 1) + j * tp + col;
 #pragma unroll
     for (int x = 0; x < kVec; ++x) {
-      kd[x] = to_f32(ke[x]);
-      vd[x] = to_f32(ve[x]);
+      if constexpr ((PLANES & 1) != 0) kd[x] = to_f32(ke[x]);
+      if constexpr ((PLANES & 2) != 0) vd[x] = to_f32(ve[x]);
     }
   }
 }
@@ -612,6 +710,35 @@ static __device__ __noinline__ void stage_chunk_async_any(
   }
 }
 
+// The general staging of a slab walk (stage_chunk_async with SLAB):
+// stage_chunk_async_any's copies, rows d < rows only (the last slab's
+// live head dims), its own body so that the tile instances' call and
+// callee stay as they were.
+static __device__ __noinline__ void stage_chunk_async_any_rows(
+    const unsigned char* __restrict__ k_head,
+    const unsigned char* __restrict__ v_head,
+    const int* __restrict__ pt_row, int pos0, int span, int pages_live,
+    int page_size, int head_dim, int rows, int esz, int nthreads,
+    int planes, uint32_t k_dst, uint32_t v_dst, PlaneLayout layout) {
+  const int vec = copy_elems(page_size, esz);
+  const int bytes = vec * esz;
+  const int row_shift = __ffs(span / vec) - 1;  // log2 copies a row
+  for (int i = threadIdx.x; i < rows << row_shift; i += nthreads) {
+    const int d = i >> row_shift;
+    const int col = (i - (d << row_shift)) * vec;
+    const int pos = pos0 + col;
+    const int lp = pos / page_size;
+    const bool live = lp < pages_live;
+    const size_t src =
+        live ? (((size_t)pt_row[lp] * head_dim + d) * page_size +
+                (pos - lp * page_size)) * esz
+             : (size_t)0;
+    const uint32_t o = layout.offset(d, col, esz);
+    if (planes & 1) cp_async_bytes(k_dst + o, k_head + src, bytes, live);
+    if (planes & 2) cp_async_bytes(v_dst + o, v_head + src, bytes, live);
+  }
+}
+
 // The planes stage_chunk_async copies: K and V, or one of them (the
 // decode kernel's f32 cache at tile 256 stages K, then V, through one
 // plane).
@@ -621,25 +748,36 @@ constexpr int kPlanesKV = kPlaneK | kPlaneV;
 
 // Start the copies of the W tokens [pos0, pos0 + W) of a row's K and V
 // (pos0 a multiple of W) into planes of D rows laid out as `layout`
-// says: head dims d < head_dim from the cache, rows d >= head_dim as
-// zeros, each row's tokens in order. The caller commits the group.
-// Whole pages (whole_page_staging) copy 16 bytes a copy, page by page
-// (tp = min(page_size, W) tokens of each from slot pos0 % page_size),
-// over the tile's D rows so that the loop's trip count is a constant;
-// any other page takes stage_chunk_async_any.
+// says: head dims d < rows from the cache (its pages rows of head_dim
+// elements: a slab's pointers start at the slab's first head dim),
+// rows d >= rows as zeros, each row's tokens in order. The caller
+// commits the group. Whole pages (whole_page_staging) copy 16 bytes a
+// copy, page by page (tp = min(page_size, W) tokens of each from slot
+// pos0 % page_size), over the tile's D rows so that the loop's trip
+// count is a constant; any other page takes stage_chunk_async_any,
+// which leaves rows d >= rows as they were. SLAB: the slab walks' call
+// (rows may be fewer than head_dim); the tile instances pass rows =
+// head_dim to the general staging's entry they have always called.
 template <typename C, int D, int NT, int W = kChunk,
-          int PLANES = kPlanesKV>
+          int PLANES = kPlanesKV, bool SLAB = false>
 __device__ __forceinline__ void stage_chunk_async(
     const C* __restrict__ k_head, const C* __restrict__ v_head,
     const int* __restrict__ pt_row, int pos0, int pages_live,
-    int page_size, int head_dim, uint32_t k_dst, uint32_t v_dst,
+    int page_size, int head_dim, int rows, uint32_t k_dst, uint32_t v_dst,
     PlaneLayout layout) {
   if (!whole_page_staging<C>(page_size)) {
-    stage_chunk_async_any(reinterpret_cast<const unsigned char*>(k_head),
-                          reinterpret_cast<const unsigned char*>(v_head),
-                          pt_row, pos0, W, pages_live, page_size,
-                          head_dim, (int)sizeof(C), NT, PLANES, k_dst,
-                          v_dst, layout);
+    if constexpr (SLAB)
+      stage_chunk_async_any_rows(
+          reinterpret_cast<const unsigned char*>(k_head),
+          reinterpret_cast<const unsigned char*>(v_head), pt_row, pos0, W,
+          pages_live, page_size, head_dim, rows, (int)sizeof(C), NT, PLANES,
+          k_dst, v_dst, layout);
+    else
+      stage_chunk_async_any(reinterpret_cast<const unsigned char*>(k_head),
+                            reinterpret_cast<const unsigned char*>(v_head),
+                            pt_row, pos0, W, pages_live, page_size,
+                            head_dim, (int)sizeof(C), NT, PLANES, k_dst,
+                            v_dst, layout);
     return;
   }
   constexpr int kVec = 16 / sizeof(C);
@@ -657,7 +795,7 @@ __device__ __forceinline__ void stage_chunk_async(
     const int d = jd - j * D;
     const int col = e & ((1 << tp_shift) - 1);
     const int lp = first_page + j;
-    const bool live = lp < pages_live && d < head_dim;
+    const bool live = lp < pages_live && d < (SLAB ? rows : head_dim);
     const size_t src =
         live ? ((((size_t)pt_row[lp] * head_dim + d) << ps_shift) + lo +
                 col)
@@ -745,8 +883,12 @@ __device__ __forceinline__ float warp_sum(float x) {
 //   nrows:       valid rows of the block (<= ROWS); the rest are pad
 //   hd:          the real head dim, at most D: rows d >= hd of q, K
 //                and V are zero in shared memory
+//   SLAB:        the slab walk (D = kSlabDim, hd above kMaxHeadDim):
+//                `slabs` slabs, the block's output and V are slab
+//                `slab`'s; each span stages q and K a slab at a time
+//                into the same planes and sums the scores over them
 template <typename T, typename C, int D, int ROWS, int TY, int NT,
-          class Mask, class Rows>
+          bool SLAB = false, class Mask, class Rows>
 __device__ void page_walk_block(const T* __restrict__ q,
                                 T* __restrict__ out, Rows rows,
                                 const C* __restrict__ k_head,
@@ -755,7 +897,9 @@ __device__ void page_walk_block(const T* __restrict__ q,
                                 const float* __restrict__ v_scale_head,
                                 const int* __restrict__ pt_row,
                                 int max_pages, int page_size, int kv_len,
-                                Mask mask, int nrows, int hd) {
+                                Mask mask, int nrows, int hd,
+                                int slabs = 1, int slab = 0) {
+  static_assert(!SLAB || D == kSlabDim, "the slab walk is the tile 128's");
   constexpr bool QUANT = kQuantized<C>;
   constexpr int W = walk_span(D);
   constexpr int TX = NT / TY;
@@ -786,15 +930,27 @@ __device__ void page_walk_block(const T* __restrict__ q,
   const int warp = tid / 32;
   const int lane = tid & 31;
   const float scale = rsqrtf((float)hd);
+  // The slab this block writes (head dims [own0, own0 + own_rows)); q
+  // and K are staged a slab at a time below.
+  const int own0 = SLAB ? slab * D : 0;
+  const int own_rows = SLAB ? slab_rows(hd, slab) : hd;
 
-  for (int i = tid; i < ROWS * D; i += NT) {
-    const int r = i / D;
-    const int d = i - r * D;
-    qs[r * QS + d] =
-        r < nrows && d < hd ? to_f32(q[rows.offset(r) + d]) : 0.f;
+  // q of slab j (all of q without slabs): rows d >= the slab's live
+  // head dims are zero.
+  auto stage_q = [&](int j, int live) {
+    for (int i = tid; i < ROWS * D; i += NT) {
+      const int r = i / D;
+      const int d = i - r * D;
+      qs[r * QS + d] = r < nrows && d < live
+                           ? to_f32(q[rows.offset(r) + j * D + d])
+                           : 0.f;
+    }
+  };
+  if constexpr (!SLAB) {
+    stage_q(0, hd);
+    zero_words<float, NT>(ks, hd * S, D * S);
   }
-  zero_words<float, NT>(ks, hd * S, D * S);
-  zero_words<float, NT>(vs, hd * S, D * S);
+  zero_words<float, NT>(vs, own_rows * S, D * S);
   for (int r = tid; r < ROWS; r += NT) {
     ms[r] = kNegInf;
     ls[r] = 0.f;
@@ -812,31 +968,48 @@ __device__ void page_walk_block(const T* __restrict__ q,
   const int n_spans = (mask.max_limit(nrows) + W - 1) / W;
 
   for (int c = 0; c < n_spans; ++c) {
-    __syncthreads();  // the previous span's readers are done
-    stage_chunk<C, D, NT, W>(k_head, v_head, pt_row, c * W, pages_live,
-                             page_size, hd, ks, vs);
-    if constexpr (QUANT)
-      stage_scales<NT, W>(k_scale_head, v_scale_head, pt_row, c * W,
-                          pages_live, page_size, kss, vss);
-    __syncthreads();
-
     // Scores: [RM] x [TN] register tile, contracted over the real head
-    // dims.
+    // dims, a slab at a time with slabs (q and K of slab j staged into
+    // the q and K planes; V of the block's own slab with slab 0).
     float sacc[RM][TN];
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) sacc[i][j] = 0.f;
-    for (int d = 0; d < hd; ++d) {
-      float qv[RM], kv[TN];
+    for (int sj = 0; sj < (SLAB ? slabs : 1); ++sj) {
+      __syncthreads();  // the previous span's (slab's) readers are done
+      const int live = SLAB ? slab_rows(hd, sj) : hd;
+      if constexpr (SLAB) {
+        stage_q(sj, live);
+        stage_chunk<C, D, NT, W, 1, true>(k_head + (size_t)sj * D * page_size,
+                                    v_head, pt_row, c * W, pages_live,
+                                    page_size, hd, live, ks, vs);
+        if (sj == 0)
+          stage_chunk<C, D, NT, W, 2, true>(
+              k_head, v_head + (size_t)own0 * page_size, pt_row, c * W,
+              pages_live, page_size, hd, own_rows, ks, vs);
+      } else {
+        stage_chunk<C, D, NT, W>(k_head, v_head, pt_row, c * W, pages_live,
+                                 page_size, hd, hd, ks, vs);
+      }
+      if constexpr (QUANT)
+        if (sj == 0)
+          stage_scales<NT, W>(k_scale_head, v_scale_head, pt_row, c * W,
+                              pages_live, page_size, kss, vss);
+      __syncthreads();
+
+      for (int d = 0; d < live; ++d) {
+        float qv[RM], kv[TN];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) qv[i] = qs[(ty * RM + i) * QS + d];
+        for (int i = 0; i < RM; ++i) qv[i] = qs[(ty * RM + i) * QS + d];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) kv[j] = ks[d * S + tx + TX * j];
+        for (int j = 0; j < TN; ++j) kv[j] = ks[d * S + tx + TX * j];
 #pragma unroll
-      for (int i = 0; i < RM; ++i)
+        for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) sacc[i][j] = fmaf(qv[i], kv[j], sacc[i][j]);
+          for (int j = 0; j < TN; ++j)
+            sacc[i][j] = fmaf(qv[i], kv[j], sacc[i][j]);
+      }
     }
 #pragma unroll
     for (int i = 0; i < RM; ++i)
@@ -909,10 +1082,10 @@ __device__ void page_walk_block(const T* __restrict__ q,
     const int r = ty * RM + i;
     if (r >= nrows) continue;
     const float denom = fmaxf(ls[r], 1e-30f);
-    T* dst = out + rows.offset(r);
+    T* dst = out + rows.offset(r) + own0;
 #pragma unroll
     for (int j = 0; j < DN; ++j)
-      if (tx + TX * j < hd)
+      if (tx + TX * j < own_rows)
         dst[tx + TX * j] = from_f32<T>(acc[i][j] / denom);
   }
 }

@@ -26,7 +26,10 @@
 // by type, at compile time; the query group is a run-time value of both
 // walks (any group: G * T rows cut into tiles). Any head_dim from 1 to
 // 256 runs at its tile (head_dim_tile, paged_kv_common.cuh), padded in
-// the kernel below it.
+// the kernel below it; above 256, as slabs of 128 (the slab design in
+// paged_kv_common.cuh), grid y over kv heads x slabs, on the
+// tensor-core slab walk (page_walk_block_mma_slab: 90 KB, two blocks
+// an SM) or the f32 walk's slab form.
 //
 // The kernels' templates are in paged_prefill.cuh;
 // paged_prefill_bf16.cu, paged_prefill_f16.cu and paged_prefill_f32.cu

@@ -35,7 +35,7 @@ constexpr int kPrefillThreads = 256;
 constexpr int kTileTY = 16;
 
 // Where a block's rows and its kv head's pages lie, at the real head
-// dim `hd`.
+// dim `hd`: kv head h (blockIdx.y, or blockIdx.y / slabs with slabs).
 struct PrefillTile {
   RowMap rows;
   CausalMask mask;
@@ -46,9 +46,8 @@ struct PrefillTile {
   __device__ __forceinline__ PrefillTile(
       const int* __restrict__ q_positions, const int* __restrict__ kv_lens,
       int tokens, int num_q_heads, int group, int num_pages, int page_size,
-      int hd) {
+      int hd, int h) {
     const int row0 = blockIdx.x * kTileRows;
-    const int h = blockIdx.y;
     const int b = blockIdx.z;
     nrows = min(kTileRows, group * tokens - row0);
     kv_len = kv_lens[b];
@@ -61,7 +60,9 @@ struct PrefillTile {
   }
 };
 
-template <typename T, typename C, int D>
+// SLAB: the slab walk of a head_dim above kMaxHeadDim (D = kSlabDim),
+// grid y over kv heads x `slabs` slabs, a block one output slab.
+template <typename T, typename C, int D, bool SLAB>
 __global__ void __launch_bounds__(kPrefillThreads)
 paged_prefill_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
                      const C* __restrict__ v_cache,
@@ -72,26 +73,28 @@ paged_prefill_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
                      const int* __restrict__ kv_lens, T* __restrict__ out,
                      int tokens, int num_q_heads, int group, int num_pages,
                      int page_size, int max_pages, LayerOffsets layer,
-                     int hd) {
+                     int hd, int slabs) {
+  const int h = SLAB ? blockIdx.y / slabs : blockIdx.y;
   const PrefillTile t(q_positions, kv_lens, tokens, num_q_heads, group,
-                      num_pages, page_size, hd);
-  const int h = blockIdx.y;
-  page_walk_block<T, C, D, kTileRows, kTileTY, kPrefillThreads>(
+                      num_pages, page_size, hd, h);
+  page_walk_block<T, C, D, kTileRows, kTileTY, kPrefillThreads, SLAB>(
       q, out, t.rows, k_cache + layer.data() + h * t.head_elems,
       v_cache + layer.data() + h * t.head_elems,
       kQuantized<C> ? k_scale + layer.scale() + h * t.head_slots : nullptr,
       kQuantized<C> ? v_scale + layer.scale() + h * t.head_slots : nullptr,
       page_table + (size_t)blockIdx.z * max_pages, max_pages, page_size,
-      t.kv_len, t.mask, t.nrows, hd);
+      t.kv_len, t.mask, t.nrows, hd, slabs, blockIdx.y - h * slabs);
 }
 
 constexpr int kMmaWarps = kTileRows / 16;  // a warp owns 16 rows
 constexpr int kMmaThreads = kMmaWarps * 32;
 
 // 16-bit queries (T bf16 or f16): the same tile and grid on the
-// tensor-core walk.
-template <typename T, typename C, int D>
-__global__ void __launch_bounds__(kMmaThreads, mma_blocks_per_sm<C, D>())
+// tensor-core walk (SLAB: its slab walk).
+template <typename T, typename C, int D, bool SLAB>
+__global__ void __launch_bounds__(kMmaThreads,
+                                  SLAB ? mma_slab_blocks_per_sm<C>()
+                                       : mma_blocks_per_sm<C, D>())
 paged_prefill_mma_kernel(const T* __restrict__ q,
                          const C* __restrict__ k_cache,
                          const C* __restrict__ v_cache,
@@ -103,29 +106,40 @@ paged_prefill_mma_kernel(const T* __restrict__ q,
                          T* __restrict__ out, int tokens,
                          int num_q_heads, int group, int num_pages,
                          int page_size, int max_pages, LayerOffsets layer,
-                         int hd) {
+                         int hd, int slabs) {
+  const int h = SLAB ? blockIdx.y / slabs : blockIdx.y;
   const PrefillTile t(q_positions, kv_lens, tokens, num_q_heads, group,
-                      num_pages, page_size, hd);
-  const int h = blockIdx.y;
-  page_walk_block_mma<T, C, D, kMmaWarps>(
-      q, out, t.rows, k_cache + layer.data() + h * t.head_elems,
-      v_cache + layer.data() + h * t.head_elems,
-      kQuantized<C> ? k_scale + layer.scale() + h * t.head_slots : nullptr,
-      kQuantized<C> ? v_scale + layer.scale() + h * t.head_slots : nullptr,
-      page_table + (size_t)blockIdx.z * max_pages, max_pages, page_size,
-      t.kv_len, t.mask, t.nrows, hd);
+                      num_pages, page_size, hd, h);
+  const C* k_head = k_cache + layer.data() + h * t.head_elems;
+  const C* v_head = v_cache + layer.data() + h * t.head_elems;
+  const float* ks_head =
+      kQuantized<C> ? k_scale + layer.scale() + h * t.head_slots : nullptr;
+  const float* vs_head =
+      kQuantized<C> ? v_scale + layer.scale() + h * t.head_slots : nullptr;
+  const int* pt_row = page_table + (size_t)blockIdx.z * max_pages;
+  if constexpr (SLAB)
+    page_walk_block_mma_slab<T, C, kMmaWarps>(
+        q, out, t.rows, k_head, v_head, ks_head, vs_head, pt_row, max_pages,
+        page_size, t.kv_len, t.mask, t.nrows, hd, slabs,
+        blockIdx.y - h * slabs);
+  else
+    page_walk_block_mma<T, C, D, kMmaWarps>(
+        q, out, t.rows, k_head, v_head, ks_head, vs_head, pt_row, max_pages,
+        page_size, t.kv_len, t.mask, t.nrows, hd);
 }
 
-template <typename T, typename C, int D>
+template <typename T, typename C, int D, bool SLAB>
 int launch(const PrefillArgs& a) {
   if (kQuantized<C> && (a.ks == nullptr || a.vs == nullptr))
     return cudaErrorInvalidValue;
   const int group = a.num_q_heads / a.num_kv_heads;
   const int tiles = (group * a.tokens + kTileRows - 1) / kTileRows;
-  const dim3 grid(tiles, a.num_kv_heads, a.batch);
+  const int slabs = head_dim_slabs(a.head_dim);
+  const dim3 grid(tiles, a.num_kv_heads * slabs, a.batch);
   if constexpr (!std::is_same<T, float>::value) {
-    constexpr size_t smem = MmaSmem<C, D>::bytes;
-    auto kernel = paged_prefill_mma_kernel<T, C, D>;
+    constexpr size_t smem =
+        SLAB ? MmaSlabSmem<C>::bytes : MmaSmem<C, D>::bytes;
+    auto kernel = paged_prefill_mma_kernel<T, C, D, SLAB>;
     static const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (attr != cudaSuccess) return attr;
@@ -136,10 +150,10 @@ int launch(const PrefillArgs& a) {
         static_cast<const int*>(a.q_positions),
         static_cast<const int*>(a.kv_lens), static_cast<T*>(a.out),
         a.tokens, a.num_q_heads, group, a.num_pages, a.page_size,
-        a.max_pages, a.layer, a.head_dim);
+        a.max_pages, a.layer, a.head_dim, slabs);
   } else {
     constexpr size_t smem = SmemLayout<D, kTileRows, kQuantized<C>>::bytes;
-    auto kernel = paged_prefill_kernel<T, C, D>;
+    auto kernel = paged_prefill_kernel<T, C, D, SLAB>;
     static const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (attr != cudaSuccess) return attr;
@@ -150,7 +164,7 @@ int launch(const PrefillArgs& a) {
         static_cast<const int*>(a.q_positions),
         static_cast<const int*>(a.kv_lens), static_cast<T*>(a.out),
         a.tokens, a.num_q_heads, group, a.num_pages, a.page_size,
-        a.max_pages, a.layer, a.head_dim);
+        a.max_pages, a.layer, a.head_dim, slabs);
   }
   return cudaGetLastError();
 }
@@ -168,7 +182,8 @@ int prefill_launch_f32(const PrefillArgs& args, int cache_dtype);
 }  // namespace pstt
 
 // The body of a prefill_launch_<type>: one case a line of the type's
-// list, at the head dim's tile.
-#define PSTT_PREFILL_CASE(code, T, ccode, C, D)                       \
-  if (cache_dtype == ccode && pstt::head_dim_tile(args.head_dim) == D) \
-    return pstt::launch<T, C, D>(args);
+// list, at the head dim's tile, the slab walk above kMaxHeadDim.
+#define PSTT_PREFILL_CASE(code, T, ccode, C, D, SLABS)                   \
+  if (cache_dtype == ccode && pstt::head_dim_tile(args.head_dim) == D &&  \
+      (pstt::head_dim_slabs(args.head_dim) > 1) == SLABS)                 \
+    return pstt::launch<T, C, D, SLABS>(args);

@@ -40,7 +40,11 @@
 // their scales, folded in the Pallas order. Any head_dim from 1 to 256
 // runs at its tile (head_dim_tile, paged_kv_common.cuh), padded in the
 // kernel below the tile; dead rows are zeroed with the widest store
-// that divides a row (8 bytes at head_dim 100 in 16 bits).
+// that divides a row (8 bytes at head_dim 100 in 16 bits). Above 256 a
+// head_dim runs as slabs of 128 (paged_kv_common.cuh's slab design),
+// grid y over kv heads x slabs: the tensor-core slab walk
+// (page_walk_block_mma_slab) or the f32 walk's slab form, a block
+// zeroing and writing its own slab's head dims.
 //
 // The kernels' templates are in paged_ragged.cuh; paged_ragged_bf16.cu,
 // paged_ragged_f16.cu and paged_ragged_f32.cu instantiate them a query

@@ -45,9 +45,8 @@ struct RaggedTile {
 
 __device__ __forceinline__ RaggedTile ragged_tile(
     const int* __restrict__ kv_lens, const int* __restrict__ last_index,
-    int width, int num_q_heads, int group, int hd) {
+    int width, int num_q_heads, int group, int hd, int h) {
   const int row0 = blockIdx.x * kRaggedTile;
-  const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tile_rows = min(kRaggedTile, group * width - row0);
   const int kv_len = kv_lens[b];
@@ -84,11 +83,12 @@ __device__ __forceinline__ void store_zero_bytes(void* dst, int bytes) {
 // the widest power of two up to 16 bytes that divides a row (a row is
 // hd * sizeof(T) bytes, and starts at a multiple of them): 16 bytes at
 // a tile's own head dim (the rows' vectors counted at compile time), 8
-// at head_dim 100 in 16 bits.
+// at head_dim 100 in 16 bits. A slab block zeroes its own head dims
+// [col0, col0 + cols) of each row (col0 a multiple of kSlabDim).
 template <typename T, int D, int NT>
 __device__ __forceinline__ void zero_dead_rows(T* __restrict__ out,
                                                const RaggedTile& tile,
-                                               int hd) {
+                                               int hd, int col0, int cols) {
   if (hd == D) {
     constexpr int kVecs = D * (int)sizeof(T) / 16;
     static_assert(D * sizeof(T) % 16 == 0, "a tile row is whole 16 bytes");
@@ -101,18 +101,21 @@ __device__ __forceinline__ void zero_dead_rows(T* __restrict__ out,
     return;
   }
   const int row_bytes = hd * (int)sizeof(T);
-  const int vb = min(row_bytes & -row_bytes, 16);
-  const int per_row = row_bytes / vb;
+  const int seg_bytes = cols * (int)sizeof(T);
+  const int vb = min(min(row_bytes & -row_bytes, seg_bytes & -seg_bytes), 16);
+  const int per_row = seg_bytes / vb;
   for (int i = tile.live * per_row + threadIdx.x;
        i < tile.tile_rows * per_row; i += NT) {
     const int r = i / per_row;
     store_zero_bytes(reinterpret_cast<unsigned char*>(
-                         out + tile.rows.offset(r)) + (i - r * per_row) * vb,
+                         out + tile.rows.offset(r) + col0) +
+                         (i - r * per_row) * vb,
                      vb);
   }
 }
 
-// This kv head's pages and (int8 cache) scales, at the launch's layer.
+// This kv head's (h) pages and (int8 cache) scales, at the launch's
+// layer.
 template <typename C>
 struct RaggedHead {
   const C* k;
@@ -124,10 +127,9 @@ struct RaggedHead {
                                         const float* k_scale,
                                         const float* v_scale,
                                         int num_pages, int page_size,
-                                        int hd, LayerOffsets layer) {
+                                        int hd, LayerOffsets layer, int h) {
     const size_t head_elems = (size_t)num_pages * hd * page_size;
     const size_t head_slots = (size_t)num_pages * page_size;
-    const int h = blockIdx.y;
     k = k_cache + layer.data() + h * head_elems;
     v = v_cache + layer.data() + h * head_elems;
     ks = kQuantized<C> ? k_scale + layer.scale() + h * head_slots : nullptr;
@@ -136,8 +138,10 @@ struct RaggedHead {
 };
 
 // f32 queries: f32 FMA over f32 tiles, with the narrowest row block
-// that holds the tile's live rows.
-template <typename T, typename C, int D>
+// that holds the tile's live rows. SLAB: the slab walk of a head_dim
+// above kMaxHeadDim (D = kSlabDim), grid y over kv heads x `slabs`
+// slabs, a block one output slab.
+template <typename T, typename C, int D, bool SLAB>
 __global__ void __launch_bounds__(kRaggedThreads)
 paged_ragged_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
                     const C* __restrict__ v_cache,
@@ -148,35 +152,40 @@ paged_ragged_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
                     const int* __restrict__ last_index, T* __restrict__ out,
                     int width, int num_q_heads, int group, int num_pages,
                     int page_size, int max_pages, LayerOffsets layer,
-                    int hd) {
+                    int hd, int slabs) {
+  const int h = SLAB ? blockIdx.y / slabs : blockIdx.y;
+  const int slab = blockIdx.y - h * slabs;
   const RaggedTile tile =
-      ragged_tile(kv_lens, last_index, width, num_q_heads, group, hd);
-  zero_dead_rows<T, D, kRaggedThreads>(out, tile, hd);
+      ragged_tile(kv_lens, last_index, width, num_q_heads, group, hd, h);
+  zero_dead_rows<T, D, kRaggedThreads>(out, tile, hd, SLAB ? slab * D : 0,
+                                       SLAB ? slab_rows(hd, slab) : hd);
   if (tile.live == 0) return;
   const RaggedHead<C> head(k_cache, v_cache, k_scale, v_scale, num_pages,
-                           page_size, hd, layer);
+                           page_size, hd, layer, h);
   const int* pt_row = page_table + (size_t)blockIdx.z * max_pages;
   const int kv_len = tile.mask.kv_len;
   if (tile.live <= 8) {
-    page_walk_block<T, C, D, 8, 8, kRaggedThreads>(
+    page_walk_block<T, C, D, 8, 8, kRaggedThreads, SLAB>(
         q, out, tile.rows, head.k, head.v, head.ks, head.vs, pt_row,
-        max_pages, page_size, kv_len, tile.mask, tile.live, hd);
+        max_pages, page_size, kv_len, tile.mask, tile.live, hd, slabs, slab);
   } else if (tile.live <= 32) {
-    page_walk_block<T, C, D, 32, 8, kRaggedThreads>(
+    page_walk_block<T, C, D, 32, 8, kRaggedThreads, SLAB>(
         q, out, tile.rows, head.k, head.v, head.ks, head.vs, pt_row,
-        max_pages, page_size, kv_len, tile.mask, tile.live, hd);
+        max_pages, page_size, kv_len, tile.mask, tile.live, hd, slabs, slab);
   } else {
-    page_walk_block<T, C, D, kRaggedTile, 16, kRaggedThreads>(
+    page_walk_block<T, C, D, kRaggedTile, 16, kRaggedThreads, SLAB>(
         q, out, tile.rows, head.k, head.v, head.ks, head.vs, pt_row,
-        max_pages, page_size, kv_len, tile.mask, tile.live, hd);
+        max_pages, page_size, kv_len, tile.mask, tile.live, hd, slabs, slab);
   }
 }
 
 // 16-bit queries (T bf16 or f16): the same tile and grid on the
-// tensor-core walk, one row block for every tile (warps with no live
-// row skip their products).
-template <typename T, typename C, int D>
-__global__ void __launch_bounds__(kMmaThreads, mma_blocks_per_sm<C, D>())
+// tensor-core walk (SLAB: its slab walk), one row block for every tile
+// (warps with no live row skip their products).
+template <typename T, typename C, int D, bool SLAB>
+__global__ void __launch_bounds__(kMmaThreads,
+                                  SLAB ? mma_slab_blocks_per_sm<C>()
+                                       : mma_blocks_per_sm<C, D>())
 paged_ragged_mma_kernel(const T* __restrict__ q,
                         const C* __restrict__ k_cache,
                         const C* __restrict__ v_cache,
@@ -188,29 +197,40 @@ paged_ragged_mma_kernel(const T* __restrict__ q,
                         T* __restrict__ out, int width,
                         int num_q_heads, int group, int num_pages,
                         int page_size, int max_pages, LayerOffsets layer,
-                        int hd) {
+                        int hd, int slabs) {
+  const int h = SLAB ? blockIdx.y / slabs : blockIdx.y;
+  const int slab = blockIdx.y - h * slabs;
   const RaggedTile tile =
-      ragged_tile(kv_lens, last_index, width, num_q_heads, group, hd);
-  zero_dead_rows<T, D, kMmaThreads>(out, tile, hd);
+      ragged_tile(kv_lens, last_index, width, num_q_heads, group, hd, h);
+  zero_dead_rows<T, D, kMmaThreads>(out, tile, hd, SLAB ? slab * D : 0,
+                                    SLAB ? slab_rows(hd, slab) : hd);
   if (tile.live == 0) return;
   const RaggedHead<C> head(k_cache, v_cache, k_scale, v_scale, num_pages,
-                           page_size, hd, layer);
-  page_walk_block_mma<T, C, D, kMmaWarps>(
-      q, out, tile.rows, head.k, head.v, head.ks, head.vs,
-      page_table + (size_t)blockIdx.z * max_pages, max_pages, page_size,
-      tile.mask.kv_len, tile.mask, tile.live, hd);
+                           page_size, hd, layer, h);
+  const int* pt_row = page_table + (size_t)blockIdx.z * max_pages;
+  if constexpr (SLAB)
+    page_walk_block_mma_slab<T, C, kMmaWarps>(
+        q, out, tile.rows, head.k, head.v, head.ks, head.vs, pt_row,
+        max_pages, page_size, tile.mask.kv_len, tile.mask, tile.live, hd,
+        slabs, slab);
+  else
+    page_walk_block_mma<T, C, D, kMmaWarps>(
+        q, out, tile.rows, head.k, head.v, head.ks, head.vs, pt_row,
+        max_pages, page_size, tile.mask.kv_len, tile.mask, tile.live, hd);
 }
 
-template <typename T, typename C, int D>
+template <typename T, typename C, int D, bool SLAB>
 int launch(const RaggedArgs& a) {
   if (kQuantized<C> && (a.ks == nullptr || a.vs == nullptr))
     return cudaErrorInvalidValue;
   const int group = a.num_q_heads / a.num_kv_heads;
   const int tiles = (group * a.width + kRaggedTile - 1) / kRaggedTile;
-  const dim3 grid(tiles, a.num_kv_heads, a.rows);
+  const int slabs = head_dim_slabs(a.head_dim);
+  const dim3 grid(tiles, a.num_kv_heads * slabs, a.rows);
   if constexpr (!std::is_same<T, float>::value) {
-    constexpr size_t smem = MmaSmem<C, D>::bytes;
-    auto kernel = paged_ragged_mma_kernel<T, C, D>;
+    constexpr size_t smem =
+        SLAB ? MmaSlabSmem<C>::bytes : MmaSmem<C, D>::bytes;
+    auto kernel = paged_ragged_mma_kernel<T, C, D, SLAB>;
     static const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (attr != cudaSuccess) return attr;
@@ -221,12 +241,12 @@ int launch(const RaggedArgs& a) {
         static_cast<const int*>(a.kv_lens),
         static_cast<const int*>(a.last_index), static_cast<T*>(a.out),
         a.width, a.num_q_heads, group, a.num_pages, a.page_size,
-        a.max_pages, a.layer, a.head_dim);
+        a.max_pages, a.layer, a.head_dim, slabs);
   } else {
     // The widest row block's layout; the narrower ones use a prefix of
     // it, and place their scales by their own layout, inside it.
     constexpr size_t smem = SmemLayout<D, kRaggedTile, kQuantized<C>>::bytes;
-    auto kernel = paged_ragged_kernel<T, C, D>;
+    auto kernel = paged_ragged_kernel<T, C, D, SLAB>;
     static const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (attr != cudaSuccess) return attr;
@@ -237,7 +257,7 @@ int launch(const RaggedArgs& a) {
         static_cast<const int*>(a.kv_lens),
         static_cast<const int*>(a.last_index), static_cast<T*>(a.out),
         a.width, a.num_q_heads, group, a.num_pages, a.page_size,
-        a.max_pages, a.layer, a.head_dim);
+        a.max_pages, a.layer, a.head_dim, slabs);
   }
   return cudaGetLastError();
 }
@@ -255,7 +275,8 @@ int ragged_launch_f32(const RaggedArgs& args, int cache_dtype);
 }  // namespace pstt
 
 // The body of a ragged_launch_<type>: one case a line of the type's
-// list, at the head dim's tile.
-#define PSTT_RAGGED_CASE(code, T, ccode, C, D)                        \
-  if (cache_dtype == ccode && pstt::head_dim_tile(args.head_dim) == D) \
-    return pstt::launch<T, C, D>(args);
+// list, at the head dim's tile, the slab walk above kMaxHeadDim.
+#define PSTT_RAGGED_CASE(code, T, ccode, C, D, SLABS)                    \
+  if (cache_dtype == ccode && pstt::head_dim_tile(args.head_dim) == D &&  \
+      (pstt::head_dim_slabs(args.head_dim) > 1) == SLABS)                 \
+    return pstt::launch<T, C, D, SLABS>(args);

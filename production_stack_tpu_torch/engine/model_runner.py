@@ -334,8 +334,9 @@ def check_engine_geometry(config: EngineConfig) -> None:
     """On the card: raise, naming the rule it breaks, unless the
     kernels serve the model's geometry with the cache's dtype
     (``kernel_geometry_supported``: bf16, f16 or f32 over the same type
-    or int8, any query group, any head_dim from 1 to 256, padded in the
-    kernel to its tile of 32, 64, 80, 128 or 256; and
+    or int8, any query group, any head_dim of 1 or more: up to 256
+    padded in the kernel to its tile of 32, 64, 80, 128 or 256, above
+    256 as slabs of 128 (``kernel_head_dim_slabs``); and
     ``kernel_page_size_supported``: any page of 1 token or more), then
     build (or find) and load the kernel library and hold it to the same
     answers.

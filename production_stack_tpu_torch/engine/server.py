@@ -2493,8 +2493,9 @@ def parse_args(argv=None):
                    help="model dtype (default: the preset's), for any "
                         "model; on the card the attention kernels take "
                         "bf16, f16 or f32 at any query group and any "
-                        "head_dim from 1 to 256, and refuse a larger "
-                        "head_dim at start, naming the rule")
+                        "head_dim of 1 or more (above 256 as slabs of "
+                        "128), and refuse a head_dim under 1 at start, "
+                        "naming the rule")
     p.add_argument("--attention-impl", default="auto",
                    choices=["auto", "xla", "pallas", "pallas-interpret"],
                    help="the JAX server's values: auto and pallas run the "

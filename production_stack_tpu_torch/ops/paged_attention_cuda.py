@@ -15,7 +15,9 @@ once per step and keeps bytes in flight on every SM:
 - the G query heads that share a kv head share every staged page: one
   block serves a group tile of them (``decode_group_tile``: the whole
   group up to 4, or 8 at head_dim 64 and below; 2 at the head-dim tile
-  256; a larger group runs ceil(G / tile) blocks a kv head, the last
+  256; 4 again above 256, where a block serves one 128-wide slab of the
+  output and sums the scores over every slab, K staged a slab at a
+  time; a larger group runs ceil(G / tile) blocks a kv head, the last
   one's spare heads loading zeros and never written);
 - split-KV: a (row, kv head) pair's 128-token chunks are cut into
   ``num_splits`` ranges, one block each, so that a small batch or a few
@@ -77,7 +79,7 @@ from production_stack_tpu_torch.ops.paged_kv_common import (
     data_ptr,
     dtype_code,
     CHUNK_TOKENS,
-    kernel_head_dim_tile,
+    kernel_head_dim_slabs,
     kernel_lib,
     layer_args,
     merge_partials_plain,
@@ -101,15 +103,16 @@ TARGET_BLOCKS = 4 * 132
 
 def decode_group_tile(group: int, head_dim: int) -> int:
     """The query heads one decode block covers (csrc/paged_decode.cuh
-    ``group_tile`` at the head dim's tile; the library's
+    ``group_tile`` at the head dim's tile or slab; the library's
     ``pstt_decode_group_tile``): 1 for a group of 1, else 4 up to 4 and
     8 above, at most the widest tile of the head-dim tile (8 at 64 and
-    below, 4 to 128, 2 at 256), where more heads' accumulators would
-    pass a thread's 255 registers. Raises ValueError for a head_dim no
-    tile holds."""
-    tile = kernel_head_dim_tile(head_dim)
-    if tile is None:
+    below, 4 to 128 and for the slabs of 128 above 256, 2 at 256),
+    where more heads' accumulators would pass a thread's 255 registers.
+    Raises ValueError for a head_dim under 1."""
+    slabs = kernel_head_dim_slabs(head_dim)
+    if slabs is None:
         raise ValueError(f"no kernel tile holds head_dim {head_dim}")
+    tile = slabs[1]
     widest = 8 if tile <= 64 else 4 if tile <= 128 else 2
     if group <= 1:
         return 1
@@ -119,14 +122,15 @@ def decode_group_tile(group: int, head_dim: int) -> int:
 def _partials(q: torch.Tensor, num_kv_heads: int, slots: int
               ) -> torch.Tensor:
     """f32 scratch of the splits' (and a tail's) softmax states, tile-
-    major within a kv head: [B, kv_heads * tiles, slots, tile,
-    head-dim tile + 2] (acc over the head-dim tile, m, l of each head of
-    the group tile)."""
+    major within a kv head, slab fastest: [B, kv_heads * tiles * slabs,
+    slots, tile, slab width + 2] (acc over the head-dim tile, or one
+    128-wide slab above 256, m, l of each head of the group tile)."""
     b, num_q_heads, head_dim = q.shape
     group = num_q_heads // num_kv_heads
     tile = decode_group_tile(group, head_dim)
-    return torch.empty((b, num_kv_heads * -(-group // tile), slots, tile,
-                        kernel_head_dim_tile(head_dim) + 2),
+    slabs, width = kernel_head_dim_slabs(head_dim)
+    return torch.empty((b, num_kv_heads * -(-group // tile) * slabs, slots,
+                        tile, width + 2),
                        dtype=torch.float32, device=q.device)
 
 

@@ -15,10 +15,11 @@ half:
   only;
 - the launch counters that show a run went through the kernels;
 - what the kernels serve (``kernel_geometry_supported``: bf16, f16 or
-  f32 over the same type or int8, any query group, any head_dim from 1
-  to 256, run at its tile (``kernel_head_dim_tile``);
-  ``kernel_page_size_supported``: any page of 1 token or more),
-  the rules the engine refuses a model by at start-up;
+  f32 over the same type or int8, any query group, any head_dim of 1
+  or more, run at its tile up to 256 and as slabs of 128 above
+  (``kernel_head_dim_slabs``); ``kernel_page_size_supported``: any page
+  of 1 token or more), the rules the engine refuses a model by at
+  start-up;
 - operand checks common to the wrappers, and the split of an int8
   cache (a ``QuantKV``, ops/quant_kv.py) into its data and scales;
 - the plain chunked page walk in torch: the same 128-token chunks
@@ -30,7 +31,8 @@ half:
   CPU tensors, and what the kernels are compared with on the card. It
   also walks a range of chunks to the unnormalised state and merges
   such states, as the decode kernel's splits do, and can round the
-  probabilities as the tensor-core walk does.
+  probabilities as the tensor-core walk does. Above the widest tile it
+  sums the scores slab by slab, in the kernels' order.
 """
 
 from __future__ import annotations
@@ -64,14 +66,16 @@ CHUNK_TOKENS = 128
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 3}
 _CACHE_CODES = {**_DTYPE_CODES, torch.int8: 2}
 # The head-dim tiles the kernels are built for, in ascending order: a
-# head_dim runs at the smallest tile at or above it, padded inside the
-# kernel where it is smaller (kernel_head_dim_tile), as the Pallas
-# kernels pad head_dim to their 128-lane tile. The rule of
-# kernel_geometry_supported is csrc/paged_kv_common.cuh's
-# PSTT_FOR_EACH_GEOMETRY and head_dim_tile, which the library's
-# pstt_kernel_supports answers from.
+# head_dim up to the widest runs at the smallest tile at or above it,
+# padded inside the kernel where it is smaller (kernel_head_dim_tile),
+# as the Pallas kernels pad head_dim to their 128-lane tile; a wider
+# one runs as slabs of SLAB_HEAD_DIM (kernel_head_dim_slabs), the last
+# one padded. The rule of kernel_geometry_supported is
+# csrc/paged_kv_common.cuh's PSTT_FOR_EACH_GEOMETRY, head_dim_tile and
+# head_dim_slabs, which the library's pstt_kernel_supports answers from.
 KERNEL_HEAD_DIM_TILES = (32, 64, 80, 128, 256)
 MAX_KERNEL_HEAD_DIM = KERNEL_HEAD_DIM_TILES[-1]
+SLAB_HEAD_DIM = 128
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = (pathlib.Path(__file__).resolve().parents[2]
@@ -368,16 +372,30 @@ def check_kernel_operands(q, k_cache, v_cache, int_operands, out,
 
 def kernel_head_dim_tile(head_dim: int) -> Optional[int]:
     """The head-dim tile the kernels run ``head_dim`` at: the smallest
-    of ``KERNEL_HEAD_DIM_TILES`` at or above it (100 runs at 128, 160 at
-    256), or None for a head_dim under 1 or past 256. Below its tile a
-    head_dim is padded inside the kernel: q, out and the cache keep
-    their real head_dim, the staged rows past it are zero and the scale
-    is 1 / sqrt(head_dim). Pure Python: csrc/paged_kv_common.cuh's
-    ``head_dim_tile`` is the same rule."""
+    of ``KERNEL_HEAD_DIM_TILES`` at or above it up to 256 (100 runs at
+    128, 160 at 256), the slab's ``SLAB_HEAD_DIM`` above 256, or None
+    for a head_dim under 1. Below its tile a head_dim is padded inside
+    the kernel: q, out and the cache keep their real head_dim, the
+    staged rows past it are zero and the scale is 1 / sqrt(head_dim).
+    Pure Python: csrc/paged_kv_common.cuh's ``head_dim_tile`` is the
+    same rule."""
+    slabs = kernel_head_dim_slabs(head_dim)
+    return None if slabs is None else slabs[1]
+
+
+def kernel_head_dim_slabs(head_dim: int) -> Optional[Tuple[int, int]]:
+    """(n, width): the kernels run ``head_dim`` as n slabs of the tile
+    ``width``. Up to 256, one slab of its tile (``KERNEL_HEAD_DIM_TILES``);
+    above, ceil(head_dim / 128) slabs of 128, the last one padded in the
+    kernel (288 is 3 slabs, 512 is 4). A block then owns one output
+    slab and sums the scores over all of them (K read n times, V once).
+    None for a head_dim under 1. Pure Python: csrc/paged_kv_common.cuh's
+    ``head_dim_tile`` and ``head_dim_slabs`` are the same rule."""
     if head_dim < 1:
         return None
-    return next((t for t in KERNEL_HEAD_DIM_TILES if head_dim <= t),
-                None)
+    if head_dim <= MAX_KERNEL_HEAD_DIM:
+        return 1, next(t for t in KERNEL_HEAD_DIM_TILES if head_dim <= t)
+    return -(-head_dim // SLAB_HEAD_DIM), SLAB_HEAD_DIM
 
 
 def kernel_geometry_refusal(dtype: torch.dtype,
@@ -385,10 +403,10 @@ def kernel_geometry_refusal(dtype: torch.dtype,
                             group: int, head_dim: int) -> Optional[str]:
     """The rule a geometry breaks, or None where the kernels serve it:
     q and out bf16, f16 or f32 over a cache of the same type or int8,
-    any query group (q heads per kv head) of 1 or more, any head_dim
-    from 1 to 256 (run at its tile, ``kernel_head_dim_tile``: the tiles
-    32, 64, 80, 128 and 256, padded in the kernel below a tile). Pure
-    Python: the CPU tests read it, and the library's
+    any query group (q heads per kv head) of 1 or more, any head_dim of
+    1 or more (``kernel_head_dim_slabs``: up to 256 at its tile of 32,
+    64, 80, 128 or 256, padded in the kernel below it; above, as slabs
+    of 128). Pure Python: the CPU tests read it, and the library's
     ``pstt_kernel_supports`` answers the same."""
     cache_dtype = cache_dtype or dtype
     if dtype not in _DTYPE_CODES:
@@ -399,11 +417,11 @@ def kernel_geometry_refusal(dtype: torch.dtype,
                 f"not {cache_dtype} under {dtype} queries")
     if group < 1:
         return f"the query group must be 1 or more, not {group}"
-    if kernel_head_dim_tile(head_dim) is None:
-        return (f"the kernels serve head_dim 1 to {MAX_KERNEL_HEAD_DIM} "
-                f"(padded in the kernel to a tile of "
-                f"{', '.join(map(str, KERNEL_HEAD_DIM_TILES))}), not "
-                f"{head_dim}")
+    if kernel_head_dim_slabs(head_dim) is None:
+        return (f"the kernels serve every head_dim of 1 or more (up to "
+                f"{MAX_KERNEL_HEAD_DIM} padded in the kernel to a tile of "
+                f"{', '.join(map(str, KERNEL_HEAD_DIM_TILES))}, above it "
+                f"as slabs of {SLAB_HEAD_DIM}), not {head_dim}")
     return None
 
 
@@ -619,7 +637,7 @@ def page_walk_partial(q_rows: torch.Tensor, k_cache: torch.Tensor,
             return tile[..., lo:lo + chunk]
 
         k, v = stage(k_cache), stage(v_cache)
-        s = (q @ k) * scale  # [B, KV, R, C]
+        s = slab_scores(q, k) * scale  # [B, KV, R, C]
         if k_scale is not None:
             s = s * stage_scale(k_scale)
         token_pos = c * chunk + torch.arange(chunk, device=dev)
@@ -637,6 +655,20 @@ def page_walk_partial(q_rows: torch.Tensor, k_cache: torch.Tensor,
                           acc)
         m = torch.where(active, m_new, m)
     return m, l, acc
+
+
+def slab_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q [..., R, D] . k [..., D, C] over the head dims in the kernels'
+    order: one product up to the widest tile, above it the sum of the
+    slabs' products in slab order (``kernel_head_dim_slabs``)."""
+    n, width = kernel_head_dim_slabs(q.shape[-1])
+    if n == 1:
+        return q @ k
+    s = q[..., :width] @ k[..., :width, :]
+    for j in range(1, n):
+        cut = slice(j * width, (j + 1) * width)
+        s = s + q[..., cut] @ k[..., cut, :]
+    return s
 
 
 def merge_partials_plain(m: torch.Tensor, l: torch.Tensor,

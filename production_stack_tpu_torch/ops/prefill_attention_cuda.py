@@ -34,7 +34,10 @@ from 1 to 256, run at its tile (32, 64, 80, 128 or 256,
 ``paged_kv_common.kernel_head_dim_tile``) and padded in the kernel
 below it, as the Pallas kernel pads head_dim to its lane tile: no copy
 of q or of the cache. At the tile 256 the walk stages half a chunk at a
-time and reads q from shared memory.
+time and reads q from shared memory. Above 256, as slabs of 128
+(``paged_kv_common.kernel_head_dim_slabs``): a block writes one slab of
+the output, sums the scores over every slab (q and K staged a slab at
+a time) and takes p . v from its own V slab.
 
 Contract (the Pallas kernel's): q [B, T, num_q_heads, head_dim]; the
 per-layer or, with ``layer``, the stacked cache, as the decode kernel

@@ -30,7 +30,9 @@ An int8 cache (a QuantKV) stages as int8 pages and their per-slot
 scales, folded in as in the Pallas kernel. Any query group; any
 head_dim from 1 to 256, run at its tile (32, 64, 80, 128 or 256,
 ``paged_kv_common.kernel_head_dim_tile``) and padded in the kernel
-below it, as the Pallas kernel pads head_dim to its lane tile.
+below it, as the Pallas kernel pads head_dim to its lane tile; above
+256, as slabs of 128 (``paged_kv_common.kernel_head_dim_slabs``), a
+block one output slab, the scores summed over every slab.
 
 Contract (the Pallas kernel's): q [R, W, num_q_heads, head_dim]; the
 per-layer or, with ``layer``, the stacked cache, as the decode kernel

@@ -2,7 +2,8 @@
 
     python production_stack_tpu_torch/tools/kernel_times.py [--repo DIR] \
         [--geometry bench-1b|g4_d128|g1_d64|g7_d128|g8_d128|g1_d80|
-                    g7_d64|g1_d128|g3_d256|g1_d100] [--page-size P]
+                    g7_d64|g1_d128|g3_d256|g1_d100|g3_d512|g1_d320]
+        [--page-size P]
 
 Times ``paged_decode_attention`` (B = 32, kv lens spread over 1..1024
 with two pad rows, page size 128), ``paged_prefill_attention`` (B = 8,
@@ -22,7 +23,10 @@ q over 8 kv heads at 128; ``g1_d80``: OPT-2.7b's 32 heads of 80 in f16;
 ``g7_d64``: Qwen2-0.5B's 14 q over 2 kv heads at 64 in f32;
 ``g1_d128``: Llama-2-7B's 32 heads of 128; ``g3_d256``: Falcon3-7B's
 12 q over 4 kv heads at 256; ``g1_d100``: OpenLLaMA-3B's 32 heads of
-100 in f16, padded in the kernel to 128), in the geometry's dtype
+100 in f16, padded in the kernel to 128; ``g3_d512``: 6 q over 2 kv
+heads at 512, four slabs of 128, ``g3_d256``'s K/V bytes; ``g1_d320``:
+16 heads of 320 in f16, three slabs, the last padded), in the
+geometry's dtype
 (bf16 where none is named) over a cache of that type and an int8 one,
 through the public wrappers of the checkout at ``--repo``
 (default: the checkout this file lies in). ``--page-size P`` (default
@@ -47,7 +51,11 @@ pass its root.
 Each timed launch is queued behind a device-side wait with the L2
 flushed, so the CUDA events bracket the kernels alone (the wrapper's
 Python runs ahead of the card). Prints the card's name and power limit,
-then one JSON object of milliseconds per launch. Needs one CUDA card.
+then one JSON object of milliseconds per launch: each key the mean of
+its 50 launches (every launch counted), ``<key>_median`` their median,
+and ``spread_flags`` the keys whose mean parts from its median by more
+than SPREAD_FLAG (a stall or a clock change inside the window). Needs
+one CUDA card.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ import argparse
 import inspect
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -65,9 +74,12 @@ import torch
 
 L2_FLUSH_BYTES = 128 << 20
 HEAD_START_CYCLES = 4_000_000  # about 2 ms: host stalls shorter are hidden
+# A mean more than this share away from its median is flagged.
+SPREAD_FLAG = 0.10
 
 
-def _ms(fn, flush, iters=50, warmup=5) -> float:
+def _ms(fn, flush, iters=50, warmup=5):
+    """(mean, median) device ms a launch over ``iters`` launches."""
     for _ in range(warmup):
         fn()
     pairs = []
@@ -81,7 +93,21 @@ def _ms(fn, flush, iters=50, warmup=5) -> float:
         end.record()
         pairs.append((start, end))
         torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+    times = [s.elapsed_time(e) for s, e in pairs]
+    return sum(times) / iters, statistics.median(times)
+
+
+def _time(out, key, fn, flush, append=False) -> None:
+    """Time ``fn`` into ``out[key]`` (the mean; appended to a list with
+    ``append``) and ``out[key + "_median"]``, flagging a wide spread."""
+    mean, median = _ms(fn, flush)
+    for k, x in ((key, mean), (key + "_median", median)):
+        if append:
+            out.setdefault(k, []).append(x)
+        else:
+            out[k] = x
+    if abs(mean - median) > SPREAD_FLAG * median:
+        out.setdefault("spread_flags", []).append(key)
 
 
 # The stacked form: bench-1b's layer count and its last layer.
@@ -100,7 +126,9 @@ GEOMETRIES = {"bench-1b": (32, 8, 64, torch.bfloat16),
               "g7_d64": (14, 2, 64, torch.float32),
               "g1_d128": (32, 32, 128, torch.bfloat16),
               "g3_d256": (12, 4, 256, torch.bfloat16),
-              "g1_d100": (32, 32, 100, torch.float16)}
+              "g1_d100": (32, 32, 100, torch.float16),
+              "g3_d512": (6, 2, 512, torch.bfloat16),
+              "g1_d320": (16, 16, 320, torch.float16)}
 
 
 def _stack_at(cache, gen):
@@ -194,17 +222,17 @@ def main(argv=None) -> int:
         q = torch.randn((32, nh, d), generator=gen).to(dev, dtype)
         table = _table(lens, ps, max_pages, decode_pages, gen, dev)
         kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
-        out["paged_decode" + tag] = _ms(
-            lambda: paged_decode_attention(q, k, v, table, kv_lens), flush)
+        _time(out, "paged_decode" + tag,
+              lambda: paged_decode_attention(q, k, v, table, kv_lens), flush)
         if not int8 and "num_splits" in inspect.signature(
                 paged_decode_attention).parameters:
             for label, n in (("pad_rows", 0), ("one_token_rows", 1)):
                 short = torch.full((32,), n, dtype=torch.int32, device=dev)
                 for splits in (1, 3):
-                    out[f"paged_decode_{label}_splits{splits}"] = _ms(
-                        lambda: paged_decode_attention(
-                            q, k, v, table, short, num_splits=splits),
-                        flush)
+                    _time(out, f"paged_decode_{label}_splits{splits}",
+                          lambda: paged_decode_attention(
+                              q, k, v, table, short, num_splits=splits),
+                          flush)
 
         live = [512, 448, 384, 320, 256, 0, 128, 64]
         k, v = caches(8 * max_pages + 1, int8)
@@ -212,9 +240,9 @@ def main(argv=None) -> int:
         table = _table(live, ps, max_pages, 8 * max_pages + 1, gen, dev)
         kv_lens = torch.tensor(live, dtype=torch.int32, device=dev)
         pos = torch.arange(512, dtype=torch.int32, device=dev).repeat(8, 1)
-        out["paged_prefill" + tag] = _ms(
-            lambda: paged_prefill_attention(q, k, v, table, pos, kv_lens),
-            flush)
+        _time(out, "paged_prefill" + tag,
+              lambda: paged_prefill_attention(q, k, v, table, pos, kv_lens),
+              flush)
 
         # Ragged blocks as (kv_len, last_index) per row.
         decode_lens = np.linspace(70, 1024, 28).round().astype(int).tolist()
@@ -243,9 +271,9 @@ def main(argv=None) -> int:
             last = torch.tensor([li for _, li in rows], dtype=torch.int32,
                                 device=dev)
             drafts = torch.clamp(last, min=0) if is_verify else None
-            out[f"paged_ragged_{label}{tag}"] = _ms(
-                lambda: paged_ragged_attention(q, k, v, table, kv_lens, last,
-                                               drafts), flush)
+            _time(out, f"paged_ragged_{label}{tag}",
+                  lambda: paged_ragged_attention(q, k, v, table, kv_lens,
+                                                 last, drafts), flush)
             if label != "unified":
                 continue
             k5, v5 = _stack_at(k, gen), _stack_at(v, gen)
@@ -257,8 +285,8 @@ def main(argv=None) -> int:
                     layer=STACK[1]),
             }
             for form in ("per_layer", "stacked", "stacked", "per_layer"):
-                out.setdefault(f"paged_ragged_unified{tag}_{form}",
-                               []).append(_ms(calls[form], flush))
+                _time(out, f"paged_ragged_unified{tag}_{form}", calls[form],
+                      flush, append=True)
             del k5, v5
     if args.geometry == "bench-1b":
         _int8_weight_times(out, dev, gen, flush)
@@ -279,10 +307,10 @@ def _int8_weight_times(out, dev, gen, flush) -> None:
                           dtype=torch.int8).to(dev)
         scale = torch.full((n,), 0.02 / 127, device=dev)
         dense = (q.float() * scale[:, None]).to(torch.bfloat16)
-        out[f"int8_weight_matmul_{name}_m{DECODE_ROWS}"] = _ms(
-            lambda: int8_weight_matmul(x, q, scale), flush)
-        out[f"bf16_matmul_{name}_m{DECODE_ROWS}"] = _ms(
-            lambda: torch.matmul(x, dense.t()), flush)
+        _time(out, f"int8_weight_matmul_{name}_m{DECODE_ROWS}",
+              lambda: int8_weight_matmul(x, q, scale), flush)
+        _time(out, f"bf16_matmul_{name}_m{DECODE_ROWS}",
+              lambda: torch.matmul(x, dense.t()), flush)
 
 
 if __name__ == "__main__":

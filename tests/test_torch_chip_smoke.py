@@ -325,6 +325,9 @@ def test_kernels_line_carries_the_geometries_rows():
     launches = {run: {k: 7 for k in chip_smoke.KERNELS} for run in runs}
     launches[chip_smoke.LLAMA70_INT8_RUN] = {
         k + "_int8": 9 for k in chip_smoke.KERNELS}
+    launches[chip_smoke.D512_RUN] = {k: 3 for k in chip_smoke.KERNELS}
+    launches[chip_smoke.D512_INT8_RUN] = {
+        k + "_int8": 5 for k in chip_smoke.KERNELS}
     launches[chip_smoke.W8_F16_RUN] = {"int8_weight_matmul": 64}
     weights = {"headline": dict(_case("w8", 0.03), dequant_ms=0.09)}
     families = {
@@ -337,7 +340,10 @@ def test_kernels_line_carries_the_geometries_rows():
                             "int8": _case("b", 0.5)},
                 "g1_d80": {"float16": _case("c", 0.6)},
                 "g7_d64": {"float32": _case("d", 0.7)},
-                "g1_d128": {"bfloat16": _case("e", 0.8)}}
+                "g1_d128": {"bfloat16": _case("e", 0.8)},
+                "g3_d512": {"bfloat16": _case("g", 0.9),
+                            "int8": _case("h", 1.0)},
+                "g1_d320": {"float16": _case("i", 1.1)}}
             for k in chip_smoke.KERNELS}
     geometries = {"rows": rows,
                   "w8": {"fc1": dict(_case("f16 fc1", 0.05),
@@ -346,8 +352,12 @@ def test_kernels_line_carries_the_geometries_rows():
                                    geometries=geometries)
     for entry in line[:3]:
         geos = entry["geometries"]
-        assert sorted(geos) == ["g1_d128", "g1_d64", "g1_d80", "g4_d128",
-                                "g7_d64", "g8_d128"]
+        assert sorted(geos) == ["g1_d128", "g1_d320", "g1_d64", "g1_d80",
+                                "g3_d512", "g4_d128", "g7_d64", "g8_d128"]
+        assert geos["g3_d512"]["launches"] == 3
+        assert geos["g3_d512"]["int8"]["launches"] == 5
+        assert geos["g1_d320"]["launches"] == 0
+        assert entry["launches_by_run"][chip_smoke.D512_INT8_RUN] == 5
         assert geos["g8_d128"]["ms"] == 0.4
         assert geos["g8_d128"]["dtype"] == "bfloat16"
         assert geos["g8_d128"]["launches"] == 7

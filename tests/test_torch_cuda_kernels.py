@@ -79,13 +79,16 @@ pytestmark = pytest.mark.cuda
 
 # (dtype, query group, head dim) of model configs the kernels serve
 # (csrc/paged_kv_common.cuh, PSTT_FOR_EACH_GEOMETRY: any group, any
-# head_dim from 1 to 256 at its tile of 32, 64, 80, 128 or 256):
+# head_dim from 1 to 256 at its tile of 32, 64, 80, 128 or 256, and
+# above 256 as slabs of 128):
 # bench-1b, Mixtral-8x7B, Qwen2-7B, OPT-1.3b, the tiny configs,
 # Llama-3-70B (group 8), OPT-2.7b at f16 (head_dim 80), Qwen2-0.5B at
 # f32 (group 7), Llama-2-7B (group 1 at 128), Llama-3.2-3B at f16
 # (group 3), Llama-3.1-405B (group 16); Falcon3-7B (group 3 at the tile
 # 256, bf16 and f32), OpenLLaMA-3B at f16 and f32 (head_dim 100, padded
-# to 128), and padded points: 160 (tile 256) and an odd 33 (tile 64).
+# to 128), and padded points: 160 (tile 256) and an odd 33 (tile 64);
+# slabs: 512 at group 3 in bf16 (four whole slabs), 320 in f16 and an
+# odd 289 in f32 (the last slab padded).
 GEOMETRIES = [(torch.bfloat16, 4, 64), (torch.bfloat16, 4, 128),
               (torch.bfloat16, 7, 128), (torch.bfloat16, 1, 64),
               (torch.float32, 2, 32), (torch.float32, 1, 32),
@@ -94,12 +97,16 @@ GEOMETRIES = [(torch.bfloat16, 4, 64), (torch.bfloat16, 4, 128),
               (torch.float16, 3, 128), (torch.bfloat16, 16, 128),
               (torch.bfloat16, 3, 256), (torch.float32, 3, 256),
               (torch.float16, 1, 100), (torch.float32, 1, 100),
-              (torch.bfloat16, 2, 160), (torch.float16, 2, 33)]
+              (torch.bfloat16, 2, 160), (torch.float16, 2, 33),
+              (torch.bfloat16, 3, 512), (torch.float16, 1, 320),
+              (torch.float32, 3, 289)]
 # The tensor-core walk's published geometries: (query group, kv heads,
 # head_dim) of bench-1b, Mixtral-8x7B, OPT-1.3b, Llama-3-70B, OPT-2.7b,
-# TinyLlama-1.1B, Falcon3-7B and OpenLLaMA-3B.
+# TinyLlama-1.1B, Falcon3-7B and OpenLLaMA-3B; the slab walk at 512
+# (group 3 over 2 kv heads) and 320.
 MMA_GEOMETRIES = [(4, 8, 64), (4, 8, 128), (1, 32, 64), (8, 8, 128),
-                  (1, 32, 80), (8, 4, 64), (3, 4, 256), (1, 32, 100)]
+                  (1, 32, 80), (8, 4, 64), (3, 4, 256), (1, 32, 100),
+                  (3, 2, 512), (1, 16, 320)]
 
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2),
@@ -262,15 +269,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         paged_decode_attention(q, k, v, table.long(), lens)
     with pytest.raises(ValueError, match="multiple of kv heads"):
         paged_decode_attention(q[:, :3].contiguous(), k, v, table, lens)
-    # Any query group, every dtype and head_dim up to 256 is served; a
-    # head_dim past 256 is not, in bf16, f32 and f16 alike.
+    # Any query group, every dtype and every head_dim of 1 or more is
+    # served: 288, past the widest tile, runs as three slabs of 128 and
+    # matches its plain version in bf16, f32 and f16 alike.
     k96, v96, table96, lens96, _ = _inputs(dev, torch.bfloat16, 2, [3, 9],
                                            4, 2, 288, 16, 5)
     q96 = torch.randn((2, 8, 288), generator=g).to(dev, torch.bfloat16)
     for dtype in (torch.bfloat16, torch.float32, torch.float16):
-        with pytest.raises(NotImplementedError, match="not 288"):
-            paged_decode_attention(q96.to(dtype), k96.to(dtype),
-                                   v96.to(dtype), table96, lens96)
+        args = (q96.to(dtype), k96.to(dtype), v96.to(dtype), table96,
+                lens96)
+        got = paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), paged_decode_attention_plain(
+            *args).float(), **TOL[dtype])
     qr = torch.randn((2, 3, 8, 64), generator=g).to(dev, torch.bfloat16)
     last = torch.tensor([2, 0], dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="int32"):
@@ -287,13 +298,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 def test_library_serves_every_head_dim_to_256(dev):
     """The built library answers the Python rule at every head_dim 0 to
-    300, in every dtype over both caches, and the decode kernel's group
-    tile is the host's wherever a tile holds the head_dim."""
+    1100 (slabs of 128 past 256), in every dtype over both caches, and
+    the decode kernel's group tile is the host's wherever a tile or a
+    slab holds the head_dim."""
     from production_stack_tpu_torch.ops import paged_kv_common as pkc
     from production_stack_tpu_torch.ops.paged_attention_cuda import (
         decode_group_tile)
     lib = pkc.kernel_lib()
-    for d in range(0, 301):
+    for d in range(0, 1101):
         for dtype in (torch.bfloat16, torch.float16, torch.float32):
             for cache in (dtype, torch.int8):
                 assert bool(lib.pstt_kernel_supports(

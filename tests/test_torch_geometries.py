@@ -397,8 +397,8 @@ def test_published_configs_are_served(source, nh, nkv, d):
 
 
 @pytest.mark.parametrize("dtype,cache,group,d,rule", [
-    (torch.bfloat16, None, 4, 288, "head_dim 1 to 256"),
-    (torch.float16, torch.int8, 8, 288, "not 288"),
+    (torch.bfloat16, None, 4, 0, "every head_dim of 1 or more"),
+    (torch.float16, torch.int8, 8, -1, "not -1"),
     (torch.float64, None, 4, 64, "bf16, f16 or f32 queries"),
     (torch.int8, None, 4, 64, "bf16, f16 or f32 queries"),
     (torch.bfloat16, torch.float16, 4, 64, "a cache of the query's type"),
@@ -416,8 +416,8 @@ def test_check_kernel_shapes_names_the_rule():
     page of 8 and refuses only a page under one token."""
     from production_stack_tpu_torch.ops.paged_kv_common import (
         check_kernel_shapes, kernel_page_size_supported)
-    with pytest.raises(NotImplementedError, match="not 288"):
-        check_kernel_shapes(8, 2, 288, 16, torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="not -1"):
+        check_kernel_shapes(8, 2, -1, 16, torch.bfloat16)
     assert kernel_page_size_supported(8)
     with pytest.raises(NotImplementedError, match="page_size 0"):
         check_kernel_shapes(8, 2, 64, 0, torch.float16, torch.int8)

@@ -16,8 +16,9 @@ Covered: the three plain page walks (decode, prefill, ragged) per
 layer, stacked and over an int8 cache, and the decode kernel's
 burst-tail form, at head_dim 96, 100, 160 and 256, query groups 1 and
 3, f32, bf16 and f16, pages 8 and 128; the tile and refusal rule over
-head dims 0 to 300 and over published configurations, with a stub of
-the library's answer read from the instantiation list; greedy streams
+head dims 0 to 1100 (above 256 the slabs of tests/test_torch_head_dims_wide.py)
+and over published configurations, with a stub of the library's
+answer read from the instantiation list; greedy streams
 of the port's engine (f32) byte-identical to the JAX engine's for a
 tiny llama at head_dim 100 and at an explicit head_dim 256.
 
@@ -76,6 +77,7 @@ from production_stack_tpu_torch.ops.paged_kv_common import (
     check_kernel_shapes,
     kernel_geometry_refusal,
     kernel_geometry_supported,
+    kernel_head_dim_slabs,
     kernel_head_dim_tile,
 )
 from production_stack_tpu_torch.ops.prefill_attention_cuda import (
@@ -319,18 +321,23 @@ class _StubKernelLib:
     """The library's answer as its instantiation list reads
     (csrc/paged_kv_common.cuh): the (dtype code, cache code) pairs of
     PSTT_FOR_EACH_GEOMETRY, any query group of 1 or more, and any
-    head_dim that a tile of PSTT_FOR_EACH_HEAD_DIM holds (head_dim_tile:
-    the smallest tile at or above it)."""
+    head_dim of 1 or more: up to the widest tile of
+    PSTT_FOR_EACH_HEAD_DIM at the smallest tile at or above it, past it
+    at the slab instance's tile (head_dim_tile)."""
 
     _SRC = (Path(__file__).resolve().parents[1] / "production_stack_tpu_torch"
             / "csrc" / "paged_kv_common.cuh").read_text()
     PAIRS = {tuple(map(int, x)) for x in re.findall(
         r"PSTT_FOR_EACH_HEAD_DIM\(X, (\d), [\w ]+, (\d), [\w ]+\)", _SRC)}
-    TILES = [int(x) for x in re.findall(r"X\(code, T, ccode, C, (\d+)\)",
-                                        _SRC)]
+    INSTANCES = re.findall(r"X\(code, T, ccode, C, (\d+), (true|false)\)",
+                           _SRC)
+    TILES = [int(d) for d, slab in INSTANCES if slab == "false"]
+    SLAB = next(int(d) for d, slab in INSTANCES if slab == "true")
 
     def head_dim_tile(self, head_dim):
-        return next((t for t in self.TILES if 1 <= head_dim <= t), 0)
+        if head_dim < 1:
+            return 0
+        return next((t for t in self.TILES if head_dim <= t), self.SLAB)
 
     def pstt_kernel_supports(self, dtype, cache_dtype, group, head_dim):
         return int((dtype, cache_dtype) in self.PAIRS and group >= 1
@@ -346,11 +353,12 @@ def test_tiles_are_the_instantiation_list():
     assert list(KERNEL_HEAD_DIM_TILES) == sorted(KERNEL_HEAD_DIM_TILES)
 
 
-@pytest.mark.parametrize("lo,hi", [(0, 100), (100, 200), (200, 301)])
+@pytest.mark.parametrize("lo,hi", [(0, 100), (100, 200), (200, 1101)])
 def test_every_head_dim_to_300_against_the_rule_and_the_stub(lo, hi):
     """Head dims 1 to 256 are served at the smallest tile at or above
-    them, in every dtype over both caches; 0 and 257 to 300 are refused
-    with the rule named. The stub library answers the same."""
+    them, in every dtype over both caches, and 257 to 1100 as slabs of
+    128 (tile 128); 0 is refused with the rule named. The stub library
+    answers the same."""
     stub = _StubKernelLib()
     codes = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 3,
              torch.int8: 2}
@@ -358,15 +366,19 @@ def test_every_head_dim_to_300_against_the_rule_and_the_stub(lo, hi):
         tile = kernel_head_dim_tile(d)
         if 1 <= d <= 256:
             assert tile == min(t for t in KERNEL_HEAD_DIM_TILES if t >= d)
-            assert stub.head_dim_tile(d) == tile
+        elif d > 256:
+            assert tile == 128 and kernel_head_dim_slabs(d) == (
+                -(-d // 128), 128)
         else:
-            assert tile is None and stub.head_dim_tile(d) == 0
+            assert tile is None
+        assert stub.head_dim_tile(d) == (tile or 0)
         for dtype in (torch.bfloat16, torch.float16, torch.float32):
             for cache in (dtype, torch.int8):
                 rule = kernel_geometry_refusal(dtype, cache, 3, d)
-                assert (rule is None) == (1 <= d <= 256), (d, rule)
+                assert (rule is None) == (d >= 1), (d, rule)
                 if rule is not None:
-                    assert "head_dim 1 to 256" in rule and f"not {d}" in rule
+                    assert ("every head_dim of 1 or more" in rule
+                            and f"not {d}" in rule)
                 assert bool(stub.pstt_kernel_supports(
                     codes[dtype], codes[cache], 3, d)) == (rule is None)
 
@@ -412,14 +424,25 @@ def test_published_configs_run_at_their_tile(monkeypatch, source, nh, nkv,
 
 @pytest.mark.parametrize("d", [0, 257, 288, 320])
 def test_head_dims_past_the_widest_tile_are_refused(monkeypatch, d):
-    """The start-up check raises before asking the library, naming the
-    rule; the decode scratch has no tile to size itself by."""
+    """Only a head_dim under 1 is refused: the start-up check raises
+    before asking the library, naming the rule, and the decode scratch
+    has no tile to size itself by. Past the widest tile a head_dim runs
+    as ceil(d / 128) slabs of 128: the check passes, and the decode
+    kernel's group tile and scratch are the tile 128's, one slab wide,
+    the slabs along the scratch's grid axis."""
     monkeypatch.setattr(paged_kv_common, "kernel_lib", _StubKernelLib)
-    with pytest.raises(NotImplementedError,
-                       match=f"head_dim 1 to 256 .*not {d}"):
-        check_kernel_shapes(12, 4, d, 16, torch.bfloat16)
-    with pytest.raises(ValueError, match=f"head_dim {d}"):
-        decode_group_tile(3, d)
+    if d < 1:
+        with pytest.raises(NotImplementedError,
+                           match=f"every head_dim of 1 or more.*not {d}"):
+            check_kernel_shapes(12, 4, d, 16, torch.bfloat16)
+        with pytest.raises(ValueError, match=f"head_dim {d}"):
+            decode_group_tile(3, d)
+        return
+    check_kernel_shapes(12, 4, d, 16, torch.bfloat16)
+    assert kernel_head_dim_slabs(d) == (3, 128)
+    assert decode_group_tile(3, d) == 4
+    assert tuple(_partials(torch.zeros(2, 12, d), 4, 3).shape) == (
+        2, 4 * 3, 3, 4, 130)
 
 
 # ---- greedy streams against the JAX engine --------------------------------

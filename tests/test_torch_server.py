@@ -668,19 +668,25 @@ class _FakeKernelLib:
     PSTT_FOR_EACH_GEOMETRY (csrc/paged_kv_common.cuh): the (dtype code,
     cache code) pairs it instantiates, at every head dim that a tile of
     PSTT_FOR_EACH_HEAD_DIM holds (head_dim_tile: 1 up to the widest
-    tile), for any query group of 1 or more; and any page of 1 token or
-    more over those caches (page_size_ok)."""
+    tile) and, where the list has a slab instance (its last, SLABS
+    true), every head dim past the widest tile (head_dim_slabs), for any
+    query group of 1 or more; and any page of 1 token or more over those
+    caches (page_size_ok)."""
 
     _SRC = (Path(__file__).resolve().parents[1] / "production_stack_tpu_torch"
             / "csrc" / "paged_kv_common.cuh").read_text()
     PAIRS = {tuple(map(int, x)) for x in re.findall(
         r"PSTT_FOR_EACH_HEAD_DIM\(X, (\d), [\w ]+, (\d), [\w ]+\)", _SRC)}
-    TILES = [int(x) for x in re.findall(
-        r"X\(code, T, ccode, C, (\d+)\)", _SRC)]
+    INSTANCES = re.findall(r"X\(code, T, ccode, C, (\d+), (true|false)\)",
+                           _SRC)
+    TILES = [int(d) for d, slab in INSTANCES if slab == "false"]
+    SLABS = [int(d) for d, slab in INSTANCES if slab == "true"]
 
     def pstt_kernel_supports(self, dtype, cache_dtype, group, head_dim):
         return int((dtype, cache_dtype) in self.PAIRS and group >= 1
-                   and any(1 <= head_dim <= t for t in self.TILES))
+                   and head_dim >= 1 and (
+                       any(head_dim <= t for t in self.TILES)
+                       or bool(self.SLABS)))
 
     def pstt_page_size_supported(self, page_size):
         return int(page_size >= 1)
@@ -695,14 +701,15 @@ def test_fake_kernel_lib_is_the_geometry_list():
                                     (1, 2)}
     assert _FakeKernelLib.TILES == list(
         paged_kv_common.KERNEL_HEAD_DIM_TILES)
+    assert _FakeKernelLib.SLABS == [paged_kv_common.SLAB_HEAD_DIM]
     codes = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 3,
              torch.int8: 2}
     fake = _FakeKernelLib()
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for cache in codes:
             for group in (0, 1, 3, 7, 8, 16):
-                for d in (0, 1, 32, 33, 64, 80, 96, 100, 128, 160, 256,
-                          257, 288):
+                for d in (-1, 0, 1, 32, 33, 64, 80, 96, 100, 128, 160,
+                          256, 257, 288, 512, 1100):
                     assert bool(fake.pstt_kernel_supports(
                         codes[dtype], codes[cache], group, d)) == (
                         paged_kv_common.kernel_geometry_supported(
@@ -722,26 +729,38 @@ def _checkpoint_config(tmp_path, head_dim):
     return str(tmp_path)
 
 
-@pytest.mark.parametrize("head_dim,dtype,rule", [
-    (288, "bfloat16", "head_dim 1 to 256"),
-    (288, "float16", "not 288"),
-    (320, "float32", "head_dim 1 to 256"),
+@pytest.mark.parametrize("head_dim,dtype", [
+    (288, "bfloat16"),
+    (288, "float16"),
+    (320, "float32"),
 ])
 def test_dtype_the_kernels_lack_is_refused_on_the_card(monkeypatch, tmp_path,
-                                                       head_dim, dtype,
-                                                       rule):
-    """--dtype on the card: a geometry the kernels do not serve is
-    refused at start, before any weight is made, naming the rule it
-    breaks; never served through the plain path."""
+                                                       head_dim, dtype):
+    """--dtype on the card at a checkpoint's head_dim past the widest
+    tile: no geometry of 1 or more is refused any more. The start-up
+    gate passes, the rule and the library (its slab instance) both
+    serving it over the model's dtype and over int8, before any weight
+    is read; a head_dim under 1 is still refused, naming the rule."""
+    from production_stack_tpu_torch.engine.model_runner import (
+        check_engine_geometry)
+    from production_stack_tpu_torch.engine.server import (
+        engine_config_from_args)
     from production_stack_tpu_torch.ops import paged_kv_common
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(paged_kv_common, "kernel_lib", _FakeKernelLib)
-    with pytest.raises(NotImplementedError) as err:
-        build_engine_from_args(parse_args([
-            "--model", _checkpoint_config(tmp_path, head_dim),
-            "--random-weights", "--tokenizer", "bench", "--dtype", dtype]))
-    assert rule in str(err.value)
-    assert f"query group 4, head_dim {head_dim}" in str(err.value)
+    config, _ = engine_config_from_args(parse_args([
+        "--model", _checkpoint_config(tmp_path, head_dim),
+        "--random-weights", "--tokenizer", "bench", "--dtype", dtype]),
+        torch.device("cpu"))
+    assert config.model.head_dim == head_dim
+    assert config.model.num_attention_heads // (
+        config.model.num_key_value_heads) == 4
+    for kv in ("auto", "int8"):
+        config.cache.kv_cache_dtype = kv
+        check_engine_geometry(config)
+    with pytest.raises(NotImplementedError,
+                       match="every head_dim of 1 or more.*not 0"):
+        paged_kv_common.check_kernel_shapes(8, 2, 0, 16,
+                                            config.model.torch_dtype)
     # The preset dtypes pass the same question.
     paged_kv_common.check_kernel_shapes(32, 8, 64, 128, torch.bfloat16)
     paged_kv_common.check_kernel_shapes(4, 2, 32, 16, torch.float32,
