@@ -1509,12 +1509,19 @@ GRAPH_CASES = [
 HOST_WINDOW_STEPS = 4
 
 
+# The device kernels of each counted launch, by the suffix their names
+# carry after the counter's name (prefill: the wgmma walk, the mma.sync
+# slab walk, the f32 walk; ragged: the mma.sync walk, the f32 walk).
+KERNEL_SUFFIXES = ("_kernel", "_mma_kernel", "_wgmma_kernel",
+                   "_mma_slab_kernel")
+
+
 def _kernel_family(name: str):
     """The launch counter a device kernel's name belongs to (its forms
     summed), or None: the decode kernel's merge is not a counted
     launch."""
     for kernel in KERNELS:
-        if kernel + "_kernel" in name or kernel + "_mma_kernel" in name:
+        if any(kernel + suffix in name for suffix in KERNEL_SUFFIXES):
             return kernel
     return None
 

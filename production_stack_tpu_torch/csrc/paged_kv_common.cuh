@@ -3,9 +3,10 @@
 // geometries they are built for, the layer offsets, row maps and masks,
 // the asynchronous staging of a chunk (cp.async), and page_walk_block,
 // the f32 FMA page walk. f32 prefill and ragged run page_walk_block;
-// bf16 and f16 prefill and ragged run the tensor-core walk of
-// paged_walk_mma.cuh, decode its own split walk (paged_decode.cu). The
-// contract below is the same for all of them.
+// bf16 and f16 prefill run the wgmma walk of paged_walk_wgmma.cuh (its
+// slabs the mma.sync slab walk), bf16 and f16 ragged the tensor-core
+// walk of paged_walk_mma.cuh, decode its own split walk
+// (paged_decode.cu). The contract below is the same for all of them.
 //
 // Counterpart of make_page_dma / run_page_walk in the JAX package's
 // ops/paged_kv_common.py. One block owns one (row, kv head) pair and a

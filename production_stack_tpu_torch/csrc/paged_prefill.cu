@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas TPU kernel paged_prefill_attention
 // (production_stack_tpu/ops/prefill_attention_pallas.py:149). Grid
-// (query tile, kv_head, batch); the G * T query rows of a (row, kv
-// head) pair are flattened g-major and cut into tiles of 64 rows.
+// (query tile, kv_head, batch; the wgmma walk: kv head, batch, query
+// tile); the G * T query rows of a (row, kv head) pair are flattened
+// g-major and cut into tiles of 64 rows (128 on the wgmma walk).
 // Query t of a row sits at q_positions[b, 0] + t; a tile stops at the
 // last chunk its highest query position can see, which skips only
 // fully masked work. A row with kv_len 0 writes 0.
@@ -12,24 +13,33 @@
 // head_dim operations per visible (query, token) pair over K/V that
 // the G * T rows of a kv head share, far above the card's ridge of
 // about 295 bf16 operations per byte; so the products have to run on
-// the tensor cores. bf16 and f16 queries (over a cache of their type
-// or int8) take the tensor-core walk of paged_walk_mma.cuh: one block
-// of 4 warps, each warp 16 rows with q in registers, mma.sync in the
-// query's type for q.k^T and p.v, scores and probabilities in
-// registers, K/V staged in 16 bits through two cp.async stages (68 KB
-// a block and three blocks an SM at head_dim 64; at 128 one stage of
-// 68 KB, two blocks an SM; at 256 two stages of half chunks and q read
-// from shared memory, 177 KB, one block an SM). f32 queries (held to
-// 1e-4) keep page_walk_block (paged_kv_common.cuh): f32 FMA over f32
-// tiles, one block of 256 threads a tile (194 KB of shared memory at
-// head_dim 128; at 256 half a chunk at a time, 212 KB). The choice is
-// by type, at compile time; the query group is a run-time value of both
-// walks (any group: G * T rows cut into tiles). Any head_dim from 1 to
-// 256 runs at its tile (head_dim_tile, paged_kv_common.cuh), padded in
-// the kernel below it; above 256, as slabs of 128 (the slab design in
-// paged_kv_common.cuh), grid y over kv heads x slabs, on the
-// tensor-core slab walk (page_walk_block_mma_slab: 90 KB, two blocks
-// an SM) or the f32 walk's slab form.
+// the tensor cores at Hopper's rate, which only wgmma reaches, and the
+// copies, the int8 conversion and the softmax must stay off the
+// products' path. bf16 and f16 queries (over a cache of their type or
+// int8) up to head_dim 256 take the walk of paged_walk_wgmma.cuh: a
+// block of one or two consumer warpgroups (64-row tiles where G * T
+// fits in 64, else 128) and a producer warpgroup with few registers
+// (setmaxnreg). The producer resolves a span's page ids once and fills
+// a ring of 2 to 4 stages of 64 tokens' K and V in the 128-byte
+// swizzle, with cp.async copies reporting to a `full` mbarrier; an int8
+// cache is copied raw and converted by the producer, off the
+// consumers' path. Each consumer warpgroup runs q . k^T (m64n64k16, K
+// as it lies: the transpose bit) and p . v (m64nDk16, V as it lies) as
+// wgmma from the stage's descriptors, q and p as register operands (q
+// from a swizzled shared tile at 256), the online softmax in
+// registers, and frees the stage on an `empty` mbarrier: no block-wide
+// barrier between copies and products. Tiles are launched heaviest
+// first. f32 queries (held to 1e-4) keep page_walk_block
+// (paged_kv_common.cuh): f32 FMA over f32 tiles, one block of 256
+// threads a tile (194 KB of shared memory at head_dim 128; at 256 half
+// a chunk at a time, 212 KB). The choice is by type, at compile time;
+// the query group is a run-time value of both walks (any group: G * T
+// rows cut into tiles). Any head_dim from 1 to 256 runs at its tile
+// (head_dim_tile, paged_kv_common.cuh), padded in the kernel below it;
+// above 256, as slabs of 128 (the slab design in paged_kv_common.cuh),
+// grid y over kv heads x slabs, on the mma.sync slab walk
+// (page_walk_block_mma_slab, paged_walk_mma.cuh: 90 KB, two blocks an
+// SM) or the f32 walk's slab form.
 //
 // The kernels' templates are in paged_prefill.cuh;
 // paged_prefill_bf16.cu, paged_prefill_f16.cu and paged_prefill_f32.cu

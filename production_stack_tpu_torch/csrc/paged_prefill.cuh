@@ -5,8 +5,13 @@
 
 #pragma once
 
+#include <limits.h>
+
+#include <algorithm>
+
 #include "paged_kv_common.cuh"
 #include "paged_walk_mma.cuh"
+#include "paged_walk_wgmma.cuh"
 
 namespace pstt {
 
@@ -89,43 +94,41 @@ paged_prefill_kernel(const T* __restrict__ q, const C* __restrict__ k_cache,
 constexpr int kMmaWarps = kTileRows / 16;  // a warp owns 16 rows
 constexpr int kMmaThreads = kMmaWarps * 32;
 
-// 16-bit queries (T bf16 or f16): the same tile and grid on the
-// tensor-core walk (SLAB: its slab walk).
-template <typename T, typename C, int D, bool SLAB>
-__global__ void __launch_bounds__(kMmaThreads,
-                                  SLAB ? mma_slab_blocks_per_sm<C>()
-                                       : mma_blocks_per_sm<C, D>())
-paged_prefill_mma_kernel(const T* __restrict__ q,
-                         const C* __restrict__ k_cache,
-                         const C* __restrict__ v_cache,
-                         const float* __restrict__ k_scale,
-                         const float* __restrict__ v_scale,
-                         const int* __restrict__ page_table,
-                         const int* __restrict__ q_positions,
-                         const int* __restrict__ kv_lens,
-                         T* __restrict__ out, int tokens,
-                         int num_q_heads, int group, int num_pages,
-                         int page_size, int max_pages, LayerOffsets layer,
-                         int hd, int slabs) {
-  const int h = SLAB ? blockIdx.y / slabs : blockIdx.y;
+// 16-bit queries (T bf16 or f16) above kMaxHeadDim: the slab walk on
+// mma.sync, the tile and grid of the f32 walk.
+template <typename T, typename C>
+__global__ void __launch_bounds__(kMmaThreads, mma_slab_blocks_per_sm<C>())
+paged_prefill_mma_slab_kernel(const T* __restrict__ q,
+                              const C* __restrict__ k_cache,
+                              const C* __restrict__ v_cache,
+                              const float* __restrict__ k_scale,
+                              const float* __restrict__ v_scale,
+                              const int* __restrict__ page_table,
+                              const int* __restrict__ q_positions,
+                              const int* __restrict__ kv_lens,
+                              T* __restrict__ out, int tokens,
+                              int num_q_heads, int group, int num_pages,
+                              int page_size, int max_pages,
+                              LayerOffsets layer, int hd, int slabs) {
+  const int h = blockIdx.y / slabs;
   const PrefillTile t(q_positions, kv_lens, tokens, num_q_heads, group,
                       num_pages, page_size, hd, h);
-  const C* k_head = k_cache + layer.data() + h * t.head_elems;
-  const C* v_head = v_cache + layer.data() + h * t.head_elems;
-  const float* ks_head =
-      kQuantized<C> ? k_scale + layer.scale() + h * t.head_slots : nullptr;
-  const float* vs_head =
-      kQuantized<C> ? v_scale + layer.scale() + h * t.head_slots : nullptr;
-  const int* pt_row = page_table + (size_t)blockIdx.z * max_pages;
-  if constexpr (SLAB)
-    page_walk_block_mma_slab<T, C, kMmaWarps>(
-        q, out, t.rows, k_head, v_head, ks_head, vs_head, pt_row, max_pages,
-        page_size, t.kv_len, t.mask, t.nrows, hd, slabs,
-        blockIdx.y - h * slabs);
-  else
-    page_walk_block_mma<T, C, D, kMmaWarps>(
-        q, out, t.rows, k_head, v_head, ks_head, vs_head, pt_row, max_pages,
-        page_size, t.kv_len, t.mask, t.nrows, hd);
+  page_walk_block_mma_slab<T, C, kMmaWarps>(
+      q, out, t.rows, k_cache + layer.data() + h * t.head_elems,
+      v_cache + layer.data() + h * t.head_elems,
+      kQuantized<C> ? k_scale + layer.scale() + h * t.head_slots : nullptr,
+      kQuantized<C> ? v_scale + layer.scale() + h * t.head_slots : nullptr,
+      page_table + (size_t)blockIdx.z * max_pages, max_pages, page_size,
+      t.kv_len, t.mask, t.nrows, hd, slabs, blockIdx.y - h * slabs);
+}
+
+// 16-bit queries up to kMaxHeadDim: the wgmma walk (paged_walk_wgmma.cuh),
+// one persistent block an SM of consumer warpgroups and a producer
+// warpgroup, taking tiles from the walk's scheduler.
+template <typename T, typename C, int D>
+__global__ void __launch_bounds__(kWgBlockThreads, 1)
+paged_prefill_wgmma_kernel(const __grid_constant__ WgArgs<T, C> a) {
+  page_walk_block_wgmma<T, C, D>(a);
 }
 
 template <typename T, typename C, int D, bool SLAB>
@@ -133,38 +136,69 @@ int launch(const PrefillArgs& a) {
   if (kQuantized<C> && (a.ks == nullptr || a.vs == nullptr))
     return cudaErrorInvalidValue;
   const int group = a.num_q_heads / a.num_kv_heads;
-  const int tiles = (group * a.tokens + kTileRows - 1) / kTileRows;
   const int slabs = head_dim_slabs(a.head_dim);
+  const auto q = static_cast<const T*>(a.q);
+  const auto k = static_cast<const C*>(a.k);
+  const auto v = static_cast<const C*>(a.v);
+  const auto ks = static_cast<const float*>(a.ks);
+  const auto vs = static_cast<const float*>(a.vs);
+  const auto pt = static_cast<const int*>(a.pt);
+  const auto qp = static_cast<const int*>(a.q_positions);
+  const auto kl = static_cast<const int*>(a.kv_lens);
+  const auto out = static_cast<T*>(a.out);
+  if constexpr (!std::is_same<T, float>::value && !SLAB) {
+    const int consumers = wg_consumers(group * a.tokens);
+    const int tile_rows = consumers * kWgRows;
+    const int tiles = (group * a.tokens + tile_rows - 1) / tile_rows;
+    const long long total = (long long)a.num_kv_heads * a.batch * tiles;
+    if (total > INT_MAX) return cudaErrorInvalidValue;
+    const WgArgs<T, C> args{q, k, v, ks, vs, pt, qp, kl, out, a.batch,
+                            a.tokens, a.num_q_heads, a.num_kv_heads, group,
+                            a.num_pages, a.page_size, a.max_pages,
+                            a.head_dim, a.layer, consumers, tiles,
+                            (int)total};
+    constexpr int smem = WgSmem<C, D>::bytes;
+    auto kernel = paged_prefill_wgmma_kernel<T, C, D>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (attr != cudaSuccess) return attr;
+    // setmaxnreg moves registers within the block's allocation: the
+    // consumers' rise must fit what the producer gives up, or it would
+    // wait forever. Refuse a build whose entry count is too small.
+    static const int entry_regs = [&] {
+      cudaFuncAttributes f{};
+      return cudaFuncGetAttributes(&f, kernel) == cudaSuccess ? f.numRegs : 0;
+    }();
+    if (entry_regs * (consumers + 1) < wg_producer_regs(D) +
+                                          consumers * wg_consumer_regs(D))
+      return cudaErrorInvalidConfiguration;
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    kernel<<<(int)std::min<long long>(total, std::max(sms, 1)),
+             (consumers + 1) * kWgThreads, smem, a.stream>>>(args);
+    return cudaGetLastError();
+  }
+  const int tiles = (group * a.tokens + kTileRows - 1) / kTileRows;
   const dim3 grid(tiles, a.num_kv_heads * slabs, a.batch);
-  if constexpr (!std::is_same<T, float>::value) {
-    constexpr size_t smem =
-        SLAB ? MmaSlabSmem<C>::bytes : MmaSmem<C, D>::bytes;
-    auto kernel = paged_prefill_mma_kernel<T, C, D, SLAB>;
+  if constexpr (!std::is_same<T, float>::value && SLAB) {
+    constexpr size_t smem = MmaSlabSmem<C>::bytes;
+    auto kernel = paged_prefill_mma_slab_kernel<T, C>;
     static const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (attr != cudaSuccess) return attr;
     kernel<<<grid, kMmaThreads, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const C*>(a.k),
-        static_cast<const C*>(a.v), static_cast<const float*>(a.ks),
-        static_cast<const float*>(a.vs), static_cast<const int*>(a.pt),
-        static_cast<const int*>(a.q_positions),
-        static_cast<const int*>(a.kv_lens), static_cast<T*>(a.out),
-        a.tokens, a.num_q_heads, group, a.num_pages, a.page_size,
-        a.max_pages, a.layer, a.head_dim, slabs);
-  } else {
+        q, k, v, ks, vs, pt, qp, kl, out, a.tokens, a.num_q_heads, group,
+        a.num_pages, a.page_size, a.max_pages, a.layer, a.head_dim, slabs);
+  } else if constexpr (std::is_same<T, float>::value) {
     constexpr size_t smem = SmemLayout<D, kTileRows, kQuantized<C>>::bytes;
     auto kernel = paged_prefill_kernel<T, C, D, SLAB>;
     static const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (attr != cudaSuccess) return attr;
     kernel<<<grid, kPrefillThreads, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const C*>(a.k),
-        static_cast<const C*>(a.v), static_cast<const float*>(a.ks),
-        static_cast<const float*>(a.vs), static_cast<const int*>(a.pt),
-        static_cast<const int*>(a.q_positions),
-        static_cast<const int*>(a.kv_lens), static_cast<T*>(a.out),
-        a.tokens, a.num_q_heads, group, a.num_pages, a.page_size,
-        a.max_pages, a.layer, a.head_dim, slabs);
+        q, k, v, ks, vs, pt, qp, kl, out, a.tokens, a.num_q_heads, group,
+        a.num_pages, a.page_size, a.max_pages, a.layer, a.head_dim, slabs);
   }
   return cudaGetLastError();
 }

@@ -12,32 +12,36 @@ What bounds it on the card: at long T, operations. A 512-token chunk
 does 4 * num_q_heads * head_dim * (visible tokens) operations per
 query while the KV it reads is shared by the G * T query rows of a kv
 head, so it sits far above the ~295 operations per byte ridge, and the
-products have to run on the tensor cores. For bf16 and f16 queries
-(over a cache of their type or int8) the kernel is the tensor-core walk
-of ``csrc/paged_walk_mma.cuh``: blocks of 64 query rows (grid: query
-tile, kv_head, batch; any query group, its G * T rows cut into tiles),
-four warps of 16 rows with q in registers; q.k^T and p.v as
-``mma.sync`` in the query's type with f32 accumulation, K and V fed by
-``ldmatrix`` from the pages as they lie (token-minor, nothing
-transposed); scores, probabilities, m, l and the output accumulator in
-registers (softmax with quad shuffles and ``exp2f``), the probabilities
-packed to the query's type in place as the next product's operand; K/V
-staged in 16 bits through two stages of asynchronous copies (68 KB a
-block, three blocks an SM, at head_dim 64); the mask compared only
-where it cuts. An int8 cache (a QuantKV) stages its raw pages and
-scales with the same copies, converts each chunk once to the query's
-type (exact) and folds the scales into the scores and the
-probabilities in the Pallas order. A tile stops walking at the last
-chunk its highest query position can see. f32 queries (held to 1e-4)
-keep the f32 FMA walk of ``csrc/paged_kv_common.cuh``. Any head_dim
-from 1 to 256, run at its tile (32, 64, 80, 128 or 256,
-``paged_kv_common.kernel_head_dim_tile``) and padded in the kernel
-below it, as the Pallas kernel pads head_dim to its lane tile: no copy
-of q or of the cache. At the tile 256 the walk stages half a chunk at a
-time and reads q from shared memory. Above 256, as slabs of 128
-(``paged_kv_common.kernel_head_dim_slabs``): a block writes one slab of
-the output, sums the scores over every slab (q and K staged a slab at
-a time) and takes p . v from its own V slab.
+products have to run on the tensor cores at Hopper's rate: ``wgmma``.
+For bf16 and f16 queries (over a cache of their type or int8) up to
+head_dim 256 the kernel is the walk of ``csrc/paged_walk_wgmma.cuh``
+(grid: kv head, batch, query tile heaviest first; any query group, its
+G * T rows cut into tiles of 128 rows, or 64 where they fit in 64): a
+block is one or two consumer warpgroups of 64 rows and a producer
+warpgroup (``setmaxnreg``: 56 registers against 224). The producer
+resolves a span's page ids once and fills a ring of 2 to 4 stages, each
+the K and V of 64 tokens in the 128-byte swizzle that ``wgmma``
+descriptors read, with ``cp.async`` copies (16 bytes a copy at every
+page that is a power of two of 16 bytes or more, as wide as the page
+row allows at any other) that report to an ``mbarrier``; an int8 cache
+(a QuantKV) is copied raw into a ring of its own and converted to the
+query's type (exact) by the producer, off the consumers' path, its
+scales staged beside it. The consumers run q . k^T (m64n64k16, K as it
+lies: the transpose bit) and p . v (m64nDk16, V as it lies) as
+``wgmma`` from shared memory with q and p as register operands (q from
+a swizzled shared tile at head_dim 256), the scores, the online softmax
+(``exp2f``, the int8 scales folded in the Pallas order) and the output
+in registers, and release each stage to the producer on a second
+barrier. ``prefill_walk_plan`` mirrors the plan. f32 queries (held to
+1e-4) keep the f32 FMA walk of ``csrc/paged_kv_common.cuh``. Any
+head_dim from 1 to 256 runs at its tile (32, 64, 80, 128 or 256,
+``paged_kv_common.kernel_head_dim_tile``), padded in the kernel below
+it, as the Pallas kernel pads head_dim to its lane tile: no copy of q
+or of the cache. Above 256, as slabs of 128
+(``paged_kv_common.kernel_head_dim_slabs``) on the ``mma.sync`` slab
+walk of ``csrc/paged_walk_mma.cuh``: a block writes one slab of the
+output, sums the scores over every slab (q and K staged a slab at a
+time) and takes p . v from its own V slab.
 
 Contract (the Pallas kernel's): q [B, T, num_q_heads, head_dim]; the
 per-layer or, with ``layer``, the stacked cache, as the decode kernel
@@ -50,7 +54,7 @@ with kv_len 0 writes exact 0.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -63,6 +67,7 @@ from production_stack_tpu_torch.ops.paged_kv_common import (
     counter_name,
     data_ptr,
     dtype_code,
+    kernel_head_dim_slabs,
     kernel_lib,
     layer_args,
     page_walk_plain,
@@ -71,6 +76,73 @@ from production_stack_tpu_torch.ops.paged_kv_common import (
 )
 
 KERNEL_NAME = "paged_prefill"
+
+# The wgmma walk's plan (csrc/paged_walk_wgmma.cuh: kWgSpan, kWgRows,
+# kWgMaxConsumers, kWgMaxStages, WgSmem, wg_consumers, wg_whole_pages),
+# mirrored for the tools and the CPU tests, which hold it against the
+# source.
+WG_SPAN_TOKENS = 64
+WG_ROWS = 64
+WG_MAX_CONSUMERS = 2
+WG_MAX_STAGES = 4
+MAX_BLOCK_SMEM = 232448
+
+
+def _wg_smem(int8: bool, tile: int) -> Tuple[int, int, int]:
+    """(ring stages, raw stages, shared bytes) of the wgmma walk at a
+    head-dim tile (WgSmem): q slots (two up to 128, one at 256) of two
+    consumers' 64 rows in 64-column blocks, as many stages of a 64-token
+    span's K and V planes as fit up to four, two raw int8 stages where
+    they fit, the scales, the page ids, the tile ring, the barriers and
+    1024 bytes of alignment."""
+    slot = 2 * tile * 128
+    scales = 2 * WG_SPAN_TOKENS * 4 if int8 else 0
+    q_slots = 1 if tile > 128 else 2
+    q_tile = WG_ROWS * (-(-tile // 64) * 64) * 2
+    raw_slot = (2 * tile * WG_SPAN_TOKENS + 2 * WG_SPAN_TOKENS * 4
+                if int8 else 0)
+
+    def size(stages, raw):
+        return (stages * (slot + scales)
+                + q_slots * WG_MAX_CONSUMERS * q_tile + raw * raw_slot
+                + WG_SPAN_TOKENS * 4 + 2 * 4 * 4
+                + (2 * stages + 4 + 2 * q_slots) * 8 + 1024)
+
+    raw = (2 if size(2, 2) <= MAX_BLOCK_SMEM else 1) if int8 else 0
+    stages = next(s for s in (WG_MAX_STAGES, 3, 2)
+                  if s == 2 or size(s, raw) <= MAX_BLOCK_SMEM)
+    return stages, raw, size(stages, raw)
+
+
+def prefill_walk_plan(dtype: torch.dtype, cache_dtype: torch.dtype,
+                      group: int, tokens: int, head_dim: int,
+                      page_size: int) -> Dict[str, object]:
+    """The walk the prefill kernel runs on the card for these shapes,
+    as the launch picks it: ``walk`` is ``wgmma`` (bf16 or f16 queries
+    up to head_dim 256), ``mma_slab`` (16-bit above 256) or ``f32``.
+    For the wgmma walk: the head-dim ``tile``, ``consumers`` warpgroups
+    (one where the G * T rows fit in 64) and ``tile_rows``, ring
+    ``stages`` and int8 ``raw_stages``, the producer's ``copies``
+    (``pages``: whole-page 16-byte copies at a power of two of 16
+    bytes or more; ``tokens`` otherwise), ``q_slots`` and
+    ``smem_bytes`` a block."""
+    slabs, tile = kernel_head_dim_slabs(head_dim)
+    if dtype == torch.float32:
+        return {"walk": "f32", "tile": tile, "tile_rows": 64}
+    if slabs > 1:
+        return {"walk": "mma_slab", "tile": tile, "tile_rows": 64,
+                "slabs": slabs}
+    int8 = cache_dtype == torch.int8
+    consumers = 1 if group * tokens <= WG_ROWS else WG_MAX_CONSUMERS
+    stages, raw, smem = _wg_smem(int8, tile)
+    esz = 1 if int8 else 2
+    pow2 = page_size & (page_size - 1) == 0
+    return {"walk": "wgmma", "tile": tile, "consumers": consumers,
+            "tile_rows": consumers * WG_ROWS, "stages": stages,
+            "raw_stages": raw,
+            "copies": "pages" if pow2 and page_size * esz >= 16
+            else "tokens",
+            "q_slots": 1 if tile > 128 else 2, "smem_bytes": smem}
 
 
 def paged_prefill_attention(q: torch.Tensor, k_cache: torch.Tensor,

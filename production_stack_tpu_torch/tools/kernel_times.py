@@ -3,12 +3,18 @@
     python production_stack_tpu_torch/tools/kernel_times.py [--repo DIR] \
         [--geometry bench-1b|g4_d128|g1_d64|g7_d128|g8_d128|g1_d80|
                     g7_d64|g1_d128|g3_d256|g1_d100|g3_d512|g1_d320]
-        [--page-size P]
+        [--page-size P] [--kernels decode,prefill,ragged]
 
 Times ``paged_decode_attention`` (B = 32, kv lens spread over 1..1024
 with two pad rows, page size 128), ``paged_prefill_attention`` (B = 8,
-T = 512, first chunk, live lengths 64..512 with one pad row, page size
-128) and ``paged_ragged_attention`` (the widest unified mixed step of
+T = 512, live lengths 64..512 with one pad row, page size 128: the
+first chunk, and the second chunk from position 512 as
+``paged_prefill_second``; beside each, ``library_paged_prefill*``:
+one ``scaled_dot_product_attention`` over the same K/V gathered dense,
+with the same mask, a yardstick the port never calls; and, where the
+wrapper has it, the walk's plan as ``prefill_plan``: tile rows,
+consumer warpgroups, ring stages, copy path) and
+``paged_ragged_attention`` (the widest unified mixed step of
 the serving configuration, R = 40 rows at W = 512: 28 decode rows, 8
 chunk rows of first and second chunks, 4 pad rows; the speculative
 verify block, B = 32 at W = 5, draft lens 0..4, two pad rows; and the
@@ -29,7 +35,8 @@ heads at 512, four slabs of 128, ``g3_d256``'s K/V bytes; ``g1_d320``:
 geometry's dtype
 (bf16 where none is named) over a cache of that type and an int8 one,
 through the public wrappers of the checkout at ``--repo``
-(default: the checkout this file lies in). ``--page-size P`` (default
+(default: the checkout this file lies in); ``--kernels`` names the
+kernels to time (default all three). ``--page-size P`` (default
 128) times the same rows over pages of P tokens (the same 1024-token
 table width; a checkout whose kernels refuse P raises). The unified
 block also runs
@@ -160,6 +167,29 @@ def _table(kv_lens, ps, max_pages, num_pages, gen, dev):
     return table.to(dev)
 
 
+def _sdpa_call(q, k, v, table, pos, kv_lens, group):
+    """One ``scaled_dot_product_attention`` computing the prefill
+    kernel's function on the same inputs: each row's K/V gathered from
+    its pages into dense [B, heads, L, d] (an int8 cache dequantized),
+    the causal and length mask as a boolean [B, 1, T, L]."""
+    def dense(cache):
+        data = getattr(cache, "data", cache)
+        if hasattr(cache, "scale"):
+            data = (data.float() * cache.scale[:, :, None, :]).to(q.dtype)
+        g = data[:, table.long()]  # [kv, B, P, d, ps]
+        kvh, b, p, d, ps = g.shape
+        kmax = int(kv_lens.max())
+        flat = g.permute(1, 0, 2, 4, 3).reshape(b, kvh, p * ps, d)
+        return flat[:, :, :kmax].repeat_interleave(group, dim=1)
+    kd, vd = dense(k), dense(v)
+    tok = torch.arange(kd.shape[2], device=q.device)
+    mask = ((tok[None, None, :] <= pos.long()[:, :, None])
+            & (tok[None, None, :] < kv_lens.long()[:, None, None]))[:, None]
+    qd = q.transpose(1, 2)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="kernel_times")
     p.add_argument("--repo", default=os.path.join(
@@ -168,6 +198,9 @@ def main(argv=None) -> int:
                    choices=sorted(GEOMETRIES))
     p.add_argument("--page-size", type=int, default=128,
                    help="tokens a page holds (default 128)")
+    p.add_argument("--kernels", default="decode,prefill,ragged",
+                   help="the kernels to time, comma-separated (default: "
+                   "all three)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA device")
@@ -179,6 +212,8 @@ def main(argv=None) -> int:
     from production_stack_tpu_torch.ops.quant_kv import QuantKV, quantize_kv
     from production_stack_tpu_torch.ops.ragged_attention_cuda import (
         paged_ragged_attention)
+    from production_stack_tpu_torch.ops import prefill_attention_cuda
+    plan = getattr(prefill_attention_cuda, "prefill_walk_plan", None)
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -214,18 +249,20 @@ def main(argv=None) -> int:
 
     out = {"repo": os.path.abspath(args.repo), "geometry": args.geometry,
            "page_size": ps}
+    kernels = set(args.kernels.split(","))
     for int8 in (False, True):
         tag = "_int8" if int8 else ""
         lens = np.linspace(1, 1024, 32).round().astype(int).tolist()
         lens[7] = lens[21] = 0
-        k, v = caches(decode_pages, int8)
-        q = torch.randn((32, nh, d), generator=gen).to(dev, dtype)
-        table = _table(lens, ps, max_pages, decode_pages, gen, dev)
-        kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
-        _time(out, "paged_decode" + tag,
-              lambda: paged_decode_attention(q, k, v, table, kv_lens), flush)
-        if not int8 and "num_splits" in inspect.signature(
-                paged_decode_attention).parameters:
+        if "decode" in kernels:
+            k, v = caches(decode_pages, int8)
+            q = torch.randn((32, nh, d), generator=gen).to(dev, dtype)
+            table = _table(lens, ps, max_pages, decode_pages, gen, dev)
+            kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+            _time(out, "paged_decode" + tag, lambda: paged_decode_attention(
+                q, k, v, table, kv_lens), flush)
+        if ("decode" in kernels and not int8 and "num_splits" in
+                inspect.signature(paged_decode_attention).parameters):
             for label, n in (("pad_rows", 0), ("one_token_rows", 1)):
                 short = torch.full((32,), n, dtype=torch.int32, device=dev)
                 for splits in (1, 3):
@@ -235,14 +272,27 @@ def main(argv=None) -> int:
                           flush)
 
         live = [512, 448, 384, 320, 256, 0, 128, 64]
-        k, v = caches(8 * max_pages + 1, int8)
-        q = torch.randn((8, 512, nh, d), generator=gen).to(dev, dtype)
-        table = _table(live, ps, max_pages, 8 * max_pages + 1, gen, dev)
-        kv_lens = torch.tensor(live, dtype=torch.int32, device=dev)
-        pos = torch.arange(512, dtype=torch.int32, device=dev).repeat(8, 1)
-        _time(out, "paged_prefill" + tag,
-              lambda: paged_prefill_attention(q, k, v, table, pos, kv_lens),
-              flush)
+        chunks = (("", 0), ("_second", 512)) if "prefill" in kernels else ()
+        for chunk, start in chunks:
+            lens = [start + n if n else 0 for n in live]
+            k, v = caches(8 * max_pages + 1, int8)
+            q = torch.randn((8, 512, nh, d), generator=gen).to(dev, dtype)
+            table = _table(lens, ps, max_pages, 8 * max_pages + 1, gen,
+                           dev)
+            kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+            pos = (torch.tensor([start if n else 0 for n in live],
+                                dtype=torch.int32, device=dev)[:, None]
+                   + torch.arange(512, dtype=torch.int32, device=dev)
+                   ).contiguous()
+            key = "paged_prefill" + chunk + tag
+            _time(out, key, lambda: paged_prefill_attention(
+                q, k, v, table, pos, kv_lens), flush)
+            sdpa = _sdpa_call(q, k, v, table, pos, kv_lens, nh // kv)
+            _time(out, "library_" + key, sdpa, flush)
+            del sdpa
+        if plan is not None:
+            out["prefill_plan" + tag] = plan(
+                dtype, torch.int8 if int8 else dtype, nh // kv, 512, d, ps)
 
         # Ragged blocks as (kv_len, last_index) per row.
         decode_lens = np.linspace(70, 1024, 28).round().astype(int).tolist()
@@ -259,7 +309,8 @@ def main(argv=None) -> int:
             "dead_tiles": (512, [(n, 0) for n in decode_lens]
                            + [(0, -1)] * 12, False),
         }
-        for label, (w, rows, is_verify) in blocks.items():
+        for label, (w, rows, is_verify) in (
+                blocks.items() if "ragged" in kernels else ()):
             pages = len(rows) * max_pages + 1
             k, v = caches(pages, int8)
             q = torch.randn((len(rows), w, nh, d), generator=gen).to(dev,
@@ -288,7 +339,7 @@ def main(argv=None) -> int:
                 _time(out, f"paged_ragged_unified{tag}_{form}", calls[form],
                       flush, append=True)
             del k5, v5
-    if args.geometry == "bench-1b":
+    if args.geometry == "bench-1b" and "decode" in kernels:
         _int8_weight_times(out, dev, gen, flush)
     print(json.dumps(out), flush=True)
     return 0

@@ -6,6 +6,7 @@ difference. The script itself needs a card; only its pure helper runs
 here (loaded from its file, so nothing of it runs at import)."""
 
 import importlib.util
+import re
 from pathlib import Path
 
 import pytest
@@ -436,3 +437,23 @@ def test_bound_takes_the_f32_fma_peak():
     assert f32["bound_ms"] == pytest.approx(1.0)
     assert f16["bound_ms"] == pytest.approx(67 / 989)
     assert f32["bound_by"] == "operations"
+
+
+@pytest.mark.parametrize("source,counter", [
+    ("paged_prefill.cuh", "paged_prefill"),
+    ("paged_ragged.cuh", "paged_ragged")])
+def test_profiled_kernel_names_map_to_their_counters(source, counter):
+    """The graph and observatory phases count the kernels the profiler
+    saw by their counters: every __global__ of the prefill and ragged
+    sources (the wgmma walk, the mma.sync and slab walks, the f32 walk)
+    maps to its kernel's counter; the decode merge maps to none."""
+    src = (Path(__file__).resolve().parents[1] / "production_stack_tpu_torch"
+           / "csrc" / source).read_text()
+    names = re.findall(r"__global__ void[^\n]*\n(\w+)\(", src)
+    assert names
+    for name in names:
+        demangled = f"void pstt::(anonymous namespace)::{name}<float>(...)"
+        assert chip_smoke._kernel_family(demangled) == counter, name
+    assert chip_smoke._kernel_family(
+        "void pstt::(anonymous namespace)::paged_decode_merge_kernel"
+        "<float, 64, 1>(...)") is None

@@ -33,7 +33,12 @@ size 16..128 with row starts off the tile and the chunk; the ragged
 kernel on the tensor-core walk at decode rows alone (every tile but the
 first dead), a verify block at draft lens 0..4 and chunk rows whose
 live slots end inside a tile, page sizes 16 to 128, bf16 and int8,
-per-layer and stacked; and two launches of each giving equal bits.
+per-layer and stacked; and two launches of each giving equal bits. The
+prefill kernel's wgmma walk (csrc/paged_walk_wgmma.cuh) at every
+head-dim tile and two padded head dims, pages 1 to 256, bf16, f16 and
+int8 caches per layer and stacked, T buckets 16 to 512 over first and
+second chunks (``-k wgmma``): written into a NaN-guarded buffer, every
+slot written, kv_len-0 rows exact 0, nothing past the output.
 The engine's step graphs: the tiny engine replaying its steps as CUDA
 graphs gives the eager card run's and the CPU's greedy streams (main
 path, bimodal, int8 stacked, speculative, bursts), its unseeded draws
@@ -450,6 +455,83 @@ def test_prefill_mma_buckets_and_page_sizes(dev, t, page_size, int8, group,
                                **TOL[torch.bfloat16])
     assert torch.equal(got, again)
     assert not got[4].any()
+
+
+# The prefill kernel's wgmma walk (csrc/paged_walk_wgmma.cuh): every
+# head-dim tile and two padded head dims, pages 1 to 256, bf16, f16 and
+# int8 caches per layer and stacked; each case one T bucket of 16..512
+# (rotating over the cases), rows of a first and a second chunk, a
+# one-token row and a kv_len-0 row.
+WGMMA_HEAD_DIMS = [32, 64, 80, 128, 256, 100, 160]
+WGMMA_PAGES = [1, 8, 16, 48, 128, 256]
+WGMMA_FORMS = {"bf16": (torch.bfloat16, False, False),
+               "f16": (torch.float16, False, False),
+               "bf16_int8": (torch.bfloat16, True, False),
+               "f16_int8": (torch.float16, True, False),
+               "bf16_stacked": (torch.bfloat16, False, True),
+               "bf16_int8_stacked": (torch.bfloat16, True, True)}
+WGMMA_T = [16, 32, 64, 128, 256, 512]
+
+
+def _prefill_into(out, q, k, v, table, pos, lens, layer=None):
+    """The prefill kernel's launch as the wrapper makes it, into a
+    given ``out`` (a view of a larger buffer)."""
+    from production_stack_tpu_torch.ops import paged_kv_common as pkc
+    kc, vc, ks, vs = pkc.split_cache(k, v)
+    b, t, nh, d = q.shape
+    kvh, num_pages, _, ps = kc.shape[-4:]
+    err = pkc.kernel_lib().pstt_paged_prefill(
+        pkc.dtype_code(q.dtype), pkc.cache_code(kc.dtype), q.data_ptr(),
+        kc.data_ptr(), vc.data_ptr(), pkc.data_ptr(ks), pkc.data_ptr(vs),
+        table.data_ptr(), pos.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        b, t, nh, kvh, d, num_pages, ps, table.shape[1],
+        *pkc.layer_args(kc, ks, layer), pkc.stream_ptr())
+    assert err == 0
+
+
+@pytest.mark.parametrize("form", sorted(WGMMA_FORMS))
+@pytest.mark.parametrize("page_size", WGMMA_PAGES)
+@pytest.mark.parametrize("head_dim", WGMMA_HEAD_DIMS)
+def test_prefill_wgmma_walk_matches_plain(dev, head_dim, page_size, form):
+    """Group 3 over 2 kv heads (G * T rows: 48 at T = 16, one consumer
+    warpgroup and a 64-row tile with 16 pad rows; 96 and up, two and a
+    128-row tile). The launch writes into a view of a NaN-filled buffer:
+    every slot is written, kv_len-0 rows exact 0, and nothing past the
+    output (the last tile's pad rows) is; two launches equal bit for
+    bit."""
+    dtype, int8, stacked = WGMMA_FORMS[form]
+    case = (WGMMA_HEAD_DIMS.index(head_dim) * len(WGMMA_PAGES)
+            + WGMMA_PAGES.index(page_size)) * len(WGMMA_FORMS) + sorted(
+                WGMMA_FORMS).index(form)
+    t = WGMMA_T[case % len(WGMMA_T)]
+    rows = [(0, t), (600, max(1, t - 3)), (0, 0), (37, 1)]
+    kv_lens = [s + n if n else 0 for s, n in rows]
+    k, v, table, lens, g = _wide_inputs(dev, dtype, kv_lens, 3, 2,
+                                        head_dim, page_size, 1152, case,
+                                        int8)
+    layer = None
+    if stacked:
+        layer = 2
+        k, v = _stacked(k, 3, layer, g), _stacked(v, 3, layer, g)
+    q = torch.randn((len(rows), t, 6, head_dim), generator=g).to(dev, dtype)
+    starts = torch.tensor([s if n else 0 for s, n in rows],
+                          dtype=torch.int32, device=dev)
+    pos = (starts[:, None] + torch.arange(t, dtype=torch.int32,
+                                          device=dev)).contiguous()
+    guard = 3 * 64 * 6 * head_dim
+    buf = torch.full((q.numel() + guard,), float("nan"), dtype=dtype,
+                     device=dev)
+    got = buf[:q.numel()].view(q.shape)
+    _prefill_into(got, q, k, v, table, pos, lens, layer)
+    again = paged_prefill_attention(q, k, v, table, pos, lens, layer=layer)
+    ref = paged_prefill_attention_plain(q, k, v, table, pos, lens,
+                                        layer=layer)
+    torch.cuda.synchronize()
+    assert not got.isnan().any()
+    assert buf[q.numel():].isnan().all()
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+    assert torch.equal(got, again)
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
 
 
 # Ragged blocks of the tensor-core walk at the bench-1b geometry, as
