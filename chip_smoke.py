@@ -320,8 +320,14 @@ its result line:
     at page 16, and group {1, 3, 4, 8} x head_dim {96, 100, 160, 256}
     (padded in the kernel but 256) and head_dim {257, 288, 320, 384,
     448, 512, 576, 640, 1024} (slabs of 128, the last padded but at 384,
-    512 and 1024) at pages 128 and 16 (BF16_TOL for bf16 and f16,
-    F32_TOL for f32), with ``pstt_kernel_supports`` and
+    512 and 1024; 16-bit prefill to 512 on the wgmma walk's wide form,
+    at its widths 384 and 512) at pages 128 and 16 (BF16_TOL for bf16
+    and f16, F32_TOL for f32), each prefill launch at group 3 and page
+    16 held, by its device kernel's name under torch.profiler (in a
+    process of its own), to the walk ``prefill_walk_plan`` names (every
+    head_dim from 257 to 512 on the wide form, those above on the slab
+    walk), with
+    ``pstt_kernel_supports`` and
     ``pstt_decode_group_tile`` held to the Python rule on every point,
     at every head_dim 0..1100 and on points outside it (head_dim 0 and
     -1, int8 queries, a mixed cache, group 0). Then timed like the
@@ -332,9 +338,10 @@ its result line:
     head_dim 80 in f16 (``g1_d80``), Qwen2-0.5B's group 7 at 64 in f32
     (``g7_d64``, its bound at the f32 FMA rate), Llama-2-7B's group 1
     at 128 (``g1_d128``), Falcon3-7B's group 3 at 256 (``g3_d256``, bf16
-    and int8 KV), OpenLLaMA-3B's head_dim 100 in f16 (``g1_d100``), the
-    slab walk's 6 q over 2 kv heads at 512 (``g3_d512``, bf16 and int8
-    KV: g3_d256's K/V bytes) and 16 heads of 320 in f16 (``g1_d320``);
+    and int8 KV), OpenLLaMA-3B's head_dim 100 in f16 (``g1_d100``), 6 q
+    over 2 kv heads at 512 (``g3_d512``, bf16 and int8 KV: g3_d256's K/V
+    bytes) and 16 heads of 320 in f16 (``g1_d320``), each prefill row
+    holding the walk its launch ran (the slab rows: the wide form);
     and the int8-weight kernel's f16 form at OPT-2.7b's projections (M
     = 1, 32, 160; timed at 32). Then checkpoints written from published
     configs and served (``--model DIR --tokenizer bench``, page 128, the
@@ -344,10 +351,11 @@ its result line:
     layers at ``--dtype float32``, Falcon3-7B-Base at 1 of 28 layers
     (bf16, then ``--kv-cache-dtype int8``), OpenLLaMA-3B at 2 of 26
     layers at ``--dtype float16`` and, not a published checkpoint, a
-    llama written to reach the slab walk (Falcon3-7B's widths, 6 q over
+    llama written to reach head_dim 512 (Falcon3-7B's widths, 6 q over
     2 kv heads at an explicit head_dim 512, 1 layer; bf16, then
     ``--kv-cache-dtype int8``: ``serve_geometry_d512`` and
-    ``serve_geometry_d512_int8``); then bench-1b at ``--quantization int8 --dtype float16``. Each
+    ``serve_geometry_d512_int8``, whose windows count the wide form's
+    launches as the prefill kernel's); then bench-1b at ``--quantization int8 --dtype float16``. Each
     server: the weights phase's window (tok/s, the three kernels
     launched, no plain call, no eager step), each attention call of the
     model check held to its plain version, and the 16 requests again,
@@ -847,6 +855,101 @@ def decode_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None,
                     .paged_decode_attention(*a, num_splits=n, **k)))
                 for n in sweep}
     return out
+
+
+# The prefill kernel's device kernels by the walk prefill_walk_plan
+# names.
+PREFILL_WALKS = {"paged_prefill_wgmma_kernel": "wgmma",
+                 "paged_prefill_wgmma_wide_kernel": "wgmma_wide",
+                 "paged_prefill_mma_slab_kernel": "mma_slab",
+                 "paged_prefill_kernel": "f32"}
+
+
+def _prefill_walks(fn) -> dict:
+    """{walk: device launches} of the prefill kernel while ``fn`` runs,
+    read from torch.profiler's trace of the card (no name of
+    PREFILL_WALKS is a part of another)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    walks = {}
+    for e in prof.key_averages():
+        found = [walk for kernel, walk in PREFILL_WALKS.items()
+                 if kernel in e.key]
+        if found:
+            walks[found[0]] = walks.get(found[0], 0) + e.count
+    return walks
+
+
+def _prefill_walk(fn) -> str:
+    """The one walk a call of the prefill kernel ran (``fn`` makes one
+    launch); raises where it ran none or more than one kernel."""
+    walks = _prefill_walks(fn)
+    if len(walks) != 1 or sum(walks.values()) != 1:
+        raise AssertionError(f"one prefill launch ran {walks}")
+    return next(iter(walks))
+
+
+# A point of the prefill walk check: (dtype name, int8 cache, query
+# group, kv heads, head_dim, tokens T, page size).
+DTYPES_BY_NAME = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                  "float32": torch.float32}
+
+
+def _prefill_walk_points(points) -> list:
+    """The walk one prefill launch ran at each point (a row of a first
+    chunk of T tokens), read from torch.profiler. Run in a process of
+    its own (``_prefill_walks_of``): in this script's process the
+    profiler's trace comes back empty once the serving phases' servers
+    have profiled (seen on the card, cause not found)."""
+    from production_stack_tpu_torch.ops.prefill_attention_cuda import (
+        paged_prefill_attention)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    walks = []
+    for name, int8, group, kv, d, t, ps in points:
+        dtype = DTYPES_BY_NAME[name]
+        max_pages = -(-t // ps)
+        (kc, vc), _ = _caches(kv, max_pages + 1, d, ps, dtype, dev, gen,
+                              int8)
+        table = _page_table([t], ps, max_pages, max_pages + 1, gen, dev)
+        lens = torch.tensor([t], dtype=torch.int32, device=dev)
+        pos = torch.arange(t, dtype=torch.int32, device=dev)[None]
+        q = torch.randn((1, t, kv * group, d), generator=gen,
+                        device=dev).to(dtype)
+
+        def call():
+            paged_prefill_attention(q, kc, vc, table, pos.contiguous(),
+                                    lens)
+        call()
+        walks.append(_prefill_walk(call))
+    return walks
+
+
+def _prefill_walks_of(points) -> list:
+    """``_prefill_walk_points`` in a fresh process of this script, on the
+    kernel build this process made; each point's walk held to the one
+    ``prefill_walk_plan`` names."""
+    from production_stack_tpu_torch.ops.prefill_attention_cuda import (
+        prefill_walk_plan)
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--prefill-walks",
+         json.dumps(points)], capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise RuntimeError(f"the prefill walk check failed: "
+                           f"{proc.stderr[-4000:]}")
+    walks = json.loads(proc.stdout.strip().splitlines()[-1])
+    for point, walk in zip(points, walks):
+        name, int8, group, _, d, t, ps = point
+        planned = prefill_walk_plan(
+            DTYPES_BY_NAME[name], torch.int8 if int8 else
+            DTYPES_BY_NAME[name], group, t, d, ps)["walk"]
+        if walk != planned:
+            raise AssertionError(f"prefill at {point}: ran the {walk} walk,"
+                                 f" the plan names {planned}")
+    return walks
 
 
 def prefill_case(name, rows, t, ps, dtype, dev, gen, timer=None, nh=32,
@@ -1510,10 +1613,11 @@ HOST_WINDOW_STEPS = 4
 
 
 # The device kernels of each counted launch, by the suffix their names
-# carry after the counter's name (prefill: the wgmma walk, the mma.sync
-# slab walk, the f32 walk; ragged: the mma.sync walk, the f32 walk).
+# carry after the counter's name (prefill: the wgmma walk, its wide form
+# at head dims 257 to 512, the mma.sync slab walk, the f32 walk; ragged:
+# the mma.sync walk, the f32 walk).
 KERNEL_SUFFIXES = ("_kernel", "_mma_kernel", "_wgmma_kernel",
-                   "_mma_slab_kernel")
+                   "_wgmma_wide_kernel", "_mma_slab_kernel")
 
 
 def _kernel_family(name: str):
@@ -4465,8 +4569,9 @@ GEOMETRY_CONFIGS = {
                       "rms_norm_eps": 1e-6,
                       "tie_word_embeddings": False,
                       "torch_dtype": "float16"},
-    # Not a published checkpoint: a geometry written to reach the slab
-    # walk of the kernels (head_dim above 256, here 4 slabs of 128), on
+    # Not a published checkpoint: a geometry written to reach head_dim
+    # 512 (prefill on the wgmma walk's wide form, decode and ragged as 4
+    # slabs of 128), on
     # the published widths of tiiuae/Falcon3-7B-Base/config.json (hidden
     # 3072, FFN 23040, vocab 131072, rope theta 1000042, rms_norm_eps
     # 1e-6) but 6 q heads over 2 kv heads at an explicit head_dim 512:
@@ -4500,13 +4605,17 @@ GEOMETRY_ALONE = ("llama3-70b", "opt-2.7b", "qwen2-0.5b")
 # padded in the kernel (96 and 100 at the tile 128, 160 at 256) and the
 # tile 256 over groups 1, 3, 4 and 8 at pages 128 and 16; then head
 # dims above 256, run as slabs of 128 (3 to 8 slabs; 257, 288, 320,
-# 448, 576 and 640 pad the last), over the same groups and pages.
+# 448, 576 and 640 pad the last; 16-bit prefill to 512 on the wide
+# form), over the same groups and pages.
 SWEEP_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 SWEEP_GROUPS = (1, 2, 3, 4, 5, 6, 7, 8, 16)
 SWEEP_HEAD_DIMS = (64, 80, 128)
 SWEEP_PADDED = ((96, 100, 160, 256), (1, 3, 4, 8), (128, 16))
 SWEEP_SLABS = ((257, 288, 320, 384, 448, 512, 576, 640, 1024),
                (1, 3, 4, 8), (16, 128))
+# The sweep's points at group 3 and page 16, whose prefill launch is
+# checked for the walk it ran (``_prefill_walks_of``).
+SWEEP_WALK_POINTS = []
 # Points outside it (dtype, cache dtype or None for the same, group,
 # head_dim), each refused by the rule and by the library: head_dim 0
 # and -1, int8 queries (no query type of the kernels), a mixed cache,
@@ -4525,12 +4634,16 @@ GEOMETRY_ROWS = {
     "g1_d128": (32, 32, 128, torch.bfloat16, (False,)),
     "g3_d256": (12, 4, 256, torch.bfloat16, (False, True)),
     "g1_d100": (32, 32, 100, torch.float16, (False,)),
-    # Slabs: g3_d512 moves g3_d256's K/V bytes (2 kv heads at 512 against
-    # 4 at 256), so the two rows compare directly; g1_d320 (16 heads)
-    # pads its third slab.
+    # Above 256: g3_d512 moves g3_d256's K/V bytes (2 kv heads at 512
+    # against 4 at 256), so the two rows compare directly; g1_d320 (16
+    # heads) pads its third slab (decode, ragged) and the wide prefill
+    # form's width 384.
     "g3_d512": (6, 2, 512, torch.bfloat16, (False, True)),
     "g1_d320": (16, 16, 320, torch.float16, (False,)),
 }
+# The rows' head dims that the prefill kernel runs on the wgmma walk's
+# wide form (257 to 512), each held to it.
+WIDE_ROWS = (512, 320)
 # The serving run whose launches each row's form reports (g1_d128,
 # Llama-2-7B's geometry, is served by no run of this script).
 GEOMETRY_ROW_RUNS = {("g8_d128", "bfloat16"): LLAMA70_RUN,
@@ -4617,6 +4730,10 @@ def _sweep_point(dev, gen, dtype, int8, group, d, ps=16) -> float:
     args = (qp, kc, vc, ptable, pos, plens)
     held("prefill", paged_prefill_attention(*args),
          paged_prefill_attention_plain(*args, **p16))
+    if group == 3 and ps == 16:
+        # Checked after the sweep: the walk its launch ran.
+        SWEEP_WALK_POINTS.append((str(dtype)[6:], int8, group, kv, d, 24,
+                                  ps))
 
     rrows = [(130, 0), (0, -1), (300, 4)]
     rlens = torch.tensor([n for n, _ in rrows], dtype=torch.int32,
@@ -4700,6 +4817,22 @@ def _geometry_sweep(dev) -> dict:
             raise AssertionError(f"{dtype} {cache} g{group} d{d}: rule "
                                  f"{rule!r}, library {said}")
     torch.cuda.empty_cache()
+    walks = {}
+    for point, walk in zip(SWEEP_WALK_POINTS,
+                           _prefill_walks_of(SWEEP_WALK_POINTS)):
+        walks.setdefault(walk, set()).add(point[4])
+    wide = {d for d in SWEEP_SLABS[0] if 256 < d <= 512}
+    if (not wide <= walks.get("wgmma_wide", set())
+            or not {d for d in SWEEP_SLABS[0] if d > 512}
+            <= walks.get("mma_slab", set())):
+        raise AssertionError(f"the sweep's prefill walks {walks}: 257 to "
+                             "512 not all on the wide form, or above 512 "
+                             "not all on the slab walk")
+    log(f"geometries sweep: each prefill launch at group 3, page 16 "
+        f"({len(SWEEP_WALK_POINTS)} points) ran the walk the plan names "
+        f"(its device kernel's name, torch.profiler in a process of its "
+        f"own); head dims by walk " + json.dumps(
+            {w: sorted(ds) for w, ds in sorted(walks.items())}))
     log(f"geometries sweep: {points} points x 7 launches (decode at the "
         f"wrapper's split and at one, stacked, tail; prefill; ragged), "
         f"each within tolerance of its plain version, in "
@@ -4757,6 +4890,20 @@ def _geometry_kernel_cases(dev) -> tuple:
                 log("geometries kernel case " + json.dumps(r))
                 out[name].setdefault(row, {})[form] = r
             torch.cuda.empty_cache()
+    # The walk each row's prefill launch runs (the launch of the timed
+    # case at one row), and the rows above 256 on the wide form.
+    points = [(str(dtype)[6:], form == "int8", nh // kv, kv, d, 512, 128)
+              for row, (nh, kv, d, dtype, _) in GEOMETRY_ROWS.items()
+              for form in out["paged_prefill"][row]]
+    cases = [c for forms in out["paged_prefill"].values()
+             for c in forms.values()]
+    for point, case, walk in zip(points, cases, _prefill_walks_of(points)):
+        case["walk"] = walk
+        if point[4] in WIDE_ROWS and walk != "wgmma_wide":
+            raise AssertionError(f"{case['case']}: ran the {walk} walk, "
+                                 "not the wide form")
+    log("geometries kernel prefill walks: " + json.dumps(
+        {c["case"]: c["walk"] for c in cases}))
     w8 = {}
     for proj, (k, n) in OPT27_PROJECTIONS.items():
         q = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
@@ -4872,7 +5019,7 @@ def geometries_phase(vocab: int) -> dict:
     Llama-3-70B (2 layers; bf16, then int8 KV), OPT-2.7b at float16,
     Qwen2-0.5B at float32, Falcon3-7B (1 layer, head_dim 256; bf16, then
     int8 KV) and OpenLLaMA-3B (2 layers, head_dim 100) at float16, and a
-    written llama at head_dim 512 (the slab walk; bf16, then int8 KV);
+    written llama at head_dim 512 (bf16, then int8 KV);
     then bench-1b at --quantization int8 --dtype float16 (the
     int8-weight kernel's f16 form). Returns the timed cases, the
     int8-weight cases and each run's launches."""
@@ -6668,6 +6815,8 @@ def kernels_line(headline, launches, weights, families, tp=None,
                         "dtype": "bfloat16" if form == "int8" else form,
                         "launches": launches.get(run, {}).get(counter, 0),
                         **_numbers(case)}
+                    if "walk" in case:
+                        numbers[form]["walk"] = case["walk"]
                 first = numbers.pop(next(iter(forms)))
                 entry["geometries"][row] = {**first, **numbers}
     # The int8-weight GEMM's path is the int8-weight server's window.
@@ -6731,6 +6880,11 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     from production_stack_tpu_torch.ops import paged_kv_common
+    if "--prefill-walks" in sys.argv:
+        # The child of _prefill_walks_of (its build is the parent's).
+        points = json.loads(sys.argv[sys.argv.index("--prefill-walks") + 1])
+        print(json.dumps(_prefill_walk_points(points)), flush=True)
+        return 0
 
     global SMI
     only = sys.argv[sys.argv.index("--only") + 1:] if (

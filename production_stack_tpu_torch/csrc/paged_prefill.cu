@@ -35,8 +35,13 @@
 // a chunk at a time, 212 KB). The choice is by type, at compile time;
 // the query group is a run-time value of both walks (any group: G * T
 // rows cut into tiles). Any head_dim from 1 to 256 runs at its tile
-// (head_dim_tile, paged_kv_common.cuh), padded in the kernel below it;
-// above 256, as slabs of 128 (the slab design in paged_kv_common.cuh),
+// (head_dim_tile, paged_kv_common.cuh), padded in the kernel below it.
+// bf16 and f16 queries from 257 to 512 take the wgmma walk's wide form
+// at a width of 384 or 512 (wg_wide_width, paged_walk_wgmma.cuh): a
+// 64-row tile a block, both consumer warpgroups running q . k^T over the
+// whole width and p . v over half of the output dims each, K and V in a
+// ring of single planes. f32 queries above 256, and 16-bit ones above
+// 512, run as slabs of 128 (the slab design in paged_kv_common.cuh),
 // grid y over kv heads x slabs, on the mma.sync slab walk
 // (page_walk_block_mma_slab, paged_walk_mma.cuh: 90 KB, two blocks an
 // SM) or the f32 walk's slab form.

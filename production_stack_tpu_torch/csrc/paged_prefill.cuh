@@ -131,6 +131,24 @@ paged_prefill_wgmma_kernel(const __grid_constant__ WgArgs<T, C> a) {
   page_walk_block_wgmma<T, C, D>(a);
 }
 
+// 16-bit queries at head dims 257 to 512: the wgmma walk's wide form at
+// the width W (wg_wide_width), two consumer warpgroups over each 64-row
+// tile, each owning half of the output's head dims.
+template <typename T, typename C, int W>
+__global__ void __launch_bounds__(kWgBlockThreads, 1)
+paged_prefill_wgmma_wide_kernel(const __grid_constant__ WgArgs<T, C> a) {
+  page_walk_block_wgmma<T, C, W>(a);
+}
+
+// The wgmma walk's kernel at D: the wide form's above kMaxHeadDim.
+template <typename T, typename C, int D>
+constexpr auto wgmma_kernel() {
+  if constexpr (D > kMaxHeadDim)
+    return &paged_prefill_wgmma_wide_kernel<T, C, D>;
+  else
+    return &paged_prefill_wgmma_kernel<T, C, D>;
+}
+
 template <typename T, typename C, int D, bool SLAB>
 int launch(const PrefillArgs& a) {
   if (kQuantized<C> && (a.ks == nullptr || a.vs == nullptr))
@@ -147,8 +165,11 @@ int launch(const PrefillArgs& a) {
   const auto kl = static_cast<const int*>(a.kv_lens);
   const auto out = static_cast<T*>(a.out);
   if constexpr (!std::is_same<T, float>::value && !SLAB) {
-    const int consumers = wg_consumers(group * a.tokens);
-    const int tile_rows = consumers * kWgRows;
+    // The wide form: both consumer warpgroups on every 64-row tile.
+    constexpr bool WIDE = D > kMaxHeadDim;
+    const int consumers =
+        WIDE ? kWgMaxConsumers : wg_consumers(group * a.tokens);
+    const int tile_rows = WIDE ? kWgRows : consumers * kWgRows;
     const int tiles = (group * a.tokens + tile_rows - 1) / tile_rows;
     const long long total = (long long)a.num_kv_heads * a.batch * tiles;
     if (total > INT_MAX) return cudaErrorInvalidValue;
@@ -158,7 +179,7 @@ int launch(const PrefillArgs& a) {
                             a.head_dim, a.layer, consumers, tiles,
                             (int)total};
     constexpr int smem = WgSmem<C, D>::bytes;
-    auto kernel = paged_prefill_wgmma_kernel<T, C, D>;
+    auto kernel = wgmma_kernel<T, C, D>();
     static const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (attr != cudaSuccess) return attr;
@@ -216,8 +237,19 @@ int prefill_launch_f32(const PrefillArgs& args, int cache_dtype);
 }  // namespace pstt
 
 // The body of a prefill_launch_<type>: one case a line of the type's
-// list, at the head dim's tile, the slab walk above kMaxHeadDim.
+// list, at the head dim's tile, the slab walk above kMaxHeadDim; before
+// them (bf16 and f16), the wgmma walk's wide form at its widths, which
+// takes the head dims up to the widest from the slab walk.
 #define PSTT_PREFILL_CASE(code, T, ccode, C, D, SLABS)                   \
   if (cache_dtype == ccode && pstt::head_dim_tile(args.head_dim) == D &&  \
       (pstt::head_dim_slabs(args.head_dim) > 1) == SLABS)                 \
     return pstt::launch<T, C, D, SLABS>(args);
+#define PSTT_PREFILL_WIDE_CASE(code, T, ccode, C, W)                \
+  if (cache_dtype == ccode && pstt::wg_wide_width(args.head_dim) == W) \
+    return pstt::launch<T, C, W, false>(args);
+#define PSTT_FOR_EACH_BF16_WIDE(X)                                     \
+  PSTT_FOR_EACH_WG_WIDTH(X, 0, __nv_bfloat16, 0, __nv_bfloat16)        \
+  PSTT_FOR_EACH_WG_WIDTH(X, 0, __nv_bfloat16, 2, int8_t)
+#define PSTT_FOR_EACH_F16_WIDE(X)              \
+  PSTT_FOR_EACH_WG_WIDTH(X, 3, __half, 3, __half) \
+  PSTT_FOR_EACH_WG_WIDTH(X, 3, __half, 2, int8_t)

@@ -56,6 +56,31 @@
 //     the swizzle, then stored a 16-byte chunk a thread, rows whole.
 //   - Rows d >= head_dim of the stages are zeroed once; q's are copied
 //     as zeros.
+//
+// Head dims 257 to 512 take the walk's wide form, at a width W of 384
+// or 512 (wg_wide_width: the smallest at or above the head_dim, padded
+// in the kernel below it), where 64 rows of accumulators at the full
+// width would pass what a thread can hold:
+//   - A tile is 64 query rows of a (row, kv head) pair, and both consumer
+//     warpgroups take all of it: warpgroup w owns the output head dims
+//     [w W / 2, (w + 1) W / 2), at most 128 accumulators a thread (the
+//     tile 256's). Each runs q . k^T over all W head dims, from the same
+//     operands in the same order, so the two compute the same m, l and p
+//     bit for bit and exchange nothing; then p . v over its half of the
+//     V plane (a descriptor offset). The scores are computed twice a
+//     tile, not once a 128-wide slab as in the slab walk, and q, K and V
+//     are read from memory once a tile.
+//   - A ring unit is one plane: a span's K and its V are two units, so
+//     that the producer stages K of the next span while the consumers
+//     run p . v over V of this one (two 64 KB units beside the 64 KB q
+//     tile at 512, three at 384). Units go K0, K1, V0, K2, V1, ..., the
+//     order the consumers release them in (K(c) once span c's scores
+//     are in, V(c - 1) once its p . v is), with the page ids of two spans
+//     kept. An int8 cache's raw ring holds one plane a unit too; its V
+//     scales come with V's unit, which the consumers wait for before
+//     they pack p.
+//   - The warpgroups share the q tile: both pass a pair barrier before
+//     either writes its half of the output there.
 
 #pragma once
 
@@ -82,13 +107,33 @@ __host__ __device__ constexpr int wg_consumer_regs(int d) {
 constexpr int kWgMaxStages = 4;
 constexpr int kWgProducerBar = 1;  // named barrier of the producer warpgroup
 constexpr int kWgQBar = 2;         // + consumer index: its q slot
+// Both consumer warpgroups of the wide form: their shared q tile.
+constexpr int kWgPairBar = kWgQBar + kWgMaxConsumers;
 
 // Consumer warpgroups of a block for `rows` = G * T query rows of a
 // (row, kv head) pair: one where they fit in 64, else two (a 128-row
 // tile). The host's ops/prefill_attention_cuda.prefill_walk_plan is the
-// same rule.
+// same rule. (The wide form always runs two, over 64-row tiles.)
 __host__ __device__ constexpr int wg_consumers(int rows) {
   return rows <= kWgRows ? 1 : kWgMaxConsumers;
+}
+
+// The wide form's widths, ascending; the host's
+// ops/prefill_attention_cuda.WG_WIDE_WIDTHS is this list.
+#define PSTT_FOR_EACH_WG_WIDTH(X, code, T, ccode, C) \
+  X(code, T, ccode, C, 384)                          \
+  X(code, T, ccode, C, 512)
+
+// The width a head_dim runs at in the wide form: the smallest of
+// PSTT_FOR_EACH_WG_WIDTH at or above it, above kMaxHeadDim; 0 where the
+// head_dim takes another walk (the tiles below, the slab walk above).
+__host__ __device__ constexpr int wg_wide_width(int head_dim) {
+  if (head_dim <= kMaxHeadDim) return 0;
+#define PSTT_WIDTH_AT_LEAST(code, T, ccode, C, W) \
+  if (head_dim <= W) return W;
+  PSTT_FOR_EACH_WG_WIDTH(PSTT_WIDTH_AT_LEAST, 0, float, 0, float)
+#undef PSTT_WIDTH_AT_LEAST
+  return 0;
 }
 
 // The producer's copy path: whole pages with 16-byte copies where the
@@ -120,45 +165,63 @@ __host__ __device__ constexpr bool wg_whole_pages(int page_size) {
 // stages as fit up to kWgMaxStages (a span is 0.5 to 2 us of products,
 // about one device memory latency), and two raw stages where they fit
 // (one at D = 256).
+//
+// The wide form (D a width of PSTT_FOR_EACH_WG_WIDTH) keeps the layout
+// with one plane a ring unit (a stage above: tiles [kStages][plane],
+// scales [kStages][64 f32], raw [kRawStages][raw plane, 64 f32]), one q
+// tile of [64 rows][D] a q slot, both warpgroups', and the page ids of
+// two spans. It takes as many units as fit with one raw unit, then a
+// second raw unit where it fits beside them: a unit more in the ring
+// keeps K a span ahead of the products, a raw unit more only the copy.
 template <typename C, int D>
 struct WgSmem {
   static constexpr bool kQuant = kQuantized<C>;
+  static constexpr bool kWide = D > kMaxHeadDim;
+  static constexpr int kUnitPlanes = kWide ? 1 : 2;  // planes a ring unit
   static constexpr int kPlane = D * 128;
-  static constexpr int kSlot = 2 * kPlane;
-  static constexpr int kScales = kQuant ? 2 * kWgSpan * 4 : 0;
+  static constexpr int kSlot = kUnitPlanes * kPlane;
+  static constexpr int kScales = kQuant ? kUnitPlanes * kWgSpan * 4 : 0;
   static constexpr int kQSlots = D > 128 ? 1 : 2;
   static constexpr int kQTile = kWgRows * ((D + 63) / 64 * 64) * 2;
+  static constexpr int kQSlot = kWide ? kQTile : kWgMaxConsumers * kQTile;
   static constexpr int kRawPlane = kQuant ? D * kWgSpan : 0;
-  static constexpr int kRawSlot = kQuant ? 2 * kRawPlane + 2 * kWgSpan * 4 : 0;
-  static constexpr int kPageIds = kWgSpan * 4;
+  static constexpr int kRawSlot =
+      kQuant ? kUnitPlanes * (kRawPlane + kWgSpan * 4) : 0;
+  static constexpr int kPageIds = (kWide ? 2 : 1) * kWgSpan * 4;
   static constexpr int kRing = 2 * 4 * 4;
   static constexpr int bytes_at(int stages, int raw_stages) {
-    return stages * (kSlot + kScales) +
-           kQSlots * kWgMaxConsumers * kQTile + raw_stages * kRawSlot +
-           kPageIds + kRing + (2 * stages + 4 + 2 * kQSlots) * 8 + 1024;
+    return stages * (kSlot + kScales) + kQSlots * kQSlot +
+           raw_stages * kRawSlot + kPageIds + kRing +
+           (2 * stages + 4 + 2 * kQSlots) * 8 + 1024;
+  }
+  static constexpr int stages_at(int raw_stages) {
+    return bytes_at(4, raw_stages) <= kMaxBlockSmem
+               ? 4
+               : (bytes_at(3, raw_stages) <= kMaxBlockSmem ? 3 : 2);
   }
   static constexpr int kRawStages =
-      !kQuant ? 0 : (bytes_at(2, 2) <= kMaxBlockSmem ? 2 : 1);
-  static constexpr int kStages =
-      bytes_at(4, kRawStages) <= kMaxBlockSmem
-          ? 4
-          : (bytes_at(3, kRawStages) <= kMaxBlockSmem ? 3 : 2);
+      !kQuant ? 0
+      : kWide ? (bytes_at(stages_at(1), 2) <= kMaxBlockSmem ? 2 : 1)
+              : (bytes_at(2, 2) <= kMaxBlockSmem ? 2 : 1);
+  static constexpr int kStages = stages_at(kRawStages);
   static constexpr int tiles = 0;
   static constexpr int q = tiles + kStages * kSlot;
-  static constexpr int raw = q + kQSlots * kWgMaxConsumers * kQTile;
+  static constexpr int raw = q + kQSlots * kQSlot;
   static constexpr int scales = raw + kRawStages * kRawSlot;
   static constexpr int pages = scales + kStages * kScales;
   static constexpr int ring = pages + kPageIds;
   static constexpr int bars = ring + kRing;
   static constexpr int bytes = bytes_at(kStages, kRawStages);
   static_assert(bytes <= kMaxBlockSmem, "a wgmma walk block's shared memory");
-  static_assert(kPlane % 1024 == 0 && kQTile % 1024 == 0,
-                "planes and q tiles start at swizzle atoms");
+  static_assert(kPlane % 1024 == 0 && kQTile % 1024 == 0 &&
+                    (!kWide || D / 2 * 128 % 1024 == 0),
+                "planes, q tiles and half planes start at swizzle atoms");
 };
 
-// The plan of every instance (cache, D: stages, raw stages, bytes),
-// checked here by the compiler and read by the CPU tests against the
-// host's mirror (ops/prefill_attention_cuda.prefill_walk_plan).
+// The plan of every instance (cache, D: stages, raw stages, bytes; the
+// wide form's D is its width and its stages are ring units), checked
+// here by the compiler and read by the CPU tests against the host's
+// mirror (ops/prefill_attention_cuda.prefill_walk_plan).
 #define PSTT_WG_PLAN(C, D, STAGES, RAW, BYTES)                        \
   static_assert(WgSmem<C, D>::kStages == STAGES &&                    \
                     WgSmem<C, D>::kRawStages == RAW &&                \
@@ -174,6 +237,10 @@ PSTT_WG_PLAN(int8_t, 64, 4, 2, 119200)
 PSTT_WG_PLAN(int8_t, 80, 4, 2, 172448)
 PSTT_WG_PLAN(int8_t, 128, 3, 2, 200592)
 PSTT_WG_PLAN(int8_t, 256, 2, 1, 232304)
+PSTT_WG_PLAN(__nv_bfloat16, 384, 3, 0, 198272)
+PSTT_WG_PLAN(__nv_bfloat16, 512, 2, 0, 198256)
+PSTT_WG_PLAN(int8_t, 384, 3, 1, 223872)
+PSTT_WG_PLAN(int8_t, 512, 2, 1, 231792)
 #undef PSTT_WG_PLAN
 
 // ---- barriers ---------------------------------------------------------------
@@ -261,7 +328,14 @@ struct WgTile {
   CausalMask mask;
 };
 
-template <typename T, typename C>
+// Query rows a tile at D: a warpgroup's 64 each, or 64 in the wide
+// form, whose warpgroups share them.
+template <int D, typename T, typename C>
+__device__ __forceinline__ int wg_tile_rows(const WgArgs<T, C>& a) {
+  return D > kMaxHeadDim ? kWgRows : a.consumers * kWgRows;
+}
+
+template <int D, typename T, typename C>
 __device__ __forceinline__ WgTile wg_tile(const WgArgs<T, C>& a, int index,
                                           int kv_len, int q_start) {
   WgTile t;
@@ -270,7 +344,7 @@ __device__ __forceinline__ WgTile wg_tile(const WgArgs<T, C>& a, int index,
   const int pair = index - z * pairs;
   t.h = pair % a.num_kv_heads;
   t.b = pair / a.num_kv_heads;
-  const int tile_rows = a.consumers * kWgRows;
+  const int tile_rows = wg_tile_rows<D>(a);
   int tile;
   if (a.tokens % tile_rows == 0) {
     const int per_head = a.tokens / tile_rows;
@@ -338,18 +412,36 @@ struct WgBars {
 
 // ---- the producer -----------------------------------------------------------
 
+// The ring units of a tile of n spans in the wide form, in the order the
+// producer fills them and the consumers release them: K0, K1, V0, K2,
+// V1, ..., K(n - 1), V(n - 2), V(n - 1). The unit of span c's K and of
+// its V, and the span and plane (V) of unit p.
+__device__ __forceinline__ int wg_wide_k_unit(int c) {
+  return c == 0 ? 0 : 2 * c - 1;
+}
+__device__ __forceinline__ int wg_wide_v_unit(int c, int n) {
+  return min(2 * c + 2, 2 * n - 1);
+}
+__device__ __forceinline__ int wg_wide_unit_span(int p, int n, bool& v) {
+  v = p == 2 * n - 1 || (p > 0 && (p & 1) == 0);
+  return p == 2 * n - 1 ? n - 1 : v ? p / 2 - 1 : (p + 1) / 2;
+}
+
 // The producer warpgroup's walk. For each tile k it takes from the
 // scheduler (thread 0): publish it in tile slot k % 2 with its row's
 // kv_len and chunk start, copy its q into q slot k % kQSlots, and stage
 // its spans: page ids, copies, int8 conversion, `full` arrivals; an
-// `empty` wait before a slot is reused. g counts the block's spans (span
-// g fills stage g % kStages, across tiles).
+// `empty` wait before a slot is reused. g counts the block's ring units
+// (unit g fills stage g % kStages, across tiles): a span's one unit, or
+// the wide form's two.
 template <typename T, typename C, int D>
 __device__ __forceinline__ void wg_produce(const WgArgs<T, C>& a,
                                            unsigned char* smem,
                                            uint32_t base) {
   using L = WgSmem<C, D>;
   constexpr bool QUANT = kQuantized<C>;
+  constexpr bool WIDE = L::kWide;
+  constexpr int U = WIDE ? 2 : 1;  // ring units a span
   constexpr int S = L::kStages;
   constexpr int QS = L::kQSlots;
   const int tid = threadIdx.x % kWgThreads;
@@ -361,9 +453,9 @@ __device__ __forceinline__ void wg_produce(const WgArgs<T, C>& a,
   int* ring = reinterpret_cast<int*>(smem + L::ring);
 
   // Rows d >= hd of every stage: zero for the whole walk.
-  // (16-byte words: 8 a row; the 2 S planes lie one after another.)
+  // (16-byte words: 8 a row; the planes lie one after another.)
   const int pad_words = (D - hd) * 8;
-  for (int i = tid; i < 2 * S * pad_words; i += kWgThreads) {
+  for (int i = tid; i < L::kUnitPlanes * S * pad_words; i += kWgThreads) {
     const int plane = i / pad_words;
     reinterpret_cast<uint4*>(smem + L::tiles + plane * L::kPlane)
         [hd * 8 + i - plane * pad_words] = make_uint4(0, 0, 0, 0);
@@ -391,7 +483,7 @@ __device__ __forceinline__ void wg_produce(const WgArgs<T, C>& a,
     const int b = (index % pairs) / a.num_kv_heads;
     const int kv_len = a.kv_lens[b];
     const int q_start = a.q_positions[(size_t)b * a.tokens];
-    const WgTile t = wg_tile(a, index, kv_len, q_start);
+    const WgTile t = wg_tile<D>(a, index, kv_len, q_start);
     if (tid == 0) {
       entry[1] = kv_len;
       entry[2] = q_start;
@@ -401,12 +493,12 @@ __device__ __forceinline__ void wg_produce(const WgArgs<T, C>& a,
 
     // q of the tile's rows into q slot k % QS, as the consumers read it
     // (warpgroup w's rows 64 w .. 64 w + 63 at w * kQTile, D / 64 column
-    // blocks of [64][64] in the swizzle); rows past nrows and head dims
-    // past hd as zeros.
+    // blocks of [64][64] in the swizzle; the wide form's one tile of 64
+    // rows); rows past nrows and head dims past hd as zeros.
     const int qs = k % QS;
     if (k >= QS) mbar_wait(bars.q_empty + qs * 8, ((k / QS) - 1) & 1);
-    const uint32_t q_slot = base + L::q + qs * kWgMaxConsumers * L::kQTile;
-    const int rows = a.consumers * kWgRows;
+    const uint32_t q_slot = base + L::q + qs * L::kQSlot;
+    const int rows = wg_tile_rows<D>(a);
     auto q_at = [&](int r, int d) {
       return q_slot + (r >> 6) * L::kQTile + (d >> 6) * (kWgRows * 128) +
              swz128(r & 63, (d & 63) * 2);
@@ -464,18 +556,27 @@ __device__ __forceinline__ void wg_produce(const WgArgs<T, C>& a,
                  : -1;
     };
     // The ids of the span being staged, loaded a span ahead (their load
-    // runs under the last span's copies) and published in shared memory.
+    // runs under the last span's copies) and published in shared memory
+    // (the wide form: two spans' ids, span c's at c % 2, as V(c - 1) is
+    // staged after K(c)).
     int* pids = reinterpret_cast<int*>(smem + L::pages);
     int id = t.n_spans > 0 ? page_id(0) : -1;
 
-    // Copies of span c's K and V (rows d < hd; a stage of T planes, or
-    // raw int8 planes of 64 bytes a row) and, int8, its 64 K and V scales
-    // at `scales`. Spans are staged in order.
-    auto stage = [&](int c, uint32_t dst_k, uint32_t dst_v, uint32_t scales) {
-      named_bar_sync(kWgProducerBar, kWgThreads);  // the last ids are read
-      if (tid < kWgSpan) pids[tid] = id;
+    // Copies of span c's K (planes & 1) and V (planes & 2): rows d < hd,
+    // a unit of T planes, or raw int8 planes of 64 bytes a row; and,
+    // int8, the planes' 64 scales each at `scales` (K's, then V's). A
+    // span's K is staged first, and publishes its page ids.
+    auto stage = [&](int c, int planes, uint32_t dst_k, uint32_t dst_v,
+                     uint32_t scales) {
+      // The ids published last (the wide form: two spans back) and,
+      // int8, the raw slot are read.
       named_bar_sync(kWgProducerBar, kWgThreads);
-      if (c + 1 < t.n_spans) id = page_id(c + 1);
+      int* ids = pids + (WIDE ? (c & 1) * kWgSpan : 0);
+      if (planes & 1) {
+        if (tid < kWgSpan) ids[tid] = id;
+        named_bar_sync(kWgProducerBar, kWgThreads);
+        if (c + 1 < t.n_spans) id = page_id(c + 1);
+      }
       const int pos0 = c * kWgSpan;
       const int first = pos0 / page_size;
       if (whole) {
@@ -489,15 +590,17 @@ __device__ __forceinline__ void wg_produce(const WgArgs<T, C>& a,
           const int j = jd / D;
           const int d = jd - j * D;
           const int col = e & ((1 << tp_shift) - 1);
-          const int pid = pids[j];
+          const int pid = ids[j];
           const bool live = pid >= 0 && d < hd;
           const size_t src =
               live ? ((((size_t)pid * hd + d) << ps_shift) + lo + col) : 0;
           const int tok = (j << tp_shift) + col;
           const uint32_t o = QUANT ? (uint32_t)(d * kWgSpan + tok)
                                    : swz128(d, tok * 2);
-          cp_async16(dst_k + o, a.k_cache + head_off + src, live);
-          cp_async16(dst_v + o, a.v_cache + head_off + src, live);
+          if (planes & 1)
+            cp_async16(dst_k + o, a.k_cache + head_off + src, live);
+          if (planes & 2)
+            cp_async16(dst_v + o, a.v_cache + head_off + src, live);
         }
       } else {
         constexpr int esz = sizeof(C);
@@ -508,43 +611,60 @@ __device__ __forceinline__ void wg_produce(const WgArgs<T, C>& a,
           const int col = (i - (d << row_shift)) * vec;
           const int pos = pos0 + col;
           const int lp = pos / page_size;
-          const int pid = pids[lp - first];
+          const int pid = ids[lp - first];
           const bool live = pid >= 0;
           const size_t src = live ? (((size_t)pid * hd + d) * page_size +
                                      (pos - lp * page_size)) * esz
                                   : 0;
           const uint32_t o = QUANT ? (uint32_t)(d * kWgSpan + col)
                                    : swz128(d, col * 2);
-          cp_async_bytes(dst_k + o,
-                         reinterpret_cast<const unsigned char*>(
-                             a.k_cache + head_off) + src,
-                         vec * esz, live);
-          cp_async_bytes(dst_v + o,
-                         reinterpret_cast<const unsigned char*>(
-                             a.v_cache + head_off) + src,
-                         vec * esz, live);
+          if (planes & 1)
+            cp_async_bytes(dst_k + o,
+                           reinterpret_cast<const unsigned char*>(
+                               a.k_cache + head_off) + src,
+                           vec * esz, live);
+          if (planes & 2)
+            cp_async_bytes(dst_v + o,
+                           reinterpret_cast<const unsigned char*>(
+                               a.v_cache + head_off) + src,
+                           vec * esz, live);
         }
       }
       if constexpr (QUANT) {
-        // One scale a thread: K's 64, then V's.
-        const int pos = pos0 + (tid & (kWgSpan - 1));
-        const int lp = pos / page_size;
-        const int pid = pids[lp - first];
-        const bool live = pid >= 0;
-        const size_t src =
-            live ? (size_t)pid * page_size + (pos - lp * page_size) : 0;
-        cp_async_bytes(scales + tid * 4,
-                       (tid < kWgSpan ? a.k_scale : a.v_scale) + scale_off +
-                           src, 4, live);
+        // One scale a thread: K's 64, then V's (the wide form: its
+        // plane's 64).
+        const bool v_scale = WIDE ? planes == 2 : tid >= kWgSpan;
+        if (!WIDE || tid < kWgSpan) {
+          const int pos = pos0 + (tid & (kWgSpan - 1));
+          const int lp = pos / page_size;
+          const int pid = ids[lp - first];
+          const bool live = pid >= 0;
+          const size_t src =
+              live ? (size_t)pid * page_size + (pos - lp * page_size) : 0;
+          cp_async_bytes(scales + tid * 4,
+                         (v_scale ? a.v_scale : a.k_scale) + scale_off + src,
+                         4, live);
+        }
       }
     };
+    // Unit p of the tile into the ring unit at `dst` (T planes, or raw
+    // planes and their scales at `scales`).
+    auto stage_unit = [&](int p, uint32_t dst, uint32_t scales) {
+      if constexpr (WIDE) {
+        bool v;
+        const int c = wg_wide_unit_span(p, t.n_spans, v);
+        stage(c, v ? 2 : 1, dst, dst, scales);
+      } else {
+        stage(p, 3, dst, dst + (QUANT ? L::kRawPlane : L::kPlane), scales);
+      }
+    };
+    const int units = t.n_spans * U;
 
     if constexpr (!QUANT) {
-      for (int c = 0; c < t.n_spans; ++c, ++g) {
+      for (int p = 0; p < units; ++p, ++g) {
         const int s = g % S;
         if (g >= S) mbar_wait(empty + s * 8, ((g / S) - 1) & 1);
-        const uint32_t k_dst = base + L::tiles + s * L::kSlot;
-        stage(c, k_dst, k_dst + L::kPlane, 0);
+        stage_unit(p, base + L::tiles + s * L::kSlot, 0);
         if (whole) {
           cp_async_mbar_arrive(full + s * 8);
         } else {
@@ -556,27 +676,28 @@ __device__ __forceinline__ void wg_produce(const WgArgs<T, C>& a,
       }
     } else {
       constexpr int RS = L::kRawStages;
-      // Span c's raw planes and scales into raw slot c % RS; one group
+      constexpr int kScaleCount = L::kUnitPlanes * kWgSpan;
+      // Unit p's raw planes and scales into raw slot p % RS; one group
       // committed a call, empty past the tile, so that the wait below
-      // counts groups the same way at every span.
-      auto issue_raw = [&](int c) {
-        if (c < t.n_spans) {
-          const uint32_t r = base + L::raw + (c % RS) * L::kRawSlot;
-          stage(c, r, r + L::kRawPlane, r + 2 * L::kRawPlane);
+      // counts groups the same way at every unit.
+      auto issue_raw = [&](int p) {
+        if (p < units) {
+          const uint32_t r = base + L::raw + (p % RS) * L::kRawSlot;
+          stage_unit(p, r, r + L::kUnitPlanes * L::kRawPlane);
         }
         cp_async_commit();
       };
       for (int j = 0; j < RS; ++j) issue_raw(j);
-      for (int c = 0; c < t.n_spans; ++c, ++g) {
+      for (int p = 0; p < units; ++p, ++g) {
         cp_async_wait<RS - 1>();
-        named_bar_sync(kWgProducerBar, kWgThreads);  // span c's raw is in
+        named_bar_sync(kWgProducerBar, kWgThreads);  // unit p's raw is in
         const int s = g % S;
         if (g >= S) mbar_wait(empty + s * 8, ((g / S) - 1) & 1);
-        const unsigned char* raw = smem + L::raw + (c % RS) * L::kRawSlot;
+        const unsigned char* raw = smem + L::raw + (p % RS) * L::kRawSlot;
         unsigned char* tile = smem + L::tiles + s * L::kSlot;
-        // 16 raw tokens of one head dim a step, K's plane then V's: two
-        // swizzled 16-byte chunks of T.
-        for (int i = tid; i < hd * 8; i += kWgThreads) {
+        // 16 raw tokens of one head dim a step, K's plane then V's (the
+        // wide form: its one plane): two swizzled 16-byte chunks of T.
+        for (int i = tid; i < hd * 4 * L::kUnitPlanes; i += kWgThreads) {
           const int which = i >= hd * 4;
           const int e = i - which * hd * 4;  // d * 4 + chunk pair
           const int d = e >> 2;
@@ -592,13 +713,15 @@ __device__ __forceinline__ void wg_produce(const WgArgs<T, C>& a,
                            pack2<T>((float)x[8 * h + 4], (float)x[8 * h + 5]),
                            pack2<T>((float)x[8 * h + 6], (float)x[8 * h + 7]));
         }
-        reinterpret_cast<float*>(smem + L::scales + s * L::kScales)[tid] =
-            reinterpret_cast<const float*>(raw + 2 * L::kRawPlane)[tid];
+        if (kScaleCount == kWgThreads || tid < kScaleCount)
+          reinterpret_cast<float*>(smem + L::scales + s * L::kScales)[tid] =
+              reinterpret_cast<const float*>(
+                  raw + L::kUnitPlanes * L::kRawPlane)[tid];
         fence_proxy_async();
         mbar_arrive(full + s * 8);
         // stage() starts with a producer barrier: every thread has read
-        // raw slot c % RS before span c + RS's copies overwrite it.
-        issue_raw(c + RS);
+        // raw slot p % RS before unit p + RS's copies overwrite it.
+        issue_raw(p + RS);
       }
     }
   }
@@ -731,26 +854,31 @@ __device__ __forceinline__ void wgmma_wait_at_most(int n) {
 }
 
 // The walk of one consumer warpgroup: its 64 rows [wg * 64, wg * 64 +
-// 64) of each tile the producer publishes. Fragment coordinates as in
-// page_walk_block_mma: lane = 4 * grp + quad holds rows warp * 16 + grp
-// and + 8. g counts the block's spans, as the producer counts them.
+// 64) of each tile the producer publishes (the wide form: all 64 rows
+// of the tile, and the output head dims [wg * D / 2, (wg + 1) * D / 2)).
+// Fragment coordinates as in page_walk_block_mma: lane = 4 * grp + quad
+// holds rows warp * 16 + grp and + 8. g counts the block's ring units,
+// as the producer counts them.
 //
 // The products run ahead of the softmax: span c's p . v is in flight
 // while span c + 1's softmax runs, and (PIPE, D <= 128, where a second
 // score buffer fits beside the accumulators) span c + 1's q . k^T while
-// span c's does. A stage is released once its p . v has completed, the
-// q slot once the output has left it.
+// span c's does. A unit is released once its last product has completed
+// (the wide form's K once the span's scores are in and scaled), the q
+// slot once the output has left it.
 template <typename T, typename C, int D>
 __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
                                            unsigned char* smem,
                                            uint32_t base, int wg) {
   using L = WgSmem<C, D>;
   constexpr bool QUANT = kQuantized<C>;
+  constexpr bool WIDE = L::kWide;
   constexpr bool PIPE = D <= 128;
   constexpr int S = L::kStages;
   constexpr int QS = L::kQSlots;
-  constexpr int KS = D / 16;  // k steps of q . k^T
-  constexpr int DN = D / 8;   // n tiles of the output
+  constexpr int KS = D / 16;           // k steps of q . k^T
+  constexpr int DO = WIDE ? D / 2 : D;  // output head dims a warpgroup
+  constexpr int DN = DO / 8;           // n tiles of the output
   static_assert(D % 16 == 0, "a head-dim tile must tile the k step");
   const int hd = a.hd;
   const int tid = threadIdx.x % kWgThreads;
@@ -760,6 +888,7 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
   const int quad = lane & 3;
   const int r0 = warp * 16 + grp;
   const int r1 = r0 + 8;
+  const int col0 = WIDE ? wg * DO : 0;  // this warpgroup's first output dim
   const WgBars<C, D> bars(base);
   const uint32_t full = bars.full;
   const uint32_t empty = bars.empty;
@@ -776,18 +905,31 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
     __syncwarp();
     if (lane == 0) mbar_arrive(bars.tile_empty + slot * 8);
     if (index < 0) break;
-    WgTile t = wg_tile(a, index, kv_len, q_start);
+    WgTile t = wg_tile<D>(a, index, kv_len, q_start);
     const int n_spans = t.n_spans;
-    const int wrows = max(0, min(kWgRows, t.nrows - wg * kWgRows));
-    t.rows.row0 += wg * kWgRows;
-    t.mask.row0 += wg * kWgRows;
+    int wrows = t.nrows;
+    if constexpr (!WIDE) {
+      wrows = max(0, min(kWgRows, t.nrows - wg * kWgRows));
+      t.rows.row0 += wg * kWgRows;
+      t.mask.row0 += wg * kWgRows;
+    }
     const int lim0 = r0 < wrows ? t.mask.limit(r0) : 0;
     const int lim1 = r1 < wrows ? t.mask.limit(r1) : 0;
     const int wmax = wrows > 0 ? t.mask.max_limit(wrows) : 0;
     const int wspans = (wmax + kWgSpan - 1) / kWgSpan;  // warpgroup-uniform
     const int qs = k % QS;
-    const int q_off = L::q + (qs * kWgMaxConsumers + wg) * L::kQTile;
+    const int q_off = L::q + qs * L::kQSlot + (WIDE ? 0 : wg * L::kQTile);
     const uint32_t q_tile = base + q_off;
+    // The ring units of span c's K and V (the wide form's order; one
+    // unit for both in the others).
+    auto k_unit = [&](int c) { return g + (WIDE ? wg_wide_k_unit(c) : c); };
+    auto v_unit = [&](int c) {
+      return g + (WIDE ? wg_wide_v_unit(c, n_spans) : c);
+    };
+    auto wait_full = [&](int u) {
+      mbar_wait(full + (u % S) * 8, (u / S) & 1);
+      fence_proxy_async();
+    };
 
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
     float acc[DN][4];
@@ -800,6 +942,12 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
     for (int i = 0; i < kWgSpan / 8; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) sa[i][j] = sb[i][j] = 0.f;
+    if constexpr (WIDE) {
+      // The zeros in place before the first product is issued: sunk
+      // past it, ptxas serializes every wgmma of the kernel.
+      wgmma_fence_regs(acc);
+      wgmma_fence_regs(sa);
+    }
     mbar_wait(bars.q_full + qs * 8, (k / QS) & 1);
 
     // S = q . K^T of span c into `dst` (one committed group): q's slot is
@@ -807,10 +955,9 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
     // [D][64] plane is B with N (the token) contiguous, k steps of 16
     // head dims (2048 bytes).
     auto issue_s = [&](int c, float (&dst)[kWgSpan / 8][4]) {
-      const int s = (g + c) % S;
-      mbar_wait(full + s * 8, ((g + c) / S) & 1);
-      fence_proxy_async();
-      const uint32_t k_plane = base + L::tiles + s * L::kSlot;
+      const int u = k_unit(c);
+      wait_full(u);
+      const uint32_t k_plane = base + L::tiles + (u % S) * L::kSlot;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk)
@@ -821,9 +968,9 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
             wg_desc(k_plane + kk * 2048, L::kPlane, 1024), kk > 0);
       wgmma_commit();
     };
-    auto release = [&](int c) {
+    auto release = [&](int u) {
       __syncwarp();
-      if (lane == 0) mbar_arrive(empty + ((g + c) % S) * 8);
+      if (lane == 0) mbar_arrive(empty + (u % S) * 8);
     };
 
     // Span c of the warpgroup's walk: S(c) in `cur` was issued (and,
@@ -836,29 +983,38 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
       wgmma_wait_at_most((c > 0) + (PIPE && next));  // S(c) is in
       wgmma_fence_regs(cur);
       const int cbase = c * kWgSpan;
-      const int s = (g + c) % S;
-      const uint32_t kss = base + L::scales + s * L::kScales;
+      const int sk = k_unit(c) % S;
+      const int sv = v_unit(c) % S;
+      const uint32_t kss = base + L::scales + sk * L::kScales;
+      const uint32_t vss =
+          WIDE ? base + L::scales + sv * L::kScales : kss + kWgSpan * 4;
       float a0, a1;
       wg_softmax_p<QUANT>(cur, m0, m1, l0, l1, a0, a1, cbase, lim0, lim1,
                           scale_log2, kss, quad);
+      if (WIDE) release(k_unit(c));  // K(c) and its scales are read
       if (c > 0) {
         wgmma_wait_at_most(PIPE && next);  // p . v of c - 1 is in
         wgmma_fence_regs(acc);
-        release(c - 1);
+        release(v_unit(c - 1));
       }
+      // The wide form's V unit: before p's pack where it carries the
+      // scales (int8), else after S(c + 1) is issued.
+      if (WIDE && QUANT) wait_full(v_unit(c));
       uint32_t pa[kWgSpan / 16][4];
-      wg_softmax_pack<T, QUANT, DN>(cur, acc, pa, a0, a1, kss + kWgSpan * 4,
-                                    quad);
+      wg_softmax_pack<T, QUANT, DN>(cur, acc, pa, a0, a1, vss, quad);
       if (!PIPE && next) issue_s(c + 1, cur);
+      if (WIDE && !QUANT) wait_full(v_unit(c));
       // O += P . V over the 16-token groups any row here can see: V's
-      // plane is B with K (the token) contiguous, 32 bytes a k step.
-      const uint32_t v_plane = base + L::tiles + s * L::kSlot + L::kPlane;
+      // plane (from this warpgroup's first output dim) is B with K (the
+      // token) contiguous, 32 bytes a k step.
+      const uint32_t v_plane = base + L::tiles + sv * L::kSlot +
+                               (WIDE ? col0 * 128 : L::kPlane);
       const int groups = min(kWgSpan / 16, (wmax - cbase + 15) >> 4);
       wgmma_fence();
 #pragma unroll
       for (int kt = 0; kt < kWgSpan / 16; ++kt)
         if (kt < groups)
-          Wgmma<T, D>::template rs<0>(
+          Wgmma<T, DO>::template rs<0>(
               acc, pa[kt], wg_desc(v_plane + kt * 32, 16, 1024), 1);
       wgmma_commit();
     };
@@ -868,34 +1024,41 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
       span(c, sa, PIPE ? sb : sa);
       if (c + 1 < wspans) span(c + 1, PIPE ? sb : sa, sa);
     }
-    if (wspans > 0) {
+    // (The wide form waits whatever wspans is: ptxas, which does not
+    // tie this test to the one that issued the products, otherwise
+    // serializes every wgmma of the kernel.)
+    if (WIDE || wspans > 0) {
       wgmma_wait<0>();
       wgmma_fence_regs(acc);
-      release(wspans - 1);
+      if (wspans > 0) release(v_unit(wspans - 1));
     }
-    // Spans past this warpgroup's rows: released as they fill, in order.
-    for (int c = wspans; c < n_spans; ++c) {
-      mbar_wait(full + ((g + c) % S) * 8, ((g + c) / S) & 1);
-      release(c);
+    // Spans past this warpgroup's rows: released as they fill, in order
+    // (none in the wide form, whose warpgroups see every row).
+    if constexpr (!WIDE) {
+      for (int c = wspans; c < n_spans; ++c) {
+        mbar_wait(full + ((g + c) % S) * 8, ((g + c) / S) & 1);
+        release(g + c);
+      }
     }
-    g += n_spans;
-    // At 256 the row map is rebuilt rather than held across the spans
+    g += n_spans * (WIDE ? 2 : 1);
+    // Above 128 the row map is rebuilt rather than held across the spans
     // (the accumulators leave no register to spare).
     RowMap rows = t.rows;
     if constexpr (D > 128) {
-      rows = wg_tile(a, index, kv_len, q_start).rows;
-      rows.row0 += wg * kWgRows;
+      rows = wg_tile<D>(a, index, kv_len, q_start).rows;
+      if constexpr (!WIDE) rows.row0 += wg * kWgRows;
     }
 
     if (!wg_rows_in_16(a)) {
       // Rows that are not whole 16-byte units: stored from registers
       // (mma_store_rows adds the quad's four parts of l).
-      mma_store_rows<T, DN>(a.out, rows, r0, r1, wrows, acc, l0, l1, 0,
-                            hd, hd, quad);
+      mma_store_rows<T, DN>(a.out, rows, r0, r1, wrows, acc, l0, l1, col0,
+                            WIDE ? min(DO, hd - col0) : hd, hd, quad);
     } else {
       // The rows acc / l into the q slot (its last reader, this
-      // warpgroup's q . k^T, has completed) in the swizzle, then rows
-      // out of it a 16-byte chunk a thread.
+      // warpgroup's q . k^T, has completed; the wide form's, both
+      // warpgroups': the pair barrier) in the swizzle, then rows out of
+      // it a 16-byte chunk a thread.
       l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
       l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
       l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
@@ -903,9 +1066,10 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
       const float inv0 = 1.f / fmaxf(l0, 1e-30f);
       const float inv1 = 1.f / fmaxf(l1, 1e-30f);
       unsigned char* o_tile = smem + q_off;
+      if constexpr (WIDE) named_bar_sync(kWgPairBar, 2 * kWgThreads);
 #pragma unroll
       for (int i = 0; i < DN; ++i) {
-        const int d = i * 8 + quad * 2;
+        const int d = col0 + i * 8 + quad * 2;
         unsigned char* col = o_tile + (d >> 6) * (kWgRows * 128);
         *reinterpret_cast<uint32_t*>(col + swz128(r0, (d & 63) * 2)) =
             pack2<T>(acc[i][0] * inv0, acc[i][1] * inv0);
@@ -914,9 +1078,9 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
       }
       named_bar_sync(kWgQBar + wg, kWgThreads);
 #pragma unroll 4
-      for (int i = tid; i < wrows * (D / 8); i += kWgThreads) {
-        const int r = i / (D / 8);
-        const int d = (i - r * (D / 8)) * 8;
+      for (int i = tid; i < wrows * (DO / 8); i += kWgThreads) {
+        const int r = i / (DO / 8);
+        const int d = col0 + (i - r * (DO / 8)) * 8;
         if (d < hd)
           *reinterpret_cast<uint4*>(a.out + rows.offset(r) + d) =
               *reinterpret_cast<const uint4*>(

@@ -37,11 +37,16 @@ barrier. ``prefill_walk_plan`` mirrors the plan. f32 queries (held to
 head_dim from 1 to 256 runs at its tile (32, 64, 80, 128 or 256,
 ``paged_kv_common.kernel_head_dim_tile``), padded in the kernel below
 it, as the Pallas kernel pads head_dim to its lane tile: no copy of q
-or of the cache. Above 256, as slabs of 128
-(``paged_kv_common.kernel_head_dim_slabs``) on the ``mma.sync`` slab
-walk of ``csrc/paged_walk_mma.cuh``: a block writes one slab of the
-output, sums the scores over every slab (q and K staged a slab at a
-time) and takes p . v from its own V slab.
+or of the cache. From 257 to 512, bf16 and f16 queries take the wgmma
+walk's wide form at a width of 384 or 512 (``wide_head_dim_width``,
+padded below it): a 64-row tile goes to both consumer warpgroups, each
+running q . k^T over the whole width (the same m, l and p in both) and
+p . v over half of the output dims, K and V in a ring of single
+planes. f32 queries above 256, and 16-bit ones above 512, run as slabs
+of 128 (``paged_kv_common.kernel_head_dim_slabs``), 16-bit on the
+``mma.sync`` slab walk of ``csrc/paged_walk_mma.cuh``: a block writes
+one slab of the output, sums the scores over every slab (q and K
+staged a slab at a time) and takes p . v from its own V slab.
 
 Contract (the Pallas kernel's): q [B, T, num_q_heads, head_dim]; the
 per-layer or, with ``layer``, the stacked cache, as the decode kernel
@@ -60,6 +65,7 @@ import torch
 
 from production_stack_tpu_torch.ops.paged_kv_common import (
     COUNTERS,
+    MAX_KERNEL_HEAD_DIM,
     cache_code,
     check_cache,
     check_kernel_operands,
@@ -86,31 +92,58 @@ WG_ROWS = 64
 WG_MAX_CONSUMERS = 2
 WG_MAX_STAGES = 4
 MAX_BLOCK_SMEM = 232448
+# The wide form's widths (PSTT_FOR_EACH_WG_WIDTH): 16-bit queries at a
+# head_dim above the widest tile run at the smallest at or above it.
+WG_WIDE_WIDTHS = (384, 512)
+
+
+def wide_head_dim_width(head_dim: int) -> Optional[int]:
+    """The width of the wgmma walk's wide form a head_dim runs at
+    (csrc/paged_walk_wgmma.cuh ``wg_wide_width``): the smallest of
+    ``WG_WIDE_WIDTHS`` at or above it, above the widest tile; None where
+    another walk takes it (a tile below, the slab walk above)."""
+    if head_dim <= MAX_KERNEL_HEAD_DIM:
+        return None
+    return next((w for w in WG_WIDE_WIDTHS if head_dim <= w), None)
 
 
 def _wg_smem(int8: bool, tile: int) -> Tuple[int, int, int]:
     """(ring stages, raw stages, shared bytes) of the wgmma walk at a
-    head-dim tile (WgSmem): q slots (two up to 128, one at 256) of two
-    consumers' 64 rows in 64-column blocks, as many stages of a 64-token
-    span's K and V planes as fit up to four, two raw int8 stages where
-    they fit, the scales, the page ids, the tile ring, the barriers and
-    1024 bytes of alignment."""
-    slot = 2 * tile * 128
-    scales = 2 * WG_SPAN_TOKENS * 4 if int8 else 0
+    head-dim tile or a width of the wide form (WgSmem): q slots (two up
+    to 128, one above) of two consumers' 64 rows (the wide form: one
+    tile of 64 rows both read) in 64-column blocks, as many ring units
+    as fit up to four (a 64-token span's K and V planes; the wide form
+    one plane a unit, and two spans' page ids), two raw int8 units where
+    they fit (the wide form: beside the most units that fit with one),
+    the scales, the page ids, the tile ring, the barriers and 1024 bytes
+    of alignment."""
+    wide = tile > MAX_KERNEL_HEAD_DIM
+    planes = 1 if wide else 2
+    slot = planes * tile * 128
+    scales = planes * WG_SPAN_TOKENS * 4 if int8 else 0
     q_slots = 1 if tile > 128 else 2
     q_tile = WG_ROWS * (-(-tile // 64) * 64) * 2
-    raw_slot = (2 * tile * WG_SPAN_TOKENS + 2 * WG_SPAN_TOKENS * 4
+    q_slot = q_tile if wide else WG_MAX_CONSUMERS * q_tile
+    raw_slot = (planes * (tile * WG_SPAN_TOKENS + WG_SPAN_TOKENS * 4)
                 if int8 else 0)
+    page_ids = (2 if wide else 1) * WG_SPAN_TOKENS * 4
 
     def size(stages, raw):
-        return (stages * (slot + scales)
-                + q_slots * WG_MAX_CONSUMERS * q_tile + raw * raw_slot
-                + WG_SPAN_TOKENS * 4 + 2 * 4 * 4
+        return (stages * (slot + scales) + q_slots * q_slot + raw * raw_slot
+                + page_ids + 2 * 4 * 4
                 + (2 * stages + 4 + 2 * q_slots) * 8 + 1024)
 
-    raw = (2 if size(2, 2) <= MAX_BLOCK_SMEM else 1) if int8 else 0
-    stages = next(s for s in (WG_MAX_STAGES, 3, 2)
-                  if s == 2 or size(s, raw) <= MAX_BLOCK_SMEM)
+    def stages_at(raw):
+        return next(s for s in (WG_MAX_STAGES, 3, 2)
+                    if s == 2 or size(s, raw) <= MAX_BLOCK_SMEM)
+
+    if not int8:
+        raw = 0
+    elif wide:
+        raw = 2 if size(stages_at(1), 2) <= MAX_BLOCK_SMEM else 1
+    else:
+        raw = 2 if size(2, 2) <= MAX_BLOCK_SMEM else 1
+    stages = stages_at(raw)
     return stages, raw, size(stages, raw)
 
 
@@ -119,29 +152,38 @@ def prefill_walk_plan(dtype: torch.dtype, cache_dtype: torch.dtype,
                       page_size: int) -> Dict[str, object]:
     """The walk the prefill kernel runs on the card for these shapes,
     as the launch picks it: ``walk`` is ``wgmma`` (bf16 or f16 queries
-    up to head_dim 256), ``mma_slab`` (16-bit above 256) or ``f32``.
-    For the wgmma walk: the head-dim ``tile``, ``consumers`` warpgroups
-    (one where the G * T rows fit in 64) and ``tile_rows``, ring
-    ``stages`` and int8 ``raw_stages``, the producer's ``copies``
-    (``pages``: whole-page 16-byte copies at a power of two of 16
-    bytes or more; ``tokens`` otherwise), ``q_slots`` and
-    ``smem_bytes`` a block."""
+    up to head_dim 256), ``wgmma_wide`` (16-bit at 257 to 512),
+    ``mma_slab`` (16-bit above 512) or ``f32``. For the wgmma walk: the
+    head-dim ``tile``, ``consumers`` warpgroups (one where the G * T
+    rows fit in 64) and ``tile_rows``, ring ``stages`` and int8
+    ``raw_stages``, the producer's ``copies`` (``pages``: whole-page
+    16-byte copies at a power of two of 16 bytes or more; ``tokens``
+    otherwise), ``q_slots`` and ``smem_bytes`` a block. For its wide
+    form: the ``width``, two consumers over ``tile_rows`` 64, ring
+    ``slots`` of one plane, ``raw_stages``, ``copies``, ``q_slots`` and
+    ``smem_bytes``."""
+    int8 = cache_dtype == torch.int8
+    esz = 1 if int8 else 2
+    pow2 = page_size & (page_size - 1) == 0
+    copies = "pages" if pow2 and page_size * esz >= 16 else "tokens"
     slabs, tile = kernel_head_dim_slabs(head_dim)
     if dtype == torch.float32:
         return {"walk": "f32", "tile": tile, "tile_rows": 64}
+    width = wide_head_dim_width(head_dim)
+    if width is not None:
+        slots, raw, smem = _wg_smem(int8, width)
+        return {"walk": "wgmma_wide", "width": width,
+                "consumers": WG_MAX_CONSUMERS, "tile_rows": WG_ROWS,
+                "slots": slots, "raw_stages": raw, "copies": copies,
+                "q_slots": 1, "smem_bytes": smem}
     if slabs > 1:
         return {"walk": "mma_slab", "tile": tile, "tile_rows": 64,
                 "slabs": slabs}
-    int8 = cache_dtype == torch.int8
     consumers = 1 if group * tokens <= WG_ROWS else WG_MAX_CONSUMERS
     stages, raw, smem = _wg_smem(int8, tile)
-    esz = 1 if int8 else 2
-    pow2 = page_size & (page_size - 1) == 0
     return {"walk": "wgmma", "tile": tile, "consumers": consumers,
             "tile_rows": consumers * WG_ROWS, "stages": stages,
-            "raw_stages": raw,
-            "copies": "pages" if pow2 and page_size * esz >= 16
-            else "tokens",
+            "raw_stages": raw, "copies": copies,
             "q_slots": 1 if tile > 128 else 2, "smem_bytes": smem}
 
 

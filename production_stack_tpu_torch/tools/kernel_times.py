@@ -12,8 +12,9 @@ first chunk, and the second chunk from position 512 as
 ``paged_prefill_second``; beside each, ``library_paged_prefill*``:
 one ``scaled_dot_product_attention`` over the same K/V gathered dense,
 with the same mask, a yardstick the port never calls; and, where the
-wrapper has it, the walk's plan as ``prefill_plan``: tile rows,
-consumer warpgroups, ring stages, copy path) and
+wrapper has it, the walk's plan as ``prefill_plan``: the walk, tile
+rows, consumer warpgroups, ring stages, copy path, the walk also
+printed on a line of its own) and
 ``paged_ragged_attention`` (the widest unified mixed step of
 the serving configuration, R = 40 rows at W = 512: 28 decode rows, 8
 chunk rows of first and second chunks, 4 pad rows; the speculative
@@ -30,8 +31,9 @@ q over 8 kv heads at 128; ``g1_d80``: OPT-2.7b's 32 heads of 80 in f16;
 ``g1_d128``: Llama-2-7B's 32 heads of 128; ``g3_d256``: Falcon3-7B's
 12 q over 4 kv heads at 256; ``g1_d100``: OpenLLaMA-3B's 32 heads of
 100 in f16, padded in the kernel to 128; ``g3_d512``: 6 q over 2 kv
-heads at 512, four slabs of 128, ``g3_d256``'s K/V bytes; ``g1_d320``:
-16 heads of 320 in f16, three slabs, the last padded), in the
+heads at 512, ``g3_d256``'s K/V bytes; ``g1_d320``: 16 heads of 320 in
+f16, the wide prefill walk's width 384 padded; both four and three
+slabs of 128 in decode and ragged), in the
 geometry's dtype
 (bf16 where none is named) over a cache of that type and an int8 one,
 through the public wrappers of the checkout at ``--repo``
@@ -293,6 +295,8 @@ def main(argv=None) -> int:
         if plan is not None:
             out["prefill_plan" + tag] = plan(
                 dtype, torch.int8 if int8 else dtype, nh // kv, 512, d, ps)
+            print(f"prefill walk {args.geometry}{tag}: "
+                  f"{out['prefill_plan' + tag]['walk']}", flush=True)
 
         # Ragged blocks as (kv_len, last_index) per row.
         decode_lens = np.linspace(70, 1024, 28).round().astype(int).tolist()

@@ -534,6 +534,112 @@ def test_prefill_wgmma_walk_matches_plain(dev, head_dim, page_size, form):
     assert torch.equal(got[2], torch.zeros_like(got[2]))
 
 
+# The wgmma walk's wide form (head dims 257 to 512: widths 384 and 512,
+# two consumer warpgroups on a 64-row tile, each owning half the output
+# dims): the widths and head dims padded below them, query groups 1, 3
+# and 8 over 2 kv heads, pages 8 to 256, bf16 and f16 over their own
+# type and over int8, per layer and stacked; each case one T bucket of
+# 16..512 (rotating), rows of a first and a second chunk, a one-token
+# row and a kv_len-0 row.
+WIDE_HEAD_DIMS = [257, 320, 384, 448, 512]
+WIDE_GROUPS = [1, 3, 8]
+WIDE_PAGES = [8, 16, 48, 128, 256]
+WIDE_FORMS = {"bf16": (torch.bfloat16, False, False),
+              "f16": (torch.float16, False, False),
+              "bf16_int8": (torch.bfloat16, True, False),
+              "f16_int8": (torch.float16, True, False),
+              "bf16_stacked": (torch.bfloat16, False, True),
+              "f16_int8_stacked": (torch.float16, True, True)}
+
+
+@pytest.mark.parametrize("form", sorted(WIDE_FORMS))
+@pytest.mark.parametrize("page_size", WIDE_PAGES)
+@pytest.mark.parametrize("group", WIDE_GROUPS)
+@pytest.mark.parametrize("head_dim", WIDE_HEAD_DIMS)
+def test_prefill_wgmma_wide_walk_matches_plain(dev, head_dim, group,
+                                               page_size, form):
+    """Written into a view of a NaN-filled buffer: every slot is
+    written (both warpgroups' halves of every row), kv_len-0 rows exact
+    0, nothing past the output; two launches equal bit for bit."""
+    dtype, int8, stacked = WIDE_FORMS[form]
+    case = ((WIDE_HEAD_DIMS.index(head_dim) * len(WIDE_GROUPS)
+             + WIDE_GROUPS.index(group)) * len(WIDE_PAGES)
+            + WIDE_PAGES.index(page_size)) * len(WIDE_FORMS) + sorted(
+                WIDE_FORMS).index(form)
+    t = WGMMA_T[case % len(WGMMA_T)]
+    rows = [(0, t), (600, max(1, t - 3)), (0, 0), (37, 1)]
+    kv_lens = [s + n if n else 0 for s, n in rows]
+    k, v, table, lens, g = _wide_inputs(dev, dtype, kv_lens, group, 2,
+                                        head_dim, page_size, 1152, case,
+                                        int8)
+    layer = None
+    if stacked:
+        layer = 1
+        k, v = _stacked(k, 2, layer, g), _stacked(v, 2, layer, g)
+    nh = 2 * group
+    q = torch.randn((len(rows), t, nh, head_dim), generator=g).to(dev,
+                                                                  dtype)
+    starts = torch.tensor([s if n else 0 for s, n in rows],
+                          dtype=torch.int32, device=dev)
+    pos = (starts[:, None] + torch.arange(t, dtype=torch.int32,
+                                          device=dev)).contiguous()
+    guard = 64 * nh * head_dim
+    buf = torch.full((q.numel() + guard,), float("nan"), dtype=dtype,
+                     device=dev)
+    got = buf[:q.numel()].view(q.shape)
+    _prefill_into(got, q, k, v, table, pos, lens, layer)
+    again = paged_prefill_attention(q, k, v, table, pos, lens, layer=layer)
+    ref = paged_prefill_attention_plain(q, k, v, table, pos, lens,
+                                        layer=layer, p_dtype=dtype)
+    torch.cuda.synchronize()
+    assert not got.isnan().any()
+    assert buf[q.numel():].isnan().all()
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+    assert torch.equal(got, again)
+    assert torch.equal(got[2], torch.zeros_like(got[2]))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype,head_dim,walk", [
+    (torch.bfloat16, 320, "_wgmma_wide_kernel"),
+    (torch.float16, 512, "_wgmma_wide_kernel"),
+    (torch.bfloat16, 513, "_mma_slab_kernel"),
+    (torch.float16, 576, "_mma_slab_kernel")])
+def test_prefill_wide_head_dims_run_their_walk(dev, dtype, head_dim, walk,
+                                               int8):
+    """The device kernel a launch runs, by name: the wide form for
+    16-bit head dims 257 to 512 (its plan, ``prefill_walk_plan``,
+    ``wgmma_wide``), the slab walk above; one kernel a launch, no other
+    walk and no plain version on the way."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from production_stack_tpu_torch.ops.prefill_attention_cuda import (
+        prefill_walk_plan)
+    rows = [(0, 64), (100, 30)]
+    kv_lens = [s + n for s, n in rows]
+    k, v, table, lens, g = _wide_inputs(dev, dtype, kv_lens, 3, 2,
+                                        head_dim, 16, 256, 7, int8)
+    q = torch.randn((2, 64, 6, head_dim), generator=g).to(dev, dtype)
+    pos = (torch.tensor([0, 100], dtype=torch.int32, device=dev)[:, None]
+           + torch.arange(64, dtype=torch.int32, device=dev)).contiguous()
+    paged_prefill_attention(q, k, v, table, pos, lens)
+    torch.cuda.synchronize()
+    COUNTERS.reset()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = paged_prefill_attention(q, k, v, table, pos, lens)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if "paged_prefill" in e.key]
+    assert len(names) == 1 and walk in names[0], names
+    assert not COUNTERS.plain_cuda_calls
+    plan = prefill_walk_plan(dtype, torch.int8 if int8 else dtype, 3, 64,
+                             head_dim, 16)
+    assert plan["walk"] == ("wgmma_wide" if "wide" in walk else "mma_slab")
+    ref = paged_prefill_attention_plain(q, k, v, table, pos, lens,
+                                        p_dtype=dtype)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+
+
 # Ragged blocks of the tensor-core walk at the bench-1b geometry, as
 # (W, [(kv_len, last_index), ...]): decode rows alone over kv lens
 # 1..1024 (every tile but the first dead; two pad rows); a verify block

@@ -5,7 +5,9 @@ ceil(head_dim / 128) slabs of the tile 128 (``kernel_head_dim_slabs``;
 csrc/paged_kv_common.cuh's slab design): a block owns one output slab,
 sums the scores q . k^T over every slab in slab order, runs one online
 softmax with the real 1 / sqrt(head_dim), and takes p . v from its own
-V slab; the last slab is padded in the kernel. On the CPU the wrappers
+V slab; the last slab is padded in the kernel. (The prefill kernel's
+16-bit forms run head dims up to 512 on the wide form of its wgmma walk
+instead: tests/test_torch_prefill_wgmma.py.) On the CPU the wrappers
 take their plain versions, which sum the scores in the same slab order
 (``slab_scores``); the CUDA kernels are held against those plain
 versions on the card (``chip_smoke.py``'s geometries phase,
@@ -90,6 +92,7 @@ from production_stack_tpu_torch.ops.paged_kv_common import (
     slab_scores,
 )
 from production_stack_tpu_torch.ops.prefill_attention_cuda import (
+    WG_WIDE_WIDTHS,
     paged_prefill_attention_plain,
 )
 from production_stack_tpu_torch.ops.ragged_attention_cuda import (
@@ -276,8 +279,9 @@ class _StubKernelLib:
     at or above it, and any wider one as slabs of the slab instance's
     tile (head_dim_tile, head_dim_slabs)."""
 
-    _SRC = (Path(__file__).resolve().parents[1] / "production_stack_tpu_torch"
-            / "csrc" / "paged_kv_common.cuh").read_text()
+    _SRC_DIR = (Path(__file__).resolve().parents[1]
+                / "production_stack_tpu_torch" / "csrc")
+    _SRC = (_SRC_DIR / "paged_kv_common.cuh").read_text()
     PAIRS = {tuple(map(int, x)) for x in re.findall(
         r"PSTT_FOR_EACH_HEAD_DIM\(X, (\d), [\w ]+, (\d), [\w ]+\)", _SRC)}
     INSTANCES = [(int(d), s == "true") for d, s in re.findall(
@@ -305,6 +309,29 @@ def test_instances_are_the_tiles_and_one_slab():
     assert _StubKernelLib.TILES == list(KERNEL_HEAD_DIM_TILES)
     assert _StubKernelLib.SLAB == SLAB_HEAD_DIM == 128
     assert len(_StubKernelLib.INSTANCES) == len(KERNEL_HEAD_DIM_TILES) + 1
+    # The prefill kernel's 16-bit sources add the wgmma walk's wide form
+    # at its widths (csrc/paged_walk_wgmma.cuh PSTT_FOR_EACH_WG_WIDTH),
+    # over a cache of the query's type and int8, ahead of the slab
+    # instance, which keeps the head dims above the widest; the f32
+    # source and the decode and ragged kernels have none.
+    csrc = _StubKernelLib._SRC_DIR
+    walk = (csrc / "paged_walk_wgmma.cuh").read_text()
+    widths = [int(w) for w in re.findall(
+        r"^  X\(code, T, ccode, C, (\d+)\)", walk, re.M)]
+    assert tuple(widths) == WG_WIDE_WIDTHS == (384, 512)
+    assert widths[0] > KERNEL_HEAD_DIM_TILES[-1]
+    assert all(w % SLAB_HEAD_DIM == 0 for w in widths)
+    prefill = (csrc / "paged_prefill.cuh").read_text()
+    for code, t, cache in (("0", "__nv_bfloat16", "__nv_bfloat16"),
+                           ("0", "__nv_bfloat16", "int8_t"),
+                           ("3", "__half", "__half"),
+                           ("3", "__half", "int8_t")):
+        ccode = {"__nv_bfloat16": "0", "__half": "3", "int8_t": "2"}[cache]
+        assert (f"PSTT_FOR_EACH_WG_WIDTH(X, {code}, {t}, {ccode}, {cache})"
+                in prefill)
+    for name in ("paged_prefill_f32.cu", "paged_decode_bf16.cu",
+                 "paged_ragged_bf16.cu", "paged_decode_slab_bf16.cu"):
+        assert "WIDE" not in (csrc / name).read_text(), name
 
 
 @pytest.mark.parametrize("lo,hi", [(0, 300), (300, 700), (700, 1101)])

@@ -12,11 +12,18 @@ The walk runs only on the card (tests/test_torch_cuda_kernels.py and
   the 232,448 bytes a block may have;
 - that the prefill kernels launch the wgmma walk and no longer the
   ``mma.sync`` walk, which the ragged kernel keeps;
+- the walk's wide form (16-bit head dims 257 to 512, at widths 384 and
+  512: two consumer warpgroups on a 64-row tile, each owning half of
+  the output dims; ring units of one plane): its widths and plans
+  against the source's, the walk ``prefill_walk_plan`` names at every
+  head_dim (``wgmma_wide`` to 512, ``mma_slab`` above, ``f32`` for
+  f32 queries), and its dispatch ahead of the slab walk;
 - the plain version with the walk's rounding (bf16 probabilities into
   p . v) against the Pallas prefill kernel in interpret mode at the
   shapes where the plan changes: one consumer warpgroup at G * T = 64,
   two at 65, tiles 80 and 256 (a head_dim of 160 padded), an int8 cache
-  at a page of 8 (token copies) and pages of 1 and 48.
+  at a page of 8 (token copies) and pages of 1 and 48; and at the wide
+  form's head dims 320 and 512, per layer, stacked and over int8.
 
 Inputs are made with numpy from a seed and go through both packages.
 Tolerance: bf16-rounded probabilities at atol = rtol = 2e-2 (one bf16
@@ -47,11 +54,25 @@ from production_stack_tpu_torch.ops.prefill_attention_cuda import (
     WG_MAX_STAGES,
     WG_ROWS,
     WG_SPAN_TOKENS,
+    WG_WIDE_WIDTHS,
     paged_prefill_attention,
     paged_prefill_attention_plain,
     prefill_walk_plan,
+    wide_head_dim_width,
 )
 from production_stack_tpu_torch.ops.quant_kv import QuantKV
+from tests.test_torch_head_dims import (
+    DTYPES,
+    KV_HEADS,
+    _caches,
+    _close,
+    _first,
+    _i,
+    _j,
+    _layer,
+    _t,
+    _table,
+)
 
 torch.set_num_threads(2)
 
@@ -96,8 +117,10 @@ def test_constants_are_the_sources():
 
 
 def test_the_source_plans_every_instance_once():
+    # Every tile and every width of the wide form, over both caches.
     assert sorted(SOURCE_PLAN) == sorted(
-        (int8, d) for int8 in (False, True) for d in KERNEL_HEAD_DIM_TILES)
+        (int8, d) for int8 in (False, True)
+        for d in KERNEL_HEAD_DIM_TILES + WG_WIDE_WIDTHS)
     assert len(re.findall(r"^PSTT_WG_PLAN\(", WALK, re.M)) == len(SOURCE_PLAN)
 
 
@@ -155,9 +178,106 @@ def test_other_walks_keep_their_plans():
                              16)["walk"] == "f32"
     assert prefill_walk_plan(torch.float32, torch.int8, 2, 64, 256,
                              16)["walk"] == "f32"
-    slab = prefill_walk_plan(torch.bfloat16, torch.int8, 3, 512, 512, 16)
+    # 512 is the wide form's (its own test below); the slab walk keeps
+    # the 16-bit head dims above it.
+    assert prefill_walk_plan(torch.bfloat16, torch.int8, 3, 512, 512,
+                             16)["walk"] == "wgmma_wide"
+    slab = prefill_walk_plan(torch.bfloat16, torch.int8, 3, 512, 576, 16)
     assert slab == {"walk": "mma_slab", "tile": 128, "tile_rows": 64,
-                    "slabs": 4}
+                    "slabs": 5}
+
+
+# ---- the wide form ------------------------------------------------------------
+
+
+def test_wide_widths_are_the_sources():
+    """The widths of PSTT_FOR_EACH_WG_WIDTH, ascending, from above the
+    widest tile; the width rule (wg_wide_width) and its mirror agree
+    on every head_dim up to 1100."""
+    listed = re.search(r"#define PSTT_FOR_EACH_WG_WIDTH\(X, code, T, ccode, "
+                       r"C\)((?:[^\n]*\\\n)*[^\n]*)", WALK).group(1)
+    widths = tuple(int(w) for w in re.findall(r"X\(code, T, ccode, C, "
+                                              r"(\d+)\)", listed))
+    assert widths == WG_WIDE_WIDTHS == (384, 512)
+    assert widths[0] > KERNEL_HEAD_DIM_TILES[-1]
+    assert re.search(r"if \(head_dim <= kMaxHeadDim\) return 0;", WALK)
+    for d in range(0, 1101):
+        want = next((w for w in widths if d <= w), None) if d > 256 else None
+        assert wide_head_dim_width(d) == want, d
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("width", WG_WIDE_WIDTHS)
+def test_wide_plan_mirrors_the_source_and_fits_a_block(int8, width):
+    """Ring slots of one plane (two at 512, three at 384), one raw
+    slot for int8, one q slot of 64 rows both warpgroups read, the
+    64-token span and the 128-byte swizzle: within a block, and the
+    source's PSTT_WG_PLAN line."""
+    cache = torch.int8 if int8 else torch.bfloat16
+    plan = prefill_walk_plan(torch.bfloat16, cache, 3, 512, width, 128)
+    assert plan["walk"] == "wgmma_wide" and plan["width"] == width
+    assert (plan["slots"], plan["raw_stages"], plan["smem_bytes"]) == (
+        SOURCE_PLAN[(int8, width)])
+    assert plan["smem_bytes"] <= MAX_BLOCK_SMEM
+    assert plan["slots"] == (3 if width == 384 else 2)
+    assert plan["raw_stages"] == (1 if int8 else 0)
+    assert (plan["consumers"], plan["tile_rows"], plan["q_slots"]) == (
+        WG_MAX_CONSUMERS, WG_ROWS, 1)
+    # The plane, the q tile and the second warpgroup's half of V start
+    # at swizzle atoms.
+    assert width * 128 % 1024 == 0 and width // 2 * 128 % 1024 == 0
+    assert prefill_walk_plan(torch.float16, torch.float16 if not int8
+                             else torch.int8, 1, 64, width, 16) == dict(
+        plan, copies="pages")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("cache", ["same", "int8"])
+def test_plan_names_the_wide_walk_from_257_to_512(dtype, cache):
+    kv = torch.int8 if cache == "int8" else dtype
+    for d in (257, 288, 320, 384):
+        plan = prefill_walk_plan(dtype, kv, 3, 512, d, 128)
+        assert (plan["walk"], plan["width"]) == ("wgmma_wide", 384), d
+    for d in (385, 448, 512):
+        plan = prefill_walk_plan(dtype, kv, 3, 512, d, 128)
+        assert (plan["walk"], plan["width"]) == ("wgmma_wide", 512), d
+    for d, slabs in ((513, 5), (576, 5), (1024, 8)):
+        plan = prefill_walk_plan(dtype, kv, 3, 512, d, 128)
+        assert plan == {"walk": "mma_slab", "tile": 128, "tile_rows": 64,
+                        "slabs": slabs}, d
+    for d in (256, 100):
+        assert prefill_walk_plan(dtype, kv, 3, 512, d, 128)["walk"] == (
+            "wgmma")
+    for d in (257, 320, 512, 576):
+        assert prefill_walk_plan(torch.float32, torch.float32 if cache ==
+                                 "same" else torch.int8, 3, 512, d,
+                                 128)["walk"] == "f32"
+
+
+def test_wide_form_dispatches_ahead_of_the_slab_walk():
+    """The 16-bit sources try the wide widths before the tiles and
+    the slab instance (which serves only what the wide form leaves:
+    above 512); the f32 source has no wide form. The wide kernel runs
+    the same walk (page_walk_block_wgmma) under a name of its own."""
+    prefill = (CSRC / "paged_prefill.cuh").read_text()
+    assert "paged_prefill_wgmma_wide_kernel" in prefill
+    assert prefill.count("page_walk_block_wgmma<T, C, W>(a)") == 1
+    assert "pstt::wg_wide_width(args.head_dim) == W" in prefill
+    for src, wide, geometry in (("bf16", "BF16_WIDE", "BF16_GEOMETRY"),
+                                ("f16", "F16_WIDE", "F16_GEOMETRY")):
+        body = (CSRC / f"paged_prefill_{src}.cu").read_text()
+        assert body.index(f"PSTT_FOR_EACH_{wide}(PSTT_PREFILL_WIDE_CASE)") < (
+            body.index(f"PSTT_FOR_EACH_{geometry}(PSTT_PREFILL_CASE)"))
+    assert "WIDE" not in (CSRC / "paged_prefill_f32.cu").read_text()
+    # The wide form shares the walk's code: one producer, one consumer.
+    assert WALK.count("void wg_produce(") == 1
+    assert WALK.count("void wg_consume(") == 1
+    # A launch that fails its attribute or its register check returns
+    # the error; no launch goes to another walk.
+    launch = prefill[prefill.index("int launch(const PrefillArgs& a)"):]
+    launch = launch[:launch.index("\n}\n")]
+    assert "if (attr != cudaSuccess) return attr;" in launch
+    assert "return cudaErrorInvalidConfiguration;" in launch
 
 
 def test_prefill_launches_the_wgmma_walk_and_ragged_keeps_mma_sync():
@@ -248,6 +368,46 @@ def test_plain_walk_with_bf16_probabilities_matches_pallas(
     # The CPU wrapper takes the plain version (the f32 walk).
     assert torch.equal(paged_prefill_attention(*args),
                        paged_prefill_attention_plain(*args))
+
+
+# (head_dim, query group, dtype, page size, form) at the wide form's
+# widths: 320 (384, padded) and 512, per layer, stacked and over int8.
+WIDE_POINTS = [(320, 3, "bf16", 8, "plain"), (320, 1, "f16", 128, "stacked"),
+               (320, 3, "f16", 16, "int8"), (512, 1, "bf16", 128, "plain"),
+               (512, 3, "f16", 8, "stacked"), (512, 3, "bf16", 16, "int8")]
+
+
+@pytest.mark.parametrize("d,group,dtype,page,form", WIDE_POINTS,
+                         ids=[f"d{d}-g{g}-{t}-ps{ps}-{f}"
+                              for d, g, t, ps, f in WIDE_POINTS])
+def test_wide_plain_walk_with_16_bit_probabilities_matches_pallas(
+        d, group, dtype, page, form):
+    """The plain walk rounded as the wide form rounds (probabilities
+    into p . v in the query's type) against the Pallas prefill kernel in
+    interpret mode: a first chunk, a chunk past the 128-token edge with
+    pad slots at its tail, and a kv_len-0 row (exact 0)."""
+    rng = np.random.RandomState(d + group)
+    chunk = 24
+    lengths = np.array([chunk, chunk - 5, 0], np.int32)
+    starts = np.array([0, 120, 0], np.int32)
+    kv_lens = np.where(lengths > 0, starts + lengths, 0).astype(np.int32)
+    positions = np.zeros((3, chunk), np.int32)
+    for i in range(3):
+        if lengths[i]:
+            positions[i] = starts[i] + np.arange(chunk)
+    table, pages = _table(kv_lens, page, -(-144 // page) + 1)
+    jk, jv, tk, tv = _caches(rng, pages, d, page, form, dtype)
+    q = rng.randn(3, chunk, KV_HEADS * group, d)
+    expected = _first(jax_paged_prefill_attention(
+        _j(q, dtype), jk, jv, jnp.asarray(table), jnp.asarray(positions),
+        jnp.asarray(kv_lens), interpret=True, **_layer(form)))
+    got = paged_prefill_attention_plain(
+        _t(q, dtype), tk, tv, _i(table), _i(positions), _i(kv_lens),
+        p_dtype=DTYPES[dtype][0], **_layer(form))
+    assert prefill_walk_plan(DTYPES[dtype][0], DTYPES[dtype][0], group,
+                             chunk, d, page)["walk"] == "wgmma_wide"
+    _close(got, expected, dtype)
+    assert not got[2].any()
 
 
 @pytest.mark.parametrize("int8", [False, True])
