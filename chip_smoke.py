@@ -251,9 +251,13 @@ its result line:
 17. weights: weight-only int8 and multi-LoRA. The int8-weight GEMM
     (``ops/int8_matmul_cuda.int8_weight_matmul``) against its plain
     version at bench-1b's four projections (qkv, o, gate_up, down) for
-    M = 1, 8, 32, 160 and ``INT8_KERNEL_MAX_ROWS`` rows in bf16 (2e-2)
-    and one f32 tiny-llama case (1e-4); two launches must give equal
-    bits; at M = 32, 160 and the threshold it is timed with CUDA events
+    M = 1, 8, 32, 64, 160 and ``INT8_KERNEL_MAX_ROWS`` rows in bf16
+    (2e-2) and one f32 tiny-llama case (1e-4); two launches must give
+    equal bits; each case's plan (``int8_weight_plan``) is logged with
+    the clusters the card runs at once at its shape (at least its tiles:
+    one wave), and the build's ``-Xptxas -v`` lines of the GEMM's
+    instances (registers, spills, wgmma serialization warnings) are
+    logged; at every M it is timed with CUDA events
     (L2 flushed) beside bf16 ``torch.matmul`` on the dequantized weight
     (the yardstick, ``library_ms``), the dequantize-then-matmul form
     (``dequant_ms``), the plain version and its bound (int8 weight
@@ -323,8 +327,8 @@ its result line:
     512 and 1024; 16-bit prefill to 512 on the wgmma walk's wide form,
     at its widths 384 and 512) at pages 128 and 16 (BF16_TOL for bf16
     and f16, F32_TOL for f32), each prefill launch at group 3 and page
-    16 held, by its device kernel's name under torch.profiler (in a
-    process of its own), to the walk ``prefill_walk_plan`` names (every
+    16 held, by the library's count of each walk's launches, to the
+    walk ``prefill_walk_plan`` names (every
     head_dim from 257 to 512 on the wide form, those above on the slab
     walk), with
     ``pstt_kernel_supports`` and
@@ -857,29 +861,27 @@ def decode_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None,
     return out
 
 
-# The prefill kernel's device kernels by the walk prefill_walk_plan
-# names.
-PREFILL_WALKS = {"paged_prefill_wgmma_kernel": "wgmma",
-                 "paged_prefill_wgmma_wide_kernel": "wgmma_wide",
-                 "paged_prefill_mma_slab_kernel": "mma_slab",
-                 "paged_prefill_kernel": "f32"}
+# The prefill kernel's walks, by their index in the library's
+# pstt_prefill_walk_launches (paged_prefill.cu), as prefill_walk_plan
+# names them.
+PREFILL_WALKS = ("wgmma", "wgmma_wide", "mma_slab", "f32")
 
 
 def _prefill_walks(fn) -> dict:
-    """{walk: device launches} of the prefill kernel while ``fn`` runs,
-    read from torch.profiler's trace of the card (no name of
-    PREFILL_WALKS is a part of another)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    walks = {}
-    for e in prof.key_averages():
-        found = [walk for kernel, walk in PREFILL_WALKS.items()
-                 if kernel in e.key]
-        if found:
-            walks[found[0]] = walks.get(found[0], 0) + e.count
-    return walks
+    """{walk: launches} of the prefill kernel while ``fn`` runs, read
+    from the library's count of the launches each walk's kernel took
+    (the kernel the runtime accepted, after the launch's error check)."""
+    from production_stack_tpu_torch.ops import paged_kv_common as pkc
+    lib = pkc.kernel_lib()
+
+    def counts():
+        return [lib.pstt_prefill_walk_launches(i)
+                for i in range(len(PREFILL_WALKS))]
+    before = counts()
+    fn()
+    torch.cuda.synchronize()
+    return {walk: n1 - n0 for walk, n0, n1
+            in zip(PREFILL_WALKS, before, counts()) if n1 != n0}
 
 
 def _prefill_walk(fn) -> str:
@@ -897,19 +899,18 @@ DTYPES_BY_NAME = {"bfloat16": torch.bfloat16, "float16": torch.float16,
                   "float32": torch.float32}
 
 
-def _prefill_walk_points(points) -> list:
+def _prefill_walks_of(points) -> list:
     """The walk one prefill launch ran at each point (a row of a first
-    chunk of T tokens), read from torch.profiler. Run in a process of
-    its own (``_prefill_walks_of``): in this script's process the
-    profiler's trace comes back empty once the serving phases' servers
-    have profiled (seen on the card, cause not found)."""
+    chunk of T tokens), each held to the one ``prefill_walk_plan``
+    names."""
     from production_stack_tpu_torch.ops.prefill_attention_cuda import (
-        paged_prefill_attention)
+        paged_prefill_attention, prefill_walk_plan)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(23)
     walks = []
-    for name, int8, group, kv, d, t, ps in points:
+    for point in points:
+        name, int8, group, kv, d, t, ps = point
         dtype = DTYPES_BY_NAME[name]
         max_pages = -(-t // ps)
         (kc, vc), _ = _caches(kv, max_pages + 1, d, ps, dtype, dev, gen,
@@ -923,32 +924,13 @@ def _prefill_walk_points(points) -> list:
         def call():
             paged_prefill_attention(q, kc, vc, table, pos.contiguous(),
                                     lens)
-        call()
-        walks.append(_prefill_walk(call))
-    return walks
-
-
-def _prefill_walks_of(points) -> list:
-    """``_prefill_walk_points`` in a fresh process of this script, on the
-    kernel build this process made; each point's walk held to the one
-    ``prefill_walk_plan`` names."""
-    from production_stack_tpu_torch.ops.prefill_attention_cuda import (
-        prefill_walk_plan)
-    proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--prefill-walks",
-         json.dumps(points)], capture_output=True, text=True, timeout=600)
-    if proc.returncode:
-        raise RuntimeError(f"the prefill walk check failed: "
-                           f"{proc.stderr[-4000:]}")
-    walks = json.loads(proc.stdout.strip().splitlines()[-1])
-    for point, walk in zip(points, walks):
-        name, int8, group, _, d, t, ps = point
+        walk = _prefill_walk(call)
         planned = prefill_walk_plan(
-            DTYPES_BY_NAME[name], torch.int8 if int8 else
-            DTYPES_BY_NAME[name], group, t, d, ps)["walk"]
+            dtype, torch.int8 if int8 else dtype, group, t, d, ps)["walk"]
         if walk != planned:
             raise AssertionError(f"prefill at {point}: ran the {walk} walk,"
                                  f" the plan names {planned}")
+        walks.append(walk)
     return walks
 
 
@@ -3535,6 +3517,32 @@ LORA_RANK = 16
 SERVE_TOK_S = None
 
 
+# The kernel build's compiler output, a source at a time (main fills it).
+PTXAS_LOG = []
+
+
+def _w8_ptxas_report() -> None:
+    """Log the int8-weight GEMM's wgmma instances from the build's
+    ``-Xptxas -v`` output: registers and spills each, and every warning
+    that ptxas serialized their wgmma (C75xx)."""
+    text = next((t for t in PTXAS_LOG
+                 if t.startswith("nvcc int8_weight_gemm.cu")), "")
+    log(text.splitlines()[0] if text else "weights: no build output of "
+        "int8_weight_gemm.cu (the library was built earlier)")
+    entry, serialized = None, []
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif entry and "w8_wgmma_kernel" in entry and (
+                "registers" in line or "spill" in line):
+            log(f"weights ptxas {entry}: {line.strip()}")
+        if "(C75" in line and "w8_wgmma_kernel" in line:
+            serialized.append(line.strip())
+    log(f"weights ptxas: {len(serialized)} wgmma serialization warnings "
+        f"for the GEMM's instances" + "".join(
+            "\n  " + line for line in serialized))
+
+
 def _w8_bound(m, k, n) -> dict:
     """Weight bytes read once (int8 values, f32 scales), activations
     read once and the output written once, against 2 m n k bf16
@@ -3544,20 +3552,27 @@ def _w8_bound(m, k, n) -> dict:
 
 def _w8_kernel_cases(dev) -> dict:
     """``int8_weight_matmul`` against its plain version at the four
-    projections for M = 1, 8, 32, 160 and the threshold (bf16), and one
-    f32 tiny-llama case; two launches must give equal bits. At M = 32,
-    160 and the threshold it is timed beside bf16 ``torch.matmul`` on
-    the dequantized weight (``library_ms``, the yardstick), the plain
-    torch form the engine takes above the threshold (``dequant_ms``)
-    and the plain version (``plain_ms``). Returns the headline case."""
+    projections for M = 1, 8, 32, 64, 160 and the threshold (bf16), and
+    one f32 tiny-llama case; two launches must give equal bits. Each
+    case's plan is logged, with the clusters of its shape the card runs
+    at once (``pstt_int8_weight_active_clusters``, at least the plan's
+    tiles: one wave). At M = 1, 8, 32, 64, 160 and the
+    threshold it is timed beside bf16 ``torch.matmul`` on the
+    dequantized weight (``library_ms``, the yardstick), the plain torch
+    form the engine takes above the threshold (``dequant_ms``) and the
+    plain version (``plain_ms``). Returns the headline case."""
     from production_stack_tpu_torch.engine.quantization import (
         dequant_matmul)
     from production_stack_tpu_torch.ops.int8_matmul_cuda import (
-        INT8_KERNEL_MAX_ROWS, int8_weight_matmul, int8_weight_matmul_plain)
+        INT8_KERNEL_MAX_ROWS, MAX_ACTIVE_CLUSTERS, int8_weight_matmul,
+        int8_weight_matmul_plain, int8_weight_plan)
+    from production_stack_tpu_torch.ops.paged_kv_common import (
+        dtype_code, kernel_lib)
+    _w8_ptxas_report()
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
-    rows = sorted({1, 8, 32, 160, INT8_KERNEL_MAX_ROWS})
-    timed = {32, 160, INT8_KERNEL_MAX_ROWS}
+    rows = sorted({1, 8, 32, 64, 160, INT8_KERNEL_MAX_ROWS})
+    timed = set(rows)
     cases = []
     timer = None  # made just before the first timed case (clocks warm)
 
@@ -3585,7 +3600,17 @@ def _w8_kernel_cases(dev) -> dict:
             x = torch.randn((m, k), generator=gen, device=dev).to(
                 torch.bfloat16)
             case = f"int8_weight_matmul bf16 {proj} M={m} K={k} N={n}"
-            r = {"case": case, "proj": proj, "m": m,
+            plan = int8_weight_plan(m, n, k, torch.bfloat16)
+            active = kernel_lib().pstt_int8_weight_active_clusters(
+                dtype_code(torch.bfloat16), plan["bucket"],
+                plan["warpgroups"], plan["cluster"], plan["smem"])
+            if active < plan["tiles"]:
+                raise AssertionError(f"{case}: the card runs {active} "
+                                     f"clusters at once, the plan {plan} "
+                                     "needs a second wave")
+            r = {"case": case, "proj": proj, "m": m, "plan": plan,
+                 "active_clusters": active,
+                 "table_clusters": MAX_ACTIVE_CLUSTERS[plan["cluster"]],
                  "max_abs_err": check(case, x, q, scale, BF16_TOL)}
             if m in timed:
                 timer = timer or Timer(dev)
@@ -4830,8 +4855,8 @@ def _geometry_sweep(dev) -> dict:
                              "not all on the slab walk")
     log(f"geometries sweep: each prefill launch at group 3, page 16 "
         f"({len(SWEEP_WALK_POINTS)} points) ran the walk the plan names "
-        f"(its device kernel's name, torch.profiler in a process of its "
-        f"own); head dims by walk " + json.dumps(
+        f"(the library's launches of each walk's kernel); head dims by "
+        f"walk " + json.dumps(
             {w: sorted(ds) for w, ds in sorted(walks.items())}))
     log(f"geometries sweep: {points} points x 7 launches (decode at the "
         f"wrapper's split and at one, stacked, tail; prefill; ragged), "
@@ -6880,11 +6905,6 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     from production_stack_tpu_torch.ops import paged_kv_common
-    if "--prefill-walks" in sys.argv:
-        # The child of _prefill_walks_of (its build is the parent's).
-        points = json.loads(sys.argv[sys.argv.index("--prefill-walks") + 1])
-        print(json.dumps(_prefill_walk_points(points)), flush=True)
-        return 0
 
     global SMI
     only = sys.argv[sys.argv.index("--only") + 1:] if (
@@ -6904,10 +6924,12 @@ def main() -> int:
     paged_kv_common.kernel_lib()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s -> "
         f"{os.path.relpath(lib, here)}")
+    PTXAS_LOG[:] = ptxas
     for text in ptxas:
         for line in text.splitlines():
             if ("Compiling entry function" in line or "registers" in line
-                    or "spill" in line or line.startswith("nvcc ")):
+                    or "spill" in line or line.startswith("nvcc ")
+                    or "(C75" in line):
                 log(line.strip())
 
     from production_stack_tpu_torch.engine.config import (

@@ -62,8 +62,28 @@
 //   layer_stride / scale_layer_stride as in paged_decode.cu.
 // Launches on `stream`, allocates nothing, does not synchronise, and
 // returns cudaGetLastError() after the launch.
+// pstt_prefill_walk_launches(walk) is the number of launches of a walk
+// (0 wgmma, 1 its wide form, 2 mma_slab, 3 f32) that the runtime took
+// since the library was loaded, -1 for another index.
+
+#include <atomic>
 
 #include "paged_prefill.cuh"
+
+namespace pstt {
+namespace {
+std::atomic<long long> walk_launches[kPrefillWalks];
+}  // namespace
+
+void count_prefill_walk(PrefillWalk walk) {
+  walk_launches[walk].fetch_add(1, std::memory_order_relaxed);
+}
+}  // namespace pstt
+
+extern "C" long long pstt_prefill_walk_launches(int walk) {
+  if (walk < 0 || walk >= pstt::kPrefillWalks) return -1;
+  return pstt::walk_launches[walk].load(std::memory_order_relaxed);
+}
 
 extern "C" int pstt_paged_prefill(int dtype, int cache_dtype,
                                   const void* q, const void* k,

@@ -32,7 +32,23 @@ struct PrefillArgs {
   cudaStream_t stream;
 };
 
+// The walks a launch can take, in the order of
+// pstt_prefill_walk_launches's index (paged_prefill.cu).
+enum PrefillWalk { kWalkWgmma, kWalkWgmmaWide, kWalkMmaSlab, kWalkF32,
+                   kPrefillWalks };
+
+// Adds one to the walk's count of launches the runtime took
+// (paged_prefill.cu).
+void count_prefill_walk(PrefillWalk walk);
+
 namespace {
+
+// cudaGetLastError() after a launch of `walk`, counted where it is 0.
+inline int counted_launch(PrefillWalk walk) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) count_prefill_walk(walk);
+  return err;
+}
 
 constexpr int kTileRows = kMmaRows;
 // The f32 walk: 16 x 16 threads, 4 rows x 8 tokens each (4 at tile 256).
@@ -198,7 +214,7 @@ int launch(const PrefillArgs& a) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     kernel<<<(int)std::min<long long>(total, std::max(sms, 1)),
              (consumers + 1) * kWgThreads, smem, a.stream>>>(args);
-    return cudaGetLastError();
+    return counted_launch(WIDE ? kWalkWgmmaWide : kWalkWgmma);
   }
   const int tiles = (group * a.tokens + kTileRows - 1) / kTileRows;
   const dim3 grid(tiles, a.num_kv_heads * slabs, a.batch);
@@ -211,6 +227,7 @@ int launch(const PrefillArgs& a) {
     kernel<<<grid, kMmaThreads, smem, a.stream>>>(
         q, k, v, ks, vs, pt, qp, kl, out, a.tokens, a.num_q_heads, group,
         a.num_pages, a.page_size, a.max_pages, a.layer, a.head_dim, slabs);
+    return counted_launch(kWalkMmaSlab);
   } else if constexpr (std::is_same<T, float>::value) {
     constexpr size_t smem = SmemLayout<D, kTileRows, kQuantized<C>>::bytes;
     auto kernel = paged_prefill_kernel<T, C, D, SLAB>;
@@ -220,6 +237,7 @@ int launch(const PrefillArgs& a) {
     kernel<<<grid, kPrefillThreads, smem, a.stream>>>(
         q, k, v, ks, vs, pt, qp, kl, out, a.tokens, a.num_q_heads, group,
         a.num_pages, a.page_size, a.max_pages, a.layer, a.head_dim, slabs);
+    return counted_launch(kWalkF32);
   }
   return cudaGetLastError();
 }

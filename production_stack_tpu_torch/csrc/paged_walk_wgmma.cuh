@@ -85,6 +85,7 @@
 #pragma once
 
 #include "paged_kv_common.cuh"
+#include "mbarrier.cuh"
 #include "paged_walk_mma.cuh"
 #include "wgmma.cuh"
 
@@ -245,42 +246,7 @@ PSTT_WG_PLAN(int8_t, 512, 2, 1, 231792)
 
 // ---- barriers ---------------------------------------------------------------
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
-          bar)
-      : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-
-// One arrival on the barrier once every cp.async this thread issued
-// has landed (counted among the barrier's expected arrivals).
-__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   bar)
-               : "memory");
-}
-
-// Order this thread's generic shared-memory accesses with the async
-// proxy's (wgmma reads its operands through it).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
+// (mbar_*, cp_async_mbar_arrive and fence_proxy_async: mbarrier.cuh.)
 
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");

@@ -226,6 +226,9 @@ def kernel_lib() -> ctypes.CDLL:
             lib.pstt_paged_prefill.argtypes = (
                 [i32] * 2 + [ptr] * 9 + [i32] * 8 + layer)
             lib.pstt_paged_prefill.restype = i32
+            # The launches of each prefill walk (paged_prefill.cu).
+            lib.pstt_prefill_walk_launches.argtypes = [i32]
+            lib.pstt_prefill_walk_launches.restype = i64
             lib.pstt_paged_ragged.argtypes = (
                 [i32] * 2 + [ptr] * 10 + [i32] * 8 + layer)
             lib.pstt_paged_ragged.restype = i32
@@ -236,11 +239,13 @@ def kernel_lib() -> ctypes.CDLL:
             lib.pstt_decode_group_tile.argtypes = [i32] * 2
             lib.pstt_decode_group_tile.restype = i32
             # int8-weight GEMM (ops/int8_matmul_cuda.py): dtype, x, q,
-            # scale, out, partials, M, N, K, row tiles, splits, K a
-            # split, stream.
+            # scale, out, M, N, K, then the plan (bucket, warpgroups,
+            # cluster, stages a rank, ring, shared-memory bytes), stream.
             lib.pstt_int8_weight_matmul.argtypes = (
-                [i32] + [ptr] * 5 + [i32] * 6 + [ptr])
+                [i32] + [ptr] * 4 + [i32] * 9 + [ptr])
             lib.pstt_int8_weight_matmul.restype = i32
+            lib.pstt_int8_weight_active_clusters.argtypes = [i32] * 5
+            lib.pstt_int8_weight_active_clusters.restype = i32
             _LIB = lib
         return _LIB
 

@@ -1,9 +1,10 @@
-"""Device time of the three attention kernels at their headline shapes.
+"""Device time of the three attention kernels and the int8-weight GEMM at
+their headline shapes.
 
     python production_stack_tpu_torch/tools/kernel_times.py [--repo DIR] \
         [--geometry bench-1b|g4_d128|g1_d64|g7_d128|g8_d128|g1_d80|
                     g7_d64|g1_d128|g3_d256|g1_d100|g3_d512|g1_d320]
-        [--page-size P] [--kernels decode,prefill,ragged]
+        [--page-size P] [--kernels decode,prefill,ragged,int8_weight]
 
 Times ``paged_decode_attention`` (B = 32, kv lens spread over 1..1024
 with two pad rows, page size 128), ``paged_prefill_attention`` (B = 8,
@@ -38,7 +39,7 @@ geometry's dtype
 (bf16 where none is named) over a cache of that type and an int8 one,
 through the public wrappers of the checkout at ``--repo``
 (default: the checkout this file lies in); ``--kernels`` names the
-kernels to time (default all three). ``--page-size P`` (default
+kernels to time (default all four). ``--page-size P`` (default
 128) times the same rows over pages of P tokens (the same 1024-token
 table width; a checkout whose kernels refuse P raises). The unified
 block also runs
@@ -49,10 +50,22 @@ per-layer, stacked, stacked, per-layer (``_stacked`` and
 the decode wrapper takes ``num_splits`` it also times the launch's fixed
 cost: a batch of pad rows (every block returns at once) and a batch of
 one-token rows, each at one split and at three (the second adds the
-merge kernel's launch). Where the checkout has the int8-weight GEMM
-(``ops/int8_matmul_cuda.py``), at the bench-1b geometry it also times
-``int8_weight_matmul`` at M = 32 rows for each bench-1b projection (qkv, o, gate_up, down), beside
-a bf16 ``torch.matmul`` on the dequantized weight (``bf16_matmul_*``).
+merge kernel's launch). ``int8_weight`` times the int8-weight GEMM
+(``ops/int8_matmul_cuda.int8_weight_matmul``, where the checkout has
+it) at M = 1, 8, 16, 32, 64 and 160 rows for each bench-1b projection
+(qkv, o, gate_up, down, bf16) and OPT-2.7b's fc1 (f16), each beside one
+``torch.matmul`` in the same type on the dequantized weight
+(``bf16_matmul_*``, ``f16_matmul_*``), its bound
+(``int8_weight_bound_*``), the device kernels one call ran and their
+device us a call (``int8_weight_kernels_*``, from torch.profiler) and,
+where the checkout has ``int8_weight_plan``, its plan
+(``int8_weight_plan_*``). To compare the GEMM of two commits:
+
+    python production_stack_tpu_torch/tools/kernel_times.py \
+        --repo build/parent --kernels int8_weight
+
+and the same with ``--repo build/change``, run parent, change, change,
+parent, comparing the ``_median`` keys.
 The wrappers' signatures are stable, so the same script times two
 commits in one call on the card: unpack the other commit somewhere and
 pass its root.
@@ -121,10 +134,15 @@ def _time(out, key, fn, flush, append=False) -> None:
 
 # The stacked form: bench-1b's layer count and its last layer.
 STACK = (16, 15)
-# bench-1b's projections as (K, N), and the rows of a decode step.
-PROJECTIONS = {"qkv": (2048, 3072), "o": (2048, 2048),
-               "gate_up": (2048, 11264), "down": (5632, 2048)}
-DECODE_ROWS = 32
+# The int8-weight GEMM's cases as (K, N, dtype): bench-1b's four
+# projections in bf16 and OPT-2.7b's fc1 in f16, at the rows of a
+# decode step (1 to 64) and of a verify block (160).
+W8_CASES = {"qkv": (2048, 3072, torch.bfloat16),
+            "o": (2048, 2048, torch.bfloat16),
+            "gate_up": (2048, 11264, torch.bfloat16),
+            "down": (5632, 2048, torch.bfloat16),
+            "fc1": (2560, 10240, torch.float16)}
+W8_ROWS = (1, 8, 16, 32, 64, 160)
 # (q heads, kv heads, head_dim, dtype) by --geometry.
 GEOMETRIES = {"bench-1b": (32, 8, 64, torch.bfloat16),
               "g4_d128": (32, 8, 128, torch.bfloat16),
@@ -200,9 +218,9 @@ def main(argv=None) -> int:
                    choices=sorted(GEOMETRIES))
     p.add_argument("--page-size", type=int, default=128,
                    help="tokens a page holds (default 128)")
-    p.add_argument("--kernels", default="decode,prefill,ragged",
+    p.add_argument("--kernels", default="decode,prefill,ragged,int8_weight",
                    help="the kernels to time, comma-separated (default: "
-                   "all three)")
+                   "all four)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA device")
@@ -343,29 +361,69 @@ def main(argv=None) -> int:
                 _time(out, f"paged_ragged_unified{tag}_{form}", calls[form],
                       flush, append=True)
             del k5, v5
-    if args.geometry == "bench-1b" and "decode" in kernels:
+    if "int8_weight" in kernels:
         _int8_weight_times(out, dev, gen, flush)
     print(json.dumps(out), flush=True)
     return 0
 
 
+def _w8_bound_ms(m, k, n) -> float:
+    """The least time of one product on an H100: the int8 weight and
+    its f32 scales, x and the output moved once (3.35 TB/s), against
+    2 m n k 16-bit tensor-core operations (989 TFLOP/s)."""
+    moved = n * k + 4 * n + 2 * m * k + 2 * m * n
+    return max(moved / 3.35e12, 2 * m * n * k / 989e12) * 1e3
+
+
+def _device_kernels(fn, flush, calls=10) -> dict:
+    """{device kernel: [launches a call, device us a call]} of ``calls``
+    calls of ``fn``, each after the L2 flush, read from torch.profiler
+    (the flush's fill kernel left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: [e.count / calls, e.device_time_total / calls]
+            for e in prof.key_averages()
+            if e.count and e.device_time_total and "Fill" not in e.key}
+
+
 def _int8_weight_times(out, dev, gen, flush) -> None:
+    """The int8-weight GEMM at every shape of W8_CASES, each beside the
+    16-bit ``torch.matmul`` on the dequantized weight, its bound, its
+    device kernels and (where the checkout has ``int8_weight_plan``)
+    its plan."""
     try:
-        from production_stack_tpu_torch.ops.int8_matmul_cuda import (
-            int8_weight_matmul)
+        from production_stack_tpu_torch.ops import int8_matmul_cuda
     except ImportError:  # a checkout from before the kernel
         return
-    for name, (k, n) in PROJECTIONS.items():
-        x = torch.randn((DECODE_ROWS, k), generator=gen).to(dev,
-                                                             torch.bfloat16)
+    plan = getattr(int8_matmul_cuda, "int8_weight_plan", None)
+    for name, (k, n, dtype) in W8_CASES.items():
         q = torch.randint(-127, 128, (n, k), generator=gen,
                           dtype=torch.int8).to(dev)
         scale = torch.full((n,), 0.02 / 127, device=dev)
-        dense = (q.float() * scale[:, None]).to(torch.bfloat16)
-        _time(out, f"int8_weight_matmul_{name}_m{DECODE_ROWS}",
-              lambda: int8_weight_matmul(x, q, scale), flush)
-        _time(out, f"bf16_matmul_{name}_m{DECODE_ROWS}",
-              lambda: torch.matmul(x, dense.t()), flush)
+        dense = (q.float() * scale[:, None]).to(dtype)
+        tname = "bf16" if dtype == torch.bfloat16 else "f16"
+        for m in W8_ROWS:
+            x = torch.randn((m, k), generator=gen).to(dev, dtype)
+            case = f"{name}_m{m}"
+            call = lambda: int8_matmul_cuda.int8_weight_matmul(x, q, scale)
+            _time(out, "int8_weight_matmul_" + case, call, flush)
+            _time(out, f"{tname}_matmul_{case}",
+                  lambda: torch.matmul(x, dense.t()), flush)
+            out["int8_weight_bound_" + case] = _w8_bound_ms(m, k, n)
+            out["int8_weight_kernels_" + case] = _device_kernels(call, flush)
+            if plan is not None:
+                out["int8_weight_plan_" + case] = plan(m, n, k, dtype)
+            print(f"int8_weight {case}: {out['int8_weight_matmul_' + case]:.5f}"
+                  f" ms, {tname} matmul {out[f'{tname}_matmul_{case}']:.5f}, "
+                  f"bound {out['int8_weight_bound_' + case]:.5f}; "
+                  f"plan {out.get('int8_weight_plan_' + case)}", flush=True)
+        del q, dense
 
 
 if __name__ == "__main__":

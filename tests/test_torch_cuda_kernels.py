@@ -1339,12 +1339,18 @@ def test_handoff_restores_the_shipped_pages(dev, cache):
 
 # ---- the int8-weight GEMM (ops/int8_matmul_cuda.py) ------------------------
 
-# The four projections of bench-1b as (K, N) (qkv, o, gate_up, down), a
-# tile-edge one (N not a multiple of a block's rows), and the tiny
-# model's f32 ones.
+# The four projections of bench-1b as (K, N) (qkv, o, gate_up, down),
+# tile-edge ones (N not a multiple of a block's rows; 203: nor of the
+# epilogue's four-row stores), K tails inside a 128-value stage (192:
+# half a stage; 144: the stage's second box wholly past K) and a tp-2
+# ``down`` (2816), and the tiny model's f32 ones.
 W8_BF16_SHAPES = [(2048, 3072), (2048, 2048), (2048, 11264), (5632, 2048),
-                  (128, 200)]
+                  (128, 200), (128, 203), (192, 2048), (144, 328),
+                  (2816, 2048)]
 W8_F32_SHAPES = [(128, 256), (128, 128), (128, 512), (256, 128)]
+# Every edge of the 16-bit kernel's activation buckets (8, 16, 32, 64,
+# 128, 160), and rows between them.
+W8_ROWS = [1, 8, 9, 16, 17, 32, 33, 37, 64, 65, 100, 128, 129, 160]
 
 
 def _w8_inputs(dev, dtype, m, k, n, seed):
@@ -1356,27 +1362,99 @@ def _w8_inputs(dev, dtype, m, k, n, seed):
     return x, q, scale
 
 
-@pytest.mark.parametrize("m", [1, 8, 32, 37, 100, 160])
-@pytest.mark.parametrize("k,n", W8_BF16_SHAPES)
-def test_int8_weight_matmul_kernel_matches_plain(dev, k, n, m):
+def _w8_check(dev, dtype, m, k, n):
     from production_stack_tpu_torch.ops.int8_matmul_cuda import (
-        INT8_KERNEL_MAX_ROWS,
         int8_weight_matmul,
         int8_weight_matmul_plain,
     )
-    if m > INT8_KERNEL_MAX_ROWS:
-        pytest.skip(f"above INT8_KERNEL_MAX_ROWS = {INT8_KERNEL_MAX_ROWS}")
-    x, q, scale = _w8_inputs(dev, torch.bfloat16, m, k, n, seed=m + n)
+    x, q, scale = _w8_inputs(dev, dtype, m, k, n, seed=m + n + k)
     COUNTERS.reset()
     got = int8_weight_matmul(x, q, scale)
     again = int8_weight_matmul(x, q, scale)
     torch.cuda.synchronize()
     assert COUNTERS.launches == {"int8_weight_matmul": 2}
     want = int8_weight_matmul_plain(x, q, scale)
-    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
-    torch.testing.assert_close(got.float(), want.float(),
-                               **TOL[torch.bfloat16])
+    assert got.dtype == dtype and got.shape == (m, n)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("m", W8_ROWS)
+@pytest.mark.parametrize("k,n", W8_BF16_SHAPES)
+def test_int8_weight_matmul_kernel_matches_plain(dev, k, n, m):
+    _w8_check(dev, torch.bfloat16, m, k, n)
+
+
+# OPT-2.7b's fc1 and fc2 (K, N) in f16, and a K tail.
+@pytest.mark.parametrize("m", [1, 8, 32, 65, 160])
+@pytest.mark.parametrize("k,n", [(2560, 10240), (10240, 2560), (192, 200)])
+def test_int8_weight_matmul_f16_kernel_matches_plain(dev, k, n, m):
+    _w8_check(dev, torch.float16, m, k, n)
+
+
+def test_int8_weight_matmul_is_one_launch_of_the_wgmma_kernel(dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    from production_stack_tpu_torch.ops.int8_matmul_cuda import (
+        int8_weight_matmul,
+    )
+    for m, (k, n) in ((1, (2048, 3072)), (32, (2048, 11264)),
+                      (160, (5632, 2048))):
+        x, q, scale = _w8_inputs(dev, torch.bfloat16, m, k, n, seed=m)
+        int8_weight_matmul(x, q, scale)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            int8_weight_matmul(x, q, scale)
+            torch.cuda.synchronize()
+        # Every kernel of csrc/int8_weight_gemm.cu is named w8_...
+        kernels = {e.key: e.count for e in prof.key_averages()
+                   if e.count and "w8_" in e.key}
+        assert len(kernels) == 1, kernels
+        name, count = next(iter(kernels.items()))
+        assert "w8_wgmma_kernel" in name and count == 1
+
+
+def test_int8_weight_matmul_replays_inside_a_cuda_graph(dev):
+    from production_stack_tpu_torch.ops.int8_matmul_cuda import (
+        int8_weight_matmul,
+    )
+    for m, (k, n) in ((8, (2048, 3072)), (32, (2048, 2048)),
+                      (160, (2048, 11264))):
+        x, q, scale = _w8_inputs(dev, torch.bfloat16, m, k, n, seed=n)
+        eager = int8_weight_matmul(x, q, scale)  # warms the launch up
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = int8_weight_matmul(x, q, scale)
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        x.copy_(torch.randn_like(x))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, int8_weight_matmul(x, q, scale))
+
+
+def test_int8_weight_plans_fit_the_cards_clusters(dev):
+    from production_stack_tpu_torch.ops.int8_matmul_cuda import (
+        MAX_ACTIVE_CLUSTERS,
+        int8_weight_plan,
+    )
+    from production_stack_tpu_torch.ops.paged_kv_common import (
+        dtype_code,
+        kernel_lib,
+    )
+    lib = kernel_lib()
+    for k, n in W8_BF16_SHAPES + [(2560, 10240)]:
+        for m in W8_ROWS:
+            for dtype in (torch.bfloat16, torch.float16):
+                p = int8_weight_plan(m, n, k, dtype)
+                active = lib.pstt_int8_weight_active_clusters(
+                    dtype_code(dtype), p["bucket"], p["warpgroups"],
+                    p["cluster"], p["smem"])
+                assert active == MAX_ACTIVE_CLUSTERS[p["cluster"]], (p,
+                                                                     active)
 
 
 @pytest.mark.parametrize("m", [1, 5, 64, 160])
@@ -1404,8 +1482,8 @@ def test_int8_weight_matmul_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="INT8_KERNEL_MAX_ROWS"):
         int8_weight_matmul(x.new_zeros((INT8_KERNEL_MAX_ROWS + 1, 128)), q,
                            scale)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        int8_weight_matmul(x[:, :96].contiguous(), q[:, :96].contiguous(),
+    with pytest.raises(ValueError, match="multiple of 16"):
+        int8_weight_matmul(x[:, :120].contiguous(), q[:, :120].contiguous(),
                            scale)
     with pytest.raises(ValueError, match="int8"):
         int8_weight_matmul(x, q.float(), scale)
