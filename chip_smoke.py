@@ -345,8 +345,12 @@ its result line:
     and int8 KV), OpenLLaMA-3B's head_dim 100 in f16 (``g1_d100``), 6 q
     over 2 kv heads at 512 (``g3_d512``, bf16 and int8 KV: g3_d256's K/V
     bytes) and 16 heads of 320 in f16 (``g1_d320``), each prefill row
-    holding the walk its launch ran (the slab rows: the wide form);
-    and the int8-weight kernel's f16 form at OPT-2.7b's projections (M
+    holding the walk its launch ran (the slab rows: the wide form) and
+    each ragged row its own, by the library's ``pstt_ragged_walk_launches``
+    (``g3_d256`` on the wgmma walk, ``g3_d512`` and ``g1_d320`` on its
+    wide form; bench-1b's, ``g4_d128``'s and ``g1_d64``'s geometries,
+    bf16 and int8, on the mma.sync walk), each held to
+    ``ragged_walk_plan``; and the int8-weight kernel's f16 form at OPT-2.7b's projections (M
     = 1, 32, 160; timed at 32). Then checkpoints written from published
     configs and served (``--model DIR --tokenizer bench``, page 128, the
     families phase's flags and 16 greedy requests): Meta-Llama-3-70B at
@@ -867,29 +871,39 @@ def decode_case(name, b, kv_lens, ps, dtype, dev, gen, timer=None,
 PREFILL_WALKS = ("wgmma", "wgmma_wide", "mma_slab", "f32")
 
 
-def _prefill_walks(fn) -> dict:
-    """{walk: launches} of the prefill kernel while ``fn`` runs, read
-    from the library's count of the launches each walk's kernel took
-    (the kernel the runtime accepted, after the launch's error check)."""
+# The ragged kernel's walks, by their index in the library's
+# pstt_ragged_walk_launches (paged_ragged.cu), as ragged_walk_plan names
+# them.
+RAGGED_WALKS = ("mma", "wgmma", "wgmma_wide", "mma_slab", "f32")
+
+
+def _walk_counts(fn, kernel="prefill") -> dict:
+    """{walk: launches} of the prefill (or ragged) kernel while ``fn``
+    runs, read from the library's count of the launches each walk's
+    kernel took (the kernel the runtime accepted, after the launch's
+    error check)."""
     from production_stack_tpu_torch.ops import paged_kv_common as pkc
     lib = pkc.kernel_lib()
+    walks, count = ((PREFILL_WALKS, lib.pstt_prefill_walk_launches)
+                    if kernel == "prefill" else
+                    (RAGGED_WALKS, lib.pstt_ragged_walk_launches))
 
     def counts():
-        return [lib.pstt_prefill_walk_launches(i)
-                for i in range(len(PREFILL_WALKS))]
+        return [count(i) for i in range(len(walks))]
     before = counts()
     fn()
     torch.cuda.synchronize()
     return {walk: n1 - n0 for walk, n0, n1
-            in zip(PREFILL_WALKS, before, counts()) if n1 != n0}
+            in zip(walks, before, counts()) if n1 != n0}
 
 
-def _prefill_walk(fn) -> str:
-    """The one walk a call of the prefill kernel ran (``fn`` makes one
-    launch); raises where it ran none or more than one kernel."""
-    walks = _prefill_walks(fn)
+def _one_walk(fn, kernel="prefill") -> str:
+    """The one walk a call of the prefill (or ragged) kernel ran (``fn``
+    makes one launch); raises where it ran none or more than one
+    kernel."""
+    walks = _walk_counts(fn, kernel)
     if len(walks) != 1 or sum(walks.values()) != 1:
-        raise AssertionError(f"one prefill launch ran {walks}")
+        raise AssertionError(f"one {kernel} launch ran {walks}")
     return next(iter(walks))
 
 
@@ -924,12 +938,50 @@ def _prefill_walks_of(points) -> list:
         def call():
             paged_prefill_attention(q, kc, vc, table, pos.contiguous(),
                                     lens)
-        walk = _prefill_walk(call)
+        walk = _one_walk(call)
         planned = prefill_walk_plan(
             dtype, torch.int8 if int8 else dtype, group, t, d, ps)["walk"]
         if walk != planned:
             raise AssertionError(f"prefill at {point}: ran the {walk} walk,"
                                  f" the plan names {planned}")
+        walks.append(walk)
+    return walks
+
+
+def _ragged_walks_of(points) -> list:
+    """The walk one ragged launch ran at each point (dtype name, int8
+    cache, query group, kv heads, head_dim, page size, width W: a block
+    of a decode row, a pad row and a row whose W slots are live), each
+    held to the one ``ragged_walk_plan`` names."""
+    from production_stack_tpu_torch.ops.ragged_attention_cuda import (
+        paged_ragged_attention, ragged_walk_plan)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    walks = []
+    for point in points:
+        name, int8, group, kv, d, ps, w = point
+        dtype = DTYPES_BY_NAME[name]
+        rows = [(130, 0), (0, -1), (300 + w, w - 1)]
+        max_pages = -(-(300 + w) // ps)
+        num_pages = 3 * max_pages + 1
+        (kc, vc), _ = _caches(kv, num_pages, d, ps, dtype, dev, gen, int8)
+        table = _page_table([n for n, _ in rows], ps, max_pages, num_pages,
+                            gen, dev)
+        lens = torch.tensor([n for n, _ in rows], dtype=torch.int32,
+                            device=dev)
+        last = torch.tensor([li for _, li in rows], dtype=torch.int32,
+                            device=dev)
+        q = torch.randn((3, w, kv * group, d), generator=gen,
+                        device=dev).to(dtype)
+        walk = _one_walk(
+            lambda: paged_ragged_attention(q, kc, vc, table, lens, last),
+            "ragged")
+        planned = ragged_walk_plan(
+            dtype, torch.int8 if int8 else dtype, group, w, d, ps)["walk"]
+        if walk != planned:
+            raise AssertionError(f"ragged at {point}: ran the {walk} walk, "
+                                 f"the plan names {planned}")
         walks.append(walk)
     return walks
 
@@ -1020,12 +1072,15 @@ def prefill_case(name, rows, t, ps, dtype, dev, gen, timer=None, nh=32,
 
 def ragged_case(name, rows, w, ps, dtype, dev, gen, timer=None, nh=32,
                 kv=8, d=64, max_len=1024, verify=False, int8=False,
-                stack=None):
+                stack=None, walk=False):
     """Row i holds ``rows[i] = (kv_len, last_index)``: slots 0..last_index
     are live and sit at kv_len - 1 - last_index + t (kv_len 0: a pad
-    row). ``verify``: the rows are verify rows, draft_len = last_index."""
+    row). ``verify``: the rows are verify rows, draft_len = last_index.
+    ``walk``: the case's first launch is read for the walk it ran
+    (``case["walk"]``), held to the one ``ragged_walk_plan`` names."""
     from production_stack_tpu_torch.ops.ragged_attention_cuda import (
-        paged_ragged_attention, paged_ragged_attention_plain)
+        paged_ragged_attention, paged_ragged_attention_plain,
+        ragged_walk_plan)
     b = len(rows)
     max_pages = -(-max_len // ps)
     num_pages = b * max_pages + 1
@@ -1046,7 +1101,20 @@ def ragged_case(name, rows, w, ps, dtype, dev, gen, timer=None, nh=32,
             kwargs["p_dtype"] = dtype
         return paged_ragged_attention_plain(*args, **kwargs)
 
-    got = call(paged_ragged_attention)
+    ran = {}
+
+    def first():
+        ran["got"] = call(paged_ragged_attention)
+    if walk:
+        ran["walk"] = _one_walk(first, "ragged")
+        planned = ragged_walk_plan(dtype, torch.int8 if int8 else dtype,
+                                   nh // kv, w, d, ps)["walk"]
+        if ran["walk"] != planned:
+            raise AssertionError(f"{name}: ran the {ran['walk']} walk, the "
+                                 f"plan names {planned}")
+    else:
+        first()
+    got = ran["got"]
     ref = call(plain)
     torch.cuda.synchronize()
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
@@ -1064,6 +1132,8 @@ def ragged_case(name, rows, w, ps, dtype, dev, gen, timer=None, nh=32,
     if not torch.equal(got, again):
         raise AssertionError(f"{name}: two launches gave different bits")
     out = {"case": name, "max_abs_err": err}
+    if walk:
+        out["walk"] = ran["walk"]
     if offset is not None:
         out["layer_offset_elems"] = offset
     if timer is not None:
@@ -4669,6 +4739,14 @@ GEOMETRY_ROWS = {
 # The rows' head dims that the prefill kernel runs on the wgmma walk's
 # wide form (257 to 512), each held to it.
 WIDE_ROWS = (512, 320)
+# The walk the ragged kernel runs at the rows whose 16-bit forms moved
+# to the wgmma walk (head dims 129 to 256 at its tile 256, 257 to 512 on
+# its wide form), each held to it; and the geometries (q heads, kv
+# heads, head_dim) whose 16-bit forms stay on the mma.sync walk.
+RAGGED_ROW_WALKS = {"g3_d256": "wgmma", "g3_d512": "wgmma_wide",
+                    "g1_d320": "wgmma_wide"}
+RAGGED_MMA_CONTROLS = {"bench-1b": (32, 8, 64), "g4_d128": (32, 8, 128),
+                       "g1_d64": (32, 32, 64)}
 # The serving run whose launches each row's form reports (g1_d128,
 # Llama-2-7B's geometry, is served by no run of this script).
 GEOMETRY_ROW_RUNS = {("g8_d128", "bfloat16"): LLAMA70_RUN,
@@ -4909,7 +4987,8 @@ def _geometry_kernel_cases(dev) -> tuple:
                     512, 128, dtype, dev, gen, timer, int8=int8, **shape),
                 "paged_ragged": ragged_case(
                     f"ragged {tag} unified R=40 W=512 ps=128", unified, 512,
-                    128, dtype, dev, gen, timer, int8=int8, **shape),
+                    128, dtype, dev, gen, timer, int8=int8, walk=True,
+                    **shape),
             }
             for name, r in cases.items():
                 log("geometries kernel case " + json.dumps(r))
@@ -4929,6 +5008,33 @@ def _geometry_kernel_cases(dev) -> tuple:
                                  "not the wide form")
     log("geometries kernel prefill walks: " + json.dumps(
         {c["case"]: c["walk"] for c in cases}))
+    # The walk each row's timed ragged launch ran (ragged_case held it
+    # to the plan), held to the walk that serves its head dims
+    # (RAGGED_ROW_WALKS); then a verify-shaped block (W = 5) at each
+    # row's geometry, held to the plan; and PR 6's mma.sync walk at
+    # bench-1b's, g4_d128's and g1_d64's, bf16 and int8, at both widths.
+    cases = [(row, c) for row, forms in out["paged_ragged"].items()
+             for c in forms.values()]
+    for row, case in cases:
+        want = RAGGED_ROW_WALKS.get(row)
+        if want is not None and case["walk"] != want:
+            raise AssertionError(f"{case['case']}: ran the {case['walk']} "
+                                 f"walk, not {want}")
+    points = [(str(dtype)[6:], form == "int8", nh // kv, kv, d, 128, 5)
+              for row, (nh, kv, d, dtype, _) in GEOMETRY_ROWS.items()
+              for form in out["paged_ragged"][row]]
+    verify_walks = _ragged_walks_of(points)
+    controls = [("bfloat16", int8, nh // kv, kv, d, 128, w)
+                for nh, kv, d in RAGGED_MMA_CONTROLS.values()
+                for int8 in (False, True) for w in (5, 512)]
+    control_walks = _ragged_walks_of(controls)
+    if set(control_walks) != {"mma"}:
+        raise AssertionError(f"ragged at {list(RAGGED_MMA_CONTROLS)}: ran "
+                             f"{control_walks}, not the mma.sync walk")
+    log("geometries kernel ragged walks (unified R=40 W=512): " + json.dumps(
+        {c["case"]: c["walk"] for _, c in cases}) + "; W=5: " + json.dumps(
+        verify_walks) + "; bench-1b, g4_d128 and g1_d64 (bf16 and int8, "
+        "W=5 and 512): " + json.dumps(control_walks))
     w8 = {}
     for proj, (k, n) in OPT27_PROJECTIONS.items():
         q = torch.randint(-127, 128, (n, k), generator=gen, device=dev,

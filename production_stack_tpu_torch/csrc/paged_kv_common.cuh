@@ -176,9 +176,8 @@ __host__ __device__ constexpr int slab_rows(int head_dim, int slab) {
 // Tokens a walk stages at a time at head-dim tile D: a 128-token chunk,
 // or half of one at tile 256, where a chunk of K and V staged whole
 // passes the block's shared memory (page_walk_block: two f32 planes of
-// 256 x 129 words are 264 KB; the tensor-core walk then keeps two
-// stages of half chunks). A chunk stays 128 tokens of a row: the decode
-// kernel's splits and the plain walk count in chunks.
+// 256 x 129 words are 264 KB). A chunk stays 128 tokens of a row: the
+// decode kernel's splits and the plain walk count in chunks.
 __host__ __device__ constexpr int walk_span(int d) {
   return d > 128 ? kChunk / 2 : kChunk;
 }

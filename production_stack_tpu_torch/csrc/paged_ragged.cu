@@ -21,8 +21,8 @@
 // What bounds it: at the widest mixed step, the chunk rows' arithmetic
 // (the work of a first and a second prefill chunk) and the bytes of
 // the decode rows' K/V and of the block's output (every slot, dead
-// ones included, is written). So bf16 and f16 queries (over a cache
-// of their type or int8) take the tensor-core walk of
+// ones included, is written). So bf16 and f16 queries up to head_dim
+// 128 (over a cache of their type or int8) take the tensor-core walk of
 // paged_walk_mma.cuh, as prefill does: one block of 4 warps, each warp
 // 16 rows with q in registers, mma.sync in the query's type for q.k^T
 // and p.v (the probabilities enter p.v in that type), K/V staged in
@@ -46,9 +46,46 @@
 // (page_walk_block_mma_slab) or the f32 walk's slab form, a block
 // zeroing and writing its own slab's head dims.
 //
+// Which walk serves which form (pstt_ragged_walk_launches counts them):
+//   - bf16/f16 up to head_dim 128: the mma.sync walk above (mma);
+//   - bf16/f16 at 129 to 256: the wgmma walk (paged_walk_wgmma.cuh,
+//     prefill's, with the ragged tile policy WgRaggedTiles) at the tile
+//     256 (wgmma); at 257 to 512 its wide form at the width 384 or 512
+//     (wgmma_wide);
+//   - bf16/f16 above 512: the mma.sync slab walk (mma_slab);
+//   - f32 at every head_dim: the f32 walk (f32).
+// On the wgmma walk, persistent blocks (min(tiles, SMs)) take tiles
+// from a scheduler: the pair's live tiles first, heaviest first, then
+// its dead ones (ragged_wg_tile). A tile is 128 rows of two consumer
+// warpgroups at the tile 256 (64 of one where G * W fits in 64: a
+// verify block), 64 rows of both in the wide form. A tile with no live
+// row takes no q slot, no ring stage and no product: the producer
+// passes it and the consumer warpgroups write its zeros; a live tile's
+// dead rows each consumer warpgroup writes after its output. A dead
+// tile so costs its zeros' bytes, where the mma.sync walk's block
+// reserved a whole walk's shared memory to write them (at g3_d256,
+// 3284 of the unified block's 3840 blocks were dead).
+//
+// Decided by A/B (tools/kernel_times.py --kernels ragged, medians of
+// two turns in one call, L2 flushed, H100 80GB HBM3, 700 W; ms, bf16,
+// the dead-tile block / the unified block):
+//   - who writes a dead tile's zeros: the producer alone 0.1234 /
+//     0.2157 at g3_d256 and 0.1778 / 0.3874 at g3_d512, all three
+//     warpgroups 0.1085 / 0.1945 and 0.1775 / 0.2850 (one call); the
+//     consumers alone 0.1086 / 0.1911 and 0.1768 / 0.3219, all three
+//     with the producer writing live tiles' dead rows 0.1104 / 0.1974
+//     and 0.1786 / 0.3198 (another call). The consumers alone: as fast,
+//     and the producer (40 registers at these widths) keeps no zero
+//     code, which spilled there.
+//   - consumers at the tile 256: prefill's rule (two on 128-row tiles
+//     above 64 rows) 0.2157 at g3_d256 against one on 64-row tiles
+//     0.2550 (int8 0.2577 against 0.3091).
+//
 // The kernels' templates are in paged_ragged.cuh; paged_ragged_bf16.cu,
 // paged_ragged_f16.cu and paged_ragged_f32.cu instantiate them a query
-// type each, so that the build compiles the three in parallel.
+// type each, and paged_ragged_wgmma_bf16.cu and paged_ragged_wgmma_f16.cu
+// the wgmma walk's forms, so that the build compiles the five in
+// parallel.
 //
 // C interface (loaded with ctypes by ops/paged_kv_common.py):
 //   q/out [R, W, num_q_heads, head_dim]; k/v cache [kv_heads,
@@ -61,8 +98,28 @@
 //   layer_stride / scale_layer_stride as in paged_decode.cu.
 // Launches on `stream`, allocates nothing, does not synchronise, and
 // returns cudaGetLastError() after the launch.
+// pstt_ragged_walk_launches(walk) is the number of launches of a walk
+// (0 mma, 1 wgmma, 2 wgmma_wide, 3 mma_slab, 4 f32) that the runtime
+// took since the library was loaded, -1 for another index.
+
+#include <atomic>
 
 #include "paged_ragged.cuh"
+
+namespace pstt {
+namespace {
+std::atomic<long long> walk_launches[kRaggedWalks];
+}  // namespace
+
+void count_ragged_walk(RaggedWalk walk) {
+  walk_launches[walk].fetch_add(1, std::memory_order_relaxed);
+}
+}  // namespace pstt
+
+extern "C" long long pstt_ragged_walk_launches(int walk) {
+  if (walk < 0 || walk >= pstt::kRaggedWalks) return -1;
+  return pstt::walk_launches[walk].load(std::memory_order_relaxed);
+}
 
 extern "C" int pstt_paged_ragged(int dtype, int cache_dtype, const void* q,
                                  const void* k, const void* v,

@@ -1,12 +1,19 @@
 // The ragged kernels' templates and their launch (paged_ragged.cu
 // describes the design and holds the C interface). paged_ragged_bf16.cu,
 // paged_ragged_f16.cu and paged_ragged_f32.cu instantiate them a query
-// type each, so the three compile in parallel.
+// type each, and paged_ragged_wgmma_bf16.cu and paged_ragged_wgmma_f16.cu
+// the 16-bit forms on the wgmma walk (head dims 129 to 512), so the five
+// compile in parallel.
 
 #pragma once
 
+#include <limits.h>
+
+#include <algorithm>
+
 #include "paged_kv_common.cuh"
 #include "paged_walk_mma.cuh"
+#include "paged_walk_wgmma.cuh"
 
 namespace pstt {
 
@@ -27,7 +34,90 @@ struct RaggedArgs {
   cudaStream_t stream;
 };
 
+// The walks a launch can take, in the order of
+// pstt_ragged_walk_launches's index (paged_ragged.cu): PR 6's mma.sync
+// walk (16-bit, head dims up to 128), the wgmma walk at the tile 256
+// and its wide form (16-bit, 129 to 256 and 257 to 512), the mma.sync
+// slab walk (16-bit above 512) and the f32 walk.
+enum RaggedWalk { kRaggedMma, kRaggedWgmma, kRaggedWgmmaWide,
+                  kRaggedMmaSlab, kRaggedF32, kRaggedWalks };
+
+// Adds one to the walk's count of launches the runtime took
+// (paged_ragged.cu).
+void count_ragged_walk(RaggedWalk walk);
+
+// Whether a 16-bit head_dim runs on the wgmma walk: at the tile 256
+// (129 to 256) or at a width of its wide form (257 to 512).
+__host__ __device__ constexpr bool ragged_wgmma_head_dim(int head_dim) {
+  return head_dim_slabs(head_dim) == 1 ? head_dim_tile(head_dim) == kMaxHeadDim
+                                       : wg_wide_width(head_dim) != 0;
+}
+
+// The wgmma walk's ragged tile order, mirrored by the host
+// (ops/ragged_attention_cuda.ragged_wg_tile): of a (row, kv head) pair
+// whose live rows fill `live_tiles` tiles (ceil((last_index + 1) * G /
+// tile rows), 0 for a pad row), round z takes tile live_tiles - 1 - z
+// while z < live_tiles, then tile z. A bijection over the pair's tiles,
+// from last_index alone; launch index z * pairs + pair, so every pair's
+// heaviest live tile (its highest slots, which see the most tokens)
+// comes before its lighter ones, and every live tile of round z before
+// any tile of round z + 1.
+__host__ __device__ constexpr int ragged_wg_tile(int z, int live_tiles) {
+  return z < live_tiles ? live_tiles - 1 - z : z;
+}
+
+// The ragged kernel's tiles on the wgmma walk (paged_walk_wgmma.cuh's
+// tile policy): the G * W query rows of a (row, kv head) pair slot-major
+// (SlotMajorRows), a row's live slots one prefix of them; the
+// RaggedMask; `info` the row's last_index (-1 for a pad row, kv_len 0).
+// A tile's nrows is its live prefix, its end its rows; the consumer
+// warpgroups write rows [nrows, end) exact 0 (a live tile's after its
+// output; a tile with no live row, only zeros, from every consumer).
+struct WgRaggedTiles {
+  static constexpr bool kDeadRows = true;
+  using Tile = WgTile<SlotMajorRows, RaggedMask>;
+
+  template <typename T, typename C>
+  static __device__ __forceinline__ int info(const WgArgs<T, C>& a, int b) {
+    return a.last_index[b];
+  }
+
+  template <int D, typename T, typename C>
+  static __device__ __forceinline__ Tile tile(const WgArgs<T, C>& a,
+                                              int index, int kv_len,
+                                              int last_index) {
+    Tile t;
+    const int pairs = a.num_kv_heads * a.batch;
+    const int z = index / pairs;
+    const int pair = index - z * pairs;
+    t.h = pair % a.num_kv_heads;
+    t.b = pair / a.num_kv_heads;
+    const int tile_rows = wg_tile_rows<D>(a);
+    const int last = kv_len > 0 ? last_index : -1;
+    const int live = max(0, (min(last, a.tokens - 1) + 1) * a.group);
+    const int row0 =
+        ragged_wg_tile(z, (live + tile_rows - 1) / tile_rows) * tile_rows;
+    t.end = min(tile_rows, a.group * a.tokens - row0);
+    t.nrows = max(0, min(live - row0, t.end));
+    t.rows = SlotMajorRows{((size_t)t.b * a.tokens * a.num_q_heads +
+                            (size_t)t.h * a.group) * a.hd,
+                           a.group, a.num_q_heads, a.hd, row0};
+    t.mask = RaggedMask{kv_len, last, a.group, row0};
+    t.n_spans = t.nrows > 0 ? (t.mask.max_limit(t.nrows) + kWgSpan - 1) /
+                                  kWgSpan
+                            : 0;
+    return t;
+  }
+};
+
 namespace {
+
+// cudaGetLastError() after a launch of `walk`, counted where it is 0.
+inline int counted_ragged_launch(RaggedWalk walk) {
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) count_ragged_walk(walk);
+  return err;
+}
 
 constexpr int kRaggedTile = kMmaRows;
 constexpr int kRaggedThreads = 256;  // the f32 walk
@@ -219,6 +309,90 @@ paged_ragged_mma_kernel(const T* __restrict__ q,
         max_pages, page_size, tile.mask.kv_len, tile.mask, tile.live, hd);
 }
 
+// 16-bit queries at head dims 129 to 256: the wgmma walk
+// (paged_walk_wgmma.cuh) at the tile 256 with the ragged tiles, one
+// persistent block an SM of consumer warpgroups and a producer
+// warpgroup, taking tiles from the walk's scheduler.
+template <typename T, typename C, int D>
+__global__ void __launch_bounds__(kWgBlockThreads, 1)
+paged_ragged_wgmma_kernel(const __grid_constant__ WgArgs<T, C> a) {
+  page_walk_block_wgmma<T, C, D, WgRaggedTiles>(a);
+}
+
+// 16-bit queries at head dims 257 to 512: the wgmma walk's wide form at
+// the width W (wg_wide_width), two consumer warpgroups over each 64-row
+// tile, each owning half of the output's head dims.
+template <typename T, typename C, int W>
+__global__ void __launch_bounds__(kWgBlockThreads, 1)
+paged_ragged_wgmma_wide_kernel(const __grid_constant__ WgArgs<T, C> a) {
+  page_walk_block_wgmma<T, C, W, WgRaggedTiles>(a);
+}
+
+// The wgmma walk's kernel at D: the wide form's above kMaxHeadDim.
+template <typename T, typename C, int D>
+constexpr auto ragged_wgmma_kernel_at() {
+  if constexpr (D > kMaxHeadDim)
+    return &paged_ragged_wgmma_wide_kernel<T, C, D>;
+  else
+    return &paged_ragged_wgmma_kernel<T, C, D>;
+}
+
+// The launch of the wgmma walk at D (the tile 256, or a width of the
+// wide form), as prefill launches it (paged_prefill.cuh): persistent,
+// min(tiles, SMs) blocks; an error from the shared-memory attribute or
+// the register check is returned, no other walk tried.
+template <typename T, typename C, int D>
+int launch_wgmma(const RaggedArgs& a) {
+  if (kQuantized<C> && (a.ks == nullptr || a.vs == nullptr))
+    return cudaErrorInvalidValue;
+  constexpr bool WIDE = D > kMaxHeadDim;
+  const int group = a.num_q_heads / a.num_kv_heads;
+  // Consumer warpgroups: prefill's rule at the tile 256 (wg_consumers:
+  // one where a pair's G * W rows fit in 64, a verify block, else two
+  // on a 128-row tile; faster than one on 64-row tiles on the unified
+  // block, paged_ragged.cu), two over 64-row tiles in the wide form.
+  const int consumers =
+      WIDE ? kWgMaxConsumers : wg_consumers(group * a.width);
+  const int tile_rows = WIDE ? kWgRows : consumers * kWgRows;
+  const int tiles = (group * a.width + tile_rows - 1) / tile_rows;
+  const long long total = (long long)a.num_kv_heads * a.rows * tiles;
+  if (total > INT_MAX) return cudaErrorInvalidValue;
+  const WgArgs<T, C> args{static_cast<const T*>(a.q),
+                          static_cast<const C*>(a.k),
+                          static_cast<const C*>(a.v),
+                          static_cast<const float*>(a.ks),
+                          static_cast<const float*>(a.vs),
+                          static_cast<const int*>(a.pt),
+                          nullptr,
+                          static_cast<const int*>(a.kv_lens),
+                          static_cast<T*>(a.out),
+                          a.rows, a.width, a.num_q_heads, a.num_kv_heads,
+                          group, a.num_pages, a.page_size, a.max_pages,
+                          a.head_dim, a.layer, consumers, tiles, (int)total,
+                          static_cast<const int*>(a.last_index)};
+  constexpr int smem = WgSmem<C, D>::bytes;
+  auto kernel = ragged_wgmma_kernel_at<T, C, D>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  // setmaxnreg moves registers within the block's allocation: the
+  // consumers' rise must fit what the producer gives up, or it would
+  // wait forever. Refuse a build whose entry count is too small.
+  static const int entry_regs = [&] {
+    cudaFuncAttributes f{};
+    return cudaFuncGetAttributes(&f, kernel) == cudaSuccess ? f.numRegs : 0;
+  }();
+  if (entry_regs * (consumers + 1) <
+      wg_producer_regs(D) + consumers * wg_consumer_regs(D))
+    return cudaErrorInvalidConfiguration;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  kernel<<<(int)std::min<long long>(total, std::max(sms, 1)),
+           (consumers + 1) * kWgThreads, smem, a.stream>>>(args);
+  return counted_ragged_launch(WIDE ? kRaggedWgmmaWide : kRaggedWgmma);
+}
+
 template <typename T, typename C, int D, bool SLAB>
 int launch(const RaggedArgs& a) {
   if (kQuantized<C> && (a.ks == nullptr || a.vs == nullptr))
@@ -242,6 +416,7 @@ int launch(const RaggedArgs& a) {
         static_cast<const int*>(a.last_index), static_cast<T*>(a.out),
         a.width, a.num_q_heads, group, a.num_pages, a.page_size,
         a.max_pages, a.layer, a.head_dim, slabs);
+    return counted_ragged_launch(SLAB ? kRaggedMmaSlab : kRaggedMma);
   } else {
     // The widest row block's layout; the narrower ones use a prefix of
     // it, and place their scales by their own layout, inside it.
@@ -258,8 +433,8 @@ int launch(const RaggedArgs& a) {
         static_cast<const int*>(a.last_index), static_cast<T*>(a.out),
         a.width, a.num_q_heads, group, a.num_pages, a.page_size,
         a.max_pages, a.layer, a.head_dim, slabs);
+    return counted_ragged_launch(kRaggedF32);
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -271,12 +446,49 @@ int launch(const RaggedArgs& a) {
 int ragged_launch_bf16(const RaggedArgs& args, int cache_dtype);
 int ragged_launch_f16(const RaggedArgs& args, int cache_dtype);
 int ragged_launch_f32(const RaggedArgs& args, int cache_dtype);
+// The 16-bit forms on the wgmma walk (ragged_wgmma_head_dim):
+// paged_ragged_wgmma_{bf16,f16}.cu, each with its own tile scheduler.
+int ragged_wgmma_launch_bf16(const RaggedArgs& args, int cache_dtype);
+int ragged_wgmma_launch_f16(const RaggedArgs& args, int cache_dtype);
 
 }  // namespace pstt
 
 // The body of a ragged_launch_<type>: one case a line of the type's
-// list, at the head dim's tile, the slab walk above kMaxHeadDim.
+// list, at the head dim's tile, the slab walk above kMaxHeadDim (the
+// 16-bit sources first hand ragged_wgmma_head_dim's to the wgmma walk).
 #define PSTT_RAGGED_CASE(code, T, ccode, C, D, SLABS)                    \
   if (cache_dtype == ccode && pstt::head_dim_tile(args.head_dim) == D &&  \
       (pstt::head_dim_slabs(args.head_dim) > 1) == SLABS)                 \
     return pstt::launch<T, C, D, SLABS>(args);
+// The 16-bit forms on the mma.sync walks: the tiles up to 128 and the
+// slabs above 512 (the wgmma walk serves 129 to 512).
+#define PSTT_FOR_EACH_RAGGED_MMA_HEAD_DIM(X, code, T, ccode, C) \
+  X(code, T, ccode, C, 32, false)                             \
+  X(code, T, ccode, C, 64, false)                             \
+  X(code, T, ccode, C, 80, false)                             \
+  X(code, T, ccode, C, 128, false)                            \
+  X(code, T, ccode, C, 128, true)
+#define PSTT_FOR_EACH_BF16_RAGGED_MMA(X)                                  \
+  PSTT_FOR_EACH_RAGGED_MMA_HEAD_DIM(X, 0, __nv_bfloat16, 0, __nv_bfloat16) \
+  PSTT_FOR_EACH_RAGGED_MMA_HEAD_DIM(X, 0, __nv_bfloat16, 2, int8_t)
+#define PSTT_FOR_EACH_F16_RAGGED_MMA(X)                     \
+  PSTT_FOR_EACH_RAGGED_MMA_HEAD_DIM(X, 3, __half, 3, __half) \
+  PSTT_FOR_EACH_RAGGED_MMA_HEAD_DIM(X, 3, __half, 2, int8_t)
+// The body of a ragged_wgmma_launch_<type>: the wide form's widths,
+// then the tile 256.
+#define PSTT_RAGGED_WG_CASE(code, T, ccode, C, D)                         \
+  if (cache_dtype == ccode &&                                            \
+      (D > pstt::kMaxHeadDim                                             \
+           ? pstt::wg_wide_width(args.head_dim) == D                     \
+           : pstt::head_dim_slabs(args.head_dim) == 1 &&                 \
+                 pstt::head_dim_tile(args.head_dim) == D))               \
+    return pstt::launch_wgmma<T, C, D>(args);
+#define PSTT_FOR_EACH_RAGGED_WG(X, code, T, ccode, C) \
+  PSTT_FOR_EACH_WG_WIDTH(X, code, T, ccode, C)        \
+  X(code, T, ccode, C, 256)
+#define PSTT_FOR_EACH_BF16_RAGGED_WG(X)                             \
+  PSTT_FOR_EACH_RAGGED_WG(X, 0, __nv_bfloat16, 0, __nv_bfloat16)    \
+  PSTT_FOR_EACH_RAGGED_WG(X, 0, __nv_bfloat16, 2, int8_t)
+#define PSTT_FOR_EACH_F16_RAGGED_WG(X)              \
+  PSTT_FOR_EACH_RAGGED_WG(X, 3, __half, 3, __half) \
+  PSTT_FOR_EACH_RAGGED_WG(X, 3, __half, 2, int8_t)

@@ -37,9 +37,9 @@
 //     blocks an SM. At head_dim 80, two stages of 85 KB, two blocks an
 //     SM. At head_dim 128 every tile, and each warp's output
 //     accumulators, double: one stage of 68 KB, two blocks an SM (the
-//     other block's products overlap a block's copies). At head_dim
-//     256 the walk stages half a chunk at a time (walk_span), in two
-//     stages, and reads q from shared memory (MmaSmem): one block an SM.
+//     other block's products overlap a block's copies). Wider head dims
+//     take the wgmma walk (paged_walk_wgmma.cuh) or, above 512, the
+//     slab walk below.
 //   - Head dims pad to the tile D as in page_walk_block: the walk loads
 //     q's and stores out's head dims d < head_dim only (load_pair,
 //     store_pair), stages K and V rows d < head_dim, and zeroes the
@@ -72,21 +72,14 @@ constexpr float kLog2e = 1.4426950408889634f;
 // planes and two of the span's scales (the products read span c's
 // scales while span c + 1's arrive). Up to head_dim 80, two stages of
 // chunks; one at 128, where two would leave one block (four warps) an
-// SM. At 256, two stages of half chunks (a chunk's K and V tiles alone
-// are 139 KB, which one stage would hold with no copy under the
-// products), and q as a [64][D] tile (kQRow bytes a row): 64 q
-// fragment registers a thread beside 128 output accumulators would pass
-// the 255 a thread may have, so each k step of q.k^T reads its q
-// fragment from shared memory (ldmatrix). 177 KB bf16, 170 KB int8: one
-// block an SM.
+// SM. The walk serves head-dim tiles up to 128.
 template <typename C, int D>
 struct MmaSmem {
+  static_assert(D <= 128, "the mma.sync walk's tiles are 32 to 128");
   static constexpr bool kQuant = kQuantized<C>;
   static constexpr int kSpan = walk_span(D);
   static constexpr int kRowBytes = kSpan * 2 + 16;  // a padded tile row
-  static constexpr int kStages = D <= 80 || D > 128 ? 2 : 1;
-  static constexpr bool kQSmem = D > 128;
-  static constexpr int kQRow = D * 2 + 16;
+  static constexpr int kStages = D <= 80 ? 2 : 1;
   static constexpr int kTile = D * kRowBytes;
   static constexpr int kTileStages = kQuant ? 1 : kStages;
   static constexpr int kRaw = kQuant ? D * kSpan : 0;
@@ -95,8 +88,7 @@ struct MmaSmem {
   static constexpr int raw =
       tiles + kTileStages * 2 * kTile;  // [kStages][2][kRaw]
   static constexpr int scales = raw + kStages * 2 * kRaw;  // [2][2][kSpan]
-  static constexpr int q = scales + 2 * 2 * kScale;  // [kMmaRows][kQRow]
-  static constexpr int bytes = q + (kQSmem ? kMmaRows * kQRow : 0);
+  static constexpr int bytes = scales + 2 * 2 * kScale;
   static_assert(bytes <= kMaxBlockSmem, "a walk block's shared memory");
 };
 
@@ -105,7 +97,7 @@ struct MmaSmem {
 // KB of it reserved a block), at most three at head_dim 64 (68 KB a
 // block: 170 registers a thread) and two above (85 KB at 80; 68 KB and
 // 102 KB int8 at 128: 255 registers, where a warp's 64 f32 output
-// accumulators fit); one at 256 (its 128 accumulators a thread).
+// accumulators fit).
 template <typename C, int D>
 constexpr int mma_blocks_per_sm() {
   constexpr int fit = 233472 / (MmaSmem<C, D>::bytes + 1024);
@@ -418,31 +410,19 @@ __device__ void page_walk_block_mma(
   const int r0 = warp * 16 + grp;
   const int r1 = r0 + 8;
 
-  // q: the A operand of every q.k^T product of the walk. In registers
-  // up to head_dim 128; at 256 a [kMmaRows][D] tile (rows past nrows and
-  // head dims past head_dim zero), read a k step at a time.
-  constexpr int QREGS = L::kQSmem ? 1 : KS;
-  uint32_t qa[QREGS][4];
+  // q: the A operand of every q.k^T product of the walk, in registers.
+  uint32_t qa[KS][4];
   by_parity(hd, [&](auto odd) {
     constexpr bool ODD = decltype(odd)::value;
-    if constexpr (L::kQSmem) {
-      for (int i = tid; i < kMmaRows * (D / 2); i += NT) {
-        const int r = i / (D / 2);
-        const int d = (i - r * (D / 2)) * 2;
-        *reinterpret_cast<uint32_t*>(smem + L::q + r * L::kQRow + d * 2) =
-            r < nrows ? load_pair<ODD>(q + rows.offset(r), d, hd) : 0u;
-      }
-    } else {
-      const T* p0 = q + (r0 < nrows ? rows.offset(r0) : rows.offset(0));
-      const T* p1 = q + (r1 < nrows ? rows.offset(r1) : rows.offset(0));
+    const T* p0 = q + (r0 < nrows ? rows.offset(r0) : rows.offset(0));
+    const T* p1 = q + (r1 < nrows ? rows.offset(r1) : rows.offset(0));
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const int d = kk * 16 + quad * 2;
-        qa[kk][0] = r0 < nrows ? load_pair<ODD>(p0, d, hd) : 0u;
-        qa[kk][1] = r1 < nrows ? load_pair<ODD>(p1, d, hd) : 0u;
-        qa[kk][2] = r0 < nrows ? load_pair<ODD>(p0, d + 8, hd) : 0u;
-        qa[kk][3] = r1 < nrows ? load_pair<ODD>(p1, d + 8, hd) : 0u;
-      }
+    for (int kk = 0; kk < KS; ++kk) {
+      const int d = kk * 16 + quad * 2;
+      qa[kk][0] = r0 < nrows ? load_pair<ODD>(p0, d, hd) : 0u;
+      qa[kk][1] = r1 < nrows ? load_pair<ODD>(p1, d, hd) : 0u;
+      qa[kk][2] = r0 < nrows ? load_pair<ODD>(p0, d + 8, hd) : 0u;
+      qa[kk][3] = r1 < nrows ? load_pair<ODD>(p1, d + 8, hd) : 0u;
     }
   });
   // The tiles' rows d >= head_dim: zero for the whole walk (the
@@ -564,14 +544,7 @@ __device__ void page_walk_block_mma(
         for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
-        uint32_t(&a)[4] = qa[L::kQSmem ? 0 : kk];
-        if constexpr (L::kQSmem) {
-          // Four 8 x 8 tiles of q: rows warp * 16 + {0, 8}, head dims
-          // 16 kk + {0, 8}; lane / 8 picks the tile.
-          const int r = warp * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
-          const int d = kk * 16 + (lane >> 4) * 8;
-          ldmatrix_x4(a, base + L::q + r * L::kQRow + d * 2);
-        }
+        uint32_t(&a)[4] = qa[kk];
 #pragma unroll
         for (int g2 = 0; g2 < kMmaStep / 16; ++g2) {
           if (g2 < groups) {

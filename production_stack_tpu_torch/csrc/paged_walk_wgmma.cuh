@@ -7,8 +7,17 @@
 // p enters p . v rounded to T; an int8 cache's scales fold in the
 // Pallas order (k_scale on each score column after the product, l over
 // the unscaled p, p * v_scale before the conversion to T); a row with
-// nothing to see writes exact 0, rows at or past nrows are never
+// nothing to see writes exact 0, rows at or past a tile's end are never
 // written.
+//
+// The tile is the walk's template policy (Tiles): prefill's chunk rows
+// (WgPrefillTiles, below), or the ragged kernel's slot-major rows with
+// their dead slots (WgRaggedTiles, paged_ragged.cuh: its 16-bit head
+// dims 129 to 512). One producer and one consumer serve both; with
+// dead rows, the consumers write them exact 0 (a live tile's after its
+// output; a tile with no live row, which takes no q slot, no ring unit
+// and no product, all of them together), and the producer passes a tile
+// with no live row.
 //
 // What bounds it is the latency between the products, not the products:
 // a tile's spans are few (a 512-token chunk is 8 spans of 64), and a
@@ -280,18 +289,21 @@ struct WgArgs {
   int consumers;  // consumer warpgroups a block
   int tiles;      // tiles of one (row, kv head) pair
   int total;      // tiles of the launch: kv_heads * batch * tiles
+  // The ragged walk's [R] last_index (its `tokens` is the block's width
+  // W, `batch` its rows R); unused by prefill.
+  const int* last_index = nullptr;
 };
 
-// Tile `index` of a launch, in [0, total), of a row with kv_len tokens
-// whose chunk starts at q_start: the (kv head, row) pair, its query rows
-// and what they see. Every pair's heaviest tile comes first, then every
-// pair's next: where a tile holds rows of one query head, from the
-// highest positions down across every head; else from the last tile
-// down.
+// A tile of a launch: its (kv head, row) pair, where its query rows lie
+// (Rows: offset(r) of row r), what they see (Mask: limit(r) and
+// max_limit(n)), its `nrows` live rows (a prefix), the `end` rows it
+// holds (rows [nrows, end) are written exact 0; prefill's equal nrows)
+// and the spans its live rows see.
+template <typename Rows, typename Mask>
 struct WgTile {
-  int h, b, nrows, n_spans;
-  RowMap rows;
-  CausalMask mask;
+  int h, b, nrows, end, n_spans;
+  Rows rows;
+  Mask mask;
 };
 
 // Query rows a tile at D: a warpgroup's 64 each, or 64 in the wide
@@ -301,32 +313,56 @@ __device__ __forceinline__ int wg_tile_rows(const WgArgs<T, C>& a) {
   return D > kMaxHeadDim ? kWgRows : a.consumers * kWgRows;
 }
 
-template <int D, typename T, typename C>
-__device__ __forceinline__ WgTile wg_tile(const WgArgs<T, C>& a, int index,
-                                          int kv_len, int q_start) {
-  WgTile t;
-  const int pairs = a.num_kv_heads * a.batch;
-  const int z = index / pairs;
-  const int pair = index - z * pairs;
-  t.h = pair % a.num_kv_heads;
-  t.b = pair / a.num_kv_heads;
-  const int tile_rows = wg_tile_rows<D>(a);
-  int tile;
-  if (a.tokens % tile_rows == 0) {
-    const int per_head = a.tokens / tile_rows;
-    tile = (z % a.group) * per_head + per_head - 1 - z / a.group;
-  } else {
-    tile = a.tiles - 1 - z;
+// The walk's tile policy: which tile a launch index is, and what the
+// producer publishes beside the row's kv_len for the consumers to
+// rebuild it (`info`). Prefill's tiles (this policy) are chunk rows
+// g-major (RowMap, CausalMask), every row live, `info` the chunk's
+// start; the ragged kernel's (paged_ragged.cuh, WgRaggedTiles) are
+// slot-major (SlotMajorRows, RaggedMask), `info` the row's last_index,
+// with dead rows and dead tiles (kDeadRows).
+//
+// Prefill's order: every pair's heaviest tile comes first, then every
+// pair's next: where a tile holds rows of one query head, from the
+// highest positions down across every head; else from the last tile
+// down.
+struct WgPrefillTiles {
+  static constexpr bool kDeadRows = false;
+  using Tile = WgTile<RowMap, CausalMask>;
+
+  template <typename T, typename C>
+  static __device__ __forceinline__ int info(const WgArgs<T, C>& a, int b) {
+    return a.q_positions[(size_t)b * a.tokens];
   }
-  const int row0 = tile * tile_rows;
-  t.nrows = min(tile_rows, a.group * a.tokens - row0);
-  t.rows = RowMap{((size_t)t.b * a.tokens * a.num_q_heads +
-                   (size_t)t.h * a.group) * a.hd,
-                  a.tokens, a.num_q_heads, a.hd, row0};
-  t.mask = CausalMask{kv_len, q_start, a.tokens, row0};
-  t.n_spans = (t.mask.max_limit(t.nrows) + kWgSpan - 1) / kWgSpan;
-  return t;
-}
+
+  template <int D, typename T, typename C>
+  static __device__ __forceinline__ Tile tile(const WgArgs<T, C>& a,
+                                              int index, int kv_len,
+                                              int q_start) {
+    Tile t;
+    const int pairs = a.num_kv_heads * a.batch;
+    const int z = index / pairs;
+    const int pair = index - z * pairs;
+    t.h = pair % a.num_kv_heads;
+    t.b = pair / a.num_kv_heads;
+    const int tile_rows = wg_tile_rows<D>(a);
+    int tile;
+    if (a.tokens % tile_rows == 0) {
+      const int per_head = a.tokens / tile_rows;
+      tile = (z % a.group) * per_head + per_head - 1 - z / a.group;
+    } else {
+      tile = a.tiles - 1 - z;
+    }
+    const int row0 = tile * tile_rows;
+    t.nrows = min(tile_rows, a.group * a.tokens - row0);
+    t.end = t.nrows;
+    t.rows = RowMap{((size_t)t.b * a.tokens * a.num_q_heads +
+                     (size_t)t.h * a.group) * a.hd,
+                    a.tokens, a.num_q_heads, a.hd, row0};
+    t.mask = CausalMask{kv_len, q_start, a.tokens, row0};
+    t.n_spans = (t.mask.max_limit(t.nrows) + kWgSpan - 1) / kWgSpan;
+    return t;
+  }
+};
 
 // The launch's tile scheduler: the persistent blocks take tiles in
 // index order (heaviest first) from this counter, one fetch at a time.
@@ -359,6 +395,49 @@ __device__ __forceinline__ int wg_q_copy_bytes(const WgArgs<T, C>& a) {
                          (uint32_t)reinterpret_cast<uintptr_t>(a.q);
   return (align & 15) == 0 ? 16 : (align & 7) == 0 ? 8
                                   : (align & 3) == 0 ? 4 : 2;
+}
+
+// Rows [begin, end) of a tile (its row map `rows`) written exact 0 by
+// the threads `tid` in [0, threads): stores of the widest of 16, 8, 4 and 2 bytes that
+// divides a row (hd * 2 bytes) and out's address (16 at an aligned row
+// of a multiple of 8 head dims, 2 at an odd head_dim such as 257). A
+// thread keeps one word of a row and steps over rows where a row's
+// words fit the threads (every 16-byte row up to head_dim 1024).
+template <typename T, typename C, typename Rows>
+__device__ __forceinline__ void wg_zero_rows(const WgArgs<T, C>& a,
+                                             const Rows& rows, int begin,
+                                             int end, int tid, int threads) {
+  const uint32_t align = (uint32_t)(a.hd * 2) |
+                         (uint32_t)reinterpret_cast<uintptr_t>(a.out);
+  auto zero = [&](auto width) {
+    constexpr int ZB = decltype(width)::value;
+    using Word = std::conditional_t<
+        ZB == 16, uint4,
+        std::conditional_t<ZB == 8, uint2,
+                           std::conditional_t<ZB == 4, uint32_t, uint16_t>>>;
+    const int per_row = a.hd * 2 / ZB;
+    if (per_row <= threads) {
+      const int step = threads / per_row;  // rows a pass
+      const int j = tid % per_row;
+      if (tid < step * per_row)
+        for (int r = begin + tid / per_row; r < end; r += step)
+          reinterpret_cast<Word*>(a.out + rows.offset(r))[j] = Word{};
+    } else {
+      for (int i = tid; i < (end - begin) * per_row; i += threads) {
+        const int r = i / per_row;
+        reinterpret_cast<Word*>(a.out + rows.offset(begin + r))
+            [i - r * per_row] = Word{};
+      }
+    }
+  };
+  if ((align & 15) == 0)
+    zero(std::integral_constant<int, 16>());
+  else if ((align & 7) == 0)
+    zero(std::integral_constant<int, 8>());
+  else if ((align & 3) == 0)
+    zero(std::integral_constant<int, 4>());
+  else
+    zero(std::integral_constant<int, 2>());
 }
 
 // The barriers of a block: stage full/empty, tile slot full/empty, q
@@ -395,12 +474,15 @@ __device__ __forceinline__ int wg_wide_unit_span(int p, int n, bool& v) {
 
 // The producer warpgroup's walk. For each tile k it takes from the
 // scheduler (thread 0): publish it in tile slot k % 2 with its row's
-// kv_len and chunk start, copy its q into q slot k % kQSlots, and stage
-// its spans: page ids, copies, int8 conversion, `full` arrivals; an
-// `empty` wait before a slot is reused. g counts the block's ring units
-// (unit g fills stage g % kStages, across tiles): a span's one unit, or
-// the wide form's two.
-template <typename T, typename C, int D>
+// kv_len and the policy's info (prefill: the chunk start), copy its q
+// into the next q slot, and stage its spans: page ids, copies, int8
+// conversion, `full` arrivals; an `empty` wait before a slot is reused.
+// g counts the block's ring units (unit g fills stage g % kStages,
+// across tiles): a span's one unit, or the wide form's two. Tiles with
+// dead rows (Tiles::kDeadRows): the consumers write their zeros; a tile
+// with no live row takes no q slot and no ring unit (q slots count live
+// tiles, kq, published with the tile).
+template <typename T, typename C, int D, typename Tiles = WgPrefillTiles>
 __device__ __forceinline__ void wg_produce(const WgArgs<T, C>& a,
                                            unsigned char* smem,
                                            uint32_t base) {
@@ -431,6 +513,7 @@ __device__ __forceinline__ void wg_produce(const WgArgs<T, C>& a,
   const bool whole = wg_whole_pages<C>(page_size);
   const int ps_shift = whole ? log2_pow2(page_size) : 0;
   int g = 0;
+  int kq = 0;  // live tiles (a q slot each)
   // Thread 0 fetches each tile a tile ahead: the atomic's latency runs
   // under the last tile's copies.
   int next = tid == 0 ? wg_fetch_tile(a.total) : 0;
@@ -448,21 +531,26 @@ __device__ __forceinline__ void wg_produce(const WgArgs<T, C>& a,
     const int pairs = a.num_kv_heads * a.batch;
     const int b = (index % pairs) / a.num_kv_heads;
     const int kv_len = a.kv_lens[b];
-    const int q_start = a.q_positions[(size_t)b * a.tokens];
-    const WgTile t = wg_tile<D>(a, index, kv_len, q_start);
+    const int info = Tiles::info(a, b);
+    const auto t = Tiles::template tile<D>(a, index, kv_len, info);
     if (tid == 0) {
       entry[1] = kv_len;
-      entry[2] = q_start;
+      entry[2] = info;
+      if constexpr (Tiles::kDeadRows) entry[3] = kq;  // q slots taken
       mbar_arrive(bars.tile_full + slot * 8);
       next = wg_fetch_tile(a.total);
     }
+    if constexpr (Tiles::kDeadRows) {
+      if (t.nrows == 0) continue;  // the consumers write its zeros
+    }
 
-    // q of the tile's rows into q slot k % QS, as the consumers read it
+    // q of the tile's rows into q slot kq % QS, as the consumers read it
     // (warpgroup w's rows 64 w .. 64 w + 63 at w * kQTile, D / 64 column
     // blocks of [64][64] in the swizzle; the wide form's one tile of 64
     // rows); rows past nrows and head dims past hd as zeros.
-    const int qs = k % QS;
-    if (k >= QS) mbar_wait(bars.q_empty + qs * 8, ((k / QS) - 1) & 1);
+    const int lq = Tiles::kDeadRows ? kq++ : k;
+    const int qs = lq % QS;
+    if (lq >= QS) mbar_wait(bars.q_empty + qs * 8, ((lq / QS) - 1) & 1);
     const uint32_t q_slot = base + L::q + qs * L::kQSlot;
     const int rows = wg_tile_rows<D>(a);
     auto q_at = [&](int r, int d) {
@@ -831,8 +919,10 @@ __device__ __forceinline__ void wgmma_wait_at_most(int n) {
 // score buffer fits beside the accumulators) span c + 1's q . k^T while
 // span c's does. A unit is released once its last product has completed
 // (the wide form's K once the span's scores are in and scaled), the q
-// slot once the output has left it.
-template <typename T, typename C, int D>
+// slot once the output has left it. With dead rows (Tiles::kDeadRows),
+// the warpgroup's rows past the live ones are then written exact 0; a
+// tile with no live row is only zeros, from every consumer warpgroup.
+template <typename T, typename C, int D, typename Tiles = WgPrefillTiles>
 __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
                                            unsigned char* smem,
                                            uint32_t base, int wg) {
@@ -840,6 +930,18 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
   constexpr bool QUANT = kQuantized<C>;
   constexpr bool WIDE = L::kWide;
   constexpr bool PIPE = D <= 128;
+  // At the tile 256 (no second score buffer), the early release:
+  // span c's p . v is issued before span c + 1's q . k^T waits for its
+  // stage, and span c - 1's stage is released as soon as span c's
+  // scores are in (p . v of c - 1, issued before them, is in too): the
+  // copy of span c + 1 then runs under span c's softmax and p . v
+  // instead of after them. (Where a tile's rows are few, as a decode
+  // row's, a span's time is its copy's.) Both tile policies take it
+  // (tools/kernel_times.py A/B medians, L2 flushed, H100 80GB HBM3,
+  // 700 W; ms): ragged's g3_d256 unified block 0.1929 -> 0.1720;
+  // prefill's g3_d256 first chunk 0.0912 -> 0.0856 (int8 0.1266 ->
+  // 0.1172), second chunk 0.1922 -> 0.1709 (int8 0.2721 -> 0.2497).
+  constexpr bool EARLY = !PIPE && !WIDE;
   constexpr int S = L::kStages;
   constexpr int QS = L::kQSlots;
   constexpr int KS = D / 16;           // k steps of q . k^T
@@ -867,11 +969,21 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
     mbar_wait(bars.tile_full + slot * 8, (k >> 1) & 1);
     const int index = ring[slot * 4];
     const int kv_len = ring[slot * 4 + 1];
-    const int q_start = ring[slot * 4 + 2];
+    const int info = ring[slot * 4 + 2];
+    // Dead rows: the live tiles before this one (their q slots), as the
+    // producer counted them; read from the slot, not held across tiles.
+    const int lq = Tiles::kDeadRows ? ring[slot * 4 + 3] : k;
     __syncwarp();
     if (lane == 0) mbar_arrive(bars.tile_empty + slot * 8);
     if (index < 0) break;
-    WgTile t = wg_tile<D>(a, index, kv_len, q_start);
+    auto t = Tiles::template tile<D>(a, index, kv_len, info);
+    if constexpr (Tiles::kDeadRows) {
+      if (t.nrows == 0) {  // its zeros, from every consumer warpgroup
+        wg_zero_rows(a, t.rows, 0, t.end, (int)threadIdx.x,
+                     a.consumers * kWgThreads);
+        continue;
+      }
+    }
     const int n_spans = t.n_spans;
     int wrows = t.nrows;
     if constexpr (!WIDE) {
@@ -883,7 +995,7 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
     const int lim1 = r1 < wrows ? t.mask.limit(r1) : 0;
     const int wmax = wrows > 0 ? t.mask.max_limit(wrows) : 0;
     const int wspans = (wmax + kWgSpan - 1) / kWgSpan;  // warpgroup-uniform
-    const int qs = k % QS;
+    const int qs = lq % QS;
     const int q_off = L::q + qs * L::kQSlot + (WIDE ? 0 : wg * L::kQTile);
     const uint32_t q_tile = base + q_off;
     // The ring units of span c's K and V (the wide form's order; one
@@ -914,7 +1026,7 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
       wgmma_fence_regs(acc);
       wgmma_fence_regs(sa);
     }
-    mbar_wait(bars.q_full + qs * 8, (k / QS) & 1);
+    mbar_wait(bars.q_full + qs * 8, (lq / QS) & 1);
 
     // S = q . K^T of span c into `dst` (one committed group): q's slot is
     // A (K-major, 32 bytes a k step within a 64-column block); K's
@@ -946,8 +1058,13 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
                     float (&nxt)[kWgSpan / 8][4]) {
       const bool next = c + 1 < wspans;
       if (PIPE && next) issue_s(c + 1, nxt);
-      wgmma_wait_at_most((c > 0) + (PIPE && next));  // S(c) is in
+      // S(c) is in (EARLY: and p . v of c - 1, issued before it).
+      wgmma_wait_at_most(EARLY ? 0 : (c > 0) + (PIPE && next));
       wgmma_fence_regs(cur);
+      if (EARLY && c > 0) {
+        wgmma_fence_regs(acc);
+        release(v_unit(c - 1));
+      }
       const int cbase = c * kWgSpan;
       const int sk = k_unit(c) % S;
       const int sv = v_unit(c) % S;
@@ -958,7 +1075,7 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
       wg_softmax_p<QUANT>(cur, m0, m1, l0, l1, a0, a1, cbase, lim0, lim1,
                           scale_log2, kss, quad);
       if (WIDE) release(k_unit(c));  // K(c) and its scales are read
-      if (c > 0) {
+      if (!EARLY && c > 0) {
         wgmma_wait_at_most(PIPE && next);  // p . v of c - 1 is in
         wgmma_fence_regs(acc);
         release(v_unit(c - 1));
@@ -968,7 +1085,7 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
       if (WIDE && QUANT) wait_full(v_unit(c));
       uint32_t pa[kWgSpan / 16][4];
       wg_softmax_pack<T, QUANT, DN>(cur, acc, pa, a0, a1, vss, quad);
-      if (!PIPE && next) issue_s(c + 1, cur);
+      if (!PIPE && !EARLY && next) issue_s(c + 1, cur);
       if (WIDE && !QUANT) wait_full(v_unit(c));
       // O += P . V over the 16-token groups any row here can see: V's
       // plane (from this warpgroup's first output dim) is B with K (the
@@ -983,6 +1100,7 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
           Wgmma<T, DO>::template rs<0>(
               acc, pa[kt], wg_desc(v_plane + kt * 32, 16, 1024), 1);
       wgmma_commit();
+      if (EARLY && next) issue_s(c + 1, cur);
     };
 
     if (wspans > 0) issue_s(0, sa);
@@ -1009,9 +1127,12 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
     g += n_spans * (WIDE ? 2 : 1);
     // Above 128 the row map is rebuilt rather than held across the spans
     // (the accumulators leave no register to spare).
-    RowMap rows = t.rows;
+    auto rows = t.rows;
+    int end = t.end;
     if constexpr (D > 128) {
-      rows = wg_tile<D>(a, index, kv_len, q_start).rows;
+      const auto tt = Tiles::template tile<D>(a, index, kv_len, info);
+      rows = tt.rows;
+      end = tt.end;
       if constexpr (!WIDE) rows.row0 += wg * kWgRows;
     }
 
@@ -1057,6 +1178,17 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(bars.q_empty + qs * 8);
+    if constexpr (Tiles::kDeadRows) {
+      // The tile's dead rows after its live ones: this warpgroup's 64
+      // (the wide form: the tile's, shared by both warpgroups).
+      if constexpr (WIDE)
+        wg_zero_rows(a, rows, wrows, end, tid + wg * kWgThreads,
+                     2 * kWgThreads);
+      else
+        wg_zero_rows(a, rows, wrows,
+                     min(kWgRows, max(0, end - wg * kWgRows)), tid,
+                     kWgThreads);
+    }
   }
 }
 
@@ -1065,7 +1197,7 @@ __device__ __forceinline__ void wg_consume(const WgArgs<T, C>& a,
 // One persistent block of `consumers` consumer warpgroups and one
 // producer warpgroup (threadIdx.x / 128 == consumers), walking the tiles
 // the scheduler gives it.
-template <typename T, typename C, int D>
+template <typename T, typename C, int D, typename Tiles = WgPrefillTiles>
 __device__ __forceinline__ void page_walk_block_wgmma(const WgArgs<T, C>& a) {
   using L = WgSmem<C, D>;
   extern __shared__ unsigned char smem_wg[];
@@ -1095,11 +1227,11 @@ __device__ __forceinline__ void page_walk_block_wgmma(const WgArgs<T, C>& a) {
   if (threadIdx.x / kWgThreads == a.consumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
         wg_producer_regs(D)));
-    wg_produce<T, C, D>(a, smem, base);
+    wg_produce<T, C, D, Tiles>(a, smem, base);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
         wg_consumer_regs(D)));
-    wg_consume<T, C, D>(a, smem, base, threadIdx.x / kWgThreads);
+    wg_consume<T, C, D, Tiles>(a, smem, base, threadIdx.x / kWgThreads);
   }
 }
 

@@ -232,6 +232,9 @@ def kernel_lib() -> ctypes.CDLL:
             lib.pstt_paged_ragged.argtypes = (
                 [i32] * 2 + [ptr] * 10 + [i32] * 8 + layer)
             lib.pstt_paged_ragged.restype = i32
+            # The launches of each ragged walk (paged_ragged.cu).
+            lib.pstt_ragged_walk_launches.argtypes = [i32]
+            lib.pstt_ragged_walk_launches.restype = i64
             lib.pstt_kernel_supports.argtypes = [i32] * 4
             lib.pstt_kernel_supports.restype = i32
             lib.pstt_page_size_supported.argtypes = [i32]

@@ -59,13 +59,12 @@ with kv_len 0 writes exact 0.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 
 from production_stack_tpu_torch.ops.paged_kv_common import (
     COUNTERS,
-    MAX_KERNEL_HEAD_DIM,
     cache_code,
     check_cache,
     check_kernel_operands,
@@ -80,71 +79,22 @@ from production_stack_tpu_torch.ops.paged_kv_common import (
     split_cache,
     stream_ptr,
 )
+# The wgmma walk's plan, shared with the ragged kernel (the constants
+# also named here by the tools and the tests).
+from production_stack_tpu_torch.ops.wgmma_plan import (  # noqa: F401
+    MAX_BLOCK_SMEM,
+    WG_MAX_CONSUMERS,
+    WG_MAX_STAGES,
+    WG_ROWS,
+    WG_SPAN_TOKENS,
+    WG_WIDE_WIDTHS,
+    wg_consumers,
+    wg_copies,
+    wg_smem,
+    wide_head_dim_width,
+)
 
 KERNEL_NAME = "paged_prefill"
-
-# The wgmma walk's plan (csrc/paged_walk_wgmma.cuh: kWgSpan, kWgRows,
-# kWgMaxConsumers, kWgMaxStages, WgSmem, wg_consumers, wg_whole_pages),
-# mirrored for the tools and the CPU tests, which hold it against the
-# source.
-WG_SPAN_TOKENS = 64
-WG_ROWS = 64
-WG_MAX_CONSUMERS = 2
-WG_MAX_STAGES = 4
-MAX_BLOCK_SMEM = 232448
-# The wide form's widths (PSTT_FOR_EACH_WG_WIDTH): 16-bit queries at a
-# head_dim above the widest tile run at the smallest at or above it.
-WG_WIDE_WIDTHS = (384, 512)
-
-
-def wide_head_dim_width(head_dim: int) -> Optional[int]:
-    """The width of the wgmma walk's wide form a head_dim runs at
-    (csrc/paged_walk_wgmma.cuh ``wg_wide_width``): the smallest of
-    ``WG_WIDE_WIDTHS`` at or above it, above the widest tile; None where
-    another walk takes it (a tile below, the slab walk above)."""
-    if head_dim <= MAX_KERNEL_HEAD_DIM:
-        return None
-    return next((w for w in WG_WIDE_WIDTHS if head_dim <= w), None)
-
-
-def _wg_smem(int8: bool, tile: int) -> Tuple[int, int, int]:
-    """(ring stages, raw stages, shared bytes) of the wgmma walk at a
-    head-dim tile or a width of the wide form (WgSmem): q slots (two up
-    to 128, one above) of two consumers' 64 rows (the wide form: one
-    tile of 64 rows both read) in 64-column blocks, as many ring units
-    as fit up to four (a 64-token span's K and V planes; the wide form
-    one plane a unit, and two spans' page ids), two raw int8 units where
-    they fit (the wide form: beside the most units that fit with one),
-    the scales, the page ids, the tile ring, the barriers and 1024 bytes
-    of alignment."""
-    wide = tile > MAX_KERNEL_HEAD_DIM
-    planes = 1 if wide else 2
-    slot = planes * tile * 128
-    scales = planes * WG_SPAN_TOKENS * 4 if int8 else 0
-    q_slots = 1 if tile > 128 else 2
-    q_tile = WG_ROWS * (-(-tile // 64) * 64) * 2
-    q_slot = q_tile if wide else WG_MAX_CONSUMERS * q_tile
-    raw_slot = (planes * (tile * WG_SPAN_TOKENS + WG_SPAN_TOKENS * 4)
-                if int8 else 0)
-    page_ids = (2 if wide else 1) * WG_SPAN_TOKENS * 4
-
-    def size(stages, raw):
-        return (stages * (slot + scales) + q_slots * q_slot + raw * raw_slot
-                + page_ids + 2 * 4 * 4
-                + (2 * stages + 4 + 2 * q_slots) * 8 + 1024)
-
-    def stages_at(raw):
-        return next(s for s in (WG_MAX_STAGES, 3, 2)
-                    if s == 2 or size(s, raw) <= MAX_BLOCK_SMEM)
-
-    if not int8:
-        raw = 0
-    elif wide:
-        raw = 2 if size(stages_at(1), 2) <= MAX_BLOCK_SMEM else 1
-    else:
-        raw = 2 if size(2, 2) <= MAX_BLOCK_SMEM else 1
-    stages = stages_at(raw)
-    return stages, raw, size(stages, raw)
 
 
 def prefill_walk_plan(dtype: torch.dtype, cache_dtype: torch.dtype,
@@ -163,15 +113,13 @@ def prefill_walk_plan(dtype: torch.dtype, cache_dtype: torch.dtype,
     ``slots`` of one plane, ``raw_stages``, ``copies``, ``q_slots`` and
     ``smem_bytes``."""
     int8 = cache_dtype == torch.int8
-    esz = 1 if int8 else 2
-    pow2 = page_size & (page_size - 1) == 0
-    copies = "pages" if pow2 and page_size * esz >= 16 else "tokens"
+    copies = wg_copies(int8, page_size)
     slabs, tile = kernel_head_dim_slabs(head_dim)
     if dtype == torch.float32:
         return {"walk": "f32", "tile": tile, "tile_rows": 64}
     width = wide_head_dim_width(head_dim)
     if width is not None:
-        slots, raw, smem = _wg_smem(int8, width)
+        slots, raw, smem = wg_smem(int8, width)
         return {"walk": "wgmma_wide", "width": width,
                 "consumers": WG_MAX_CONSUMERS, "tile_rows": WG_ROWS,
                 "slots": slots, "raw_stages": raw, "copies": copies,
@@ -179,8 +127,8 @@ def prefill_walk_plan(dtype: torch.dtype, cache_dtype: torch.dtype,
     if slabs > 1:
         return {"walk": "mma_slab", "tile": tile, "tile_rows": 64,
                 "slabs": slabs}
-    consumers = 1 if group * tokens <= WG_ROWS else WG_MAX_CONSUMERS
-    stages, raw, smem = _wg_smem(int8, tile)
+    consumers = wg_consumers(group * tokens)
+    stages, raw, smem = wg_smem(int8, tile)
     return {"walk": "wgmma", "tile": tile, "consumers": consumers,
             "tile_rows": consumers * WG_ROWS, "stages": stages,
             "raw_stages": raw, "copies": copies,

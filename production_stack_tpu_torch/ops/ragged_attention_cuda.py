@@ -34,6 +34,23 @@ below it, as the Pallas kernel pads head_dim to its lane tile; above
 256, as slabs of 128 (``paged_kv_common.kernel_head_dim_slabs``), a
 block one output slab, the scores summed over every slab.
 
+Which walk serves which form (``ragged_walk_plan`` mirrors the launch;
+the library's ``pstt_ragged_walk_launches`` counts each): bf16 and f16
+up to head_dim 128 take the ``mma.sync`` walk above (``mma``); from 129
+to 256, the prefill kernel's ``wgmma`` walk
+(``csrc/paged_walk_wgmma.cuh``) with the ragged rows, mask and tile
+order (``wgmma``: persistent blocks of a producer warpgroup and one or
+two consumer warpgroups, a 128-row tile, 64 where G * W fits in 64);
+from 257 to 512, its wide form at the width 384 or 512
+(``wgmma_wide``: 64-row tiles, both consumers each owning half the
+output dims); above 512 the ``mma.sync`` slab walk (``mma_slab``); f32
+queries the f32 walk at every head_dim (``f32``). On the wgmma walk a
+(row, kv head) pair's live tiles come first, heaviest first
+(``ragged_wg_tile``), and the consumer warpgroups write the zeros of
+dead rows (a live tile's after its output, a tile with no live row's
+from every consumer); a tile with no live row takes no shared-memory
+stage and no product.
+
 Contract (the Pallas kernel's): q [R, W, num_q_heads, head_dim]; the
 per-layer or, with ``layer``, the stacked cache, as the decode kernel
 takes them (ops/paged_attention_cuda.py); page_table [R, max_pages],
@@ -47,12 +64,13 @@ itself causally.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from production_stack_tpu_torch.ops.paged_kv_common import (
     COUNTERS,
+    MAX_KERNEL_HEAD_DIM,
     cache_code,
     check_cache,
     check_kernel_operands,
@@ -60,14 +78,84 @@ from production_stack_tpu_torch.ops.paged_kv_common import (
     counter_name,
     data_ptr,
     dtype_code,
+    kernel_head_dim_slabs,
     kernel_lib,
     layer_args,
     page_walk_plain,
     split_cache,
     stream_ptr,
 )
+from production_stack_tpu_torch.ops.wgmma_plan import (
+    WG_MAX_CONSUMERS,
+    WG_ROWS,
+    wg_consumers,
+    wg_copies,
+    wg_smem,
+    wide_head_dim_width,
+)
 
 KERNEL_NAME = "paged_ragged"
+# The walks, by their index in the library's pstt_ragged_walk_launches
+# (csrc/paged_ragged.cu).
+RAGGED_WALKS = ("mma", "wgmma", "wgmma_wide", "mma_slab", "f32")
+
+
+def ragged_wg_tile(z: int, live_tiles: int) -> int:
+    """The tile a (row, kv head) pair gives the wgmma walk's round ``z``
+    (csrc/paged_ragged.cuh ``ragged_wg_tile``): its live tiles from the
+    last (the highest slots, which see the most tokens) down, then its
+    dead tiles in order."""
+    return live_tiles - 1 - z if z < live_tiles else z
+
+
+def ragged_live_tiles(kv_len: int, last_index: int, group: int,
+                      width: int, tile_rows: int) -> int:
+    """Tiles of ``tile_rows`` slot-major rows holding a pair's live rows:
+    ceil((last_index + 1) * G / tile_rows), 0 for a pad row (kv_len 0)."""
+    last = last_index if kv_len > 0 else -1
+    live = max(0, (min(last, width - 1) + 1) * group)
+    return -(-live // tile_rows)
+
+
+def ragged_walk_plan(dtype: torch.dtype, cache_dtype: torch.dtype,
+                     group: int, width: int, head_dim: int,
+                     page_size: int) -> Dict[str, object]:
+    """The walk the ragged kernel runs on the card for a block of width
+    ``width`` (W), as the launch picks it: ``walk`` is ``mma`` (bf16 or
+    f16 up to head_dim 128), ``wgmma`` (16-bit at 129 to 256),
+    ``wgmma_wide`` (16-bit at 257 to 512), ``mma_slab`` (16-bit above
+    512) or ``f32``. For the wgmma walk: the head-dim ``tile`` (256),
+    ``consumers`` warpgroups (one where the G * W rows of a pair fit in
+    64, else two: prefill's rule) and ``tile_rows``, ring ``stages`` and
+    int8 ``raw_stages``, the producer's ``copies`` (``pages`` or
+    ``tokens``), ``q_slots`` and ``smem_bytes`` a block: prefill's plan
+    at the same tile (the same WgSmem). For its wide form: the
+    ``width``, two consumers over ``tile_rows`` 64, ring ``slots`` of
+    one plane, ``raw_stages``, ``copies``, ``q_slots`` and
+    ``smem_bytes``."""
+    int8 = cache_dtype == torch.int8
+    copies = wg_copies(int8, page_size)
+    slabs, tile = kernel_head_dim_slabs(head_dim)
+    if dtype == torch.float32:
+        return {"walk": "f32", "tile": tile, "tile_rows": 64}
+    wide = wide_head_dim_width(head_dim)
+    if wide is not None:
+        slots, raw, smem = wg_smem(int8, wide)
+        return {"walk": "wgmma_wide", "width": wide,
+                "consumers": WG_MAX_CONSUMERS, "tile_rows": WG_ROWS,
+                "slots": slots, "raw_stages": raw, "copies": copies,
+                "q_slots": 1, "smem_bytes": smem}
+    if slabs > 1:
+        return {"walk": "mma_slab", "tile": tile, "tile_rows": 64,
+                "slabs": slabs}
+    if tile < MAX_KERNEL_HEAD_DIM:
+        return {"walk": "mma", "tile": tile, "tile_rows": 64}
+    consumers = wg_consumers(group * width)
+    stages, raw, smem = wg_smem(int8, tile)
+    return {"walk": "wgmma", "tile": tile, "consumers": consumers,
+            "tile_rows": consumers * WG_ROWS, "stages": stages,
+            "raw_stages": raw, "copies": copies, "q_slots": 1,
+            "smem_bytes": smem}
 
 
 def paged_ragged_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -21,7 +21,10 @@ the serving configuration, R = 40 rows at W = 512: 28 decode rows, 8
 chunk rows of first and second chunks, 4 pad rows; the speculative
 verify block, B = 32 at W = 5, draft lens 0..4, two pad rows; and the
 unified block's 28 decode rows and 12 pad rows alone, whose tiles past
-a row's live slots only write zeros; page size 128) at the bench-1b
+a row's live slots only write zeros; page size 128; and, where the
+wrapper's module has it, the walk's plan as ``ragged_plan`` at W = 512
+and ``ragged_plan_verify`` at W = 5, the walk also printed on a line of
+its own) at the bench-1b
 geometry (32 q / 8 kv heads, head_dim 64, bf16) or the one
 ``--geometry`` names (``g4_d128``: Mixtral-8x7B's, Mistral-7B's and
 Llama-3-8B's 32 q over 8 kv heads at head_dim 128; ``g1_d64``:
@@ -232,8 +235,10 @@ def main(argv=None) -> int:
     from production_stack_tpu_torch.ops.quant_kv import QuantKV, quantize_kv
     from production_stack_tpu_torch.ops.ragged_attention_cuda import (
         paged_ragged_attention)
-    from production_stack_tpu_torch.ops import prefill_attention_cuda
+    from production_stack_tpu_torch.ops import (prefill_attention_cuda,
+                                                ragged_attention_cuda)
     plan = getattr(prefill_attention_cuda, "prefill_walk_plan", None)
+    ragged_plan = getattr(ragged_attention_cuda, "ragged_walk_plan", None)
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -331,6 +336,12 @@ def main(argv=None) -> int:
             "dead_tiles": (512, [(n, 0) for n in decode_lens]
                            + [(0, -1)] * 12, False),
         }
+        if ragged_plan is not None and "ragged" in kernels:
+            cache = torch.int8 if int8 else dtype
+            for key, w in (("ragged_plan", 512), ("ragged_plan_verify", 5)):
+                out[key + tag] = ragged_plan(dtype, cache, nh // kv, w, d, ps)
+            print(f"ragged walk {args.geometry}{tag}: "
+                  f"{out['ragged_plan' + tag]['walk']}", flush=True)
         for label, (w, rows, is_verify) in (
                 blocks.items() if "ragged" in kernels else ()):
             pages = len(rows) * max_pages + 1

@@ -699,6 +699,125 @@ def test_ragged_mma_blocks(dev, block, page_size, int8, stacked, group,
         assert torch.equal(got, per_layer)
 
 
+# The ragged kernel's 16-bit head dims 129 to 512 on the wgmma walk (the
+# tile 256; the wide form at widths 384 and 512), as (W, [(kv_len,
+# last_index), ...]) at group 3 over 2 kv heads: a unified block (decode
+# rows, chunk rows of first and later chunks whose live slots end inside
+# a tile, a pad row), a verify block (draft lens 0..4: one tile a pair,
+# one consumer warpgroup), a block of pad rows only (every tile dead)
+# and decode rows alone, whose one live slot is slot 0 (every tile but
+# the first dead; named so that the card tests' -k partitions keep it
+# with the other ragged cases).
+RAGGED_WG_BLOCKS = {
+    "unified": (160, [(1, 0), (130, 0), (700, 0), (37, 36), (300, 99),
+                      (660, 159), (0, -1)]),
+    "verify": (5, [(max(n, i % 5 + 1), i % 5) for i, n in enumerate(
+        (1, 64, 129, 300, 511, 1024))] + [(0, -1)]),
+    "all_dead": (160, [(0, -1)] * 4),
+    "single_slot": (160, [(n, 0) for n in (1, 65, 200, 1024)]
+                    + [(0, -1)]),
+}
+RAGGED_WG_HEAD_DIMS = (200, 256, 257, 320, 384, 512)
+RAGGED_WG_PAGES = (8, 16, 48, 128)
+# Each (head_dim, block) in bf16 or f16 (alternating) at one page size
+# (rotating): every head dim meets both query types, every block and
+# every page.
+RAGGED_WG_CASES = [
+    (d, block, (torch.bfloat16, torch.float16)[i % 2],
+     RAGGED_WG_PAGES[(i // 2) % len(RAGGED_WG_PAGES)])
+    for i, (d, block) in enumerate(
+        (d, b) for d in RAGGED_WG_HEAD_DIMS for b in sorted(RAGGED_WG_BLOCKS))]
+
+
+def _ragged_into(out, q, k, v, table, lens, last, drafts, layer=None):
+    """The ragged kernel's launch as the wrapper makes it, into a given
+    ``out`` (a view of a larger buffer)."""
+    from production_stack_tpu_torch.ops import paged_kv_common as pkc
+    kc, vc, ks, vs = pkc.split_cache(k, v)
+    r, w, nh, d = q.shape
+    kvh, num_pages, _, ps = kc.shape[-4:]
+    err = pkc.kernel_lib().pstt_paged_ragged(
+        pkc.dtype_code(q.dtype), pkc.cache_code(kc.dtype), q.data_ptr(),
+        kc.data_ptr(), vc.data_ptr(), pkc.data_ptr(ks), pkc.data_ptr(vs),
+        table.data_ptr(), lens.data_ptr(), last.data_ptr(),
+        pkc.data_ptr(drafts), out.data_ptr(), r, w, nh, kvh, d, num_pages,
+        ps, table.shape[1], *pkc.layer_args(kc, ks, layer), pkc.stream_ptr())
+    assert err == 0
+
+
+def _ragged_walks(fn):
+    """{walk: launches} of the ragged kernel while ``fn`` runs, from the
+    library's count of each walk's launches."""
+    from production_stack_tpu_torch.ops import paged_kv_common as pkc
+    from production_stack_tpu_torch.ops.ragged_attention_cuda import (
+        RAGGED_WALKS)
+    lib = pkc.kernel_lib()
+    before = [lib.pstt_ragged_walk_launches(i)
+              for i in range(len(RAGGED_WALKS))]
+    fn()
+    torch.cuda.synchronize()
+    after = [lib.pstt_ragged_walk_launches(i)
+             for i in range(len(RAGGED_WALKS))]
+    return {w: n1 - n0 for w, n0, n1 in zip(RAGGED_WALKS, before, after)
+            if n1 != n0}
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("head_dim,block,dtype,page_size", RAGGED_WG_CASES,
+                         ids=[f"d{d}-{b}-{str(t)[6:]}-ps{ps}"
+                              for d, b, t, ps in RAGGED_WG_CASES])
+def test_ragged_wgmma_blocks(dev, head_dim, block, dtype, page_size, int8,
+                             stacked):
+    """The 16-bit ragged kernel at head dims 129 to 512 runs the wgmma
+    walk its plan names (``ragged_walk_plan``: ``wgmma`` to 256,
+    ``wgmma_wide`` above; the library's count of each walk's launches).
+    Written into a view of a NaN-filled buffer: every slot written,
+    within tolerance of the plain version with the kernel's rounding,
+    dead slots and pad rows exact 0, nothing past the output; two
+    launches equal bit for bit; stacked, bitwise the per-layer launch on
+    the layer's view."""
+    from production_stack_tpu_torch.ops.ragged_attention_cuda import (
+        ragged_walk_plan)
+    w, rows = RAGGED_WG_BLOCKS[block]
+    kv_lens = [n for n, _ in rows]
+    k, v, table, lens, g = _wide_inputs(dev, dtype, kv_lens, 3, 2, head_dim,
+                                        page_size, 1024, 51, int8)
+    last = torch.tensor([li for _, li in rows], dtype=torch.int32,
+                        device=dev)
+    drafts = torch.clamp(last, min=0) if block == "verify" else None
+    q = torch.randn((len(rows), w, 6, head_dim), generator=g).to(dev, dtype)
+    layer = {}
+    if stacked:
+        layer = {"layer": 1}
+        k, v = (_stacked(c, 2, 1, g) for c in (k, v))
+    guard = 2 * 64 * 6 * head_dim
+    buf = torch.full((q.numel() + guard,), float("nan"), dtype=dtype,
+                     device=dev)
+    got = buf[:q.numel()].view(q.shape)
+    walks = _ragged_walks(lambda: _ragged_into(
+        got, q, k, v, table, lens, last, drafts, layer.get("layer")))
+    plan = ragged_walk_plan(dtype, torch.int8 if int8 else dtype, 3, w,
+                            head_dim, page_size)
+    assert plan["walk"] == ("wgmma" if head_dim <= 256 else "wgmma_wide")
+    assert walks == {plan["walk"]: 1}
+    again = paged_ragged_attention(q, k, v, table, lens, last, drafts,
+                                   **layer)
+    ref = _ragged_plain(q, k, v, table, lens, last, drafts, **layer)
+    torch.cuda.synchronize()
+    assert not got.isnan().any()
+    assert buf[q.numel():].isnan().all()
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+    assert torch.equal(got, again)
+    dead = ((torch.arange(w, device=dev)[None] > last[:, None].long())
+            | (lens[:, None] == 0))
+    assert not got[dead].any()  # dead slots and pad rows: exact 0
+    if stacked:
+        per_layer = paged_ragged_attention(q, k[1], v[1], table, lens, last,
+                                           drafts)
+        assert torch.equal(got, per_layer)
+
+
 # ---- the int8 form ----------------------------------------------------------
 
 

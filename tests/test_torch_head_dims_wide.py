@@ -313,7 +313,8 @@ def test_instances_are_the_tiles_and_one_slab():
     # at its widths (csrc/paged_walk_wgmma.cuh PSTT_FOR_EACH_WG_WIDTH),
     # over a cache of the query's type and int8, ahead of the slab
     # instance, which keeps the head dims above the widest; the f32
-    # source and the decode and ragged kernels have none.
+    # source and the decode kernel have none, and the ragged kernel's
+    # are in sources of their own (paged_ragged_wgmma_{bf16,f16}.cu).
     csrc = _StubKernelLib._SRC_DIR
     walk = (csrc / "paged_walk_wgmma.cuh").read_text()
     widths = [int(w) for w in re.findall(

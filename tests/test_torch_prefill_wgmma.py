@@ -11,7 +11,9 @@ The walk runs only on the card (tests/test_torch_cuda_kernels.py and
   compiler checks against ``WgSmem`` on the card; every instance within
   the 232,448 bytes a block may have;
 - that the prefill kernels launch the wgmma walk and no longer the
-  ``mma.sync`` walk, which the ragged kernel keeps;
+  ``mma.sync`` walk, which the ragged kernel keeps at the tiles up to
+  128 (its 16-bit head dims 129 to 512 take the wgmma walk too:
+  tests/test_torch_ragged_wgmma.py);
 - the walk's wide form (16-bit head dims 257 to 512, at widths 384 and
   512: two consumer warpgroups on a 64-row tile, each owning half of
   the output dims; ring units of one plane): its widths and plans
@@ -286,8 +288,15 @@ def test_prefill_launches_the_wgmma_walk_and_ragged_keeps_mma_sync():
     old_walk = re.compile(r"\bpage_walk_block_mma\b(?!_slab)")
     assert not old_walk.search(prefill)
     assert "page_walk_block_wgmma<T, C, D>(" in prefill
+    # Ragged keeps page_walk_block_mma at the tiles up to 128; no
+    # mma.sync instance of its 16-bit tile 256 is built (those head dims
+    # and 257 to 512 run the wgmma walk).
     assert old_walk.search(ragged)
-    assert "wgmma" not in ragged
+    tiles = re.findall(r"X\(code, T, ccode, C, (\d+), false\)", re.search(
+        r"#define PSTT_FOR_EACH_RAGGED_MMA_HEAD_DIM\(X, code, T, ccode, C\)"
+        r"((?:[^\n]*\\\n)*[^\n]*)", ragged).group(1))
+    assert tiles == ["32", "64", "80", "128"]
+    assert "static_assert(D <= 128" in (CSRC / "paged_walk_mma.cuh").read_text()
     # The walk issues wgmma from descriptors and waits on mbarriers; it
     # has no block-wide barrier after its roles part.
     assert "wgmma.mma_async" in (CSRC / "wgmma.cuh").read_text()
